@@ -1,0 +1,174 @@
+"""Fused decode attention + KV append: the Hopper kernel K2 and its plain
+version.
+
+Replaces ``mfa_tpu/kernels/decode.py::_decode_fused_kernel``; the CUDA
+source is ``csrc/decode.cu``. :func:`decode_fused_append` launches the
+kernel for CUDA tensors and takes :func:`decode_fused_append_plain` only
+for CPU tensors.
+
+Operands (BH = batch * kv heads, G query rows per kv head):
+  q        [BH, G, D]   pre-scaled by scale*log2e, bf16 or fp32
+  k, v     [BH, L, D]   cache storage (bf16, int8 or fp8-e4m3), updated
+                        in place
+  k_scale, v_scale [BH, L] fp32 per-token scales, updated in place
+  k_new, v_new [BH, D]  the step's new K (roped) and V, q's dtype
+  lengths  [B] int32    pre-append lengths
+Returns O [BH, G, D] in q's dtype. The new row goes to row lengths[b]
+unless that slot is full (lengths[b] == L).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mfa_tpu_torch.kernels import build, quant
+from mfa_tpu_torch.kernels.flash_fwd import MASK_VALUE
+from mfa_tpu_torch.ops import params as params_mod
+
+INT8_MAX = quant.INT8_MAX
+# Cache storage types the kernel takes, with its format codes.
+KV_FORMATS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+MAX_GROUP = 8
+# One CTA of this many threads per (batch, kv head), for every head dim:
+# D / 8 lanes share a cache row, so it must be a multiple of the most
+# lanes a row takes. (Not tuned on the H100.)
+THREADS = 256
+assert THREADS % (params_mod.MAX_HEAD_DIM // 8) == 0
+# Storage types whose per-token scales multiply S and P.
+QUANTIZED = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def decode_fused_append_plain(q3, k, v, k_scale, v_scale, k_new, v_new,
+                              lengths, *, num_kv_heads: int,
+                              sliding_window: int | None = None):
+    """Plain PyTorch version of K2, same rounding points: int8 caches
+    requantize q and P per row to s8 (integer-valued fp32 products, exact
+    below 2^24); other caches multiply P by the V scale and round it to
+    q's type before PV."""
+    bh, _, d = q3.shape
+    L = k.shape[1]
+    quantized = k.dtype in QUANTIZED
+    lens = lengths.long().clamp(0, L).repeat_interleave(num_kv_heads)
+    col = torch.arange(L, device=q3.device)[None, :]
+    live = col < lens[:, None]
+    if sliding_window is not None:
+        live &= col >= (lens + 1 - sliding_window).clamp_min(0)[:, None]
+    live = live[:, None, :]                                  # [BH, 1, L]
+
+    qf = q3.float()
+    kn = k_new.float()
+    vn = v_new.float()
+    s_new = torch.bmm(qf, kn[:, :, None])                    # [BH, G, 1]
+    ks = k_scale[:, None, :]
+    vs = v_scale[:, None, :]
+    int8 = k.dtype == torch.int8
+    inv127 = quant.recip(INT8_MAX).to(q3.device)
+    if int8:
+        qscale = qf.abs().amax(-1, keepdim=True).clamp_min(1e-30) * inv127
+        q_s8 = torch.round(qf / qscale).clamp(-INT8_MAX, INT8_MAX)
+        s = torch.bmm(q_s8, k.float().transpose(1, 2)) * qscale * ks
+    else:
+        s = torch.bmm(qf, k.float().transpose(1, 2))
+        if quantized:
+            s = s * ks
+    s = torch.where(live, s, torch.full_like(s, MASK_VALUE))
+    m = torch.maximum(s.amax(-1, keepdim=True), s_new)
+    p = torch.exp2(s - m)
+    p_new = torch.exp2(s_new - m)
+    l = (p.sum(-1, keepdim=True) + p_new).clamp_min(1e-37)
+    if int8:
+        pv = p * vs
+        pscale = pv.abs().amax(-1, keepdim=True).clamp_min(1e-30) * inv127
+        p_s8 = torch.round(pv / pscale).clamp(-INT8_MAX, INT8_MAX)
+        o = (torch.bmm(p_s8, v.float()) * pscale + p_new * vn[:, None, :]) / l
+    else:
+        if quantized:
+            p = p * vs
+        p = p.to(q3.dtype).float()
+        o = (torch.bmm(p, v.float()) + p_new * vn[:, None, :]) / l
+
+    # Append at each sequence's length; a full slot keeps its contents.
+    rows = torch.nonzero(lens < L).flatten()
+    if rows.numel():
+        at = lens[rows]
+        for cache, scales, x in ((k, k_scale, kn), (v, v_scale, vn)):
+            xq, xs = quant.quantize_for(cache.dtype, x[rows])
+            cache[rows, at] = xq
+            scales[rows, at] = xs
+    return o.to(q3.dtype)
+
+
+def _check(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, hkv):
+    bh, g, d = q3.shape
+    L = k.shape[1]
+    if k.shape != (bh, L, d) or v.shape != k.shape:
+        raise ValueError(f"cache shape {tuple(k.shape)} does not match q "
+                         f"{tuple(q3.shape)}")
+    if k_scale.shape != (bh, L) or v_scale.shape != (bh, L):
+        raise ValueError("scales must be [BH, max_len]")
+    if k_new.shape != (bh, d) or v_new.shape != (bh, d):
+        raise ValueError("k_new/v_new must be [BH, D]")
+    if lengths.shape != (bh // hkv,) or bh % hkv:
+        raise ValueError("lengths must be [batch]")
+    if q3.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bf16 or fp32, not {q3.dtype}")
+    if k_new.dtype != q3.dtype or v_new.dtype != q3.dtype:
+        raise TypeError("k_new/v_new must have q's dtype")
+    if v.dtype != k.dtype:
+        raise TypeError("k and v caches must share one dtype")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError("scales must be fp32")
+    if lengths.dtype != torch.int32:
+        raise TypeError("lengths must be int32")
+
+
+def decode_fused_append(q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
+                        *, num_kv_heads: int,
+                        sliding_window: int | None = None):
+    """K2: launches the CUDA kernel for CUDA tensors (or raises); takes the
+    plain version for CPU tensors. Returns O; the cache is updated in
+    place."""
+    _check(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, num_kv_heads)
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError("sliding_window must be >= 1")
+    if q3.device.type == "cpu":
+        return decode_fused_append_plain(
+            q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
+            num_kv_heads=num_kv_heads, sliding_window=sliding_window)
+    if not q3.is_cuda:
+        raise ValueError(f"decode_fused_append: unsupported device "
+                         f"{q3.device}")
+    tensors = dict(q=q3, k=k, v=v, k_scale=k_scale, v_scale=v_scale,
+                   k_new=k_new, v_new=v_new, lengths=lengths)
+    for name, t in tensors.items():
+        if t.device != q3.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q3.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"decode_fused_append: {name} must be "
+                             "contiguous")
+    if k.dtype not in KV_FORMATS:
+        raise TypeError(f"cache storage {k.dtype} not taken by the kernel "
+                        f"(takes {list(KV_FORMATS)})")
+    bh, g, d = q3.shape
+    if g > MAX_GROUP:
+        raise ValueError(f"query group {g} exceeds {MAX_GROUP}")
+    if d > params_mod.MAX_HEAD_DIM or d % 8 or (d // 8) & (d // 8 - 1):
+        raise ValueError(f"head dim {d}: the kernel takes D = 8 * 2^k <= "
+                         f"{params_mod.MAX_HEAD_DIM}")
+    if any(t.data_ptr() % 16 for t in (k, v)):
+        raise ValueError("cache storage must be 16-byte aligned")
+    L = k.shape[1]
+    o = torch.empty_like(q3)
+    scratch = torch.empty((bh, g, L), dtype=torch.float32, device=q3.device)
+    build.library().call(
+        "mfa_decode_fused_append", q3.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+        scratch.data_ptr(), bh, num_kv_heads, g, L, d, sliding_window or 0,
+        int(q3.dtype == torch.bfloat16), KV_FORMATS[k.dtype], THREADS,
+        torch.cuda.current_stream(q3.device).cuda_stream)
+    decode_fused_append.launches += 1
+    return o
+
+
+decode_fused_append.launches = 0

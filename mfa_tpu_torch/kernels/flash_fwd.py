@@ -1,0 +1,131 @@
+"""Flash-attention forward: the Hopper kernel K1 and its plain version.
+
+Replaces ``mfa_tpu/kernels/flash_fwd.py::_fwd_kernel`` and
+``::_fwd_tablegrid_kernel``; the CUDA source is ``csrc/flash_fwd.cu``.
+:func:`flash_fwd` launches the kernel for CUDA tensors and takes
+:func:`flash_fwd_plain` only for CPU tensors.
+
+Operands: q [BH, R, D]; k, v [BH / group, C, D] (query head bh reads kv
+head bh // group); outputs O [BH, R, D] and the natural-log logsumexp
+L [BH, R] in fp32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mfa_tpu_torch.kernels import build
+from mfa_tpu_torch.ops.descriptors import AttentionKernelDescriptor
+
+LOG2E = math.log2(math.e)
+# Large-finite mask sentinel: (masked - masked) never produces NaN.
+MASK_VALUE = -0.5 * float(torch.finfo(torch.float32).max)
+
+
+def visible_mask(r: int, c: int, causal: bool, sliding_window: int | None,
+                 device) -> torch.Tensor:
+    """[R, C] bool: column c is visible to row r (diagonal aligned to the
+    sequence ends, offset = C - R)."""
+    row = torch.arange(r, device=device)[:, None]
+    col = torch.arange(c, device=device)[None, :]
+    if not (causal or sliding_window is not None):
+        return torch.ones((r, c), dtype=torch.bool, device=device)
+    mask = col <= row + (c - r)
+    if sliding_window is not None:
+        mask &= col >= row + (c - r) - (sliding_window - 1)
+    return mask
+
+
+def flash_fwd_plain(q3, k3, v3, kd: AttentionKernelDescriptor, *,
+                    group: int, scale: float, o_dtype: torch.dtype):
+    """Plain PyTorch version of K1 with the kernel's rounding points: Q
+    pre-scaled by scale*log2e and rounded to bf16 for bf16 inputs (S
+    scaled instead for fp32), exp2 softmax, P rounded to bf16 before PV
+    for bf16 inputs, rows with no visible key giving O = 0 and L = 0."""
+    r, c = q3.shape[1], k3.shape[1]
+    scale2 = scale * LOG2E
+    low = q3.dtype != torch.float32
+    kx = k3.repeat_interleave(group, dim=0).float()
+    vx = v3.repeat_interleave(group, dim=0).float()
+    if low:
+        qs = (q3.float() * scale2).to(q3.dtype).float()
+        s = torch.bmm(qs, kx.transpose(1, 2))
+    else:
+        s = torch.bmm(q3.float(), kx.transpose(1, 2)) * scale2
+    if kd.logit_soft_cap is not None:
+        cap2 = kd.logit_soft_cap * LOG2E
+        s = cap2 * torch.tanh(s / cap2)
+    mask = visible_mask(r, c, kd.causal, kd.sliding_window, q3.device)
+    s = torch.where(mask, s, torch.full_like(s, MASK_VALUE))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
+    if low:
+        p = p.to(kd.register_dtype(kd.p_register, q3.dtype)).float()
+    o = torch.bmm(p, vx) / l_safe
+    empty = m == MASK_VALUE
+    o = torch.where(empty, torch.zeros_like(o), o).to(o_dtype)
+    lse = torch.where(empty, torch.zeros_like(m),
+                      (m + torch.log2(l_safe)) * (1.0 / LOG2E))
+    return o, lse[..., 0]
+
+
+def _check(q3, k3, v3, kd, group, o_dtype):
+    if q3.dim() != 3 or k3.dim() != 3 or v3.shape != k3.shape:
+        raise ValueError(f"bad shapes q {tuple(q3.shape)} k {tuple(k3.shape)} "
+                         f"v {tuple(v3.shape)}")
+    if q3.shape[0] != k3.shape[0] * group or q3.shape[2] != k3.shape[2]:
+        raise ValueError("q and k/v disagree on heads or head dim")
+    if q3.shape[1] < 1 or k3.shape[1] < 1:
+        raise ValueError("empty sequence")
+    if kd.sliding_window is not None and kd.sliding_window < 1:
+        raise ValueError("sliding_window must be >= 1")
+    if q3.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_fwd takes bf16 or fp32, not {q3.dtype}")
+    if k3.dtype != q3.dtype or v3.dtype != q3.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    if o_dtype not in (q3.dtype, torch.float32):
+        raise TypeError(f"unsupported output dtype {o_dtype}")
+
+
+def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
+              scale: float, o_dtype: torch.dtype):
+    """K1: launches the CUDA kernel for CUDA tensors (or raises); takes the
+    plain version for CPU tensors. Returns (O, L)."""
+    _check(q3, k3, v3, kd, group, o_dtype)
+    if q3.device.type == "cpu":
+        return flash_fwd_plain(q3, k3, v3, kd, group=group, scale=scale,
+                               o_dtype=o_dtype)
+    if not q3.is_cuda:
+        raise ValueError(f"flash_fwd: unsupported device {q3.device}")
+    for name, t in (("k", k3), ("v", v3)):
+        if t.device != q3.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q3.device}")
+    for name, t in (("q", q3), ("k", k3), ("v", v3)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_fwd: {name} must be contiguous")
+    bh, r, d = q3.shape
+    c = k3.shape[1]
+    if d > kd.block_d:
+        raise ValueError(f"head dim {d} exceeds the kernel's {kd.block_d}")
+    if bh > 65535:
+        raise ValueError("batch*heads above 65535 exceeds the launch grid")
+    o = torch.empty((bh, r, d), dtype=o_dtype, device=q3.device)
+    lse = torch.empty((bh, r), dtype=torch.float32, device=q3.device)
+    dtype_code = (0 if q3.dtype == torch.float32
+                  else 2 if o_dtype == torch.float32 else 1)
+    cap2 = (kd.logit_soft_cap * LOG2E if kd.logit_soft_cap is not None
+            else 0.0)
+    build.library().call(
+        "mfa_flash_fwd", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), bh, group, r, c, d, int(kd.causal),
+        kd.sliding_window or 0, scale * LOG2E, cap2, dtype_code,
+        kd.block_q, kd.block_kv, kd.block_d,
+        torch.cuda.current_stream(q3.device).cuda_stream)
+    flash_fwd.launches += 1
+    return o, lse
+
+
+flash_fwd.launches = 0

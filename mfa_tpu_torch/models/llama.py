@@ -1,0 +1,296 @@
+"""Llama-family model over the port's kernels (serving path).
+
+Port of the serving half of ``mfa_tpu/models/llama.py``: an ``nn.Module``
+:class:`Llama` whose ``forward`` (prefill, optionally appending to KV
+caches) and ``decode_step`` run over plain functions on tensors.
+
+- Prefill attention is ``flash_attention(causal=True)`` (kernel K1);
+  decode attention is the fused append + attend (kernel K2).
+- Projections keep ``mfa_tpu``'s names; weights are stored as
+  ``nn.Linear`` does, [d_out, d_in], and the products go to
+  ``torch.nn.functional.linear`` (where the JAX package used an XLA dot).
+- RMSNorm and the rotary phases in fp32; silu in fp32 then cast; logits
+  rounded through the weight dtype, then fp32.
+- Inference only: parameters do not require grad.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mfa_tpu_torch.ops.attention import flash_attention
+from mfa_tpu_torch.ops.decode import decode_attention_append
+from mfa_tpu_torch.ops.precision import OperandPrecision
+from mfa_tpu_torch.serving import kv_cache as kv_cache_mod
+from mfa_tpu_torch.utils.device import resolve_device
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    ffn_hidden: int = 14336
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    sliding_window: int | None = None   # Mistral-style SWA (all layers)
+    qkv_bias: bool = False              # Qwen2-style attention bias
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "LlamaConfig":
+        """CPU-test scale."""
+        return cls(vocab_size=256, dim=128, n_layers=2, n_heads=4,
+                   n_kv_heads=2, ffn_hidden=256, rope_theta=10000.0)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Random parameters on the generator's device, named as in
+    ``mfa_tpu`` with projection weights as [d_out, d_in]: N(0, 1/d_in)
+    rounded to ``dtype``, the embedding N(0, 1) * 0.02, norms ones (fp32)."""
+    dev = generator.device
+
+    def dense(d_in, d_out):
+        w = torch.randn((d_out, d_in), generator=generator, device=dev)
+        return (w / math.sqrt(d_in)).to(dtype)
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.float32, device=dev)
+
+    hd = cfg.head_dim
+    params = {
+        "embed": torch.randn((cfg.vocab_size, cfg.dim), generator=generator,
+                             device=dev).to(dtype) * 0.02,
+        "final_norm": ones(cfg.dim),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        layer = {
+            "attn_norm": ones(cfg.dim),
+            "wq": dense(cfg.dim, cfg.n_heads * hd),
+            "wk": dense(cfg.dim, cfg.n_kv_heads * hd),
+            "wv": dense(cfg.dim, cfg.n_kv_heads * hd),
+            "wo": dense(cfg.n_heads * hd, cfg.dim),
+            "mlp_norm": ones(cfg.dim),
+            "w_gate": dense(cfg.dim, cfg.ffn_hidden),
+            "w_up": dense(cfg.dim, cfg.ffn_hidden),
+            "w_down": dense(cfg.ffn_hidden, cfg.dim),
+        }
+        if cfg.qkv_bias:
+            for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                            ("bv", cfg.n_kv_heads)):
+                layer[name] = torch.zeros((n * hd,), dtype=torch.float32,
+                                          device=dev)
+        params["layers"].append(layer)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(cfg.dim, cfg.vocab_size)
+    return params
+
+
+class LlamaLayer(nn.Module):
+    """One block's parameters (attention + MLP, pre-norm)."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def has(self, name: str) -> bool:
+        return name in self._parameters
+
+
+class Llama(nn.Module):
+    """Llama over the port's kernels; ``forward`` and ``decode_step``."""
+
+    def __init__(self, cfg: LlamaConfig, params: dict, *, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.device = dev
+
+        def p(t):
+            return nn.Parameter(t.to(dev), requires_grad=False)
+
+        self.embed = p(params["embed"])
+        self.final_norm = p(params["final_norm"])
+        self.layers = nn.ModuleList(
+            LlamaLayer({n: t.to(dev) for n, t in layer.items()})
+            for layer in params["layers"])
+        self.lm_head = p(params["lm_head"]) if "lm_head" in params else None
+
+    @classmethod
+    def init(cls, cfg: LlamaConfig, *, generator: torch.Generator,
+             dtype: torch.dtype = torch.bfloat16, device="cuda") -> "Llama":
+        """Random weights from ``generator`` (which must live on
+        ``device``)."""
+        dev = resolve_device(device)
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{dev}")
+        return cls(cfg, init_params(cfg, generator, dtype), device=dev)
+
+    def make_caches(self, batch: int, max_len: int,
+                    precision: OperandPrecision = OperandPrecision.BF16):
+        return make_caches(self.cfg, batch, max_len, precision,
+                           device=self.device)
+
+    @torch.no_grad()
+    def forward(self, tokens, *, positions=None, caches=None):
+        return forward(self, tokens, positions=positions, caches=caches)
+
+    @torch.no_grad()
+    def decode_step(self, tokens, caches):
+        return decode_step(self, tokens, caches)
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def _matmul(x, w):
+    """x @ w.T in x's dtype (fp32 accumulation in the library product)."""
+    return F.linear(x, w)
+
+
+def rms_norm(x, weight, eps: float):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
+
+
+def rope_frequencies(cfg: LlamaConfig, device) -> torch.Tensor:
+    hd = cfg.head_dim
+    expo = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / (cfg.rope_theta ** expo)
+
+
+def apply_rope(x, positions, inv_freq):
+    """x: [B, H, T, D]; positions: [B, T] (absolute). Half-split rotation
+    with fp32 phases."""
+    angles = positions[:, None, :, None].float() * inv_freq
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _project_qkv(layer: LlamaLayer, x, cfg: LlamaConfig):
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+
+    def proj(wname, bname):
+        y = _matmul(x, getattr(layer, wname))
+        if layer.has(bname):                 # Qwen2-style attention bias
+            y = (y.float() + getattr(layer, bname).float()).to(x.dtype)
+        return y.reshape(b, t, -1, hd).transpose(1, 2)   # [B, H, T, D]
+
+    return proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+
+
+def _mlp(layer: LlamaLayer, x):
+    gate = _matmul(x, layer.w_gate)
+    up = _matmul(x, layer.w_up)
+    return _matmul(F.silu(gate.float()).to(x.dtype) * up, layer.w_down)
+
+
+def _layer_apply(layer: LlamaLayer, x, positions, inv_freq,
+                 cfg: LlamaConfig, device, return_kv: bool = False):
+    """One transformer block; ``return_kv`` also yields the roped K and
+    the raw V for prefill cache appends."""
+    b, t, _ = x.shape
+    h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+    q, k, v = _project_qkv(layer, h, cfg)
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    o = flash_attention(q, k, v, causal=True,
+                        sliding_window=cfg.sliding_window, device=device)
+    x = x + _matmul(o.transpose(1, 2).reshape(b, t, -1), layer.wo)
+    x = x + _mlp(layer, rms_norm(x, layer.mlp_norm, cfg.norm_eps))
+    if return_kv:
+        return x, (k, v)
+    return x
+
+
+def _lm_head(model: Llama, x):
+    """Final norm + fp32 logits."""
+    x = rms_norm(x, model.final_norm, model.cfg.norm_eps)
+    if model.lm_head is None:
+        return torch.matmul(x.float(), model.embed.float().t())
+    return _matmul(x, model.lm_head).float()
+
+
+def forward(model: Llama, tokens, *, positions=None, caches=None):
+    """[B, T] tokens → logits [B, T, vocab]. With ``caches`` (one KVCache
+    per layer): prefill mode, each layer's K/V are appended to its cache
+    and (logits, caches) is returned."""
+    cfg = model.cfg
+    b, t = tokens.shape
+    dev = model.device
+    if positions is None:
+        ar = torch.arange(t, device=dev)[None, :]
+        positions = (caches[0].lengths.long()[:, None] + ar
+                     if caches is not None else ar.expand(b, t))
+    inv_freq = rope_frequencies(cfg, dev)
+    x = model.embed[tokens]
+    for li, layer in enumerate(model.layers):
+        if caches is not None:
+            x, (k, v) = _layer_apply(layer, x, positions, inv_freq, cfg, dev,
+                                     return_kv=True)
+            kv_cache_mod.update(caches[li], k, v)
+        else:
+            x = _layer_apply(layer, x, positions, inv_freq, cfg, dev)
+    logits = _lm_head(model, x)
+    if caches is not None:
+        return logits, caches
+    return logits
+
+
+def decode_step(model: Llama, tokens, caches):
+    """One decode step: tokens [B] (the latest token per sequence) →
+    (logits [B, vocab], caches), appending to every layer's cache."""
+    cfg = model.cfg
+    dev = model.device
+    b = tokens.shape[0]
+    positions = caches[0].lengths.long()[:, None]          # [B, 1], a copy
+    inv_freq = rope_frequencies(cfg, dev)
+    x = model.embed[tokens][:, None, :]                    # [B, 1, dim]
+    for li, layer in enumerate(model.layers):
+        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+        q, k, v = _project_qkv(layer, h, cfg)              # [B, H, 1, D]
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+        o, _ = decode_attention_append(
+            q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :], caches[li],
+            sliding_window=cfg.sliding_window, device=dev)
+        x = x + _matmul(o.reshape(b, 1, -1), layer.wo)
+        x = x + _mlp(layer, rms_norm(x, layer.mlp_norm, cfg.norm_eps))
+    return _lm_head(model, x[:, 0]), caches
+
+
+def make_caches(cfg: LlamaConfig, batch: int, max_len: int,
+                precision: OperandPrecision = OperandPrecision.BF16, *,
+                device="cuda"):
+    return [kv_cache_mod.create(batch, cfg.n_kv_heads, max_len, cfg.head_dim,
+                                precision, device=device)
+            for _ in range(cfg.n_layers)]

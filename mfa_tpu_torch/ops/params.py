@@ -1,0 +1,160 @@
+"""Kernel parameter tables for Hopper, in ``mfa_tpu``'s pipe mini-DSL.
+
+Port of ``mfa_tpu/ops/params.py``: the row parser (:func:`parse_table`)
+and the first-row-with-D<=max_d rule (:func:`select_row`) are kept; the
+rows are keyed on a Hopper device model (:class:`HopperDevice`, from
+``torch.cuda.get_device_properties``) instead of a TPU generation. Only
+the flash forward kernel has rows: its blocks change with the head dim
+and the input type. The fused decode kernel has one launch shape for
+every head dim (``kernels/decode.py``).
+
+Columns: ``max_d | block_q | block_kv | block_d``. ``block_q`` rows of Q
+per CTA, ``block_kv`` K/V rows per step of the in-CTA loop, ``block_d``
+the head dim the CTA's shared-memory tiles are padded to (one compiled
+instantiation per ``block_d``).
+
+NONE OF THESE ROWS IS TUNED ON THE H100 YET: they are first-cut values
+chosen so that every tile fits the shared memory and register file of
+one SM (227 KB, 255 registers a thread). No TPU block size is carried
+over.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class HopperDevice:
+    """What the tables and the launch code need to know about the card."""
+
+    name: str
+    sm_count: int
+    smem_per_block: int         # bytes a block may opt in to
+    compute_capability: tuple
+
+
+# The shape the tables are written for; also the model the CPU rung
+# validates rows against (the CPU runs no kernel).
+H100 = HopperDevice("sm90", 132, 232_448, (9, 0))
+
+
+def detect_device(device: torch.device | None = None) -> HopperDevice:
+    """The Hopper model of ``device`` (a CUDA device), else :data:`H100`."""
+    if device is None or device.type != "cuda":
+        return H100
+    props = torch.cuda.get_device_properties(device)
+    smem = getattr(props, "shared_memory_per_block_optin", H100.smem_per_block)
+    return HopperDevice(f"sm{props.major}{props.minor}",
+                        props.multi_processor_count, int(smem),
+                        (props.major, props.minor))
+
+
+@dataclass(frozen=True)
+class ParameterRow:
+    """One row: applies to head dims <= ``max_d`` (0 = unbounded)."""
+
+    max_d: int
+    block_q: int
+    block_kv: int
+    block_d: int
+
+
+def parse_table(text: str) -> list[ParameterRow]:
+    """Parse a pipe-delimited table.
+
+    Format per line:  max_d | block_q | block_kv | block_d
+    Lines starting with '#' and blank lines are ignored; 'inf' max_d means
+    unbounded (stored as 0) and must be the last row.
+    """
+    rows = []
+    for line in text.strip().splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = [p.strip() for p in line.split("|")]
+        if len(parts) != 4:
+            raise ValueError(f"malformed parameter row: {line!r}")
+        max_d = 0 if parts[0] in ("inf", "-") else int(parts[0])
+        rows.append(ParameterRow(max_d=max_d, block_q=int(parts[1]),
+                                 block_kv=int(parts[2]),
+                                 block_d=int(parts[3])))
+    if not rows:
+        raise ValueError("empty parameter table")
+    if rows[-1].max_d != 0:
+        raise ValueError(
+            "last row of a parameter table must be unbounded (max_d=inf)")
+    return rows
+
+
+def select_row(rows: list[ParameterRow], head_dim: int) -> ParameterRow:
+    """First row with head_dim <= max_d."""
+    for row in rows:
+        if row.max_d == 0 or head_dim <= row.max_d:
+            return row
+    raise AssertionError("unreachable: last row is unbounded")
+
+
+# bf16: mma.sync m16n8k16 tiles, four warps of 16 rows each. At D=256 the
+# fp32 O accumulator is 128 registers a thread, so the kv step halves.
+# (Not tuned on the H100.)
+_FWD_BF16 = """
+# max_d | block_q | block_kv | block_d
+   64   |   64    |    64    |   64
+  128   |   64    |    64    |  128
+  inf   |   64    |    32    |  256
+"""
+
+# fp32: plain FMA (the fp32 budget of 2e-5 rules out TF32 tensor cores).
+# (Not tuned on the H100.)
+_FWD_FP32 = """
+   64   |   16    |    32    |   64
+  128   |   16    |    32    |  128
+  inf   |   16    |    32    |  256
+"""
+
+# Rows per device model (by name); only Hopper (sm90) so far.
+_TABLES = {
+    "sm90": {
+        ("flash_fwd", "bf16"): _FWD_BF16,
+        ("flash_fwd", "fp32"): _FWD_FP32,
+    },
+}
+
+# Head dims above this are refused by both kernels (no D-blocking yet).
+MAX_HEAD_DIM = 256
+
+_PARSED: dict = {}
+
+
+def parameter_table(kernel: str, precision: str,
+                    device: HopperDevice = H100) -> list[ParameterRow]:
+    """The rows for (kernel, precision class) on ``device``; every row must
+    fit the device's shared memory per block."""
+    tables = _TABLES.get(device.name)
+    if tables is None:
+        raise ValueError(f"no parameter rows for {device.name}: the port's "
+                         "kernels are built for Hopper (sm90)")
+    key = (device.name, device.smem_per_block, kernel, precision)
+    if key not in _PARSED:
+        rows = parse_table(tables[(kernel, precision)])
+        in_bytes = 2 if precision == "bf16" else 4
+        for row in rows:
+            if flash_fwd_smem_bytes(row, in_bytes) > device.smem_per_block:
+                raise ValueError(f"{kernel} row {row} exceeds the "
+                                 f"{device.smem_per_block} bytes of "
+                                 f"shared memory on {device.name}")
+        _PARSED[key] = rows
+    return _PARSED[key]
+
+
+def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
+    """Shared memory of one flash_fwd CTA: Q and K tiles plus the
+    transposed V tile, each row padded by 8 elements (bank spread)."""
+    d = row.block_d
+    if in_bytes == 2:
+        return in_bytes * (row.block_q * (d + 8) + row.block_kv * (d + 8)
+                           + d * (row.block_kv + 8))
+    return 4 * (row.block_q * d + 2 * row.block_kv * (d + 1))

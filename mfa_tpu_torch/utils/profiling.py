@@ -1,0 +1,132 @@
+"""Where the serving time goes on the card.
+
+Runs Llama prefill and batched decode steps under ``torch.profiler`` and
+reports, per phase: wall time per call (host clock around the profiled
+calls, ended by a synchronize, so it includes the profiler's own cost
+per op), device-busy time of the same calls (sum of kernel times; one
+stream, so kernels do not overlap), the idle share 1 - busy / wall, and
+device time by kernel group (K1 flash_fwd, K2 decode_fused_append,
+matrix products, the rest). The top kernels go to
+``<out>/profile_<phase>.txt``.
+
+Run on a GPU from the repository root:
+
+    python -m mfa_tpu_torch.utils.profiling [--out build/profiles]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mfa_tpu_torch.models.llama import Llama, LlamaConfig
+from mfa_tpu_torch.ops.precision import OperandPrecision
+
+_GROUPS = (("flash_fwd", ("flash_fwd",)),
+           ("decode_fused_append", ("decode_fused_append",)),
+           ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "sm90_")))
+
+
+def _device_us(evt) -> float:
+    t = getattr(evt, "self_device_time_total", None)
+    return float(t if t is not None else evt.self_cuda_time_total)
+
+
+def _summarize(prof, wall_ms: float, calls: int, name: str, out: Path):
+    # Kernels only: an operator's row repeats the device time of the
+    # kernels it launched.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and _device_us(e) > 0]
+    groups = {g: 0.0 for g, _ in _GROUPS}
+    groups["other"] = 0.0
+    for e in events:
+        key = next((g for g, pats in _GROUPS
+                    if any(p in e.key for p in pats)), "other")
+        groups[key] += _device_us(e) / 1e3 / calls
+    busy = sum(groups.values())
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=30)
+    (out / f"profile_{name}.txt").write_text(table)
+    return {"phase": name, "wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if wall_ms > 0 else None,
+            "device_ms_by_group": groups}
+
+
+def _profiled(fn, calls: int):
+    """Profile ``calls`` calls of fn; return the profile and the wall ms
+    per call of those same calls."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    return prof, wall_ms
+
+
+def profile_serving(cfg: LlamaConfig, *, out: Path, batch: int = 4,
+                    fill: int = 1024, prompts=(512, 2048), steps: int = 8,
+                    seed: int = 0) -> list[dict]:
+    """Prefill (bf16 cache) at each prompt length, then batched decode
+    steps over a cache filled to ``fill`` for each KV format."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Llama.init(cfg, generator=gen, dtype=torch.bfloat16,
+                       device="cuda")
+    rng = np.random.default_rng(seed)
+    results = []
+
+    for n in prompts:
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, n))).cuda()
+
+        def prefill():
+            model(toks, caches=model.make_caches(1, 2048))
+
+        prefill()
+        prof, wall = _profiled(prefill, 1)
+        results.append(_summarize(prof, wall, 1, f"prefill_{n}", out))
+
+    fill_tokens = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (batch, fill))).cuda()
+    last = torch.from_numpy(rng.integers(1, cfg.vocab_size, batch)).cuda()
+    for kv in (OperandPrecision.BF16, OperandPrecision.INT8,
+               OperandPrecision.FP8_E4M3):
+        caches = model.make_caches(batch, 2048, kv)
+        model(fill_tokens, caches=caches)
+
+        def decode():
+            model.decode_step(last, caches)
+
+        decode()
+        prof, wall = _profiled(decode, steps)
+        results.append(_summarize(
+            prof, wall, steps, f"decode_b{batch}_ctx{fill}_{kv.value}", out))
+        del caches
+    return results
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profiles",
+                    help="directory for the per-phase kernel tables")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    print(torch.cuda.get_device_name(0), flush=True)
+    for row in profile_serving(LlamaConfig.llama3_8b(), out=out):
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

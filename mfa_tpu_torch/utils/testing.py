@@ -1,0 +1,89 @@
+"""Test utilities: seeded problem generation and tolerance checks.
+
+Port of ``mfa_tpu/utils/testing.py``. Inputs come from a numpy
+``Generator`` so that the same arrays can be fed to ``mfa_tpu`` and to
+this package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def make_attention_inputs(rng: np.random.Generator, batch: int,
+                          num_q_heads: int, num_kv_heads: int,
+                          seq_len_q: int, seq_len_kv: int, head_dim: int,
+                          dtype: torch.dtype = torch.float32,
+                          device="cpu"):
+    """Standard-normal Q/K/V/dO as [B, H, S, D] tensors."""
+    def gen(h, s):
+        x = rng.standard_normal((batch, h, s, head_dim)).astype(np.float32)
+        return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+    q = gen(num_q_heads, seq_len_q)
+    k = gen(num_kv_heads, seq_len_kv)
+    v = gen(num_kv_heads, seq_len_kv)
+    do = gen(num_q_heads, seq_len_q)
+    return q, k, v, do
+
+
+def _np32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+# A kernel against its plain version on the card: same inputs and the same
+# rounding points, so they differ only by summation order and, for flash
+# forward in bf16, by P rounded against the running instead of the final
+# row max. Elementwise budgets (atol, rtol): |kernel - plain| <= atol +
+# rtol * |plain|. 2^-6 is two bf16 ulps of the value itself.
+KERNEL_BUDGETS = {
+    "flash_fwd_o_bf16": (3e-3, 2.0 ** -6),
+    "flash_fwd_o_fp32": (2e-5, 0.0),
+    "flash_fwd_l": (1e-4, 0.0),
+    "decode_o": (1e-4, 2.0 ** -6),
+}
+
+
+def budget_share(actual: torch.Tensor, expected: torch.Tensor, atol: float,
+                 rtol: float) -> float:
+    """Worst |actual - expected| / (atol + rtol * |expected|) over the
+    elements: the share of an elementwise budget used (<= 1 is within)."""
+    e = expected.float()
+    return float(((actual.float() - e).abs() / (atol + rtol * e.abs())).max())
+
+
+def assert_close(actual, expected, tol: float, name: str = "operand",
+                 max_report: int = 10, rtol: float = 0.0):
+    """Elementwise |actual - expected| <= tol + rtol * |expected| with a
+    capped report; positions where both sides are non-finite agree."""
+    a, e = _np32(actual), _np32(expected)
+    assert a.shape == e.shape, f"{name}: shape {a.shape} != {e.shape}"
+    both_nonfinite = ~np.isfinite(a) & ~np.isfinite(e)
+    diff = np.abs(a - e)
+    diff[both_nonfinite] = 0.0
+    bad = ~(diff <= tol + rtol * np.abs(np.nan_to_num(e)))
+    if bad.any():
+        idx = np.argwhere(bad)[:max_report]
+        lines = [
+            f"  [{tuple(int(j) for j in i)}] got {a[tuple(i)]:.6g} "
+            f"want {e[tuple(i)]:.6g} (|d|={diff[tuple(i)]:.3g})"
+            for i in idx
+        ]
+        raise AssertionError(
+            f"{name}: {int(bad.sum())}/{a.size} elements exceed tol={tol:g} "
+            f"rtol={rtol:g} "
+            f"(max |d|={np.nanmax(diff):.3g}):\n" + "\n".join(lines))
+
+
+def assert_fully_written(out, name: str = "output"):
+    """Every element of a kernel output must be finite."""
+    a = _np32(out)
+    bad = ~np.isfinite(a)
+    if bad.any():
+        idx = tuple(int(j) for j in np.argwhere(bad)[0])
+        raise AssertionError(
+            f"{name}: {int(bad.sum())}/{a.size} elements never written or "
+            f"non-finite (first at {idx})")

@@ -1,0 +1,131 @@
+"""Port flash forward (plain version of K1 on the CPU) against mfa_tpu's
+flash_attention (Pallas kernels in interpret mode), same numpy inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mfa_tpu.ops.attention import flash_attention as jax_flash
+from mfa_tpu_torch.ops import attention as port_attention
+from mfa_tpu_torch.ops.attention import flash_attention, mha
+from mfa_tpu_torch.ops.precision import (
+    AttentionOperand,
+    make_precision_policy,
+    tolerance_for,
+)
+from mfa_tpu_torch.ops.reference import attention_reference
+from mfa_tpu_torch.utils.testing import (
+    assert_close,
+    assert_fully_written,
+    make_attention_inputs,
+)
+
+HQ, HKV = 4, 2
+
+# (dtype, D, R, C, options)
+CASES = [
+    ("fp32", 64, 128, 128, dict(causal=True)),
+    ("fp32", 32, 77, 150, dict()),
+    ("fp32", 128, 150, 96, dict(causal=True)),          # R > C: empty rows
+    ("fp32", 64, 160, 160, dict(sliding_window=33)),
+    ("fp32", 64, 96, 96, dict(causal=True, logit_soft_cap=10.0)),
+    ("bf16", 128, 192, 192, dict(causal=True)),
+    ("bf16", 64, 100, 180, dict()),
+    ("bf16", 32, 130, 70, dict(causal=True)),           # R > C: empty rows
+    ("bf16", 64, 128, 128, dict(sliding_window=40, logit_soft_cap=20.0)),
+]
+
+
+def _inputs(seed, r, c, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, HQ, r, d)).astype(np.float32)
+    k = rng.standard_normal((1, HKV, c, d)).astype(np.float32)
+    v = rng.standard_normal((1, HKV, c, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dt,d,r,c,opts", CASES,
+                         ids=[f"{c[0]}-D{c[1]}-R{c[2]}-C{c[3]}-{i}"
+                              for i, c in enumerate(CASES)])
+def test_flash_fwd_matches_mfa_tpu(dt, d, r, c, opts):
+    q, k, v = _inputs(d + r + c, r, c, d)
+    jdt, tdt = ((jnp.float32, torch.float32) if dt == "fp32"
+                else (jnp.bfloat16, torch.bfloat16))
+    o_j, l_j = jax_flash(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                         jnp.asarray(v, jdt), with_lse=True, **opts)
+    o_t, l_t = flash_attention(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt),
+        torch.from_numpy(v).to(tdt), with_lse=True, device="cpu", **opts)
+    assert o_t.dtype == tdt and l_t.dtype == torch.float32
+    assert_fully_written(o_t, "O")
+    policy = make_precision_policy(dt == "bf16", dt == "bf16")
+    assert_close(o_t, np.asarray(o_j, np.float32),
+                 tolerance_for(policy, AttentionOperand.O), "O")
+    assert_close(l_t, np.asarray(l_j, np.float32),
+                 tolerance_for(policy, AttentionOperand.L), "L")
+    if opts.get("causal") and r > c:
+        dead = r - c          # rows whose diagonal falls before key 0
+        assert torch.all(o_t[:, :, :dead] == 0)
+        assert torch.all(l_t[:, :, :dead] == 0)
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(causal=True),
+                                  dict(sliding_window=9, logit_soft_cap=4.0)])
+def test_flash_fwd_fp32_matches_oracle(opts):
+    """The plain version against the port's own oracle (float64)."""
+    q, k, v, _ = make_attention_inputs(np.random.default_rng(7), 2, 4, 2,
+                                       45, 61, 16)
+    o, l = flash_attention(q, k, v, with_lse=True, device="cpu", **opts)
+    o_ref, l_ref = attention_reference(q.double(), k.double(), v.double(),
+                                       **opts)
+    assert_close(o, o_ref, 2e-5, "O")
+    assert_close(l, l_ref, 2e-5, "L")
+
+
+def test_low_precision_intermediates_false_gives_fp32_o():
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _inputs(3, 32, 32, 32))
+    o = flash_attention(q, k, v, causal=True, device="cpu",
+                        low_precision_intermediates=False)
+    assert o.dtype == torch.float32
+
+
+def test_mha_layout_matches_bhsd():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(5, 24, 24, 32))
+    o = flash_attention(q, k, v, causal=True, device="cpu")
+    o2 = mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             causal=True, device="cpu")
+    assert torch.equal(o2.transpose(1, 2), o)
+
+
+def test_refusals():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 32))
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_attention(q.requires_grad_(), k, v, device="cpu")
+    big = torch.zeros(1, 2, 8, 264)
+    with pytest.raises(ValueError, match="head_dim 264"):
+        flash_attention(big, big, big, device="cpu")
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(torch.zeros(1, 3, 8, 32), k, v, device="cpu")
+
+
+def test_kernel_cache_reuses_pipeline(monkeypatch):
+    cache = port_attention.attention_cache
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 19, 19, 32))
+    o = flash_attention(q, k, v, causal=True, device="cpu")
+    hits = cache.stats.pipeline_hits
+
+    def no_descriptor(**_):
+        raise AssertionError("a pipeline hit built a descriptor")
+
+    # A hit reuses the bound launch: no descriptor, table row or policy.
+    with monkeypatch.context() as m:
+        m.setattr(port_attention, "AttentionDescriptor", no_descriptor)
+        assert torch.equal(flash_attention(q, k, v, causal=True,
+                                           device="cpu"), o)
+    assert cache.stats.pipeline_hits == hits + 1
+    # Another length in the same shape class reuses the kernel descriptor.
+    lib_hits = cache.stats.library_hits
+    flash_attention(q[:, :, :11], k, v, causal=True, device="cpu")
+    assert cache.stats.library_hits == lib_hits + 1

@@ -1,0 +1,175 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+shapes chip_smoke.py does not reach (odd lengths, every table row's head
+dim, GQA groups 1-8, fp32 queries, windows).
+
+Needs a CUDA device; skips elsewhere. On the card (no JAX there, so
+without the suite's conftest):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from mfa_tpu_torch.kernels import decode as k2
+from mfa_tpu_torch.kernels import flash_fwd as k1
+from mfa_tpu_torch.models import llama
+from mfa_tpu_torch.ops.descriptors import (
+    AttentionDescriptor,
+    AttentionKernelType,
+)
+from mfa_tpu_torch.ops.precision import OperandPrecision
+from mfa_tpu_torch.serving import kv_cache
+from mfa_tpu_torch.serving.scheduler import ContinuousBatchingScheduler, Request
+from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, assert_close
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# (dtype, D, R, C, Hq, Hkv, options, fp32 O)
+K1_CASES = [
+    ("bf16", 64, 300, 300, 4, 2, dict(causal=True), False),
+    ("bf16", 256, 200, 333, 8, 2, dict(sliding_window=50,
+                                       logit_soft_cap=30.0), False),
+    ("bf16", 32, 150, 70, 4, 4, dict(causal=True), False),     # R > C
+    ("bf16", 96, 129, 257, 6, 3, dict(), False),               # D padded
+    ("bf16", 128, 128, 128, 8, 1, dict(causal=True), True),   # fp32 O
+    ("fp32", 64, 100, 100, 4, 2, dict(causal=True), False),
+    ("fp32", 256, 77, 130, 2, 1, dict(), False),
+    ("fp32", 40, 65, 65, 4, 2, dict(sliding_window=9), False),
+]
+
+
+@pytest.mark.parametrize("case", K1_CASES,
+                         ids=[f"k1-{i}" for i in range(len(K1_CASES))])
+def test_flash_fwd_kernel_matches_plain(cuda, case):
+    dt, d, r, c, hq, hkv, opts, o_f32 = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    gen = torch.Generator(device=cuda).manual_seed(d + r + c)
+    q = torch.randn((hq, r, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((hkv, c, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((hkv, c, d), generator=gen, device=cuda).to(dtype)
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
+        seq_len_kv=c, head_dim=d, low_precision_inputs=dt == "bf16",
+        low_precision_intermediates=dt == "bf16" and not o_f32, **opts)
+    kd = desc.kernel_descriptor(AttentionKernelType.FORWARD)
+    o_dtype = torch.float32 if o_f32 or dt == "fp32" else dtype
+    kw = dict(group=hq // hkv, scale=desc.softmax_scale, o_dtype=o_dtype)
+    n = k1.flash_fwd.launches
+    o, lse = k1.flash_fwd(q, k, v, kd, **kw)
+    torch.cuda.synchronize()
+    assert k1.flash_fwd.launches == n + 1
+    o_p, lse_p = k1.flash_fwd_plain(q, k, v, kd, **kw)
+    assert o.dtype == o_dtype
+    atol, rtol = KERNEL_BUDGETS[f"flash_fwd_o_{dt}"]
+    assert_close(o, o_p, atol, "O", rtol=rtol)
+    assert_close(lse, lse_p, KERNEL_BUDGETS["flash_fwd_l"][0], "L")
+
+
+K2_CASES = [(fmt, d, g, w, qdt)
+            for fmt in ("bf16", "int8", "fp8_e4m3")
+            for d, g, w, qdt in ((64, 1, None, "bf16"), (128, 4, 100, "bf16"),
+                                 (256, 8, None, "bf16"), (32, 2, None, "fp32"))]
+_FORMATS = {"bf16": OperandPrecision.BF16, "int8": OperandPrecision.INT8,
+            "fp8_e4m3": OperandPrecision.FP8_E4M3}
+
+
+def _bits(t):
+    return t.view(torch.uint8 if t.element_size() == 1 else torch.int16)
+
+
+@pytest.mark.parametrize("case", K2_CASES,
+                         ids=[f"k2-{c[0]}-D{c[1]}-G{c[2]}-w{c[3]}-{c[4]}"
+                              for c in K2_CASES])
+def test_decode_kernel_matches_plain(cuda, case):
+    fmt, d, g, window, qdt = case
+    b, hkv, max_len = 4, 2, 256
+    qdtype = torch.bfloat16 if qdt == "bf16" else torch.float32
+    gen = torch.Generator(device=cuda).manual_seed(d * g)
+    cache = kv_cache.create(b, hkv, max_len, d, _FORMATS[fmt], device=cuda)
+    kv_cache.update(cache,
+                    torch.randn((b, hkv, max_len, d), generator=gen,
+                                device=cuda),
+                    torch.randn((b, hkv, max_len, d), generator=gen,
+                                device=cuda))
+    cache.lengths = torch.tensor([0, 5, max_len - 1, max_len],
+                                 dtype=torch.int32, device=cuda)
+    bh = b * hkv
+    q3 = (torch.randn((bh, g, d), generator=gen, device=cuda)
+          * (math.log2(math.e) / math.sqrt(d))).to(qdtype)
+    kn = torch.randn((bh, d), generator=gen, device=cuda).to(qdtype)
+    vn = torch.randn((bh, d), generator=gen, device=cuda).to(qdtype)
+    twin = kv_cache.KVCache(cache.k.clone(), cache.v.clone(),
+                            cache.k_scale.clone(), cache.v_scale.clone(),
+                            cache.lengths.clone(), cache.precision)
+
+    def views(c):
+        return (c.k.view(bh, max_len, d), c.v.view(bh, max_len, d),
+                c.k_scale.view(bh, max_len), c.v_scale.view(bh, max_len))
+
+    o = k2.decode_fused_append(q3, *views(cache), kn, vn, cache.lengths,
+                               num_kv_heads=hkv, sliding_window=window)
+    torch.cuda.synchronize()
+    o_p = k2.decode_fused_append_plain(q3, *views(twin), kn, vn,
+                                       twin.lengths, num_kv_heads=hkv,
+                                       sliding_window=window)
+    atol, rtol = KERNEL_BUDGETS["decode_o"]
+    assert_close(o, o_p, atol, "O", rtol=rtol)
+    for f in ("k", "v"):
+        assert torch.equal(_bits(getattr(cache, f)), _bits(getattr(twin, f)))
+    for f in ("k_scale", "v_scale"):
+        torch.testing.assert_close(getattr(cache, f), getattr(twin, f),
+                                   rtol=1e-6, atol=0)
+
+
+def test_tiny_llama_on_cuda_matches_cpu(cuda):
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               torch.float32)
+    cpu = llama.Llama(cfg, params, device="cpu")
+    gpu = llama.Llama(cfg, params, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    assert_close(gpu(tokens.to(cuda)), cpu(tokens), 1e-3, "forward")
+    for prec in _FORMATS.values():
+        cc, gc = cpu.make_caches(2, 128, prec), gpu.make_caches(2, 128, prec)
+        cpu(tokens, caches=cc)
+        gpu(tokens.to(cuda), caches=gc)
+        for step in range(3):
+            tok = tokens[:, step]
+            lc, cc = cpu.decode_step(tok, cc)
+            lg, gc = gpu.decode_step(tok.to(cuda), gc)
+            assert_close(lg, lc, 2e-2, f"decode {step} {prec.value}")
+
+
+def test_scheduler_on_cuda_matches_cpu(cuda):
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(1),
+                               torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (3, 5, 2, 4, 6)]
+    tokens = []
+    for dev in ("cpu", cuda):
+        model = llama.Llama(cfg, params, device=dev)
+        sched = ContinuousBatchingScheduler(model, num_slots=2, max_len=64,
+                                            prompt_buckets=(8, 16),
+                                            device=dev)
+        reqs = [Request(prompt=p, max_new_tokens=5) for p in prompts]
+        for r in reqs:
+            sched.submit(r)
+        done = {c.request.id: c.tokens for c in sched.run()}
+        tokens.append([done[r.id] for r in reqs])
+    assert tokens[0] == tokens[1]
