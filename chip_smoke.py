@@ -20,7 +20,20 @@ phase's failure is caught):
              behind the continuous-batching scheduler (4 slots, max_len
              2048), six greedy requests, once per KV format; launch
              counters prove K1 carried every prefill and K2 every decode.
-6. kernels — one JSON line per the port's kernel table.
+6. bwd     — backward kernels K3 (dQ, D-term) and K4 (dK, dV) against
+             their plain versions at Llama-3-8B attention shapes: causal,
+             non-causal, sliding window 512, soft-cap 50, R=512 with
+             C=2048, window 512 with R=512 and C=2048 (keys no query
+             sees), fp32 causal; elementwise at KERNEL_BUDGETS, outputs
+             prefilled with NaN, K4 bit-reproducible; the backward of
+             torch's scaled_dot_product_attention timed as a yardstick.
+7. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
+             does not fit 80 GB), random bf16 weights, trainable: one
+             step's loss and grads through K1/K3/K4 against the same with
+             their plain versions, then six train_steps on one 1 x 2049
+             batch from TokenDataset; finite, falling loss, and K1, K3, K4
+             each launched n_layers times per step.
+8. kernels — one JSON line per the port's kernel table.
 
 The last line is {"ok": true, "device": {...}}. Run from the repository
 root: ``python3 chip_smoke.py``.
@@ -28,6 +41,9 @@ root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -93,6 +109,13 @@ def phase_build():
           "library": str(lib.path.name), "ptxas": ptxas[:24]})
 
 
+def _bound(flops, nbytes, peak):
+    """(bound ms, what bounds it) from operations and bytes."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
 def _k1_inputs(torch, gen, r, c, dtype, hq=32, hkv=8, d=128):
     def rnd(h, s):
         return torch.randn((1, h, s, d), generator=gen, device="cuda").to(dtype)
@@ -153,11 +176,10 @@ def phase_k1(torch):
         # Visible (row, key) pairs of this problem = the work K1 must do.
         vis = k1.visible_mask(r, c, kd.causal, kd.sliding_window, "cuda")
         pairs = int(vis.sum()) * 32
-        flops = 4 * 128 * pairs
         nbytes = (q3.numel() + k3.numel() + v3.numel() + q3.numel()) \
             * q3.element_size() + 4 * 32 * r
         peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = _bound(4 * 128 * pairs, nbytes, peak)
         # Yardstick only: one PyTorch call for the same function where
         # there is one (no soft-cap in SDPA).
         library_ms = None
@@ -170,9 +192,7 @@ def phase_k1(torch):
                 scale=desc.softmax_scale, enable_gqa=True), iters=10)
         results[name] = dict(
             max_abs_err=err_o, lse_err=err_l, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=library_ms)
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         emit({"phase": "k1", "case": name, "R": r, "C": c,
               "dtype": str(dtype).split(".")[-1], "err_o": err_o,
               "o_rms": o_rms, "budget_o": budget_o, "share_o": share_o,
@@ -295,31 +315,23 @@ def phase_k2(torch):
     return results["bf16_L2048"]
 
 
-def _plain_attention(torch):
-    """flash_attention computed through K1's plain version (for the
-    in-context check)."""
+@contextlib.contextmanager
+def plain_kernels():
+    """K1, K3 and K4 swapped for their plain versions, for the in-context
+    checks: ops/attention.py looks the kernel functions up in their
+    modules at each call."""
+    from mfa_tpu_torch.kernels import flash_bwd as k34
     from mfa_tpu_torch.kernels import flash_fwd as k1
-    from mfa_tpu_torch.ops.descriptors import (
-        AttentionDescriptor,
-        AttentionKernelType,
-    )
 
-    def attention(q, k, v, *, causal, sliding_window, device):
-        b, hq, r, d = q.shape
-        hkv, c = k.shape[1], k.shape[2]
-        desc = AttentionDescriptor(
-            batch=b, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
-            seq_len_kv=c, head_dim=d, causal=causal,
-            sliding_window=sliding_window, low_precision_inputs=True,
-            low_precision_intermediates=True)
-        kd = desc.kernel_descriptor(AttentionKernelType.FORWARD)
-        o, _ = k1.flash_fwd_plain(
-            q.reshape(b * hq, r, d), k.reshape(b * hkv, c, d),
-            v.reshape(b * hkv, c, d), kd, group=hq // hkv,
-            scale=desc.softmax_scale, o_dtype=q.dtype)
-        return o.reshape(b, hq, r, d)
-
-    return attention
+    swaps = [(k1, "flash_fwd", k1.flash_fwd_plain),
+             (k34, "flash_bwd_q", k34.flash_bwd_q_plain),
+             (k34, "flash_bwd_kv", k34.flash_bwd_kv_plain)]
+    real = [getattr(mod, attr) for mod, attr, _ in swaps]
+    for mod, attr, plain in swaps:
+        setattr(mod, attr, plain)
+    yield
+    for (mod, attr, _), fn in zip(swaps, real):
+        setattr(mod, attr, fn)
 
 
 def phase_serving(torch):
@@ -365,10 +377,8 @@ def phase_serving(torch):
     # through K1 and through its plain version.
     toks = torch.tensor(prompts[-1], device="cuda")[None, :]
     logits_k = model(toks)[0, -1]
-    real_attention = llama.flash_attention
-    llama.flash_attention = _plain_attention(torch)
-    logits_p = model(toks)[0, -1]
-    llama.flash_attention = real_attention
+    with plain_kernels():
+        logits_p = model(toks)[0, -1]
     scale = float(logits_p.abs().max())
     err = max_err(logits_k, logits_p)
     budget = 5e-2 * max(1.0, scale)      # bf16 mixed budget, relative
@@ -434,6 +444,240 @@ def phase_serving(torch):
     return launches
 
 
+def _sdpa_backward_ms(torch, F, q, k, v, do, mask, is_causal, scale):
+    """Device ms of the backward of one scaled_dot_product_attention call
+    (dQ, dK and dV together), as forward+backward minus forward."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=is_causal, scale=scale,
+            enable_gqa=True)
+
+    fwd_ms = cuda_ms(torch, fwd, iters=10)
+    both_ms = cuda_ms(torch, lambda: torch.autograd.grad(fwd(), (q, k, v),
+                                                         do), iters=10)
+    return both_ms - fwd_ms
+
+
+def phase_bwd(torch):
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import flash_bwd as k34
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.ops.descriptors import (
+        AttentionDescriptor,
+        AttentionKernelType,
+    )
+    from mfa_tpu_torch.utils.testing import (
+        KERNEL_BUDGETS,
+        budget_share,
+        nan_canary,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    hq, hkv, d, n = 32, 8, 128, 2048
+    cases = [
+        ("causal", n, n, torch.bfloat16, dict(causal=True)),
+        ("noncausal", n, n, torch.bfloat16, dict()),
+        ("window512", n, n, torch.bfloat16, dict(sliding_window=512)),
+        ("softcap50", n, n, torch.bfloat16,
+         dict(causal=True, logit_soft_cap=50.0)),
+        ("causal_r512_c2048", 512, n, torch.bfloat16, dict(causal=True)),
+        ("window512_r512_c2048", 512, n, torch.bfloat16,
+         dict(sliding_window=512)),
+        ("fp32_causal", n, n, torch.float32, dict(causal=True)),
+    ]
+    results = {}
+    for name, r, c, dtype, opts in cases:
+        q, k, v = _k1_inputs(torch, gen, r, c, dtype)
+        do = torch.randn((1, hq, r, d), generator=gen, device="cuda").to(dtype)
+        desc = AttentionDescriptor(
+            batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
+            seq_len_kv=c, head_dim=d,
+            low_precision_inputs=dtype != torch.float32,
+            low_precision_intermediates=dtype != torch.float32, **opts)
+        kd_f, kd_q, kd_kv = (desc.kernel_descriptor(t)
+                             for t in AttentionKernelType)
+        q3, k3, v3, do3 = (t.reshape(-1, t.shape[2], d).contiguous()
+                           for t in (q, k, v, do))
+        kw = dict(group=hq // hkv, scale=desc.softmax_scale)
+        o3, lse = k1.flash_fwd(q3, k3, v3, kd_f, o_dtype=dtype, **kw)
+        dq, dterm = k34.flash_bwd_q(
+            q3, k3, v3, o3, do3, lse, kd_q, **kw,
+            out=(nan_canary(q3.shape, device="cuda"),
+                 nan_canary(lse.shape, device="cuda")))
+        dk, dv = k34.flash_bwd_kv(
+            q3, k3, v3, do3, lse, dterm, kd_kv, **kw,
+            out=(nan_canary(k3.shape, device="cuda"),
+                 nan_canary(k3.shape, device="cuda")))
+        torch.cuda.synchronize()
+        dk2, dv2 = k34.flash_bwd_kv(q3, k3, v3, do3, lse, dterm, kd_kv, **kw)
+        deterministic = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        del dk2, dv2
+        dq_p, dterm_p = k34.flash_bwd_q_plain(q3, k3, v3, o3, do3, lse, kd_q,
+                                              **kw)
+        dk_p, dv_p = k34.flash_bwd_kv_plain(q3, k3, v3, do3, lse, dterm,
+                                            kd_kv, **kw)
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        shares, errs = {}, {}
+        for key, got, want, budget in (
+                ("dq", dq, dq_p, f"flash_bwd_dq_{tag}"),
+                ("dk", dk, dk_p, f"flash_bwd_dk_{tag}"),
+                ("dv", dv, dv_p, f"flash_bwd_dv_{tag}"),
+                ("dterm", dterm, dterm_p, "flash_bwd_dterm")):
+            shares[key] = budget_share(got, want, *KERNEL_BUDGETS[budget])
+            errs[key] = max_err(got, want)
+        finite = all(bool(torch.isfinite(t).all()) for t in (dq, dterm, dk,
+                                                            dv))
+        vis = k1.visible_mask(r, c, kd_q.causal, kd_q.sliding_window, "cuda")
+        unseen = ~vis.any(dim=0)              # keys that no query sees
+        unseen_zero = bool((dk[:, unseen] == 0).all()
+                           and (dv[:, unseen] == 0).all())
+        del dq_p, dterm_p, dk_p, dv_p
+        ms_q = cuda_ms(torch, lambda: k34.flash_bwd_q(
+            q3, k3, v3, o3, do3, lse, kd_q, **kw))
+        ms_kv = cuda_ms(torch, lambda: k34.flash_bwd_kv(
+            q3, k3, v3, do3, lse, dterm, kd_kv, **kw))
+        plain_q = cuda_ms(torch, lambda: k34.flash_bwd_q_plain(
+            q3, k3, v3, o3, do3, lse, kd_q, **kw), iters=3, warmup=1)
+        plain_kv = cuda_ms(torch, lambda: k34.flash_bwd_kv_plain(
+            q3, k3, v3, do3, lse, dterm, kd_kv, **kw), iters=3, warmup=1)
+        # Work of these inputs: the visible (row, key) pairs of every
+        # query head; each input read once, each output written once.
+        pairs = int(vis.sum()) * hq
+        esz = q3.element_size()
+        in_q = (2 * q3.numel() + 2 * k3.numel()) * esz
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        bound_q, by_q = _bound(
+            6 * d * pairs, in_q + o3.numel() * o3.element_size()
+            + 4 * lse.numel() + 4 * dq.numel() + 4 * dterm.numel(), peak)
+        bound_kv, by_kv = _bound(
+            8 * d * pairs, in_q + 8 * lse.numel() + 8 * dk.numel(), peak)
+        library_ms = None
+        if "logit_soft_cap" not in opts:
+            plain_causal = kd_q.causal and r == c and not kd_q.sliding_window
+            mask = (None if plain_causal
+                    or not (kd_q.causal or kd_q.sliding_window) else vis)
+            library_ms = _sdpa_backward_ms(torch, F, q, k, v, do, mask,
+                                           plain_causal, desc.softmax_scale)
+        ok = (finite and deterministic and unseen_zero
+              and all(x <= 1 for x in shares.values()))
+        results[name] = dict(
+            q=dict(max_abs_err=errs["dq"], ms=ms_q, plain_ms=plain_q,
+                   bound_ms=bound_q, bound_by=by_q, library_ms=library_ms),
+            kv=dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=ms_kv,
+                    plain_ms=plain_kv, bound_ms=bound_kv, bound_by=by_kv,
+                    library_ms=library_ms))
+        emit({"phase": "bwd", "case": name, "R": r, "C": c, "dtype": tag,
+              "share": shares, "err": errs, "ms_k3": ms_q, "ms_k4": ms_kv,
+              "plain_ms_k3": plain_q, "plain_ms_k4": plain_kv,
+              "bound_ms_k3": bound_q, "bound_by_k3": by_q,
+              "bound_ms_k4": bound_kv, "bound_by_k4": by_kv,
+              "sdpa_backward_ms": library_ms, "deterministic_k4":
+              deterministic, "unseen_keys": int(unseen.sum()),
+              "unseen_keys_zero": unseen_zero, "finite": finite, "ok": ok})
+        if not ok:
+            raise SystemExit(f"bwd {name}: kernels disagree with their plain "
+                             f"versions (shares {shares}, finite {finite}, "
+                             f"deterministic {deterministic}, unseen keys "
+                             f"zero {unseen_zero})")
+        del q, k, v, do, q3, k3, v3, do3, o3, lse, dq, dterm, dk, dv
+        torch.cuda.empty_cache()
+    return results["causal"]
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm()
+                 .clamp_min(1e-30))
+
+
+def phase_training(torch):
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import flash_bwd as k34
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.models import llama, training
+    from mfa_tpu_torch.utils.data import TokenDataset
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=16)
+    t0 = time.perf_counter()
+    model = llama.Llama.init(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(4),
+        dtype=torch.bfloat16, device="cuda", trainable=True)
+    stream = np.random.default_rng(4).integers(0, cfg.vocab_size, 2049)
+    batch = next(TokenDataset(stream, seq_len=2048, batch_size=1,
+                              seed=4).epoch(0))
+    tokens = torch.from_numpy(batch).long().cuda()
+    torch.cuda.synchronize()
+    emit({"phase": "training_init", "seconds": time.perf_counter() - t0,
+          "n_layers": cfg.n_layers,
+          "params": sum(p.numel() for p in model.parameters()),
+          "tokens": list(tokens.shape)})
+
+    # In-context check: one step's loss and grads through K1/K3/K4 against
+    # the same step with the three swapped for their plain versions.
+    loss_k = float(training.loss_and_grads(model, tokens))
+    grads_k = {n: p.grad.clone() for n, p in model.named_parameters()}
+    with plain_kernels():
+        loss_p = float(training.loss_and_grads(model, tokens))
+    rel = {n: _rel_l2(grads_k[n], p.grad)
+           for n, p in model.named_parameters()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    in_context_ok = loss_rel <= 1e-2 and rel[worst] <= 5e-2
+    emit({"phase": "training_in_context", "loss_kernels": loss_k,
+          "loss_plain": loss_p, "loss_rel_err": loss_rel,
+          "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_param": worst,
+          "grad_rel_l2_budget": 5e-2, "ok": in_context_ok})
+    if not in_context_ok:
+        raise SystemExit(f"training in context: loss rel err {loss_rel}, "
+                         f"grad rel L2 {rel[worst]} at {worst}")
+    del grads_k
+    for p in model.parameters():
+        p.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = training.create_train_state(
+        model, training.make_optimizer(lr=1e-3, warmup_steps=1,
+                                       total_steps=100))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (k1.flash_fwd, k34.flash_bwd_q, k34.flash_bwd_kv)
+    for f in counters:
+        f.launches = 0
+    steps, losses, norms, step_ms = 6, [], [], []
+    for _ in range(steps):
+        t_s = time.perf_counter()
+        metrics = training.train_step(state, tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t_s) * 1e3)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = {f.__name__: f.launches for f in counters}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    median_ms = float(np.median(step_ms[1:]))
+    ok = (all(math.isfinite(x) for x in losses + norms)
+          and losses[-1] < losses[0]
+          and all(n_ == cfg.n_layers * steps for n_ in launches.values()))
+    emit({"phase": "training", "n_layers": cfg.n_layers, "steps": steps,
+          "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+          "median_step_ms": median_ms,
+          "tokens_per_s": tokens.shape[0] * (tokens.shape[1] - 1)
+          / (median_ms / 1e3),
+          "peak_gib": peak_gib, "launches": launches, "ok": ok})
+    if not ok:
+        raise SystemExit(f"training: losses {losses}, norms {norms}, "
+                         f"launches {launches}")
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -452,16 +696,28 @@ def main() -> int:
     k1_row = phase_k1(torch)
     k2_row = phase_k2(torch)
     launches = phase_serving(torch)
+    bwd_row = phase_bwd(torch)
+    train_launches = phase_training(torch)
+    # K1 runs on both main paths: its launches are the serving runs' and
+    # the training run's together.
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "mfa_tpu/kernels/flash_fwd.py:349",
-         "launches": launches["flash_fwd"],
+         "launches": launches["flash_fwd"] + train_launches["flash_fwd"],
          **{k: v for k, v in k1_row.items() if k != "lse_err"}},
         {"name": "decode_fused_append", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode.cu",
          "replaces": "mfa_tpu/kernels/decode.py:431",
          "launches": launches["decode_fused_append"], **k2_row},
+        {"name": "flash_bwd_q", "route": "cuda",
+         "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "mfa_tpu/kernels/flash_bwd.py:59",
+         "launches": train_launches["flash_bwd_q"], **bwd_row["q"]},
+        {"name": "flash_bwd_kv", "route": "cuda",
+         "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "mfa_tpu/kernels/flash_bwd.py:427",
+         "launches": train_launches["flash_bwd_kv"], **bwd_row["kv"]},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

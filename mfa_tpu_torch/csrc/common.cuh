@@ -14,6 +14,7 @@ namespace mfa {
 // row whose running max is still this value has seen no visible key.
 constexpr float kMaskValue = -0.5f * FLT_MAX;
 constexpr float kLn2 = 0.69314718055994530942f;   // 1 / log2(e)
+constexpr float kLog2e = 1.44269504088896340736f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
@@ -35,6 +36,51 @@ __device__ __forceinline__ float warp_max(float x) {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+// Column col is visible to row row: the diagonal is aligned to the
+// sequence ends (offset = C - R); a window keeps the W keys ending there.
+__device__ __forceinline__ bool visible_rc(int row, int col, int R, int C,
+                                           int causal, int window) {
+  if (col >= C) return false;
+  if (causal || window > 0) {
+    const int diag = row + C - R;
+    if (col > diag) return false;
+    if (window > 0 && col < diag - (window - 1)) return false;
+  }
+  return true;
+}
+
+// tanh soft-cap in the log2 domain (cap2 = cap * log2e; <= 0: none).
+__device__ __forceinline__ float cap_score(float x, float cap2) {
+  return cap2 > 0.f ? cap2 * tanhf(x / cap2) : x;
+}
+
+// The soft-capped score and its derivative d capped / d x.
+__device__ __forceinline__ float cap_with_grad(float x, float cap2,
+                                               float& grad) {
+  if (cap2 <= 0.f) {
+    grad = 1.f;
+    return x;
+  }
+  const float t = tanhf(x / cap2);
+  grad = 1.f - t * t;
+  return cap2 * t;
+}
+
+// D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 }  // namespace mfa

@@ -60,31 +60,7 @@ __device__ __forceinline__ void kv_range(const FwdParams& p, int i, int bq,
 
 __device__ __forceinline__ bool visible(const FwdParams& p, int row,
                                         int col) {
-  if (col >= p.C) return false;
-  if (p.causal || p.window > 0) {
-    const int diag = row + p.C - p.R;
-    if (col > diag) return false;
-    if (p.window > 0 && col < diag - (p.window - 1)) return false;
-  }
-  return true;
-}
-
-__device__ __forceinline__ float cap_score(float x, float cap2) {
-  return cap2 > 0.f ? cap2 * tanhf(x / cap2) : x;
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+  return visible_rc(row, col, p.R, p.C, p.causal, p.window);
 }
 
 // ---------------------------------------------------------------------------

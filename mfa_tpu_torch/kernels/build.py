@@ -37,6 +37,21 @@ _SIGNATURES = {
                       _I, _I, _F, _F,               # causal window scale2 cap2
                       _I, _I, _I, _I,               # dtype block_q kv d
                       _P],                          # stream
+    "mfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P,     # q k v o do lse
+                        _P, _P,                     # dq dterm
+                        _I, _I, _I, _I, _I,         # bh group R C D
+                        _I, _I, _F, _F, _F,         # causal window scale2
+                                                    # cap2 scale
+                        _I, _I, _I, _I, _I,         # dtype o_f32 block_q
+                                                    # kv d
+                        _P],                        # stream
+    "mfa_flash_bwd_kv": [_P, _P, _P, _P, _P, _P,    # q k v do lse dterm
+                         _P, _P,                    # dk dv
+                         _I, _I, _I, _I, _I,        # bhkv group R C D
+                         _I, _I, _F, _F, _F,        # causal window scale2
+                                                    # cap2 scale
+                         _I, _I, _I, _I,            # dtype block_q kv d
+                         _P],                       # stream
     "mfa_decode_fused_append": [_P, _P, _P, _P, _P,  # q k v ks vs
                                 _P, _P, _P,          # k_new v_new lengths
                                 _P, _P,              # o scratch

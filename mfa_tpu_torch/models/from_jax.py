@@ -25,9 +25,11 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> Llama:
+def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda",
+                      trainable: bool = False) -> Llama:
     """``mfa_tpu`` parameter tree of numpy arrays → :class:`Llama` on
-    ``device``. Quantized weights are not taken (bf16/fp32 only)."""
+    ``device`` (parameters require grad when ``trainable``). Quantized
+    weights are not taken (bf16/fp32 only)."""
     def conv(name, a):
         if not isinstance(a, np.ndarray) and not hasattr(a, "__array__"):
             raise TypeError(f"{name}: expected an array, got {type(a)}")
@@ -38,4 +40,4 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> Llama:
               if name != "layers"}
     params["layers"] = [{name: conv(name, a) for name, a in layer.items()}
                         for layer in tree["layers"]]
-    return Llama(cfg, params, device=device)
+    return Llama(cfg, params, device=device, trainable=trainable)

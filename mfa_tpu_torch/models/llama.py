@@ -1,17 +1,20 @@
-"""Llama-family model over the port's kernels (serving path).
+"""Llama-family model over the port's kernels (serving and training).
 
-Port of the serving half of ``mfa_tpu/models/llama.py``: an ``nn.Module``
-:class:`Llama` whose ``forward`` (prefill, optionally appending to KV
+Port of ``mfa_tpu/models/llama.py``: an ``nn.Module`` :class:`Llama`
+whose ``forward`` (prefill or training, optionally appending to KV
 caches) and ``decode_step`` run over plain functions on tensors.
 
-- Prefill attention is ``flash_attention(causal=True)`` (kernel K1);
-  decode attention is the fused append + attend (kernel K2).
+- Prefill and training attention is ``flash_attention(causal=True)``
+  (kernel K1, differentiated by K3 and K4); decode attention is the fused
+  append + attend (kernel K2).
 - Projections keep ``mfa_tpu``'s names; weights are stored as
   ``nn.Linear`` does, [d_out, d_in], and the products go to
   ``torch.nn.functional.linear`` (where the JAX package used an XLA dot).
 - RMSNorm and the rotary phases in fp32; silu in fp32 then cast; logits
   rounded through the weight dtype, then fp32.
-- Inference only: parameters do not require grad.
+- Parameters require grad only when the model is built with
+  ``trainable=True``; ``forward`` is differentiable, ``decode_step`` runs
+  under ``torch.inference_mode()`` so serving never builds a graph.
 """
 
 from __future__ import annotations
@@ -110,55 +113,59 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 class LlamaLayer(nn.Module):
     """One block's parameters (attention + MLP, pre-norm)."""
 
-    def __init__(self, tensors: dict):
+    def __init__(self, tensors: dict, trainable: bool = False):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(
+                name, nn.Parameter(t, requires_grad=trainable))
 
     def has(self, name: str) -> bool:
         return name in self._parameters
 
 
 class Llama(nn.Module):
-    """Llama over the port's kernels; ``forward`` and ``decode_step``."""
+    """Llama over the port's kernels; ``forward`` and ``decode_step``.
+    ``trainable`` makes every parameter require grad (off by default)."""
 
-    def __init__(self, cfg: LlamaConfig, params: dict, *, device="cuda"):
+    def __init__(self, cfg: LlamaConfig, params: dict, *, device="cuda",
+                 trainable: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.device = dev
 
         def p(t):
-            return nn.Parameter(t.to(dev), requires_grad=False)
+            return nn.Parameter(t.to(dev), requires_grad=trainable)
 
         self.embed = p(params["embed"])
         self.final_norm = p(params["final_norm"])
         self.layers = nn.ModuleList(
-            LlamaLayer({n: t.to(dev) for n, t in layer.items()})
+            LlamaLayer({n: t.to(dev) for n, t in layer.items()}, trainable)
             for layer in params["layers"])
         self.lm_head = p(params["lm_head"]) if "lm_head" in params else None
 
     @classmethod
     def init(cls, cfg: LlamaConfig, *, generator: torch.Generator,
-             dtype: torch.dtype = torch.bfloat16, device="cuda") -> "Llama":
+             dtype: torch.dtype = torch.bfloat16, device="cuda",
+             trainable: bool = False) -> "Llama":
         """Random weights from ``generator`` (which must live on
         ``device``)."""
         dev = resolve_device(device)
         if generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{dev}")
-        return cls(cfg, init_params(cfg, generator, dtype), device=dev)
+        return cls(cfg, init_params(cfg, generator, dtype), device=dev,
+                   trainable=trainable)
 
     def make_caches(self, batch: int, max_len: int,
                     precision: OperandPrecision = OperandPrecision.BF16):
         return make_caches(self.cfg, batch, max_len, precision,
                            device=self.device)
 
-    @torch.no_grad()
     def forward(self, tokens, *, positions=None, caches=None):
         return forward(self, tokens, positions=positions, caches=caches)
 
-    @torch.no_grad()
+    @torch.inference_mode()
     def decode_step(self, tokens, caches):
         return decode_step(self, tokens, caches)
 

@@ -1,59 +1,59 @@
-"""Public attention API: descriptor-driven, cached, forward only.
+"""Public attention API: descriptor-driven, cached, differentiable.
 
-Port of ``flash_attention`` and ``mha`` from ``mfa_tpu/ops/attention.py``.
-Dispatch path:
+Port of ``flash_attention``, ``attention_chunk_grads`` and ``mha`` from
+``mfa_tpu/ops/attention.py``. Dispatch path:
 
   flash_attention(q, k, v)
     └─ two-level cache probe (ops/cache.py); on a miss only:
-       AttentionDescriptor → kernel_descriptor(FORWARD)   [ops/params.py]
-       └─ kernels/flash_fwd.flash_fwd                     [CUDA kernel K1]
+       AttentionDescriptor → kernel_descriptor(FORWARD, BACKWARD_QUERY,
+                                               BACKWARD_KEY_VALUE)
+    └─ FlashAttentionFunction (torch.autograd.Function)
+       forward:  kernels/flash_fwd.flash_fwd      [CUDA kernel K1]
+       backward: kernels/flash_bwd.flash_bwd_q    [K3: D-term, dQ]
+                 kernels/flash_bwd.flash_bwd_kv   [K4: dK, dV]
 
-The gradients come with the training slice (a ``torch.autograd.Function``
-over the backward kernels); until then inputs that need a gradient are
-refused.
+The three kernels run in the order of ``mfa_tpu``'s custom VJP: forward,
+backward_query, backward_key_value. The kernel functions are looked up in
+their modules at each call (the cache holds only descriptors), so a
+caller may swap in their plain versions to check the kernels in context.
 """
 
 from __future__ import annotations
 
-import functools
+from dataclasses import dataclass
 
 import torch
 
+from mfa_tpu_torch.kernels import flash_bwd as flash_bwd_kernel
 from mfa_tpu_torch.kernels import flash_fwd as flash_fwd_kernel
 from mfa_tpu_torch.ops import params as params_mod
 from mfa_tpu_torch.ops.cache import attention_cache
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
+    AttentionKernelDescriptor,
     AttentionKernelType,
 )
 from mfa_tpu_torch.ops.precision import AttentionOperand
 from mfa_tpu_torch.utils.device import check_on, resolve_device
 
 
-def flash_attention(q, k, v, *, causal: bool = False,
-                    scale: float | None = None,
-                    logit_soft_cap: float | None = None,
-                    sliding_window: int | None = None,
-                    with_lse: bool = False,
-                    low_precision_intermediates: bool | None = None,
-                    device="cuda"):
-    """Flash attention over [batch, heads, seq, head_dim] operands.
+@dataclass(frozen=True)
+class _Launch:
+    """What the three kernels need for one exact problem."""
 
-    GQA/MQA: ``k``/``v`` may have fewer heads than ``q`` (must divide).
-    ``with_lse`` also returns the per-row natural-log logsumexp L
-    [B, Hq, R]. ``low_precision_intermediates``: None keeps O in the
-    input's type; False forces O to fp32. All tensors must lie on
-    ``device`` (default ``cuda``); on the CPU the kernel's plain version
-    runs.
-    """
-    dev = resolve_device(device)
-    check_on(dev, q=q, k=k, v=v)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward kernels yet (training slice); "
-            "call it under torch.no_grad() or on tensors without grad")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    fwd: AttentionKernelDescriptor
+    bwd_q: AttentionKernelDescriptor
+    bwd_kv: AttentionKernelDescriptor
+    group: int
+    scale: float
+    o_dtype: torch.dtype
+
+
+def _launch(q, k, *, causal, scale, logit_soft_cap, sliding_window,
+            low_precision_intermediates, dev) -> _Launch:
+    """The cached launch parameters of this problem (descriptors are built
+    only on a miss)."""
+    if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q, k, v must be [B, H, S, D] with k, v alike")
     b, hq, r, d = q.shape
     _, hkv, c, _ = k.shape
@@ -70,30 +70,153 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
     def build_kernel():
         desc = problem()
-        kd = desc.kernel_descriptor(AttentionKernelType.FORWARD,
-                                    params_mod.detect_device(dev))
-        return kd, desc.precision_policy().mem(AttentionOperand.O).bits <= 16
+        device = params_mod.detect_device(dev)
+        kds = tuple(desc.kernel_descriptor(t, device)
+                    for t in AttentionKernelType)
+        return kds, desc.precision_policy().mem(AttentionOperand.O).bits <= 16
 
     def build_pipeline(kernel):
-        kd, o_in_input_type = kernel
+        kds, o_in_input_type = kernel
         desc = problem()          # checks the heads of this exact problem
-        return functools.partial(
-            flash_fwd_kernel.flash_fwd, kd=kd, group=hq // hkv,
-            scale=desc.softmax_scale,
-            o_dtype=q.dtype if o_in_input_type else torch.float32)
+        return _Launch(*kds, group=hq // hkv, scale=desc.softmax_scale,
+                       o_dtype=q.dtype if o_in_input_type else torch.float32)
 
     shape_class = (d, low, lpi, causal, sliding_window, logit_soft_cap,
                    str(dev))
-    fwd = attention_cache.get_pipeline(
+    return attention_cache.get_pipeline(
         (shape_class, q.dtype, b, hq, hkv, r, c, scale), shape_class,
         build_kernel, build_pipeline)
-    o3, lse = fwd(q.reshape(b * hq, r, d).contiguous(),
-                  k.reshape(b * hkv, c, d).contiguous(),
-                  v.reshape(b * hkv, c, d).contiguous())
+
+
+def _backward(q3, k3, v3, o3, do3, lse, launch: _Launch, need_kv: bool):
+    """K3 then (when dK or dV is wanted) K4; fp32 (dQ, dK, dV)."""
+    do3 = do3.to(q3.dtype).contiguous()
+    dq, dterm = flash_bwd_kernel.flash_bwd_q(
+        q3, k3, v3, o3, do3, lse, launch.bwd_q, group=launch.group,
+        scale=launch.scale)
+    dk = dv = None
+    if need_kv:
+        dk, dv = flash_bwd_kernel.flash_bwd_kv(
+            q3, k3, v3, do3, lse, dterm, launch.bwd_kv, group=launch.group,
+            scale=launch.scale)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """O = attention(q3, k3, v3) over [BH, S, D] operands, differentiated
+    by the backward kernels. Saves the inputs and K1's own O and L."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, launch: _Launch):
+        o3, lse = flash_fwd_kernel.flash_fwd(
+            q3, k3, v3, launch.fwd, group=launch.group, scale=launch.scale,
+            o_dtype=launch.o_dtype)
+        ctx.save_for_backward(q3, k3, v3, o3, lse)
+        ctx.launch = launch
+        return o3
+
+    @staticmethod
+    def backward(ctx, do3):
+        q3, k3, v3, o3, lse = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dq, dk, dv = _backward(q3, k3, v3, o3, do3, lse, ctx.launch,
+                               need_kv=need[1] or need[2])
+        return (dq.to(q3.dtype) if need[0] else None,
+                dk.to(k3.dtype) if need[1] else None,
+                dv.to(v3.dtype) if need[2] else None, None)
+
+
+def _fold(x):
+    b, h, s, d = x.shape
+    return x.reshape(b * h, s, d).contiguous()
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    scale: float | None = None,
+                    logit_soft_cap: float | None = None,
+                    sliding_window: int | None = None,
+                    with_lse: bool = False,
+                    low_precision_intermediates: bool | None = None,
+                    transpose_q: bool = False, transpose_k: bool = False,
+                    transpose_v: bool = False, transpose_o: bool = False,
+                    device="cuda"):
+    """Flash attention over [batch, heads, seq, head_dim] operands.
+
+    GQA/MQA: ``k``/``v`` may have fewer heads than ``q`` (must divide).
+    Differentiable: gradients come from the backward kernels K3 and K4.
+    ``with_lse`` also returns the per-row natural-log logsumexp L
+    [B, Hq, R]; that path is not differentiable and raises for inputs that
+    require grad. ``low_precision_intermediates``: None keeps O in the
+    input's type; False forces O to fp32. ``transpose_*``: the operand is
+    stored [batch, heads, head_dim, seq] (``transpose_o`` returns O so).
+    All tensors must lie on ``device`` (default ``cuda``); on the CPU the
+    kernels' plain versions run.
+    """
+    if transpose_q:
+        q = q.transpose(-1, -2)
+    if transpose_k:
+        k = k.transpose(-1, -2)
+    if transpose_v:
+        v = v.transpose(-1, -2)
+    dev = resolve_device(device)
+    check_on(dev, q=q, k=k, v=v)
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if with_lse and needs_grad:
+        raise NotImplementedError(
+            "with_lse=True has no backward (as in mfa_tpu); call it under "
+            "torch.no_grad() or on tensors without grad")
+    if v.shape != k.shape:
+        raise ValueError("q, k, v must be [B, H, S, D] with k, v alike")
+    launch = _launch(q, k, causal=causal, scale=scale,
+                     logit_soft_cap=logit_soft_cap,
+                     sliding_window=sliding_window,
+                     low_precision_intermediates=low_precision_intermediates,
+                     dev=dev)
+    b, hq, r, d = q.shape
+    q3, k3, v3 = _fold(q), _fold(k), _fold(v)
+    if needs_grad:
+        o3 = FlashAttentionFunction.apply(q3, k3, v3, launch)
+    else:
+        o3, lse = flash_fwd_kernel.flash_fwd(
+            q3, k3, v3, launch.fwd, group=launch.group, scale=launch.scale,
+            o_dtype=launch.o_dtype)
     o = o3.reshape(b, hq, r, d)
+    if transpose_o:
+        o = o.transpose(-1, -2)
     if with_lse:
         return o, lse.reshape(b, hq, r)
     return o
+
+
+def attention_chunk_grads(q, k, v, o, do, lse, *, causal: bool = False,
+                          scale: float | None = None,
+                          logit_soft_cap: float | None = None,
+                          sliding_window: int | None = None, device="cuda"):
+    """Backward contributions of one KV chunk under a global softmax.
+
+    [B, H, S, D] operands; ``o``/``do`` align with q and ``lse`` [B, Hq, R]
+    is the logsumexp over the full sequence, so K3 and K4 (P = exp(S - L),
+    D = rowsum(dO * O) from the given O and L) return this chunk's additive
+    share of the global (dQ, dK, dV), in the inputs' types.
+    """
+    dev = resolve_device(device)
+    check_on(dev, q=q, k=k, v=v, o=o, do=do, lse=lse)
+    if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("q, o, do must share a shape, and k, v another")
+    launch = _launch(q, k, causal=causal, scale=scale,
+                     logit_soft_cap=logit_soft_cap,
+                     sliding_window=sliding_window,
+                     low_precision_intermediates=None, dev=dev)
+    b, hq, r, d = q.shape
+    _, hkv, c, _ = k.shape
+    o3 = _fold(o if o.dtype in (q.dtype, torch.float32) else o.float())
+    lse3 = lse.reshape(b * hq, r).float().contiguous()
+    dq, dk, dv = _backward(_fold(q), _fold(k), _fold(v), o3, _fold(do), lse3,
+                           launch, need_kv=True)
+    return (dq.reshape(b, hq, r, d).to(q.dtype),
+            dk.reshape(b, hkv, c, d).to(k.dtype),
+            dv.reshape(b, hkv, c, d).to(v.dtype))
 
 
 def mha(x_q, x_k, x_v, **kwargs):

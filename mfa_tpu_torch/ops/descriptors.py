@@ -29,12 +29,19 @@ from mfa_tpu_torch.ops.precision import (
 
 
 class AttentionKernelType(enum.Enum):
-    """The three-kernel split. Only FORWARD has a Hopper kernel so far;
-    the backward pair comes with the training slice."""
+    """The three-kernel split: forward (K1), backward_query (K3, dQ and
+    the D-term) and backward_key_value (K4, dK and dV)."""
 
     FORWARD = "forward"
     BACKWARD_QUERY = "backward_query"
     BACKWARD_KEY_VALUE = "backward_key_value"
+
+
+_TABLE = {
+    AttentionKernelType.FORWARD: "flash_fwd",
+    AttentionKernelType.BACKWARD_QUERY: "flash_bwd_q",
+    AttentionKernelType.BACKWARD_KEY_VALUE: "flash_bwd_kv",
+}
 
 
 @dataclass(frozen=True)
@@ -77,17 +84,15 @@ class AttentionDescriptor:
         kernel_type: AttentionKernelType,
         device: params_mod.HopperDevice = params_mod.H100,
     ) -> "AttentionKernelDescriptor":
-        """Pick the table row for this head dim and precision class."""
-        if kernel_type is not AttentionKernelType.FORWARD:
-            raise NotImplementedError(
-                f"{kernel_type.value} has no Hopper kernel yet")
+        """Pick the table row for this kernel, head dim and precision
+        class."""
         if self.head_dim > params_mod.MAX_HEAD_DIM:
             raise ValueError(
                 f"head_dim {self.head_dim} > {params_mod.MAX_HEAD_DIM}: the "
-                "Hopper flash forward has no head-dim blocking yet")
+                "Hopper flash kernels have no head-dim blocking yet")
         rows = params_mod.parameter_table(
-            "flash_fwd", "bf16" if self.low_precision_inputs else "fp32",
-            device)
+            _TABLE[kernel_type],
+            "bf16" if self.low_precision_inputs else "fp32", device)
         row = params_mod.select_row(rows, self.head_dim)
         policy = self.precision_policy()
         return AttentionKernelDescriptor(

@@ -115,11 +115,48 @@ _FWD_FP32 = """
   inf   |   16    |    32    |  256
 """
 
+# K3 bf16: four warps of 16 query rows; registers hold the fp32 dQ
+# accumulator plus S and dP for one kv step, so D=256 halves the step.
+# (Not tuned on the H100.)
+_BWD_Q_BF16 = """
+   64   |   64    |    64    |   64
+  128   |   64    |    64    |  128
+  inf   |   64    |    32    |  256
+"""
+
+# K3 fp32: plain FMA, 16 query rows per CTA, 32-wide kv steps.
+# (Not tuned on the H100.)
+_BWD_Q_FP32 = """
+   64   |   16    |    32    |   64
+  128   |   16    |    32    |  128
+  inf   |   16    |    32    |  256
+"""
+
+# K4 bf16: 64 kv rows per CTA (four warps of 16; at D=256 eight warps
+# that split the head dim), 32-row q steps. (Not tuned on the H100.)
+_BWD_KV_BF16 = """
+   64   |   32    |    64    |   64
+  128   |   32    |    64    |  128
+  inf   |   32    |    64    |  256
+"""
+
+# K4 fp32: plain FMA, 16 kv rows per CTA, 32-wide q steps.
+# (Not tuned on the H100.)
+_BWD_KV_FP32 = """
+   64   |   32    |    16    |   64
+  128   |   32    |    16    |  128
+  inf   |   32    |    16    |  256
+"""
+
 # Rows per device model (by name); only Hopper (sm90) so far.
 _TABLES = {
     "sm90": {
         ("flash_fwd", "bf16"): _FWD_BF16,
         ("flash_fwd", "fp32"): _FWD_FP32,
+        ("flash_bwd_q", "bf16"): _BWD_Q_BF16,
+        ("flash_bwd_q", "fp32"): _BWD_Q_FP32,
+        ("flash_bwd_kv", "bf16"): _BWD_KV_BF16,
+        ("flash_bwd_kv", "fp32"): _BWD_KV_FP32,
     },
 }
 
@@ -142,12 +179,18 @@ def parameter_table(kernel: str, precision: str,
         rows = parse_table(tables[(kernel, precision)])
         in_bytes = 2 if precision == "bf16" else 4
         for row in rows:
-            if flash_fwd_smem_bytes(row, in_bytes) > device.smem_per_block:
+            if smem_bytes(kernel, row, in_bytes) > device.smem_per_block:
                 raise ValueError(f"{kernel} row {row} exceeds the "
                                  f"{device.smem_per_block} bytes of "
                                  f"shared memory on {device.name}")
         _PARSED[key] = rows
     return _PARSED[key]
+
+
+def smem_bytes(kernel: str, row: ParameterRow, in_bytes: int) -> int:
+    """Shared memory of one CTA of ``kernel`` at ``row`` (as the launch
+    code in ``csrc/`` computes it)."""
+    return _SMEM[kernel](row, in_bytes)
 
 
 def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
@@ -158,3 +201,32 @@ def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
         return in_bytes * (row.block_q * (d + 8) + row.block_kv * (d + 8)
                            + d * (row.block_kv + 8))
     return 4 * (row.block_q * d + 2 * row.block_kv * (d + 1))
+
+
+def flash_bwd_q_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
+    """K3: pre-scaled Q, dO, K and V tiles (rows padded by 8) and the
+    transposed K tile, plus L and the D-term per row (fp32); the fp32
+    kernel keeps unpadded Q/dO and K/V rows padded by one."""
+    d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    if in_bytes == 2:
+        return (2 * (2 * bq * (d + 8) + 2 * bkv * (d + 8) + d * (bkv + 8))
+                + 4 * 2 * bq)
+    return 4 * (2 * bq * d + 2 * bkv * (d + 1) + 2 * bq)
+
+
+def flash_bwd_kv_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
+    """K4: K and V tiles, the pre-scaled Q and dO tiles (rows padded by 8)
+    and the transposed raw Q and dO tiles, plus L and the D-term per query
+    row; the fp32 kernel keeps unpadded K/V and Q/dO rows padded by one."""
+    d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    if in_bytes == 2:
+        return (2 * (2 * bkv * (d + 8) + 2 * bq * (d + 8) + 2 * d * (bq + 8))
+                + 4 * 2 * bq)
+    return 4 * (2 * bkv * d + 2 * bq * (d + 1) + 2 * bq)
+
+
+_SMEM = {
+    "flash_fwd": flash_fwd_smem_bytes,
+    "flash_bwd_q": flash_bwd_q_smem_bytes,
+    "flash_bwd_kv": flash_bwd_kv_smem_bytes,
+}

@@ -4,7 +4,8 @@ Port of ``mfa_tpu/serving/scheduler.py``. Decode runs at a fixed batch
 of slots; a prompt prefills at its bucket length (power-of-two padded)
 into a batch-1 cache, which is spliced into a free slot with the slot's
 length set back to the true prompt length. A finished slot is refilled
-by the next queued request between steps.
+by the next queued request between steps. Every step runs under
+``torch.inference_mode()``: serving never builds an autograd graph.
 """
 
 from __future__ import annotations
@@ -122,6 +123,7 @@ class ContinuousBatchingScheduler:
             self.stats["prefills"] += 1
             self.stats["tokens"] += 1
 
+    @torch.inference_mode()
     def _retire(self):
         for i, s in enumerate(self.slots):
             if s is None:
@@ -138,6 +140,7 @@ class ContinuousBatchingScheduler:
                 for c in self.caches:
                     kv_mod.reset_slot(c, i)
 
+    @torch.inference_mode()
     def step(self) -> bool:
         """One scheduler tick: retire, admit, one batched decode step."""
         self._retire()
@@ -155,6 +158,7 @@ class ContinuousBatchingScheduler:
         self.stats["decode_steps"] += 1
         return True
 
+    @torch.inference_mode()
     def run(self, max_steps: int = 10_000):
         for _ in range(max_steps):
             if not self.step() and not self.queue:

@@ -1,22 +1,27 @@
-"""Where the serving time goes on the card.
+"""Where the serving and training time goes on the card.
 
-Runs Llama prefill and batched decode steps under ``torch.profiler`` and
-reports, per phase: wall time per call (host clock around the profiled
-calls, ended by a synchronize, so it includes the profiler's own cost
-per op), device-busy time of the same calls (sum of kernel times; one
-stream, so kernels do not overlap), the idle share 1 - busy / wall, and
-device time by kernel group (K1 flash_fwd, K2 decode_fused_append,
-matrix products, the rest). The top kernels go to
-``<out>/profile_<phase>.txt``.
+Runs Llama prefill, batched decode steps and training steps under
+``torch.profiler`` and reports, per phase: wall time per call (host clock
+around the profiled calls, ended by a synchronize, so it includes the
+profiler's own cost per op), device-busy time of the same calls (sum of
+kernel times; one stream, so kernels do not overlap), the idle share
+1 - busy / wall, and device time by kernel group (K1 flash_fwd, K2
+decode_fused_append, K3 flash_bwd_q, K4 flash_bwd_kv, matrix products,
+the rest). The top kernels go to ``<out>/profile_<phase>.txt``.
+
+Serving runs Llama-3-8B at full depth; training runs its widths at 16
+of 32 layers (the AdamW state of all 32 would not fit 80 GB).
 
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.profiling [--out build/profiles]
+        [--phases serving,training]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -24,10 +29,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mfa_tpu_torch.models import training
 from mfa_tpu_torch.models.llama import Llama, LlamaConfig
 from mfa_tpu_torch.ops.precision import OperandPrecision
 
+# Training runs Llama-3-8B widths at this depth (see the module note).
+TRAIN_LAYERS = 16
+
 _GROUPS = (("flash_fwd", ("flash_fwd",)),
+           ("flash_bwd_q", ("flash_bwd_q",)),
+           ("flash_bwd_kv", ("flash_bwd_kv",)),
            ("decode_fused_append", ("decode_fused_append",)),
            ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "sm90_")))
 
@@ -113,18 +124,49 @@ def profile_serving(cfg: LlamaConfig, *, out: Path, batch: int = 4,
     return results
 
 
+def profile_training(cfg: LlamaConfig, *, out: Path, seq_len: int = 2048,
+                     steps: int = 3, seed: int = 0) -> list[dict]:
+    """Training steps (bf16 weights, AdamW) on one random batch of
+    1 x (seq_len + 1) tokens; the first step is a warm-up."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Llama.init(cfg, generator=gen, dtype=torch.bfloat16,
+                       device="cuda", trainable=True)
+    state = training.create_train_state(
+        model, training.make_optimizer(lr=1e-3, warmup_steps=1,
+                                       total_steps=100))
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (1, seq_len + 1))).cuda()
+
+    def step():
+        training.train_step(state, toks)
+
+    step()
+    prof, wall = _profiled(step, steps)
+    return [_summarize(prof, wall, steps,
+                       f"train_step_L{cfg.n_layers}_T{seq_len}", out)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profiles",
                     help="directory for the per-phase kernel tables")
+    ap.add_argument("--phases", default="serving,training",
+                    help="comma-separated: serving, training")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     print(torch.cuda.get_device_name(0), flush=True)
-    for row in profile_serving(LlamaConfig.llama3_8b(), out=out):
-        print(json.dumps(row), flush=True)
+    cfg = LlamaConfig.llama3_8b()
+    runs = {"serving": lambda: profile_serving(cfg, out=out),
+            "training": lambda: profile_training(
+                dataclasses.replace(cfg, n_layers=TRAIN_LAYERS), out=out)}
+    for phase in args.phases.split(","):
+        for row in runs[phase]():
+            print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
     return 0
 
 

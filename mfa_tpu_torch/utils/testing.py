@@ -1,8 +1,11 @@
-"""Test utilities: seeded problem generation and tolerance checks.
+"""Test utilities: seeded problem generation, canaries and tolerance
+checks.
 
 Port of ``mfa_tpu/utils/testing.py``. Inputs come from a numpy
 ``Generator`` so that the same arrays can be fed to ``mfa_tpu`` and to
-this package.
+this package. :func:`nan_canary` prefills an output buffer so that an
+element a kernel never writes shows; :func:`garbage_pad` surrounds an
+operand with garbage so that a read past its bounds shows.
 """
 
 from __future__ import annotations
@@ -34,16 +37,50 @@ def _np32(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def nan_canary(shape, dtype: torch.dtype = torch.float32, device="cpu"):
+    """An output buffer prefilled with NaN: catches a kernel that never
+    writes some of its elements."""
+    return torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+
+def garbage_pad(x: torch.Tensor, s_pad: int, d_pad: int,
+                rng: np.random.Generator) -> torch.Tensor:
+    """Pad the sequence/head tail of a [N, S, D] operand to [N, s_pad,
+    d_pad] with uniform garbage in [-20, 20] instead of zeros, so a kernel
+    that reads past the declared bounds corrupts its outputs detectably.
+    Returns ``x`` itself when no padding is asked for."""
+    n, s, d = x.shape
+    if s == s_pad and d == d_pad:
+        return x
+    out = torch.from_numpy(rng.uniform(-20.0, 20.0, size=(n, s_pad, d_pad)))
+    out = out.to(device=x.device, dtype=x.dtype)
+    out[:, :s, :d] = x
+    return out
+
+
 # A kernel against its plain version on the card: same inputs and the same
 # rounding points, so they differ only by summation order and, for flash
 # forward in bf16, by P rounded against the running instead of the final
-# row max. Elementwise budgets (atol, rtol): |kernel - plain| <= atol +
-# rtol * |plain|. 2^-6 is two bf16 ulps of the value itself.
+# row max. In the bf16 backward, S and dP come from tensor-core sums,
+# dS = P (dP - D) cancels (which magnifies their relative difference),
+# and the bf16 rounding of P or dS may then fall the other way; dQ and dK
+# sum up to group * 2048 such terms, each far larger than the result.
+# On an H100 (causal, N = 2048, D = 128) that left |d| up to 1.5e-3 in
+# dQ and dK, against ~2e-4 between two fp32 summation orders on the CPU.
+# Elementwise budgets (atol, rtol): |kernel - plain| <= atol + rtol *
+# |plain|. 2^-6 is two bf16 ulps of the value itself.
 KERNEL_BUDGETS = {
     "flash_fwd_o_bf16": (3e-3, 2.0 ** -6),
     "flash_fwd_o_fp32": (2e-5, 0.0),
     "flash_fwd_l": (1e-4, 0.0),
     "decode_o": (1e-4, 2.0 ** -6),
+    "flash_bwd_dq_bf16": (5e-3, 2.0 ** -6),
+    "flash_bwd_dk_bf16": (5e-3, 2.0 ** -6),
+    "flash_bwd_dv_bf16": (5e-3, 2.0 ** -6),
+    "flash_bwd_dq_fp32": (2e-5, 1e-5),
+    "flash_bwd_dk_fp32": (2e-5, 1e-5),
+    "flash_bwd_dv_fp32": (2e-5, 1e-5),
+    "flash_bwd_dterm": (1e-5, 1e-5),
 }
 
 

@@ -102,7 +102,9 @@ def test_mha_layout_matches_bhsd():
 def test_refusals():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 32))
     with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(q.requires_grad_(), k, v, device="cpu")
+        flash_attention(q.requires_grad_(), k, v, with_lse=True,
+                        device="cpu")
+    q = q.detach()
     big = torch.zeros(1, 2, 8, 264)
     with pytest.raises(ValueError, match="head_dim 264"):
         flash_attention(big, big, big, device="cpu")

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes chip_smoke.py does not reach (odd lengths, every table row's head
-dim, GQA groups 1-8, fp32 queries, windows).
+dim, GQA groups 1-8, fp32 queries, windows, soft-cap), and a tiny Llama
+on the card against the same on the CPU (forward, decode, scheduler,
+training steps).
 
 Needs a CUDA device; skips elsewhere. On the card (no JAX there, so
 without the suite's conftest):
@@ -8,6 +10,7 @@ without the suite's conftest):
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import copy
 import math
 
 import numpy as np
@@ -15,8 +18,9 @@ import pytest
 import torch
 
 from mfa_tpu_torch.kernels import decode as k2
+from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.kernels import flash_fwd as k1
-from mfa_tpu_torch.models import llama
+from mfa_tpu_torch.models import llama, training
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
     AttentionKernelType,
@@ -24,7 +28,13 @@ from mfa_tpu_torch.ops.descriptors import (
 from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.serving import kv_cache
 from mfa_tpu_torch.serving.scheduler import ContinuousBatchingScheduler, Request
-from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, assert_close
+from mfa_tpu_torch.utils.testing import (
+    KERNEL_BUDGETS,
+    assert_close,
+    assert_fully_written,
+    garbage_pad,
+    nan_canary,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -173,3 +183,106 @@ def test_scheduler_on_cuda_matches_cpu(cuda):
         done = {c.request.id: c.tokens for c in sched.run()}
         tokens.append([done[r.id] for r in reqs])
     assert tokens[0] == tokens[1]
+
+
+# (dtype, D, R, C, Hq, Hkv, options, fp32 O)
+BWD_CASES = [
+    ("bf16", 32, 150, 70, 4, 4, dict(causal=True)),             # R > C
+    ("bf16", 64, 96, 96, 4, 2, dict(causal=True), True),        # fp32 O
+    ("bf16", 64, 300, 300, 4, 2, dict(causal=True)),
+    ("bf16", 96, 129, 257, 6, 3, dict()),                       # D padded
+    ("bf16", 36, 65, 77, 2, 1, dict(causal=True)),              # no 16 B loads
+    ("bf16", 128, 200, 333, 8, 1, dict(sliding_window=50,
+                                       logit_soft_cap=30.0)),
+    ("bf16", 128, 64, 500, 8, 2, dict(causal=True,
+                                      sliding_window=40)),      # unseen keys
+    ("bf16", 256, 190, 190, 8, 2, dict(causal=True)),
+    ("fp32", 64, 100, 100, 4, 2, dict(causal=True)),
+    ("fp32", 256, 77, 130, 2, 1, dict()),
+    ("fp32", 40, 65, 65, 4, 2, dict(sliding_window=9)),
+    ("fp32", 128, 50, 120, 8, 8, dict(causal=True, logit_soft_cap=20.0)),
+]
+
+
+def _followed_by_garbage(x, rng):
+    """x's values in a contiguous tensor whose storage runs on into
+    uniform garbage (a read past the end corrupts the result)."""
+    n = x.numel() // x.shape[-1]
+    buf = garbage_pad(x.reshape(1, n, x.shape[-1]), n + 64, x.shape[-1], rng)
+    return buf[0, :n].view(x.shape)
+
+
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=[f"k34-{c[0]}-D{c[1]}-{c[2]}x{c[3]}-G{c[4] // c[5]}"
+                              for c in BWD_CASES])
+def test_flash_bwd_kernels_match_plain(cuda, case):
+    dt, d, r, c, hq, hkv, opts, *o_f32 = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    gen = torch.Generator(device=cuda).manual_seed(d + r + c)
+    rng = np.random.default_rng(d + r)
+
+    def rnd(h, s):
+        return _followed_by_garbage(
+            torch.randn((h, s, d), generator=gen, device=cuda).to(dtype), rng)
+
+    q, k, v, do = rnd(hq, r), rnd(hkv, c), rnd(hkv, c), rnd(hq, r)
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
+        seq_len_kv=c, head_dim=d, low_precision_inputs=dt == "bf16",
+        low_precision_intermediates=dt == "bf16", **opts)
+    kd_f, kd_q, kd_kv = (desc.kernel_descriptor(t)
+                         for t in AttentionKernelType)
+    kw = dict(group=hq // hkv, scale=desc.softmax_scale)
+    o, lse = k1.flash_fwd(q, k, v, kd_f, **kw,
+                          o_dtype=torch.float32 if o_f32 else dtype)
+    n3, n4 = k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches
+    dq, dterm = k34.flash_bwd_q(
+        q, k, v, o, do, lse, kd_q, **kw,
+        out=(nan_canary((hq, r, d), device=cuda),
+             nan_canary((hq, r), device=cuda)))
+    dk, dv = k34.flash_bwd_kv(
+        q, k, v, do, lse, dterm, kd_kv, **kw,
+        out=(nan_canary((hkv, c, d), device=cuda),
+             nan_canary((hkv, c, d), device=cuda)))
+    torch.cuda.synchronize()
+    assert (k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches) == (n3 + 1,
+                                                                     n4 + 1)
+    for name, t in (("dQ", dq), ("D-term", dterm), ("dK", dk), ("dV", dv)):
+        assert_fully_written(t, name)
+    dq_p, dterm_p = k34.flash_bwd_q_plain(q, k, v, o, do, lse, kd_q, **kw)
+    dk_p, dv_p = k34.flash_bwd_kv_plain(q, k, v, do, lse, dterm, kd_kv, **kw)
+    for key, got, want in (("dterm", dterm, dterm_p), (f"dq_{dt}", dq, dq_p),
+                           (f"dk_{dt}", dk, dk_p), (f"dv_{dt}", dv, dv_p)):
+        atol, rtol = KERNEL_BUDGETS[f"flash_bwd_{key}"]
+        assert_close(got, want, atol, key, rtol=rtol)
+    # Atomics-free: a second run gives the same bits.
+    dk2, dv2 = k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd_kv, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_tiny_llama_train_step_on_cuda_matches_cpu(cuda):
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(2),
+                               torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 33)))
+    runs = []
+    for dev in ("cpu", cuda):
+        # A copy: on the CPU the model's parameters alias the tensors it is
+        # given, and train_step updates them in place.
+        model = llama.Llama(cfg, copy.deepcopy(params), device=dev,
+                            trainable=True)
+        state = training.create_train_state(
+            model, training.make_optimizer(lr=1e-2, warmup_steps=1,
+                                           total_steps=50))
+        losses = [float(training.train_step(state, tokens.to(dev))["loss"])]
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        losses += [float(training.train_step(state, tokens.to(dev))["loss"])
+                   for _ in range(3)]
+        runs.append((losses, grads))
+    (loss_c, grads_c), (loss_g, grads_g) = runs
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-4)
+    assert loss_g[-1] < loss_g[0]
+    for name, g in grads_g.items():
+        tol = 1e-4 * float(grads_c[name].abs().max())
+        assert_close(g, grads_c[name], tol, name)

@@ -15,9 +15,10 @@ import torch
 import mfa_tpu_torch
 from mfa_tpu_torch.kernels import build
 from mfa_tpu_torch.kernels import decode as k2
+from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.kernels import flash_fwd as k1
 from mfa_tpu_torch.models import llama
-from mfa_tpu_torch.ops.attention import flash_attention
+from mfa_tpu_torch.ops.attention import attention_chunk_grads, flash_attention
 from mfa_tpu_torch.ops.decode import decode_attention_append
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
@@ -58,6 +59,10 @@ def test_entry_points_raise_without_gpu_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flash_attention(q, q, q)
     flash_attention(q, q, q, device="cpu")
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        attention_chunk_grads(q, q, q, q, q, lse)
+    attention_chunk_grads(q, q, q, q, q, lse, device="cpu")
 
     cache = kv_cache.create(1, 2, 8, 16, device="cpu")
     x = torch.zeros(1, 2, 16)
@@ -70,6 +75,9 @@ def test_entry_points_raise_without_gpu_unless_cpu(monkeypatch):
     cfg = llama.LlamaConfig.tiny()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llama.Llama.init(cfg, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.Llama.init(cfg, generator=torch.Generator().manual_seed(0),
+                         trainable=True)
     model = llama.Llama.init(cfg, generator=torch.Generator().manual_seed(0),
                              dtype=torch.float32, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -77,11 +85,14 @@ def test_entry_points_raise_without_gpu_unless_cpu(monkeypatch):
     ContinuousBatchingScheduler(model, device="cpu")
 
 
-def _kd(causal=True):
+def _kd(causal=True, kind=AttentionKernelType.FORWARD):
     return AttentionDescriptor(
         batch=1, num_q_heads=2, num_kv_heads=1, seq_len_q=8, seq_len_kv=8,
-        head_dim=16, causal=causal).kernel_descriptor(
-            AttentionKernelType.FORWARD)
+        head_dim=16, causal=causal).kernel_descriptor(kind)
+
+
+_KD_Q = dict(kind=AttentionKernelType.BACKWARD_QUERY)
+_KD_KV = dict(kind=AttentionKernelType.BACKWARD_KEY_VALUE)
 
 
 def test_wrappers_take_plain_version_only_for_cpu_tensors(monkeypatch):
@@ -89,7 +100,9 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors(monkeypatch):
         raise AssertionError("kernel library touched for CPU tensors")
 
     monkeypatch.setattr(build, "library", no_library)
-    n1, n2 = k1.flash_fwd.launches, k2.decode_fused_append.launches
+    counters = (k1.flash_fwd, k2.decode_fused_append, k34.flash_bwd_q,
+                k34.flash_bwd_kv)
+    before = [f.launches for f in counters]
     q3 = torch.randn(2, 8, 16)
     kv = torch.randn(1, 8, 16)
     o, lse = k1.flash_fwd(q3, kv, kv, _kd(), group=2, scale=0.25,
@@ -102,7 +115,23 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors(monkeypatch):
     k2.decode_fused_append(torch.randn(1, 2, 16), c.k[0], c.v[0],
                            c.k_scale[0], c.v_scale[0], x, x, c.lengths,
                            num_kv_heads=1)
-    assert (k1.flash_fwd.launches, k2.decode_fused_append.launches) == (n1, n2)
+    do = torch.randn(2, 8, 16)
+    kw = dict(group=2, scale=0.25)
+    dq, dterm = k34.flash_bwd_q(q3, kv, kv, o, do, lse, _kd(**_KD_Q), **kw)
+    dq_p, dterm_p = k34.flash_bwd_q_plain(q3, kv, kv, o, do, lse,
+                                          _kd(**_KD_Q), **kw)
+    assert torch.equal(dq, dq_p) and torch.equal(dterm, dterm_p)
+    dk, dv = k34.flash_bwd_kv(q3, kv, kv, do, lse, dterm, _kd(**_KD_KV),
+                              **kw)
+    dk_p, dv_p = k34.flash_bwd_kv_plain(q3, kv, kv, do, lse, dterm,
+                                        _kd(**_KD_KV), **kw)
+    assert torch.equal(dk, dk_p) and torch.equal(dv, dv_p)
+    # Gradients through the autograd function take the same plain path.
+    qg = torch.randn(1, 2, 8, 16, requires_grad=True)
+    flash_attention(qg, kv[None], kv[None], causal=True,
+                    device="cpu").sum().backward()
+    assert qg.grad is not None
+    assert [f.launches for f in counters] == before
 
 
 def test_wrappers_refuse_other_devices():
@@ -111,6 +140,13 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         k1.flash_fwd(meta, kv, kv, _kd(), group=2, scale=0.25,
                      o_dtype=torch.float32)
+    lse = torch.empty(2, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k34.flash_bwd_q(meta, kv, kv, meta, meta, lse, _kd(**_KD_Q),
+                        group=2, scale=0.25)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k34.flash_bwd_kv(meta, kv, kv, meta, lse, lse, _kd(**_KD_KV),
+                         group=2, scale=0.25)
 
 
 def test_no_try_except_in_the_port():
@@ -125,11 +161,16 @@ def test_no_try_except_in_the_port():
 
 
 def test_cuda_sources_carry_their_notes():
-    for name, tpu in (("flash_fwd.cu", "_fwd_tablegrid_kernel"),
-                      ("decode.cu", "_decode_fused_kernel")):
+    for name, tpus in (("flash_fwd.cu", ["_fwd_tablegrid_kernel"]),
+                       ("decode.cu", ["_decode_fused_kernel"]),
+                       ("flash_bwd.cu", ["_bwd_q_kernel", "_bwd_kv_kernel"])):
         text = (PKG / "csrc" / name).read_text()
-        assert tpu in text and "bound" in text and "sm_90a" in text
+        assert all(tpu in text for tpu in tpus)
+        assert "bound" in text and "sm_90a" in text
         assert "cudaGetLastError" in text
+    for name in build._SIGNATURES:
+        assert any(f'"C" int {name}(' in p.read_text()
+                   for p in (PKG / "csrc").glob("*.cu")), name
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):
@@ -147,10 +188,11 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
 def test_parameter_tables_fit_one_sm():
     from mfa_tpu_torch.ops import params
 
-    for prec, in_bytes in (("bf16", 2), ("fp32", 4)):
-        for row in params.parameter_table("flash_fwd", prec):
-            assert params.flash_fwd_smem_bytes(row, in_bytes) \
-                <= params.H100.smem_per_block
+    for kernel in ("flash_fwd", "flash_bwd_q", "flash_bwd_kv"):
+        for prec, in_bytes in (("bf16", 2), ("fp32", 4)):
+            for row in params.parameter_table(kernel, prec):
+                assert params.smem_bytes(kernel, row, in_bytes) \
+                    <= params.H100.smem_per_block
     rows = params.parse_table("64 | 1 | 2 | 3\ninf | 4 | 5 | 6")
     assert params.select_row(rows, 64).block_q == 1
     assert params.select_row(rows, 65).block_q == 4
