@@ -11,29 +11,44 @@ phase's failure is caught):
              prefill shapes (Hq=32, Hkv=8, D=128, N=2048): causal,
              non-causal, sliding window 512, soft-cap 50, R != C, fp32.
 4. k2      — fused decode + append kernel against its plain version for
-             bf16, INT8 and FP8-e4m3 caches (B=4, Hkv=8, G=4, D=128,
-             max_len 2048 and 8192, lengths including 0 and max_len):
-             O, appended rows, scales, and lengths after a step.
+             bf16, INT8, FP8-e4m3 and FP8-e5m2 caches (B=4, Hkv=8, G=4,
+             D=128, max_len 2048 and 8192, lengths including 0 and
+             max_len): O, appended rows, scales, and lengths after a step.
              O and L are held elementwise to
              mfa_tpu_torch.utils.testing.KERNEL_BUDGETS.
-5. serving — Llama-3-8B at full width and depth with random bf16 weights
+5. k5      — unfused decode kernel through its entry point
+             ops.decode.decode_attention, after kv_cache.update, against
+             the same call with its plain version, for the four storage
+             types at max_len 2048 and 8192 (lengths 0, 777, L-1, L) and
+             one window-512 case; SDPA timed as a yardstick for bf16.
+6. k6      — paged decode kernel against its plain version: 8 sequences
+             (lengths 0-2048) over a pool with shuffled page ids, pages of
+             128 and 512 tokens, the four storage types and a window; its
+             time beside K5's on the same rows.
+7. serving — Llama-3-8B at full width and depth with random bf16 weights
              behind the continuous-batching scheduler (4 slots, max_len
              2048), six greedy requests, once per KV format; launch
              counters prove K1 carried every prefill and K2 every decode.
-6. bwd     — backward kernels K3 (dQ, D-term) and K4 (dK, dV) against
+8. paged_serving — the same model behind the paged scheduler (8 slots,
+             512-token pages, a pool too small for all requests at once),
+             the six prompts twice, 16 greedy tokens each, once per KV
+             format; counters prove K1 carried every prefill and K6 every
+             decode (K2 none); pages all return; one step's logits through
+             K6 against the same step through its plain version.
+9. bwd     — backward kernels K3 (dQ, D-term) and K4 (dK, dV) against
              their plain versions at Llama-3-8B attention shapes: causal,
              non-causal, sliding window 512, soft-cap 50, R=512 with
              C=2048, window 512 with R=512 and C=2048 (keys no query
              sees), fp32 causal; elementwise at KERNEL_BUDGETS, outputs
              prefilled with NaN, K4 bit-reproducible; the backward of
              torch's scaled_dot_product_attention timed as a yardstick.
-7. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
+10. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
              does not fit 80 GB), random bf16 weights, trainable: one
              step's loss and grads through K1/K3/K4 against the same with
              their plain versions, then six train_steps on one 1 x 2049
              batch from TokenDataset; finite, falling loss, and K1, K3, K4
              each launched n_layers times per step.
-8. kernels — one JSON line per the port's kernel table.
+11. kernels — one JSON line per the port's kernel table.
 
 The last line is {"ok": true, "device": {...}}. Run from the repository
 root: ``python3 chip_smoke.py``.
@@ -208,6 +223,27 @@ def phase_k1(torch):
     return results["causal"]
 
 
+def _kv_formats():
+    """(name, OperandPrecision) of the four KV storage types."""
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+
+    return [("bf16", OperandPrecision.BF16),
+            ("int8", OperandPrecision.INT8),
+            ("fp8_e4m3", OperandPrecision.FP8_E4M3),
+            ("fp8_e5m2", OperandPrecision.FP8_E5M2)]
+
+
+def _decode_bytes(live_rows, storage, d, q_rows):
+    """Bytes one-token decode must move: each live K and V row once (with
+    its two fp32 scales for quantized storage; a bf16 cache's scales are
+    never read), q read and O written in bf16."""
+    import torch
+
+    itemsize = torch.empty((), dtype=storage).element_size()
+    row = 2 * d * itemsize + (8 if storage != torch.bfloat16 else 0)
+    return live_rows * row + 2 * q_rows * d * 2
+
+
 def phase_k2(torch):
     from mfa_tpu_torch.kernels import decode as k2
     from mfa_tpu_torch.ops.decode import decode_attention_append
@@ -219,12 +255,9 @@ def phase_k2(torch):
     b, hkv, g, d = 4, 8, 4, 128
     bh = b * hkv
     budget = KERNEL_BUDGETS["decode_o"]
-    formats = [("bf16", OperandPrecision.BF16),
-               ("int8", OperandPrecision.INT8),
-               ("fp8_e4m3", OperandPrecision.FP8_E4M3)]
     results = {}
     for max_len in (2048, 8192):
-        for name, prec in formats:
+        for name, prec in _kv_formats():
             cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
             fill = torch.randn((b, hkv, max_len, d), generator=gen,
                                device="cuda")
@@ -315,17 +348,183 @@ def phase_k2(torch):
     return results["bf16_L2048"]
 
 
+def phase_k5(torch):
+    """K5 through its entry point, against the same call with the plain
+    version swapped in. Returns (kernel-table row, launches through the
+    entry point)."""
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import decode as k5
+    from mfa_tpu_torch.kernels.flash_fwd import LOG2E
+    from mfa_tpu_torch.ops.decode import decode_attention
+    from mfa_tpu_torch.serving import kv_cache
+    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, hkv, g, d = 4, 8, 4, 128
+    bh, scale = b * hkv, 1.0 / math.sqrt(d)
+    budget = KERNEL_BUDGETS["decode_attend_o"]
+    cases = [(max_len, name, prec, None) for max_len in (2048, 8192)
+             for name, prec in _kv_formats()]
+    cases.append((2048, "bf16", dict(_kv_formats())["bf16"], 512))
+    results, launches = {}, 0
+    for max_len, name, prec, window in cases:
+        cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
+        kv_cache.update(cache, *torch.randn((2, b, hkv, max_len, d),
+                                            generator=gen, device="cuda"))
+        lens = [0, 777, max_len - 1, max_len]
+        cache.lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn((b, hkv * g, d), generator=gen,
+                        device="cuda").bfloat16()
+        torch.cuda.synchronize()
+        k5.decode_attend.launches = 0
+        o_k = decode_attention(q, cache, sliding_window=window)
+        torch.cuda.synchronize()
+        n5 = k5.decode_attend.launches
+        launches += n5
+        with plain_kernels():
+            o_p = decode_attention(q, cache, sliding_window=window)
+        err = max_err(o_k, o_p)
+        share = budget_share(o_k, o_p, *budget)
+        o_rms = float(o_p.float().square().mean().sqrt())
+        empty_zero = not bool(o_k[0].any())        # length 0 gives zeros
+        ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
+              and n5 == 1 and empty_zero)
+        q3 = (q.float() * (scale * LOG2E)).bfloat16().reshape(bh, g, d)
+        args = (cache.k.view(bh, max_len, d), cache.v.view(bh, max_len, d),
+                cache.k_scale.view(bh, max_len),
+                cache.v_scale.view(bh, max_len), cache.lengths)
+        kw = dict(num_kv_heads=hkv, sliding_window=window)
+        ms = cuda_ms(torch, lambda: k5.decode_attend(q3, *args, **kw),
+                     iters=50)
+        plain_ms = cuda_ms(torch, lambda: k5.decode_attend_plain(
+            q3, *args, **kw), iters=5, warmup=1)
+        live = sum(min(x, window or x) for x in lens) * hkv
+        bound_ms, bound_by = _bound(4 * g * d * live,
+                                    _decode_bytes(live, cache.k.dtype, d,
+                                                  bh * g), BF16_FLOPS)
+        library_ms = None
+        if name == "bf16":
+            # Yardstick only: one SDPA call over the same cache, with the
+            # live columns as a boolean mask.
+            col = torch.arange(max_len, device="cuda")
+            lt = cache.lengths.long()[:, None]
+            mask = col < lt
+            if window:
+                mask &= col >= (lt - window).clamp_min(0)
+            qs = q[:, :, None, :]
+            library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, cache.k, cache.v, attn_mask=mask[:, None, None, :],
+                scale=scale, enable_gqa=True), iters=20)
+        key = f"{name}_L{max_len}" + (f"_w{window}" if window else "")
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+        emit({"phase": "k5", "case": key, "lengths": lens, "err_o": err,
+              "o_rms": o_rms, "budget_o": budget, "share_o": share,
+              "launches": n5, "empty_slot_zero": empty_zero, "ok": ok,
+              **{k_: v_ for k_, v_ in results[key].items()
+                 if k_ != "max_abs_err"}})
+        if not ok:
+            raise SystemExit(f"k5 {key}: kernel disagrees with its plain "
+                             f"version (O uses {share} of |d| <= "
+                             f"{budget[0]} + {budget[1]}|O|, launches {n5}, "
+                             f"empty slot zero {empty_zero})")
+        del cache, o_k, o_p
+    emit({"phase": "k5_done", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return results["bf16_L2048"], launches
+
+
+def phase_k6(torch):
+    """K6 against its plain version, and against K5 on the same rows.
+    Returns the kernel-table row at 512-token pages (the serving path's)."""
+    from mfa_tpu_torch.kernels import decode as k5
+    from mfa_tpu_torch.kernels import paged_decode as k6
+    from mfa_tpu_torch.utils.testing import (
+        KERNEL_BUDGETS,
+        budget_share,
+        shuffled_page_pool,
+    )
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    s, hkv, g, d, max_len = 8, 8, 4, 128, 2048
+    lens = [0, 1, 511, 512, 513, 777, 2047, 2048]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    budget = KERNEL_BUDGETS["paged_decode_o"]
+    results = {}
+    for ps in (128, 512):
+        max_pages = max_len // ps
+        cases = [(name, prec, None) for name, prec in _kv_formats()]
+        cases.append(("bf16", dict(_kv_formats())["bf16"], 512))
+        for name, prec, window in cases:
+            operands = (*shuffled_page_pool(prec.dtype, lens, hkv, d, ps,
+                                            max_pages, generator=gen,
+                                            device="cuda"), lengths)
+            q3 = (torch.randn((s * hkv, g, d), generator=gen, device="cuda")
+                  * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+            o_k = k6.paged_decode(q3, *operands, sliding_window=window)
+            torch.cuda.synchronize()
+            o_p = k6.paged_decode_plain(q3, *operands, sliding_window=window)
+            err = max_err(o_k, o_p)
+            share = budget_share(o_k, o_p, *budget)
+            o_rms = float(o_p.float().square().mean().sqrt())
+            # K5 over the same rows gathered into a contiguous cache.
+            rows = [k6.gather_rows(t, operands[4]).contiguous()
+                    for t in operands[:4]]
+            o_c = k5.decode_attend(q3, *rows, lengths, num_kv_heads=hkv,
+                                   sliding_window=window)
+            same_as_k5 = bool(torch.equal(o_k, o_c))
+            ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
+                  and same_as_k5 and not bool(o_k[:hkv].any()))
+            ms = cuda_ms(torch, lambda: k6.paged_decode(
+                q3, *operands, sliding_window=window), iters=50)
+            k5_ms = cuda_ms(torch, lambda: k5.decode_attend(
+                q3, *rows, lengths, num_kv_heads=hkv,
+                sliding_window=window), iters=50)
+            plain_ms = cuda_ms(torch, lambda: k6.paged_decode_plain(
+                q3, *operands, sliding_window=window), iters=5, warmup=1)
+            live = sum(min(x, window or x) for x in lens) * hkv
+            nbytes = (_decode_bytes(live, prec.dtype, d, s * hkv * g)
+                      + 4 * (s * max_pages + s))
+            bound_ms, bound_by = _bound(4 * g * d * live, nbytes, BF16_FLOPS)
+            key = f"{name}_page{ps}" + (f"_w{window}" if window else "")
+            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=None)
+            emit({"phase": "k6", "case": key, "lengths": lens, "err_o": err,
+                  "o_rms": o_rms, "budget_o": budget, "share_o": share,
+                  "equal_to_k5": same_as_k5, "k5_ms_same_rows": k5_ms,
+                  "paged_over_contiguous": ms / k5_ms, "ok": ok,
+                  **{k_: v_ for k_, v_ in results[key].items()
+                     if k_ != "max_abs_err"}})
+            if not ok:
+                raise SystemExit(f"k6 {key}: kernel disagrees with its plain "
+                                 f"version (O uses {share} of |d| <= "
+                                 f"{budget[0]} + {budget[1]}|O|, equal to "
+                                 f"K5 {same_as_k5})")
+            del operands, rows, o_k, o_p, o_c
+    emit({"phase": "k6_done", "seconds": time.perf_counter() - t0})
+    return results["bf16_page512"]
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """K1, K3 and K4 swapped for their plain versions, for the in-context
-    checks: ops/attention.py looks the kernel functions up in their
-    modules at each call."""
+    """K1, K3, K4, K5 and K6 swapped for their plain versions, for the
+    in-context checks: ops/attention.py and ops/decode.py look the kernel
+    functions up in their modules at each call."""
+    from mfa_tpu_torch.kernels import decode as k5
     from mfa_tpu_torch.kernels import flash_bwd as k34
     from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.kernels import paged_decode as k6
 
     swaps = [(k1, "flash_fwd", k1.flash_fwd_plain),
              (k34, "flash_bwd_q", k34.flash_bwd_q_plain),
-             (k34, "flash_bwd_kv", k34.flash_bwd_kv_plain)]
+             (k34, "flash_bwd_kv", k34.flash_bwd_kv_plain),
+             (k5, "decode_attend", k5.decode_attend_plain),
+             (k6, "paged_decode", k6.paged_decode_plain)]
     real = [getattr(mod, attr) for mod, attr, _ in swaps]
     for mod, attr, plain in swaps:
         setattr(mod, attr, plain)
@@ -389,7 +588,7 @@ def phase_serving(torch):
         raise SystemExit(f"k1 in context: logits differ by {err} > {budget}")
 
     launches = {"flash_fwd": 0, "decode_fused_append": 0}
-    summary = {}
+    summary, bf16_tokens = {}, None
     for name, prec in (("bf16", OperandPrecision.BF16),
                        ("int8", OperandPrecision.INT8),
                        ("fp8_e4m3", OperandPrecision.FP8_E4M3)):
@@ -439,9 +638,132 @@ def phase_serving(torch):
         if not ok:
             raise SystemExit(f"serving {name}: completions or launch counts "
                              f"wrong ({summary[name]})")
+        if name == "bf16":
+            bf16_tokens = [done[r.id].tokens for r in reqs]
         del sched
         torch.cuda.empty_cache()
-    return launches
+    return launches, model, prompts, bf16_tokens
+
+
+# Pages in the paged-serving pool, the null page included. The reckoning,
+# for 512-token pages and the six prompts (50, 120, 250, 500, 1000, 1900
+# tokens) queued twice in that order: admission asks for the pages of
+# prompt + 1 tokens, 1, 1, 1, 1, 2 and 4 pages, and a 16-token answer
+# grows only the 500-token prompt, into a second page. With 9 usable pages
+# the first five requests take 6, the 1900-token prompt (4) is deferred
+# (oom_deferred), and growth leaves 2 free; then 1900, 50, 120, 250 and
+# 500 take 8, the 1000-token prompt (2) is deferred, and growth takes the
+# last page; then 1000 and 1900 take 6. So the requests never fit at
+# once, yet decode growth never exhausts the pool (admission counts only
+# prompt pages, so a tighter pool would raise MemoryError mid-decode).
+# Bytes: 10 pages x 32 layers x K and V x 8 kv heads x 512 x 128, 640 MiB
+# in bf16.
+PAGED_POOL_PAGES = 10
+
+
+def phase_paged_serving(torch, model, prompts, contiguous_tokens):
+    """The paged scheduler at full width and depth, per KV format. Returns
+    K1's and K6's launches on this path."""
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import decode as k2
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.kernels import paged_decode as k6
+    from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
+    from mfa_tpu_torch.serving.scheduler import Request
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    kw = dict(num_slots=8, num_pages=PAGED_POOL_PAGES, page_size=512,
+              max_len=2048, device="cuda")
+
+    # In-context check of K6: one decode step's logits through K6 and
+    # through its plain version, from the same state (the step's append
+    # writes the same rows both times).
+    sched = PagedScheduler(model, **kw)
+    for p in prompts:
+        sched.submit(Request(prompt=p, max_new_tokens=16))
+    sched.step()
+    sched._ensure_decode_capacity()
+    with torch.inference_mode():
+        inputs = sched._step_inputs()
+        active = [i for i, x in enumerate(sched.slots) if x is not None]
+        logits_k = sched._decode_step(*inputs)[active]
+        with plain_kernels():
+            logits_p = sched._decode_step(*inputs)[active]
+    scale = float(logits_p.abs().max())
+    err = max_err(logits_k, logits_p)
+    budget = 5e-2 * max(1.0, scale)
+    argmax_equal = bool(torch.equal(logits_k.argmax(-1), logits_p.argmax(-1)))
+    emit({"phase": "k6_in_context", "active_slots": len(active),
+          "max_abs_err": err, "budget": budget, "max_abs_logit": scale,
+          "argmax_equal": argmax_equal})
+    if not (err <= budget and argmax_equal):
+        raise SystemExit(f"k6 in context: logits differ by {err} (budget "
+                         f"{budget}), argmax equal {argmax_equal}")
+    del sched
+    torch.cuda.empty_cache()
+
+    k1_launches = k6_launches = 0
+    for name, prec in _kv_formats()[:3]:
+        sched = PagedScheduler(model, kv_precision=prec, **kw)
+        start_free = sched.free_pages
+        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts * 2]
+        for r in reqs:
+            sched.submit(r)
+        torch.cuda.synchronize()
+        for f in (k1.flash_fwd, k2.decode_fused_append, k6.paged_decode):
+            f.launches = 0
+        decode_only = []
+        t_run = time.perf_counter()
+        for _ in range(2000):
+            pre = sched.stats["prefills"]
+            t_s = time.perf_counter()
+            progressed = sched.step()
+            torch.cuda.synchronize()
+            if not progressed and not sched.queue:
+                break
+            if sched.stats["prefills"] == pre:
+                decode_only.append((time.perf_counter() - t_s) * 1e3)
+        else:
+            raise SystemExit(f"paged serving {name}: no end after 2000 steps")
+        sched._retire()
+        run_s = time.perf_counter() - t_run
+        n1, n2, n6 = (k1.flash_fwd.launches, k2.decode_fused_append.launches,
+                      k6.paged_decode.launches)
+        k1_launches += n1
+        k6_launches += n6
+        done = {c.request.id: c for c in sched.finished}
+        stats = dict(sched.stats)
+        toks = [done[r.id].tokens for r in reqs if r.id in done]
+        same = sum(a == b for t, ref in zip(toks, contiguous_tokens * 2)
+                   for a, b in zip(t, ref))
+        summary = dict(
+            completions=len(done), tokens=stats["tokens"],
+            prefills=stats["prefills"], decode_steps=stats["decode_steps"],
+            oom_deferred=stats["oom_deferred"], k1_launches=n1,
+            k2_launches=n2, k6_launches=n6, free_pages=sched.free_pages,
+            start_free_pages=start_free, run_s=run_s,
+            decode_ms_per_step=(float(np.median(decode_only))
+                                if decode_only else None),
+            tokens_per_s=stats["tokens"] / run_s,
+            share_equal_to_contiguous_bf16=same / (16 * len(reqs)))
+        ok = (len(done) == len(reqs)
+              and all(len(done[r.id].tokens) == 16 for r in reqs)
+              and stats["prefills"] == len(reqs)
+              and n1 == cfg.n_layers * stats["prefills"]
+              and n6 == cfg.n_layers * stats["decode_steps"] and n2 == 0
+              and sched.free_pages == start_free
+              and stats["oom_deferred"] >= 1)
+        emit({"phase": "paged_serving", "kv": name, "ok": ok, **summary})
+        if not ok:
+            raise SystemExit(f"paged serving {name}: completions, launch "
+                             f"counts or pages wrong ({summary})")
+        del sched
+        torch.cuda.empty_cache()
+    emit({"phase": "paged_serving_done", "seconds": time.perf_counter() - t0,
+          "k1_launches": k1_launches, "k6_launches": k6_launches})
+    return k1_launches, k6_launches
 
 
 def _sdpa_backward_ms(torch, F, q, k, v, do, mask, is_causal, scale):
@@ -695,16 +1017,24 @@ def main() -> int:
     phase_build()
     k1_row = phase_k1(torch)
     k2_row = phase_k2(torch)
-    launches = phase_serving(torch)
+    k5_row, k5_launches = phase_k5(torch)
+    k6_row = phase_k6(torch)
+    launches, model, prompts, bf16_tokens = phase_serving(torch)
+    paged_k1, k6_launches = phase_paged_serving(torch, model, prompts,
+                                                bf16_tokens)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     bwd_row = phase_bwd(torch)
     train_launches = phase_training(torch)
-    # K1 runs on both main paths: its launches are the serving runs' and
-    # the training run's together.
+    # K1 runs on three main paths: its launches are the two serving runs'
+    # and the training run's together.
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "mfa_tpu/kernels/flash_fwd.py:349",
-         "launches": launches["flash_fwd"] + train_launches["flash_fwd"],
+         "launches": (launches["flash_fwd"] + paged_k1
+                      + train_launches["flash_fwd"]),
          **{k: v for k, v in k1_row.items() if k != "lse_err"}},
         {"name": "decode_fused_append", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode.cu",
@@ -718,6 +1048,15 @@ def main() -> int:
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:427",
          "launches": train_launches["flash_bwd_kv"], **bwd_row["kv"]},
+        # K5's path is its entry point, decode_attention, driven in k5.
+        {"name": "decode_attend", "route": "cuda",
+         "source": "mfa_tpu_torch/csrc/decode_attend.cu",
+         "replaces": "mfa_tpu/kernels/decode.py:101 and :208",
+         "launches": k5_launches, **k5_row},
+        {"name": "paged_decode", "route": "cuda",
+         "source": "mfa_tpu_torch/csrc/decode_attend.cu",
+         "replaces": "mfa_tpu/kernels/paged_decode.py:43",
+         "launches": k6_launches, **k6_row},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

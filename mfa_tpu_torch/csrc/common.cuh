@@ -83,4 +83,54 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// KV-cache storage formats, as the decode wrappers number them:
+// 0 bf16, 1 int8, 2 fp8-e4m3, 3 fp8-e5m2.
+// One chunk of 8 stored values: 16 bytes of bf16 or 8 of int8 / fp8.
+template <int KVF>
+struct Chunk {
+  using type = typename std::conditional<KVF == 0, uint4, uint2>::type;
+};
+
+template <int KVF>
+__device__ __forceinline__ typename Chunk<KVF>::type load_chunk(
+    const void* base, size_t at) {
+  using T = typename Chunk<KVF>::type;
+  const char* b = static_cast<const char*>(base);
+  return *reinterpret_cast<const T*>(b + at * (KVF == 0 ? 2 : 1));
+}
+
+// Widen a chunk to fp32 (Hopper's native conversions; exact).
+template <int KVF>
+__device__ __forceinline__ void to_float8(const typename Chunk<KVF>::type& c,
+                                          float* x) {
+  if constexpr (KVF == 0) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else if constexpr (KVF == 1) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(b[i]);
+  } else if constexpr (KVF == 2) {
+    const __nv_fp8_e4m3* b = reinterpret_cast<const __nv_fp8_e4m3*>(&c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(b[i]);
+  } else {
+    const __nv_fp8_e5m2* b = reinterpret_cast<const __nv_fp8_e5m2*>(&c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(b[i]);
+  }
+}
+
+// One element of a bf16 (is_bf16) or fp32 tensor, as fp32.
+__device__ __forceinline__ float load_q(const void* base, size_t at,
+                                        int is_bf16) {
+  return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[at])
+                 : static_cast<const float*>(base)[at];
+}
+
 }  // namespace mfa

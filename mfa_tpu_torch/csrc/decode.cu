@@ -5,17 +5,19 @@
 // G = Hq / Hkv query rows of the group stay together, so one pass over the
 // cache's K rows and one over its V rows serve the whole group. Live rows
 // are [max(0, len + 1 - W), len); the new token's column comes from the
-// unquantized k_new / v_new. The cache is bf16, int8 or fp8-e4m3 with
-// per-token scales that multiply S and P, as on the TPU; fp8 is widened by
-// Hopper's native conversion (exact, where the TPU bit-twiddle mapped
-// subnormals to ~2^-7). The int8 path reproduces the TPU kernel's s8
-// requantization of q and P per row, with integer dot products.
+// unquantized k_new / v_new. The cache is bf16, int8, fp8-e4m3 or
+// fp8-e5m2 with per-token scales that multiply S and P, as on the TPU;
+// fp8 is widened by Hopper's native conversion (exact, where the TPU
+// bit-twiddle mapped subnormals to ~2^-7). The int8 path reproduces the
+// TPU kernel's s8 requantization of q and P per row, with integer dot
+// products.
 //
 // The new row is quantized exactly as quantize_int8 / quantize_fp8 do
-// (scale = max(amax, 1e-8) * (1/127) or * (1/448), int8 rounds half to
-// even and clips at +-127) and written with its scales at lengths[b];
-// nothing is written when lengths[b] == max_len. The cache is updated in
-// place.
+// (scale = max(amax, 1e-8) * (1/127), * (1/448) for e4m3 or * (1/57344)
+// for e5m2, as mfa_tpu keys fp8's maximum on the storage kind; int8
+// rounds half to even and clips at +-127) and written with its scales at
+// lengths[b]; nothing is written when lengths[b] == max_len. The cache is
+// updated in place.
 //
 // Three passes over the live rows: (1) S into a global scratch row and the
 // row max, (2) P = exp2(S - m), the row sum and, for int8, max |P * vs|,
@@ -44,6 +46,7 @@ constexpr int kUnroll = 8;   // rows in flight per thread
 // mfa_tpu computes them under jax.jit (see kernels/quant.py).
 constexpr float kInv127 = 1.0f / 127.0f;
 constexpr float kInv448 = 1.0f / 448.0f;
+constexpr float kInv57344 = 1.0f / 57344.0f;
 
 struct DecodeParams {
   const void* q;        // [BH, G, D] pre-scaled by scale*log2e, q dtype
@@ -59,48 +62,6 @@ struct DecodeParams {
   int hkv, group, max_len, D, window;
   int q_bf16;
 };
-
-// One chunk of 8 stored values: 16 bytes of bf16 or 8 of int8 / fp8.
-template <int KVF>  // 0 bf16, 1 int8, 2 fp8-e4m3
-struct Chunk {
-  using type = typename std::conditional<KVF == 0, uint4, uint2>::type;
-};
-
-template <int KVF>
-__device__ __forceinline__ typename Chunk<KVF>::type load_chunk(
-    const void* base, size_t at) {
-  using T = typename Chunk<KVF>::type;
-  const char* b = static_cast<const char*>(base);
-  return *reinterpret_cast<const T*>(b + at * (KVF == 0 ? 2 : 1));
-}
-
-template <int KVF>
-__device__ __forceinline__ void to_float8(const typename Chunk<KVF>::type& c,
-                                          float* x) {
-  if constexpr (KVF == 0) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  } else if constexpr (KVF == 1) {
-    const int8_t* b = reinterpret_cast<const int8_t*>(&c);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(b[i]);
-  } else {
-    const __nv_fp8_e4m3* b = reinterpret_cast<const __nv_fp8_e4m3*>(&c);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(b[i]);
-  }
-}
-
-__device__ __forceinline__ float load_q(const void* base, size_t at,
-                                        int is_bf16) {
-  return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[at])
-                 : static_cast<const float*>(base)[at];
-}
 
 // Max of |x[0..D)| over the block (every thread gets the result).
 __device__ float block_absmax(const float* x, int D, float* red) {
@@ -124,7 +85,8 @@ __device__ void append_row(const DecodeParams& p, const float* x, void* cache,
   float scale = 1.f;
   if (KVF != 0) {
     const float amax = block_absmax(x, D, red);
-    scale = fmaxf(amax, 1e-8f) * (KVF == 1 ? kInv127 : kInv448);
+    scale = fmaxf(amax, 1e-8f) *
+            (KVF == 1 ? kInv127 : KVF == 2 ? kInv448 : kInv57344);
   }
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     const size_t at = row * D + d;
@@ -133,8 +95,10 @@ __device__ void append_row(const DecodeParams& p, const float* x, void* cache,
     } else if constexpr (KVF == 1) {
       const float r = fminf(fmaxf(rintf(x[d] / scale), -127.f), 127.f);
       static_cast<int8_t*>(cache)[at] = static_cast<int8_t>(r);
-    } else {
+    } else if constexpr (KVF == 2) {
       static_cast<__nv_fp8_e4m3*>(cache)[at] = __nv_fp8_e4m3(x[d] / scale);
+    } else {
+      static_cast<__nv_fp8_e5m2*>(cache)[at] = __nv_fp8_e5m2(x[d] / scale);
     }
   }
   if (threadIdx.x == 0) scales[row] = scale;
@@ -241,7 +205,7 @@ decode_fused_append(DecodeParams p) {
         if (!valid) continue;
         float s;
         if constexpr (KVF == 1) s = dot * qsc[g] * ks;   // exact integer dot
-        else if constexpr (KVF == 2) s = dot * ks;
+        else if constexpr (KVF >= 2) s = dot * ks;
         else s = dot;
         mloc[g] = fmaxf(mloc[g], s);
         if (cc == 0) sc[(size_t)g * L + l] = s;
@@ -370,7 +334,7 @@ decode_fused_append(DecodeParams p) {
 }  // namespace
 
 // q_bf16: 1 if q, k_new, v_new and o are bf16, 0 if fp32.
-// kv_format: 0 bf16, 1 int8, 2 fp8-e4m3. group <= 8; D / 8 a power of
+// kv_format: 0 bf16, 1 int8, 2 fp8-e4m3, 3 fp8-e5m2. group <= 8; D / 8 a power of
 // two <= 32 (D in 8, 16, ..., 256); 16-byte aligned cache rows.
 extern "C" int mfa_decode_fused_append(
     const void* q, void* k, void* v, void* k_scale, void* v_scale,
@@ -396,6 +360,7 @@ extern "C" int mfa_decode_fused_append(
   if (kv_format == 0) kernel = decode_fused_append<0>;
   else if (kv_format == 1) kernel = decode_fused_append<1>;
   else if (kv_format == 2) kernel = decode_fused_append<2>;
+  else if (kv_format == 3) kernel = decode_fused_append<3>;
   else return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,20 +1,22 @@
-"""Fused decode attention + KV append: the Hopper kernel K2 and its plain
-version.
+"""Decode attention kernels over a contiguous KV cache, each beside its
+plain version: K2, fused decode + append, and K5, unfused decode.
 
-Replaces ``mfa_tpu/kernels/decode.py::_decode_fused_kernel``; the CUDA
-source is ``csrc/decode.cu``. :func:`decode_fused_append` launches the
-kernel for CUDA tensors and takes :func:`decode_fused_append_plain` only
-for CPU tensors.
+K2 replaces ``mfa_tpu/kernels/decode.py::_decode_fused_kernel`` (CUDA
+source ``csrc/decode.cu``); K5 replaces ``_decode_kernel_single`` and
+``_decode_kernel`` (``csrc/decode_attend.cu``, whose body the paged
+kernel K6 in ``kernels/paged_decode.py`` shares). :func:`decode_fused_append`
+and :func:`decode_attend` launch their kernels for CUDA tensors and take
+their plain versions only for CPU tensors.
 
 Operands (BH = batch * kv heads, G query rows per kv head):
   q        [BH, G, D]   pre-scaled by scale*log2e, bf16 or fp32
-  k, v     [BH, L, D]   cache storage (bf16, int8 or fp8-e4m3), updated
-                        in place
-  k_scale, v_scale [BH, L] fp32 per-token scales, updated in place
-  k_new, v_new [BH, D]  the step's new K (roped) and V, q's dtype
-  lengths  [B] int32    pre-append lengths
-Returns O [BH, G, D] in q's dtype. The new row goes to row lengths[b]
-unless that slot is full (lengths[b] == L).
+  k, v     [BH, L, D]   cache storage (bf16, int8, fp8-e4m3 or fp8-e5m2);
+                        K2 updates them in place
+  k_scale, v_scale [BH, L] fp32 per-token scales (K2: updated in place)
+  k_new, v_new [BH, D]  K2 only: the step's new K (roped) and V, q's dtype
+  lengths  [B] int32    K2: pre-append lengths; K5: the live rows
+Both return O [BH, G, D] in q's dtype. K2 writes the new row to row
+lengths[b] unless that slot is full (lengths[b] == L).
 """
 
 from __future__ import annotations
@@ -27,7 +29,10 @@ from mfa_tpu_torch.ops import params as params_mod
 
 INT8_MAX = quant.INT8_MAX
 # Cache storage types the kernel takes, with its format codes.
-KV_FORMATS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+KV_FORMATS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
+              torch.float8_e5m2: 3}
+# K2 keeps a group's query rows in registers (K5 and K6 split larger
+# groups over CTAs).
 MAX_GROUP = 8
 # One CTA of this many threads per (batch, kv head), for every head dim:
 # D / 8 lanes share a cache row, so it must be a multiple of the most
@@ -98,6 +103,52 @@ def decode_fused_append_plain(q3, k, v, k_scale, v_scale, k_new, v_new,
     return o.to(q3.dtype)
 
 
+def check_types(q3, k, v, k_scale, v_scale, lengths) -> None:
+    """The operand types K2, K5 and K6 share."""
+    if q3.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bf16 or fp32, not {q3.dtype}")
+    if v.dtype != k.dtype:
+        raise TypeError("k and v caches must share one dtype")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError("scales must be fp32")
+    if lengths.dtype != torch.int32:
+        raise TypeError("lengths must be int32")
+
+
+def check_launch(name: str, q3, k, v, **others) -> None:
+    """What a launch needs beyond the operands' shapes and types: one CUDA
+    device, contiguous tensors, a storage type and head dim the kernels
+    take, and 16-byte aligned cache storage."""
+    if not q3.is_cuda:
+        raise ValueError(f"{name}: unsupported device {q3.device}")
+    for tname, t in dict(q=q3, k=k, v=v, **others).items():
+        if t.device != q3.device:
+            raise ValueError(f"{tname} is on {t.device}, q on {q3.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+    if k.dtype not in KV_FORMATS:
+        raise TypeError(f"cache storage {k.dtype} not taken by the kernel "
+                        f"(takes {list(KV_FORMATS)})")
+    d = q3.shape[-1]
+    if d > params_mod.MAX_HEAD_DIM or d % 8 or (d // 8) & (d // 8 - 1):
+        raise ValueError(f"head dim {d}: the kernel takes D = 8 * 2^k <= "
+                         f"{params_mod.MAX_HEAD_DIM}")
+    if any(t.data_ptr() % 16 for t in (k, v)):
+        raise ValueError("cache storage must be 16-byte aligned")
+
+
+def output_like(q3, out):
+    """O's buffer: ``out`` when given (contiguous, q's shape and dtype, on
+    q's device), else a new empty tensor."""
+    if out is None:
+        return torch.empty_like(q3)
+    if (out.shape != q3.shape or out.dtype != q3.dtype
+            or out.device != q3.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {q3.dtype} "
+                         f"{tuple(q3.shape)} tensor on {q3.device}")
+    return out
+
+
 def _check(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, hkv):
     bh, g, d = q3.shape
     L = k.shape[1]
@@ -106,20 +157,20 @@ def _check(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, hkv):
                          f"{tuple(q3.shape)}")
     if k_scale.shape != (bh, L) or v_scale.shape != (bh, L):
         raise ValueError("scales must be [BH, max_len]")
-    if k_new.shape != (bh, d) or v_new.shape != (bh, d):
+    if k_new is not None and (k_new.shape != (bh, d)
+                              or v_new.shape != (bh, d)):
         raise ValueError("k_new/v_new must be [BH, D]")
     if lengths.shape != (bh // hkv,) or bh % hkv:
         raise ValueError("lengths must be [batch]")
-    if q3.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"q must be bf16 or fp32, not {q3.dtype}")
-    if k_new.dtype != q3.dtype or v_new.dtype != q3.dtype:
+    check_types(q3, k, v, k_scale, v_scale, lengths)
+    if k_new is not None and (k_new.dtype != q3.dtype
+                              or v_new.dtype != q3.dtype):
         raise TypeError("k_new/v_new must have q's dtype")
-    if v.dtype != k.dtype:
-        raise TypeError("k and v caches must share one dtype")
-    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
-        raise TypeError("scales must be fp32")
-    if lengths.dtype != torch.int32:
-        raise TypeError("lengths must be int32")
+
+
+def check_window(sliding_window) -> None:
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError("sliding_window must be >= 1")
 
 
 def decode_fused_append(q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
@@ -129,34 +180,16 @@ def decode_fused_append(q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
     plain version for CPU tensors. Returns O; the cache is updated in
     place."""
     _check(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, num_kv_heads)
-    if sliding_window is not None and sliding_window < 1:
-        raise ValueError("sliding_window must be >= 1")
+    check_window(sliding_window)
     if q3.device.type == "cpu":
         return decode_fused_append_plain(
             q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
             num_kv_heads=num_kv_heads, sliding_window=sliding_window)
-    if not q3.is_cuda:
-        raise ValueError(f"decode_fused_append: unsupported device "
-                         f"{q3.device}")
-    tensors = dict(q=q3, k=k, v=v, k_scale=k_scale, v_scale=v_scale,
-                   k_new=k_new, v_new=v_new, lengths=lengths)
-    for name, t in tensors.items():
-        if t.device != q3.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q3.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"decode_fused_append: {name} must be "
-                             "contiguous")
-    if k.dtype not in KV_FORMATS:
-        raise TypeError(f"cache storage {k.dtype} not taken by the kernel "
-                        f"(takes {list(KV_FORMATS)})")
+    check_launch("decode_fused_append", q3, k, v, k_scale=k_scale,
+                 v_scale=v_scale, k_new=k_new, v_new=v_new, lengths=lengths)
     bh, g, d = q3.shape
     if g > MAX_GROUP:
         raise ValueError(f"query group {g} exceeds {MAX_GROUP}")
-    if d > params_mod.MAX_HEAD_DIM or d % 8 or (d // 8) & (d // 8 - 1):
-        raise ValueError(f"head dim {d}: the kernel takes D = 8 * 2^k <= "
-                         f"{params_mod.MAX_HEAD_DIM}")
-    if any(t.data_ptr() % 16 for t in (k, v)):
-        raise ValueError("cache storage must be 16-byte aligned")
     L = k.shape[1]
     o = torch.empty_like(q3)
     scratch = torch.empty((bh, g, L), dtype=torch.float32, device=q3.device)
@@ -172,3 +205,90 @@ def decode_fused_append(q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
 
 
 decode_fused_append.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: unfused decode (K6, the paged kernel, shares its plain arithmetic)
+# ---------------------------------------------------------------------------
+
+
+def live_rows(lengths, capacity: int, num_kv_heads: int,
+              sliding_window: int | None = None) -> torch.Tensor:
+    """[B * Hkv, capacity] bool: positions [max(len - W, 0), len) of each
+    (sequence, kv head), lengths clamped to [0, capacity]."""
+    lens = lengths.long().clamp(0, capacity).repeat_interleave(num_kv_heads)
+    col = torch.arange(capacity, device=lengths.device)[None, :]
+    live = col < lens[:, None]
+    if sliding_window is not None:
+        live &= col >= (lens - sliding_window).clamp_min(0)[:, None]
+    return live
+
+
+def attend_plain(q3, k, v, k_scale, v_scale, live):
+    """S, P and O of one-token decode over cache rows, by K5's and K6's
+    rounding rule: S = (q . K_raw) * ks (quantized storage), the
+    large-finite sentinel where not live; P = exp2(S - max S); P * vs
+    rounded to q's type before P V; O = P V / sum(P), and 0 for a row with
+    no live key. Rows that are not live never reach the sums, whatever
+    they hold.
+
+    q3 [N, G, D] pre-scaled; k, v [N, L, D] storage; k_scale, v_scale
+    [N, L] fp32; live [N, L] bool. Returns O [N, G, D] in q's dtype."""
+    quantized = k.dtype in QUANTIZED
+    rows = live[:, :, None]
+    kf = torch.where(rows, k.float(), 0.0)
+    vf = torch.where(rows, v.float(), 0.0)
+    cols = live[:, None, :]
+    s = torch.bmm(q3.float(), kf.transpose(1, 2))
+    if quantized:
+        s = s * torch.where(live, k_scale, 0.0)[:, None, :]
+    s = torch.where(cols, s, MASK_VALUE)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(cols, torch.exp2(s - m), 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-37)
+    if quantized:
+        p = p * torch.where(live, v_scale, 0.0)[:, None, :]
+    p = p.to(q3.dtype).float()
+    o = torch.bmm(p, vf) / l
+    o = torch.where(m == MASK_VALUE, 0.0, o)
+    return o.to(q3.dtype)
+
+
+def decode_attend_plain(q3, k, v, k_scale, v_scale, lengths, *,
+                        num_kv_heads: int,
+                        sliding_window: int | None = None):
+    """Plain PyTorch version of K5."""
+    live = live_rows(lengths, k.shape[1], num_kv_heads, sliding_window)
+    return attend_plain(q3, k, v, k_scale, v_scale, live)
+
+
+def decode_attend(q3, k, v, k_scale, v_scale, lengths, *,
+                  num_kv_heads: int, sliding_window: int | None = None,
+                  out=None):
+    """K5: launches the CUDA kernel for CUDA tensors (or raises); takes the
+    plain version for CPU tensors. Returns O, in ``out`` when given."""
+    _check(q3, k, v, k_scale, v_scale, None, None, lengths, num_kv_heads)
+    check_window(sliding_window)
+    if q3.device.type == "cpu":
+        o = decode_attend_plain(q3, k, v, k_scale, v_scale, lengths,
+                                num_kv_heads=num_kv_heads,
+                                sliding_window=sliding_window)
+        return o if out is None else out.copy_(o)
+    check_launch("decode_attend", q3, k, v, k_scale=k_scale,
+                 v_scale=v_scale, lengths=lengths)
+    bh, g, d = q3.shape
+    L = k.shape[1]
+    o = output_like(q3, out)
+    scratch = torch.empty((bh, g, L), dtype=torch.float32, device=q3.device)
+    build.library().call(
+        "mfa_decode_attend", q3.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
+        o.data_ptr(), scratch.data_ptr(), bh, num_kv_heads, g, L, d,
+        sliding_window or 0, int(q3.dtype == torch.bfloat16),
+        KV_FORMATS[k.dtype], THREADS,
+        torch.cuda.current_stream(q3.device).cuda_stream)
+    decode_attend.launches += 1
+    return o
+
+
+decode_attend.launches = 0

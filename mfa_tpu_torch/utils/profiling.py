@@ -1,21 +1,26 @@
 """Where the serving and training time goes on the card.
 
-Runs Llama prefill, batched decode steps and training steps under
-``torch.profiler`` and reports, per phase: wall time per call (host clock
-around the profiled calls, ended by a synchronize, so it includes the
-profiler's own cost per op), device-busy time of the same calls (sum of
-kernel times; one stream, so kernels do not overlap), the idle share
-1 - busy / wall, and device time by kernel group (K1 flash_fwd, K2
-decode_fused_append, K3 flash_bwd_q, K4 flash_bwd_kv, matrix products,
-the rest). The top kernels go to ``<out>/profile_<phase>.txt``.
+Runs Llama prefill, batched decode steps (contiguous and paged) and
+training steps under ``torch.profiler`` and reports, per phase: wall time
+per call (host clock around the profiled calls, ended by a synchronize,
+so it includes the profiler's own cost per op), device-busy time of the
+same calls (sum of kernel times; one stream, so kernels do not overlap),
+the idle share 1 - busy / wall, and device time by kernel group (K1
+flash_fwd, K2 decode_fused_append, K3 flash_bwd_q, K4 flash_bwd_kv, K5
+decode_attend, K6 paged_decode, the indexed writes of the paged append
+with the step's one embedding gather, matrix products, the rest). The
+top kernels go to ``<out>/profile_<phase>.txt``.
 
 Serving runs Llama-3-8B at full depth; training runs its widths at 16
-of 32 layers (the AdamW state of all 32 would not fit 80 GB).
+of 32 layers (the AdamW state of all 32 would not fit 80 GB). The paged
+phase times whole ``PagedScheduler.step()`` calls (host allocator, table
+upload, decode, sampling) with 8 slots, beside the contiguous decode
+step at the same batch.
 
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.profiling [--out build/profiles]
-        [--phases serving,training]
+        [--phases serving,paged,training]
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import torch
 from mfa_tpu_torch.models import training
 from mfa_tpu_torch.models.llama import Llama, LlamaConfig
 from mfa_tpu_torch.ops.precision import OperandPrecision
+from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
+from mfa_tpu_torch.serving.scheduler import Request
 
 # Training runs Llama-3-8B widths at this depth (see the module note).
 TRAIN_LAYERS = 16
@@ -40,6 +47,11 @@ _GROUPS = (("flash_fwd", ("flash_fwd",)),
            ("flash_bwd_q", ("flash_bwd_q",)),
            ("flash_bwd_kv", ("flash_bwd_kv",)),
            ("decode_fused_append", ("decode_fused_append",)),
+           # K5 and K6 are one template, told apart by its row functor.
+           ("paged_decode", ("PagedRows",)),
+           ("decode_attend", ("ContiguousRows",)),
+           ("scatter_append", ("index_elementwise", "index_put",
+                               "scatter_gather")),
            ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "sm90_")))
 
 
@@ -124,6 +136,51 @@ def profile_serving(cfg: LlamaConfig, *, out: Path, batch: int = 4,
     return results
 
 
+def profile_paged(cfg: LlamaConfig, *, out: Path, slots: int = 8,
+                  fill: int = 1024, steps: int = 8, page_size: int = 512,
+                  seed: int = 0) -> list[dict]:
+    """Whole paged-scheduler steps with every slot holding a ``fill``-token
+    prompt, for each KV format; then the contiguous decode step at the
+    same batch and context (bf16 KV) for comparison."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Llama.init(cfg, generator=gen, dtype=torch.bfloat16,
+                       device="cuda")
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab_size, (slots, fill))
+    # Pages for every slot's prompt and the steps' tokens, and the null
+    # page; no request finishes inside the profiled window.
+    pages = slots * -(-(fill + steps + 4) // page_size) + 1
+    results = []
+    for kv in (OperandPrecision.BF16, OperandPrecision.INT8,
+               OperandPrecision.FP8_E4M3):
+        sched = PagedScheduler(model, num_slots=slots, num_pages=pages,
+                               page_size=page_size, max_len=2048,
+                               kv_precision=kv, device="cuda")
+        for p in prompts:
+            sched.submit(Request(prompt=p.tolist(),
+                                 max_new_tokens=steps + 4))
+        sched.step()            # admits every slot and decodes once
+        sched.step()
+        prof, wall = _profiled(sched.step, steps)
+        results.append(_summarize(
+            prof, wall, steps, f"paged_step_s{slots}_ctx{fill}_{kv.value}",
+            out))
+        del sched
+
+    caches = model.make_caches(slots, 2048)
+    model(torch.from_numpy(prompts).cuda(), caches=caches)
+    last = torch.from_numpy(rng.integers(1, cfg.vocab_size, slots)).cuda()
+
+    def decode():
+        model.decode_step(last, caches)
+
+    decode()
+    prof, wall = _profiled(decode, steps)
+    results.append(_summarize(prof, wall, steps,
+                              f"decode_b{slots}_ctx{fill}_bf16", out))
+    return results
+
+
 def profile_training(cfg: LlamaConfig, *, out: Path, seq_len: int = 2048,
                      steps: int = 3, seed: int = 0) -> list[dict]:
     """Training steps (bf16 weights, AdamW) on one random batch of
@@ -151,8 +208,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profiles",
                     help="directory for the per-phase kernel tables")
-    ap.add_argument("--phases", default="serving,training",
-                    help="comma-separated: serving, training")
+    ap.add_argument("--phases", default="serving,paged,training",
+                    help="comma-separated: serving, paged, training")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -161,6 +218,7 @@ def main(argv=None) -> int:
     print(torch.cuda.get_device_name(0), flush=True)
     cfg = LlamaConfig.llama3_8b()
     runs = {"serving": lambda: profile_serving(cfg, out=out),
+            "paged": lambda: profile_paged(cfg, out=out),
             "training": lambda: profile_training(
                 dataclasses.replace(cfg, n_layers=TRAIN_LAYERS), out=out)}
     for phase in args.phases.split(","):

@@ -58,6 +58,41 @@ def garbage_pad(x: torch.Tensor, s_pad: int, d_pad: int,
     return out
 
 
+def shuffled_page_pool(storage: torch.dtype, lengths, num_kv_heads: int,
+                       head_dim: int, page_size: int, max_pages: int, *,
+                       generator: torch.Generator, device="cpu"):
+    """A page pool holding random rows for sequences of ``lengths``, their
+    live pages at shuffled ids among twice as many. Page 0 (the null page)
+    and the unused pages hold NaN (int8: -128) with NaN scales, so a
+    kernel that reads one shows it. Returns (k_pages, v_pages, k_scale,
+    v_scale, tables) with pages [P, Hkv, page, D] in ``storage``, scales
+    [P, Hkv, page] fp32 and tables [S, max_pages] int32 (0 past the live
+    pages)."""
+    from mfa_tpu_torch.kernels import quant
+
+    need = [-(-int(x) // page_size) for x in lengths]
+    num_pages = 2 * sum(need) + 2
+    x = torch.randn((2, num_pages, num_kv_heads, page_size, head_dim),
+                    generator=generator, device=device)
+    pages, scales = zip(*(quant.quantize_for(storage, x[i]) for i in (0, 1)))
+    ids = (torch.randperm(num_pages - 1, generator=generator, device=device)
+           + 1).tolist()[:sum(need)]
+    dead = sorted(set(range(num_pages)) - set(ids))
+    poison = (torch.full((), -128, dtype=torch.int8, device=device)
+              if storage == torch.int8
+              else torch.full((), float("nan"), device=device).to(storage))
+    for t in pages:
+        t[dead] = poison
+    for t in scales:
+        t[dead] = float("nan")
+    tables = torch.zeros((len(need), max_pages), dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = torch.tensor(ids[at:at + n])
+        at += n
+    return (*pages, *scales, tables.to(device))
+
+
 # A kernel against its plain version on the card: same inputs and the same
 # rounding points, so they differ only by summation order and, for flash
 # forward in bf16, by P rounded against the running instead of the final
@@ -74,6 +109,11 @@ KERNEL_BUDGETS = {
     "flash_fwd_o_fp32": (2e-5, 0.0),
     "flash_fwd_l": (1e-4, 0.0),
     "decode_o": (1e-4, 2.0 ** -6),
+    # K5 and K6 take the final row max before they form P, so they round
+    # S, P * vs and O at the plain version's points, as K2 does: K2's
+    # budget, for the summation order and exp2's last bits alone.
+    "decode_attend_o": (1e-4, 2.0 ** -6),
+    "paged_decode_o": (1e-4, 2.0 ** -6),
     "flash_bwd_dq_bf16": (5e-3, 2.0 ** -6),
     "flash_bwd_dk_bf16": (5e-3, 2.0 ** -6),
     "flash_bwd_dv_bf16": (5e-3, 2.0 ** -6),

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes chip_smoke.py does not reach (odd lengths, every table row's head
-dim, GQA groups 1-8, fp32 queries, windows, soft-cap), and a tiny Llama
-on the card against the same on the CPU (forward, decode, scheduler,
-training steps).
+dim, GQA groups 1-16, fp32 queries, windows, soft-cap, all four KV
+storage types, shuffled page tables), and a tiny Llama on the card
+against the same on the CPU (forward, decode, both schedulers, training
+steps).
 
 Needs a CUDA device; skips elsewhere. On the card (no JAX there, so
 without the suite's conftest):
@@ -20,6 +21,7 @@ import torch
 from mfa_tpu_torch.kernels import decode as k2
 from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.kernels import flash_fwd as k1
+from mfa_tpu_torch.kernels import paged_decode as k6
 from mfa_tpu_torch.models import llama, training
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
@@ -27,6 +29,7 @@ from mfa_tpu_torch.ops.descriptors import (
 )
 from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.serving import kv_cache
+from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
 from mfa_tpu_torch.serving.scheduler import ContinuousBatchingScheduler, Request
 from mfa_tpu_torch.utils.testing import (
     KERNEL_BUDGETS,
@@ -34,6 +37,7 @@ from mfa_tpu_torch.utils.testing import (
     assert_fully_written,
     garbage_pad,
     nan_canary,
+    shuffled_page_pool,
 )
 
 pytestmark = pytest.mark.gpu
@@ -89,11 +93,12 @@ def test_flash_fwd_kernel_matches_plain(cuda, case):
 
 
 K2_CASES = [(fmt, d, g, w, qdt)
-            for fmt in ("bf16", "int8", "fp8_e4m3")
+            for fmt in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2")
             for d, g, w, qdt in ((64, 1, None, "bf16"), (128, 4, 100, "bf16"),
                                  (256, 8, None, "bf16"), (32, 2, None, "fp32"))]
 _FORMATS = {"bf16": OperandPrecision.BF16, "int8": OperandPrecision.INT8,
-            "fp8_e4m3": OperandPrecision.FP8_E4M3}
+            "fp8_e4m3": OperandPrecision.FP8_E4M3,
+            "fp8_e5m2": OperandPrecision.FP8_E5M2}
 
 
 def _bits(t):
@@ -142,6 +147,109 @@ def test_decode_kernel_matches_plain(cuda, case):
     for f in ("k_scale", "v_scale"):
         torch.testing.assert_close(getattr(cache, f), getattr(twin, f),
                                    rtol=1e-6, atol=0)
+
+
+# (storage, D, G, window, q dtype, lengths): K5 and K6 share these.
+ATTEND_CASES = [
+    ("bf16", 64, 1, None, "bf16", (0, 1, 77, 256)),
+    ("int8", 128, 4, None, "bf16", (5, 129, 255, 256)),
+    ("fp8_e4m3", 256, 7, 50, "bf16", (0, 100, 200, 256)),
+    ("fp8_e5m2", 128, 16, None, "bf16", (3, 128, 130, 256)),
+    ("bf16", 128, 12, 33, "fp32", (1, 60, 255, 256)),
+    ("int8", 64, 4, 9, "fp32", (0, 8, 9, 250)),
+    ("fp8_e5m2", 8, 2, None, "bf16", (17, 1, 256, 128)),
+]
+_ATTEND_IDS = [f"{c[0]}-D{c[1]}-G{c[2]}-w{c[3]}-{c[4]}" for c in ATTEND_CASES]
+
+
+def _attend_inputs(cuda, case, hkv, cap):
+    fmt, d, g, _, qdt, lens = case
+    gen = torch.Generator(device=cuda).manual_seed(d * g + cap)
+    b = len(lens)
+    q3 = (torch.randn((b * hkv, g, d), generator=gen, device=cuda)
+          * (math.log2(math.e) / math.sqrt(d))).to(
+              torch.bfloat16 if qdt == "bf16" else torch.float32)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q3, lengths, gen
+
+
+@pytest.mark.parametrize("case", ATTEND_CASES, ids=_ATTEND_IDS)
+def test_decode_attend_kernel_matches_plain(cuda, case):
+    fmt, d, g, window, _, lens = case
+    b, hkv, max_len = len(lens), 2, 256
+    q3, lengths, gen = _attend_inputs(cuda, case, hkv, max_len)
+    cache = kv_cache.create(b, hkv, max_len, d, _FORMATS[fmt], device=cuda)
+    kv_cache.update(cache,
+                    torch.randn((b, hkv, max_len, d), generator=gen,
+                                device=cuda),
+                    torch.randn((b, hkv, max_len, d), generator=gen,
+                                device=cuda))
+    args = (cache.k.view(b * hkv, max_len, d), cache.v.view(b * hkv, max_len, d),
+            cache.k_scale.view(b * hkv, max_len),
+            cache.v_scale.view(b * hkv, max_len), lengths)
+    kw = dict(num_kv_heads=hkv, sliding_window=window)
+    n = k2.decode_attend.launches
+    o = k2.decode_attend(q3, *args, **kw,
+                         out=nan_canary(q3.shape, q3.dtype, device=cuda))
+    torch.cuda.synchronize()
+    assert k2.decode_attend.launches == n + 1
+    assert_fully_written(o, "O")
+    o_p = k2.decode_attend_plain(q3, *args, **kw)
+    atol, rtol = KERNEL_BUDGETS["decode_attend_o"]
+    assert_close(o, o_p, atol, "O", rtol=rtol)
+    for i, ln in enumerate(lens):
+        if ln == 0:
+            assert not o[i * hkv:(i + 1) * hkv].any()
+
+
+@pytest.mark.parametrize("ps", [128, 512])
+@pytest.mark.parametrize("case", ATTEND_CASES, ids=_ATTEND_IDS)
+def test_paged_decode_kernel_matches_plain(cuda, case, ps):
+    fmt, d, g, window, _, lens = case
+    hkv, max_pages = 2, -(-1024 // ps)
+    lens = tuple(4 * ln for ln in lens)             # up to 1024 rows
+    q3, lengths, gen = _attend_inputs(cuda, case[:5] + (lens,), hkv, ps)
+    operands = (*shuffled_page_pool(_FORMATS[fmt].dtype, lens, hkv, d, ps,
+                                    max_pages, generator=gen, device=cuda),
+                lengths)
+    n = k6.paged_decode.launches
+    o = k6.paged_decode(q3, *operands, sliding_window=window,
+                        out=nan_canary(q3.shape, q3.dtype, device=cuda))
+    torch.cuda.synchronize()
+    assert k6.paged_decode.launches == n + 1
+    assert_fully_written(o, "O")
+    o_p = k6.paged_decode_plain(q3, *operands, sliding_window=window)
+    atol, rtol = KERNEL_BUDGETS["paged_decode_o"]
+    assert_close(o, o_p, atol, "O", rtol=rtol)
+    # Paged and contiguous agree on the same rows.
+    k, v, ks, vs = (k6.gather_rows(t, operands[4]) for t in operands[:4])
+    o_c = k2.decode_attend(q3, k.contiguous(), v.contiguous(),
+                           ks.contiguous(), vs.contiguous(), lengths,
+                           num_kv_heads=hkv, sliding_window=window)
+    assert_close(o, o_c, 0.0, "O paged vs contiguous")
+
+
+def test_paged_scheduler_on_cuda_matches_cpu(cuda):
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(3),
+                               torch.float32)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (3, 5, 2, 4, 6)]
+    tokens = []
+    for dev in ("cpu", cuda):
+        for prec in _FORMATS.values():
+            model = llama.Llama(cfg, params, device=dev)
+            sched = PagedScheduler(model, num_slots=2, num_pages=4,
+                                   max_len=256, prompt_buckets=(8, 16),
+                                   kv_precision=prec, device=dev)
+            reqs = [Request(prompt=p, max_new_tokens=5) for p in prompts]
+            for r in reqs:
+                sched.submit(r)
+            done = {c.request.id: c.tokens for c in sched.run()}
+            tokens.append([done[r.id] for r in reqs])
+            assert sched.free_pages == 3
+    assert tokens[:4] == tokens[4:]
 
 
 def test_tiny_llama_on_cuda_matches_cpu(cuda):

@@ -17,14 +17,21 @@ from mfa_tpu_torch.kernels import build
 from mfa_tpu_torch.kernels import decode as k2
 from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.kernels import flash_fwd as k1
+from mfa_tpu_torch.kernels import paged_decode as k6
 from mfa_tpu_torch.models import llama
 from mfa_tpu_torch.ops.attention import attention_chunk_grads, flash_attention
-from mfa_tpu_torch.ops.decode import decode_attention_append
+from mfa_tpu_torch.ops.decode import (
+    decode_attention,
+    decode_attention_append,
+    paged_decode_attention,
+)
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
     AttentionKernelType,
 )
 from mfa_tpu_torch.serving import kv_cache
+from mfa_tpu_torch.serving.paged_kv_cache import PagedKVCache, PagePool
+from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
 from mfa_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -53,6 +60,29 @@ def test_port_imports_no_jax_and_nothing_of_mfa_tpu():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_top_level_names_load_on_first_access():
+    """mfa_tpu's top-level entry points are importable from the port's
+    package, which loads their modules only when a name is first used."""
+    code = (
+        "import sys, mfa_tpu_torch\n"
+        "assert 'mfa_tpu_torch.ops.decode' not in sys.modules\n"
+        "from mfa_tpu_torch import paged_decode_attention, decode_attention\n"
+        "from mfa_tpu_torch.ops import decode\n"
+        "assert paged_decode_attention is decode.paged_decode_attention\n"
+        "assert mfa_tpu_torch.flash_attention.__module__ =="
+        " 'mfa_tpu_torch.ops.attention'\n"
+        "assert sorted(mfa_tpu_torch.__all__) == sorted(["
+        "'flash_attention', 'mha', 'decode_attention',"
+        " 'decode_attention_append', 'paged_decode_attention'])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    with pytest.raises(AttributeError, match="no attribute"):
+        mfa_tpu_torch.gemm
+
+
 def test_entry_points_raise_without_gpu_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     q = torch.zeros(1, 2, 4, 16)
@@ -70,7 +100,18 @@ def test_entry_points_raise_without_gpu_unless_cpu(monkeypatch):
         decode_attention_append(x, x, x, cache)
     decode_attention_append(x, x, x, cache, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_attention(x, cache)
+    decode_attention(x, cache, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         kv_cache.create(1, 2, 8, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(4, 2, 16, 1, 256)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagePool.create(4, 2, 16, 128)
+    paged = PagedKVCache(4, 2, 16, 1, 256, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paged_decode_attention(x, paged)
+    paged_decode_attention(x, paged, device="cpu")
 
     cfg = llama.LlamaConfig.tiny()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -83,6 +124,9 @@ def test_entry_points_raise_without_gpu_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContinuousBatchingScheduler(model)
     ContinuousBatchingScheduler(model, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedScheduler(model)
+    PagedScheduler(model, num_pages=4, device="cpu")
 
 
 def _kd(causal=True, kind=AttentionKernelType.FORWARD):
@@ -101,7 +145,7 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors(monkeypatch):
 
     monkeypatch.setattr(build, "library", no_library)
     counters = (k1.flash_fwd, k2.decode_fused_append, k34.flash_bwd_q,
-                k34.flash_bwd_kv)
+                k34.flash_bwd_kv, k2.decode_attend, k6.paged_decode)
     before = [f.launches for f in counters]
     q3 = torch.randn(2, 8, 16)
     kv = torch.randn(1, 8, 16)
@@ -115,6 +159,18 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors(monkeypatch):
     k2.decode_fused_append(torch.randn(1, 2, 16), c.k[0], c.v[0],
                            c.k_scale[0], c.v_scale[0], x, x, c.lengths,
                            num_kv_heads=1)
+    q1 = torch.randn(1, 2, 16)
+    c.lengths = torch.tensor([5], dtype=torch.int32)
+    o5 = k2.decode_attend(q1, c.k[0], c.v[0], c.k_scale[0], c.v_scale[0],
+                          c.lengths, num_kv_heads=1)
+    assert torch.equal(o5, k2.decode_attend_plain(
+        q1, c.k[0], c.v[0], c.k_scale[0], c.v_scale[0], c.lengths,
+        num_kv_heads=1))
+    pool = PagePool.create(2, 1, 16, 128, device="cpu")
+    tables = torch.tensor([[1]], dtype=torch.int32)
+    pargs = (q1, pool.k_pages, pool.v_pages, pool.k_scale, pool.v_scale,
+             tables, c.lengths)
+    assert torch.equal(k6.paged_decode(*pargs), k6.paged_decode_plain(*pargs))
     do = torch.randn(2, 8, 16)
     kw = dict(group=2, scale=0.25)
     dq, dterm = k34.flash_bwd_q(q3, kv, kv, o, do, lse, _kd(**_KD_Q), **kw)
@@ -147,6 +203,17 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         k34.flash_bwd_kv(meta, kv, kv, meta, lse, lse, _kd(**_KD_KV),
                          group=2, scale=0.25)
+    scales = torch.empty(2, 8, device="meta")
+    lengths = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k2.decode_attend(meta, meta, meta, scales, scales, lengths,
+                         num_kv_heads=1)
+    pages = torch.empty(2, 1, 128, 16, device="meta")
+    pscales = torch.empty(2, 1, 128, device="meta")
+    tables = torch.empty(2, 1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k6.paged_decode(meta, pages, pages, pscales, pscales, tables,
+                        lengths)
 
 
 def test_no_try_except_in_the_port():
@@ -163,7 +230,10 @@ def test_no_try_except_in_the_port():
 def test_cuda_sources_carry_their_notes():
     for name, tpus in (("flash_fwd.cu", ["_fwd_tablegrid_kernel"]),
                        ("decode.cu", ["_decode_fused_kernel"]),
-                       ("flash_bwd.cu", ["_bwd_q_kernel", "_bwd_kv_kernel"])):
+                       ("flash_bwd.cu", ["_bwd_q_kernel", "_bwd_kv_kernel"]),
+                       ("decode_attend.cu", ["_decode_kernel_single",
+                                             "_decode_kernel",
+                                             "_paged_decode_kernel"])):
         text = (PKG / "csrc" / name).read_text()
         assert all(tpu in text for tpu in tpus)
         assert "bound" in text and "sm_90a" in text
