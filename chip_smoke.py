@@ -25,30 +25,48 @@ phase's failure is caught):
              (lengths 0-2048) over a pool with shuffled page ids, pages of
              128 and 512 tokens, the four storage types and a window; its
              time beside K5's on the same rows.
-7. serving — Llama-3-8B at full width and depth with random bf16 weights
+7. k7     — GEMM kernel through its entry point ops.gemm.gemm against
+             the same call with its plain version, elementwise: bf16
+             4096^3, fp32 1536^3 with C0, the four transpose states at
+             1536^3 bf16, batched 3 x [200 x 129 x 127], ragged 7, 127,
+             129, 200, a strided slice; torch.matmul as a yardstick.
+8. k8     — INT4 matmul kernel, signed and biased, against its plain
+             version at Llama-3-8B's four projection shapes (K -> N
+             4096 -> 4096, 1024, 14336 and 14336 -> 4096), M = 4 (decode)
+             and 2048 (prefill) in bf16, plus one fp32 case; F.linear on
+             the dequantized bf16 weight as a yardstick.
+9. serving — Llama-3-8B at full width and depth with random bf16 weights
              behind the continuous-batching scheduler (4 slots, max_len
              2048), six greedy requests, once per KV format; launch
              counters prove K1 carried every prefill and K2 every decode.
-8. paged_serving — the same model behind the paged scheduler (8 slots,
+10. paged_serving — the same model behind the paged scheduler (8 slots,
              512-token pages, a pool too small for all requests at once),
              the six prompts twice, 16 greedy tokens each, once per KV
              format; counters prove K1 carried every prefill and K6 every
              decode (K2 none); pages all return; one step's logits through
              K6 against the same step through its plain version.
-9. bwd     — backward kernels K3 (dQ, D-term) and K4 (dK, dV) against
+11. int4_serving — the same model quantized (quantize_params) to INT4
+             weight-only projections, behind the continuous-batching
+             scheduler (4 slots, max_len 2048, FP8-e4m3 KV), six greedy
+             requests of 16 tokens; counters prove K8 carried all 7
+             projections of every layer in every prefill and decode step;
+             one decode step's logits through K8 against the same step
+             through its plain version; one short request with INT8
+             weights (the plain INT8 branch).
+12. bwd    — backward kernels K3 (dQ, D-term) and K4 (dK, dV) against
              their plain versions at Llama-3-8B attention shapes: causal,
              non-causal, sliding window 512, soft-cap 50, R=512 with
              C=2048, window 512 with R=512 and C=2048 (keys no query
              sees), fp32 causal; elementwise at KERNEL_BUDGETS, outputs
              prefilled with NaN, K4 bit-reproducible; the backward of
              torch's scaled_dot_product_attention timed as a yardstick.
-10. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
+13. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
              does not fit 80 GB), random bf16 weights, trainable: one
              step's loss and grads through K1/K3/K4 against the same with
              their plain versions, then six train_steps on one 1 x 2049
              batch from TokenDataset; finite, falling loss, and K1, K3, K4
              each launched n_layers times per step.
-11. kernels — one JSON line per the port's kernel table.
+14. kernels — one JSON line per the port's kernel table.
 
 The last line is {"ok": true, "device": {...}}. Run from the repository
 root: ``python3 chip_smoke.py``.
@@ -76,12 +94,17 @@ def emit(obj) -> None:
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over ``iters`` launches (CUDA events)."""
+    """Mean device time of fn() over ``iters`` launches (CUDA events).
+    The card first spins for ~30 ms (torch.cuda._sleep) while the host
+    queues the launches, so that the events time the kernels back to
+    back and not the host's launch rate (a wrapper's Python costs tens
+    of microseconds, as long as a decode-sized kernel)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -510,21 +533,200 @@ def phase_k6(torch):
     return results["bf16_page512"]
 
 
+def phase_k7(torch):
+    """K7 through its entry point, against the same call with its plain
+    version swapped in. Returns (kernel-table row, launches through the
+    entry point)."""
+    from mfa_tpu_torch.kernels import gemm_kernel as k7
+    from mfa_tpu_torch.ops import params as params_mod
+    from mfa_tpu_torch.ops.descriptors import GEMMDescriptor
+    from mfa_tpu_torch.ops.gemm import gemm
+    from mfa_tpu_torch.ops.precision import OperandPrecision as P
+    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dev = params_mod.detect_device(torch.device("cuda", 0))
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # (name, A type, B type, batch, M, N, K, transpose_a, transpose_b, C0,
+    # extra rows and columns of the buffers the operands are sliced from)
+    cases = [("bf16_4096", bf16, bf16, 1, 4096, 4096, 4096, False, False,
+              False, 0),
+             ("fp32_1536_c0", fp32, fp32, 1, 1536, 1536, 1536, False, False,
+              True, 0)]
+    cases += [(f"bf16_1536_{'T' if ta else 'N'}{'T' if tb else 'N'}", bf16,
+               bf16, 1, 1536, 1536, 1536, ta, tb, False, 0)
+              for ta in (False, True) for tb in (False, True)]
+    cases.append(("bf16_batched_3x200x129x127", bf16, bf16, 3, 200, 129, 127,
+                  False, False, False, 0))
+    cases += [(f"bf16_ragged_{n}", bf16, bf16, 1, n, n, n, False, False,
+               False, 0) for n in (7, 127, 129, 200)]
+    cases.append(("bf16_1536_strided", bf16, bf16, 1, 1536, 1536, 1536,
+                  False, True, True, 64))
+    results, launches = {}, 0
+    for name, adt, bdt, batch, m, n, k, ta, tb, with_c0, pad in cases:
+        def operand(rows, cols, dt):
+            big = torch.randn((batch, rows + pad, cols + pad), generator=gen,
+                              device="cuda").to(dt)
+            return big[:, :rows, :cols]
+
+        a = operand(k, m, adt) if ta else operand(m, k, adt)
+        b = operand(n, k, bdt) if tb else operand(k, n, bdt)
+        c0 = operand(m, n, fp32) if with_c0 else None
+        if batch == 1:
+            a, b = a[0], b[0]
+            c0 = None if c0 is None else c0[0]
+        kw = dict(transpose_a=ta, transpose_b=tb)
+        torch.cuda.synchronize()
+        k7.gemm_kernel.launches = 0
+        c = gemm(a, b, c0, **kw)
+        torch.cuda.synchronize()
+        n7 = k7.gemm_kernel.launches
+        launches += n7
+        with plain_kernels():
+            c_p = gemm(a, b, c0, **kw)
+        tag = ("fp32" if c.dtype == fp32 and fp32 in (adt, bdt)
+               else "bf16")
+        budget = list(KERNEL_BUDGETS[f"gemm_{tag}"])
+        budget[0] *= max(1.0, k / 4096)
+        err = max_err(c, c_p)
+        share = budget_share(c, c_p, *budget)
+        ok = bool(torch.isfinite(c.float()).all()) and share <= 1 and n7 == 1
+        ms = cuda_ms(torch, lambda: gemm(a, b, c0, **kw))
+        with plain_kernels():
+            plain_ms = cuda_ms(torch, lambda: gemm(a, b, c0, **kw), iters=3,
+                               warmup=1)
+        # Yardstick: one PyTorch call for the same product.
+        aa = a.transpose(-1, -2) if ta else a
+        bb = b.transpose(-1, -2) if tb else b
+        if adt != bdt:
+            library_ms = None
+        elif c0 is None:
+            library_ms = cuda_ms(torch, lambda: torch.matmul(aa, bb))
+        else:
+            c0l = c0.to(c.dtype)
+            library_ms = cuda_ms(torch, lambda: torch.addmm(c0l, aa, bb))
+        nbytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
+                  + c.numel() * c.element_size() * (2 if with_c0 else 1))
+        peak = BF16_FLOPS if adt == bdt == bf16 else FP32_FLOPS
+        bound_ms, bound_by = _bound(2 * batch * m * n * k, nbytes, peak)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
+        emit({"phase": "k7", "case": name, "batch": batch, "M": m, "N": n,
+              "K": k, "tile": GEMMDescriptor(
+                  m=m, n=n, k=k, a_precision=P.from_dtype(adt),
+                  b_precision=P.from_dtype(bdt), batch=batch,
+              ).kernel_descriptor(dev).tile.name, "err": err,
+              "budget": budget, "share": share, "launches": n7, "ok": ok,
+              **{k_: v_ for k_, v_ in results[name].items()
+                 if k_ != "max_abs_err"}})
+        if not ok:
+            raise SystemExit(f"k7 {name}: kernel disagrees with its plain "
+                             f"version (uses {share} of |d| <= {budget[0]} "
+                             f"+ {budget[1]}|C|, launches {n7})")
+        del a, b, c0, c, c_p
+    torch.cuda.empty_cache()
+    emit({"phase": "k7_done", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return results["bf16_4096"], launches
+
+
+# Llama-3-8B's projections as (K, N): wq and wo, wk and wv, w_gate and
+# w_up, w_down.
+LLAMA3_8B_PROJECTIONS = ((4096, 4096), (4096, 1024), (4096, 14336),
+                         (14336, 4096))
+
+
+def phase_k8(torch):
+    """K8 against its plain version at Llama-3-8B's projection shapes.
+    Returns the kernel-table row (decode, 4096 -> 14336, signed)."""
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import quant
+    from mfa_tpu_torch.kernels import quant_matmul as k8
+    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = [(k, n, m, layout, torch.bfloat16)
+             for k, n in LLAMA3_8B_PROJECTIONS for m in (4, 2048)
+             for layout in ("int4", "int4_biased")]
+    cases.append((4096, 1024, 4, "int4", torch.float32))
+    results = {}
+    for k, n, m, layout, dt in cases:
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw = quant.quantize_weight(w, layout)
+        del w
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+        args = (x, qw.w, qw.scale)
+        y = k8.int4_matmul(*args, layout=layout)
+        torch.cuda.synchronize()
+        y_p = k8.int4_matmul_plain(*args, layout=layout)
+        budget = KERNEL_BUDGETS["int4_matmul_" + (
+            "biased" if layout == "int4_biased" else "signed")]
+        err = max_err(y, y_p)
+        share = budget_share(y, y_p, *budget)
+        ok = bool(torch.isfinite(y.float()).all()) and share <= 1
+        ms = cuda_ms(torch, lambda: k8.int4_matmul(*args, layout=layout),
+                     iters=50)
+        plain_ms = cuda_ms(torch, lambda: k8.int4_matmul_plain(
+            *args, layout=layout), iters=3, warmup=1)
+        # Yardstick: F.linear over the dequantized weight, the same product
+        # over a representation 4x (bf16) or 8x (fp32) as large.
+        w_deq = qw.dequantize(dt)
+        library_ms = cuda_ms(torch, lambda: F.linear(x, w_deq), iters=50)
+        del w_deq
+        nbytes = (qw.w.numel() + 4 * n + x.numel() * x.element_size()
+                  + m * n * x.element_size())
+        bound_ms, bound_by = _bound(
+            2 * m * n * k, nbytes,
+            BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
+        tile = k8.int4_tile(m, dt)
+        ctas = -(-m // tile.block_m) * -(-n // tile.block_n)
+        key = (f"{layout}_{str(dt).split('.')[-1]}_M{m}_K{k}_N{n}")
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+        emit({"phase": "k8", "case": key, "tile": tile.name, "ctas": ctas,
+              "sms_busy": min(ctas, 132), "err": err, "budget": budget,
+              "share": share, "ok": ok,
+              "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+              **{k_: v_ for k_, v_ in results[key].items()
+                 if k_ != "max_abs_err"}})
+        if not ok:
+            raise SystemExit(f"k8 {key}: kernel disagrees with its plain "
+                             f"version (uses {share} of |d| <= {budget[0]} "
+                             f"+ {budget[1]}|y|)")
+        del qw, x, y, y_p
+    torch.cuda.empty_cache()
+    emit({"phase": "k8_done", "seconds": time.perf_counter() - t0})
+    return results["int4_bfloat16_M4_K4096_N14336"]
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """K1, K3, K4, K5 and K6 swapped for their plain versions, for the
-    in-context checks: ops/attention.py and ops/decode.py look the kernel
-    functions up in their modules at each call."""
+    """K1, K3, K4, K5, K6, K7 and K8 swapped for their plain versions, for
+    the in-context checks: ops/attention.py, ops/decode.py, ops/gemm.py
+    and models/llama.py look the kernel functions up in their modules at
+    each call."""
     from mfa_tpu_torch.kernels import decode as k5
     from mfa_tpu_torch.kernels import flash_bwd as k34
     from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.kernels import gemm_kernel as k7
     from mfa_tpu_torch.kernels import paged_decode as k6
+    from mfa_tpu_torch.kernels import quant_matmul as k8
+
+    def int4_plain(x, packed, scale, *, layout, device="cuda"):
+        return k8.int4_matmul_plain(x, packed, scale, layout=layout)
 
     swaps = [(k1, "flash_fwd", k1.flash_fwd_plain),
              (k34, "flash_bwd_q", k34.flash_bwd_q_plain),
              (k34, "flash_bwd_kv", k34.flash_bwd_kv_plain),
              (k5, "decode_attend", k5.decode_attend_plain),
-             (k6, "paged_decode", k6.paged_decode_plain)]
+             (k6, "paged_decode", k6.paged_decode_plain),
+             (k7, "gemm_kernel", k7.gemm_kernel_plain),
+             (k8, "int4_matmul", int4_plain)]
     real = [getattr(mod, attr) for mod, attr, _ in swaps]
     for mod, attr, plain in swaps:
         setattr(mod, attr, plain)
@@ -764,6 +966,145 @@ def phase_paged_serving(torch, model, prompts, contiguous_tokens):
     emit({"phase": "paged_serving_done", "seconds": time.perf_counter() - t0,
           "k1_launches": k1_launches, "k6_launches": k6_launches})
     return k1_launches, k6_launches
+
+
+def _weight_gib(model) -> float:
+    """Device bytes of a model's weights (parameters and the quantized
+    projections' buffers), GiB."""
+    return sum(t.numel() * t.element_size()
+               for t in (*model.parameters(), *model.buffers())) / 2**30
+
+
+def phase_int4_serving(torch, int4_model, int8_model, prompts, bf16_gib,
+                       bf16_tokens):
+    """Llama-3-8B with INT4 weight-only projections (K8) and an FP8-e4m3
+    KV cache behind the continuous-batching scheduler; one short INT8
+    request. Returns the launches of K1, K2 and K8 on this path."""
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import decode as k2
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.kernels import quant_matmul as k8
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+    from mfa_tpu_torch.serving.scheduler import (
+        ContinuousBatchingScheduler,
+        Request,
+    )
+
+    t0 = time.perf_counter()
+    cfg = int4_model.cfg
+    fp8 = OperandPrecision.FP8_E4M3
+    int4_gib = _weight_gib(int4_model)
+    emit({"phase": "int4_init", "weights_gib": int4_gib,
+          "bf16_weights_gib": bf16_gib,
+          "int4_projection_gib": sum(
+              b.numel() * b.element_size() for b in int4_model.buffers())
+          / 2**30, "device_gib": torch.cuda.memory_allocated() / 2**30})
+
+    # In-context check of K8: one decode step's logits through K8 and
+    # through its plain version, from the same state. The fused append
+    # writes the same rows both times (its lengths are put back).
+    rng = np.random.default_rng(8)
+    caches = int4_model.make_caches(4, 2048, fp8)
+    with torch.inference_mode():
+        int4_model(torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                                 (4, 256))).cuda(),
+                   caches=caches)
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, 4)).cuda()
+        lengths = [c.lengths for c in caches]
+        logits_k, _ = int4_model.decode_step(tok, caches)
+        for c, ln in zip(caches, lengths):
+            c.lengths = ln
+        with plain_kernels():
+            logits_p, _ = int4_model.decode_step(tok, caches)
+    scale = float(logits_p.abs().max())
+    err = max_err(logits_k, logits_p)
+    budget = 5e-2 * max(1.0, scale)
+    argmax_equal = bool(torch.equal(logits_k.argmax(-1), logits_p.argmax(-1)))
+    emit({"phase": "k8_in_context", "max_abs_err": err, "budget": budget,
+          "max_abs_logit": scale, "argmax_equal": argmax_equal})
+    if not err <= budget:
+        raise SystemExit(f"k8 in context: logits differ by {err} (budget "
+                         f"{budget})")
+    del caches, logits_k, logits_p
+    torch.cuda.empty_cache()
+
+    sched = ContinuousBatchingScheduler(int4_model, num_slots=4,
+                                        max_len=2048, kv_precision=fp8,
+                                        device="cuda")
+    reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    for f in (k1.flash_fwd, k2.decode_fused_append, k8.int4_matmul):
+        f.launches = 0
+    decode_only = []
+    t_run = time.perf_counter()
+    for _ in range(2000):
+        pre = sched.stats["prefills"]
+        t_s = time.perf_counter()
+        progressed = sched.step()
+        torch.cuda.synchronize()
+        if not progressed and not sched.queue:
+            break
+        if sched.stats["prefills"] == pre:
+            decode_only.append((time.perf_counter() - t_s) * 1e3)
+    else:
+        raise SystemExit("int4 serving: no end after 2000 steps")
+    sched._retire()
+    run_s = time.perf_counter() - t_run
+    n1, n2, n8 = (k1.flash_fwd.launches, k2.decode_fused_append.launches,
+                  k8.int4_matmul.launches)
+    done = {c.request.id: c for c in sched.finished}
+    stats = dict(sched.stats)
+    toks = [done[r.id].tokens for r in reqs if r.id in done]
+    same = sum(a == b for t, ref in zip(toks, bf16_tokens)
+               for a, b in zip(t, ref))
+    summary = dict(
+        completions=len(done), tokens=stats["tokens"],
+        prefills=stats["prefills"], decode_steps=stats["decode_steps"],
+        k1_launches=n1, k2_launches=n2, k8_launches=n8, run_s=run_s,
+        decode_ms_per_step=(float(np.median(decode_only))
+                            if decode_only else None),
+        tokens_per_s=stats["tokens"] / run_s,
+        share_equal_to_bf16=same / (16 * len(reqs)),
+        weights_gib=int4_gib, bf16_weights_gib=bf16_gib)
+    ok = (len(done) == len(reqs)
+          and all(len(done[r.id].tokens) == 16 for r in reqs)
+          and stats["prefills"] == len(reqs)
+          and n8 == 7 * cfg.n_layers * (stats["prefills"]
+                                        + stats["decode_steps"])
+          and n1 == cfg.n_layers * stats["prefills"]
+          and n2 == cfg.n_layers * stats["decode_steps"])
+    emit({"phase": "int4_serving", "kv": "fp8_e4m3", "ok": ok, **summary})
+    if not ok:
+        raise SystemExit(f"int4 serving: completions or launch counts wrong "
+                         f"({summary})")
+    del sched
+    torch.cuda.empty_cache()
+
+    # One short request with INT8 weights: the plain INT8 branch.
+    sched = ContinuousBatchingScheduler(int8_model, num_slots=1,
+                                        max_len=2048, kv_precision=fp8,
+                                        device="cuda")
+    sched.submit(Request(prompt=prompts[0], max_new_tokens=4))
+    k8.int4_matmul.launches = 0
+    t_s = time.perf_counter()
+    done8 = sched.run()
+    torch.cuda.synchronize()
+    int8_ok = (len(done8) == 1 and len(done8[0].tokens) == 4
+               and k8.int4_matmul.launches == 0)
+    emit({"phase": "int8_request", "ok": int8_ok, "tokens": done8[0].tokens,
+          "seconds": time.perf_counter() - t_s,
+          "weights_gib": _weight_gib(int8_model)})
+    if not int8_ok:
+        raise SystemExit("int8 request: did not complete through the plain "
+                         "INT8 branch")
+    del sched
+    torch.cuda.empty_cache()
+    emit({"phase": "int4_serving_done", "seconds": time.perf_counter() - t0,
+          "k8_launches": n8})
+    return {"flash_fwd": n1, "decode_fused_append": n2, "int4_matmul": n8}
 
 
 def _sdpa_backward_ms(torch, F, q, k, v, do, mask, is_causal, scale):
@@ -1019,27 +1360,43 @@ def main() -> int:
     k2_row = phase_k2(torch)
     k5_row, k5_launches = phase_k5(torch)
     k6_row = phase_k6(torch)
+    k7_row, k7_launches = phase_k7(torch)
+    k8_row = phase_k8(torch)
     launches, model, prompts, bf16_tokens = phase_serving(torch)
     paged_k1, k6_launches = phase_paged_serving(torch, model, prompts,
                                                 bf16_tokens)
+    # Quantize the served bf16 model before it goes (embedding, norms and
+    # lm_head stay shared with it).
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+
+    bf16_gib = _weight_gib(model)
+    int4_model = model.quantized(OperandPrecision.INT4)
+    int8_model = model.quantized(OperandPrecision.INT8)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4_launches = phase_int4_serving(torch, int4_model, int8_model,
+                                       prompts, bf16_gib, bf16_tokens)
+    del int4_model, int8_model
     gc.collect()
     torch.cuda.empty_cache()
     bwd_row = phase_bwd(torch)
     train_launches = phase_training(torch)
-    # K1 runs on three main paths: its launches are the two serving runs'
-    # and the training run's together.
+    # K1 runs on four main paths: its launches are the three serving runs'
+    # and the training run's together; K2 on the two contiguous ones.
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "mfa_tpu/kernels/flash_fwd.py:349",
          "launches": (launches["flash_fwd"] + paged_k1
+                      + int4_launches["flash_fwd"]
                       + train_launches["flash_fwd"]),
          **{k: v for k, v in k1_row.items() if k != "lse_err"}},
         {"name": "decode_fused_append", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode.cu",
          "replaces": "mfa_tpu/kernels/decode.py:431",
-         "launches": launches["decode_fused_append"], **k2_row},
+         "launches": (launches["decode_fused_append"]
+                      + int4_launches["decode_fused_append"]), **k2_row},
         {"name": "flash_bwd_q", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:59",
@@ -1057,6 +1414,15 @@ def main() -> int:
          "source": "mfa_tpu_torch/csrc/decode_attend.cu",
          "replaces": "mfa_tpu/kernels/paged_decode.py:43",
          "launches": k6_launches, **k6_row},
+        # K7's path is its entry point, gemm, driven in k7.
+        {"name": "gemm", "route": "cuda",
+         "source": "mfa_tpu_torch/csrc/gemm.cu",
+         "replaces": "mfa_tpu/kernels/gemm_kernel.py:34",
+         "launches": k7_launches, **k7_row},
+        {"name": "int4_matmul", "route": "cuda",
+         "source": "mfa_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "mfa_tpu/kernels/quant_matmul.py:27 and :54",
+         "launches": int4_launches["int4_matmul"], **k8_row},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,10 +8,11 @@ paged; sampling; the continuous-batching and paged schedulers) and
 ``utils/``. CUDA sources live in ``csrc/`` and are compiled with ``nvcc``
 at first use.
 
-The entry points ``mfa_tpu`` names at its top level are importable from
-here too (``flash_attention``, ``mha``, ``decode_attention``,
-``decode_attention_append``, ``paged_decode_attention``); they load on
-first access and build no kernel until called on a CUDA tensor.
+The names ``mfa_tpu`` gives at its top level are importable from here
+too (``flash_attention``, ``mha``, ``decode_attention``,
+``decode_attention_append``, ``paged_decode_attention``, ``gemm``,
+``AttentionDescriptor``, ``GEMMDescriptor``); they load on first access
+and build no kernel until called on a CUDA tensor.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 This package imports neither ``jax`` nor ``mfa_tpu``.
@@ -23,6 +24,9 @@ _EXPORTS = {
     "decode_attention": "mfa_tpu_torch.ops.decode",
     "decode_attention_append": "mfa_tpu_torch.ops.decode",
     "paged_decode_attention": "mfa_tpu_torch.ops.decode",
+    "gemm": "mfa_tpu_torch.ops.gemm",
+    "AttentionDescriptor": "mfa_tpu_torch.ops.descriptors",
+    "GEMMDescriptor": "mfa_tpu_torch.ops.descriptors",
 }
 
 __all__ = list(_EXPORTS)

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the library's entries (see csrc/*.cu).
 _SIGNATURES = {
     "mfa_flash_fwd": [_P, _P, _P, _P, _P,           # q k v o lse
@@ -69,6 +70,16 @@ _SIGNATURES = {
                                                     # page_size D
                          _I, _I, _I, _I,            # window qdt kvfmt threads
                          _P],                       # stream
+    "mfa_gemm": [_P, _P, _P, _P,                    # a b c0 c
+                 _I, _I, _I, _I,                    # batch M N K
+                 _L, _L, _L, _L,                    # lda a_batch ldb b_batch
+                 _I, _I, _I, _I, _I, _I,            # a_type b_type c_type
+                                                    # ta tb tile
+                 _P],                               # stream
+    "mfa_int4_matmul": [_P, _P, _P, _P,             # x w scale y
+                        _I, _I, _I,                 # M N K
+                        _I, _I, _I,                 # x_bf16 biased tile
+                        _P],                        # stream
 }
 
 

@@ -1,0 +1,119 @@
+"""INT4-weight matmul: the Hopper kernel K8 and its plain version.
+
+Replaces ``mfa_tpu/kernels/quant_matmul.py::_qmm_kernel`` (signed
+nibbles) and ``::_qmm_biased_kernel`` (nibbles q + 8, corrected by
+8 * rowsum(x)); the CUDA source is ``csrc/quant_matmul.cu``.
+:func:`int4_matmul` launches the kernel for CUDA tensors and takes
+:func:`int4_matmul_plain` only for CPU tensors.
+
+The weight is the port's half-split layout (``kernels/quant.py``):
+packed [N, K/2], byte (n, i) holding W[i, n] and W[i + K/2, n], with
+per-output-channel scales [N] fp32. The layout is named explicitly,
+"int4" (int8 bytes, signed nibbles) or "int4_biased" (uint8 bytes), and
+must agree with the bytes' dtype: ``mfa_tpu`` inferred it from the dtype
+alone.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mfa_tpu_torch.kernels import build
+from mfa_tpu_torch.kernels.quant import WEIGHT_LAYOUTS, unpack_int4_halves
+from mfa_tpu_torch.ops import params as params_mod
+from mfa_tpu_torch.utils.device import check_on, resolve_device
+
+# ops/params.py::QMM_TILES, as csrc/quant_matmul.cu numbers them.
+_TILE_CODES = {"d8": 0, "d16": 1, "m64": 2, "ffma": 3}
+
+
+def int4_tile(m: int, x_dtype: torch.dtype) -> params_mod.MatmulTile:
+    """The tile for M rows: FMA for fp32 activations; for bf16 the
+    transposed decode tiles up to 8 or 16 rows (M = slots), 64 x 128
+    blocks above."""
+    tiles = params_mod.QMM_TILES
+    if x_dtype == torch.float32:
+        return tiles["ffma"]
+    if m <= 16:
+        return tiles["d8" if m <= 8 else "d16"]
+    return tiles["m64"]
+
+
+def int4_matmul_plain(x, packed, scale, *, layout: str):
+    """Plain PyTorch version of K8 on x [..., K]: the two K halves against
+    the low and high nibbles in fp32 (biased: nibbles q + 8, then minus
+    8 * rowsum(x)), times the scale, cast to x's type."""
+    n, kh = packed.shape
+    *lead, k = x.shape
+    x2 = x.reshape(-1, k)
+    if layout == "int4":
+        lo, hi = unpack_int4_halves(packed)
+    else:
+        p32 = packed.to(torch.int32)
+        lo, hi = p32 & 0x0F, p32 >> 4
+    xf = x2.float()
+    acc = xf[:, :kh] @ lo.float().t() + xf[:, kh:] @ hi.float().t()
+    if layout == "int4_biased":
+        acc = acc - 8.0 * xf.sum(dim=1, keepdim=True)
+    return (acc * scale).to(x2.dtype).reshape(*lead, n)
+
+
+def _check(x, packed, scale, layout):
+    want = WEIGHT_LAYOUTS.get(layout)
+    if layout not in ("int4", "int4_biased"):
+        raise ValueError(f"int4_matmul takes layout 'int4' or 'int4_biased', "
+                         f"not {layout!r}")
+    if packed.dtype != want:
+        raise TypeError(f"layout {layout!r} stores {want} bytes, got "
+                        f"{packed.dtype}")
+    if packed.dim() != 2:
+        raise ValueError(f"packed must be [N, K/2], got {tuple(packed.shape)}")
+    n, kh = packed.shape
+    if x.shape[-1] != 2 * kh:
+        raise ValueError(f"packed rows hold K/2 = {kh} bytes, x has K = "
+                         f"{x.shape[-1]}")
+    if tuple(scale.shape) != (n,) or scale.dtype != torch.float32:
+        raise ValueError(f"scale must be [{n}] fp32, got "
+                         f"{tuple(scale.shape)} {scale.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int4_matmul takes bf16 or fp32 x, not {x.dtype}")
+    if x.numel() == 0:
+        raise ValueError("empty x")
+
+
+def int4_matmul(x, packed, scale, *, layout: str, device="cuda"):
+    """K8: y [..., N] = x [..., K] @ W * scale in x's type. All tensors
+    must lie on ``device`` (default ``cuda``). Launches the CUDA kernel
+    for CUDA tensors (or raises); takes the plain version for CPU
+    tensors."""
+    _check(x, packed, scale, layout)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int4_matmul: unsupported device {x.device}")
+    check_on(resolve_device(device), x=x, packed=packed, scale=scale)
+    *lead, k = x.shape
+    n = packed.shape[0]
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, packed, scale, layout=layout)
+    x2 = x.reshape(-1, k)
+    if k % 32 != 0:
+        raise ValueError(f"int4_matmul on the card needs K % 32 == 0 (whole "
+                         f"16-byte copies), got K = {k}")
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
+    if not packed.is_contiguous() or packed.data_ptr() % 16:
+        raise ValueError("packed weights must be contiguous and 16-byte "
+                         "aligned")
+    m = x2.shape[0]
+    tile = int4_tile(m, x.dtype)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    build.library().call(
+        "mfa_int4_matmul", x2.data_ptr(), packed.data_ptr(),
+        scale.contiguous().data_ptr(), y.data_ptr(), m, n, k,
+        int(x.dtype == torch.bfloat16), int(layout == "int4_biased"),
+        _TILE_CODES[tile.name],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    int4_matmul.launches += 1
+    return y.reshape(*lead, n)
+
+
+int4_matmul.launches = 0

@@ -10,6 +10,13 @@ caches) and ``decode_step`` run over plain functions on tensors.
 - Projections keep ``mfa_tpu``'s names; weights are stored as
   ``nn.Linear`` does, [d_out, d_in], and the products go to
   ``torch.nn.functional.linear`` (where the JAX package used an XLA dot).
+- Weight-only quantized projections (:func:`quantize_params`,
+  :func:`init_params_quantized`, ``Llama.init(weight_precision=...)``)
+  are ``kernels.quant.QuantizedWeight``s held as buffers, never as
+  parameters: INT4 runs through kernel K8 (``int4_matmul``), INT8 in
+  plain PyTorch as ``mfa_tpu`` left it to XLA (an fp32 product of the
+  widened weight, times the scale, cast). Embedding and lm_head stay in
+  the model's dtype.
 - RMSNorm and the rotary phases in fp32; silu in fp32 then cast; logits
   rounded through the weight dtype, then fp32.
 - Parameters require grad only when the model is built with
@@ -26,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mfa_tpu_torch.kernels import quant
+from mfa_tpu_torch.kernels import quant_matmul as quant_matmul_mod
 from mfa_tpu_torch.ops.attention import flash_attention
 from mfa_tpu_torch.ops.decode import decode_attention_append
 from mfa_tpu_torch.ops.precision import OperandPrecision
@@ -66,16 +75,32 @@ class LlamaConfig:
 # Parameters
 # ---------------------------------------------------------------------------
 
+_QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# OperandPrecision of the weights → QuantizedWeight layout. INT4 is
+# signed, as mfa_tpu's quantize_params packs it.
+_WEIGHT_LAYOUTS = {OperandPrecision.INT8: "int8",
+                   OperandPrecision.INT4: "int4"}
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                dtype: torch.dtype = torch.bfloat16) -> dict:
+                dtype: torch.dtype = torch.bfloat16, *,
+                weight_precision: OperandPrecision | None = None) -> dict:
     """Random parameters on the generator's device, named as in
     ``mfa_tpu`` with projection weights as [d_out, d_in]: N(0, 1/d_in)
-    rounded to ``dtype``, the embedding N(0, 1) * 0.02, norms ones (fp32)."""
+    rounded to ``dtype``, the embedding N(0, 1) * 0.02, norms ones (fp32).
+    With ``weight_precision`` (INT8 or INT4) each projection is quantized
+    as soon as it is drawn (see :func:`init_params_quantized`)."""
     dev = generator.device
+    layout = None
+    if weight_precision is not None:
+        layout = _weight_layout(weight_precision)
 
-    def dense(d_in, d_out):
+    def dense(d_in, d_out, quantize=True):
         w = torch.randn((d_out, d_in), generator=generator, device=dev)
-        return (w / math.sqrt(d_in)).to(dtype)
+        w = (w / math.sqrt(d_in)).to(dtype)
+        if layout is None or not quantize:
+            return w
+        return quant.quantize_weight(w, layout)
 
     def ones(n):
         return torch.ones((n,), dtype=torch.float32, device=dev)
@@ -106,21 +131,75 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                                           device=dev)
         params["layers"].append(layer)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense(cfg.dim, cfg.vocab_size)
+        params["lm_head"] = dense(cfg.dim, cfg.vocab_size, quantize=False)
     return params
 
 
+def _weight_layout(precision: OperandPrecision) -> str:
+    if precision not in _WEIGHT_LAYOUTS:
+        raise ValueError(f"unsupported weight precision {precision}")
+    return _WEIGHT_LAYOUTS[precision]
+
+
+def init_params_quantized(cfg: LlamaConfig, generator: torch.Generator,
+                          precision: OperandPrecision,
+                          dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Memory-lean random init: each projection is drawn (rounded to
+    ``dtype``, as :func:`init_params` stores it) and quantized at once, so
+    at most one full-precision projection exists at a time. The draws
+    come in :func:`init_params`' order, so the result equals
+    ``quantize_params(init_params(cfg, generator, dtype), precision)``
+    bit for bit from the same generator state."""
+    return init_params(cfg, generator, dtype, weight_precision=precision)
+
+
+def quantize_params(params: dict, precision: OperandPrecision) -> dict:
+    """Weight-only quantization of every projection (INT8 or signed INT4,
+    per-output-channel scales over the input axis) with ``mfa_tpu``'s
+    eager bits; the other entries (embedding, norms, lm_head) are kept as
+    they are. ``params`` is a parameter dict as :func:`init_params` gives
+    it or :meth:`Llama.params` returns it."""
+    layout = _weight_layout(precision)
+    out = {name: t for name, t in params.items() if name != "layers"}
+    out["layers"] = []
+    for layer in params["layers"]:
+        nl = dict(layer)
+        for name in _QUANTIZABLE:
+            nl[name] = quant.quantize_weight(layer[name], layout)
+        out["layers"].append(nl)
+    return out
+
+
 class LlamaLayer(nn.Module):
-    """One block's parameters (attention + MLP, pre-norm)."""
+    """One block's parameters (attention + MLP, pre-norm). A quantized
+    projection is held as two buffers, ``<name>_q`` and ``<name>_scale``,
+    and read back as a ``QuantizedWeight`` under its own name."""
 
     def __init__(self, tensors: dict, trainable: bool = False):
         super().__init__()
+        self._layouts = {}
         for name, t in tensors.items():
-            self.register_parameter(
-                name, nn.Parameter(t, requires_grad=trainable))
+            if isinstance(t, quant.QuantizedWeight):
+                if trainable:
+                    raise ValueError(f"{name} is quantized: a model with "
+                                     "quantized weights cannot train")
+                self.register_buffer(name + "_q", t.w)
+                self.register_buffer(name + "_scale", t.scale)
+                self._layouts[name] = t.layout
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(t, requires_grad=trainable))
+
+    def __getattr__(self, name: str):
+        layouts = self.__dict__.get("_layouts", {})
+        if name in layouts:
+            return quant.QuantizedWeight(getattr(self, name + "_q"),
+                                         getattr(self, name + "_scale"),
+                                         layouts[name])
+        return super().__getattr__(name)
 
     def has(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._layouts
 
 
 class Llama(nn.Module):
@@ -147,15 +226,40 @@ class Llama(nn.Module):
     @classmethod
     def init(cls, cfg: LlamaConfig, *, generator: torch.Generator,
              dtype: torch.dtype = torch.bfloat16, device="cuda",
-             trainable: bool = False) -> "Llama":
+             trainable: bool = False,
+             weight_precision: OperandPrecision | None = None) -> "Llama":
         """Random weights from ``generator`` (which must live on
-        ``device``)."""
+        ``device``); ``weight_precision`` INT8 or INT4 quantizes every
+        projection as it is drawn (:func:`init_params_quantized`)."""
         dev = resolve_device(device)
         if generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{dev}")
-        return cls(cfg, init_params(cfg, generator, dtype), device=dev,
-                   trainable=trainable)
+        if trainable and weight_precision is not None:
+            raise ValueError("a model with quantized weights cannot train")
+        return cls(cfg, init_params(cfg, generator, dtype,
+                                    weight_precision=weight_precision),
+                   device=dev, trainable=trainable)
+
+    def params(self) -> dict:
+        """The weights as a parameter dict (the model's own tensors, not
+        copies; quantized projections as ``QuantizedWeight``)."""
+        out = {"embed": self.embed.data, "final_norm": self.final_norm.data,
+               "layers": []}
+        if self.lm_head is not None:
+            out["lm_head"] = self.lm_head.data
+        for layer in self.layers:
+            names = list(layer._parameters) + list(layer._layouts)
+            out["layers"].append({n: (getattr(layer, n) if n in layer._layouts
+                                      else getattr(layer, n).data)
+                                  for n in names})
+        return out
+
+    def quantized(self, precision: OperandPrecision) -> "Llama":
+        """A serving copy with every projection quantized (INT8 or INT4);
+        embedding, norms and lm_head are this model's own tensors."""
+        return Llama(self.cfg, quantize_params(self.params(), precision),
+                     device=self.device)
 
     def make_caches(self, batch: int, max_len: int,
                     precision: OperandPrecision = OperandPrecision.BF16):
@@ -176,7 +280,17 @@ class Llama(nn.Module):
 
 
 def _matmul(x, w):
-    """x @ w.T in x's dtype (fp32 accumulation in the library product)."""
+    """x @ w.T in x's dtype (fp32 accumulation), with transparent
+    weight-only dequantization: INT4 through kernel K8 (looked up in its
+    module at each call, so a caller may swap in the plain version), INT8
+    as ``mfa_tpu`` runs it, an fp32 product of the widened weight times
+    the per-channel scale, cast once."""
+    if isinstance(w, quant.QuantizedWeight):
+        if w.layout == "int8":
+            y = F.linear(x.float(), w.w.float())
+            return (y * w.scale).to(x.dtype)
+        return quant_matmul_mod.int4_matmul(x, w.w, w.scale, layout=w.layout,
+                                            device=x.device)
     return F.linear(x, w)
 
 

@@ -80,3 +80,4 @@ class TwoLevelCache:
 
 
 attention_cache = TwoLevelCache("attention")
+gemm_cache = TwoLevelCache("gemm")

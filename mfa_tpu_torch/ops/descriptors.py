@@ -1,14 +1,16 @@
-"""Problem- and kernel-level attention descriptors.
+"""Problem- and kernel-level descriptors, attention and GEMM.
 
-Port of the attention half of ``mfa_tpu/ops/descriptors.py``: a frozen
-problem descriptor (:class:`AttentionDescriptor`) resolves through the
-parameter tables (``ops/params.py``) to a hashable kernel descriptor
-(:class:`AttentionKernelDescriptor`), the key of the kernel cache.
+Port of ``mfa_tpu/ops/descriptors.py``: a frozen problem descriptor
+(:class:`AttentionDescriptor`, :class:`GEMMDescriptor`) resolves through
+the parameter tables (``ops/params.py``) to a hashable kernel descriptor
+(:class:`AttentionKernelDescriptor`, :class:`GEMMKernelDescriptor`).
 
-Dropped from the TPU version: the scheduling knobs ``block_q_inner``,
-``block_kv_inner`` and ``causal_mode`` (the Hopper kernel bounds its kv
-loop per CTA instead), and the fp16 refusal. GEMM descriptors come with
-the GEMM slice.
+Dropped from the TPU version: the attention scheduling knobs
+``block_q_inner``, ``block_kv_inner`` and ``causal_mode`` (the Hopper
+kernel bounds its kv loop per CTA instead), the fp16 refusal, and the
+GEMM's VMEM budget and whole-K macro-tiles (TPU measurements): the GEMM
+tile comes from the problem's shape and the card's SM count, checked
+against its shared memory.
 """
 
 from __future__ import annotations
@@ -145,3 +147,76 @@ class AttentionKernelDescriptor:
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# GEMM descriptors
+# ---------------------------------------------------------------------------
+
+_MMA_TYPES = (OperandPrecision.BF16, OperandPrecision.FP16)
+
+
+@dataclass(frozen=True)
+class GEMMDescriptor:
+    """GEMM problem: C[b] = op(A[b]) @ op(B[b]) (+ C0[b]), op an optional
+    transpose of the stored operand; fp32 accumulation."""
+
+    m: int
+    n: int
+    k: int
+    a_precision: OperandPrecision = OperandPrecision.FP32
+    b_precision: OperandPrecision = OperandPrecision.FP32
+    c_precision: OperandPrecision = OperandPrecision.FP32
+    transpose_a: bool = False
+    transpose_b: bool = False
+    batch: int = 1
+    load_previous_c: bool = False
+
+    def kernel_descriptor(
+        self, device: params_mod.HopperDevice = params_mod.H100,
+    ) -> "GEMMKernelDescriptor":
+        """Tile heuristic for Hopper. Two 16-bit operands of one type take
+        the mma.sync path: a 16-row tile when M is decode-sized (<= 16
+        rows), so a batch of 4-8 rows does not pay for a 128-row tile; the
+        128 x 128 tile when those tiles alone fill every SM; else 64 x 64.
+        fp32 and mixed operands take the FMA tile (fp32 is computed in
+        full precision, never TF32; a bf16 operand widens exactly)."""
+        mma = (self.a_precision in _MMA_TYPES
+               and self.a_precision is self.b_precision)
+        if not mma:
+            name = "ffma"
+        elif self.m <= 16:
+            name = "m16"
+        else:
+            tiles = (-(-self.m // 128)) * (-(-self.n // 128)) * self.batch
+            name = "m128" if tiles >= device.sm_count else "m64"
+        tile = params_mod.GEMM_TILES[name]
+        params_mod.check_tile_fits(
+            params_mod.gemm_smem_bytes(tile, self.transpose_a,
+                                       self.transpose_b), tile, device)
+        return GEMMKernelDescriptor(
+            tile=tile,
+            a_precision=self.a_precision,
+            b_precision=self.b_precision,
+            c_precision=self.c_precision,
+            transpose_a=self.transpose_a,
+            transpose_b=self.transpose_b,
+            load_previous_c=self.load_previous_c,
+            device=device.name,
+        )
+
+
+@dataclass(frozen=True)
+class GEMMKernelDescriptor:
+    """GEMM shape-class descriptor: the tile and what the launch needs.
+    Accumulation is always fp32 (a bf16 accumulator is refused, as in
+    ``mfa_tpu``: the mma.sync and FMA paths have none)."""
+
+    tile: params_mod.MatmulTile
+    a_precision: OperandPrecision
+    b_precision: OperandPrecision
+    c_precision: OperandPrecision
+    transpose_a: bool
+    transpose_b: bool
+    load_previous_c: bool
+    device: str = "sm90"

@@ -3,10 +3,12 @@
 Port of ``mfa_tpu/ops/params.py``: the row parser (:func:`parse_table`)
 and the first-row-with-D<=max_d rule (:func:`select_row`) are kept; the
 rows are keyed on a Hopper device model (:class:`HopperDevice`, from
-``torch.cuda.get_device_properties``) instead of a TPU generation. Only
-the flash forward kernel has rows: its blocks change with the head dim
-and the input type. The fused decode kernel has one launch shape for
-every head dim (``kernels/decode.py``).
+``torch.cuda.get_device_properties``) instead of a TPU generation. The
+flash kernels have rows: their blocks change with the head dim and the
+input type. The fused decode kernel has one launch shape for every head
+dim (``kernels/decode.py``). The matrix-product kernels (K7 ``gemm``, K8
+``int4_matmul``) choose among a few compiled tiles (:data:`GEMM_TILES`,
+:data:`QMM_TILES`) by the problem's shape instead of a head dim.
 
 Columns: ``max_d | block_q | block_kv | block_d``. ``block_q`` rows of Q
 per CTA, ``block_kv`` K/V rows per step of the in-CTA loop, ``block_d``
@@ -230,3 +232,98 @@ _SMEM = {
     "flash_bwd_q": flash_bwd_q_smem_bytes,
     "flash_bwd_kv": flash_bwd_kv_smem_bytes,
 }
+
+
+# ---------------------------------------------------------------------------
+# Matrix-product tiles (K7 gemm, K8 int4_matmul)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MatmulTile:
+    """One compiled tile of a matrix-product kernel: a CTA computes a
+    block_m x block_n block of C with warps_m x warps_n warps, stepping K
+    by block_k (K8: block_k packed bytes, i.e. 2 * block_k values of K) in
+    a ring of ``stages`` shared-memory buffers; warps_k > 1 splits each
+    step's K among that many warps, summed at the end. ``path`` "mma"
+    runs mma.sync on 16-bit operands, "mma_t" the same with the product
+    transposed (K8's decode: output channels on the mma's 16-row side),
+    "ffma" fp32 FMA."""
+
+    name: str
+    block_m: int
+    block_n: int
+    block_k: int
+    warps_m: int
+    warps_n: int
+    stages: int
+    path: str = "mma"
+    warps_k: int = 1
+
+
+# K7, bf16/fp16 operands (mma.sync m16n8k16): a 128 x 128 tile for large
+# problems that fill the card, 64 x 64 where 128-tiles would leave SMs
+# idle, and a 16-row tile for a decode-sized M (4-16 rows). fp32 and mixed
+# operands: one FMA tile, 256 threads of 4 x 4 outputs. (Not tuned on the
+# H100.)
+GEMM_TILES = {
+    "m128": MatmulTile("m128", 128, 128, 32, 2, 4, 3),
+    "m64": MatmulTile("m64", 64, 64, 32, 2, 2, 3),
+    "m16": MatmulTile("m16", 16, 64, 64, 1, 4, 3),
+    "ffma": MatmulTile("ffma", 64, 64, 16, 4, 2, 1, "ffma"),
+}
+
+# K8, bf16 activations. Decode (M = slots <= 8 or 16): the transposed
+# product over 32 output channels a CTA (448 CTAs at N = 14336, 32 at
+# N = 1024), 256 packed bytes (512 values of K) a row per stage, four
+# stages deep, four warps splitting each stage's K. Prefill: 64 x 128
+# (a 128 x 128 tile measured no faster on the H100). fp32 activations:
+# the FMA tile. (Not tuned on the H100.)
+QMM_TILES = {
+    "d8": MatmulTile("d8", 8, 32, 256, 1, 1, 4, "mma_t", 4),
+    "d16": MatmulTile("d16", 16, 32, 256, 1, 1, 4, "mma_t", 4),
+    "m64": MatmulTile("m64", 64, 128, 32, 2, 2, 4),
+    "ffma": MatmulTile("ffma", 64, 64, 16, 4, 2, 1, "ffma"),
+}
+
+
+def gemm_smem_bytes(tile: MatmulTile, transpose_a: bool = False,
+                    transpose_b: bool = False) -> int:
+    """Shared memory of one K7 CTA (as csrc/gemm.cu lays it out): per
+    stage the A and B tiles in their stored orientation, the contiguous
+    dimension padded by 8 elements (bank spread)."""
+    bm, bn, bk = tile.block_m, tile.block_n, tile.block_k
+    if tile.path == "ffma":
+        return ffma_smem_bytes(tile)
+    a = bk * (bm + 8) if transpose_a else bm * (bk + 8)
+    b = bn * (bk + 8) if transpose_b else bk * (bn + 8)
+    return 2 * tile.stages * (a + b)
+
+
+def qmm_smem_bytes(tile: MatmulTile) -> int:
+    """Shared memory of one K8 CTA (csrc/quant_matmul.cu): per stage the
+    x tile [block_m, 2 * block_k + 16] bf16 (its two K halves side by
+    side) and the packed weight tile [block_n, block_k + 16] bytes; the
+    split-K warps of a decode tile reuse the ring to sum their fp32
+    partial products and row sums."""
+    if tile.path == "ffma":
+        return ffma_smem_bytes(tile)
+    ring = tile.stages * (2 * tile.block_m * (2 * tile.block_k + 16)
+                          + tile.block_n * (tile.block_k + 16))
+    if tile.warps_k == 1:
+        return ring
+    return max(ring, 4 * tile.warps_k * (tile.block_m * tile.block_n
+                                         + tile.block_m))
+
+
+def ffma_smem_bytes(tile: MatmulTile) -> int:
+    """The FMA tile (csrc/matmul.cuh): fp32 A and B tiles, k-major, A's
+    rows padded by 4; the next step waits in registers."""
+    return 4 * tile.block_k * (tile.block_m + 4 + tile.block_n)
+
+
+def check_tile_fits(smem: int, tile: MatmulTile,
+                    device: HopperDevice) -> None:
+    if smem > device.smem_per_block:
+        raise ValueError(f"tile {tile} needs {smem} bytes of shared memory, "
+                         f"{device.name} gives {device.smem_per_block}")

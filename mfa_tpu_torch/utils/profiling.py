@@ -7,20 +7,23 @@ so it includes the profiler's own cost per op), device-busy time of the
 same calls (sum of kernel times; one stream, so kernels do not overlap),
 the idle share 1 - busy / wall, and device time by kernel group (K1
 flash_fwd, K2 decode_fused_append, K3 flash_bwd_q, K4 flash_bwd_kv, K5
-decode_attend, K6 paged_decode, the indexed writes of the paged append
-with the step's one embedding gather, matrix products, the rest). The
-top kernels go to ``<out>/profile_<phase>.txt``.
+decode_attend, K6 paged_decode, K7 gemm, K8 int4_matmul, the indexed
+writes of the paged append with the step's one embedding gather, the
+library's matrix products, the rest). The top kernels go to
+``<out>/profile_<phase>.txt``.
 
 Serving runs Llama-3-8B at full depth; training runs its widths at 16
 of 32 layers (the AdamW state of all 32 would not fit 80 GB). The paged
 phase times whole ``PagedScheduler.step()`` calls (host allocator, table
 upload, decode, sampling) with 8 slots, beside the contiguous decode
-step at the same batch.
+step at the same batch. The int4 phase serves Llama-3-8B with INT4
+weight-only projections (K8) and an FP8-e4m3 KV cache: a 2048-token
+prefill and decode steps at 4 slots.
 
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.profiling [--out build/profiles]
-        [--phases serving,paged,training]
+        [--phases serving,paged,training,int4]
 """
 
 from __future__ import annotations
@@ -52,6 +55,10 @@ _GROUPS = (("flash_fwd", ("flash_fwd",)),
            ("decode_attend", ("ContiguousRows",)),
            ("scatter_append", ("index_elementwise", "index_put",
                                "scatter_gather")),
+           # K7 and K8 before "matmul": its patterns would swallow
+           # "mfa_gemm", and the first match wins.
+           ("gemm_kernel", ("mfa_gemm",)),
+           ("int4_matmul", ("qmm_int4",)),
            ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "sm90_")))
 
 
@@ -181,6 +188,42 @@ def profile_paged(cfg: LlamaConfig, *, out: Path, slots: int = 8,
     return results
 
 
+def profile_int4(cfg: LlamaConfig, *, out: Path, batch: int = 4,
+                 fill: int = 1024, prompt: int = 2048, steps: int = 8,
+                 seed: int = 0) -> list[dict]:
+    """The INT4-weight model (random weights, quantized as drawn): one
+    prompt-length prefill, then batched decode steps over an FP8-e4m3
+    cache filled to ``fill``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Llama.init(cfg, generator=gen, dtype=torch.bfloat16,
+                       device="cuda", weight_precision=OperandPrecision.INT4)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (1, prompt))).cuda()
+
+    def prefill():
+        model(toks, caches=model.make_caches(1, 2048,
+                                             OperandPrecision.FP8_E4M3))
+
+    prefill()
+    prof, wall = _profiled(prefill, 1)
+    results = [_summarize(prof, wall, 1, f"int4_prefill_{prompt}", out)]
+    caches = model.make_caches(batch, 2048, OperandPrecision.FP8_E4M3)
+    model(torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                        (batch, fill))).cuda(), caches=caches)
+    last = torch.from_numpy(rng.integers(1, cfg.vocab_size, batch)).cuda()
+
+    def decode():
+        model.decode_step(last, caches)
+
+    decode()
+    prof, wall = _profiled(decode, steps)
+    results.append(_summarize(prof, wall, steps,
+                              f"int4_decode_b{batch}_ctx{fill}_fp8_e4m3",
+                              out))
+    return results
+
+
 def profile_training(cfg: LlamaConfig, *, out: Path, seq_len: int = 2048,
                      steps: int = 3, seed: int = 0) -> list[dict]:
     """Training steps (bf16 weights, AdamW) on one random batch of
@@ -208,8 +251,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profiles",
                     help="directory for the per-phase kernel tables")
-    ap.add_argument("--phases", default="serving,paged,training",
-                    help="comma-separated: serving, paged, training")
+    ap.add_argument("--phases", default="serving,paged,training,int4",
+                    help="comma-separated: serving, paged, training, int4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -220,7 +263,8 @@ def main(argv=None) -> int:
     runs = {"serving": lambda: profile_serving(cfg, out=out),
             "paged": lambda: profile_paged(cfg, out=out),
             "training": lambda: profile_training(
-                dataclasses.replace(cfg, n_layers=TRAIN_LAYERS), out=out)}
+                dataclasses.replace(cfg, n_layers=TRAIN_LAYERS), out=out),
+            "int4": lambda: profile_int4(cfg, out=out)}
     for phase in args.phases.split(","):
         for row in runs[phase]():
             print(json.dumps(row), flush=True)

@@ -121,6 +121,25 @@ KERNEL_BUDGETS = {
     "flash_bwd_dk_fp32": (2e-5, 1e-5),
     "flash_bwd_dv_fp32": (2e-5, 1e-5),
     "flash_bwd_dterm": (1e-5, 1e-5),
+    # K7 against its plain version (the fp32 product of the upcast
+    # operands): the products are exact in both, the fp32 sums are taken
+    # in another order (|d| ~ sqrt(K) * 2^-24 * |C|, below 1e-3 for
+    # unit-normal operands at K = 4096), and a 16-bit C may then round the
+    # other way: one ulp, at most 2^-7 * |C|; 2^-6 leaves room for two.
+    "gemm_bf16": (1e-3, 2.0 ** -6),
+    # fp32 operands and C: summation order alone. Each side rounds K
+    # partial sums of size ~sqrt(K), so |d| ~ K * 2^-24 in rms (~1e-4 at
+    # K = 1536 for unit-normal operands) and ~5x that at the tail of a
+    # few million elements: 4.4e-4 against cuBLAS's fp32 product on an
+    # H100 at 1536^3. Callers scale atol by max(1, K / 4096).
+    "gemm_fp32": (2e-3, 1e-5),
+    # K8 against its plain version: bf16 x times a widened nibble is exact
+    # in fp32 on both sides; the sums differ in order only, then the bf16
+    # cast of y may round the other way (one ulp). The biased layout sums
+    # x * (q + 8) and subtracts 8 * rowsum(x), both ~8x larger than the
+    # result, so its summation differences count twice as much.
+    "int4_matmul_signed": (1e-3, 2.0 ** -6),
+    "int4_matmul_biased": (2e-3, 2.0 ** -6),
 }
 
 

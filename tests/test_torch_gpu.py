@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes chip_smoke.py does not reach (odd lengths, every table row's head
 dim, GQA groups 1-16, fp32 queries, windows, soft-cap, all four KV
-storage types, shuffled page tables), and a tiny Llama on the card
-against the same on the CPU (forward, decode, both schedulers, training
-steps).
+storage types, shuffled page tables; GEMM transpose states, strided
+slices and ragged edges; INT4 matmul layouts and ragged M/N), and a tiny
+Llama on the card against the same on the CPU (forward, decode, both
+schedulers, training steps, INT4 weights).
 
 Needs a CUDA device; skips elsewhere. On the card (no JAX there, so
 without the suite's conftest):
@@ -21,12 +22,16 @@ import torch
 from mfa_tpu_torch.kernels import decode as k2
 from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.kernels import flash_fwd as k1
+from mfa_tpu_torch.kernels import gemm_kernel as k7
 from mfa_tpu_torch.kernels import paged_decode as k6
+from mfa_tpu_torch.kernels import quant
+from mfa_tpu_torch.kernels import quant_matmul as k8
 from mfa_tpu_torch.models import llama, training
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
     AttentionKernelType,
 )
+from mfa_tpu_torch.ops.gemm import gemm
 from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.serving import kv_cache
 from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
@@ -394,3 +399,121 @@ def test_tiny_llama_train_step_on_cuda_matches_cpu(cuda):
     for name, g in grads_g.items():
         tol = 1e-4 * float(grads_c[name].abs().max())
         assert_close(g, grads_c[name], tol, name)
+
+
+_DT = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}
+
+# (A type, B type, out, batch, M, N, K, transpose_a, transpose_b, C0,
+# extra columns of the buffer each operand is sliced from)
+GEMM_CASES = [
+    ("bf16", "bf16", None, 1, 200, 129, 127, False, False, False, 0),
+    ("bf16", "bf16", "fp32", 1, 33, 70, 64, True, True, True, 0),
+    ("fp16", "fp16", None, 1, 1536, 1536, 96, False, True, False, 0),
+    ("bf16", "bf16", None, 1, 5, 300, 257, True, False, True, 0),      # m16
+    ("bf16", "bf16", None, 3, 200, 129, 127, False, True, False, 0),
+    ("bf16", "bf16", "fp32", 2, 64, 128, 256, False, False, True, 8),  # 16 B
+    ("bf16", "bf16", None, 1, 7, 127, 129, True, True, False, 3),      # odd
+    ("fp32", "fp32", None, 1, 129, 200, 7, False, False, True, 0),
+    ("fp32", "bf16", None, 2, 65, 33, 130, True, True, False, 5),      # mixed
+    ("bf16", "fp32", "bf16", 1, 100, 100, 100, False, True, True, 0),
+]
+
+
+@pytest.mark.parametrize("case", GEMM_CASES,
+                         ids=[f"k7-{i}" for i in range(len(GEMM_CASES))])
+def test_gemm_kernel_matches_plain(cuda, case):
+    adt, bdt, odt, batch, m, n, k, ta, tb, with_c0, pad = case
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+
+    def operand(rows, cols, dt):
+        big = torch.randn((batch, rows + pad, cols + pad), generator=gen,
+                          device=cuda).to(_DT[dt])
+        return big[:, :rows, :cols]
+
+    a = operand(k, m, adt) if ta else operand(m, k, adt)
+    b = operand(n, k, bdt) if tb else operand(k, n, bdt)
+    c0 = operand(m, n, "fp32") if with_c0 else None
+    out_dtype = _DT[odt] if odt else torch.promote_types(a.dtype, b.dtype)
+    n7 = k7.gemm_kernel.launches
+    c = gemm(a, b, c0, transpose_a=ta, transpose_b=tb,
+             out_dtype=odt and _DT[odt], device=cuda)
+    torch.cuda.synchronize()
+    assert k7.gemm_kernel.launches == n7 + 1
+    assert c.dtype == out_dtype and c.shape == (batch, m, n)
+    want = gemm(a.cpu(), b.cpu(), None if c0 is None else c0.cpu(),
+                transpose_a=ta, transpose_b=tb, out_dtype=out_dtype,
+                device="cpu")
+    tag = "fp32" if out_dtype == torch.float32 and "fp32" in (adt, bdt) \
+        else "bf16"
+    atol, rtol = KERNEL_BUDGETS[f"gemm_{tag}"]
+    assert_close(c, want, atol * max(1.0, k / 4096), "C", rtol=rtol)
+    if batch == 1:                     # 2-D operands take the same path
+        c2 = gemm(a[0], b[0], None if c0 is None else c0[0],
+                  transpose_a=ta, transpose_b=tb,
+                  out_dtype=odt and _DT[odt], device=cuda)
+        assert c2.shape == (m, n)
+
+
+# (layout, x type, M, N, K)
+QMM_CASES = [(layout, xdt, m, n, k)
+             for layout in ("int4", "int4_biased")
+             for xdt, m, n, k in (("bf16", 1, 64, 64),         # d8
+                                  ("bf16", 4, 100, 4096),       # d8, ragged
+                                  ("bf16", 12, 1000, 256),      # d16
+                                  ("bf16", 17, 1000, 256),      # m64
+                                  ("bf16", 130, 72, 96),        # m64
+                                  ("bf16", 1100, 2000, 128),    # m64
+                                  ("fp32", 5, 130, 160),
+                                  ("fp32", 70, 64, 64))]
+
+
+@pytest.mark.parametrize("case", QMM_CASES,
+                         ids=[f"k8-{c[0]}-{c[1]}-M{c[2]}-N{c[3]}-K{c[4]}"
+                              for c in QMM_CASES])
+def test_int4_matmul_kernel_matches_plain(cuda, case):
+    layout, xdt, m, n, k = case
+    gen = torch.Generator(device=cuda).manual_seed(m * n + k)
+    w = torch.randn((n, k), generator=gen, device=cuda) / math.sqrt(k)
+    qw = quant.quantize_weight(w, layout)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(_DT[xdt])
+    n8 = k8.int4_matmul.launches
+    y = k8.int4_matmul(x, qw.w, qw.scale, layout=layout, device=cuda)
+    torch.cuda.synchronize()
+    assert k8.int4_matmul.launches == n8 + 1
+    assert y.dtype == x.dtype and y.shape == (m, n)
+    assert_fully_written(y, "y")
+    want = k8.int4_matmul_plain(x, qw.w, qw.scale, layout=layout)
+    atol, rtol = KERNEL_BUDGETS["int4_matmul_" + (
+        "biased" if layout == "int4_biased" else "signed")]
+    assert_close(y, want, atol, "y", rtol=rtol)
+    # Leading dims flatten to rows.
+    y3 = k8.int4_matmul(x[None], qw.w, qw.scale, layout=layout,
+                        device=cuda)
+    assert torch.equal(y3[0], y)
+
+
+@pytest.mark.parametrize("precision", [OperandPrecision.INT4,
+                                       OperandPrecision.INT8])
+def test_quantized_llama_on_cuda_matches_cpu(cuda, precision):
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(5),
+                               torch.float32, weight_precision=precision)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (3, 5, 2, 4, 6)]
+    tokens = []
+    for dev in ("cpu", cuda):
+        model = llama.Llama(cfg, params, device=dev)
+        sched = ContinuousBatchingScheduler(
+            model, num_slots=2, max_len=64, prompt_buckets=(8, 16),
+            kv_precision=OperandPrecision.FP8_E4M3, device=dev)
+        reqs = [Request(prompt=p, max_new_tokens=5) for p in prompts]
+        for r in reqs:
+            sched.submit(r)
+        done = {c.request.id: c.tokens for c in sched.run()}
+        tokens.append([done[r.id] for r in reqs])
+    assert tokens[0] == tokens[1]
+    cpu = llama.Llama(cfg, params, device="cpu")
+    gpu = llama.Llama(cfg, params, device=cuda)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    assert_close(gpu(toks.to(cuda)), cpu(toks), 1e-3, "forward")

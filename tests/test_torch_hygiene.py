@@ -17,7 +17,10 @@ from mfa_tpu_torch.kernels import build
 from mfa_tpu_torch.kernels import decode as k2
 from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.kernels import flash_fwd as k1
+from mfa_tpu_torch.kernels import gemm_kernel as k7
 from mfa_tpu_torch.kernels import paged_decode as k6
+from mfa_tpu_torch.kernels import quant
+from mfa_tpu_torch.kernels import quant_matmul as k8
 from mfa_tpu_torch.models import llama
 from mfa_tpu_torch.ops.attention import attention_chunk_grads, flash_attention
 from mfa_tpu_torch.ops.decode import (
@@ -28,7 +31,10 @@ from mfa_tpu_torch.ops.decode import (
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
     AttentionKernelType,
+    GEMMDescriptor,
 )
+from mfa_tpu_torch.ops.gemm import gemm
+from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.serving import kv_cache
 from mfa_tpu_torch.serving.paged_kv_cache import PagedKVCache, PagePool
 from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
@@ -71,16 +77,26 @@ def test_top_level_names_load_on_first_access():
         "assert paged_decode_attention is decode.paged_decode_attention\n"
         "assert mfa_tpu_torch.flash_attention.__module__ =="
         " 'mfa_tpu_torch.ops.attention'\n"
+        "assert 'mfa_tpu_torch.ops.gemm' not in sys.modules\n"
+        "from mfa_tpu_torch import gemm, AttentionDescriptor, GEMMDescriptor\n"
+        "from mfa_tpu_torch.ops import descriptors, gemm as gemm_mod\n"
+        "assert gemm is gemm_mod.gemm\n"
+        "assert AttentionDescriptor is descriptors.AttentionDescriptor\n"
+        "assert GEMMDescriptor is descriptors.GEMMDescriptor\n"
         "assert sorted(mfa_tpu_torch.__all__) == sorted(["
         "'flash_attention', 'mha', 'decode_attention',"
-        " 'decode_attention_append', 'paged_decode_attention'])\n")
+        " 'decode_attention_append', 'paged_decode_attention', 'gemm',"
+        " 'AttentionDescriptor', 'GEMMDescriptor'])\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+    assert mfa_tpu_torch.gemm is gemm
+    assert mfa_tpu_torch.GEMMDescriptor is GEMMDescriptor
+    assert mfa_tpu_torch.AttentionDescriptor is AttentionDescriptor
     with pytest.raises(AttributeError, match="no attribute"):
-        mfa_tpu_torch.gemm
+        mfa_tpu_torch.int4_matmul
 
 
 def test_entry_points_raise_without_gpu_unless_cpu(monkeypatch):
@@ -128,6 +144,25 @@ def test_entry_points_raise_without_gpu_unless_cpu(monkeypatch):
         PagedScheduler(model)
     PagedScheduler(model, num_pages=4, device="cpu")
 
+    a = torch.zeros(4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gemm(a, a.t())
+    gemm(a, a.t(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.Llama.init(cfg, generator=torch.Generator().manual_seed(0),
+                         weight_precision=OperandPrecision.INT4)
+    qmodel = llama.Llama.init(cfg, generator=torch.Generator().manual_seed(0),
+                              dtype=torch.float32, device="cpu",
+                              weight_precision=OperandPrecision.INT4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousBatchingScheduler(qmodel)
+    qw = llama.quantize_params(model.params(), OperandPrecision.INT4)[
+        "layers"][0]["wq"]
+    x = torch.zeros(2, cfg.dim)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        k8.int4_matmul(x, qw.w, qw.scale, layout="int4")
+    k8.int4_matmul(x, qw.w, qw.scale, layout="int4", device="cpu")
+
 
 def _kd(causal=True, kind=AttentionKernelType.FORWARD):
     return AttentionDescriptor(
@@ -145,7 +180,8 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors(monkeypatch):
 
     monkeypatch.setattr(build, "library", no_library)
     counters = (k1.flash_fwd, k2.decode_fused_append, k34.flash_bwd_q,
-                k34.flash_bwd_kv, k2.decode_attend, k6.paged_decode)
+                k34.flash_bwd_kv, k2.decode_attend, k6.paged_decode,
+                k7.gemm_kernel, k8.int4_matmul)
     before = [f.launches for f in counters]
     q3 = torch.randn(2, 8, 16)
     kv = torch.randn(1, 8, 16)
@@ -187,6 +223,18 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors(monkeypatch):
     flash_attention(qg, kv[None], kv[None], causal=True,
                     device="cpu").sum().backward()
     assert qg.grad is not None
+    a, b = torch.randn(2, 5, 7), torch.randn(2, 9, 7)
+    c = gemm(a, b, transpose_b=True, device="cpu")
+    kd = GEMMDescriptor(m=5, n=9, k=7, transpose_b=True,
+                        batch=2).kernel_descriptor()
+    assert torch.equal(c, k7.gemm_kernel_plain(a, b, None, kd,
+                                               out_dtype=torch.float32))
+    for layout in ("int4", "int4_biased"):
+        qw = quant.quantize_weight(torch.randn(6, 64), layout)
+        x = torch.randn(3, 64)
+        y = k8.int4_matmul(x, qw.w, qw.scale, layout=layout, device="cpu")
+        assert torch.equal(y, k8.int4_matmul_plain(x, qw.w, qw.scale,
+                                                   layout=layout))
     assert [f.launches for f in counters] == before
 
 
@@ -214,6 +262,14 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         k6.paged_decode(meta, pages, pages, pscales, pscales, tables,
                         lengths)
+    kd = GEMMDescriptor(m=8, n=8, k=16).kernel_descriptor()
+    with pytest.raises(ValueError, match="unsupported device"):
+        k7.gemm_kernel(meta, meta.transpose(1, 2), None, kd,
+                       out_dtype=torch.float32)
+    w = torch.empty(8, 8, dtype=torch.int8, device="meta")
+    s8 = torch.empty(8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k8.int4_matmul(meta, w, s8, layout="int4", device="cuda")
 
 
 def test_no_try_except_in_the_port():
@@ -233,7 +289,10 @@ def test_cuda_sources_carry_their_notes():
                        ("flash_bwd.cu", ["_bwd_q_kernel", "_bwd_kv_kernel"]),
                        ("decode_attend.cu", ["_decode_kernel_single",
                                              "_decode_kernel",
-                                             "_paged_decode_kernel"])):
+                                             "_paged_decode_kernel"]),
+                       ("gemm.cu", ["_gemm_kernel"]),
+                       ("quant_matmul.cu", ["_qmm_kernel",
+                                            "_qmm_biased_kernel"])):
         text = (PKG / "csrc" / name).read_text()
         assert all(tpu in text for tpu in tpus)
         assert "bound" in text and "sm_90a" in text
@@ -257,6 +316,14 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
 
 def test_parameter_tables_fit_one_sm():
     from mfa_tpu_torch.ops import params
+
+    for tile in params.GEMM_TILES.values():
+        for ta in (False, True):
+            for tb in (False, True):
+                assert params.gemm_smem_bytes(tile, ta, tb) \
+                    <= params.H100.smem_per_block
+    for tile in params.QMM_TILES.values():
+        assert params.qmm_smem_bytes(tile) <= params.H100.smem_per_block
 
     for kernel in ("flash_fwd", "flash_bwd_q", "flash_bwd_kv"):
         for prec, in_bytes in (("bf16", 2), ("fp32", 4)):
