@@ -20,11 +20,14 @@ phase's failure is caught):
              ops.decode.decode_attention, after kv_cache.update, against
              the same call with its plain version, for the four storage
              types at max_len 2048 and 8192 (lengths 0, 777, L-1, L) and
-             one window-512 case; SDPA timed as a yardstick for bf16.
+             one window-512 case; SDPA timed as a yardstick for bf16. Each
+             line carries the split-KV launch: rows a split R, splits S,
+             CTAs a pass and those with live rows.
 6. k6      — paged decode kernel against its plain version: 8 sequences
              (lengths 0-2048) over a pool with shuffled page ids, pages of
-             128 and 512 tokens, the four storage types and a window; its
-             time beside K5's on the same rows.
+             128 and 512 tokens, the four storage types and a window; bit
+             for bit equal to K5 on the same rows, its time beside K5's;
+             the split-KV launch as in k5.
 7. k7     — GEMM kernel through its entry point ops.gemm.gemm against
              the same call with its plain version, elementwise: bf16
              4096^3, fp32 1536^3 with C0, the four transpose states at
@@ -267,6 +270,25 @@ def _decode_bytes(live_rows, storage, d, q_rows):
     return live_rows * row + 2 * q_rows * d * 2
 
 
+def _split_shape(torch, n, group, capacity, lens, window=None):
+    """K5/K6's split of this shape (ops/params.py's rule, the same for
+    both): rows a split R, splits S, CTAs a pass, and the CTAs that hold
+    live rows of these lengths."""
+    from mfa_tpu_torch.ops import params as params_mod
+
+    dev = params_mod.detect_device(torch.device("cuda", 0))
+    rows = params_mod.decode_split_rows(n, group, capacity, dev)
+    splits = max(1, -(-capacity // rows))
+    chunks = -(-group // params_mod.decode_group_chunk(group))
+    live = 0
+    for x in lens:
+        x = min(x, capacity)
+        lo = max(0, x - window) if window else 0
+        live += (x - 1) // rows - lo // rows + 1 if x > lo else 0
+    return {"R": rows, "S": splits, "ctas": n * chunks * splits,
+            "live_ctas": live * (n // len(lens)) * chunks}
+
+
 def phase_k2(torch):
     from mfa_tpu_torch.kernels import decode as k2
     from mfa_tpu_torch.ops.decode import decode_attention_append
@@ -447,6 +469,7 @@ def phase_k5(torch):
         emit({"phase": "k5", "case": key, "lengths": lens, "err_o": err,
               "o_rms": o_rms, "budget_o": budget, "share_o": share,
               "launches": n5, "empty_slot_zero": empty_zero, "ok": ok,
+              **_split_shape(torch, bh, g, max_len, lens, window),
               **{k_: v_ for k_, v_ in results[key].items()
                  if k_ != "max_abs_err"}})
         if not ok:
@@ -488,8 +511,10 @@ def phase_k6(torch):
                                             device="cuda"), lengths)
             q3 = (torch.randn((s * hkv, g, d), generator=gen, device="cuda")
                   * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+            n6 = k6.paged_decode.launches
             o_k = k6.paged_decode(q3, *operands, sliding_window=window)
             torch.cuda.synchronize()
+            n6 = k6.paged_decode.launches - n6
             o_p = k6.paged_decode_plain(q3, *operands, sliding_window=window)
             err = max_err(o_k, o_p)
             share = budget_share(o_k, o_p, *budget)
@@ -500,8 +525,9 @@ def phase_k6(torch):
             o_c = k5.decode_attend(q3, *rows, lengths, num_kv_heads=hkv,
                                    sliding_window=window)
             same_as_k5 = bool(torch.equal(o_k, o_c))
+            empty_zero = not bool(o_k[:hkv].any())    # length 0 gives zeros
             ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
-                  and same_as_k5 and not bool(o_k[:hkv].any()))
+                  and same_as_k5 and empty_zero and n6 == 1)
             ms = cuda_ms(torch, lambda: k6.paged_decode(
                 q3, *operands, sliding_window=window), iters=50)
             k5_ms = cuda_ms(torch, lambda: k5.decode_attend(
@@ -520,14 +546,17 @@ def phase_k6(torch):
             emit({"phase": "k6", "case": key, "lengths": lens, "err_o": err,
                   "o_rms": o_rms, "budget_o": budget, "share_o": share,
                   "equal_to_k5": same_as_k5, "k5_ms_same_rows": k5_ms,
-                  "paged_over_contiguous": ms / k5_ms, "ok": ok,
+                  "paged_over_contiguous": ms / k5_ms, "launches": n6,
+                  "empty_slot_zero": empty_zero, "ok": ok,
+                  **_split_shape(torch, s * hkv, g, max_len, lens, window),
                   **{k_: v_ for k_, v_ in results[key].items()
                      if k_ != "max_abs_err"}})
             if not ok:
                 raise SystemExit(f"k6 {key}: kernel disagrees with its plain "
                                  f"version (O uses {share} of |d| <= "
                                  f"{budget[0]} + {budget[1]}|O|, equal to "
-                                 f"K5 {same_as_k5})")
+                                 f"K5 {same_as_k5}, empty slot zero "
+                                 f"{empty_zero}, launches {n6})")
             del operands, rows, o_k, o_p, o_c
     emit({"phase": "k6_done", "seconds": time.perf_counter() - t0})
     return results["bf16_page512"]

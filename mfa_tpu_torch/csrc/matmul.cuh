@@ -1,6 +1,6 @@
 // Pieces shared by the matrix-product kernels (K7 gemm.cu, K8
-// quant_matmul.cu): cp.async copies with zero-fill, the fp16 mma.sync, and
-// the fp32 FMA main loop that both kernels use for fp32 operands.
+// quant_matmul.cu): the fp16 mma.sync and the fp32 FMA main loop that both
+// kernels use for fp32 operands (cp.async and ldmatrix are in common.cuh).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -8,35 +8,6 @@
 #include "common.cuh"
 
 namespace mfa {
-
-// 16-byte global -> shared copy; src_bytes = 0 writes zeros (the ragged
-// edge of a tile) and reads nothing.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 16-bit matrices from shared memory, transposed, one row
-// address a lane (lanes 8q .. 8q + 7 give matrix q's rows). Rows must be
-// 16-byte aligned.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
 
 // D (16x8, fp32) += A (16x16, fp16, row) * B (16x8, fp16, col).
 __device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,

@@ -34,11 +34,13 @@ KV_FORMATS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
 # K2 keeps a group's query rows in registers (K5 and K6 split larger
 # groups over CTAs).
 MAX_GROUP = 8
-# One CTA of this many threads per (batch, kv head), for every head dim:
-# D / 8 lanes share a cache row, so it must be a multiple of the most
-# lanes a row takes. (Not tuned on the H100.)
+# K2: one CTA of this many threads per (batch, kv head), for every head
+# dim: D / 8 lanes share a cache row, so it must be a multiple of the most
+# lanes a row takes. (Not tuned on the H100.) K5 and K6 take theirs from
+# ops/params.py.
 THREADS = 256
 assert THREADS % (params_mod.MAX_HEAD_DIM // 8) == 0
+assert params_mod.DECODE_ATTEND_THREADS % (params_mod.MAX_HEAD_DIM // 8) == 0
 # Storage types whose per-token scales multiply S and P.
 QUANTIZED = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 
@@ -262,6 +264,26 @@ def decode_attend_plain(q3, k, v, k_scale, v_scale, lengths, *,
     return attend_plain(q3, k, v, k_scale, v_scale, live)
 
 
+def split_launch(n: int, group: int, capacity: int, head_dim: int,
+                 device: torch.device):
+    """The split-KV launch shape K5 and K6 share, from the shapes alone:
+    (split rows R, query rows a CTA, workspace). The fp32 workspace holds
+    the scores [n, chunks, capacity, query rows a CTA], each split's row
+    max and row sum [n, group, S] and partial O [n, group, S, D]
+    (S = ceil(capacity / R)), and the kernel's arrival counters (zeroed by
+    the kernel itself)."""
+    rows = params_mod.decode_split_rows(n, group, capacity,
+                                        params_mod.detect_device(device))
+    chunk = params_mod.decode_group_chunk(group)
+    splits = max(1, -(-capacity // rows))
+    chunks = -(-group // chunk)
+    workspace = torch.empty(
+        n * chunks * (capacity * chunk + 1)
+        + n * group * splits * (head_dim + 2),
+        dtype=torch.float32, device=device)
+    return rows, chunk, workspace
+
+
 def decode_attend(q3, k, v, k_scale, v_scale, lengths, *,
                   num_kv_heads: int, sliding_window: int | None = None,
                   out=None):
@@ -279,13 +301,13 @@ def decode_attend(q3, k, v, k_scale, v_scale, lengths, *,
     bh, g, d = q3.shape
     L = k.shape[1]
     o = output_like(q3, out)
-    scratch = torch.empty((bh, g, L), dtype=torch.float32, device=q3.device)
+    rows, chunk, workspace = split_launch(bh, g, L, d, q3.device)
     build.library().call(
         "mfa_decode_attend", q3.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), scratch.data_ptr(), bh, num_kv_heads, g, L, d,
+        o.data_ptr(), workspace.data_ptr(), bh, num_kv_heads, g, L, d,
         sliding_window or 0, int(q3.dtype == torch.bfloat16),
-        KV_FORMATS[k.dtype], THREADS,
+        KV_FORMATS[k.dtype], rows, chunk, params_mod.DECODE_ATTEND_THREADS,
         torch.cuda.current_stream(q3.device).cuda_stream)
     decode_attend.launches += 1
     return o

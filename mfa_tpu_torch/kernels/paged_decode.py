@@ -25,6 +25,7 @@ import torch
 
 from mfa_tpu_torch.kernels import build
 from mfa_tpu_torch.kernels import decode as decode_mod
+from mfa_tpu_torch.ops import params as params_mod
 
 
 def gather_rows(x, tables):
@@ -86,15 +87,17 @@ def paged_decode(q3, k_pages, v_pages, k_scale, v_scale, tables, lengths,
     hkv, ps = k_pages.shape[1:3]
     max_pages = tables.shape[1]
     o = decode_mod.output_like(q3, out)
-    scratch = torch.empty((n, g, max_pages * ps), dtype=torch.float32,
-                          device=q3.device)
+    # K5's split of a contiguous cache of the same capacity.
+    rows, chunk, workspace = decode_mod.split_launch(n, g, max_pages * ps,
+                                                     d, q3.device)
     build.library().call(
         "mfa_paged_decode", q3.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        scratch.data_ptr(), n, hkv, g, max_pages, ps, d,
+        workspace.data_ptr(), n, hkv, g, max_pages, ps, d,
         sliding_window or 0, int(q3.dtype == torch.bfloat16),
-        decode_mod.KV_FORMATS[k_pages.dtype], decode_mod.THREADS,
+        decode_mod.KV_FORMATS[k_pages.dtype], rows, chunk,
+        params_mod.DECODE_ATTEND_THREADS,
         torch.cuda.current_stream(q3.device).cuda_stream)
     paged_decode.launches += 1
     return o

@@ -6,7 +6,9 @@ rows are keyed on a Hopper device model (:class:`HopperDevice`, from
 ``torch.cuda.get_device_properties``) instead of a TPU generation. The
 flash kernels have rows: their blocks change with the head dim and the
 input type. The fused decode kernel has one launch shape for every head
-dim (``kernels/decode.py``). The matrix-product kernels (K7 ``gemm``, K8
+dim (``kernels/decode.py``). The split-KV decode kernels (K5, K6) split
+the cache by a rule on the device's SM count (:func:`decode_split_rows`).
+The matrix-product kernels (K7 ``gemm``, K8
 ``int4_matmul``) choose among a few compiled tiles (:data:`GEMM_TILES`,
 :data:`QMM_TILES`) by the problem's shape instead of a head dim.
 
@@ -23,6 +25,7 @@ over.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -43,8 +46,10 @@ class HopperDevice:
 H100 = HopperDevice("sm90", 132, 232_448, (9, 0))
 
 
+@functools.cache
 def detect_device(device: torch.device | None = None) -> HopperDevice:
-    """The Hopper model of ``device`` (a CUDA device), else :data:`H100`."""
+    """The Hopper model of ``device`` (a CUDA device), else :data:`H100`;
+    cached, since the split-KV decode wrappers ask at every call."""
     if device is None or device.type != "cuda":
         return H100
     props = torch.cuda.get_device_properties(device)
@@ -232,6 +237,48 @@ _SMEM = {
     "flash_bwd_q": flash_bwd_q_smem_bytes,
     "flash_bwd_kv": flash_bwd_kv_smem_bytes,
 }
+
+
+# ---------------------------------------------------------------------------
+# Split-KV decode (K5 decode_attend, K6 paged_decode)
+# ---------------------------------------------------------------------------
+
+# A K5/K6 CTA takes R consecutive cache positions (a split) of one
+# (sequence, kv head) and a chunk of its query rows. R cuts a full cache
+# into SPLITS splits (a power of two in [MIN, MAX]), halved while the grid
+# would not give each SM one CTA. Measured on the H100 by
+# utils/decode_tuning.py's sweep (R 64-1024, 128 or 256 threads): the
+# fastest R at chip_smoke.py's k5 and k6 shapes (L = 2048 and 8192 at 4
+# sequences, 2048 at 8) cut their caches into 8 splits; fewer splits leave
+# SMs idle, more pay each CTA's fixed latency more often.
+DECODE_SPLITS = 8
+DECODE_SPLIT_MIN_ROWS = 64
+DECODE_SPLIT_MAX_ROWS = 1024
+# Threads of a K5/K6 CTA: D / 8 lanes share a cache row, so it must be a
+# multiple of the most lanes a row takes (256 beat 128 in the same sweep).
+DECODE_ATTEND_THREADS = 256
+
+
+def decode_group_chunk(group: int) -> int:
+    """Query rows of one GQA group a K5/K6 CTA keeps in registers (the
+    kernel has instances for 4 and 8)."""
+    return 4 if group <= 4 else 8
+
+
+def decode_split_rows(n: int, group: int, capacity: int,
+                      device: HopperDevice = H100) -> int:
+    """R, the cache positions one K5/K6 split covers, for ``n`` (sequence,
+    kv head) pairs of ``group`` query rows over a cache of ``capacity``
+    positions. It reads only these shapes, never the lengths, so K5 and K6
+    split alike and the host never waits on the card."""
+    chunks = -(-group // decode_group_chunk(group))
+    rows = DECODE_SPLIT_MIN_ROWS
+    while rows < DECODE_SPLIT_MAX_ROWS and rows * DECODE_SPLITS < capacity:
+        rows *= 2
+    while (rows > DECODE_SPLIT_MIN_ROWS
+           and n * chunks * -(-capacity // rows) < device.sm_count):
+        rows //= 2
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,231 @@
+"""Launch-shape sweep and two-tree comparison of the split-KV decode
+kernels (K5 ``decode_attend``, K6 ``paged_decode``) on one GPU.
+
+``sweep`` times K5 and K6 at ``chip_smoke.py``'s table shapes, and K6 at
+the profiler's paged serving step (8 slots at ~1030 tokens), for every
+split size R in 64..1024 and CTA size in 128 and 256 threads; each
+configuration is first held to its plain version at
+``KERNEL_BUDGETS``. ``kernels`` splits a call's device time between its
+two kernels (torch.profiler). ``turns`` runs ``chip_smoke.py``'s k5 and
+k6 phases (``--what kernels``), its serving and paged serving phases
+(``serving``) or a host-time probe of the K6 wrapper (``host``) from two
+trees in turns (A, B, B, A), each in a process of its own that builds
+and loads its own tree's kernels.
+
+Run on a GPU from the repository root:
+
+    python -m mfa_tpu_torch.utils.decode_tuning sweep [--out chiprun_out]
+    python -m mfa_tpu_torch.utils.decode_tuning kernels
+    python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
+        [--what kernels|serving|host]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from mfa_tpu_torch.kernels import decode as k5
+from mfa_tpu_torch.kernels import paged_decode as k6
+from mfa_tpu_torch.ops import params as params_mod
+from mfa_tpu_torch.serving import kv_cache
+from mfa_tpu_torch.utils.testing import (
+    KERNEL_BUDGETS,
+    budget_share,
+    shuffled_page_pool,
+)
+
+SPLIT_ROWS = (64, 128, 256, 512, 1024)
+THREADS = (128, 256)
+_STORAGE = {"bf16": torch.bfloat16, "int8": torch.int8,
+            "fp8_e4m3": torch.float8_e4m3fn}
+
+
+def _cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device ms of fn() over ``iters`` launches queued behind a
+    ~30 ms device spin (as chip_smoke.cuda_ms), so that CUDA events time
+    the kernels back to back and not the host's launch rate."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _k5_case(gen, fmt: str, max_len: int):
+    """chip_smoke.phase_k5's shape: B = 4, Hkv = 8, G = 4, D = 128,
+    lengths 0, 777, L - 1, L."""
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+
+    b, hkv, g, d = 4, 8, 4, 128
+    prec = {"bf16": OperandPrecision.BF16, "int8": OperandPrecision.INT8,
+            "fp8_e4m3": OperandPrecision.FP8_E4M3}[fmt]
+    cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
+    kv_cache.update(cache, *torch.randn((2, b, hkv, max_len, d),
+                                        generator=gen, device="cuda"))
+    lengths = torch.tensor([0, 777, max_len - 1, max_len], dtype=torch.int32,
+                           device="cuda")
+    q3 = (torch.randn((b * hkv, g, d), generator=gen, device="cuda")
+          * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+    bh = b * hkv
+    args = (q3, cache.k.view(bh, max_len, d), cache.v.view(bh, max_len, d),
+            cache.k_scale.view(bh, max_len), cache.v_scale.view(bh, max_len),
+            lengths)
+    return (lambda: k5.decode_attend(*args, num_kv_heads=hkv),
+            lambda: k5.decode_attend_plain(*args, num_kv_heads=hkv),
+            "decode_attend_o")
+
+
+def _k6_case(gen, fmt: str, lens):
+    """chip_smoke.phase_k6's shape: Hkv = 8, G = 4, D = 128, 512-token
+    pages, capacity 2048, shuffled page ids."""
+    hkv, g, d, ps = 8, 4, 128, 512
+    operands = (*shuffled_page_pool(_STORAGE[fmt], lens, hkv, d, ps, 4,
+                                    generator=gen, device="cuda"),
+                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    q3 = (torch.randn((len(lens) * hkv, g, d), generator=gen, device="cuda")
+          * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+    return (lambda: k6.paged_decode(q3, *operands),
+            lambda: k6.paged_decode_plain(q3, *operands), "paged_decode_o")
+
+
+def sweep(out: Path) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = {f"k5_{fmt}_L{n}": _k5_case(gen, fmt, n)
+             for fmt in ("bf16", "int8") for n in (2048, 8192)}
+    cases["k6_bf16_page512"] = _k6_case(
+        gen, "bf16", [0, 1, 511, 512, 513, 777, 2047, 2048])
+    cases["k6_bf16_serving_8x1030"] = _k6_case(gen, "bf16", [1030] * 8)
+    rule_rows, rule_threads = (params_mod.decode_split_rows,
+                               params_mod.DECODE_ATTEND_THREADS)
+    rows = []
+    for threads in THREADS:
+        for r in SPLIT_ROWS:
+            params_mod.decode_split_rows = lambda *a, _r=r, **k: _r
+            params_mod.DECODE_ATTEND_THREADS = threads
+            for name, (kernel, plain, budget) in cases.items():
+                share = budget_share(kernel(), plain(),
+                                     *KERNEL_BUDGETS[budget])
+                row = {"case": name, "R": r, "threads": threads,
+                       "ms": _cuda_ms(kernel), "share": share}
+                if not share <= 1:
+                    raise SystemExit(f"sweep: {row} exceeds its budget")
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    params_mod.decode_split_rows = rule_rows
+    params_mod.DECODE_ATTEND_THREADS = rule_threads
+    for name, (kernel, _, _) in cases.items():
+        print(json.dumps({"case": name, "rule": True, "ms": _cuda_ms(kernel)}),
+              flush=True)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "decode_sweep.jsonl").write_text(
+        "".join(json.dumps(r) + "\n" for r in rows))
+
+
+def kernels(calls: int = 20) -> None:
+    """Device ms of each of a call's two kernels (decode_score,
+    decode_attend) by torch.profiler, at the rule's launch."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = {f"k5_bf16_L{n}": _k5_case(gen, "bf16", n) for n in (2048, 8192)}
+    cases["k6_bf16_serving_8x1030"] = _k6_case(gen, "bf16", [1030] * 8)
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    for name, (kernel, _, _) in cases.items():
+        kernel()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(calls):
+                kernel()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            t = float(t if t is not None else e.self_cuda_time_total)
+            for part in ("decode_score", "decode_attend"):
+                if part in e.key and "Rows" in e.key:
+                    per[part] = per.get(part, 0.0) + t / 1e3 / calls
+        print(json.dumps({"case": name, "device_ms": per}), flush=True)
+
+
+# What ``turns`` runs in each tree (the tree's own chip_smoke.py and
+# package, from its root): the kernel checks, the contiguous and paged
+# serving runs, or the host time of one K6 wrapper call at the
+# profiler's paged step (8 x 1030 tokens, 512-token pages), its launches
+# queued behind a device spin.
+_TURNS = {
+    "kernels": "c.phase_k5(torch); c.phase_k6(torch)",
+    "serving": ("_, m, prompts, toks = c.phase_serving(torch); "
+                "c.phase_paged_serving(torch, m, prompts, toks)"),
+    "host": """
+import json, time
+from mfa_tpu_torch.kernels import paged_decode as k6
+from mfa_tpu_torch.utils.testing import shuffled_page_pool
+gen = torch.Generator(device="cuda").manual_seed(0)
+lens = [1030] * 8
+ops = (*shuffled_page_pool(torch.bfloat16, lens, 8, 128, 512, 4,
+                           generator=gen, device="cuda"),
+       torch.tensor(lens, dtype=torch.int32, device="cuda"))
+q3 = torch.randn((64, 4, 128), generator=gen, device="cuda").bfloat16()
+for rep in range(5):
+    for _ in range(20):
+        k6.paged_decode(q3, *ops)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(300_000_000)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        k6.paged_decode(q3, *ops)
+    us = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "host", "rep": rep, "us_per_call": us}))
+""",
+}
+
+
+def turns(a: Path, b: Path, what: str) -> None:
+    """One of _TURNS from tree a, b, b, a, each in a process of its own."""
+    code = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke "
+            "as c; c.phase_device(torch)\n" + _TURNS[what])
+    for label, tree in (("A", a), ("B", b), ("B", b), ("A", a)):
+        run = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                             capture_output=True, text=True, timeout=1200)
+        for line in run.stdout.splitlines():
+            print(f"{label} {line}", flush=True)
+        if run.returncode != 0:
+            raise SystemExit(f"tree {tree} failed:\n{run.stderr[-4000:]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("mode", choices=("sweep", "kernels", "turns"))
+    ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--a", default="build/parent",
+                    help="turns: the first tree (e.g. the parent commit)")
+    ap.add_argument("--b", default=".", help="turns: the second tree")
+    ap.add_argument("--what", default="kernels", choices=tuple(_TURNS),
+                    help="turns: what each tree runs")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("decode_tuning needs a CUDA device")
+    if args.mode == "sweep":
+        sweep(Path(args.out))
+    elif args.mode == "kernels":
+        kernels()
+    else:
+        turns(Path(args.a), Path(args.b), args.what)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -50,7 +50,8 @@ _GROUPS = (("flash_fwd", ("flash_fwd",)),
            ("flash_bwd_q", ("flash_bwd_q",)),
            ("flash_bwd_kv", ("flash_bwd_kv",)),
            ("decode_fused_append", ("decode_fused_append",)),
-           # K5 and K6 are one template, told apart by its row functor.
+           # K5 and K6 are one template, told apart by its row functor;
+           # both of its kernels (decode_score, decode_attend) carry it.
            ("paged_decode", ("PagedRows",)),
            ("decode_attend", ("ContiguousRows",)),
            ("scatter_append", ("index_elementwise", "index_put",

@@ -234,6 +234,68 @@ def test_paged_decode_kernel_matches_plain(cuda, case, ps):
     assert_close(o, o_c, 0.0, "O paged vs contiguous")
 
 
+# K5 and K6 over a cache of many splits, the lengths at split edges (0, 1,
+# R - 1, R, R + 1, capacity - 1, capacity, for the split rows R that
+# ops/params.py gives the shape): (storage, G, window, q dtype). G = 12
+# and 16 cross the query-chunk axis; windows of 77-1000 start inside a
+# split.
+SPLIT_CASES = [
+    ("bf16", 4, None, "bf16"),
+    ("int8", 12, None, "bf16"),
+    ("fp8_e4m3", 16, 1000, "bf16"),
+    ("fp8_e5m2", 4, 300, "fp32"),
+    ("bf16", 12, 77, "fp32"),
+    ("int8", 1, None, "fp32"),
+    ("fp8_e4m3", 8, None, "fp32"),
+    ("fp8_e5m2", 16, 129, "bf16"),
+    ("bf16", 12, 513, "bf16"),
+    ("bf16", 8, None, "bf16"),
+]
+
+
+@pytest.mark.parametrize("ps", [128, 512])
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"{c[0]}-G{c[1]}-w{c[2]}-{c[3]}"
+                              for c in SPLIT_CASES])
+def test_split_edges_k5_and_k6_match_plain(cuda, case, ps):
+    from mfa_tpu_torch.ops import params
+
+    fmt, g, window, qdt = case
+    hkv, d, cap = 2, 128, 4096
+    rows = params.decode_split_rows(7 * hkv, g, cap,
+                                    params.detect_device(cuda))
+    assert -(-cap // rows) >= 4
+    lens = (0, 1, rows - 1, rows, rows + 1, cap - 1, cap)
+    q3, lengths, gen = _attend_inputs(cuda, (fmt, d, g, window, qdt, lens),
+                                      hkv, cap + ps)
+    pool = shuffled_page_pool(_FORMATS[fmt].dtype, lens, hkv, d, ps,
+                              cap // ps, generator=gen, device=cuda)
+    operands = (*pool, lengths)
+    contiguous = [k6.gather_rows(t, pool[4]).contiguous() for t in pool[:4]]
+    n5, n6 = k2.decode_attend.launches, k6.paged_decode.launches
+    o6 = k6.paged_decode(q3, *operands, sliding_window=window,
+                         out=nan_canary(q3.shape, q3.dtype, device=cuda))
+    o5 = k2.decode_attend(q3, *contiguous, lengths, num_kv_heads=hkv,
+                          sliding_window=window,
+                          out=nan_canary(q3.shape, q3.dtype, device=cuda))
+    torch.cuda.synchronize()
+    assert (k2.decode_attend.launches, k6.paged_decode.launches) == (
+        n5 + 1, n6 + 1)
+    assert_fully_written(o6, "O paged")
+    assert_fully_written(o5, "O contiguous")
+    atol, rtol = KERNEL_BUDGETS["paged_decode_o"]
+    assert_close(o6, k6.paged_decode_plain(q3, *operands,
+                                           sliding_window=window),
+                 atol, "O paged", rtol=rtol)
+    atol, rtol = KERNEL_BUDGETS["decode_attend_o"]
+    assert_close(o5, k2.decode_attend_plain(q3, *contiguous, lengths,
+                                            num_kv_heads=hkv,
+                                            sliding_window=window),
+                 atol, "O contiguous", rtol=rtol)
+    assert torch.equal(o6, o5)
+    assert not o5[:hkv].any()                    # length 0 gives zeros
+
+
 def test_paged_scheduler_on_cuda_matches_cpu(cuda):
     cfg = llama.LlamaConfig.tiny()
     params = llama.init_params(cfg, torch.Generator().manual_seed(3),

@@ -283,6 +283,16 @@ def test_no_try_except_in_the_port():
         assert not handlers, f"{path.relative_to(ROOT)}:{handlers[0].lineno}"
 
 
+def test_decode_wrappers_read_nothing_back_to_the_host():
+    """K5's and K6's launch shape comes from the shapes alone: neither
+    wrapper reads a tensor (the lengths) back, which would wait on the
+    card at every decode step."""
+    for name in ("decode.py", "paged_decode.py"):
+        text = (PKG / "kernels" / name).read_text()
+        for call in (".item(", ".tolist(", ".cpu(", ".numpy("):
+            assert call not in text, f"kernels/{name} calls {call}"
+
+
 def test_cuda_sources_carry_their_notes():
     for name, tpus in (("flash_fwd.cu", ["_fwd_tablegrid_kernel"]),
                        ("decode.cu", ["_decode_fused_kernel"]),
