@@ -62,7 +62,9 @@ phase's failure is caught):
              C=2048, window 512 with R=512 and C=2048 (keys no query
              sees), fp32 causal; elementwise at KERNEL_BUDGETS, outputs
              prefilled with NaN, K4 bit-reproducible; the backward of
-             torch's scaled_dot_product_attention timed as a yardstick.
+             torch's scaled_dot_product_attention timed as a yardstick;
+             each line names the kernel and parameter row K3 and K4 ran
+             (wgmma or mma.sync, ops/params.py).
 13. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
              does not fit 80 GB), random bf16 weights, trainable: one
              step's loss and grads through K1/K3/K4 against the same with
@@ -1195,6 +1197,9 @@ def phase_bwd(torch):
                            for t in (q, k, v, do))
         kw = dict(group=hq // hkv, scale=desc.softmax_scale)
         o3, lse = k1.flash_fwd(q3, k3, v3, kd_f, o_dtype=dtype, **kw)
+        rows = {name: dataclasses.asdict(k34.launch_row(
+            kd, d, (q3, k3, v3, do3))) for name, kd in (("k3", kd_q),
+                                                       ("k4", kd_kv))}
         dq, dterm = k34.flash_bwd_q(
             q3, k3, v3, o3, do3, lse, kd_q, **kw,
             out=(nan_canary(q3.shape, device="cuda"),
@@ -1262,7 +1267,8 @@ def phase_bwd(torch):
                     plain_ms=plain_kv, bound_ms=bound_kv, bound_by=by_kv,
                     library_ms=library_ms))
         emit({"phase": "bwd", "case": name, "R": r, "C": c, "dtype": tag,
-              "share": shares, "err": errs, "ms_k3": ms_q, "ms_k4": ms_kv,
+              "rows": rows, "share": shares, "err": errs, "ms_k3": ms_q,
+              "ms_k4": ms_kv,
               "plain_ms_k3": plain_q, "plain_ms_k4": plain_kv,
               "bound_ms_k3": bound_q, "bound_by_k3": by_q,
               "bound_ms_k4": bound_kv, "bound_by_k4": by_kv,

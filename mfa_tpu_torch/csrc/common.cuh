@@ -56,18 +56,6 @@ __device__ __forceinline__ float cap_score(float x, float cap2) {
   return cap2 > 0.f ? cap2 * tanhf(x / cap2) : x;
 }
 
-// The soft-capped score and its derivative d capped / d x.
-__device__ __forceinline__ float cap_with_grad(float x, float cap2,
-                                               float& grad) {
-  if (cap2 <= 0.f) {
-    grad = 1.f;
-    return x;
-  }
-  const float t = tanhf(x / cap2);
-  grad = 1.f - t * t;
-  return cap2 * t;
-}
-
 // D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col).
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {

@@ -1,29 +1,25 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, no atomics.
 //
 // K3 flash_bwd_q replaces mfa_tpu/kernels/flash_bwd.py::_bwd_q_kernel
-// (build_bwd_query). One CTA owns one (batch*head, q-block). It first
+// (build_bwd_query). A CTA owns a q-block of one batch*head. It first
 // computes the D-term rowsum(dO * O) in fp32 from O in its stored type,
-// then loops over the CTA's live kv blocks [j_min, j_max] (the bounds K1
-// uses) with S = Q K^T, P = exp2(S*scale*log2e - L*log2e), dP = dO V^T,
-// dS = P (dP - D) * cap' * scale and dQ += dS K. Outputs dQ [BH, R, D]
-// and the D-term [BH, R], both fp32.
+// then walks its live kv blocks (the bounds K1 uses) with S = Qs K^T,
+// P = exp2(S - L*log2e), dP = dO V^T, dS = P (dP - D) * cap' * scale and
+// dQ += dS K. Outputs dQ [BH, R, D] and the D-term [BH, R], both fp32.
 //
-// K4 flash_bwd_kv replaces ::_bwd_kv_kernel (build_bwd_key_value). One
-// CTA owns one (batch*kv-head, kv-block) and walks (query head g of the
-// GQA group) x (live q-blocks), so dK and dV of a kv head accumulate over
-// the whole group in registers: deterministic, no atomics, no second pass.
-// It computes the transposed orientation S^T = K Q^T (the original Metal
-// kernel's): each warp owns 16 kv rows, and the S^T / dS^T accumulators
-// of mma.sync already have the A-operand layout of P^T dO and dS^T Q, so
-// P and dS go from one product to the next in registers. Q and dO are B
-// operands there and are also kept transposed in shared memory. A kv
-// block that no query sees still writes dK = dV = 0.
+// K4 flash_bwd_kv replaces ::_bwd_kv_kernel (build_bwd_key_value). A CTA
+// owns a kv block of one batch*kv-head and walks (query head g of the GQA
+// group) x (live q-blocks), so dK and dV of a kv head accumulate over the
+// whole group in registers: deterministic, no atomics, no second pass. It
+// computes the transposed orientation S^T = K Qs^T (the original Metal
+// kernel's), whose accumulators are already the A operands of P^T dO and
+// dS^T Q. A kv block that no query sees still writes dK = dV = 0.
 //
 // Rounding points kept from the TPU kernels: S from Q pre-scaled by
-// scale*log2e and rounded to bf16 (bf16 inputs; fp32 scales S instead),
-// the raw Q for dK, the soft-cap derivative taken in the log2 domain, dS
-// multiplied by scale (not scale*log2e), P rounded to bf16 only for dV
-// and dS rounded to bf16 before dQ and dK (bf16 inputs), fp32
+// scale*log2e and rounded to bf16 (Qs; bf16 inputs; fp32 scales S
+// instead), the raw Q for dK, the soft-cap derivative taken in the log2
+// domain, dS multiplied by scale (not scale*log2e), P rounded to bf16
+// only for dV and dS rounded to bf16 before dQ and dK (bf16 inputs), fp32
 // accumulation, the large-finite mask sentinel (P = 0 where masked), and
 // the diagonal aligned to the sequence ends (offset = C - R, floor
 // division when negative).
@@ -32,15 +28,60 @@
 // heads, N = 2048, D = 128, causal) K3 does 6*D FLOP per visible pair
 // (~52 GFLOP, ~0.052 ms at the 989 TFLOP/s bf16 tensor-core peak) and K4
 // 8*D (~69 GFLOP, ~0.069 ms) against ~20 MB of operand traffic (~6 us at
-// 3.35 TB/s): the bound is operations. This first cut uses warp-level
-// mma.sync (m16n8k16, bf16 -> fp32) from shared-memory tiles with no
-// load/compute overlap; wgmma, TMA and pipelining are later work. fp32
-// inputs take plain-FMA kernels: TF32 would miss the fp32 gradient budget.
-// K4's two fp32 [16 x D] accumulators per warp are 128 registers a thread
-// at D = 128; at D = 256 the warps split the head dim in two (each pair
-// of warps recomputes S^T and dP^T for its 16 rows).
+// 3.35 TB/s): the bound is operations, so the design feeds the tensor
+// cores from shared memory without stalls.
+//
+// bf16, D % 8 == 0 and D <= 128, 16-byte-aligned operands (rows "wgmma"
+// of ops/params.py): warp-specialised kernels, 384 threads = two consumer
+// warpgroups and one producer warpgroup (setmaxnreg: 240 / 24 registers).
+// One producer thread keeps TMA loads in flight (cp.async.bulk.tensor
+// into 128-byte-swizzled panels, one mbarrier a stage; rows past R or C
+// arrive as zeros) and the consumers wait only on those mbarriers and on
+// barriers of their own warpgroup. Every product is wgmma (bf16 -> fp32,
+// hopper.cuh); B operands are read K-major or MN-major from the same
+// tiles through the descriptor's transpose bit, so no tile is stored
+// transposed, and P^T / dS^T / dS feed the next product as register A
+// operands.
+// - K3: a CTA owns 128 query rows (64 a consumer warpgroup; Q and dO
+//   resident, Q scaled once in place) and streams K and V through a ring
+//   of up to 4 stages of block_kv rows (as many as fit). S = Qs K^T and dP = dO V^T read K and V
+//   K-major; dQ += dS K reads the same K tile MN-major.
+// - K4: a CTA owns 64 kv rows (K and V resident) and streams Q and dO (by
+//   TMA) and L and the D-term (cp.async by the producer warp: a TMA box
+//   of fp32 rows starts 16-byte aligned only when R % 4 == 0, and a
+//   misaligned one was an illegal instruction on the H100) through a ring
+//   of 4 stages of block_q rows; the two
+//   consumer warpgroups take alternate q steps of the walk (stage s goes
+//   to warpgroup s % 2), each with its own dK and dV in registers (64 + 64
+//   fp32 a thread at D = 128), summed in a fixed order at the end:
+//   bit-reproducible. Each warpgroup scales its Q tile into a private
+//   buffer (Qs, the B operand of S^T = K Qs^T) and keeps the raw tile for
+//   dK += dS^T Q.
+// - Grid: the flat tile index on grid.x (no 65535 limit on batch *
+//   heads), heaviest walk first (K3: the last q-blocks, whose causal walks
+//   are longest; K4: the first kv blocks). At chip_smoke.py's causal shape
+//   (N 2048, Hq 32, Hkv 8, D 128; rows of ops/params.py): K3 runs 16 x 32
+//   = 512 CTAs whose walks are 2..32 kv steps of 64 (a CTA's two
+//   warpgroups skip the steps past their own rows' diagonal); K4 runs 32
+//   x 8 = 256 CTAs whose walks are 4 heads x (64 - 2j) q steps of 32 for
+//   kv block j, 256 down to 8, taken in turn by the two warpgroups. Both
+//   run 1 CTA an SM (shared memory: K3 ~199 KB, K4 ~117 KB with 384
+//   threads of 240 / 24 registers), so the 132 heaviest CTAs start first
+//   and the lighter ones fill in behind them.
+//
+// Other rows keep the first cut: bf16 at D = 256 or where TMA cannot map
+// the operands (a row stride not a multiple of 16 bytes, D % 8 != 0, or a
+// misaligned base) runs warp-level mma.sync (m16n8k16) from shared-memory
+// tiles loaded synchronously (rows "mma"); fp32 inputs take plain-FMA
+// kernels: TF32 would miss the fp32 gradient budget. The mma K4 keeps two
+// fp32 [16 x D] accumulators per warp (128 registers a thread at D =
+// 128); at D = 256 its warps split the head dim in two.
+
+#include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -71,15 +112,29 @@ __device__ __forceinline__ bool visible(const BwdParams& p, int row,
 }
 
 // dS from S (already scaled into the log2 domain), dP and the row's L2 =
-// L*log2e and D-term; also returns P. Masked entries give P = dS = 0.
-__device__ __forceinline__ float grad_score(const BwdParams& p, float s,
-                                            float dp, float l2, float dt,
-                                            bool vis, float& prob) {
-  float cg;
-  float x = cap_with_grad(s, p.cap2, cg);
+// L*log2e and D-term; also returns P. Masked entries give P = dS = 0. CAP:
+// the soft-cap applies (p.cap2 > 0), decided at compile time so that an
+// unrolled loop over accumulator fragments has no branch per element.
+template <bool CAP>
+__device__ __forceinline__ float grad_score_t(const BwdParams& p, float s,
+                                              float dp, float l2, float dt,
+                                              bool vis, float& prob) {
+  float x = s, cg = 1.f;
+  if constexpr (CAP) {
+    const float t = tanhf(s / p.cap2);
+    cg = 1.f - t * t;
+    x = p.cap2 * t;
+  }
   if (!vis) x = kMaskValue;
   prob = exp2f(x - l2);
   return ((prob * (dp - dt)) * cg) * p.scale;
+}
+
+__device__ __forceinline__ float grad_score(const BwdParams& p, float s,
+                                            float dp, float l2, float dt,
+                                            bool vis, float& prob) {
+  return p.cap2 > 0.f ? grad_score_t<true>(p, s, dp, l2, dt, vis, prob)
+                      : grad_score_t<false>(p, s, dp, l2, dt, vis, prob);
 }
 
 // Rows [row0, row0 + ROWS) of a bf16 [nrows, D] matrix into shared
@@ -236,7 +291,8 @@ flash_bwd_q_bf16(BwdParams p) {
   float* sL = reinterpret_cast<float*>(sKt + DP * TS);
   float* sD = sL + BQ;
 
-  const int i = blockIdx.x, bh = blockIdx.y;
+  const int nqb = (p.R + BQ - 1) / BQ;
+  const int i = blockIdx.x % nqb, bh = blockIdx.x / nqb;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int R = p.R, C = p.C, D = p.D;
@@ -354,7 +410,8 @@ flash_bwd_kv_bf16(BwdParams p) {
   float* sL = reinterpret_cast<float*>(sdOt + DP * TS);
   float* sD = sL + BQ;
 
-  const int j = blockIdx.x, bhkv = blockIdx.y;
+  const int nkvb = (p.C + BKV - 1) / BKV;
+  const int j = blockIdx.x % nkvb, bhkv = blockIdx.x / nkvb;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int rw = (warp % RWARPS) * 16, dbase = (warp / RWARPS) * DW;
@@ -475,7 +532,8 @@ flash_bwd_q_f32(BwdParams p) {
   float* sL = sV + BKV * KS;
   float* sD = sL + BQ;
 
-  const int i = blockIdx.x, bh = blockIdx.y;
+  const int nqb = (p.R + BQ - 1) / BQ;
+  const int i = blockIdx.x % nqb, bh = blockIdx.x / nqb;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int R = p.R, C = p.C, D = p.D;
   const size_t qoff = (size_t)bh * R * D;
@@ -566,7 +624,8 @@ flash_bwd_kv_f32(BwdParams p) {
   float* sL = sdO + BQ * QS;
   float* sD = sL + BQ;
 
-  const int j = blockIdx.x, bhkv = blockIdx.y;
+  const int nkvb = (p.C + BKV - 1) / BKV;
+  const int j = blockIdx.x % nkvb, bhkv = blockIdx.x / nkvb;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int R = p.R, C = p.C, D = p.D;
   const size_t kvoff = (size_t)bhkv * C * D;
@@ -652,21 +711,599 @@ flash_bwd_kv_f32(BwdParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on wgmma: warp-specialised K3 and K4 (see the note at the top).
+// ---------------------------------------------------------------------------
+namespace hw = mfa::hopper;
+
+constexpr int kWgThreads = 128;
+constexpr int kWgmmaThreads = 3 * kWgThreads;   // 2 consumer WGs + producer
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kPanelBytes = 128;   // one swizzled panel row: 64 bf16
+constexpr int kSmemOptin = 232448;   // shared memory a block may use
+constexpr int kAlignSlack = 1024;    // to align to the 1024-byte atom
+
+// Bytes of a [rows x DP] bf16 tile (DP / 64 panels of [rows x 64]).
+__host__ __device__ constexpr int tile_bytes(int rows, int dp) {
+  return rows * dp * 2;
+}
+
+// Stages of a ring: as many as fit beside `fixed` bytes, at most `most`,
+// rounded down to a multiple of `mult` (ops/params.py mirrors this).
+__host__ __device__ constexpr int ring_stages(int fixed, int per_stage,
+                                              int most, int mult) {
+  return ((kSmemOptin - fixed) / per_stage < most
+              ? (kSmemOptin - fixed) / per_stage
+              : most) / mult * mult;
+}
+
+// Descriptor of k-step kk (16 values of the head dim) of a K-major tile
+// of `rows` rows at shared address base.
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int rows, int kk) {
+  return hw::desc_b128(base + (kk >> 2) * rows * kPanelBytes + (kk & 3) * 32,
+                       16);
+}
+
+// Descriptor of k-step kc (16 rows) of an MN-major tile of `rows` rows.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int rows, int kc) {
+  return hw::desc_b128(base + kc * 2048, rows * kPanelBytes);
+}
+
+// Multiplies a bf16 tile by `scale` in place or into dst, rounding to
+// bf16 (the swizzle is a permutation of 16-byte chunks, so the chunk at
+// one offset keeps its place).
+__device__ __forceinline__ void scale_chunks(const unsigned char* src,
+                                             unsigned char* dst, int bytes,
+                                             float scale, int tid,
+                                             int nthreads) {
+  for (int c = tid * 16; c < bytes; c += nthreads * 16) {
+    uint4 v = *reinterpret_cast<const uint4*>(src + c);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      h[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    *reinterpret_cast<uint4*>(dst + c) = v;
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&d)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+}
+
+// f(masked, capped) with both flags as compile-time constants.
+template <typename F>
+__device__ __forceinline__ void with_flags(bool masked, bool capped, F&& f) {
+  if (capped) {
+    if (masked)
+      f(std::true_type{}, std::true_type{});
+    else
+      f(std::false_type{}, std::true_type{});
+  } else if (masked) {
+    f(std::true_type{}, std::false_type{});
+  } else {
+    f(std::false_type{}, std::false_type{});
+  }
+}
+
+// Every (row, col) of rows [r0, r0 + nr) x cols [c0, c0 + nc) is visible
+// (no mask to apply): inside R and C, below the diagonal, inside the
+// window.
+__device__ __forceinline__ bool block_visible(const BwdParams& p, int r0,
+                                              int nr, int c0, int nc) {
+  if (r0 + nr > p.R || c0 + nc > p.C) return false;
+  if (!(p.causal || p.window > 0)) return true;
+  const int offset = p.C - p.R;
+  if (c0 + nc - 1 > r0 + offset) return false;
+  return !(p.window > 0 && c0 < r0 + nr - 1 + offset - (p.window - 1));
+}
+
+// K3's walk: the kv blocks [lo, hi] of the 64 query rows of warpgroup w
+// (empty when the rows lie past R), and the CTA's, the union of its two.
+__device__ __forceinline__ void q_wg_range(const BwdParams& p, int i, int w,
+                                           int bkv, int& lo, int& hi) {
+  if ((2 * i + w) * 64 >= p.R) {
+    lo = 1;
+    hi = 0;
+    return;
+  }
+  kv_range(p, 2 * i + w, 64, bkv, lo, hi);
+}
+
+__device__ __forceinline__ void q_cta_range(const BwdParams& p, int i,
+                                            int bkv, int& lo, int& hi) {
+  int lo0, hi0, lo1, hi1;
+  q_wg_range(p, i, 0, bkv, lo0, hi0);
+  q_wg_range(p, i, 1, bkv, lo1, hi1);
+  if (lo0 > hi0) {
+    lo = lo1;
+    hi = hi1;
+  } else if (lo1 > hi1) {
+    lo = lo0;
+    hi = hi0;
+  } else {
+    lo = min(lo0, lo1);
+    hi = max(hi0, hi1);
+  }
+}
+
+template <int BKV, int DP>
+struct QWgmmaSmem {
+  static constexpr int kBQ = 128;
+  // K3's K/V ring, both warpgroups reading every stage.
+  static constexpr int kS = ring_stages(
+      2 * tile_bytes(kBQ, DP) + 8 * kBQ + 8 + kAlignSlack,
+      2 * tile_bytes(BKV, DP) + 16, 4, 1);
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + tile_bytes(kBQ, DP);
+  static constexpr int kK = kDO + tile_bytes(kBQ, DP);   // [stage]
+  static constexpr int kV = kK + kS * tile_bytes(BKV, DP);
+  static constexpr int kL = kV + kS * tile_bytes(BKV, DP);
+  static constexpr int kD = kL + 4 * kBQ;
+  static constexpr int kBar = kD + 4 * kBQ;   // q_full, full[S], empty[S]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kS) + kAlignSlack;
+};
+
+template <int BKV, int DP>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_q_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mdo,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv) {
+  using L = QWgmmaSmem<BKV, DP>;
+  constexpr int BQ = L::kBQ;
+  constexpr int S = L::kS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* sL = reinterpret_cast<float*>(sm + L::kL);
+  float* sD = reinterpret_cast<float*>(sm + L::kD);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  // Heaviest first: the last q-blocks have the longest causal walks.
+  const int nqb = (p.R + BQ - 1) / BQ;
+  const int bhs = gridDim.x / nqb;
+  const int i = nqb - 1 - (int)blockIdx.x / bhs;
+  const int bh = (int)blockIdx.x % bhs;
+  const int bhkv = bh / p.group;
+  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  int lo_c, hi_c;
+  q_cta_range(p, i, BKV, lo_c, hi_c);
+
+  if (tid == 0) {
+    hw::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 8);   // every consumer warp
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: Q and dO once, then K and V of each live kv block.
+    hw::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 2 * kWgThreads) {
+      hw::mbar_expect_tx(q_full, 2 * tile_bytes(BQ, DP));
+#pragma unroll
+      for (int pn = 0; pn < DP / 64; ++pn) {
+        hw::tma_load_3d(sm + L::kQ + pn * BQ * kPanelBytes, &mq, q_full,
+                        64 * pn, i * BQ, bh);
+        hw::tma_load_3d(sm + L::kDO + pn * BQ * kPanelBytes, &mdo, q_full,
+                        64 * pn, i * BQ, bh);
+      }
+      for (int j = lo_c; j <= hi_c; ++j) {
+        const int t = j - lo_c, st = t % S;
+        hw::mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
+        hw::mbar_expect_tx(&full[st], 2 * tile_bytes(BKV, DP));
+        unsigned char* k_tile = sm + L::kK + st * tile_bytes(BKV, DP);
+        unsigned char* v_tile = sm + L::kV + st * tile_bytes(BKV, DP);
+#pragma unroll
+        for (int pn = 0; pn < DP / 64; ++pn) {
+          hw::tma_load_3d(k_tile + pn * BKV * kPanelBytes, &mk, &full[st],
+                          64 * pn, j * BKV, bhkv);
+          hw::tma_load_3d(v_tile + pn * BKV * kPanelBytes, &mv, &full[st],
+                          64 * pn, j * BKV, bhkv);
+        }
+      }
+    }
+  } else {
+    hw::setmaxnreg_inc<kConsumerRegs>();
+    const int w = wg, wt = tid % kWgThreads, wi = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int rw0 = i * BQ + 64 * w;   // this warpgroup's first row
+    const size_t qoff = (size_t)bh * p.R * p.D;
+    if (p.o_f32)
+      d_term<float, 64, kWgThreads>(p, bh, rw0, static_cast<const float*>(p.o),
+                                    p.d_o, false, sL + 64 * w, sD + 64 * w,
+                                    wi, lane);
+    else
+      d_term<bf16, 64, kWgThreads>(p, bh, rw0, static_cast<const bf16*>(p.o),
+                                   p.d_o, false, sL + 64 * w, sD + 64 * w, wi,
+                                   lane);
+    // Qs = bf16(Q * scale * log2e), this warpgroup's rows, in place.
+    hw::mbar_wait(q_full, 0);
+#pragma unroll
+    for (int pn = 0; pn < DP / 64; ++pn) {
+      unsigned char* rows = sm + L::kQ + pn * BQ * kPanelBytes +
+                            64 * w * kPanelBytes;
+      scale_chunks(rows, rows, 64 * kPanelBytes, p.scale2, wt, kWgThreads);
+    }
+    hw::fence_proxy_async();
+    hw::named_barrier(1 + w, kWgThreads);
+    const int r16 = 64 * w + wi * 16 + g;   // tile rows r16 and r16 + 8
+    const float l2[2] = {sL[r16], sL[r16 + 8]};
+    const float dt[2] = {sD[r16], sD[r16 + 8]};
+    int lo_w, hi_w;
+    q_wg_range(p, i, w, BKV, lo_w, hi_w);
+
+    float dq[DP / 8][4];
+    zero_acc(dq);
+    // The stage whose dQ product may still run: released once a later
+    // wait has seen it complete, so dQ += dS K overlaps the next step.
+    int pending = -1;
+    auto release_pending = [&]() {
+      if (pending >= 0 && lane == 0) hw::mbar_arrive(&empty[pending]);
+      pending = -1;
+    };
+    for (int j = lo_c; j <= hi_c; ++j) {
+      const int t = j - lo_c, st = t % S;
+      hw::mbar_wait(&full[st], (t / S) & 1);
+      if (j < lo_w || j > hi_w) {
+        // Nothing of this tile is visible to this warpgroup's rows.
+        hw::wgmma_wait<0>();
+        release_pending();
+        if (lane == 0) hw::mbar_arrive(&empty[st]);
+        continue;
+      }
+      {
+        const int col0 = j * BKV;
+        const uint32_t k_base =
+            hw::opaque(hw::smem_addr(sm + L::kK + st * tile_bytes(BKV, DP)));
+        const uint32_t v_base =
+            hw::opaque(hw::smem_addr(sm + L::kV + st * tile_bytes(BKV, DP)));
+        const uint32_t q_base =
+            hw::opaque(hw::smem_addr(sm + L::kQ) + 64 * w * kPanelBytes);
+        const uint32_t do_base =
+            hw::opaque(hw::smem_addr(sm + L::kDO) + 64 * w * kPanelBytes);
+        float s[BKV / 8][4], dp[BKV / 8][4];
+        zero_acc(s);
+        zero_acc(dp);
+        hw::fence_acc(s);
+        hw::fence_acc(dp);
+        hw::wgmma_fence();
+        // S = Qs K^T and dP = dO V^T: A = the query rows (K-major, the
+        // rows of this warpgroup sit 64 rows into each 128-row panel), B =
+        // the K / V tile K-major.
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          hw::Wgmma<BKV>::template ss<0, 0>(s, desc_k(q_base, BQ, kk),
+                                            desc_k(k_base, BKV, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          hw::Wgmma<BKV>::template ss<0, 0>(dp, desc_k(do_base, BQ, kk),
+                                            desc_k(v_base, BKV, kk), 1);
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();   // also the previous step's dQ product
+        hw::fence_acc(s);
+        hw::fence_acc(dp);
+        release_pending();
+        // dS, in place of S; the masks only where the block is not
+        // wholly visible.
+        with_flags(!block_visible(p, rw0, 64, col0, BKV), p.cap2 > 0.f,
+                   [&](auto masked, auto capped) {
+#pragma unroll
+          for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int h = e >> 1;
+              bool vis = true;
+              if constexpr (decltype(masked)::value)
+                vis = visible(p, i * BQ + r16 + 8 * h,
+                              col0 + n * 8 + t4 * 2 + (e & 1));
+              float prob;
+              s[n][e] = grad_score_t<decltype(capped)::value>(
+                  p, s[n][e], dp[n][e], l2[h], dt[h], vis, prob);
+            }
+        });
+        // dQ += dS K: A = dS from registers (rounded to bf16), B = the same
+        // K tile read MN-major.
+        hw::fence_acc(dq);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < BKV / 16; ++kc) {
+          uint32_t a[4];
+          acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
+          hw::Wgmma<DP>::template rs<1>(dq, a, desc_mn(k_base, BKV, kc), 1);
+        }
+        hw::wgmma_commit();
+        pending = st;
+      }
+    }
+    hw::wgmma_wait<0>();
+    hw::fence_acc(dq);
+    release_pending();
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = i * BQ + r16 + 8 * h;
+      if (r >= p.R) continue;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = n * 8 + t4 * 2 + e;
+          if (d < p.D) p.dq[qoff + (size_t)r * p.D + d] = dq[n][2 * h + e];
+        }
+    }
+  }
+}
+
+template <int BQ, int DP>
+struct KvWgmmaSmem {
+  static constexpr int kBKV = 64;
+  // K4's Q/dO ring: an even number of stages, up to 4 (2 a consumer
+  // warpgroup: 8 measured no faster on the H100), as many as fit.
+  static constexpr int kS = ring_stages(
+      2 * tile_bytes(kBKV, DP) + 2 * tile_bytes(BQ, DP) + 8 + kAlignSlack,
+      2 * tile_bytes(BQ, DP) + 8 * BQ + 16, 4, 2);
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + tile_bytes(kBKV, DP);
+  static constexpr int kQ = kV + tile_bytes(kBKV, DP);     // [stage]
+  static constexpr int kDO = kQ + kS * tile_bytes(BQ, DP);  // [stage]
+  static constexpr int kQs = kDO + kS * tile_bytes(BQ, DP); // [warpgroup]
+  static constexpr int kL = kQs + 2 * tile_bytes(BQ, DP);   // [stage]
+  static constexpr int kD = kL + kS * 4 * BQ;               // [stage]
+  static constexpr int kBar = kD + kS * 4 * BQ;  // kv_full, full, empty
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kS) + kAlignSlack;
+  // The ring (Q and dO) holds warpgroup 1's dK and dV for the final sum.
+  static_assert(2 * kS * tile_bytes(BQ, DP) >= 2 * kBKV * DP * 4,
+                "the ring must hold one warpgroup's dK and dV");
+};
+
+template <int BQ, int DP>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mdo,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv) {
+  using L = KvWgmmaSmem<BQ, DP>;
+  constexpr int BKV = L::kBKV;
+  constexpr int S = L::kS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+
+  // Heaviest first: the first kv blocks have the longest causal walks.
+  const int nkvb = (p.C + BKV - 1) / BKV;
+  const int bhkvs = gridDim.x / nkvb;
+  const int j = (int)blockIdx.x / bhkvs;
+  const int bhkv = (int)blockIdx.x % bhkvs;
+  const int col0 = j * BKV;
+  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  int lo, hi;
+  q_range(p, j, BQ, BKV, lo, hi);
+  const int nlive = max(hi - lo + 1, 0);
+  const int steps = p.group * nlive;
+
+  if (tid == 0) {
+    hw::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hw::mbar_init(&full[s], 33);   // TMA's bytes + 32 lanes' L / D-term
+      hw::mbar_init(&empty[s], 4);   // the four warps of one warpgroup
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer warp: K and V once, then Q and dO of each step by TMA (lane
+    // 0) and L and the D-term by cp.async of every lane (a TMA box of
+    // them would start 16-byte aligned only when R % 4 == 0).
+    hw::setmaxnreg_dec<kProducerRegs>();
+    if (tid < 2 * kWgThreads + 32) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        hw::mbar_expect_tx(kv_full, 2 * tile_bytes(BKV, DP));
+#pragma unroll
+        for (int pn = 0; pn < DP / 64; ++pn) {
+          hw::tma_load_3d(sm + L::kK + pn * BKV * kPanelBytes, &mk, kv_full,
+                          64 * pn, col0, bhkv);
+          hw::tma_load_3d(sm + L::kV + pn * BKV * kPanelBytes, &mv, kv_full,
+                          64 * pn, col0, bhkv);
+        }
+      }
+      for (int t = 0; t < steps; ++t) {
+        const int bh = bhkv * p.group + t / nlive;
+        const int row0 = (lo + t % nlive) * BQ;
+        const int st = t % S;
+        hw::mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
+        if (lane == 0) {
+          hw::mbar_expect_tx(&full[st], 2 * tile_bytes(BQ, DP));
+          unsigned char* q_tile = sm + L::kQ + st * tile_bytes(BQ, DP);
+          unsigned char* do_tile = sm + L::kDO + st * tile_bytes(BQ, DP);
+#pragma unroll
+          for (int pn = 0; pn < DP / 64; ++pn) {
+            hw::tma_load_3d(q_tile + pn * BQ * kPanelBytes, &mq, &full[st],
+                            64 * pn, row0, bh);
+            hw::tma_load_3d(do_tile + pn * BQ * kPanelBytes, &mdo, &full[st],
+                            64 * pn, row0, bh);
+          }
+        }
+        float* sL = reinterpret_cast<float*>(sm + L::kL) + st * BQ;
+        float* sD = reinterpret_cast<float*>(sm + L::kD) + st * BQ;
+#pragma unroll
+        for (int k = 0; k < BQ / 32; ++k) {
+          const int r = row0 + lane + 32 * k;
+          const size_t at = r < p.R ? (size_t)bh * p.R + r : 0;
+          hw::cp_async4(sL + lane + 32 * k, p.lse + at, r < p.R);
+          hw::cp_async4(sD + lane + 32 * k, p.dterm + at, r < p.R);
+        }
+        hw::cp_async_arrive(&full[st]);
+      }
+    }
+  } else {
+    hw::setmaxnreg_inc<kConsumerRegs>();
+    const int w = wg, wt = tid % kWgThreads, wi = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r16 = wi * 16 + g;   // this thread's kv rows r16 and r16 + 8
+    unsigned char* qs_tile = sm + L::kQs + w * tile_bytes(BQ, DP);
+    hw::mbar_wait(kv_full, 0);
+
+    float dk[DP / 8][4], dv[DP / 8][4];
+    zero_acc(dk);
+    zero_acc(dv);
+    // The stage whose dV / dK products may still run (see K3).
+    int pending = -1;
+    for (int t = w; t < steps; t += 2) {
+      const int row0 = (lo + t % nlive) * BQ;
+      const int st = t % S;
+      unsigned char* q_tile = sm + L::kQ + st * tile_bytes(BQ, DP);
+      const uint32_t q_base = hw::opaque(hw::smem_addr(q_tile));
+      const uint32_t do_base =
+          hw::opaque(hw::smem_addr(sm + L::kDO + st * tile_bytes(BQ, DP)));
+      const uint32_t qs_base = hw::opaque(hw::smem_addr(qs_tile));
+      const uint32_t k_base = hw::opaque(hw::smem_addr(sm + L::kK));
+      const uint32_t v_base = hw::opaque(hw::smem_addr(sm + L::kV));
+      const float* sL = reinterpret_cast<const float*>(sm + L::kL) + st * BQ;
+      const float* sD = reinterpret_cast<const float*>(sm + L::kD) + st * BQ;
+      hw::mbar_wait(&full[st], (t / S) & 1);
+      // Qs = bf16(Q * scale * log2e) into this warpgroup's buffer, once
+      // its previous products have read the last one.
+      hw::named_barrier(1 + w, kWgThreads);
+      scale_chunks(q_tile, qs_tile, tile_bytes(BQ, DP), p.scale2, wt,
+                   kWgThreads);
+      hw::fence_proxy_async();
+      hw::named_barrier(1 + w, kWgThreads);
+
+      // S^T = K Qs^T and dP^T = V dO^T: A = the K / V tile, B = the Qs /
+      // dO tile, both K-major.
+      float s[BQ / 8][4], dp[BQ / 8][4];
+      zero_acc(s);
+      zero_acc(dp);
+      hw::fence_acc(s);
+      hw::fence_acc(dp);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hw::Wgmma<BQ>::template ss<0, 0>(
+            s, desc_k(k_base, BKV, kk), desc_k(qs_base, BQ, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hw::Wgmma<BQ>::template ss<0, 0>(dp, desc_k(v_base, BKV, kk),
+                                         desc_k(do_base, BQ, kk), 1);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();   // also the previous step's dV / dK products
+      hw::fence_acc(s);
+      hw::fence_acc(dp);
+      if (pending >= 0 && lane == 0) hw::mbar_arrive(&empty[pending]);
+      // P^T in s, dS^T in dp; L (natural log, times log2e here, rounded
+      // before it meets S as everywhere else) and the D-term are per
+      // column; the masks only where the block is not wholly visible.
+      with_flags(!block_visible(p, row0, BQ, col0, BKV), p.cap2 > 0.f,
+                 [&](auto masked, auto capped) {
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rl = n * 8 + t4 * 2 + (e & 1);
+            bool vis = true;
+            if constexpr (decltype(masked)::value)
+              vis = visible(p, row0 + rl, col0 + r16 + 8 * (e >> 1));
+            float prob;
+            dp[n][e] = grad_score_t<decltype(capped)::value>(
+                p, s[n][e], dp[n][e], __fmul_rn(sL[rl], kLog2e), sD[rl], vis,
+                prob);
+            s[n][e] = prob;
+          }
+      });
+      // dV += P^T dO and dK += dS^T Q: A from registers (rounded to bf16),
+      // B = the dO / raw Q tile read MN-major.
+      hw::fence_acc(dv);
+      hw::fence_acc(dk);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        uint32_t a[4];
+        acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
+        hw::Wgmma<DP>::template rs<1>(dv, a, desc_mn(do_base, BQ, kc), 1);
+      }
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        uint32_t a[4];
+        acc_to_a(a, dp[2 * kc], dp[2 * kc + 1]);
+        hw::Wgmma<DP>::template rs<1>(dk, a, desc_mn(q_base, BQ, kc), 1);
+      }
+      hw::wgmma_commit();
+      pending = st;
+    }
+    hw::wgmma_wait<0>();
+    hw::fence_acc(dv);
+    hw::fence_acc(dk);
+    if (pending >= 0 && lane == 0) hw::mbar_arrive(&empty[pending]);
+
+    // dK, dV = warpgroup 0's + warpgroup 1's (through the drained ring),
+    // in that order.
+    float* red = reinterpret_cast<float*>(sm + L::kQ);
+    constexpr int NV = DP / 2;   // values a thread holds of dK (and dV)
+    hw::named_barrier(3, 2 * kWgThreads);
+    if (w == 1) {
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          red[(n * 4 + e) * kWgThreads + wt] = dk[n][e];
+          red[(NV + n * 4 + e) * kWgThreads + wt] = dv[n][e];
+        }
+    }
+    hw::named_barrier(3, 2 * kWgThreads);
+    if (w == 0) {
+      const size_t kvoff = (size_t)bhkv * p.C * p.D;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = col0 + r16 + 8 * (e >> 1);
+          const int d = n * 8 + t4 * 2 + (e & 1);
+          const float vk = dk[n][e] + red[(n * 4 + e) * kWgThreads + wt];
+          const float vv = dv[n][e] + red[(NV + n * 4 + e) * kWgThreads + wt];
+          if (c < p.C && d < p.D) {
+            p.dk[kvoff + (size_t)c * p.D + d] = vk;
+            p.dv[kvoff + (size_t)c * p.D + d] = vv;
+          }
+        }
+    }
+  }
+}
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int grid_x, int grid_y, int threads,
-                   size_t smem, const BwdParams& p, cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, int grid, int threads, size_t smem,
+                   const BwdParams& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(grid_x, grid_y), threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// The first-cut kernels put (block, head) on grid.x as block + nblocks *
+// head: no 65535 limit on batch * heads.
 template <int BQ, int BKV, int DP>
 cudaError_t launch_q_bf16(int bh, const BwdParams& p, cudaStream_t s) {
   const size_t smem = sizeof(bf16) * (2 * BQ * (DP + 8) + 2 * BKV * (DP + 8)
                                       + DP * (BKV + 8)) + sizeof(float) * 2 * BQ;
-  return launch(flash_bwd_q_bf16<BQ, BKV, DP>, (p.R + BQ - 1) / BQ, bh,
+  return launch(flash_bwd_q_bf16<BQ, BKV, DP>, (p.R + BQ - 1) / BQ * bh,
                 BQ * 2, smem, p, s);
 }
 
@@ -675,15 +1312,16 @@ cudaError_t launch_kv_bf16(int bhkv, const BwdParams& p, cudaStream_t s) {
   constexpr int DSPLIT = DP > 128 ? DP / 128 : 1;
   const size_t smem = sizeof(bf16) * (2 * BKV * (DP + 8) + 2 * BQ * (DP + 8)
                                       + 2 * DP * (BQ + 8)) + sizeof(float) * 2 * BQ;
-  return launch(flash_bwd_kv_bf16<BQ, BKV, DP, DSPLIT>, (p.C + BKV - 1) / BKV,
-                bhkv, BKV / 16 * DSPLIT * 32, smem, p, s);
+  return launch(flash_bwd_kv_bf16<BQ, BKV, DP, DSPLIT>,
+                (p.C + BKV - 1) / BKV * bhkv, BKV / 16 * DSPLIT * 32, smem, p,
+                s);
 }
 
 template <int BQ, int DP>
 cudaError_t launch_q_f32(int bh, const BwdParams& p, cudaStream_t s) {
   const size_t smem =
       sizeof(float) * (2 * BQ * DP + 2 * 32 * (DP + 1) + 2 * BQ);
-  return launch(flash_bwd_q_f32<BQ, DP>, (p.R + BQ - 1) / BQ, bh, 128, smem,
+  return launch(flash_bwd_q_f32<BQ, DP>, (p.R + BQ - 1) / BQ * bh, 128, smem,
                 p, s);
 }
 
@@ -691,8 +1329,54 @@ template <int BKV, int DP>
 cudaError_t launch_kv_f32(int bhkv, const BwdParams& p, cudaStream_t s) {
   const size_t smem =
       sizeof(float) * (2 * BKV * DP + 2 * 32 * (DP + 1) + 2 * 32);
-  return launch(flash_bwd_kv_f32<BKV, DP>, (p.C + BKV - 1) / BKV, bhkv, 128,
+  return launch(flash_bwd_kv_f32<BKV, DP>, (p.C + BKV - 1) / BKV * bhkv, 128,
                 smem, p, s);
+}
+
+template <int BKV, int DP>
+cudaError_t launch_q_wgmma(int bh, const BwdParams& p, cudaStream_t s) {
+  using L = QWgmmaSmem<BKV, DP>;
+  CUtensorMap mq, mdo, mk, mv;
+  const int bhkv = bh / p.group;
+  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, L::kBQ) ||
+      !hw::tile_map_bf16(&mdo, p.d_o, p.D, p.R, bh, L::kBQ) ||
+      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
+      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_q_wgmma<BKV, DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(p.R + L::kBQ - 1) / L::kBQ * bh, kWgmmaThreads, L::kBytes, s>>>(
+      p, mq, mdo, mk, mv);
+  return cudaGetLastError();
+}
+
+template <int BQ, int DP>
+cudaError_t launch_kv_wgmma(int bhkv, const BwdParams& p, cudaStream_t s) {
+  using L = KvWgmmaSmem<BQ, DP>;
+  CUtensorMap mq, mdo, mk, mv;
+  const int bh = bhkv * p.group;
+  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, BQ) ||
+      !hw::tile_map_bf16(&mdo, p.d_o, p.D, p.R, bh, BQ) ||
+      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, L::kBKV) ||
+      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, L::kBKV))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_kv_wgmma<BQ, DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(p.C + L::kBKV - 1) / L::kBKV * bhkv, kWgmmaThreads, L::kBytes,
+           s>>>(p, mq, mdo, mk, mv);
+  return cudaGetLastError();
+}
+
+// TMA maps these operands: bf16 rows of a multiple of 16 bytes, 16-byte
+// aligned bases.
+bool tma_ok(int D, std::initializer_list<const void*> ptrs) {
+  uintptr_t ptr_or = 0;
+  for (const void* q : ptrs) ptr_or |= reinterpret_cast<uintptr_t>(q);
+  return D % 8 == 0 && ptr_or % 16 == 0;
 }
 
 int vec_ok(int D, const void* a, const void* b, const void* c,
@@ -706,7 +1390,8 @@ int vec_ok(int D, const void* a, const void* b, const void* c,
 }  // namespace
 
 // K3. dtype: 0 = fp32, 1 = bf16 (q, k, v, d_o); o_f32: O is fp32 (else the
-// input type). (block_q, block_kv, block_d) must be a row of
+// input type); kernel: 0 the first-cut kernels (mma.sync / FMA), 1 the
+// wgmma kernel. (kernel, block_q, block_kv, block_d) must be a row of
 // ops/params.py's flash_bwd_q tables.
 extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                const void* o, const void* d_o,
@@ -714,21 +1399,30 @@ extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                int bh, int group, int R, int C, int D,
                                int causal, int window, float scale2,
                                float cap2, float scale, int dtype, int o_f32,
-                               int block_q, int block_kv, int block_d,
-                               void* stream) {
+                               int kernel, int block_q, int block_kv,
+                               int block_d, void* stream) {
   BwdParams p{q, k, v, o, d_o, static_cast<const float*>(lse),
               static_cast<float*>(dterm), static_cast<float*>(dq), nullptr,
               nullptr, group, R, C, D, causal, window, scale2, cap2, scale,
               o_f32, vec_ok(D, q, k, v, d_o)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (block_q == 16 && block_kv == 32) {
+    if (kernel == 0 && block_q == 16 && block_kv == 32) {
       if (block_d == 64) return launch_q_f32<16, 64>(bh, p, s);
       if (block_d == 128) return launch_q_f32<16, 128>(bh, p, s);
       if (block_d == 256) return launch_q_f32<16, 256>(bh, p, s);
     }
     return cudaErrorInvalidValue;
   }
+  if (kernel == 1) {
+    if (block_q != 128 || D > block_d || !tma_ok(D, {q, k, v, d_o}))
+      return cudaErrorInvalidValue;
+    if (block_kv == 64 && block_d == 64) return launch_q_wgmma<64, 64>(bh, p, s);
+    if (block_kv == 64 && block_d == 128)
+      return launch_q_wgmma<64, 128>(bh, p, s);
+    return cudaErrorInvalidValue;
+  }
+  if (kernel != 0) return cudaErrorInvalidValue;
   if (block_q == 64 && block_kv == 64 && block_d == 64)
     return launch_q_bf16<64, 64, 64>(bh, p, s);
   if (block_q == 64 && block_kv == 64 && block_d == 128)
@@ -738,16 +1432,16 @@ extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// K4. dtype as for K3; the D-term is K3's. (block_q, block_kv, block_d)
-// must be a row of ops/params.py's flash_bwd_kv tables.
+// K4. dtype and kernel as for K3; the D-term is K3's. (kernel, block_q,
+// block_kv, block_d) must be a row of ops/params.py's flash_bwd_kv tables.
 extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 const void* d_o, const void* lse,
                                 const void* dterm, void* dk, void* dv,
                                 int bhkv, int group, int R, int C, int D,
                                 int causal, int window, float scale2,
                                 float cap2, float scale, int dtype,
-                                int block_q, int block_kv, int block_d,
-                                void* stream) {
+                                int kernel, int block_q, int block_kv,
+                                int block_d, void* stream) {
   BwdParams p{q, k, v, nullptr, d_o, static_cast<const float*>(lse),
               const_cast<float*>(static_cast<const float*>(dterm)), nullptr,
               static_cast<float*>(dk), static_cast<float*>(dv), group, R, C,
@@ -755,13 +1449,26 @@ extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
               vec_ok(D, q, k, v, d_o)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (block_q == 32 && block_kv == 16) {
+    if (kernel == 0 && block_q == 32 && block_kv == 16) {
       if (block_d == 64) return launch_kv_f32<16, 64>(bhkv, p, s);
       if (block_d == 128) return launch_kv_f32<16, 128>(bhkv, p, s);
       if (block_d == 256) return launch_kv_f32<16, 256>(bhkv, p, s);
     }
     return cudaErrorInvalidValue;
   }
+  if (kernel == 1) {
+    if (block_kv != 64 || D > block_d ||
+        !tma_ok(D, {q, k, v, d_o}))
+      return cudaErrorInvalidValue;
+    if (block_q == 32 && block_d == 64) return launch_kv_wgmma<32, 64>(bhkv, p, s);
+    if (block_q == 32 && block_d == 128)
+      return launch_kv_wgmma<32, 128>(bhkv, p, s);
+    if (block_q == 64 && block_d == 64) return launch_kv_wgmma<64, 64>(bhkv, p, s);
+    if (block_q == 64 && block_d == 128)
+      return launch_kv_wgmma<64, 128>(bhkv, p, s);
+    return cudaErrorInvalidValue;
+  }
+  if (kernel != 0) return cudaErrorInvalidValue;
   if (block_q == 32 && block_kv == 64) {
     if (block_d == 64) return launch_kv_bf16<32, 64, 64>(bhkv, p, s);
     if (block_d == 128) return launch_kv_bf16<32, 64, 128>(bhkv, p, s);

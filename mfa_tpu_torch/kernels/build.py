@@ -43,15 +43,16 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I,         # bh group R C D
                         _I, _I, _F, _F, _F,         # causal window scale2
                                                     # cap2 scale
-                        _I, _I, _I, _I, _I,         # dtype o_f32 block_q
-                                                    # kv d
+                        _I, _I, _I, _I, _I, _I,     # dtype o_f32 kernel
+                                                    # block_q kv d
                         _P],                        # stream
     "mfa_flash_bwd_kv": [_P, _P, _P, _P, _P, _P,    # q k v do lse dterm
                          _P, _P,                    # dk dv
                          _I, _I, _I, _I, _I,        # bhkv group R C D
                          _I, _I, _F, _F, _F,        # causal window scale2
                                                     # cap2 scale
-                         _I, _I, _I, _I,            # dtype block_q kv d
+                         _I, _I, _I, _I, _I,        # dtype kernel block_q
+                                                    # kv d
                          _P],                       # stream
     "mfa_decode_fused_append": [_P, _P, _P, _P, _P,  # q k v ks vs
                                 _P, _P, _P,          # k_new v_new lengths

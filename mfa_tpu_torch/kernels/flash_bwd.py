@@ -8,6 +8,14 @@ over each kv head's query group inside the kernel, without atomics. The
 CUDA source is ``csrc/flash_bwd.cu``. Each wrapper launches its kernel
 for CUDA tensors and takes its plain version only for CPU tensors.
 
+Which kernel a launch runs is the descriptor's parameter row
+(``ops/params.py``): bf16 rows up to D = 128 name the warp-specialised
+TMA + wgmma kernels, the others the first-cut mma.sync or FMA kernels.
+A wgmma row whose operands a TMA tensor map cannot hold (a base address
+not 16-byte aligned) runs the mma.sync row of the same head dim
+(:func:`launch_row`). Blocks and heads share grid.x, so batch * heads
+has no 65535 limit.
+
 Operands: q, o, dO [BH, R, D]; k, v [BH / group, C, D] (query head bh
 reads kv head bh // group); L and the D-term [BH, R] fp32. dO is in the
 inputs' type; O in the inputs' type or fp32. Outputs are fp32: dQ
@@ -20,7 +28,14 @@ import torch
 
 from mfa_tpu_torch.kernels import build
 from mfa_tpu_torch.kernels.flash_fwd import LOG2E, MASK_VALUE, visible_mask
-from mfa_tpu_torch.ops.descriptors import AttentionKernelDescriptor
+from mfa_tpu_torch.ops import params
+from mfa_tpu_torch.ops.descriptors import (
+    AttentionKernelDescriptor,
+    AttentionKernelType,
+)
+
+# The C entries' kernel codes: the first-cut kernels, the wgmma kernels.
+_KERNEL_CODES = {"": 0, "mma": 0, "wgmma": 1}
 
 
 def _probs_and_ds(q3, k3, v3, do3, lse, dterm, kd, group, scale):
@@ -98,8 +113,8 @@ def _check(q3, k3, v3, do3, kd, group, o3=None):
         raise ValueError("sliding_window must be >= 1")
 
 
-def _check_cuda(kd, tensors: dict, vectors: dict, grid_y: int):
-    """Device, contiguity and launch limits for a kernel launch."""
+def _check_cuda(kd, tensors: dict, vectors: dict):
+    """Device, contiguity and head dim for a kernel launch."""
     first = next(iter(tensors.values()))
     if not first.is_cuda:
         raise ValueError(f"flash backward: unsupported device {first.device}")
@@ -114,8 +129,24 @@ def _check_cuda(kd, tensors: dict, vectors: dict, grid_y: int):
     if first.shape[2] > kd.block_d:
         raise ValueError(f"head dim {first.shape[2]} exceeds the kernel's "
                          f"{kd.block_d}")
-    if grid_y > 65535:
-        raise ValueError("batch*heads above 65535 exceeds the launch grid")
+
+
+def launch_row(kd: AttentionKernelDescriptor, head_dim: int,
+               tensors) -> params.ParameterRow:
+    """The parameter row a launch runs: the descriptor's, except that a
+    wgmma row whose operands TMA cannot map (a row of ``head_dim`` bf16
+    values that is no multiple of 16 bytes, or a base address that is not
+    16-byte aligned) takes the mma.sync row of its head dim."""
+    row = params.ParameterRow(kd.head_dim, kd.block_q, kd.block_kv,
+                              kd.block_d, kd.kernel)
+    if kd.kernel == "wgmma" and (head_dim % 8 or any(
+            t.data_ptr() % 16 for t in tensors)):
+        table = params.parameter_table(
+            "flash_bwd_q"
+            if kd.kernel_type is AttentionKernelType.BACKWARD_QUERY
+            else "flash_bwd_kv", "bf16_mma")
+        row = params.select_row(table, head_dim)
+    return row
 
 
 def _outputs(out, shapes, device):
@@ -155,15 +186,16 @@ def flash_bwd_q(q3, k3, v3, o3, do3, lse, kd: AttentionKernelDescriptor, *,
         out[1].copy_(dterm)
         return tuple(out)
     bh, r, d = q3.shape
-    _check_cuda(kd, dict(q=q3, k=k3, v=v3, o=o3, do=do3), dict(lse=lse), bh)
+    _check_cuda(kd, dict(q=q3, k=k3, v=v3, o=o3, do=do3), dict(lse=lse))
     dq, dterm = _outputs(out, [(bh, r, d), (bh, r)], q3.device)
+    row = launch_row(kd, d, (q3, k3, v3, do3))
     build.library().call(
         "mfa_flash_bwd_q", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         o3.data_ptr(), do3.data_ptr(), lse.data_ptr(), dq.data_ptr(),
         dterm.data_ptr(), bh, group, r, k3.shape[1], d, int(kd.causal),
         kd.sliding_window or 0, scale * LOG2E, _cap2(kd), scale,
-        _dtype_code(q3), int(o3.dtype == torch.float32), kd.block_q,
-        kd.block_kv, kd.block_d,
+        _dtype_code(q3), int(o3.dtype == torch.float32),
+        _KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_bwd_q.launches += 1
     return dq, dterm
@@ -187,14 +219,16 @@ def flash_bwd_kv(q3, k3, v3, do3, lse, dterm,
     bh, r, d = q3.shape
     bhkv, c, _ = k3.shape
     _check_cuda(kd, dict(q=q3, k=k3, v=v3, do=do3),
-                dict(lse=lse, dterm=dterm), bhkv)
+                dict(lse=lse, dterm=dterm))
     dk, dv = _outputs(out, [(bhkv, c, d), (bhkv, c, d)], q3.device)
+    row = launch_row(kd, d, (q3, k3, v3, do3))
     build.library().call(
         "mfa_flash_bwd_kv", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         do3.data_ptr(), lse.data_ptr(), dterm.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), bhkv, group, r, c, d, int(kd.causal),
         kd.sliding_window or 0, scale * LOG2E, _cap2(kd), scale,
-        _dtype_code(q3), kd.block_q, kd.block_kv, kd.block_d,
+        _dtype_code(q3), _KERNEL_CODES[row.kernel], row.block_q,
+        row.block_kv, row.block_d,
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_bwd_kv.launches += 1
     return dk, dv

@@ -92,9 +92,12 @@ class AttentionDescriptor:
             raise ValueError(
                 f"head_dim {self.head_dim} > {params_mod.MAX_HEAD_DIM}: the "
                 "Hopper flash kernels have no head-dim blocking yet")
-        rows = params_mod.parameter_table(
-            _TABLE[kernel_type],
-            "bf16" if self.low_precision_inputs else "fp32", device)
+        precision = "bf16" if self.low_precision_inputs else "fp32"
+        backward = kernel_type is not AttentionKernelType.FORWARD
+        if precision == "bf16" and backward:
+            precision = params_mod.bwd_table_precision(self.head_dim)
+        rows = params_mod.parameter_table(_TABLE[kernel_type], precision,
+                                          device)
         row = params_mod.select_row(rows, self.head_dim)
         policy = self.precision_policy()
         return AttentionKernelDescriptor(
@@ -102,6 +105,7 @@ class AttentionDescriptor:
             block_q=row.block_q,
             block_kv=row.block_kv,
             block_d=row.block_d,
+            kernel=row.kernel,
             head_dim=self.head_dim,
             causal=self.causal,
             sliding_window=self.sliding_window,
@@ -124,6 +128,7 @@ class AttentionKernelDescriptor:
     block_q: int
     block_kv: int
     block_d: int
+    kernel: str
     head_dim: int
     causal: bool
     sliding_window: int | None

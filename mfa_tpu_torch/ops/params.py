@@ -12,15 +12,17 @@ The matrix-product kernels (K7 ``gemm``, K8
 ``int4_matmul``) choose among a few compiled tiles (:data:`GEMM_TILES`,
 :data:`QMM_TILES`) by the problem's shape instead of a head dim.
 
-Columns: ``max_d | block_q | block_kv | block_d``. ``block_q`` rows of Q
-per CTA, ``block_kv`` K/V rows per step of the in-CTA loop, ``block_d``
-the head dim the CTA's shared-memory tiles are padded to (one compiled
-instantiation per ``block_d``).
+Columns: ``max_d | block_q | block_kv | block_d [| kernel]``. ``block_q``
+rows of Q per CTA (K4: per step of its q walk), ``block_kv`` K/V rows per
+step of the in-CTA loop (K4: per CTA), ``block_d`` the head dim the CTA's
+shared-memory tiles are padded to (one compiled instantiation per
+``block_d``). The optional ``kernel`` names the kernel a row runs where a
+table has more than one (the backward's bf16 rows: ``wgmma`` or ``mma``).
 
-NONE OF THESE ROWS IS TUNED ON THE H100 YET: they are first-cut values
-chosen so that every tile fits the shared memory and register file of
-one SM (227 KB, 255 registers a thread). No TPU block size is carried
-over.
+Rows marked "not tuned" are first-cut values chosen so that every tile
+fits the shared memory and register file of one SM (227 KB, 255
+registers a thread); the backward's bf16 ``wgmma`` rows were measured on
+the H100. No TPU block size is carried over.
 """
 
 from __future__ import annotations
@@ -67,14 +69,21 @@ class ParameterRow:
     block_q: int
     block_kv: int
     block_d: int
+    kernel: str = ""
+
+
+# The kernels a row may name (the backward's bf16 rows): "wgmma" the
+# warp-specialised TMA + wgmma kernels, "mma" the first-cut mma.sync ones.
+ROW_KERNELS = ("mma", "wgmma")
 
 
 def parse_table(text: str) -> list[ParameterRow]:
     """Parse a pipe-delimited table.
 
-    Format per line:  max_d | block_q | block_kv | block_d
+    Format per line:  max_d | block_q | block_kv | block_d [| kernel]
     Lines starting with '#' and blank lines are ignored; 'inf' max_d means
-    unbounded (stored as 0) and must be the last row.
+    unbounded (stored as 0) and must be the last row; ``kernel`` is one of
+    :data:`ROW_KERNELS`.
     """
     rows = []
     for line in text.strip().splitlines():
@@ -82,12 +91,14 @@ def parse_table(text: str) -> list[ParameterRow]:
         if not line or line.startswith("#"):
             continue
         parts = [p.strip() for p in line.split("|")]
-        if len(parts) != 4:
+        if len(parts) not in (4, 5) or (len(parts) == 5
+                                        and parts[4] not in ROW_KERNELS):
             raise ValueError(f"malformed parameter row: {line!r}")
         max_d = 0 if parts[0] in ("inf", "-") else int(parts[0])
         rows.append(ParameterRow(max_d=max_d, block_q=int(parts[1]),
                                  block_kv=int(parts[2]),
-                                 block_d=int(parts[3])))
+                                 block_d=int(parts[3]),
+                                 kernel=parts[4] if len(parts) == 5 else ""))
     if not rows:
         raise ValueError("empty parameter table")
     if rows[-1].max_d != 0:
@@ -122,13 +133,29 @@ _FWD_FP32 = """
   inf   |   16    |    32    |  256
 """
 
-# K3 bf16: four warps of 16 query rows; registers hold the fp32 dQ
-# accumulator plus S and dP for one kv step, so D=256 halves the step.
-# (Not tuned on the H100.)
+# K3 bf16 at D <= 128 (csrc/flash_bwd.cu, flash_bwd_q_wgmma): 128 query
+# rows a CTA (64 a consumer warpgroup), K and V streamed block_kv rows a
+# stage. Measured by utils/bwd_tuning.py sweep on the H100 at
+# chip_smoke.py's causal shape: 0.2108 ms at D = 128 and 0.1730 at D = 64
+# (the mma.sync rows 0.7636 and 0.4284); block_kv 128 was within 1.5%
+# with a ring of two stages and leaves no room for more. D = 256 keeps
+# the mma.sync kernel: four warps of 16 query rows, registers hold the
+# fp32 dQ accumulator plus S and dP for one kv step, so the step halves
+# (not tuned on the H100). Head dims TMA cannot map take _BWD_Q_BF16_MMA.
 _BWD_Q_BF16 = """
-   64   |   64    |    64    |   64
-  128   |   64    |    64    |  128
-  inf   |   64    |    32    |  256
+# max_d | block_q | block_kv | block_d | kernel
+   64   |  128    |    64    |   64    | wgmma
+  128   |  128    |    64    |  128    | wgmma
+  inf   |   64    |    32    |  256    | mma
+"""
+
+# K3 bf16 where TMA cannot map the operands (a row of D % 8 != 0 values is
+# no multiple of 16 bytes, or a base is not 16-byte aligned): the mma.sync
+# kernel for every head dim. (Not tuned on the H100.)
+_BWD_Q_BF16_MMA = """
+   64   |   64    |    64    |   64    | mma
+  128   |   64    |    64    |  128    | mma
+  inf   |   64    |    32    |  256    | mma
 """
 
 # K3 fp32: plain FMA, 16 query rows per CTA, 32-wide kv steps.
@@ -139,12 +166,28 @@ _BWD_Q_FP32 = """
   inf   |   16    |    32    |  256
 """
 
-# K4 bf16: 64 kv rows per CTA (four warps of 16; at D=256 eight warps
-# that split the head dim), 32-row q steps. (Not tuned on the H100.)
+# K4 bf16 at D <= 128 (flash_bwd_kv_wgmma): 64 kv rows a CTA, Q, dO, L
+# and the D-term streamed block_q rows a step, the two consumer
+# warpgroups taking alternate steps. block_q measured by the same sweep:
+# at D = 128, 32 (0.3632 ms) beats 64 (0.5461 ms; its accumulators spill
+# registers); at D = 64, 64 (0.1530 ms) beats 32 (0.1952 ms); the
+# mma.sync rows take 1.7789 and 1.1472 ms. D = 256 keeps the mma.sync
+# kernel: 64 kv rows per CTA in eight warps that split the head dim,
+# 32-row q steps (not tuned on the H100). Head dims TMA cannot map take
+# _BWD_KV_BF16_MMA.
 _BWD_KV_BF16 = """
-   64   |   32    |    64    |   64
-  128   |   32    |    64    |  128
-  inf   |   32    |    64    |  256
+# max_d | block_q | block_kv | block_d | kernel
+   64   |   64    |    64    |   64    | wgmma
+  128   |   32    |    64    |  128    | wgmma
+  inf   |   32    |    64    |  256    | mma
+"""
+
+# K4 bf16 where TMA cannot map the operands (as for K3). (Not tuned on the
+# H100.)
+_BWD_KV_BF16_MMA = """
+   64   |   32    |    64    |   64    | mma
+  128   |   32    |    64    |  128    | mma
+  inf   |   32    |    64    |  256    | mma
 """
 
 # K4 fp32: plain FMA, 16 kv rows per CTA, 32-wide q steps.
@@ -161,8 +204,10 @@ _TABLES = {
         ("flash_fwd", "bf16"): _FWD_BF16,
         ("flash_fwd", "fp32"): _FWD_FP32,
         ("flash_bwd_q", "bf16"): _BWD_Q_BF16,
+        ("flash_bwd_q", "bf16_mma"): _BWD_Q_BF16_MMA,
         ("flash_bwd_q", "fp32"): _BWD_Q_FP32,
         ("flash_bwd_kv", "bf16"): _BWD_KV_BF16,
+        ("flash_bwd_kv", "bf16_mma"): _BWD_KV_BF16_MMA,
         ("flash_bwd_kv", "fp32"): _BWD_KV_FP32,
     },
 }
@@ -184,7 +229,7 @@ def parameter_table(kernel: str, precision: str,
     key = (device.name, device.smem_per_block, kernel, precision)
     if key not in _PARSED:
         rows = parse_table(tables[(kernel, precision)])
-        in_bytes = 2 if precision == "bf16" else 4
+        in_bytes = 2 if precision.startswith("bf16") else 4
         for row in rows:
             if smem_bytes(kernel, row, in_bytes) > device.smem_per_block:
                 raise ValueError(f"{kernel} row {row} exceeds the "
@@ -210,11 +255,54 @@ def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     return 4 * (row.block_q * d + 2 * row.block_kv * (d + 1))
 
 
-def flash_bwd_q_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
-    """K3: pre-scaled Q, dO, K and V tiles (rows padded by 8) and the
-    transposed K tile, plus L and the D-term per row (fp32); the fp32
-    kernel keeps unpadded Q/dO and K/V rows padded by one."""
+# The backward's wgmma kernels (csrc/flash_bwd.cu) size their rings of
+# tiles to the H100's shared memory per block: as many stages as fit, up
+# to 4: K3's (K and V, read by both consumer warpgroups) and K4's, an even
+# number (Q, dO, L and the D-term; stage s feeds warpgroup s % 2).
+_SMEM_OPTIN = H100.smem_per_block
+# Slack to align the dynamic shared memory to the 1024-byte swizzle atom.
+_SMEM_ALIGN = 1024
+
+
+def _ring_stages(fixed: int, per_stage: int, most: int, mult: int) -> int:
+    """csrc/flash_bwd.cu's ring_stages."""
+    return min((_SMEM_OPTIN - fixed) // per_stage, most) // mult * mult
+
+
+def bwd_q_stages(row: ParameterRow) -> int:
+    """Stages of K3's wgmma ring at ``row``."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    return _ring_stages(2 * 2 * bq * d + 8 * bq + 8 + _SMEM_ALIGN,
+                        2 * 2 * bkv * d + 16, 4, 1)
+
+
+def bwd_kv_stages(row: ParameterRow) -> int:
+    """Stages of K4's wgmma ring at ``row``."""
+    d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    return _ring_stages(2 * 2 * bkv * d + 2 * 2 * bq * d + 8 + _SMEM_ALIGN,
+                        2 * 2 * bq * d + 8 * bq + 16, 4, 2)
+
+
+def bwd_table_precision(head_dim: int) -> str:
+    """The bf16 backward's table for a head dim: ``"bf16"`` (whose rows
+    up to D = 128 run the wgmma kernels) when a TMA tensor map can hold a
+    row, i.e. D bf16 values are a multiple of 16 bytes; else the mma.sync
+    rows (``"bf16_mma"``)."""
+    return "bf16" if head_dim % 8 == 0 else "bf16_mma"
+
+
+def flash_bwd_q_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
+    """K3: the wgmma kernel keeps Q (scaled in place) and dO resident and
+    a ring of K and V tiles, L and the D-term per row (fp32) and one
+    mbarrier per stage plus one; the mma.sync kernel pre-scaled Q, dO, K
+    and V tiles (rows padded by 8) and the transposed K tile, plus L and
+    the D-term per row; the fp32 kernel unpadded Q/dO and K/V rows padded
+    by one."""
+    d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    if row.kernel == "wgmma":
+        stages = bwd_q_stages(row)
+        return (2 * 2 * bq * d + stages * 2 * 2 * bkv * d + 4 * 2 * bq
+                + 8 * (1 + 2 * stages) + _SMEM_ALIGN)
     if in_bytes == 2:
         return (2 * (2 * bq * (d + 8) + 2 * bkv * (d + 8) + d * (bkv + 8))
                 + 4 * 2 * bq)
@@ -222,10 +310,17 @@ def flash_bwd_q_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
 
 
 def flash_bwd_kv_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
-    """K4: K and V tiles, the pre-scaled Q and dO tiles (rows padded by 8)
-    and the transposed raw Q and dO tiles, plus L and the D-term per query
-    row; the fp32 kernel keeps unpadded K/V and Q/dO rows padded by one."""
+    """K4: the wgmma kernel keeps K and V resident, a ring of Q, dO, L and
+    D-term tiles, one scaled-Q tile per consumer warpgroup and one
+    mbarrier per stage plus one; the mma.sync kernel K and V tiles, the
+    pre-scaled Q and dO tiles (rows padded by 8) and the transposed raw Q
+    and dO tiles, plus L and the D-term per query row; the fp32 kernel
+    unpadded K/V and Q/dO rows padded by one."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    if row.kernel == "wgmma":
+        stages = bwd_kv_stages(row)
+        return (2 * 2 * bkv * d + (2 * stages + 2) * 2 * bq * d
+                + stages * 4 * 2 * bq + 8 * (1 + 2 * stages) + _SMEM_ALIGN)
     if in_bytes == 2:
         return (2 * (2 * bkv * (d + 8) + 2 * bq * (d + 8) + 2 * d * (bq + 8))
                 + 4 * 2 * bq)

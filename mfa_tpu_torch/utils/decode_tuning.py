@@ -8,16 +8,17 @@ configuration is first held to its plain version at
 ``KERNEL_BUDGETS``. ``kernels`` splits a call's device time between its
 two kernels (torch.profiler). ``turns`` runs ``chip_smoke.py``'s k5 and
 k6 phases (``--what kernels``), its serving and paged serving phases
-(``serving``) or a host-time probe of the K6 wrapper (``host``) from two
-trees in turns (A, B, B, A), each in a process of its own that builds
-and loads its own tree's kernels.
+(``serving``), a host-time probe of the K6 wrapper (``host``), its
+backward kernel phase (``bwd``, K3 and K4) or its training phase
+(``training``) from two trees in turns (A, B, B, A), each in a process of
+its own that builds and loads its own tree's kernels.
 
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.decode_tuning sweep [--out chiprun_out]
     python -m mfa_tpu_torch.utils.decode_tuning kernels
     python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
-        [--what kernels|serving|host]
+        [--what kernels|serving|host|bwd|training]
 """
 
 from __future__ import annotations
@@ -166,6 +167,8 @@ def kernels(calls: int = 20) -> None:
 # queued behind a device spin.
 _TURNS = {
     "kernels": "c.phase_k5(torch); c.phase_k6(torch)",
+    "bwd": "c.phase_bwd(torch)",
+    "training": "c.phase_training(torch)",
     "serving": ("_, m, prompts, toks = c.phase_serving(torch); "
                 "c.phase_paged_serving(torch, m, prompts, toks)"),
     "host": """

@@ -1,0 +1,185 @@
+"""The backward kernels' (K3 ``flash_bwd_q``, K4 ``flash_bwd_kv``)
+parameter rows and dispatch on the CPU: the rows parse and fit one SM,
+descriptors and :func:`launch_row` pick the kernel the source says, and
+the wrappers hand the kernel library a launch for any number of heads
+(recorded by a stand-in library over meta tensors; no kernel runs
+here)."""
+
+import types
+
+import pytest
+import torch
+
+from mfa_tpu_torch.kernels import build
+from mfa_tpu_torch.kernels import flash_bwd as k34
+from mfa_tpu_torch.ops import params
+from mfa_tpu_torch.ops.descriptors import (
+    AttentionDescriptor,
+    AttentionKernelType,
+)
+
+_BWD = (AttentionKernelType.BACKWARD_QUERY,
+        AttentionKernelType.BACKWARD_KEY_VALUE)
+
+
+def _kd(kind, d, bf16=True, hq=4, hkv=2, n=64):
+    return AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=n,
+        seq_len_kv=n, head_dim=d, causal=True, low_precision_inputs=bf16,
+        low_precision_intermediates=bf16).kernel_descriptor(kind)
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_q", "flash_bwd_kv"])
+@pytest.mark.parametrize("precision", ["bf16", "bf16_mma", "fp32"])
+def test_rows_parse_and_fit_one_sm(kernel, precision):
+    rows = params.parameter_table(kernel, precision)
+    in_bytes = 4 if precision == "fp32" else 2
+    for row in rows:
+        assert row.kernel in (("",) if precision == "fp32"
+                              else params.ROW_KERNELS)
+        assert params.smem_bytes(kernel, row, in_bytes) \
+            <= params.H100.smem_per_block
+    if precision == "bf16_mma":
+        assert {r.kernel for r in rows} == {"mma"}
+
+
+def test_wgmma_rows_cover_d_up_to_128_and_mma_the_rest():
+    """bf16 rows TMA can map (D % 8 == 0) up to D = 128 run wgmma; D = 256
+    and the other head dims keep mma.sync."""
+    for kernel in ("flash_bwd_q", "flash_bwd_kv"):
+        rows = params.parameter_table(kernel, "bf16")
+        for d in (8, 32, 64, 96, 128):
+            row = params.select_row(rows, d)
+            assert row.kernel == "wgmma" and row.block_d in (64, 128)
+            assert d <= row.block_d
+        assert params.select_row(rows, 256).kernel == "mma"
+    for d in (4, 36, 100, 130):
+        assert params.bwd_table_precision(d) == "bf16_mma"
+    for d in (8, 64, 96, 128, 256):
+        assert params.bwd_table_precision(d) == "bf16"
+    # K3's wgmma CTA is two consumer warpgroups of 64 query rows; K4's
+    # owns 64 kv rows.
+    for row in params.parameter_table("flash_bwd_q", "bf16")[:2]:
+        assert row.kernel == "wgmma" and row.block_q == 128
+    for row in params.parameter_table("flash_bwd_kv", "bf16")[:2]:
+        assert row.kernel == "wgmma" and row.block_kv == 64
+        assert row.block_q in (32, 64)
+
+
+def test_smem_reckons_the_launch_code():
+    """csrc/flash_bwd.cu's QWgmmaSmem / KvWgmmaSmem at D = 128: rings as
+    deep as the H100's shared memory allows, up to 4."""
+    q = params.ParameterRow(128, 128, 64, 128, "wgmma")
+    assert params.bwd_q_stages(q) == 4
+    # Q and dO (128 x 128 bf16), 4 stages of K and V (64 x 128), L and D
+    # (128 fp32 each), 9 mbarriers, 1024 bytes of alignment slack.
+    assert params.flash_bwd_q_smem_bytes(q, 2) == (
+        2 * 32768 + 4 * 2 * 16384 + 2 * 512 + 9 * 8 + 1024)
+    kv = params.ParameterRow(128, 32, 64, 128, "wgmma")
+    assert params.bwd_kv_stages(kv) == 4
+    # K and V (64 x 128), 4 stages of Q and dO (32 x 128), two scaled-Q
+    # tiles, 4 stages of L and D (32 fp32 each), 9 mbarriers, slack.
+    assert params.flash_bwd_kv_smem_bytes(kv, 2) == (
+        2 * 16384 + (2 * 4 + 2) * 8192 + 4 * 2 * 128 + 9 * 8 + 1024)
+    assert params.bwd_kv_stages(params.ParameterRow(128, 64, 64, 128,
+                                                    "wgmma")) == 4
+    for kernel in ("flash_bwd_q", "flash_bwd_kv"):
+        for row in params.parameter_table(kernel, "bf16"):
+            if row.kernel == "wgmma":
+                stages = (params.bwd_q_stages(row) if kernel == "flash_bwd_q"
+                          else params.bwd_kv_stages(row))
+                assert stages >= 2
+
+
+def test_parse_takes_a_kernel_column_and_refuses_others():
+    rows = params.parse_table("64 | 1 | 2 | 64 | wgmma\ninf | 4 | 5 | 6")
+    assert [r.kernel for r in rows] == ["wgmma", ""]
+    with pytest.raises(ValueError, match="malformed"):
+        params.parse_table("inf | 4 | 5 | 6 | tma")
+
+
+@pytest.mark.parametrize("d, kernel", [
+    (32, "wgmma"), (64, "wgmma"), (96, "wgmma"), (128, "wgmma"),
+    (256, "mma"), (36, "mma"), (40 + 2, "mma"), (100, "mma")])
+def test_descriptors_dispatch_as_the_source_says(d, kernel):
+    """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernels; D = 256
+    and a D whose rows TMA cannot map (D % 8 != 0) the mma.sync kernel."""
+    for kind in _BWD:
+        kd = _kd(kind, d)
+        assert kd.kernel == kernel
+        assert k34.launch_row(kd, d, ()).kernel == kernel
+        assert d <= kd.block_d
+    assert _kd(_BWD[0], 100).block_d == 128     # the mma row of its D
+    assert _kd(_BWD[1], 36).block_q == 32
+
+
+def test_fp32_and_forward_rows_name_no_kernel():
+    for kind in AttentionKernelType:
+        assert _kd(kind, 64, bf16=False).kernel == ""
+    assert _kd(AttentionKernelType.FORWARD, 64).kernel == ""
+
+
+def test_misaligned_operand_takes_the_mma_row():
+    """TMA needs 16-byte-aligned bases: a view two bytes into its storage
+    runs the mma.sync row of its head dim."""
+    buf = torch.zeros(4 * 64 * 64 + 1, dtype=torch.bfloat16)
+    aligned = buf[:-1].view(4, 64, 64)
+    shifted = buf[1:].view(4, 64, 64)
+    for kind in _BWD:
+        kd = _kd(kind, 64)
+        assert k34.launch_row(kd, 64, (aligned, aligned)).kernel == "wgmma"
+        row = k34.launch_row(kd, 64, (aligned, shifted))
+        table = ("flash_bwd_q" if kind is AttentionKernelType.BACKWARD_QUERY
+                 else "flash_bwd_kv")
+        assert row == params.select_row(
+            params.parameter_table(table, "bf16_mma"), 64)
+
+
+class _Library:
+    """Records the calls a wrapper makes instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def call(self, name, *args):
+        self.calls.append((name, args))
+
+
+@pytest.fixture
+def library(monkeypatch):
+    lib = _Library()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    # Meta tensors stand in for CUDA tensors past the device check.
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    return lib
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("heads", [1, 65_535, 65_536, 70_000, 200_000])
+def test_wrappers_take_any_number_of_heads(library, heads):
+    """Blocks and heads share grid.x: no 65535 limit on batch * heads."""
+    n, d = 16, 64
+    q3, o3, do3 = (_meta(heads, n, d) for _ in range(3))
+    kv = _meta(heads, n, d)
+    lse = _meta(heads, n, dtype=torch.float32)
+    kw = dict(group=1, scale=0.125)
+    kd_q = _kd(_BWD[0], d, hq=heads, hkv=heads, n=n)
+    kd_kv = _kd(_BWD[1], d, hq=heads, hkv=heads, n=n)
+    n3, n4 = k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches
+    dq, dterm = k34.flash_bwd_q(q3, kv, kv, o3, do3, lse, kd_q, **kw)
+    dk, dv = k34.flash_bwd_kv(q3, kv, kv, do3, lse, dterm, kd_kv, **kw)
+    assert (k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches) == (n3 + 1,
+                                                                     n4 + 1)
+    assert dq.shape == (heads, n, d) and dk.shape == (heads, n, d)
+    (name3, args3), (name4, args4) = library.calls
+    assert (name3, name4) == ("mfa_flash_bwd_q", "mfa_flash_bwd_kv")
+    # (kernel code, block_q, block_kv, block_d) before the stream.
+    assert args3[-5:-1] == (1, 128, 64, 64)
+    assert args4[-5:-1] == (1, 64, 64, 64)
+    assert args3[8] == heads and args4[8] == heads

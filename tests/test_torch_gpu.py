@@ -372,6 +372,15 @@ BWD_CASES = [
     ("bf16", 128, 64, 500, 8, 2, dict(causal=True,
                                       sliding_window=40)),      # unseen keys
     ("bf16", 256, 190, 190, 8, 2, dict(causal=True)),
+    # The wgmma rows (D 64 and 128): R != C, causal, window, soft-cap.
+    ("bf16", 64, 200, 333, 4, 2, dict(causal=True, logit_soft_cap=30.0)),
+    ("bf16", 64, 333, 200, 4, 1, dict(sliding_window=50)),       # R > C
+    ("bf16", 64, 1000, 1000, 6, 2, dict()),       # odd walks, both WGs
+    ("bf16", 128, 129, 700, 4, 4, dict(causal=True)),
+    ("bf16", 128, 700, 129, 4, 2, dict(causal=True)),            # R > C
+    ("bf16", 128, 300, 300, 8, 2, dict(causal=True, sliding_window=64,
+                                       logit_soft_cap=20.0)),
+    ("bf16", 128, 16, 16, 2, 1, dict(causal=True)),   # tiles past R and C
     ("fp32", 64, 100, 100, 4, 2, dict(causal=True)),
     ("fp32", 256, 77, 130, 2, 1, dict()),
     ("fp32", 40, 65, 65, 4, 2, dict(sliding_window=9)),
@@ -410,6 +419,12 @@ def test_flash_bwd_kernels_match_plain(cuda, case):
     kw = dict(group=hq // hkv, scale=desc.softmax_scale)
     o, lse = k1.flash_fwd(q, k, v, kd_f, **kw,
                           o_dtype=torch.float32 if o_f32 else dtype)
+    # The rows say which kernel runs: wgmma for bf16 at D % 8 == 0 and
+    # D <= 128, the kept mma.sync kernel at D = 256 or D % 8 != 0.
+    tma = dt == "bf16" and d % 8 == 0 and d <= 128
+    for kd in (kd_q, kd_kv):
+        assert k34.launch_row(kd, d, (q, k, v, do)).kernel == (
+            "wgmma" if tma else "mma" if dt == "bf16" else "")
     n3, n4 = k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches
     dq, dterm = k34.flash_bwd_q(
         q, k, v, o, do, lse, kd_q, **kw,
@@ -433,6 +448,31 @@ def test_flash_bwd_kernels_match_plain(cuda, case):
     # Atomics-free: a second run gives the same bits.
     dk2, dv2 = k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd_kv, **kw)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_flash_bwd_kernels_take_more_than_65535_heads(cuda):
+    """Blocks and heads share grid.x: 70 000 heads of 16 rows run, and
+    agree with the plain versions."""
+    hq, n, d = 70_000, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn((hq, n, d), generator=gen, device=cuda)
+                   .bfloat16() for _ in range(4))
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hq, seq_len_q=n, seq_len_kv=n,
+        head_dim=d, causal=True, low_precision_inputs=True,
+        low_precision_intermediates=True)
+    kd_f, kd_q, kd_kv = (desc.kernel_descriptor(t)
+                         for t in AttentionKernelType)
+    kw = dict(group=1, scale=desc.softmax_scale)
+    o, lse = k1.flash_fwd_plain(q, k, v, kd_f, o_dtype=torch.bfloat16, **kw)
+    dq, dterm = k34.flash_bwd_q(q, k, v, o, do, lse, kd_q, **kw)
+    dk, dv = k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd_kv, **kw)
+    dq_p, dterm_p = k34.flash_bwd_q_plain(q, k, v, o, do, lse, kd_q, **kw)
+    dk_p, dv_p = k34.flash_bwd_kv_plain(q, k, v, do, lse, dterm, kd_kv, **kw)
+    for key, got, want in (("dterm", dterm, dterm_p), ("dq_bf16", dq, dq_p),
+                           ("dk_bf16", dk, dk_p), ("dv_bf16", dv, dv_p)):
+        atol, rtol = KERNEL_BUDGETS[f"flash_bwd_{key}"]
+        assert_close(got, want, atol, key, rtol=rtol)
 
 
 def test_tiny_llama_train_step_on_cuda_matches_cpu(cuda):
