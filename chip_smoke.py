@@ -9,7 +9,11 @@ phase's failure is caught):
 2. build   — nvcc builds the kernel library from mfa_tpu_torch/csrc.
 3. k1      — flash forward kernel against its plain version at Llama-3-8B
              prefill shapes (Hq=32, Hkv=8, D=128, N=2048): causal,
-             non-causal, sliding window 512, soft-cap 50, R != C, fp32.
+             non-causal, sliding window 512, soft-cap 50, R != C, fp32,
+             and causal at the prefill buckets R = C = 64 and 512; each
+             line names the parameter row that ran (bf16: wgmma), its
+             ring depth and ping-pong, outputs prefilled with NaN, a
+             second launch bit for bit equal to the first.
 4. k2      — fused decode + append kernel against its plain version for
              bf16, INT8, FP8-e4m3 and FP8-e5m2 caches (B=4, Hkv=8, G=4,
              D=128, max_len 2048 and 8192, lengths including 0 and
@@ -148,8 +152,14 @@ def phase_build():
     lib = build.library()
     ptxas = [ln.strip() for ln in lib.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
+    # ptxas's "wgmma.mma_async instructions are serialized" warnings: a
+    # kernel whose products cannot overlap anything.
+    serialized = sorted({ln.split("function '")[-1].rstrip("'")
+                         for ln in lib.build_log.splitlines()
+                         if "Performance Loss" in ln})
     emit({"phase": "build", "seconds": round(lib.build_seconds, 3),
-          "library": str(lib.path.name), "ptxas": ptxas[:24]})
+          "library": str(lib.path.name), "ptxas": ptxas[:24],
+          "wgmma_serialized": serialized})
 
 
 def _bound(flops, nbytes, peak):
@@ -173,8 +183,13 @@ def phase_k1(torch):
     from mfa_tpu_torch.ops.descriptors import (
         AttentionDescriptor,
         AttentionKernelType,
+        launch_row,
     )
-    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+    from mfa_tpu_torch.utils.testing import (
+        KERNEL_BUDGETS,
+        budget_share,
+        nan_canary,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = params_mod.detect_device(torch.device("cuda", 0))
@@ -187,6 +202,9 @@ def phase_k1(torch):
          dict(causal=True, logit_soft_cap=50.0)),
         ("causal_r512_c2048", 512, n, torch.bfloat16, dict(causal=True)),
         ("fp32_causal", n, n, torch.float32, dict(causal=True)),
+        # The server's smaller prefill buckets (serving/scheduler.py).
+        ("causal_r64", 64, 64, torch.bfloat16, dict(causal=True)),
+        ("causal_r512", 512, 512, torch.bfloat16, dict(causal=True)),
     ]
     results = {}
     for name, r, c, dtype, opts in cases:
@@ -199,7 +217,19 @@ def phase_k1(torch):
         q3, k3, v3 = (t.reshape(-1, t.shape[2], 128).contiguous()
                       for t in (q, k, v))
         kw = dict(group=4, scale=desc.softmax_scale, o_dtype=dtype)
-        o_k, l_k = k1.flash_fwd(q3, k3, v3, kd, **kw)
+        # The parameter row the launch runs (wgmma for every bf16 case,
+        # ops/params.py) and its ring depth and ping-pong.
+        row = launch_row(kd, 128, (q3, k3, v3))
+        row_info = dict(dataclasses.asdict(row), ring_stages=(
+            params_mod.fwd_stages(row) if row.kernel == "wgmma" else None),
+            pingpong=params_mod.FWD_PINGPONG if row.kernel == "wgmma"
+            else None)
+        o_k, l_k = k1.flash_fwd(q3, k3, v3, kd, **kw, out=(
+            nan_canary(q3.shape, dtype, device="cuda"),
+            nan_canary(q3.shape[:2], device="cuda")))
+        o_k2, l_k2 = k1.flash_fwd(q3, k3, v3, kd, **kw)
+        deterministic = bool(torch.equal(o_k, o_k2) and torch.equal(l_k, l_k2))
+        del o_k2, l_k2
         torch.cuda.synchronize()
         o_p, l_p = k1.flash_fwd_plain(q3, k3, v3, kd, **kw)
         # Elementwise budgets against the plain version (not the looser
@@ -211,8 +241,11 @@ def phase_k1(torch):
         share_o = budget_share(o_k, o_p, *budget_o)
         share_l = budget_share(l_k, l_p, *budget_l)
         o_rms = float(o_p.float().square().mean().sqrt())
-        ok = (torch.isfinite(o_k.float()).all().item() and share_o <= 1
-              and share_l <= 1)
+        ok = (torch.isfinite(o_k.float()).all().item()
+              and torch.isfinite(l_k).all().item() and deterministic
+              and share_o <= 1
+              and share_l <= 1
+              and row.kernel == ("wgmma" if dtype == torch.bfloat16 else ""))
         ms = cuda_ms(torch, lambda: k1.flash_fwd(q3, k3, v3, kd, **kw))
         plain_ms = cuda_ms(torch, lambda: k1.flash_fwd_plain(
             q3, k3, v3, kd, **kw), iters=3, warmup=1)
@@ -237,8 +270,10 @@ def phase_k1(torch):
             max_abs_err=err_o, lse_err=err_l, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         emit({"phase": "k1", "case": name, "R": r, "C": c,
-              "dtype": str(dtype).split(".")[-1], "err_o": err_o,
+              "dtype": str(dtype).split(".")[-1], "row": row_info,
+              "tflops": 4 * 128 * pairs / ms / 1e9, "err_o": err_o,
               "o_rms": o_rms, "budget_o": budget_o, "share_o": share_o,
+              "deterministic": deterministic,
               "err_l": err_l, "budget_l": budget_l, "share_l": share_l,
               "ok": bool(ok),
               **{k_: v_ for k_, v_ in results[name].items()
@@ -247,7 +282,8 @@ def phase_k1(torch):
             raise SystemExit(f"k1 {name}: kernel disagrees with its plain "
                              f"version (O uses {share_o} of |d| <= "
                              f"{budget_o[0]} + {budget_o[1]}|O|, L uses "
-                             f"{share_l} of {budget_l[0]})")
+                             f"{share_l} of {budget_l[0]}), ran row "
+                             f"{row_info}, deterministic {deterministic}")
     return results["causal"]
 
 

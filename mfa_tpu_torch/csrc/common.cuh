@@ -51,6 +51,56 @@ __device__ __forceinline__ bool visible_rc(int row, int col, int R, int C,
   return true;
 }
 
+// Live kv blocks [lo, hi] of q-block i of bq rows (hi < lo: none), the
+// bounds mfa_tpu's causal_pair_tables computes; P is a kernel's params
+// (R, C, causal, window).
+template <typename P>
+__device__ __forceinline__ void kv_range(const P& p, int i, int bq, int bkv,
+                                         int& lo, int& hi) {
+  const int nkv = (p.C + bkv - 1) / bkv;
+  const int offset = p.C - p.R;
+  lo = 0;
+  hi = nkv - 1;
+  if (p.causal || p.window > 0) {
+    hi = min(floor_div((i + 1) * bq - 1 + offset, bkv), nkv - 1);
+    if (p.window > 0)
+      lo = min(max(floor_div(i * bq + offset - (p.window - 1), bkv), 0),
+               nkv - 1);
+  }
+}
+
+// The wgmma kernels' 128-row q-block i: the kv blocks of its 64-row half
+// w (empty when those rows lie past R), and of the whole block, the
+// union of its two halves.
+template <typename P>
+__device__ __forceinline__ void half_kv_range(const P& p, int i, int w,
+                                              int bkv, int& lo, int& hi) {
+  if ((2 * i + w) * 64 >= p.R) {
+    lo = 1;
+    hi = 0;
+    return;
+  }
+  kv_range(p, 2 * i + w, 64, bkv, lo, hi);
+}
+
+template <typename P>
+__device__ __forceinline__ void pair_kv_range(const P& p, int i, int bkv,
+                                              int& lo, int& hi) {
+  int lo0, hi0, lo1, hi1;
+  half_kv_range(p, i, 0, bkv, lo0, hi0);
+  half_kv_range(p, i, 1, bkv, lo1, hi1);
+  if (lo0 > hi0) {
+    lo = lo1;
+    hi = hi1;
+  } else if (lo1 > hi1) {
+    lo = lo0;
+    hi = hi0;
+  } else {
+    lo = min(lo0, lo1);
+    hi = max(hi0, hi1);
+  }
+}
+
 // tanh soft-cap in the log2 domain (cap2 = cap * log2e; <= 0: none).
 __device__ __forceinline__ float cap_score(float x, float cap2) {
   return cap2 > 0.f ? cap2 * tanhf(x / cap2) : x;
@@ -69,6 +119,15 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The accumulators of n-tiles 2kc and 2kc+1 as one A fragment (rounded).
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo,
+                                         const float* hi) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
 }
 
 // KV-cache storage formats, as the decode wrappers number them:

@@ -197,30 +197,6 @@ __device__ __forceinline__ void mma_rows(float* c, const uint32_t* a,
            *reinterpret_cast<const uint32_t*>(b + 8));
 }
 
-// The accumulators of n-tiles 2kc and 2kc+1 as one A fragment (rounded).
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo,
-                                         const float* hi) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// Live kv blocks [lo, hi] of q-block i (hi < lo: none), as K1 computes.
-__device__ __forceinline__ void kv_range(const BwdParams& p, int i, int bq,
-                                         int bkv, int& lo, int& hi) {
-  const int nkv = (p.C + bkv - 1) / bkv;
-  const int offset = p.C - p.R;
-  lo = 0;
-  hi = nkv - 1;
-  if (p.causal || p.window > 0) {
-    hi = min(floor_div((i + 1) * bq - 1 + offset, bkv), nkv - 1);
-    if (p.window > 0)
-      lo = min(max(floor_div(i * bq + offset - (p.window - 1), bkv), 0),
-               nkv - 1);
-  }
-}
-
 // Live q blocks [lo, hi] of kv-block j (hi < lo: none): rows r with
 // r >= col - offset (causal) and r <= col - offset + W - 1 (window).
 __device__ __forceinline__ void q_range(const BwdParams& p, int j, int bq,
@@ -715,82 +691,7 @@ flash_bwd_kv_f32(BwdParams p) {
 // bf16 on wgmma: warp-specialised K3 and K4 (see the note at the top).
 // ---------------------------------------------------------------------------
 namespace hw = mfa::hopper;
-
-constexpr int kWgThreads = 128;
-constexpr int kWgmmaThreads = 3 * kWgThreads;   // 2 consumer WGs + producer
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-constexpr int kPanelBytes = 128;   // one swizzled panel row: 64 bf16
-constexpr int kSmemOptin = 232448;   // shared memory a block may use
-constexpr int kAlignSlack = 1024;    // to align to the 1024-byte atom
-
-// Bytes of a [rows x DP] bf16 tile (DP / 64 panels of [rows x 64]).
-__host__ __device__ constexpr int tile_bytes(int rows, int dp) {
-  return rows * dp * 2;
-}
-
-// Stages of a ring: as many as fit beside `fixed` bytes, at most `most`,
-// rounded down to a multiple of `mult` (ops/params.py mirrors this).
-__host__ __device__ constexpr int ring_stages(int fixed, int per_stage,
-                                              int most, int mult) {
-  return ((kSmemOptin - fixed) / per_stage < most
-              ? (kSmemOptin - fixed) / per_stage
-              : most) / mult * mult;
-}
-
-// Descriptor of k-step kk (16 values of the head dim) of a K-major tile
-// of `rows` rows at shared address base.
-__device__ __forceinline__ uint64_t desc_k(uint32_t base, int rows, int kk) {
-  return hw::desc_b128(base + (kk >> 2) * rows * kPanelBytes + (kk & 3) * 32,
-                       16);
-}
-
-// Descriptor of k-step kc (16 rows) of an MN-major tile of `rows` rows.
-__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int rows, int kc) {
-  return hw::desc_b128(base + kc * 2048, rows * kPanelBytes);
-}
-
-// Multiplies a bf16 tile by `scale` in place or into dst, rounding to
-// bf16 (the swizzle is a permutation of 16-byte chunks, so the chunk at
-// one offset keeps its place).
-__device__ __forceinline__ void scale_chunks(const unsigned char* src,
-                                             unsigned char* dst, int bytes,
-                                             float scale, int tid,
-                                             int nthreads) {
-  for (int c = tid * 16; c < bytes; c += nthreads * 16) {
-    uint4 v = *reinterpret_cast<const uint4*>(src + c);
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      h[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-    }
-    *reinterpret_cast<uint4*>(dst + c) = v;
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero_acc(float (&d)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
-}
-
-// f(masked, capped) with both flags as compile-time constants.
-template <typename F>
-__device__ __forceinline__ void with_flags(bool masked, bool capped, F&& f) {
-  if (capped) {
-    if (masked)
-      f(std::true_type{}, std::true_type{});
-    else
-      f(std::false_type{}, std::true_type{});
-  } else if (masked) {
-    f(std::true_type{}, std::false_type{});
-  } else {
-    f(std::false_type{}, std::false_type{});
-  }
-}
+using namespace hw;   // the layout and helpers of hopper.cuh
 
 // Every (row, col) of rows [r0, r0 + nr) x cols [c0, c0 + nc) is visible
 // (no mask to apply): inside R and C, below the diagonal, inside the
@@ -802,35 +703,6 @@ __device__ __forceinline__ bool block_visible(const BwdParams& p, int r0,
   const int offset = p.C - p.R;
   if (c0 + nc - 1 > r0 + offset) return false;
   return !(p.window > 0 && c0 < r0 + nr - 1 + offset - (p.window - 1));
-}
-
-// K3's walk: the kv blocks [lo, hi] of the 64 query rows of warpgroup w
-// (empty when the rows lie past R), and the CTA's, the union of its two.
-__device__ __forceinline__ void q_wg_range(const BwdParams& p, int i, int w,
-                                           int bkv, int& lo, int& hi) {
-  if ((2 * i + w) * 64 >= p.R) {
-    lo = 1;
-    hi = 0;
-    return;
-  }
-  kv_range(p, 2 * i + w, 64, bkv, lo, hi);
-}
-
-__device__ __forceinline__ void q_cta_range(const BwdParams& p, int i,
-                                            int bkv, int& lo, int& hi) {
-  int lo0, hi0, lo1, hi1;
-  q_wg_range(p, i, 0, bkv, lo0, hi0);
-  q_wg_range(p, i, 1, bkv, lo1, hi1);
-  if (lo0 > hi0) {
-    lo = lo1;
-    hi = hi1;
-  } else if (lo1 > hi1) {
-    lo = lo0;
-    hi = hi0;
-  } else {
-    lo = min(lo0, lo1);
-    hi = max(hi0, hi1);
-  }
 }
 
 template <int BKV, int DP>
@@ -860,8 +732,7 @@ flash_bwd_q_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   constexpr int BQ = L::kBQ;
   constexpr int S = L::kS;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sm = align_atom(smem_raw);
   float* sL = reinterpret_cast<float*>(sm + L::kL);
   float* sD = reinterpret_cast<float*>(sm + L::kD);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -874,9 +745,9 @@ flash_bwd_q_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   const int i = nqb - 1 - (int)blockIdx.x / bhs;
   const int bh = (int)blockIdx.x % bhs;
   const int bhkv = bh / p.group;
-  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  const int tid = threadIdx.x, wg = hw::warpgroup_index();
   int lo_c, hi_c;
-  q_cta_range(p, i, BKV, lo_c, hi_c);
+  pair_kv_range(p, i, BKV, lo_c, hi_c);
 
   if (tid == 0) {
     hw::mbar_init(q_full, 1);
@@ -943,7 +814,7 @@ flash_bwd_q_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     const float l2[2] = {sL[r16], sL[r16 + 8]};
     const float dt[2] = {sD[r16], sD[r16 + 8]};
     int lo_w, hi_w;
-    q_wg_range(p, i, w, BKV, lo_w, hi_w);
+    half_kv_range(p, i, w, BKV, lo_w, hi_w);
 
     float dq[DP / 8][4];
     zero_acc(dq);
@@ -1079,8 +950,7 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   constexpr int BKV = L::kBKV;
   constexpr int S = L::kS;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sm = align_atom(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBar);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + S;
@@ -1091,7 +961,7 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   const int j = (int)blockIdx.x / bhkvs;
   const int bhkv = (int)blockIdx.x % bhkvs;
   const int col0 = j * BKV;
-  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  const int tid = threadIdx.x, wg = hw::warpgroup_index();
   int lo, hi;
   q_range(p, j, BQ, BKV, lo, hi);
   const int nlive = max(hi - lo + 1, 0);

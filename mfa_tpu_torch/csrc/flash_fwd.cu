@@ -19,17 +19,66 @@
 // What bounds it on an H100: causal prefill at Llama-3-8B widths (32
 // heads, N = 2048, D = 128) is about 34 GFLOP per layer, ~35 us at the
 // 989 TFLOP/s bf16 tensor-core peak, against ~2 MB of Q/K/V/O traffic
-// (~1 us at 3.35 TB/s): the bound is operations. This first cut uses
-// warp-level mma.sync (m16n8k16, bf16 -> fp32) from shared-memory tiles,
-// four warps of 16 query rows each; wgmma, TMA and a pipelined K/V ring
-// are later work. fp32 inputs take a plain-FMA kernel: the fp32 budget
-// (2e-5) rules out TF32 tensor cores.
+// (~1 us at 3.35 TB/s): the bound is operations, and the softmax's exp2
+// (one a score, on the SM's 16 special-function lanes a clock) costs
+// about half as many cycles as the two products of a block. So the design
+// keeps the tensor cores fed and hides the softmax under products.
+//
+// bf16, D % 8 == 0 and D <= 128, 16-byte-aligned operands (rows "wgmma"
+// of ops/params.py): flash_fwd_wgmma, warp-specialised, 384 threads = two
+// consumer warpgroups of 64 query rows (block_q = 128) and one producer
+// warpgroup (setmaxnreg 240 / 24 registers), as FlashAttention-3 lays it
+// out (arXiv 2407.08608):
+// - One producer thread loads Q once and K and V of each live kv block by
+//   TMA (cp.async.bulk.tensor, 3-D maps over [BH, R, D] and
+//   [BH / group, C, D], 128-byte-swizzled panels; rows past R or C arrive
+//   as zeros) into a ring of as many stages as shared memory holds, up to
+//   the launch's `stages` (3 at block_kv 128, D 128: ~225 KB), with one
+//   mbarrier for K and one for V a stage.
+// - Each consumer warpgroup scales its 64 rows of Q in place (bf16(Q *
+//   scale * log2e), as the plain version rounds) and walks the blocks:
+//   S = Qs K^T on wgmma (A and B K-major), the online softmax in
+//   registers, P rounded to bf16 into wgmma's register-A fragment, and
+//   O += P V with the same V tile read MN-major (no transposed copy). The
+//   PV of block j is issued together with S of block j + 1 and completes
+//   under its softmax; a stage is freed when the PV that reads its V has
+//   completed.
+// - Ping-pong: warpgroup w issues its products only after named barrier
+//   3 + w, which the other warpgroup arrives at once it has issued its
+//   own, so one warpgroup's softmax runs while the other's products use
+//   the tensor cores. (`pingpong` = 0 lets both issue freely.)
+// - Masks are decided per block at compile time: a block wholly visible
+//   to the warpgroup's rows runs the unmasked specialisation; only
+//   diagonal and window-edge blocks, and a last block past C, test
+//   elements. Both warpgroups walk all of the CTA's blocks with no
+//   branch around a product: ptxas serialises every wgmma of a kernel in
+//   which one sits in a branch it cannot prove uniform (build log
+//   C7520), so a block a warpgroup's rows cannot see runs masked (P = 0)
+//   rather than being skipped.
+// - Epilogue: O / l staged in the warpgroup's Q rows (16-byte chunks
+//   XOR-swizzled by row) and stored in 16-byte chunks along each row; an
+//   fp32 O (bf16 inputs, dtype 2) is stored from registers; L by plain
+//   stores.
+// - Grid: the flat tile index on grid.x (no 65535 limit on batch *
+//   heads), the last q-blocks (the longest causal walks) first, the
+//   heads of one q-block adjacent, so a kv group's CTAs share its K/V
+//   tiles in L2.
+//
+// Other rows keep the first cut: bf16 at D = 256, D % 8 != 0 or a base not
+// 16-byte aligned runs warp-level mma.sync (m16n8k16) from shared-memory
+// tiles loaded synchronously (rows "mma"); fp32 inputs take a plain-FMA
+// kernel: the fp32 budget (2e-5) rules out TF32 tensor cores. Both use the
+// same flat grid.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace mfa;
+using bf16 = __nv_bfloat16;
+namespace hw = mfa::hopper;
+using namespace hw;   // the layout and helpers of hopper.cuh
 
 struct FwdParams {
   const void* q;   // [BH, R, D]
@@ -41,30 +90,27 @@ struct FwdParams {
   int causal, window;   // window <= 0: none
   float scale2, cap2;   // scale*log2e; soft-cap*log2e (<= 0: none)
   int vec;              // 16-byte global loads allowed
+  int o_f32;            // wgmma kernel: O in fp32
+  int stages;           // wgmma kernel: K/V ring stages
+  int pingpong;         // wgmma kernel: consumer warpgroups take turns
 };
-
-// Live kv blocks [lo, hi] of q-block i (hi < lo: none).
-__device__ __forceinline__ void kv_range(const FwdParams& p, int i, int bq,
-                                         int bkv, int& lo, int& hi) {
-  const int nkv = (p.C + bkv - 1) / bkv;
-  const int offset = p.C - p.R;
-  lo = 0;
-  hi = nkv - 1;
-  if (p.causal || p.window > 0) {
-    hi = min(floor_div((i + 1) * bq - 1 + offset, bkv), nkv - 1);
-    if (p.window > 0)
-      lo = min(max(floor_div(i * bq + offset - (p.window - 1), bkv), 0),
-               nkv - 1);
-  }
-}
 
 __device__ __forceinline__ bool visible(const FwdParams& p, int row,
                                         int col) {
   return visible_rc(row, col, p.R, p.C, p.causal, p.window);
 }
 
+// The CTA's tile from the flat grid: q-block i of head bh; the heads of
+// one q-block are adjacent and the last q-blocks come first.
+__device__ __forceinline__ void tile_of(int nqb, int& i, int& bh) {
+  const int bhs = gridDim.x / nqb;
+  i = nqb - 1 - (int)blockIdx.x / bhs;
+  bh = (int)blockIdx.x % bhs;
+}
+
 // ---------------------------------------------------------------------------
-// bf16 inputs: mma.sync kernel. BQ = 16 rows per warp.
+// bf16 inputs the wgmma kernel cannot take (D = 256, D % 8 != 0, a
+// misaligned base): mma.sync, BQ / 16 warps of 16 rows.
 // ---------------------------------------------------------------------------
 template <int BQ, int BKV, int DP, bool OUT_F32>
 __global__ void __launch_bounds__(BQ * 2)
@@ -79,7 +125,8 @@ flash_fwd_bf16(FwdParams p) {
   __nv_bfloat16* sK = sQ + BQ * QS;
   __nv_bfloat16* sVt = sK + BKV * QS;
 
-  const int i = blockIdx.x, bh = blockIdx.y;
+  int i, bh;
+  tile_of((p.R + BQ - 1) / BQ, i, bh);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int R = p.R, C = p.C, D = p.D;
@@ -216,10 +263,7 @@ flash_fwd_bf16(FwdParams p) {
 #pragma unroll
     for (int kc = 0; kc < BKV / 16; ++kc) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
       for (int n = 0; n < NDT; ++n) {
         const __nv_bfloat16* vb = sVt + (n * 8 + g) * VS + kc * 16 + t4 * 2;
@@ -271,7 +315,8 @@ flash_fwd_f32(FwdParams p) {
   float* sK = sQ + BQ * DP;
   float* sV = sK + BKV * KS;
 
-  const int i = blockIdx.x, bh = blockIdx.y;
+  int i, bh;
+  tile_of((p.R + BQ - 1) / BQ, i, bh);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int R = p.R, C = p.C, D = p.D;
   const float* qg = static_cast<const float*>(p.q) + (size_t)bh * R * D;
@@ -354,13 +399,372 @@ flash_fwd_f32(FwdParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on wgmma: the warp-specialised kernel (see the note at the top).
+// ---------------------------------------------------------------------------
+constexpr int kBQ = 128;   // query rows a CTA, 64 a consumer warpgroup
+
+// Shared memory: Q [kBQ x DP], `stages` K tiles, `stages` V tiles
+// [bkv x DP], then the mbarriers q_full, full_k[stages], full_v[stages],
+// empty[stages] (ops/params.py mirrors this).
+struct FwdLayout {
+  int k, v, bar, bytes;
+};
+
+__host__ __device__ constexpr int fwd_stages(int bkv, int dp, int most) {
+  return ring_stages(tile_bytes(kBQ, dp) + 8 + kAlignSlack,
+                     2 * tile_bytes(bkv, dp) + 24, most, 1);
+}
+
+__host__ __device__ inline FwdLayout fwd_layout(int bkv, int dp,
+                                                int stages) {
+  FwdLayout L{};
+  L.k = tile_bytes(kBQ, dp);
+  L.v = L.k + stages * tile_bytes(bkv, dp);
+  L.bar = L.v + stages * tile_bytes(bkv, dp);
+  L.bytes = L.bar + 8 * (1 + 3 * stages) + kAlignSlack;
+  return L;
+}
+
+// Every column of [c0, c0 + nc) is visible to every row of [r0, r0 + 64):
+// inside C, below the diagonal, inside the window. Rows past R are never
+// stored, so they need no mask.
+__device__ __forceinline__ bool block_visible(const FwdParams& p, int r0,
+                                              int c0, int nc) {
+  if (c0 + nc > p.C) return false;
+  if (!(p.causal || p.window > 0)) return true;
+  const int offset = p.C - p.R;
+  if (c0 + nc - 1 > r0 + offset) return false;
+  return !(p.window > 0 && c0 < r0 + 63 + offset - (p.window - 1));
+}
+
+// exp2 on the special-function unit, subnormal results flushed to zero
+// (exp2f adds a range fix-up around each one).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Max or sum of this thread's 2 NT values of row half h (entries e = 2 h,
+// 2 h + 1 of each n-tile) in four independent chains: one chain of 2 NT
+// dependent steps would leave the two math warps a scheduler has stalled
+// on latency.
+template <bool MAX, int NT>
+__device__ __forceinline__ float row_reduce(const float (&s)[NT][4], int h) {
+  static_assert(NT % 4 == 0, "four chains");
+  auto op = [](float a, float b) { return MAX ? fmaxf(a, b) : a + b; };
+  float a[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) a[c] = op(s[c][2 * h], s[c][2 * h + 1]);
+#pragma unroll
+  for (int n = 4; n < NT; ++n)
+    a[n % 4] = op(a[n % 4], op(s[n][2 * h], s[n][2 * h + 1]));
+  return op(op(a[0], a[1]), op(a[2], a[3]));
+}
+
+// The online softmax of one block of S held as a wgmma accumulator (this
+// thread's rows ra and ra + 8, columns col0 + 8 n + 2 t4 + e % 2):
+// soft-cap and mask, the new running max m, corr = exp2(old m - new m)
+// for what came before, P = exp2(S - m) in place of S, and the running sum
+// l. MASKED / CAPPED: compile-time, so the unrolled loops do not branch.
+template <bool MASKED, bool CAPPED, int NT>
+__device__ __forceinline__ void online_softmax(const FwdParams& p,
+                                               float (&s)[NT][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&corr)[2], int ra,
+                                               int col0, int t4) {
+  if constexpr (CAPPED || MASKED) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e];
+        if constexpr (CAPPED) x = p.cap2 * tanhf(x / p.cap2);
+        if constexpr (MASKED) {
+          if (!visible(p, ra + 8 * (e >> 1), col0 + n * 8 + t4 * 2 + (e & 1)))
+            x = kMaskValue;
+        }
+        s[n][e] = x;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = fmaxf(m[h], row_reduce<true>(s, h));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    corr[h] = ex2(m[h] - mx);
+    m[h] = mx;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = ex2(s[n][e] - m[e >> 1]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float rs = row_reduce<false>(s, h);
+    rs += __shfl_xor_sync(kFull, rs, 1);
+    rs += __shfl_xor_sync(kFull, rs, 2);
+    l[h] = corr[h] * l[h] + rs;
+  }
+}
+
+// O += P V: A = P from registers, B = a V tile read MN-major; one commit
+// group.
+template <int BKV, int DP>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 8][4],
+                                         const uint32_t (&pa)[BKV / 16][4],
+                                         uint32_t v_base) {
+#pragma unroll
+  for (int kc = 0; kc < BKV / 16; ++kc)
+    hw::Wgmma<DP>::template rs<1>(o, pa[kc], desc_mn(v_base, BKV, kc), 1);
+  hw::wgmma_commit();
+}
+
+template <int BKV, int DP>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv) {
+  constexpr int KV_TILE = tile_bytes(BKV, DP);
+  const int S = p.stages;
+  const FwdLayout L = fwd_layout(BKV, DP, S);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_atom(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L.bar);
+  uint64_t* full_k = q_full + 1;
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty = full_v + S;
+
+  int i, bh;
+  tile_of((p.R + kBQ - 1) / kBQ, i, bh);
+  const int bhkv = bh / p.group;
+  const int tid = threadIdx.x, wg = hw::warpgroup_index();
+  // The CTA's walk. When no row of the CTA sees a key it walks block 0
+  // anyway, wholly masked, so that every CTA runs the same unconditional
+  // pipeline (its rows keep the sentinel max and write O = 0, L = 0).
+  int lo_c, hi_c;
+  pair_kv_range(p, i, BKV, lo_c, hi_c);
+  if (lo_c > hi_c) lo_c = hi_c = 0;
+
+  if (tid == 0) {
+    hw::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hw::mbar_init(&full_k[s], 1);
+      hw::mbar_init(&full_v[s], 1);
+      hw::mbar_init(&empty[s], 8);   // every consumer warp
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: Q once, then K and V of each block of the CTA's walk.
+    hw::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 2 * kWgThreads) {
+      hw::mbar_expect_tx(q_full, tile_bytes(kBQ, DP));
+#pragma unroll
+      for (int pn = 0; pn < DP / 64; ++pn)
+        hw::tma_load_3d(sm + pn * kBQ * kPanelBytes, &mq, q_full, 64 * pn,
+                        i * kBQ, bh);
+      for (int j = lo_c; j <= hi_c; ++j) {
+        const int t = j - lo_c, st = t % S;
+        hw::mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
+        unsigned char* k_tile = sm + L.k + st * KV_TILE;
+        unsigned char* v_tile = sm + L.v + st * KV_TILE;
+        hw::mbar_expect_tx(&full_k[st], KV_TILE);
+#pragma unroll
+        for (int pn = 0; pn < DP / 64; ++pn)
+          hw::tma_load_3d(k_tile + pn * BKV * kPanelBytes, &mk, &full_k[st],
+                          64 * pn, j * BKV, bhkv);
+        hw::mbar_expect_tx(&full_v[st], KV_TILE);
+#pragma unroll
+        for (int pn = 0; pn < DP / 64; ++pn)
+          hw::tma_load_3d(v_tile + pn * BKV * kPanelBytes, &mv, &full_v[st],
+                          64 * pn, j * BKV, bhkv);
+      }
+    }
+  } else {
+    hw::setmaxnreg_inc<kConsumerRegs>();
+    const int w = wg, wt = tid % kWgThreads, wi = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int rw0 = i * kBQ + 64 * w;     // this warpgroup's first row
+    const int ra = rw0 + wi * 16 + g;     // this thread's rows ra, ra + 8
+    // This warpgroup's rows of Q: 64 rows into each 128-row panel.
+    unsigned char* q_rows = sm + 64 * w * kPanelBytes;
+    hw::mbar_wait(q_full, 0);
+#pragma unroll
+    for (int pn = 0; pn < DP / 64; ++pn) {
+      unsigned char* rows = q_rows + pn * kBQ * kPanelBytes;
+      scale_chunks(rows, rows, 64 * kPanelBytes, p.scale2, wt, kWgThreads);
+    }
+    hw::fence_proxy_async();
+    hw::named_barrier(1 + w, kWgThreads);
+    // Turns: warpgroup 0 goes first.
+    const int my_turn = 3 + w, their_turn = 4 - w;
+    if (p.pingpong && w == 1) hw::named_arrive(3, 2 * kWgThreads);
+    const uint32_t q_base = hw::smem_addr(q_rows);
+    auto k_base = [&](int stage) {
+      return hw::opaque(hw::smem_addr(sm + L.k + stage * KV_TILE));
+    };
+    auto v_base = [&](int stage) {
+      return hw::opaque(hw::smem_addr(sm + L.v + stage * KV_TILE));
+    };
+
+    float o[DP / 8][4];
+    float s[BKV / 8][4];
+    uint32_t pa[BKV / 16][4] = {};   // P of the block whose PV is deferred
+    zero_acc(o);
+    float m[2] = {kMaskValue, kMaskValue};
+    float l[2] = {0.f, 0.f};
+
+    // Both warpgroups walk every block of the CTA's walk, with no branch
+    // around a product (ptxas serialises every wgmma of a kernel that has
+    // one it cannot prove uniform). A block none of a warpgroup's rows
+    // sees (at most one at a causal diagonal, or a window's edge) goes
+    // through the mask and changes nothing: P = 0, corr = 1.
+    const int nblk = hi_c - lo_c + 1;
+    for (int t = 0; t < nblk; ++t) {
+      const int st = t % S, ph = (t / S) & 1;
+      const int prev = (t + S - 1) % S;   // the stage of block t - 1
+      // The V tile the deferred PV reads: block t - 1's, or before the
+      // first block (P = 0) this block's.
+      const int vs = t > 0 ? prev : st;
+      const int vph = t > 0 ? ((t - 1) / S) & 1 : ph;
+      hw::mbar_wait(&full_k[st], ph);
+      hw::mbar_wait(&full_v[vs], vph);
+      if (p.pingpong) hw::named_barrier(my_turn, 2 * kWgThreads);
+      // S = Qs K^T (A = this warpgroup's rows of Q, B = the K tile, both
+      // K-major; the first k-step overwrites S), then the previous
+      // block's O += P V (none before the first block: P = 0): two commit
+      // groups.
+      hw::fence_acc(s);
+      hw::fence_acc(o);
+      hw::wgmma_fence();
+      const uint32_t kb = k_base(st);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hw::Wgmma<BKV>::template ss<0, 0>(s, desc_k(q_base, kBQ, kk),
+                                          desc_k(kb, BKV, kk), kk > 0);
+      hw::wgmma_commit();
+      issue_pv<BKV, DP>(o, pa, v_base(vs));
+      if (p.pingpong) hw::named_arrive(their_turn, 2 * kWgThreads);
+      hw::wgmma_wait<1>();   // S; the PV may still run
+      hw::fence_acc(s);
+      float corr[2];
+      const int col0 = (lo_c + t) * BKV;
+      with_flags(!block_visible(p, rw0, col0, BKV), p.cap2 > 0.f,
+                 [&](auto masked, auto capped) {
+                   online_softmax<decltype(masked)::value,
+                                  decltype(capped)::value>(p, s, m, l, corr,
+                                                           ra, col0, t4);
+                 });
+      hw::wgmma_wait<0>();   // the previous block's PV
+      hw::fence_acc(o);
+      hw::fence_frag(pa);
+      if (t > 0 && lane == 0) hw::mbar_arrive(&empty[prev]);
+      // O to the new running max; this block's P to bf16 for its PV.
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc)
+        acc_to_a(pa[kc], s[2 * kc], s[2 * kc + 1]);
+    }
+    // The last block's PV.
+    const int last = (nblk - 1) % S;
+    hw::mbar_wait(&full_v[last], ((nblk - 1) / S) & 1);
+    hw::fence_acc(o);
+    hw::wgmma_fence();
+    issue_pv<BKV, DP>(o, pa, v_base(last));
+    hw::wgmma_wait<0>();
+    hw::fence_acc(o);
+    hw::fence_frag(pa);
+    if (lane == 0) hw::mbar_arrive(&empty[last]);
+    // Warpgroup 0 takes warpgroup 1's last arrival, so none is left over.
+    if (p.pingpong && w == 0) hw::named_barrier(my_turn, 2 * kWgThreads);
+
+    // Rows that never saw a visible key give O = 0, L = 0.
+    bool empty_row[2];
+    float l_safe[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      empty_row[h] = m[h] == kMaskValue;
+      l_safe[h] = fmaxf(l[h], 1e-37f);
+    }
+    const size_t row_base = (size_t)bh * p.R;
+    if (p.o_f32) {
+      float* og = static_cast<float*>(p.o);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = ra + 8 * h;
+        if (r >= p.R) continue;
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n) {
+          const int d = n * 8 + t4 * 2;
+          if (d >= p.D) continue;
+          float2 val = make_float2(0.f, 0.f);
+          if (!empty_row[h])
+            val = make_float2(o[n][2 * h] / l_safe[h],
+                              o[n][2 * h + 1] / l_safe[h]);
+          *reinterpret_cast<float2*>(og + (row_base + r) * p.D + d) = val;
+        }
+      }
+    } else {
+      // Staged in this warpgroup's Q rows (its products have all read
+      // them): 16-byte chunk c of local row rl sits at chunk c ^ (rl % 8)
+      // of its panel row, so a warp's 4-byte writes hit 32 banks.
+      hw::named_barrier(1 + w, kWgThreads);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rl = wi * 16 + g + 8 * h;
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n) {
+          float v0 = 0.f, v1 = 0.f;
+          if (!empty_row[h]) {
+            v0 = o[n][2 * h] / l_safe[h];
+            v1 = o[n][2 * h + 1] / l_safe[h];
+          }
+          *reinterpret_cast<uint32_t*>(
+              q_rows + (n / 8) * kBQ * kPanelBytes + rl * kPanelBytes +
+              ((n % 8) ^ (rl % 8)) * 16 + t4 * 4) = pack_bf16(v0, v1);
+        }
+      }
+      hw::named_barrier(1 + w, kWgThreads);
+      bf16* og = static_cast<bf16*>(p.o);
+      constexpr int CH = DP / 8;   // 16-byte chunks a row
+      for (int idx = wt; idx < 64 * CH; idx += kWgThreads) {
+        const int rl = idx / CH, c = idx % CH, r = rw0 + rl;
+        if (r < p.R && c * 8 < p.D)
+          *reinterpret_cast<uint4*>(og + (row_base + r) * p.D + c * 8) =
+              *reinterpret_cast<const uint4*>(
+                  q_rows + (c / 8) * kBQ * kPanelBytes + rl * kPanelBytes +
+                  ((c % 8) ^ (rl % 8)) * 16);
+      }
+    }
+    if (t4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = ra + 8 * h;
+        if (r < p.R)
+          p.lse[row_base + r] =
+              empty_row[h] ? 0.f : (m[h] + log2f(l_safe[h])) * kLn2;
+      }
+    }
+  }
+}
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int grid_x, int bh, int threads,
-                   size_t smem, const FwdParams& p, cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, int grid, int threads, size_t smem,
+                   const FwdParams& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(grid_x, bh), threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -368,40 +772,78 @@ template <int BQ, int BKV, int DP>
 cudaError_t launch_bf16(bool out_f32, int bh, const FwdParams& p,
                         cudaStream_t stream) {
   const size_t smem =
-      sizeof(__nv_bfloat16) * (BQ * (DP + 8) + BKV * (DP + 8) + DP * (BKV + 8));
-  const int grid_x = (p.R + BQ - 1) / BQ;
+      sizeof(bf16) * (BQ * (DP + 8) + BKV * (DP + 8) + DP * (BKV + 8));
+  const int grid = (p.R + BQ - 1) / BQ * bh;
   if (out_f32)
-    return launch(flash_fwd_bf16<BQ, BKV, DP, true>, grid_x, bh, BQ * 2, smem,
-                  p, stream);
-  return launch(flash_fwd_bf16<BQ, BKV, DP, false>, grid_x, bh, BQ * 2, smem,
-                p, stream);
+    return launch(flash_fwd_bf16<BQ, BKV, DP, true>, grid, BQ * 2, smem, p,
+                  stream);
+  return launch(flash_fwd_bf16<BQ, BKV, DP, false>, grid, BQ * 2, smem, p,
+                stream);
 }
 
 template <int BQ, int DP>
 cudaError_t launch_f32(int bh, const FwdParams& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * DP + 2 * 32 * (DP + 1));
-  return launch(flash_fwd_f32<BQ, DP>, (p.R + BQ - 1) / BQ, bh, 128, smem, p,
+  return launch(flash_fwd_f32<BQ, DP>, (p.R + BQ - 1) / BQ * bh, 128, smem, p,
                 stream);
+}
+
+template <int BKV, int DP>
+cudaError_t launch_wgmma(int bh, FwdParams p, int most, cudaStream_t s) {
+  p.stages = fwd_stages(BKV, DP, most);
+  if (p.stages < 2) return cudaErrorInvalidValue;
+  const FwdLayout L = fwd_layout(BKV, DP, p.stages);
+  CUtensorMap mq, mk, mv;
+  const int bhkv = bh / p.group;
+  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, kBQ) ||
+      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
+      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wgmma<BKV, DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(p.R + kBQ - 1) / kBQ * bh, kWgmmaThreads, L.bytes, s>>>(p, mq, mk,
+                                                                    mv);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = fp32 in/out, 1 = bf16 in/out, 2 = bf16 in, fp32 out.
-// (block_q, block_kv, block_d) must be a row of ops/params.py's tables.
+// dtype: 0 = fp32 in/out, 1 = bf16 in/out, 2 = bf16 in, fp32 out. kernel:
+// 0 the first-cut kernels (mma.sync / FMA), 1 the wgmma kernel, whose K/V
+// ring holds as many stages as fit, at most `stages`, and whose consumer
+// warpgroups take turns when `pingpong` != 0. (kernel, block_q, block_kv,
+// block_d) must be a row of ops/params.py's flash_fwd tables.
 extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int group, int R,
                              int C, int D, int causal, int window,
-                             float scale2, float cap2, int dtype, int block_q,
-                             int block_kv, int block_d, void* stream) {
-  FwdParams p{q, k, v, o, static_cast<float*>(lse), group, R, C, D,
-              causal, window, scale2, cap2, 0};
+                             float scale2, float cap2, int dtype, int kernel,
+                             int block_q, int block_kv, int block_d,
+                             int stages, int pingpong, void* stream) {
+  FwdParams p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.group = group;
+  p.R = R;
+  p.C = C;
+  p.D = D;
+  p.causal = causal;
+  p.window = window;
+  p.scale2 = scale2;
+  p.cap2 = cap2;
   const uintptr_t ptr_or = reinterpret_cast<uintptr_t>(q) |
                            reinterpret_cast<uintptr_t>(k) |
                            reinterpret_cast<uintptr_t>(v);
   p.vec = (D % 8 == 0) && (ptr_or % 16 == 0);
+  p.o_f32 = dtype == 2;
+  p.pingpong = pingpong;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (block_q == 16 && block_kv == 32) {
+    if (kernel == 0 && block_q == 16 && block_kv == 32) {
       if (block_d == 64) return launch_f32<16, 64>(bh, p, s);
       if (block_d == 128) return launch_f32<16, 128>(bh, p, s);
       if (block_d == 256) return launch_f32<16, 256>(bh, p, s);
@@ -409,6 +851,23 @@ extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   }
   const bool out_f32 = dtype == 2;
+  if (kernel == 1) {
+    // TMA maps the operands and O takes 16-byte stores: rows of a
+    // multiple of 16 bytes, 16-byte-aligned bases.
+    if (block_q != kBQ || D > block_d || !p.vec ||
+        reinterpret_cast<uintptr_t>(o) % 16 != 0)
+      return cudaErrorInvalidValue;
+    if (block_kv == 64 && block_d == 64)
+      return launch_wgmma<64, 64>(bh, p, stages, s);
+    if (block_kv == 128 && block_d == 64)
+      return launch_wgmma<128, 64>(bh, p, stages, s);
+    if (block_kv == 64 && block_d == 128)
+      return launch_wgmma<64, 128>(bh, p, stages, s);
+    if (block_kv == 128 && block_d == 128)
+      return launch_wgmma<128, 128>(bh, p, stages, s);
+    return cudaErrorInvalidValue;
+  }
+  if (kernel != 0) return cudaErrorInvalidValue;
   if (block_q == 64 && block_kv == 64 && block_d == 64)
     return launch_bf16<64, 64, 64>(out_f32, bh, p, s);
   if (block_q == 64 && block_kv == 64 && block_d == 128)

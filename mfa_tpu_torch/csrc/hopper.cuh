@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads, wgmma
-// descriptors and instructions, warpgroup register hand-off, and the
-// host-side tensor-map encoder. Used by flash_bwd.cu's K3/K4; meant for
-// the redesigns of K1, K7 and K8 as well.
+// descriptors and instructions, warpgroup register hand-off, the layout
+// of the warp-specialised kernels (two consumer warpgroups and a
+// producer, rings of swizzled tiles sized to shared memory), and the
+// host-side tensor-map encoder. Used by flash_fwd.cu's K1 and
+// flash_bwd.cu's K3/K4; meant for the redesigns of K7 and K8 as well.
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns:
 // a [rows x D] tile is D/64 panels of [rows x 64], each row 128 bytes,
@@ -11,7 +13,7 @@
 #pragma once
 
 #include <cstdint>
-#include <cstdio>
+#include <type_traits>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,25 +59,22 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
 // Wait until the phase of parity `parity` has completed (a fresh barrier
 // counts parity 1 as completed, so a producer's first wait on an empty
 // slot, parity 1, passes). A wait that never completes (a fault in a
-// pipeline) traps after ~2^26 tries instead of hanging the card.
+// pipeline) traps after ~2^26 tries instead of hanging the card. The
+// loop is one asm block, with no call (a printf here made ptxas
+// serialise every wgmma of the kernels that wait).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  for (uint32_t tries = 0;; ++tries) {
-    if (tries == (1u << 26)) {
-      printf("mbar_wait timed out: block %d thread %d barrier %u parity %d\n",
-             (int)blockIdx.x, (int)threadIdx.x, addr, parity);
-      __trap();
-    }
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 0x4000000;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -120,6 +119,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 // ---------------------------------------------------------------------------
 // Warpgroups
 // ---------------------------------------------------------------------------
+// The warpgroup of this thread, as a value the compiler knows to be the
+// same across the warp (a shuffle from lane 0): branches on it do not
+// count as divergent, so ptxas need not serialise the wgmma inside them.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -133,6 +139,12 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// An arrival on barrier `id` that does not wait: `threads` counts both the
+// arriving threads and those that wait in named_barrier.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // x, hidden from the optimiser: descriptors built from it inside a loop
@@ -329,6 +341,101 @@ struct Wgmma<128> {
           "n"(TB));
   }
 };
+
+// Keeps register A fragments of an asynchronous wgmma alive (and
+// unchanged) until this point: the compiler sees them read here, so it
+// neither reuses their registers nor rewrites them before the wait.
+template <int NK>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[NK][4]) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// Warp-specialised kernels: layout and helpers
+// ---------------------------------------------------------------------------
+constexpr int kWgThreads = 128;
+constexpr int kWgmmaThreads = 3 * kWgThreads;   // 2 consumer WGs + producer
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kPanelBytes = 128;   // one swizzled panel row: 64 bf16
+constexpr int kSmemOptin = 232448;   // shared memory a block may use
+constexpr int kAlignSlack = 1024;    // to align to the 1024-byte atom
+
+// The dynamic shared memory, aligned to the 1024-byte swizzle atom.
+__device__ __forceinline__ unsigned char* align_atom(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Bytes of a [rows x DP] bf16 tile (DP / 64 panels of [rows x 64]).
+__host__ __device__ constexpr int tile_bytes(int rows, int dp) {
+  return rows * dp * 2;
+}
+
+// Stages of a ring: as many as fit beside `fixed` bytes, at most `most`,
+// rounded down to a multiple of `mult` (ops/params.py mirrors this).
+__host__ __device__ constexpr int ring_stages(int fixed, int per_stage,
+                                              int most, int mult) {
+  return ((kSmemOptin - fixed) / per_stage < most
+              ? (kSmemOptin - fixed) / per_stage
+              : most) / mult * mult;
+}
+
+// Descriptor of k-step kk (16 values of the head dim) of a K-major tile
+// of `rows` rows at shared address base.
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int rows, int kk) {
+  return desc_b128(base + (kk >> 2) * rows * kPanelBytes + (kk & 3) * 32, 16);
+}
+
+// Descriptor of k-step kc (16 rows) of an MN-major tile of `rows` rows.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int rows, int kc) {
+  return desc_b128(base + kc * 2048, rows * kPanelBytes);
+}
+
+// Multiplies a bf16 tile by `scale` in place or into dst, rounding to
+// bf16 (the swizzle is a permutation of 16-byte chunks, so the chunk at
+// one offset keeps its place).
+__device__ __forceinline__ void scale_chunks(const unsigned char* src,
+                                             unsigned char* dst, int bytes,
+                                             float scale, int tid,
+                                             int nthreads) {
+  for (int c = tid * 16; c < bytes; c += nthreads * 16) {
+    uint4 v = *reinterpret_cast<const uint4*>(src + c);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      h[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    *reinterpret_cast<uint4*>(dst + c) = v;
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&d)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+}
+
+// f(masked, capped) with both flags as compile-time constants.
+template <typename F>
+__device__ __forceinline__ void with_flags(bool masked, bool capped, F&& f) {
+  if (capped) {
+    if (masked)
+      f(std::true_type{}, std::true_type{});
+    else
+      f(std::false_type{}, std::true_type{});
+  } else if (masked) {
+    f(std::true_type{}, std::false_type{});
+  } else {
+    f(std::false_type{}, std::false_type{});
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps

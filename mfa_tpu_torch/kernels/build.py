@@ -36,7 +36,9 @@ _SIGNATURES = {
     "mfa_flash_fwd": [_P, _P, _P, _P, _P,           # q k v o lse
                       _I, _I, _I, _I, _I,           # bh group R C D
                       _I, _I, _F, _F,               # causal window scale2 cap2
-                      _I, _I, _I, _I,               # dtype block_q kv d
+                      _I, _I, _I, _I, _I,           # dtype kernel block_q
+                                                    # kv d
+                      _I, _I,                       # stages pingpong
                       _P],                          # stream
     "mfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P,     # q k v o do lse
                         _P, _P,                     # dq dterm

@@ -13,8 +13,8 @@ Which kernel a launch runs is the descriptor's parameter row
 TMA + wgmma kernels, the others the first-cut mma.sync or FMA kernels.
 A wgmma row whose operands a TMA tensor map cannot hold (a base address
 not 16-byte aligned) runs the mma.sync row of the same head dim
-(:func:`launch_row`). Blocks and heads share grid.x, so batch * heads
-has no 65535 limit.
+(:func:`~mfa_tpu_torch.ops.descriptors.launch_row`, shared with K1).
+Blocks and heads share grid.x, so batch * heads has no 65535 limit.
 
 Operands: q, o, dO [BH, R, D]; k, v [BH / group, C, D] (query head bh
 reads kv head bh // group); L and the D-term [BH, R] fp32. dO is in the
@@ -27,16 +27,17 @@ from __future__ import annotations
 import torch
 
 from mfa_tpu_torch.kernels import build
-from mfa_tpu_torch.kernels.flash_fwd import LOG2E, MASK_VALUE, visible_mask
-from mfa_tpu_torch.ops import params
-from mfa_tpu_torch.ops.descriptors import (
-    AttentionKernelDescriptor,
-    AttentionKernelType,
+from mfa_tpu_torch.kernels.flash_fwd import (
+    LOG2E,
+    MASK_VALUE,
+    output_buffers,
+    visible_mask,
 )
-
-# The C entries' kernel codes: the first-cut kernels, the wgmma kernels.
-_KERNEL_CODES = {"": 0, "mma": 0, "wgmma": 1}
-
+from mfa_tpu_torch.ops.descriptors import (
+    KERNEL_CODES,
+    AttentionKernelDescriptor,
+    launch_row,
+)
 
 def _probs_and_ds(q3, k3, v3, do3, lse, dterm, kd, group, scale):
     """P and dS [BH, R, C] (fp32) with the kernels' rounding points: S from
@@ -131,38 +132,6 @@ def _check_cuda(kd, tensors: dict, vectors: dict):
                          f"{kd.block_d}")
 
 
-def launch_row(kd: AttentionKernelDescriptor, head_dim: int,
-               tensors) -> params.ParameterRow:
-    """The parameter row a launch runs: the descriptor's, except that a
-    wgmma row whose operands TMA cannot map (a row of ``head_dim`` bf16
-    values that is no multiple of 16 bytes, or a base address that is not
-    16-byte aligned) takes the mma.sync row of its head dim."""
-    row = params.ParameterRow(kd.head_dim, kd.block_q, kd.block_kv,
-                              kd.block_d, kd.kernel)
-    if kd.kernel == "wgmma" and (head_dim % 8 or any(
-            t.data_ptr() % 16 for t in tensors)):
-        table = params.parameter_table(
-            "flash_bwd_q"
-            if kd.kernel_type is AttentionKernelType.BACKWARD_QUERY
-            else "flash_bwd_kv", "bf16_mma")
-        row = params.select_row(table, head_dim)
-    return row
-
-
-def _outputs(out, shapes, device):
-    """Fresh fp32 outputs, or the caller's (checked) buffers."""
-    if out is None:
-        return [torch.empty(s, dtype=torch.float32, device=device)
-                for s in shapes]
-    out = list(out)
-    for t, s in zip(out, shapes, strict=True):
-        if (t.shape != s or t.dtype != torch.float32 or t.device != device
-                or not t.is_contiguous()):
-            raise ValueError(f"out buffer must be contiguous fp32 {s} on "
-                             f"{device}")
-    return out
-
-
 def _dtype_code(t):
     return 0 if t.dtype == torch.float32 else 1
 
@@ -187,7 +156,8 @@ def flash_bwd_q(q3, k3, v3, o3, do3, lse, kd: AttentionKernelDescriptor, *,
         return tuple(out)
     bh, r, d = q3.shape
     _check_cuda(kd, dict(q=q3, k=k3, v=v3, o=o3, do=do3), dict(lse=lse))
-    dq, dterm = _outputs(out, [(bh, r, d), (bh, r)], q3.device)
+    dq, dterm = output_buffers(out, [(bh, r, d), (bh, r)],
+                               [torch.float32] * 2, q3.device)
     row = launch_row(kd, d, (q3, k3, v3, do3))
     build.library().call(
         "mfa_flash_bwd_q", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
@@ -195,7 +165,7 @@ def flash_bwd_q(q3, k3, v3, o3, do3, lse, kd: AttentionKernelDescriptor, *,
         dterm.data_ptr(), bh, group, r, k3.shape[1], d, int(kd.causal),
         kd.sliding_window or 0, scale * LOG2E, _cap2(kd), scale,
         _dtype_code(q3), int(o3.dtype == torch.float32),
-        _KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
+        KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_bwd_q.launches += 1
     return dq, dterm
@@ -220,14 +190,15 @@ def flash_bwd_kv(q3, k3, v3, do3, lse, dterm,
     bhkv, c, _ = k3.shape
     _check_cuda(kd, dict(q=q3, k=k3, v=v3, do=do3),
                 dict(lse=lse, dterm=dterm))
-    dk, dv = _outputs(out, [(bhkv, c, d), (bhkv, c, d)], q3.device)
+    dk, dv = output_buffers(out, [(bhkv, c, d), (bhkv, c, d)],
+                            [torch.float32] * 2, q3.device)
     row = launch_row(kd, d, (q3, k3, v3, do3))
     build.library().call(
         "mfa_flash_bwd_kv", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         do3.data_ptr(), lse.data_ptr(), dterm.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), bhkv, group, r, c, d, int(kd.causal),
         kd.sliding_window or 0, scale * LOG2E, _cap2(kd), scale,
-        _dtype_code(q3), _KERNEL_CODES[row.kernel], row.block_q,
+        _dtype_code(q3), KERNEL_CODES[row.kernel], row.block_q,
         row.block_kv, row.block_d,
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_bwd_kv.launches += 1

@@ -5,6 +5,15 @@ Replaces ``mfa_tpu/kernels/flash_fwd.py::_fwd_kernel`` and
 :func:`flash_fwd` launches the kernel for CUDA tensors and takes
 :func:`flash_fwd_plain` only for CPU tensors.
 
+Which kernel a launch runs is the descriptor's parameter row
+(``ops/params.py``): bf16 rows up to D = 128 name the warp-specialised
+TMA + wgmma kernel (its ring depth and ping-pong from
+``params.FWD_RING_STAGES`` and ``params.FWD_PINGPONG``, read at each
+call), the others the first-cut mma.sync or FMA kernels; a wgmma row
+whose operands TMA cannot map takes the mma.sync row of its head dim
+(:func:`~mfa_tpu_torch.ops.descriptors.launch_row`). Blocks and heads
+share grid.x, so batch * heads has no 65535 limit.
+
 Operands: q [BH, R, D]; k, v [BH / group, C, D] (query head bh reads kv
 head bh // group); outputs O [BH, R, D] and the natural-log logsumexp
 L [BH, R] in fp32.
@@ -17,7 +26,12 @@ import math
 import torch
 
 from mfa_tpu_torch.kernels import build
-from mfa_tpu_torch.ops.descriptors import AttentionKernelDescriptor
+from mfa_tpu_torch.ops import params
+from mfa_tpu_torch.ops.descriptors import (
+    KERNEL_CODES,
+    AttentionKernelDescriptor,
+    launch_row,
+)
 
 LOG2E = math.log2(math.e)
 # Large-finite mask sentinel: (masked - masked) never produces NaN.
@@ -90,14 +104,35 @@ def _check(q3, k3, v3, kd, group, o_dtype):
         raise TypeError(f"unsupported output dtype {o_dtype}")
 
 
+def output_buffers(out, shapes, dtypes, device):
+    """Fresh outputs of ``shapes`` and ``dtypes``, or the caller's
+    (checked) buffers ``out`` (the flash kernels' ``out`` arguments)."""
+    if out is None:
+        return [torch.empty(s, dtype=dt, device=device)
+                for s, dt in zip(shapes, dtypes)]
+    out = list(out)
+    for t, s, dt in zip(out, shapes, dtypes, strict=True):
+        if (t.shape != s or t.dtype != dt or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"out buffer must be contiguous {dt} {s} on "
+                             f"{device}")
+    return out
+
+
 def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
-              scale: float, o_dtype: torch.dtype):
+              scale: float, o_dtype: torch.dtype, out=None):
     """K1: launches the CUDA kernel for CUDA tensors (or raises); takes the
-    plain version for CPU tensors. Returns (O, L)."""
+    plain version for CPU tensors. Returns (O, L); ``out`` may give the two
+    buffers to write (O in ``o_dtype``, L fp32)."""
     _check(q3, k3, v3, kd, group, o_dtype)
     if q3.device.type == "cpu":
-        return flash_fwd_plain(q3, k3, v3, kd, group=group, scale=scale,
-                               o_dtype=o_dtype)
+        o, lse = flash_fwd_plain(q3, k3, v3, kd, group=group, scale=scale,
+                                 o_dtype=o_dtype)
+        if out is None:
+            return o, lse
+        out[0].copy_(o)
+        out[1].copy_(lse)
+        return tuple(out)
     if not q3.is_cuda:
         raise ValueError(f"flash_fwd: unsupported device {q3.device}")
     for name, t in (("k", k3), ("v", v3)):
@@ -110,10 +145,9 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
     c = k3.shape[1]
     if d > kd.block_d:
         raise ValueError(f"head dim {d} exceeds the kernel's {kd.block_d}")
-    if bh > 65535:
-        raise ValueError("batch*heads above 65535 exceeds the launch grid")
-    o = torch.empty((bh, r, d), dtype=o_dtype, device=q3.device)
-    lse = torch.empty((bh, r), dtype=torch.float32, device=q3.device)
+    o, lse = output_buffers(out, [(bh, r, d), (bh, r)],
+                            [o_dtype, torch.float32], q3.device)
+    row = launch_row(kd, d, (q3, k3, v3, o))
     dtype_code = (0 if q3.dtype == torch.float32
                   else 2 if o_dtype == torch.float32 else 1)
     cap2 = (kd.logit_soft_cap * LOG2E if kd.logit_soft_cap is not None
@@ -122,7 +156,8 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
         "mfa_flash_fwd", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         o.data_ptr(), lse.data_ptr(), bh, group, r, c, d, int(kd.causal),
         kd.sliding_window or 0, scale * LOG2E, cap2, dtype_code,
-        kd.block_q, kd.block_kv, kd.block_d,
+        KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
+        params.FWD_RING_STAGES, int(params.FWD_PINGPONG),
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_fwd.launches += 1
     return o, lse

@@ -92,10 +92,8 @@ class AttentionDescriptor:
             raise ValueError(
                 f"head_dim {self.head_dim} > {params_mod.MAX_HEAD_DIM}: the "
                 "Hopper flash kernels have no head-dim blocking yet")
-        precision = "bf16" if self.low_precision_inputs else "fp32"
-        backward = kernel_type is not AttentionKernelType.FORWARD
-        if precision == "bf16" and backward:
-            precision = params_mod.bwd_table_precision(self.head_dim)
+        precision = (params_mod.bf16_table_precision(self.head_dim)
+                     if self.low_precision_inputs else "fp32")
         rows = params_mod.parameter_table(_TABLE[kernel_type], precision,
                                           device)
         row = params_mod.select_row(rows, self.head_dim)
@@ -148,6 +146,26 @@ class AttentionKernelDescriptor:
         if reg.bits > 16 or operand_dtype.itemsize > 2:
             return torch.float32
         return operand_dtype
+
+
+# The C entries' kernel codes: the first-cut kernels, the wgmma kernels.
+KERNEL_CODES = {"": 0, "mma": 0, "wgmma": 1}
+
+
+def launch_row(kd: AttentionKernelDescriptor, head_dim: int,
+               tensors) -> params_mod.ParameterRow:
+    """The parameter row a flash kernel's launch runs: the descriptor's,
+    except that a wgmma row whose operands TMA cannot map (a row of
+    ``head_dim`` bf16 values that is no multiple of 16 bytes, or a base
+    address that is not 16-byte aligned) takes the mma.sync row of its
+    head dim."""
+    row = params_mod.ParameterRow(kd.head_dim, kd.block_q, kd.block_kv,
+                                  kd.block_d, kd.kernel)
+    if kd.kernel == "wgmma" and (head_dim % 8 or any(
+            t.data_ptr() % 16 for t in tensors)):
+        row = params_mod.select_row(params_mod.parameter_table(
+            _TABLE[kd.kernel_type], "bf16_mma"), head_dim)
+    return row
 
 
 def round_up(x: int, m: int) -> int:

@@ -17,7 +17,8 @@ rows of Q per CTA (K4: per step of its q walk), ``block_kv`` K/V rows per
 step of the in-CTA loop (K4: per CTA), ``block_d`` the head dim the CTA's
 shared-memory tiles are padded to (one compiled instantiation per
 ``block_d``). The optional ``kernel`` names the kernel a row runs where a
-table has more than one (the backward's bf16 rows: ``wgmma`` or ``mma``).
+table has more than one (the flash kernels' bf16 rows: ``wgmma`` or
+``mma``).
 
 Rows marked "not tuned" are first-cut values chosen so that every tile
 fits the shared memory and register file of one SM (227 KB, 255
@@ -72,7 +73,7 @@ class ParameterRow:
     kernel: str = ""
 
 
-# The kernels a row may name (the backward's bf16 rows): "wgmma" the
+# The kernels a row may name (the flash kernels' bf16 rows): "wgmma" the
 # warp-specialised TMA + wgmma kernels, "mma" the first-cut mma.sync ones.
 ROW_KERNELS = ("mma", "wgmma")
 
@@ -115,14 +116,32 @@ def select_row(rows: list[ParameterRow], head_dim: int) -> ParameterRow:
     raise AssertionError("unreachable: last row is unbounded")
 
 
-# bf16: mma.sync m16n8k16 tiles, four warps of 16 rows each. At D=256 the
-# fp32 O accumulator is 128 registers a thread, so the kv step halves.
-# (Not tuned on the H100.)
+# K1 bf16 at D <= 128 (csrc/flash_fwd.cu, flash_fwd_wgmma): 128 query
+# rows a CTA (64 a consumer warpgroup), K and V streamed block_kv rows a
+# stage through a ring of at most FWD_RING_STAGES stages (as many as fit).
+# Measured by utils/bwd_tuning.py sweep on the H100 at chip_smoke.py's k1
+# shape (N = 2048, Hq 32, Hkv 8): block_kv 128 with 3 stages takes
+# 0.09378 ms causal and 0.14148 non-causal at D = 128, 0.07185 and
+# 0.11528 at D = 64; block_kv 64 (4 stages) 0.11584 / 0.18133 and
+# 0.08545 / 0.1469; the mma.sync rows 0.30866 / 0.53608 and 0.17279 /
+# 0.31978. D = 256 keeps the mma.sync kernel: four warps of 16 rows; at
+# D = 256 the fp32 O accumulator is 128 registers a thread, so the kv
+# step halves (not tuned on the H100). Head dims TMA cannot map take
+# _FWD_BF16_MMA.
 _FWD_BF16 = """
-# max_d | block_q | block_kv | block_d
-   64   |   64    |    64    |   64
-  128   |   64    |    64    |  128
-  inf   |   64    |    32    |  256
+# max_d | block_q | block_kv | block_d | kernel
+   64   |  128    |   128    |   64    | wgmma
+  128   |  128    |   128    |  128    | wgmma
+  inf   |   64    |    32    |  256    | mma
+"""
+
+# K1 bf16 where TMA cannot map the operands (a row of D % 8 != 0 values is
+# no multiple of 16 bytes, or a base is not 16-byte aligned): the mma.sync
+# kernel for every head dim. (Not tuned on the H100.)
+_FWD_BF16_MMA = """
+   64   |   64    |    64    |   64    | mma
+  128   |   64    |    64    |  128    | mma
+  inf   |   64    |    32    |  256    | mma
 """
 
 # fp32: plain FMA (the fp32 budget of 2e-5 rules out TF32 tensor cores).
@@ -202,6 +221,7 @@ _BWD_KV_FP32 = """
 _TABLES = {
     "sm90": {
         ("flash_fwd", "bf16"): _FWD_BF16,
+        ("flash_fwd", "bf16_mma"): _FWD_BF16_MMA,
         ("flash_fwd", "fp32"): _FWD_FP32,
         ("flash_bwd_q", "bf16"): _BWD_Q_BF16,
         ("flash_bwd_q", "bf16_mma"): _BWD_Q_BF16_MMA,
@@ -245,23 +265,24 @@ def smem_bytes(kernel: str, row: ParameterRow, in_bytes: int) -> int:
     return _SMEM[kernel](row, in_bytes)
 
 
-def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
-    """Shared memory of one flash_fwd CTA: Q and K tiles plus the
-    transposed V tile, each row padded by 8 elements (bank spread)."""
-    d = row.block_d
-    if in_bytes == 2:
-        return in_bytes * (row.block_q * (d + 8) + row.block_kv * (d + 8)
-                           + d * (row.block_kv + 8))
-    return 4 * (row.block_q * d + 2 * row.block_kv * (d + 1))
-
-
-# The backward's wgmma kernels (csrc/flash_bwd.cu) size their rings of
-# tiles to the H100's shared memory per block: as many stages as fit, up
-# to 4: K3's (K and V, read by both consumer warpgroups) and K4's, an even
-# number (Q, dO, L and the D-term; stage s feeds warpgroup s % 2).
+# The wgmma kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) size their
+# rings of tiles to the H100's shared memory per block: as many stages as
+# fit, up to a most: K1's (K and V, read by both consumer warpgroups; at
+# most FWD_RING_STAGES), K3's (the same, up to 4) and K4's, an even number
+# up to 4 (Q, dO, L and the D-term; stage s feeds warpgroup s % 2).
 _SMEM_OPTIN = H100.smem_per_block
 # Slack to align the dynamic shared memory to the 1024-byte swizzle atom.
 _SMEM_ALIGN = 1024
+# K1's wgmma launch, read at each call (the row sweep of
+# utils/bwd_tuning.py varies both): the most stages of its K/V ring, and
+# whether its two consumer warpgroups take turns issuing their products
+# (ping-pong), so that one's softmax runs under the other's products.
+# Measured by the same sweep at D = 128, block_kv 128: 3 stages (all
+# that fit) against 2, 0.09378 against 0.10547 ms causal; ping-pong on
+# against off, 0.09378 against 0.09877 causal and 0.14148 against
+# 0.14654 non-causal.
+FWD_RING_STAGES = 3
+FWD_PINGPONG = True
 
 
 def _ring_stages(fixed: int, per_stage: int, most: int, mult: int) -> int:
@@ -283,12 +304,36 @@ def bwd_kv_stages(row: ParameterRow) -> int:
                         2 * 2 * bq * d + 8 * bq + 16, 4, 2)
 
 
-def bwd_table_precision(head_dim: int) -> str:
-    """The bf16 backward's table for a head dim: ``"bf16"`` (whose rows
+def fwd_stages(row: ParameterRow) -> int:
+    """Stages of K1's wgmma ring at ``row`` (read at call time: the row
+    sweep varies FWD_RING_STAGES)."""
+    d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    return _ring_stages(2 * bq * d + 8 + _SMEM_ALIGN, 2 * 2 * bkv * d + 24,
+                        FWD_RING_STAGES, 1)
+
+
+def bf16_table_precision(head_dim: int) -> str:
+    """The bf16 flash kernels' table for a head dim: ``"bf16"`` (whose rows
     up to D = 128 run the wgmma kernels) when a TMA tensor map can hold a
     row, i.e. D bf16 values are a multiple of 16 bytes; else the mma.sync
     rows (``"bf16_mma"``)."""
     return "bf16" if head_dim % 8 == 0 else "bf16_mma"
+
+
+def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
+    """K1: the wgmma kernel keeps Q resident and a ring of K and V tiles
+    with three mbarriers a stage (K full, V full, stage free), plus one
+    for Q; the mma.sync kernel Q and K tiles plus the transposed V
+    tile, each row padded by 8 elements (bank spread); the fp32 kernel
+    unpadded Q rows and K/V rows padded by one."""
+    d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    if row.kernel == "wgmma":
+        stages = fwd_stages(row)
+        return (2 * bq * d + stages * 2 * 2 * bkv * d + 8 * (1 + 3 * stages)
+                + _SMEM_ALIGN)
+    if in_bytes == 2:
+        return in_bytes * (bq * (d + 8) + bkv * (d + 8) + d * (bkv + 8))
+    return 4 * (bq * d + 2 * bkv * (d + 1))
 
 
 def flash_bwd_q_smem_bytes(row: ParameterRow, in_bytes: int) -> int:

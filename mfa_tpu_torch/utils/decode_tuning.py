@@ -9,16 +9,17 @@ configuration is first held to its plain version at
 two kernels (torch.profiler). ``turns`` runs ``chip_smoke.py``'s k5 and
 k6 phases (``--what kernels``), its serving and paged serving phases
 (``serving``), a host-time probe of the K6 wrapper (``host``), its
-backward kernel phase (``bwd``, K3 and K4) or its training phase
-(``training``) from two trees in turns (A, B, B, A), each in a process of
-its own that builds and loads its own tree's kernels.
+forward kernel phase (``k1``), its backward kernel phase (``bwd``, K3 and
+K4) or its training phase (``training``) from two trees in turns (A, B,
+B, A), each in a process of its own that builds and loads its own tree's
+kernels.
 
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.decode_tuning sweep [--out chiprun_out]
     python -m mfa_tpu_torch.utils.decode_tuning kernels
     python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
-        [--what kernels|serving|host|bwd|training]
+        [--what kernels|serving|host|k1|bwd|training]
 """
 
 from __future__ import annotations
@@ -167,6 +168,29 @@ def kernels(calls: int = 20) -> None:
 # queued behind a device spin.
 _TURNS = {
     "kernels": "c.phase_k5(torch); c.phase_k6(torch)",
+    # K1's phase, then causal K1 alone at the server's prefill buckets
+    # through the wrapper both trees have (R = C = 64, 512, 2048).
+    "k1": """c.phase_k1(torch)
+import json
+from mfa_tpu_torch.kernels import flash_fwd as k1
+from mfa_tpu_torch.ops.descriptors import (AttentionDescriptor,
+                                           AttentionKernelType)
+gen = torch.Generator(device="cuda").manual_seed(1)
+for n in (64, 512, 2048):
+    q, k, v = (torch.randn((h, n, 128), generator=gen, device="cuda")
+               .bfloat16() for h in (32, 8, 8))
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=32, num_kv_heads=8, seq_len_q=n, seq_len_kv=n,
+        head_dim=128, causal=True, low_precision_inputs=True,
+        low_precision_intermediates=True)
+    kd = desc.kernel_descriptor(AttentionKernelType.FORWARD)
+    ms = c.cuda_ms(torch, lambda: k1.flash_fwd(
+        q, k, v, kd, group=4, scale=desc.softmax_scale,
+        o_dtype=torch.bfloat16), iters=50)
+    print(json.dumps({"phase": "k1_bucket", "N": n,
+                      "row": [kd.block_q, kd.block_kv, kd.kernel],
+                      "ms": ms}))
+""",
     "bwd": "c.phase_bwd(torch)",
     "training": "c.phase_training(torch)",
     "serving": ("_, m, prompts, toks = c.phase_serving(torch); "

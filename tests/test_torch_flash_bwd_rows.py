@@ -54,9 +54,9 @@ def test_wgmma_rows_cover_d_up_to_128_and_mma_the_rest():
             assert d <= row.block_d
         assert params.select_row(rows, 256).kernel == "mma"
     for d in (4, 36, 100, 130):
-        assert params.bwd_table_precision(d) == "bf16_mma"
+        assert params.bf16_table_precision(d) == "bf16_mma"
     for d in (8, 64, 96, 128, 256):
-        assert params.bwd_table_precision(d) == "bf16"
+        assert params.bf16_table_precision(d) == "bf16"
     # K3's wgmma CTA is two consumer warpgroups of 64 query rows; K4's
     # owns 64 kv rows.
     for row in params.parameter_table("flash_bwd_q", "bf16")[:2]:
@@ -114,9 +114,10 @@ def test_descriptors_dispatch_as_the_source_says(d, kernel):
 
 
 def test_fp32_and_forward_rows_name_no_kernel():
+    """fp32 rows of every flash kernel, the forward's included, name no
+    kernel (the forward's bf16 rows do: tests/test_torch_flash_fwd_rows.py)."""
     for kind in AttentionKernelType:
         assert _kd(kind, 64, bf16=False).kernel == ""
-    assert _kd(AttentionKernelType.FORWARD, 64).kernel == ""
 
 
 def test_misaligned_operand_takes_the_mma_row():

@@ -1,0 +1,186 @@
+"""The forward kernel's (K1 ``flash_fwd``) parameter rows and dispatch on
+the CPU: the rows parse and fit one SM as the launch code reckons it,
+descriptors and ``launch_row`` pick the kernel the source says, and the
+wrapper hands the kernel library a launch with its kernel code for any
+number of heads (recorded by a stand-in library over meta tensors; no
+kernel runs here)."""
+
+import types
+
+import pytest
+import torch
+
+from mfa_tpu_torch.kernels import build
+from mfa_tpu_torch.kernels import flash_fwd as k1
+from mfa_tpu_torch.ops import params
+from mfa_tpu_torch.ops.descriptors import (
+    KERNEL_CODES,
+    AttentionDescriptor,
+    AttentionKernelType,
+    launch_row,
+)
+
+
+def _kd(d, bf16=True, hq=4, hkv=2, n=64, **opts):
+    return AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=n,
+        seq_len_kv=n, head_dim=d, causal=True, low_precision_inputs=bf16,
+        low_precision_intermediates=bf16,
+        **opts).kernel_descriptor(AttentionKernelType.FORWARD)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16_mma", "fp32"])
+def test_rows_parse_and_fit_one_sm(precision):
+    rows = params.parameter_table("flash_fwd", precision)
+    in_bytes = 4 if precision == "fp32" else 2
+    for row in rows:
+        assert row.kernel in (("",) if precision == "fp32"
+                              else params.ROW_KERNELS)
+        assert params.smem_bytes("flash_fwd", row, in_bytes) \
+            <= params.H100.smem_per_block
+        if row.kernel == "wgmma":
+            assert row.block_q == 128 and row.block_kv in (64, 128)
+            assert row.block_d in (64, 128)
+            assert params.fwd_stages(row) >= 2
+    if precision == "bf16_mma":
+        assert {r.kernel for r in rows} == {"mma"}
+
+
+@pytest.mark.parametrize("most, block_kv, stages", [
+    (3, 128, 3), (2, 128, 2), (4, 128, 3), (4, 64, 4), (8, 64, 6)])
+def test_smem_reckons_the_launch_code(monkeypatch, most, block_kv, stages):
+    """csrc/flash_fwd.cu's fwd_stages / fwd_layout at D = 128: Q (128 x
+    128 bf16), `stages` K and V tiles (block_kv x 128), 1 + 3 * stages
+    mbarriers and 1024 bytes of alignment slack; as many stages as fit,
+    at most FWD_RING_STAGES."""
+    monkeypatch.setattr(params, "FWD_RING_STAGES", most)
+    row = params.ParameterRow(128, 128, block_kv, 128, "wgmma")
+    assert params.fwd_stages(row) == stages
+    assert params.flash_fwd_smem_bytes(row, 2) == (
+        32768 + stages * 2 * block_kv * 256 + 8 * (1 + 3 * stages) + 1024)
+    assert params.flash_fwd_smem_bytes(row, 2) <= params.H100.smem_per_block
+
+
+@pytest.mark.parametrize("d, kernel", [
+    (32, "wgmma"), (64, "wgmma"), (96, "wgmma"), (128, "wgmma"),
+    (256, "mma"), (36, "mma"), (42, "mma")])
+def test_descriptors_dispatch_as_the_source_says(d, kernel):
+    """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernel; D = 256
+    and a D whose rows TMA cannot map (D % 8 != 0) the mma.sync kernel;
+    fp32 the FMA kernel."""
+    kd = _kd(d)
+    assert kd.kernel == kernel
+    assert launch_row(kd, d, ()).kernel == kernel
+    assert d <= kd.block_d
+    assert _kd(d, bf16=False).kernel == ""
+    if kernel == "wgmma":
+        assert kd.block_q == 128
+    else:
+        assert kd.block_q == 64
+
+
+def test_misaligned_operand_takes_the_mma_row():
+    """TMA needs 16-byte-aligned bases: a view two bytes into its storage
+    (an operand, or the O buffer) runs the mma.sync row of its head dim."""
+    buf = torch.zeros(4 * 64 * 64 + 1, dtype=torch.bfloat16)
+    aligned = buf[:-1].view(4, 64, 64)
+    shifted = buf[1:].view(4, 64, 64)
+    kd = _kd(64)
+    assert launch_row(kd, 64, (aligned, aligned)).kernel == "wgmma"
+    row = launch_row(kd, 64, (aligned, shifted))
+    assert row == params.select_row(
+        params.parameter_table("flash_fwd", "bf16_mma"), 64)
+    assert row.kernel == "mma" and row.block_q == 64
+
+
+class _Library:
+    """Records the calls a wrapper makes instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def call(self, name, *args):
+        self.calls.append((name, args))
+
+
+@pytest.fixture
+def library(monkeypatch):
+    lib = _Library()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    # Meta tensors stand in for CUDA tensors past the device check.
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    return lib
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("heads", [1, 65_535, 65_536, 70_000, 200_000])
+def test_wrapper_takes_any_number_of_heads(library, heads):
+    """Blocks and heads share grid.x: no 65535 limit on batch * heads; the
+    launch carries the wgmma kernel's code, row, ring depth and
+    ping-pong."""
+    n, d = 16, 64
+    q3, kv = _meta(heads, n, d), _meta(heads, n, d)
+    kd = _kd(d, hq=heads, hkv=heads, n=n)
+    before = k1.flash_fwd.launches
+    o, lse = k1.flash_fwd(q3, kv, kv, kd, group=1, scale=0.125,
+                          o_dtype=torch.bfloat16)
+    assert k1.flash_fwd.launches == before + 1
+    assert o.shape == (heads, n, d) and lse.shape == (heads, n)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ((name, args),) = library.calls
+    assert name == "mfa_flash_fwd"
+    assert args[5] == heads
+    # (dtype, kernel code, block_q, block_kv, block_d, stages, ping-pong)
+    # before the stream.
+    assert args[-8:-1] == (1, KERNEL_CODES["wgmma"], 128, 128, 64,
+                           params.FWD_RING_STAGES, int(params.FWD_PINGPONG))
+
+
+@pytest.mark.parametrize("dtype, o_dtype, d, code", [
+    (torch.bfloat16, torch.float32, 128, (2, 1, 128)),
+    (torch.bfloat16, torch.bfloat16, 256, (1, 0, 64)),
+    (torch.float32, torch.float32, 64, (0, 0, 16))])
+def test_wrapper_passes_dtype_and_kernel_codes(library, dtype, o_dtype, d,
+                                               code):
+    """bf16 with an fp32 O takes dtype code 2 on the wgmma kernel; D = 256
+    the mma.sync kernel; fp32 inputs the FMA kernel."""
+    q3, kv = _meta(4, 32, d, dtype=dtype), _meta(2, 32, d, dtype=dtype)
+    kd = _kd(d, bf16=dtype == torch.bfloat16, n=32)
+    o, _ = k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
+                        o_dtype=o_dtype)
+    assert o.dtype == o_dtype
+    ((_, args),) = library.calls
+    assert args[-8:-5] == code
+
+
+def test_out_buffers_are_checked_and_written(library):
+    """``out`` gives the buffers the launch writes; a buffer of the wrong
+    type is refused before any launch."""
+    q3, kv = _meta(4, 32, 64), _meta(2, 32, 64)
+    kd = _kd(64, n=32)
+    out = (_meta(4, 32, 64), _meta(4, 32, dtype=torch.float32))
+    o, lse = k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
+                          o_dtype=torch.bfloat16, out=out)
+    assert o is out[0] and lse is out[1]
+    with pytest.raises(ValueError, match="out buffer"):
+        k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
+                     o_dtype=torch.float32, out=out)
+    assert len(library.calls) == 1
+
+
+def test_cpu_out_buffers_take_the_plain_version():
+    torch.manual_seed(0)
+    q3, kv = torch.randn(4, 32, 64), torch.randn(2, 32, 64)
+    kd = _kd(64, bf16=False, n=32)
+    kw = dict(group=2, scale=0.125, o_dtype=torch.float32)
+    out = (torch.full((4, 32, 64), float("nan")),
+           torch.full((4, 32), float("nan")))
+    o, lse = k1.flash_fwd(q3, kv, kv, kd, **kw, out=out)
+    o_p, lse_p = k1.flash_fwd_plain(q3, kv, kv, kd, **kw)
+    assert o is out[0] and torch.equal(o, o_p) and torch.equal(lse, lse_p)

@@ -30,6 +30,7 @@ from mfa_tpu_torch.models import llama, training
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
     AttentionKernelType,
+    launch_row,
 )
 from mfa_tpu_torch.ops.gemm import gemm
 from mfa_tpu_torch.ops.precision import OperandPrecision
@@ -67,7 +68,56 @@ K1_CASES = [
     ("fp32", 64, 100, 100, 4, 2, dict(causal=True), False),
     ("fp32", 256, 77, 130, 2, 1, dict(), False),
     ("fp32", 40, 65, 65, 4, 2, dict(sliding_window=9), False),
+    # The wgmma rows (D 64 and 128): R not a multiple of 64, R > C (the
+    # first R - C rows see no key), window edges, soft-cap, fp32 O, half
+    # and less than half of a 128-row CTA.
+    ("bf16", 128, 129, 129, 8, 2, dict(causal=True), False),
+    ("bf16", 128, 333, 333, 4, 1, dict(causal=True, logit_soft_cap=30.0),
+     False),
+    ("bf16", 64, 333, 200, 4, 2, dict(causal=True), False),       # R > C
+    ("bf16", 128, 150, 129, 4, 4, dict(causal=True), False),      # R > C
+    ("bf16", 128, 300, 700, 8, 2, dict(sliding_window=100), False),
+    ("bf16", 64, 129, 333, 4, 1, dict(sliding_window=64,
+                                      logit_soft_cap=20.0), False),
+    ("bf16", 128, 1000, 1000, 4, 2, dict(), True),               # fp32 O
+    ("bf16", 64, 129, 129, 4, 2, dict(causal=True), True),       # fp32 O
+    ("bf16", 128, 64, 64, 8, 2, dict(causal=True), False),
+    ("bf16", 128, 16, 16, 2, 1, dict(causal=True), False),
+    ("bf16", 36, 65, 77, 2, 1, dict(causal=True), False),  # no TMA rows
 ]
+
+
+def _k1_check(cuda, q, k, v, kd, kw, dt, o_dtype, want_kernel):
+    """One K1 launch into NaN-prefilled outputs against its plain version:
+    the row that ran, every output written, O and L within budget."""
+    hq, r, d = q.shape
+    assert launch_row(kd, d, (q, k, v)).kernel == want_kernel
+    n = k1.flash_fwd.launches
+    o, lse = k1.flash_fwd(q, k, v, kd, **kw, out=(
+        nan_canary((hq, r, d), o_dtype, device=cuda),
+        nan_canary((hq, r), device=cuda)))
+    torch.cuda.synchronize()
+    assert k1.flash_fwd.launches == n + 1
+    assert_fully_written(o, "O")
+    assert_fully_written(lse, "L")
+    # No atomics and a fixed order of sums: a second launch gives the same
+    # bits (a race in the tile ring would show here).
+    o2, lse2 = k1.flash_fwd(q, k, v, kd, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_p, lse_p = k1.flash_fwd_plain(q, k, v, kd, **kw)
+    assert o.dtype == o_dtype
+    atol, rtol = KERNEL_BUDGETS[f"flash_fwd_o_{dt}"]
+    assert_close(o, o_p, atol, "O", rtol=rtol)
+    assert_close(lse, lse_p, KERNEL_BUDGETS["flash_fwd_l"][0], "L")
+
+
+def _k1_kernel(dt, d):
+    """The row a K1 launch runs: wgmma for bf16 at D % 8 == 0 and
+    D <= 128, the kept mma.sync kernel for the other bf16 head dims, the
+    FMA kernel for fp32."""
+    if dt == "fp32":
+        return ""
+    return "wgmma" if d % 8 == 0 and d <= 128 else "mma"
 
 
 @pytest.mark.parametrize("case", K1_CASES,
@@ -86,15 +136,38 @@ def test_flash_fwd_kernel_matches_plain(cuda, case):
     kd = desc.kernel_descriptor(AttentionKernelType.FORWARD)
     o_dtype = torch.float32 if o_f32 or dt == "fp32" else dtype
     kw = dict(group=hq // hkv, scale=desc.softmax_scale, o_dtype=o_dtype)
-    n = k1.flash_fwd.launches
-    o, lse = k1.flash_fwd(q, k, v, kd, **kw)
-    torch.cuda.synchronize()
-    assert k1.flash_fwd.launches == n + 1
-    o_p, lse_p = k1.flash_fwd_plain(q, k, v, kd, **kw)
-    assert o.dtype == o_dtype
-    atol, rtol = KERNEL_BUDGETS[f"flash_fwd_o_{dt}"]
-    assert_close(o, o_p, atol, "O", rtol=rtol)
-    assert_close(lse, lse_p, KERNEL_BUDGETS["flash_fwd_l"][0], "L")
+    _k1_check(cuda, q, k, v, kd, kw, dt, o_dtype, _k1_kernel(dt, d))
+
+
+def _k1_bf16(cuda, hq, hkv, r, c, d, seed, **opts):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn((h, n, d), generator=gen, device=cuda).bfloat16()
+               for h, n in ((hq, r), (hkv, c), (hkv, c)))
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
+        seq_len_kv=c, head_dim=d, low_precision_inputs=True,
+        low_precision_intermediates=True, **opts)
+    kw = dict(group=hq // hkv, scale=desc.softmax_scale,
+              o_dtype=torch.bfloat16)
+    return q, k, v, desc.kernel_descriptor(AttentionKernelType.FORWARD), kw
+
+
+def test_flash_fwd_misaligned_view_takes_the_mma_row(cuda):
+    """A q view two bytes into its storage cannot be mapped by TMA: the
+    launch runs the mma.sync row of its head dim, and agrees."""
+    q, k, v, kd, kw = _k1_bf16(cuda, 4, 2, 200, 200, 128, 11, causal=True)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    _k1_check(cuda, shifted, k, v, kd, kw, "bf16", torch.bfloat16, "mma")
+
+
+def test_flash_fwd_kernel_takes_more_than_65535_heads(cuda):
+    """Blocks and heads share grid.x: 70 000 heads of 16 rows run on the
+    wgmma row, and agree with the plain version."""
+    q, k, v, kd, kw = _k1_bf16(cuda, 70_000, 70_000, 16, 16, 64, 5,
+                               causal=True)
+    _k1_check(cuda, q, k, v, kd, kw, "bf16", torch.bfloat16, "wgmma")
 
 
 K2_CASES = [(fmt, d, g, w, qdt)
