@@ -34,14 +34,18 @@ phase's failure is caught):
              the split-KV launch as in k5.
 7. k7     — GEMM kernel through its entry point ops.gemm.gemm against
              the same call with its plain version, elementwise: bf16
-             4096^3, fp32 1536^3 with C0, the four transpose states at
-             1536^3 bf16, batched 3 x [200 x 129 x 127], ragged 7, 127,
-             129, 200, a strided slice; torch.matmul as a yardstick.
+             4096^3, fp32 1536^3 with C0, the four transpose states and
+             C0 at 1536^3 bf16, batched 3 x [200 x 129 x 127], ragged 7,
+             127, 129, 200, a strided slice; each line names the tile
+             that ran and its path (wgmma, or mma.sync where TMA cannot
+             map the operands) and its TFLOP/s; torch.matmul as a
+             yardstick.
 8. k8     — INT4 matmul kernel, signed and biased, against its plain
              version at Llama-3-8B's four projection shapes (K -> N
              4096 -> 4096, 1024, 14336 and 14336 -> 4096), M = 4 (decode)
-             and 2048 (prefill) in bf16, plus one fp32 case; F.linear on
-             the dequantized bf16 weight as a yardstick.
+             and 2048 (prefill, the wgmma tile) in bf16, plus one fp32
+             case; F.linear on the dequantized bf16 weight as a
+             yardstick.
 9. serving — Llama-3-8B at full width and depth with random bf16 weights
              behind the continuous-batching scheduler (4 slots, max_len
              2048), six greedy requests, once per KV format; launch
@@ -624,6 +628,8 @@ def phase_k7(torch):
     cases += [(f"bf16_1536_{'T' if ta else 'N'}{'T' if tb else 'N'}", bf16,
                bf16, 1, 1536, 1536, 1536, ta, tb, False, 0)
               for ta in (False, True) for tb in (False, True)]
+    cases.append(("bf16_1536_c0", bf16, bf16, 1, 1536, 1536, 1536, False,
+                  False, True, 0))
     cases.append(("bf16_batched_3x200x129x127", bf16, bf16, 3, 200, 129, 127,
                   False, False, False, 0))
     cases += [(f"bf16_ragged_{n}", bf16, bf16, 1, n, n, n, False, False,
@@ -658,7 +664,21 @@ def phase_k7(torch):
         budget[0] *= max(1.0, k / 4096)
         err = max_err(c, c_p)
         share = budget_share(c, c_p, *budget)
-        ok = bool(torch.isfinite(c.float()).all()) and share <= 1 and n7 == 1
+        # The bf16 cases whose rows are whole 16 bytes (4096^3, 1536^3 with
+        # its strided slice and C0, ragged 200) run the wgmma kernel; the
+        # others (batched 127 and ragged 7, 127, 129: odd strides; fp32)
+        # the first cut.
+        want_wgmma = (name.startswith(("bf16_4096", "bf16_1536"))
+                      or name == "bf16_ragged_200")
+        kd = GEMMDescriptor(
+            m=m, n=n, k=k, a_precision=P.from_dtype(adt),
+            b_precision=P.from_dtype(bdt), c_precision=P.from_dtype(c.dtype),
+            transpose_a=ta, transpose_b=tb, batch=batch,
+            load_previous_c=with_c0).kernel_descriptor(dev)
+        tile = k7.launch_tile(kd, a if a.dim() == 3 else a[None],
+                              b if b.dim() == 3 else b[None])
+        ok = (bool(torch.isfinite(c.float()).all()) and share <= 1
+              and n7 == 1 and (tile.path == "wgmma") == want_wgmma)
         ms = cuda_ms(torch, lambda: gemm(a, b, c0, **kw))
         with plain_kernels():
             plain_ms = cuda_ms(torch, lambda: gemm(a, b, c0, **kw), iters=3,
@@ -681,17 +701,16 @@ def phase_k7(torch):
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms)
         emit({"phase": "k7", "case": name, "batch": batch, "M": m, "N": n,
-              "K": k, "tile": GEMMDescriptor(
-                  m=m, n=n, k=k, a_precision=P.from_dtype(adt),
-                  b_precision=P.from_dtype(bdt), batch=batch,
-              ).kernel_descriptor(dev).tile.name, "err": err,
-              "budget": budget, "share": share, "launches": n7, "ok": ok,
-              **{k_: v_ for k_, v_ in results[name].items()
-                 if k_ != "max_abs_err"}})
+              "K": k, "tile": tile.name, "path": tile.path,
+              "tflops": 2 * batch * m * n * k / (ms * 1e-3) / 1e12,
+              "err": err, "budget": budget, "share": share, "launches": n7,
+              "ok": ok, **{k_: v_ for k_, v_ in results[name].items()
+                           if k_ != "max_abs_err"}})
         if not ok:
             raise SystemExit(f"k7 {name}: kernel disagrees with its plain "
                              f"version (uses {share} of |d| <= {budget[0]} "
-                             f"+ {budget[1]}|C|, launches {n7})")
+                             f"+ {budget[1]}|C|, launches {n7}, tile "
+                             f"{tile.name})")
         del a, b, c0, c, c_p
     torch.cuda.empty_cache()
     emit({"phase": "k7_done", "seconds": time.perf_counter() - t0,
@@ -712,10 +731,12 @@ def phase_k8(torch):
 
     from mfa_tpu_torch.kernels import quant
     from mfa_tpu_torch.kernels import quant_matmul as k8
+    from mfa_tpu_torch.ops import params as params_mod
     from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(8)
+    dev = params_mod.detect_device(torch.device("cuda", 0))
     cases = [(k, n, m, layout, torch.bfloat16)
              for k, n in LLAMA3_8B_PROJECTIONS for m in (4, 2048)
              for layout in ("int4", "int4_biased")]
@@ -749,14 +770,16 @@ def phase_k8(torch):
         bound_ms, bound_by = _bound(
             2 * m * n * k, nbytes,
             BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
-        tile = k8.int4_tile(m, dt)
+        tile = k8.int4_tile(m, n, dt, dev)
         ctas = -(-m // tile.block_m) * -(-n // tile.block_n)
         key = (f"{layout}_{str(dt).split('.')[-1]}_M{m}_K{k}_N{n}")
         results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=library_ms)
-        emit({"phase": "k8", "case": key, "tile": tile.name, "ctas": ctas,
-              "sms_busy": min(ctas, 132), "err": err, "budget": budget,
+        emit({"phase": "k8", "case": key, "tile": tile.name,
+              "path": tile.path, "ctas": ctas, "sms_busy": min(ctas, 132),
+              "tflops": 2 * m * n * k / (ms * 1e-3) / 1e12, "err": err,
+              "budget": budget,
               "share": share, "ok": ok,
               "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
               **{k_: v_ for k_, v_ in results[key].items()

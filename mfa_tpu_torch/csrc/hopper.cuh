@@ -2,8 +2,9 @@
 // descriptors and instructions, warpgroup register hand-off, the layout
 // of the warp-specialised kernels (two consumer warpgroups and a
 // producer, rings of swizzled tiles sized to shared memory), and the
-// host-side tensor-map encoder. Used by flash_fwd.cu's K1 and
-// flash_bwd.cu's K3/K4; meant for the redesigns of K7 and K8 as well.
+// host-side tensor-map encoder, the persistent grid and its tile walk.
+// Used by flash_fwd.cu's K1, flash_bwd.cu's K3/K4, gemm.cu's K7 and
+// quant_matmul.cu's K8.
 //
 // Shared-memory tiles are 128-byte-swizzled panels of 64 bf16 columns:
 // a [rows x D] tile is D/64 panels of [rows x 64], each row 128 bytes,
@@ -342,6 +343,54 @@ struct Wgmma<128> {
   }
 };
 
+template <>
+struct Wgmma<256> {
+  // D (64 x 256) += A (smem) * B (smem); scale_d = 0 overwrites D.
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[32][4],
+                                            uint64_t a, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
 // Keeps register A fragments of an asynchronous wgmma alive (and
 // unchanged) until this point: the compiler sees them read here, so it
 // neither reuses their registers nor rewrites them before the wait.
@@ -414,6 +463,24 @@ __device__ __forceinline__ void scale_chunks(const unsigned char* src,
   }
 }
 
+// Output tile t of a persistent matrix-product walk over `batch` products
+// of tiles_m x tiles_n tiles: bands of `group` tile rows, each band walked
+// column by column (so the CTAs in flight share their A rows and B
+// columns in L2), then the next band, then the next product.
+__device__ __forceinline__ void tile_walk(int t, int tiles_m, int tiles_n,
+                                          int group, int& z, int& mi,
+                                          int& ni) {
+  const int per = tiles_m * tiles_n;
+  z = t / per;
+  t -= z * per;
+  const int band = t / (group * tiles_n);
+  const int first = band * group;
+  const int rows = tiles_m - first < group ? tiles_m - first : group;
+  t -= band * group * tiles_n;
+  mi = first + t % rows;
+  ni = t / rows;
+}
+
 template <int NT>
 __device__ __forceinline__ void zero_acc(float (&d)[NT][4]) {
 #pragma unroll
@@ -463,21 +530,44 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A map over a 3-D tensor of `type` with extents n0 (contiguous), n1, n2
+// and byte strides s1, s2 (multiples of 16) of dims 1 and 2, loading
+// boxes {b0, b1, b2} with `swizzle`; elements outside the extents arrive
+// as zeros.
+inline bool tile_map_3d(CUtensorMap* map, CUtensorMapDataType type,
+                        const void* base, uint64_t n0, uint64_t n1,
+                        uint64_t n2, uint64_t s1, uint64_t s2, uint32_t b0,
+                        uint32_t b1, uint32_t b2, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {n0, n1, n2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, b2};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A map over a bf16 [n2, n1, n0] tensor (n0 contiguous; n0 % 8 == 0) that
 // loads {64, rows, 1} boxes as B128-swizzled panels.
 inline bool tile_map_bf16(CUtensorMap* map, const void* base, int n0, int n1,
                           int n2, int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
-  const cuuint64_t strides[2] = {(cuuint64_t)n0 * 2,
-                                 (cuuint64_t)n0 * n1 * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tile_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, n0, n1, n2,
+                     (uint64_t)n0 * 2, (uint64_t)n0 * n1 * 2, 64, rows, 1,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// CTAs of a persistent grid over `tiles` tiles: one a streaming
+// multiprocessor of the current device, fewer when there are fewer tiles.
+inline int persistent_ctas(int tiles) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return tiles < sms ? tiles : sms;
 }
 
 }  // namespace hopper

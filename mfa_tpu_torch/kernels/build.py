@@ -81,10 +81,12 @@ _SIGNATURES = {
                  _L, _L, _L, _L,                    # lda a_batch ldb b_batch
                  _I, _I, _I, _I, _I, _I,            # a_type b_type c_type
                                                     # ta tb tile
+                 _I, _I,                            # stages group
                  _P],                               # stream
-    "mfa_int4_matmul": [_P, _P, _P, _P,             # x w scale y
+    "mfa_int4_matmul": [_P, _P, _P, _P, _P,         # x w scale rs y
                         _I, _I, _I,                 # M N K
                         _I, _I, _I,                 # x_bf16 biased tile
+                        _I, _I,                     # stages group
                         _P],                        # stream
 }
 

@@ -9,7 +9,9 @@ descriptor says ``transpose_a``), B [batch, K, N] (or [batch, N, K] when
 ``transpose_b``), optional C0 [batch, M, N]; C [batch, M, N] in the
 output type. A and B may be slices of larger buffers: the kernel reads
 them through their row and batch strides; only a non-unit innermost
-stride is copied to a contiguous tensor first.
+stride is copied to a contiguous tensor first. A wgmma tile runs only
+where TMA can map both operands (:func:`tma_mappable`); elsewhere the
+launch takes the descriptor's mma.sync tile (:func:`launch_tile`).
 """
 
 from __future__ import annotations
@@ -17,12 +19,40 @@ from __future__ import annotations
 import torch
 
 from mfa_tpu_torch.kernels import build
+from mfa_tpu_torch.ops import params as params_mod
 from mfa_tpu_torch.ops.descriptors import GEMMKernelDescriptor
 
 # Element types as csrc/gemm.cu numbers them.
 TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # ops/params.py::GEMM_TILES, as csrc/gemm.cu numbers them.
-_TILE_CODES = {"m128": 0, "m64": 1, "m16": 2, "ffma": 3}
+_TILE_CODES = {"m128": 0, "m64": 1, "m16": 2, "ffma": 3, "w256": 4,
+               "w128": 5}
+
+
+def tma_mappable(*operands: torch.Tensor) -> bool:
+    """Whether TMA can map every stored operand [batch, rows, cols] as a
+    3-D tensor of bf16: a 16-byte-aligned base, a unit inner stride, and
+    row and (for a batch of more than one) batch strides of whole 16
+    bytes that do not overlap the dimension inside them."""
+    for t in operands:
+        batch, rows, cols = t.shape
+        if (t.dtype != torch.bfloat16 or t.data_ptr() % 16
+                or t.stride(2) != 1 or t.stride(1) % 8
+                or t.stride(1) < cols):
+            return False
+        if batch > 1 and (t.stride(0) % 8 or t.stride(0) < t.stride(1) * rows):
+            return False
+    return True
+
+
+def launch_tile(kd: GEMMKernelDescriptor, a3: torch.Tensor,
+                b3: torch.Tensor) -> params_mod.MatmulTile:
+    """The tile a launch on these stored operands runs: the descriptor's,
+    except that a wgmma tile whose operands TMA cannot map takes the
+    descriptor's mma.sync tile."""
+    if kd.tile.path == "wgmma" and not tma_mappable(a3, b3):
+        return kd.mma_tile
+    return kd.tile
 
 
 def dims(a3, b3, kd: GEMMKernelDescriptor):
@@ -82,10 +112,11 @@ def gemm_kernel(a3, b3, c0, kd: GEMMKernelDescriptor, *,
     for name, t in (("b", b3), ("c0", c0)):
         if t is not None and t.device != a3.device:
             raise ValueError(f"{name} is on {t.device}, a on {a3.device}")
-    if kd.tile.path == "mma" and not (a3.dtype == b3.dtype != torch.float32):
-        raise TypeError("the mma.sync tile takes two bf16 or two fp16 "
-                        "operands")
+    if kd.tile.path != "ffma" and not (a3.dtype == b3.dtype != torch.float32):
+        raise TypeError(f"the {kd.tile.path} tile takes two bf16 or two "
+                        f"fp16 operands")
     a3, b3 = _inner_unit(a3), _inner_unit(b3)
+    tile = launch_tile(kd, a3, b3)
     if c0 is not None:
         c0 = c0.to(out_dtype).contiguous()
     c = torch.empty((batch, m, n), dtype=out_dtype, device=a3.device)
@@ -96,7 +127,8 @@ def gemm_kernel(a3, b3, c0, kd: GEMMKernelDescriptor, *,
         a3.stride(1), a3.stride(0) if batch > 1 else 0,
         b3.stride(1), b3.stride(0) if batch > 1 else 0,
         TYPE_CODES[a3.dtype], TYPE_CODES[b3.dtype], TYPE_CODES[out_dtype],
-        int(kd.transpose_a), int(kd.transpose_b), _TILE_CODES[kd.tile.name],
+        int(kd.transpose_a), int(kd.transpose_b), _TILE_CODES[tile.name],
+        tile.stages, params_mod.GEMM_TILE_GROUP,
         torch.cuda.current_stream(a3.device).cuda_stream)
     gemm_kernel.launches += 1
     return c

@@ -24,19 +24,36 @@ from mfa_tpu_torch.ops import params as params_mod
 from mfa_tpu_torch.utils.device import check_on, resolve_device
 
 # ops/params.py::QMM_TILES, as csrc/quant_matmul.cu numbers them.
-_TILE_CODES = {"d8": 0, "d16": 1, "m64": 2, "ffma": 3}
+_TILE_CODES = {"d8": 0, "d16": 1, "w128": 2, "ffma": 3, "w256": 4}
 
 
-def int4_tile(m: int, x_dtype: torch.dtype) -> params_mod.MatmulTile:
-    """The tile for M rows: FMA for fp32 activations; for bf16 the
-    transposed decode tiles up to 8 or 16 rows (M = slots), 64 x 128
-    blocks above."""
+def int4_tile(m: int, n: int, x_dtype: torch.dtype,
+              device: params_mod.HopperDevice = params_mod.H100
+              ) -> params_mod.MatmulTile:
+    """The tile for M rows of x and N output channels: FMA for fp32
+    activations; for bf16 the transposed decode tiles up to 8 or 16 rows
+    (M = slots), above them the wgmma tile of 128 or 256 channels whose
+    persistent walk takes the fewer rounds times tile area
+    (``params.persistent_rounds``; measured on the H100: 256 channels at
+    M 2048 on 4096 -> 4096, 14336 -> 4096 and 4096 -> 14336, 128 at
+    4096 -> 1024 and at M 100)."""
     tiles = params_mod.QMM_TILES
     if x_dtype == torch.float32:
         return tiles["ffma"]
     if m <= 16:
         return tiles["d8" if m <= 8 else "d16"]
-    return tiles["m64"]
+    return min((tiles["w256"], tiles["w128"]),
+               key=lambda t: params_mod.persistent_rounds(
+                   -(-m // t.block_m) * -(-n // t.block_n),
+                   t.block_m * t.block_n, device))
+
+
+def rowsum(x2: torch.Tensor) -> torch.Tensor:
+    """rowsum(x) [M] in fp32 for x [M, K]: the biased layout subtracts 8
+    times it, reduced once before the launch as ``mfa_tpu`` does (its
+    ``_qmm_biased_kernel`` takes 8 * rowsum(x) as an operand; the kernel
+    multiplies by 8, exactly)."""
+    return x2.sum(dim=1, dtype=torch.float32)
 
 
 def int4_matmul_plain(x, packed, scale, *, layout: str):
@@ -54,7 +71,7 @@ def int4_matmul_plain(x, packed, scale, *, layout: str):
     xf = x2.float()
     acc = xf[:, :kh] @ lo.float().t() + xf[:, kh:] @ hi.float().t()
     if layout == "int4_biased":
-        acc = acc - 8.0 * xf.sum(dim=1, keepdim=True)
+        acc = acc - 8.0 * rowsum(x2)[:, None]
     return (acc * scale).to(x2.dtype).reshape(*lead, n)
 
 
@@ -104,13 +121,15 @@ def int4_matmul(x, packed, scale, *, layout: str, device="cuda"):
         raise ValueError("packed weights must be contiguous and 16-byte "
                          "aligned")
     m = x2.shape[0]
-    tile = int4_tile(m, x.dtype)
+    tile = int4_tile(m, n, x.dtype, params_mod.detect_device(x.device))
+    biased = layout == "int4_biased"
+    rs = rowsum(x2) if biased and tile.path == "wgmma" else None
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     build.library().call(
         "mfa_int4_matmul", x2.data_ptr(), packed.data_ptr(),
-        scale.contiguous().data_ptr(), y.data_ptr(), m, n, k,
-        int(x.dtype == torch.bfloat16), int(layout == "int4_biased"),
-        _TILE_CODES[tile.name],
+        scale.contiguous().data_ptr(), None if rs is None else rs.data_ptr(),
+        y.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16), int(biased),
+        _TILE_CODES[tile.name], tile.stages, params_mod.GEMM_TILE_GROUP,
         torch.cuda.current_stream(x.device).cuda_stream)
     int4_matmul.launches += 1
     return y.reshape(*lead, n)

@@ -198,14 +198,25 @@ class GEMMDescriptor:
     def kernel_descriptor(
         self, device: params_mod.HopperDevice = params_mod.H100,
     ) -> "GEMMKernelDescriptor":
-        """Tile heuristic for Hopper. Two 16-bit operands of one type take
-        the mma.sync path: a 16-row tile when M is decode-sized (<= 16
-        rows), so a batch of 4-8 rows does not pay for a 128-row tile; the
-        128 x 128 tile when those tiles alone fill every SM; else 64 x 64.
-        fp32 and mixed operands take the FMA tile (fp32 is computed in
-        full precision, never TF32; a bf16 operand widens exactly)."""
+        """Tile heuristic for Hopper. A decode-sized M (<= 16 rows) of two
+        16-bit operands of one type takes mma.sync's 16-row tile, so a
+        batch of 4-8 rows does not pay for a 128-row tile. Above it, two
+        bf16 operands take a wgmma tile: of 128 x 256 and 128 x 128, the
+        one whose persistent walk takes the least time in whole rounds of
+        one tile an SM (``params.persistent_rounds``; a tie takes the
+        larger tile, which reads each operand fewer times), with
+        ``mma_tile`` the mma.sync tile for operands TMA cannot map.
+        Measured on the H100 (``utils/bwd_tuning.py sweep --only
+        matmul``): 128 x 256 at 4096^3 (0.21 against 0.27 ms) and 1536^3
+        (0.025 against 0.033), 128 x 128 where one round of it covers the
+        problem (2048 x 1024 x 4096: 0.038 against 0.050 ms). fp16, or
+        bf16 operands TMA cannot map, take the mma.sync tiles: 128 x 128
+        when those tiles alone fill every SM, else 64 x 64. fp32 and mixed operands
+        take the FMA tile (fp32 is computed in full precision, never TF32;
+        a bf16 operand widens exactly)."""
         mma = (self.a_precision in _MMA_TYPES
                and self.a_precision is self.b_precision)
+        mma_tile = None
         if not mma:
             name = "ffma"
         elif self.m <= 16:
@@ -213,12 +224,19 @@ class GEMMDescriptor:
         else:
             tiles = (-(-self.m // 128)) * (-(-self.n // 128)) * self.batch
             name = "m128" if tiles >= device.sm_count else "m64"
+            if self.a_precision is OperandPrecision.BF16:
+                mma_tile = params_mod.GEMM_TILES[name]
+                name = min(("w256", "w128"), key=lambda t: self._rounds(
+                    params_mod.GEMM_TILES[t], device))
         tile = params_mod.GEMM_TILES[name]
-        params_mod.check_tile_fits(
-            params_mod.gemm_smem_bytes(tile, self.transpose_a,
-                                       self.transpose_b), tile, device)
+        for t in (tile, mma_tile):
+            if t is not None:
+                params_mod.check_tile_fits(
+                    params_mod.gemm_smem_bytes(t, self.transpose_a,
+                                               self.transpose_b), t, device)
         return GEMMKernelDescriptor(
             tile=tile,
+            mma_tile=mma_tile,
             a_precision=self.a_precision,
             b_precision=self.b_precision,
             c_precision=self.c_precision,
@@ -228,12 +246,21 @@ class GEMMDescriptor:
             device=device.name,
         )
 
+    def _rounds(self, tile: params_mod.MatmulTile,
+                device: params_mod.HopperDevice) -> int:
+        tiles = (-(-self.m // tile.block_m) * -(-self.n // tile.block_n)
+                 * self.batch)
+        return params_mod.persistent_rounds(
+            tiles, tile.block_m * tile.block_n, device)
+
 
 @dataclass(frozen=True)
 class GEMMKernelDescriptor:
     """GEMM shape-class descriptor: the tile and what the launch needs.
     Accumulation is always fp32 (a bf16 accumulator is refused, as in
-    ``mfa_tpu``: the mma.sync and FMA paths have none)."""
+    ``mfa_tpu``: none of the paths has one). ``mma_tile``: with a wgmma
+    ``tile``, the mma.sync tile a launch runs when TMA cannot map the
+    operands (``kernels/gemm_kernel.py::launch_tile``)."""
 
     tile: params_mod.MatmulTile
     a_precision: OperandPrecision
@@ -242,4 +269,5 @@ class GEMMKernelDescriptor:
     transpose_a: bool
     transpose_b: bool
     load_previous_c: bool
+    mma_tile: params_mod.MatmulTile | None = None
     device: str = "sm90"

@@ -435,7 +435,11 @@ class MatmulTile:
     step's K among that many warps, summed at the end. ``path`` "mma"
     runs mma.sync on 16-bit operands, "mma_t" the same with the product
     transposed (K8's decode: output channels on the mma's 16-row side),
-    "ffma" fp32 FMA."""
+    "ffma" fp32 FMA, "wgmma" the warp-specialised persistent kernel (a
+    producer warpgroup streaming a TMA ring of ``stages`` stages to
+    warps_m consumer warpgroups: K7's own 64 rows of C each, K8's
+    block_n / 2 output channels each, the product transposed, by
+    block_m tokens)."""
 
     name: str
     block_m: int
@@ -448,53 +452,91 @@ class MatmulTile:
     warps_k: int = 1
 
 
-# K7, bf16/fp16 operands (mma.sync m16n8k16): a 128 x 128 tile for large
-# problems that fill the card, 64 x 64 where 128-tiles would leave SMs
-# idle, and a 16-row tile for a decode-sized M (4-16 rows). fp32 and mixed
-# operands: one FMA tile, 256 threads of 4 x 4 outputs. (Not tuned on the
-# H100.)
+# K7. Two bf16 operands that TMA can map, M > 16: the wgmma tiles, 128 x
+# 256 in a 4-stage ring (192 KB) or 128 x 128 in a 6-stage ring, chosen by
+# GEMMDescriptor.kernel_descriptor. fp16, bf16 operands TMA cannot map
+# (kernels/gemm_kernel.py::tma_mappable) and a decode-sized M (4-16 rows)
+# keep mma.sync m16n8k16: a 128 x 128 tile for problems that fill the
+# card, 64 x 64 where 128-tiles would leave SMs idle, a 16-row tile.
+# fp32 and mixed operands: one FMA tile, 256 threads of 4 x 4 outputs.
+# (The mma.sync and FMA tiles are not tuned on the H100.)
 GEMM_TILES = {
+    "w256": MatmulTile("w256", 128, 256, 64, 2, 1, 4, "wgmma"),
+    "w128": MatmulTile("w128", 128, 128, 64, 2, 1, 6, "wgmma"),
     "m128": MatmulTile("m128", 128, 128, 32, 2, 4, 3),
     "m64": MatmulTile("m64", 64, 64, 32, 2, 2, 3),
     "m16": MatmulTile("m16", 16, 64, 64, 1, 4, 3),
     "ffma": MatmulTile("ffma", 64, 64, 16, 4, 2, 1, "ffma"),
 }
+# The wgmma kernels' persistent CTAs walk output tiles in bands of this
+# many tile rows (K8: channel tiles), column by column within a band, so
+# that the CTAs in flight share their operand tiles in L2. Read at each
+# call.
+GEMM_TILE_GROUP = 8
 
 # K8, bf16 activations. Decode (M = slots <= 8 or 16): the transposed
 # product over 32 output channels a CTA (448 CTAs at N = 14336, 32 at
 # N = 1024), 256 packed bytes (512 values of K) a row per stage, four
-# stages deep, four warps splitting each stage's K. Prefill: 64 x 128
-# (a 128 x 128 tile measured no faster on the H100). fp32 activations:
-# the FMA tile. (Not tuned on the H100.)
+# stages deep, four warps splitting each stage's K. Prefill (M > 16): the
+# wgmma tiles, 128 tokens by 128 channels (a 4-stage ring) or by 256 (a
+# 3-stage ring; it reads 40% fewer operand bytes a product, 10-12% faster
+# wherever its tiles fill the card), 64 packed bytes a step, chosen by
+# kernels/quant_matmul.py::int4_tile; fewer stages measured no faster,
+# and the wgmma tile beat a 64 x 128 mma.sync tile at every M from 17 to
+# 2048 on the H100. fp32 activations: the FMA tile. (The decode and FMA
+# tiles are not tuned on the H100.)
 QMM_TILES = {
     "d8": MatmulTile("d8", 8, 32, 256, 1, 1, 4, "mma_t", 4),
     "d16": MatmulTile("d16", 16, 32, 256, 1, 1, 4, "mma_t", 4),
-    "m64": MatmulTile("m64", 64, 128, 32, 2, 2, 4),
+    "w128": MatmulTile("w128", 128, 128, 64, 2, 1, 4, "wgmma"),
+    "w256": MatmulTile("w256", 128, 256, 64, 2, 1, 3, "wgmma"),
     "ffma": MatmulTile("ffma", 64, 64, 16, 4, 2, 1, "ffma"),
 }
 
 
+def persistent_rounds(tiles: int, tile_area: int,
+                      device: HopperDevice) -> int:
+    """Rounds of one tile an SM that a persistent walk over ``tiles``
+    tiles takes, times the tile's area: proportional to its time. K7's
+    and K8's wgmma tiles are chosen by the least (ties to the larger tile,
+    which reads each operand fewer times)."""
+    return -(-tiles // device.sm_count) * tile_area
+
+
 def gemm_smem_bytes(tile: MatmulTile, transpose_a: bool = False,
                     transpose_b: bool = False) -> int:
-    """Shared memory of one K7 CTA (as csrc/gemm.cu lays it out): per
-    stage the A and B tiles in their stored orientation, the contiguous
-    dimension padded by 8 elements (bank spread)."""
+    """Shared memory of one K7 CTA (as csrc/gemm.cu lays it out). wgmma:
+    per stage the A and B tiles as unpadded swizzled panels and a full and
+    an empty mbarrier, plus the slack that aligns the ring to the
+    1024-byte swizzle atom. mma.sync: per stage the A and B tiles in their
+    stored orientation, the contiguous dimension padded by 8 elements
+    (bank spread)."""
     bm, bn, bk = tile.block_m, tile.block_n, tile.block_k
     if tile.path == "ffma":
         return ffma_smem_bytes(tile)
+    if tile.path == "wgmma":
+        return tile.stages * ((bm + bn) * bk * 2 + 16) + _SMEM_ALIGN
     a = bk * (bm + 8) if transpose_a else bm * (bk + 8)
     b = bn * (bk + 8) if transpose_b else bk * (bn + 8)
     return 2 * tile.stages * (a + b)
 
 
 def qmm_smem_bytes(tile: MatmulTile) -> int:
-    """Shared memory of one K8 CTA (csrc/quant_matmul.cu): per stage the
-    x tile [block_m, 2 * block_k + 16] bf16 (its two K halves side by
-    side) and the packed weight tile [block_n, block_k + 16] bytes; the
-    split-K warps of a decode tile reuse the ring to sum their fp32
-    partial products and row sums."""
+    """Shared memory of one K8 CTA (csrc/quant_matmul.cu). wgmma: per
+    stage x's two K slices [block_m, block_k] bf16 and the packed tile
+    [block_n, block_k] bytes, unpadded and swizzled, and a full and an
+    empty mbarrier; the epilogue's staging tile [block_m, block_n + 8]
+    bf16; the slack that aligns the ring to the 1024-byte swizzle atom.
+    The others: per stage the x tile [block_m, 2 * block_k + 16] bf16 (its
+    two K halves side by side) and the packed weight tile [block_n,
+    block_k + 16] bytes; the split-K warps of a decode tile reuse the ring
+    to sum their fp32 partial products and row sums."""
     if tile.path == "ffma":
         return ffma_smem_bytes(tile)
+    if tile.path == "wgmma":
+        bm, bn, bk = tile.block_m, tile.block_n, tile.block_k
+        return (tile.stages * (2 * bm * bk * 2 + bn * bk + 16)
+                + bm * (bn + 8) * 2 + _SMEM_ALIGN)
     ring = tile.stages * (2 * tile.block_m * (2 * tile.block_k + 16)
                           + tile.block_n * (tile.block_k + 16))
     if tile.warps_k == 1:

@@ -1,5 +1,6 @@
 """Tile sweep of the flash kernels (K1 ``flash_fwd``, K3 ``flash_bwd_q``,
-K4 ``flash_bwd_kv``) on one GPU.
+K4 ``flash_bwd_kv``) and of the matrix-product kernels (K7 ``gemm``, K8
+``int4_matmul``) on one GPU.
 
 ``sweep`` runs each candidate parameter row at ``chip_smoke.py``'s
 shapes (N = 2048, Hq 32, Hkv 8, bf16) for D = 128 and D = 64: K1 causal
@@ -13,6 +14,15 @@ candidates. Two trees are compared in turns by ``python -m
 mfa_tpu_torch.utils.decode_tuning turns --what k1`` (or ``bwd``,
 ``training``).
 
+``sweep --only matmul`` runs K7's wgmma tiles (128 x 256 and 128 x 128)
+at each ring depth that fits and tile-walk bands of 1, 4, 8 and 16 tile
+rows, bf16 at 4096^3, at 1536^3 in the four transpose states and at
+three shapes that one round of 128 x 128 tiles covers, beside the
+mma.sync tile; and K8's wgmma tiles (128 channels at ring depths 2-4,
+256 at 2-3, the same bands) at M = 17-2048 on 4096 -> 14336, 4096 and
+1024, both layouts, each line naming the tile the rule picks. Each
+candidate is first held to its plain version at ``KERNEL_BUDGETS``.
+
 ``curve`` runs ``chip_smoke.py``'s six training steps (Llama-3-8B
 widths at 16 layers, random bf16 weights from seed 4, one 1 x 2049
 batch, AdamW at lr 1e-3) with none, K1, K3 and K4, or all three of the
@@ -22,7 +32,7 @@ kernels' last bits.
 
 Run on a GPU from the repository root:
 
-    python -m mfa_tpu_torch.utils.bwd_tuning sweep [--only fwd|bwd]
+    python -m mfa_tpu_torch.utils.bwd_tuning sweep [--only fwd|bwd|matmul]
     python -m mfa_tpu_torch.utils.bwd_tuning curve [--plain none k1 k34 k1,k34]
 """
 
@@ -37,11 +47,16 @@ import torch
 
 from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.kernels import flash_fwd as k1
+from mfa_tpu_torch.kernels import gemm_kernel as k7
+from mfa_tpu_torch.kernels import quant
+from mfa_tpu_torch.kernels import quant_matmul as k8
 from mfa_tpu_torch.ops import params
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
     AttentionKernelType,
+    GEMMDescriptor,
 )
+from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.utils.decode_tuning import _cuda_ms
 from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
@@ -160,6 +175,98 @@ def sweep_bwd() -> None:
         torch.cuda.empty_cache()
 
 
+# K7's and K8's wgmma candidates (tile, ring stages); the tile-walk bands
+# tried for both.
+K7_ROWS = (("w256", 4), ("w256", 3), ("w128", 7), ("w128", 6), ("w128", 4))
+K8_ROWS = (("w256", 3), ("w256", 2), ("w128", 4), ("w128", 3), ("w128", 2))
+GROUPS = (1, 4, 8, 16)
+
+
+def _k7_cases():
+    """chip_smoke's bf16 4096^3 and 1536^3 cases, and three shapes that one
+    round of 128 x 128 tiles covers: a projection of a 2048-token prefill
+    (4096 -> 1024, B stored [N, K]), 512 x 512 x 4096 and the card tests'
+    1000 x 1032 x 1048."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(4096, 4096, 4096, False, False)]
+    cases += [(1536, 1536, 1536, ta, tb) for ta in (False, True)
+              for tb in (False, True)]
+    cases += [(2048, 1024, 4096, False, True), (512, 512, 4096, False, False),
+              (1000, 1032, 1048, False, False)]
+    for m, n, k, ta, tb in cases:
+        a = torch.randn((1, k, m) if ta else (1, m, k), generator=gen,
+                        device="cuda").bfloat16()
+        b = torch.randn((1, n, k) if tb else (1, k, n), generator=gen,
+                        device="cuda").bfloat16()
+        yield (f"bf16_{m}x{n}x{k}_{'T' if ta else 'N'}{'T' if tb else 'N'}",
+               a, b, GEMMDescriptor(
+                   m=m, n=n, k=k, a_precision=OperandPrecision.BF16,
+                   b_precision=OperandPrecision.BF16,
+                   c_precision=OperandPrecision.BF16, transpose_a=ta,
+                   transpose_b=tb).kernel_descriptor())
+
+
+def sweep_matmul() -> None:
+    group = params.GEMM_TILE_GROUP
+    budget = KERNEL_BUDGETS["gemm_bf16"]
+    for name, a, b, kd in _k7_cases():
+        want = k7.gemm_kernel_plain(a, b, None, kd, out_dtype=torch.bfloat16)
+        cands = [(params.GEMM_TILES[t], s_, g) for t, s_ in K7_ROWS
+                 for g in GROUPS]
+        cands.append((kd.mma_tile, kd.mma_tile.stages, group))
+        for tile, stages, g in cands:
+            kd_c = dataclasses.replace(
+                kd, tile=dataclasses.replace(tile, stages=stages))
+            params.GEMM_TILE_GROUP = g
+            run = lambda: k7.gemm_kernel(a, b, None, kd_c,  # noqa: E731
+                                         out_dtype=torch.bfloat16)
+            share = budget_share(run(), want, *budget)
+            row = {"kernel": "gemm", "case": name, "tile": tile.name,
+                   "stages": stages, "group": g, "share": share,
+                   "ms": _cuda_ms(run, iters=20)}
+            print(json.dumps(row), flush=True)
+            params.GEMM_TILE_GROUP = group
+            if share > 1:
+                raise SystemExit(f"K7 candidate {row} misses its budget")
+        del a, b, want
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rule_tile = k8.int4_tile
+    for k, n in ((4096, 14336), (4096, 4096), (4096, 1024)):
+        for layout in ("int4", "int4_biased"):
+            w = torch.randn((n, k), generator=gen, device="cuda") / k ** 0.5
+            qw = quant.quantize_weight(w, layout)
+            bkey = "biased" if layout == "int4_biased" else "signed"
+            for m in (17, 100, 512, 1000, 2048):
+                x = torch.randn((m, k), generator=gen,
+                                device="cuda").bfloat16()
+                want = k8.int4_matmul_plain(x, qw.w, qw.scale, layout=layout)
+                for name, stages in K8_ROWS:
+                    tile = dataclasses.replace(params.QMM_TILES[name],
+                                               stages=stages)
+                    for g in GROUPS:
+                        k8.int4_tile = lambda *a, _t=tile: _t
+                        params.GEMM_TILE_GROUP = g
+                        run = lambda: k8.int4_matmul(  # noqa: E731
+                            x, qw.w, qw.scale, layout=layout)
+                        share = budget_share(run(), want, *KERNEL_BUDGETS[
+                            f"int4_matmul_{bkey}"])
+                        row = {"kernel": "int4_matmul", "layout": layout,
+                               "M": m, "K": k, "N": n, "tile": name,
+                               "stages": stages, "group": g, "share": share,
+                               "rule": rule_tile(m, n, torch.bfloat16).name,
+                               "ms": _cuda_ms(run, iters=20)}
+                        print(json.dumps(row), flush=True)
+                        k8.int4_tile = rule_tile
+                        params.GEMM_TILE_GROUP = group
+                        if share > 1:
+                            raise SystemExit(f"K8 candidate {row} misses "
+                                             f"its budget")
+            del w, qw
+            torch.cuda.empty_cache()
+
+
 def curve(plain: list[str], steps: int = 6) -> None:
     from mfa_tpu_torch.models import llama, training
     from mfa_tpu_torch.utils.data import TokenDataset
@@ -199,8 +306,8 @@ def curve(plain: list[str], steps: int = 6) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("sweep", "curve"))
-    ap.add_argument("--only", choices=("fwd", "bwd"), default=None,
-                    help="sweep one direction's kernels only")
+    ap.add_argument("--only", choices=("fwd", "bwd", "matmul"),
+                    default=None, help="sweep one group of kernels only")
     ap.add_argument("--plain", nargs="*",
                     default=["none", "k1", "k34", "k1,k34"],
                     help="curve: kernels swapped for their plain versions, "
@@ -211,10 +318,12 @@ def main(argv=None) -> int:
     if args.mode == "curve":
         curve(args.plain)
         return 0
-    if args.only != "bwd":
+    if args.only in (None, "fwd"):
         sweep_fwd()
-    if args.only != "fwd":
+    if args.only in (None, "bwd"):
         sweep_bwd()
+    if args.only in (None, "matmul"):
+        sweep_matmul()
     return 0
 
 

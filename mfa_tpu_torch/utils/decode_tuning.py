@@ -9,9 +9,11 @@ configuration is first held to its plain version at
 two kernels (torch.profiler). ``turns`` runs ``chip_smoke.py``'s k5 and
 k6 phases (``--what kernels``), its serving and paged serving phases
 (``serving``), a host-time probe of the K6 wrapper (``host``), its
-forward kernel phase (``k1``), its backward kernel phase (``bwd``, K3 and
-K4) or its training phase (``training``) from two trees in turns (A, B,
-B, A), each in a process of its own that builds and loads its own tree's
+forward kernel phase (``k1``), its fused decode phase (``k2``), its
+backward kernel phase (``bwd``, K3 and K4), its GEMM phase (``k7``), its
+INT4 matmul phase (``k8``), its training phase (``training``) or the
+profiler's INT4 phase (``int4``) from two trees in turns (A, B, B, A),
+each in a process of its own that builds and loads its own tree's
 kernels.
 
 Run on a GPU from the repository root:
@@ -19,7 +21,7 @@ Run on a GPU from the repository root:
     python -m mfa_tpu_torch.utils.decode_tuning sweep [--out chiprun_out]
     python -m mfa_tpu_torch.utils.decode_tuning kernels
     python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
-        [--what kernels|serving|host|k1|bwd|training]
+        [--what kernels|serving|host|k1|k2|bwd|k7|k8|training|int4]
 """
 
 from __future__ import annotations
@@ -192,6 +194,21 @@ for n in (64, 512, 2048):
                       "ms": ms}))
 """,
     "bwd": "c.phase_bwd(torch)",
+    "k2": "c.phase_k2(torch)",
+    "k7": "c.phase_k7(torch)",
+    "k8": "c.phase_k8(torch)",
+    # The profiler's INT4 phase: a 2048-token prefill and decode steps of
+    # Llama-3-8B with INT4 weights, device time by kernel group.
+    "int4": """
+import json
+from pathlib import Path
+from mfa_tpu_torch.models.llama import LlamaConfig
+from mfa_tpu_torch.utils import profiling
+out = Path("build/profiles")
+out.mkdir(parents=True, exist_ok=True)
+for row in profiling.profile_int4(LlamaConfig.llama3_8b(), out=out):
+    print(json.dumps(row))
+""",
     "training": "c.phase_training(torch)",
     "serving": ("_, m, prompts, toks = c.phase_serving(torch); "
                 "c.phase_paged_serving(torch, m, prompts, toks)"),

@@ -162,14 +162,21 @@ def _kd(m, n, k, prec=OperandPrecision.BF16, b_prec=None, batch=1, **kw):
 
 
 def test_tile_heuristic():
-    """block_m follows M: decode-sized M takes the 16-row tile, large
-    problems that fill the card the 128 x 128 one; fp32 and mixed
-    operands the FMA tile. Every tile fits one SM's shared memory."""
+    """block_m follows M: decode-sized M takes the 16-row tile; above it
+    bf16 takes a wgmma tile, with the mma.sync tile for operands TMA
+    cannot map beside it (128 x 128 for problems that fill the card,
+    64 x 64 below), and fp16 that mma.sync tile; fp32 and mixed operands
+    the FMA tile. Every tile fits one SM's shared memory."""
     assert _kd(4, 4096, 4096).tile.block_m == 16
     assert _kd(16, 14336, 4096).tile.block_m == 16
-    assert _kd(4096, 4096, 4096).tile.name == "m128"
-    assert _kd(200, 129, 127).tile.name == "m64"          # 4 tiles of 128
-    assert _kd(256, 256, 64, batch=40).tile.name == "m128"
+    kd = _kd(4096, 4096, 4096)
+    assert (kd.tile.name, kd.mma_tile.name) == ("w256", "m128")
+    kd = _kd(200, 129, 127)                               # 4 tiles of 128
+    assert (kd.tile.name, kd.mma_tile.name) == ("w128", "m64")
+    kd = _kd(256, 256, 64, batch=40)
+    assert (kd.tile.name, kd.mma_tile.name) == ("w256", "m128")
+    assert _kd(4096, 4096, 4096, OperandPrecision.FP16).tile.name == "m128"
+    assert _kd(200, 129, 127, OperandPrecision.FP16).tile.name == "m64"
     assert _kd(64, 64, 64, OperandPrecision.FP32).tile.path == "ffma"
     assert _kd(64, 64, 64, OperandPrecision.BF16,
                OperandPrecision.FP32).tile.path == "ffma"

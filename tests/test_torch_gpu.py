@@ -30,6 +30,7 @@ from mfa_tpu_torch.models import llama, training
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
     AttentionKernelType,
+    GEMMDescriptor,
     launch_row,
 )
 from mfa_tpu_torch.ops.gemm import gemm
@@ -629,15 +630,100 @@ def test_gemm_kernel_matches_plain(cuda, case):
         assert c2.shape == (m, n)
 
 
+# K7's wgmma kernel: (transpose_a, transpose_b, batch, M, N, K, C0, out,
+# extra rows and columns of the buffers the operands are sliced from):
+# the four transpose states at sizes that are multiples of 8 but not of
+# the tiles, a batch with batch strides, C0 into bf16 and fp32, strided
+# slices with 16-byte-aligned strides, M just above the decode tile, an
+# odd N (stored B [N, K]), and K below one step.
+GEMM_WGMMA_CASES = [
+    (False, False, 1, 1000, 1032, 1048, False, None, 0),
+    (False, True, 1, 1000, 1032, 1048, False, None, 0),
+    (True, False, 1, 1000, 1032, 1048, False, None, 0),
+    (True, True, 1, 1000, 1032, 1048, False, None, 0),
+    (False, False, 3, 200, 136, 256, False, None, 8),
+    (True, True, 3, 256, 200, 64, True, "fp32", 8),
+    (False, True, 1, 1000, 1032, 1048, True, "bf16", 0),
+    (True, False, 2, 520, 264, 200, True, "bf16", 24),
+    (False, False, 1, 17, 4096, 512, False, None, 0),
+    (False, True, 1, 300, 333, 64, True, "fp32", 0),
+    (True, True, 1, 136, 72, 8, False, None, 0),
+]
+
+
+def _nan_filled_pool(cuda, numel, dtype):
+    """Leaves NaN in the caching allocator's next block of this size, so
+    that an output the kernel does not fully write shows up as NaN."""
+    torch.full((numel,), float("nan"), dtype=dtype, device=cuda)
+
+
+@pytest.mark.parametrize("case", GEMM_WGMMA_CASES,
+                         ids=[f"k7w-{i}" for i in range(len(GEMM_WGMMA_CASES))])
+def test_gemm_wgmma_kernel_matches_plain(cuda, case):
+    ta, tb, batch, m, n, k, with_c0, odt, pad = case
+    gen = torch.Generator(device=cuda).manual_seed(m * n + k)
+
+    def operand(rows, cols, dt):
+        big = torch.randn((batch, rows + pad, cols + pad), generator=gen,
+                          device=cuda).to(dt)
+        return big[:, :rows, :cols]
+
+    a = operand(k, m, torch.bfloat16) if ta else operand(m, k, torch.bfloat16)
+    b = operand(n, k, torch.bfloat16) if tb else operand(k, n, torch.bfloat16)
+    c0 = operand(m, n, torch.float32) if with_c0 else None
+    out_dtype = _DT[odt] if odt else torch.bfloat16
+    kw = dict(transpose_a=ta, transpose_b=tb, out_dtype=out_dtype,
+              device=cuda)
+    kd = GEMMDescriptor(
+        m=m, n=n, k=k, a_precision=OperandPrecision.BF16,
+        b_precision=OperandPrecision.BF16,
+        c_precision=OperandPrecision.from_dtype(out_dtype), transpose_a=ta,
+        transpose_b=tb, batch=batch,
+        load_previous_c=with_c0).kernel_descriptor()
+    assert k7.launch_tile(kd, a, b).path == "wgmma"
+    n7 = k7.gemm_kernel.launches
+    _nan_filled_pool(cuda, batch * m * n, out_dtype)
+    c = gemm(a, b, c0, **kw)
+    torch.cuda.synchronize()
+    assert k7.gemm_kernel.launches == n7 + 1
+    assert c.dtype == out_dtype and c.shape == (batch, m, n)
+    assert_fully_written(c, "C")
+    assert torch.equal(c, gemm(a, b, c0, **kw))
+    want = gemm(a.cpu(), b.cpu(), None if c0 is None else c0.cpu(),
+                transpose_a=ta, transpose_b=tb, out_dtype=out_dtype,
+                device="cpu")
+    atol, rtol = KERNEL_BUDGETS["gemm_bf16"]
+    assert_close(c, want, atol * max(1.0, k / 4096), "C", rtol=rtol)
+
+
+def test_gemm_misaligned_view_takes_the_mma_tile(cuda):
+    """A base that is not 16-byte aligned cannot be mapped by TMA: the
+    launch takes the descriptor's mma.sync tile, and agrees all the
+    same."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    big = torch.randn((1, 300, 272), generator=gen, device=cuda).bfloat16()
+    a, b = big[:, :, 1:257], big[:, :256, 8:264]
+    assert k7.tma_mappable(b) and not k7.tma_mappable(a)
+    kd = GEMMDescriptor(m=300, n=256, k=256,
+                        a_precision=OperandPrecision.BF16,
+                        b_precision=OperandPrecision.BF16).kernel_descriptor()
+    assert kd.tile.path == "wgmma"
+    assert k7.launch_tile(kd, a, b) is kd.mma_tile
+    c = gemm(a, b, device=cuda)
+    want = gemm(a.cpu(), b.cpu(), device="cpu")
+    atol, rtol = KERNEL_BUDGETS["gemm_bf16"]
+    assert_close(c, want, atol, "C", rtol=rtol)
+
+
 # (layout, x type, M, N, K)
 QMM_CASES = [(layout, xdt, m, n, k)
              for layout in ("int4", "int4_biased")
              for xdt, m, n, k in (("bf16", 1, 64, 64),         # d8
                                   ("bf16", 4, 100, 4096),       # d8, ragged
                                   ("bf16", 12, 1000, 256),      # d16
-                                  ("bf16", 17, 1000, 256),      # m64
-                                  ("bf16", 130, 72, 96),        # m64
-                                  ("bf16", 1100, 2000, 128),    # m64
+                                  ("bf16", 17, 1000, 256),      # w128
+                                  ("bf16", 130, 72, 96),        # w128
+                                  ("bf16", 1100, 2000, 128),    # w256
                                   ("fp32", 5, 130, 160),
                                   ("fp32", 70, 64, 64))]
 
@@ -663,6 +749,47 @@ def test_int4_matmul_kernel_matches_plain(cuda, case):
     assert_close(y, want, atol, "y", rtol=rtol)
     # Leading dims flatten to rows.
     y3 = k8.int4_matmul(x[None], qw.w, qw.scale, layout=layout,
+                        device=cuda)
+    assert torch.equal(y3[0], y)
+
+
+# K8's wgmma tiles: (layout, M, N, K, tile) at Llama-3-8B's four
+# projections with M 2048, and ragged tokens and channels (M 17, 100,
+# 1100, 2040; N 1000, 4000); K 96 has less than one 64-byte step in each
+# half.
+QMM_WGMMA_CASES = [(layout, m, n, k, tile)
+                   for layout in ("int4", "int4_biased")
+                   for m, n, k, tile in (
+                       (2048, 4096, 4096, "w256"), (2048, 1024, 4096, "w128"),
+                       (2048, 14336, 4096, "w256"),
+                       (2048, 4096, 14336, "w256"), (17, 1000, 256, "w128"),
+                       (100, 1000, 4096, "w128"), (1100, 1000, 96, "w128"),
+                       (2040, 4000, 256, "w256"))]
+
+
+@pytest.mark.parametrize("case", QMM_WGMMA_CASES,
+                         ids=[f"k8w-{c[0]}-M{c[1]}-N{c[2]}-K{c[3]}"
+                              for c in QMM_WGMMA_CASES])
+def test_int4_matmul_wgmma_tile_matches_plain(cuda, case):
+    layout, m, n, k, tile = case
+    assert k8.int4_tile(m, n, torch.bfloat16).name == tile
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    w = torch.randn((n, k), generator=gen, device=cuda) / math.sqrt(k)
+    qw = quant.quantize_weight(w, layout)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    n8 = k8.int4_matmul.launches
+    _nan_filled_pool(cuda, m * n, torch.bfloat16)
+    y = k8.int4_matmul(x, qw.w, qw.scale, layout=layout, device=cuda)
+    torch.cuda.synchronize()
+    assert k8.int4_matmul.launches == n8 + 1
+    assert y.dtype == x.dtype and y.shape == (m, n)
+    assert_fully_written(y, "y")
+    want = k8.int4_matmul_plain(x, qw.w, qw.scale, layout=layout)
+    atol, rtol = KERNEL_BUDGETS["int4_matmul_" + (
+        "biased" if layout == "int4_biased" else "signed")]
+    assert_close(y, want, atol, "y", rtol=rtol)
+    # A second launch gives the same bits; leading dims flatten to rows.
+    y3 = k8.int4_matmul(x.view(1, m, k), qw.w, qw.scale, layout=layout,
                         device=cuda)
     assert torch.equal(y3[0], y)
 

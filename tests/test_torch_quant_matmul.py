@@ -148,8 +148,8 @@ def test_plain_version_handles_leading_dims_and_tiles(rng):
                                                layout="int4_biased"))
     torch.testing.assert_close(y, x @ qw.dequantize().t(), rtol=1e-5,
                                atol=1e-5)
-    assert int4_tile(4, torch.bfloat16).name == "d8"
-    assert int4_tile(16, torch.bfloat16).name == "d16"
-    assert int4_tile(17, torch.bfloat16).name == "m64"
-    assert int4_tile(2048, torch.bfloat16).name == "m64"
-    assert int4_tile(4, torch.float32).path == "ffma"
+    assert int4_tile(4, 14336, torch.bfloat16).name == "d8"
+    assert int4_tile(16, 14336, torch.bfloat16).name == "d16"
+    assert int4_tile(17, 14336, torch.bfloat16).name == "w128"
+    assert int4_tile(2048, 14336, torch.bfloat16).name == "w256"
+    assert int4_tile(4, 14336, torch.float32).path == "ffma"
