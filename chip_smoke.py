@@ -17,16 +17,20 @@ phase's failure is caught):
 4. k2      — fused decode + append kernel against its plain version for
              bf16, INT8, FP8-e4m3 and FP8-e5m2 caches (B=4, Hkv=8, G=4,
              D=128, max_len 2048 and 8192, lengths including 0 and
-             max_len): O, appended rows, scales, and lengths after a step.
-             O and L are held elementwise to
-             mfa_tpu_torch.utils.testing.KERNEL_BUDGETS.
+             max_len), and INT8 at G=16 (two query chunks) under a
+             window of 512: O, appended rows, scales, and lengths after a
+             step. O is held elementwise to
+             mfa_tpu_torch.utils.testing.KERNEL_BUDGETS. Each line
+             carries the split-KV launch, as in k5.
 5. k5      — unfused decode kernel through its entry point
              ops.decode.decode_attention, after kv_cache.update, against
              the same call with its plain version, for the four storage
              types at max_len 2048 and 8192 (lengths 0, 777, L-1, L) and
              one window-512 case; SDPA timed as a yardstick for bf16. Each
              line carries the split-KV launch: rows a split R, splits S,
-             CTAs a pass and those with live rows.
+             CTAs a pass and those with live rows. Then K5's output
+             bits on fixed inputs (k5_bits) against K5_DIGESTS, those of
+             the K5 before K2 shared its body.
 6. k6      — paged decode kernel against its plain version: 8 sequences
              (lengths 0-2048) over a pool with shuffled page ids, pages of
              128 and 512 tokens, the four storage types and a window; bit
@@ -42,10 +46,11 @@ phase's failure is caught):
              yardstick.
 8. k8     — INT4 matmul kernel, signed and biased, against its plain
              version at Llama-3-8B's four projection shapes (K -> N
-             4096 -> 4096, 1024, 14336 and 14336 -> 4096), M = 4 (decode)
-             and 2048 (prefill, the wgmma tile) in bf16, plus one fp32
-             case; F.linear on the dequantized bf16 weight as a
-             yardstick.
+             4096 -> 4096, 1024, 14336 and 14336 -> 4096), M = 4 and 16
+             (decode, the split-K tiles: each line carries its split of K
+             and its CTAs) and 2048 (prefill, the wgmma tile) in bf16,
+             plus one fp32 case; F.linear on the dequantized bf16 weight
+             as a yardstick.
 9. serving — Llama-3-8B at full width and depth with random bf16 weights
              behind the continuous-batching scheduler (4 slots, max_len
              2048), six greedy requests, once per KV format; launch
@@ -312,10 +317,12 @@ def _decode_bytes(live_rows, storage, d, q_rows):
     return live_rows * row + 2 * q_rows * d * 2
 
 
-def _split_shape(torch, n, group, capacity, lens, window=None):
-    """K5/K6's split of this shape (ops/params.py's rule, the same for
-    both): rows a split R, splits S, CTAs a pass, and the CTAs that hold
-    live rows of these lengths."""
+def _split_shape(torch, n, group, capacity, lens, window=None,
+                 fused=False):
+    """K2/K5/K6's split of this shape (ops/params.py's rule, the same for
+    all three): rows a split R, splits S, CTAs a pass, and the CTAs that
+    hold live rows of these lengths (K2, ``fused``: a window of W keeps
+    W - 1 cached rows beside the new token)."""
     from mfa_tpu_torch.ops import params as params_mod
 
     dev = params_mod.detect_device(torch.device("cuda", 0))
@@ -325,7 +332,7 @@ def _split_shape(torch, n, group, capacity, lens, window=None):
     live = 0
     for x in lens:
         x = min(x, capacity)
-        lo = max(0, x - window) if window else 0
+        lo = max(0, x + int(fused) - window) if window else 0
         live += (x - 1) // rows - lo // rows + 1 if x > lo else 0
     return {"R": rows, "S": splits, "ctas": n * chunks * splits,
             "live_ctas": live * (n // len(lens)) * chunks}
@@ -334,105 +341,174 @@ def _split_shape(torch, n, group, capacity, lens, window=None):
 def phase_k2(torch):
     from mfa_tpu_torch.kernels import decode as k2
     from mfa_tpu_torch.ops.decode import decode_attention_append
-    from mfa_tpu_torch.ops.precision import OperandPrecision
     from mfa_tpu_torch.serving import kv_cache
     from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    b, hkv, g, d = 4, 8, 4, 128
-    bh = b * hkv
+    b, d = 4, 128
     budget = KERNEL_BUDGETS["decode_o"]
+    # (max_len, format, Hkv, G, window): Llama-3-8B's heads (Hkv 8, G 4)
+    # over each format, then a group of 16 (two query chunks) under a
+    # sliding window.
+    cases = [(max_len, name, prec, 8, 4, None) for max_len in (2048, 8192)
+             for name, prec in _kv_formats()]
+    cases.append((2048, "int8", dict(_kv_formats())["int8"], 2, 16, 512))
     results = {}
-    for max_len in (2048, 8192):
-        for name, prec in _kv_formats():
-            cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
-            fill = torch.randn((b, hkv, max_len, d), generator=gen,
-                               device="cuda")
-            kv_cache.update(cache, fill, torch.randn(
-                (b, hkv, max_len, d), generator=gen, device="cuda"))
-            lens = [0, 777, max_len - 1, max_len]
-            cache.lengths = torch.tensor(lens, dtype=torch.int32,
-                                         device="cuda")
-            q3 = (torch.randn((bh, g, d), generator=gen, device="cuda")
-                  * (math.log2(math.e) / math.sqrt(d))).bfloat16()
-            kn = (torch.randn((bh, d), generator=gen, device="cuda") * 0.5
-                  ).bfloat16()
-            vn = (torch.randn((bh, d), generator=gen, device="cuda") * 0.5
-                  ).bfloat16()
+    for max_len, name, prec, hkv, g, window in cases:
+        bh = b * hkv
+        cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
+        fill = torch.randn((b, hkv, max_len, d), generator=gen,
+                           device="cuda")
+        kv_cache.update(cache, fill, torch.randn(
+            (b, hkv, max_len, d), generator=gen, device="cuda"))
+        lens = [0, 777, max_len - 1, max_len]
+        cache.lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q3 = (torch.randn((bh, g, d), generator=gen, device="cuda")
+              * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+        kn = (torch.randn((bh, d), generator=gen, device="cuda") * 0.5
+              ).bfloat16()
+        vn = (torch.randn((bh, d), generator=gen, device="cuda") * 0.5
+              ).bfloat16()
+        kw = dict(num_kv_heads=hkv, sliding_window=window)
 
-            def views(c):
-                return (c.k.view(bh, max_len, d), c.v.view(bh, max_len, d),
-                        c.k_scale.view(bh, max_len),
-                        c.v_scale.view(bh, max_len))
+        def views(c, bh=bh, max_len=max_len):
+            return (c.k.view(bh, max_len, d), c.v.view(bh, max_len, d),
+                    c.k_scale.view(bh, max_len), c.v_scale.view(bh, max_len))
 
-            plain_cache = kv_cache.KVCache(
-                cache.k.clone(), cache.v.clone(), cache.k_scale.clone(),
-                cache.v_scale.clone(), cache.lengths.clone(), prec)
-            o_k = k2.decode_fused_append(q3, *views(cache), kn, vn,
-                                         cache.lengths, num_kv_heads=hkv)
-            torch.cuda.synchronize()
-            o_p = k2.decode_fused_append_plain(
-                q3, *views(plain_cache), kn, vn, plain_cache.lengths,
-                num_kv_heads=hkv)
-            err = max_err(o_k, o_p)
-            share = budget_share(o_k, o_p, *budget)
-            o_rms = float(o_p.float().square().mean().sqrt())
-            same_rows = all(torch.equal(_bits(torch, getattr(cache, f)),
-                                        _bits(torch, getattr(plain_cache, f)))
-                            for f in ("k", "v"))
-            scale_err = max(
-                float(((getattr(cache, f) - getattr(plain_cache, f)).abs()
-                       / getattr(plain_cache, f).abs()).max())
-                for f in ("k_scale", "v_scale"))
-            ms = cuda_ms(torch, lambda: k2.decode_fused_append(
-                q3, *views(cache), kn, vn, cache.lengths, num_kv_heads=hkv),
-                iters=50)
-            plain_ms = cuda_ms(torch, lambda: k2.decode_fused_append_plain(
-                q3, *views(plain_cache), kn, vn, plain_cache.lengths,
-                num_kv_heads=hkv), iters=5, warmup=1)
-            # Lengths after a step through the entry point: each
-            # advances by one, capped at max_len.
-            decode_attention_append(
-                q3.reshape(b, hkv * g, d), kn.view(b, hkv, d),
-                vn.view(b, hkv, d), cache, device="cuda")
-            lengths_after = cache.lengths.tolist()
-            lengths_ok = lengths_after == [min(x + 1, max_len) for x in lens]
-            ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
-                  and same_rows and scale_err <= 1e-6 and lengths_ok)
-            # Bytes K2 must move for these lengths: the live K and V rows
-            # (with their scales for a quantized cache; a bf16 cache's
-            # scales are never read), q, k_new, v_new, O, and the appended
-            # rows.
-            live = sum(min(x, max_len) for x in lens) * hkv
-            itemsize = cache.k.element_size()
-            row_bytes = d * itemsize + (4 if itemsize == 1 else 0)
-            appended = sum(1 for x in lens if x < max_len) * hkv
-            nbytes = (2 * live * row_bytes + 2 * bh * g * d * 2
-                      + 2 * bh * d * 2 + 2 * appended * row_bytes)
-            flops = 4 * g * d * (live + bh)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / BF16_FLOPS * 1e3
-            key = f"{name}_L{max_len}"
-            results[key] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
-            emit({"phase": "k2", "case": key, "lengths": lens, "err_o": err,
-                  "o_rms": o_rms, "budget_o": budget, "share_o": share,
-                  "appended_rows_equal": same_rows,
-                  "lengths_after": lengths_after,
-                  "scale_rel_err": scale_err, "ok": ok,
-                  **{k_: v_ for k_, v_ in results[key].items()
-                     if k_ != "max_abs_err"}})
-            if not ok:
-                raise SystemExit(f"k2 {key}: kernel disagrees with its plain "
-                                 f"version (O uses {share} of |d| <= "
-                                 f"{budget[0]} + {budget[1]}|O|, rows equal "
-                                 f"{same_rows}, scale err {scale_err}, "
-                                 f"lengths after {lengths_after})")
-            del cache, plain_cache, fill
+        plain_cache = kv_cache.KVCache(
+            cache.k.clone(), cache.v.clone(), cache.k_scale.clone(),
+            cache.v_scale.clone(), cache.lengths.clone(), prec)
+        o_k = k2.decode_fused_append(q3, *views(cache), kn, vn,
+                                     cache.lengths, **kw)
+        torch.cuda.synchronize()
+        o_p = k2.decode_fused_append_plain(
+            q3, *views(plain_cache), kn, vn, plain_cache.lengths, **kw)
+        err = max_err(o_k, o_p)
+        share = budget_share(o_k, o_p, *budget)
+        o_rms = float(o_p.float().square().mean().sqrt())
+        same_rows = all(torch.equal(_bits(torch, getattr(cache, f)),
+                                    _bits(torch, getattr(plain_cache, f)))
+                        for f in ("k", "v"))
+        scale_err = max(
+            float(((getattr(cache, f) - getattr(plain_cache, f)).abs()
+                   / getattr(plain_cache, f).abs()).max())
+            for f in ("k_scale", "v_scale"))
+        ms = cuda_ms(torch, lambda: k2.decode_fused_append(
+            q3, *views(cache), kn, vn, cache.lengths, **kw), iters=50)
+        plain_ms = cuda_ms(torch, lambda: k2.decode_fused_append_plain(
+            q3, *views(plain_cache), kn, vn, plain_cache.lengths, **kw),
+            iters=5, warmup=1)
+        # Lengths after a step through the entry point: each advances by
+        # one, capped at max_len.
+        decode_attention_append(
+            q3.reshape(b, hkv * g, d), kn.view(b, hkv, d),
+            vn.view(b, hkv, d), cache, sliding_window=window, device="cuda")
+        lengths_after = cache.lengths.tolist()
+        lengths_ok = lengths_after == [min(x + 1, max_len) for x in lens]
+        ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
+              and same_rows and scale_err <= 1e-6 and lengths_ok)
+        # Bytes K2 must move for these lengths: the live K and V rows (with
+        # their scales for a quantized cache; a bf16 cache's scales are
+        # never read; a window of W keeps W - 1 cached rows), q, k_new,
+        # v_new, O, and the appended rows.
+        live = sum(min(x, max_len, (window or max_len + 1) - 1)
+                   for x in lens) * hkv
+        itemsize = cache.k.element_size()
+        row_bytes = d * itemsize + (4 if itemsize == 1 else 0)
+        appended = sum(1 for x in lens if x < max_len) * hkv
+        nbytes = (2 * live * row_bytes + 2 * bh * g * d * 2
+                  + 2 * bh * d * 2 + 2 * appended * row_bytes)
+        bound_ms, bound_by = _bound(4 * g * d * (live + bh), nbytes,
+                                    BF16_FLOPS)
+        key = f"{name}_L{max_len}" + (f"_G{g}_w{window}" if window else "")
+        results[key] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None)
+        emit({"phase": "k2", "case": key, "lengths": lens, "err_o": err,
+              "o_rms": o_rms, "budget_o": budget, "share_o": share,
+              "appended_rows_equal": same_rows,
+              "lengths_after": lengths_after, "scale_rel_err": scale_err,
+              "ok": ok,
+              **_split_shape(torch, bh, g, max_len, lens, window, fused=True),
+              **{k_: v_ for k_, v_ in results[key].items()
+                 if k_ != "max_abs_err"}})
+        if not ok:
+            raise SystemExit(f"k2 {key}: kernel disagrees with its plain "
+                             f"version (O uses {share} of |d| <= "
+                             f"{budget[0]} + {budget[1]}|O|, rows equal "
+                             f"{same_rows}, scale err {scale_err}, "
+                             f"lengths after {lengths_after})")
+        del cache, plain_cache, fill
     return results["bf16_L2048"]
+
+
+# K5's output bits on the fixed inputs of k5_bits, as K5 gave them on an
+# H100 before K2 came to share its body (csrc/decode_split.cuh). A change to that body must leave K5 (and K6, which k6 holds equal
+# to K5) bit for bit as they were; one that means to change them records
+# the digests that k5_bits prints.
+K5_DIGESTS = {
+    "bf16_bfloat16_D128_G4": "ca8420caa9826b79",
+    "bf16_bfloat16_D64_G8_w300": "b2b0944c01d1f4e4",
+    "bf16_float32_D128_G4": "a768d339f3faf371",
+    "int8_bfloat16_D128_G4": "6f0b9910fc7347c6",
+    "int8_bfloat16_D64_G8_w300": "78ccb90adf8cf17f",
+    "int8_float32_D128_G4": "0eb02a07645b4391",
+    "fp8_e4m3_bfloat16_D128_G4": "4b6280e2641826bb",
+    "fp8_e4m3_bfloat16_D64_G8_w300": "5cfc1fa4f7492fa3",
+    "fp8_e4m3_float32_D128_G4": "5859fd1c9054d5a3",
+    "fp8_e5m2_bfloat16_D128_G4": "2ea2a982fac38dfa",
+    "fp8_e5m2_bfloat16_D64_G8_w300": "95af9158cba7cdd3",
+    "fp8_e5m2_float32_D128_G4": "075cb32aaa48ee89",
+}
+
+
+def k5_bits(torch) -> dict:
+    """sha256 (16 hex digits) of K5's output for each case: the four
+    storage formats, each with bf16 q at D 128 and G 4, bf16 q at D 64
+    and G 8 under a window of 300, and fp32 q at D 128 and G 4 (the
+    tensor-core, wide-chunk and FMA instances); 4 sequences x 8 kv heads,
+    max_len 2048, lengths 0, 777, 2047, 2048. Inputs come from numpy
+    (seed 55) on the host, so every tree and run sees the same bits."""
+    import hashlib
+
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import decode as k5
+
+    rng = np.random.default_rng(55)
+    b, hkv, max_len = 4, 8, 2048
+    bh = b * hkv
+    lengths = torch.tensor([0, 777, max_len - 1, max_len],
+                           dtype=torch.int32).cuda()
+    digests = {}
+    for fmt, storage in (("bf16", torch.bfloat16), ("int8", torch.int8),
+                         ("fp8_e4m3", torch.float8_e4m3fn),
+                         ("fp8_e5m2", torch.float8_e5m2)):
+        for q_dtype, d, g, window in ((torch.bfloat16, 128, 4, None),
+                                      (torch.bfloat16, 64, 8, 300),
+                                      (torch.float32, 128, 4, None)):
+            if storage == torch.int8:
+                k, v = (torch.from_numpy(rng.integers(
+                    -127, 128, (bh, max_len, d), dtype=np.int8))
+                    for _ in range(2))
+            else:
+                k, v = (torch.from_numpy(rng.standard_normal(
+                    (bh, max_len, d), dtype=np.float32)).to(storage)
+                    for _ in range(2))
+            ks, vs = (torch.from_numpy(rng.uniform(
+                0.005, 0.02, (bh, max_len)).astype(np.float32))
+                for _ in range(2))
+            q3 = torch.from_numpy((rng.standard_normal(
+                (bh, g, d), dtype=np.float32)
+                * np.float32(math.log2(math.e) / math.sqrt(d)))).to(q_dtype)
+            o = k5.decode_attend(q3.cuda(), k.cuda(), v.cuda(), ks.cuda(),
+                                 vs.cuda(), lengths, num_kv_heads=hkv,
+                                 sliding_window=window)
+            raw = o.cpu().contiguous().view(torch.uint8).numpy().tobytes()
+            key = (f"{fmt}_{str(q_dtype).split('.')[-1]}_D{d}_G{g}"
+                   + (f"_w{window}" if window else ""))
+            digests[key] = hashlib.sha256(raw).hexdigest()[:16]
+    return digests
 
 
 def phase_k5(torch):
@@ -520,6 +596,12 @@ def phase_k5(torch):
                              f"{budget[0]} + {budget[1]}|O|, launches {n5}, "
                              f"empty slot zero {empty_zero})")
         del cache, o_k, o_p
+    digests = k5_bits(torch)
+    same = digests == K5_DIGESTS
+    emit({"phase": "k5_bits", "digests": digests, "as_recorded": same})
+    if not same:
+        raise SystemExit("k5: K5's output bits differ from K5_DIGESTS (the "
+                         "split-KV body K2, K5 and K6 share changed them)")
     emit({"phase": "k5_done", "seconds": time.perf_counter() - t0,
           "launches": launches})
     return results["bf16_L2048"], launches
@@ -738,7 +820,7 @@ def phase_k8(torch):
     gen = torch.Generator(device="cuda").manual_seed(8)
     dev = params_mod.detect_device(torch.device("cuda", 0))
     cases = [(k, n, m, layout, torch.bfloat16)
-             for k, n in LLAMA3_8B_PROJECTIONS for m in (4, 2048)
+             for k, n in LLAMA3_8B_PROJECTIONS for m in (4, 16, 2048)
              for layout in ("int4", "int4_biased")]
     cases.append((4096, 1024, 4, "int4", torch.float32))
     results = {}
@@ -772,12 +854,20 @@ def phase_k8(torch):
             BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
         tile = k8.int4_tile(m, n, dt, dev)
         ctas = -(-m // tile.block_m) * -(-n // tile.block_n)
+        split = {}
+        if tile.path == "splitk":
+            # The decode tiles' split of K (ops/params.py's rule).
+            cols = params_mod.qmm_split_cols(n, k, tile, dev)
+            splits = -(-(k // 2) // cols)
+            ctas *= splits
+            split = {"split_cols": cols, "splits": splits}
         key = (f"{layout}_{str(dt).split('.')[-1]}_M{m}_K{k}_N{n}")
         results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=library_ms)
         emit({"phase": "k8", "case": key, "tile": tile.name,
-              "path": tile.path, "ctas": ctas, "sms_busy": min(ctas, 132),
+              "path": tile.path, **split, "ctas": ctas,
+              "sms_busy": min(ctas, dev.sm_count),
               "tflops": 2 * m * n * k / (ms * 1e-3) / 1e12, "err": err,
               "budget": budget,
               "share": share, "ok": ok,

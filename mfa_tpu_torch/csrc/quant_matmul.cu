@@ -39,25 +39,39 @@
 //   y^T is staged transposed in shared memory and stored as y [M, N], 16
 //   bytes along each token's channels.
 //
-// Decode (M <= 16) keeps the first cut: y^T on mma.sync so that 16
-// output channels fill the mma's row side and the tokens its 8-wide side;
-// a CTA owns 32 channels (448 CTAs at N = 14336), streams 256 packed bytes
-// a row per stage by cp.async (more bytes in flight for a CTA that is
-// alone on its SM), and its four warps split K, summing through shared
-// memory at the end. It permutes the k slots of a quad the same way in x
-// and W (below), so that one 32-bit load of packed bytes feeds a whole
-// fragment, and sums the biased layout's row sums from the same x
-// fragments in registers. Prefill has no mma.sync tile: the wgmma tile
-// measured faster at every M from 17 to 2048 on the H100 (utils/
-// bwd_tuning.py sweep --only matmul). fp32 activations run an FMA loop
-// with the same epilogue.
+// Decode (M <= 16 rows: kernels/quant_matmul.py::int4_tile, tiles d8 and
+// d16) runs qmm_int4_splitk: y^T on mma.sync, so that 16 output channels
+// fill the mma's row side and the tokens its 8-wide side, with K split
+// across CTAs (ops/params.py::qmm_split_cols, from the shapes and the SM
+// count alone), so that even N = 1024 puts several CTAs on every SM:
+// - A CTA owns 64 channels and one split of the packed columns; eight
+//   warps, four a 32-channel group (two 16-channel blocks sharing each x
+//   fragment), splitting every stage's columns in quarters. One thread
+//   streams the weight by TMA in boxes of 64 channels x 128 bytes
+//   (128-byte-swizzled: a fragment's eight rows fall in eight bank
+//   groups) through an mbarrier ring; the M rows of x's two K slices of
+//   the split are copied once and stay resident.
+// - The k slots of a quad are permuted the same way in x and W (below),
+//   so that one 32-bit load of packed bytes and one 64-bit load of x feed
+//   whole fragments; the biased layout's rowsum(x) is summed from the same
+//   x fragments in registers.
+// - Each split writes fp32 partial products (and row sums) to a workspace;
+//   the last CTA of a channel tile to arrive (an integer counter that it
+//   resets for the next call) sums them in split order and applies the
+//   epilogue, so y is the same whatever CTA comes last.
+// Prefill has no mma.sync tile: the wgmma tile measured faster at every M
+// from 17 to 2048 on the H100 (utils/bwd_tuning.py sweep --only matmul).
+// fp32 activations run an FMA loop with the same epilogue.
 //
 // What bounds it on an H100: at decode (M = 4) the packed weight is the
 // traffic, K * N / 2 bytes: 29.4 MB for 4096 -> 14336, 8.8 us at
-// 3.35 TB/s, against 0.47 GFLOP (0.5 us): bytes. At prefill (M = 2048)
-// the same shape is 240 GFLOP, 243 us at 989 TFLOP/s: operations. With
-// N = 1024 decode still has only 32 CTAs for 132 SMs (split-K across CTAs
-// is later work).
+// 3.35 TB/s, against 0.47 GFLOP (0.5 us): bytes, so every SM needs
+// weight bytes in flight. At prefill (M = 2048) the same shape is 240
+// GFLOP, 243 us at 989 TFLOP/s: operations.
+
+#include <cstring>
+#include <functional>
+#include <unordered_map>
 
 #include "hopper.cuh"
 #include "matmul.cuh"
@@ -75,7 +89,12 @@ struct QmmParams {
   const float* rs;       // wgmma tile, biased: rowsum(x) [M], fp32
   void* y;               // [M, N], x's type
   int M, N, K;
-  int stages, group;     // wgmma tile: ring depth, tile-walk band
+  int stages, group;     // ring depth; wgmma tile: tile-walk band
+  // Decode tiles: packed columns a split, the splits' partials (fp32) and
+  // one arrival counter a channel tile (zero between calls).
+  int split_cols;
+  float* part;
+  unsigned* counters;
 };
 
 // K slots. In each group of 16 packed columns kk..kk+15, thread t4 of a
@@ -110,178 +129,260 @@ __device__ __forceinline__ void unpack4(uint32_t v, uint32_t (&lo)[2],
   hi[1] = r[3];
 }
 
-// x columns c .. c + 3 of one row → the pairs (c, c + 2) and (c + 1, c + 3).
-__device__ __forceinline__ void x_slots(const uint16_t* p, uint32_t& s0,
-                                        uint32_t& s8) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  s0 = __byte_perm(w.x, w.y, 0x5410);
-  s8 = __byte_perm(w.x, w.y, 0x7632);
-}
-
 __device__ __forceinline__ float pair_sum(uint32_t v) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
   return f.x + f.y;
 }
 
-// One stage of cp.async copies: x rows [m0, m0 + XR) of both K slices
-// (columns kp0 .. kp0 + BK and K/2 + kp0 ..) and packed rows
-// [n0, n0 + WR); outside the problem reads zero. Row strides XS (x,
-// elements) and WS (bytes) are padded so that the fragment loads of
-// eight rows fall in distinct banks.
-template <int XR, int WR, int BK, int NT>
-__device__ __forceinline__ void load_stage(const QmmParams& p, uint16_t* xs,
-                                           uint8_t* ws, int m0, int n0,
-                                           int kp0, int tid) {
-  constexpr int XS = 2 * BK + 16, WS = BK + 16;
-  const int Kh = p.K / 2;
-  const uint16_t* xg = static_cast<const uint16_t*>(p.x);
-  constexpr int XCH = 2 * BK / 8;
-  for (int i = tid; i < XR * XCH; i += NT) {
-    const int r = i / XCH, c = (i % XCH) * 8;
-    const int kc = kp0 + (c % BK);
-    const bool in = m0 + r < p.M && kc < Kh;
-    const uint16_t* src =
-        xg + (size_t)(m0 + r) * p.K + kc + (c >= BK ? Kh : 0);
-    cp_async16(xs + r * XS + c, in ? src : xg, in ? 16 : 0);
-  }
-  constexpr int WCH = BK / 16;
-  for (int i = tid; i < WR * WCH; i += NT) {
-    const int r = i / WCH, c = (i % WCH) * 16;
-    const bool in = n0 + r < p.N && kp0 + c < Kh;
-    const uint8_t* src = p.w + (size_t)(n0 + r) * Kh + kp0 + c;
-    cp_async16(ws + r * WS + c, in ? src : p.w, in ? 16 : 0);
-  }
+// ---------------------------------------------------------------------------
+// Decode (M <= TT tokens, bf16 x): the product transposed, y^T = W^T x^T,
+// so that output channels fill the mma's 16-row side and the few tokens
+// its 8-wide side (a 16-row x tile would waste 12 of 16 rows at M = 4),
+// with K split across CTAs. CTA (tile, split) owns kQdChannels channels
+// and packed columns [split * split_cols, + split_cols) of them: the
+// weight streams through a ring of kQdStep-byte TMA boxes, the M rows of
+// x's two K slices of the split stay resident, stored with the k slots of
+// each quad already permuted (one 64-bit load a fragment). Eight warps:
+// warp w takes two 16-channel blocks, channels 32 (w % 2) .. + 31, so
+// that each x fragment feeds both, and quarter w / 2 of each stage's
+// columns, so that enough warps hide the loads' latency; the quarters
+// meet in shared memory at the end. Each split writes its fp32 partial
+// products (and, biased, its part of rowsum(x)) to the workspace; the last
+// CTA of a channel tile to arrive (an integer counter that it resets) sums
+// them in split order and applies the epilogue, so y does not depend on
+// which CTA came last.
+// ---------------------------------------------------------------------------
+constexpr int kQdStep = 128;       // packed bytes a channel row a stage
+constexpr int kQdChannels = 64;    // output channels a CTA, 32 a warp
+constexpr int kQdThreads = 256;    // four warps a 32-channel group
+constexpr int kQdStageBytes = kQdChannels * kQdStep;
+constexpr int kQdMaxStages = 8;
+
+// Shared memory of a decode CTA for M tokens (ops/params.py::
+// qmm_smem_bytes mirrors it): the ring (stages x [64 channels x 128
+// bytes], 128-byte-swizzled; the quarters' sums reuse it at the end, so
+// it holds at least two stages), x's two slices [M][2 * split_cols + 16]
+// bf16, the stages' mbarriers, each quarter's rowsum(x) of the split
+// [4][TT] fp32, the last-to-arrive flag; slack to align the ring to the
+// 1024-byte swizzle atom.
+__host__ __device__ constexpr int qd_x_stride(int split_cols) {
+  return 2 * split_cols + 16;
 }
 
-// ---------------------------------------------------------------------------
-// Decode (M <= 8 TT tokens): the product transposed, y^T = W^T x^T, so
-// that output channels fill the mma's 16-row side and the few tokens its
-// 8-wide side (a 16-row x tile would waste 12 of 16 rows at M = 4). A
-// CTA owns BN channels; its KW warps split each stage's K columns and
-// sum their partial products through shared memory at the end.
-// ---------------------------------------------------------------------------
-template <int TT, int BN, int BK, int KW, int STAGES, bool BIASED>
-__global__ void __launch_bounds__(KW * 32)
-qmm_int4_decode(QmmParams p) {
-  constexpr int NT = KW * 32;
-  constexpr int FT = TT / 8, FC = BN / 16;   // token n-tiles, channel m-tiles
-  constexpr int XS = 2 * BK + 16, WS = BK + 16;
-  constexpr int X_TILE = TT * XS, W_TILE = BN * WS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* sX = reinterpret_cast<uint16_t*>(smem_raw);
-  uint8_t* sW = reinterpret_cast<uint8_t*>(sX + STAGES * X_TILE);
+__host__ __device__ constexpr int qd_smem_bytes(int tt, int m, int stages,
+                                                int split_cols) {
+  return kAlignSlack + stages * (kQdStageBytes + 8) +
+         m * qd_x_stride(split_cols) * 2 + 4 * tt * 4 + 4;
+}
+
+template <int TT, bool BIASED>
+__global__ void __launch_bounds__(kQdThreads)
+qmm_int4_splitk(const QmmParams p, const __grid_constant__ CUtensorMap mw) {
+  constexpr int FT = TT / 8;            // token n-tiles
+  constexpr int QUARTER = kQdStep / 4;  // packed columns a warp a stage
+  const int S = p.stages, sc = p.split_cols, XS = qd_x_stride(sc);
+  const int M = p.M, N = p.N, Kh = p.K / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_atom(smem_raw);
+  uint16_t* xs = reinterpret_cast<uint16_t*>(ring + S * kQdStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + M * XS);
+  float* rsum = reinterpret_cast<float*>(full + S);   // [4][TT]
+  int* last = reinterpret_cast<int*>(rsum + 4 * TT);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int n0 = blockIdx.x * BN;
-  const int M = p.M, N = p.N, Kh = p.K / 2;
+  const int cg = warp & 1, kq = warp >> 1;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int n0 = tile * kQdChannels;
+  const int c0 = split * sc, cols = min(Kh, c0 + sc) - c0;
+  const int nst = (cols + kQdStep - 1) / kQdStep;
 
-  float acc[FC][FT][4];
-  float rs[FT];   // token g of each token tile (biased layout)
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    for (int s = 0; s < S && s < nst; ++s) {
+      mbar_expect_tx(&full[s], kQdStageBytes);
+      tma_load_3d(ring + s * kQdStageBytes, &mw, &full[s], c0 + s * kQdStep,
+                  n0, 0);
+    }
+  }
+  // x's low and high slices of this split, zero past K/2 (the last
+  // stage's columns past K/2 hold TMA's zeros in W), each quad's columns
+  // (c, c + 1, c + 2, c + 3) stored as (c, c + 2, c + 1, c + 3).
+  const uint4* xg = static_cast<const uint4*>(p.x);
+  const int xch = nst * kQdStep / 8;   // 16-byte chunks of one slice row
+  for (int i = tid; i < M * 2 * xch; i += kQdThreads) {
+    const int r = i / (2 * xch), c = i - r * 2 * xch;
+    const int h = c / xch, col = (c - h * xch) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (col < cols) v = xg[((size_t)r * p.K + h * Kh + c0 + col) / 8];
+    uint4 q;
+    q.x = __byte_perm(v.x, v.y, 0x5410);
+    q.y = __byte_perm(v.x, v.y, 0x7632);
+    q.z = __byte_perm(v.z, v.w, 0x5410);
+    q.w = __byte_perm(v.z, v.w, 0x7632);
+    *reinterpret_cast<uint4*>(xs + r * XS + h * sc + col) = q;
+  }
+  __syncthreads();
+
+  float acc[2][FT][4], rs[FT];
 #pragma unroll
   for (int t = 0; t < FT; ++t) {
     rs[t] = 0.f;
 #pragma unroll
-    for (int i = 0; i < FC; ++i)
+    for (int b = 0; b < 2; ++b)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[b][t][e] = 0.f;
   }
-
-  const int nk = (Kh + BK - 1) / BK;
+  // This warp's channel rows r0 + 16 b and r0 + 16 b + 8 of the tile. In a
+  // 128-byte-swizzled box, byte c of row r sits in 16-byte chunk (c / 16)
+  // ^ (r % 8): the eight rows of a fragment load fall in eight chunks, no
+  // bank twice. Lanes of tokens past M take zeros for x.
+  const int r0 = cg * 32 + g;
+  for (int i = 0; i < nst; ++i) {
+    const int st = i % S;
+    mbar_wait(&full[st], (i / S) & 1);
+    const unsigned char* wt = ring + st * kQdStageBytes + r0 * kQdStep;
+    const uint16_t* xr = xs + i * kQdStep;
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk)
-      load_stage<TT, BN, BK, NT>(p, sX + s * X_TILE, sW + s * W_TILE, 0, n0,
-                                 s * BK, tid);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = kt + STAGES - 1;
-    if (nxt < nk)
-      load_stage<TT, BN, BK, NT>(p, sX + (nxt % STAGES) * X_TILE,
-                                 sW + (nxt % STAGES) * W_TILE, 0, n0,
-                                 nxt * BK, tid);
-    cp_async_commit();
-    const uint16_t* xs = sX + (kt % STAGES) * X_TILE;
-    const uint8_t* ws = sW + (kt % STAGES) * W_TILE;
-#pragma unroll
-    for (int kk = 16 * warp; kk < BK; kk += 16 * KW) {
-      uint32_t b[2][FT][2];   // x: [K slice][token tile]
+    for (int kk = kq * QUARTER; kk < kq * QUARTER + QUARTER; kk += 16) {
+      uint32_t bx[2][FT][2] = {};   // x: [K slice][token tile]
 #pragma unroll
       for (int t = 0; t < FT; ++t) {
-        const uint16_t* xr = xs + (t * 8 + g) * XS + kk + 4 * t4;
+        if (t * 8 + g >= M) continue;
+        const uint16_t* xp = xr + (t * 8 + g) * XS + kk + 4 * t4;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          x_slots(xr + h * BK, b[h][t][0], b[h][t][1]);
-          if (BIASED) rs[t] += pair_sum(b[h][t][0]) + pair_sum(b[h][t][1]);
+          const uint2 v = *reinterpret_cast<const uint2*>(xp + h * sc);
+          bx[h][t][0] = v.x;
+          bx[h][t][1] = v.y;
+          if (BIASED && cg == 0) rs[t] += pair_sum(v.x) + pair_sum(v.y);
         }
       }
+      const int at = (((kk >> 4) ^ (r0 & 7)) << 4) + 4 * t4;
 #pragma unroll
-      for (int i = 0; i < FC; ++i) {
-        const uint8_t* wr = ws + (i * 16 + g) * WS + kk + 4 * t4;
+      for (int b = 0; b < 2; ++b) {
+        const unsigned char* wb = wt + 16 * b * kQdStep + at;
         uint32_t lo0[2], hi0[2], lo1[2], hi1[2];
-        unpack4<BIASED>(*reinterpret_cast<const uint32_t*>(wr), lo0, hi0);
-        unpack4<BIASED>(*reinterpret_cast<const uint32_t*>(wr + 8 * WS), lo1,
-                        hi1);
+        unpack4<BIASED>(*reinterpret_cast<const uint32_t*>(wb), lo0, hi0);
+        unpack4<BIASED>(*reinterpret_cast<const uint32_t*>(wb + 8 * kQdStep),
+                        lo1, hi1);
         const uint32_t alo[4] = {lo0[0], lo1[0], lo0[1], lo1[1]};
         const uint32_t ahi[4] = {hi0[0], hi1[0], hi0[1], hi1[1]};
 #pragma unroll
         for (int t = 0; t < FT; ++t) {
-          mma_bf16(acc[i][t], alo, b[0][t][0], b[0][t][1]);
-          mma_bf16(acc[i][t], ahi, b[1][t][0], b[1][t][1]);
+          mma_bf16(acc[b][t], alo, bx[0][t][0], bx[0][t][1]);
+          mma_bf16(acc[b][t], ahi, bx[1][t][0], bx[1][t][1]);
         }
       }
     }
+    __syncthreads();   // every warp is done with stage st: refill it
+    if (tid == 0 && i + S < nst) {
+      mbar_expect_tx(&full[st], kQdStageBytes);
+      tma_load_3d(ring + st * kQdStageBytes, &mw, &full[st],
+                  c0 + (i + S) * kQdStep, n0, 0);
+    }
   }
-  cp_async_wait<0>();
-  __syncthreads();   // the stage buffers become the reduction buffer
-
-  // Sum the KW warps' partial products (and token row sums).
-  float* red = reinterpret_cast<float*>(smem_raw);
-  constexpr int PER = FC * FT * 4;
-#pragma unroll
-  for (int i = 0; i < FC; ++i)
-#pragma unroll
-    for (int t = 0; t < FT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[((warp * PER) + (i * FT + t) * 4 + e) * 32 + lane] = acc[i][t][e];
-  float* rsum = red + KW * PER * 32;   // [KW][TT]
-  if (BIASED) {
+  // Each quarter's rowsum(x) over the split's columns: token t * 8 + g
+  // over a quad. Quarters 1-3's products join quarter 0's, in quarter
+  // order, through the ring, which no copy writes any more.
+  if (BIASED && cg == 0) {
 #pragma unroll
     for (int t = 0; t < FT; ++t) {
       float v = rs[t];
       v += __shfl_xor_sync(kFull, v, 1);
       v += __shfl_xor_sync(kFull, v, 2);
-      if (t4 == 0) rsum[warp * TT + t * 8 + g] = v;
+      if (t4 == 0) rsum[kq * TT + t * 8 + g] = v;
     }
   }
+  constexpr int PER = 2 * FT * 4;                      // a thread's sums
+  float* quarters = reinterpret_cast<float*>(ring);   // [3][2][PER][32]
+  if (kq > 0)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int t = 0; t < FT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          quarters[(((kq - 1) * 2 + cg) * PER + (b * FT + t) * 4 + e) * 32 +
+                   lane] = acc[b][t][e];
   __syncthreads();
-  if (warp != 0) return;
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
+  if (kq == 0)
+    for (int q = 0; q < 3; ++q)
 #pragma unroll
-  for (int i = 0; i < FC; ++i)
+      for (int b = 0; b < 2; ++b)
 #pragma unroll
-    for (int t = 0; t < FT; ++t)
+        for (int t = 0; t < FT; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = 0.f;
+          for (int e = 0; e < 4; ++e)
+            acc[b][t][e] +=
+                quarters[((q * 2 + cg) * PER + (b * FT + t) * 4 + e) * 32 +
+                         lane];
+  if (BIASED && tid < TT)
+    rsum[tid] += rsum[TT + tid] + rsum[2 * TT + tid] + rsum[3 * TT + tid];
+  __syncthreads();
+
+  // Quarter 0's outputs: channels n0 + r0 + 16 b (+ 8), tokens 8 t + 2 t4
+  // (+ 1).
+  bf16* y = static_cast<bf16*>(p.y);
+  if (splits == 1) {
+    if (kq > 0) return;
 #pragma unroll
-        for (int w = 0; w < KW; ++w)
-          v += red[((w * PER) + (i * FT + t) * 4 + e) * 32 + lane];
-        const int ch = n0 + i * 16 + g + 8 * (e >> 1);
-        const int tok = t * 8 + t4 * 2 + (e & 1);
-        if (ch >= N || tok >= M) continue;
-        if (BIASED) {
-          float r = 0.f;
+    for (int b = 0; b < 2; ++b)
 #pragma unroll
-          for (int w = 0; w < KW; ++w) r += rsum[w * TT + tok];
-          v -= 8.f * r;
+      for (int t = 0; t < FT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ch = n0 + r0 + 16 * b + 8 * (e >> 1);
+          const int tok = t * 8 + 2 * t4 + (e & 1);
+          if (ch >= N || tok >= M) continue;
+          float v = acc[b][t][e];
+          if (BIASED) v -= 8.f * rsum[tok];
+          y[(size_t)tok * N + ch] = __float2bfloat16(v * p.scale[ch]);
         }
-        y[(size_t)tok * N + ch] = __float2bfloat16(v * p.scale[ch]);
-      }
+    return;
+  }
+  // Partials [tiles][splits][M][64] and (biased) rowsum parts
+  // [tiles][splits][M] after them.
+  float* part = p.part + ((size_t)tile * splits + split) * M * kQdChannels;
+  float* rs_part = p.part + (size_t)gridDim.x * splits * M * kQdChannels +
+                   ((size_t)tile * splits + split) * M;
+  if (kq == 0)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int t = 0; t < FT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = r0 + 16 * b + 8 * (e >> 1);
+          const int tok = t * 8 + 2 * t4 + (e & 1);
+          if (tok < M) part[tok * kQdChannels + c] = acc[b][t][e];
+        }
+  if (BIASED && tid < M) rs_part[tid] = rsum[tid];
+  // Publish the partials, then count this split in; the last to arrive
+  // resets the counter for the next call.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    *last = atomicInc(p.counters + tile, splits - 1) == (unsigned)splits - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  const float* parts = p.part + (size_t)tile * splits * M * kQdChannels;
+  const float* rs_parts = p.part +
+                          (size_t)gridDim.x * splits * M * kQdChannels +
+                          (size_t)tile * splits * M;
+  for (int idx = tid; idx < M * kQdChannels; idx += kQdThreads) {
+    const int tok = idx / kQdChannels, ch = n0 + idx % kQdChannels;
+    if (ch >= N) continue;
+    float v = 0.f, r = 0.f;
+    for (int j = 0; j < splits; ++j) {
+      v += __ldcg(parts + (size_t)j * M * kQdChannels + idx);
+      if (BIASED) r += __ldcg(rs_parts + j * M + tok);
+    }
+    if (BIASED) v -= 8.f * r;
+    y[(size_t)tok * N + ch] = __float2bfloat16(v * p.scale[ch]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -549,28 +650,63 @@ qmm_int4_ffma(QmmParams p) {
     }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-                   const QmmParams& p, cudaStream_t stream) {
+// The decode tile's weight map, kept for the weights a thread has used: a
+// decode step takes the same weights again at every step, and encoding a
+// map costs the host more than the rest of a launch. A map is a function
+// of (base, K/2, N) alone (type, box and swizzle are fixed here), so a
+// kept one is never stale, whatever the memory at base holds now.
+bool weight_map(CUtensorMap* map, const void* w, int kh, int N) {
+  struct Kept {
+    unsigned char bytes[sizeof(CUtensorMap)];
+  };
+  struct Key {
+    const void* w;
+    int kh, N;
+    bool operator==(const Key& o) const {
+      return w == o.w && kh == o.kh && N == o.N;
+    }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      return std::hash<const void*>()(k.w) ^ ((size_t)k.kh << 32) ^ k.N;
+    }
+  };
+  thread_local std::unordered_map<Key, Kept, Hash> kept;
+  const auto it = kept.find(Key{w, kh, N});
+  if (it != kept.end()) {
+    std::memcpy(map, it->second.bytes, sizeof(CUtensorMap));
+    return true;
+  }
+  if (!tile_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, kh, N, 1, kh,
+                   (uint64_t)kh * N, kQdStep, kQdChannels, 1,
+                   CU_TENSOR_MAP_SWIZZLE_128B))
+    return false;
+  if (kept.size() >= 4096) kept.clear();   // bounded: a model has hundreds
+  std::memcpy(kept[Key{w, kh, N}].bytes, map, sizeof(CUtensorMap));
+  return true;
+}
+
+template <int TT, bool BIASED>
+cudaError_t launch_splitk(const QmmParams& p, cudaStream_t s) {
+  const int kh = p.K / 2;
+  if (p.M > TT || p.stages < 2 || p.stages > kQdMaxStages ||
+      p.split_cols < kQdStep || p.split_cols % kQdStep != 0)
+    return cudaErrorInvalidValue;
+  const int tiles = (p.N + kQdChannels - 1) / kQdChannels;
+  const int splits = (kh + p.split_cols - 1) / p.split_cols;
+  const int smem = qd_smem_bytes(TT, p.M, p.stages, p.split_cols);
+  if (splits > 65535 || smem > kSmemOptin ||
+      (splits > 1 && (p.part == nullptr || p.counters == nullptr)))
+    return cudaErrorInvalidValue;
+  // The packed weight as [N, K/2] bytes, boxes of 128 bytes by 64 channels.
+  CUtensorMap mw;
+  if (!weight_map(&mw, p.w, kh, p.N)) return cudaErrorInvalidValue;
+  auto kernel = qmm_int4_splitk<TT, BIASED>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<dim3(tiles, splits), kQdThreads, smem, s>>>(p, mw);
   return cudaGetLastError();
-}
-
-constexpr size_t stage_bytes(int rows, int cols, int bk) {
-  return 2 * rows * (2 * bk + 16) + cols * (bk + 16);
-}
-
-template <int TT, int BN, int BK, int KW, int STAGES, bool BIASED>
-cudaError_t launch_decode(const QmmParams& p, cudaStream_t s) {
-  if (p.M > TT) return cudaErrorInvalidValue;
-  constexpr size_t ring = STAGES * stage_bytes(TT, BN, BK);
-  constexpr size_t red = sizeof(float) * KW * (BN * TT + TT);
-  return launch(qmm_int4_decode<TT, BN, BK, KW, STAGES, BIASED>,
-                dim3((p.N + BN - 1) / BN), KW * 32, ring > red ? ring : red,
-                p, s);
 }
 
 template <int BT, int BC, bool BIASED>
@@ -604,8 +740,8 @@ cudaError_t launch_tile(const QmmParams& p, int x_bf16, int tile,
                         cudaStream_t s) {
   // Tiles as ops/params.py::QMM_TILES numbers them: 0 d8, 1 d16 (decode),
   // 2 w128 and 4 w256 (prefill), 3 ffma.
-  if (x_bf16 && tile == 0) return launch_decode<8, 32, 256, 4, 4, BIASED>(p, s);
-  if (x_bf16 && tile == 1) return launch_decode<16, 32, 256, 4, 4, BIASED>(p, s);
+  if (x_bf16 && tile == 0) return launch_splitk<8, BIASED>(p, s);
+  if (x_bf16 && tile == 1) return launch_splitk<16, BIASED>(p, s);
   if (x_bf16 && tile == 2) return launch_wgmma<128, 128, BIASED>(p, s);
   if (x_bf16 && tile == 4) return launch_wgmma<128, 256, BIASED>(p, s);
   if (!x_bf16 && tile == 3) {
@@ -624,19 +760,26 @@ cudaError_t launch_tile(const QmmParams& p, int x_bf16, int tile,
 // copies of both x slices and the packed rows); x and w 16-byte aligned.
 // The wgmma tiles (2, 4) take rs = rowsum(x) [M] fp32 for the biased
 // layout (else null), a ring of `stages` stages and tiles walked in bands
-// of `group` channel tiles; the other tiles ignore all three.
+// of `group` channel tiles. The decode tiles (0, 1) take a ring of
+// `stages` stages, K split into splits of `split_cols` packed columns (a
+// multiple of 128) and, with more than one split, part: fp32 workspace of
+// tiles * splits * M * 65 values, and counters: tiles unsigned ints, zero
+// (tiles = ceil(N / 64), splits = ceil(K / 2 / split_cols)). Unused
+// arguments may be 0.
 extern "C" int mfa_int4_matmul(const void* x, const void* w,
-                               const void* scale, const void* rs, void* y,
-                               int M, int N, int K, int x_bf16, int biased,
+                               const void* scale, const void* rs,
+                               void* part, void* counters, void* y, int M,
+                               int N, int K, int x_bf16, int biased,
                                int tile, int stages, int group,
-                               void* stream) {
+                               int split_cols, void* stream) {
   if (M < 1 || N < 1 || K < 32 || K % 32 != 0 ||
       (tile == 3 && (M + 63) / 64 > 65535))
     return cudaErrorInvalidValue;
   const QmmParams p{x, static_cast<const uint8_t*>(w),
                     static_cast<const float*>(scale),
                     static_cast<const float*>(rs), y, M, N, K, stages,
-                    group};
+                    group, split_cols, static_cast<float*>(part),
+                    static_cast<unsigned*>(counters)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return biased ? launch_tile<true>(p, x_bf16, tile, s)
                 : launch_tile<false>(p, x_bf16, tile, s);

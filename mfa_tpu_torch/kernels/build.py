@@ -58,9 +58,11 @@ _SIGNATURES = {
                          _P],                       # stream
     "mfa_decode_fused_append": [_P, _P, _P, _P, _P,  # q k v ks vs
                                 _P, _P, _P,          # k_new v_new lengths
-                                _P, _P,              # o scratch
+                                _P, _P,              # o workspace
                                 _I, _I, _I, _I, _I,  # bh hkv group L D
-                                _I, _I, _I, _I,      # window qdt kvfmt threads
+                                _I, _I, _I,          # window qdt kvfmt
+                                _I, _I, _I,          # split_rows chunk
+                                                     # threads
                                 _P],                 # stream
     "mfa_decode_attend": [_P, _P, _P, _P, _P,       # q k v ks vs
                           _P, _P, _P,               # lengths o workspace
@@ -83,10 +85,12 @@ _SIGNATURES = {
                                                     # ta tb tile
                  _I, _I,                            # stages group
                  _P],                               # stream
-    "mfa_int4_matmul": [_P, _P, _P, _P, _P,         # x w scale rs y
+    "mfa_int4_matmul": [_P, _P, _P, _P,             # x w scale rs
+                        _P, _P, _P,                 # part counters y
                         _I, _I, _I,                 # M N K
                         _I, _I, _I,                 # x_bf16 biased tile
-                        _I, _I,                     # stages group
+                        _I, _I, _I,                 # stages group
+                                                    # split_cols
                         _P],                        # stream
 }
 

@@ -3,10 +3,12 @@ plain version: K2, fused decode + append, and K5, unfused decode.
 
 K2 replaces ``mfa_tpu/kernels/decode.py::_decode_fused_kernel`` (CUDA
 source ``csrc/decode.cu``); K5 replaces ``_decode_kernel_single`` and
-``_decode_kernel`` (``csrc/decode_attend.cu``, whose body the paged
-kernel K6 in ``kernels/paged_decode.py`` shares). :func:`decode_fused_append`
-and :func:`decode_attend` launch their kernels for CUDA tensors and take
-their plain versions only for CPU tensors.
+``_decode_kernel`` (``csrc/decode_attend.cu``). All three (and the paged
+kernel K6 in ``kernels/paged_decode.py``) share one split-KV body,
+``csrc/decode_split.cuh``, and one launch shape (:func:`split_launch`).
+:func:`decode_fused_append` and :func:`decode_attend` launch their
+kernels for CUDA tensors and take their plain versions only for CPU
+tensors.
 
 Operands (BH = batch * kv heads, G query rows per kv head):
   q        [BH, G, D]   pre-scaled by scale*log2e, bf16 or fp32
@@ -31,15 +33,8 @@ INT8_MAX = quant.INT8_MAX
 # Cache storage types the kernel takes, with its format codes.
 KV_FORMATS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
               torch.float8_e5m2: 3}
-# K2 keeps a group's query rows in registers (K5 and K6 split larger
-# groups over CTAs).
-MAX_GROUP = 8
-# K2: one CTA of this many threads per (batch, kv head), for every head
-# dim: D / 8 lanes share a cache row, so it must be a multiple of the most
-# lanes a row takes. (Not tuned on the H100.) K5 and K6 take theirs from
-# ops/params.py.
-THREADS = 256
-assert THREADS % (params_mod.MAX_HEAD_DIM // 8) == 0
+# D / 8 lanes share a cache row, so a CTA's threads must be a multiple of
+# the most lanes a row takes.
 assert params_mod.DECODE_ATTEND_THREADS % (params_mod.MAX_HEAD_DIM // 8) == 0
 # Storage types whose per-token scales multiply S and P.
 QUANTIZED = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
@@ -190,17 +185,16 @@ def decode_fused_append(q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
     check_launch("decode_fused_append", q3, k, v, k_scale=k_scale,
                  v_scale=v_scale, k_new=k_new, v_new=v_new, lengths=lengths)
     bh, g, d = q3.shape
-    if g > MAX_GROUP:
-        raise ValueError(f"query group {g} exceeds {MAX_GROUP}")
     L = k.shape[1]
     o = torch.empty_like(q3)
-    scratch = torch.empty((bh, g, L), dtype=torch.float32, device=q3.device)
+    rows, chunk, workspace = split_launch(bh, g, L, d, q3.device, fused=True)
     build.library().call(
         "mfa_decode_fused_append", q3.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        scratch.data_ptr(), bh, num_kv_heads, g, L, d, sliding_window or 0,
-        int(q3.dtype == torch.bfloat16), KV_FORMATS[k.dtype], THREADS,
+        workspace.data_ptr(), bh, num_kv_heads, g, L, d,
+        sliding_window or 0, int(q3.dtype == torch.bfloat16),
+        KV_FORMATS[k.dtype], rows, chunk, params_mod.DECODE_ATTEND_THREADS,
         torch.cuda.current_stream(q3.device).cuda_stream)
     decode_fused_append.launches += 1
     return o
@@ -265,13 +259,14 @@ def decode_attend_plain(q3, k, v, k_scale, v_scale, lengths, *,
 
 
 def split_launch(n: int, group: int, capacity: int, head_dim: int,
-                 device: torch.device):
-    """The split-KV launch shape K5 and K6 share, from the shapes alone:
-    (split rows R, query rows a CTA, workspace). The fp32 workspace holds
-    the scores [n, chunks, capacity, query rows a CTA], each split's row
-    max and row sum [n, group, S] and partial O [n, group, S, D]
-    (S = ceil(capacity / R)), and the kernel's arrival counters (zeroed by
-    the kernel itself)."""
+                 device: torch.device, *, fused: bool = False):
+    """The split-KV launch shape K2, K5 and K6 share, from the shapes
+    alone: (split rows R, query rows a CTA, workspace). The fp32 workspace
+    holds the scores [n, chunks, capacity, query rows a CTA], each split's
+    row max and row sum [n, group, S] and partial O [n, group, S, D]
+    (S = ceil(capacity / R)), the kernel's arrival counters (zeroed by the
+    kernel itself) and, ``fused`` (K2), each split's max |P vs| [n, group,
+    S] (an int8 cache's P scale)."""
     rows = params_mod.decode_split_rows(n, group, capacity,
                                         params_mod.detect_device(device))
     chunk = params_mod.decode_group_chunk(group)
@@ -279,7 +274,7 @@ def split_launch(n: int, group: int, capacity: int, head_dim: int,
     chunks = -(-group // chunk)
     workspace = torch.empty(
         n * chunks * (capacity * chunk + 1)
-        + n * group * splits * (head_dim + 2),
+        + n * group * splits * (head_dim + 2 + int(fused)),
         dtype=torch.float32, device=device)
     return rows, chunk, workspace
 

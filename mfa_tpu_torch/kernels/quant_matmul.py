@@ -31,7 +31,7 @@ def int4_tile(m: int, n: int, x_dtype: torch.dtype,
               device: params_mod.HopperDevice = params_mod.H100
               ) -> params_mod.MatmulTile:
     """The tile for M rows of x and N output channels: FMA for fp32
-    activations; for bf16 the transposed decode tiles up to 8 or 16 rows
+    activations; for bf16 the split-K decode tiles up to 8 or 16 rows
     (M = slots), above them the wgmma tile of 128 or 256 channels whose
     persistent walk takes the fewer rounds times tile area
     (``params.persistent_rounds``; measured on the H100: 256 channels at
@@ -46,6 +46,50 @@ def int4_tile(m: int, n: int, x_dtype: torch.dtype,
                key=lambda t: params_mod.persistent_rounds(
                    -(-m // t.block_m) * -(-n // t.block_n),
                    t.block_m * t.block_n, device))
+
+
+# K8's split-K scratch, one pair per (device, stream): the fp32 partials
+# and the int32 arrival counters, each grown as a call needs. The counters
+# are zeroed once, then kept at zero between calls by the kernel (the last
+# CTA of a channel tile resets its counter); stream order keeps two calls
+# from using either at once. Kept, not allocated at each call: the decode
+# step makes seven calls a layer.
+_SCRATCH: dict = {}
+
+
+def split_scratch(floats: int, tiles: int, device: torch.device,
+                  stream: int):
+    """(partials, counters): at least ``floats`` fp32 values and ``tiles``
+    int32 counters on ``device`` for the calls on ``stream`` (a
+    ``cudaStream_t``), the counters all zero when a call that takes them
+    starts (a call ends with every counter it used back at zero)."""
+    key = (device, stream)
+    part, counters = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                           device=device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 1024), dtype=torch.int32,
+                               device=device)
+    _SCRATCH[key] = (part, counters)
+    return part, counters
+
+
+def split_launch(m: int, n: int, k: int, tile: params_mod.MatmulTile,
+                 device: torch.device, stream: int):
+    """K8's decode launch from the shapes alone: (packed columns a split,
+    partials, counters). With one split both are None; otherwise the
+    partials hold each split's products [tiles, splits, M, block_n] and
+    row sums of x [tiles, splits, M] (tiles = ceil(N / block_n)), and the
+    counters one per channel tile (:func:`split_scratch`)."""
+    cols = params_mod.qmm_split_cols(n, k, tile,
+                                     params_mod.detect_device(device))
+    splits = -(-(k // 2) // cols)
+    if splits == 1:
+        return cols, None, None
+    tiles = -(-n // tile.block_n)
+    return (cols, *split_scratch(tiles * splits * m * (tile.block_n + 1),
+                                 tiles, device, stream))
 
 
 def rowsum(x2: torch.Tensor) -> torch.Tensor:
@@ -104,7 +148,7 @@ def int4_matmul(x, packed, scale, *, layout: str, device="cuda"):
     for CUDA tensors (or raises); takes the plain version for CPU
     tensors."""
     _check(x, packed, scale, layout)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type != "cpu" and not x.is_cuda:
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
     check_on(resolve_device(device), x=x, packed=packed, scale=scale)
     *lead, k = x.shape
@@ -124,13 +168,17 @@ def int4_matmul(x, packed, scale, *, layout: str, device="cuda"):
     tile = int4_tile(m, n, x.dtype, params_mod.detect_device(x.device))
     biased = layout == "int4_biased"
     rs = rowsum(x2) if biased and tile.path == "wgmma" else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    cols, part, counters = (split_launch(m, n, k, tile, x.device, stream)
+                            if tile.path == "splitk" else (0, None, None))
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     build.library().call(
         "mfa_int4_matmul", x2.data_ptr(), packed.data_ptr(),
-        scale.contiguous().data_ptr(), None if rs is None else rs.data_ptr(),
+        scale.contiguous().data_ptr(), *(
+            None if t is None else t.data_ptr() for t in (rs, part, counters)),
         y.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16), int(biased),
-        _TILE_CODES[tile.name], tile.stages, params_mod.GEMM_TILE_GROUP,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _TILE_CODES[tile.name], tile.stages, params_mod.GEMM_TILE_GROUP, cols,
+        stream)
     int4_matmul.launches += 1
     return y.reshape(*lead, n)
 

@@ -6,8 +6,9 @@ rows are keyed on a Hopper device model (:class:`HopperDevice`, from
 ``torch.cuda.get_device_properties``) instead of a TPU generation. The
 flash kernels have rows: their blocks change with the head dim and the
 input type. The fused decode kernel has one launch shape for every head
-dim (``kernels/decode.py``). The split-KV decode kernels (K5, K6) split
-the cache by a rule on the device's SM count (:func:`decode_split_rows`).
+dim. The split-KV decode kernels (K2, K5, K6) split the cache by a rule
+on the device's SM count (:func:`decode_split_rows`), K8's decode tiles
+split K by another (:func:`qmm_split_cols`).
 The matrix-product kernels (K7 ``gemm``, K8
 ``int4_matmul``) choose among a few compiled tiles (:data:`GEMM_TILES`,
 :data:`QMM_TILES`) by the problem's shape instead of a head dim.
@@ -431,15 +432,16 @@ class MatmulTile:
     """One compiled tile of a matrix-product kernel: a CTA computes a
     block_m x block_n block of C with warps_m x warps_n warps, stepping K
     by block_k (K8: block_k packed bytes, i.e. 2 * block_k values of K) in
-    a ring of ``stages`` shared-memory buffers; warps_k > 1 splits each
-    step's K among that many warps, summed at the end. ``path`` "mma"
-    runs mma.sync on 16-bit operands, "mma_t" the same with the product
-    transposed (K8's decode: output channels on the mma's 16-row side),
-    "ffma" fp32 FMA, "wgmma" the warp-specialised persistent kernel (a
-    producer warpgroup streaming a TMA ring of ``stages`` stages to
-    warps_m consumer warpgroups: K7's own 64 rows of C each, K8's
-    block_n / 2 output channels each, the product transposed, by
-    block_m tokens)."""
+    a ring of ``stages`` shared-memory buffers. ``path`` "mma" runs
+    mma.sync on 16-bit operands, "splitk" the same with the product
+    transposed (K8's decode: output channels on the mma's 16-row side,
+    warps_n groups of 32 channels, four warps each) and K split across
+    CTAs (:func:`qmm_split_cols`), the weight streamed through a TMA ring
+    of ``stages`` boxes of block_k packed bytes; "ffma" fp32 FMA,
+    "wgmma" the warp-specialised persistent kernel (a producer warpgroup
+    streaming a TMA ring of ``stages`` stages to warps_m consumer
+    warpgroups: K7's own 64 rows of C each, K8's block_n / 2 output
+    channels each, the product transposed, by block_m tokens)."""
 
     name: str
     block_m: int
@@ -449,7 +451,6 @@ class MatmulTile:
     warps_n: int
     stages: int
     path: str = "mma"
-    warps_k: int = 1
 
 
 # K7. Two bf16 operands that TMA can map, M > 16: the wgmma tiles, 128 x
@@ -475,23 +476,50 @@ GEMM_TILES = {
 GEMM_TILE_GROUP = 8
 
 # K8, bf16 activations. Decode (M = slots <= 8 or 16): the transposed
-# product over 32 output channels a CTA (448 CTAs at N = 14336, 32 at
-# N = 1024), 256 packed bytes (512 values of K) a row per stage, four
-# stages deep, four warps splitting each stage's K. Prefill (M > 16): the
+# product over 64 output channels a CTA (eight warps: two groups of 32
+# channels, four warps each taking a quarter of every stage), K split across
+# CTAs by qmm_split_cols, the weight streamed 128 packed bytes (256 values
+# of K) a channel per stage through a 2-stage TMA ring. Prefill (M > 16): the
 # wgmma tiles, 128 tokens by 128 channels (a 4-stage ring) or by 256 (a
 # 3-stage ring; it reads 40% fewer operand bytes a product, 10-12% faster
 # wherever its tiles fill the card), 64 packed bytes a step, chosen by
 # kernels/quant_matmul.py::int4_tile; fewer stages measured no faster,
 # and the wgmma tile beat a 64 x 128 mma.sync tile at every M from 17 to
-# 2048 on the H100. fp32 activations: the FMA tile. (The decode and FMA
-# tiles are not tuned on the H100.)
+# 2048 on the H100. fp32 activations: the FMA tile (not tuned on the
+# H100).
 QMM_TILES = {
-    "d8": MatmulTile("d8", 8, 32, 256, 1, 1, 4, "mma_t", 4),
-    "d16": MatmulTile("d16", 16, 32, 256, 1, 1, 4, "mma_t", 4),
+    "d8": MatmulTile("d8", 8, 64, 128, 1, 2, 2, "splitk"),
+    "d16": MatmulTile("d16", 16, 64, 128, 1, 2, 2, "splitk"),
     "w128": MatmulTile("w128", 128, 128, 64, 2, 1, 4, "wgmma"),
     "w256": MatmulTile("w256", 128, 256, 64, 2, 1, 3, "wgmma"),
     "ffma": MatmulTile("ffma", 64, 64, 16, 4, 2, 1, "ffma"),
 }
+
+
+# K8's decode tiles split K/2 packed columns into splits of a multiple of
+# block_k, at most QMM_SPLIT_MAX_COLS (x's two slices of a split stay in
+# shared memory), so that the grid (channel tiles x splits) holds about
+# QMM_SPLIT_CTAS_PER_SM CTAs an SM where K allows. Read at each call.
+# Measured on the H100 by utils/bwd_tuning.py sweep --only qmm_decode:
+# with the tiles' 2-stage ring, 4 CTAs an SM takes a Llama-3-8B layer's
+# seven projections within 1.2% of the fastest of ring depths 2-4 and 2,
+# 4 or 8 CTAs an SM, at M 4 and 16, both layouts (deeper rings leave room
+# for fewer CTAs an SM and ran slower).
+QMM_SPLIT_CTAS_PER_SM = 4
+QMM_SPLIT_MAX_COLS = 1024
+
+
+def qmm_split_cols(n: int, k: int, tile: MatmulTile,
+                   device: HopperDevice = H100) -> int:
+    """Packed columns (of K/2) that one split of K8's decode tile covers,
+    for N output channels and K inputs; from these shapes and the SM
+    count alone. The splits are ceil(K / 2 / cols)."""
+    steps = -(-(k // 2) // tile.block_k)
+    tiles = -(-n // tile.block_n)
+    want = -(-QMM_SPLIT_CTAS_PER_SM * device.sm_count // tiles)
+    splits = max(-(-steps // (QMM_SPLIT_MAX_COLS // tile.block_k)),
+                 min(steps, want))
+    return -(-steps // splits) * tile.block_k
 
 
 def persistent_rounds(tiles: int, tile_area: int,
@@ -521,28 +549,26 @@ def gemm_smem_bytes(tile: MatmulTile, transpose_a: bool = False,
     return 2 * tile.stages * (a + b)
 
 
-def qmm_smem_bytes(tile: MatmulTile) -> int:
+def qmm_smem_bytes(tile: MatmulTile, split_cols: int = QMM_SPLIT_MAX_COLS,
+                   rows: int | None = None) -> int:
     """Shared memory of one K8 CTA (csrc/quant_matmul.cu). wgmma: per
     stage x's two K slices [block_m, block_k] bf16 and the packed tile
     [block_n, block_k] bytes, unpadded and swizzled, and a full and an
     empty mbarrier; the epilogue's staging tile [block_m, block_n + 8]
     bf16; the slack that aligns the ring to the 1024-byte swizzle atom.
-    The others: per stage the x tile [block_m, 2 * block_k + 16] bf16 (its
-    two K halves side by side) and the packed weight tile [block_n,
-    block_k + 16] bytes; the split-K warps of a decode tile reuse the ring
-    to sum their fp32 partial products and row sums."""
+    splitk (a split of ``split_cols`` packed columns, ``rows`` tokens,
+    at most block_m): per stage the packed box [block_n, block_k] bytes
+    and its mbarrier, x's two slices [rows, 2 * split_cols + 16] bf16,
+    each k-quarter's row sums [4, block_m] fp32, a flag, and the same
+    slack."""
     if tile.path == "ffma":
         return ffma_smem_bytes(tile)
+    bm, bn, bk = tile.block_m, tile.block_n, tile.block_k
     if tile.path == "wgmma":
-        bm, bn, bk = tile.block_m, tile.block_n, tile.block_k
         return (tile.stages * (2 * bm * bk * 2 + bn * bk + 16)
                 + bm * (bn + 8) * 2 + _SMEM_ALIGN)
-    ring = tile.stages * (2 * tile.block_m * (2 * tile.block_k + 16)
-                          + tile.block_n * (tile.block_k + 16))
-    if tile.warps_k == 1:
-        return ring
-    return max(ring, 4 * tile.warps_k * (tile.block_m * tile.block_n
-                                         + tile.block_m))
+    return (_SMEM_ALIGN + tile.stages * (bn * bk + 8)
+            + (rows or bm) * (2 * split_cols + 16) * 2 + 16 * bm + 4)
 
 
 def ffma_smem_bytes(tile: MatmulTile) -> int:

@@ -23,6 +23,12 @@ mma.sync tile; and K8's wgmma tiles (128 channels at ring depths 2-4,
 1024, both layouts, each line naming the tile the rule picks. Each
 candidate is first held to its plain version at ``KERNEL_BUDGETS``.
 
+``sweep --only qmm_decode`` runs K8's split-K decode tiles at Llama-3-8B's
+four projections (4096 -> 4096, 1024, 14336 and 14336 -> 4096), M = 4
+and 16, both layouts, for ring depths 2-4 and split rules aiming at 2, 4
+and 8 CTAs an SM (``params.QMM_SPLIT_CTAS_PER_SM``), each held to its
+plain version first.
+
 ``curve`` runs ``chip_smoke.py``'s six training steps (Llama-3-8B
 widths at 16 layers, random bf16 weights from seed 4, one 1 x 2049
 batch, AdamW at lr 1e-3) with none, K1, K3 and K4, or all three of the
@@ -32,7 +38,8 @@ kernels' last bits.
 
 Run on a GPU from the repository root:
 
-    python -m mfa_tpu_torch.utils.bwd_tuning sweep [--only fwd|bwd|matmul]
+    python -m mfa_tpu_torch.utils.bwd_tuning sweep \
+        [--only fwd|bwd|matmul|qmm_decode]
     python -m mfa_tpu_torch.utils.bwd_tuning curve [--plain none k1 k34 k1,k34]
 """
 
@@ -267,6 +274,53 @@ def sweep_matmul() -> None:
             torch.cuda.empty_cache()
 
 
+# K8's decode tiles: ring depths and the split rule's CTAs an SM.
+QMM_DECODE_STAGES = (2, 3, 4)
+QMM_DECODE_CTAS = (2, 4, 8)
+
+
+def sweep_qmm_decode() -> None:
+    tiles, ctas = dict(params.QMM_TILES), params.QMM_SPLIT_CTAS_PER_SM
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)):
+        for layout in ("int4", "int4_biased"):
+            w = torch.randn((n, k), generator=gen, device="cuda") / k ** 0.5
+            qw = quant.quantize_weight(w, layout)
+            bkey = "biased" if layout == "int4_biased" else "signed"
+            for m in (4, 16):
+                x = torch.randn((m, k), generator=gen,
+                                device="cuda").bfloat16()
+                want = k8.int4_matmul_plain(x, qw.w, qw.scale, layout=layout)
+                for stages in QMM_DECODE_STAGES:
+                    for c in QMM_DECODE_CTAS:
+                        for name in ("d8", "d16"):
+                            params.QMM_TILES[name] = dataclasses.replace(
+                                tiles[name], stages=stages)
+                        params.QMM_SPLIT_CTAS_PER_SM = c
+                        tile = k8.int4_tile(m, n, torch.bfloat16)
+                        run = lambda: k8.int4_matmul(  # noqa: E731
+                            x, qw.w, qw.scale, layout=layout)
+                        share = budget_share(run(), want, *KERNEL_BUDGETS[
+                            f"int4_matmul_{bkey}"])
+                        row = {"kernel": "int4_matmul_decode",
+                               "layout": layout, "M": m, "K": k, "N": n,
+                               "tile": tile.name, "stages": stages,
+                               "ctas_per_sm": c,
+                               "split_cols": params.qmm_split_cols(n, k,
+                                                                   tile),
+                               "rule": (stages == tiles[tile.name].stages
+                                        and c == ctas),
+                               "share": share, "ms": _cuda_ms(run, iters=50)}
+                        print(json.dumps(row), flush=True)
+                        params.QMM_TILES.update(tiles)
+                        params.QMM_SPLIT_CTAS_PER_SM = ctas
+                        if share > 1:
+                            raise SystemExit(f"K8 decode candidate {row} "
+                                             f"misses its budget")
+            del w, qw
+            torch.cuda.empty_cache()
+
+
 def curve(plain: list[str], steps: int = 6) -> None:
     from mfa_tpu_torch.models import llama, training
     from mfa_tpu_torch.utils.data import TokenDataset
@@ -306,7 +360,7 @@ def curve(plain: list[str], steps: int = 6) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("sweep", "curve"))
-    ap.add_argument("--only", choices=("fwd", "bwd", "matmul"),
+    ap.add_argument("--only", choices=("fwd", "bwd", "matmul", "qmm_decode"),
                     default=None, help="sweep one group of kernels only")
     ap.add_argument("--plain", nargs="*",
                     default=["none", "k1", "k34", "k1,k34"],
@@ -324,6 +378,8 @@ def main(argv=None) -> int:
         sweep_bwd()
     if args.only in (None, "matmul"):
         sweep_matmul()
+    if args.only in (None, "qmm_decode"):
+        sweep_qmm_decode()
     return 0
 
 

@@ -1,5 +1,6 @@
 """Launch-shape sweep and two-tree comparison of the split-KV decode
-kernels (K5 ``decode_attend``, K6 ``paged_decode``) on one GPU.
+kernels (K2 ``decode_fused_append``, K5 ``decode_attend``, K6
+``paged_decode``), and the other kernels' phases in turns, on one GPU.
 
 ``sweep`` times K5 and K6 at ``chip_smoke.py``'s table shapes, and K6 at
 the profiler's paged serving step (8 slots at ~1030 tokens), for every
@@ -8,20 +9,23 @@ configuration is first held to its plain version at
 ``KERNEL_BUDGETS``. ``kernels`` splits a call's device time between its
 two kernels (torch.profiler). ``turns`` runs ``chip_smoke.py``'s k5 and
 k6 phases (``--what kernels``), its serving and paged serving phases
-(``serving``), a host-time probe of the K6 wrapper (``host``), its
+(``serving``), a host-time probe of the K6, K2 and K8 wrappers
+(``host``), its
 forward kernel phase (``k1``), its fused decode phase (``k2``), its
 backward kernel phase (``bwd``, K3 and K4), its GEMM phase (``k7``), its
-INT4 matmul phase (``k8``), its training phase (``training``) or the
-profiler's INT4 phase (``int4``) from two trees in turns (A, B, B, A),
-each in a process of its own that builds and loads its own tree's
-kernels.
+INT4 matmul phase (``k8``; ``k8d``: the decode tile alone at M 4 and
+16), its training phase (``training``), the profiler's serving phase
+(``profile``: prefills and decode steps over bf16, INT8 and FP8 caches)
+or its INT4 phase (``int4``) from two trees in turns (A, B, B, A), each
+in a process of its own that builds and loads its own tree's kernels.
 
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.decode_tuning sweep [--out chiprun_out]
     python -m mfa_tpu_torch.utils.decode_tuning kernels
     python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
-        [--what kernels|serving|host|k1|k2|bwd|k7|k8|training|int4]
+        [--what kernels|serving|host|k1|k2|bwd|k7|k8|k8d|training|profile|
+                int4]
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 from mfa_tpu_torch.kernels import decode as k5
 from mfa_tpu_torch.kernels import paged_decode as k6
 from mfa_tpu_torch.ops import params as params_mod
+from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.serving import kv_cache
 from mfa_tpu_torch.utils.testing import (
     KERNEL_BUDGETS,
@@ -72,8 +77,6 @@ def _cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 def _k5_case(gen, fmt: str, max_len: int):
     """chip_smoke.phase_k5's shape: B = 4, Hkv = 8, G = 4, D = 128,
     lengths 0, 777, L - 1, L."""
-    from mfa_tpu_torch.ops.precision import OperandPrecision
-
     b, hkv, g, d = 4, 8, 4, 128
     prec = {"bf16": OperandPrecision.BF16, "int8": OperandPrecision.INT8,
             "fp8_e4m3": OperandPrecision.FP8_E4M3}[fmt]
@@ -165,9 +168,11 @@ def kernels(calls: int = 20) -> None:
 
 # What ``turns`` runs in each tree (the tree's own chip_smoke.py and
 # package, from its root): the kernel checks, the contiguous and paged
-# serving runs, or the host time of one K6 wrapper call at the
-# profiler's paged step (8 x 1030 tokens, 512-token pages), its launches
-# queued behind a device spin.
+# serving runs, or the host time of one wrapper call (its launches queued
+# behind a device spin): K6 at the profiler's paged step (8 x 1030 tokens,
+# 512-token pages), K2 at the INT4 decode step's (4 slots x 8 kv heads,
+# G 4, an FP8-e4m3 cache of 2048) and K8 at M 4 on two of its
+# projections.
 _TURNS = {
     "kernels": "c.phase_k5(torch); c.phase_k6(torch)",
     # K1's phase, then causal K1 alone at the server's prefill buckets
@@ -197,6 +202,27 @@ for n in (64, 512, 2048):
     "k2": "c.phase_k2(torch)",
     "k7": "c.phase_k7(torch)",
     "k8": "c.phase_k8(torch)",
+    # K8 at decode alone through the entry point both trees have: the four
+    # projections at M 4 and 16, signed and biased, F.linear on the
+    # dequantized weight beside it.
+    "k8d": """
+import json, math
+import torch.nn.functional as F
+from mfa_tpu_torch.kernels import quant, quant_matmul as k8
+gen = torch.Generator(device="cuda").manual_seed(8)
+for k, n in c.LLAMA3_8B_PROJECTIONS:
+    for layout in ("int4", "int4_biased"):
+        w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
+        qw = quant.quantize_weight(w, layout)
+        w_deq = qw.dequantize(torch.bfloat16)
+        for m in (4, 16):
+            x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            ms = c.cuda_ms(torch, lambda: k8.int4_matmul(
+                x, qw.w, qw.scale, layout=layout), iters=50)
+            lib = c.cuda_ms(torch, lambda: F.linear(x, w_deq), iters=50)
+            print(json.dumps({"phase": "k8d", "layout": layout, "M": m,
+                              "K": k, "N": n, "ms": ms, "library_ms": lib}))
+""",
     # The profiler's INT4 phase: a 2048-token prefill and decode steps of
     # Llama-3-8B with INT4 weights, device time by kernel group.
     "int4": """
@@ -210,11 +236,25 @@ for row in profiling.profile_int4(LlamaConfig.llama3_8b(), out=out):
     print(json.dumps(row))
 """,
     "training": "c.phase_training(torch)",
+    # The profiler's serving phase: prefills, then decode steps of
+    # Llama-3-8B over bf16, INT8 and FP8-e4m3 caches, device time by
+    # kernel group.
+    "profile": """
+import json
+from pathlib import Path
+from mfa_tpu_torch.models.llama import LlamaConfig
+from mfa_tpu_torch.utils import profiling
+out = Path("build/profiles")
+out.mkdir(parents=True, exist_ok=True)
+for row in profiling.profile_serving(LlamaConfig.llama3_8b(), out=out):
+    print(json.dumps(row))
+""",
     "serving": ("_, m, prompts, toks = c.phase_serving(torch); "
                 "c.phase_paged_serving(torch, m, prompts, toks)"),
     "host": """
-import json, time
-from mfa_tpu_torch.kernels import paged_decode as k6
+import json, math, time
+from mfa_tpu_torch.kernels import decode as k5, paged_decode as k6
+from mfa_tpu_torch.kernels import quant, quant_matmul as k8
 from mfa_tpu_torch.utils.testing import shuffled_page_pool
 gen = torch.Generator(device="cuda").manual_seed(0)
 lens = [1030] * 8
@@ -222,17 +262,37 @@ ops = (*shuffled_page_pool(torch.bfloat16, lens, 8, 128, 512, 4,
                            generator=gen, device="cuda"),
        torch.tensor(lens, dtype=torch.int32, device="cuda"))
 q3 = torch.randn((64, 4, 128), generator=gen, device="cuda").bfloat16()
-for rep in range(5):
-    for _ in range(20):
-        k6.paged_decode(q3, *ops)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(300_000_000)
-    t0 = time.perf_counter()
-    for _ in range(100):
-        k6.paged_decode(q3, *ops)
-    us = (time.perf_counter() - t0) / 100 * 1e6
-    torch.cuda.synchronize()
-    print(json.dumps({"phase": "host", "rep": rep, "us_per_call": us}))
+calls = {"k6_bf16_8x1030": lambda: k6.paged_decode(q3, *ops)}
+kc, vc = (torch.randn((32, 2048, 128), generator=gen, device="cuda")
+          .to(torch.float8_e4m3fn) for _ in range(2))
+ks, vs = (torch.rand((32, 2048), generator=gen, device="cuda")
+          for _ in range(2))
+q2 = torch.randn((32, 4, 128), generator=gen, device="cuda").bfloat16()
+kn, vn = (torch.randn((32, 128), generator=gen, device="cuda").bfloat16()
+          for _ in range(2))
+lens2 = torch.tensor([1030] * 4, dtype=torch.int32, device="cuda")
+calls["k2_fp8_4x8x2048"] = lambda: k5.decode_fused_append(
+    q2, kc, vc, ks, vs, kn, vn, lens2, num_kv_heads=8)
+for k, n in ((4096, 1024), (4096, 14336)):
+    qw = quant.quantize_weight(torch.randn((n, k), generator=gen,
+                                           device="cuda") / math.sqrt(k),
+                               "int4")
+    x = torch.randn((4, k), generator=gen, device="cuda").bfloat16()
+    calls[f"k8_M4_{k}x{n}"] = (lambda x=x, qw=qw: k8.int4_matmul(
+        x, qw.w, qw.scale, layout="int4"))
+for name, fn in calls.items():
+    for rep in range(5):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(300_000_000)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        us = (time.perf_counter() - t0) / 100 * 1e6
+        torch.cuda.synchronize()
+        print(json.dumps({"phase": "host", "call": name, "rep": rep,
+                          "us_per_call": us}))
 """,
 }
 

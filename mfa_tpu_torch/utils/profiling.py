@@ -49,9 +49,10 @@ TRAIN_LAYERS = 16
 _GROUPS = (("flash_fwd", ("flash_fwd",)),
            ("flash_bwd_q", ("flash_bwd_q",)),
            ("flash_bwd_kv", ("flash_bwd_kv",)),
-           ("decode_fused_append", ("decode_fused_append",)),
-           # K5 and K6 are one template, told apart by its row functor;
-           # both of its kernels (decode_score, decode_attend) carry it.
+           # K2, K5 and K6 are one template, told apart by its row
+           # functor, which all their kernels (decode_score, decode_attend,
+           # K2's decode_pmax) carry.
+           ("decode_fused_append", ("FusedRows",)),
            ("paged_decode", ("PagedRows",)),
            ("decode_attend", ("ContiguousRows",)),
            ("scatter_append", ("index_elementwise", "index_put",

@@ -30,17 +30,17 @@ PRECISIONS = {
 }
 
 
-def _filled(rng, jprec, tprec, window=None):
+def _filled(rng, jprec, tprec, window=None, hkv=HKV):
     fill = max(LENGTHS)
-    k_all = rng.standard_normal((B, HKV, fill, D)).astype(np.float32)
-    v_all = rng.standard_normal((B, HKV, fill, D)).astype(np.float32)
+    k_all = rng.standard_normal((B, hkv, fill, D)).astype(np.float32)
+    v_all = rng.standard_normal((B, hkv, fill, D)).astype(np.float32)
     # Under jit, as mfa_tpu's prefill runs it: XLA computes the scale as
     # amax * (1 / qmax), which the port follows (kernels/quant.py).
-    jc = jax.jit(jax_kv.update)(jax_kv.create(B, HKV, MAX_LEN, D, jprec),
+    jc = jax.jit(jax_kv.update)(jax_kv.create(B, hkv, MAX_LEN, D, jprec),
                                 jnp.asarray(k_all), jnp.asarray(v_all))
     jc = dataclasses.replace(jc, lengths=jnp.asarray(LENGTHS, jnp.int32))
     tc = kv_cache.update(
-        kv_cache.create(B, HKV, MAX_LEN, D, tprec, device="cpu"),
+        kv_cache.create(B, hkv, MAX_LEN, D, tprec, device="cpu"),
         torch.from_numpy(k_all), torch.from_numpy(v_all))
     tc.lengths = torch.tensor(LENGTHS, dtype=torch.int32)
     return jc, tc
@@ -100,6 +100,33 @@ def test_decode_append_sliding_window_matches_mfa_tpu(name):
         device="cpu")
     _assert_same_cache(jc, tc)
     assert_close(o_t, np.asarray(o_j, np.float32), tol, "O window")
+
+
+@pytest.mark.parametrize("name", ["bf16", "int8"])
+def test_decode_append_group_16_matches_mfa_tpu(name):
+    """Hq / Hkv = 16: two of the kernel's query chunks on the card (its
+    group limit of 8 is gone); mfa_tpu's fused kernel takes the whole
+    group in one block. Two steps, the second under a window."""
+    jprec, tprec, tol = PRECISIONS[name]
+    rng = np.random.default_rng(13)
+    hkv, hq = 1, 16
+    jc, tc = _filled(rng, jprec, tprec, hkv=hkv)
+    for step, window in enumerate((None, 100)):
+        q = rng.standard_normal((B, hq, D)).astype(np.float32)
+        kn = (rng.standard_normal((B, hkv, D)) * 0.5).astype(np.float32)
+        vn = (rng.standard_normal((B, hkv, D)) * 0.5).astype(np.float32)
+        o_j, jc = jax_decode_append(jnp.asarray(q, jnp.bfloat16),
+                                    jnp.asarray(kn, jnp.bfloat16),
+                                    jnp.asarray(vn, jnp.bfloat16), jc,
+                                    sliding_window=window)
+        o_t, tc = decode_attention_append(
+            torch.from_numpy(q).bfloat16(), torch.from_numpy(kn).bfloat16(),
+            torch.from_numpy(vn).bfloat16(), tc, sliding_window=window,
+            device="cpu")
+        _assert_same_cache(jc, tc)
+        assert_close(o_t, np.asarray(o_j, np.float32), tol,
+                     f"O step {step} ({name}, G 16)")
+    assert tc.lengths.tolist() == [2, 302, MAX_LEN]
 
 
 def test_empty_slot_attends_only_the_new_token():

@@ -1,7 +1,8 @@
-"""The split rule of the split-KV decode kernels (K5 ``decode_attend``, K6
-``paged_decode``) on the CPU: ``ops/params.py::decode_split_rows``, and the
-launch arguments both wrappers hand the kernel library, recorded by a
-stand-in library over meta tensors (no kernel runs here)."""
+"""The split rule of the split-KV decode kernels (K2
+``decode_fused_append``, K5 ``decode_attend``, K6 ``paged_decode``) on the
+CPU: ``ops/params.py::decode_split_rows``, and the launch arguments the
+wrappers hand the kernel library, recorded by a stand-in library over meta
+tensors (no kernel runs here)."""
 
 import types
 
@@ -52,6 +53,14 @@ def test_split_rows_fill_the_card_at_the_table_shapes(n, group, capacity,
     on an H100), about two CTAs an SM (~2 x 132) or more."""
     assert params.decode_split_rows(n, group, capacity, params.H100) == rows
     assert _ctas(n, group, capacity, rows) >= 256
+
+
+def test_k2_split_fills_the_card_at_chip_smokes_shape():
+    """K2 takes K5's rule: at chip_smoke's k2 shape (4 sequences x Hkv 8,
+    G 4, L 2048) its grid holds more CTAs than the H100 has SMs (the
+    kernel before held one a (sequence, kv head): 32)."""
+    rows = params.decode_split_rows(32, 4, 2048, params.H100)
+    assert _ctas(32, 4, 2048, rows) >= params.H100.sm_count
 
 
 def test_split_rows_for_one_short_sequence():
@@ -136,3 +145,75 @@ def test_workspace_holds_what_the_kernel_carves():
                     + n * g * (2 * splits + splits * d) + n * chunks)
             assert ws.dtype == torch.float32 and ws.numel() >= need
             assert chunk in (4, 8) and chunk >= min(g, 8)
+
+
+def test_k2_workspace_holds_each_splits_p_scale_too():
+    """K2's workspace: K5's, then each split's max |P vs| (an int8
+    cache's P scale) after the counters."""
+    for n, g, cap in SHAPES[::7]:
+        for d in (8, 128, 256):
+            rows, chunk, ws = k5.split_launch(n, g, cap, d,
+                                              torch.device("meta"),
+                                              fused=True)
+            splits, chunks = max(1, -(-cap // rows)), -(-g // chunk)
+            need = (n * chunks * cap * chunk
+                    + n * g * (3 * splits + splits * d) + n * chunks)
+            assert ws.dtype == torch.float32 and ws.numel() >= need
+
+
+@pytest.mark.parametrize("seqs, hkv, group, cap, d, window", [
+    (4, 8, 4, 2048, 128, None), (4, 8, 4, 8192, 128, 512),
+    (4, 2, 16, 2048, 128, 512), (3, 1, 12, 300, 64, None),
+    (1, 4, 1, 128, 8, 1), (2, 1, 33, 1024, 256, None),
+])
+def test_k2_takes_the_split_and_counts_one_launch(library, monkeypatch,
+                                                  seqs, hkv, group, cap, d,
+                                                  window):
+    """Through the entry point: one counted K2 call a step, K5's split
+    rows, query chunk and CTA size, any group (no limit of 8 rows)."""
+    from mfa_tpu_torch.ops import decode as ops_decode
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+    from mfa_tpu_torch.serving.kv_cache import KVCache
+
+    monkeypatch.setattr(ops_decode, "resolve_device",
+                        lambda device: torch.device("meta"))
+    n = seqs * hkv
+    storage = _meta(seqs, hkv, cap, d, dtype=torch.int8)
+    cache = KVCache(storage, storage, _meta(seqs, hkv, cap),
+                    _meta(seqs, hkv, cap), _meta(seqs, dtype=torch.int32),
+                    OperandPrecision.INT8)
+    q = _meta(seqs, hkv * group, d, dtype=torch.bfloat16)
+    kn = _meta(seqs, hkv, d, dtype=torch.bfloat16)
+    before = k5.decode_fused_append.launches
+    o, cache = ops_decode.decode_attention_append(
+        q, kn, kn, cache, sliding_window=window, device="cuda")
+    assert o.shape == q.shape
+    assert k5.decode_fused_append.launches == before + 1
+    ((name, args),) = library.calls
+    assert name == "mfa_decode_fused_append"
+    # bh hkv group L D window q_bf16 format, then split rows, query rows a
+    # CTA and threads before the stream.
+    assert args[10:18] == (n, hkv, group, cap, d, window or 0, 1,
+                           k5.KV_FORMATS[torch.int8])
+    assert args[18:21] == (params.decode_split_rows(n, group, cap),
+                           params.decode_group_chunk(group),
+                           params.DECODE_ATTEND_THREADS)
+
+
+def test_k5_bit_guard_covers_every_recorded_case(monkeypatch):
+    """chip_smoke.py's guard on K5's bits: k5_bits gives one digest for
+    each case of K5_DIGESTS, and the same digests at a second call (its
+    inputs come from a seed alone). On the CPU K5 is its plain version,
+    so the digests themselves are the card's only there."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_k5", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self: self)
+    first = smoke.k5_bits(torch)
+    assert sorted(first) == sorted(smoke.K5_DIGESTS)
+    assert all(len(v) == 16 for v in smoke.K5_DIGESTS.values())
+    assert smoke.k5_bits(torch) == first

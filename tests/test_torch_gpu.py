@@ -370,6 +370,74 @@ def test_split_edges_k5_and_k6_match_plain(cuda, case, ps):
     assert not o5[:hkv].any()                    # length 0 gives zeros
 
 
+# K2 over a cache of many splits, the lengths at split edges (0, 1, R - 1,
+# R, R + 1, capacity - 1, capacity for the split rows R of the shape), for
+# every storage type, groups 1-16 (12 and 16 cross the query-chunk axis;
+# 12 with fp32 q) and windows (300 starts inside a split; 1 keeps only the
+# new token).
+K2_SPLIT_CASES = [(fmt, g, w) for fmt in ("bf16", "int8", "fp8_e4m3",
+                                          "fp8_e5m2")
+                  for g in (1, 4, 8, 12, 16) for w in (None, 300, 1)]
+
+
+@pytest.mark.parametrize("case", K2_SPLIT_CASES,
+                         ids=[f"k2s-{c[0]}-G{c[1]}-w{c[2]}"
+                              for c in K2_SPLIT_CASES])
+def test_split_edges_k2_match_plain(cuda, case):
+    from mfa_tpu_torch.ops import params
+
+    fmt, g, window = case
+    hkv, d, cap = 2, 128, 4096
+    qdtype = torch.float32 if g == 12 else torch.bfloat16
+    rows = params.decode_split_rows(7 * hkv, g, cap,
+                                    params.detect_device(cuda))
+    assert -(-cap // rows) >= 4
+    lens = (0, 1, rows - 1, rows, rows + 1, cap - 1, cap)
+    b, bh = len(lens), len(lens) * hkv
+    gen = torch.Generator(device=cuda).manual_seed(g * 31 + (window or 0))
+    cache = kv_cache.create(b, hkv, cap, d, _FORMATS[fmt], device=cuda)
+    kv_cache.update(cache, *torch.randn((2, b, hkv, cap, d), generator=gen,
+                                        device=cuda))
+    cache.lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q3 = (torch.randn((bh, g, d), generator=gen, device=cuda)
+          * (math.log2(math.e) / math.sqrt(d))).to(qdtype)
+    kn, vn = (torch.randn((bh, d), generator=gen, device=cuda).to(qdtype)
+              for _ in range(2))
+    twins = [kv_cache.KVCache(cache.k.clone(), cache.v.clone(),
+                              cache.k_scale.clone(), cache.v_scale.clone(),
+                              cache.lengths.clone(), cache.precision)
+             for _ in range(2)]
+
+    def views(c):
+        return (c.k.view(bh, cap, d), c.v.view(bh, cap, d),
+                c.k_scale.view(bh, cap), c.v_scale.view(bh, cap))
+
+    kw = dict(num_kv_heads=hkv, sliding_window=window)
+    n = k2.decode_fused_append.launches
+    _nan_filled_pool(cuda, q3.numel(), qdtype)
+    o = k2.decode_fused_append(q3, *views(cache), kn, vn, cache.lengths,
+                               **kw)
+    o2 = k2.decode_fused_append(q3, *views(twins[0]), kn, vn,
+                                twins[0].lengths, **kw)
+    torch.cuda.synchronize()
+    assert k2.decode_fused_append.launches == n + 2
+    assert_fully_written(o, "O")
+    # No atomics on values and a fixed order of sums: the same bits again.
+    assert torch.equal(o, o2)
+    o_p = k2.decode_fused_append_plain(q3, *views(twins[1]), kn, vn,
+                                       twins[1].lengths, **kw)
+    atol, rtol = KERNEL_BUDGETS["decode_o"]
+    assert_close(o, o_p, atol, "O", rtol=rtol)
+    for f in ("k", "v"):
+        assert torch.equal(_bits(getattr(cache, f)),
+                           _bits(getattr(twins[1], f)))
+    for f in ("k_scale", "v_scale"):
+        torch.testing.assert_close(getattr(cache, f), getattr(twins[1], f),
+                                   rtol=1e-6, atol=0)
+    # Length 0 (and a window of 1) attends only the new token.
+    assert torch.equal(o[:hkv], vn[:hkv, None, :].expand(hkv, g, d))
+
+
 def test_paged_scheduler_on_cuda_matches_cpu(cuda):
     cfg = llama.LlamaConfig.tiny()
     params = llama.init_params(cfg, torch.Generator().manual_seed(3),
@@ -792,6 +860,41 @@ def test_int4_matmul_wgmma_tile_matches_plain(cuda, case):
     y3 = k8.int4_matmul(x.view(1, m, k), qw.w, qw.scale, layout=layout,
                         device=cuda)
     assert torch.equal(y3[0], y)
+
+
+# K8's split-K decode tiles at Llama-3-8B's four projections (K -> N),
+# every decode batch (M 1, 4, 8, 16; d8 up to 8 rows, d16 above).
+QMM_DECODE_CASES = [(layout, m, k, n)
+                    for layout in ("int4", "int4_biased")
+                    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096))
+                    for m in (1, 4, 8, 16)]
+
+
+@pytest.mark.parametrize("case", QMM_DECODE_CASES,
+                         ids=[f"k8d-{c[0]}-M{c[1]}-K{c[2]}-N{c[3]}"
+                              for c in QMM_DECODE_CASES])
+def test_int4_matmul_decode_tile_matches_plain(cuda, case):
+    layout, m, k, n = case
+    assert k8.int4_tile(m, n, torch.bfloat16).path == "splitk"
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + n + k)
+    w = torch.randn((n, k), generator=gen, device=cuda) / math.sqrt(k)
+    qw = quant.quantize_weight(w, layout)
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    n8 = k8.int4_matmul.launches
+    _nan_filled_pool(cuda, m * n, torch.bfloat16)
+    y = k8.int4_matmul(x, qw.w, qw.scale, layout=layout, device=cuda)
+    y2 = k8.int4_matmul(x, qw.w, qw.scale, layout=layout, device=cuda)
+    torch.cuda.synchronize()
+    assert k8.int4_matmul.launches == n8 + 2
+    assert y.dtype == x.dtype and y.shape == (m, n)
+    assert_fully_written(y, "y")
+    # The splits meet in a fixed order, whichever CTA arrives last.
+    assert torch.equal(y, y2)
+    want = k8.int4_matmul_plain(x, qw.w, qw.scale, layout=layout)
+    atol, rtol = KERNEL_BUDGETS["int4_matmul_" + (
+        "biased" if layout == "int4_biased" else "signed")]
+    assert_close(y, want, atol, "y", rtol=rtol)
 
 
 @pytest.mark.parametrize("precision", [OperandPrecision.INT4,

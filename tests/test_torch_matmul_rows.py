@@ -189,6 +189,101 @@ def test_gemm_wrapper_passes_tile_stages_and_band(library, ta, tb):
                            params.GEMM_TILE_GROUP)
 
 
+# Llama-3-8B's projections (K, N) and a ragged one.
+QMM_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+              (96, 100)]
+
+
+@pytest.mark.parametrize("k, n", QMM_SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 8, 16])
+def test_qmm_split_rule(m, k, n):
+    """K8's decode split of K: whole 128-byte steps, no empty split, x's
+    slices within one SM's shared memory as the launch code reckons it,
+    and as many CTAs as the H100 has SMs wherever K has the steps."""
+    tile = k8.int4_tile(m, n, torch.bfloat16)
+    assert tile.path == "splitk" and tile.block_m >= m
+    cols = params.qmm_split_cols(n, k, tile)
+    assert cols == params.qmm_split_cols(n, k, tile, params.H100)
+    assert cols % tile.block_k == 0
+    assert tile.block_k <= cols <= params.QMM_SPLIT_MAX_COLS
+    splits = -(-(k // 2) // cols)
+    assert (splits - 1) * cols < k // 2
+    assert params.qmm_smem_bytes(tile, cols) <= params.qmm_smem_bytes(tile)
+    ctas = -(-n // tile.block_n) * splits
+    steps = -(-(k // 2) // tile.block_k)
+    assert ctas >= params.H100.sm_count or splits == steps
+
+
+def test_qmm_decode_grid_fills_the_card_at_4096_to_1024():
+    """The k and v projections at M 4: 16 channel tiles, split 16 ways
+    (the decode tile before held 32 CTAs on 132 SMs)."""
+    tile = k8.int4_tile(4, 1024, torch.bfloat16)
+    cols = params.qmm_split_cols(1024, 4096, tile, params.H100)
+    assert -(-1024 // tile.block_n) * -(-2048 // cols) >= 132
+
+
+def test_qmm_splitk_smem_reckons_the_launch_code():
+    """csrc/quant_matmul.cu's qd_smem_bytes: the ring of 64 x 128-byte
+    boxes and their mbarriers, x's slices [M][2 cols + 16] bf16 (at most
+    the tile's 16 rows), each k-quarter's row sums, a flag and 1024 bytes
+    of alignment slack."""
+    d16 = params.QMM_TILES["d16"]
+    ring = 1024 + d16.stages * (64 * 128 + 8)
+    assert params.qmm_smem_bytes(d16, 256) == (ring + 16 * (2 * 256 + 16) * 2
+                                               + 4 * 16 * 4 + 4)
+    assert params.qmm_smem_bytes(d16, 256, rows=9) == (
+        ring + 9 * (2 * 256 + 16) * 2 + 4 * 16 * 4 + 4)
+
+
+@pytest.mark.parametrize("layout", ["int4", "int4_biased"])
+@pytest.mark.parametrize("m, k, n", [(4, 4096, 1024), (16, 4096, 14336),
+                                     (1, 14336, 4096), (8, 96, 100)])
+def test_k8_wrapper_passes_the_split(library, monkeypatch, layout, m, k, n):
+    """The decode tiles' launch: tile code, ring depth and split columns
+    from the rule, a workspace and counters only with more than one
+    split, one counted call."""
+    monkeypatch.setattr(k8, "resolve_device",
+                        lambda device: torch.device("meta"))
+    dtype = torch.int8 if layout == "int4" else torch.uint8
+    packed = torch.empty((n, k // 2), dtype=dtype, device="meta")
+    scale = torch.empty((n,), dtype=torch.float32, device="meta")
+    before = k8.int4_matmul.launches
+    y = k8.int4_matmul(_meta(m, k), packed, scale, layout=layout)
+    assert y.shape == (m, n) and k8.int4_matmul.launches == before + 1
+    ((name, args),) = library.calls
+    assert name == "mfa_int4_matmul"
+    tile = k8.int4_tile(m, n, torch.bfloat16)
+    cols = params.qmm_split_cols(n, k, tile)
+    # M N K x_bf16 biased tile stages group split_cols, then the stream.
+    assert args[7:16] == (m, n, k, 1, int(layout == "int4_biased"),
+                          {"d8": 0, "d16": 1}[tile.name], tile.stages,
+                          params.GEMM_TILE_GROUP, cols)
+    one_split = -(-(k // 2) // cols) == 1
+    assert args[3] is None                   # no rowsum(x) before launch
+    assert (args[4] is None) == (args[5] is None) == one_split
+
+
+@pytest.mark.parametrize("m, k, n", [(4, 4096, 1024), (16, 4096, 14336),
+                                     (16, 14336, 4096)])
+def test_k8_split_scratch_holds_the_partials_and_is_kept(m, k, n):
+    """The split-K scratch of one (device, stream) holds what the kernel
+    carves, [tiles, splits, M, block_n + 1] fp32 and a counter a channel
+    tile, and the next call on that stream gets the same tensors back: no
+    allocation at each call."""
+    tile = k8.int4_tile(m, n, torch.bfloat16)
+    device = torch.device("meta")
+    cols, part, counters = k8.split_launch(m, n, k, tile, device, 7)
+    splits, tiles = -(-(k // 2) // cols), -(-n // tile.block_n)
+    assert splits > 1
+    assert part.dtype == torch.float32 and counters.dtype == torch.int32
+    assert part.numel() >= tiles * splits * m * (tile.block_n + 1)
+    assert counters.numel() >= tiles
+    again = k8.split_launch(m, n, k, tile, device, 7)
+    assert again[1] is part and again[2] is counters
+    other = k8.split_launch(m, n, k, tile, device, 8)
+    assert other[1] is not part and other[2] is not counters
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_biased_plain_with_precomputed_rowsum_is_unchanged(dtype):
     """The plain version subtracts 8 times the precomputed rowsum(x) that
