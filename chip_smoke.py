@@ -10,15 +10,19 @@ phase's failure is caught):
 3. k1      — flash forward kernel against its plain version at Llama-3-8B
              prefill shapes (Hq=32, Hkv=8, D=128, N=2048): causal,
              non-causal, sliding window 512, soft-cap 50, R != C, fp32,
-             and causal at the prefill buckets R = C = 64 and 512; each
+             and causal at the prefill buckets R = C = 64 and 512; then
+             Qwen2-7B's heads (Hq 28, Hkv 4) causal at N 2048 and
+             Mistral-7B's causal window of 4096 at N 8192; each
              line names the parameter row that ran (bf16: wgmma), its
              ring depth and ping-pong, outputs prefilled with NaN, a
              second launch bit for bit equal to the first.
 4. k2      — fused decode + append kernel against its plain version for
              bf16, INT8, FP8-e4m3 and FP8-e5m2 caches (B=4, Hkv=8, G=4,
              D=128, max_len 2048 and 8192, lengths including 0 and
-             max_len), and INT8 at G=16 (two query chunks) under a
-             window of 512: O, appended rows, scales, and lengths after a
+             max_len), INT8 at G=16 (two query chunks) under a
+             window of 512, Qwen2-7B's G=7 (B 4, Hkv 4) in bf16 and
+             FP8-e4m3 at 2048, and a window of 4096 at 8192 in bf16
+             (Mistral-7B): O, appended rows, scales, and lengths after a
              step. O is held elementwise to
              mfa_tpu_torch.utils.testing.KERNEL_BUDGETS. Each line
              carries the split-KV launch, as in k5.
@@ -49,12 +53,16 @@ phase's failure is caught):
              4096 -> 4096, 1024, 14336 and 14336 -> 4096), M = 4 and 16
              (decode, the split-K tiles: each line carries its split of K
              and its CTAs) and 2048 (prefill, the wgmma tile) in bf16,
-             plus one fp32 case; F.linear on the dequantized bf16 weight
-             as a yardstick.
+             plus one fp32 case, and signed at Qwen2-7B's four (3584 ->
+             3584, 512, 18944 and 18944 -> 3584) at M = 4 and 2048;
+             F.linear on the dequantized bf16 weight as a yardstick.
 9. serving — Llama-3-8B at full width and depth with random bf16 weights
              behind the continuous-batching scheduler (4 slots, max_len
              2048), six greedy requests, once per KV format; launch
-             counters prove K1 carried every prefill and K2 every decode.
+             counters prove K1 carried every prefill and K2 every decode;
+             the 1900-token prompt's last logits through K1 (each launch
+             held to its plain version at KERNEL_BUDGETS) against the
+             same forward through the plain version.
 10. paged_serving — the same model behind the paged scheduler (8 slots,
              512-token pages, a pool too small for all requests at once),
              the six prompts twice, 16 greedy tokens each, once per KV
@@ -66,9 +74,11 @@ phase's failure is caught):
              scheduler (4 slots, max_len 2048, FP8-e4m3 KV), six greedy
              requests of 16 tokens; counters prove K8 carried all 7
              projections of every layer in every prefill and decode step;
-             one decode step's logits through K8 against the same step
-             through its plain version; one short request with INT8
-             weights (the plain INT8 branch).
+             a prefill and one decode step with every K1, K2 and K8
+             launch held to its plain version at KERNEL_BUDGETS, the
+             step's logits against the same step through the plain
+             versions; one short request with INT8 weights (the plain
+             INT8 branch).
 12. bwd    — backward kernels K3 (dQ, D-term) and K4 (dK, dV) against
              their plain versions at Llama-3-8B attention shapes: causal,
              non-causal, sliding window 512, soft-cap 50, R=512 with
@@ -84,7 +94,38 @@ phase's failure is caught):
              their plain versions, then six train_steps on one 1 x 2049
              batch from TokenDataset; finite, falling loss, and K1, K3, K4
              each launched n_layers times per step.
-14. kernels — one JSON line per the port's kernel table.
+14. qwen2_serving — Qwen2-7B at full width and depth (28 layers, QKV
+             bias, GQA group 7): its published config.json fields read by
+             models/convert.config_from_hf as a namespace (equal to
+             LlamaConfig.qwen2_7b()), random bf16 weights under Hugging
+             Face's key names through params_from_hf; six greedy requests
+             behind the continuous-batching scheduler (4 slots, max_len
+             2048) over bf16 and FP8-e4m3 caches, then with INT4 weights
+             over FP8 (K8 at Qwen2's projection shapes); counters prove K1
+             carried every prefill, K2 every decode step and K8 all 7
+             projections; before each run over bf16 and INT4, a prefill
+             and one decode step with every K1, K2 and K8 launch held to
+             its plain version at KERNEL_BUDGETS, and the step's logits
+             against the same step through the plain versions.
+15. checkpoint — that Qwen2 model cut to its first 4 layers (a depth
+             cut), in bf16 and INT4, and an FP8-e4m3 cache after one
+             prefill: utils/checkpoint.py saves them under build/, loads
+             them into fresh templates, every tensor bit-equal; one greedy
+             request from each restored model gives the tokens it gave
+             before; bytes and seconds.
+16. mistral_serving — Mistral-7B at full width and depth (32 layers,
+             window 4096) from its published fields and random HF-named
+             weights: the 6000-token prompt's last-position logits through
+             K1 (each launch held to its plain version) against the plain
+             version, one decode step past the window through K2 likewise,
+             four greedy requests (200, 1000, 4500 and 6000 tokens; prompt
+             buckets to 8192) over a bf16 cache of 8192.
+17. evaluate — on that Mistral model, utils/evaluate.py's perplexity_full
+             and kv_quantization_ppl_delta for INT8 and FP8-e4m3 caches
+             (batch 2, 256 tokens, max_len 384), held to
+             tests/test_aux.py's conditions; K1 and K2 launches counted.
+18. kernels — one JSON line per the port's kernel table, the launches of
+             phases 9-17 added up.
 
 The last line is {"ok": true, "device": {...}}. Run from the repository
 root: ``python3 chip_smoke.py``.
@@ -102,33 +143,8 @@ import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-BF16_FLOPS = 989e12            # dense bf16 tensor cores
-FP32_FLOPS = 67e12             # fp32 outside the tensor cores
-
-
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over ``iters`` launches (CUDA events).
-    The card first spins for ~30 ms (torch.cuda._sleep) while the host
-    queues the launches, so that the events time the kernels back to
-    back and not the host's launch rate (a wrapper's Python costs tens
-    of microseconds, as long as a decode-sized kernel)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def max_err(a, b) -> float:
@@ -136,8 +152,8 @@ def max_err(a, b) -> float:
 
 
 def _bits(torch, t):
-    """The raw bits of a 1- or 2-byte tensor, for exact comparison."""
-    return t.view(torch.uint8 if t.element_size() == 1 else torch.int16)
+    """The raw bytes of a tensor, for exact comparison."""
+    return t.detach().contiguous().view(torch.uint8)
 
 
 def phase_device(torch):
@@ -171,13 +187,6 @@ def phase_build():
           "wgmma_serialized": serialized})
 
 
-def _bound(flops, nbytes, peak):
-    """(bound ms, what bounds it) from operations and bytes."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def _k1_inputs(torch, gen, r, c, dtype, hq=32, hkv=8, d=128):
     def rnd(h, s):
         return torch.randn((1, h, s, d), generator=gen, device="cuda").to(dtype)
@@ -194,6 +203,7 @@ def phase_k1(torch):
         AttentionKernelType,
         launch_row,
     )
+    from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import (
         KERNEL_BUDGETS,
         budget_share,
@@ -203,29 +213,37 @@ def phase_k1(torch):
     gen = torch.Generator(device="cuda").manual_seed(1)
     dev = params_mod.detect_device(torch.device("cuda", 0))
     n = 2048
+    bf16 = torch.bfloat16
+    # (name, R, C, dtype, options, Hq, Hkv): Llama-3-8B's heads, then
+    # Qwen2-7B's (a GQA group of 7) and Mistral-7B's window over an
+    # 8192-token prompt.
     cases = [
-        ("causal", n, n, torch.bfloat16, dict(causal=True)),
-        ("noncausal", n, n, torch.bfloat16, dict()),
-        ("window512", n, n, torch.bfloat16, dict(sliding_window=512)),
-        ("softcap50", n, n, torch.bfloat16,
-         dict(causal=True, logit_soft_cap=50.0)),
-        ("causal_r512_c2048", 512, n, torch.bfloat16, dict(causal=True)),
-        ("fp32_causal", n, n, torch.float32, dict(causal=True)),
+        ("causal", n, n, bf16, dict(causal=True), 32, 8),
+        ("noncausal", n, n, bf16, dict(), 32, 8),
+        ("window512", n, n, bf16, dict(sliding_window=512), 32, 8),
+        ("softcap50", n, n, bf16, dict(causal=True, logit_soft_cap=50.0),
+         32, 8),
+        ("causal_r512_c2048", 512, n, bf16, dict(causal=True), 32, 8),
+        ("fp32_causal", n, n, torch.float32, dict(causal=True), 32, 8),
         # The server's smaller prefill buckets (serving/scheduler.py).
-        ("causal_r64", 64, 64, torch.bfloat16, dict(causal=True)),
-        ("causal_r512", 512, 512, torch.bfloat16, dict(causal=True)),
+        ("causal_r64", 64, 64, bf16, dict(causal=True), 32, 8),
+        ("causal_r512", 512, 512, bf16, dict(causal=True), 32, 8),
+        ("qwen2_causal_hq28_hkv4", n, n, bf16, dict(causal=True), 28, 4),
+        ("mistral_causal_window4096_n8192", 8192, 8192, bf16,
+         dict(causal=True, sliding_window=4096), 32, 8),
     ]
     results = {}
-    for name, r, c, dtype, opts in cases:
-        q, k, v = _k1_inputs(torch, gen, r, c, dtype)
+    for name, r, c, dtype, opts, hq, hkv in cases:
+        q, k, v = _k1_inputs(torch, gen, r, c, dtype, hq, hkv)
         desc = AttentionDescriptor(
-            batch=1, num_q_heads=32, num_kv_heads=8, seq_len_q=r,
-            seq_len_kv=c, head_dim=128, low_precision_inputs=dtype != torch.float32,
+            batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
+            seq_len_kv=c, head_dim=128,
+            low_precision_inputs=dtype != torch.float32,
             low_precision_intermediates=dtype != torch.float32, **opts)
         kd = desc.kernel_descriptor(AttentionKernelType.FORWARD, dev)
         q3, k3, v3 = (t.reshape(-1, t.shape[2], 128).contiguous()
                       for t in (q, k, v))
-        kw = dict(group=4, scale=desc.softmax_scale, o_dtype=dtype)
+        kw = dict(group=hq // hkv, scale=desc.softmax_scale, o_dtype=dtype)
         # The parameter row the launch runs (wgmma for every bf16 case,
         # ops/params.py) and its ring depth and ping-pong.
         row = launch_row(kd, 128, (q3, k3, v3))
@@ -255,16 +273,17 @@ def phase_k1(torch):
               and share_o <= 1
               and share_l <= 1
               and row.kernel == ("wgmma" if dtype == torch.bfloat16 else ""))
-        ms = cuda_ms(torch, lambda: k1.flash_fwd(q3, k3, v3, kd, **kw))
-        plain_ms = cuda_ms(torch, lambda: k1.flash_fwd_plain(
+        ms = roofline.cuda_ms(lambda: k1.flash_fwd(q3, k3, v3, kd, **kw))
+        plain_ms = roofline.cuda_ms(lambda: k1.flash_fwd_plain(
             q3, k3, v3, kd, **kw), iters=3, warmup=1)
         # Visible (row, key) pairs of this problem = the work K1 must do.
         vis = k1.visible_mask(r, c, kd.causal, kd.sliding_window, "cuda")
-        pairs = int(vis.sum()) * 32
+        pairs = int(vis.sum()) * hq
         nbytes = (q3.numel() + k3.numel() + v3.numel() + q3.numel()) \
-            * q3.element_size() + 4 * 32 * r
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-        bound_ms, bound_by = _bound(4 * 128 * pairs, nbytes, peak)
+            * q3.element_size() + 4 * hq * r
+        peak = (roofline.BF16_FLOPS if dtype == torch.bfloat16
+                else roofline.FP32_FLOPS)
+        bound_ms, bound_by = roofline.bound(4 * 128 * pairs, nbytes, peak)
         # Yardstick only: one PyTorch call for the same function where
         # there is one (no soft-cap in SDPA).
         library_ms = None
@@ -272,13 +291,15 @@ def phase_k1(torch):
             plain_causal = kd.causal and r == c and not kd.sliding_window
             mask = (None if plain_causal or not (kd.causal or kd.sliding_window)
                     else vis)
-            library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            library_ms = roofline.cuda_ms(
+                lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=plain_causal,
                 scale=desc.softmax_scale, enable_gqa=True), iters=10)
         results[name] = dict(
             max_abs_err=err_o, lse_err=err_l, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-        emit({"phase": "k1", "case": name, "R": r, "C": c,
+        emit({"phase": "k1", "case": name, "R": r, "C": c, "Hq": hq,
+              "Hkv": hkv,
               "dtype": str(dtype).split(".")[-1], "row": row_info,
               "tflops": 4 * 128 * pairs / ms / 1e9, "err_o": err_o,
               "o_rms": o_rms, "budget_o": budget_o, "share_o": share_o,
@@ -342,6 +363,7 @@ def phase_k2(torch):
     from mfa_tpu_torch.kernels import decode as k2
     from mfa_tpu_torch.ops.decode import decode_attention_append
     from mfa_tpu_torch.serving import kv_cache
+    from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -349,10 +371,15 @@ def phase_k2(torch):
     budget = KERNEL_BUDGETS["decode_o"]
     # (max_len, format, Hkv, G, window): Llama-3-8B's heads (Hkv 8, G 4)
     # over each format, then a group of 16 (two query chunks) under a
-    # sliding window.
+    # sliding window, Qwen2-7B's heads (Hkv 4, G 7: each chunk of 8 rows
+    # has a dead row) and Mistral-7B's window of 4096 over 8192 positions.
+    formats = dict(_kv_formats())
     cases = [(max_len, name, prec, 8, 4, None) for max_len in (2048, 8192)
              for name, prec in _kv_formats()]
-    cases.append((2048, "int8", dict(_kv_formats())["int8"], 2, 16, 512))
+    cases.append((2048, "int8", formats["int8"], 2, 16, 512))
+    cases += [(2048, name, formats[name], 4, 7, None)
+              for name in ("bf16", "fp8_e4m3")]
+    cases.append((8192, "bf16", formats["bf16"], 8, 4, 4096))
     results = {}
     for max_len, name, prec, hkv, g, window in cases:
         bh = b * hkv
@@ -393,9 +420,9 @@ def phase_k2(torch):
             float(((getattr(cache, f) - getattr(plain_cache, f)).abs()
                    / getattr(plain_cache, f).abs()).max())
             for f in ("k_scale", "v_scale"))
-        ms = cuda_ms(torch, lambda: k2.decode_fused_append(
+        ms = roofline.cuda_ms(lambda: k2.decode_fused_append(
             q3, *views(cache), kn, vn, cache.lengths, **kw), iters=50)
-        plain_ms = cuda_ms(torch, lambda: k2.decode_fused_append_plain(
+        plain_ms = roofline.cuda_ms(lambda: k2.decode_fused_append_plain(
             q3, *views(plain_cache), kn, vn, plain_cache.lengths, **kw),
             iters=5, warmup=1)
         # Lengths after a step through the entry point: each advances by
@@ -418,13 +445,14 @@ def phase_k2(torch):
         appended = sum(1 for x in lens if x < max_len) * hkv
         nbytes = (2 * live * row_bytes + 2 * bh * g * d * 2
                   + 2 * bh * d * 2 + 2 * appended * row_bytes)
-        bound_ms, bound_by = _bound(4 * g * d * (live + bh), nbytes,
-                                    BF16_FLOPS)
-        key = f"{name}_L{max_len}" + (f"_G{g}_w{window}" if window else "")
+        bound_ms, bound_by = roofline.bound(4 * g * d * (live + bh), nbytes)
+        key = (f"{name}_L{max_len}" + (f"_G{g}" if g != 4 else "")
+               + (f"_w{window}" if window else ""))
         results[key] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None)
-        emit({"phase": "k2", "case": key, "lengths": lens, "err_o": err,
+        emit({"phase": "k2", "case": key, "Hkv": hkv, "G": g,
+              "window": window, "lengths": lens, "err_o": err,
               "o_rms": o_rms, "budget_o": budget, "share_o": share,
               "appended_rows_equal": same_rows,
               "lengths_after": lengths_after, "scale_rel_err": scale_err,
@@ -521,6 +549,7 @@ def phase_k5(torch):
     from mfa_tpu_torch.kernels.flash_fwd import LOG2E
     from mfa_tpu_torch.ops.decode import decode_attention
     from mfa_tpu_torch.serving import kv_cache
+    from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
     t0 = time.perf_counter()
@@ -559,14 +588,13 @@ def phase_k5(torch):
                 cache.k_scale.view(bh, max_len),
                 cache.v_scale.view(bh, max_len), cache.lengths)
         kw = dict(num_kv_heads=hkv, sliding_window=window)
-        ms = cuda_ms(torch, lambda: k5.decode_attend(q3, *args, **kw),
+        ms = roofline.cuda_ms(lambda: k5.decode_attend(q3, *args, **kw),
                      iters=50)
-        plain_ms = cuda_ms(torch, lambda: k5.decode_attend_plain(
+        plain_ms = roofline.cuda_ms(lambda: k5.decode_attend_plain(
             q3, *args, **kw), iters=5, warmup=1)
         live = sum(min(x, window or x) for x in lens) * hkv
-        bound_ms, bound_by = _bound(4 * g * d * live,
-                                    _decode_bytes(live, cache.k.dtype, d,
-                                                  bh * g), BF16_FLOPS)
+        bound_ms, bound_by = roofline.bound(
+            4 * g * d * live, _decode_bytes(live, cache.k.dtype, d, bh * g))
         library_ms = None
         if name == "bf16":
             # Yardstick only: one SDPA call over the same cache, with the
@@ -577,7 +605,8 @@ def phase_k5(torch):
             if window:
                 mask &= col >= (lt - window).clamp_min(0)
             qs = q[:, :, None, :]
-            library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            library_ms = roofline.cuda_ms(
+                lambda: F.scaled_dot_product_attention(
                 qs, cache.k, cache.v, attn_mask=mask[:, None, None, :],
                 scale=scale, enable_gqa=True), iters=20)
         key = f"{name}_L{max_len}" + (f"_w{window}" if window else "")
@@ -612,6 +641,7 @@ def phase_k6(torch):
     Returns the kernel-table row at 512-token pages (the serving path's)."""
     from mfa_tpu_torch.kernels import decode as k5
     from mfa_tpu_torch.kernels import paged_decode as k6
+    from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import (
         KERNEL_BUDGETS,
         budget_share,
@@ -652,17 +682,17 @@ def phase_k6(torch):
             empty_zero = not bool(o_k[:hkv].any())    # length 0 gives zeros
             ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
                   and same_as_k5 and empty_zero and n6 == 1)
-            ms = cuda_ms(torch, lambda: k6.paged_decode(
+            ms = roofline.cuda_ms(lambda: k6.paged_decode(
                 q3, *operands, sliding_window=window), iters=50)
-            k5_ms = cuda_ms(torch, lambda: k5.decode_attend(
+            k5_ms = roofline.cuda_ms(lambda: k5.decode_attend(
                 q3, *rows, lengths, num_kv_heads=hkv,
                 sliding_window=window), iters=50)
-            plain_ms = cuda_ms(torch, lambda: k6.paged_decode_plain(
+            plain_ms = roofline.cuda_ms(lambda: k6.paged_decode_plain(
                 q3, *operands, sliding_window=window), iters=5, warmup=1)
             live = sum(min(x, window or x) for x in lens) * hkv
             nbytes = (_decode_bytes(live, prec.dtype, d, s * hkv * g)
                       + 4 * (s * max_pages + s))
-            bound_ms, bound_by = _bound(4 * g * d * live, nbytes, BF16_FLOPS)
+            bound_ms, bound_by = roofline.bound(4 * g * d * live, nbytes)
             key = f"{name}_page{ps}" + (f"_w{window}" if window else "")
             results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
@@ -695,6 +725,7 @@ def phase_k7(torch):
     from mfa_tpu_torch.ops.descriptors import GEMMDescriptor
     from mfa_tpu_torch.ops.gemm import gemm
     from mfa_tpu_torch.ops.precision import OperandPrecision as P
+    from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
     t0 = time.perf_counter()
@@ -761,9 +792,9 @@ def phase_k7(torch):
                               b if b.dim() == 3 else b[None])
         ok = (bool(torch.isfinite(c.float()).all()) and share <= 1
               and n7 == 1 and (tile.path == "wgmma") == want_wgmma)
-        ms = cuda_ms(torch, lambda: gemm(a, b, c0, **kw))
+        ms = roofline.cuda_ms(lambda: gemm(a, b, c0, **kw))
         with plain_kernels():
-            plain_ms = cuda_ms(torch, lambda: gemm(a, b, c0, **kw), iters=3,
+            plain_ms = roofline.cuda_ms(lambda: gemm(a, b, c0, **kw), iters=3,
                                warmup=1)
         # Yardstick: one PyTorch call for the same product.
         aa = a.transpose(-1, -2) if ta else a
@@ -771,14 +802,16 @@ def phase_k7(torch):
         if adt != bdt:
             library_ms = None
         elif c0 is None:
-            library_ms = cuda_ms(torch, lambda: torch.matmul(aa, bb))
+            library_ms = roofline.cuda_ms(lambda: torch.matmul(aa, bb))
         else:
             c0l = c0.to(c.dtype)
-            library_ms = cuda_ms(torch, lambda: torch.addmm(c0l, aa, bb))
+            library_ms = roofline.cuda_ms(lambda: torch.addmm(c0l, aa, bb))
         nbytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
                   + c.numel() * c.element_size() * (2 if with_c0 else 1))
-        peak = BF16_FLOPS if adt == bdt == bf16 else FP32_FLOPS
-        bound_ms, bound_by = _bound(2 * batch * m * n * k, nbytes, peak)
+        peak = (roofline.BF16_FLOPS if adt == bdt == bf16
+                else roofline.FP32_FLOPS)
+        bound_ms, bound_by = roofline.bound(2 * batch * m * n * k, nbytes,
+                                            peak)
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms)
@@ -804,16 +837,21 @@ def phase_k7(torch):
 # w_up, w_down.
 LLAMA3_8B_PROJECTIONS = ((4096, 4096), (4096, 1024), (4096, 14336),
                          (14336, 4096))
+# Qwen2-7B's: wq and wo, wk and wv (4 kv heads), w_gate and w_up, w_down.
+QWEN2_7B_PROJECTIONS = ((3584, 3584), (3584, 512), (3584, 18944),
+                        (18944, 3584))
 
 
 def phase_k8(torch):
-    """K8 against its plain version at Llama-3-8B's projection shapes.
-    Returns the kernel-table row (decode, 4096 -> 14336, signed)."""
+    """K8 against its plain version at Llama-3-8B's projection shapes, and
+    signed at Qwen2-7B's. Returns the kernel-table row (decode, 4096 ->
+    14336, signed)."""
     import torch.nn.functional as F
 
     from mfa_tpu_torch.kernels import quant
     from mfa_tpu_torch.kernels import quant_matmul as k8
     from mfa_tpu_torch.ops import params as params_mod
+    from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
     t0 = time.perf_counter()
@@ -823,6 +861,8 @@ def phase_k8(torch):
              for k, n in LLAMA3_8B_PROJECTIONS for m in (4, 16, 2048)
              for layout in ("int4", "int4_biased")]
     cases.append((4096, 1024, 4, "int4", torch.float32))
+    cases += [(k, n, m, "int4", torch.bfloat16)
+              for k, n in QWEN2_7B_PROJECTIONS for m in (4, 2048)]
     results = {}
     for k, n, m, layout, dt in cases:
         w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
@@ -838,20 +878,21 @@ def phase_k8(torch):
         err = max_err(y, y_p)
         share = budget_share(y, y_p, *budget)
         ok = bool(torch.isfinite(y.float()).all()) and share <= 1
-        ms = cuda_ms(torch, lambda: k8.int4_matmul(*args, layout=layout),
+        ms = roofline.cuda_ms(lambda: k8.int4_matmul(*args, layout=layout),
                      iters=50)
-        plain_ms = cuda_ms(torch, lambda: k8.int4_matmul_plain(
+        plain_ms = roofline.cuda_ms(lambda: k8.int4_matmul_plain(
             *args, layout=layout), iters=3, warmup=1)
         # Yardstick: F.linear over the dequantized weight, the same product
         # over a representation 4x (bf16) or 8x (fp32) as large.
         w_deq = qw.dequantize(dt)
-        library_ms = cuda_ms(torch, lambda: F.linear(x, w_deq), iters=50)
+        library_ms = roofline.cuda_ms(lambda: F.linear(x, w_deq), iters=50)
         del w_deq
         nbytes = (qw.w.numel() + 4 * n + x.numel() * x.element_size()
                   + m * n * x.element_size())
-        bound_ms, bound_by = _bound(
+        bound_ms, bound_by = roofline.bound(
             2 * m * n * k, nbytes,
-            BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS)
+            roofline.BF16_FLOPS if dt == torch.bfloat16
+            else roofline.FP32_FLOPS)
         tile = k8.int4_tile(m, n, dt, dev)
         ctas = -(-m // tile.block_m) * -(-n // tile.block_n)
         split = {}
@@ -886,10 +927,9 @@ def phase_k8(torch):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """K1, K3, K4, K5, K6, K7 and K8 swapped for their plain versions, for
-    the in-context checks: ops/attention.py, ops/decode.py, ops/gemm.py
-    and models/llama.py look the kernel functions up in their modules at
-    each call."""
+    """K1-K8 swapped for their plain versions, for the in-context checks:
+    ops/attention.py, ops/decode.py, ops/gemm.py and models/llama.py look
+    the kernel functions up in their modules at each call."""
     from mfa_tpu_torch.kernels import decode as k5
     from mfa_tpu_torch.kernels import flash_bwd as k34
     from mfa_tpu_torch.kernels import flash_fwd as k1
@@ -903,6 +943,7 @@ def plain_kernels():
     swaps = [(k1, "flash_fwd", k1.flash_fwd_plain),
              (k34, "flash_bwd_q", k34.flash_bwd_q_plain),
              (k34, "flash_bwd_kv", k34.flash_bwd_kv_plain),
+             (k5, "decode_fused_append", k5.decode_fused_append_plain),
              (k5, "decode_attend", k5.decode_attend_plain),
              (k6, "paged_decode", k6.paged_decode_plain),
              (k7, "gemm_kernel", k7.gemm_kernel_plain),
@@ -918,14 +959,9 @@ def plain_kernels():
 def phase_serving(torch):
     import numpy as np
 
-    from mfa_tpu_torch.kernels import decode as k2
-    from mfa_tpu_torch.kernels import flash_fwd as k1
     from mfa_tpu_torch.models import llama
     from mfa_tpu_torch.ops.precision import OperandPrecision
-    from mfa_tpu_torch.serving.scheduler import (
-        ContinuousBatchingScheduler,
-        Request,
-    )
+    from mfa_tpu_torch.utils import roofline
 
     cfg = llama.LlamaConfig.llama3_8b()
     t0 = time.perf_counter()
@@ -950,80 +986,23 @@ def phase_serving(torch):
         def run():
             model(toks[None, :], caches=model.make_caches(1, 2048))
 
-        t_ms = cuda_ms(torch, run, iters=3, warmup=1)
+        t_ms = roofline.cuda_ms(run, iters=3, warmup=1)
         prefill_ms[bucket] = t_ms
     emit({"phase": "prefill", "ms_per_bucket": prefill_ms})
 
-    # In-context check of K1: last-position logits of the 1900-token prompt
+    # In-context check of K1: the 1900-token prompt's last-position logits
     # through K1 and through its plain version.
-    toks = torch.tensor(prompts[-1], device="cuda")[None, :]
-    logits_k = model(toks)[0, -1]
-    with plain_kernels():
-        logits_p = model(toks)[0, -1]
-    scale = float(logits_p.abs().max())
-    err = max_err(logits_k, logits_p)
-    budget = 5e-2 * max(1.0, scale)      # bf16 mixed budget, relative
-    emit({"phase": "k1_in_context", "max_abs_err": err, "budget": budget,
-          "max_abs_logit": scale,
-          "argmax_equal": bool(logits_k.argmax() == logits_p.argmax())})
-    if not err <= budget:
-        raise SystemExit(f"k1 in context: logits differ by {err} > {budget}")
+    _in_context(torch, model, torch.tensor([prompts[-1]], device="cuda"),
+                "k1", decode=False)
 
-    launches = {"flash_fwd": 0, "decode_fused_append": 0}
-    summary, bf16_tokens = {}, None
-    for name, prec in (("bf16", OperandPrecision.BF16),
-                       ("int8", OperandPrecision.INT8),
-                       ("fp8_e4m3", OperandPrecision.FP8_E4M3)):
-        sched = ContinuousBatchingScheduler(
-            model, num_slots=4, max_len=2048, kv_precision=prec,
-            device="cuda")
-        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
-        for r in reqs:
-            sched.submit(r)
-        torch.cuda.synchronize()
-        k1.flash_fwd.launches = 0
-        k2.decode_fused_append.launches = 0
-        step_ms, decode_only = [], []
-        t_run = time.perf_counter()
-        while True:
-            pre = sched.stats["prefills"]
-            t_s = time.perf_counter()
-            progressed = sched.step()
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t_s) * 1e3
-            if not progressed and not sched.queue:
-                break
-            step_ms.append(dt)
-            if sched.stats["prefills"] == pre:
-                decode_only.append(dt)
-        sched._retire()
-        run_s = time.perf_counter() - t_run
-        n1, n2 = k1.flash_fwd.launches, k2.decode_fused_append.launches
-        done = {c.request.id: c for c in sched.finished}
-        stats = dict(sched.stats)
-        ok = (len(done) == len(reqs)
-              and all(len(done[r.id].tokens) == 16 for r in reqs)
-              and n1 == cfg.n_layers * stats["prefills"]
-              and n2 == cfg.n_layers * stats["decode_steps"]
-              and stats["prefills"] == len(reqs))
-        launches["flash_fwd"] += n1
-        launches["decode_fused_append"] += n2
-        decode_ms = float(np.median(decode_only)) if decode_only else None
-        summary[name] = dict(
-            completions=len(done), tokens=stats["tokens"],
-            prefills=stats["prefills"], decode_steps=stats["decode_steps"],
-            k1_launches=n1, k2_launches=n2, run_s=run_s,
-            decode_ms_per_step=decode_ms,
-            tokens_per_s=stats["tokens"] / run_s,
-            first_tokens=done[reqs[0].id].tokens[:4])
-        emit({"phase": "serving", "kv": name, "ok": ok, **summary[name]})
-        if not ok:
-            raise SystemExit(f"serving {name}: completions or launch counts "
-                             f"wrong ({summary[name]})")
-        if name == "bf16":
-            bf16_tokens = [done[r.id].tokens for r in reqs]
-        del sched
-        torch.cuda.empty_cache()
+    launches, bf16_tokens = {}, None
+    for prec in (OperandPrecision.BF16, OperandPrecision.INT8,
+                 OperandPrecision.FP8_E4M3):
+        summary, n, toks = _serve(torch, model, prompts, prec, max_len=2048)
+        _add(launches, n)
+        emit({"phase": "serving", **summary})
+        if prec is OperandPrecision.BF16:
+            bf16_tokens = toks
     return launches, model, prompts, bf16_tokens
 
 
@@ -1162,8 +1141,6 @@ def phase_int4_serving(torch, int4_model, int8_model, prompts, bf16_gib,
     request. Returns the launches of K1, K2 and K8 on this path."""
     import numpy as np
 
-    from mfa_tpu_torch.kernels import decode as k2
-    from mfa_tpu_torch.kernels import flash_fwd as k1
     from mfa_tpu_torch.kernels import quant_matmul as k8
     from mfa_tpu_torch.ops.precision import OperandPrecision
     from mfa_tpu_torch.serving.scheduler import (
@@ -1181,87 +1158,22 @@ def phase_int4_serving(torch, int4_model, int8_model, prompts, bf16_gib,
               b.numel() * b.element_size() for b in int4_model.buffers())
           / 2**30, "device_gib": torch.cuda.memory_allocated() / 2**30})
 
-    # In-context check of K8: one decode step's logits through K8 and
-    # through its plain version, from the same state. The fused append
-    # writes the same rows both times (its lengths are put back).
+    # In-context check of K8: a prefill and one decode step's logits
+    # through K8 (and K1, K2) against the same step through their plain
+    # versions, from the same state.
     rng = np.random.default_rng(8)
-    caches = int4_model.make_caches(4, 2048, fp8)
-    with torch.inference_mode():
-        int4_model(torch.from_numpy(rng.integers(1, cfg.vocab_size,
-                                                 (4, 256))).cuda(),
-                   caches=caches)
-        tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, 4)).cuda()
-        lengths = [c.lengths for c in caches]
-        logits_k, _ = int4_model.decode_step(tok, caches)
-        for c, ln in zip(caches, lengths):
-            c.lengths = ln
-        with plain_kernels():
-            logits_p, _ = int4_model.decode_step(tok, caches)
-    scale = float(logits_p.abs().max())
-    err = max_err(logits_k, logits_p)
-    budget = 5e-2 * max(1.0, scale)
-    argmax_equal = bool(torch.equal(logits_k.argmax(-1), logits_p.argmax(-1)))
-    emit({"phase": "k8_in_context", "max_abs_err": err, "budget": budget,
-          "max_abs_logit": scale, "argmax_equal": argmax_equal})
-    if not err <= budget:
-        raise SystemExit(f"k8 in context: logits differ by {err} (budget "
-                         f"{budget})")
-    del caches, logits_k, logits_p
+    _in_context(torch, int4_model, torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (4, 256))).cuda(), "k8",
+        kv_precision=fp8, max_len=2048)
     torch.cuda.empty_cache()
 
-    sched = ContinuousBatchingScheduler(int4_model, num_slots=4,
-                                        max_len=2048, kv_precision=fp8,
-                                        device="cuda")
-    reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
-    for r in reqs:
-        sched.submit(r)
-    torch.cuda.synchronize()
-    for f in (k1.flash_fwd, k2.decode_fused_append, k8.int4_matmul):
-        f.launches = 0
-    decode_only = []
-    t_run = time.perf_counter()
-    for _ in range(2000):
-        pre = sched.stats["prefills"]
-        t_s = time.perf_counter()
-        progressed = sched.step()
-        torch.cuda.synchronize()
-        if not progressed and not sched.queue:
-            break
-        if sched.stats["prefills"] == pre:
-            decode_only.append((time.perf_counter() - t_s) * 1e3)
-    else:
-        raise SystemExit("int4 serving: no end after 2000 steps")
-    sched._retire()
-    run_s = time.perf_counter() - t_run
-    n1, n2, n8 = (k1.flash_fwd.launches, k2.decode_fused_append.launches,
-                  k8.int4_matmul.launches)
-    done = {c.request.id: c for c in sched.finished}
-    stats = dict(sched.stats)
-    toks = [done[r.id].tokens for r in reqs if r.id in done]
+    summary, launches, toks = _serve(torch, int4_model, prompts, fp8,
+                                     max_len=2048, int4_weights=True)
     same = sum(a == b for t, ref in zip(toks, bf16_tokens)
                for a, b in zip(t, ref))
-    summary = dict(
-        completions=len(done), tokens=stats["tokens"],
-        prefills=stats["prefills"], decode_steps=stats["decode_steps"],
-        k1_launches=n1, k2_launches=n2, k8_launches=n8, run_s=run_s,
-        decode_ms_per_step=(float(np.median(decode_only))
-                            if decode_only else None),
-        tokens_per_s=stats["tokens"] / run_s,
-        share_equal_to_bf16=same / (16 * len(reqs)),
-        weights_gib=int4_gib, bf16_weights_gib=bf16_gib)
-    ok = (len(done) == len(reqs)
-          and all(len(done[r.id].tokens) == 16 for r in reqs)
-          and stats["prefills"] == len(reqs)
-          and n8 == 7 * cfg.n_layers * (stats["prefills"]
-                                        + stats["decode_steps"])
-          and n1 == cfg.n_layers * stats["prefills"]
-          and n2 == cfg.n_layers * stats["decode_steps"])
-    emit({"phase": "int4_serving", "kv": "fp8_e4m3", "ok": ok, **summary})
-    if not ok:
-        raise SystemExit(f"int4 serving: completions or launch counts wrong "
-                         f"({summary})")
-    del sched
-    torch.cuda.empty_cache()
+    emit({"phase": "int4_serving", **summary,
+          "share_equal_to_bf16": same / (16 * len(toks)),
+          "weights_gib": int4_gib, "bf16_weights_gib": bf16_gib})
 
     # One short request with INT8 weights: the plain INT8 branch.
     sched = ContinuousBatchingScheduler(int8_model, num_slots=1,
@@ -1283,13 +1195,15 @@ def phase_int4_serving(torch, int4_model, int8_model, prompts, bf16_gib,
     del sched
     torch.cuda.empty_cache()
     emit({"phase": "int4_serving_done", "seconds": time.perf_counter() - t0,
-          "k8_launches": n8})
-    return {"flash_fwd": n1, "decode_fused_append": n2, "int4_matmul": n8}
+          "k8_launches": launches["int4_matmul"]})
+    return launches
 
 
 def _sdpa_backward_ms(torch, F, q, k, v, do, mask, is_causal, scale):
     """Device ms of the backward of one scaled_dot_product_attention call
     (dQ, dK and dV together), as forward+backward minus forward."""
+    from mfa_tpu_torch.utils import roofline
+
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
 
     def fwd():
@@ -1297,8 +1211,8 @@ def _sdpa_backward_ms(torch, F, q, k, v, do, mask, is_causal, scale):
             q, k, v, attn_mask=mask, is_causal=is_causal, scale=scale,
             enable_gqa=True)
 
-    fwd_ms = cuda_ms(torch, fwd, iters=10)
-    both_ms = cuda_ms(torch, lambda: torch.autograd.grad(fwd(), (q, k, v),
+    fwd_ms = roofline.cuda_ms(fwd, iters=10)
+    both_ms = roofline.cuda_ms(lambda: torch.autograd.grad(fwd(), (q, k, v),
                                                          do), iters=10)
     return both_ms - fwd_ms
 
@@ -1312,6 +1226,7 @@ def phase_bwd(torch):
         AttentionDescriptor,
         AttentionKernelType,
     )
+    from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import (
         KERNEL_BUDGETS,
         budget_share,
@@ -1381,24 +1296,25 @@ def phase_bwd(torch):
         unseen_zero = bool((dk[:, unseen] == 0).all()
                            and (dv[:, unseen] == 0).all())
         del dq_p, dterm_p, dk_p, dv_p
-        ms_q = cuda_ms(torch, lambda: k34.flash_bwd_q(
+        ms_q = roofline.cuda_ms(lambda: k34.flash_bwd_q(
             q3, k3, v3, o3, do3, lse, kd_q, **kw))
-        ms_kv = cuda_ms(torch, lambda: k34.flash_bwd_kv(
+        ms_kv = roofline.cuda_ms(lambda: k34.flash_bwd_kv(
             q3, k3, v3, do3, lse, dterm, kd_kv, **kw))
-        plain_q = cuda_ms(torch, lambda: k34.flash_bwd_q_plain(
+        plain_q = roofline.cuda_ms(lambda: k34.flash_bwd_q_plain(
             q3, k3, v3, o3, do3, lse, kd_q, **kw), iters=3, warmup=1)
-        plain_kv = cuda_ms(torch, lambda: k34.flash_bwd_kv_plain(
+        plain_kv = roofline.cuda_ms(lambda: k34.flash_bwd_kv_plain(
             q3, k3, v3, do3, lse, dterm, kd_kv, **kw), iters=3, warmup=1)
         # Work of these inputs: the visible (row, key) pairs of every
         # query head; each input read once, each output written once.
         pairs = int(vis.sum()) * hq
         esz = q3.element_size()
         in_q = (2 * q3.numel() + 2 * k3.numel()) * esz
-        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-        bound_q, by_q = _bound(
+        peak = (roofline.BF16_FLOPS if dtype == torch.bfloat16
+                else roofline.FP32_FLOPS)
+        bound_q, by_q = roofline.bound(
             6 * d * pairs, in_q + o3.numel() * o3.element_size()
             + 4 * lse.numel() + 4 * dq.numel() + 4 * dterm.numel(), peak)
-        bound_kv, by_kv = _bound(
+        bound_kv, by_kv = roofline.bound(
             8 * d * pairs, in_q + 8 * lse.numel() + 8 * dk.numel(), peak)
         library_ms = None
         if "logit_soft_cap" not in opts:
@@ -1525,6 +1441,558 @@ def phase_training(torch):
     return launches
 
 
+# The published config.json fields that describe each model's shape, as
+# Hugging Face hosts them (Qwen/Qwen2-7B and mistralai/Mistral-7B-v0.1,
+# config.json), read by models/convert.config_from_hf as a namespace: the
+# card has no transformers. Qwen2-7B's window of 131072 is off
+# (use_sliding_window false).
+QWEN2_7B_CONFIG = dict(
+    architectures=["Qwen2ForCausalLM"], model_type="qwen2",
+    hidden_act="silu", hidden_size=3584, intermediate_size=18944,
+    num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+    max_position_embeddings=131072, max_window_layers=28,
+    rms_norm_eps=1e-6, rope_theta=1000000.0, sliding_window=131072,
+    use_sliding_window=False, tie_word_embeddings=False,
+    vocab_size=152064, torch_dtype="bfloat16")
+MISTRAL_7B_CONFIG = dict(
+    architectures=["MistralForCausalLM"], model_type="mistral",
+    hidden_act="silu", hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    max_position_embeddings=32768, rms_norm_eps=1e-5, rope_theta=10000.0,
+    sliding_window=4096, tie_word_embeddings=False, vocab_size=32000,
+    torch_dtype="bfloat16")
+
+def _random_hf_model(torch, fields: dict, seed: int):
+    """(LlamaConfig read from ``fields`` as a namespace, the Llama that
+    models/convert.params_from_hf builds from random bf16 weights under
+    Hugging Face's key names). Weights come from a seeded generator on the
+    card: projections N(0, 1/d_in), the embedding N(0, 1) * 0.02, QKV
+    biases N(0, 0.25) where the config has them, norms ones."""
+    from types import SimpleNamespace
+
+    from mfa_tpu_torch.models import convert
+
+    cfg = convert.config_from_hf(SimpleNamespace(**fields))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(scale, *shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).bfloat16()
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16, device="cuda")
+
+    hd = cfg.head_dim
+    sd = {"model.embed_tokens.weight": rand(0.02, cfg.vocab_size, cfg.dim),
+          "model.norm.weight": ones(cfg.dim)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        for name, d_out, d_in in (
+                ("self_attn.q_proj", cfg.n_heads * hd, cfg.dim),
+                ("self_attn.k_proj", cfg.n_kv_heads * hd, cfg.dim),
+                ("self_attn.v_proj", cfg.n_kv_heads * hd, cfg.dim),
+                ("self_attn.o_proj", cfg.dim, cfg.n_heads * hd),
+                ("mlp.gate_proj", cfg.ffn_hidden, cfg.dim),
+                ("mlp.up_proj", cfg.ffn_hidden, cfg.dim),
+                ("mlp.down_proj", cfg.dim, cfg.ffn_hidden)):
+            sd[p + name + ".weight"] = rand(d_in ** -0.5, d_out, d_in)
+            if cfg.qkv_bias and name[-6:] in ("q_proj", "k_proj", "v_proj"):
+                sd[p + name + ".bias"] = rand(0.5, d_out)
+        sd[p + "input_layernorm.weight"] = ones(cfg.dim)
+        sd[p + "post_attention_layernorm.weight"] = ones(cfg.dim)
+    sd["lm_head.weight"] = rand(cfg.dim ** -0.5, cfg.vocab_size, cfg.dim)
+    model = convert.params_from_hf(sd, cfg, torch.bfloat16, device="cuda")
+    return cfg, model
+
+
+@contextlib.contextmanager
+def kernels_held_to_plain(torch):
+    """K1, K2 and K8 wrapped so that every launch in the block is also
+    computed by its plain version on the same inputs (K2's on copies of
+    the cache it appends to) and held to KERNEL_BUDGETS elementwise.
+    Yields (shares, k2): {budget: the largest share of it used}, and for
+    K2's launches "rows_equal" (its appended rows bit-equal to the plain
+    version's), "share_of_abs_o" (decode_o with its relative term taken
+    of |O|, reported only), and K2's and the plain version's largest
+    distance from an fp64 decode of the same operands in bf16 steps of
+    sum P |v| / l (utils/testing.py::rounding_steps), with "excess_steps",
+    the most by which K2's exceeds the plain version's at one element.
+    K2 is held at decode_o with the relative term taken of sum P |v| / l,
+    since on real activations O can cancel to near 0 from large terms,
+    and then one bf16 step of a rounded P v term, which K2 and its plain
+    version both take at the same point, exceeds 2^-6 |O| (ROADMAP.md
+    §C 4); the fp64 distances show whether K2 is any further from the
+    exact O than its plain version there. The kernels' own counters do
+    not move while they are wrapped (their increments land on the
+    wrappers), so these launches count on no path."""
+    from mfa_tpu_torch.kernels import decode as k2
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.kernels import quant_matmul as k8
+    from mfa_tpu_torch.utils.testing import (
+        KERNEL_BUDGETS,
+        budget_share,
+        decode_fp64,
+        rounding_steps,
+    )
+
+    shares, k2_found = {}, {}
+
+    def note(found, key, value):
+        found[key] = max(found.get(key, value), value)
+
+    def held(budget, got, want, scale=None):
+        note(shares, budget,
+             budget_share(got, want, *KERNEL_BUDGETS[budget], scale=scale))
+
+    real_k1, real_k2, real_k8 = (k1.flash_fwd, k2.decode_fused_append,
+                                 k8.int4_matmul)
+
+    def k1_held(q3, k3, v3, kd, *, group, scale, o_dtype, out=None):
+        o, lse = real_k1(q3, k3, v3, kd, group=group, scale=scale,
+                         o_dtype=o_dtype, out=out)
+        o_p, l_p = k1.flash_fwd_plain(q3, k3, v3, kd, group=group,
+                                      scale=scale, o_dtype=o_dtype)
+        held("flash_fwd_o_" + ("bf16" if o_dtype == torch.bfloat16
+                               else "fp32"), o, o_p)
+        held("flash_fwd_l", lse, l_p)
+        return o, lse
+
+    def k2_held(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, **kw):
+        exact, terms = (decode_fp64(q3, k, v, k_scale, v_scale, k_new,
+                                    v_new, lengths, magnitudes=mag, **kw)
+                        for mag in (False, True))
+        cache_p = [t.clone() for t in (k, v, k_scale, v_scale)]
+        o_p = k2.decode_fused_append_plain(q3, *cache_p, k_new, v_new,
+                                           lengths.clone(), **kw)
+        o = real_k2(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, **kw)
+        held("decode_o", o, o_p, scale=terms)
+        atol = KERNEL_BUDGETS["decode_o"][0]
+        note(k2_found, "share_of_abs_o",
+             budget_share(o, o_p, *KERNEL_BUDGETS["decode_o"]))
+        steps_k, steps_p = (rounding_steps(x, exact, terms, atol)
+                            for x in (o, o_p))
+        note(k2_found, "k2_steps_from_fp64", float(steps_k.max()))
+        note(k2_found, "plain_steps_from_fp64", float(steps_p.max()))
+        note(k2_found, "excess_steps", float((steps_k - steps_p).max()))
+        k2_found["rows_equal"] = k2_found.get("rows_equal", True) and all(
+            torch.equal(_bits(torch, a), _bits(torch, b))
+            for a, b in zip((k, v), cache_p))
+        return o
+
+    def k8_held(x, packed, scale, *, layout, device="cuda"):
+        y = real_k8(x, packed, scale, layout=layout, device=device)
+        y_p = k8.int4_matmul_plain(x, packed, scale, layout=layout)
+        held("int4_matmul_" + ("biased" if layout == "int4_biased"
+                               else "signed"), y, y_p)
+        return y
+
+    swaps = [(k1, "flash_fwd", k1_held),
+             (k2, "decode_fused_append", k2_held),
+             (k8, "int4_matmul", k8_held)]
+    for mod, attr, fn in swaps:
+        fn.launches = 0
+        setattr(mod, attr, fn)
+    yield shares, k2_found
+    for (mod, attr, _), fn in zip(swaps, (real_k1, real_k2, real_k8)):
+        setattr(mod, attr, fn)
+
+
+def _in_context(torch, model, tokens, name: str, *, decode: bool = True,
+                kv_precision=None, max_len: int = 0, **info) -> None:
+    """The model through the kernels, every K1, K2 and K8 launch held to
+    its plain version at KERNEL_BUDGETS (kernels_held_to_plain), then
+    through the plain versions (plain_kernels). With ``decode``: tokens
+    [B, T] prefilled into caches of ``max_len`` and one decode step, the
+    step's logits taken from the same state both times; without: the
+    last-position logits of a forward over tokens [B, T]. The logits agree
+    within the bf16 mixed budget, relative, and K2 is nowhere more than
+    one bf16 step of sum P |v| / l further from an fp64 decode than its
+    plain version. Fails otherwise."""
+    with torch.inference_mode():
+        if decode:
+            caches = model.make_caches(tokens.shape[0], max_len, kv_precision)
+        with kernels_held_to_plain(torch) as (shares, k2):
+            if decode:
+                model(tokens, caches=caches)
+                lengths = [c.lengths for c in caches]
+                logits_k, _ = model.decode_step(tokens[:, -1], caches)
+            else:
+                logits_k = model(tokens)[:, -1]
+        if decode:
+            for c, ln in zip(caches, lengths):
+                c.lengths = ln
+        with plain_kernels():
+            logits_p = (model.decode_step(tokens[:, -1], caches)[0]
+                        if decode else model(tokens)[:, -1])
+    scale = float(logits_p.abs().max())
+    err = max_err(logits_k, logits_p)
+    budget = 5e-2 * max(1.0, scale)
+    ok = (err <= budget and all(x <= 1 for x in shares.values())
+          and k2.get("rows_equal", True) and k2.get("excess_steps", 0) <= 1)
+    if decode:
+        info.update(max_len=max_len, kv=kv_precision.value)
+    emit({"phase": f"{name}_in_context", "batch": tokens.shape[0],
+          "prompt": tokens.shape[1], **info, "shares": shares,
+          "decode": k2, "max_abs_err": err, "budget": budget,
+          "max_abs_logit": scale,
+          "argmax_equal": bool(torch.equal(logits_k.argmax(-1),
+                                            logits_p.argmax(-1))),
+          "ok": ok})
+    if not ok:
+        raise SystemExit(f"{name} in context: logits differ by {err} "
+                         f"(budget {budget}), a kernel left its budget "
+                         f"({shares}) or K2 left its plain version's "
+                         f"distance from fp64 ({k2})")
+
+
+def _serve(torch, model, prompts, kv_precision, *, max_len: int,
+           int4_weights: bool = False, **sched_kw):
+    """Greedy requests of 16 tokens behind ContinuousBatchingScheduler (4
+    slots). K1, K2 and K8's counters are set to 0 just before and read
+    just after; K1 must carry every prefill, K2 every decode step and K8
+    (INT4 weights) all 7 projections of every layer in both. Returns
+    (summary, launches, the requests' tokens); fails on a wrong count."""
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import decode as k2
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.kernels import quant_matmul as k8
+    from mfa_tpu_torch.serving.scheduler import (
+        ContinuousBatchingScheduler,
+        Request,
+    )
+
+    cfg = model.cfg
+    sched = ContinuousBatchingScheduler(
+        model, num_slots=4, max_len=max_len, kv_precision=kv_precision,
+        device="cuda", **sched_kw)
+    reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    counters = (k1.flash_fwd, k2.decode_fused_append, k8.int4_matmul)
+    for f in counters:
+        f.launches = 0
+    decode_only = []
+    t_run = time.perf_counter()
+    for _ in range(2000):
+        pre = sched.stats["prefills"]
+        t_s = time.perf_counter()
+        progressed = sched.step()
+        torch.cuda.synchronize()
+        if not progressed and not sched.queue:
+            break
+        if sched.stats["prefills"] == pre:
+            decode_only.append((time.perf_counter() - t_s) * 1e3)
+    else:
+        raise SystemExit("serving: no end after 2000 steps")
+    sched._retire()
+    run_s = time.perf_counter() - t_run
+    launches = {f.__name__: f.launches for f in counters}
+    done = {c.request.id: c for c in sched.finished}
+    stats = dict(sched.stats)
+    layers = cfg.n_layers
+    want_k8 = 7 * layers * (stats["prefills"] + stats["decode_steps"])
+    ok = (len(done) == len(reqs)
+          and all(len(done[r.id].tokens) == 16 for r in reqs)
+          and stats["prefills"] == len(reqs)
+          and launches["flash_fwd"] == layers * stats["prefills"]
+          and launches["decode_fused_append"]
+          == layers * stats["decode_steps"]
+          and launches["int4_matmul"] == (want_k8 if int4_weights else 0))
+    summary = dict(
+        ok=ok, kv=kv_precision.value, int4_weights=int4_weights,
+        completions=len(done), prompts=[len(p) for p in prompts],
+        tokens=stats["tokens"], prefills=stats["prefills"],
+        decode_steps=stats["decode_steps"], launches=launches,
+        run_s=run_s, decode_ms_per_step=(float(np.median(decode_only))
+                                         if decode_only else None),
+        tokens_per_s=stats["tokens"] / run_s,
+        first_tokens=done[reqs[0].id].tokens[:4] if reqs[0].id in done
+        else None)
+    if not ok:
+        raise SystemExit(f"serving: completions or launch counts wrong "
+                         f"({summary})")
+    del sched
+    torch.cuda.empty_cache()
+    return summary, launches, [done[r.id].tokens for r in reqs]
+
+
+def _prefill_ms(torch, model, buckets, max_len: int) -> dict:
+    """Device ms of one batch-1 prefill (bf16 cache) per prompt bucket."""
+    from mfa_tpu_torch.utils import roofline
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for n in buckets:
+        toks = torch.randint(1, model.cfg.vocab_size, (1, n), generator=gen,
+                             device="cuda")
+
+        def run():
+            with torch.inference_mode():
+                model(toks, caches=model.make_caches(1, max_len))
+
+        out[n] = roofline.cuda_ms(run, iters=2, warmup=1)
+    return out
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_qwen2_serving(torch):
+    """Qwen2-7B at full width and depth: its config read from its
+    published fields, random HF-named weights with QKV biases through
+    params_from_hf, served over bf16 and FP8-e4m3 caches and again with
+    INT4 weights over FP8. Returns (the bf16 model, K1/K2/K8 launches)."""
+    import numpy as np
+
+    from mfa_tpu_torch.models.llama import LlamaConfig
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+
+    t0 = time.perf_counter()
+    cfg, model = _random_hf_model(torch, QWEN2_7B_CONFIG, seed=20)
+    if cfg != LlamaConfig.qwen2_7b():
+        raise SystemExit(f"qwen2: config_from_hf gave {cfg}")
+    torch.cuda.synchronize()
+    emit({"phase": "qwen2_init", "seconds": time.perf_counter() - t0,
+          "config": dataclasses.asdict(cfg),
+          "params": sum(p.numel() for p in model.parameters()),
+          "weights_gib": _weight_gib(model)})
+
+    rng = np.random.default_rng(20)
+    fp8 = OperandPrecision.FP8_E4M3
+    batch = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                          (4, 256))).cuda()
+    _in_context(torch, model, batch, "qwen2",
+                kv_precision=OperandPrecision.BF16, max_len=2048)
+    emit({"phase": "qwen2_prefill", "ms_per_bucket": _prefill_ms(
+        torch, model, (512, 2048), 2048)})
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (50, 120, 250, 500, 1000, 1900)]
+    launches = {}
+    for kv in (OperandPrecision.BF16, fp8):
+        summary, n, _ = _serve(torch, model, prompts, kv, max_len=2048)
+        _add(launches, n)
+        emit({"phase": "qwen2_serving", **summary})
+
+    int4_model = model.quantized(OperandPrecision.INT4)
+    emit({"phase": "qwen2_int4_init", "weights_gib": _weight_gib(int4_model),
+          "device_gib": torch.cuda.memory_allocated() / 2**30})
+    _in_context(torch, int4_model, batch, "qwen2_int4", kv_precision=fp8,
+                max_len=2048)
+    summary, n, _ = _serve(torch, int4_model, prompts, fp8, max_len=2048,
+                           int4_weights=True)
+    _add(launches, n)
+    emit({"phase": "qwen2_serving", **summary})
+    del int4_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "qwen2_serving_done",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return model, launches
+
+
+def _same_bits(torch, a: dict, b: dict) -> bool:
+    """Every tensor of two name → tensor dicts equal in dtype, shape and
+    raw bytes."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and torch.equal(_bits(torch, a[k]), _bits(torch, b[k])) for k in a)
+
+
+def _cache_tensors(caches) -> dict:
+    return {f"{i}.{f}": getattr(c, f) for i, c in enumerate(caches)
+            for f in ("k", "v", "k_scale", "v_scale", "lengths")}
+
+
+def phase_checkpoint(torch, model):
+    """Qwen2-7B at full width cut to its first 4 layers, in bf16 and with
+    INT4 weights, and an FP8-e4m3 cache after one prefill: saved, loaded
+    into fresh templates, every tensor bit-equal, and one greedy request
+    from each restored model giving the tokens it gave before. Returns
+    the K1/K2/K8 launches of those requests."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mfa_tpu_torch.models.llama import Llama
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+    from mfa_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model.cfg, n_layers=4)
+    params = model.params()
+    params["layers"] = params["layers"][:4]
+    bf16 = Llama(cfg, params, device="cuda")          # the model's tensors
+    int4 = bf16.quantized(OperandPrecision.INT4)
+    fp8 = OperandPrecision.FP8_E4M3
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(1, cfg.vocab_size, 300).tolist()
+    caches = int4.make_caches(1, 2048, fp8)
+    with torch.inference_mode():
+        int4(torch.tensor([prompt], device="cuda"), caches=caches)
+    launches = {}
+    before = {}
+    for name, m, kv in (("bf16", bf16, OperandPrecision.BF16),
+                        ("int4", int4, fp8)):
+        _, n, toks = _serve(torch, m, [prompt], kv, max_len=2048,
+                            int4_weights=name == "int4")
+        _add(launches, n)
+        before[name] = toks[0]
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="checkpoint_", dir=root))
+    t_save = time.perf_counter()
+    checkpoint.save(tmp / "bf16", bf16.params(), metadata={"model": "qwen2"})
+    checkpoint.save(tmp / "int4", int4.params())
+    checkpoint.save(tmp / "kv_fp8", caches, metadata={"prompt": 300})
+    save_s = time.perf_counter() - t_save
+    nbytes = {d.name: sum(f.stat().st_size for f in d.iterdir())
+              for d in tmp.iterdir()}
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    fresh = Llama.init(cfg, generator=gen, dtype=torch.bfloat16,
+                       device="cuda")
+    fresh_int4 = Llama.init(cfg, generator=gen, dtype=torch.bfloat16,
+                            device="cuda",
+                            weight_precision=OperandPrecision.INT4)
+    fresh_caches = fresh_int4.make_caches(1, 2048, fp8)
+    t_load = time.perf_counter()
+    _, meta = checkpoint.load(tmp / "bf16", fresh.params())
+    checkpoint.load(tmp / "int4", fresh_int4.params())
+    checkpoint.load(tmp / "kv_fp8", fresh_caches)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t_load
+    shutil.rmtree(tmp)
+    equal = {"bf16": _same_bits(torch, bf16.state_dict(),
+                                fresh.state_dict()),
+             "int4": _same_bits(torch, int4.state_dict(),
+                                fresh_int4.state_dict()),
+             "kv_fp8": _same_bits(torch, _cache_tensors(caches),
+                                  _cache_tensors(fresh_caches))}
+    after = {}
+    for name, m, kv in (("bf16", fresh, OperandPrecision.BF16),
+                        ("int4", fresh_int4, fp8)):
+        _, n, toks = _serve(torch, m, [prompt], kv, max_len=2048,
+                            int4_weights=name == "int4")
+        _add(launches, n)
+        after[name] = toks[0]
+    ok = (all(equal.values()) and after == before
+          and meta == {"model": "qwen2"})
+    emit({"phase": "checkpoint", "n_layers": cfg.n_layers, "bytes": nbytes,
+          "save_s": save_s, "load_s": load_s, "bits_equal": equal,
+          "tokens_equal": after == before, "tokens": after, "ok": ok,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    if not ok:
+        raise SystemExit(f"checkpoint: bits equal {equal}, tokens before "
+                         f"{before}, after {after}")
+    del bf16, int4, fresh, fresh_int4, caches, fresh_caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The Mistral server's prompt buckets: the default ones, then 4096 and
+# 8192 for prompts longer than the window.
+MISTRAL_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def phase_mistral_serving(torch):
+    """Mistral-7B at full width and depth, its 4096-token window over
+    prompts longer than it: config from its published fields, random
+    HF-named weights, the 6000-token prefill's last logits through K1
+    against its plain version, one decode step past the window through K2
+    against its plain version, four requests (two of ~4500 and 6000
+    tokens) over a bf16 cache of 8192. Returns (model, launches)."""
+    import numpy as np
+
+    from mfa_tpu_torch.models.llama import LlamaConfig
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+
+    t0 = time.perf_counter()
+    cfg, model = _random_hf_model(torch, MISTRAL_7B_CONFIG, seed=30)
+    if cfg != LlamaConfig.mistral_7b():
+        raise SystemExit(f"mistral: config_from_hf gave {cfg}")
+    torch.cuda.synchronize()
+    emit({"phase": "mistral_init", "seconds": time.perf_counter() - t0,
+          "config": dataclasses.asdict(cfg),
+          "params": sum(p.numel() for p in model.parameters()),
+          "weights_gib": _weight_gib(model)})
+
+    rng = np.random.default_rng(30)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (200, 1000, 4500, 6000)]
+    toks = torch.tensor([prompts[-1]], device="cuda")
+    _in_context(torch, model, toks, "mistral_k1", decode=False,
+                window=cfg.sliding_window)
+    _in_context(torch, model, toks, "mistral_k2",
+                kv_precision=OperandPrecision.BF16, max_len=8192)
+    emit({"phase": "mistral_prefill", "ms_per_bucket": _prefill_ms(
+        torch, model, (4096, 8192), 8192)})
+    summary, launches, _ = _serve(torch, model, prompts,
+                                  OperandPrecision.BF16, max_len=8192,
+                                  prompt_buckets=MISTRAL_BUCKETS)
+    emit({"phase": "mistral_serving", **summary})
+    emit({"phase": "mistral_serving_done",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return model, launches
+
+
+def phase_evaluate(torch, model):
+    """Perplexity of the Mistral model through the causal forward (K1) and
+    through the decode path (K2) over bf16, INT8 and FP8-e4m3 caches:
+    batch 2, 256 tokens, max_len 384, held to tests/test_aux.py's
+    conditions. Returns K1's and K2's launches."""
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import decode as k2
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+    from mfa_tpu_torch.utils import evaluate
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    b, t, max_len = 2, 256, 384
+    tokens = torch.from_numpy(np.random.default_rng(40).integers(
+        1, cfg.vocab_size, (b, t))).cuda()
+    torch.cuda.synchronize()
+    for f in (k1.flash_fwd, k2.decode_fused_append):
+        f.launches = 0
+    p_full = evaluate.perplexity_full(model, tokens)
+    rows, ok = {}, True
+    for name, prec in (("int8", OperandPrecision.INT8),
+                       ("fp8_e4m3", OperandPrecision.FP8_E4M3)):
+        t_q = time.perf_counter()
+        p_bf16, p_q, delta = evaluate.kv_quantization_ppl_delta(
+            model, tokens, prec, max_len=max_len)
+        row_ok = (0.5 * p_full < p_bf16 < 2.0 * p_full
+                  and delta / p_bf16 < 0.02)
+        ok = ok and row_ok
+        rows[name] = dict(ppl_bf16_kv=p_bf16, ppl_quant_kv=p_q,
+                          delta=delta, delta_over_ppl=delta / p_bf16,
+                          ok=row_ok, seconds=time.perf_counter() - t_q)
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": k1.flash_fwd.launches,
+                "decode_fused_append": k2.decode_fused_append.launches}
+    # One full forward and four decode runs (bf16 and quantized, twice),
+    # each a one-token prefill and t - 1 decode steps.
+    want = {"flash_fwd": cfg.n_layers * 5,
+            "decode_fused_append": cfg.n_layers * 4 * (t - 1)}
+    ok = ok and launches == want
+    emit({"phase": "evaluate", "batch": b, "tokens": t, "max_len": max_len,
+          "ppl_full": p_full, **rows, "launches": launches,
+          "expected_launches": want, "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise SystemExit(f"evaluate: perplexities or launches wrong "
+                         f"(full {p_full}, {rows}, launches {launches})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1566,21 +2034,37 @@ def main() -> int:
     torch.cuda.empty_cache()
     bwd_row = phase_bwd(torch)
     train_launches = phase_training(torch)
-    # K1 runs on four main paths: its launches are the three serving runs'
-    # and the training run's together; K2 on the two contiguous ones.
+    qwen2_model, qwen2_launches = phase_qwen2_serving(torch)
+    ckpt_launches = phase_checkpoint(torch, qwen2_model)
+    del qwen2_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mistral_model, mistral_launches = phase_mistral_serving(torch)
+    eval_launches = phase_evaluate(torch, mistral_model)
+    del mistral_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    new = {}
+    for n in (qwen2_launches, ckpt_launches, mistral_launches,
+              eval_launches):
+        _add(new, n)
+    # K1 runs on the three Llama-3-8B serving runs, training and the new
+    # phases' paths; K2 on the contiguous serving runs and the new paths;
+    # K8 on the INT4 serving runs.
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "mfa_tpu/kernels/flash_fwd.py:349",
          "launches": (launches["flash_fwd"] + paged_k1
                       + int4_launches["flash_fwd"]
-                      + train_launches["flash_fwd"]),
+                      + train_launches["flash_fwd"] + new["flash_fwd"]),
          **{k: v for k, v in k1_row.items() if k != "lse_err"}},
         {"name": "decode_fused_append", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode.cu",
          "replaces": "mfa_tpu/kernels/decode.py:431",
          "launches": (launches["decode_fused_append"]
-                      + int4_launches["decode_fused_append"]), **k2_row},
+                      + int4_launches["decode_fused_append"]
+                      + new["decode_fused_append"]), **k2_row},
         {"name": "flash_bwd_q", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:59",
@@ -1606,7 +2090,8 @@ def main() -> int:
         {"name": "int4_matmul", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "mfa_tpu/kernels/quant_matmul.py:27 and :54",
-         "launches": int4_launches["int4_matmul"], **k8_row},
+         "launches": int4_launches["int4_matmul"] + new["int4_matmul"],
+         **k8_row},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

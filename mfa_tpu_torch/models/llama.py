@@ -65,6 +65,24 @@ class LlamaConfig:
         return cls()
 
     @classmethod
+    def llama3_1b_proxy(cls) -> "LlamaConfig":
+        """~1B-scale config for single-card experiments."""
+        return cls(dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+                   ffn_hidden=8192)
+
+    @classmethod
+    def mistral_7b(cls) -> "LlamaConfig":
+        return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, ffn_hidden=14336, rope_theta=10000.0,
+                   sliding_window=4096)
+
+    @classmethod
+    def qwen2_7b(cls) -> "LlamaConfig":
+        return cls(vocab_size=152064, dim=3584, n_layers=28, n_heads=28,
+                   n_kv_heads=4, ffn_hidden=18944, rope_theta=1000000.0,
+                   norm_eps=1e-6, qkv_bias=True)
+
+    @classmethod
     def tiny(cls) -> "LlamaConfig":
         """CPU-test scale."""
         return cls(vocab_size=256, dim=128, n_layers=2, n_heads=4,

@@ -64,7 +64,7 @@ from mfa_tpu_torch.ops.descriptors import (
     GEMMDescriptor,
 )
 from mfa_tpu_torch.ops.precision import OperandPrecision
-from mfa_tpu_torch.utils.decode_tuning import _cuda_ms
+from mfa_tpu_torch.utils import roofline
 from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
 # K1's candidates: (block_kv, most ring stages, ping-pong) of the wgmma
@@ -126,7 +126,8 @@ def sweep_fwd() -> None:
                                       *KERNEL_BUDGETS["flash_fwd_o_bf16"]),
                     "l": budget_share(lse, l_p,
                                       *KERNEL_BUDGETS["flash_fwd_l"])}
-                ms = _cuda_ms(lambda: k1.flash_fwd(q, k, v, kd, **kw))
+                ms = roofline.cuda_ms(
+                    lambda: k1.flash_fwd(q, k, v, kd, **kw), iters=50)
                 row = params.ParameterRow(d, bq, bkv, d, kernel)
                 print(json.dumps({
                     "kernel": "flash_fwd", "D": d, "causal": causal,
@@ -154,8 +155,8 @@ def sweep_bwd() -> None:
                                      kernel=kernel)
             dq, dt = k34.flash_bwd_q(q, k, v, o, do, lse, kd, **kw)
             shares = _shares((dq, dt), (dq_p, dterm), ("dq_bf16", "dterm"))
-            ms = _cuda_ms(lambda: k34.flash_bwd_q(q, k, v, o, do, lse, kd,
-                                                  **kw))
+            ms = roofline.cuda_ms(lambda: k34.flash_bwd_q(
+                q, k, v, o, do, lse, kd, **kw), iters=50)
             print(json.dumps({"kernel": "flash_bwd_q", "D": d, "block_q": bq,
                               "block_kv": bkv, "row_kernel": kernel,
                               "share": shares, "ms": ms}), flush=True)
@@ -169,8 +170,8 @@ def sweep_bwd() -> None:
             dk2, dv2 = k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd, **kw)
             same = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
             shares = _shares((dk, dv), (dk_p, dv_p), ("dk_bf16", "dv_bf16"))
-            ms = _cuda_ms(lambda: k34.flash_bwd_kv(q, k, v, do, lse, dterm,
-                                                   kd, **kw))
+            ms = roofline.cuda_ms(lambda: k34.flash_bwd_kv(
+                q, k, v, do, lse, dterm, kd, **kw), iters=50)
             print(json.dumps({"kernel": "flash_bwd_kv", "D": d,
                               "block_q": bq, "block_kv": bkv,
                               "row_kernel": kernel, "share": shares,
@@ -230,7 +231,7 @@ def sweep_matmul() -> None:
             share = budget_share(run(), want, *budget)
             row = {"kernel": "gemm", "case": name, "tile": tile.name,
                    "stages": stages, "group": g, "share": share,
-                   "ms": _cuda_ms(run, iters=20)}
+                   "ms": roofline.cuda_ms(run, iters=20)}
             print(json.dumps(row), flush=True)
             params.GEMM_TILE_GROUP = group
             if share > 1:
@@ -263,7 +264,7 @@ def sweep_matmul() -> None:
                                "M": m, "K": k, "N": n, "tile": name,
                                "stages": stages, "group": g, "share": share,
                                "rule": rule_tile(m, n, torch.bfloat16).name,
-                               "ms": _cuda_ms(run, iters=20)}
+                               "ms": roofline.cuda_ms(run, iters=20)}
                         print(json.dumps(row), flush=True)
                         k8.int4_tile = rule_tile
                         params.GEMM_TILE_GROUP = group
@@ -310,7 +311,8 @@ def sweep_qmm_decode() -> None:
                                                                    tile),
                                "rule": (stages == tiles[tile.name].stages
                                         and c == ctas),
-                               "share": share, "ms": _cuda_ms(run, iters=50)}
+                               "share": share,
+                               "ms": roofline.cuda_ms(run, iters=50)}
                         print(json.dumps(row), flush=True)
                         params.QMM_TILES.update(tiles)
                         params.QMM_SPLIT_CTAS_PER_SM = ctas

@@ -18,11 +18,14 @@ INT4 matmul phase (``k8``; ``k8d``: the decode tile alone at M 4 and
 (``profile``: prefills and decode steps over bf16, INT8 and FP8 caches)
 or its INT4 phase (``int4``) from two trees in turns (A, B, B, A), each
 in a process of its own that builds and loads its own tree's kernels.
+``rounding`` holds K2 and its plain version against an fp64 decode where
+attention concentrates and O cancels (``ROUNDING_CASES``).
 
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.decode_tuning sweep [--out chiprun_out]
     python -m mfa_tpu_torch.utils.decode_tuning kernels
+    python -m mfa_tpu_torch.utils.decode_tuning rounding
     python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
         [--what kernels|serving|host|k1|k2|bwd|k7|k8|k8d|training|profile|
                 int4]
@@ -44,9 +47,12 @@ from mfa_tpu_torch.kernels import paged_decode as k6
 from mfa_tpu_torch.ops import params as params_mod
 from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.serving import kv_cache
+from mfa_tpu_torch.utils import roofline
 from mfa_tpu_torch.utils.testing import (
     KERNEL_BUDGETS,
     budget_share,
+    decode_fp64,
+    rounding_steps,
     shuffled_page_pool,
 )
 
@@ -54,24 +60,6 @@ SPLIT_ROWS = (64, 128, 256, 512, 1024)
 THREADS = (128, 256)
 _STORAGE = {"bf16": torch.bfloat16, "int8": torch.int8,
             "fp8_e4m3": torch.float8_e4m3fn}
-
-
-def _cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
-    """Mean device ms of fn() over ``iters`` launches queued behind a
-    ~30 ms device spin (as chip_smoke.cuda_ms), so that CUDA events time
-    the kernels back to back and not the host's launch rate."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _k5_case(gen, fmt: str, max_len: int):
@@ -127,7 +115,8 @@ def sweep(out: Path) -> None:
                 share = budget_share(kernel(), plain(),
                                      *KERNEL_BUDGETS[budget])
                 row = {"case": name, "R": r, "threads": threads,
-                       "ms": _cuda_ms(kernel), "share": share}
+                       "ms": roofline.cuda_ms(kernel, iters=50),
+                       "share": share}
                 if not share <= 1:
                     raise SystemExit(f"sweep: {row} exceeds its budget")
                 rows.append(row)
@@ -135,7 +124,8 @@ def sweep(out: Path) -> None:
     params_mod.decode_split_rows = rule_rows
     params_mod.DECODE_ATTEND_THREADS = rule_threads
     for name, (kernel, _, _) in cases.items():
-        print(json.dumps({"case": name, "rule": True, "ms": _cuda_ms(kernel)}),
+        print(json.dumps({"case": name, "rule": True,
+                          "ms": roofline.cuda_ms(kernel, iters=50)}),
               flush=True)
     out.mkdir(parents=True, exist_ok=True)
     (out / "decode_sweep.jsonl").write_text(
@@ -166,6 +156,71 @@ def kernels(calls: int = 20) -> None:
         print(json.dumps({"case": name, "device_ms": per}), flush=True)
 
 
+# K2 under concentrated attention (ROADMAP.md §C 4): (cache format, Hkv,
+# G, lengths, q scale, k and v scale). Larger scores concentrate P on a
+# few rows, whose values then cancel in O.
+ROUNDING_CASES = (
+    ("fp8_e4m3", 4, 7, (256,) * 4, 1, 4),
+    ("fp8_e4m3", 4, 7, (257,) * 4, 1, 1),
+    ("bf16", 8, 4, (256,) * 4, 4, 1),
+    ("bf16", 4, 7, (256,) * 4, 1, 1),
+    ("bf16", 8, 4, (1000,) * 4, 8, 1),
+    ("fp8_e4m3", 8, 4, (1000,) * 4, 8, 1),
+)
+
+
+def rounding(trials: int = 3, seed: int = 0) -> list[dict]:
+    """K2 and its plain version against an fp64 decode on
+    ROUNDING_CASES (B 4, D 128, max_len 2048): K2's share of the decode_o
+    budget with its relative term taken of |O| and of sum P |v| / l, and
+    each side's distance from fp64 in bf16 steps (2^-7) of sum P |v| / l
+    (the rounding both take where P v is rounded to bf16)."""
+    atol, rtol = KERNEL_BUDGETS["decode_o"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows, d, b, max_len = [], 128, 4, 2048
+    for fmt, hkv, g, lens, q_mul, kv_mul in ROUNDING_CASES:
+        for trial in range(trials):
+            bh = b * hkv
+            cache = kv_cache.create(b, hkv, max_len, d, OperandPrecision(fmt),
+                                    device="cuda")
+            kv_cache.update(cache, *(torch.randn(
+                (2, b, hkv, max_len, d), generator=gen, device="cuda")
+                * kv_mul))
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            q3 = (torch.randn((bh, g, d), generator=gen, device="cuda")
+                  * (q_mul * math.log2(math.e) / math.sqrt(d))).bfloat16()
+            kn, vn = ((torch.randn((bh, d), generator=gen, device="cuda")
+                       * kv_mul).bfloat16() for _ in range(2))
+
+            def operands():
+                return [t.clone() for t in (
+                    cache.k.view(bh, max_len, d), cache.v.view(bh, max_len, d),
+                    cache.k_scale.view(bh, max_len),
+                    cache.v_scale.view(bh, max_len))]
+
+            kw = dict(num_kv_heads=hkv)
+            exact, terms = (decode_fp64(q3, *operands(), kn, vn, lengths,
+                                        magnitudes=mag, **kw)
+                            for mag in (False, True))
+            o_p = k5.decode_fused_append_plain(q3, *operands(), kn, vn,
+                                               lengths.clone(), **kw)
+            o_k = k5.decode_fused_append(q3, *operands(), kn, vn,
+                                         lengths.clone(), **kw)
+
+            def steps(o):
+                return float(rounding_steps(o, exact, terms, atol).max())
+
+            rows.append({
+                "kv": fmt, "hkv": hkv, "G": g, "lengths": list(lens),
+                "q_scale": q_mul, "kv_scale": kv_mul, "trial": trial,
+                "k2_share_of_abs_o": budget_share(o_k, o_p, atol, rtol),
+                "k2_share_of_terms": budget_share(o_k, o_p, atol, rtol,
+                                                  scale=terms),
+                "k2_bf16_steps_from_fp64": steps(o_k),
+                "plain_bf16_steps_from_fp64": steps(o_p)})
+    return rows
+
+
 # What ``turns`` runs in each tree (the tree's own chip_smoke.py and
 # package, from its root): the kernel checks, the contiguous and paged
 # serving runs, or the host time of one wrapper call (its launches queued
@@ -191,7 +246,7 @@ for n in (64, 512, 2048):
         head_dim=128, causal=True, low_precision_inputs=True,
         low_precision_intermediates=True)
     kd = desc.kernel_descriptor(AttentionKernelType.FORWARD)
-    ms = c.cuda_ms(torch, lambda: k1.flash_fwd(
+    ms = roofline.cuda_ms(lambda: k1.flash_fwd(
         q, k, v, kd, group=4, scale=desc.softmax_scale,
         o_dtype=torch.bfloat16), iters=50)
     print(json.dumps({"phase": "k1_bucket", "N": n,
@@ -217,9 +272,9 @@ for k, n in c.LLAMA3_8B_PROJECTIONS:
         w_deq = qw.dequantize(torch.bfloat16)
         for m in (4, 16):
             x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
-            ms = c.cuda_ms(torch, lambda: k8.int4_matmul(
+            ms = roofline.cuda_ms(lambda: k8.int4_matmul(
                 x, qw.w, qw.scale, layout=layout), iters=50)
-            lib = c.cuda_ms(torch, lambda: F.linear(x, w_deq), iters=50)
+            lib = roofline.cuda_ms(lambda: F.linear(x, w_deq), iters=50)
             print(json.dumps({"phase": "k8d", "layout": layout, "M": m,
                               "K": k, "N": n, "ms": ms, "library_ms": lib}))
 """,
@@ -297,10 +352,24 @@ for name, fn in calls.items():
 }
 
 
+# Each tree's process first: its chip_smoke as c, and roofline.cuda_ms,
+# which a tree older than utils/roofline.py has as chip_smoke.cuda_ms(torch,
+# fn, ...), so that a tree can be compared with its parent.
+_TURNS_PREAMBLE = """import importlib.util, sys, types, torch
+sys.path.insert(0, '.')
+import chip_smoke as c
+if importlib.util.find_spec('mfa_tpu_torch.utils.roofline'):
+    from mfa_tpu_torch.utils import roofline
+else:
+    roofline = types.SimpleNamespace(
+        cuda_ms=lambda fn, **kw: c.cuda_ms(torch, fn, **kw))
+c.phase_device(torch)
+"""
+
+
 def turns(a: Path, b: Path, what: str) -> None:
     """One of _TURNS from tree a, b, b, a, each in a process of its own."""
-    code = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke "
-            "as c; c.phase_device(torch)\n" + _TURNS[what])
+    code = _TURNS_PREAMBLE + _TURNS[what]
     for label, tree in (("A", a), ("B", b), ("B", b), ("A", a)):
         run = subprocess.run([sys.executable, "-c", code], cwd=tree,
                              capture_output=True, text=True, timeout=1200)
@@ -312,7 +381,8 @@ def turns(a: Path, b: Path, what: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("sweep", "kernels", "turns"))
+    ap.add_argument("mode", choices=("sweep", "kernels", "turns",
+                                     "rounding"))
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--a", default="build/parent",
                     help="turns: the first tree (e.g. the parent commit)")
@@ -326,6 +396,9 @@ def main(argv=None) -> int:
         sweep(Path(args.out))
     elif args.mode == "kernels":
         kernels()
+    elif args.mode == "rounding":
+        for row in rounding():
+            print(json.dumps(row), flush=True)
     else:
         turns(Path(args.a), Path(args.b), args.what)
     return 0

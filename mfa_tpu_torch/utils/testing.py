@@ -144,11 +144,58 @@ KERNEL_BUDGETS = {
 
 
 def budget_share(actual: torch.Tensor, expected: torch.Tensor, atol: float,
-                 rtol: float) -> float:
-    """Worst |actual - expected| / (atol + rtol * |expected|) over the
-    elements: the share of an elementwise budget used (<= 1 is within)."""
+                 rtol: float, scale: torch.Tensor | None = None) -> float:
+    """Worst |actual - expected| / (atol + rtol * |scale|) over the
+    elements, ``scale`` defaulting to ``expected``: the share of an
+    elementwise budget used (<= 1 is within). For a weighted sum whose
+    terms cancel (attention's O = sum P v / l near 0 from large terms),
+    pass the sum of the terms' magnitudes (sum P |v| / l) as ``scale``:
+    a rounding step of one term then counts against the terms, not
+    against their small sum."""
     e = expected.float()
-    return float(((actual.float() - e).abs() / (atol + rtol * e.abs())).max())
+    mag = e.abs() if scale is None else scale.float().abs()
+    return float(((actual.float() - e).abs() / (atol + rtol * mag)).max())
+
+
+def decode_fp64(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, *,
+                num_kv_heads: int, sliding_window: int | None = None,
+                magnitudes: bool = False) -> torch.Tensor:
+    """K2's one-token decode in fp64 over the live rows (dequantized where
+    the cache is int8 or FP8) and the new token, nothing rounded; with
+    ``magnitudes``, over |v|: sum P |v| / l, the size of O's terms. Takes
+    K2's operands as the kernel does (q3 [B*Hkv, G, D] in log2 units);
+    reads the cache and writes nothing."""
+    quantized = k.dtype in (torch.int8, torch.float8_e4m3fn,
+                            torch.float8_e5m2)
+    kf, vf = k.double(), v.double()
+    if quantized:
+        kf = kf * k_scale.double()[..., None]
+        vf = vf * v_scale.double()[..., None]
+    vn = v_new.double()
+    if magnitudes:
+        vf, vn = vf.abs(), vn.abs()
+    lens = lengths.long().clamp(0, k.shape[1]).repeat_interleave(
+        num_kv_heads)[:, None]
+    col = torch.arange(k.shape[1], device=k.device)[None, :]
+    live = col < lens
+    if sliding_window is not None:
+        live &= col >= (lens + 1 - sliding_window).clamp_min(0)
+    s = torch.einsum("bgd,bld->bgl", q3.double(), kf)
+    s = torch.where(live[:, None, :], s, -1e300)
+    s_new = torch.einsum("bgd,bd->bg", q3.double(), k_new.double())[..., None]
+    m = torch.maximum(s.amax(-1, keepdim=True), s_new)
+    p, p_new = torch.exp2(s - m), torch.exp2(s_new - m)
+    return ((torch.einsum("bgl,bld->bgd", p, vf) + p_new * vn[:, None, :])
+            / (p.sum(-1, keepdim=True) + p_new))
+
+
+def rounding_steps(o: torch.Tensor, exact: torch.Tensor, terms: torch.Tensor,
+                   atol: float) -> torch.Tensor:
+    """|o - exact| elementwise in bf16 steps (2^-7) of ``terms``, plus
+    ``atol``: how far a decode's O lies from its fp64 value (decode_fp64),
+    counted in roundings of its largest terms."""
+    return ((o.double() - exact).abs()
+            / (atol + 2.0 ** -7 * terms.abs())).float()
 
 
 def assert_close(actual, expected, tol: float, name: str = "operand",

@@ -3,6 +3,7 @@ mfa_tpu's (fused Pallas kernel in interpret mode), for bf16, INT8 and
 FP8-e4m3 caches filled through each side's own update()."""
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,11 @@ from mfa_tpu_torch.kernels.decode import decode_fused_append
 from mfa_tpu_torch.ops.decode import decode_attention_append
 from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.serving import kv_cache
-from mfa_tpu_torch.utils.testing import assert_close
+from mfa_tpu_torch.utils.testing import (
+    assert_close,
+    decode_fp64,
+    rounding_steps,
+)
 
 B, HQ, HKV, D, MAX_LEN = 3, 8, 2, 64, 512
 # 0 (empty slot: only the new token is live), unaligned, and one short of
@@ -191,3 +196,48 @@ def test_cache_dequant_recovers_the_filled_rows():
     assert_close(k[:, :, :40], x, tol, "k")
     assert_close(v[:, :, :40], -x, tol, "v")
     assert tc.lengths.tolist() == [40]
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("name", ["bf16", "fp8_e4m3"])
+def test_fp64_decode_is_within_a_rounding_step_of_both_packages(name,
+                                                                window):
+    """utils/testing.py::decode_fp64, the exact decode that chip_smoke.py
+    holds K2's in-context launches against: the port's K2 (its plain
+    version here) and mfa_tpu's fused kernel (interpret mode) on the same
+    cache both lie within one bf16 step (2^-7) of sum P |v| / l of it,
+    plus decode_o's atol (measured 0.12-0.21 steps). The window is the
+    one decode_fp64 is given: without it the case lies ~75 steps away."""
+    jprec, tprec, _ = PRECISIONS[name]
+    rng = np.random.default_rng(14)
+    jc, tc = _filled(rng, jprec, tprec)
+    q = rng.standard_normal((B, HQ, D)).astype(np.float32)
+    kn = (rng.standard_normal((B, HKV, D)) * 0.5).astype(np.float32)
+    vn = (rng.standard_normal((B, HKV, D)) * 0.5).astype(np.float32)
+    bh, g = B * HKV, HQ // HKV
+    # decode_attention_append's operands: q * scale * log2(e) in bf16.
+    q3 = (torch.from_numpy(q).bfloat16().float()
+          * (math.log2(math.e) / math.sqrt(D))).bfloat16().reshape(bh, g, D)
+    kn3, vn3 = (torch.from_numpy(x).bfloat16().reshape(bh, D)
+                for x in (kn, vn))
+    cache = [tc.k.view(bh, MAX_LEN, D), tc.v.view(bh, MAX_LEN, D),
+             tc.k_scale.view(bh, MAX_LEN), tc.v_scale.view(bh, MAX_LEN)]
+    kw = dict(num_kv_heads=HKV, sliding_window=window)
+    exact, terms = (decode_fp64(q3, *cache, kn3, vn3, tc.lengths,
+                                magnitudes=mag, **kw)
+                    for mag in (False, True))
+    o_t = decode_fused_append(q3, *[t.clone() for t in cache], kn3, vn3,
+                              tc.lengths.clone(), **kw)
+    o_j, _ = jax_decode_append(jnp.asarray(q, jnp.bfloat16),
+                               jnp.asarray(kn, jnp.bfloat16),
+                               jnp.asarray(vn, jnp.bfloat16), jc,
+                               sliding_window=window)
+    o_j = torch.from_numpy(np.asarray(o_j, np.float32)).reshape(bh, g, D)
+    for side, o in (("port", o_t), ("mfa_tpu", o_j)):
+        steps = float(rounding_steps(o, exact, terms, 1e-4).max())
+        assert steps <= 1, f"{side}: {steps} bf16 steps from fp64"
+    if window is not None:
+        unwindowed = decode_fp64(q3, *cache, kn3, vn3, tc.lengths,
+                                 num_kv_heads=HKV)
+        assert float(rounding_steps(o_t, unwindowed, terms,
+                                    1e-4).max()) > 10

@@ -922,3 +922,90 @@ def test_quantized_llama_on_cuda_matches_cpu(cuda, precision):
     gpu = llama.Llama(cfg, params, device=cuda)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
     assert_close(gpu(toks.to(cuda)), cpu(toks), 1e-3, "forward")
+
+
+@pytest.mark.parametrize("option", [dict(qkv_bias=True),
+                                    dict(sliding_window=12),
+                                    dict(tie_embeddings=True)],
+                         ids=["qkv_bias", "window12", "tied"])
+def test_preset_options_on_cuda_match_cpu(cuda, option):
+    """The options the Qwen2 and Mistral presets turn on (QKV bias with
+    random values, a window shorter than the prompt, tied embeddings),
+    at Qwen2's GQA group of 7 (7 query heads over 1), on the card against
+    the CPU: forward, then prefill and three decode steps per format."""
+    import dataclasses
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dim=224, n_heads=7,
+                              n_kv_heads=1, **option)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(5),
+                               torch.float32)
+    gen = torch.Generator().manual_seed(6)
+    for layer in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            if name in layer:
+                layer[name] = torch.randn(layer[name].shape, generator=gen)
+    cpu = llama.Llama(cfg, params, device="cpu")
+    gpu = llama.Llama(cfg, params, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 20)))
+    assert_close(gpu(tokens.to(cuda)), cpu(tokens), 1e-3, "forward")
+    for prec in _FORMATS.values():
+        cc, gc = cpu.make_caches(2, 128, prec), gpu.make_caches(2, 128, prec)
+        cpu(tokens, caches=cc)
+        gpu(tokens.to(cuda), caches=gc)
+        for step in range(3):
+            tok = tokens[:, step]
+            lc, cc = cpu.decode_step(tok, cc)
+            lg, gc = gpu.decode_step(tok.to(cuda), gc)
+            assert_close(lg, lc, 2e-2, f"decode {step} {prec.value}")
+
+
+def test_checkpoint_restores_onto_each_templates_device(cuda, tmp_path):
+    """INT4 weights and an FP8 cache saved from the card load into CPU
+    and card templates alike, bit for bit, each on its template's
+    device."""
+    from mfa_tpu_torch.utils import checkpoint
+
+    cfg = llama.LlamaConfig.tiny()
+    int4 = OperandPrecision.INT4
+    model = llama.Llama.init(
+        cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+        dtype=torch.bfloat16, device=cuda, weight_precision=int4)
+    caches = model.make_caches(2, 128, OperandPrecision.FP8_E4M3)
+    with torch.inference_mode():
+        model(torch.tensor([[1, 2, 3], [4, 5, 6]], device=cuda),
+              caches=caches)
+    checkpoint.save(tmp_path / "p", model.params())
+    checkpoint.save(tmp_path / "kv", caches)
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    for dev in ("cpu", cuda):
+        fresh = llama.Llama.init(
+            cfg, generator=torch.Generator(device=dev).manual_seed(1),
+            dtype=torch.bfloat16, device=dev, weight_precision=int4)
+        checkpoint.load(tmp_path / "p", fresh.params())
+        for k, t in fresh.state_dict().items():
+            assert t.device.type == torch.device(dev).type, k
+            assert torch.equal(_bits(t.cpu()), _bits(want[k])), k
+        like = fresh.make_caches(2, 128, OperandPrecision.FP8_E4M3)
+        checkpoint.load(tmp_path / "kv", like)
+        for got, c in zip(like, caches):
+            assert got.k.device.type == torch.device(dev).type
+            assert torch.equal(_bits(got.k.cpu()), _bits(c.k.cpu()))
+            assert got.lengths.tolist() == c.lengths.tolist() == [3, 3]
+
+
+def test_k2_under_cancellation_is_within_a_rounding_step_of_its_terms(
+        cuda):
+    """Where attention concentrates and O cancels to near 0 from large
+    terms (decode_tuning.ROUNDING_CASES), K2 holds decode_o against its
+    plain version with the relative term taken of sum P |v| / l, and both
+    are within one bf16 step (2^-7) of those terms from an fp64 decode:
+    each rounds P v to bf16 at the same point. Against |O| the share can
+    exceed 1 (ROADMAP.md §C 4), which is why chip_smoke's in-context K2
+    check takes the terms' magnitude."""
+    from mfa_tpu_torch.utils.decode_tuning import rounding
+
+    for row in rounding(trials=2):
+        assert row["k2_share_of_terms"] <= 1, row
+        assert row["k2_bf16_steps_from_fp64"] <= 1, row
+        assert row["plain_bf16_steps_from_fp64"] <= 1, row
