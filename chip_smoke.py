@@ -88,13 +88,26 @@ phase's failure is caught):
              torch's scaled_dot_product_attention timed as a yardstick;
              each line names the kernel and parameter row K3 and K4 ran
              (wgmma or mma.sync, ops/params.py).
-13. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
+13. large_d — K1, K3 and K4 past D = 256 (the D-blocked rows, ops/
+             params.py) at the JAX package's large-D class (bf16, B 1,
+             Hq 8, N 4096): D 384 and 512, causal and non-causal, GQA
+             (Hkv 2), window 512 with soft-cap 50 (K1 only); the tails D
+             320 and D 300 (no TMA-mappable rows) and fp32 at D 384, N
+             1024; each held elementwise to its plain version at
+             KERNEL_BUDGETS, outputs prefilled with NaN, a second launch
+             bit-equal; each line names the rows that ran, with ms,
+             bound and SDPA's time (and the backend that ran). Then
+             flash_attention's forward and backward at D 384 (causal, N
+             4096) against the same call through the plain versions,
+             launch counters proving K1, K3 and K4 ran once each on
+             D-blocked rows.
+14. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
              does not fit 80 GB), random bf16 weights, trainable: one
              step's loss and grads through K1/K3/K4 against the same with
              their plain versions, then six train_steps on one 1 x 2049
              batch from TokenDataset; finite, falling loss, and K1, K3, K4
              each launched n_layers times per step.
-14. qwen2_serving — Qwen2-7B at full width and depth (28 layers, QKV
+15. qwen2_serving — Qwen2-7B at full width and depth (28 layers, QKV
              bias, GQA group 7): its published config.json fields read by
              models/convert.config_from_hf as a namespace (equal to
              LlamaConfig.qwen2_7b()), random bf16 weights under Hugging
@@ -107,25 +120,25 @@ phase's failure is caught):
              and one decode step with every K1, K2 and K8 launch held to
              its plain version at KERNEL_BUDGETS, and the step's logits
              against the same step through the plain versions.
-15. checkpoint — that Qwen2 model cut to its first 4 layers (a depth
+16. checkpoint — that Qwen2 model cut to its first 4 layers (a depth
              cut), in bf16 and INT4, and an FP8-e4m3 cache after one
              prefill: utils/checkpoint.py saves them under build/, loads
              them into fresh templates, every tensor bit-equal; one greedy
              request from each restored model gives the tokens it gave
              before; bytes and seconds.
-16. mistral_serving — Mistral-7B at full width and depth (32 layers,
+17. mistral_serving — Mistral-7B at full width and depth (32 layers,
              window 4096) from its published fields and random HF-named
              weights: the 6000-token prompt's last-position logits through
              K1 (each launch held to its plain version) against the plain
              version, one decode step past the window through K2 likewise,
              four greedy requests (200, 1000, 4500 and 6000 tokens; prompt
              buckets to 8192) over a bf16 cache of 8192.
-17. evaluate — on that Mistral model, utils/evaluate.py's perplexity_full
+18. evaluate — on that Mistral model, utils/evaluate.py's perplexity_full
              and kv_quantization_ppl_delta for INT8 and FP8-e4m3 caches
              (batch 2, 256 tokens, max_len 384), held to
              tests/test_aux.py's conditions; K1 and K2 launches counted.
-18. kernels — one JSON line per the port's kernel table, the launches of
-             phases 9-17 added up.
+19. kernels — one JSON line per the port's kernel table, the launches of
+             phases 9-18 added up.
 
 The last line is {"ok": true, "device": {...}}. Run from the repository
 root: ``python3 chip_smoke.py``.
@@ -138,6 +151,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -182,9 +196,19 @@ def phase_build():
     serialized = sorted({ln.split("function '")[-1].rstrip("'")
                          for ln in lib.build_log.splitlines()
                          if "Performance Loss" in ln})
+    # Registers and spills of each D-blocked flash instance (its last
+    # template argument, DBLK, true), as kernel<template arguments>.
+    dblk, name = {}, None
+    for ln in lib.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"(flash_\w+?_(?:bf16|f32))I(\w*?)Lb1EEEv", ln)
+            name = (f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+                    if m else None)
+        elif name and ("registers" in ln or "spill" in ln):
+            dblk.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     emit({"phase": "build", "seconds": round(lib.build_seconds, 3),
           "library": str(lib.path.name), "ptxas": ptxas[:24],
-          "wgmma_serialized": serialized})
+          "ptxas_d_blocked": dblk, "wgmma_serialized": serialized})
 
 
 def _k1_inputs(torch, gen, r, c, dtype, hq=32, hkv=8, d=128):
@@ -1350,6 +1374,262 @@ def phase_bwd(torch):
     return results["causal"]
 
 
+def _sdpa_backend(torch, fn) -> str:
+    """Which of torch's scaled_dot_product_attention backends ran fn():
+    read from the names of the CUDA kernels one call launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key.lower() for e in prof.key_averages())
+    for key, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+                         ("fmha", "efficient"), ("efficient", "efficient"),
+                         ("cutlass", "efficient")):
+        if key in names:
+            return backend
+    return "math"
+
+
+# The large-D class of the JAX package (README.md: bf16, B 1, H 8, N
+# 4096, D 384 and 512): (name, dtype, D, N, Hkv, options). Hq 8 always;
+# the tails (D 320, D 300 where TMA could not map a row) and fp32 at N
+# 1024. K3 and K4 run every case but the soft-cap one.
+LARGE_D_CASES = (
+    ("noncausal_d384", "bf16", 384, 4096, 8, dict()),
+    ("causal_d384", "bf16", 384, 4096, 8, dict(causal=True)),
+    ("noncausal_d512", "bf16", 512, 4096, 8, dict()),
+    ("causal_d512", "bf16", 512, 4096, 8, dict(causal=True)),
+    ("gqa_causal_d384_hkv2", "bf16", 384, 4096, 2, dict(causal=True)),
+    ("window512_softcap50_d384", "bf16", 384, 4096, 8,
+     dict(sliding_window=512, logit_soft_cap=50.0)),
+    ("noncausal_d320_n1024", "bf16", 320, 1024, 8, dict()),
+    ("causal_d300_n1024", "bf16", 300, 1024, 8, dict(causal=True)),
+    ("fp32_causal_d384_n1024", "fp32", 384, 1024, 8, dict(causal=True)),
+)
+
+
+def phase_large_d(torch):
+    """K1, K3 and K4 past D = 256 (the D-blocked rows) against their plain
+    versions, then flash_attention's forward and backward end to end at
+    D 384 (B 1, H 8, N 4096, causal): each held to the same call through
+    the plain versions, the launch counters read around it."""
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.kernels import flash_bwd as k34
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.ops import params as params_mod
+    from mfa_tpu_torch.ops.attention import flash_attention
+    from mfa_tpu_torch.ops.descriptors import (
+        AttentionDescriptor,
+        AttentionKernelType,
+        head_dim_panels,
+        launch_row,
+    )
+    from mfa_tpu_torch.utils import roofline
+    from mfa_tpu_torch.utils.testing import (
+        KERNEL_BUDGETS,
+        budget_share,
+        nan_canary,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dev = params_mod.detect_device(torch.device("cuda", 0))
+    hq = 8
+    results = {}
+    for name, tag, d, n, hkv, opts in LARGE_D_CASES:
+        dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+        q, k, v = _k1_inputs(torch, gen, n, n, dtype, hq, hkv, d)
+        do = torch.randn((1, hq, n, d), generator=gen, device="cuda").to(dtype)
+        desc = AttentionDescriptor(
+            batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=n,
+            seq_len_kv=n, head_dim=d, low_precision_inputs=tag == "bf16",
+            low_precision_intermediates=tag == "bf16", **opts)
+        kd_f, kd_q, kd_kv = (desc.kernel_descriptor(t, dev)
+                             for t in AttentionKernelType)
+        q3, k3, v3, do3 = (t.reshape(-1, n, d).contiguous()
+                           for t in (q, k, v, do))
+        kw = dict(group=hq // hkv, scale=desc.softmax_scale)
+        rows = {key: dict(dataclasses.asdict(launch_row(kd, d, (q3, k3, v3))),
+                          panels=head_dim_panels(kd, d))
+                for key, kd in (("k1", kd_f), ("k3", kd_q), ("k4", kd_kv))}
+        dblk = all(r["kernel"] in params_mod.DBLK_KERNELS
+                   for r in rows.values())
+        vis = k1.visible_mask(n, n, kd_f.causal, kd_f.sliding_window, "cuda")
+        pairs = int(vis.sum()) * hq
+        esz = q3.element_size()
+        peak = (roofline.BF16_FLOPS if dtype == torch.bfloat16
+                else roofline.FP32_FLOPS)
+        plain_causal = kd_f.causal and not kd_f.sliding_window
+        mask = (None if plain_causal or not (kd_f.causal
+                                             or kd_f.sliding_window) else vis)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=plain_causal,
+                scale=desc.softmax_scale, enable_gqa=True)
+
+        # K1: NaN-prefilled outputs, a second launch bit-equal.
+        o, lse = k1.flash_fwd(q3, k3, v3, kd_f, o_dtype=dtype, **kw, out=(
+            nan_canary(q3.shape, dtype, device="cuda"),
+            nan_canary(q3.shape[:2], device="cuda")))
+        o2, lse2 = k1.flash_fwd(q3, k3, v3, kd_f, o_dtype=dtype, **kw)
+        same = {"k1": bool(torch.equal(o, o2) and torch.equal(lse, lse2))}
+        del o2, lse2
+        torch.cuda.synchronize()
+        o_p, l_p = k1.flash_fwd_plain(q3, k3, v3, kd_f, o_dtype=dtype, **kw)
+        shares = {"o": budget_share(o, o_p,
+                                    *KERNEL_BUDGETS[f"flash_fwd_o_{tag}"]),
+                  "l": budget_share(lse, l_p, *KERNEL_BUDGETS["flash_fwd_l"])}
+        errs = {"o": max_err(o, o_p), "l": max_err(lse, l_p)}
+        del o_p, l_p
+        fwd_bytes = 2 * (q3.numel() + k3.numel()) * esz + 4 * lse.numel()
+        bound = roofline.bound(roofline.attention_flops("forward", 1, 1, d)
+                               * pairs, fwd_bytes, peak)
+        lib = None
+        backend = None
+        if kd_f.logit_soft_cap is None:
+            backend = _sdpa_backend(torch, sdpa)
+            lib = roofline.cuda_ms(sdpa, iters=10)
+        timed = {"k1": dict(
+            ms=roofline.cuda_ms(lambda: k1.flash_fwd(q3, k3, v3, kd_f,
+                                                     o_dtype=dtype, **kw)),
+            plain_ms=roofline.cuda_ms(lambda: k1.flash_fwd_plain(
+                q3, k3, v3, kd_f, o_dtype=dtype, **kw), iters=3, warmup=1),
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
+            max_abs_err=errs["o"])}
+        if kd_f.logit_soft_cap is None:
+            # K3 and K4 on K1's O and L, NaN-prefilled; K4 twice.
+            dq, dterm = k34.flash_bwd_q(
+                q3, k3, v3, o, do3, lse, kd_q, **kw,
+                out=(nan_canary(q3.shape, device="cuda"),
+                     nan_canary(lse.shape, device="cuda")))
+            dk, dv = k34.flash_bwd_kv(
+                q3, k3, v3, do3, lse, dterm, kd_kv, **kw,
+                out=(nan_canary(k3.shape, device="cuda"),
+                     nan_canary(k3.shape, device="cuda")))
+            dq2, dterm2 = k34.flash_bwd_q(q3, k3, v3, o, do3, lse, kd_q, **kw)
+            dk2, dv2 = k34.flash_bwd_kv(q3, k3, v3, do3, lse, dterm, kd_kv,
+                                        **kw)
+            same["k3"] = bool(torch.equal(dq, dq2)
+                              and torch.equal(dterm, dterm2))
+            same["k4"] = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+            del dq2, dterm2, dk2, dv2
+            torch.cuda.synchronize()
+            dq_p, dterm_p = k34.flash_bwd_q_plain(q3, k3, v3, o, do3, lse,
+                                                  kd_q, **kw)
+            dk_p, dv_p = k34.flash_bwd_kv_plain(q3, k3, v3, do3, lse, dterm,
+                                                kd_kv, **kw)
+            for key, got, want, budget in (
+                    ("dq", dq, dq_p, f"flash_bwd_dq_{tag}"),
+                    ("dk", dk, dk_p, f"flash_bwd_dk_{tag}"),
+                    ("dv", dv, dv_p, f"flash_bwd_dv_{tag}"),
+                    ("dterm", dterm, dterm_p, "flash_bwd_dterm")):
+                shares[key] = budget_share(got, want,
+                                           *KERNEL_BUDGETS[budget])
+                errs[key] = max_err(got, want)
+            unseen = ~vis.any(dim=0)          # keys that no query sees
+            same["unseen_keys_zero"] = bool((dk[:, unseen] == 0).all()
+                                            and (dv[:, unseen] == 0).all())
+            del dq_p, dterm_p, dk_p, dv_p
+            in_bytes = 2 * (q3.numel() + k3.numel()) * esz
+            b3 = roofline.bound(
+                roofline.attention_flops("backward_query", 1, 1, d) * pairs,
+                in_bytes + o.numel() * o.element_size() + 4 * lse.numel()
+                + 4 * dq.numel() + 4 * dterm.numel(), peak)
+            b4 = roofline.bound(
+                roofline.attention_flops("backward_key_value", 1, 1, d)
+                * pairs, in_bytes + 8 * lse.numel() + 8 * dk.numel(), peak)
+            lib_bwd = _sdpa_backward_ms(torch, F, q, k, v, do, mask,
+                                        plain_causal, desc.softmax_scale)
+            timed["k3"] = dict(
+                ms=roofline.cuda_ms(lambda: k34.flash_bwd_q(
+                    q3, k3, v3, o, do3, lse, kd_q, **kw), iters=10),
+                plain_ms=roofline.cuda_ms(lambda: k34.flash_bwd_q_plain(
+                    q3, k3, v3, o, do3, lse, kd_q, **kw), iters=3, warmup=1),
+                bound_ms=b3[0], bound_by=b3[1], library_ms=lib_bwd,
+                max_abs_err=errs["dq"])
+            timed["k4"] = dict(
+                ms=roofline.cuda_ms(lambda: k34.flash_bwd_kv(
+                    q3, k3, v3, do3, lse, dterm, kd_kv, **kw), iters=10),
+                plain_ms=roofline.cuda_ms(lambda: k34.flash_bwd_kv_plain(
+                    q3, k3, v3, do3, lse, dterm, kd_kv, **kw), iters=3,
+                    warmup=1),
+                bound_ms=b4[0], bound_by=b4[1], library_ms=lib_bwd,
+                max_abs_err=max(errs["dk"], errs["dv"]))
+            del dq, dterm, dk, dv
+        finite = bool(torch.isfinite(o.float()).all()
+                      and torch.isfinite(lse).all())
+        ok = (finite and dblk and all(same.values())
+              and all(x <= 1 for x in shares.values()))
+        results[name] = timed
+        emit({"phase": "large_d", "case": name, "dtype": tag, "D": d,
+              "N": n, "Hq": hq, "Hkv": hkv, "rows": rows, "share": shares,
+              "err": errs, "deterministic": same, "sdpa_backend": backend,
+              **{f"{kk}_{key}": val for kk, t in timed.items()
+                 for key, val in t.items() if key != "max_abs_err"},
+              "ok": ok})
+        if not ok:
+            raise SystemExit(f"large_d {name}: kernels disagree with their "
+                             f"plain versions or ran another row (shares "
+                             f"{shares}, rows {rows}, bit-equal {same}, "
+                             f"finite {finite})")
+        del q, k, v, do, q3, k3, v3, do3, o, lse, vis
+        torch.cuda.empty_cache()
+
+    # The entry point end to end: forward and backward through K1, K3, K4
+    # against the same call through their plain versions.
+    d, n = 384, 4096
+    q, k, v, do = (torch.randn((1, hq, n, d), generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    seen = []
+
+    def step():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=True)
+        out.backward(do)
+        return out.detach(), [t.grad for t in leaves]
+
+    real = (k1.flash_fwd, k34.flash_bwd_q, k34.flash_bwd_kv)
+
+    def recorded(fn, at):
+        """fn, noting the row kernel of its descriptor (argument ``at``).
+        While it stands in the module, fn's launch count lands on it."""
+        def call(*args, **kwargs):
+            seen.append((fn.__name__, args[at].kernel))
+            return fn(*args, **kwargs)
+        call.launches = 0
+        return call
+
+    wrapped = [recorded(f, at) for f, at in zip(real, (3, 6, 6))]
+    k1.flash_fwd, k34.flash_bwd_q, k34.flash_bwd_kv = wrapped
+    o_k, grads_k = step()
+    torch.cuda.synchronize()
+    k1.flash_fwd, k34.flash_bwd_q, k34.flash_bwd_kv = real
+    launches = {f.__name__: w.launches for f, w in zip(real, wrapped)}
+    with plain_kernels():
+        o_p, grads_p = step()
+    share_o = budget_share(o_k, o_p, *KERNEL_BUDGETS["flash_fwd_o_bf16"])
+    rel = {key: _rel_l2(g, w) for key, g, w in zip(("dq", "dk", "dv"),
+                                                   grads_k, grads_p)}
+    on_rows = sorted(set(seen))
+    ok = (share_o <= 1 and max(rel.values()) <= 5e-2
+          and all(x == 1 for x in launches.values())
+          and all(kernel == "mma_dblk" for _, kernel in on_rows)
+          and all(bool(torch.isfinite(g.float()).all()) for g in grads_k))
+    emit({"phase": "large_d_entry_point", "B": 1, "H": hq, "N": n, "D": d,
+          "causal": True, "share_o": share_o, "grad_rel_l2": rel,
+          "grad_rel_l2_budget": 5e-2, "launches": launches,
+          "rows": on_rows, "ok": ok})
+    if not ok:
+        raise SystemExit(f"large_d entry point: O share {share_o}, grad rel "
+                         f"L2 {rel}, launches {launches}, rows {on_rows}")
+    del q, k, v, do, o_k, grads_k, o_p, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, launches
+
+
 def _rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm()
                  .clamp_min(1e-30))
@@ -2033,6 +2313,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bwd_row = phase_bwd(torch)
+    large_d, large_d_launches = phase_large_d(torch)
     train_launches = phase_training(torch)
     qwen2_model, qwen2_launches = phase_qwen2_serving(torch)
     ckpt_launches = phase_checkpoint(torch, qwen2_model)
@@ -2048,17 +2329,26 @@ def main() -> int:
     for n in (qwen2_launches, ckpt_launches, mistral_launches,
               eval_launches):
         _add(new, n)
-    # K1 runs on the three Llama-3-8B serving runs, training and the new
-    # phases' paths; K2 on the contiguous serving runs and the new paths;
-    # K8 on the INT4 serving runs.
+    # K1 runs on the three Llama-3-8B serving runs, training, the
+    # entry point past D = 256 (large_d) and the new phases' paths; K2 on
+    # the contiguous serving runs and the new paths; K8 on the INT4
+    # serving runs. K1, K3 and K4 also carry their D-blocked rows' times
+    # (large_d) beside the D = 128 figures.
+    def large(key, cases):
+        return {"large_d": {case: large_d[case][key] for case in cases}}
+
+    fwd_cases = ("noncausal_d384", "causal_d384", "noncausal_d512",
+                 "causal_d512")
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "mfa_tpu/kernels/flash_fwd.py:349",
          "launches": (launches["flash_fwd"] + paged_k1
                       + int4_launches["flash_fwd"]
-                      + train_launches["flash_fwd"] + new["flash_fwd"]),
-         **{k: v for k, v in k1_row.items() if k != "lse_err"}},
+                      + train_launches["flash_fwd"]
+                      + large_d_launches["flash_fwd"] + new["flash_fwd"]),
+         **{k: v for k, v in k1_row.items() if k != "lse_err"},
+         **large("k1", fwd_cases)},
         {"name": "decode_fused_append", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode.cu",
          "replaces": "mfa_tpu/kernels/decode.py:431",
@@ -2068,11 +2358,15 @@ def main() -> int:
         {"name": "flash_bwd_q", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:59",
-         "launches": train_launches["flash_bwd_q"], **bwd_row["q"]},
+         "launches": (train_launches["flash_bwd_q"]
+                      + large_d_launches["flash_bwd_q"]),
+         **bwd_row["q"], **large("k3", fwd_cases)},
         {"name": "flash_bwd_kv", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:427",
-         "launches": train_launches["flash_bwd_kv"], **bwd_row["kv"]},
+         "launches": (train_launches["flash_bwd_kv"]
+                      + large_d_launches["flash_bwd_kv"]),
+         **bwd_row["kv"], **large("k4", fwd_cases)},
         # K5's path is its entry point, decode_attention, driven in k5.
         {"name": "decode_attend", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode_attend.cu",

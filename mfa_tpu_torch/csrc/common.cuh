@@ -219,10 +219,22 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// Wait for every cp.async this thread has issued, committed or not.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Wait until at most N of this thread's committed groups are in flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A flash entry's `panels` argument: ceil(D / block_d) for the D-blocked
+// kernels (kernel code 2), 1 for the others, and D fits them.
+inline bool panels_ok(int kernel, int D, int block_d, int panels) {
+  return panels == (kernel == 2 ? (D + block_d - 1) / block_d : 1) &&
+         D <= block_d * panels;
 }
 
 // Programmatic dependent launch (sm_90): a kernel lets the next kernel on
@@ -235,6 +247,99 @@ __device__ __forceinline__ void griddep_launch_dependents() {
 
 __device__ __forceinline__ void griddep_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// The D-blocked flash kernels' panel loader: rows [row0, row0 + ROWS) x
+// columns [col0, col0 + DP) of a bf16 [nrows, D] matrix into shared
+// memory, zero padded: row-major into rm (stride DP + 8; scaled by
+// `scale` and rounded when scale != 0) and/or transposed into tr (stride
+// ROWS + 8); col0 is a multiple of 8; vec: 16-byte loads (D % 8 == 0, a
+// 16-byte-aligned base). A row-major, unscaled tile with vec goes by cp.async,
+// consecutive threads on consecutive chunks of a row: the caller waits
+// (cp_async_wait_all) before the barrier that publishes it. Otherwise
+// each thread holds kBatch 16-byte chunks (without vec, one chunk of
+// eight 2-byte loads) in flight at once, consecutive threads on
+// consecutive rows so the scattered 2-byte transposed stores stay
+// conflict-free.
+template <int ROWS, int DP, int NT>
+__device__ __forceinline__ void load_panel(const __nv_bfloat16* src,
+                                           int row0, int nrows, int D,
+                                           int col0, int vec, float scale,
+                                           __nv_bfloat16* rm,
+                                           __nv_bfloat16* tr, int tid) {
+  constexpr int kChunks = ROWS * (DP / 8);
+  if (vec && tr == nullptr && scale == 0.f) {
+    for (int c = tid; c < kChunks; c += NT) {
+      const int r = c / (DP / 8), d0 = (c % (DP / 8)) * 8;
+      const bool in = row0 + r < nrows && col0 + d0 < D;
+      cp_async16(rm + r * (DP + 8) + d0,
+                 in ? src + (size_t)(row0 + r) * D + col0 + d0 : src,
+                 in ? 16 : 0);
+    }
+    return;
+  }
+  // One chunk into shared memory: transposed and/or row-major, scaled.
+  auto put = [&](uint4 val, int c) {
+    const int r = c % ROWS, d0 = (c / ROWS) * 8;
+    __nv_bfloat16* e8 = reinterpret_cast<__nv_bfloat16*>(&val);
+    if (tr != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) tr[(d0 + e) * (ROWS + 8) + r] = e8[e];
+    }
+    if (rm != nullptr) {
+      if (scale != 0.f) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          e8[e] = __float2bfloat16(__bfloat162float(e8[e]) * scale);
+      }
+      *reinterpret_cast<uint4*>(rm + r * (DP + 8) + d0) = val;
+    }
+  };
+  if (vec) {
+    // 4 beat 2 and 1 for K4 on the H100, spills and all (bwd_tuning sweep
+    // at D 384 and 512, N 4096).
+    constexpr int kBatch = 4;
+    for (int c0 = tid; c0 < kChunks; c0 += kBatch * NT) {
+      uint4 vals[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int c = c0 + b * NT, r = c % ROWS, d0 = (c / ROWS) * 8;
+        vals[b] = make_uint4(0, 0, 0, 0);
+        if (c < kChunks && row0 + r < nrows && col0 + d0 < D)
+          vals[b] = *reinterpret_cast<const uint4*>(
+              src + (size_t)(row0 + r) * D + col0 + d0);
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (c0 + b * NT < kChunks) put(vals[b], c0 + b * NT);
+    }
+    return;
+  }
+  for (int c = tid; c < kChunks; c += NT) {
+    const int r = c % ROWS, d0 = (c / ROWS) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    __nv_bfloat16* e8 = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (row0 + r < nrows && col0 + d0 + e < D)
+        e8[e] = src[(size_t)(row0 + r) * D + col0 + d0 + e];
+    put(val, c);
+  }
+}
+
+// The same for an fp32 matrix at row stride S, by 4-byte cp.async (the
+// caller waits as for load_panel).
+template <int ROWS, int DP, int S, int NT>
+__device__ __forceinline__ void load_panel_f32(const float* src, int row0,
+                                               int nrows, int D, int col0,
+                                               float* dst, int tid) {
+  for (int idx = tid; idx < ROWS * DP; idx += NT) {
+    const int r = idx / DP, d = idx % DP;
+    if (row0 + r < nrows && col0 + d < D)
+      cp_async<4>(dst + r * S + d, src + (size_t)(row0 + r) * D + col0 + d);
+    else
+      dst[r * S + d] = 0.f;
+  }
 }
 
 // One element of a bf16 (is_bf16) or fp32 tensor, as fp32.

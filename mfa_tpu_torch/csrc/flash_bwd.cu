@@ -76,6 +76,16 @@
 // kernels: TF32 would miss the fp32 gradient budget. The mma K4 keeps two
 // fp32 [16 x D] accumulators per warp (128 registers a thread at D =
 // 128); at D = 256 its warps split the head dim in two.
+//
+// Past D = 256 (rows "mma_dblk", "fma_dblk") the same kernels run
+// D-blocked (DBLK; see flash_bwd_q_bf16 and flash_bwd_kv_bf16): a CTA per
+// block_d panel of dQ (K3) or of dK and dV (K4), S and dP summed over
+// streamed panels by every panel CTA in one order. K3 does 6 D and K4 8 D
+// FLOP a visible pair (at D 384, N 4096, H 8 non-causal ~0.31 and ~0.42
+// ms at the bf16 peak): bound by operations. The first cut pays S and dP
+// once a panel and re-reads Q and dO (K3) or K and V (K4) from L2 every
+// step; K4's two accumulators leave ptxas short of registers, and it
+// spills (chip_smoke.py's build line lists each D-blocked instance).
 
 #include <initializer_list>
 #include <type_traits>
@@ -213,13 +223,14 @@ __device__ __forceinline__ void q_range(const BwdParams& p, int j, int bq,
   }
 }
 
-// The D-term of rows [row0, row0 + BQ) of head bh (one warp per row) into
-// sD and global memory, and L*log2e into sL. Rows past R get zeros.
+// The D-term of rows [row0, row0 + BQ) of head bh (one warp per row, over
+// the whole head dim) into sD and, when `store`, global memory, and
+// L*log2e into sL. Rows past R get zeros.
 template <typename OT, int BQ, int NT>
 __device__ __forceinline__ void d_term(const BwdParams& p, int bh, int row0,
                                        const OT* og, const void* dog,
                                        bool do_f32, float* sL, float* sD,
-                                       int warp, int lane) {
+                                       int warp, int lane, bool store = true) {
   for (int r = warp; r < BQ; r += NT / 32) {
     const int row = row0 + r;
     float acc = 0.f, l2 = 0.f;
@@ -238,7 +249,7 @@ __device__ __forceinline__ void d_term(const BwdParams& p, int bh, int row0,
       }
       acc = warp_sum(acc);
       l2 = p.lse[(size_t)bh * p.R + row] * kLog2e;
-      if (lane == 0) p.dterm[(size_t)bh * p.R + row] = acc;
+      if (lane == 0 && store) p.dterm[(size_t)bh * p.R + row] = acc;
     }
     if (lane == 0) {
       sD[r] = acc;
@@ -248,9 +259,16 @@ __device__ __forceinline__ void d_term(const BwdParams& p, int bh, int row0,
 }
 
 // ---------------------------------------------------------------------------
-// K3, bf16 inputs: mma.sync, four warps of 16 query rows.
+// K3, bf16 inputs: mma.sync, four warps of 16 query rows. DBLK (rows
+// "mma_dblk"): head-dim blocking, mfa_tpu's D-paged _bwd_q_kernel
+// (flash_bwd.py:175-235). The CTA owns dQ's columns [panel * DP, panel *
+// DP + DP) of its q-block; S = Qs K^T and dP = dO V^T are summed over
+// DP-wide panels of Q, dO, K and V streamed through shared memory (the
+// same order in every panel CTA, so each forms the same dS), and dQ +=
+// dS K takes K's own panel. Each panel CTA forms the D-term over the
+// whole head dim; panel 0 stores it.
 // ---------------------------------------------------------------------------
-template <int BQ, int BKV, int DP>
+template <int BQ, int BKV, int DP, bool DBLK>
 __global__ void __launch_bounds__(BQ * 2)
 flash_bwd_q_bf16(BwdParams p) {
   constexpr int NT = BQ * 2;
@@ -268,26 +286,32 @@ flash_bwd_q_bf16(BwdParams p) {
   float* sD = sL + BQ;
 
   const int nqb = (p.R + BQ - 1) / BQ;
-  const int i = blockIdx.x % nqb, bh = blockIdx.x / nqb;
+  const int panels = DBLK ? (p.D + DP - 1) / DP : 1;
+  const int tile = (int)blockIdx.x / panels;
+  const int panel = (int)blockIdx.x % panels;
+  const int i = tile % nqb, bh = tile / nqb;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int R = p.R, C = p.C, D = p.D;
   const size_t qoff = (size_t)bh * R * D;
   const size_t kvoff = (size_t)(bh / p.group) * C * D;
+  const bf16* qg = static_cast<const bf16*>(p.q) + qoff;
+  const bf16* dog = static_cast<const bf16*>(p.d_o) + qoff;
   const bf16* kg = static_cast<const bf16*>(p.k) + kvoff;
   const bf16* vg = static_cast<const bf16*>(p.v) + kvoff;
   const int row0 = i * BQ;
+  const int dcol = panel * DP;     // this CTA's dQ columns start here
 
-  load_rows<BQ, DP, NT>(static_cast<const bf16*>(p.q) + qoff, row0, R, D,
-                        p.vec, p.scale2, sQ, nullptr, tid);
-  load_rows<BQ, DP, NT>(static_cast<const bf16*>(p.d_o) + qoff, row0, R, D,
-                        p.vec, 0.f, sdO, nullptr, tid);
+  if constexpr (!DBLK) {
+    load_rows<BQ, DP, NT>(qg, row0, R, D, p.vec, p.scale2, sQ, nullptr, tid);
+    load_rows<BQ, DP, NT>(dog, row0, R, D, p.vec, 0.f, sdO, nullptr, tid);
+  }
   if (p.o_f32)
     d_term<float, BQ, NT>(p, bh, row0, static_cast<const float*>(p.o),
-                          p.d_o, false, sL, sD, warp, lane);
+                          p.d_o, false, sL, sD, warp, lane, panel == 0);
   else
     d_term<bf16, BQ, NT>(p, bh, row0, static_cast<const bf16*>(p.o), p.d_o,
-                         false, sL, sD, warp, lane);
+                         false, sL, sD, warp, lane, panel == 0);
   __syncthreads();
   const int wr = warp * 16 + g;       // tile rows wr and wr + 8
   const float l2[2] = {sL[wr], sL[wr + 8]};
@@ -303,26 +327,42 @@ flash_bwd_q_bf16(BwdParams p) {
   kv_range(p, i, BQ, BKV, lo, hi);
   for (int j = lo; j <= hi; ++j) {
     const int col0 = j * BKV;
-    __syncthreads();   // previous tiles consumed
-    load_rows<BKV, DP, NT>(kg, col0, C, D, p.vec, 0.f, sK, sKt, tid);
-    load_rows<BKV, DP, NT>(vg, col0, C, D, p.vec, 0.f, sV, nullptr, tid);
-    __syncthreads();
-
-    // S = Qs K^T and dP = dO V^T for this warp's 16 rows.
+    // S = Qs K^T and dP = dO V^T for this warp's 16 rows, over the head
+    // dim's panels (one unless DBLK); the transposed K tile is the panel
+    // of this CTA's dQ columns.
     float s[NKT][4], dp[NKT][4];
 #pragma unroll
     for (int n = 0; n < NKT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    for (int d0 = 0; d0 < (DBLK ? D : 1); d0 += DP) {
+      __syncthreads();   // previous tiles consumed
+      if constexpr (DBLK) {
+        load_panel<BQ, DP, NT>(qg, row0, R, D, d0, p.vec, p.scale2, sQ,
+                               nullptr, tid);
+        load_panel<BQ, DP, NT>(dog, row0, R, D, d0, p.vec, 0.f, sdO, nullptr,
+                               tid);
+        load_panel<BKV, DP, NT>(kg, col0, C, D, d0, p.vec, 0.f, sK,
+                                d0 == dcol ? sKt : nullptr, tid);
+        load_panel<BKV, DP, NT>(vg, col0, C, D, d0, p.vec, 0.f, sV, nullptr,
+                                tid);
+        cp_async_wait_all();
+      } else {
+        load_rows<BKV, DP, NT>(kg, col0, C, D, p.vec, 0.f, sK, sKt, tid);
+        load_rows<BKV, DP, NT>(vg, col0, C, D, p.vec, 0.f, sV, nullptr, tid);
+      }
+      __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t aq[4], ad[4];
-      load_a(aq, sQ, QS, warp * 16, kk, g, t4);
-      load_a(ad, sdO, QS, warp * 16, kk, g, t4);
+      for (int kk = 0; kk < DP; kk += 16) {
+        if (DBLK && d0 + kk >= D) break;   // the last panel's zero tail
+        uint32_t aq[4], ad[4];
+        load_a(aq, sQ, QS, warp * 16, kk, g, t4);
+        load_a(ad, sdO, QS, warp * 16, kk, g, t4);
 #pragma unroll
-      for (int n = 0; n < NKT; ++n) {
-        mma_rows(s[n], aq, sK, QS, n * 8, kk, g, t4);
-        mma_rows(dp[n], ad, sV, QS, n * 8, kk, g, t4);
+        for (int n = 0; n < NKT; ++n) {
+          mma_rows(s[n], aq, sK, QS, n * 8, kk, g, t4);
+          mma_rows(dp[n], ad, sV, QS, n * 8, kk, g, t4);
+        }
       }
     }
     // dS, in place of S.
@@ -343,8 +383,10 @@ flash_bwd_q_bf16(BwdParams p) {
       uint32_t a[4];
       acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
-      for (int n = 0; n < NDT; ++n)
+      for (int n = 0; n < NDT; ++n) {
+        if (DBLK && dcol + n * 8 >= D) break;   // past the last column
         mma_rows(dq[n], a, sKt, TS, n * 8, kc * 16, g, t4);
+      }
     }
   }
 
@@ -356,7 +398,7 @@ flash_bwd_q_bf16(BwdParams p) {
     for (int n = 0; n < NDT; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + t4 * 2 + e;
+        const int d = dcol + n * 8 + t4 * 2 + e;
         if (d < D) p.dq[qoff + (size_t)r * D + d] = dq[n][2 * h + e];
       }
   }
@@ -365,8 +407,14 @@ flash_bwd_q_bf16(BwdParams p) {
 // ---------------------------------------------------------------------------
 // K4, bf16 inputs: mma.sync in the S^T orientation. BKV/16 warps of 16 kv
 // rows, times DSPLIT warps that split the head dim of the accumulators.
+// DBLK (rows "mma_dblk"): head-dim blocking, mfa_tpu's D-paged
+// _bwd_kv_kernel (flash_bwd.py:530-656). The CTA owns dK's and dV's
+// columns [panel * DP, panel * DP + DP) of its kv block; S^T = K Qs^T and
+// dP^T = V dO^T are summed over DP-wide panels of K, V, Q and dO streamed
+// through shared memory (one order in every panel CTA), and dV += P^T dO,
+// dK += dS^T Q take the panel of Q and dO that holds its own columns.
 // ---------------------------------------------------------------------------
-template <int BQ, int BKV, int DP, int DSPLIT>
+template <int BQ, int BKV, int DP, int DSPLIT, bool DBLK>
 __global__ void __launch_bounds__(BKV / 16 * DSPLIT * 32)
 flash_bwd_kv_bf16(BwdParams p) {
   constexpr int RWARPS = BKV / 16;
@@ -387,18 +435,24 @@ flash_bwd_kv_bf16(BwdParams p) {
   float* sD = sL + BQ;
 
   const int nkvb = (p.C + BKV - 1) / BKV;
-  const int j = blockIdx.x % nkvb, bhkv = blockIdx.x / nkvb;
+  const int panels = DBLK ? (p.D + DP - 1) / DP : 1;
+  const int tile = (int)blockIdx.x / panels;
+  const int panel = (int)blockIdx.x % panels;
+  const int j = tile % nkvb, bhkv = tile / nkvb;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int rw = (warp % RWARPS) * 16, dbase = (warp / RWARPS) * DW;
   const int R = p.R, C = p.C, D = p.D;
   const size_t kvoff = (size_t)bhkv * C * D;
+  const bf16* kg = static_cast<const bf16*>(p.k) + kvoff;
+  const bf16* vg = static_cast<const bf16*>(p.v) + kvoff;
   const int col0 = j * BKV;
+  const int dcol = panel * DP;      // this CTA's dK / dV columns start here
 
-  load_rows<BKV, DP, NT>(static_cast<const bf16*>(p.k) + kvoff, col0, C, D,
-                         p.vec, 0.f, sK, nullptr, tid);
-  load_rows<BKV, DP, NT>(static_cast<const bf16*>(p.v) + kvoff, col0, C, D,
-                         p.vec, 0.f, sV, nullptr, tid);
+  if constexpr (!DBLK) {
+    load_rows<BKV, DP, NT>(kg, col0, C, D, p.vec, 0.f, sK, nullptr, tid);
+    load_rows<BKV, DP, NT>(vg, col0, C, D, p.vec, 0.f, sV, nullptr, tid);
+  }
 
   float dk[NDT][4], dv[NDT][4];
 #pragma unroll
@@ -415,34 +469,56 @@ flash_bwd_kv_bf16(BwdParams p) {
     const bf16* dog = static_cast<const bf16*>(p.d_o) + qoff;
     for (int i = lo; i <= hi; ++i) {
       const int row0 = i * BQ;
-      __syncthreads();   // previous tiles consumed
-      load_rows<BQ, DP, NT>(qg, row0, R, D, p.vec, p.scale2, sQ, nullptr,
-                            tid);
-      load_rows<BQ, DP, NT>(qg, row0, R, D, p.vec, 0.f, nullptr, sQt, tid);
-      load_rows<BQ, DP, NT>(dog, row0, R, D, p.vec, 0.f, sdO, sdOt, tid);
-      for (int r = tid; r < BQ; r += NT) {
-        const bool in = row0 + r < R;
-        const size_t at = (size_t)bh * R + row0 + r;
-        sL[r] = in ? p.lse[at] * kLog2e : 0.f;
-        sD[r] = in ? p.dterm[at] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Qs^T and dP^T = V dO^T for this warp's 16 kv rows.
+      // S^T = K Qs^T and dP^T = V dO^T for this warp's 16 kv rows, over
+      // the head dim's panels (one unless DBLK); the transposed Q and dO
+      // tiles are the panel of this CTA's dK / dV columns.
       float s[NQT][4], dp[NQT][4];
 #pragma unroll
       for (int n = 0; n < NQT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      for (int d0 = 0; d0 < (DBLK ? D : 1); d0 += DP) {
+        __syncthreads();   // previous tiles consumed
+        if constexpr (DBLK) {
+          const bool own = d0 == dcol;
+          load_panel<BKV, DP, NT>(kg, col0, C, D, d0, p.vec, 0.f, sK, nullptr,
+                                  tid);
+          load_panel<BKV, DP, NT>(vg, col0, C, D, d0, p.vec, 0.f, sV, nullptr,
+                                  tid);
+          load_panel<BQ, DP, NT>(qg, row0, R, D, d0, p.vec, p.scale2, sQ,
+                                 nullptr, tid);
+          if (own)
+            load_panel<BQ, DP, NT>(qg, row0, R, D, d0, p.vec, 0.f, nullptr,
+                                   sQt, tid);
+          load_panel<BQ, DP, NT>(dog, row0, R, D, d0, p.vec, 0.f, sdO,
+                                 own ? sdOt : nullptr, tid);
+        } else {
+          load_rows<BQ, DP, NT>(qg, row0, R, D, p.vec, p.scale2, sQ, nullptr,
+                                tid);
+          load_rows<BQ, DP, NT>(qg, row0, R, D, p.vec, 0.f, nullptr, sQt,
+                                tid);
+          load_rows<BQ, DP, NT>(dog, row0, R, D, p.vec, 0.f, sdO, sdOt, tid);
+        }
+        if (d0 == 0)
+          for (int r = tid; r < BQ; r += NT) {
+            const bool in = row0 + r < R;
+            const size_t at = (size_t)bh * R + row0 + r;
+            sL[r] = in ? p.lse[at] * kLog2e : 0.f;
+            sD[r] = in ? p.dterm[at] : 0.f;
+          }
+        if constexpr (DBLK) cp_async_wait_all();
+        __syncthreads();
 #pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        uint32_t ak[4], av[4];
-        load_a(ak, sK, QS, rw, kk, g, t4);
-        load_a(av, sV, QS, rw, kk, g, t4);
+        for (int kk = 0; kk < DP; kk += 16) {
+          if (DBLK && d0 + kk >= D) break;   // the last panel's zero tail
+          uint32_t ak[4], av[4];
+          load_a(ak, sK, QS, rw, kk, g, t4);
+          load_a(av, sV, QS, rw, kk, g, t4);
 #pragma unroll
-        for (int n = 0; n < NQT; ++n) {
-          mma_rows(s[n], ak, sQ, QS, n * 8, kk, g, t4);
-          mma_rows(dp[n], av, sdO, QS, n * 8, kk, g, t4);
+          for (int n = 0; n < NQT; ++n) {
+            mma_rows(s[n], ak, sQ, QS, n * 8, kk, g, t4);
+            mma_rows(dp[n], av, sdO, QS, n * 8, kk, g, t4);
+          }
         }
       }
       // P^T in s, dS^T in dp; L and the D-term are per column here.
@@ -465,6 +541,7 @@ flash_bwd_kv_bf16(BwdParams p) {
         acc_to_a(ads, dp[2 * kc], dp[2 * kc + 1]);
 #pragma unroll
         for (int n = 0; n < NDT; ++n) {
+          if (DBLK && dcol + dbase + n * 8 >= D) break;   // past the last
           mma_rows(dv[n], ap, sdOt, TS, dbase + n * 8, kc * 16, g, t4);
           mma_rows(dk[n], ads, sQt, TS, dbase + n * 8, kc * 16, g, t4);
         }
@@ -480,7 +557,7 @@ flash_bwd_kv_bf16(BwdParams p) {
     for (int n = 0; n < NDT; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int d = dbase + n * 8 + t4 * 2 + e;
+        const int d = dcol + dbase + n * 8 + t4 * 2 + e;
         if (d >= D) continue;
         const size_t at = kvoff + (size_t)c * D + d;
         p.dk[at] = dk[n][2 * h + e];
@@ -491,9 +568,11 @@ flash_bwd_kv_bf16(BwdParams p) {
 
 // ---------------------------------------------------------------------------
 // fp32 inputs: plain FMA, four warps. K3: lane = kv column of the 32-wide
-// tile for S / dP, lane = head-dim column for dQ.
+// tile for S / dP, lane = head-dim column for dQ. DBLK (rows "fma_dblk"):
+// head-dim blocking as in flash_bwd_q_bf16; K's panel of this CTA's dQ
+// columns is kept apart (sKd) while the other panels stream through sK.
 // ---------------------------------------------------------------------------
-template <int BQ, int DP>
+template <int BQ, int DP, bool DBLK>
 __global__ void __launch_bounds__(128)
 flash_bwd_q_f32(BwdParams p) {
   constexpr int BKV = 32;
@@ -507,9 +586,13 @@ flash_bwd_q_f32(BwdParams p) {
   float* sV = sK + BKV * KS;
   float* sL = sV + BKV * KS;
   float* sD = sL + BQ;
+  float* sKd = DBLK ? sD + BQ : sK;  // K's panel of the dQ columns
 
   const int nqb = (p.R + BQ - 1) / BQ;
-  const int i = blockIdx.x % nqb, bh = blockIdx.x / nqb;
+  const int panels = DBLK ? (p.D + DP - 1) / DP : 1;
+  const int tile = (int)blockIdx.x / panels;
+  const int panel = (int)blockIdx.x % panels;
+  const int i = tile % nqb, bh = tile / nqb;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int R = p.R, C = p.C, D = p.D;
   const size_t qoff = (size_t)bh * R * D;
@@ -519,15 +602,18 @@ flash_bwd_q_f32(BwdParams p) {
   const float* kg = static_cast<const float*>(p.k) + kvoff;
   const float* vg = static_cast<const float*>(p.v) + kvoff;
   const int row0 = i * BQ;
+  const int dcol = panel * DP;      // this CTA's dQ columns start here
 
-  for (int idx = tid; idx < BQ * DP; idx += 128) {
-    const int r = idx / DP, d = idx % DP;
-    const bool in = row0 + r < R && d < D;
-    sQ[idx] = in ? qg[(size_t)(row0 + r) * D + d] : 0.f;
-    sdO[idx] = in ? dog[(size_t)(row0 + r) * D + d] : 0.f;
+  if constexpr (!DBLK) {
+    for (int idx = tid; idx < BQ * DP; idx += 128) {
+      const int r = idx / DP, d = idx % DP;
+      const bool in = row0 + r < R && d < D;
+      sQ[idx] = in ? qg[(size_t)(row0 + r) * D + d] : 0.f;
+      sdO[idx] = in ? dog[(size_t)(row0 + r) * D + d] : 0.f;
+    }
   }
   d_term<float, BQ, 128>(p, bh, row0, static_cast<const float*>(p.o), p.d_o,
-                         true, sL, sD, warp, lane);
+                         true, sL, sD, warp, lane, panel == 0);
 
   float dq[RW][ND];
 #pragma unroll
@@ -539,25 +625,61 @@ flash_bwd_q_f32(BwdParams p) {
   kv_range(p, i, BQ, BKV, lo, hi);
   for (int j = lo; j <= hi; ++j) {
     const int col0 = j * BKV;
-    __syncthreads();
-    for (int idx = tid; idx < BKV * DP; idx += 128) {
-      const int r = idx / DP, d = idx % DP;
-      const bool in = col0 + r < C && d < D;
-      sK[r * KS + d] = in ? kg[(size_t)(col0 + r) * D + d] : 0.f;
-      sV[r * KS + d] = in ? vg[(size_t)(col0 + r) * D + d] : 0.f;
+    // S and dP of each row, over the head dim's panels (one unless DBLK).
+    float xs[RW], dps[RW];
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) xs[rr] = dps[rr] = 0.f;
+    for (int d0 = 0; d0 < (DBLK ? D : 1); d0 += DP) {
+      __syncthreads();
+      if constexpr (DBLK) {
+        load_panel_f32<BQ, DP, DP, 128>(qg, row0, R, D, d0, sQ, tid);
+        load_panel_f32<BQ, DP, DP, 128>(dog, row0, R, D, d0, sdO, tid);
+        load_panel_f32<BKV, DP, KS, 128>(kg, col0, C, D, d0, sK, tid);
+        load_panel_f32<BKV, DP, KS, 128>(vg, col0, C, D, d0, sV, tid);
+        if (d0 == dcol)
+          load_panel_f32<BKV, DP, KS, 128>(kg, col0, C, D, d0, sKd, tid);
+        cp_async_wait_all();
+      } else {
+        for (int idx = tid; idx < BKV * DP; idx += 128) {
+          const int r = idx / DP, d = idx % DP;
+          const bool in = col0 + r < C && d < D;
+          sK[r * KS + d] = in ? kg[(size_t)(col0 + r) * D + d] : 0.f;
+          sV[r * KS + d] = in ? vg[(size_t)(col0 + r) * D + d] : 0.f;
+        }
+      }
+      __syncthreads();
+      if constexpr (DBLK) {
+        const int dn = min(DP, D - d0);
+#pragma unroll
+        for (int rr = 0; rr < RW; ++rr) {
+          const int r = warp * RW + rr;
+          const float* qr = sQ + r * DP;
+          const float* dor = sdO + r * DP;
+          const float* kr = sK + lane * KS;
+          const float* vr = sV + lane * KS;
+          float x = xs[rr], dpv = dps[rr];
+          for (int d = 0; d < dn; ++d) {
+            x = fmaf(qr[d], kr[d], x);
+            dpv = fmaf(dor[d], vr[d], dpv);
+          }
+          xs[rr] = x;
+          dps[rr] = dpv;
+        }
+      }
     }
-    __syncthreads();
 #pragma unroll
     for (int rr = 0; rr < RW; ++rr) {
       const int r = warp * RW + rr;
-      const float* qr = sQ + r * DP;
-      const float* dor = sdO + r * DP;
-      const float* kr = sK + lane * KS;
-      const float* vr = sV + lane * KS;
-      float x = 0.f, dpv = 0.f;
-      for (int d = 0; d < DP; ++d) {
-        x = fmaf(qr[d], kr[d], x);
-        dpv = fmaf(dor[d], vr[d], dpv);
+      float x = xs[rr], dpv = dps[rr];
+      if constexpr (!DBLK) {   // the one panel, a row at a time
+        const float* qr = sQ + r * DP;
+        const float* dor = sdO + r * DP;
+        const float* kr = sK + lane * KS;
+        const float* vr = sV + lane * KS;
+        for (int d = 0; d < DP; ++d) {
+          x = fmaf(qr[d], kr[d], x);
+          dpv = fmaf(dor[d], vr[d], dpv);
+        }
       }
       float prob;
       const float ds = grad_score(p, x * p.scale2, dpv, sL[r], sD[r],
@@ -566,7 +688,7 @@ flash_bwd_q_f32(BwdParams p) {
         const float dsj = __shfl_sync(kFull, ds, jj);
 #pragma unroll
         for (int n = 0; n < ND; ++n)
-          dq[rr][n] = fmaf(dsj, sK[jj * KS + lane + 32 * n], dq[rr][n]);
+          dq[rr][n] = fmaf(dsj, sKd[jj * KS + lane + 32 * n], dq[rr][n]);
       }
     }
   }
@@ -577,15 +699,17 @@ flash_bwd_q_f32(BwdParams p) {
     if (r >= R) continue;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      const int d = lane + 32 * n;
+      const int d = dcol + lane + 32 * n;
       if (d < D) p.dq[qoff + (size_t)r * D + d] = dq[rr][n];
     }
   }
 }
 
 // K4, fp32: lane = query column of the 32-wide q tile for S^T / dP^T,
-// lane = head-dim column for dK / dV.
-template <int BKV, int DP>
+// lane = head-dim column for dK / dV. DBLK: head-dim blocking as in
+// flash_bwd_kv_bf16; Q's and dO's panels of this CTA's columns are kept
+// apart (sQd, sdOd) while the other panels stream through sQ and sdO.
+template <int BKV, int DP, bool DBLK>
 __global__ void __launch_bounds__(128)
 flash_bwd_kv_f32(BwdParams p) {
   constexpr int BQ = 32;
@@ -599,21 +723,29 @@ flash_bwd_kv_f32(BwdParams p) {
   float* sdO = sQ + BQ * QS;
   float* sL = sdO + BQ * QS;
   float* sD = sL + BQ;
+  float* sQd = DBLK ? sD + BQ : sQ;   // the panels of the dK / dV columns
+  float* sdOd = DBLK ? sQd + BQ * QS : sdO;
 
   const int nkvb = (p.C + BKV - 1) / BKV;
-  const int j = blockIdx.x % nkvb, bhkv = blockIdx.x / nkvb;
+  const int panels = DBLK ? (p.D + DP - 1) / DP : 1;
+  const int tile = (int)blockIdx.x / panels;
+  const int panel = (int)blockIdx.x % panels;
+  const int j = tile % nkvb, bhkv = tile / nkvb;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int R = p.R, C = p.C, D = p.D;
   const size_t kvoff = (size_t)bhkv * C * D;
   const float* kg = static_cast<const float*>(p.k) + kvoff;
   const float* vg = static_cast<const float*>(p.v) + kvoff;
   const int col0 = j * BKV;
+  const int dcol = panel * DP;      // this CTA's dK / dV columns start here
 
-  for (int idx = tid; idx < BKV * DP; idx += 128) {
-    const int r = idx / DP, d = idx % DP;
-    const bool in = col0 + r < C && d < D;
-    sK[idx] = in ? kg[(size_t)(col0 + r) * D + d] : 0.f;
-    sV[idx] = in ? vg[(size_t)(col0 + r) * D + d] : 0.f;
+  if constexpr (!DBLK) {
+    for (int idx = tid; idx < BKV * DP; idx += 128) {
+      const int r = idx / DP, d = idx % DP;
+      const bool in = col0 + r < C && d < D;
+      sK[idx] = in ? kg[(size_t)(col0 + r) * D + d] : 0.f;
+      sV[idx] = in ? vg[(size_t)(col0 + r) * D + d] : 0.f;
+    }
   }
 
   float dk[RW][ND], dv[RW][ND];
@@ -631,31 +763,71 @@ flash_bwd_kv_f32(BwdParams p) {
     const float* dog = static_cast<const float*>(p.d_o) + qoff;
     for (int i = lo; i <= hi; ++i) {
       const int row0 = i * BQ;
-      __syncthreads();
-      for (int idx = tid; idx < BQ * DP; idx += 128) {
-        const int r = idx / DP, d = idx % DP;
-        const bool in = row0 + r < R && d < D;
-        sQ[r * QS + d] = in ? qg[(size_t)(row0 + r) * D + d] : 0.f;
-        sdO[r * QS + d] = in ? dog[(size_t)(row0 + r) * D + d] : 0.f;
+      // S^T and dP^T of each kv row, over the head dim's panels (one
+      // unless DBLK).
+      float xs[RW], dps[RW];
+#pragma unroll
+      for (int cc = 0; cc < RW; ++cc) xs[cc] = dps[cc] = 0.f;
+      for (int d0 = 0; d0 < (DBLK ? D : 1); d0 += DP) {
+        __syncthreads();
+        if constexpr (DBLK) {
+          load_panel_f32<BKV, DP, DP, 128>(kg, col0, C, D, d0, sK, tid);
+          load_panel_f32<BKV, DP, DP, 128>(vg, col0, C, D, d0, sV, tid);
+          load_panel_f32<BQ, DP, QS, 128>(qg, row0, R, D, d0, sQ, tid);
+          load_panel_f32<BQ, DP, QS, 128>(dog, row0, R, D, d0, sdO, tid);
+          if (d0 == dcol) {
+            load_panel_f32<BQ, DP, QS, 128>(qg, row0, R, D, d0, sQd, tid);
+            load_panel_f32<BQ, DP, QS, 128>(dog, row0, R, D, d0, sdOd, tid);
+          }
+        } else {
+          for (int idx = tid; idx < BQ * DP; idx += 128) {
+            const int r = idx / DP, d = idx % DP;
+            const bool in = row0 + r < R && d < D;
+            sQ[r * QS + d] = in ? qg[(size_t)(row0 + r) * D + d] : 0.f;
+            sdO[r * QS + d] = in ? dog[(size_t)(row0 + r) * D + d] : 0.f;
+          }
+        }
+        if (d0 == 0)
+          for (int r = tid; r < BQ; r += 128) {
+            const bool in = row0 + r < R;
+            const size_t at = (size_t)bh * R + row0 + r;
+            sL[r] = in ? p.lse[at] * kLog2e : 0.f;
+            sD[r] = in ? p.dterm[at] : 0.f;
+          }
+        if constexpr (DBLK) cp_async_wait_all();
+        __syncthreads();
+        if constexpr (DBLK) {
+          const int dn = min(DP, D - d0);
+#pragma unroll
+          for (int cc = 0; cc < RW; ++cc) {
+            const int c = warp * RW + cc;
+            const float* kr = sK + c * DP;
+            const float* vr = sV + c * DP;
+            const float* qr = sQ + lane * QS;
+            const float* dor = sdO + lane * QS;
+            float x = xs[cc], dpv = dps[cc];
+            for (int d = 0; d < dn; ++d) {
+              x = fmaf(kr[d], qr[d], x);
+              dpv = fmaf(vr[d], dor[d], dpv);
+            }
+            xs[cc] = x;
+            dps[cc] = dpv;
+          }
+        }
       }
-      for (int r = tid; r < BQ; r += 128) {
-        const bool in = row0 + r < R;
-        const size_t at = (size_t)bh * R + row0 + r;
-        sL[r] = in ? p.lse[at] * kLog2e : 0.f;
-        sD[r] = in ? p.dterm[at] : 0.f;
-      }
-      __syncthreads();
 #pragma unroll
       for (int cc = 0; cc < RW; ++cc) {
         const int c = warp * RW + cc;
-        const float* kr = sK + c * DP;
-        const float* vr = sV + c * DP;
-        const float* qr = sQ + lane * QS;
-        const float* dor = sdO + lane * QS;
-        float x = 0.f, dpv = 0.f;
-        for (int d = 0; d < DP; ++d) {
-          x = fmaf(kr[d], qr[d], x);
-          dpv = fmaf(vr[d], dor[d], dpv);
+        float x = xs[cc], dpv = dps[cc];
+        if constexpr (!DBLK) {   // the one panel, a row at a time
+          const float* kr = sK + c * DP;
+          const float* vr = sV + c * DP;
+          const float* qr = sQ + lane * QS;
+          const float* dor = sdO + lane * QS;
+          for (int d = 0; d < DP; ++d) {
+            x = fmaf(kr[d], qr[d], x);
+            dpv = fmaf(vr[d], dor[d], dpv);
+          }
         }
         float prob;
         const float ds = grad_score(p, x * p.scale2, dpv, sL[lane], sD[lane],
@@ -665,8 +837,8 @@ flash_bwd_kv_f32(BwdParams p) {
           const float dsj = __shfl_sync(kFull, ds, jj);
 #pragma unroll
           for (int n = 0; n < ND; ++n) {
-            dv[cc][n] = fmaf(pj, sdO[jj * QS + lane + 32 * n], dv[cc][n]);
-            dk[cc][n] = fmaf(dsj, sQ[jj * QS + lane + 32 * n], dk[cc][n]);
+            dv[cc][n] = fmaf(pj, sdOd[jj * QS + lane + 32 * n], dv[cc][n]);
+            dk[cc][n] = fmaf(dsj, sQd[jj * QS + lane + 32 * n], dk[cc][n]);
           }
         }
       }
@@ -679,7 +851,7 @@ flash_bwd_kv_f32(BwdParams p) {
     if (c >= C) continue;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      const int d = lane + 32 * n;
+      const int d = dcol + lane + 32 * n;
       if (d >= D) continue;
       p.dk[kvoff + (size_t)c * D + d] = dk[cc][n];
       p.dv[kvoff + (size_t)c * D + d] = dv[cc][n];
@@ -1167,39 +1339,50 @@ cudaError_t launch(Kernel kernel, int grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// The first-cut kernels put (block, head) on grid.x as block + nblocks *
-// head: no 65535 limit on batch * heads.
-template <int BQ, int BKV, int DP>
+// The first-cut and D-blocked kernels put (block, head[, panel]) on grid.x
+// as (block + nblocks * head) * panels + panel: no 65535 limit on batch *
+// heads. DBLK: ceil(D / DP) panels.
+template <int DP, bool DBLK>
+int panel_count(const BwdParams& p) {
+  return DBLK ? (p.D + DP - 1) / DP : 1;
+}
+
+template <int BQ, int BKV, int DP, bool DBLK = false>
 cudaError_t launch_q_bf16(int bh, const BwdParams& p, cudaStream_t s) {
   const size_t smem = sizeof(bf16) * (2 * BQ * (DP + 8) + 2 * BKV * (DP + 8)
                                       + DP * (BKV + 8)) + sizeof(float) * 2 * BQ;
-  return launch(flash_bwd_q_bf16<BQ, BKV, DP>, (p.R + BQ - 1) / BQ * bh,
-                BQ * 2, smem, p, s);
+  return launch(flash_bwd_q_bf16<BQ, BKV, DP, DBLK>,
+                (p.R + BQ - 1) / BQ * bh * panel_count<DP, DBLK>(p), BQ * 2,
+                smem, p, s);
 }
 
-template <int BQ, int BKV, int DP>
+template <int BQ, int BKV, int DP, bool DBLK = false>
 cudaError_t launch_kv_bf16(int bhkv, const BwdParams& p, cudaStream_t s) {
   constexpr int DSPLIT = DP > 128 ? DP / 128 : 1;
   const size_t smem = sizeof(bf16) * (2 * BKV * (DP + 8) + 2 * BQ * (DP + 8)
                                       + 2 * DP * (BQ + 8)) + sizeof(float) * 2 * BQ;
-  return launch(flash_bwd_kv_bf16<BQ, BKV, DP, DSPLIT>,
-                (p.C + BKV - 1) / BKV * bhkv, BKV / 16 * DSPLIT * 32, smem, p,
-                s);
+  return launch(flash_bwd_kv_bf16<BQ, BKV, DP, DSPLIT, DBLK>,
+                (p.C + BKV - 1) / BKV * bhkv * panel_count<DP, DBLK>(p),
+                BKV / 16 * DSPLIT * 32, smem, p, s);
 }
 
-template <int BQ, int DP>
+// DBLK keeps K's panel of the dQ columns apart (one more K tile).
+template <int BQ, int DP, bool DBLK = false>
 cudaError_t launch_q_f32(int bh, const BwdParams& p, cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * (2 * BQ * DP + 2 * 32 * (DP + 1) + 2 * BQ);
-  return launch(flash_bwd_q_f32<BQ, DP>, (p.R + BQ - 1) / BQ * bh, 128, smem,
-                p, s);
+  const size_t smem = sizeof(float) * (2 * BQ * DP + (DBLK ? 3 : 2) * 32 *
+                                       (DP + 1) + 2 * BQ);
+  return launch(flash_bwd_q_f32<BQ, DP, DBLK>,
+                (p.R + BQ - 1) / BQ * bh * panel_count<DP, DBLK>(p), 128,
+                smem, p, s);
 }
 
-template <int BKV, int DP>
+// DBLK keeps Q's and dO's panels of the dK / dV columns apart.
+template <int BKV, int DP, bool DBLK = false>
 cudaError_t launch_kv_f32(int bhkv, const BwdParams& p, cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * (2 * BKV * DP + 2 * 32 * (DP + 1) + 2 * 32);
-  return launch(flash_bwd_kv_f32<BKV, DP>, (p.C + BKV - 1) / BKV * bhkv, 128,
+  const size_t smem = sizeof(float) * (2 * BKV * DP + (DBLK ? 4 : 2) * 32 *
+                                       (DP + 1) + 2 * 32);
+  return launch(flash_bwd_kv_f32<BKV, DP, DBLK>,
+                (p.C + BKV - 1) / BKV * bhkv * panel_count<DP, DBLK>(p), 128,
                 smem, p, s);
 }
 
@@ -1261,22 +1444,29 @@ int vec_ok(int D, const void* a, const void* b, const void* c,
 
 // K3. dtype: 0 = fp32, 1 = bf16 (q, k, v, d_o); o_f32: O is fp32 (else the
 // input type); kernel: 0 the first-cut kernels (mma.sync / FMA), 1 the
-// wgmma kernel. (kernel, block_q, block_kv, block_d) must be a row of
+// wgmma kernel, 2 the D-blocked kernels (mma.sync / FMA) over `panels`
+// head-dim panels. (kernel, block_q, block_kv, block_d) must be a row of
 // ops/params.py's flash_bwd_q tables.
 extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                const void* o, const void* d_o,
                                const void* lse, void* dq, void* dterm,
                                int bh, int group, int R, int C, int D,
-                               int causal, int window, float scale2,
-                               float cap2, float scale, int dtype, int o_f32,
-                               int kernel, int block_q, int block_kv,
-                               int block_d, void* stream) {
+                               int panels, int causal, int window,
+                               float scale2, float cap2, float scale,
+                               int dtype, int o_f32, int kernel, int block_q,
+                               int block_kv, int block_d, void* stream) {
+  if (!mfa::panels_ok(kernel, D, block_d, panels))
+    return cudaErrorInvalidValue;
   BwdParams p{q, k, v, o, d_o, static_cast<const float*>(lse),
               static_cast<float*>(dterm), static_cast<float*>(dq), nullptr,
               nullptr, group, R, C, D, causal, window, scale2, cap2, scale,
               o_f32, vec_ok(D, q, k, v, d_o)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if (kernel == 2 && block_q == 16 && block_kv == 32) {
+      if (block_d == 128) return launch_q_f32<16, 128, true>(bh, p, s);
+      if (block_d == 256) return launch_q_f32<16, 256, true>(bh, p, s);
+    }
     if (kernel == 0 && block_q == 16 && block_kv == 32) {
       if (block_d == 64) return launch_q_f32<16, 64>(bh, p, s);
       if (block_d == 128) return launch_q_f32<16, 128>(bh, p, s);
@@ -1292,6 +1482,13 @@ extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
       return launch_q_wgmma<64, 128>(bh, p, s);
     return cudaErrorInvalidValue;
   }
+  if (kernel == 2) {
+    if (block_q == 64 && block_kv == 32 && block_d == 256)
+      return launch_q_bf16<64, 32, 256, true>(bh, p, s);
+    if (block_q == 64 && block_kv == 64 && block_d == 128)
+      return launch_q_bf16<64, 64, 128, true>(bh, p, s);
+    return cudaErrorInvalidValue;
+  }
   if (kernel != 0) return cudaErrorInvalidValue;
   if (block_q == 64 && block_kv == 64 && block_d == 64)
     return launch_q_bf16<64, 64, 64>(bh, p, s);
@@ -1302,16 +1499,19 @@ extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// K4. dtype and kernel as for K3; the D-term is K3's. (kernel, block_q,
-// block_kv, block_d) must be a row of ops/params.py's flash_bwd_kv tables.
+// K4. dtype, kernel and panels as for K3; the D-term is K3's. (kernel,
+// block_q, block_kv, block_d) must be a row of ops/params.py's
+// flash_bwd_kv tables.
 extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 const void* d_o, const void* lse,
                                 const void* dterm, void* dk, void* dv,
                                 int bhkv, int group, int R, int C, int D,
-                                int causal, int window, float scale2,
-                                float cap2, float scale, int dtype,
-                                int kernel, int block_q, int block_kv,
-                                int block_d, void* stream) {
+                                int panels, int causal, int window,
+                                float scale2, float cap2, float scale,
+                                int dtype, int kernel, int block_q,
+                                int block_kv, int block_d, void* stream) {
+  if (!mfa::panels_ok(kernel, D, block_d, panels))
+    return cudaErrorInvalidValue;
   BwdParams p{q, k, v, nullptr, d_o, static_cast<const float*>(lse),
               const_cast<float*>(static_cast<const float*>(dterm)), nullptr,
               static_cast<float*>(dk), static_cast<float*>(dv), group, R, C,
@@ -1319,6 +1519,10 @@ extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
               vec_ok(D, q, k, v, d_o)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if (kernel == 2 && block_q == 32 && block_kv == 16) {
+      if (block_d == 128) return launch_kv_f32<16, 128, true>(bhkv, p, s);
+      if (block_d == 256) return launch_kv_f32<16, 256, true>(bhkv, p, s);
+    }
     if (kernel == 0 && block_q == 32 && block_kv == 16) {
       if (block_d == 64) return launch_kv_f32<16, 64>(bhkv, p, s);
       if (block_d == 128) return launch_kv_f32<16, 128>(bhkv, p, s);
@@ -1336,6 +1540,13 @@ extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
     if (block_q == 64 && block_d == 64) return launch_kv_wgmma<64, 64>(bhkv, p, s);
     if (block_q == 64 && block_d == 128)
       return launch_kv_wgmma<64, 128>(bhkv, p, s);
+    return cudaErrorInvalidValue;
+  }
+  if (kernel == 2) {
+    if (block_q == 32 && block_kv == 64 && block_d == 256)
+      return launch_kv_bf16<32, 64, 256, true>(bhkv, p, s);
+    if (block_q == 32 && block_kv == 64 && block_d == 128)
+      return launch_kv_bf16<32, 64, 128, true>(bhkv, p, s);
     return cudaErrorInvalidValue;
   }
   if (kernel != 0) return cudaErrorInvalidValue;

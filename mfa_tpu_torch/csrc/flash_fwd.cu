@@ -69,6 +69,16 @@
 // tiles loaded synchronously (rows "mma"); fp32 inputs take a plain-FMA
 // kernel: the fp32 budget (2e-5) rules out TF32 tensor cores. Both use the
 // same flat grid.
+//
+// Past D = 256 (rows "mma_dblk", "fma_dblk") the same two kernels run
+// D-blocked (DBLK; see flash_fwd_bf16): a CTA per block_d panel of O. At
+// the JAX package's large-D class (B 1, H 8, N 4096, D 384 or 512) K1 does
+// 4 D FLOP a visible pair, ~206 GFLOP non-causal at D 384 (~0.21 ms at
+// the bf16 peak), against ~0.1 GB of operands: bound by operations. The
+// first cut pays S once a panel (1.5-2x the useful FLOPs at the measured
+// rows) and re-reads Q from L2 each kv step, on mma.sync; its panels load
+// by cp.async or four 16-byte chunks a thread in flight
+// (common.cuh::load_panel), which halved its time.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -108,11 +118,32 @@ __device__ __forceinline__ void tile_of(int nqb, int& i, int& bh) {
   bh = (int)blockIdx.x % bhs;
 }
 
+// The same for the D-blocked kernels, whose grid is tiles x panels: the
+// panels of one tile are adjacent (they read the same Q and K panels).
+__device__ __forceinline__ void panel_tile_of(int nqb, int panels, int& i,
+                                              int& bh, int& panel) {
+  const int bhs = gridDim.x / panels / nqb;
+  const int tile = (int)blockIdx.x / panels;
+  panel = (int)blockIdx.x % panels;
+  i = nqb - 1 - tile / bhs;
+  bh = tile % bhs;
+}
+
 // ---------------------------------------------------------------------------
 // bf16 inputs the wgmma kernel cannot take (D = 256, D % 8 != 0, a
-// misaligned base): mma.sync, BQ / 16 warps of 16 rows.
+// misaligned base; DBLK: D > 256): mma.sync, BQ / 16 warps of 16 rows.
+//
+// DBLK (rows "mma_dblk"): head-dim blocking, mfa_tpu's D-paged path
+// (_fwd_kernel's qk / pv loops over block_d slices, flash_fwd.py:180-252
+// and :413-456). The CTA owns O's columns [panel * DP, panel * DP + DP)
+// of its q-block. It forms the whole S = Qs K^T of each kv block, summing
+// DP-wide panels of Q and K streamed through shared memory, and
+// multiplies P by its own panel of V, so shared memory holds one panel of
+// Q, K and V^T at any head dim. Every panel CTA of a q-block sums S in
+// the same order and so takes the same row max and sum; panel 0 writes L.
+// That trades FLOPs (S once a panel) for no atomics and no second pass.
 // ---------------------------------------------------------------------------
-template <int BQ, int BKV, int DP, bool OUT_F32>
+template <int BQ, int BKV, int DP, bool OUT_F32, bool DBLK>
 __global__ void __launch_bounds__(BQ * 2)
 flash_fwd_bf16(FwdParams p) {
   constexpr int NT = BQ * 2;        // BQ / 16 warps
@@ -125,8 +156,11 @@ flash_fwd_bf16(FwdParams p) {
   __nv_bfloat16* sK = sQ + BQ * QS;
   __nv_bfloat16* sVt = sK + BKV * QS;
 
-  int i, bh;
-  tile_of((p.R + BQ - 1) / BQ, i, bh);
+  int i, bh, panel = 0;
+  if constexpr (DBLK)
+    panel_tile_of((p.R + BQ - 1) / BQ, (p.D + DP - 1) / DP, i, bh, panel);
+  else
+    tile_of((p.R + BQ - 1) / BQ, i, bh);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int R = p.R, C = p.C, D = p.D;
@@ -136,14 +170,18 @@ flash_fwd_bf16(FwdParams p) {
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + kvoff;
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + kvoff;
   const int row0 = i * BQ;
+  const int dcol = panel * DP;      // this CTA's O columns start here
 
-  // Q tile, pre-scaled by scale*log2e and rounded to bf16; zero padded.
-  for (int idx = tid; idx < BQ * DP; idx += NT) {
-    const int r = idx / DP, d = idx % DP;
-    float x = 0.f;
-    if (row0 + r < R && d < D)
-      x = __bfloat162float(qg[(size_t)(row0 + r) * D + d]) * p.scale2;
-    sQ[r * QS + d] = __float2bfloat16(x);
+  // Q tile (DBLK: a panel a step), pre-scaled by scale*log2e and rounded
+  // to bf16; zero padded.
+  if constexpr (!DBLK) {
+    for (int idx = tid; idx < BQ * DP; idx += NT) {
+      const int r = idx / DP, d = idx % DP;
+      float x = 0.f;
+      if (row0 + r < R && d < D)
+        x = __bfloat162float(qg[(size_t)(row0 + r) * D + d]) * p.scale2;
+      sQ[r * QS + d] = __float2bfloat16(x);
+    }
   }
 
   float o_acc[NDT][4];
@@ -159,60 +197,77 @@ flash_fwd_bf16(FwdParams p) {
   kv_range(p, i, BQ, BKV, lo, hi);
   for (int j = lo; j <= hi; ++j) {
     const int col0 = j * BKV;
-    __syncthreads();   // previous tiles consumed
-    if (p.vec) {
-      // K: consecutive threads take consecutive 8-wide chunks of a row.
-      for (int c = tid; c < BKV * (DP / 8); c += NT) {
-        const int r = c / (DP / 8), d0 = (c % (DP / 8)) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (col0 + r < C && d0 < D)
-          val = *reinterpret_cast<const uint4*>(kg + (size_t)(col0 + r) * D + d0);
-        *reinterpret_cast<uint4*>(sK + r * QS + d0) = val;
-      }
-      // V, transposed: consecutive threads take consecutive rows so the
-      // scattered 2-byte shared stores stay conflict-free.
-      for (int c = tid; c < BKV * (DP / 8); c += NT) {
-        const int r = c % BKV, d0 = (c / BKV) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (col0 + r < C && d0 < D)
-          val = *reinterpret_cast<const uint4*>(vg + (size_t)(col0 + r) * D + d0);
-        const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) sVt[(d0 + e) * VS + r] = e8[e];
-      }
-    } else {
-      for (int idx = tid; idx < BKV * DP; idx += NT) {
-        const int r = idx / DP, d = idx % DP;
-        __nv_bfloat16 kx = __float2bfloat16(0.f), vx = kx;
-        if (col0 + r < C && d < D) {
-          kx = kg[(size_t)(col0 + r) * D + d];
-          vx = vg[(size_t)(col0 + r) * D + d];
-        }
-        sK[r * QS + d] = kx;
-        sVt[d * VS + r] = vx;
-      }
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows.
     float s[NKT][4];
 #pragma unroll
     for (int n = 0; n < NKT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    // S = Q K^T for this warp's 16 rows, over the head dim's panels (one
+    // panel unless DBLK); V's panel (columns dcol..) arrives with the
+    // first.
+    for (int d0 = 0; d0 < (DBLK ? D : 1); d0 += DP) {
+      __syncthreads();   // previous tiles consumed
+      if constexpr (DBLK) {
+        load_panel<BQ, DP, NT>(qg, row0, R, D, d0, p.vec, p.scale2, sQ,
+                               nullptr, tid);
+        load_panel<BKV, DP, NT>(kg, col0, C, D, d0, p.vec, 0.f, sK, nullptr,
+                                tid);
+        if (d0 == 0)
+          load_panel<BKV, DP, NT>(vg, col0, C, D, dcol, p.vec, 0.f, nullptr,
+                                  sVt, tid);
+        cp_async_wait_all();
+      } else if (p.vec) {
+        // K: consecutive threads take consecutive 8-wide chunks of a row.
+        for (int c = tid; c < BKV * (DP / 8); c += NT) {
+          const int r = c / (DP / 8), d = (c % (DP / 8)) * 8;
+          uint4 val = make_uint4(0, 0, 0, 0);
+          if (col0 + r < C && d < D)
+            val = *reinterpret_cast<const uint4*>(kg + (size_t)(col0 + r) * D
+                                                  + d);
+          *reinterpret_cast<uint4*>(sK + r * QS + d) = val;
+        }
+        // V, transposed: consecutive threads take consecutive rows so the
+        // scattered 2-byte shared stores stay conflict-free.
+        for (int c = tid; c < BKV * (DP / 8); c += NT) {
+          const int r = c % BKV, d = (c / BKV) * 8;
+          uint4 val = make_uint4(0, 0, 0, 0);
+          if (col0 + r < C && d < D)
+            val = *reinterpret_cast<const uint4*>(vg + (size_t)(col0 + r) * D
+                                                  + d);
+          const __nv_bfloat16* e8 =
+              reinterpret_cast<const __nv_bfloat16*>(&val);
 #pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const __nv_bfloat16* qa = sQ + (warp * 16 + g) * QS + kk + t4 * 2;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qa);
-      a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * QS);
-      a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * QS + 8);
+          for (int e = 0; e < 8; ++e) sVt[(d + e) * VS + r] = e8[e];
+        }
+      } else {
+        for (int idx = tid; idx < BKV * DP; idx += NT) {
+          const int r = idx / DP, d = idx % DP;
+          __nv_bfloat16 kx = __float2bfloat16(0.f), vx = kx;
+          if (col0 + r < C && d < D) {
+            kx = kg[(size_t)(col0 + r) * D + d];
+            vx = vg[(size_t)(col0 + r) * D + d];
+          }
+          sK[r * QS + d] = kx;
+          sVt[d * VS + r] = vx;
+        }
+      }
+      __syncthreads();
+
 #pragma unroll
-      for (int n = 0; n < NKT; ++n) {
-        const __nv_bfloat16* kb = sK + (n * 8 + g) * QS + kk + t4 * 2;
-        mma_bf16(s[n], a, *reinterpret_cast<const uint32_t*>(kb),
-                 *reinterpret_cast<const uint32_t*>(kb + 8));
+      for (int kk = 0; kk < DP; kk += 16) {
+        if (DBLK && d0 + kk >= D) break;   // the last panel's zero tail
+        const __nv_bfloat16* qa = sQ + (warp * 16 + g) * QS + kk + t4 * 2;
+        uint32_t a[4];
+        a[0] = *reinterpret_cast<const uint32_t*>(qa);
+        a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * QS);
+        a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
+        a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * QS + 8);
+#pragma unroll
+        for (int n = 0; n < NKT; ++n) {
+          const __nv_bfloat16* kb = sK + (n * 8 + g) * QS + kk + t4 * 2;
+          mma_bf16(s[n], a, *reinterpret_cast<const uint32_t*>(kb),
+                   *reinterpret_cast<const uint32_t*>(kb + 8));
+        }
       }
     }
 
@@ -266,6 +321,7 @@ flash_fwd_bf16(FwdParams p) {
       acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
       for (int n = 0; n < NDT; ++n) {
+        if (DBLK && dcol + n * 8 >= D) break;   // past the last column
         const __nv_bfloat16* vb = sVt + (n * 8 + g) * VS + kc * 16 + t4 * 2;
         mma_bf16(o_acc[n], a, *reinterpret_cast<const uint32_t*>(vb),
                  *reinterpret_cast<const uint32_t*>(vb + 8));
@@ -284,7 +340,7 @@ flash_fwd_bf16(FwdParams p) {
     for (int n = 0; n < NDT; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + t4 * 2 + e;
+        const int d = dcol + n * 8 + t4 * 2 + e;
         if (d >= D) continue;
         const float val = empty ? 0.f : o_acc[n][2 * h + e] / l_safe;
         const size_t at = ((size_t)bh * R + r) * D + d;
@@ -293,7 +349,7 @@ flash_fwd_bf16(FwdParams p) {
         else
           static_cast<__nv_bfloat16*>(p.o)[at] = __float2bfloat16(val);
       }
-    if (t4 == 0)
+    if (t4 == 0 && panel == 0)
       p.lse[(size_t)bh * R + r] =
           empty ? 0.f : (m_r[h] + log2f(l_safe)) * kLn2;
   }
@@ -301,9 +357,11 @@ flash_fwd_bf16(FwdParams p) {
 
 // ---------------------------------------------------------------------------
 // fp32 inputs: plain FMA. Four warps of BQ/4 rows; lane = kv column of the
-// 32-wide tile for S, lane = head-dim column for O.
+// 32-wide tile for S, lane = head-dim column for O. DBLK (rows
+// "fma_dblk"): head-dim blocking as in flash_fwd_bf16, S summed over
+// DP-wide panels of Q and K in one order by every panel CTA.
 // ---------------------------------------------------------------------------
-template <int BQ, int DP>
+template <int BQ, int DP, bool DBLK>
 __global__ void __launch_bounds__(128)
 flash_fwd_f32(FwdParams p) {
   constexpr int BKV = 32;
@@ -315,8 +373,11 @@ flash_fwd_f32(FwdParams p) {
   float* sK = sQ + BQ * DP;
   float* sV = sK + BKV * KS;
 
-  int i, bh;
-  tile_of((p.R + BQ - 1) / BQ, i, bh);
+  int i, bh, panel = 0;
+  if constexpr (DBLK)
+    panel_tile_of((p.R + BQ - 1) / BQ, (p.D + DP - 1) / DP, i, bh, panel);
+  else
+    tile_of((p.R + BQ - 1) / BQ, i, bh);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int R = p.R, C = p.C, D = p.D;
   const float* qg = static_cast<const float*>(p.q) + (size_t)bh * R * D;
@@ -324,10 +385,14 @@ flash_fwd_f32(FwdParams p) {
   const float* kg = static_cast<const float*>(p.k) + kvoff;
   const float* vg = static_cast<const float*>(p.v) + kvoff;
   const int row0 = i * BQ;
+  const int dcol = panel * DP;      // this CTA's O columns start here
 
-  for (int idx = tid; idx < BQ * DP; idx += 128) {
-    const int r = idx / DP, d = idx % DP;
-    sQ[idx] = (row0 + r < R && d < D) ? qg[(size_t)(row0 + r) * D + d] : 0.f;
+  if constexpr (!DBLK) {
+    for (int idx = tid; idx < BQ * DP; idx += 128) {
+      const int r = idx / DP, d = idx % DP;
+      sQ[idx] = (row0 + r < R && d < D) ? qg[(size_t)(row0 + r) * D + d]
+                                        : 0.f;
+    }
   }
 
   float o_acc[RW][ND];
@@ -344,21 +409,48 @@ flash_fwd_f32(FwdParams p) {
   kv_range(p, i, BQ, BKV, lo, hi);
   for (int j = lo; j <= hi; ++j) {
     const int col0 = j * BKV;
-    __syncthreads();
-    for (int idx = tid; idx < BKV * DP; idx += 128) {
-      const int r = idx / DP, d = idx % DP;
-      const bool in = col0 + r < C && d < D;
-      sK[r * KS + d] = in ? kg[(size_t)(col0 + r) * D + d] : 0.f;
-      sV[r * KS + d] = in ? vg[(size_t)(col0 + r) * D + d] : 0.f;
+    // S of each row, over the head dim's panels (one unless DBLK); V's
+    // panel (columns dcol..) arrives with the first.
+    float xs[RW];
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) xs[rr] = 0.f;
+    for (int d0 = 0; d0 < (DBLK ? D : 1); d0 += DP) {
+      __syncthreads();
+      if constexpr (DBLK) {
+        load_panel_f32<BQ, DP, DP, 128>(qg, row0, R, D, d0, sQ, tid);
+        load_panel_f32<BKV, DP, KS, 128>(kg, col0, C, D, d0, sK, tid);
+        if (d0 == 0)
+          load_panel_f32<BKV, DP, KS, 128>(vg, col0, C, D, dcol, sV, tid);
+        cp_async_wait_all();
+      } else {
+        for (int idx = tid; idx < BKV * DP; idx += 128) {
+          const int r = idx / DP, d = idx % DP;
+          const bool in = col0 + r < C && d < D;
+          sK[r * KS + d] = in ? kg[(size_t)(col0 + r) * D + d] : 0.f;
+          sV[r * KS + d] = in ? vg[(size_t)(col0 + r) * D + d] : 0.f;
+        }
+      }
+      __syncthreads();
+      if constexpr (DBLK) {
+#pragma unroll
+        for (int rr = 0; rr < RW; ++rr) {
+          const float* qr = sQ + (warp * RW + rr) * DP;
+          const float* kr = sK + lane * KS;
+          float x = xs[rr];
+          for (int d = 0; d < min(DP, D - d0); ++d) x = fmaf(qr[d], kr[d], x);
+          xs[rr] = x;
+        }
+      }
     }
-    __syncthreads();
 #pragma unroll
     for (int rr = 0; rr < RW; ++rr) {
       const int r = warp * RW + rr;
-      const float* qr = sQ + r * DP;
-      const float* kr = sK + lane * KS;
-      float x = 0.f;
-      for (int d = 0; d < DP; ++d) x = fmaf(qr[d], kr[d], x);
+      float x = xs[rr];
+      if constexpr (!DBLK) {   // the one panel, a row at a time
+        const float* qr = sQ + r * DP;
+        const float* kr = sK + lane * KS;
+        for (int d = 0; d < DP; ++d) x = fmaf(qr[d], kr[d], x);
+      }
       x = cap_score(x * p.scale2, p.cap2);
       if (!visible(p, row0 + r, col0 + lane)) x = kMaskValue;
       const float m_new = fmaxf(m_r[rr], warp_max(x));
@@ -388,12 +480,12 @@ flash_fwd_f32(FwdParams p) {
     const float l_safe = fmaxf(l_r[rr], 1e-37f);
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      const int d = lane + 32 * n;
+      const int d = dcol + lane + 32 * n;
       if (d < D)
         static_cast<float*>(p.o)[((size_t)bh * R + r) * D + d] =
             empty ? 0.f : o_acc[rr][n] / l_safe;
     }
-    if (lane == 0)
+    if (lane == 0 && panel == 0)
       p.lse[(size_t)bh * R + r] =
           empty ? 0.f : (m_r[rr] + log2f(l_safe)) * kLn2;
   }
@@ -768,24 +860,28 @@ cudaError_t launch(Kernel kernel, int grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int BQ, int BKV, int DP>
+// The first-cut and D-blocked kernels: (q-block, head[, panel]) on
+// grid.x; DBLK: ceil(D / DP) panels.
+template <int BQ, int BKV, int DP, bool DBLK = false>
 cudaError_t launch_bf16(bool out_f32, int bh, const FwdParams& p,
                         cudaStream_t stream) {
   const size_t smem =
       sizeof(bf16) * (BQ * (DP + 8) + BKV * (DP + 8) + DP * (BKV + 8));
-  const int grid = (p.R + BQ - 1) / BQ * bh;
+  const int grid =
+      (p.R + BQ - 1) / BQ * bh * (DBLK ? (p.D + DP - 1) / DP : 1);
   if (out_f32)
-    return launch(flash_fwd_bf16<BQ, BKV, DP, true>, grid, BQ * 2, smem, p,
-                  stream);
-  return launch(flash_fwd_bf16<BQ, BKV, DP, false>, grid, BQ * 2, smem, p,
-                stream);
+    return launch(flash_fwd_bf16<BQ, BKV, DP, true, DBLK>, grid, BQ * 2, smem,
+                  p, stream);
+  return launch(flash_fwd_bf16<BQ, BKV, DP, false, DBLK>, grid, BQ * 2, smem,
+                p, stream);
 }
 
-template <int BQ, int DP>
+template <int BQ, int DP, bool DBLK = false>
 cudaError_t launch_f32(int bh, const FwdParams& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * DP + 2 * 32 * (DP + 1));
-  return launch(flash_fwd_f32<BQ, DP>, (p.R + BQ - 1) / BQ * bh, 128, smem, p,
-                stream);
+  return launch(flash_fwd_f32<BQ, DP, DBLK>,
+                (p.R + BQ - 1) / BQ * bh * (DBLK ? (p.D + DP - 1) / DP : 1),
+                128, smem, p, stream);
 }
 
 template <int BKV, int DP>
@@ -813,14 +909,19 @@ cudaError_t launch_wgmma(int bh, FwdParams p, int most, cudaStream_t s) {
 // dtype: 0 = fp32 in/out, 1 = bf16 in/out, 2 = bf16 in, fp32 out. kernel:
 // 0 the first-cut kernels (mma.sync / FMA), 1 the wgmma kernel, whose K/V
 // ring holds as many stages as fit, at most `stages`, and whose consumer
-// warpgroups take turns when `pingpong` != 0. (kernel, block_q, block_kv,
-// block_d) must be a row of ops/params.py's flash_fwd tables.
+// warpgroups take turns when `pingpong` != 0, 2 the D-blocked kernels
+// (mma.sync / FMA) over `panels` = ceil(D / block_d) head-dim panels (1
+// for the others). (kernel, block_q, block_kv, block_d) must be a row of
+// ops/params.py's flash_fwd tables.
 extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int group, int R,
-                             int C, int D, int causal, int window,
-                             float scale2, float cap2, int dtype, int kernel,
-                             int block_q, int block_kv, int block_d,
-                             int stages, int pingpong, void* stream) {
+                             int C, int D, int panels, int causal,
+                             int window, float scale2, float cap2, int dtype,
+                             int kernel, int block_q, int block_kv,
+                             int block_d, int stages, int pingpong,
+                             void* stream) {
+  if (!mfa::panels_ok(kernel, D, block_d, panels))
+    return cudaErrorInvalidValue;
   FwdParams p{};
   p.q = q;
   p.k = k;
@@ -843,6 +944,10 @@ extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
   p.pingpong = pingpong;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if (kernel == 2 && block_q == 16 && block_kv == 32) {
+      if (block_d == 128) return launch_f32<16, 128, true>(bh, p, s);
+      if (block_d == 256) return launch_f32<16, 256, true>(bh, p, s);
+    }
     if (kernel == 0 && block_q == 16 && block_kv == 32) {
       if (block_d == 64) return launch_f32<16, 64>(bh, p, s);
       if (block_d == 128) return launch_f32<16, 128>(bh, p, s);
@@ -865,6 +970,13 @@ extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
       return launch_wgmma<64, 128>(bh, p, stages, s);
     if (block_kv == 128 && block_d == 128)
       return launch_wgmma<128, 128>(bh, p, stages, s);
+    return cudaErrorInvalidValue;
+  }
+  if (kernel == 2) {
+    if (block_q == 64 && block_kv == 32 && block_d == 256)
+      return launch_bf16<64, 32, 256, true>(out_f32, bh, p, s);
+    if (block_q == 64 && block_kv == 64 && block_d == 128)
+      return launch_bf16<64, 64, 128, true>(out_f32, bh, p, s);
     return cudaErrorInvalidValue;
   }
   if (kernel != 0) return cudaErrorInvalidValue;

@@ -34,7 +34,7 @@ _L = ctypes.c_longlong
 # C signatures of the library's entries (see csrc/*.cu).
 _SIGNATURES = {
     "mfa_flash_fwd": [_P, _P, _P, _P, _P,           # q k v o lse
-                      _I, _I, _I, _I, _I,           # bh group R C D
+                      _I, _I, _I, _I, _I, _I,       # bh group R C D panels
                       _I, _I, _F, _F,               # causal window scale2 cap2
                       _I, _I, _I, _I, _I,           # dtype kernel block_q
                                                     # kv d
@@ -42,7 +42,7 @@ _SIGNATURES = {
                       _P],                          # stream
     "mfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P,     # q k v o do lse
                         _P, _P,                     # dq dterm
-                        _I, _I, _I, _I, _I,         # bh group R C D
+                        _I, _I, _I, _I, _I, _I,     # bh group R C D panels
                         _I, _I, _F, _F, _F,         # causal window scale2
                                                     # cap2 scale
                         _I, _I, _I, _I, _I, _I,     # dtype o_f32 kernel
@@ -50,7 +50,8 @@ _SIGNATURES = {
                         _P],                        # stream
     "mfa_flash_bwd_kv": [_P, _P, _P, _P, _P, _P,    # q k v do lse dterm
                          _P, _P,                    # dk dv
-                         _I, _I, _I, _I, _I,        # bhkv group R C D
+                         _I, _I, _I, _I, _I, _I,    # bhkv group R C D
+                                                    # panels
                          _I, _I, _F, _F, _F,        # causal window scale2
                                                     # cap2 scale
                          _I, _I, _I, _I, _I,        # dtype kernel block_q

@@ -35,7 +35,8 @@ KV_FORMATS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
               torch.float8_e5m2: 3}
 # D / 8 lanes share a cache row, so a CTA's threads must be a multiple of
 # the most lanes a row takes.
-assert params_mod.DECODE_ATTEND_THREADS % (params_mod.MAX_HEAD_DIM // 8) == 0
+assert (params_mod.DECODE_ATTEND_THREADS
+        % (params_mod.DECODE_MAX_HEAD_DIM // 8) == 0)
 # Storage types whose per-token scales multiply S and P.
 QUANTIZED = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 
@@ -127,9 +128,10 @@ def check_launch(name: str, q3, k, v, **others) -> None:
         raise TypeError(f"cache storage {k.dtype} not taken by the kernel "
                         f"(takes {list(KV_FORMATS)})")
     d = q3.shape[-1]
-    if d > params_mod.MAX_HEAD_DIM or d % 8 or (d // 8) & (d // 8 - 1):
+    if (d > params_mod.DECODE_MAX_HEAD_DIM or d % 8
+            or (d // 8) & (d // 8 - 1)):
         raise ValueError(f"head dim {d}: the kernel takes D = 8 * 2^k <= "
-                         f"{params_mod.MAX_HEAD_DIM}")
+                         f"{params_mod.DECODE_MAX_HEAD_DIM}")
     if any(t.data_ptr() % 16 for t in (k, v)):
         raise ValueError("cache storage must be 16-byte aligned")
 

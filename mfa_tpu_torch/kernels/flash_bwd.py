@@ -14,7 +14,11 @@ TMA + wgmma kernels, the others the first-cut mma.sync or FMA kernels.
 A wgmma row whose operands a TMA tensor map cannot hold (a base address
 not 16-byte aligned) runs the mma.sync row of the same head dim
 (:func:`~mfa_tpu_torch.ops.descriptors.launch_row`, shared with K1).
-Blocks and heads share grid.x, so batch * heads has no 65535 limit.
+Above D = 256 the rows are D-blocked (``mma_dblk``, ``fma_dblk``): a
+launch covers dQ (K3) or dK and dV (K4) in ceil(D / block_d) head-dim
+panels, one CTA each, as ``mfa_tpu``'s kernels page D in ``block_d``
+slices (flash_bwd.py:175-235, :530-656). Blocks, heads and panels share
+grid.x, so batch * heads has no 65535 limit.
 
 Operands: q, o, dO [BH, R, D]; k, v [BH / group, C, D] (query head bh
 reads kv head bh // group); L and the D-term [BH, R] fp32. dO is in the
@@ -36,6 +40,7 @@ from mfa_tpu_torch.kernels.flash_fwd import (
 from mfa_tpu_torch.ops.descriptors import (
     KERNEL_CODES,
     AttentionKernelDescriptor,
+    head_dim_panels,
     launch_row,
 )
 
@@ -114,8 +119,9 @@ def _check(q3, k3, v3, do3, kd, group, o3=None):
         raise ValueError("sliding_window must be >= 1")
 
 
-def _check_cuda(kd, tensors: dict, vectors: dict):
-    """Device, contiguity and head dim for a kernel launch."""
+def _check_cuda(kd, tensors: dict, vectors: dict) -> int:
+    """Device and contiguity for a kernel launch; returns the head-dim
+    panels it covers."""
     first = next(iter(tensors.values()))
     if not first.is_cuda:
         raise ValueError(f"flash backward: unsupported device {first.device}")
@@ -127,9 +133,7 @@ def _check_cuda(kd, tensors: dict, vectors: dict):
     for name, t in vectors.items():
         if t.dtype != torch.float32 or t.shape != first.shape[:2]:
             raise ValueError(f"{name} must be fp32 [BH, R]")
-    if first.shape[2] > kd.block_d:
-        raise ValueError(f"head dim {first.shape[2]} exceeds the kernel's "
-                         f"{kd.block_d}")
+    return head_dim_panels(kd, first.shape[2])
 
 
 def _dtype_code(t):
@@ -155,15 +159,17 @@ def flash_bwd_q(q3, k3, v3, o3, do3, lse, kd: AttentionKernelDescriptor, *,
         out[1].copy_(dterm)
         return tuple(out)
     bh, r, d = q3.shape
-    _check_cuda(kd, dict(q=q3, k=k3, v=v3, o=o3, do=do3), dict(lse=lse))
+    panels = _check_cuda(kd, dict(q=q3, k=k3, v=v3, o=o3, do=do3),
+                         dict(lse=lse))
     dq, dterm = output_buffers(out, [(bh, r, d), (bh, r)],
                                [torch.float32] * 2, q3.device)
     row = launch_row(kd, d, (q3, k3, v3, do3))
     build.library().call(
         "mfa_flash_bwd_q", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         o3.data_ptr(), do3.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-        dterm.data_ptr(), bh, group, r, k3.shape[1], d, int(kd.causal),
-        kd.sliding_window or 0, scale * LOG2E, _cap2(kd), scale,
+        dterm.data_ptr(), bh, group, r, k3.shape[1], d, panels,
+        int(kd.causal), kd.sliding_window or 0, scale * LOG2E, _cap2(kd),
+        scale,
         _dtype_code(q3), int(o3.dtype == torch.float32),
         KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
         torch.cuda.current_stream(q3.device).cuda_stream)
@@ -188,15 +194,15 @@ def flash_bwd_kv(q3, k3, v3, do3, lse, dterm,
         return tuple(out)
     bh, r, d = q3.shape
     bhkv, c, _ = k3.shape
-    _check_cuda(kd, dict(q=q3, k=k3, v=v3, do=do3),
-                dict(lse=lse, dterm=dterm))
+    panels = _check_cuda(kd, dict(q=q3, k=k3, v=v3, do=do3),
+                         dict(lse=lse, dterm=dterm))
     dk, dv = output_buffers(out, [(bhkv, c, d), (bhkv, c, d)],
                             [torch.float32] * 2, q3.device)
     row = launch_row(kd, d, (q3, k3, v3, do3))
     build.library().call(
         "mfa_flash_bwd_kv", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         do3.data_ptr(), lse.data_ptr(), dterm.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bhkv, group, r, c, d, int(kd.causal),
+        dv.data_ptr(), bhkv, group, r, c, d, panels, int(kd.causal),
         kd.sliding_window or 0, scale * LOG2E, _cap2(kd), scale,
         _dtype_code(q3), KERNEL_CODES[row.kernel], row.block_q,
         row.block_kv, row.block_d,

@@ -11,8 +11,12 @@ TMA + wgmma kernel (its ring depth and ping-pong from
 ``params.FWD_RING_STAGES`` and ``params.FWD_PINGPONG``, read at each
 call), the others the first-cut mma.sync or FMA kernels; a wgmma row
 whose operands TMA cannot map takes the mma.sync row of its head dim
-(:func:`~mfa_tpu_torch.ops.descriptors.launch_row`). Blocks and heads
-share grid.x, so batch * heads has no 65535 limit.
+(:func:`~mfa_tpu_torch.ops.descriptors.launch_row`). Above D = 256 the
+rows are D-blocked (``mma_dblk``, ``fma_dblk``): the launch covers O in
+ceil(D / block_d) head-dim panels, one CTA each, as ``mfa_tpu``'s
+``_fwd_kernel`` pages D in ``block_d`` slices (flash_fwd.py:180-252,
+:413-456). Blocks, heads and panels share grid.x, so batch * heads has
+no 65535 limit.
 
 Operands: q [BH, R, D]; k, v [BH / group, C, D] (query head bh reads kv
 head bh // group); outputs O [BH, R, D] and the natural-log logsumexp
@@ -30,6 +34,7 @@ from mfa_tpu_torch.ops import params
 from mfa_tpu_torch.ops.descriptors import (
     KERNEL_CODES,
     AttentionKernelDescriptor,
+    head_dim_panels,
     launch_row,
 )
 
@@ -143,8 +148,7 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
             raise ValueError(f"flash_fwd: {name} must be contiguous")
     bh, r, d = q3.shape
     c = k3.shape[1]
-    if d > kd.block_d:
-        raise ValueError(f"head dim {d} exceeds the kernel's {kd.block_d}")
+    panels = head_dim_panels(kd, d)
     o, lse = output_buffers(out, [(bh, r, d), (bh, r)],
                             [o_dtype, torch.float32], q3.device)
     row = launch_row(kd, d, (q3, k3, v3, o))
@@ -154,8 +158,9 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
             else 0.0)
     build.library().call(
         "mfa_flash_fwd", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), bh, group, r, c, d, int(kd.causal),
-        kd.sliding_window or 0, scale * LOG2E, cap2, dtype_code,
+        o.data_ptr(), lse.data_ptr(), bh, group, r, c, d, panels,
+        int(kd.causal), kd.sliding_window or 0, scale * LOG2E, cap2,
+        dtype_code,
         KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
         params.FWD_RING_STAGES, int(params.FWD_PINGPONG),
         torch.cuda.current_stream(q3.device).cuda_stream)

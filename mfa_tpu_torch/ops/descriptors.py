@@ -87,11 +87,7 @@ class AttentionDescriptor:
         device: params_mod.HopperDevice = params_mod.H100,
     ) -> "AttentionKernelDescriptor":
         """Pick the table row for this kernel, head dim and precision
-        class."""
-        if self.head_dim > params_mod.MAX_HEAD_DIM:
-            raise ValueError(
-                f"head_dim {self.head_dim} > {params_mod.MAX_HEAD_DIM}: the "
-                "Hopper flash kernels have no head-dim blocking yet")
+        class; head dims above 256 take the D-blocked rows."""
         precision = (params_mod.bf16_table_precision(self.head_dim)
                      if self.low_precision_inputs else "fp32")
         rows = params_mod.parameter_table(_TABLE[kernel_type], precision,
@@ -148,8 +144,22 @@ class AttentionKernelDescriptor:
         return operand_dtype
 
 
-# The C entries' kernel codes: the first-cut kernels, the wgmma kernels.
-KERNEL_CODES = {"": 0, "mma": 0, "wgmma": 1}
+# The C entries' kernel codes: the first-cut kernels, the wgmma kernels,
+# the D-blocked kernels.
+KERNEL_CODES = {"": 0, "mma": 0, "wgmma": 1, "mma_dblk": 2, "fma_dblk": 2}
+
+
+def head_dim_panels(row, head_dim: int) -> int:
+    """The head-dim panels a flash kernel's launch covers at ``row`` (a
+    parameter row or kernel descriptor; ``launch_row`` keeps its block_d):
+    D / block_d rounded up for a D-blocked row, else 1, and then D must
+    fit block_d."""
+    if row.kernel in params_mod.DBLK_KERNELS:
+        return -(-head_dim // row.block_d)
+    if head_dim > row.block_d:
+        raise ValueError(f"head dim {head_dim} exceeds the kernel's "
+                         f"{row.block_d}")
+    return 1
 
 
 def launch_row(kd: AttentionKernelDescriptor, head_dim: int,

@@ -17,9 +17,11 @@ Columns: ``max_d | block_q | block_kv | block_d [| kernel]``. ``block_q``
 rows of Q per CTA (K4: per step of its q walk), ``block_kv`` K/V rows per
 step of the in-CTA loop (K4: per CTA), ``block_d`` the head dim the CTA's
 shared-memory tiles are padded to (one compiled instantiation per
-``block_d``). The optional ``kernel`` names the kernel a row runs where a
-table has more than one (the flash kernels' bf16 rows: ``wgmma`` or
-``mma``).
+``block_d``); in a D-blocked row (``mma_dblk``, ``fma_dblk``) it is the
+head-dim panel, smaller than D: the kernel streams Q, K, V (and dO) in
+panels of ``block_d`` columns and each CTA owns one panel of the output,
+so any head dim runs. The optional ``kernel`` names the kernel a row
+runs where a table has more than one (:data:`ROW_KERNELS`).
 
 Rows marked "not tuned" are first-cut values chosen so that every tile
 fits the shared memory and register file of one SM (227 KB, 255
@@ -74,9 +76,12 @@ class ParameterRow:
     kernel: str = ""
 
 
-# The kernels a row may name (the flash kernels' bf16 rows): "wgmma" the
-# warp-specialised TMA + wgmma kernels, "mma" the first-cut mma.sync ones.
-ROW_KERNELS = ("mma", "wgmma")
+# The kernels a row may name: "wgmma" the warp-specialised TMA + wgmma
+# kernels, "mma" the first-cut mma.sync ones (bf16), "mma_dblk" and
+# "fma_dblk" the head-dim-blocked mma.sync (bf16) and FMA (fp32) kernels
+# for D > 256.
+ROW_KERNELS = ("mma", "wgmma", "mma_dblk", "fma_dblk")
+DBLK_KERNELS = ("mma_dblk", "fma_dblk")
 
 
 def parse_table(text: str) -> list[ParameterRow]:
@@ -129,28 +134,47 @@ def select_row(rows: list[ParameterRow], head_dim: int) -> ParameterRow:
 # D = 256 the fp32 O accumulator is 128 registers a thread, so the kv
 # step halves (not tuned on the H100). Head dims TMA cannot map take
 # _FWD_BF16_MMA.
+# Above D = 256 (rows mma_dblk, csrc/flash_fwd.cu flash_fwd_bf16 with
+# DBLK): head-dim blocking, one CTA per block_d panel of O, S summed over
+# panels of Q and K streamed through shared memory. Measured by
+# utils/bwd_tuning.py sweep on the H100 (NVIDIA H100 80GB HBM3, 700 W) at
+# B 1, H 8, N 4096, causal / non-causal: at D = 384, 128-wide panels
+# with 64-wide kv steps take 2.634 / 5.180 ms, 256-wide ones with 32-wide
+# steps 3.111 / 6.139; at D = 512, 3.449 / 6.862 against 4.197 / 8.313.
 _FWD_BF16 = """
 # max_d | block_q | block_kv | block_d | kernel
    64   |  128    |   128    |   64    | wgmma
   128   |  128    |   128    |  128    | wgmma
-  inf   |   64    |    32    |  256    | mma
+  256   |   64    |    32    |  256    | mma
+  384   |   64    |    64    |  128    | mma_dblk
+  inf   |   64    |    32    |  256    | mma_dblk
 """
 
 # K1 bf16 where TMA cannot map the operands (a row of D % 8 != 0 values is
 # no multiple of 16 bytes, or a base is not 16-byte aligned): the mma.sync
-# kernel for every head dim. (Not tuned on the H100.)
+# kernel for every head dim. (Not tuned on the H100 up to D = 256.) The
+# D-blocked rows by the same sweep at N 1024: D = 300, 0.642 + 1.281 ms
+# (causal + non-causal) against 1.075 + 1.143; D = 500, 1.421 + 1.461
+# against 1.010 + 1.944.
 _FWD_BF16_MMA = """
    64   |   64    |    64    |   64    | mma
   128   |   64    |    64    |  128    | mma
-  inf   |   64    |    32    |  256    | mma
+  256   |   64    |    32    |  256    | mma
+  384   |   64    |    64    |  128    | mma_dblk
+  inf   |   64    |    32    |  256    | mma_dblk
 """
 
 # fp32: plain FMA (the fp32 budget of 2e-5 rules out TF32 tensor cores).
-# (Not tuned on the H100.)
+# (Not tuned on the H100.) Above D = 256 the head-dim-blocked FMA kernel
+# (fma_dblk), by the same sweep at N 1024 (causal / non-causal): D = 384,
+# 128-wide panels 2.244 / 4.447 ms against 2.706 / 5.320; D = 512,
+# 256-wide 3.198 / 6.263 against 3.831 / 7.583.
 _FWD_FP32 = """
    64   |   16    |    32    |   64
   128   |   16    |    32    |  128
-  inf   |   16    |    32    |  256
+  256   |   16    |    32    |  256
+  384   |   16    |    32    |  128    | fma_dblk
+  inf   |   16    |    32    |  256    | fma_dblk
 """
 
 # K3 bf16 at D <= 128 (csrc/flash_bwd.cu, flash_bwd_q_wgmma): 128 query
@@ -162,11 +186,20 @@ _FWD_FP32 = """
 # the mma.sync kernel: four warps of 16 query rows, registers hold the
 # fp32 dQ accumulator plus S and dP for one kv step, so the step halves
 # (not tuned on the H100). Head dims TMA cannot map take _BWD_Q_BF16_MMA.
+# Above D = 256 (mma_dblk): one CTA per block_d panel of dQ, S and dP
+# summed over panels of Q, dO, K and V. By the same sweep at N 4096
+# (causal / non-causal): 128-wide panels with 64-wide kv steps take
+# 4.394 / 7.175 ms at D = 384 and 6.839 / 11.874 at D = 512, 256-wide
+# ones with 32-wide steps 7.395 / 12.395 and 7.887 / 13.943 (D % 8 != 0
+# at N 1024, the bf16_mma rows: 1.254 / 1.842 against 1.944 / 2.301 at D
+# = 300, 2.487 / 3.125 against 2.981 / 3.596 at D = 500).
 _BWD_Q_BF16 = """
 # max_d | block_q | block_kv | block_d | kernel
    64   |  128    |    64    |   64    | wgmma
   128   |  128    |    64    |  128    | wgmma
-  inf   |   64    |    32    |  256    | mma
+  256   |   64    |    32    |  256    | mma
+  384   |   64    |    64    |  128    | mma_dblk
+  inf   |   64    |    64    |  128    | mma_dblk
 """
 
 # K3 bf16 where TMA cannot map the operands (a row of D % 8 != 0 values is
@@ -175,15 +208,21 @@ _BWD_Q_BF16 = """
 _BWD_Q_BF16_MMA = """
    64   |   64    |    64    |   64    | mma
   128   |   64    |    64    |  128    | mma
-  inf   |   64    |    32    |  256    | mma
+  256   |   64    |    32    |  256    | mma
+  384   |   64    |    64    |  128    | mma_dblk
+  inf   |   64    |    64    |  128    | mma_dblk
 """
 
 # K3 fp32: plain FMA, 16 query rows per CTA, 32-wide kv steps.
-# (Not tuned on the H100.)
+# (Not tuned on the H100.) Above D = 256, fma_dblk: 128-wide panels take
+# 3.877 / 6.384 ms (causal / non-causal, N 1024) at D = 384 and 6.325 /
+# 11.043 at D = 512, 256-wide ones 9.296 / 16.182 and 11.173 / 19.456.
 _BWD_Q_FP32 = """
    64   |   16    |    32    |   64
   128   |   16    |    32    |  128
-  inf   |   16    |    32    |  256
+  256   |   16    |    32    |  256
+  384   |   16    |    32    |  128    | fma_dblk
+  inf   |   16    |    32    |  128    | fma_dblk
 """
 
 # K4 bf16 at D <= 128 (flash_bwd_kv_wgmma): 64 kv rows a CTA, Q, dO, L
@@ -194,28 +233,43 @@ _BWD_Q_FP32 = """
 # mma.sync rows take 1.7789 and 1.1472 ms. D = 256 keeps the mma.sync
 # kernel: 64 kv rows per CTA in eight warps that split the head dim,
 # 32-row q steps (not tuned on the H100). Head dims TMA cannot map take
-# _BWD_KV_BF16_MMA.
+# _BWD_KV_BF16_MMA. Above D = 256 (mma_dblk): one CTA per block_d panel
+# of dK and dV (at block_d 256 its eight warps split the panel, as at D =
+# 256), S^T and dP^T summed over panels of K, V, Q and dO. By the same
+# sweep at N 4096 (causal / non-causal): D = 384, 128-wide panels 7.464 /
+# 12.570 ms against 7.695 / 16.054; D = 512, 256-wide 8.667 / 16.743
+# against 10.730 / 20.948.
 _BWD_KV_BF16 = """
 # max_d | block_q | block_kv | block_d | kernel
    64   |   64    |    64    |   64    | wgmma
   128   |   32    |    64    |  128    | wgmma
-  inf   |   32    |    64    |  256    | mma
+  256   |   32    |    64    |  256    | mma
+  384   |   32    |    64    |  128    | mma_dblk
+  inf   |   32    |    64    |  256    | mma_dblk
 """
 
 # K4 bf16 where TMA cannot map the operands (as for K3). (Not tuned on the
-# H100.)
+# H100 up to D = 256.) The D-blocked rows at N 1024: 256-wide panels take
+# 1.495 / 1.889 ms (causal / non-causal) at D = 300 and 1.826 / 2.283 at
+# D = 500, 128-wide ones 1.797 / 2.857 and 3.202 / 4.142.
 _BWD_KV_BF16_MMA = """
    64   |   32    |    64    |   64    | mma
   128   |   32    |    64    |  128    | mma
-  inf   |   32    |    64    |  256    | mma
+  256   |   32    |    64    |  256    | mma
+  384   |   32    |    64    |  256    | mma_dblk
+  inf   |   32    |    64    |  256    | mma_dblk
 """
 
 # K4 fp32: plain FMA, 16 kv rows per CTA, 32-wide q steps.
-# (Not tuned on the H100.)
+# (Not tuned on the H100.) Above D = 256, fma_dblk: D = 384, 128-wide
+# panels 4.384 / 7.878 ms (causal / non-causal, N 1024) against 5.065 /
+# 10.106; D = 512, 256-wide 5.706 / 11.388 against 6.700 / 13.286.
 _BWD_KV_FP32 = """
    64   |   32    |    16    |   64
   128   |   32    |    16    |  128
-  inf   |   32    |    16    |  256
+  256   |   32    |    16    |  256
+  384   |   32    |    16    |  128    | fma_dblk
+  inf   |   32    |    16    |  256    | fma_dblk
 """
 
 # Rows per device model (by name); only Hopper (sm90) so far.
@@ -233,8 +287,9 @@ _TABLES = {
     },
 }
 
-# Head dims above this are refused by both kernels (no D-blocking yet).
-MAX_HEAD_DIM = 256
+# The decode kernels (K2, K5, K6) take head dims D = 8 * 2^k up to this;
+# the flash kernels take any head dim (the D-blocked rows above 256).
+DECODE_MAX_HEAD_DIM = 256
 
 _PARSED: dict = {}
 
@@ -326,7 +381,8 @@ def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     with three mbarriers a stage (K full, V full, stage free), plus one
     for Q; the mma.sync kernel Q and K tiles plus the transposed V
     tile, each row padded by 8 elements (bank spread); the fp32 kernel
-    unpadded Q rows and K/V rows padded by one."""
+    unpadded Q rows and K/V rows padded by one. The D-blocked kernels
+    hold the same tiles, block_d columns wide, at any head dim."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
     if row.kernel == "wgmma":
         stages = fwd_stages(row)
@@ -343,7 +399,8 @@ def flash_bwd_q_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     mbarrier per stage plus one; the mma.sync kernel pre-scaled Q, dO, K
     and V tiles (rows padded by 8) and the transposed K tile, plus L and
     the D-term per row; the fp32 kernel unpadded Q/dO and K/V rows padded
-    by one."""
+    by one. The D-blocked kernels hold the same tiles, block_d columns
+    wide; the FMA one also K's panel of its dQ columns."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
     if row.kernel == "wgmma":
         stages = bwd_q_stages(row)
@@ -352,7 +409,8 @@ def flash_bwd_q_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     if in_bytes == 2:
         return (2 * (2 * bq * (d + 8) + 2 * bkv * (d + 8) + d * (bkv + 8))
                 + 4 * 2 * bq)
-    return 4 * (2 * bq * d + 2 * bkv * (d + 1) + 2 * bq)
+    k_tiles = 3 if row.kernel == "fma_dblk" else 2
+    return 4 * (2 * bq * d + k_tiles * bkv * (d + 1) + 2 * bq)
 
 
 def flash_bwd_kv_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
@@ -361,7 +419,9 @@ def flash_bwd_kv_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     mbarrier per stage plus one; the mma.sync kernel K and V tiles, the
     pre-scaled Q and dO tiles (rows padded by 8) and the transposed raw Q
     and dO tiles, plus L and the D-term per query row; the fp32 kernel
-    unpadded K/V and Q/dO rows padded by one."""
+    unpadded K/V and Q/dO rows padded by one. The D-blocked kernels hold
+    the same tiles, block_d columns wide; the FMA one also Q's and dO's
+    panels of its dK / dV columns."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
     if row.kernel == "wgmma":
         stages = bwd_kv_stages(row)
@@ -370,7 +430,8 @@ def flash_bwd_kv_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     if in_bytes == 2:
         return (2 * (2 * bkv * (d + 8) + 2 * bq * (d + 8) + 2 * d * (bq + 8))
                 + 4 * 2 * bq)
-    return 4 * (2 * bkv * d + 2 * bq * (d + 1) + 2 * bq)
+    q_tiles = 4 if row.kernel == "fma_dblk" else 2
+    return 4 * (2 * bkv * d + q_tiles * bq * (d + 1) + 2 * bq)
 
 
 _SMEM = {

@@ -6,7 +6,10 @@ K4 ``flash_bwd_kv``) and of the matrix-product kernels (K7 ``gemm``, K8
 shapes (N = 2048, Hq 32, Hkv 8, bf16) for D = 128 and D = 64: K1 causal
 and non-causal, each wgmma candidate a (block_kv, ring stages, ping-pong)
 triple (``params.FWD_RING_STAGES`` and ``params.FWD_PINGPONG`` set for
-the run); K3 and K4 causal. Each row is first held to its plain version
+the run); K3 and K4 causal. Then the D-blocked rows (D > 256) of K1, K3
+and K4, causal and non-causal, two candidates a table
+(:data:`DBLK_ROWS`) at the shapes of ``chip_smoke.py``'s ``large_d``
+phase (:data:`DBLK_SHAPES`). Each row is first held to its plain version
 at ``KERNEL_BUDGETS`` (and K4 to a second run, bit for bit), then timed
 (CUDA events, launches queued behind a device spin). One JSON line per
 row; the mma.sync row of each head dim is timed beside the wgmma
@@ -77,23 +80,99 @@ K3_ROWS = ((128, 64, "wgmma"), (64, 64, "mma"))
 K4_ROWS = ((64, 64, "wgmma"), (32, 64, "wgmma"), (32, 64, "mma"))
 
 
-def _inputs(d: int, n: int = 2048, hq: int = 32, hkv: int = 8):
+# The D-blocked rows' candidates (block_q, block_kv, block_d) per kernel
+# and input type: the compiled instances of csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu (a 256-wide panel, S once per two panels of 512, or a
+# 128-wide one with twice the kv (K1, K3) step).
+DBLK_ROWS = {
+    "flash_fwd": {"bf16": ((64, 32, 256), (64, 64, 128)),
+                  "fp32": ((16, 32, 256), (16, 32, 128))},
+    "flash_bwd_q": {"bf16": ((64, 32, 256), (64, 64, 128)),
+                    "fp32": ((16, 32, 256), (16, 32, 128))},
+    "flash_bwd_kv": {"bf16": ((32, 64, 256), (32, 64, 128)),
+                     "fp32": ((32, 16, 256), (32, 16, 128))},
+}
+# (input type, D, N) at B 1, H 8: the JAX package's large-D class (bf16,
+# N 4096, D 384 and 512), head dims TMA cannot map (the bf16_mma table's
+# 384 and inf rows) and fp32, at chip_smoke.py's large_d sizes.
+DBLK_SHAPES = (("bf16", 384, 4096), ("bf16", 512, 4096),
+               ("bf16", 300, 1024), ("bf16", 500, 1024),
+               ("fp32", 384, 1024), ("fp32", 512, 1024))
+
+
+def _inputs(d: int, n: int = 2048, hq: int = 32, hkv: int = 8,
+            causal: bool = True, dtype: torch.dtype = torch.bfloat16):
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def rnd(h):
-        return torch.randn((h, n, d), generator=gen,
-                           device="cuda").bfloat16()
+        return torch.randn((h, n, d), generator=gen, device="cuda").to(dtype)
 
     q, k, v, do = rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
+    low = dtype == torch.bfloat16
     desc = AttentionDescriptor(
         batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=n, seq_len_kv=n,
-        head_dim=d, causal=True, low_precision_inputs=True,
-        low_precision_intermediates=True)
+        head_dim=d, causal=causal, low_precision_inputs=low,
+        low_precision_intermediates=low)
     kd_f, kd_q, kd_kv = (desc.kernel_descriptor(t)
                          for t in AttentionKernelType)
     kw = dict(group=hq // hkv, scale=desc.softmax_scale)
-    o, lse = k1.flash_fwd(q, k, v, kd_f, o_dtype=torch.bfloat16, **kw)
-    return (q, k, v, o, do, lse), kd_q, kd_kv, kw
+    o, lse = k1.flash_fwd(q, k, v, kd_f, o_dtype=dtype, **kw)
+    return (q, k, v, o, do, lse), kd_q, kd_kv, kw, kd_f
+
+
+def sweep_dblk(kernels) -> None:
+    """The D-blocked candidates of ``kernels`` (names of DBLK_ROWS) at
+    DBLK_SHAPES, causal and non-causal: each held to its plain version
+    (K4 also to a second run), then timed."""
+    for dt, d, n in DBLK_SHAPES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        for causal in (True, False):
+            (q, k, v, o, do, lse), kd_q, kd_kv, kw, kd_f = _inputs(
+                d, n, 8, 8, causal, dtype)
+            base = {"flash_fwd": kd_f, "flash_bwd_q": kd_q,
+                    "flash_bwd_kv": kd_kv}
+            dterm = k34.flash_bwd_q(q, k, v, o, do, lse, kd_q, **kw)[1]
+            for name in kernels:
+                if name == "flash_fwd":
+                    run = lambda kd: k1.flash_fwd(  # noqa: E731
+                        q, k, v, kd, o_dtype=dtype, **kw)
+                    want = k1.flash_fwd_plain(q, k, v, kd_f, o_dtype=dtype,
+                                              **kw)
+                    keys = (f"flash_fwd_o_{dt}", "flash_fwd_l")
+                elif name == "flash_bwd_q":
+                    run = lambda kd: k34.flash_bwd_q(  # noqa: E731
+                        q, k, v, o, do, lse, kd, **kw)
+                    want = k34.flash_bwd_q_plain(q, k, v, o, do, lse, kd_q,
+                                                 **kw)
+                    keys = (f"flash_bwd_dq_{dt}", "flash_bwd_dterm")
+                else:
+                    run = lambda kd: k34.flash_bwd_kv(  # noqa: E731
+                        q, k, v, do, lse, dterm, kd, **kw)
+                    want = k34.flash_bwd_kv_plain(q, k, v, do, lse, dterm,
+                                                  kd_kv, **kw)
+                    keys = (f"flash_bwd_dk_{dt}", f"flash_bwd_dv_{dt}")
+                for bq, bkv, bd in DBLK_ROWS[name][dt]:
+                    kd = dataclasses.replace(base[name], block_q=bq,
+                                             block_kv=bkv, block_d=bd)
+                    got, again = run(kd), run(kd)
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    shares = {key: budget_share(g, w, *KERNEL_BUDGETS[key])
+                              for key, g, w in zip(keys, got, want)}
+                    ms = roofline.cuda_ms(lambda: run(kd), iters=10)
+                    print(json.dumps({
+                        "kernel": name, "dtype": dt, "D": d, "N": n,
+                        "causal": causal, "block_q": bq, "block_kv": bkv,
+                        "block_d": bd, "row_kernel": kd.kernel,
+                        "share": shares, "deterministic": same, "ms": ms}),
+                        flush=True)
+                    if max(shares.values()) > 1 or not same:
+                        raise SystemExit(f"{name} row {bq}/{bkv}/{bd} at "
+                                         f"{dt} D={d}: shares {shares}, "
+                                         f"deterministic {same}")
+                    del got, again
+                del want
+            del q, k, v, o, do, lse, dterm
+            torch.cuda.empty_cache()
 
 
 def _shares(got, want, keys):
@@ -105,7 +184,7 @@ def sweep_fwd() -> None:
     rule = (params.FWD_RING_STAGES, params.FWD_PINGPONG)
     for d in (128, 64):
         for causal in (True, False):
-            (q, k, v, _, _, _), _, _, kw = _inputs(d)
+            (q, k, v, _, _, _), _, _, kw, _ = _inputs(d)
             desc = AttentionDescriptor(
                 batch=1, num_q_heads=32, num_kv_heads=8, seq_len_q=2048,
                 seq_len_kv=2048, head_dim=d, causal=causal,
@@ -142,11 +221,12 @@ def sweep_fwd() -> None:
                                      f"D={d}: shares {shares}")
             del q, k, v, o_p, l_p, o, lse
             torch.cuda.empty_cache()
+    sweep_dblk(("flash_fwd",))
 
 
 def sweep_bwd() -> None:
     for d in (128, 64):
-        (q, k, v, o, do, lse), kd_q, kd_kv, kw = _inputs(d)
+        (q, k, v, o, do, lse), kd_q, kd_kv, kw, _ = _inputs(d)
         dq_p, dterm = k34.flash_bwd_q_plain(q, k, v, o, do, lse, kd_q, **kw)
         dk_p, dv_p = k34.flash_bwd_kv_plain(q, k, v, do, lse, dterm, kd_kv,
                                             **kw)
@@ -181,6 +261,7 @@ def sweep_bwd() -> None:
                                  f"shares {shares}, deterministic {same}")
         del q, k, v, o, do, lse, dq_p, dterm, dk_p, dv_p
         torch.cuda.empty_cache()
+    sweep_dblk(("flash_bwd_q", "flash_bwd_kv"))
 
 
 # K7's and K8's wgmma candidates (tile, ring stages); the tile-walk bands

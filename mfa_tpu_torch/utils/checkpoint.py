@@ -29,8 +29,11 @@ Unlike ``mfa_tpu``'s functional ``load``, :func:`load` writes the saved
 values into the template's own tensors, on the template's devices, and
 returns the template: a ``TrainState`` resumes with its model's
 parameters, and a model built for serving reads the restored weights. A
-leaf of another dtype or shape than the template's is refused, never
-cast.
+numpy leaf is written into the template's own array, wherever it sits
+(a dict, a list, a dataclass). A leaf of another dtype or shape than the
+template's is refused, never cast. The one leaf replaced rather than
+written into is a ``PagedKVCache``'s free list, whose length changes by
+design.
 """
 
 from __future__ import annotations
@@ -77,6 +80,17 @@ def _copy_array(key: str, dst: np.ndarray):
     return restore
 
 
+class _Replace:
+    """The restore of a leaf that the loaded value replaces (the paged
+    cache's free list) instead of being written into."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, value):
+        self.fn(value)
+
+
 def _setter(parent, name):
     if isinstance(parent, (dict, list)):
         return lambda v: parent.__setitem__(name, v)
@@ -101,7 +115,8 @@ def _children(node):
                 (".page_tables", node.page_tables, None),
                 (".lengths", node.lengths, None),
                 # The free list's length changes, so it is replaced.
-                (".free", np.asarray(node._free, dtype=np.int32), set_free)]
+                (".free", np.asarray(node._free, dtype=np.int32),
+                 _Replace(set_free))]
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
         frozen = node.__dataclass_params__.frozen
         return [(f".{f.name}", getattr(node, f.name),
@@ -119,7 +134,8 @@ def _leaves(tree) -> list[_Leaf]:
                 seen.add(id(node))
                 out.append(_Leaf(key, node, _copy_tensor(key, node)))
         elif isinstance(node, np.ndarray):
-            out.append(_Leaf(key, node, setter or _copy_array(key, node)))
+            out.append(_Leaf(key, node, setter if isinstance(setter, _Replace)
+                             else _copy_array(key, node)))
         elif isinstance(node, (int, float)) and not isinstance(node, bool):
             if setter is not None:
                 out.append(_Leaf(key, node, setter))

@@ -210,3 +210,67 @@ def test_leaf_paths_are_mfa_tpus(weights):
     ours = sorted(x.key for x in checkpoint._leaves(
         model.make_caches(2, 128, OperandPrecision.INT8)))
     assert ours == keys(caches_j)
+
+
+@dataclasses.dataclass
+class _Holder:
+    """A mutable dataclass with a numpy field."""
+
+    arr: np.ndarray
+
+
+def _numpy_trees(values):
+    """The same numpy leaf in a dict, a list and a mutable dataclass."""
+    return {"dict": {"a": values}, "list": [values],
+            "dataclass": _Holder(values)}
+
+
+def _numpy_leaf(tree, where):
+    return {"dict": lambda t: t["a"], "list": lambda t: t[0],
+            "dataclass": lambda t: t.arr}[where](tree)
+
+
+@pytest.mark.parametrize("where", ["dict", "list", "dataclass"])
+def test_numpy_leaf_is_written_into_the_template(tmp_path, where):
+    """A numpy leaf comes back as the template's own array (the same
+    object, still numpy) holding the saved values."""
+    saved = np.arange(4, dtype=np.float32) * 1.5
+    checkpoint.save(tmp_path / where, _numpy_trees(saved)[where])
+    like = _numpy_trees(np.zeros(4, np.float32))[where]
+    target = _numpy_leaf(like, where)
+    restored, _ = checkpoint.load(tmp_path / where, like)
+    got = _numpy_leaf(restored, where)
+    assert got is target and isinstance(got, np.ndarray)
+    np.testing.assert_array_equal(got, saved)
+
+
+@pytest.mark.parametrize("where", ["dict", "list", "dataclass"])
+@pytest.mark.parametrize("template", [np.zeros(4, np.float64),
+                                      np.zeros(7, np.float32)],
+                         ids=["dtype", "shape"])
+def test_numpy_leaf_mismatch_is_refused(tmp_path, where, template):
+    """A numpy leaf of another dtype or shape than the template's is
+    refused wherever it sits, and the template is left as it was."""
+    checkpoint.save(tmp_path / where,
+                    _numpy_trees(np.arange(4, dtype=np.float32))[where])
+    like = _numpy_trees(template)[where]
+    with pytest.raises(ValueError, match="template"):
+        checkpoint.load(tmp_path / where, like)
+    assert _numpy_leaf(like, where) is template
+    assert not template.any()
+
+
+def test_paged_free_list_takes_another_length(tmp_path):
+    """The paged cache's free list is replaced, not written into: a
+    template whose free list is longer (a fresh cache) takes the saved,
+    shorter one."""
+    gen = torch.Generator().manual_seed(11)
+    cache = PagedKVCache(6, 1, 8, 2, 64, OperandPrecision.BF16,
+                         device="cpu")
+    cache.append(0, *torch.randn(2, 1, 40, 8, generator=gen))
+    checkpoint.save(tmp_path / "free", cache)
+    like = PagedKVCache(6, 1, 8, 2, 64, OperandPrecision.BF16, device="cpu")
+    assert len(like._free) > len(cache._free)
+    restored, _ = checkpoint.load(tmp_path / "free", like)
+    assert restored._free == cache._free
+    assert all(isinstance(i, int) for i in restored._free)

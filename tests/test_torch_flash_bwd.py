@@ -73,6 +73,12 @@ CASES = [
      dict(sliding_window=24, logit_soft_cap=20.0), 5e-2),
     ("bf16-fp32-o", 2, 1, 64, 80, 32, "bf16",
      dict(causal=True, low_precision_intermediates=False), 5e-2),
+    # Head dims past 256 (the D-blocked rows): mfa_tpu's own large-D
+    # backward case (tests/test_attention_bwd.py, D 384 at 5e-5), and
+    # bf16 at D 512.
+    ("fp32-d384", 1, 1, 48, 64, 384, "fp32", {}, 5e-5),
+    ("bf16-d512-causal", 2, 1, 64, 64, 512, "bf16", dict(causal=True),
+     5e-2),
 ]
 
 

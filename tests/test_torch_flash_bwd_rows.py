@@ -35,12 +35,12 @@ def test_rows_parse_and_fit_one_sm(kernel, precision):
     rows = params.parameter_table(kernel, precision)
     in_bytes = 4 if precision == "fp32" else 2
     for row in rows:
-        assert row.kernel in (("",) if precision == "fp32"
+        assert row.kernel in (("", "fma_dblk") if precision == "fp32"
                               else params.ROW_KERNELS)
         assert params.smem_bytes(kernel, row, in_bytes) \
             <= params.H100.smem_per_block
     if precision == "bf16_mma":
-        assert {r.kernel for r in rows} == {"mma"}
+        assert {r.kernel for r in rows} == {"mma", "mma_dblk"}
 
 
 def test_wgmma_rows_cover_d_up_to_128_and_mma_the_rest():
@@ -111,6 +111,80 @@ def test_descriptors_dispatch_as_the_source_says(d, kernel):
         assert d <= kd.block_d
     assert _kd(_BWD[0], 100).block_d == 128     # the mma row of its D
     assert _kd(_BWD[1], 36).block_q == 32
+
+
+# The rows the parent tree selected at D <= 256: (block_q, block_kv,
+# block_d, kernel) of the row each D fell in.
+PARENT_ROWS = {
+    ("flash_bwd_q", "bf16"): {64: (128, 64, 64, "wgmma"),
+                              128: (128, 64, 128, "wgmma"),
+                              256: (64, 32, 256, "mma")},
+    ("flash_bwd_q", "bf16_mma"): {36: (64, 64, 64, "mma"),
+                                  100: (64, 64, 128, "mma"),
+                                  250: (64, 32, 256, "mma")},
+    ("flash_bwd_q", "fp32"): {64: (16, 32, 64, ""), 200: (16, 32, 256, "")},
+    ("flash_bwd_kv", "bf16"): {64: (64, 64, 64, "wgmma"),
+                               128: (32, 64, 128, "wgmma"),
+                               256: (32, 64, 256, "mma")},
+    ("flash_bwd_kv", "bf16_mma"): {36: (32, 64, 64, "mma"),
+                                   100: (32, 64, 128, "mma"),
+                                   250: (32, 64, 256, "mma")},
+    ("flash_bwd_kv", "fp32"): {64: (32, 16, 64, ""),
+                               200: (32, 16, 256, "")},
+}
+
+
+@pytest.mark.parametrize("kernel, precision", sorted(PARENT_ROWS))
+def test_head_dims_past_256_take_the_d_blocked_rows(kernel, precision):
+    """D 384, 512 and 1024 (and the tails 300, 320) select a D-blocked
+    row whose block_d panel is smaller than D; every D <= 256 selects
+    the row it selected before; the smem of each D-blocked row is the
+    launch code's (csrc/flash_bwd.cu launch_q_* / launch_kv_*: the
+    first-cut kernel's tiles at block_d, plus, on FMA, K's panel of the
+    dQ columns (K3) or Q's and dO's of the dK / dV columns (K4)) and
+    fits one SM whatever the head dim."""
+    rows = params.parameter_table(kernel, precision)
+    want_kernel = "fma_dblk" if precision == "fp32" else "mma_dblk"
+    for d in (264, 300, 320, 384, 512, 1024):
+        row = params.select_row(rows, d)
+        assert row.kernel == want_kernel and row.block_d < d
+        assert (row.max_d == 384) == (d <= 384)
+        bq, bkv, bd = row.block_q, row.block_kv, row.block_d
+        if precision == "fp32":
+            want = 4 * (2 * bq * bd + 3 * bkv * (bd + 1) + 2 * bq
+                        if kernel == "flash_bwd_q"
+                        else 2 * bkv * bd + 4 * bq * (bd + 1) + 2 * bq)
+            got = params.smem_bytes(kernel, row, 4)
+        else:
+            want = 4 * 2 * bq + 2 * (
+                2 * bq * (bd + 8) + 2 * bkv * (bd + 8) + bd * (bkv + 8)
+                if kernel == "flash_bwd_q"
+                else 2 * bkv * (bd + 8) + 2 * bq * (bd + 8)
+                + 2 * bd * (bq + 8))
+            got = params.smem_bytes(kernel, row, 2)
+        assert got == want <= params.H100.smem_per_block
+    for d, want in PARENT_ROWS[(kernel, precision)].items():
+        row = params.select_row(rows, d)
+        assert (row.block_q, row.block_kv, row.block_d, row.kernel) == want
+
+
+@pytest.mark.parametrize("d", [384, 512, 1024])
+def test_wrappers_pass_the_d_blocked_launch(library, d):
+    """Above D = 256 both wrappers launch the D-blocked kernels (code 2)
+    over ceil(D / block_d) head-dim panels."""
+    q3, o3, do3 = (_meta(4, 32, d) for _ in range(3))
+    kv = _meta(2, 32, d)
+    lse = _meta(4, 32, dtype=torch.float32)
+    kw = dict(group=2, scale=0.125)
+    kd_q, kd_kv = (_kd(kind, d, n=32) for kind in _BWD)
+    dq, dterm = k34.flash_bwd_q(q3, kv, kv, o3, do3, lse, kd_q, **kw)
+    dk, dv = k34.flash_bwd_kv(q3, kv, kv, do3, lse, dterm, kd_kv, **kw)
+    assert dq.shape == (4, 32, d) and dk.shape == dv.shape == (2, 32, d)
+    (_, args3), (_, args4) = library.calls
+    for args, kd in ((args3, kd_q), (args4, kd_kv)):
+        assert kd.kernel == "mma_dblk"
+        assert args[12:14] == (d, -(-d // kd.block_d))
+        assert args[-5:-1] == (2, kd.block_q, kd.block_kv, kd.block_d)
 
 
 def test_fp32_and_forward_rows_name_no_kernel():

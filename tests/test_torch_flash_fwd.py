@@ -34,6 +34,11 @@ CASES = [
     ("bf16", 64, 100, 180, dict()),
     ("bf16", 32, 130, 70, dict(causal=True)),           # R > C: empty rows
     ("bf16", 64, 128, 128, dict(sliding_window=40, logit_soft_cap=20.0)),
+    # Head dims past 256 (the D-blocked rows), mfa_tpu's large-D class
+    # (tests/test_attention_fwd.py): 3 and 4 block_d slices there.
+    ("fp32", 384, 160, 96, dict()),
+    ("fp32", 512, 128, 160, dict()),
+    ("bf16", 384, 128, 128, dict(causal=True)),         # GQA 4 / 2
 ]
 
 
@@ -105,9 +110,12 @@ def test_refusals():
         flash_attention(q.requires_grad_(), k, v, with_lse=True,
                         device="cpu")
     q = q.detach()
-    big = torch.zeros(1, 2, 8, 264)
-    with pytest.raises(ValueError, match="head_dim 264"):
-        flash_attention(big, big, big, device="cpu")
+    # A head dim past 256 answers (the D-blocked rows), as the fp64
+    # oracle does.
+    big = [torch.from_numpy(x) for x in _inputs(4, 8, 8, 264)]
+    o = flash_attention(*big, device="cpu")
+    o_ref, _ = attention_reference(*(x.double() for x in big))
+    assert_close(o, o_ref, 2e-5, "O D=264")
     with pytest.raises(ValueError, match="multiple"):
         flash_attention(torch.zeros(1, 3, 8, 32), k, v, device="cpu")
 

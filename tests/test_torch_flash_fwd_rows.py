@@ -17,6 +17,7 @@ from mfa_tpu_torch.ops.descriptors import (
     KERNEL_CODES,
     AttentionDescriptor,
     AttentionKernelType,
+    head_dim_panels,
     launch_row,
 )
 
@@ -34,7 +35,7 @@ def test_rows_parse_and_fit_one_sm(precision):
     rows = params.parameter_table("flash_fwd", precision)
     in_bytes = 4 if precision == "fp32" else 2
     for row in rows:
-        assert row.kernel in (("",) if precision == "fp32"
+        assert row.kernel in (("", "fma_dblk") if precision == "fp32"
                               else params.ROW_KERNELS)
         assert params.smem_bytes("flash_fwd", row, in_bytes) \
             <= params.H100.smem_per_block
@@ -43,7 +44,81 @@ def test_rows_parse_and_fit_one_sm(precision):
             assert row.block_d in (64, 128)
             assert params.fwd_stages(row) >= 2
     if precision == "bf16_mma":
-        assert {r.kernel for r in rows} == {"mma"}
+        assert {r.kernel for r in rows} == {"mma", "mma_dblk"}
+
+
+# The rows the parent tree selected at D <= 256 (max_d | block_q |
+# block_kv | block_d | kernel of the row each D fell in).
+PARENT_ROWS = {
+    "bf16": {32: (128, 128, 64, "wgmma"), 64: (128, 128, 64, "wgmma"),
+             96: (128, 128, 128, "wgmma"), 128: (128, 128, 128, "wgmma"),
+             136: (64, 32, 256, "mma"), 256: (64, 32, 256, "mma")},
+    "bf16_mma": {36: (64, 64, 64, "mma"), 100: (64, 64, 128, "mma"),
+                 250: (64, 32, 256, "mma")},
+    "fp32": {64: (16, 32, 64, ""), 100: (16, 32, 128, ""),
+             256: (16, 32, 256, "")},
+}
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16_mma", "fp32"])
+def test_head_dims_past_256_take_the_d_blocked_rows(precision):
+    """D 384, 512 and 1024 (and the tails 300, 320) select a D-blocked
+    row whose block_d panel is smaller than D; every D <= 256 selects
+    the row it selected before."""
+    rows = params.parameter_table("flash_fwd", precision)
+    kernel = "fma_dblk" if precision == "fp32" else "mma_dblk"
+    for d in (264, 300, 320, 384, 512, 1024):
+        row = params.select_row(rows, d)
+        assert row.kernel == kernel and row.block_d < d
+        assert (row.max_d == 384) == (d <= 384)
+    for d, want in PARENT_ROWS[precision].items():
+        row = params.select_row(rows, d)
+        assert (row.block_q, row.block_kv, row.block_d, row.kernel) == want
+
+
+@pytest.mark.parametrize("d", [264, 384, 512, 1024, 4096])
+def test_descriptors_take_any_head_dim(d):
+    """kernel_descriptor no longer refuses a head dim: bf16 and fp32 both
+    take their D-blocked rows, each covering D in ceil(D / block_d)
+    panels."""
+    for bf16, kernel in ((True, "mma_dblk"), (False, "fma_dblk")):
+        kd = _kd(d, bf16=bf16)
+        assert kd.kernel == kernel and kd.head_dim == d
+        assert head_dim_panels(kd, d) == -(-d // kd.block_d) >= 2
+        assert launch_row(kd, d, ()).kernel == kernel
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_d_blocked_smem_reckons_the_launch_code(precision):
+    """csrc/flash_fwd.cu's launch_bf16 / launch_f32 at a D-blocked row:
+    one panel of Q and K (rows padded by 8) and of V transposed (bf16),
+    or Q and K / V rows padded by one (fp32), whatever the head dim; it
+    fits one SM at D 1024 as at D 384."""
+    rows = params.parameter_table("flash_fwd", precision)
+    for d in (384, 512, 1024):
+        row = params.select_row(rows, d)
+        bq, bkv, bd = row.block_q, row.block_kv, row.block_d
+        want = (2 * (bq * (bd + 8) + bkv * (bd + 8) + bd * (bkv + 8))
+                if precision == "bf16"
+                else 4 * (bq * bd + 2 * bkv * (bd + 1)))
+        got = params.smem_bytes("flash_fwd", row, 2 if precision == "bf16"
+                                else 4)
+        assert got == want <= params.H100.smem_per_block
+
+
+def test_decode_keeps_its_own_head_dim_limit(monkeypatch):
+    """The decode kernels (K2, K5, K6) still take D = 8 * 2^k <= 256."""
+    from mfa_tpu_torch.kernels import decode
+
+    assert params.DECODE_MAX_HEAD_DIM == 256
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    for d, ok in ((128, True), (256, True), (384, False), (512, False)):
+        q3, kv = _meta(4, 1, d), _meta(1, 2, 64, d)
+        if ok:
+            decode.check_launch("decode", q3, kv, kv)
+        else:
+            with pytest.raises(ValueError, match=f"head dim {d}"):
+                decode.check_launch("decode", q3, kv, kv)
 
 
 @pytest.mark.parametrize("most, block_kv, stages", [
@@ -184,3 +259,22 @@ def test_cpu_out_buffers_take_the_plain_version():
     o, lse = k1.flash_fwd(q3, kv, kv, kd, **kw, out=out)
     o_p, lse_p = k1.flash_fwd_plain(q3, kv, kv, kd, **kw)
     assert o is out[0] and torch.equal(o, o_p) and torch.equal(lse, lse_p)
+
+
+@pytest.mark.parametrize("dtype, d, panels", [
+    (torch.bfloat16, 384, 3), (torch.bfloat16, 300, 3),
+    (torch.bfloat16, 1024, 4), (torch.float32, 512, 2)])
+def test_wrapper_passes_the_d_blocked_launch(library, dtype, d, panels):
+    """Above D = 256 the wrapper launches the D-blocked kernel (code 2)
+    over ceil(D / block_d) panels, for a head dim TMA could map and for
+    one it could not (D % 8 != 0)."""
+    q3, kv = _meta(4, 32, d, dtype=dtype), _meta(2, 32, d, dtype=dtype)
+    kd = _kd(d, bf16=dtype == torch.bfloat16, n=32)
+    o, lse = k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
+                          o_dtype=dtype)
+    assert o.shape == (4, 32, d) and lse.shape == (4, 32)
+    ((_, args),) = library.calls
+    assert args[9:11] == (d, panels)
+    assert args[-8:-4] == (0 if dtype == torch.float32 else 1,
+                           KERNEL_CODES[kd.kernel], kd.block_q, kd.block_kv)
+    assert KERNEL_CODES[kd.kernel] == 2 and d <= kd.block_d * panels

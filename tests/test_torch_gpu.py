@@ -617,6 +617,109 @@ def test_flash_bwd_kernels_take_more_than_65535_heads(cuda):
         assert_close(got, want, atol, key, rtol=rtol)
 
 
+# Head dims past 256, the D-blocked rows (mma_dblk, fma_dblk): (dtype, D,
+# R, C, Hq, Hkv, options). Panels that divide D, a tail panel, D % 8 != 0
+# (no 16-byte loads), GQA, R != C, window, soft-cap and keys no query
+# sees.
+DBLK_CASES = [
+    ("bf16", 384, 300, 300, 4, 2, dict(causal=True)),
+    ("bf16", 512, 129, 257, 2, 2, dict()),
+    ("bf16", 300, 200, 150, 4, 1, dict(causal=True)),            # R > C
+    ("bf16", 384, 64, 500, 2, 1, dict(causal=True, sliding_window=40,
+                                      logit_soft_cap=20.0)),  # unseen keys
+    ("bf16", 1024, 96, 96, 2, 2, dict(causal=True)),
+    ("fp32", 384, 100, 130, 2, 1, dict(causal=True)),
+    ("fp32", 300, 70, 70, 2, 2, dict(sliding_window=20)),
+    ("fp32", 512, 65, 65, 1, 1, dict()),
+]
+
+
+@pytest.mark.parametrize("case", DBLK_CASES,
+                         ids=[f"dblk-{c[0]}-D{c[1]}-{c[2]}x{c[3]}"
+                              for c in DBLK_CASES])
+def test_flash_d_blocked_kernels_match_plain(cuda, case):
+    """K1, K3 and K4 on their D-blocked rows against their plain versions
+    at KERNEL_BUDGETS, every output written, a second launch of each
+    bit-equal."""
+    dt, d, r, c, hq, hkv, opts = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    gen = torch.Generator(device=cuda).manual_seed(d + r + c)
+    q, do = (torch.randn((hq, r, d), generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((hkv, c, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
+        seq_len_kv=c, head_dim=d, low_precision_inputs=dt == "bf16",
+        low_precision_intermediates=dt == "bf16", **opts)
+    kd_f, kd_q, kd_kv = (desc.kernel_descriptor(t)
+                         for t in AttentionKernelType)
+    want_kernel = "mma_dblk" if dt == "bf16" else "fma_dblk"
+    for kd in (kd_f, kd_q, kd_kv):
+        assert launch_row(kd, d, (q, k, v, do)).kernel == want_kernel
+        assert kd.block_d < d
+    kw = dict(group=hq // hkv, scale=desc.softmax_scale)
+    _k1_check(cuda, q, k, v, kd_f, dict(kw, o_dtype=dtype), dt, dtype,
+              want_kernel)
+    o, lse = k1.flash_fwd(q, k, v, kd_f, o_dtype=dtype, **kw)
+    dq, dterm = k34.flash_bwd_q(
+        q, k, v, o, do, lse, kd_q, **kw,
+        out=(nan_canary((hq, r, d), device=cuda),
+             nan_canary((hq, r), device=cuda)))
+    dk, dv = k34.flash_bwd_kv(
+        q, k, v, do, lse, dterm, kd_kv, **kw,
+        out=(nan_canary((hkv, c, d), device=cuda),
+             nan_canary((hkv, c, d), device=cuda)))
+    torch.cuda.synchronize()
+    for name, t in (("dQ", dq), ("D-term", dterm), ("dK", dk), ("dV", dv)):
+        assert_fully_written(t, name)
+    dq_p, dterm_p = k34.flash_bwd_q_plain(q, k, v, o, do, lse, kd_q, **kw)
+    dk_p, dv_p = k34.flash_bwd_kv_plain(q, k, v, do, lse, dterm, kd_kv, **kw)
+    for key, got, want in (("dterm", dterm, dterm_p), (f"dq_{dt}", dq, dq_p),
+                           (f"dk_{dt}", dk, dk_p), (f"dv_{dt}", dv, dv_p)):
+        atol, rtol = KERNEL_BUDGETS[f"flash_bwd_{key}"]
+        assert_close(got, want, atol, key, rtol=rtol)
+    dq2, dterm2 = k34.flash_bwd_q(q, k, v, o, do, lse, kd_q, **kw)
+    dk2, dv2 = k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd_kv, **kw)
+    assert torch.equal(dq, dq2) and torch.equal(dterm, dterm2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_flash_attention_backward_at_d384_matches_plain(cuda, monkeypatch):
+    """flash_attention's forward and backward at D 384 through K1, K3 and
+    K4 (one launch each) against the same call through their plain
+    versions."""
+    from mfa_tpu_torch.ops.attention import flash_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(384)
+    q, k, v, do = (torch.randn((1, 4, 300, 384), generator=gen, device=cuda)
+                   .bfloat16() for _ in range(4))
+
+    def run():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=True)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    counters = (k1.flash_fwd, k34.flash_bwd_q, k34.flash_bwd_kv)
+    before = [f.launches for f in counters]
+    got = run()
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 1]
+    with monkeypatch.context() as m:
+        m.setattr(k1, "flash_fwd", k1.flash_fwd_plain)
+        m.setattr(k34, "flash_bwd_q", k34.flash_bwd_q_plain)
+        m.setattr(k34, "flash_bwd_kv", k34.flash_bwd_kv_plain)
+        want = run()
+    atol, rtol = KERNEL_BUDGETS["flash_fwd_o_bf16"]
+    assert_close(got[0], want[0], atol, "O", rtol=rtol)
+    for label, g, w in zip(("dQ", "dK", "dV"), got[1:], want[1:]):
+        assert g.dtype == torch.bfloat16
+        assert_fully_written(g, label)
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel <= 5e-2, (label, rel)
+
+
 def test_tiny_llama_train_step_on_cuda_matches_cpu(cuda):
     cfg = llama.LlamaConfig.tiny()
     params = llama.init_params(cfg, torch.Generator().manual_seed(2),
