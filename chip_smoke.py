@@ -69,6 +69,24 @@ phase's failure is caught):
              format; counters prove K1 carried every prefill and K6 every
              decode (K2 none); pages all return; one step's logits through
              K6 against the same step through its plain version.
+10b. parallel — the parallel layer on one card (mfa_tpu_torch/parallel):
+             a world-1 NCCL mesh (make_mesh, file rendezvous under
+             build/); the served Llama-3-8B sharded at tp = 1 (its own
+             tensors, no second copy), a 512-token forward and a 2 x 256
+             prefill with four greedy decode steps through the NCCL group,
+             bit-equal to the same calls with tp_group=None; the sp = 4
+             ring schedule at Llama-3-8B's attention width (Hq 32, Hkv 8,
+             D 128, bf16, S 32768 in chunks of 8192), causal and not,
+             every (rank, step) in this process through the module's
+             per-step functions, forward and backward: O, dQ, dK, dV
+             against the same schedule over the plain versions at
+             KERNEL_BUDGETS and against full-sequence flash_attention and
+             its backward within 5e-2 (relative above 1);
+             make_ring_attention at sp = 1
+             through the NCCL group bit-equal to flash_attention (with_lse
+             O, and the gradients); ms of a ring step and of the
+             full-sequence K1, NCCL init seconds; counters prove K1's
+             non-causal mode, K3, K4 and K2 ran.
 11. int4_serving — the same model quantized (quantize_params) to INT4
              weight-only projections, behind the continuous-batching
              scheduler (4 slots, max_len 2048, FP8-e4m3 KV), six greedy
@@ -338,7 +356,7 @@ def phase_k1(torch):
                              f"{budget_o[0]} + {budget_o[1]}|O|, L uses "
                              f"{share_l} of {budget_l[0]}), ran row "
                              f"{row_info}, deterministic {deterministic}")
-    return results["causal"]
+    return results["causal"], results["noncausal"]
 
 
 def _kv_formats():
@@ -1151,6 +1169,228 @@ def phase_paged_serving(torch, model, prompts, contiguous_tokens):
     return k1_launches, k6_launches
 
 
+# The ring schedule's shapes: Llama-3-8B's attention (Hq 32, Hkv 8, D 128,
+# bf16) over 32768 tokens cut into sp = 4 chunks of 8192.
+RING_SEQ, RING_SP = 32768, 4
+
+
+def _ring_bound_ms(roofline, hq, hkv, t, d, diagonal, backward):
+    """Least ms of one ring step's attention on t x t chunks (bf16): 4 d
+    operations a visible (row, key) pair of every query head forward (K1),
+    14 d backward (K3 6, K4 8); or its bytes if more: forward Q, K, V read
+    and O and L written, backward Q, K, V, O, dO and L read and dQ, dK,
+    dV written."""
+    pairs = hq * (t * (t + 1) // 2 if diagonal else t * t)
+    q_bytes, kv_bytes = 2 * hq * t * d, 2 * hkv * t * d
+    if backward:
+        return roofline.bound(14 * d * pairs,
+                              4 * q_bytes + 4 * kv_bytes + 4 * hq * t)
+    return roofline.bound(4 * d * pairs,
+                          2 * q_bytes + 2 * kv_bytes + 4 * hq * t)
+
+
+def phase_parallel(torch, model, smi):
+    """The parallel layer on one card: a world-1 NCCL mesh, the tp path
+    on the served Llama-3-8B (no second copy), the sp = 4 ring schedule at
+    full attention width, and make_ring_attention at sp = 1. Returns the
+    launches of K1 (and of them non-causal), K2, K3 and K4 on this path."""
+    import os
+
+    import torch.distributed as dist
+
+    from mfa_tpu_torch.kernels import decode as k2
+    from mfa_tpu_torch.kernels import flash_bwd as k34
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.ops.attention import flash_attention
+    from mfa_tpu_torch.parallel import mesh as mesh_mod
+    from mfa_tpu_torch.parallel import ring_attention as ring
+    from mfa_tpu_torch.parallel import sharding
+    from mfa_tpu_torch.utils import roofline
+    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+
+    rdv = Path(__file__).resolve().parent / "build" / (
+        f"nccl_rendezvous_{os.getpid()}")
+    rdv.parent.mkdir(exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_mesh(device="cuda", init_method=f"file://{rdv}",
+                              rank=0, world_size=1)
+    warm = torch.ones(1, device="cuda")
+    for axis in mesh_mod.AXES:
+        dist.all_reduce(warm, group=mesh.get_group(axis))
+    torch.cuda.synchronize()
+    nccl_init_s = time.perf_counter() - t0
+    emit({"phase": "parallel_mesh", "card": smi, "backend":
+          dist.get_backend(), "world": dist.get_world_size(),
+          "mesh": dict(zip(mesh_mod.AXES, mesh.mesh.shape)),
+          "nccl_init_s": nccl_init_s})
+
+    # The tp path: the served model's own tensors under tp = 1, through
+    # the NCCL group, against the same calls with tp_group=None.
+    cfg = model.cfg
+    gib = torch.cuda.memory_allocated() / 2**30
+    tp_model = sharding.shard_model(model, mesh)
+    no_copy = torch.cuda.memory_allocated() / 2**30 - gib
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bucket = torch.randint(1, cfg.vocab_size, (1, 512), generator=gen,
+                           device="cuda")
+    prompts = torch.randint(1, cfg.vocab_size, (2, 256), generator=gen,
+                            device="cuda")
+    steps = 4
+
+    def serve(m, group):
+        with torch.inference_mode():
+            logits = llama.forward(m, bucket, tp_group=group)
+            caches = m.make_caches(2, 512)
+            pre, caches = llama.forward(m, prompts, caches=caches,
+                                        tp_group=group)
+            toks, outs = pre[:, -1].argmax(-1), [pre[:, -1]]
+            for _ in range(steps):
+                lg, caches = llama.decode_step(m, toks, caches,
+                                               tp_group=group)
+                toks = lg.argmax(-1)
+                outs.append(lg)
+        torch.cuda.synchronize()
+        return logits, torch.stack(outs), caches[0].lengths
+
+    want = serve(model, None)
+    counters = (k1.flash_fwd, k2.decode_fused_append, k34.flash_bwd_q,
+                k34.flash_bwd_kv)
+    for f in counters:
+        f.launches = 0
+    k1.flash_fwd.noncausal_launches = 0
+    tp_group = mesh.get_group("tp")
+    got = serve(tp_model, tp_group)
+    tp_equal = all(torch.equal(_bits(torch, a), _bits(torch, b))
+                   for a, b in zip(got, want))
+    emit({"phase": "parallel_tp", "tp": 1, "prefill_bucket": 512,
+          "decode_steps": steps, "extra_gib": no_copy,
+          "logits_bit_equal": tp_equal,
+          "tokens": got[1].argmax(-1).tolist(), "ok": tp_equal})
+    if not tp_equal or no_copy > 0.01:
+        raise SystemExit(f"parallel tp: logits not bit-equal to the "
+                         f"unsharded model ({tp_equal}) or a second copy "
+                         f"({no_copy} GiB)")
+    del tp_model, got, want
+
+    # The sp = 4 ring at full attention width, every (rank, step) in this
+    # process through the module's per-step functions.
+    hq, hkv, d = 32, 8, 128
+    q, k, v, do = (torch.randn((1, h, RING_SEQ, d), generator=gen,
+                               device="cuda").bfloat16()
+                   for h in (hq, hkv, hkv, hq))
+    ring_out = {c: ring.ring_schedule(q, k, v, do, n=RING_SP, causal=c,
+                                    device="cuda")
+                for c in (False, True)}
+    # make_ring_attention at sp = 1 through the NCCL group: one step, the
+    # merge of one partial, must be flash_attention's O and gradients.
+    sp1 = {}
+    for c in (False, True):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = ring.make_ring_attention(mesh, causal=c,
+                                     device="cuda")(*leaves)
+        o.backward(do)
+        sp1[c] = (o.detach(), *(t.grad for t in leaves))
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counters}
+    launches["flash_fwd_noncausal"] = k1.flash_fwd.noncausal_launches
+
+    rows = {}
+    for c in (False, True):
+        got = ring_out[c]
+        # The same schedule over the plain versions, one KV head (and its
+        # 4 query heads) at a time: heads are independent, and a whole
+        # chunk's fp32 scores would need ~40 GB.
+        with plain_kernels():
+            plain = [torch.cat(parts, dim=1) for parts in zip(*(
+                ring.ring_schedule(q[:, 4 * h:4 * h + 4], k[:, h:h + 1],
+                                   v[:, h:h + 1], do[:, 4 * h:4 * h + 4],
+                                   n=RING_SP, causal=c, device="cuda")
+                for h in range(hkv)))]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        full_o = flash_attention(*leaves, causal=c, device="cuda")
+        full_o.backward(do)
+        full = (full_o.detach(), *(t.grad for t in leaves))
+        # Against full-sequence attention: the bf16 mixed budget, 5e-2,
+        # relative above 1 (as the in-context logits): dV reaches ~10 on
+        # these inputs (the first keys), where one bf16 step is 0.0625 and
+        # the ring's bf16 travel rounds its accumulators at every hop.
+        shares, full_err, full_share = {}, {}, {}
+        for name, a, b_, p_ in zip(("o", "dq", "dk", "dv"), got, full,
+                                   plain):
+            key = ("flash_fwd_o_bf16" if name == "o"
+                   else f"flash_bwd_{name}_bf16")
+            shares[name] = budget_share(a, p_, *KERNEL_BUDGETS[key])
+            full_err[name] = max_err(a, b_)
+            full_share[name] = budget_share(
+                a, b_, 0.0, 5e-2, scale=b_.float().abs().clamp_min(1.0))
+        o1, _ = flash_attention(q, k, v, causal=c, with_lse=True,
+                                device="cuda")
+        sp1_equal = torch.equal(_bits(torch, sp1[c][0]), _bits(torch, o1))
+        sp1_grads_equal = all(torch.equal(_bits(torch, a), _bits(torch, b_))
+                              for a, b_ in zip(sp1[c][1:], full[1:]))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+        ok = (finite and all(x <= 1 for x in shares.values())
+              and all(x <= 1 for x in full_share.values())
+              and sp1_equal and sp1_grads_equal)
+        name = "causal" if c else "noncausal"
+        rows[name] = dict(shares=shares, full_share=full_share)
+        emit({"phase": "parallel_ring", "case": name, "S": RING_SEQ,
+              "sp": RING_SP, "Hq": hq, "Hkv": hkv, "D": d,
+              "share_of_kernel_budgets_vs_plain_schedule": shares,
+              "max_abs_err_vs_full_sequence": full_err,
+              "share_of_mixed_5e-2_vs_full_sequence": full_share,
+              "sp1_o_bit_equal": sp1_equal,
+              "sp1_grads_bit_equal": sp1_grads_equal, "finite": finite,
+              "ok": ok})
+        if not ok:
+            raise SystemExit(f"parallel ring {name}: shares {shares}, "
+                             f"full-sequence shares {full_share}, sp = 1 "
+                             f"equal {sp1_equal}/{sp1_grads_equal}")
+        del plain, full, full_o, leaves, o1
+        torch.cuda.empty_cache()
+
+    # Times: one ring step (a full chunk: K1's non-causal mode; the
+    # diagonal chunk: its causal grid), forward and backward, and the
+    # full-sequence K1 at the same S.
+    t = RING_SEQ // RING_SP
+    qc, kc, vc, doc = (x[:, :, :t].contiguous() for x in (q, k, v, do))
+    o_acc, lse_acc = ring.init_partials(qc)
+    times = {}
+    for label, my in (("full", 1), ("diagonal", 0)):
+        kw = dict(my=my, src=0, causal=True, device="cuda")
+        times[f"fwd_step_{label}"] = roofline.cuda_ms(
+            lambda: ring.forward_step(qc, kc, vc, o_acc, lse_acc, **kw),
+            iters=10)
+        o_s, l_s = ring.forward_step(qc, kc, vc, o_acc, lse_acc, **kw)
+        o_s = o_s.bfloat16()
+        times[f"bwd_step_{label}"] = roofline.cuda_ms(
+            lambda: ring.chunk_grads(qc, kc, vc, o_s, doc, l_s, **kw),
+            iters=10)
+        for way in ("fwd", "bwd"):
+            times[f"bound_{way}_step_{label}"] = _ring_bound_ms(
+                roofline, hq, hkv, t, d, label == "diagonal", way == "bwd")
+    for c in (False, True):
+        times["full_sequence_k1_" + ("causal" if c else "noncausal")] = \
+            roofline.cuda_ms(lambda: flash_attention(
+                q, k, v, causal=c, device="cuda"), iters=5)
+    emit({"phase": "parallel_times", "card": smi, "ms": times,
+          "nccl_init_s": nccl_init_s})
+    ok = (launches["flash_fwd_noncausal"] > 0 and launches["flash_bwd_q"] > 0
+          and launches["flash_bwd_kv"] > 0
+          and launches["decode_fused_append"] == cfg.n_layers * steps)
+    emit({"phase": "parallel", "launches": launches, "ring": rows,
+          "ok": ok})
+    if not ok:
+        raise SystemExit(f"parallel: launches {launches}")
+    dist.destroy_process_group()
+    rdv.unlink(missing_ok=True)
+    del q, k, v, do, ring_out, sp1
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _weight_gib(model) -> float:
     """Device bytes of a model's weights (parameters and the quantized
     projections' buffers), GiB."""
@@ -1598,7 +1838,7 @@ def phase_large_d(torch):
         def call(*args, **kwargs):
             seen.append((fn.__name__, args[at].kernel))
             return fn(*args, **kwargs)
-        call.launches = 0
+        call.launches = call.noncausal_launches = 0
         return call
 
     wrapped = [recorded(f, at) for f, at in zip(real, (3, 6, 6))]
@@ -1790,7 +2030,9 @@ def kernels_held_to_plain(torch):
     """K1, K2 and K8 wrapped so that every launch in the block is also
     computed by its plain version on the same inputs (K2's on copies of
     the cache it appends to) and held to KERNEL_BUDGETS elementwise.
-    Yields (shares, k2): {budget: the largest share of it used}, and for
+    Yields (shares, k2, k1): {budget: the largest share of it used}, for
+    K1's bf16 launches the same distances from an fp64 attention
+    (utils/testing.py::attention_fp64) as K2's below, and for
     K2's launches "rows_equal" (its appended rows bit-equal to the plain
     version's), "share_of_abs_o" (decode_o with its relative term taken
     of |O|, reported only), and K2's and the plain version's largest
@@ -1800,22 +2042,27 @@ def kernels_held_to_plain(torch):
     K2 is held at decode_o with the relative term taken of sum P |v| / l,
     since on real activations O can cancel to near 0 from large terms,
     and then one bf16 step of a rounded P v term, which K2 and its plain
-    version both take at the same point, exceeds 2^-6 |O| (ROADMAP.md
-    §C 4); the fp64 distances show whether K2 is any further from the
-    exact O than its plain version there. The kernels' own counters do
-    not move while they are wrapped (their increments land on the
+    version both take at the same point, exceeds 2^-6 |O|
+    (`decode_tuning rounding`); the fp64 distances show whether K2 is any further from the
+    exact O than its plain version there. K1's bf16 O is held the same
+    way, flash_fwd_o_bf16 with the relative term taken of sum P |v| / l:
+    on concentrated inputs K1 reached 3.16 of that budget against |O|
+    and 0.53 against the terms, as far from fp64 as its plain version
+    (`decode_tuning rounding`). The kernels' own counters do not move
+    while they are wrapped (their increments land on the
     wrappers), so these launches count on no path."""
     from mfa_tpu_torch.kernels import decode as k2
     from mfa_tpu_torch.kernels import flash_fwd as k1
     from mfa_tpu_torch.kernels import quant_matmul as k8
     from mfa_tpu_torch.utils.testing import (
         KERNEL_BUDGETS,
+        attention_fp64,
         budget_share,
         decode_fp64,
         rounding_steps,
     )
 
-    shares, k2_found = {}, {}
+    shares, k2_found, k1_found = {}, {}, {}
 
     def note(found, key, value):
         found[key] = max(found.get(key, value), value)
@@ -1832,9 +2079,24 @@ def kernels_held_to_plain(torch):
                          o_dtype=o_dtype, out=out)
         o_p, l_p = k1.flash_fwd_plain(q3, k3, v3, kd, group=group,
                                       scale=scale, o_dtype=o_dtype)
-        held("flash_fwd_o_" + ("bf16" if o_dtype == torch.bfloat16
-                               else "fp32"), o, o_p)
         held("flash_fwd_l", lse, l_p)
+        if o_dtype != torch.bfloat16:
+            held("flash_fwd_o_fp32", o, o_p)
+            return o, lse
+        exact, terms = (attention_fp64(
+            q3, k3, v3, group=group, scale=scale, causal=kd.causal,
+            sliding_window=kd.sliding_window,
+            logit_soft_cap=kd.logit_soft_cap, magnitudes=mag)
+            for mag in (False, True))
+        held("flash_fwd_o_bf16", o, o_p, scale=terms)
+        atol = KERNEL_BUDGETS["flash_fwd_o_bf16"][0]
+        note(k1_found, "share_of_abs_o",
+             budget_share(o, o_p, *KERNEL_BUDGETS["flash_fwd_o_bf16"]))
+        steps_k, steps_p = (rounding_steps(x, exact, terms, atol)
+                            for x in (o, o_p))
+        note(k1_found, "k1_steps_from_fp64", float(steps_k.max()))
+        note(k1_found, "plain_steps_from_fp64", float(steps_p.max()))
+        note(k1_found, "excess_steps", float((steps_k - steps_p).max()))
         return o, lse
 
     def k2_held(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, **kw):
@@ -1870,9 +2132,9 @@ def kernels_held_to_plain(torch):
              (k2, "decode_fused_append", k2_held),
              (k8, "int4_matmul", k8_held)]
     for mod, attr, fn in swaps:
-        fn.launches = 0
+        fn.launches = fn.noncausal_launches = 0
         setattr(mod, attr, fn)
-    yield shares, k2_found
+    yield shares, k2_found, k1_found
     for (mod, attr, _), fn in zip(swaps, (real_k1, real_k2, real_k8)):
         setattr(mod, attr, fn)
 
@@ -1885,13 +2147,13 @@ def _in_context(torch, model, tokens, name: str, *, decode: bool = True,
     [B, T] prefilled into caches of ``max_len`` and one decode step, the
     step's logits taken from the same state both times; without: the
     last-position logits of a forward over tokens [B, T]. The logits agree
-    within the bf16 mixed budget, relative, and K2 is nowhere more than
-    one bf16 step of sum P |v| / l further from an fp64 decode than its
-    plain version. Fails otherwise."""
+    within the bf16 mixed budget, relative, and K2 and K1 are nowhere more
+    than one bf16 step of sum P |v| / l further from an fp64 decode or
+    attention than their plain versions. Fails otherwise."""
     with torch.inference_mode():
         if decode:
             caches = model.make_caches(tokens.shape[0], max_len, kv_precision)
-        with kernels_held_to_plain(torch) as (shares, k2):
+        with kernels_held_to_plain(torch) as (shares, k2, k1):
             if decode:
                 model(tokens, caches=caches)
                 lengths = [c.lengths for c in caches]
@@ -1908,12 +2170,14 @@ def _in_context(torch, model, tokens, name: str, *, decode: bool = True,
     err = max_err(logits_k, logits_p)
     budget = 5e-2 * max(1.0, scale)
     ok = (err <= budget and all(x <= 1 for x in shares.values())
-          and k2.get("rows_equal", True) and k2.get("excess_steps", 0) <= 1)
+          and k2.get("rows_equal", True) and k2.get("excess_steps", 0) <= 1
+          and k1.get("excess_steps", 0) <= 1)
     if decode:
         info.update(max_len=max_len, kv=kv_precision.value)
     emit({"phase": f"{name}_in_context", "batch": tokens.shape[0],
           "prompt": tokens.shape[1], **info, "shares": shares,
-          "decode": k2, "max_abs_err": err, "budget": budget,
+          "decode": k2, "prefill": k1, "max_abs_err": err,
+          "budget": budget,
           "max_abs_logit": scale,
           "argmax_equal": bool(torch.equal(logits_k.argmax(-1),
                                             logits_p.argmax(-1))),
@@ -1921,8 +2185,8 @@ def _in_context(torch, model, tokens, name: str, *, decode: bool = True,
     if not ok:
         raise SystemExit(f"{name} in context: logits differ by {err} "
                          f"(budget {budget}), a kernel left its budget "
-                         f"({shares}) or K2 left its plain version's "
-                         f"distance from fp64 ({k2})")
+                         f"({shares}) or K2 or K1 left its plain "
+                         f"version's distance from fp64 ({k2}, {k1})")
 
 
 def _serve(torch, model, prompts, kv_precision, *, max_len: int,
@@ -2286,9 +2550,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(root))
 
-    phase_device(torch)
+    smi = phase_device(torch)
     phase_build()
-    k1_row = phase_k1(torch)
+    k1_row, k1_noncausal_row = phase_k1(torch)
     k2_row = phase_k2(torch)
     k5_row, k5_launches = phase_k5(torch)
     k6_row = phase_k6(torch)
@@ -2297,6 +2561,7 @@ def main() -> int:
     launches, model, prompts, bf16_tokens = phase_serving(torch)
     paged_k1, k6_launches = phase_paged_serving(torch, model, prompts,
                                                 bf16_tokens)
+    par = phase_parallel(torch, model, smi)
     # Quantize the served bf16 model before it goes (embedding, norms and
     # lm_head stay shared with it).
     from mfa_tpu_torch.ops.precision import OperandPrecision
@@ -2330,10 +2595,13 @@ def main() -> int:
               eval_launches):
         _add(new, n)
     # K1 runs on the three Llama-3-8B serving runs, training, the
-    # entry point past D = 256 (large_d) and the new phases' paths; K2 on
-    # the contiguous serving runs and the new paths; K8 on the INT4
-    # serving runs. K1, K3 and K4 also carry their D-blocked rows' times
-    # (large_d) beside the D = 128 figures.
+    # entry point past D = 256 (large_d), the parallel phase and the new
+    # phases' paths; K2 on the contiguous serving runs, the tp decode
+    # steps and the new paths; K8 on the INT4 serving runs. K1's
+    # non-causal mode (the twin of _fwd_kernel) runs only on the ring's
+    # off-diagonal chunks (parallel); its row carries the k1 phase's
+    # non-causal case. K1, K3 and K4 also carry their D-blocked rows'
+    # times (large_d) beside the D = 128 figures.
     def large(key, cases):
         return {"large_d": {case: large_d[case][key] for case in cases}}
 
@@ -2346,26 +2614,35 @@ def main() -> int:
          "launches": (launches["flash_fwd"] + paged_k1
                       + int4_launches["flash_fwd"]
                       + train_launches["flash_fwd"]
-                      + large_d_launches["flash_fwd"] + new["flash_fwd"]),
+                      + large_d_launches["flash_fwd"] + new["flash_fwd"]
+                      + par["flash_fwd"] - par["flash_fwd_noncausal"]),
          **{k: v for k, v in k1_row.items() if k != "lse_err"},
          **large("k1", fwd_cases)},
+        {"name": "flash_fwd_noncausal", "route": "cuda",
+         "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "mfa_tpu/kernels/flash_fwd.py:49",
+         "launches": par["flash_fwd_noncausal"],
+         **{k: v for k, v in k1_noncausal_row.items() if k != "lse_err"}},
         {"name": "decode_fused_append", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode.cu",
          "replaces": "mfa_tpu/kernels/decode.py:431",
          "launches": (launches["decode_fused_append"]
                       + int4_launches["decode_fused_append"]
-                      + new["decode_fused_append"]), **k2_row},
+                      + new["decode_fused_append"]
+                      + par["decode_fused_append"]), **k2_row},
         {"name": "flash_bwd_q", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:59",
          "launches": (train_launches["flash_bwd_q"]
-                      + large_d_launches["flash_bwd_q"]),
+                      + large_d_launches["flash_bwd_q"]
+                      + par["flash_bwd_q"]),
          **bwd_row["q"], **large("k3", fwd_cases)},
         {"name": "flash_bwd_kv", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:427",
          "launches": (train_launches["flash_bwd_kv"]
-                      + large_d_launches["flash_bwd_kv"]),
+                      + large_d_launches["flash_bwd_kv"]
+                      + par["flash_bwd_kv"]),
          **bwd_row["kv"], **large("k4", fwd_cases)},
         # K5's path is its entry point, decode_attention, driven in k5.
         {"name": "decode_attend", "route": "cuda",

@@ -14,6 +14,7 @@ Nothing here runs at import time: the CPU rung has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -177,7 +178,9 @@ def _compile(srcs, lib_path: Path) -> str:
 
 
 def library() -> KernelLibrary:
-    """The kernel library, built on first use (thread-safe)."""
+    """The kernel library, built on first use (thread-safe, and
+    process-safe: the ranks of a multi-process run on one host wait on a
+    file lock while the first of them builds, then load its build)."""
     global _library
     with _lock:
         if _library is not None:
@@ -188,10 +191,13 @@ def library() -> KernelLibrary:
         stamp = BUILD_DIR / (LIB_NAME + ".sha")
         t0 = time.perf_counter()
         log = "(cached build)"
-        if not (lib_path.exists() and stamp.exists()
-                and stamp.read_text() == digest):
-            log = _compile(srcs, lib_path)
-            stamp.write_text(digest)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / (LIB_NAME + ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not (lib_path.exists() and stamp.exists()
+                    and stamp.read_text() == digest):
+                log = _compile(srcs, lib_path)
+                stamp.write_text(digest)
         seconds = time.perf_counter() - t0
         _library = KernelLibrary(ctypes.CDLL(str(lib_path)), lib_path,
                                  seconds, log)

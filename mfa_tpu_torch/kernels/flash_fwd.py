@@ -3,7 +3,8 @@
 Replaces ``mfa_tpu/kernels/flash_fwd.py::_fwd_kernel`` and
 ``::_fwd_tablegrid_kernel``; the CUDA source is ``csrc/flash_fwd.cu``.
 :func:`flash_fwd` launches the kernel for CUDA tensors and takes
-:func:`flash_fwd_plain` only for CPU tensors.
+:func:`flash_fwd_plain` only for CPU tensors; it counts its launches,
+and apart those of the non-causal mode.
 
 Which kernel a launch runs is the descriptor's parameter row
 (``ops/params.py``): bf16 rows up to D = 128 name the warp-specialised
@@ -165,7 +166,14 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
         params.FWD_RING_STAGES, int(params.FWD_PINGPONG),
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_fwd.launches += 1
+    if not (kd.causal or kd.sliding_window is not None):
+        flash_fwd.noncausal_launches += 1
     return o, lse
 
 
+# Launches of the kernel, and of them those in its non-causal mode (the
+# twin of mfa_tpu's _fwd_kernel; the causal and windowed launches are the
+# twin of _fwd_tablegrid_kernel). A stand-in for flash_fwd in this module
+# receives both counts while it stands there.
 flash_fwd.launches = 0
+flash_fwd.noncausal_launches = 0

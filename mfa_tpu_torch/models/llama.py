@@ -22,6 +22,13 @@ caches) and ``decode_step`` run over plain functions on tensors.
 - Parameters require grad only when the model is built with
   ``trainable=True``; ``forward`` is differentiable, ``decode_step`` runs
   under ``torch.inference_mode()`` so serving never builds a graph.
+- Tensor parallelism (``tp_group``, ``mfa_tpu``'s ``tp_axis``): a model
+  built from ``parallel/sharding.py::shard_params`` holds this rank's
+  heads and FFN columns and knows its group; each block all-reduces the
+  row-parallel outputs of ``wo`` and ``w_down`` and the column-parallel
+  logits are all-gathered (``parallel/collectives.py``), as
+  ``mfa_tpu/models/llama.py:338-362`` psums and gathers. Head counts come
+  from the projection widths. With ``tp_group=None`` no collective runs.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from mfa_tpu_torch.kernels import quant_matmul as quant_matmul_mod
 from mfa_tpu_torch.ops.attention import flash_attention
 from mfa_tpu_torch.ops.decode import decode_attention_append
 from mfa_tpu_torch.ops.precision import OperandPrecision
+from mfa_tpu_torch.parallel import collectives
 from mfa_tpu_torch.serving import kv_cache as kv_cache_mod
 from mfa_tpu_torch.utils.device import resolve_device
 
@@ -222,14 +230,17 @@ class LlamaLayer(nn.Module):
 
 class Llama(nn.Module):
     """Llama over the port's kernels; ``forward`` and ``decode_step``.
-    ``trainable`` makes every parameter require grad (off by default)."""
+    ``trainable`` makes every parameter require grad (off by default);
+    ``tp_group`` is the tensor-parallel group of a model whose ``params``
+    are one rank's shard (``parallel/sharding.py``)."""
 
     def __init__(self, cfg: LlamaConfig, params: dict, *, device="cuda",
-                 trainable: bool = False):
+                 trainable: bool = False, tp_group=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.device = dev
+        self.tp_group = tp_group
 
         def p(t):
             return nn.Parameter(t.to(dev), requires_grad=trainable)
@@ -281,15 +292,21 @@ class Llama(nn.Module):
 
     def make_caches(self, batch: int, max_len: int,
                     precision: OperandPrecision = OperandPrecision.BF16):
-        return make_caches(self.cfg, batch, max_len, precision,
-                           device=self.device)
+        """Caches of this model's own KV heads (a tp shard's share)."""
+        wk = self.layers[0].wk
+        w = wk.w if isinstance(wk, quant.QuantizedWeight) else wk
+        return [kv_cache_mod.create(batch, w.shape[0] // self.cfg.head_dim,
+                                    max_len, self.cfg.head_dim, precision,
+                                    device=self.device)
+                for _ in range(self.cfg.n_layers)]
 
     def forward(self, tokens, *, positions=None, caches=None):
-        return forward(self, tokens, positions=positions, caches=caches)
+        return forward(self, tokens, positions=positions, caches=caches,
+                       tp_group=self.tp_group)
 
     @torch.inference_mode()
     def decode_step(self, tokens, caches):
-        return decode_step(self, tokens, caches)
+        return decode_step(self, tokens, caches, tp_group=self.tp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -353,36 +370,54 @@ def _mlp(layer: LlamaLayer, x):
     return _matmul(F.silu(gate.float()).to(x.dtype) * up, layer.w_down)
 
 
+def _norm_in(x, weight, cfg: LlamaConfig, tp_group):
+    """RMSNorm, then the input of column-parallel projections (identity
+    forward; under tp the gradient is all-reduced)."""
+    return collectives.copy_to_tp(rms_norm(x, weight, cfg.norm_eps),
+                                  tp_group)
+
+
 def _layer_apply(layer: LlamaLayer, x, positions, inv_freq,
-                 cfg: LlamaConfig, device, return_kv: bool = False):
+                 cfg: LlamaConfig, device, return_kv: bool = False,
+                 tp_group=None):
     """One transformer block; ``return_kv`` also yields the roped K and
-    the raw V for prefill cache appends."""
+    the raw V for prefill cache appends. Under ``tp_group`` the outputs
+    of ``wo`` and ``w_down`` (row-parallel partial sums) are all-reduced
+    and the activations stay replicated."""
     b, t, _ = x.shape
-    h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+    h = _norm_in(x, layer.attn_norm, cfg, tp_group)
     q, k, v = _project_qkv(layer, h, cfg)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     o = flash_attention(q, k, v, causal=True,
                         sliding_window=cfg.sliding_window, device=device)
-    x = x + _matmul(o.transpose(1, 2).reshape(b, t, -1), layer.wo)
-    x = x + _mlp(layer, rms_norm(x, layer.mlp_norm, cfg.norm_eps))
+    att = _matmul(o.transpose(1, 2).reshape(b, t, -1), layer.wo)
+    x = x + collectives.reduce_from_tp(att, tp_group)
+    mlp = _mlp(layer, _norm_in(x, layer.mlp_norm, cfg, tp_group))
+    x = x + collectives.reduce_from_tp(mlp, tp_group)
     if return_kv:
         return x, (k, v)
     return x
 
 
-def _lm_head(model: Llama, x):
-    """Final norm + fp32 logits."""
-    x = rms_norm(x, model.final_norm, model.cfg.norm_eps)
+def _lm_head(model: Llama, x, tp_group=None):
+    """Final norm + fp32 logits. Under ``tp_group`` lm_head is
+    column-parallel and the vocab shards are all-gathered; tied
+    embeddings are replicated (full logits, no gather)."""
     if model.lm_head is None:
+        x = rms_norm(x, model.final_norm, model.cfg.norm_eps)
         return torch.matmul(x.float(), model.embed.float().t())
-    return _matmul(x, model.lm_head).float()
+    x = _norm_in(x, model.final_norm, model.cfg, tp_group)
+    return collectives.gather_from_tp(_matmul(x, model.lm_head).float(),
+                                      tp_group)
 
 
-def forward(model: Llama, tokens, *, positions=None, caches=None):
+def forward(model: Llama, tokens, *, positions=None, caches=None,
+            tp_group=None):
     """[B, T] tokens → logits [B, T, vocab]. With ``caches`` (one KVCache
     per layer): prefill mode, each layer's K/V are appended to its cache
-    and (logits, caches) is returned."""
+    and (logits, caches) is returned. ``tp_group``: the tensor-parallel
+    group of a sharded model (``Llama.forward`` passes the model's)."""
     cfg = model.cfg
     b, t = tokens.shape
     dev = model.device
@@ -395,19 +430,22 @@ def forward(model: Llama, tokens, *, positions=None, caches=None):
     for li, layer in enumerate(model.layers):
         if caches is not None:
             x, (k, v) = _layer_apply(layer, x, positions, inv_freq, cfg, dev,
-                                     return_kv=True)
+                                     return_kv=True, tp_group=tp_group)
             kv_cache_mod.update(caches[li], k, v)
         else:
-            x = _layer_apply(layer, x, positions, inv_freq, cfg, dev)
-    logits = _lm_head(model, x)
+            x = _layer_apply(layer, x, positions, inv_freq, cfg, dev,
+                             tp_group=tp_group)
+    logits = _lm_head(model, x, tp_group)
     if caches is not None:
         return logits, caches
     return logits
 
 
-def decode_step(model: Llama, tokens, caches):
+def decode_step(model: Llama, tokens, caches, *, tp_group=None):
     """One decode step: tokens [B] (the latest token per sequence) →
-    (logits [B, vocab], caches), appending to every layer's cache."""
+    (logits [B, vocab], caches), appending to every layer's cache. Under
+    ``tp_group`` the caches hold this rank's KV heads
+    (``parallel/sharding.py::shard_cache``)."""
     cfg = model.cfg
     dev = model.device
     b = tokens.shape[0]
@@ -415,16 +453,18 @@ def decode_step(model: Llama, tokens, caches):
     inv_freq = rope_frequencies(cfg, dev)
     x = model.embed[tokens][:, None, :]                    # [B, 1, dim]
     for li, layer in enumerate(model.layers):
-        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+        h = _norm_in(x, layer.attn_norm, cfg, tp_group)
         q, k, v = _project_qkv(layer, h, cfg)              # [B, H, 1, D]
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         o, _ = decode_attention_append(
             q[:, :, 0, :], k[:, :, 0, :], v[:, :, 0, :], caches[li],
             sliding_window=cfg.sliding_window, device=dev)
-        x = x + _matmul(o.reshape(b, 1, -1), layer.wo)
-        x = x + _mlp(layer, rms_norm(x, layer.mlp_norm, cfg.norm_eps))
-    return _lm_head(model, x[:, 0]), caches
+        att = _matmul(o.reshape(b, 1, -1), layer.wo)
+        x = x + collectives.reduce_from_tp(att, tp_group)
+        mlp = _mlp(layer, _norm_in(x, layer.mlp_norm, cfg, tp_group))
+        x = x + collectives.reduce_from_tp(mlp, tp_group)
+    return _lm_head(model, x[:, 0], tp_group), caches
 
 
 def make_caches(cfg: LlamaConfig, batch: int, max_len: int,

@@ -16,6 +16,14 @@ optimizer reproduces ``mfa_tpu``'s optax chain
 Unlike the functional JAX step, :func:`train_step` updates the model's
 parameters and the moments in place and leaves the raw (unclipped)
 gradients in each parameter's ``.grad``.
+
+Data and tensor parallelism (``mfa_tpu`` jits the step over a sharded
+mesh and XLA inserts the reductions): ``dp_group`` averages the loss and
+the gradients over the data-parallel ranks; the tensor-parallel group is
+the model's own (a ``Llama`` built from ``parallel/sharding.py`` knows
+it), so the forward's collectives and the clip cannot disagree. The
+clip's global norm sums the squares of the tp-sharded parameters over
+tp and counts each replicated parameter once.
 """
 
 from __future__ import annotations
@@ -26,7 +34,10 @@ from typing import Callable
 
 import torch
 
+import torch.distributed as dist
+
 from mfa_tpu_torch.models.llama import Llama
+from mfa_tpu_torch.parallel import collectives, sharding
 
 
 def cross_entropy_loss(logits, targets, ignore_index: int = -100):
@@ -113,19 +124,37 @@ def create_train_state(model: Llama, optimizer: AdamW) -> TrainState:
                       nu=[torch.zeros_like(p) for p in params])
 
 
-def loss_and_grads(model: Llama, tokens):
+def loss_and_grads(model: Llama, tokens, *, dp_group=None):
     """Causal-LM loss of tokens [B, T+1] (inputs tokens[:, :-1], targets
-    tokens[:, 1:]); leaves the gradients in each parameter's ``.grad``."""
+    tokens[:, 1:]); leaves the gradients in each parameter's ``.grad``.
+    With ``dp_group`` the loss and the gradients are the mean over the
+    data-parallel ranks' equal batches."""
     for p in model.parameters():
         p.grad = None
     loss = cross_entropy_loss(model(tokens[:, :-1]), tokens[:, 1:])
     loss.backward()
-    return loss.detach()
+    loss = loss.detach()
+    if dp_group is not None:
+        n = dist.get_world_size(dp_group)
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad = collectives.all_reduce(p.grad, dp_group) / n
+        loss = collectives.all_reduce(loss, dp_group) / n
+    return loss
 
 
-def _global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, accumulated in fp32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def _global_norm(tensors, sharded=None, tp_group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, accumulated in fp32.
+    Under ``tp_group`` the squares of the ``sharded`` tensors (flags) are
+    summed over tp; the replicated ones count once."""
+    squares = [t.float().square().sum() for t in tensors]
+    if tp_group is None:
+        return torch.sqrt(sum(squares))
+    local = sum(s for s, shard in zip(squares, sharded) if shard)
+    rep = sum(s for s, shard in zip(squares, sharded) if not shard)
+    return torch.sqrt(rep + collectives.all_reduce(
+        torch.as_tensor(local, dtype=torch.float32,
+                        device=squares[0].device), tp_group))
 
 
 @torch.no_grad()
@@ -144,13 +173,18 @@ def _apply_adamw(state: TrainState, grads, gnorm):
         p.copy_(p + (-lr) * u)
 
 
-def train_step(state: TrainState, tokens) -> dict:
+def train_step(state: TrainState, tokens, *, dp_group=None) -> dict:
     """One causal-LM step on tokens [B, T+1], in place. Returns
     {"loss", "grad_norm"} as 0-dim tensors on the model's device (the
-    norm of the raw gradients)."""
-    loss = loss_and_grads(state.model, tokens)
+    norm of the raw gradients). ``dp_group``: this rank's tokens are its
+    share of the batch (see :func:`loss_and_grads`); tp is the model's."""
+    model = state.model
+    loss = loss_and_grads(model, tokens, dp_group=dp_group)
     grads = [p.grad for p in state.params]
-    gnorm = _global_norm(grads)
+    names = {id(p): n for n, p in model.named_parameters()}
+    sharded = [sharding.tp_dim(names[id(p)]) is not None
+               for p in state.params]
+    gnorm = _global_norm(grads, sharded, model.tp_group)
     _apply_adamw(state, grads, gnorm)
     state.step += 1
     return {"loss": loss, "grad_norm": gnorm}

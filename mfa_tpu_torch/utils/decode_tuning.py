@@ -18,8 +18,9 @@ INT4 matmul phase (``k8``; ``k8d``: the decode tile alone at M 4 and
 (``profile``: prefills and decode steps over bf16, INT8 and FP8 caches)
 or its INT4 phase (``int4``) from two trees in turns (A, B, B, A), each
 in a process of its own that builds and loads its own tree's kernels.
-``rounding`` holds K2 and its plain version against an fp64 decode where
-attention concentrates and O cancels (``ROUNDING_CASES``).
+``rounding`` holds K2, K5, K6 and K1 (alone and inside the ring's merge)
+and their plain versions against fp64 where attention concentrates and O
+cancels (``ROUNDING_CASES``).
 
 Run on a GPU from the repository root:
 
@@ -50,6 +51,7 @@ from mfa_tpu_torch.serving import kv_cache
 from mfa_tpu_torch.utils import roofline
 from mfa_tpu_torch.utils.testing import (
     KERNEL_BUDGETS,
+    attention_fp64,
     budget_share,
     decode_fp64,
     rounding_steps,
@@ -156,8 +158,8 @@ def kernels(calls: int = 20) -> None:
         print(json.dumps({"case": name, "device_ms": per}), flush=True)
 
 
-# K2 under concentrated attention (ROADMAP.md §C 4): (cache format, Hkv,
-# G, lengths, q scale, k and v scale). Larger scores concentrate P on a
+# Concentrated attention for ``rounding``: (cache format, Hkv, G,
+# lengths, q scale, k and v scale). Larger scores concentrate P on a
 # few rows, whose values then cancel in O.
 ROUNDING_CASES = (
     ("fp8_e4m3", 4, 7, (256,) * 4, 1, 4),
@@ -169,12 +171,79 @@ ROUNDING_CASES = (
 )
 
 
+def _share_row(prefix, got, plain, budget, terms, steps):
+    """Shares of ``budget`` (relative term of |O| and of sum P |v| / l)
+    and both sides' distance from fp64 in bf16 steps."""
+    atol, rtol = KERNEL_BUDGETS[budget]
+    return {f"{prefix}_share_of_abs_o": budget_share(got, plain, atol, rtol),
+            f"{prefix}_share_of_terms": budget_share(got, plain, atol, rtol,
+                                                     scale=terms),
+            f"{prefix}_bf16_steps_from_fp64": steps(got),
+            f"{prefix}_plain_bf16_steps_from_fp64": steps(plain)}
+
+
+def _paged(cache_t, page: int = 128):
+    """A contiguous cache tensor [B, Hkv, L, ...] as a page pool [1 + B *
+    L / page, Hkv, page, ...] (page 0 null) and its tables [B, L /
+    page]: sequence b's page j is pool page 1 + b * L / page + j."""
+    b, hkv, n = cache_t.shape[:3]
+    per = n // page
+    pages = cache_t.reshape(b, hkv, per, page, *cache_t.shape[3:]) \
+        .movedim(2, 1).reshape(b * per, hkv, page, *cache_t.shape[3:])
+    pool = pages.new_zeros((1 + b * per, *pages.shape[1:]))
+    pool[1:] = pages
+    tables = (1 + torch.arange(b * per, dtype=torch.int32,
+                               device=cache_t.device)).reshape(b, per)
+    return pool, tables
+
+
+def _k1_rounding(gen, hq, hkv, n, q_mul, kv_mul):
+    """K1 (flash_attention, causal) and K1 inside the sp = 4 ring's merge
+    against their plain versions and an fp64 attention, on [1, H, N, 128]
+    bf16 inputs scaled as the decode case's."""
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.ops.attention import flash_attention
+    from mfa_tpu_torch.parallel.ring_attention import ring_schedule
+
+    d = 128
+    q = (torch.randn((1, hq, n, d), generator=gen, device="cuda")
+         * q_mul).bfloat16()
+    k, v = ((torch.randn((1, hkv, n, d), generator=gen, device="cuda")
+             * kv_mul).bfloat16() for _ in range(2))
+    exact, terms = (attention_fp64(
+        q[0], k[0], v[0], group=hq // hkv, scale=d ** -0.5, causal=True,
+        magnitudes=mag)[None] for mag in (False, True))
+    atol = KERNEL_BUDGETS["flash_fwd_o_bf16"][0]
+
+    def steps(o):
+        return float(rounding_steps(o, exact, terms, atol).max())
+
+    def run(fn):
+        kernel = fn()
+        real, k1.flash_fwd = k1.flash_fwd, k1.flash_fwd_plain
+        plain = fn()
+        k1.flash_fwd = real
+        return kernel, plain
+
+    row = _share_row("k1", *run(lambda: flash_attention(
+        q, k, v, causal=True, device="cuda")), "flash_fwd_o_bf16", terms,
+        steps)
+    if n % 4 == 0:
+        row.update(_share_row("ring_k1", *run(lambda: ring_schedule(
+            q, k, v, n=4, causal=True, device="cuda")), "flash_fwd_o_bf16",
+            terms, steps))
+    return row
+
+
 def rounding(trials: int = 3, seed: int = 0) -> list[dict]:
-    """K2 and its plain version against an fp64 decode on
-    ROUNDING_CASES (B 4, D 128, max_len 2048): K2's share of the decode_o
-    budget with its relative term taken of |O| and of sum P |v| / l, and
-    each side's distance from fp64 in bf16 steps (2^-7) of sum P |v| / l
-    (the rounding both take where P v is rounded to bf16)."""
+    """K2, K5 (decode_attend), K6 (paged_decode) and K1 (causal, and
+    inside the sp = 4 ring's merge) and their plain versions against fp64
+    on ROUNDING_CASES (decode: B 4, D 128, max_len 2048; K1: one sequence
+    of the case's length, its heads): each kernel's share of its budget
+    (decode_o, decode_attend_o, paged_decode_o, flash_fwd_o_bf16) with
+    the relative term taken of |O| and of sum P |v| / l, and each side's
+    distance from fp64 in bf16 steps (2^-7) of sum P |v| / l (the
+    rounding both take where P v is rounded to bf16)."""
     atol, rtol = KERNEL_BUDGETS["decode_o"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows, d, b, max_len = [], 128, 4, 2048
@@ -210,14 +279,40 @@ def rounding(trials: int = 3, seed: int = 0) -> list[dict]:
             def steps(o):
                 return float(rounding_steps(o, exact, terms, atol).max())
 
-            rows.append({
+            row = {
                 "kv": fmt, "hkv": hkv, "G": g, "lengths": list(lens),
                 "q_scale": q_mul, "kv_scale": kv_mul, "trial": trial,
                 "k2_share_of_abs_o": budget_share(o_k, o_p, atol, rtol),
                 "k2_share_of_terms": budget_share(o_k, o_p, atol, rtol,
                                                   scale=terms),
                 "k2_bf16_steps_from_fp64": steps(o_k),
-                "plain_bf16_steps_from_fp64": steps(o_p)})
+                "plain_bf16_steps_from_fp64": steps(o_p)}
+            # K5 and K6 over the same cache without the new token: its
+            # fp64 is decode_fp64 over length - 1 rows with the last live
+            # row (dequantized) as the new one.
+            ops = operands()
+            last = (lengths.long() - 1).repeat_interleave(hkv)
+            idx = torch.arange(bh, device="cuda")
+            k_last, v_last = (x[idx, last].double() * s_[idx, last, None]
+                              for x, s_ in ((ops[0], ops[2]),
+                                            (ops[1], ops[3])))
+            exact, terms = (decode_fp64(q3, *ops, k_last, v_last,
+                                        lengths - 1, magnitudes=mag, **kw)
+                            for mag in (False, True))
+            row.update(_share_row(
+                "k5", k5.decode_attend(q3, *ops, lengths, **kw),
+                k5.decode_attend_plain(q3, *ops, lengths, **kw),
+                "decode_attend_o", terms, steps))
+            (kp, tables), (vp, _), (ksp, _), (vsp, _) = (
+                _paged(t) for t in (cache.k, cache.v, cache.k_scale,
+                                    cache.v_scale))
+            paged = (q3, kp, vp, ksp, vsp, tables, lengths)
+            row.update(_share_row(
+                "k6", k6.paged_decode(*paged), k6.paged_decode_plain(*paged),
+                "paged_decode_o", terms, steps))
+            row.update(_k1_rounding(gen, hkv * g, hkv, lens[0], q_mul,
+                                    kv_mul))
+            rows.append(row)
     return rows
 
 

@@ -189,11 +189,39 @@ def decode_fp64(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, *,
             / (p.sum(-1, keepdim=True) + p_new))
 
 
+def attention_fp64(q3, k3, v3, *, group: int, scale: float,
+                   causal: bool = False, sliding_window: int | None = None,
+                   logit_soft_cap: float | None = None,
+                   magnitudes: bool = False, heads: int = 4) -> torch.Tensor:
+    """K1's attention in fp64, nothing rounded: q3 [BH, R, D] against k3,
+    v3 [BH / group, C, D] (K1's operands and masks, natural-log scale);
+    rows with no visible key give 0. With ``magnitudes``, over |v|: sum P
+    |v| / l, the size of O's terms. ``heads`` query heads at a time (an
+    [R, C] fp64 score matrix each)."""
+    from mfa_tpu_torch.kernels.flash_fwd import visible_mask
+
+    r, c = q3.shape[1], k3.shape[1]
+    vis = visible_mask(r, c, causal, sliding_window, q3.device)
+    out = torch.empty(q3.shape, dtype=torch.float64, device=q3.device)
+    for h0 in range(0, q3.shape[0], heads):
+        idx = torch.arange(h0, min(h0 + heads, q3.shape[0]),
+                           device=q3.device)
+        kf, vf = k3[idx // group].double(), v3[idx // group].double()
+        s = torch.bmm(q3[idx].double(), kf.transpose(1, 2)) * scale
+        if logit_soft_cap is not None:
+            s = logit_soft_cap * torch.tanh(s / logit_soft_cap)
+        p = torch.softmax(s.masked_fill(~vis, -torch.inf), dim=-1)
+        out[idx] = torch.bmm(p.nan_to_num(0.0),
+                             vf.abs() if magnitudes else vf)
+    return out
+
+
 def rounding_steps(o: torch.Tensor, exact: torch.Tensor, terms: torch.Tensor,
                    atol: float) -> torch.Tensor:
     """|o - exact| elementwise in bf16 steps (2^-7) of ``terms``, plus
-    ``atol``: how far a decode's O lies from its fp64 value (decode_fp64),
-    counted in roundings of its largest terms."""
+    ``atol``: how far an attention's O lies from its fp64 value
+    (decode_fp64, attention_fp64), counted in roundings of its largest
+    terms."""
     return ((o.double() - exact).abs()
             / (atol + 2.0 ** -7 * terms.abs())).float()
 

@@ -139,3 +139,37 @@ def test_kernel_cache_reuses_pipeline(monkeypatch):
     lib_hits = cache.stats.library_hits
     flash_attention(q[:, :, :11], k, v, causal=True, device="cpu")
     assert cache.stats.library_hits == lib_hits + 1
+
+
+@pytest.mark.parametrize("opts", [dict(causal=True), dict(),
+                                  dict(sliding_window=33),
+                                  dict(causal=True, logit_soft_cap=10.0)],
+                         ids=["causal", "full", "window", "softcap"])
+def test_attention_fp64_matches_the_fp32_plain_version(opts):
+    """utils/testing.py::attention_fp64, the exact K1 that the rounding
+    checks hold K1 to, against K1's fp32 plain version (R > C: empty rows
+    give 0), and over |v| the terms' magnitude bounds |O|."""
+    from mfa_tpu_torch.kernels.flash_fwd import flash_fwd_plain
+    from mfa_tpu_torch.ops.descriptors import (
+        AttentionDescriptor,
+        AttentionKernelType,
+    )
+    from mfa_tpu_torch.utils.testing import attention_fp64
+
+    rng = np.random.default_rng(7)
+    q, k, v, _ = make_attention_inputs(rng, 1, HQ, HKV, 150, 96, 64)
+    q3, k3, v3 = (x[0] for x in (q, k, v))
+    kd = AttentionDescriptor(
+        batch=1, num_q_heads=HQ, num_kv_heads=HKV, seq_len_q=150,
+        seq_len_kv=96, head_dim=64, low_precision_inputs=False,
+        low_precision_intermediates=False,
+        **opts).kernel_descriptor(AttentionKernelType.FORWARD)
+    kw = dict(group=HQ // HKV, scale=0.125)
+    want, _ = flash_fwd_plain(q3, k3, v3, kd, o_dtype=torch.float32, **kw)
+    masks = dict(causal=kd.causal, sliding_window=kd.sliding_window,
+                 logit_soft_cap=kd.logit_soft_cap)
+    got = attention_fp64(q3, k3, v3, heads=3, **kw, **masks)
+    assert got.dtype == torch.float64
+    assert_close(got, want, 2e-5, "fp64 O")
+    terms = attention_fp64(q3, k3, v3, magnitudes=True, **kw, **masks)
+    assert bool((terms >= got.abs() - 1e-12).all())

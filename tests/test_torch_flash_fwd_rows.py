@@ -22,10 +22,10 @@ from mfa_tpu_torch.ops.descriptors import (
 )
 
 
-def _kd(d, bf16=True, hq=4, hkv=2, n=64, **opts):
+def _kd(d, bf16=True, hq=4, hkv=2, n=64, causal=True, **opts):
     return AttentionDescriptor(
         batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=n,
-        seq_len_kv=n, head_dim=d, causal=True, low_precision_inputs=bf16,
+        seq_len_kv=n, head_dim=d, causal=causal, low_precision_inputs=bf16,
         low_precision_intermediates=bf16,
         **opts).kernel_descriptor(AttentionKernelType.FORWARD)
 
@@ -278,3 +278,19 @@ def test_wrapper_passes_the_d_blocked_launch(library, dtype, d, panels):
     assert args[-8:-4] == (0 if dtype == torch.float32 else 1,
                            KERNEL_CODES[kd.kernel], kd.block_q, kd.block_kv)
     assert KERNEL_CODES[kd.kernel] == 2 and d <= kd.block_d * panels
+
+
+@pytest.mark.parametrize("opts, noncausal", [
+    (dict(causal=False), 1), (dict(), 0),
+    (dict(causal=False, sliding_window=8), 0)])
+def test_wrapper_counts_its_noncausal_launches(library, opts, noncausal):
+    """The non-causal mode (mfa_tpu's _fwd_kernel) is counted apart from
+    the causal and windowed one (_fwd_tablegrid_kernel)."""
+    q3, kv = _meta(4, 32, 64), _meta(2, 32, 64)
+    kd = _kd(64, n=32, **opts)
+    before = (k1.flash_fwd.launches, k1.flash_fwd.noncausal_launches)
+    k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
+                 o_dtype=torch.bfloat16)
+    assert (k1.flash_fwd.launches, k1.flash_fwd.noncausal_launches) == (
+        before[0] + 1, before[1] + noncausal)
+    assert len(library.calls) == 1

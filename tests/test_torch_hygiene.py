@@ -35,6 +35,13 @@ from mfa_tpu_torch.ops.descriptors import (
 )
 from mfa_tpu_torch.ops.gemm import gemm
 from mfa_tpu_torch.ops.precision import OperandPrecision
+from mfa_tpu_torch.parallel import dryrun
+from mfa_tpu_torch.parallel import mesh as mesh_mod
+from mfa_tpu_torch.parallel.ring_attention import (
+    ring_flash_attention,
+    ring_schedule,
+)
+from mfa_tpu_torch.parallel.ulysses import choose_cp_mode, ulysses_attention
 from mfa_tpu_torch.serving import kv_cache
 from mfa_tpu_torch.serving.paged_kv_cache import PagedKVCache, PagePool
 from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
@@ -162,6 +169,24 @@ def test_entry_points_raise_without_gpu_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         k8.int4_matmul(x, qw.w, qw.scale, layout="int4")
     k8.int4_matmul(x, qw.w, qw.scale, layout="int4", device="cpu")
+
+    # The parallel layer: NCCL on the card, gloo only when asked.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh_mod.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_rank(0, 1, "file:///nonexistent", "cuda")
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ring_flash_attention(q, q, q, group=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ring_schedule(q, q, q, n=2)
+    ring_schedule(q, q, q, n=2, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ulysses_attention(q, q, q, group=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        choose_cp_mode(8, 8, 256, 32, 4)
+    assert choose_cp_mode(8, 8, 256, 32, 4, hbm_budget_bytes=2**30,
+                          device="cpu") == "ulysses"
 
 
 def _kd(causal=True, kind=AttentionKernelType.FORWARD):
@@ -353,3 +378,15 @@ def test_parameter_tables_fit_one_sm():
     small = params.HopperDevice("sm90", 132, 48 * 1024, (9, 0))
     with pytest.raises(ValueError, match="shared memory"):
         params.parameter_table("flash_fwd", "bf16", small)
+
+
+def test_kernel_build_runs_once_for_processes_started_together(tmp_path):
+    """The ranks of a multi-process run ask for the kernel library at
+    once: one builds it, the others wait on the build's file lock and
+    load that build."""
+    import torch_ranks
+
+    logs = mesh_mod.spawn(torch_ranks.build_once, 3, str(tmp_path),
+                          timeout_s=120)
+    assert len((tmp_path / "compiles").read_text().split()) == 1
+    assert sorted(logs) == ["(cached build)", "(cached build)", "compiled"]
