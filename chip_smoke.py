@@ -1037,15 +1037,14 @@ def phase_serving(torch):
     _in_context(torch, model, torch.tensor([prompts[-1]], device="cuda"),
                 "k1", decode=False)
 
-    launches, bf16_tokens = {}, None
+    launches, served = {}, {}
     for prec in (OperandPrecision.BF16, OperandPrecision.INT8,
                  OperandPrecision.FP8_E4M3):
         summary, n, toks = _serve(torch, model, prompts, prec, max_len=2048)
         _add(launches, n)
         emit({"phase": "serving", **summary})
-        if prec is OperandPrecision.BF16:
-            bf16_tokens = toks
-    return launches, model, prompts, bf16_tokens
+        served[prec] = (toks, summary["decode_ms_per_step"])
+    return launches, model, prompts, served
 
 
 # Pages in the paged-serving pool, the null page included. The reckoning,
@@ -1189,11 +1188,13 @@ def _ring_bound_ms(roofline, hq, hkv, t, d, diagonal, backward):
                           2 * q_bytes + 2 * kv_bytes + 4 * hq * t)
 
 
-def phase_parallel(torch, model, smi):
+def phase_parallel(torch, model, smi, serve_prompts, served):
     """The parallel layer on one card: a world-1 NCCL mesh, the tp path
     on the served Llama-3-8B (no second copy), the sp = 4 ring schedule at
-    full attention width, and make_ring_attention at sp = 1. Returns the
-    launches of K1 (and of them non-causal), K2, K3 and K4 on this path."""
+    full attention width, make_ring_attention at sp = 1, then part 2
+    (:func:`parallel_part2`: sharded serving, the pipeline, the
+    multi-host bootstrap). Returns the launches of K1 (and of them
+    non-causal), K2, K3 and K4 on these paths."""
     import os
 
     import torch.distributed as dist
@@ -1384,11 +1385,112 @@ def phase_parallel(torch, model, smi):
           "ok": ok})
     if not ok:
         raise SystemExit(f"parallel: launches {launches}")
-    dist.destroy_process_group()
-    rdv.unlink(missing_ok=True)
     del q, k, v, do, ring_out, sp1
     torch.cuda.empty_cache()
+    _add(launches, parallel_part2(torch, model, mesh, serve_prompts, served,
+                                  smi))
+    dist.destroy_process_group()
+    rdv.unlink(missing_ok=True)
     return launches
+
+
+# The pipeline's batch: four sequences of 512 tokens, one a microbatch.
+PIPELINE_BATCH, PIPELINE_SEQ, PIPELINE_STAGES = 4, 512, 4
+
+
+def parallel_part2(torch, model, mesh, prompts, served, smi) -> dict:
+    """The parallel layer's part 2 on the world-1 NCCL mesh: the
+    served Llama-3-8B behind ShardedScheduler (dp 1, tp 1: its own
+    tensors) over bf16 and INT8 caches, six requests, greedy tokens
+    bit-equal to the single-card scheduler's (``served``, from the serving
+    phase) and decode ms a step beside its; pipeline_schedule over 4
+    stages of 8 layers and 4 microbatches against forward (the bf16
+    mixed budget), forward_pipelined over the mesh's pp = 1 bit-equal to
+    pipeline_schedule over one stage; multihost.initialize_distributed a
+    no-op. Counters are set to 0 just before each path and read just
+    after; returns the K1 and K2 launches."""
+    from mfa_tpu_torch.kernels import decode as k2
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.models import llama
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+    from mfa_tpu_torch.parallel import multihost
+    from mfa_tpu_torch.serving.distributed import ShardedScheduler
+    from mfa_tpu_torch.utils import roofline
+
+    info = multihost.initialize_distributed()
+    launches = {}
+    rows = {}
+    for prec in (OperandPrecision.BF16, OperandPrecision.INT8):
+        summary, n, toks = _serve(torch, model, prompts, prec, max_len=2048,
+                                  scheduler=ShardedScheduler, mesh=mesh)
+        _add(launches, n)
+        want, single_ms = served[prec]
+        equal = toks == want
+        rows[prec.value] = dict(
+            tokens_bit_equal_single_card=equal,
+            decode_ms_per_step=summary["decode_ms_per_step"],
+            single_card_decode_ms_per_step=single_ms)
+        emit({"phase": "parallel_sharded_serving", "dp": 1, "tp": 1,
+              **summary, "tokens_bit_equal_single_card": equal,
+              "single_card_decode_ms_per_step": single_ms})
+        if not equal:
+            raise SystemExit(f"sharded serving ({prec.value}): greedy tokens "
+                             f"differ from the single-card scheduler's")
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tokens = torch.randint(1, cfg.vocab_size, (PIPELINE_BATCH, PIPELINE_SEQ),
+                           generator=gen, device="cuda")
+    m = PIPELINE_BATCH
+    with torch.inference_mode():
+        want = model(tokens)
+        forward_ms = roofline.cuda_ms(lambda: model(tokens), iters=2,
+                                      warmup=1)
+        torch.cuda.synchronize()
+        for f in (k1.flash_fwd, k2.decode_fused_append):
+            f.launches = 0
+        got = llama.forward_pipeline_schedule(
+            model, tokens, n_stages=PIPELINE_STAGES, num_microbatches=m)
+        one_stage = llama.forward_pipeline_schedule(
+            model, tokens, n_stages=1, num_microbatches=m)
+        piped = llama.forward_pipelined(model, tokens, mesh=mesh,
+                                        num_microbatches=m)
+        torch.cuda.synchronize()
+        pipe_launches = k1.flash_fwd.launches
+        schedule_ms = roofline.cuda_ms(lambda: llama.forward_pipeline_schedule(
+            model, tokens, n_stages=PIPELINE_STAGES, num_microbatches=m),
+            iters=2, warmup=1)
+    scale = float(want.float().abs().max())
+    share = max_err(got, want) / (5e-2 * max(1.0, scale))
+    piped_share = max_err(piped, want) / (5e-2 * max(1.0, scale))
+    bit_equal = torch.equal(_bits(torch, got), _bits(torch, want))
+    piped_equal = torch.equal(_bits(torch, piped), _bits(torch, one_stage))
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(piped).all())
+    steps = m + PIPELINE_STAGES - 1
+    # Every stage computes at every step (empty slots on zeros, as in
+    # mfa_tpu): the 4-stage schedule and the two one-stage runs.
+    want_k1 = cfg.n_layers * (steps + 2 * m)
+    ok = (finite and share <= 1 and piped_share <= 1 and piped_equal
+          and pipe_launches == want_k1 and info["process_count"] == 1)
+    emit({"phase": "parallel_pipeline", "card": smi,
+          "stages": PIPELINE_STAGES, "layers_a_stage":
+          cfg.n_layers // PIPELINE_STAGES, "microbatches": m,
+          "seq": PIPELINE_SEQ, "share_of_mixed_5e-2_vs_forward": share,
+          "bit_equal_forward": bit_equal,
+          "pipelined_pp1_share_vs_forward": piped_share,
+          "pipelined_pp1_bit_equal_one_stage_schedule": piped_equal,
+          "k1_launches": pipe_launches, "want_k1_launches": want_k1,
+          "schedule_ms": schedule_ms, "forward_ms": forward_ms,
+          "multihost": info, "sharded_serving": rows, "ok": ok})
+    if not ok:
+        raise SystemExit(f"parallel pipeline: share {share}, pp = 1 share "
+                         f"{piped_share} (bit-equal {piped_equal}), K1 "
+                         f"launches {pipe_launches} of {want_k1}, "
+                         f"multihost {info}")
+    launches["flash_fwd"] = launches.get("flash_fwd", 0) + pipe_launches
+    del want, got, one_stage, piped
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ("flash_fwd", "decode_fused_append")}
 
 
 def _weight_gib(model) -> float:
@@ -2190,12 +2292,13 @@ def _in_context(torch, model, tokens, name: str, *, decode: bool = True,
 
 
 def _serve(torch, model, prompts, kv_precision, *, max_len: int,
-           int4_weights: bool = False, **sched_kw):
+           int4_weights: bool = False, scheduler=None, **sched_kw):
     """Greedy requests of 16 tokens behind ContinuousBatchingScheduler (4
-    slots). K1, K2 and K8's counters are set to 0 just before and read
-    just after; K1 must carry every prefill, K2 every decode step and K8
-    (INT4 weights) all 7 projections of every layer in both. Returns
-    (summary, launches, the requests' tokens); fails on a wrong count."""
+    slots; or ``scheduler``, built as it is with ``sched_kw``). K1, K2 and
+    K8's counters are set to 0 just before and read just after; K1 must
+    carry every prefill, K2 every decode step and K8 (INT4 weights) all 7
+    projections of every layer in both. Returns (summary, launches, the
+    requests' tokens); fails on a wrong count."""
     import numpy as np
 
     from mfa_tpu_torch.kernels import decode as k2
@@ -2207,7 +2310,7 @@ def _serve(torch, model, prompts, kv_precision, *, max_len: int,
     )
 
     cfg = model.cfg
-    sched = ContinuousBatchingScheduler(
+    sched = (scheduler or ContinuousBatchingScheduler)(
         model, num_slots=4, max_len=max_len, kv_precision=kv_precision,
         device="cuda", **sched_kw)
     reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
@@ -2549,6 +2652,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
+    from mfa_tpu_torch.ops.precision import OperandPrecision
 
     smi = phase_device(torch)
     phase_build()
@@ -2558,14 +2662,13 @@ def main() -> int:
     k6_row = phase_k6(torch)
     k7_row, k7_launches = phase_k7(torch)
     k8_row = phase_k8(torch)
-    launches, model, prompts, bf16_tokens = phase_serving(torch)
+    launches, model, prompts, served = phase_serving(torch)
+    bf16_tokens = served[OperandPrecision.BF16][0]
     paged_k1, k6_launches = phase_paged_serving(torch, model, prompts,
                                                 bf16_tokens)
-    par = phase_parallel(torch, model, smi)
+    par = phase_parallel(torch, model, smi, prompts, served)
     # Quantize the served bf16 model before it goes (embedding, norms and
     # lm_head stay shared with it).
-    from mfa_tpu_torch.ops.precision import OperandPrecision
-
     bf16_gib = _weight_gib(model)
     int4_model = model.quantized(OperandPrecision.INT4)
     int8_model = model.quantized(OperandPrecision.INT8)

@@ -29,6 +29,11 @@ caches) and ``decode_step`` run over plain functions on tensors.
   logits are all-gathered (``parallel/collectives.py``), as
   ``mfa_tpu/models/llama.py:338-362`` psums and gathers. Head counts come
   from the projection widths. With ``tp_group=None`` no collective runs.
+- Pipeline parallelism (:func:`forward_pipelined`, ``mfa_tpu``'s
+  ``forward_pipelined``): the layers cut into stages by
+  :func:`stack_layer_params`, each "pp" rank holding its own stage, the
+  microbatches through ``parallel/pipeline.py``; embedding, final norm
+  and head run replicated outside the pipeline.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from mfa_tpu_torch.ops.attention import flash_attention
 from mfa_tpu_torch.ops.decode import decode_attention_append
 from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.parallel import collectives
+from mfa_tpu_torch.parallel import mesh as mesh_mod
+from mfa_tpu_torch.parallel import pipeline
 from mfa_tpu_torch.serving import kv_cache as kv_cache_mod
 from mfa_tpu_torch.utils.device import resolve_device
 
@@ -465,6 +472,81 @@ def decode_step(model: Llama, tokens, caches, *, tp_group=None):
         mlp = _mlp(layer, _norm_in(x, layer.mlp_norm, cfg, tp_group))
         x = x + collectives.reduce_from_tp(mlp, tp_group)
     return _lm_head(model, x[:, 0], tp_group), caches
+
+
+def stack_layer_params(params: dict, n_stages: int) -> dict:
+    """The layers of a parameter dict (as :meth:`Llama.params` gives it)
+    cut into ``n_stages`` equal stages, each stage's layers stacked along a
+    leading axis and the stages stacked: every tensor gains leading dims
+    [n_stages, layers_per_stage] (``parallel.pipeline.shard_stacked``
+    takes a rank's stage). Quantized weights stack too."""
+    layers = params["layers"]
+    if len(layers) % n_stages:
+        raise ValueError(
+            f"{len(layers)} layers not divisible into {n_stages} stages")
+    per = len(layers) // n_stages
+    return pipeline.stack_stages([
+        pipeline.stack_stages(layers[s * per:(s + 1) * per])
+        for s in range(n_stages)])
+
+
+def _stage_layers(stacked: dict) -> list:
+    """The layers of one stage's stacked tensors [per, ...], as views."""
+    per = next(iter(stacked.values()))
+    per = (per.w if isinstance(per, quant.QuantizedWeight) else per).shape[0]
+    return [LlamaLayer(pipeline.tree_map(lambda a: a[i], stacked))
+            for i in range(per)]
+
+
+def _pipelined(model: Llama, tokens, run):
+    """Embedding, the layer stack through ``run(stage_fn, x, extra)``,
+    final norm and head (fp32 logits)."""
+    cfg, dev = model.cfg, model.device
+    positions = torch.arange(tokens.shape[1], device=dev)[None, :]
+    inv_freq = rope_frequencies(cfg, dev)
+
+    def stage_fn(layers, x, positions, inv_freq):
+        for layer in layers:
+            x = _layer_apply(layer, x, positions, inv_freq, cfg, dev)
+        return x
+
+    x = run(stage_fn, model.embed[tokens], (positions, inv_freq))
+    return _lm_head(model, x)
+
+
+def forward_pipelined(model: Llama, tokens, *, mesh, num_microbatches: int,
+                      stacked_layers=None):
+    """Logits [B, T, vocab] with the layer stack pipelined over the mesh's
+    "pp" ranks (GPipe microbatches over the batch;
+    ``parallel/pipeline.py``), on every rank. ``stacked_layers``: this
+    rank's stage (``shard_stacked(stack_layer_params(...), mesh)``), so
+    ``model`` need hold only embedding, final norm and head; without it
+    the stage is cut from ``model``'s own layers."""
+    if stacked_layers is None:
+        stacked_layers = pipeline.shard_stacked(stack_layer_params(
+            model.params(), mesh_mod.axis_size(mesh, "pp")), mesh)
+    layers = _stage_layers(stacked_layers)
+    return _pipelined(model, tokens, lambda fn, x, extra: (
+        pipeline.pipeline_apply(fn, layers, x, mesh=mesh,
+                                num_microbatches=num_microbatches,
+                                extra=extra)))
+
+
+def forward_pipeline_schedule(model: Llama, tokens, *, n_stages: int,
+                              num_microbatches: int):
+    """:func:`forward_pipelined`'s arithmetic in one process:
+    ``pipeline_schedule`` over ``n_stages`` stages of ``model``'s own
+    layers (no copy)."""
+    layers = list(model.layers)
+    if len(layers) % n_stages:
+        raise ValueError(
+            f"{len(layers)} layers not divisible into {n_stages} stages")
+    per = len(layers) // n_stages
+    stages = [layers[s * per:(s + 1) * per] for s in range(n_stages)]
+    return _pipelined(model, tokens, lambda fn, x, extra: (
+        pipeline.pipeline_schedule(fn, stages, x,
+                                   num_microbatches=num_microbatches,
+                                   extra=extra)))
 
 
 def make_caches(cfg: LlamaConfig, batch: int, max_len: int,

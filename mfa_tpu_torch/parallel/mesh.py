@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import datetime
 import multiprocessing as mp
+import pickle
 import tempfile
 import time
 from multiprocessing import connection
@@ -71,9 +72,10 @@ def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1, *,
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     """The number of ranks along ``axis`` (``DeviceMesh.size`` takes the
-    dim's index); this rank's place on it is ``mesh.get_local_rank``, its
-    group ``mesh.get_group``."""
-    return mesh.size(AXES.index(axis))
+    dim's index), 1 for a mesh without it; this rank's place on it is
+    ``mesh.get_local_rank``, its group ``mesh.get_group``."""
+    names = mesh.mesh_dim_names or ()
+    return mesh.size(names.index(axis)) if axis in names else 1
 
 
 def local_shard(x: torch.Tensor, mesh: DeviceMesh, dims: dict
@@ -100,8 +102,10 @@ def batch_sharded(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     return local_shard(x, mesh, {"dp": 0})
 
 
-def _run_rank(send, fn, rank, world_size, init_method, args):
+def _run_rank(send, fn, rank, world_size, init_method, args_path):
     torch.set_num_threads(1)
+    with open(args_path, "rb") as f:
+        args = pickle.load(f)
     send.send(fn(rank, world_size, init_method, *args))
     send.close()
 
@@ -135,11 +139,18 @@ def spawn(fn, world_size: int, *args, timeout_s: float = 300.0) -> list:
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp, _Processes() as procs:
         init = f"file://{tmp}/rendezvous"
+        # The arguments go through a file: sent with each process they
+        # would fill the pipe that starts it, and each start would wait
+        # for the one before to import its modules.
+        args_path = f"{tmp}/args.pkl"
+        with open(args_path, "wb") as f:
+            pickle.dump(args, f)
         pending = {}
         for rank in range(world_size):
             recv, send = ctx.Pipe(duplex=False)
             p = ctx.Process(target=_run_rank, daemon=True,
-                            args=(send, fn, rank, world_size, init, args))
+                            args=(send, fn, rank, world_size, init,
+                                  args_path))
             p.start()
             send.close()
             procs.append(p)

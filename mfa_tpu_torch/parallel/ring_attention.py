@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from mfa_tpu_torch.ops.attention import attention_chunk_grads, flash_attention
 from mfa_tpu_torch.parallel import collectives
+from mfa_tpu_torch.utils import overlap
 from mfa_tpu_torch.utils.device import resolve_device
 
 
@@ -126,11 +127,14 @@ def _ring_forward(q, k, v, group, causal, scale, device):
     for s in range(n):
         src = (my - s) % n
         nxt = collectives.rotate([kc, vc], group) if s < n - 1 else None
+        overlap.note("issue", "ring_forward", s, nxt)
         o_acc, lse_acc = forward_step(q, kc, vc, o_acc, lse_acc, my=my,
                                       src=src, causal=causal, scale=scale,
                                       device=device)
+        overlap.note("compute", "ring_forward", s)
         if nxt is not None:
             kc, vc = nxt.wait()
+            overlap.note("consume", "ring_forward", s, nxt)
     return o_acc.to(q.dtype), lse_acc
 
 
@@ -144,15 +148,21 @@ def _ring_backward(q, k, v, o, do, lse, group, causal, scale, device):
     for s in range(n):
         src = (my - s) % n
         nxt = collectives.rotate([kc, vc], group) if s < n - 1 else None
+        overlap.note("issue", "ring_backward", s, nxt)
         grads = chunk_grads(q, kc, vc, o, do, lse, my=my, src=src,
                             causal=causal, scale=scale, device=device)
+        overlap.note("compute", "ring_backward", s)
         if accs is not None:
             dk, dv = accs.wait()
+            overlap.note("consume", "ring_backward", s, accs)
         dq, dk, dv = accumulate(dq, dk, dv, grads)
         accs = collectives.rotate([dk, dv], group)
+        overlap.note("issue", "ring_backward", s, accs)
         if nxt is not None:
             kc, vc = nxt.wait()
+            overlap.note("consume", "ring_backward", s, nxt)
     dk, dv = accs.wait()
+    overlap.note("consume", "ring_backward", n - 1, accs)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

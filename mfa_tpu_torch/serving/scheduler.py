@@ -73,7 +73,7 @@ class ContinuousBatchingScheduler:
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-        self.caches = model.make_caches(num_slots, max_len, kv_precision)
+        self.caches = self._slot_caches()
         self.queue: list[Request] = []
         self.slots: list[dict | None] = [None] * num_slots
         self.last_tokens = np.zeros((num_slots,), np.int64)
@@ -81,6 +81,11 @@ class ContinuousBatchingScheduler:
         self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0}
 
     # -- device steps -----------------------------------------------------
+
+    def _slot_caches(self):
+        """The caches of the slots this scheduler holds."""
+        return self.model.make_caches(self.num_slots, self.max_len,
+                                      self.kv_precision)
 
     def _prefill(self, tokens: torch.Tensor, true_len: int):
         """Run the bucketed prompt through forward with a batch-1 cache;
@@ -92,6 +97,17 @@ class ContinuousBatchingScheduler:
     def _decode(self, tokens: torch.Tensor) -> torch.Tensor:
         logits, self.caches = self.model.decode_step(tokens, self.caches)
         return sample(logits, self.generator, temperature=self.temperature)
+
+    def _splice(self, slot: int, caches1, true_len: int):
+        """Write a batch-1 prefilled cache into ``slot`` of every layer's
+        cache, its length set back to the prompt's."""
+        for c, c1 in zip(self.caches, caches1):
+            kv_mod.write_slot(c, slot, c1, true_len)
+
+    def _reset(self, slot: int):
+        """Free ``slot`` in every layer's cache."""
+        for c in self.caches:
+            kv_mod.reset_slot(c, slot)
 
     # -- host-side orchestration -----------------------------------------
 
@@ -113,8 +129,7 @@ class ContinuousBatchingScheduler:
             tokens[:t] = req.prompt
             last_logits, caches1 = self._prefill(
                 torch.from_numpy(tokens).to(self.device), t)
-            for c, c1 in zip(self.caches, caches1):
-                kv_mod.write_slot(c, slot, c1, t)
+            self._splice(slot, caches1, t)
             tok = int(sample(last_logits[None, :], self.generator,
                              temperature=self.temperature)[0])
             self.slots[slot] = {"request": req, "generated": [tok],
@@ -137,8 +152,7 @@ class ContinuousBatchingScheduler:
                 self.finished.append(
                     Completion(req, list(gen), s["prefill_len"]))
                 self.slots[i] = None
-                for c in self.caches:
-                    kv_mod.reset_slot(c, i)
+                self._reset(i)
 
     @torch.inference_mode()
     def step(self) -> bool:

@@ -1204,3 +1204,68 @@ def test_tp_llama_over_one_rank_of_nccl_is_bit_equal(cuda, tmp_path):
     for a, b in zip(run(tp_model), run(model)):
         assert torch.equal(a, b)
     dist.destroy_process_group()
+
+
+def test_sharded_scheduler_over_one_rank_of_nccl_matches_single_card(
+        cuda, tmp_path):
+    """A world-1 NCCL mesh (dp 1, tp 1): ShardedScheduler on the tiny
+    Llama gives ContinuousBatchingScheduler's greedy tokens over bf16 and
+    INT8 caches, K1 and K2 carrying its prefills and decode steps."""
+    import torch.distributed as dist
+
+    from mfa_tpu_torch.parallel import mesh as mesh_mod
+    from mfa_tpu_torch.serving.distributed import ShardedScheduler
+
+    mesh = mesh_mod.make_mesh(device=cuda, init_method=f"file://{tmp_path}/"
+                              "rendezvous", rank=0, world_size=1)
+    cfg = llama.LlamaConfig.tiny()
+    model = llama.Llama.init(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(6), dtype=torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (3, 9, 17, 30, 5)]
+
+    def run(sched):
+        reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+        for r in reqs:
+            sched.submit(r)
+        done = {c.request.id: c.tokens for c in sched.run()}
+        return [done[r.id] for r in reqs]
+
+    for prec in (OperandPrecision.BF16, OperandPrecision.INT8):
+        kw = dict(num_slots=2, max_len=64, kv_precision=prec,
+                  prompt_buckets=(16, 32), device=cuda)
+        want = run(ContinuousBatchingScheduler(model, **kw))
+        k1.flash_fwd.launches = k2.decode_fused_append.launches = 0
+        sched = ShardedScheduler(model, mesh=mesh, **kw)
+        assert sched.model.layers[0].wq.data_ptr() == \
+            model.layers[0].wq.data_ptr()
+        assert run(sched) == want
+        assert k1.flash_fwd.launches == cfg.n_layers * len(prompts)
+        assert k2.decode_fused_append.launches == \
+            cfg.n_layers * sched.stats["decode_steps"]
+    dist.destroy_process_group()
+
+
+def test_pipeline_schedule_at_full_width_matches_forward(cuda):
+    """pipeline_schedule (parallel/pipeline.py, every stage in one
+    process) of Llama-3-8B's widths at 4 layers over 2 stages and 4
+    microbatches against forward on the same tokens, within the bf16 mixed
+    budget (5e-2 relative above 1), K1 at every stage's every step."""
+    from dataclasses import replace
+
+    cfg = replace(llama.LlamaConfig.llama3_8b(), n_layers=4)
+    model = llama.Llama.init(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(7), dtype=torch.bfloat16, device=cuda)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 256), device=cuda,
+                           generator=torch.Generator(
+                               device=cuda).manual_seed(8))
+    with torch.inference_mode():
+        want = model(tokens)
+        before = k1.flash_fwd.launches
+        got = llama.forward_pipeline_schedule(model, tokens, n_stages=2,
+                                              num_microbatches=4)
+    assert k1.flash_fwd.launches - before == 2 * (4 + 2 - 1) * 2
+    assert torch.isfinite(got).all()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 5e-2 * scale

@@ -390,3 +390,69 @@ def test_kernel_build_runs_once_for_processes_started_together(tmp_path):
                           timeout_s=120)
     assert len((tmp_path / "compiles").read_text().split()) == 1
     assert sorted(logs) == ["(cached build)", "(cached build)", "compiled"]
+
+
+PART2_MODULES = ("mfa_tpu_torch.parallel.pipeline",
+                 "mfa_tpu_torch.parallel.multihost",
+                 "mfa_tpu_torch.serving.distributed",
+                 "mfa_tpu_torch.utils.overlap")
+
+
+def test_parallel_part2_modules_are_held_to_the_package_rules():
+    """The pipeline, multi-host, sharded-serving and overlap modules are
+    among those the no-JAX import check loads (and the no-try/except scan
+    reads every file of the package)."""
+    mods = _modules()
+    for name in PART2_MODULES:
+        assert name in mods, name
+        tree = ast.parse((ROOT / (name.replace(".", "/") + ".py"))
+                         .read_text())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import)
+                     else [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            for mod in names:
+                top = mod.split(".")[0]
+                assert top not in ("jax", "jaxlib", "mfa_tpu"), (name, mod)
+
+
+def test_parallel_part2_entry_points_raise_without_gpu_unless_cpu(
+        monkeypatch):
+    from mfa_tpu_torch.parallel import multihost
+    from mfa_tpu_torch.serving.distributed import ShardedScheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize_distributed()
+    assert multihost.initialize_distributed(device="cpu")[
+        "process_count"] == 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.make_hybrid_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.measure_tokens_per_s(lambda: None, (), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.dp_scaling_efficiency(lambda mesh: None)
+    model = llama.Llama.init(llama.LlamaConfig.tiny(),
+                             generator=torch.Generator().manual_seed(0),
+                             dtype=torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedScheduler(model, mesh=_FakeMesh(), num_slots=2)
+    assert not torch.distributed.is_initialized()
+
+
+class _FakeMesh:
+    """A (dp 1, tp 1) mesh without a process group, enough for the checks
+    a scheduler makes before it touches a device."""
+
+    mesh_dim_names = mesh_mod.AXES
+
+    def size(self, dim):
+        return 1
+
+    def get_local_rank(self, axis):
+        return 0
+
+    def get_group(self, axis):
+        return None

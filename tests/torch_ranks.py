@@ -1,5 +1,6 @@
 """Rank functions of the port's gloo tests (test_torch_parallel.py,
-test_torch_ring.py).
+test_torch_ring.py, test_torch_pipeline.py, test_torch_distributed.py,
+test_torch_multihost.py).
 
 Each test file spawns its ranks once (``mfa_tpu_torch.parallel.mesh.
 spawn``); every rank runs one suite function from here and returns numpy
@@ -9,24 +10,31 @@ shared memory that dies with its rank) that the test holds against
 torch and the port only, never JAX.
 """
 
+import os
 import time
 import types
 from dataclasses import replace
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from mfa_tpu_torch.models import llama, training
 from mfa_tpu_torch.models.from_jax import params_from_numpy
 from mfa_tpu_torch.ops.precision import OperandPrecision
-from mfa_tpu_torch.parallel import dryrun, sharding
+from mfa_tpu_torch.parallel import collectives, dryrun, multihost, pipeline
 from mfa_tpu_torch.parallel import mesh as mesh_mod
+from mfa_tpu_torch.parallel import ring_attention, sharding
 from mfa_tpu_torch.parallel.ring_attention import (
     make_ring_attention,
     ring_schedule,
 )
 from mfa_tpu_torch.parallel.ulysses import make_ulysses_attention
+from mfa_tpu_torch.serving import distributed, kv_cache
+from mfa_tpu_torch.serving.scheduler import Request
+from mfa_tpu_torch.utils import overlap
 
 MAX_LEN = 64
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -242,3 +250,236 @@ def build_once(rank, world, init, build_dir):
     build.ctypes = types.SimpleNamespace(
         CDLL=lambda path: _StandInLibrary(), c_int=int)
     return build.library().build_log
+
+
+# ---------------------------------------------------------------------------
+# Pipeline
+# ---------------------------------------------------------------------------
+
+
+def stage_fn(p, x):
+    """tests/test_pipeline.py's stage: a residual MLP block."""
+    h = torch.tanh(x @ p["w1"] + p["b1"])
+    return x + h @ p["w2"]
+
+
+def _stages(arrays, grad=False):
+    return [{k: torch.from_numpy(v).requires_grad_(grad)
+             for k, v in st.items()} for st in arrays]
+
+
+def _pipeline_out(mesh, stages, x, num_micro, fn=stage_fn, grad=False):
+    params = pipeline.shard_stacked(
+        pipeline.stack_stages(_stages(stages)), mesh)
+    if grad:
+        params = {k: v.requires_grad_(True) for k, v in params.items()}
+    out = pipeline.pipeline_apply(fn, params, torch.from_numpy(x),
+                                  mesh=mesh, num_microbatches=num_micro)
+    if not grad:
+        return _np(out)
+    (out ** 2).sum().backward()
+    return {"stage": mesh.get_local_rank("pp"),
+            "grads": {k: _np(v.grad) for k, v in params.items()}}
+
+
+def _ring_waiting_first(q, k, v, group):
+    """The ring's forward edited to wait for each rotation before its
+    step's compute (the received chunk could be read in its own step)."""
+    n, my = dist.get_world_size(group), dist.get_rank(group)
+    o_acc, lse_acc = ring_attention.init_partials(q)
+    kc, vc = k, v
+    for s in range(n):
+        src = (my - s) % n
+        nxt = collectives.rotate([kc, vc], group) if s < n - 1 else None
+        overlap.note("issue", "ring_forward", s, nxt)
+        if nxt is not None:
+            received = nxt.wait()
+            overlap.note("consume", "ring_forward", s, nxt)
+        o_acc, lse_acc = ring_attention.forward_step(
+            q, kc, vc, o_acc, lse_acc, my=my, src=src, causal=False,
+            device="cpu")
+        overlap.note("compute", "ring_forward", s)
+        if nxt is not None:
+            kc, vc = received
+    return o_acc
+
+
+def _report(rep):
+    return {"ok": rep.ok, "scans": rep.scans_seen,
+            "permutes": rep.permutes_seen, "violations": rep.violations}
+
+
+def _overlap_cases(world, data):
+    out = {}
+    mesh = mesh_mod.make_mesh(sp=world, device="cpu")
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in data["ring"])
+    ring = make_ring_attention(mesh, causal=True, device="cpu")
+    out["ring_forward"] = _report(overlap.check_overlap(ring, q, k, v))
+    out["ring_grads"] = _report(overlap.check_overlap(
+        lambda: ring(q, k, v).sum().backward()))
+    out["ring_edited"] = _report(overlap.check_overlap(
+        _ring_waiting_first, q.detach(), k.detach(), v.detach(),
+        mesh.get_group("sp")))
+    pp_mesh = mesh_mod.make_mesh(pp=4, device="cpu")
+    if pp_mesh.get_coordinate() is not None:
+        out["pipeline"] = _report(overlap.check_overlap(
+            _pipeline_out, pp_mesh, data["stages4"], data["x"][4], 4))
+        out["pipeline_grads"] = _report(overlap.check_overlap(
+            _pipeline_out, pp_mesh, data["stages4"][:4], data["x"][4], 4,
+            grad=True))
+    return out
+
+
+def pipeline_suite(rank, world, init, data):
+    _init(rank, world, init)
+    out = {"serial": {}, "schedule": {}}
+    mesh = mesh_mod.make_mesh(pp=4, device="cpu")
+    if mesh.get_coordinate() is not None:
+        for m in (4, 8, 6):
+            out["serial"][m] = _pipeline_out(mesh, data["stages4"],
+                                             data["x"][m], m)
+        if rank == 0:
+            for m in (4, 8, 6):
+                out["schedule"][m] = _np(pipeline.pipeline_schedule(
+                    stage_fn, _stages(data["stages4"]),
+                    torch.from_numpy(data["x"][m]), num_microbatches=m))
+    mesh = mesh_mod.make_mesh(dp=2, pp=4, device="cpu")
+    out["with_dp"] = _pipeline_out(mesh, data["stages_dp"], data["x_dp"], 4)
+
+    mesh = mesh_mod.make_mesh(dp=2, pp=2, device="cpu")
+    if mesh.get_coordinate() is not None:
+        seen = []
+
+        def probe(p, a):
+            seen.append(tuple(a.shape))
+            return stage_fn(p, a)
+
+        _pipeline_out(mesh, data["stages_probe"], data["x_probe"], 4,
+                      fn=probe)
+        out["probe_shapes"] = seen
+
+    mesh = mesh_mod.make_mesh(pp=2, device="cpu")
+    if mesh.get_coordinate() is not None:
+        out["grads"] = _pipeline_out(mesh, data["stages_grad"],
+                                     data["x_grad"], 2, grad=True)
+        cfg = replace(llama.LlamaConfig.tiny(), n_layers=4)
+        model = params_from_numpy(data["llama"], cfg, device="cpu")
+        tokens = torch.from_numpy(data["tokens"])
+        with torch.inference_mode():
+            out["llama"] = _np(llama.forward_pipelined(
+                model, tokens, mesh=mesh, num_microbatches=4))
+            out["llama_schedule"] = _np(llama.forward_pipeline_schedule(
+                model, tokens, n_stages=2, num_microbatches=4))
+        stage = pipeline.shard_stacked(
+            llama.stack_layer_params(model.params(), 2), mesh)
+        out["llama_stage_layers"] = int(stage["wq"].shape[0])
+
+    x = torch.zeros(4, 2, 16)
+    no_pp = DeviceMesh("cpu", torch.arange(2), mesh_dim_names=("x",))
+    out["no_pp_axis"] = _raises(ValueError, lambda: pipeline.pipeline_apply(
+        stage_fn, {}, x, mesh=no_pp, num_microbatches=2))
+    mesh = mesh_mod.make_mesh(pp=2, device="cpu")
+    out["bad_batch"] = _raises(ValueError, lambda: pipeline.pipeline_apply(
+        stage_fn, {}, x, mesh=mesh, num_microbatches=3))
+    out["overlap"] = _overlap_cases(world, data)
+    dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving and the multi-host harness
+# ---------------------------------------------------------------------------
+
+
+def _decode_case(mesh, data):
+    cfg = llama.LlamaConfig.tiny()
+    model = params_from_numpy(data["tiny0"], cfg, device="cpu")
+    caches = llama.make_caches(cfg, 4, 128, OperandPrecision.FP32,
+                               device="cpu")
+    for c, kv in zip(caches, data["fill"]):
+        t = torch.from_numpy(kv)
+        kv_cache.update(c, t, t)
+    step = distributed.make_decode_step(sharding.shard_model(model, mesh),
+                                        mesh)
+    logits, caches = step(torch.tensor([3, 5, 7, 11]),
+                          distributed.shard_caches(caches, mesh))
+    return {"dp": mesh.get_local_rank("dp"), "tp": mesh.get_local_rank("tp"),
+            "logits": _np(logits), "lengths": caches[0].lengths.numpy(),
+            "row": _np(caches[0].k[:, :, data["ctx"]])}
+
+
+def _scheduler_case(mesh, data, precision):
+    cfg = llama.LlamaConfig.tiny()
+    model = params_from_numpy(data["tiny1"], cfg, device="cpu")
+    sched = distributed.ShardedScheduler(
+        model, mesh=mesh, num_slots=2, max_len=128, kv_precision=precision,
+        prompt_buckets=(8, 16), temperature=0.0, device="cpu")
+    reqs = [Request(prompt=p, max_new_tokens=6) for p in data["prompts"]]
+    for r in reqs:
+        sched.submit(r)
+    done = {c.request.id: c.tokens for c in sched.run(max_steps=64)}
+    return {"tokens": [done[r.id] for r in reqs], "stats": sched.stats,
+            "cache_shape": tuple(sched.caches[0].k.shape)}
+
+
+def distributed_suite(rank, world, init, data):
+    _init(rank, world, init)
+    out = {}
+    mesh = mesh_mod.make_mesh(dp=2, tp=2, device="cpu")
+    out["decode"] = _decode_case(mesh, data)
+    for precision in (OperandPrecision.FP32, OperandPrecision.INT8):
+        out[precision.value] = _scheduler_case(mesh, data, precision)
+    model = llama.Llama.init(llama.LlamaConfig.tiny(),
+                             generator=torch.Generator().manual_seed(0),
+                             dtype=torch.float32, device="cpu")
+    out["odd_slots"] = _raises(ValueError, lambda: (
+        distributed.ShardedScheduler(model, mesh=mesh, num_slots=3,
+                                     device="cpu")))
+    tp4 = mesh_mod.make_mesh(tp=4, device="cpu")
+    out["bad_tp"] = _raises(ValueError, lambda: (
+        distributed.make_decode_step(model, tp4)))
+    out["bad_tp_scheduler"] = _raises(ValueError, lambda: (
+        distributed.ShardedScheduler(model, mesh=tp4, num_slots=2,
+                                     device="cpu")))
+    out["serving_dryrun"] = dryrun.serving_dryrun(world, "cpu")
+    sizes = dryrun.part2_sizes(world, on_card=False)
+    out["parity_part2"] = dryrun.parity_checks_part2(world, "cpu", *sizes)
+    dist.destroy_process_group()
+    return out
+
+
+def _harness_step(mesh):
+    """tests/test_multihost.py's step: mean(tanh(x @ w)^2) over a dp
+    batch of 4 rows a replica."""
+    dp = mesh_mod.axis_size(mesh, "dp")
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+    x = mesh_mod.batch_sharded(torch.from_numpy(rng.standard_normal(
+        (dp * 4, 16, 64)).astype(np.float32)), mesh)
+
+    def step(w, x):
+        return torch.mean(torch.tanh(x @ w) ** 2)
+
+    return step, (w, x), dp * 4 * 16
+
+
+def multihost_suite(rank, world, init):
+    _init(rank, world, init)
+    out = {"info": multihost.initialize_distributed(device="cpu")}
+    out["scaling"] = multihost.dp_scaling_efficiency(
+        _harness_step, dp_sizes=(1, 4), device="cpu")
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    mesh = multihost.make_hybrid_mesh(dp=2, device="cpu")
+    coord = mesh.get_coordinate()
+    out["two_hosts"] = {"names": mesh.mesh_dim_names,
+                        "ranks": mesh.mesh.tolist(),
+                        "coordinate": None if coord is None else list(coord)}
+    out["two_hosts_sum"] = None
+    if coord is not None:
+        t = torch.tensor([float(rank)])
+        dist.all_reduce(t, group=mesh.get_group("dp"))
+        out["two_hosts_sum"] = float(t)
+    del os.environ["LOCAL_WORLD_SIZE"]
+    dist.destroy_process_group()
+    return out
