@@ -106,19 +106,23 @@ phase's failure is caught):
              torch's scaled_dot_product_attention timed as a yardstick;
              each line names the kernel and parameter row K3 and K4 ran
              (wgmma or mma.sync, ops/params.py).
-13. large_d — K1, K3 and K4 past D = 256 (the D-blocked rows, ops/
-             params.py) at the JAX package's large-D class (bf16, B 1,
-             Hq 8, N 4096): D 384 and 512, causal and non-causal, GQA
-             (Hkv 2), window 512 with soft-cap 50 (K1 only); the tails D
-             320 and D 300 (no TMA-mappable rows) and fp32 at D 384, N
-             1024; each held elementwise to its plain version at
+13. large_d — K1, K3 and K4 past D = 256 (ops/params.py: K1 and K4 on
+             the head-dim-split cluster kernels, wgmma_dblk, where TMA
+             maps a row; K3 and the rest on the D-blocked first cut) at
+             the JAX package's large-D class (bf16, B 1, Hq 8, N 4096): D
+             384 and 512, causal and non-causal, GQA (Hkv 2), window 512
+             with soft-cap 50 (K1 only); the tails D 320 (a part-empty
+             last panel) and D 300 (no TMA-mappable rows: the first cut)
+             and fp32 at D 384, N 1024; D 256 causal at N 4096 (mma.sync
+             rows); each held elementwise to its plain version at
              KERNEL_BUDGETS, outputs prefilled with NaN, a second launch
-             bit-equal; each line names the rows that ran, with ms,
+             bit-equal, keys no query sees zero; each line names the
+             rows that ran (checked against large_d_rows), with ms,
              bound and SDPA's time (and the backend that ran). Then
              flash_attention's forward and backward at D 384 (causal, N
              4096) against the same call through the plain versions,
-             launch counters proving K1, K3 and K4 ran once each on
-             D-blocked rows.
+             launch counters proving K1, K3 and K4 ran once each, on
+             wgmma_dblk, mma_dblk and wgmma_dblk.
 14. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
              does not fit 80 GB), random bf16 weights, trainable: one
              step's loss and grads through K1/K3/K4 against the same with
@@ -214,14 +218,18 @@ def phase_build():
     serialized = sorted({ln.split("function '")[-1].rstrip("'")
                          for ln in lib.build_log.splitlines()
                          if "Performance Loss" in ln})
-    # Registers and spills of each D-blocked flash instance (its last
-    # template argument, DBLK, true), as kernel<template arguments>.
+    # Registers and spills of each flash instance past D = 256: the
+    # D-blocked first cut and the cluster kernels (last template argument,
+    # DBLK or CL, true; K4's output-split cluster kernel), as
+    # kernel<template arguments>.
     dblk, name = {}, None
     for ln in lib.build_log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"(flash_\w+?_(?:bf16|f32))I(\w*?)Lb1EEEv", ln)
-            name = (f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
-                    if m else None)
+            m = (re.search(r"\d(flash_[a-z_]+?_(?:bf16|f32|wgmma))I(\w*?)"
+                           r"Lb1EEEv", ln)
+                 or re.search(r"\d(flash_bwd_kv_split)I(\w*?)EEv", ln))
+            args = re.findall(r"L[ib](\d+)E", m.group(2) + "E") if m else []
+            name = f"{m.group(1)}<{','.join(args)}>" if m else None
         elif name and ("registers" in ln or "spill" in ln):
             dblk.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     emit({"phase": "build", "seconds": round(lib.build_seconds, 3),
@@ -1736,7 +1744,8 @@ def _sdpa_backend(torch, fn) -> str:
 # The large-D class of the JAX package (README.md: bf16, B 1, H 8, N
 # 4096, D 384 and 512): (name, dtype, D, N, Hkv, options). Hq 8 always;
 # the tails (D 320, D 300 where TMA could not map a row) and fp32 at N
-# 1024. K3 and K4 run every case but the soft-cap one.
+# 1024; D 256 (the rows below the D-blocked ones) at N 4096. K3 and K4
+# run every case but the soft-cap one.
 LARGE_D_CASES = (
     ("noncausal_d384", "bf16", 384, 4096, 8, dict()),
     ("causal_d384", "bf16", 384, 4096, 8, dict(causal=True)),
@@ -1748,14 +1757,29 @@ LARGE_D_CASES = (
     ("noncausal_d320_n1024", "bf16", 320, 1024, 8, dict()),
     ("causal_d300_n1024", "bf16", 300, 1024, 8, dict(causal=True)),
     ("fp32_causal_d384_n1024", "fp32", 384, 1024, 8, dict(causal=True)),
+    ("causal_d256", "bf16", 256, 4096, 8, dict(causal=True)),
 )
 
 
+def large_d_rows(tag: str, d: int) -> dict:
+    """The row kernels phase_large_d expects of K1, K3 and K4: past D =
+    256, the cluster kernels (wgmma_dblk) for K1 and K4 where TMA maps a
+    row (bf16, D % 8 == 0) up to D = 512 and the D-blocked first cut for
+    K3 and the rest; at bf16 D 256, mma.sync for all three."""
+    if d == 256 and tag == "bf16":
+        return {"k1": "mma", "k3": "mma", "k4": "mma"}
+    if tag == "fp32":
+        return {"k1": "fma_dblk", "k3": "fma_dblk", "k4": "fma_dblk"}
+    cluster = "wgmma_dblk" if d % 8 == 0 and d <= 512 else "mma_dblk"
+    return {"k1": cluster, "k3": "mma_dblk", "k4": cluster}
+
+
 def phase_large_d(torch):
-    """K1, K3 and K4 past D = 256 (the D-blocked rows) against their plain
-    versions, then flash_attention's forward and backward end to end at
-    D 384 (B 1, H 8, N 4096, causal): each held to the same call through
-    the plain versions, the launch counters read around it."""
+    """K1, K3 and K4 past D = 256 (the cluster kernels and the D-blocked
+    rows) and at D = 256 against their plain versions, then
+    flash_attention's forward and backward end to end at D 384 (B 1, H 8,
+    N 4096, causal): each held to the same call through the plain
+    versions, the launch counters read around it."""
     import torch.nn.functional as F
 
     from mfa_tpu_torch.kernels import flash_bwd as k34
@@ -1792,11 +1816,13 @@ def phase_large_d(torch):
         q3, k3, v3, do3 = (t.reshape(-1, n, d).contiguous()
                            for t in (q, k, v, do))
         kw = dict(group=hq // hkv, scale=desc.softmax_scale)
-        rows = {key: dict(dataclasses.asdict(launch_row(kd, d, (q3, k3, v3))),
-                          panels=head_dim_panels(kd, d))
-                for key, kd in (("k1", kd_f), ("k3", kd_q), ("k4", kd_kv))}
-        dblk = all(r["kernel"] in params_mod.DBLK_KERNELS
-                   for r in rows.values())
+        rows = {}
+        for key, kd in (("k1", kd_f), ("k3", kd_q), ("k4", kd_kv)):
+            row = launch_row(kd, d, (q3, k3, v3, do3))
+            rows[key] = dict(dataclasses.asdict(row),
+                             panels=head_dim_panels(row, d))
+        want = large_d_rows(tag, d)
+        dblk = all(rows[key]["kernel"] == want[key] for key in rows)
         vis = k1.visible_mask(n, n, kd_f.causal, kd_f.sliding_window, "cuda")
         pairs = int(vis.sum()) * hq
         esz = q3.element_size()
@@ -1955,9 +1981,12 @@ def phase_large_d(torch):
     rel = {key: _rel_l2(g, w) for key, g, w in zip(("dq", "dk", "dv"),
                                                    grads_k, grads_p)}
     on_rows = sorted(set(seen))
+    want = large_d_rows("bf16", d)
+    want_rows = sorted({("flash_fwd", want["k1"]), ("flash_bwd_q", want["k3"]),
+                        ("flash_bwd_kv", want["k4"])})
     ok = (share_o <= 1 and max(rel.values()) <= 5e-2
           and all(x == 1 for x in launches.values())
-          and all(kernel == "mma_dblk" for _, kernel in on_rows)
+          and on_rows == want_rows
           and all(bool(torch.isfinite(g.float()).all()) for g in grads_k))
     emit({"phase": "large_d_entry_point", "B": 1, "H": hq, "N": n, "D": d,
           "causal": True, "share_o": share_o, "grad_rel_l2": rel,
@@ -2709,7 +2738,7 @@ def main() -> int:
         return {"large_d": {case: large_d[case][key] for case in cases}}
 
     fwd_cases = ("noncausal_d384", "causal_d384", "noncausal_d512",
-                 "causal_d512")
+                 "causal_d512", "causal_d256")
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",

@@ -231,9 +231,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // A flash entry's `panels` argument: ceil(D / block_d) for the D-blocked
-// kernels (kernel code 2), 1 for the others, and D fits them.
+// kernels (kernel code 2, and 3: the cluster kernels, one CTA of a cluster
+// a panel), 1 for the others, and D fits them.
 inline bool panels_ok(int kernel, int D, int block_d, int panels) {
-  return panels == (kernel == 2 ? (D + block_d - 1) / block_d : 1) &&
+  const bool blocked = kernel == 2 || kernel == 3;
+  return panels == (blocked ? (D + block_d - 1) / block_d : 1) &&
          D <= block_d * panels;
 }
 

@@ -69,23 +69,53 @@
 //   threads of 240 / 24 registers), so the 132 heaviest CTAs start first
 //   and the lighter ones fill in behind them.
 //
+// Past D = 256, K4 on bf16 rows TMA can map (rows "wgmma_dblk"): a
+// thread-block cluster split across the head dim. CTA p of a cluster
+// loads panel p (block_d columns from p * block_d; columns past D arrive
+// as zeros) of K and V (resident) and of each step's Q and dO by TMA and
+// owns that panel of dK and dV; every CTA of a cluster walks the same
+// (GQA query head x live q-blocks) steps. S^T and dP^T are summed across
+// the cluster from the panels' partials in rank order (hopper.cuh
+// ClusterSum, as in K1), so every CTA holds the same bits and forms the
+// same P and dS: S^T and dP^T once a (q-block, kv-block) pair, as
+// mfa_tpu's _bwd_kv_kernel (flash_bwd.py:530-660), no atomics, dK and dV
+// summed over the GQA group in registers.
+// - Clusters of two CTAs on wide panels (block_d 192 for D <= 384, 256
+//   for D <= 512; flash_bwd_kv_split), whose consumer warpgroups split
+//   the outputs rather than the steps. Warpgroup 1 forms S^T's partial
+//   and owns dV, warpgroup 0 dP^T's and owns dK (64 x block_d fp32, at
+//   most 128 registers a thread); each sums with its twin in the other
+//   CTA, and warpgroup 1 hands the summed S^T to warpgroup 0 through a
+//   double buffer. Each step's dV / dK product is deferred into the next
+//   step, as K1 defers its PV, and runs under that step's partial and
+//   exchange. The D <= 128 kernel on 128-wide panels in clusters of 3-4
+//   (warpgroups taking alternate steps with their own dK and dV, each
+//   exchanging both partials: three times the partials a FLOP) was
+//   written first and measured slower at every shape of the sweep; it is
+//   not kept.
+// - What bounds it at D 384 / 512 (B 1, H 8, N 4096): 8 D FLOP a visible
+//   pair, 0.21 / 0.28 ms causal at the bf16 peak: bound by operations;
+//   measured at 5.4-7.3x that bound, causal and not (PERF.md). A step's
+//   products are short (64 x 32 a warpgroup), and each step waits for the
+//   partner CTA's partial and warpgroup 1's S^T: latency, not bytes, is
+//   its cost (one bulk copy a partial in place of the st.async stores
+//   measured no faster).
+//
 // Other rows keep the first cut: bf16 at D = 256 or where TMA cannot map
 // the operands (a row stride not a multiple of 16 bytes, D % 8 != 0, or a
 // misaligned base) runs warp-level mma.sync (m16n8k16) from shared-memory
 // tiles loaded synchronously (rows "mma"); fp32 inputs take plain-FMA
 // kernels: TF32 would miss the fp32 gradient budget. The mma K4 keeps two
 // fp32 [16 x D] accumulators per warp (128 registers a thread at D =
-// 128); at D = 256 its warps split the head dim in two.
-//
-// Past D = 256 (rows "mma_dblk", "fma_dblk") the same kernels run
-// D-blocked (DBLK; see flash_bwd_q_bf16 and flash_bwd_kv_bf16): a CTA per
-// block_d panel of dQ (K3) or of dK and dV (K4), S and dP summed over
-// streamed panels by every panel CTA in one order. K3 does 6 D and K4 8 D
-// FLOP a visible pair (at D 384, N 4096, H 8 non-causal ~0.31 and ~0.42
-// ms at the bf16 peak): bound by operations. The first cut pays S and dP
-// once a panel and re-reads Q and dO (K3) or K and V (K4) from L2 every
-// step; K4's two accumulators leave ptxas short of registers, and it
-// spills (chip_smoke.py's build line lists each D-blocked instance).
+// 128); at D = 256 its warps split the head dim in two. Past D = 256 the
+// same kernels run D-blocked (DBLK; rows "mma_dblk", "fma_dblk"; see
+// flash_bwd_q_bf16 and flash_bwd_kv_bf16): a CTA per block_d panel of dQ
+// (K3) or of dK and dV (K4), S and dP summed once a panel over streamed
+// panels. K3 runs them at every D past 256 (its cluster form is the next
+// redesign); K4 where the cluster kernel cannot take the row (D % 8 != 0,
+// a misaligned base, D > 512) and for fp32. K4's two accumulators leave
+// ptxas short of registers there, and it spills (chip_smoke.py's build
+// line lists each instance past D = 256).
 
 #include <initializer_list>
 #include <type_traits>
@@ -1329,6 +1359,294 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// K4 on wide panels (rows "wgmma_dblk" of block_d 192 or 256; see the note
+// at the top): a cluster of two CTAs, CTA p on head-dim panel p, whose
+// consumer warpgroups split the outputs instead of the steps: warpgroup 1
+// forms S^T's partial and owns dV, warpgroup 0 dP^T's and owns dK. Each
+// sums its partial with its twin in the other CTA (ClusterSum) and
+// warpgroup 1 hands the summed S^T to warpgroup 0 through shared memory.
+// Each step's dV / dK product is deferred into the next step, where it
+// runs under that step's partial product and exchange.
+template <int BQ, int DP>
+struct KvSplitSmem {
+  static constexpr int kBKV = 64;
+  static constexpr int kPart = 64 * BQ * 4;   // one fp32 partial
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + tile_bytes(kBKV, DP);
+  static constexpr int kQs = kV + tile_bytes(kBKV, DP);   // warpgroup 1's
+  static constexpr int kX = kQs + tile_bytes(BQ, DP);     // [warpgroup]
+  static constexpr int kSt = kX + 2 * kPart;              // S^T [2]
+  static constexpr int kFixed = kSt + 2 * kPart;
+  // Q, dO, L and the D-term a step, both warpgroups reading every stage.
+  static constexpr int kS = ring_stages(
+      kFixed + 8 * 9 + kAlignSlack, 2 * tile_bytes(BQ, DP) + 8 * BQ + 16, 4,
+      1);
+  static constexpr int kQ = kFixed;                         // [stage]
+  static constexpr int kDO = kQ + kS * tile_bytes(BQ, DP);  // [stage]
+  static constexpr int kL = kDO + kS * tile_bytes(BQ, DP);  // [stage]
+  static constexpr int kD = kL + kS * 4 * BQ;               // [stage]
+  // kv_full, full[S], empty[S], x_full[2], x_empty[2], s_full[2],
+  // s_empty[2]
+  static constexpr int kBar = kD + kS * 4 * BQ;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kS + 8) + kAlignSlack;
+};
+
+template <int BQ, int DP>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mdo,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv) {
+  using L = KvSplitSmem<BQ, DP>;
+  constexpr int BKV = L::kBKV;
+  constexpr int S = L::kS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_atom(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+  uint64_t* x_full = empty + S;    // [warpgroup]
+  uint64_t* x_empty = x_full + 2;  // [warpgroup]
+  uint64_t* s_full = x_empty + 2;  // [buffer]: warpgroup 1 wrote S^T
+  uint64_t* s_empty = s_full + 2;  // [buffer]: warpgroup 0 read it
+
+  // Heaviest first: the first kv blocks have the longest causal walks.
+  const int rank = hw::cluster_rank();   // = blockIdx.x % size: the panel
+  const int size = hw::cluster_size();
+  const int nkvb = (p.C + BKV - 1) / BKV;
+  const int tile = (int)blockIdx.x / size;
+  const int bhkvs = gridDim.x / size / nkvb;
+  const int j = tile / bhkvs;
+  const int bhkv = tile % bhkvs;
+  const int col0 = j * BKV;
+  const int dcol = rank * DP;    // this CTA's head-dim panel starts here
+  const int tid = threadIdx.x, wg = hw::warpgroup_index();
+  int lo, hi;
+  q_range(p, j, BQ, BKV, lo, hi);
+  const int nlive = max(hi - lo + 1, 0);
+  const int steps = p.group * nlive;
+
+  if (tid == 0) {
+    hw::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hw::mbar_init(&full[s], 33);   // TMA's bytes + 32 lanes' L / D-term
+      hw::mbar_init(&empty[s], 8);   // every consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      hw::mbar_init(&x_full[b], 1);                 // the local arming
+      hw::mbar_init(&x_empty[b], 4 * (size - 1));   // the other's warps
+      hw::mbar_init(&s_full[b], 4);
+      hw::mbar_init(&s_empty[b], 4);
+    }
+    hw::mbar_init_fence();
+  }
+  hw::cluster_sync();
+
+  if (wg == 2) {
+    // Producer warp: K and V once, then Q and dO of each step by TMA (lane
+    // 0) and L and the D-term by cp.async of every lane, as in
+    // flash_bwd_kv_wgmma.
+    hw::setmaxnreg_dec<kProducerRegs>();
+    if (tid < 2 * kWgThreads + 32) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        hw::mbar_expect_tx(kv_full, 2 * tile_bytes(BKV, DP));
+#pragma unroll
+        for (int pn = 0; pn < DP / 64; ++pn) {
+          hw::tma_load_3d(sm + L::kK + pn * BKV * kPanelBytes, &mk, kv_full,
+                          dcol + 64 * pn, col0, bhkv);
+          hw::tma_load_3d(sm + L::kV + pn * BKV * kPanelBytes, &mv, kv_full,
+                          dcol + 64 * pn, col0, bhkv);
+        }
+      }
+      for (int t = 0; t < steps; ++t) {
+        const int bh = bhkv * p.group + t / nlive;
+        const int row0 = (lo + t % nlive) * BQ;
+        const int st = t % S;
+        hw::mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
+        if (lane == 0) {
+          hw::mbar_expect_tx(&full[st], 2 * tile_bytes(BQ, DP));
+          unsigned char* q_tile = sm + L::kQ + st * tile_bytes(BQ, DP);
+          unsigned char* do_tile = sm + L::kDO + st * tile_bytes(BQ, DP);
+#pragma unroll
+          for (int pn = 0; pn < DP / 64; ++pn) {
+            hw::tma_load_3d(q_tile + pn * BQ * kPanelBytes, &mq, &full[st],
+                            dcol + 64 * pn, row0, bh);
+            hw::tma_load_3d(do_tile + pn * BQ * kPanelBytes, &mdo, &full[st],
+                            dcol + 64 * pn, row0, bh);
+          }
+        }
+        float* sL = reinterpret_cast<float*>(sm + L::kL) + st * BQ;
+        float* sD = reinterpret_cast<float*>(sm + L::kD) + st * BQ;
+#pragma unroll
+        for (int k = 0; k < BQ / 32; ++k) {
+          const int r = row0 + lane + 32 * k;
+          const size_t at = r < p.R ? (size_t)bh * p.R + r : 0;
+          hw::cp_async4(sL + lane + 32 * k, p.lse + at, r < p.R);
+          hw::cp_async4(sD + lane + 32 * k, p.dterm + at, r < p.R);
+        }
+        hw::cp_async_arrive(&full[st]);
+      }
+    }
+  } else {
+    hw::setmaxnreg_inc<kConsumerRegs>();
+    const int w = wg, wt = tid % kWgThreads, wi = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r16 = wi * 16 + g;   // this thread's kv rows r16 and r16 + 8
+    hw::ClusterSum<BQ / 8> xs{hw::smem_addr(sm + L::kX + w * L::kPart),
+                              &x_full[w], &x_empty[w], rank, size, wt, lane};
+    unsigned char* qs_tile = sm + L::kQs;
+    auto q_base = [&](int st) {
+      return hw::opaque(hw::smem_addr(sm + L::kQ + st * tile_bytes(BQ, DP)));
+    };
+    auto do_base = [&](int st) {
+      return hw::opaque(hw::smem_addr(sm + L::kDO + st * tile_bytes(BQ, DP)));
+    };
+    hw::mbar_wait(kv_full, 0);
+
+    // This warpgroup's output panel: dV (warpgroup 1) or dK (0).
+    float acc[DP / 8][4];
+    zero_acc(acc);
+    // P^T or dS^T of the step whose dV / dK product is deferred into the
+    // next step (as K1 defers its PV): it runs under that step's partial
+    // product and exchange.
+    uint32_t pa[BQ / 16][4] = {};
+    const uint32_t a_base =
+        hw::opaque(hw::smem_addr(sm + (w == 1 ? L::kK : L::kV)));
+    for (int t = 0; t < steps; ++t) {
+      const int row0 = (lo + t % nlive) * BQ;
+      const int st = t % S, b = t & 1;
+      // The stage of the deferred product: step t - 1's, or before the
+      // first step (P^T = dS^T = 0) this step's.
+      const int ps = t > 0 ? (t - 1) % S : st;
+      const float* sL = reinterpret_cast<const float*>(sm + L::kL) + st * BQ;
+      const float* sD = reinterpret_cast<const float*>(sm + L::kD) + st * BQ;
+      hw::mbar_wait(&full[st], (t / S) & 1);
+      if (w == 1) {
+        // Qs = bf16(Q * scale * log2e); every product of the last step
+        // has completed.
+        scale_chunks(sm + L::kQ + st * tile_bytes(BQ, DP), qs_tile,
+                     tile_bytes(BQ, DP), p.scale2, wt, kWgThreads);
+        hw::fence_proxy_async();
+        hw::named_barrier(2, kWgThreads);
+      }
+      // This step's partial: warpgroup 1 S^T = K Qs^T, warpgroup 0 dP^T =
+      // V dO^T (A = the K / V tile, B = the Qs / dO tile, both K-major),
+      // over this CTA's panel; then the deferred dV += P^T dO (warpgroup
+      // 1) or dK += dS^T Q (warpgroup 0), A from registers, B = the dO /
+      // raw Q tile read MN-major: two commit groups.
+      const uint32_t b_base =
+          w == 1 ? hw::opaque(hw::smem_addr(qs_tile)) : do_base(st);
+      const uint32_t o_base = w == 1 ? do_base(ps) : q_base(ps);
+      float x[BQ / 8][4];
+      hw::fence_acc(x);
+      hw::fence_acc(acc);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hw::Wgmma<BQ>::template ss<0, 0>(x, desc_k(a_base, BKV, kk),
+                                         desc_k(b_base, BQ, kk), kk > 0);
+      hw::wgmma_commit();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        hw::Wgmma<DP>::template rs<1>(acc, pa[kc], desc_mn(o_base, BQ, kc),
+                                      1);
+      hw::wgmma_commit();
+      hw::wgmma_wait<1>();   // the partial; the deferred product may run
+      hw::fence_acc(x);
+      // The cluster's sum, in rank order.
+      xs.begin();
+      xs.send(x, 0);
+      xs.wait();
+      xs.sum(x, 0);
+      xs.end();
+      // S^T from warpgroup 1 to warpgroup 0 (a thread's chunks to the same
+      // thread of the other warpgroup: the fragments coincide); each
+      // reads it back from the buffer.
+      float4* s_buf =
+          reinterpret_cast<float4*>(sm + L::kSt + b * L::kPart) + wt;
+      if (w == 1) {
+        if (t >= 2) hw::mbar_wait(&s_empty[b], ((t >> 1) - 1) & 1);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n)
+          s_buf[n * kWgThreads] = make_float4(x[n][0], x[n][1], x[n][2],
+                                              x[n][3]);
+        __syncwarp();
+        if (lane == 0) hw::mbar_arrive(&s_full[b]);
+      } else {
+        hw::mbar_wait(&s_full[b], (t >> 1) & 1);
+      }
+      // Warpgroup 1: P^T; warpgroup 0: dS^T (from S^T and its dP^T); L
+      // (natural log, times log2e here, rounded before it meets S as
+      // everywhere else) and the D-term are per column; the masks only
+      // where the block is not wholly visible.
+      with_flags(!block_visible(p, row0, BQ, col0, BKV), p.cap2 > 0.f,
+                 [&](auto masked, auto capped) {
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+          const float4 s4 = s_buf[n * kWgThreads];
+          const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int rl = n * 8 + t4 * 2 + (e & 1);
+            bool vis = true;
+            if constexpr (decltype(masked)::value)
+              vis = visible(p, row0 + rl, col0 + r16 + 8 * (e >> 1));
+            float prob;
+            const float ds = grad_score_t<decltype(capped)::value>(
+                p, sv[e], x[n][e], __fmul_rn(sL[rl], kLog2e), sD[rl], vis,
+                prob);
+            x[n][e] = w == 1 ? prob : ds;
+          }
+        }
+      });
+      if (w == 0) {
+        __syncwarp();
+        if (lane == 0) hw::mbar_arrive(&s_empty[b]);
+      }
+      hw::wgmma_wait<0>();   // the deferred product
+      hw::fence_acc(acc);
+      hw::fence_frag(pa);
+      if (t > 0 && lane == 0) hw::mbar_arrive(&empty[ps]);
+      // This step's P^T or dS^T (rounded to bf16) for its deferred product.
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        acc_to_a(pa[kc], x[2 * kc], x[2 * kc + 1]);
+    }
+    if (steps > 0) {
+      // The last step's product.
+      const int last = (steps - 1) % S;
+      hw::fence_acc(acc);
+      hw::wgmma_fence();
+      const uint32_t o_base = w == 1 ? do_base(last) : q_base(last);
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        hw::Wgmma<DP>::template rs<1>(acc, pa[kc], desc_mn(o_base, BQ, kc),
+                                      1);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_acc(acc);
+      hw::fence_frag(pa);
+      if (lane == 0) hw::mbar_arrive(&empty[last]);
+    }
+
+    float* out = w == 1 ? p.dv : p.dk;
+    const size_t kvoff = (size_t)bhkv * p.C * p.D;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = col0 + r16 + 8 * (e >> 1);
+        const int d = dcol + n * 8 + t4 * 2 + (e & 1);
+        if (c < p.C && d < p.D) out[kvoff + (size_t)c * p.D + d] = acc[n][e];
+      }
+  }
+  // No CTA leaves while the other may still write its slots or arrive on
+  // its barriers.
+  __syncwarp();
+  hw::cluster_sync();
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int grid, int threads, size_t smem,
                    const BwdParams& p, cudaStream_t stream) {
@@ -1424,6 +1742,27 @@ cudaError_t launch_kv_wgmma(int bhkv, const BwdParams& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The cluster kernel: two CTAs a cluster, CTA p on head-dim panel p of
+// DP columns; grid.x = kv blocks x heads x panels, a tile's panels
+// adjacent, the first kv blocks (the longest causal walks) first.
+template <int BQ, int DP>
+cudaError_t launch_kv_cluster(int bhkv, int panels, const BwdParams& p,
+                              cudaStream_t s) {
+  using L = KvSplitSmem<BQ, DP>;
+  if (panels != 2) return cudaErrorInvalidValue;
+  CUtensorMap mq, mdo, mk, mv;
+  const int bh = bhkv * p.group;
+  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, BQ) ||
+      !hw::tile_map_bf16(&mdo, p.d_o, p.D, p.R, bh, BQ) ||
+      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, L::kBKV) ||
+      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, L::kBKV))
+    return cudaErrorInvalidValue;
+  static int fits[9] = {};
+  return hw::launch_clusters(flash_bwd_kv_split<BQ, DP>,
+                             (p.C + L::kBKV - 1) / L::kBKV * bhkv * panels,
+                             panels, L::kBytes, s, fits, p, mq, mdo, mk, mv);
+}
+
 // TMA maps these operands: bf16 rows of a multiple of 16 bytes, 16-byte
 // aligned bases.
 bool tma_ok(int D, std::initializer_list<const void*> ptrs) {
@@ -1499,9 +1838,10 @@ extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// K4. dtype, kernel and panels as for K3; the D-term is K3's. (kernel,
-// block_q, block_kv, block_d) must be a row of ops/params.py's
-// flash_bwd_kv tables.
+// K4. dtype, kernel and panels as for K3, and kernel 3 the cluster kernel
+// over `panels` head-dim panels, one CTA of a cluster each; the D-term is
+// K3's. (kernel, block_q, block_kv, block_d) must be a row of
+// ops/params.py's flash_bwd_kv tables.
 extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 const void* d_o, const void* lse,
                                 const void* dterm, void* dk, void* dv,
@@ -1540,6 +1880,13 @@ extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
     if (block_q == 64 && block_d == 64) return launch_kv_wgmma<64, 64>(bhkv, p, s);
     if (block_q == 64 && block_d == 128)
       return launch_kv_wgmma<64, 128>(bhkv, p, s);
+    return cudaErrorInvalidValue;
+  }
+  if (kernel == 3) {
+    if (block_q != 32 || block_kv != 64 || !tma_ok(D, {q, k, v, d_o}))
+      return cudaErrorInvalidValue;
+    if (block_d == 192) return launch_kv_cluster<32, 192>(bhkv, panels, p, s);
+    if (block_d == 256) return launch_kv_cluster<32, 256>(bhkv, panels, p, s);
     return cudaErrorInvalidValue;
   }
   if (kernel == 2) {

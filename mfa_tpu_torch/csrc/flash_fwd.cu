@@ -64,21 +64,48 @@
 //   heads of one q-block adjacent, so a kv group's CTAs share its K/V
 //   tiles in L2.
 //
+// Past D = 256, bf16 rows TMA can map (D % 8 == 0, 16-byte-aligned
+// bases and O; rows "wgmma_dblk"): the same kernel on a thread-block
+// cluster split across the head dim (CL). A cluster of P CTAs owns one
+// (batch * head, q-block) tile; CTA p loads panel p (block_d columns from
+// p * block_d; columns past D arrive as zeros) of Q, K and V by TMA and
+// owns that panel of O. Per kv block each consumer warpgroup forms its
+// partial S_p = Qs_p K_p^T on wgmma and pushes it into its slot of every
+// other CTA's shared memory by st.async (hopper.cuh ClusterSum: the
+// bytes are counted on that CTA's mbarrier, which is armed locally each
+// block; a plain remote arrival frees the slot), then sums the P
+// partials of its rows in rank order 0..P-1 while the previous block's PV
+// runs. Every CTA so holds the same bits of S, and with them the same
+// soft-cap, masks, row max, sum and P: S is formed once a (q-block, kv
+// block) pair, as mfa_tpu's _fwd_kernel does (flash_fwd.py:180-260), with
+// no atomics; O_p += P V_p on wgmma (N = block_d) and rank 0 writes L.
+// The walk, masks and ping-pong are the D <= 128 kernel's, the same in
+// every CTA of a cluster; clusters start and end on barrier.cluster, so
+// no CTA leaves while another may still write its slots.
+// - Panels: two CTAs of 192 (D <= 384) or 256 (D <= 512) columns, not 3-4
+//   of 128: each CTA reads P - 1 partials of S (64 x 64 fp32 a warpgroup
+//   and block) over the SM-to-SM network, which bounds the kernel; in
+//   utils/bwd_tuning.py's sweep on the H100 the 128-wide clusters took
+//   2.1-2.7x the time of the wide ones. O at 64 x 256 fp32 is 128
+//   registers a consumer thread, within setmaxnreg's 240.
+// - What bounds it at D 384 / 512 (B 1, H 8, N 4096): 4 D FLOP a visible
+//   pair, 206 / 275 GFLOP non-causal (0.21 / 0.28 ms at the bf16 peak)
+//   against ~0.1 GB of operands: bound by operations; measured at
+//   4.1-5.0x that bound (PERF.md), the waits for the partner's partials
+//   of S its largest cost.
+// - The exchange slots (two warpgroups x P - 1 slots of 64 x block_kv
+//   fp32) sit between Q and the K/V ring (fwd_layout); the ring keeps
+//   2-3 stages.
+//
 // Other rows keep the first cut: bf16 at D = 256, D % 8 != 0 or a base not
 // 16-byte aligned runs warp-level mma.sync (m16n8k16) from shared-memory
 // tiles loaded synchronously (rows "mma"); fp32 inputs take a plain-FMA
 // kernel: the fp32 budget (2e-5) rules out TF32 tensor cores. Both use the
-// same flat grid.
-//
-// Past D = 256 (rows "mma_dblk", "fma_dblk") the same two kernels run
-// D-blocked (DBLK; see flash_fwd_bf16): a CTA per block_d panel of O. At
-// the JAX package's large-D class (B 1, H 8, N 4096, D 384 or 512) K1 does
-// 4 D FLOP a visible pair, ~206 GFLOP non-causal at D 384 (~0.21 ms at
-// the bf16 peak), against ~0.1 GB of operands: bound by operations. The
-// first cut pays S once a panel (1.5-2x the useful FLOPs at the measured
-// rows) and re-reads Q from L2 each kv step, on mma.sync; its panels load
-// by cp.async or four 16-byte chunks a thread in flight
-// (common.cuh::load_panel), which halved its time.
+// same flat grid. Past D = 256 they run D-blocked (DBLK; rows "mma_dblk",
+// "fma_dblk"; see flash_fwd_bf16): a CTA per block_d panel of O, S summed
+// once a panel over panels of Q and K streamed by cp.async, for what the
+// cluster kernel cannot take (D % 8 != 0, a misaligned base, D > 512)
+// and fp32.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -496,25 +523,41 @@ flash_fwd_f32(FwdParams p) {
 // ---------------------------------------------------------------------------
 constexpr int kBQ = 128;   // query rows a CTA, 64 a consumer warpgroup
 
-// Shared memory: Q [kBQ x DP], `stages` K tiles, `stages` V tiles
-// [bkv x DP], then the mbarriers q_full, full_k[stages], full_v[stages],
-// empty[stages] (ops/params.py mirrors this).
+// Shared memory: Q [kBQ x DP], the cluster kernel's exchange slots (two
+// consumer warpgroups x `peers` slots of 64 x bkv fp32), `stages` K
+// tiles, `stages` V tiles [bkv x DP], then the mbarriers q_full,
+// full_k[stages], full_v[stages], empty[stages] and, with peers, each
+// warpgroup's exchange full and empty (ops/params.py mirrors this).
 struct FwdLayout {
-  int k, v, bar, bytes;
+  int x, k, v, bar, bytes;
 };
 
-__host__ __device__ constexpr int fwd_stages(int bkv, int dp, int most) {
-  return ring_stages(tile_bytes(kBQ, dp) + 8 + kAlignSlack,
+// The most head-dim panels (CTAs of a cluster) of the cluster kernel at
+// panel width dp: its exchange slots are sized for them (ops/params.py's
+// DBLK_MAX_PANELS).
+__host__ __device__ constexpr int dblk_max_panels(int dp) {
+  return dp == 128 ? 4 : 2;
+}
+
+__host__ __device__ constexpr int fwd_exchange_bytes(int bkv, int peers) {
+  return 2 * peers * 64 * bkv * 4;
+}
+
+__host__ __device__ constexpr int fwd_stages(int bkv, int dp, int most,
+                                             int peers = 0) {
+  return ring_stages(tile_bytes(kBQ, dp) + fwd_exchange_bytes(bkv, peers) +
+                         8 + (peers ? 32 : 0) + kAlignSlack,
                      2 * tile_bytes(bkv, dp) + 24, most, 1);
 }
 
-__host__ __device__ inline FwdLayout fwd_layout(int bkv, int dp,
-                                                int stages) {
+__host__ __device__ inline FwdLayout fwd_layout(int bkv, int dp, int stages,
+                                                int peers = 0) {
   FwdLayout L{};
-  L.k = tile_bytes(kBQ, dp);
+  L.x = tile_bytes(kBQ, dp);
+  L.k = L.x + fwd_exchange_bytes(bkv, peers);
   L.v = L.k + stages * tile_bytes(bkv, dp);
   L.bar = L.v + stages * tile_bytes(bkv, dp);
-  L.bytes = L.bar + 8 * (1 + 3 * stages) + kAlignSlack;
+  L.bytes = L.bar + 8 * (1 + 3 * stages + (peers ? 4 : 0)) + kAlignSlack;
   return L;
 }
 
@@ -613,23 +656,38 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 8][4],
   hw::wgmma_commit();
 }
 
-template <int BKV, int DP>
+// CL: the cluster kernel past D = 256 (rows "wgmma_dblk"; see the note at
+// the top): CTA p of a cluster of P owns head-dim panel p (DP columns
+// from p * DP) of Q, K, V and O; S is the sum of the P panels' partials
+// (ClusterSum), the same bits in every CTA.
+template <int BKV, int DP, bool CL = false>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv) {
   constexpr int KV_TILE = tile_bytes(BKV, DP);
   const int S = p.stages;
-  const FwdLayout L = fwd_layout(BKV, DP, S);
+  const int peers = CL ? dblk_max_panels(DP) - 1 : 0;
+  const FwdLayout L = fwd_layout(BKV, DP, S, peers);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align_atom(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L.bar);
   uint64_t* full_k = q_full + 1;
   uint64_t* full_v = full_k + S;
   uint64_t* empty = full_v + S;
+  uint64_t* x_full = empty + S;   // [warpgroup] (CL)
+  uint64_t* x_empty = x_full + 2;
 
-  int i, bh;
-  tile_of((p.R + kBQ - 1) / kBQ, i, bh);
+  int i, bh, rank = 0, size = 1;
+  if constexpr (CL) {
+    rank = hw::cluster_rank();   // = blockIdx.x % size: the panel
+    size = hw::cluster_size();
+    int panel;
+    panel_tile_of((p.R + kBQ - 1) / kBQ, size, i, bh, panel);
+  } else {
+    tile_of((p.R + kBQ - 1) / kBQ, i, bh);
+  }
+  const int dcol = rank * DP;   // this CTA's head-dim panel starts here
   const int bhkv = bh / p.group;
   const int tid = threadIdx.x, wg = hw::warpgroup_index();
   // The CTA's walk. When no row of the CTA sees a key it walks block 0
@@ -646,9 +704,18 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
       hw::mbar_init(&full_v[s], 1);
       hw::mbar_init(&empty[s], 8);   // every consumer warp
     }
+    if constexpr (CL) {
+      for (int w = 0; w < 2; ++w) {
+        hw::mbar_init(&x_full[w], 1);                 // the local arming
+        hw::mbar_init(&x_empty[w], 4 * (size - 1));   // the others' warps
+      }
+    }
     hw::mbar_init_fence();
   }
-  __syncthreads();
+  if constexpr (CL)
+    hw::cluster_sync();
+  else
+    __syncthreads();
 
   if (wg == 2) {
     // Producer: Q once, then K and V of each block of the CTA's walk.
@@ -657,8 +724,8 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
       hw::mbar_expect_tx(q_full, tile_bytes(kBQ, DP));
 #pragma unroll
       for (int pn = 0; pn < DP / 64; ++pn)
-        hw::tma_load_3d(sm + pn * kBQ * kPanelBytes, &mq, q_full, 64 * pn,
-                        i * kBQ, bh);
+        hw::tma_load_3d(sm + pn * kBQ * kPanelBytes, &mq, q_full,
+                        dcol + 64 * pn, i * kBQ, bh);
       for (int j = lo_c; j <= hi_c; ++j) {
         const int t = j - lo_c, st = t % S;
         hw::mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
@@ -668,12 +735,12 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
 #pragma unroll
         for (int pn = 0; pn < DP / 64; ++pn)
           hw::tma_load_3d(k_tile + pn * BKV * kPanelBytes, &mk, &full_k[st],
-                          64 * pn, j * BKV, bhkv);
+                          dcol + 64 * pn, j * BKV, bhkv);
         hw::mbar_expect_tx(&full_v[st], KV_TILE);
 #pragma unroll
         for (int pn = 0; pn < DP / 64; ++pn)
           hw::tma_load_3d(v_tile + pn * BKV * kPanelBytes, &mv, &full_v[st],
-                          64 * pn, j * BKV, bhkv);
+                          dcol + 64 * pn, j * BKV, bhkv);
       }
     }
   } else {
@@ -702,6 +769,11 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
     auto v_base = [&](int stage) {
       return hw::opaque(hw::smem_addr(sm + L.v + stage * KV_TILE));
     };
+    // The exchange of S's partials with this warpgroup's twins in the
+    // other CTAs of the cluster: a 16-byte chunk an n-tile of S.
+    using Sum = hw::ClusterSum<BKV / 8>;
+    Sum xs{hw::smem_addr(sm + L.x + w * peers * Sum::kSlotBytes), &x_full[w],
+           &x_empty[w], rank, size, wt, lane};
 
     float o[DP / 8][4];
     float s[BKV / 8][4];
@@ -743,6 +815,15 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
       if (p.pingpong) hw::named_arrive(their_turn, 2 * kWgThreads);
       hw::wgmma_wait<1>();   // S; the PV may still run
       hw::fence_acc(s);
+      if constexpr (CL) {
+        // This CTA's S is its panel's partial: the cluster's sum, in rank
+        // order, under the PV.
+        xs.begin();
+        xs.send(s, 0);
+        xs.wait();
+        xs.sum(s, 0);
+        xs.end();
+      }
       float corr[2];
       const int col0 = (lo_c + t) * BKV;
       with_flags(!block_visible(p, rw0, col0, BKV), p.cap2 > 0.f,
@@ -797,7 +878,7 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
         if (r >= p.R) continue;
 #pragma unroll
         for (int n = 0; n < DP / 8; ++n) {
-          const int d = n * 8 + t4 * 2;
+          const int d = dcol + n * 8 + t4 * 2;
           if (d >= p.D) continue;
           float2 val = make_float2(0.f, 0.f);
           if (!empty_row[h])
@@ -831,14 +912,16 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
       constexpr int CH = DP / 8;   // 16-byte chunks a row
       for (int idx = wt; idx < 64 * CH; idx += kWgThreads) {
         const int rl = idx / CH, c = idx % CH, r = rw0 + rl;
-        if (r < p.R && c * 8 < p.D)
-          *reinterpret_cast<uint4*>(og + (row_base + r) * p.D + c * 8) =
+        if (r < p.R && dcol + c * 8 < p.D)
+          *reinterpret_cast<uint4*>(og + (row_base + r) * p.D + dcol +
+                                    c * 8) =
               *reinterpret_cast<const uint4*>(
                   q_rows + (c / 8) * kBQ * kPanelBytes + rl * kPanelBytes +
                   ((c % 8) ^ (rl % 8)) * 16);
       }
     }
-    if (t4 == 0) {
+    // L: every CTA of a cluster holds the same m and l; rank 0 writes it.
+    if (t4 == 0 && rank == 0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = ra + 8 * h;
@@ -847,6 +930,12 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
               empty_row[h] ? 0.f : (m[h] + log2f(l_safe[h])) * kLn2;
       }
     }
+  }
+  // No CTA leaves while another may still read its slots or arrive on its
+  // barriers.
+  if constexpr (CL) {
+    __syncwarp();
+    hw::cluster_sync();
   }
 }
 
@@ -904,6 +993,28 @@ cudaError_t launch_wgmma(int bh, FwdParams p, int most, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The cluster kernel: `panels` CTAs a cluster, CTA p on head-dim panel p
+// of DP columns; grid.x = tiles x panels, a tile's panels adjacent.
+template <int BKV, int DP>
+cudaError_t launch_cluster(int bh, int panels, FwdParams p, int most,
+                           cudaStream_t s) {
+  constexpr int kPeers = dblk_max_panels(DP) - 1;
+  if (panels < 2 || panels > kPeers + 1) return cudaErrorInvalidValue;
+  p.stages = fwd_stages(BKV, DP, most, kPeers);
+  if (p.stages < 2) return cudaErrorInvalidValue;
+  const FwdLayout L = fwd_layout(BKV, DP, p.stages, kPeers);
+  CUtensorMap mq, mk, mv;
+  const int bhkv = bh / p.group;
+  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, kBQ) ||
+      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
+      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV))
+    return cudaErrorInvalidValue;
+  static int fits[9] = {};
+  return hw::launch_clusters(flash_fwd_wgmma<BKV, DP, true>,
+                             (p.R + kBQ - 1) / kBQ * bh * panels, panels,
+                             L.bytes, s, fits, p, mq, mk, mv);
+}
+
 }  // namespace
 
 // dtype: 0 = fp32 in/out, 1 = bf16 in/out, 2 = bf16 in, fp32 out. kernel:
@@ -911,8 +1022,9 @@ cudaError_t launch_wgmma(int bh, FwdParams p, int most, cudaStream_t s) {
 // ring holds as many stages as fit, at most `stages`, and whose consumer
 // warpgroups take turns when `pingpong` != 0, 2 the D-blocked kernels
 // (mma.sync / FMA) over `panels` = ceil(D / block_d) head-dim panels (1
-// for the others). (kernel, block_q, block_kv, block_d) must be a row of
-// ops/params.py's flash_fwd tables.
+// for the others), 3 the cluster kernel over `panels` head-dim panels,
+// one CTA of a cluster each (ring and turns as for 1). (kernel, block_q,
+// block_kv, block_d) must be a row of ops/params.py's flash_fwd tables.
 extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int group, int R,
                              int C, int D, int panels, int causal,
@@ -970,6 +1082,19 @@ extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
       return launch_wgmma<64, 128>(bh, p, stages, s);
     if (block_kv == 128 && block_d == 128)
       return launch_wgmma<128, 128>(bh, p, stages, s);
+    return cudaErrorInvalidValue;
+  }
+  if (kernel == 3) {
+    // The cluster kernel: TMA maps, 16-byte O stores, as for kernel 1.
+    if (block_q != kBQ || block_kv != 64 || !p.vec ||
+        reinterpret_cast<uintptr_t>(o) % 16 != 0)
+      return cudaErrorInvalidValue;
+    if (block_d == 128)
+      return launch_cluster<64, 128>(bh, panels, p, stages, s);
+    if (block_d == 192)
+      return launch_cluster<64, 192>(bh, panels, p, stages, s);
+    if (block_d == 256)
+      return launch_cluster<64, 256>(bh, panels, p, stages, s);
     return cudaErrorInvalidValue;
   }
   if (kernel == 2) {

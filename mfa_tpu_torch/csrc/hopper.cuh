@@ -79,6 +79,81 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 }
 
 // ---------------------------------------------------------------------------
+// Thread-block clusters
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of every CTA of the cluster: shared-memory writes and
+// mbarrier initialisations before it are visible to the whole cluster
+// after it, and no CTA leaves while another may still reach its shared
+// memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of shared::cta address `addr` in the CTA of
+// rank `rank` (every CTA of a kernel lays its shared memory out alike).
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// An arrival on an mbarrier of another CTA of the cluster (plain: a
+// .release.cluster arrival costs a cluster-wide fence; ClusterSum's
+// arrivals only follow reads whose values this thread has already used).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t cluster_bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   cluster_bar)
+               : "memory");
+}
+
+// A 16-byte store into the shared memory of a CTA of the cluster that
+// counts its bytes on that CTA's mbarrier `cluster_bar` (as TMA does).
+__device__ __forceinline__ void st_async_v4(uint32_t cluster_addr,
+                                            const float (&v)[4],
+                                            uint32_t cluster_bar) {
+  asm volatile(
+      "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(cluster_addr),
+      "r"(__float_as_uint(v[0])), "r"(__float_as_uint(v[1])),
+      "r"(__float_as_uint(v[2])), "r"(__float_as_uint(v[3])),
+      "r"(cluster_bar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what other CTAs of the cluster
+// wrote before their arrivals (or stored by st_async_v4) is visible after.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 0x4000000;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
 // The box of a 3-D map at (c0, c1, c2) (innermost first) into dst;
@@ -389,6 +464,92 @@ struct Wgmma<256> {
         "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
         : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
+  // D (64 x 256) += A (registers, an mma.sync-style fragment) * B (smem).
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[32][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  // D (64 x 192) += A (registers, an mma.sync-style fragment) * B (smem).
+  template <int TB>
+  static __device__ __forceinline__ void rs(float (&d)[24][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
 };
 
 // Keeps register A fragments of an asynchronous wgmma alive (and
@@ -489,6 +650,91 @@ __device__ __forceinline__ void zero_acc(float (&d)[NT][4]) {
     for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
 }
 
+// The head-dim-split kernels (K1 and K4 past D = 256): a cluster of
+// `size` CTAs, CTA p holding a consumer warpgroup's partial accumulator
+// over head-dim panel p; ClusterSum gives each the sum over the cluster
+// in rank order 0, 1, ..., so every CTA holds the same bits. A consumer
+// warpgroup's area has one slot for each other CTA, NCH 16-byte chunks a
+// thread, laid out [slot][chunk][thread] (a warp's 16-byte accesses are
+// conflict-free). Each CTA pushes its chunks into its slot of every
+// other CTA by st.async, which counts the bytes on that CTA's `full`
+// mbarrier (one arrival: the local arming with the bytes expected);
+// `empty` takes four arrivals of each other CTA (its warps have read the
+// slot this CTA fills). No atomics; one exchange in flight.
+template <int NCH>
+struct ClusterSum {
+  uint32_t slots;   // shared::cta address of this warpgroup's area
+  uint64_t* full;
+  uint64_t* empty;
+  int rank, size, wt, lane;
+  int step = 0;     // exchanges begun
+
+  static constexpr int kSlotBytes = NCH * kWgThreads * 16;
+
+  __device__ __forceinline__ uint32_t chunk(int slot, int c) const {
+    return slots + ((slot * NCH + c) * kWgThreads + wt) * 16;
+  }
+
+  // The other CTAs have read this CTA's previous chunks, and `full`
+  // expects this exchange's bytes.
+  __device__ __forceinline__ void begin() {
+    if (step > 0) mbar_wait(empty, (step - 1) & 1);
+    if (wt == 0) mbar_expect_tx(full, (size - 1) * kSlotBytes);
+  }
+
+  // Chunks [c0, c0 + N) of this thread (a[k], one chunk each) into this
+  // CTA's slot of every other CTA.
+  template <int N>
+  __device__ __forceinline__ void send(const float (&a)[N][4], int c0) {
+    for (int c = 0; c < size; ++c) {
+      if (c == rank) continue;
+      const uint32_t bar = map_rank(smem_addr(full), c);
+      const uint32_t at = map_rank(chunk(rank - (rank > c), c0), c);
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        st_async_v4(at + k * kWgThreads * 16, a[k], bar);
+    }
+  }
+
+  __device__ __forceinline__ void wait() {
+    mbar_wait_cluster(full, step & 1);
+  }
+
+  // a[k] = the sum of chunk c0 + k over ranks 0, 1, ..., size - 1 in
+  // that order (this CTA's own from a).
+  template <int N>
+  __device__ __forceinline__ void sum(float (&a)[N][4], int c0) const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float acc[4];
+      for (int c = 0; c < size; ++c) {
+        float x[4] = {a[k][0], a[k][1], a[k][2], a[k][3]};
+        if (c != rank) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              __cvta_shared_to_generic(chunk(c - (c > rank), c0 + k)));
+          x[0] = v.x;
+          x[1] = v.y;
+          x[2] = v.z;
+          x[3] = v.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] = c == 0 ? x[e] : acc[e] + x[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[k][e] = acc[e];
+    }
+  }
+
+  // This warp has read the other CTAs' chunks.
+  __device__ __forceinline__ void end() {
+    __syncwarp();
+    if (lane == 0)
+      for (int c = 0; c < size; ++c)
+        if (c != rank) mbar_arrive_remote(map_rank(smem_addr(empty), c));
+    ++step;
+  }
+};
+
 // f(masked, capped) with both flags as compile-time constants.
 template <typename F>
 __device__ __forceinline__ void with_flags(bool masked, bool capped, F&& f) {
@@ -557,6 +803,43 @@ inline bool tile_map_bf16(CUtensorMap* map, const void* base, int n0, int n1,
   return tile_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, n0, n1, n2,
                      (uint64_t)n0 * 2, (uint64_t)n0 * n1 * 2, 64, rows, 1,
                      CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// `kernel` over `grid` CTAs of kWgmmaThreads threads and `smem` bytes of
+// dynamic shared memory, in clusters of `panels` CTAs along x. Whether
+// such a cluster fits the device at all (`panels` SMs of one GPC with the
+// shared memory each needs) is asked once per cluster size (`known`, the
+// caller's, caches the answer: 0 not asked, 1 fits, -1 does not); a
+// cluster that cannot fit is refused before the launch.
+template <typename Kernel, typename... Args>
+inline cudaError_t launch_clusters(Kernel kernel, int grid, int panels,
+                                   int smem, cudaStream_t stream,
+                                   int (&known)[9], Args... args) {
+  if (panels < 1 || panels > 8) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = panels;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kWgmmaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (known[panels] == 0) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    known[panels] = clusters > 0 ? 1 : -1;
+  }
+  if (known[panels] < 0) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // CTAs of a persistent grid over `tiles` tiles: one a streaming

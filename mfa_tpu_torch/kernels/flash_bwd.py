@@ -14,11 +14,14 @@ TMA + wgmma kernels, the others the first-cut mma.sync or FMA kernels.
 A wgmma row whose operands a TMA tensor map cannot hold (a base address
 not 16-byte aligned) runs the mma.sync row of the same head dim
 (:func:`~mfa_tpu_torch.ops.descriptors.launch_row`, shared with K1).
-Above D = 256 the rows are D-blocked (``mma_dblk``, ``fma_dblk``): a
-launch covers dQ (K3) or dK and dV (K4) in ceil(D / block_d) head-dim
-panels, one CTA each, as ``mfa_tpu``'s kernels page D in ``block_d``
-slices (flash_bwd.py:175-235, :530-656). Blocks, heads and panels share
-grid.x, so batch * heads has no 65535 limit.
+Above D = 256 a launch covers dQ (K3) or dK and dV (K4) in ceil(D /
+block_d) head-dim panels, as ``mfa_tpu``'s kernels page D in ``block_d``
+slices (flash_bwd.py:175-235, :530-656): K4's bf16 rows up to D = 512
+name the cluster kernel (``wgmma_dblk``: one CTA of a two-CTA cluster a
+panel, S^T and dP^T summed across the cluster), whose row moves to
+``mma_dblk`` where TMA cannot map the operands; K3 and the rest run the
+D-blocked rows (``mma_dblk``, ``fma_dblk``: one CTA a panel). Blocks,
+heads and panels share grid.x, so batch * heads has no 65535 limit.
 
 Operands: q, o, dO [BH, R, D]; k, v [BH / group, C, D] (query head bh
 reads kv head bh // group); L and the D-term [BH, R] fp32. dO is in the
@@ -119,9 +122,9 @@ def _check(q3, k3, v3, do3, kd, group, o3=None):
         raise ValueError("sliding_window must be >= 1")
 
 
-def _check_cuda(kd, tensors: dict, vectors: dict) -> int:
-    """Device and contiguity for a kernel launch; returns the head-dim
-    panels it covers."""
+def _check_cuda(kd, tensors: dict, vectors: dict):
+    """Device and contiguity for a kernel launch; returns the parameter
+    row it runs and the head-dim panels it covers."""
     first = next(iter(tensors.values()))
     if not first.is_cuda:
         raise ValueError(f"flash backward: unsupported device {first.device}")
@@ -133,7 +136,9 @@ def _check_cuda(kd, tensors: dict, vectors: dict) -> int:
     for name, t in vectors.items():
         if t.dtype != torch.float32 or t.shape != first.shape[:2]:
             raise ValueError(f"{name} must be fp32 [BH, R]")
-    return head_dim_panels(kd, first.shape[2])
+    d = first.shape[2]
+    row = launch_row(kd, d, [t for name, t in tensors.items() if name != "o"])
+    return row, head_dim_panels(row, d)
 
 
 def _dtype_code(t):
@@ -159,11 +164,10 @@ def flash_bwd_q(q3, k3, v3, o3, do3, lse, kd: AttentionKernelDescriptor, *,
         out[1].copy_(dterm)
         return tuple(out)
     bh, r, d = q3.shape
-    panels = _check_cuda(kd, dict(q=q3, k=k3, v=v3, o=o3, do=do3),
-                         dict(lse=lse))
+    row, panels = _check_cuda(kd, dict(q=q3, k=k3, v=v3, o=o3, do=do3),
+                              dict(lse=lse))
     dq, dterm = output_buffers(out, [(bh, r, d), (bh, r)],
                                [torch.float32] * 2, q3.device)
-    row = launch_row(kd, d, (q3, k3, v3, do3))
     build.library().call(
         "mfa_flash_bwd_q", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         o3.data_ptr(), do3.data_ptr(), lse.data_ptr(), dq.data_ptr(),
@@ -194,11 +198,10 @@ def flash_bwd_kv(q3, k3, v3, do3, lse, dterm,
         return tuple(out)
     bh, r, d = q3.shape
     bhkv, c, _ = k3.shape
-    panels = _check_cuda(kd, dict(q=q3, k=k3, v=v3, do=do3),
-                         dict(lse=lse, dterm=dterm))
+    row, panels = _check_cuda(kd, dict(q=q3, k=k3, v=v3, do=do3),
+                              dict(lse=lse, dterm=dterm))
     dk, dv = output_buffers(out, [(bhkv, c, d), (bhkv, c, d)],
                             [torch.float32] * 2, q3.device)
-    row = launch_row(kd, d, (q3, k3, v3, do3))
     build.library().call(
         "mfa_flash_bwd_kv", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
         do3.data_ptr(), lse.data_ptr(), dterm.data_ptr(), dk.data_ptr(),

@@ -13,11 +13,15 @@ TMA + wgmma kernel (its ring depth and ping-pong from
 call), the others the first-cut mma.sync or FMA kernels; a wgmma row
 whose operands TMA cannot map takes the mma.sync row of its head dim
 (:func:`~mfa_tpu_torch.ops.descriptors.launch_row`). Above D = 256 the
-rows are D-blocked (``mma_dblk``, ``fma_dblk``): the launch covers O in
-ceil(D / block_d) head-dim panels, one CTA each, as ``mfa_tpu``'s
+launch covers O in ceil(D / block_d) head-dim panels, as ``mfa_tpu``'s
 ``_fwd_kernel`` pages D in ``block_d`` slices (flash_fwd.py:180-252,
-:413-456). Blocks, heads and panels share grid.x, so batch * heads has
-no 65535 limit.
+:413-456): bf16 rows up to D = 512 name the cluster kernel
+(``wgmma_dblk``: one CTA of a thread-block cluster a panel, S summed
+across the cluster, so formed once a block pair), and a ``wgmma_dblk``
+row whose operands TMA cannot map takes the D-blocked mma.sync row
+(``mma_dblk``: one CTA a panel, S summed over streamed panels in each),
+which also runs past D = 512; fp32 runs ``fma_dblk``. Blocks, heads and
+panels share grid.x, so batch * heads has no 65535 limit.
 
 Operands: q [BH, R, D]; k, v [BH / group, C, D] (query head bh reads kv
 head bh // group); outputs O [BH, R, D] and the natural-log logsumexp
@@ -149,10 +153,10 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
             raise ValueError(f"flash_fwd: {name} must be contiguous")
     bh, r, d = q3.shape
     c = k3.shape[1]
-    panels = head_dim_panels(kd, d)
     o, lse = output_buffers(out, [(bh, r, d), (bh, r)],
                             [o_dtype, torch.float32], q3.device)
     row = launch_row(kd, d, (q3, k3, v3, o))
+    panels = head_dim_panels(row, d)
     dtype_code = (0 if q3.dtype == torch.float32
                   else 2 if o_dtype == torch.float32 else 1)
     cap2 = (kd.logit_soft_cap * LOG2E if kd.logit_soft_cap is not None

@@ -145,17 +145,24 @@ class AttentionKernelDescriptor:
 
 
 # The C entries' kernel codes: the first-cut kernels, the wgmma kernels,
-# the D-blocked kernels.
-KERNEL_CODES = {"": 0, "mma": 0, "wgmma": 1, "mma_dblk": 2, "fma_dblk": 2}
+# the D-blocked kernels, the head-dim-split cluster kernels.
+KERNEL_CODES = {"": 0, "mma": 0, "wgmma": 1, "mma_dblk": 2, "fma_dblk": 2,
+                "wgmma_dblk": 3}
 
 
 def head_dim_panels(row, head_dim: int) -> int:
     """The head-dim panels a flash kernel's launch covers at ``row`` (a
-    parameter row or kernel descriptor; ``launch_row`` keeps its block_d):
-    D / block_d rounded up for a D-blocked row, else 1, and then D must
-    fit block_d."""
+    parameter row or kernel descriptor): D / block_d rounded up for a
+    D-blocked row (for ``wgmma_dblk`` the CTAs of a cluster, at most
+    ``params.dblk_max_panels``), else 1, and then D must fit block_d."""
     if row.kernel in params_mod.DBLK_KERNELS:
-        return -(-head_dim // row.block_d)
+        panels = -(-head_dim // row.block_d)
+        if (row.kernel == "wgmma_dblk"
+                and panels > params_mod.dblk_max_panels(row.block_d)):
+            raise ValueError(f"head dim {head_dim} needs {panels} panels of "
+                             f"{row.block_d}, more than the cluster kernel's "
+                             f"{params_mod.dblk_max_panels(row.block_d)}")
+        return panels
     if head_dim > row.block_d:
         raise ValueError(f"head dim {head_dim} exceeds the kernel's "
                          f"{row.block_d}")
@@ -165,13 +172,14 @@ def head_dim_panels(row, head_dim: int) -> int:
 def launch_row(kd: AttentionKernelDescriptor, head_dim: int,
                tensors) -> params_mod.ParameterRow:
     """The parameter row a flash kernel's launch runs: the descriptor's,
-    except that a wgmma row whose operands TMA cannot map (a row of
-    ``head_dim`` bf16 values that is no multiple of 16 bytes, or a base
-    address that is not 16-byte aligned) takes the mma.sync row of its
-    head dim."""
+    except that a wgmma or wgmma_dblk row whose operands TMA cannot map (a
+    row of ``head_dim`` bf16 values that is no multiple of 16 bytes, or a
+    base address that is not 16-byte aligned) takes the mma.sync row of
+    its head dim (mma, or mma_dblk past D = 256). The launch covers
+    ``head_dim_panels(row, head_dim)`` panels of the row it returns."""
     row = params_mod.ParameterRow(kd.head_dim, kd.block_q, kd.block_kv,
                                   kd.block_d, kd.kernel)
-    if kd.kernel == "wgmma" and (head_dim % 8 or any(
+    if kd.kernel in ("wgmma", "wgmma_dblk") and (head_dim % 8 or any(
             t.data_ptr() % 16 for t in tensors)):
         row = params_mod.select_row(params_mod.parameter_table(
             _TABLE[kd.kernel_type], "bf16_mma"), head_dim)

@@ -13,15 +13,18 @@ The matrix-product kernels (K7 ``gemm``, K8
 ``int4_matmul``) choose among a few compiled tiles (:data:`GEMM_TILES`,
 :data:`QMM_TILES`) by the problem's shape instead of a head dim.
 
-Columns: ``max_d | block_q | block_kv | block_d [| kernel]``. ``block_q``
-rows of Q per CTA (K4: per step of its q walk), ``block_kv`` K/V rows per
-step of the in-CTA loop (K4: per CTA), ``block_d`` the head dim the CTA's
-shared-memory tiles are padded to (one compiled instantiation per
-``block_d``); in a D-blocked row (``mma_dblk``, ``fma_dblk``) it is the
-head-dim panel, smaller than D: the kernel streams Q, K, V (and dO) in
-panels of ``block_d`` columns and each CTA owns one panel of the output,
-so any head dim runs. The optional ``kernel`` names the kernel a row
-runs where a table has more than one (:data:`ROW_KERNELS`).
+Columns: ``max_d | block_q | block_kv | block_d [| kernel]``.
+``block_q`` rows of Q per CTA (K4: per step of its q walk), ``block_kv``
+K/V rows per step of the in-CTA loop (K4: per CTA), ``block_d`` the head
+dim the CTA's shared-memory tiles are padded to (one compiled
+instantiation per ``block_d``); in a D-blocked row (``mma_dblk``,
+``fma_dblk``, ``wgmma_dblk``) it is the head-dim panel, smaller than D,
+and each CTA owns one panel of the output: the first cut streams Q, K, V
+(and dO) in panels of ``block_d`` columns, so any head dim runs; the
+cluster kernels (``wgmma_dblk``) give each panel a CTA of one thread-
+block cluster, up to :func:`dblk_max_panels` of them. The optional
+``kernel`` names the kernel a row runs where a table has more than one
+(:data:`ROW_KERNELS`).
 
 Rows marked "not tuned" are first-cut values chosen so that every tile
 fits the shared memory and register file of one SM (227 KB, 255
@@ -79,9 +82,19 @@ class ParameterRow:
 # The kernels a row may name: "wgmma" the warp-specialised TMA + wgmma
 # kernels, "mma" the first-cut mma.sync ones (bf16), "mma_dblk" and
 # "fma_dblk" the head-dim-blocked mma.sync (bf16) and FMA (fp32) kernels
-# for D > 256.
-ROW_KERNELS = ("mma", "wgmma", "mma_dblk", "fma_dblk")
-DBLK_KERNELS = ("mma_dblk", "fma_dblk")
+# for D > 256, "wgmma_dblk" the head-dim-split cluster kernels (bf16, K1
+# and K4): one CTA of a thread-block cluster per block_d panel, S (and dP)
+# summed across the cluster.
+ROW_KERNELS = ("mma", "wgmma", "mma_dblk", "fma_dblk", "wgmma_dblk")
+DBLK_KERNELS = ("mma_dblk", "fma_dblk", "wgmma_dblk")
+
+
+def dblk_max_panels(block_d: int) -> int:
+    """The most head-dim panels (CTAs of a cluster) of a ``wgmma_dblk``
+    row of panel width ``block_d``: K1's exchange slots are sized for them
+    (csrc/flash_fwd.cu ``dblk_max_panels``); K4's rows are 192 or 256
+    wide, clusters of two."""
+    return 4 if block_d == 128 else 2
 
 
 def parse_table(text: str) -> list[ParameterRow]:
@@ -134,19 +147,27 @@ def select_row(rows: list[ParameterRow], head_dim: int) -> ParameterRow:
 # D = 256 the fp32 O accumulator is 128 registers a thread, so the kv
 # step halves (not tuned on the H100). Head dims TMA cannot map take
 # _FWD_BF16_MMA.
-# Above D = 256 (rows mma_dblk, csrc/flash_fwd.cu flash_fwd_bf16 with
-# DBLK): head-dim blocking, one CTA per block_d panel of O, S summed over
-# panels of Q and K streamed through shared memory. Measured by
-# utils/bwd_tuning.py sweep on the H100 (NVIDIA H100 80GB HBM3, 700 W) at
-# B 1, H 8, N 4096, causal / non-causal: at D = 384, 128-wide panels
-# with 64-wide kv steps take 2.634 / 5.180 ms, 256-wide ones with 32-wide
-# steps 3.111 / 6.139; at D = 512, 3.449 / 6.862 against 4.197 / 8.313.
+# Above D = 256 up to D = 512 (rows wgmma_dblk, csrc/flash_fwd.cu
+# flash_fwd_wgmma with CL): the cluster kernel, one CTA of a cluster per
+# block_d panel of Q, K, V and O, S summed across the cluster; beyond D =
+# 512 the mma.sync D-blocked kernel (mma_dblk: one CTA per block_d panel
+# of O, S summed over panels of Q and K streamed through shared memory).
+# Measured by utils/bwd_tuning.py sweep --only dblk on the H100 (NVIDIA
+# H100 80GB HBM3, 700 W) at B 1, H 8, N 4096, causal / non-causal: at D =
+# 384, two CTAs of 192-wide panels 0.5147 / 0.9510 ms, of 256-wide ones
+# 0.6386 / 1.167, three of 128-wide ones 1.082 / 2.094, mma_dblk 2.687 /
+# 5.225 (128-wide panels, 64-wide kv steps) and 3.192 / 6.104 (256, 32);
+# at D = 512, two CTAs of 256-wide panels 0.6050 / 1.148, four of 128
+# 1.583 / 3.114, mma_dblk 3.482 / 6.958 (256, 32) and 4.235 / 8.454. D =
+# 256 keeps its mma.sync row in this table, though two CTAs of 128-wide
+# panels measured 0.4879 / 0.9005 against its 0.7210 / 1.406.
 _FWD_BF16 = """
 # max_d | block_q | block_kv | block_d | kernel
    64   |  128    |   128    |   64    | wgmma
   128   |  128    |   128    |  128    | wgmma
   256   |   64    |    32    |  256    | mma
-  384   |   64    |    64    |  128    | mma_dblk
+  384   |  128    |    64    |  192    | wgmma_dblk
+  512   |  128    |    64    |  256    | wgmma_dblk
   inf   |   64    |    32    |  256    | mma_dblk
 """
 
@@ -233,18 +254,25 @@ _BWD_Q_FP32 = """
 # mma.sync rows take 1.7789 and 1.1472 ms. D = 256 keeps the mma.sync
 # kernel: 64 kv rows per CTA in eight warps that split the head dim,
 # 32-row q steps (not tuned on the H100). Head dims TMA cannot map take
-# _BWD_KV_BF16_MMA. Above D = 256 (mma_dblk): one CTA per block_d panel
-# of dK and dV (at block_d 256 its eight warps split the panel, as at D =
-# 256), S^T and dP^T summed over panels of K, V, Q and dO. By the same
-# sweep at N 4096 (causal / non-causal): D = 384, 128-wide panels 7.464 /
-# 12.570 ms against 7.695 / 16.054; D = 512, 256-wide 8.667 / 16.743
-# against 10.730 / 20.948.
+# _BWD_KV_BF16_MMA. Above D = 256 up to D = 512 the cluster kernel
+# (wgmma_dblk): clusters of two CTAs on 192- or 256-wide panels
+# (csrc/flash_bwd.cu flash_bwd_kv_split), their warpgroups owning dV and
+# dK; beyond D = 512 mma_dblk: one CTA per block_d panel of dK and dV (at
+# block_d 256 its eight warps split the panel, as at D = 256), S^T and
+# dP^T summed over panels of K, V, Q and dO. By utils/bwd_tuning.py sweep
+# --only dblk on the H100 (NVIDIA H100 80GB HBM3, 700 W) at B 1, H 8, N
+# 4096 (causal / non-causal): D = 384, the cluster on 192-wide panels
+# 1.497 / 2.904 ms, on 256-wide 1.544 / 2.990, mma_dblk 7.507 / 12.79
+# (128-wide panels) and 7.744 / 14.43 (256); D = 512, the cluster on
+# 256-wide panels 1.556 / 3.005, mma_dblk 8.879 / 16.67 (256) and 11.08 /
+# 20.65 (128).
 _BWD_KV_BF16 = """
 # max_d | block_q | block_kv | block_d | kernel
    64   |   64    |    64    |   64    | wgmma
   128   |   32    |    64    |  128    | wgmma
   256   |   32    |    64    |  256    | mma
-  384   |   32    |    64    |  128    | mma_dblk
+  384   |   32    |    64    |  192    | wgmma_dblk
+  512   |   32    |    64    |  256    | wgmma_dblk
   inf   |   32    |    64    |  256    | mma_dblk
 """
 
@@ -353,19 +381,42 @@ def bwd_q_stages(row: ParameterRow) -> int:
                         2 * 2 * bkv * d + 16, 4, 1)
 
 
+def exchange_bytes(kernel: str, row: ParameterRow) -> int:
+    """A ``wgmma_dblk`` row's exchange buffers: K1's, for each of the two
+    consumer warpgroups one slot for each other CTA of the largest cluster
+    (:func:`dblk_max_panels`) of its partial S (64 x block_kv fp32); K4's
+    (clusters of two, warpgroup 1 forming S^T and warpgroup 0 dP^T) a
+    slot of 64 x block_q fp32 for each warpgroup plus the two buffers that
+    hand S^T from one warpgroup to the other. 0 for the other rows."""
+    if row.kernel != "wgmma_dblk":
+        return 0
+    if kernel == "flash_fwd":
+        return 2 * (dblk_max_panels(row.block_d) - 1) * 64 * row.block_kv * 4
+    return 4 * 64 * row.block_q * 4
+
+
 def bwd_kv_stages(row: ParameterRow) -> int:
-    """Stages of K4's wgmma ring at ``row``."""
+    """Stages of K4's wgmma ring at ``row``: an even number, up to 4, on
+    the kernel whose warpgroups take alternate steps; up to 4 on the
+    cluster kernel (both warpgroups read every stage; it keeps one
+    scaled-Q tile beside its exchange buffers and eight more mbarriers)."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    x = exchange_bytes("flash_bwd_kv", row)
+    if x:
+        return _ring_stages(2 * 2 * bkv * d + 2 * bq * d + x + 8 * 9
+                            + _SMEM_ALIGN, 2 * 2 * bq * d + 8 * bq + 16, 4, 1)
     return _ring_stages(2 * 2 * bkv * d + 2 * 2 * bq * d + 8 + _SMEM_ALIGN,
                         2 * 2 * bq * d + 8 * bq + 16, 4, 2)
 
 
 def fwd_stages(row: ParameterRow) -> int:
     """Stages of K1's wgmma ring at ``row`` (read at call time: the row
-    sweep varies FWD_RING_STAGES)."""
+    sweep varies FWD_RING_STAGES; the cluster kernel's exchange slots and
+    their four mbarriers beside it)."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
-    return _ring_stages(2 * bq * d + 8 + _SMEM_ALIGN, 2 * 2 * bkv * d + 24,
-                        FWD_RING_STAGES, 1)
+    x = exchange_bytes("flash_fwd", row)
+    return _ring_stages(2 * bq * d + x + 8 + (32 if x else 0) + _SMEM_ALIGN,
+                        2 * 2 * bkv * d + 24, FWD_RING_STAGES, 1)
 
 
 def bf16_table_precision(head_dim: int) -> str:
@@ -384,10 +435,11 @@ def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     unpadded Q rows and K/V rows padded by one. The D-blocked kernels
     hold the same tiles, block_d columns wide, at any head dim."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
-    if row.kernel == "wgmma":
+    if row.kernel in ("wgmma", "wgmma_dblk"):
         stages = fwd_stages(row)
-        return (2 * bq * d + stages * 2 * 2 * bkv * d + 8 * (1 + 3 * stages)
-                + _SMEM_ALIGN)
+        x = exchange_bytes("flash_fwd", row)
+        return (2 * bq * d + x + stages * 2 * 2 * bkv * d
+                + 8 * (1 + 3 * stages + (4 if x else 0)) + _SMEM_ALIGN)
     if in_bytes == 2:
         return in_bytes * (bq * (d + 8) + bkv * (d + 8) + d * (bkv + 8))
     return 4 * (bq * d + 2 * bkv * (d + 1))
@@ -423,8 +475,13 @@ def flash_bwd_kv_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     the same tiles, block_d columns wide; the FMA one also Q's and dO's
     panels of its dK / dV columns."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
-    if row.kernel == "wgmma":
+    if row.kernel in ("wgmma", "wgmma_dblk"):
         stages = bwd_kv_stages(row)
+        x = exchange_bytes("flash_bwd_kv", row)
+        if x:   # one scaled-Q tile, eight more mbarriers
+            return (2 * 2 * bkv * d + 2 * bq * d + x + stages * 2 * 2 * bq * d
+                    + stages * 4 * 2 * bq + 8 * (1 + 2 * stages + 8)
+                    + _SMEM_ALIGN)
         return (2 * 2 * bkv * d + (2 * stages + 2) * 2 * bq * d
                 + stages * 4 * 2 * bq + 8 * (1 + 2 * stages) + _SMEM_ALIGN)
     if in_bytes == 2:

@@ -6,11 +6,13 @@ K4 ``flash_bwd_kv``) and of the matrix-product kernels (K7 ``gemm``, K8
 shapes (N = 2048, Hq 32, Hkv 8, bf16) for D = 128 and D = 64: K1 causal
 and non-causal, each wgmma candidate a (block_kv, ring stages, ping-pong)
 triple (``params.FWD_RING_STAGES`` and ``params.FWD_PINGPONG`` set for
-the run); K3 and K4 causal. Then the D-blocked rows (D > 256) of K1, K3
-and K4, causal and non-causal, two candidates a table
-(:data:`DBLK_ROWS`) at the shapes of ``chip_smoke.py``'s ``large_d``
-phase (:data:`DBLK_SHAPES`). Each row is first held to its plain version
-at ``KERNEL_BUDGETS`` (and K4 to a second run, bit for bit), then timed
+the run); K3 and K4 causal. Then the rows past D = 256 of K1, K3 and
+K4, causal and non-causal: the D-blocked first cut's two candidates a
+table and K1's and K4's cluster kernels (:data:`DBLK_ROWS`), at the
+shapes of ``chip_smoke.py``'s ``large_d`` phase and at D 256
+(:data:`DBLK_SHAPES`; ``--only dblk`` runs these alone). Each row is
+first held to its plain version at ``KERNEL_BUDGETS`` (and the
+D-blocked ones to a second run, bit for bit), then timed
 (CUDA events, launches queued behind a device spin). One JSON line per
 row; the mma.sync row of each head dim is timed beside the wgmma
 candidates. Two trees are compared in turns by ``python -m
@@ -42,7 +44,7 @@ kernels' last bits.
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.bwd_tuning sweep \
-        [--only fwd|bwd|matmul|qmm_decode]
+        [--only fwd|bwd|dblk|matmul|qmm_decode]
     python -m mfa_tpu_torch.utils.bwd_tuning curve [--plain none k1 k34 k1,k34]
 """
 
@@ -80,24 +82,68 @@ K3_ROWS = ((128, 64, "wgmma"), (64, 64, "mma"))
 K4_ROWS = ((64, 64, "wgmma"), (32, 64, "wgmma"), (32, 64, "mma"))
 
 
-# The D-blocked rows' candidates (block_q, block_kv, block_d) per kernel
-# and input type: the compiled instances of csrc/flash_fwd.cu and
-# csrc/flash_bwd.cu (a 256-wide panel, S once per two panels of 512, or a
-# 128-wide one with twice the kv (K1, K3) step).
+# The candidates past D = 256, (block_q, block_kv, block_d, kernel) per
+# kernel and input type: the compiled instances of csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu; K1's mma row at D <= 256. The D-blocked first cut
+# (mma_dblk, fma_dblk: a 256-wide panel, S once per two panels of 512, or
+# a 128-wide one with twice the kv (K1, K3) step) and, for K1 and K4, the
+# head-dim-split cluster kernels (wgmma_dblk: two CTAs of 192- or
+# 256-wide panels; K1 also 128-wide panels, up to four CTAs). A
+# wgmma_dblk candidate runs only where its cluster covers D
+# (params.dblk_max_panels) and TMA maps a row (bf16, D % 8 == 0).
 DBLK_ROWS = {
-    "flash_fwd": {"bf16": ((64, 32, 256), (64, 64, 128)),
-                  "fp32": ((16, 32, 256), (16, 32, 128))},
-    "flash_bwd_q": {"bf16": ((64, 32, 256), (64, 64, 128)),
-                    "fp32": ((16, 32, 256), (16, 32, 128))},
-    "flash_bwd_kv": {"bf16": ((32, 64, 256), (32, 64, 128)),
-                     "fp32": ((32, 16, 256), (32, 16, 128))},
+    "flash_fwd": {"bf16": ((64, 32, 256, "mma"),
+                           (64, 32, 256, "mma_dblk"),
+                           (64, 64, 128, "mma_dblk"),
+                           (128, 64, 128, "wgmma_dblk"),
+                           (128, 64, 192, "wgmma_dblk"),
+                           (128, 64, 256, "wgmma_dblk")),
+                  "fp32": ((16, 32, 256, "fma_dblk"),
+                           (16, 32, 128, "fma_dblk"))},
+    "flash_bwd_q": {"bf16": ((64, 32, 256, "mma_dblk"),
+                             (64, 64, 128, "mma_dblk")),
+                    "fp32": ((16, 32, 256, "fma_dblk"),
+                             (16, 32, 128, "fma_dblk"))},
+    "flash_bwd_kv": {"bf16": ((32, 64, 256, "mma_dblk"),
+                              (32, 64, 128, "mma_dblk"),
+                              (32, 64, 192, "wgmma_dblk"),
+                              (32, 64, 256, "wgmma_dblk")),
+                     "fp32": ((32, 16, 256, "fma_dblk"),
+                              (32, 16, 128, "fma_dblk"))},
 }
 # (input type, D, N) at B 1, H 8: the JAX package's large-D class (bf16,
 # N 4096, D 384 and 512), head dims TMA cannot map (the bf16_mma table's
-# 384 and inf rows) and fp32, at chip_smoke.py's large_d sizes.
+# 384 and inf rows) and fp32, at chip_smoke.py's large_d sizes; and D
+# 256 at N 4096, where the candidates are K1's mma row and clusters and
+# K3's and K4's own rows.
 DBLK_SHAPES = (("bf16", 384, 4096), ("bf16", 512, 4096),
                ("bf16", 300, 1024), ("bf16", 500, 1024),
-               ("fp32", 384, 1024), ("fp32", 512, 1024))
+               ("fp32", 384, 1024), ("fp32", 512, 1024),
+               ("bf16", 256, 4096))
+
+
+def dblk_candidates(name: str, dt: str, d: int, table_row) -> list:
+    """The candidates of kernel ``name`` at head dim ``d``: past D = 256
+    every D-blocked one, the cluster kernels only where their cluster
+    covers D and TMA maps a row; at D <= 256 K1's mma row and its
+    clusters (the one row there that may take them), and for K3 and K4
+    their table's row ``table_row``."""
+    cands = []
+    for bq, bkv, bd, kernel in DBLK_ROWS[name][dt]:
+        panels = -(-d // bd)
+        if kernel == "wgmma_dblk":
+            ok = (d % 8 == 0 and 2 <= panels <= params.dblk_max_panels(bd)
+                  and (d > 256 or name == "flash_fwd"))
+        elif kernel == "mma":
+            ok = d <= bd
+        else:
+            ok = d > 256
+        if ok:
+            cands.append((bq, bkv, bd, kernel))
+    if not cands:
+        cands.append((table_row.block_q, table_row.block_kv,
+                      table_row.block_d, table_row.kernel))
+    return cands
 
 
 def _inputs(d: int, n: int = 2048, hq: int = 32, hkv: int = 8,
@@ -121,9 +167,10 @@ def _inputs(d: int, n: int = 2048, hq: int = 32, hkv: int = 8,
 
 
 def sweep_dblk(kernels) -> None:
-    """The D-blocked candidates of ``kernels`` (names of DBLK_ROWS) at
-    DBLK_SHAPES, causal and non-causal: each held to its plain version
-    (K4 also to a second run), then timed."""
+    """The candidates of ``kernels`` (names of DBLK_ROWS) past D = 256 and
+    at D = 256 (:func:`dblk_candidates`) at DBLK_SHAPES, causal and
+    non-causal: each held to its plain version and to a second run, bit
+    for bit, then timed."""
     for dt, d, n in DBLK_SHAPES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         for causal in (True, False):
@@ -151,9 +198,11 @@ def sweep_dblk(kernels) -> None:
                     want = k34.flash_bwd_kv_plain(q, k, v, do, lse, dterm,
                                                   kd_kv, **kw)
                     keys = (f"flash_bwd_dk_{dt}", f"flash_bwd_dv_{dt}")
-                for bq, bkv, bd in DBLK_ROWS[name][dt]:
+                for bq, bkv, bd, kernel in dblk_candidates(
+                        name, dt, d, base[name]):
                     kd = dataclasses.replace(base[name], block_q=bq,
-                                             block_kv=bkv, block_d=bd)
+                                             block_kv=bkv, block_d=bd,
+                                             kernel=kernel)
                     got, again = run(kd), run(kd)
                     same = all(torch.equal(a, b) for a, b in zip(got, again))
                     shares = {key: budget_share(g, w, *KERNEL_BUDGETS[key])
@@ -443,8 +492,10 @@ def curve(plain: list[str], steps: int = 6) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("sweep", "curve"))
-    ap.add_argument("--only", choices=("fwd", "bwd", "matmul", "qmm_decode"),
-                    default=None, help="sweep one group of kernels only")
+    ap.add_argument("--only", choices=("fwd", "bwd", "dblk", "matmul",
+                                       "qmm_decode"),
+                    default=None, help="sweep one group of kernels only "
+                    "(dblk: K1, K3 and K4 past D = 256 and at D = 256)")
     ap.add_argument("--plain", nargs="*",
                     default=["none", "k1", "k34", "k1,k34"],
                     help="curve: kernels swapped for their plain versions, "
@@ -459,6 +510,8 @@ def main(argv=None) -> int:
         sweep_fwd()
     if args.only in (None, "bwd"):
         sweep_bwd()
+    if args.only == "dblk":
+        sweep_dblk(("flash_fwd", "flash_bwd_q", "flash_bwd_kv"))
     if args.only in (None, "matmul"):
         sweep_matmul()
     if args.only in (None, "qmm_decode"):

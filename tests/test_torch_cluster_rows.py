@@ -1,0 +1,105 @@
+"""The head-dim-split cluster rows (``wgmma_dblk``, K1 and K4 past D = 256)
+against the scripts that run them on the card: ``chip_smoke.py``'s
+large_d phase expects the rows the tables select, and the sweep of
+``utils/bwd_tuning.py`` tries the compiled candidates that apply at each
+head dim. CPU only: descriptors, rows and candidates, no kernel."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+from mfa_tpu_torch.ops import params
+from mfa_tpu_torch.ops.descriptors import (
+    AttentionDescriptor,
+    AttentionKernelType,
+    head_dim_panels,
+    launch_row,
+)
+from mfa_tpu_torch.utils import bwd_tuning
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_rows",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_large_d_phase_expects_the_tables_rows():
+    """Every case of chip_smoke.py's large_d phase: the rows its K1, K3
+    and K4 launches take from the tables are the ones large_d_rows
+    expects (K1 and K4 on the cluster kernel where TMA maps a bf16 row,
+    the first cut for K3, D % 8 != 0 and fp32, mma.sync at D 256)."""
+    smoke = _chip_smoke()
+    for name, tag, d, n, hkv, opts in smoke.LARGE_D_CASES:
+        desc = AttentionDescriptor(
+            batch=1, num_q_heads=8, num_kv_heads=hkv, seq_len_q=n,
+            seq_len_kv=n, head_dim=d, low_precision_inputs=tag == "bf16",
+            low_precision_intermediates=tag == "bf16", **opts)
+        want = smoke.large_d_rows(tag, d)
+        for key, kind in zip(("k1", "k3", "k4"), AttentionKernelType):
+            kd = desc.kernel_descriptor(kind)
+            row = launch_row(kd, d, ())
+            assert row.kernel == want[key], (name, key)
+            assert d <= row.block_d * head_dim_panels(row, d)
+
+
+@pytest.mark.parametrize("name, d, want", [
+    ("flash_fwd", 384, {(64, 32, 256, "mma_dblk"), (64, 64, 128, "mma_dblk"),
+                        (128, 64, 128, "wgmma_dblk"),
+                        (128, 64, 192, "wgmma_dblk"),
+                        (128, 64, 256, "wgmma_dblk")}),
+    ("flash_fwd", 512, {(64, 32, 256, "mma_dblk"), (64, 64, 128, "mma_dblk"),
+                        (128, 64, 128, "wgmma_dblk"),
+                        (128, 64, 256, "wgmma_dblk")}),
+    ("flash_fwd", 300, {(64, 32, 256, "mma_dblk"),
+                        (64, 64, 128, "mma_dblk")}),
+    ("flash_fwd", 256, {(64, 32, 256, "mma"), (128, 64, 128, "wgmma_dblk"),
+                        (128, 64, 192, "wgmma_dblk")}),
+    ("flash_bwd_q", 384, {(64, 32, 256, "mma_dblk"),
+                          (64, 64, 128, "mma_dblk")}),
+    ("flash_bwd_q", 256, {(64, 32, 256, "mma")}),
+    ("flash_bwd_kv", 384, {(32, 64, 256, "mma_dblk"),
+                           (32, 64, 128, "mma_dblk"),
+                           (32, 64, 192, "wgmma_dblk"),
+                           (32, 64, 256, "wgmma_dblk")}),
+    ("flash_bwd_kv", 512, {(32, 64, 256, "mma_dblk"),
+                           (32, 64, 128, "mma_dblk"),
+                           (32, 64, 256, "wgmma_dblk")}),
+    ("flash_bwd_kv", 256, {(32, 64, 256, "mma")}),
+])
+def test_sweep_candidates_apply_where_their_kernel_runs(name, d, want):
+    """bwd_tuning.dblk_candidates: past D = 256 the D-blocked first cut
+    and the clusters that cover D (at most dblk_max_panels CTAs, none for
+    D % 8 != 0); at D 256 K1's mma row and clusters, K3's and K4's table
+    rows. Each candidate is a compiled row that fits one SM."""
+    table = params.select_row(params.parameter_table(
+        name, params.bf16_table_precision(d)), d)
+    got = bwd_tuning.dblk_candidates(name, "bf16", d, table)
+    assert set(got) == want and len(got) == len(want)
+    in_bytes = 2
+    for bq, bkv, bd, kernel in got:
+        row = params.ParameterRow(d, bq, bkv, bd, kernel)
+        assert params.smem_bytes(name, row, in_bytes) \
+            <= params.H100.smem_per_block
+        if kernel == "wgmma_dblk":
+            assert 2 <= head_dim_panels(row, d) \
+                <= params.dblk_max_panels(bd)
+
+
+def test_sweep_covers_the_tables_cluster_rows():
+    """Every cluster row the bf16 tables name is a candidate of the sweep
+    at the shapes it covers (so the tables' figures come from it)."""
+    for name in ("flash_fwd", "flash_bwd_kv"):
+        rows = params.parameter_table(name, "bf16")
+        for row in rows:
+            if row.kernel != "wgmma_dblk":
+                continue
+            cands = bwd_tuning.dblk_candidates(name, "bf16", row.max_d, row)
+            assert (row.block_q, row.block_kv, row.block_d,
+                    row.kernel) in cands
+            assert ("bf16", row.max_d, 4096) in bwd_tuning.DBLK_SHAPES

@@ -14,8 +14,10 @@ from mfa_tpu_torch.kernels import build
 from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.ops import params
 from mfa_tpu_torch.ops.descriptors import (
+    KERNEL_CODES,
     AttentionDescriptor,
     AttentionKernelType,
+    head_dim_panels,
 )
 
 _BWD = (AttentionKernelType.BACKWARD_QUERY,
@@ -100,15 +102,21 @@ def test_parse_takes_a_kernel_column_and_refuses_others():
 
 @pytest.mark.parametrize("d, kernel", [
     (32, "wgmma"), (64, "wgmma"), (96, "wgmma"), (128, "wgmma"),
-    (256, "mma"), (36, "mma"), (40 + 2, "mma"), (100, "mma")])
+    (256, "mma"), (36, "mma"), (40 + 2, "mma"), (100, "mma"),
+    (264, "wgmma_dblk"), (384, "wgmma_dblk"), (512, "wgmma_dblk"),
+    (300, "mma_dblk"), (1024, "mma_dblk")])
 def test_descriptors_dispatch_as_the_source_says(d, kernel):
     """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernels; D = 256
-    and a D whose rows TMA cannot map (D % 8 != 0) the mma.sync kernel."""
+    and a D whose rows TMA cannot map (D % 8 != 0) the mma.sync kernel;
+    past D = 256, K4 (``kernel``) the cluster kernel up to D = 512 where
+    TMA maps a row, else the D-blocked mma.sync kernel, and K3 the
+    D-blocked mma.sync kernel."""
     for kind in _BWD:
         kd = _kd(kind, d)
-        assert kd.kernel == kernel
-        assert k34.launch_row(kd, d, ()).kernel == kernel
-        assert d <= kd.block_d
+        want = ("mma_dblk" if d > 256 and kind is _BWD[0] else kernel)
+        assert kd.kernel == want
+        assert k34.launch_row(kd, d, ()).kernel == want
+        assert d <= kd.block_d * head_dim_panels(kd, d)
     assert _kd(_BWD[0], 100).block_d == 128     # the mma row of its D
     assert _kd(_BWD[1], 36).block_q == 32
 
@@ -144,13 +152,18 @@ def test_head_dims_past_256_take_the_d_blocked_rows(kernel, precision):
     dQ columns (K3) or Q's and dO's of the dK / dV columns (K4)) and
     fits one SM whatever the head dim."""
     rows = params.parameter_table(kernel, precision)
-    want_kernel = "fma_dblk" if precision == "fp32" else "mma_dblk"
     for d in (264, 300, 320, 384, 512, 1024):
         row = params.select_row(rows, d)
+        want_kernel = ("fma_dblk" if precision == "fp32"
+                       else "wgmma_dblk" if (kernel, precision, d <= 512)
+                       == ("flash_bwd_kv", "bf16", True) else "mma_dblk")
         assert row.kernel == want_kernel and row.block_d < d
         assert (row.max_d == 384) == (d <= 384)
         bq, bkv, bd = row.block_q, row.block_kv, row.block_d
-        if precision == "fp32":
+        if row.kernel == "wgmma_dblk":
+            want = _cluster_kv_smem(row)
+            got = params.smem_bytes(kernel, row, 2)
+        elif precision == "fp32":
             want = 4 * (2 * bq * bd + 3 * bkv * (bd + 1) + 2 * bq
                         if kernel == "flash_bwd_q"
                         else 2 * bkv * bd + 4 * bq * (bd + 1) + 2 * bq)
@@ -168,10 +181,12 @@ def test_head_dims_past_256_take_the_d_blocked_rows(kernel, precision):
         assert (row.block_q, row.block_kv, row.block_d, row.kernel) == want
 
 
-@pytest.mark.parametrize("d", [384, 512, 1024])
+@pytest.mark.parametrize("d", [384, 512, 1024, 264, 320])
 def test_wrappers_pass_the_d_blocked_launch(library, d):
-    """Above D = 256 both wrappers launch the D-blocked kernels (code 2)
-    over ceil(D / block_d) head-dim panels."""
+    """Above D = 256 both wrappers launch over ceil(D / block_d) head-dim
+    panels: K3 the D-blocked kernel (code 2), K4 the cluster kernel (code
+    3, a CTA of the cluster a panel) up to D = 512, the D-blocked one
+    beyond."""
     q3, o3, do3 = (_meta(4, 32, d) for _ in range(3))
     kv = _meta(2, 32, d)
     lse = _meta(4, 32, dtype=torch.float32)
@@ -181,10 +196,14 @@ def test_wrappers_pass_the_d_blocked_launch(library, d):
     dk, dv = k34.flash_bwd_kv(q3, kv, kv, do3, lse, dterm, kd_kv, **kw)
     assert dq.shape == (4, 32, d) and dk.shape == dv.shape == (2, 32, d)
     (_, args3), (_, args4) = library.calls
-    for args, kd in ((args3, kd_q), (args4, kd_kv)):
-        assert kd.kernel == "mma_dblk"
+    for args, kd, kernel in ((args3, kd_q, "mma_dblk"),
+                             (args4, kd_kv, "wgmma_dblk" if d <= 512
+                              else "mma_dblk")):
+        assert kd.kernel == kernel
         assert args[12:14] == (d, -(-d // kd.block_d))
-        assert args[-5:-1] == (2, kd.block_q, kd.block_kv, kd.block_d)
+        assert args[-5:-1] == (KERNEL_CODES[kernel], kd.block_q,
+                               kd.block_kv, kd.block_d)
+    assert args4[13] == (2 if d <= 512 else 4)
 
 
 def test_fp32_and_forward_rows_name_no_kernel():
@@ -258,3 +277,67 @@ def test_wrappers_take_any_number_of_heads(library, heads):
     assert args3[-5:-1] == (1, 128, 64, 64)
     assert args4[-5:-1] == (1, 64, 64, 64)
     assert args3[8] == heads and args4[8] == heads
+
+
+def _cluster_kv_smem(row):
+    """csrc/flash_bwd.cu's KvSplitSmem, K4's cluster kernel at a bf16 row:
+    K and V, one scaled-Q tile, one exchange slot a warpgroup and two S^T
+    buffers of 64 x block_q fp32, up to 4 stages of Q, dO, L and the
+    D-term, 1 + 2 stages + 8 mbarriers, alignment slack."""
+    bq, bkv, bd = row.block_q, row.block_kv, row.block_d
+    tile_q = bq * bd * 2
+    fixed = 2 * bkv * bd * 2 + tile_q + 4 * 64 * bq * 4
+    stages = min((params.H100.smem_per_block - fixed - 72 - 1024)
+                 // (2 * tile_q + 8 * bq + 16), 4)
+    assert params.bwd_kv_stages(row) == stages >= 2
+    return (fixed + stages * (2 * tile_q + 8 * bq)
+            + 8 * (1 + 2 * stages + 8) + 1024)
+
+
+@pytest.mark.parametrize("block_d", [192, 256])
+def test_cluster_smem_reckons_the_launch_code(block_d):
+    """K4's compiled cluster instances (block_q 32, a 192- or 256-wide
+    panel, clusters of two): shared memory, exchange buffers included, is
+    the launch code's and fits the H100."""
+    row = params.ParameterRow(2 * block_d, 32, 64, block_d, "wgmma_dblk")
+    assert params.dblk_max_panels(block_d) == 2
+    assert params.smem_bytes("flash_bwd_kv", row, 2) == _cluster_kv_smem(row)
+    assert params.smem_bytes("flash_bwd_kv", row, 2) \
+        <= params.H100.smem_per_block
+
+
+def test_k3_keeps_the_d_blocked_rows_past_256():
+    """K3 has no cluster row: every K3 table names mma_dblk (bf16) or
+    fma_dblk (fp32) past D = 256, and K4's bf16 cluster rows cover D up
+    to 512 in clusters of two."""
+    for precision in ("bf16", "bf16_mma", "fp32"):
+        rows = params.parameter_table("flash_bwd_q", precision)
+        assert all(r.kernel != "wgmma_dblk" for r in rows)
+    cluster = [r for r in params.parameter_table("flash_bwd_kv", "bf16")
+               if r.kernel == "wgmma_dblk"]
+    assert [(r.max_d, -(-r.max_d // r.block_d)) for r in cluster] == [
+        (384, 2), (512, 2)]
+
+
+@pytest.mark.parametrize("d", [384, 512])
+def test_misaligned_cluster_operand_takes_the_mma_dblk_row(library, d):
+    """K4 at D 384 and 512 with a dO TMA cannot map (a view two bytes into
+    its storage) launches the bf16_mma table's row of its head dim, the
+    D-blocked kernel (code 2) over that row's panels."""
+    class Shifted(torch.Tensor):
+        def data_ptr(self):
+            return super().data_ptr() + 2
+
+    shifted = _meta(4, 32, d).as_subclass(Shifted)
+    q3, kv = _meta(4, 32, d), _meta(2, 32, d)
+    lse = _meta(4, 32, dtype=torch.float32)
+    kd = _kd(_BWD[1], d, n=32)
+    assert kd.kernel == "wgmma_dblk"
+    assert k34.launch_row(kd, d, (q3, kv, kv, shifted)).kernel == "mma_dblk"
+    k34.flash_bwd_kv(q3, kv, kv, shifted, lse, lse, kd, group=2,
+                     scale=0.125)
+    ((_, args),) = library.calls
+    row = params.select_row(params.parameter_table("flash_bwd_kv",
+                                                   "bf16_mma"), d)
+    assert args[12:14] == (d, -(-d // row.block_d))
+    assert args[-5:-1] == (2, row.block_q, row.block_kv, row.block_d)

@@ -5,6 +5,7 @@ wrapper hands the kernel library a launch with its kernel code for any
 number of heads (recorded by a stand-in library over meta tensors; no
 kernel runs here)."""
 
+import dataclasses
 import types
 
 import pytest
@@ -60,16 +61,26 @@ PARENT_ROWS = {
 }
 
 
+def _past_256_kernel(precision, d):
+    """The kernel a row past D = 256 names: the cluster kernel in the bf16
+    table up to D = 512, the D-blocked first cut beyond it and in the
+    other tables."""
+    if precision == "fp32":
+        return "fma_dblk"
+    return "wgmma_dblk" if precision == "bf16" and d <= 512 else "mma_dblk"
+
+
 @pytest.mark.parametrize("precision", ["bf16", "bf16_mma", "fp32"])
 def test_head_dims_past_256_take_the_d_blocked_rows(precision):
     """D 384, 512 and 1024 (and the tails 300, 320) select a D-blocked
-    row whose block_d panel is smaller than D; every D <= 256 selects
-    the row it selected before."""
+    row whose block_d panel is smaller than D (bf16 up to D = 512: the
+    head-dim-split cluster kernel); every D <= 256 selects the row it
+    selected before."""
     rows = params.parameter_table("flash_fwd", precision)
-    kernel = "fma_dblk" if precision == "fp32" else "mma_dblk"
     for d in (264, 300, 320, 384, 512, 1024):
         row = params.select_row(rows, d)
-        assert row.kernel == kernel and row.block_d < d
+        assert row.kernel == _past_256_kernel(precision, d)
+        assert row.block_d < d
         assert (row.max_d == 384) == (d <= 384)
     for d, want in PARENT_ROWS[precision].items():
         row = params.select_row(rows, d)
@@ -81,8 +92,9 @@ def test_descriptors_take_any_head_dim(d):
     """kernel_descriptor no longer refuses a head dim: bf16 and fp32 both
     take their D-blocked rows, each covering D in ceil(D / block_d)
     panels."""
-    for bf16, kernel in ((True, "mma_dblk"), (False, "fma_dblk")):
+    for bf16, precision in ((True, "bf16"), (False, "fp32")):
         kd = _kd(d, bf16=bf16)
+        kernel = _past_256_kernel(precision, d)
         assert kd.kernel == kernel and kd.head_dim == d
         assert head_dim_panels(kd, d) == -(-d // kd.block_d) >= 2
         assert launch_row(kd, d, ()).kernel == kernel
@@ -92,15 +104,19 @@ def test_descriptors_take_any_head_dim(d):
 def test_d_blocked_smem_reckons_the_launch_code(precision):
     """csrc/flash_fwd.cu's launch_bf16 / launch_f32 at a D-blocked row:
     one panel of Q and K (rows padded by 8) and of V transposed (bf16),
-    or Q and K / V rows padded by one (fp32), whatever the head dim; it
+    or Q and K / V rows padded by one (fp32), whatever the head dim; the
+    cluster rows (bf16 D 384 and 512) as fwd_layout reckons them; each
     fits one SM at D 1024 as at D 384."""
     rows = params.parameter_table("flash_fwd", precision)
     for d in (384, 512, 1024):
         row = params.select_row(rows, d)
         bq, bkv, bd = row.block_q, row.block_kv, row.block_d
-        want = (2 * (bq * (bd + 8) + bkv * (bd + 8) + bd * (bkv + 8))
-                if precision == "bf16"
-                else 4 * (bq * bd + 2 * bkv * (bd + 1)))
+        if row.kernel == "wgmma_dblk":
+            want = _cluster_fwd_smem(row)
+        elif precision == "bf16":
+            want = 2 * (bq * (bd + 8) + bkv * (bd + 8) + bd * (bkv + 8))
+        else:
+            want = 4 * (bq * bd + 2 * bkv * (bd + 1))
         got = params.smem_bytes("flash_fwd", row, 2 if precision == "bf16"
                                 else 4)
         assert got == want <= params.H100.smem_per_block
@@ -138,17 +154,20 @@ def test_smem_reckons_the_launch_code(monkeypatch, most, block_kv, stages):
 
 @pytest.mark.parametrize("d, kernel", [
     (32, "wgmma"), (64, "wgmma"), (96, "wgmma"), (128, "wgmma"),
-    (256, "mma"), (36, "mma"), (42, "mma")])
+    (256, "mma"), (36, "mma"), (42, "mma"), (264, "wgmma_dblk"),
+    (384, "wgmma_dblk"), (512, "wgmma_dblk"), (300, "mma_dblk"),
+    (1024, "mma_dblk")])
 def test_descriptors_dispatch_as_the_source_says(d, kernel):
     """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernel; D = 256
     and a D whose rows TMA cannot map (D % 8 != 0) the mma.sync kernel;
-    fp32 the FMA kernel."""
+    past D = 256 the cluster kernel up to D = 512 where TMA maps a row,
+    else the D-blocked mma.sync kernel; fp32 the FMA kernels."""
     kd = _kd(d)
     assert kd.kernel == kernel
     assert launch_row(kd, d, ()).kernel == kernel
-    assert d <= kd.block_d
-    assert _kd(d, bf16=False).kernel == ""
-    if kernel == "wgmma":
+    assert d <= kd.block_d * head_dim_panels(kd, d)
+    assert _kd(d, bf16=False).kernel == ("" if d <= 256 else "fma_dblk")
+    if kernel in ("wgmma", "wgmma_dblk"):
         assert kd.block_q == 128
     else:
         assert kd.block_q == 64
@@ -262,12 +281,15 @@ def test_cpu_out_buffers_take_the_plain_version():
 
 
 @pytest.mark.parametrize("dtype, d, panels", [
-    (torch.bfloat16, 384, 3), (torch.bfloat16, 300, 3),
-    (torch.bfloat16, 1024, 4), (torch.float32, 512, 2)])
+    (torch.bfloat16, 384, 2), (torch.bfloat16, 300, 3),
+    (torch.bfloat16, 1024, 4), (torch.float32, 512, 2),
+    (torch.bfloat16, 264, 2), (torch.bfloat16, 320, 2),
+    (torch.bfloat16, 512, 2)])
 def test_wrapper_passes_the_d_blocked_launch(library, dtype, d, panels):
-    """Above D = 256 the wrapper launches the D-blocked kernel (code 2)
-    over ceil(D / block_d) panels, for a head dim TMA could map and for
-    one it could not (D % 8 != 0)."""
+    """Above D = 256 the wrapper launches over ceil(D / block_d) panels:
+    bf16 up to D = 512 where TMA maps a row the cluster kernel (code 3, a
+    CTA of the cluster a panel), else the D-blocked kernel (code 2), for
+    a head dim TMA could map and for one it could not (D % 8 != 0)."""
     q3, kv = _meta(4, 32, d, dtype=dtype), _meta(2, 32, d, dtype=dtype)
     kd = _kd(d, bf16=dtype == torch.bfloat16, n=32)
     o, lse = k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
@@ -277,7 +299,9 @@ def test_wrapper_passes_the_d_blocked_launch(library, dtype, d, panels):
     assert args[9:11] == (d, panels)
     assert args[-8:-4] == (0 if dtype == torch.float32 else 1,
                            KERNEL_CODES[kd.kernel], kd.block_q, kd.block_kv)
-    assert KERNEL_CODES[kd.kernel] == 2 and d <= kd.block_d * panels
+    cluster = dtype == torch.bfloat16 and d % 8 == 0 and d <= 512
+    assert KERNEL_CODES[kd.kernel] == (3 if cluster else 2)
+    assert d <= kd.block_d * panels
 
 
 @pytest.mark.parametrize("opts, noncausal", [
@@ -294,3 +318,107 @@ def test_wrapper_counts_its_noncausal_launches(library, opts, noncausal):
     assert (k1.flash_fwd.launches, k1.flash_fwd.noncausal_launches) == (
         before[0] + 1, before[1] + noncausal)
     assert len(library.calls) == 1
+
+
+def _cluster_fwd_smem(row):
+    """csrc/flash_fwd.cu's fwd_layout of the cluster kernel: Q (128 x
+    block_d bf16), the exchange slots (two warpgroups x one slot for each
+    other CTA of the largest cluster, 64 x block_kv fp32), `stages` K and
+    V tiles, 1 + 3 stages + 4 mbarriers and the alignment slack; as many
+    stages as fit, at most FWD_RING_STAGES."""
+    bd, bkv = row.block_d, row.block_kv
+    peers = {128: 3, 192: 1, 256: 1}[bd]
+    fixed = 128 * bd * 2 + 2 * peers * 64 * bkv * 4
+    stages = min((params.H100.smem_per_block - fixed - 8 - 32 - 1024)
+                 // (2 * bkv * bd * 2 + 24), params.FWD_RING_STAGES)
+    assert params.fwd_stages(row) == stages >= 2
+    return fixed + stages * 2 * bkv * bd * 2 + 8 * (1 + 3 * stages + 4) + 1024
+
+
+@pytest.mark.parametrize("block_d, max_panels", [(128, 4), (192, 2),
+                                                 (256, 2)])
+def test_cluster_smem_reckons_the_launch_code(block_d, max_panels):
+    """Every compiled cluster instance (block_kv 64, a 128-, 192- or
+    256-wide panel): its shared memory, exchange slots included, is the
+    launch code's and fits the H100; its cluster holds at most
+    max_panels CTAs (csrc/flash_fwd.cu dblk_max_panels)."""
+    row = params.ParameterRow(max_panels * block_d, 128, 64, block_d,
+                              "wgmma_dblk")
+    assert params.dblk_max_panels(block_d) == max_panels
+    assert params.exchange_bytes("flash_fwd", row) == (
+        2 * (max_panels - 1) * 64 * 64 * 4)
+    assert params.smem_bytes("flash_fwd", row, 2) == _cluster_fwd_smem(row)
+    assert params.smem_bytes("flash_fwd", row, 2) \
+        <= params.H100.smem_per_block
+
+
+def test_cluster_rows_fit_and_cover_their_head_dims():
+    """The bf16 table's cluster rows fit one SM and their clusters cover
+    every head dim they take: ceil(D / block_d) CTAs, 2 to the most the
+    exchange slots hold."""
+    rows = params.parameter_table("flash_fwd", "bf16")
+    cluster = [r for r in rows if r.kernel == "wgmma_dblk"]
+    assert [r.max_d for r in cluster] == [384, 512]
+    for row in cluster:
+        assert params.smem_bytes("flash_fwd", row, 2) \
+            <= params.H100.smem_per_block
+        assert row.block_q == 128 and row.block_kv == 64
+        assert 2 <= -(-row.max_d // row.block_d) \
+            <= params.dblk_max_panels(row.block_d)
+
+
+@pytest.mark.parametrize("d, block_d, panels", [
+    (264, 192, 2), (320, 192, 2), (384, 192, 2), (512, 256, 2),
+    (384, 128, 3), (512, 128, 4), (256, 128, 2), (513, 256, None),
+    (640, 128, None)])
+def test_head_dim_panels_of_the_cluster_rows(d, block_d, panels):
+    """head_dim_panels of a cluster row is its cluster's size,
+    ceil(D / block_d); a head dim that needs more CTAs than the exchange
+    slots hold is refused. The cluster kernel's code is 3."""
+    kd = dataclasses.replace(_kd(384), block_d=block_d)
+    assert kd.kernel == "wgmma_dblk" and KERNEL_CODES[kd.kernel] == 3
+    if panels is None:
+        with pytest.raises(ValueError, match="cluster kernel"):
+            head_dim_panels(kd, d)
+    else:
+        assert head_dim_panels(kd, d) == panels
+
+
+@pytest.mark.parametrize("d", [384, 512])
+def test_misaligned_cluster_operand_takes_the_mma_dblk_row(d):
+    """At D 384 and 512 a base TMA cannot map (a view two bytes into its
+    storage) moves the cluster row to the bf16_mma table's row of its
+    head dim, the D-blocked mma.sync kernel; so does a head dim whose rows
+    are no multiple of 16 bytes."""
+    buf = torch.zeros(2 * 64 * d + 1, dtype=torch.bfloat16)
+    aligned = buf[:-1].view(2, 64, d)
+    shifted = buf[1:].view(2, 64, d)
+    kd = _kd(d)
+    assert launch_row(kd, d, (aligned, aligned)).kernel == "wgmma_dblk"
+    row = launch_row(kd, d, (aligned, shifted))
+    assert row == params.select_row(
+        params.parameter_table("flash_fwd", "bf16_mma"), d)
+    assert row.kernel == "mma_dblk" and row.block_q == 64
+    assert launch_row(kd, d - 2, ()).kernel == "mma_dblk"
+
+
+def test_wrapper_moves_a_misaligned_cluster_launch_to_mma_dblk(library):
+    """Through the wrapper at D 384: a misaligned O buffer launches the
+    D-blocked kernel (code 2) over its own row's panels (3 of 128), not
+    the cluster row's 2."""
+    d = 384
+    q3, kv = _meta(4, 32, d), _meta(2, 32, d)
+    kd = _kd(d, n=32)
+    assert kd.kernel == "wgmma_dblk"
+
+    class Shifted(torch.Tensor):
+        def data_ptr(self):
+            return super().data_ptr() + 2
+
+    o = _meta(4, 32, d).as_subclass(Shifted)
+    out = (o, _meta(4, 32, dtype=torch.float32))
+    k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
+                 o_dtype=torch.bfloat16, out=out)
+    ((_, args),) = library.calls
+    assert args[9:11] == (d, 3)
+    assert args[-8:-4] == (1, KERNEL_CODES["mma_dblk"], 64, 64)

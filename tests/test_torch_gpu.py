@@ -617,9 +617,11 @@ def test_flash_bwd_kernels_take_more_than_65535_heads(cuda):
         assert_close(got, want, atol, key, rtol=rtol)
 
 
-# Head dims past 256, the D-blocked rows (mma_dblk, fma_dblk): (dtype, D,
-# R, C, Hq, Hkv, options). Panels that divide D, a tail panel, D % 8 != 0
-# (no 16-byte loads), GQA, R != C, window, soft-cap and keys no query
+# Head dims past 256: K1 and K4 on the cluster kernels (wgmma_dblk) for
+# bf16 up to D = 512 where TMA maps a row, K3 and the rest on the
+# D-blocked rows (mma_dblk, fma_dblk): (dtype, D, R, C, Hq, Hkv, options).
+# Panels that divide D, a tail panel (D 264, 320), D % 8 != 0 (no 16-byte
+# loads), causal and not, GQA, R != C, window, soft-cap and keys no query
 # sees.
 DBLK_CASES = [
     ("bf16", 384, 300, 300, 4, 2, dict(causal=True)),
@@ -631,16 +633,35 @@ DBLK_CASES = [
     ("fp32", 384, 100, 130, 2, 1, dict(causal=True)),
     ("fp32", 300, 70, 70, 2, 2, dict(sliding_window=20)),
     ("fp32", 512, 65, 65, 1, 1, dict()),
+    ("bf16", 264, 100, 100, 2, 2, dict()),
+    ("bf16", 320, 200, 150, 4, 2, dict(causal=True)),            # R > C
+    ("bf16", 384, 257, 257, 2, 2, dict()),
+    ("bf16", 512, 300, 300, 4, 2, dict(causal=True)),
+    ("bf16", 512, 64, 400, 2, 1, dict(causal=True, sliding_window=100,
+                                      logit_soft_cap=30.0)),  # unseen keys
+    ("bf16", 320, 130, 260, 4, 2, dict(sliding_window=70,
+                                       logit_soft_cap=15.0)),
 ]
+
+
+def _dblk_kernels(dt, d):
+    """The rows K1, K3 and K4 run past D = 256: the cluster kernel for K1
+    and K4 where TMA maps a bf16 row up to D = 512, else the D-blocked
+    first cut."""
+    if dt == "fp32":
+        return ("fma_dblk",) * 3
+    cluster = "wgmma_dblk" if d % 8 == 0 and d <= 512 else "mma_dblk"
+    return cluster, "mma_dblk", cluster
 
 
 @pytest.mark.parametrize("case", DBLK_CASES,
                          ids=[f"dblk-{c[0]}-D{c[1]}-{c[2]}x{c[3]}"
                               for c in DBLK_CASES])
 def test_flash_d_blocked_kernels_match_plain(cuda, case):
-    """K1, K3 and K4 on their D-blocked rows against their plain versions
-    at KERNEL_BUDGETS, every output written, a second launch of each
-    bit-equal."""
+    """K1, K3 and K4 on their rows past D = 256 (the cluster kernels and
+    the D-blocked first cut) against their plain versions at
+    KERNEL_BUDGETS, every output written (NaN-prefilled), a second launch
+    of each bit-equal, dK = dV = 0 on keys no query sees."""
     dt, d, r, c, hq, hkv, opts = case
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     gen = torch.Generator(device=cuda).manual_seed(d + r + c)
@@ -654,13 +675,13 @@ def test_flash_d_blocked_kernels_match_plain(cuda, case):
         low_precision_intermediates=dt == "bf16", **opts)
     kd_f, kd_q, kd_kv = (desc.kernel_descriptor(t)
                          for t in AttentionKernelType)
-    want_kernel = "mma_dblk" if dt == "bf16" else "fma_dblk"
-    for kd in (kd_f, kd_q, kd_kv):
+    kernels = _dblk_kernels(dt, d)
+    for kd, want_kernel in zip((kd_f, kd_q, kd_kv), kernels):
         assert launch_row(kd, d, (q, k, v, do)).kernel == want_kernel
         assert kd.block_d < d
     kw = dict(group=hq // hkv, scale=desc.softmax_scale)
     _k1_check(cuda, q, k, v, kd_f, dict(kw, o_dtype=dtype), dt, dtype,
-              want_kernel)
+              kernels[0])
     o, lse = k1.flash_fwd(q, k, v, kd_f, o_dtype=dtype, **kw)
     dq, dterm = k34.flash_bwd_q(
         q, k, v, o, do, lse, kd_q, **kw,
@@ -683,12 +704,15 @@ def test_flash_d_blocked_kernels_match_plain(cuda, case):
     dk2, dv2 = k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd_kv, **kw)
     assert torch.equal(dq, dq2) and torch.equal(dterm, dterm2)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    unseen = ~k1.visible_mask(r, c, kd_kv.causal, kd_kv.sliding_window,
+                              cuda).any(dim=0)
+    assert bool((dk[:, unseen] == 0).all() and (dv[:, unseen] == 0).all())
 
 
 def test_flash_attention_backward_at_d384_matches_plain(cuda, monkeypatch):
     """flash_attention's forward and backward at D 384 through K1, K3 and
-    K4 (one launch each) against the same call through their plain
-    versions."""
+    K4 (one launch each, on the cluster row, the D-blocked row and the
+    cluster row) against the same call through their plain versions."""
     from mfa_tpu_torch.ops.attention import flash_attention
 
     gen = torch.Generator(device=cuda).manual_seed(384)
@@ -701,11 +725,26 @@ def test_flash_attention_backward_at_d384_matches_plain(cuda, monkeypatch):
         out.backward(do)
         return [out.detach()] + [t.grad for t in leaves]
 
-    counters = (k1.flash_fwd, k34.flash_bwd_q, k34.flash_bwd_kv)
-    before = [f.launches for f in counters]
-    got = run()
-    torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 1]
+    # Each kernel's wrapper, noting the row its launch runs; while it
+    # stands in the module, the kernel's launch count lands on it.
+    seen, wrapped = [], []
+    with monkeypatch.context() as m:
+        for module, name, at in ((k1, "flash_fwd", 3),
+                                 (k34, "flash_bwd_q", 6),
+                                 (k34, "flash_bwd_kv", 6)):
+            fn = getattr(module, name)
+
+            def rec(*args, _fn=fn, _at=at, **kwargs):
+                seen.append(launch_row(args[_at], 384, args[:3]).kernel)
+                return _fn(*args, **kwargs)
+
+            rec.launches = rec.noncausal_launches = 0
+            wrapped.append(rec)
+            m.setattr(module, name, rec)
+        got = run()
+        torch.cuda.synchronize()
+    assert [w.launches for w in wrapped] == [1, 1, 1]
+    assert seen == ["wgmma_dblk", "mma_dblk", "wgmma_dblk"]
     with monkeypatch.context() as m:
         m.setattr(k1, "flash_fwd", k1.flash_fwd_plain)
         m.setattr(k34, "flash_bwd_q", k34.flash_bwd_q_plain)
