@@ -106,23 +106,27 @@ phase's failure is caught):
              torch's scaled_dot_product_attention timed as a yardstick;
              each line names the kernel and parameter row K3 and K4 ran
              (wgmma or mma.sync, ops/params.py).
-13. large_d — K1, K3 and K4 past D = 256 (ops/params.py: K1 and K4 on
-             the head-dim-split cluster kernels, wgmma_dblk, where TMA
-             maps a row; K3 and the rest on the D-blocked first cut) at
-             the JAX package's large-D class (bf16, B 1, Hq 8, N 4096): D
-             384 and 512, causal and non-causal, GQA (Hkv 2), window 512
-             with soft-cap 50 (K1 only); the tails D 320 (a part-empty
-             last panel) and D 300 (no TMA-mappable rows: the first cut)
-             and fp32 at D 384, N 1024; D 256 causal at N 4096 (mma.sync
-             rows); each held elementwise to its plain version at
+13. large_d — K1, K3 and K4 past D = 256, and K3 and K4 past D = 128
+             (ops/params.py: the head-dim-split kernels, wgmma_dblk, where
+             TMA maps a bf16 row up to D = 512: K1 and past D = 256 all
+             three on clusters of two CTAs, K3 and K4 up to D = 256 on one
+             CTA; the rest on the D-blocked first cut) at the JAX
+             package's large-D class (bf16, B 1, Hq 8, N 4096): D 384 and
+             512, causal and non-causal, GQA (Hkv 2), window 512 with
+             soft-cap 50 (K1 only); the tails D 320 (a part-empty last
+             panel), D 300 and D 250 (no TMA-mappable rows: the first
+             cut, D-blocked past 256, mma.sync at 250) and fp32 at D 384,
+             N 1024; D 256 and 192 causal at N 4096 (K1 on
+             mma.sync); each held elementwise to its plain version at
              KERNEL_BUDGETS, outputs prefilled with NaN, a second launch
              bit-equal, keys no query sees zero; each line names the
              rows that ran (checked against large_d_rows), with ms,
-             bound and SDPA's time (and the backend that ran). Then
+             bound and SDPA's time (and the backend that ran), and K3 +
+             K4 ms beside SDPA's backward and their bound. Then
              flash_attention's forward and backward at D 384 (causal, N
              4096) against the same call through the plain versions,
-             launch counters proving K1, K3 and K4 ran once each, on
-             wgmma_dblk, mma_dblk and wgmma_dblk.
+             launch counters proving K1, K3 and K4 ran once each, all
+             three on wgmma_dblk.
 14. training— Llama-3-8B widths at 16 of 32 layers (AdamW state of all 32
              does not fit 80 GB), random bf16 weights, trainable: one
              step's loss and grads through K1/K3/K4 against the same with
@@ -218,16 +222,16 @@ def phase_build():
     serialized = sorted({ln.split("function '")[-1].rstrip("'")
                          for ln in lib.build_log.splitlines()
                          if "Performance Loss" in ln})
-    # Registers and spills of each flash instance past D = 256: the
-    # D-blocked first cut and the cluster kernels (last template argument,
-    # DBLK or CL, true; K4's output-split cluster kernel), as
-    # kernel<template arguments>.
+    # Registers and spills of each flash instance past D = 256 and of the
+    # head-dim-split kernels: the D-blocked first cut and the cluster
+    # kernels (last template argument, DBLK or CL, true), K3's and K4's
+    # split kernels (CL 0 or 1), as kernel<template arguments>.
     dblk, name = {}, None
     for ln in lib.build_log.splitlines():
         if "Compiling entry function" in ln:
             m = (re.search(r"\d(flash_[a-z_]+?_(?:bf16|f32|wgmma))I(\w*?)"
                            r"Lb1EEEv", ln)
-                 or re.search(r"\d(flash_bwd_kv_split)I(\w*?)EEv", ln))
+                 or re.search(r"\d(flash_bwd_(?:kv|q)_split)I(\w*?)EEv", ln))
             args = re.findall(r"L[ib](\d+)E", m.group(2) + "E") if m else []
             name = f"{m.group(1)}<{','.join(args)}>" if m else None
         elif name and ("registers" in ln or "spill" in ln):
@@ -1743,9 +1747,11 @@ def _sdpa_backend(torch, fn) -> str:
 
 # The large-D class of the JAX package (README.md: bf16, B 1, H 8, N
 # 4096, D 384 and 512): (name, dtype, D, N, Hkv, options). Hq 8 always;
-# the tails (D 320, D 300 where TMA could not map a row) and fp32 at N
-# 1024; D 256 (the rows below the D-blocked ones) at N 4096. K3 and K4
-# run every case but the soft-cap one.
+# the tails (D 320, D 300 and D 250 where TMA could not map a row: the
+# D-blocked first cut past 256, the mma.sync rows of K1, K3 and K4 at
+# 129-256) and fp32 at N 1024; D 256 and 192 (K3 and K4 on one CTA of the
+# head-dim-split kernels, K1 on mma.sync) at N 4096. K3 and K4 run every
+# case but the soft-cap one.
 LARGE_D_CASES = (
     ("noncausal_d384", "bf16", 384, 4096, 8, dict()),
     ("causal_d384", "bf16", 384, 4096, 8, dict(causal=True)),
@@ -1756,27 +1762,29 @@ LARGE_D_CASES = (
      dict(sliding_window=512, logit_soft_cap=50.0)),
     ("noncausal_d320_n1024", "bf16", 320, 1024, 8, dict()),
     ("causal_d300_n1024", "bf16", 300, 1024, 8, dict(causal=True)),
+    ("causal_d250_n1024", "bf16", 250, 1024, 8, dict(causal=True)),
     ("fp32_causal_d384_n1024", "fp32", 384, 1024, 8, dict(causal=True)),
     ("causal_d256", "bf16", 256, 4096, 8, dict(causal=True)),
+    ("causal_d192", "bf16", 192, 4096, 8, dict(causal=True)),
 )
 
 
 def large_d_rows(tag: str, d: int) -> dict:
-    """The row kernels phase_large_d expects of K1, K3 and K4: past D =
-    256, the cluster kernels (wgmma_dblk) for K1 and K4 where TMA maps a
-    row (bf16, D % 8 == 0) up to D = 512 and the D-blocked first cut for
-    K3 and the rest; at bf16 D 256, mma.sync for all three."""
-    if d == 256 and tag == "bf16":
-        return {"k1": "mma", "k3": "mma", "k4": "mma"}
+    """The row kernels phase_large_d expects of K1, K3 and K4 past D =
+    128: the head-dim-split kernels (wgmma_dblk) where TMA maps a row
+    (bf16, D % 8 == 0) up to D = 512, for K1 past D = 256 (mma.sync at D
+    129-256), for K3 and K4 past D = 128; else the D-blocked first cut."""
     if tag == "fp32":
         return {"k1": "fma_dblk", "k3": "fma_dblk", "k4": "fma_dblk"}
-    cluster = "wgmma_dblk" if d % 8 == 0 and d <= 512 else "mma_dblk"
-    return {"k1": cluster, "k3": "mma_dblk", "k4": cluster}
+    split = ("wgmma_dblk" if d % 8 == 0 and d <= 512
+             else "mma" if d <= 256 else "mma_dblk")
+    return {"k1": "mma" if d <= 256 else split, "k3": split, "k4": split}
 
 
 def phase_large_d(torch):
-    """K1, K3 and K4 past D = 256 (the cluster kernels and the D-blocked
-    rows) and at D = 256 against their plain versions, then
+    """K1, K3 and K4 past D = 256 (the head-dim-split kernels and the
+    D-blocked rows) and at D 256 and 192 against their plain versions,
+    then
     flash_attention's forward and backward end to end at D 384 (B 1, H 8,
     N 4096, causal): each held to the same call through the plain
     versions, the launch counters read around it."""
@@ -1931,12 +1939,19 @@ def phase_large_d(torch):
         ok = (finite and dblk and all(same.values())
               and all(x <= 1 for x in shares.values()))
         results[name] = timed
+        # The backward as a whole: K3 + K4 beside SDPA's backward (all
+        # three gradients) and the sum of their bounds.
+        backward = ({"k34_ms": timed["k3"]["ms"] + timed["k4"]["ms"],
+                     "k34_bound_ms": (timed["k3"]["bound_ms"]
+                                      + timed["k4"]["bound_ms"]),
+                     "sdpa_backward_ms": timed["k3"]["library_ms"]}
+                    if "k3" in timed else {})
         emit({"phase": "large_d", "case": name, "dtype": tag, "D": d,
               "N": n, "Hq": hq, "Hkv": hkv, "rows": rows, "share": shares,
               "err": errs, "deterministic": same, "sdpa_backend": backend,
               **{f"{kk}_{key}": val for kk, t in timed.items()
                  for key, val in t.items() if key != "max_abs_err"},
-              "ok": ok})
+              **backward, "ok": ok})
         if not ok:
             raise SystemExit(f"large_d {name}: kernels disagree with their "
                              f"plain versions or ran another row (shares "
@@ -2732,13 +2747,13 @@ def main() -> int:
     # steps and the new paths; K8 on the INT4 serving runs. K1's
     # non-causal mode (the twin of _fwd_kernel) runs only on the ring's
     # off-diagonal chunks (parallel); its row carries the k1 phase's
-    # non-causal case. K1, K3 and K4 also carry their D-blocked rows'
-    # times (large_d) beside the D = 128 figures.
+    # non-causal case. K1, K3 and K4 also carry their times past D = 128
+    # (large_d) beside the D = 128 figures.
     def large(key, cases):
         return {"large_d": {case: large_d[case][key] for case in cases}}
 
     fwd_cases = ("noncausal_d384", "causal_d384", "noncausal_d512",
-                 "causal_d512", "causal_d256")
+                 "causal_d512", "causal_d256", "causal_d192")
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",

@@ -45,7 +45,12 @@
 // - K3: a CTA owns 128 query rows (64 a consumer warpgroup; Q and dO
 //   resident, Q scaled once in place) and streams K and V through a ring
 //   of up to 4 stages of block_kv rows (as many as fit). S = Qs K^T and dP = dO V^T read K and V
-//   K-major; dQ += dS K reads the same K tile MN-major.
+//   K-major; dQ += dS K reads the same K tile MN-major. A warpgroup skips
+//   the kv blocks none of its rows sees. The head-dim-split kernel below
+//   (one CTA, 64- or 128-wide panel, block_kv 64; a sweep candidate)
+//   walks those blocks too: it measured no faster at D = 128 and 4.5%
+//   slower at D = 64 (utils/bwd_tuning.py sweep; PERF.md), so this
+//   kernel keeps the rows up to D = 128.
 // - K4: a CTA owns 64 kv rows (K and V resident) and streams Q and dO (by
 //   TMA) and L and the D-term (cp.async by the producer warp: a TMA box
 //   of fp32 rows starts 16-byte aligned only when R % 4 == 0, and a
@@ -69,53 +74,62 @@
 //   threads of 240 / 24 registers), so the 132 heaviest CTAs start first
 //   and the lighter ones fill in behind them.
 //
-// Past D = 256, K4 on bf16 rows TMA can map (rows "wgmma_dblk"): a
-// thread-block cluster split across the head dim. CTA p of a cluster
+// Past D = 128, K3 and K4 on bf16 rows TMA can map, up to D = 512 (rows
+// "wgmma_dblk"; K1 past D = 256 in csrc/flash_fwd.cu): the head dim split
+// across the CTAs of a thread-block cluster, one CTA up to D = 256 (a
+// 192- or 256-wide panel holds the whole head dim) and two past it. CTA p
 // loads panel p (block_d columns from p * block_d; columns past D arrive
-// as zeros) of K and V (resident) and of each step's Q and dO by TMA and
-// owns that panel of dK and dV; every CTA of a cluster walks the same
-// (GQA query head x live q-blocks) steps. S^T and dP^T are summed across
-// the cluster from the panels' partials in rank order (hopper.cuh
-// ClusterSum, as in K1), so every CTA holds the same bits and forms the
-// same P and dS: S^T and dP^T once a (q-block, kv-block) pair, as
-// mfa_tpu's _bwd_kv_kernel (flash_bwd.py:530-660), no atomics, dK and dV
-// summed over the GQA group in registers.
-// - Clusters of two CTAs on wide panels (block_d 192 for D <= 384, 256
-//   for D <= 512; flash_bwd_kv_split), whose consumer warpgroups split
-//   the outputs rather than the steps. Warpgroup 1 forms S^T's partial
-//   and owns dV, warpgroup 0 dP^T's and owns dK (64 x block_d fp32, at
-//   most 128 registers a thread); each sums with its twin in the other
-//   CTA, and warpgroup 1 hands the summed S^T to warpgroup 0 through a
-//   double buffer. Each step's dV / dK product is deferred into the next
-//   step, as K1 defers its PV, and runs under that step's partial and
-//   exchange. The D <= 128 kernel on 128-wide panels in clusters of 3-4
-//   (warpgroups taking alternate steps with their own dK and dV, each
-//   exchanging both partials: three times the partials a FLOP) was
-//   written first and measured slower at every shape of the sweep; it is
-//   not kept.
-// - What bounds it at D 384 / 512 (B 1, H 8, N 4096): 8 D FLOP a visible
-//   pair, 0.21 / 0.28 ms causal at the bf16 peak: bound by operations;
-//   measured at 5.4-7.3x that bound, causal and not (PERF.md). A step's
+// as zeros) of its operands by TMA and owns that panel of the outputs;
+// the CTAs of a cluster walk the same steps, and the panels' partial
+// products (K3: S and dP; K4: S^T and dP^T) are summed across the cluster
+// in rank order (hopper.cuh ClusterSum, as in K1), so every CTA holds the
+// same bits and forms the same P and dS: S and dP once a (q-block,
+// kv-block) pair, as mfa_tpu's D-paged kernels (flash_bwd.py:175-235,
+// :530-660), no atomics.
+// - K3 (flash_bwd_q_split): a CTA owns 128 query rows, 64 a consumer
+//   warpgroup as at D <= 128, Q and dO resident (Q scaled in place), K
+//   and V streamed in 32-row blocks through two rings: V's stage is freed
+//   once dP is formed, K's is kept for the deferred product below. Each
+//   warpgroup forms its rows' partial S and dP, exchanges both with its
+//   twin in one ClusterSum, forms dS and issues dQ += dS K for its panel
+//   (64 x block_d fp32, at most 128 registers a thread) into the next
+//   step, where it runs under that step's exchange and dS, as K1 defers
+//   its PV. The D-term is formed over the whole head dim in every CTA
+//   (the same bits); rank 0 stores it.
+// - K4 (flash_bwd_kv_split): a CTA owns 64 kv rows, and its consumer
+//   warpgroups split the outputs rather than the steps. Warpgroup 1 forms
+//   S^T's partial and owns dV, warpgroup 0 dP^T's and owns dK (64 x
+//   block_d fp32, at most 128 registers a thread); each sums with its
+//   twin in the other CTA (a CTA alone skips the exchange), and
+//   warpgroup 1 hands the summed S^T to warpgroup 0 through a double
+//   buffer. Each step's dV / dK product is deferred into the next step,
+//   as K1 defers its PV, and runs under that step's partial and exchange.
+// - Panels measured and not kept (utils/bwd_tuning.py sweep, PERF.md): K4
+//   at D <= 128's design (warpgroups taking alternate steps) on 128-wide
+//   panels in clusters of 3-4, and this K4 on two 128-wide panels at D
+//   256: time follows exchanges per FLOP, and a CTA alone has none.
+// - What bounds them (B 1, H 8, N 4096, causal): K3 6 D and K4 8 D FLOP
+//   a visible pair, 0.10 / 0.14 ms at D 256 and 0.16 / 0.21 at D 384 at
+//   the bf16 peak: bound by operations. One CTA runs K3 at 2.3x that
+//   bound and K4 at 3.8x (D 256); two CTAs 6x and 7x (D 384): a step's
 //   products are short (64 x 32 a warpgroup), and each step waits for the
-//   partner CTA's partial and warpgroup 1's S^T: latency, not bytes, is
-//   its cost (one bulk copy a partial in place of the st.async stores
-//   measured no faster).
+//   partner CTA's partials, latency rather than bytes (one bulk copy a
+//   partial in place of the st.async stores measured no faster in K4).
 //
-// Other rows keep the first cut: bf16 at D = 256 or where TMA cannot map
-// the operands (a row stride not a multiple of 16 bytes, D % 8 != 0, or a
-// misaligned base) runs warp-level mma.sync (m16n8k16) from shared-memory
-// tiles loaded synchronously (rows "mma"); fp32 inputs take plain-FMA
-// kernels: TF32 would miss the fp32 gradient budget. The mma K4 keeps two
-// fp32 [16 x D] accumulators per warp (128 registers a thread at D =
-// 128); at D = 256 its warps split the head dim in two. Past D = 256 the
-// same kernels run D-blocked (DBLK; rows "mma_dblk", "fma_dblk"; see
-// flash_bwd_q_bf16 and flash_bwd_kv_bf16): a CTA per block_d panel of dQ
-// (K3) or of dK and dV (K4), S and dP summed once a panel over streamed
-// panels. K3 runs them at every D past 256 (its cluster form is the next
-// redesign); K4 where the cluster kernel cannot take the row (D % 8 != 0,
-// a misaligned base, D > 512) and for fp32. K4's two accumulators leave
-// ptxas short of registers there, and it spills (chip_smoke.py's build
-// line lists each instance past D = 256).
+// Other rows keep the first cut: bf16 where TMA cannot map the operands
+// (a row stride not a multiple of 16 bytes, D % 8 != 0, or a misaligned
+// base) runs warp-level mma.sync (m16n8k16) from shared-memory tiles
+// loaded synchronously (rows "mma"); fp32 inputs take plain-FMA kernels:
+// TF32 would miss the fp32 gradient budget. The mma K4 keeps two fp32 [16
+// x D] accumulators per warp (128 registers a thread at D = 128); at D =
+// 256 its warps split the head dim in two. Past D = 256 the same kernels
+// run D-blocked (DBLK; rows "mma_dblk", "fma_dblk"; see flash_bwd_q_bf16
+// and flash_bwd_kv_bf16): a CTA per block_d panel of dQ (K3) or of dK and
+// dV (K4), S and dP summed once a panel over streamed panels, where the
+// split kernels cannot take the row (D % 8 != 0, a misaligned base, D >
+// 512) and for fp32. K4's two accumulators leave ptxas short of
+// registers there, and it spills (chip_smoke.py's build line lists each
+// instance past D = 256).
 
 #include <initializer_list>
 #include <type_traits>
@@ -1360,44 +1374,46 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
 }
 
 // K4 on wide panels (rows "wgmma_dblk" of block_d 192 or 256; see the note
-// at the top): a cluster of two CTAs, CTA p on head-dim panel p, whose
-// consumer warpgroups split the outputs instead of the steps: warpgroup 1
-// forms S^T's partial and owns dV, warpgroup 0 dP^T's and owns dK. Each
-// sums its partial with its twin in the other CTA (ClusterSum) and
-// warpgroup 1 hands the summed S^T to warpgroup 0 through shared memory.
+// at the top): CTA p of a cluster of P (CL: P = 2; else one CTA) on
+// head-dim panel p, whose consumer warpgroups split the outputs instead of
+// the steps: warpgroup 1 forms S^T's partial and owns dV, warpgroup 0
+// dP^T's and owns dK. In a cluster each sums its partial with its twin in
+// the other CTA (ClusterSum); warpgroup 1 hands the summed S^T to
+// warpgroup 0 through shared memory.
 // Each step's dV / dK product is deferred into the next step, where it
 // runs under that step's partial product and exchange.
-template <int BQ, int DP>
+template <int BQ, int DP, bool CL>
 struct KvSplitSmem {
   static constexpr int kBKV = 64;
   static constexpr int kPart = 64 * BQ * 4;   // one fp32 partial
   static constexpr int kK = 0;
   static constexpr int kV = kK + tile_bytes(kBKV, DP);
   static constexpr int kQs = kV + tile_bytes(kBKV, DP);   // warpgroup 1's
-  static constexpr int kX = kQs + tile_bytes(BQ, DP);     // [warpgroup]
-  static constexpr int kSt = kX + 2 * kPart;              // S^T [2]
+  static constexpr int kX = kQs + tile_bytes(BQ, DP);     // [warpgroup] (CL)
+  static constexpr int kSt = kX + (CL ? 2 * kPart : 0);   // S^T [2]
   static constexpr int kFixed = kSt + 2 * kPart;
+  // kv_full, full[S], empty[S], (CL) x_full[2], x_empty[2], s_full[2],
+  // s_empty[2]
+  static constexpr int kBars = 1 + 4 + (CL ? 4 : 0);
   // Q, dO, L and the D-term a step, both warpgroups reading every stage.
   static constexpr int kS = ring_stages(
-      kFixed + 8 * 9 + kAlignSlack, 2 * tile_bytes(BQ, DP) + 8 * BQ + 16, 4,
-      1);
+      kFixed + 8 * kBars + kAlignSlack, 2 * tile_bytes(BQ, DP) + 8 * BQ + 16,
+      4, 1);
   static constexpr int kQ = kFixed;                         // [stage]
   static constexpr int kDO = kQ + kS * tile_bytes(BQ, DP);  // [stage]
   static constexpr int kL = kDO + kS * tile_bytes(BQ, DP);  // [stage]
   static constexpr int kD = kL + kS * 4 * BQ;               // [stage]
-  // kv_full, full[S], empty[S], x_full[2], x_empty[2], s_full[2],
-  // s_empty[2]
   static constexpr int kBar = kD + kS * 4 * BQ;
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * kS + 8) + kAlignSlack;
+  static constexpr int kBytes = kBar + 8 * (2 * kS + kBars) + kAlignSlack;
 };
 
-template <int BQ, int DP>
+template <int BQ, int DP, bool CL>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mdo,
                    const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv) {
-  using L = KvSplitSmem<BQ, DP>;
+  using L = KvSplitSmem<BQ, DP, CL>;
   constexpr int BKV = L::kBKV;
   constexpr int S = L::kS;
   extern __shared__ unsigned char smem_raw[];
@@ -1405,14 +1421,20 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBar);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + S;
-  uint64_t* x_full = empty + S;    // [warpgroup]
-  uint64_t* x_empty = x_full + 2;  // [warpgroup]
-  uint64_t* s_full = x_empty + 2;  // [buffer]: warpgroup 1 wrote S^T
+  uint64_t* x_full = empty + S;    // [warpgroup] (CL)
+  uint64_t* x_empty = x_full + 2;  // [warpgroup] (CL)
+  uint64_t* s_full = empty + S + (CL ? 4 : 0);   // [buffer]: warpgroup 1
+                                                 // wrote S^T
   uint64_t* s_empty = s_full + 2;  // [buffer]: warpgroup 0 read it
 
+  int rank = 0, size = 1;
+  if constexpr (CL) {
+    rank = hw::cluster_rank();   // = blockIdx.x % size: the panel
+    // The CTAs of the cluster, as a value the compiler knows to be the
+    // same across the warp.
+    size = __shfl_sync(kFull, hw::cluster_size(), 0);
+  }
   // Heaviest first: the first kv blocks have the longest causal walks.
-  const int rank = hw::cluster_rank();   // = blockIdx.x % size: the panel
-  const int size = hw::cluster_size();
   const int nkvb = (p.C + BKV - 1) / BKV;
   const int tile = (int)blockIdx.x / size;
   const int bhkvs = gridDim.x / size / nkvb;
@@ -1433,14 +1455,19 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
       hw::mbar_init(&empty[s], 8);   // every consumer warp
     }
     for (int b = 0; b < 2; ++b) {
-      hw::mbar_init(&x_full[b], 1);                 // the local arming
-      hw::mbar_init(&x_empty[b], 4 * (size - 1));   // the other's warps
+      if constexpr (CL) {
+        hw::mbar_init(&x_full[b], 1);                 // the local arming
+        hw::mbar_init(&x_empty[b], 4 * (size - 1));   // the other's warps
+      }
       hw::mbar_init(&s_full[b], 4);
       hw::mbar_init(&s_empty[b], 4);
     }
     hw::mbar_init_fence();
   }
-  hw::cluster_sync();
+  if constexpr (CL)
+    hw::cluster_sync();
+  else
+    __syncthreads();
 
   if (wg == 2) {
     // Producer warp: K and V once, then Q and dO of each step by TMA (lane
@@ -1493,6 +1520,7 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     const int w = wg, wt = tid % kWgThreads, wi = wt >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const int r16 = wi * 16 + g;   // this thread's kv rows r16 and r16 + 8
+    // The exchange of this warpgroup's partial with its twin (CL).
     hw::ClusterSum<BQ / 8> xs{hw::smem_addr(sm + L::kX + w * L::kPart),
                               &x_full[w], &x_empty[w], rank, size, wt, lane};
     unsigned char* qs_tile = sm + L::kQs;
@@ -1554,12 +1582,17 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
       hw::wgmma_commit();
       hw::wgmma_wait<1>();   // the partial; the deferred product may run
       hw::fence_acc(x);
-      // The cluster's sum, in rank order.
-      xs.begin();
-      xs.send(x, 0);
-      xs.wait();
-      xs.sum(x, 0);
-      xs.end();
+      // The cluster's sum, in rank order (a CTA alone holds it already).
+      // The cluster instance tests its size at run time: with the test
+      // folded away, ptxas scheduled the 192-wide instance 4-5% slower
+      // (utils/bwd_tuning.py sweep --only dblk, D 256 and 384).
+      if (CL && size > 1) {
+        xs.begin();
+        xs.send(x, 0);
+        xs.wait();
+        xs.sum(x, 0);
+        xs.end();
+      }
       // S^T from warpgroup 1 to warpgroup 0 (a thread's chunks to the same
       // thread of the other warpgroup: the fragments coincide); each
       // reads it back from the buffer.
@@ -1643,8 +1676,307 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   }
   // No CTA leaves while the other may still write its slots or arrive on
   // its barriers.
-  __syncwarp();
-  hw::cluster_sync();
+  if constexpr (CL) {
+    __syncwarp();
+    hw::cluster_sync();
+  }
+}
+
+// K3 on wide panels (rows "wgmma_dblk" of block_d 192 or 256; see the note
+// at the top): CTA p of a cluster of P (CL: P = 2; else one CTA) owns
+// head-dim panel p of a 128-row q-block, 64 rows a consumer warpgroup as
+// in flash_bwd_q_wgmma. Each warpgroup forms its rows' partial S and dP
+// over the panel, sums both with its twin in the other CTA (ClusterSum,
+// rank order), forms dS and accumulates its panel of dQ. Each step's dQ
+// product is deferred into the next step, as K1 defers its PV, and runs
+// under that step's partial products' exchange and dS.
+template <int BKV, int DP, bool CL>
+struct QSplitSmem {
+  static constexpr int kBQ = 128;
+  // A thread's chunks of one exchange: S's and dP's n-tiles.
+  static constexpr int kNch = 2 * BKV / 8;
+  static constexpr int kSlot = kNch * kWgThreads * 16;   // one warpgroup's
+  static constexpr int kTile = tile_bytes(BKV, DP);
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + tile_bytes(kBQ, DP);
+  static constexpr int kX = kDO + tile_bytes(kBQ, DP);   // [warpgroup] (CL)
+  static constexpr int kL = kX + (CL ? 2 * kSlot : 0);
+  static constexpr int kD = kL + 4 * kBQ;
+  static constexpr int kK = kD + 4 * kBQ;                // [K stage]
+  // K and V tiles that fit beside the rest, each with a full and an empty
+  // mbarrier, in two rings: K's (read by a step's S and, a step later, by
+  // its deferred dQ product) gets up to 4 stages keeping one for V, V's
+  // (read by dP only) the rest, up to 4.
+  static constexpr int kTiles =
+      (kSmemOptin - kK - 8 * (1 + (CL ? 4 : 0)) - kAlignSlack) / (kTile + 16);
+  static constexpr int kSV =
+      kTiles - 4 > 1 ? (kTiles - 4 < 4 ? kTiles - 4 : 4) : 1;
+  static constexpr int kSK = kTiles - kSV < 4 ? kTiles - kSV : 4;
+  static constexpr int kV = kK + kSK * kTile;            // [V stage]
+  // q_full, full_k[SK], empty_k[SK], full_v[SV], empty_v[SV], (CL)
+  // x_full[2], x_empty[2]
+  static constexpr int kBar = kV + kSV * kTile;
+  static constexpr int kBytes =
+      kBar + 8 * (1 + 2 * kSK + 2 * kSV + (CL ? 4 : 0)) + kAlignSlack;
+};
+
+template <int BKV, int DP, bool CL>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_q_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mdo,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv) {
+  using L = QSplitSmem<BKV, DP, CL>;
+  constexpr int BQ = L::kBQ;
+  constexpr int SK = L::kSK, SV = L::kSV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_atom(smem_raw);
+  float* sL = reinterpret_cast<float*>(sm + L::kL);
+  float* sD = reinterpret_cast<float*>(sm + L::kD);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full_k = q_full + 1;
+  uint64_t* empty_k = full_k + SK;
+  uint64_t* full_v = empty_k + SK;
+  uint64_t* empty_v = full_v + SV;
+  uint64_t* x_full = empty_v + SV;  // [warpgroup] (CL)
+  uint64_t* x_empty = x_full + 2;   // [warpgroup] (CL)
+
+  int rank = 0, size = 1;
+  if constexpr (CL) {
+    rank = hw::cluster_rank();   // = blockIdx.x % size: the panel
+    size = hw::cluster_size();
+  }
+  // Heaviest first: the last q-blocks have the longest causal walks.
+  const int nqb = (p.R + BQ - 1) / BQ;
+  const int tile = (int)blockIdx.x / size;
+  const int bhs = (int)gridDim.x / size / nqb;
+  const int i = nqb - 1 - tile / bhs;
+  const int bh = tile % bhs;
+  const int bhkv = bh / p.group;
+  const int dcol = rank * DP;    // this CTA's head-dim panel starts here
+  const int tid = threadIdx.x, wg = hw::warpgroup_index();
+  // Both warpgroups walk every block of the CTA's walk, with no branch
+  // around a product: a block none of a warpgroup's rows sees (at a causal
+  // diagonal or a window's edge) goes through the mask and gives dS = 0.
+  // The twin warpgroups of a cluster walk the same blocks.
+  int lo_c, hi_c;
+  pair_kv_range(p, i, BKV, lo_c, hi_c);
+  const int nblk = max(hi_c - lo_c + 1, 0);
+
+  if (tid == 0) {
+    hw::mbar_init(q_full, 1);
+    for (int s = 0; s < SK; ++s) {
+      hw::mbar_init(&full_k[s], 1);
+      hw::mbar_init(&empty_k[s], 8);   // every consumer warp
+    }
+    for (int s = 0; s < SV; ++s) {
+      hw::mbar_init(&full_v[s], 1);
+      hw::mbar_init(&empty_v[s], 8);
+    }
+    if constexpr (CL) {
+      for (int w = 0; w < 2; ++w) {
+        hw::mbar_init(&x_full[w], 1);                 // the local arming
+        hw::mbar_init(&x_empty[w], 4 * (size - 1));   // the other's warps
+      }
+    }
+    hw::mbar_init_fence();
+  }
+  if constexpr (CL)
+    hw::cluster_sync();
+  else
+    __syncthreads();
+
+  if (wg == 2) {
+    // Producer: this panel of Q and dO once, then of K and V of each
+    // block of the walk.
+    hw::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 2 * kWgThreads) {
+      hw::mbar_expect_tx(q_full, 2 * tile_bytes(BQ, DP));
+#pragma unroll
+      for (int pn = 0; pn < DP / 64; ++pn) {
+        hw::tma_load_3d(sm + L::kQ + pn * BQ * kPanelBytes, &mq, q_full,
+                        dcol + 64 * pn, i * BQ, bh);
+        hw::tma_load_3d(sm + L::kDO + pn * BQ * kPanelBytes, &mdo, q_full,
+                        dcol + 64 * pn, i * BQ, bh);
+      }
+      for (int t = 0; t < nblk; ++t) {
+        const int j = lo_c + t, sk = t % SK, sv = t % SV;
+        hw::mbar_wait(&empty_k[sk], ((t / SK) & 1) ^ 1);
+        hw::mbar_expect_tx(&full_k[sk], L::kTile);
+        unsigned char* k_tile = sm + L::kK + sk * L::kTile;
+#pragma unroll
+        for (int pn = 0; pn < DP / 64; ++pn)
+          hw::tma_load_3d(k_tile + pn * BKV * kPanelBytes, &mk, &full_k[sk],
+                          dcol + 64 * pn, j * BKV, bhkv);
+        hw::mbar_wait(&empty_v[sv], ((t / SV) & 1) ^ 1);
+        hw::mbar_expect_tx(&full_v[sv], L::kTile);
+        unsigned char* v_tile = sm + L::kV + sv * L::kTile;
+#pragma unroll
+        for (int pn = 0; pn < DP / 64; ++pn)
+          hw::tma_load_3d(v_tile + pn * BKV * kPanelBytes, &mv, &full_v[sv],
+                          dcol + 64 * pn, j * BKV, bhkv);
+      }
+    }
+  } else {
+    hw::setmaxnreg_inc<kConsumerRegs>();
+    const int w = wg, wt = tid % kWgThreads, wi = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int rw0 = i * BQ + 64 * w;   // this warpgroup's first row
+    // The D-term over the whole head dim (the same bits in every CTA of a
+    // cluster; rank 0 stores it for K4) and L * log2e of this warpgroup's
+    // rows, while the producer's loads land.
+    if (p.o_f32)
+      d_term<float, 64, kWgThreads>(p, bh, rw0, static_cast<const float*>(p.o),
+                                    p.d_o, false, sL + 64 * w, sD + 64 * w,
+                                    wi, lane, rank == 0);
+    else
+      d_term<bf16, 64, kWgThreads>(p, bh, rw0, static_cast<const bf16*>(p.o),
+                                   p.d_o, false, sL + 64 * w, sD + 64 * w, wi,
+                                   lane, rank == 0);
+    // Qs = bf16(Q * scale * log2e), this warpgroup's rows, in place.
+    hw::mbar_wait(q_full, 0);
+#pragma unroll
+    for (int pn = 0; pn < DP / 64; ++pn) {
+      unsigned char* rows = sm + L::kQ + pn * BQ * kPanelBytes +
+                            64 * w * kPanelBytes;
+      scale_chunks(rows, rows, 64 * kPanelBytes, p.scale2, wt, kWgThreads);
+    }
+    hw::fence_proxy_async();
+    hw::named_barrier(1 + w, kWgThreads);
+    const int r16 = 64 * w + wi * 16 + g;   // tile rows r16 and r16 + 8
+    const float l2[2] = {sL[r16], sL[r16 + 8]};
+    const float dt[2] = {sD[r16], sD[r16 + 8]};
+    auto k_base = [&](int sk) {
+      return hw::opaque(hw::smem_addr(sm + L::kK + sk * L::kTile));
+    };
+    // The exchange of S's and dP's partials with this warpgroup's twin in
+    // the other CTA: chunks [0, BKV / 8) S's n-tiles, then dP's.
+    using Sum = hw::ClusterSum<L::kNch>;
+    Sum xs{hw::smem_addr(sm + L::kX + w * L::kSlot), &x_full[w], &x_empty[w],
+           rank, size, wt, lane};
+
+    float dq[DP / 8][4];
+    zero_acc(dq);
+    // dS of the step whose dQ product is deferred into the next step.
+    uint32_t pa[BKV / 16][4] = {};
+    for (int t = 0; t < nblk; ++t) {
+      const int sk = t % SK, sv = t % SV;
+      // The K tile the deferred product reads: step t - 1's, or before the
+      // first step (dS = 0) this step's.
+      const int pk = t > 0 ? (t - 1) % SK : sk;
+      const int col0 = (lo_c + t) * BKV;
+      hw::mbar_wait(&full_k[sk], (t / SK) & 1);
+      hw::mbar_wait(&full_v[sv], (t / SV) & 1);
+      const uint32_t k_cur = k_base(sk);
+      const uint32_t v_cur =
+          hw::opaque(hw::smem_addr(sm + L::kV + sv * L::kTile));
+      const uint32_t q_base =
+          hw::opaque(hw::smem_addr(sm + L::kQ) + 64 * w * kPanelBytes);
+      const uint32_t do_base =
+          hw::opaque(hw::smem_addr(sm + L::kDO) + 64 * w * kPanelBytes);
+      // This step's partials S = Qs K^T and dP = dO V^T over the panel (A
+      // = this warpgroup's rows, 64 rows into each 128-row panel; B = the
+      // K / V tile; both K-major; the first k-step overwrites), then the
+      // deferred dQ += dS K (A = dS from registers, B = that step's K tile
+      // read MN-major): two commit groups, issued together.
+      float s[BKV / 8][4], dp[BKV / 8][4];
+      hw::fence_acc(s);
+      hw::fence_acc(dp);
+      hw::fence_acc(dq);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hw::Wgmma<BKV>::template ss<0, 0>(s, desc_k(q_base, BQ, kk),
+                                          desc_k(k_cur, BKV, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hw::Wgmma<BKV>::template ss<0, 0>(dp, desc_k(do_base, BQ, kk),
+                                          desc_k(v_cur, BKV, kk), kk > 0);
+      hw::wgmma_commit();
+      const uint32_t k_prev = k_base(pk);
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc)
+        hw::Wgmma<DP>::template rs<1>(dq, pa[kc], desc_mn(k_prev, BKV, kc),
+                                      1);
+      hw::wgmma_commit();
+      hw::wgmma_wait<1>();   // the partials; the deferred product may run
+      hw::fence_acc(s);
+      hw::fence_acc(dp);
+      if (lane == 0) hw::mbar_arrive(&empty_v[sv]);   // V read
+      if constexpr (CL) {
+        // The cluster's S and dP, in rank order.
+        xs.begin();
+        xs.send(s, 0);
+        xs.send(dp, BKV / 8);
+        xs.wait();
+        xs.sum(s, 0);
+        xs.sum(dp, BKV / 8);
+        xs.end();
+      }
+      // dS, in place of S; the masks only where the block is not wholly
+      // visible to this warpgroup's rows.
+      with_flags(!block_visible(p, rw0, 64, col0, BKV), p.cap2 > 0.f,
+                 [&](auto masked, auto capped) {
+#pragma unroll
+        for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            bool vis = true;
+            if constexpr (decltype(masked)::value)
+              vis = visible(p, i * BQ + r16 + 8 * h,
+                            col0 + n * 8 + t4 * 2 + (e & 1));
+            float prob;
+            s[n][e] = grad_score_t<decltype(capped)::value>(
+                p, s[n][e], dp[n][e], l2[h], dt[h], vis, prob);
+          }
+      });
+      hw::wgmma_wait<0>();   // the deferred product
+      hw::fence_acc(dq);
+      hw::fence_frag(pa);
+      if (t > 0 && lane == 0) hw::mbar_arrive(&empty_k[pk]);
+      // This step's dS (rounded to bf16) for its deferred product.
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc)
+        acc_to_a(pa[kc], s[2 * kc], s[2 * kc + 1]);
+    }
+    if (nblk > 0) {
+      // The last step's product.
+      const int last = (nblk - 1) % SK;
+      hw::fence_acc(dq);
+      hw::wgmma_fence();
+      const uint32_t k_last = k_base(last);
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc)
+        hw::Wgmma<DP>::template rs<1>(dq, pa[kc], desc_mn(k_last, BKV, kc),
+                                      1);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_acc(dq);
+      hw::fence_frag(pa);
+      if (lane == 0) hw::mbar_arrive(&empty_k[last]);
+    }
+
+    const size_t qoff = (size_t)bh * p.R * p.D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = i * BQ + r16 + 8 * h;
+      if (r >= p.R) continue;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = dcol + n * 8 + t4 * 2 + e;
+          if (d < p.D) p.dq[qoff + (size_t)r * p.D + d] = dq[n][2 * h + e];
+        }
+    }
+  }
+  // No CTA leaves while the other may still write its slots or arrive on
+  // its barriers.
+  if constexpr (CL) {
+    __syncwarp();
+    hw::cluster_sync();
+  }
 }
 
 template <typename Kernel>
@@ -1742,14 +2074,16 @@ cudaError_t launch_kv_wgmma(int bhkv, const BwdParams& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The cluster kernel: two CTAs a cluster, CTA p on head-dim panel p of
-// DP columns; grid.x = kv blocks x heads x panels, a tile's panels
-// adjacent, the first kv blocks (the longest causal walks) first.
-template <int BQ, int DP>
-cudaError_t launch_kv_cluster(int bhkv, int panels, const BwdParams& p,
-                              cudaStream_t s) {
-  using L = KvSplitSmem<BQ, DP>;
-  if (panels != 2) return cudaErrorInvalidValue;
+// K4 on wide panels: P = panels CTAs a kv-block tile, CL for two (a
+// cluster, the tile's CTAs adjacent on grid.x), one CTA without; grid.x =
+// kv blocks x heads x panels, the first kv blocks (the longest causal
+// walks) first.
+template <int BQ, int DP, bool CL>
+cudaError_t launch_kv_split(int bhkv, int panels, const BwdParams& p,
+                            cudaStream_t s) {
+  using L = KvSplitSmem<BQ, DP, CL>;
+  static_assert(L::kS >= 1 && L::kBytes <= kSmemOptin, "K4 split layout");
+  if (panels != (CL ? 2 : 1)) return cudaErrorInvalidValue;
   CUtensorMap mq, mdo, mk, mv;
   const int bh = bhkv * p.group;
   if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, BQ) ||
@@ -1757,10 +2091,50 @@ cudaError_t launch_kv_cluster(int bhkv, int panels, const BwdParams& p,
       !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, L::kBKV) ||
       !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, L::kBKV))
     return cudaErrorInvalidValue;
-  static int fits[9] = {};
-  return hw::launch_clusters(flash_bwd_kv_split<BQ, DP>,
-                             (p.C + L::kBKV - 1) / L::kBKV * bhkv * panels,
-                             panels, L::kBytes, s, fits, p, mq, mdo, mk, mv);
+  auto kernel = flash_bwd_kv_split<BQ, DP, CL>;
+  const int grid = (p.C + L::kBKV - 1) / L::kBKV * bhkv * panels;
+  if constexpr (CL) {
+    static int fits[9] = {};
+    return hw::launch_clusters(kernel, grid, panels, L::kBytes, s, fits, p,
+                               mq, mdo, mk, mv);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWgmmaThreads, L::kBytes, s>>>(p, mq, mdo, mk, mv);
+    return cudaGetLastError();
+  }
+}
+
+// K3 on wide panels: P = panels CTAs a (q-block, head) tile, CL for two
+// (a cluster, the tile's CTAs adjacent on grid.x), one CTA without; the
+// last q-blocks (the longest causal walks) first.
+template <int BKV, int DP, bool CL>
+cudaError_t launch_q_split(int bh, int panels, const BwdParams& p,
+                           cudaStream_t s) {
+  using L = QSplitSmem<BKV, DP, CL>;
+  static_assert(L::kSK >= 2 && L::kBytes <= kSmemOptin, "K3 split layout");
+  if (panels != (CL ? 2 : 1)) return cudaErrorInvalidValue;
+  CUtensorMap mq, mdo, mk, mv;
+  const int bhkv = bh / p.group;
+  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, L::kBQ) ||
+      !hw::tile_map_bf16(&mdo, p.d_o, p.D, p.R, bh, L::kBQ) ||
+      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
+      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_q_split<BKV, DP, CL>;
+  const int grid = (p.R + L::kBQ - 1) / L::kBQ * bh * panels;
+  if constexpr (CL) {
+    static int fits[9] = {};
+    return hw::launch_clusters(kernel, grid, panels, L::kBytes, s, fits, p,
+                               mq, mdo, mk, mv);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWgmmaThreads, L::kBytes, s>>>(p, mq, mdo, mk, mv);
+    return cudaGetLastError();
+  }
 }
 
 // TMA maps these operands: bf16 rows of a multiple of 16 bytes, 16-byte
@@ -1784,8 +2158,9 @@ int vec_ok(int D, const void* a, const void* b, const void* c,
 // K3. dtype: 0 = fp32, 1 = bf16 (q, k, v, d_o); o_f32: O is fp32 (else the
 // input type); kernel: 0 the first-cut kernels (mma.sync / FMA), 1 the
 // wgmma kernel, 2 the D-blocked kernels (mma.sync / FMA) over `panels`
-// head-dim panels. (kernel, block_q, block_kv, block_d) must be a row of
-// ops/params.py's flash_bwd_q tables.
+// head-dim panels, 3 the head-dim-split kernel over `panels` panels (one
+// CTA, or a cluster of two). (kernel, block_q, block_kv, block_d) must be
+// a row of ops/params.py's flash_bwd_q tables.
 extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                const void* o, const void* d_o,
                                const void* lse, void* dq, void* dterm,
@@ -1821,6 +2196,23 @@ extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
       return launch_q_wgmma<64, 128>(bh, p, s);
     return cudaErrorInvalidValue;
   }
+  if (kernel == 3) {
+    if (block_q != 128 || !tma_ok(D, {q, k, v, d_o}))
+      return cudaErrorInvalidValue;
+    // One CTA on a 64- or 128-wide panel: the sweep's candidates against
+    // the wgmma kernel at D <= 128 (utils/bwd_tuning.py).
+    if (block_kv == 64 && block_d == 64)
+      return launch_q_split<64, 64, false>(bh, panels, p, s);
+    if (block_kv == 64 && block_d == 128)
+      return launch_q_split<64, 128, false>(bh, panels, p, s);
+    if (block_kv == 32 && block_d == 192)
+      return panels == 1 ? launch_q_split<32, 192, false>(bh, panels, p, s)
+                         : launch_q_split<32, 192, true>(bh, panels, p, s);
+    if (block_kv == 32 && block_d == 256)
+      return panels == 1 ? launch_q_split<32, 256, false>(bh, panels, p, s)
+                         : launch_q_split<32, 256, true>(bh, panels, p, s);
+    return cudaErrorInvalidValue;
+  }
   if (kernel == 2) {
     if (block_q == 64 && block_kv == 32 && block_d == 256)
       return launch_q_bf16<64, 32, 256, true>(bh, p, s);
@@ -1838,9 +2230,9 @@ extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// K4. dtype, kernel and panels as for K3, and kernel 3 the cluster kernel
-// over `panels` head-dim panels, one CTA of a cluster each; the D-term is
-// K3's. (kernel, block_q, block_kv, block_d) must be a row of
+// K4. dtype, kernel and panels as for K3 (kernel 3 the head-dim-split
+// kernel over `panels` panels: one CTA, or a cluster of two); the D-term
+// is K3's. (kernel, block_q, block_kv, block_d) must be a row of
 // ops/params.py's flash_bwd_kv tables.
 extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 const void* d_o, const void* lse,
@@ -1885,8 +2277,12 @@ extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
   if (kernel == 3) {
     if (block_q != 32 || block_kv != 64 || !tma_ok(D, {q, k, v, d_o}))
       return cudaErrorInvalidValue;
-    if (block_d == 192) return launch_kv_cluster<32, 192>(bhkv, panels, p, s);
-    if (block_d == 256) return launch_kv_cluster<32, 256>(bhkv, panels, p, s);
+    if (block_d == 192)
+      return panels == 1 ? launch_kv_split<32, 192, false>(bhkv, panels, p, s)
+                         : launch_kv_split<32, 192, true>(bhkv, panels, p, s);
+    if (block_d == 256)
+      return panels == 1 ? launch_kv_split<32, 256, false>(bhkv, panels, p, s)
+                         : launch_kv_split<32, 256, true>(bhkv, panels, p, s);
     return cudaErrorInvalidValue;
   }
   if (kernel == 2) {

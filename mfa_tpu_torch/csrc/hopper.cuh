@@ -776,6 +776,17 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The driver's encoder needs a context current on the calling host
+// thread, and binds none itself. A thread whose first CUDA call is an
+// encode (an autograd worker whose first work is a TMA kernel's launch)
+// has none yet, and the encode fails; a runtime call binds the one the
+// thread would use (the device's primary context, or keeps the one
+// already current), once a thread.
+inline bool bind_context() {
+  thread_local const bool bound = cudaFree(nullptr) == cudaSuccess;
+  return bound;
+}
+
 // A map over a 3-D tensor of `type` with extents n0 (contiguous), n1, n2
 // and byte strides s1, s2 (multiples of 16) of dims 1 and 2, loading
 // boxes {b0, b1, b2} with `swizzle`; elements outside the extents arrive
@@ -785,7 +796,7 @@ inline bool tile_map_3d(CUtensorMap* map, CUtensorMapDataType type,
                         uint64_t n2, uint64_t s1, uint64_t s2, uint32_t b0,
                         uint32_t b1, uint32_t b2, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !bind_context()) return false;
   const cuuint64_t dims[3] = {n0, n1, n2};
   const cuuint64_t strides[2] = {s1, s2};
   const cuuint32_t box[3] = {b0, b1, b2};

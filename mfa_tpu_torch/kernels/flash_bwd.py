@@ -10,18 +10,21 @@ for CUDA tensors and takes its plain version only for CPU tensors.
 
 Which kernel a launch runs is the descriptor's parameter row
 (``ops/params.py``): bf16 rows up to D = 128 name the warp-specialised
-TMA + wgmma kernels, the others the first-cut mma.sync or FMA kernels.
-A wgmma row whose operands a TMA tensor map cannot hold (a base address
-not 16-byte aligned) runs the mma.sync row of the same head dim
+TMA + wgmma kernels, bf16 rows from D 136 to 512 the head-dim-split
+kernels (``wgmma_dblk``), the others the first-cut mma.sync or FMA
+kernels. A wgmma or wgmma_dblk row whose operands a TMA tensor map cannot
+hold (D % 8 != 0, a base address not 16-byte aligned) runs the mma.sync
+row of the same head dim
 (:func:`~mfa_tpu_torch.ops.descriptors.launch_row`, shared with K1).
-Above D = 256 a launch covers dQ (K3) or dK and dV (K4) in ceil(D /
-block_d) head-dim panels, as ``mfa_tpu``'s kernels page D in ``block_d``
-slices (flash_bwd.py:175-235, :530-656): K4's bf16 rows up to D = 512
-name the cluster kernel (``wgmma_dblk``: one CTA of a two-CTA cluster a
-panel, S^T and dP^T summed across the cluster), whose row moves to
-``mma_dblk`` where TMA cannot map the operands; K3 and the rest run the
-D-blocked rows (``mma_dblk``, ``fma_dblk``: one CTA a panel). Blocks,
-heads and panels share grid.x, so batch * heads has no 65535 limit.
+Past D = 128 a launch covers dQ (K3) or dK
+and dV (K4) in ceil(D / block_d) head-dim panels, as ``mfa_tpu``'s
+kernels page D in ``block_d`` slices (flash_bwd.py:175-235, :530-656):
+the head-dim-split rows give a panel a CTA, one CTA of a 192- or
+256-wide panel up to D = 256 and a two-CTA cluster past it, S and dP (K3)
+or S^T and dP^T (K4) summed across the cluster; the D-blocked rows past
+D = 256 (``mma_dblk``, ``fma_dblk``) give a panel a CTA that streams
+every panel. Blocks, heads and panels share grid.x, so batch * heads has
+no 65535 limit.
 
 Operands: q, o, dO [BH, R, D]; k, v [BH / group, C, D] (query head bh
 reads kv head bh // group); L and the D-term [BH, R] fp32. dO is in the

@@ -18,11 +18,12 @@ Columns: ``max_d | block_q | block_kv | block_d [| kernel]``.
 K/V rows per step of the in-CTA loop (K4: per CTA), ``block_d`` the head
 dim the CTA's shared-memory tiles are padded to (one compiled
 instantiation per ``block_d``); in a D-blocked row (``mma_dblk``,
-``fma_dblk``, ``wgmma_dblk``) it is the head-dim panel, smaller than D,
+``fma_dblk``, ``wgmma_dblk``) it is the head-dim panel, smaller than D
+(K3 and K4's ``wgmma_dblk`` rows up to D = 256: as wide as D or wider),
 and each CTA owns one panel of the output: the first cut streams Q, K, V
 (and dO) in panels of ``block_d`` columns, so any head dim runs; the
-cluster kernels (``wgmma_dblk``) give each panel a CTA of one thread-
-block cluster, up to :func:`dblk_max_panels` of them. The optional
+head-dim-split kernels (``wgmma_dblk``) give each panel a CTA of one
+thread-block cluster, up to :func:`dblk_max_panels` of them. The optional
 ``kernel`` names the kernel a row runs where a table has more than one
 (:data:`ROW_KERNELS`).
 
@@ -82,9 +83,10 @@ class ParameterRow:
 # The kernels a row may name: "wgmma" the warp-specialised TMA + wgmma
 # kernels, "mma" the first-cut mma.sync ones (bf16), "mma_dblk" and
 # "fma_dblk" the head-dim-blocked mma.sync (bf16) and FMA (fp32) kernels
-# for D > 256, "wgmma_dblk" the head-dim-split cluster kernels (bf16, K1
-# and K4): one CTA of a thread-block cluster per block_d panel, S (and dP)
-# summed across the cluster.
+# for D > 256, "wgmma_dblk" the head-dim-split cluster kernels (bf16; K1
+# past D = 256, K3 and K4 past D = 128): one CTA of a thread-block cluster
+# per block_d panel, S (and dP) summed across the cluster (K3 and K4 up to
+# D = 256: one CTA holding the whole head dim, nothing to sum).
 ROW_KERNELS = ("mma", "wgmma", "mma_dblk", "fma_dblk", "wgmma_dblk")
 DBLK_KERNELS = ("mma_dblk", "fma_dblk", "wgmma_dblk")
 
@@ -92,8 +94,9 @@ DBLK_KERNELS = ("mma_dblk", "fma_dblk", "wgmma_dblk")
 def dblk_max_panels(block_d: int) -> int:
     """The most head-dim panels (CTAs of a cluster) of a ``wgmma_dblk``
     row of panel width ``block_d``: K1's exchange slots are sized for them
-    (csrc/flash_fwd.cu ``dblk_max_panels``); K4's rows are 192 or 256
-    wide, clusters of two."""
+    (csrc/flash_fwd.cu ``dblk_max_panels``); K3's and K4's rows are 192 or
+    256 wide, one CTA or clusters of two (their exchange slots hold one
+    other CTA's partials)."""
     return 4 if block_d == 128 else 2
 
 
@@ -203,29 +206,46 @@ _FWD_FP32 = """
 # stage. Measured by utils/bwd_tuning.py sweep on the H100 at
 # chip_smoke.py's causal shape: 0.2108 ms at D = 128 and 0.1730 at D = 64
 # (the mma.sync rows 0.7636 and 0.4284); block_kv 128 was within 1.5%
-# with a ring of two stages and leaves no room for more. D = 256 keeps
-# the mma.sync kernel: four warps of 16 query rows, registers hold the
-# fp32 dQ accumulator plus S and dP for one kv step, so the step halves
-# (not tuned on the H100). Head dims TMA cannot map take _BWD_Q_BF16_MMA.
-# Above D = 256 (mma_dblk): one CTA per block_d panel of dQ, S and dP
-# summed over panels of Q, dO, K and V. By the same sweep at N 4096
-# (causal / non-causal): 128-wide panels with 64-wide kv steps take
-# 4.394 / 7.175 ms at D = 384 and 6.839 / 11.874 at D = 512, 256-wide
-# ones with 32-wide steps 7.395 / 12.395 and 7.887 / 13.943 (D % 8 != 0
-# at N 1024, the bf16_mma rows: 1.254 / 1.842 against 1.944 / 2.301 at D
-# = 300, 2.487 / 3.125 against 2.981 / 3.596 at D = 500).
+# with a ring of two stages and leaves no room for more. The head-dim-split
+# kernel of the rows past D = 128 on one CTA (block_kv 64, a sweep
+# candidate) took 0.1764 ms at D = 128 against this kernel's 0.1767, and
+# 0.1522 at D = 64 against 0.1456 (same sweep, one run, NVIDIA H100 80GB
+# HBM3, 700 W). Head dims TMA cannot map take _BWD_Q_BF16_MMA.
+# Above D = 128 up to D = 512 (rows wgmma_dblk, csrc/flash_bwd.cu
+# flash_bwd_q_split): the head-dim-split kernel, 128 query rows a CTA, one
+# CTA on a 192- or 256-wide panel up to D = 256, a cluster of two past it,
+# S and dP summed across the cluster; dQ's product deferred a step.
+# Measured by utils/bwd_tuning.py sweep --only dblk on the H100 (NVIDIA
+# H100 80GB HBM3, 700 W) at B 1, H 8, N 4096 (causal / non-causal): D =
+# 192, one CTA on a 192-wide panel 0.2024 / 0.3164 ms, on a 256-wide one
+# 0.2476 / 0.4275, the mma.sync row 2.021 / 3.095 (64-wide kv steps,
+# 0.2056 / 0.3399, not kept); D = 256, one CTA 0.2421 / 0.4135, two on
+# 192-wide panels 0.9209 / 1.686, the mma.sync row 2.138 / 3.519; D =
+# 384, two CTAs on 192-wide panels 0.9376 / 1.708, on 256-wide 1.011 /
+# 1.856; D = 512, two on 256-wide panels 0.9992 / 1.850.
+# Beyond D = 512 (mma_dblk): one CTA per block_d panel of dQ, S and dP
+# summed over panels of Q, dO, K and V. By the same sweep: 128-wide
+# panels with 64-wide kv steps 4.499 / 7.433 ms at D = 384 and 6.993 /
+# 12.25 at D = 512, 256-wide ones with 32-wide steps 7.403 / 12.65 and
+# 8.065 / 14.16 (D % 8 != 0 at N 1024, the bf16_mma rows: 1.119 / 1.703
+# against 1.654 / 1.964 at D = 300, 2.325 / 2.905 against 2.724 / 3.287
+# at D = 500).
 _BWD_Q_BF16 = """
 # max_d | block_q | block_kv | block_d | kernel
    64   |  128    |    64    |   64    | wgmma
   128   |  128    |    64    |  128    | wgmma
-  256   |   64    |    32    |  256    | mma
-  384   |   64    |    64    |  128    | mma_dblk
+  192   |  128    |    32    |  192    | wgmma_dblk
+  256   |  128    |    32    |  256    | wgmma_dblk
+  384   |  128    |    32    |  192    | wgmma_dblk
+  512   |  128    |    32    |  256    | wgmma_dblk
   inf   |   64    |    64    |  128    | mma_dblk
 """
 
 # K3 bf16 where TMA cannot map the operands (a row of D % 8 != 0 values is
 # no multiple of 16 bytes, or a base is not 16-byte aligned): the mma.sync
-# kernel for every head dim. (Not tuned on the H100.)
+# kernel for every head dim; at D 129-256 four warps of 16 query rows,
+# registers holding the fp32 dQ accumulator plus S and dP for one kv step,
+# so the step halves. (Not tuned on the H100.)
 _BWD_Q_BF16_MMA = """
    64   |   64    |    64    |   64    | mma
   128   |   64    |    64    |  128    | mma
@@ -251,35 +271,44 @@ _BWD_Q_FP32 = """
 # warpgroups taking alternate steps. block_q measured by the same sweep:
 # at D = 128, 32 (0.3632 ms) beats 64 (0.5461 ms; its accumulators spill
 # registers); at D = 64, 64 (0.1530 ms) beats 32 (0.1952 ms); the
-# mma.sync rows take 1.7789 and 1.1472 ms. D = 256 keeps the mma.sync
-# kernel: 64 kv rows per CTA in eight warps that split the head dim,
-# 32-row q steps (not tuned on the H100). Head dims TMA cannot map take
-# _BWD_KV_BF16_MMA. Above D = 256 up to D = 512 the cluster kernel
-# (wgmma_dblk): clusters of two CTAs on 192- or 256-wide panels
-# (csrc/flash_bwd.cu flash_bwd_kv_split), their warpgroups owning dV and
-# dK; beyond D = 512 mma_dblk: one CTA per block_d panel of dK and dV (at
-# block_d 256 its eight warps split the panel, as at D = 256), S^T and
-# dP^T summed over panels of K, V, Q and dO. By utils/bwd_tuning.py sweep
-# --only dblk on the H100 (NVIDIA H100 80GB HBM3, 700 W) at B 1, H 8, N
-# 4096 (causal / non-causal): D = 384, the cluster on 192-wide panels
-# 1.497 / 2.904 ms, on 256-wide 1.544 / 2.990, mma_dblk 7.507 / 12.79
-# (128-wide panels) and 7.744 / 14.43 (256); D = 512, the cluster on
-# 256-wide panels 1.556 / 3.005, mma_dblk 8.879 / 16.67 (256) and 11.08 /
-# 20.65 (128).
+# mma.sync rows take 1.7789 and 1.1472 ms. Head dims TMA cannot map take
+# _BWD_KV_BF16_MMA. Above D = 128 up to D = 512 the head-dim-split kernel
+# (wgmma_dblk, csrc/flash_bwd.cu flash_bwd_kv_split), its warpgroups
+# owning dV and dK: one CTA on a 192- or 256-wide panel up to D = 256,
+# clusters of two past it; beyond D = 512 mma_dblk: one CTA per block_d
+# panel of dK and dV (at block_d 256 its eight warps split the panel),
+# S^T and dP^T summed over panels of K, V, Q and dO. By
+# utils/bwd_tuning.py sweep --only dblk on the H100 (NVIDIA H100 80GB
+# HBM3, 700 W) at B 1, H 8, N 4096 (causal / non-causal): D = 192, one CTA
+# on a 192-wide panel 0.4580 / 0.8455 ms, on a 256-wide one 0.5128 /
+# 0.9607, the mma.sync row 2.419 / 3.928; D = 256, one CTA 0.5277 /
+# 0.9781, two on 192-wide panels 1.454 / 2.786, the mma.sync row 2.526 /
+# 4.360 (two CTAs of 128-wide panels, 1.334 / 2.571 at D = 256 and 1.323
+# / 2.596 at 192, not kept); D = 384, two CTAs on 192-wide panels 1.446 /
+# 2.797, on 256-wide 1.579 / 3.055, mma_dblk 7.625 / 12.87 (128-wide
+# panels) and 7.893 / 14.58 (256); D = 512, two CTAs on 256-wide panels
+# 1.592 / 3.080, mma_dblk 8.864 / 16.68 (256) and 11.09 / 20.85 (128).
+# One CTA as a plain launch without the exchange slots (a fourth ring
+# stage at D = 256), in a later run of the same sweep beside the launch
+# as a cluster of one: D = 192 0.4407 / 0.8215 against 0.4599 / 0.8524,
+# D = 256 0.5097 / 0.9457 against 0.5250 / 0.9741.
 _BWD_KV_BF16 = """
 # max_d | block_q | block_kv | block_d | kernel
    64   |   64    |    64    |   64    | wgmma
   128   |   32    |    64    |  128    | wgmma
-  256   |   32    |    64    |  256    | mma
+  192   |   32    |    64    |  192    | wgmma_dblk
+  256   |   32    |    64    |  256    | wgmma_dblk
   384   |   32    |    64    |  192    | wgmma_dblk
   512   |   32    |    64    |  256    | wgmma_dblk
   inf   |   32    |    64    |  256    | mma_dblk
 """
 
-# K4 bf16 where TMA cannot map the operands (as for K3). (Not tuned on the
-# H100 up to D = 256.) The D-blocked rows at N 1024: 256-wide panels take
-# 1.495 / 1.889 ms (causal / non-causal) at D = 300 and 1.826 / 2.283 at
-# D = 500, 128-wide ones 1.797 / 2.857 and 3.202 / 4.142.
+# K4 bf16 where TMA cannot map the operands (as for K3); at D 129-256 64
+# kv rows per CTA in eight warps that split the head dim, 32-row q steps.
+# (Not tuned on the H100 up to D = 256.) The D-blocked rows at N 1024:
+# 256-wide panels take 1.495 / 1.889 ms (causal / non-causal) at D = 300
+# and 1.826 / 2.283 at D = 500, 128-wide ones 1.797 / 2.857 and 3.202 /
+# 4.142.
 _BWD_KV_BF16_MMA = """
    64   |   32    |    64    |   64    | mma
   128   |   32    |    64    |  128    | mma
@@ -374,36 +403,68 @@ def _ring_stages(fixed: int, per_stage: int, most: int, mult: int) -> int:
     return min((_SMEM_OPTIN - fixed) // per_stage, most) // mult * mult
 
 
+def row_panels(row: ParameterRow) -> int:
+    """The head-dim panels of a ``wgmma_dblk`` row at its largest head dim
+    (the tables' K3 and K4 rows never straddle D = block_d: up to 256 one
+    panel, past it two)."""
+    if not row.max_d:
+        return dblk_max_panels(row.block_d)
+    return -(-row.max_d // row.block_d)
+
+
 def bwd_q_stages(row: ParameterRow) -> int:
-    """Stages of K3's wgmma ring at ``row``."""
+    """Stages of K3's wgmma ring at ``row`` (Q and dO resident, L and the
+    D-term beside it)."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
     return _ring_stages(2 * 2 * bq * d + 8 * bq + 8 + _SMEM_ALIGN,
                         2 * 2 * bkv * d + 16, 4, 1)
 
 
+def bwd_q_split_stages(row: ParameterRow) -> tuple[int, int]:
+    """Stages of the K and V rings of K3's head-dim-split kernel at
+    ``row`` (csrc/flash_bwd.cu QSplitSmem): the K and V tiles that fit
+    beside Q, dO, L, the D-term and, as a cluster, the exchange slots with
+    their four mbarriers, each tile with two mbarriers; K gets up to 4 of
+    them keeping one for V, V the rest, up to 4."""
+    d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    x = exchange_bytes("flash_bwd_q", row)
+    tiles = ((_SMEM_OPTIN - 2 * 2 * bq * d - x - 8 * bq
+              - 8 * (1 + (4 if x else 0)) - _SMEM_ALIGN)
+             // (2 * bkv * d + 16))
+    sv = min(max(tiles - 4, 1), 4)
+    return min(tiles - sv, 4), sv
+
+
 def exchange_bytes(kernel: str, row: ParameterRow) -> int:
     """A ``wgmma_dblk`` row's exchange buffers: K1's, for each of the two
     consumer warpgroups one slot for each other CTA of the largest cluster
-    (:func:`dblk_max_panels`) of its partial S (64 x block_kv fp32); K4's
-    (clusters of two, warpgroup 1 forming S^T and warpgroup 0 dP^T) a
-    slot of 64 x block_q fp32 for each warpgroup plus the two buffers that
-    hand S^T from one warpgroup to the other. 0 for the other rows."""
+    (:func:`dblk_max_panels`) of its partial S (64 x block_kv fp32); K3's,
+    as a cluster of two, one slot a warpgroup of its partial S and dP (two
+    of 64 x block_kv fp32); K4's (warpgroup 1 forming S^T and warpgroup 0
+    dP^T), as a cluster of two, a slot of 64 x block_q fp32 for each
+    warpgroup. 0 for one CTA and for the other rows."""
     if row.kernel != "wgmma_dblk":
         return 0
     if kernel == "flash_fwd":
         return 2 * (dblk_max_panels(row.block_d) - 1) * 64 * row.block_kv * 4
-    return 4 * 64 * row.block_q * 4
+    if row_panels(row) == 1:
+        return 0
+    if kernel == "flash_bwd_q":
+        return 2 * 2 * 64 * row.block_kv * 4
+    return 2 * 64 * row.block_q * 4
 
 
 def bwd_kv_stages(row: ParameterRow) -> int:
     """Stages of K4's wgmma ring at ``row``: an even number, up to 4, on
     the kernel whose warpgroups take alternate steps; up to 4 on the
-    cluster kernel (both warpgroups read every stage; it keeps one
-    scaled-Q tile beside its exchange buffers and eight more mbarriers)."""
+    head-dim-split kernel (both warpgroups read every stage; it keeps one
+    scaled-Q tile and the two S^T hand-off buffers, four more mbarriers,
+    and as a cluster its exchange slots and four more)."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
-    x = exchange_bytes("flash_bwd_kv", row)
-    if x:
-        return _ring_stages(2 * 2 * bkv * d + 2 * bq * d + x + 8 * 9
+    if row.kernel == "wgmma_dblk":
+        x = exchange_bytes("flash_bwd_kv", row)
+        return _ring_stages(2 * 2 * bkv * d + 2 * bq * d + x
+                            + 2 * 64 * bq * 4 + 8 * (5 + (4 if x else 0))
                             + _SMEM_ALIGN, 2 * 2 * bq * d + 8 * bq + 16, 4, 1)
     return _ring_stages(2 * 2 * bkv * d + 2 * 2 * bq * d + 8 + _SMEM_ALIGN,
                         2 * 2 * bq * d + 8 * bq + 16, 4, 2)
@@ -446,11 +507,13 @@ def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
 
 
 def flash_bwd_q_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
-    """K3: the wgmma kernel keeps Q (scaled in place) and dO resident and
+    """K3: the wgmma kernels keep Q (scaled in place) and dO resident and
     a ring of K and V tiles, L and the D-term per row (fp32) and one
-    mbarrier per stage plus one; the mma.sync kernel pre-scaled Q, dO, K
-    and V tiles (rows padded by 8) and the transposed K tile, plus L and
-    the D-term per row; the fp32 kernel unpadded Q/dO and K/V rows padded
+    mbarrier per stage plus one (the head-dim-split kernel: separate K and
+    V rings, two mbarriers a tile, and as a cluster its exchange slots and
+    four mbarriers); the mma.sync kernel pre-scaled Q, dO, K and V tiles
+    (rows padded by 8) and the transposed K tile, plus L and the D-term
+    per row; the fp32 kernel unpadded Q/dO and K/V rows padded
     by one. The D-blocked kernels hold the same tiles, block_d columns
     wide; the FMA one also K's panel of its dQ columns."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
@@ -458,6 +521,11 @@ def flash_bwd_q_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
         stages = bwd_q_stages(row)
         return (2 * 2 * bq * d + stages * 2 * 2 * bkv * d + 4 * 2 * bq
                 + 8 * (1 + 2 * stages) + _SMEM_ALIGN)
+    if row.kernel == "wgmma_dblk":
+        tiles = sum(bwd_q_split_stages(row))
+        x = exchange_bytes("flash_bwd_q", row)
+        return (2 * 2 * bq * d + x + tiles * 2 * bkv * d + 4 * 2 * bq
+                + 8 * (1 + 2 * tiles + (4 if x else 0)) + _SMEM_ALIGN)
     if in_bytes == 2:
         return (2 * (2 * bq * (d + 8) + 2 * bkv * (d + 8) + d * (bkv + 8))
                 + 4 * 2 * bq)
@@ -477,10 +545,13 @@ def flash_bwd_kv_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
     if row.kernel in ("wgmma", "wgmma_dblk"):
         stages = bwd_kv_stages(row)
-        x = exchange_bytes("flash_bwd_kv", row)
-        if x:   # one scaled-Q tile, eight more mbarriers
-            return (2 * 2 * bkv * d + 2 * bq * d + x + stages * 2 * 2 * bq * d
-                    + stages * 4 * 2 * bq + 8 * (1 + 2 * stages + 8)
+        if row.kernel == "wgmma_dblk":
+            # One scaled-Q tile, the S^T hand-off buffers, four more
+            # mbarriers; as a cluster the exchange slots and four more.
+            x = exchange_bytes("flash_bwd_kv", row)
+            return (2 * 2 * bkv * d + 2 * bq * d + x + 2 * 64 * bq * 4
+                    + stages * 2 * 2 * bq * d + stages * 4 * 2 * bq
+                    + 8 * (1 + 2 * stages + 4 + (4 if x else 0))
                     + _SMEM_ALIGN)
         return (2 * 2 * bkv * d + (2 * stages + 2) * 2 * bq * d
                 + stages * 4 * 2 * bq + 8 * (1 + 2 * stages) + _SMEM_ALIGN)

@@ -8,9 +8,10 @@ and non-causal, each wgmma candidate a (block_kv, ring stages, ping-pong)
 triple (``params.FWD_RING_STAGES`` and ``params.FWD_PINGPONG`` set for
 the run); K3 and K4 causal. Then the rows past D = 256 of K1, K3 and
 K4, causal and non-causal: the D-blocked first cut's two candidates a
-table and K1's and K4's cluster kernels (:data:`DBLK_ROWS`), at the
-shapes of ``chip_smoke.py``'s ``large_d`` phase and at D 256
-(:data:`DBLK_SHAPES`; ``--only dblk`` runs these alone). Each row is
+table, the mma rows at D <= 256 and the head-dim-split kernels
+(:data:`DBLK_ROWS`), at the shapes of ``chip_smoke.py``'s ``large_d``
+phase and at D 192 and 256 (:data:`DBLK_SHAPES`; ``--only dblk`` runs
+these alone). Each row is
 first held to its plain version at ``KERNEL_BUDGETS`` (and the
 D-blocked ones to a second run, bit for bit), then timed
 (CUDA events, launches queued behind a device spin). One JSON line per
@@ -77,20 +78,22 @@ from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 K1_ROWS = ((128, 3, True), (128, 2, True), (128, 3, False),
            (64, 4, True), (64, 2, True), (64, 4, False))
 # (block_q, block_kv, kernel) candidates per kernel; block_d is the head
-# dim's.
-K3_ROWS = ((128, 64, "wgmma"), (64, 64, "mma"))
+# dim's. K3's wgmma_dblk candidate is the head-dim-split kernel of the
+# rows past D = 128 on one CTA of a 64- or 128-wide panel.
+K3_ROWS = ((128, 64, "wgmma"), (128, 64, "wgmma_dblk"), (64, 64, "mma"))
 K4_ROWS = ((64, 64, "wgmma"), (32, 64, "wgmma"), (32, 64, "mma"))
 
 
-# The candidates past D = 256, (block_q, block_kv, block_d, kernel) per
+# The candidates past D = 128, (block_q, block_kv, block_d, kernel) per
 # kernel and input type: the compiled instances of csrc/flash_fwd.cu and
-# csrc/flash_bwd.cu; K1's mma row at D <= 256. The D-blocked first cut
+# csrc/flash_bwd.cu; the mma row at D <= 256. The D-blocked first cut
 # (mma_dblk, fma_dblk: a 256-wide panel, S once per two panels of 512, or
-# a 128-wide one with twice the kv (K1, K3) step) and, for K1 and K4, the
-# head-dim-split cluster kernels (wgmma_dblk: two CTAs of 192- or
-# 256-wide panels; K1 also 128-wide panels, up to four CTAs). A
-# wgmma_dblk candidate runs only where its cluster covers D
-# (params.dblk_max_panels) and TMA maps a row (bf16, D % 8 == 0).
+# a 128-wide one with twice the kv (K1, K3) step) and the head-dim-split
+# kernels (wgmma_dblk): K1 on clusters of two CTAs of 192- or 256-wide
+# panels or up to four of 128-wide ones; K3 and K4 on one CTA of a 192-
+# or 256-wide panel or two of them. A wgmma_dblk candidate runs only
+# where its CTAs cover D (panel_range) and TMA maps a row (bf16,
+# D % 8 == 0).
 DBLK_ROWS = {
     "flash_fwd": {"bf16": ((64, 32, 256, "mma"),
                            (64, 32, 256, "mma_dblk"),
@@ -100,11 +103,15 @@ DBLK_ROWS = {
                            (128, 64, 256, "wgmma_dblk")),
                   "fp32": ((16, 32, 256, "fma_dblk"),
                            (16, 32, 128, "fma_dblk"))},
-    "flash_bwd_q": {"bf16": ((64, 32, 256, "mma_dblk"),
-                             (64, 64, 128, "mma_dblk")),
+    "flash_bwd_q": {"bf16": ((64, 32, 256, "mma"),
+                             (64, 32, 256, "mma_dblk"),
+                             (64, 64, 128, "mma_dblk"),
+                             (128, 32, 192, "wgmma_dblk"),
+                             (128, 32, 256, "wgmma_dblk")),
                     "fp32": ((16, 32, 256, "fma_dblk"),
                              (16, 32, 128, "fma_dblk"))},
-    "flash_bwd_kv": {"bf16": ((32, 64, 256, "mma_dblk"),
+    "flash_bwd_kv": {"bf16": ((32, 64, 256, "mma"),
+                              (32, 64, 256, "mma_dblk"),
                               (32, 64, 128, "mma_dblk"),
                               (32, 64, 192, "wgmma_dblk"),
                               (32, 64, 256, "wgmma_dblk")),
@@ -114,26 +121,35 @@ DBLK_ROWS = {
 # (input type, D, N) at B 1, H 8: the JAX package's large-D class (bf16,
 # N 4096, D 384 and 512), head dims TMA cannot map (the bf16_mma table's
 # 384 and inf rows) and fp32, at chip_smoke.py's large_d sizes; and D
-# 256 at N 4096, where the candidates are K1's mma row and clusters and
-# K3's and K4's own rows.
+# 256 and 192 at N 4096, where the candidates are the mma rows, K1's
+# clusters and K3's and K4's one-CTA and two-CTA rows.
 DBLK_SHAPES = (("bf16", 384, 4096), ("bf16", 512, 4096),
                ("bf16", 300, 1024), ("bf16", 500, 1024),
                ("fp32", 384, 1024), ("fp32", 512, 1024),
-               ("bf16", 256, 4096))
+               ("bf16", 256, 4096), ("bf16", 192, 4096))
+
+
+def panel_range(name: str, bd: int) -> tuple[int, int]:
+    """The fewest and most CTAs a ``wgmma_dblk`` candidate of kernel
+    ``name`` on ``bd``-wide panels runs on: K1's clusters two or more (up
+    to params.dblk_max_panels); K3's and K4's one or two (their exchange
+    slots hold one other CTA's partials)."""
+    if name == "flash_fwd":
+        return 2, params.dblk_max_panels(bd)
+    return 1, params.dblk_max_panels(bd)
 
 
 def dblk_candidates(name: str, dt: str, d: int, table_row) -> list:
     """The candidates of kernel ``name`` at head dim ``d``: past D = 256
-    every D-blocked one, the cluster kernels only where their cluster
-    covers D and TMA maps a row; at D <= 256 K1's mma row and its
-    clusters (the one row there that may take them), and for K3 and K4
-    their table's row ``table_row``."""
+    every D-blocked one; the head-dim-split kernels where their CTAs
+    cover D (:func:`panel_range`), TMA maps a row and D > 128; at D <= 256
+    the mma row; else the table's row ``table_row``."""
     cands = []
     for bq, bkv, bd, kernel in DBLK_ROWS[name][dt]:
         panels = -(-d // bd)
         if kernel == "wgmma_dblk":
-            ok = (d % 8 == 0 and 2 <= panels <= params.dblk_max_panels(bd)
-                  and (d > 256 or name == "flash_fwd"))
+            least, most = panel_range(name, bd)
+            ok = d % 8 == 0 and d > 128 and least <= panels <= most
         elif kernel == "mma":
             ok = d <= bd
         else:
@@ -283,15 +299,18 @@ def sweep_bwd() -> None:
             kd = dataclasses.replace(kd_q, block_q=bq, block_kv=bkv,
                                      kernel=kernel)
             dq, dt = k34.flash_bwd_q(q, k, v, o, do, lse, kd, **kw)
+            dq2, dt2 = k34.flash_bwd_q(q, k, v, o, do, lse, kd, **kw)
+            same = bool(torch.equal(dq, dq2) and torch.equal(dt, dt2))
             shares = _shares((dq, dt), (dq_p, dterm), ("dq_bf16", "dterm"))
             ms = roofline.cuda_ms(lambda: k34.flash_bwd_q(
                 q, k, v, o, do, lse, kd, **kw), iters=50)
             print(json.dumps({"kernel": "flash_bwd_q", "D": d, "block_q": bq,
                               "block_kv": bkv, "row_kernel": kernel,
-                              "share": shares, "ms": ms}), flush=True)
-            if max(shares.values()) > 1:
-                raise SystemExit(f"K3 row {bq}/{bkv}/{kernel} at D={d} "
-                                 f"misses its budget: {shares}")
+                              "share": shares, "deterministic": same,
+                              "ms": ms}), flush=True)
+            if max(shares.values()) > 1 or not same:
+                raise SystemExit(f"K3 row {bq}/{bkv}/{kernel} at D={d}: "
+                                 f"shares {shares}, deterministic {same}")
         for bq, bkv, kernel in K4_ROWS:
             kd = dataclasses.replace(kd_kv, block_q=bq, block_kv=bkv,
                                      kernel=kernel)
@@ -495,7 +514,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("fwd", "bwd", "dblk", "matmul",
                                        "qmm_decode"),
                     default=None, help="sweep one group of kernels only "
-                    "(dblk: K1, K3 and K4 past D = 256 and at D = 256)")
+                    "(dblk: K1, K3 and K4 past D = 256 and at D 192, 256)")
     ap.add_argument("--plain", nargs="*",
                     default=["none", "k1", "k34", "k1,k34"],
                     help="curve: kernels swapped for their plain versions, "

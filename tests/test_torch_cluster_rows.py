@@ -1,5 +1,6 @@
-"""The head-dim-split cluster rows (``wgmma_dblk``, K1 and K4 past D = 256)
-against the scripts that run them on the card: ``chip_smoke.py``'s
+"""The head-dim-split rows (``wgmma_dblk``: K1 past D = 256, K3 and K4
+past D = 128) against the scripts that run them on the card:
+``chip_smoke.py``'s
 large_d phase expects the rows the tables select, and the sweep of
 ``utils/bwd_tuning.py`` tries the compiled candidates that apply at each
 head dim. CPU only: descriptors, rows and candidates, no kernel."""
@@ -32,9 +33,15 @@ def _chip_smoke():
 def test_large_d_phase_expects_the_tables_rows():
     """Every case of chip_smoke.py's large_d phase: the rows its K1, K3
     and K4 launches take from the tables are the ones large_d_rows
-    expects (K1 and K4 on the cluster kernel where TMA maps a bf16 row,
-    the first cut for K3, D % 8 != 0 and fp32, mma.sync at D 256)."""
+    expects (the head-dim-split kernels where TMA maps a bf16 row, K1
+    past D = 256 and on mma.sync at D 192 and 256; the first cut for D %
+    8 != 0 and fp32), and the phase runs K3 and K4 on one CTA at D 192
+    and 256 and on two past 256."""
     smoke = _chip_smoke()
+    assert {(d, smoke.large_d_rows("bf16", d)["k3"]) for d in (192, 256)} \
+        == {(192, "wgmma_dblk"), (256, "wgmma_dblk")}
+    assert {c[0] for c in smoke.LARGE_D_CASES} >= {"causal_d192",
+                                                   "causal_d256"}
     for name, tag, d, n, hkv, opts in smoke.LARGE_D_CASES:
         desc = AttentionDescriptor(
             batch=1, num_q_heads=8, num_kv_heads=hkv, seq_len_q=n,
@@ -60,9 +67,20 @@ def test_large_d_phase_expects_the_tables_rows():
                         (64, 64, 128, "mma_dblk")}),
     ("flash_fwd", 256, {(64, 32, 256, "mma"), (128, 64, 128, "wgmma_dblk"),
                         (128, 64, 192, "wgmma_dblk")}),
+    ("flash_fwd", 192, {(64, 32, 256, "mma"), (128, 64, 128, "wgmma_dblk")}),
     ("flash_bwd_q", 384, {(64, 32, 256, "mma_dblk"),
+                          (64, 64, 128, "mma_dblk"),
+                          (128, 32, 192, "wgmma_dblk"),
+                          (128, 32, 256, "wgmma_dblk")}),
+    ("flash_bwd_q", 512, {(64, 32, 256, "mma_dblk"),
+                          (64, 64, 128, "mma_dblk"),
+                          (128, 32, 256, "wgmma_dblk")}),
+    ("flash_bwd_q", 256, {(64, 32, 256, "mma"), (128, 32, 192, "wgmma_dblk"),
+                          (128, 32, 256, "wgmma_dblk")}),
+    ("flash_bwd_q", 192, {(64, 32, 256, "mma"), (128, 32, 192, "wgmma_dblk"),
+                          (128, 32, 256, "wgmma_dblk")}),
+    ("flash_bwd_q", 300, {(64, 32, 256, "mma_dblk"),
                           (64, 64, 128, "mma_dblk")}),
-    ("flash_bwd_q", 256, {(64, 32, 256, "mma")}),
     ("flash_bwd_kv", 384, {(32, 64, 256, "mma_dblk"),
                            (32, 64, 128, "mma_dblk"),
                            (32, 64, 192, "wgmma_dblk"),
@@ -70,13 +88,17 @@ def test_large_d_phase_expects_the_tables_rows():
     ("flash_bwd_kv", 512, {(32, 64, 256, "mma_dblk"),
                            (32, 64, 128, "mma_dblk"),
                            (32, 64, 256, "wgmma_dblk")}),
-    ("flash_bwd_kv", 256, {(32, 64, 256, "mma")}),
+    ("flash_bwd_kv", 256, {(32, 64, 256, "mma"), (32, 64, 192, "wgmma_dblk"),
+                           (32, 64, 256, "wgmma_dblk")}),
+    ("flash_bwd_kv", 192, {(32, 64, 256, "mma"), (32, 64, 192, "wgmma_dblk"),
+                           (32, 64, 256, "wgmma_dblk")}),
 ])
 def test_sweep_candidates_apply_where_their_kernel_runs(name, d, want):
     """bwd_tuning.dblk_candidates: past D = 256 the D-blocked first cut
-    and the clusters that cover D (at most dblk_max_panels CTAs, none for
-    D % 8 != 0); at D 256 K1's mma row and clusters, K3's and K4's table
-    rows. Each candidate is a compiled row that fits one SM."""
+    and the head-dim-split rows that cover D (K1 two CTAs or more, up to
+    dblk_max_panels; K3 and K4 one or two; none for D % 8 != 0); at D 192
+    and 256 the mma rows and those split rows. Each candidate is a
+    compiled row that fits one SM."""
     table = params.select_row(params.parameter_table(
         name, params.bf16_table_precision(d)), d)
     got = bwd_tuning.dblk_candidates(name, "bf16", d, table)
@@ -87,14 +109,15 @@ def test_sweep_candidates_apply_where_their_kernel_runs(name, d, want):
         assert params.smem_bytes(name, row, in_bytes) \
             <= params.H100.smem_per_block
         if kernel == "wgmma_dblk":
-            assert 2 <= head_dim_panels(row, d) \
+            least, most = bwd_tuning.panel_range(name, bd)
+            assert least <= head_dim_panels(row, d) <= most \
                 <= params.dblk_max_panels(bd)
 
 
 def test_sweep_covers_the_tables_cluster_rows():
-    """Every cluster row the bf16 tables name is a candidate of the sweep
-    at the shapes it covers (so the tables' figures come from it)."""
-    for name in ("flash_fwd", "flash_bwd_kv"):
+    """Every head-dim-split row the bf16 tables name is a candidate of the
+    sweep at the shapes it covers (so the tables' figures come from it)."""
+    for name in ("flash_fwd", "flash_bwd_q", "flash_bwd_kv"):
         rows = params.parameter_table(name, "bf16")
         for row in rows:
             if row.kernel != "wgmma_dblk":

@@ -75,10 +75,19 @@ CASES = [
      dict(causal=True, low_precision_intermediates=False), 5e-2),
     # Head dims past 256 (the D-blocked rows): mfa_tpu's own large-D
     # backward case (tests/test_attention_bwd.py, D 384 at 5e-5), and
-    # bf16 at D 512.
+    # bf16 at D 384 and 512.
     ("fp32-d384", 1, 1, 48, 64, 384, "fp32", {}, 5e-5),
     ("bf16-d512-causal", 2, 1, 64, 64, 512, "bf16", dict(causal=True),
      5e-2),
+    ("bf16-d384-gqa-causal", 4, 2, 40, 72, 384, "bf16", dict(causal=True),
+     5e-2),
+    # Head dims 129-256 (the head-dim-split rows of one CTA on the card):
+    # GQA, causal, and a window with a soft-cap at R != C.
+    ("bf16-d192-gqa", 4, 2, 48, 80, 192, "bf16", {}, 5e-2),
+    ("bf16-d256-causal", 2, 1, 64, 64, 256, "bf16", dict(causal=True),
+     5e-2),
+    ("bf16-d256-window-softcap", 2, 1, 40, 72, 256, "bf16",
+     dict(sliding_window=24, logit_soft_cap=20.0), 5e-2),
 ]
 
 

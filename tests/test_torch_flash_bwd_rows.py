@@ -5,6 +5,7 @@ the wrappers hand the kernel library a launch for any number of heads
 (recorded by a stand-in library over meta tensors; no kernel runs
 here)."""
 
+import dataclasses
 import types
 
 import pytest
@@ -13,6 +14,7 @@ import torch
 from mfa_tpu_torch.kernels import build
 from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.ops import params
+from mfa_tpu_torch.utils import bwd_tuning
 from mfa_tpu_torch.ops.descriptors import (
     KERNEL_CODES,
     AttentionDescriptor,
@@ -46,15 +48,24 @@ def test_rows_parse_and_fit_one_sm(kernel, precision):
 
 
 def test_wgmma_rows_cover_d_up_to_128_and_mma_the_rest():
-    """bf16 rows TMA can map (D % 8 == 0) up to D = 128 run wgmma; D = 256
-    and the other head dims keep mma.sync."""
+    """bf16 rows TMA can map (D % 8 == 0) up to D = 128 run wgmma; from
+    D 136 to 256 the head-dim-split kernel on one CTA (a 192-wide panel
+    up to D = 192, a 256-wide one up to 256); the head dims TMA cannot
+    map keep mma.sync (the bf16_mma table)."""
     for kernel in ("flash_bwd_q", "flash_bwd_kv"):
         rows = params.parameter_table(kernel, "bf16")
         for d in (8, 32, 64, 96, 128):
             row = params.select_row(rows, d)
             assert row.kernel == "wgmma" and row.block_d in (64, 128)
             assert d <= row.block_d
-        assert params.select_row(rows, 256).kernel == "mma"
+        for d in (136, 160, 192, 200, 256):
+            row = params.select_row(rows, d)
+            assert row.kernel == "wgmma_dblk"
+            assert row.block_d == (192 if d <= 192 else 256)
+            assert head_dim_panels(row, d) == 1
+        for d in (136, 256):
+            assert params.select_row(params.parameter_table(
+                kernel, "bf16_mma"), d).kernel == "mma"
     for d in (4, 36, 100, 130):
         assert params.bf16_table_precision(d) == "bf16_mma"
     for d in (8, 64, 96, 128, 256):
@@ -102,38 +113,42 @@ def test_parse_takes_a_kernel_column_and_refuses_others():
 
 @pytest.mark.parametrize("d, kernel", [
     (32, "wgmma"), (64, "wgmma"), (96, "wgmma"), (128, "wgmma"),
-    (256, "mma"), (36, "mma"), (40 + 2, "mma"), (100, "mma"),
+    (160, "wgmma_dblk"), (192, "wgmma_dblk"), (256, "wgmma_dblk"),
+    (36, "mma"), (40 + 2, "mma"), (100, "mma"), (250, "mma"),
     (264, "wgmma_dblk"), (384, "wgmma_dblk"), (512, "wgmma_dblk"),
     (300, "mma_dblk"), (1024, "mma_dblk")])
 def test_descriptors_dispatch_as_the_source_says(d, kernel):
-    """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernels; D = 256
-    and a D whose rows TMA cannot map (D % 8 != 0) the mma.sync kernel;
-    past D = 256, K4 (``kernel``) the cluster kernel up to D = 512 where
-    TMA maps a row, else the D-blocked mma.sync kernel, and K3 the
-    D-blocked mma.sync kernel."""
+    """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernels, from D 136
+    to 512 the head-dim-split kernels (K3 and K4 alike: one CTA up to D =
+    256, a cluster of two past it); a D whose rows TMA cannot map (D % 8
+    != 0) the mma.sync kernel, D-blocked past D = 256, as every D past
+    512."""
     for kind in _BWD:
         kd = _kd(kind, d)
-        want = ("mma_dblk" if d > 256 and kind is _BWD[0] else kernel)
-        assert kd.kernel == want
-        assert k34.launch_row(kd, d, ()).kernel == want
+        assert kd.kernel == kernel
+        assert k34.launch_row(kd, d, ()).kernel == kernel
         assert d <= kd.block_d * head_dim_panels(kd, d)
+        if kernel == "wgmma_dblk":
+            assert head_dim_panels(kd, d) == (1 if d <= 256 else 2)
     assert _kd(_BWD[0], 100).block_d == 128     # the mma row of its D
     assert _kd(_BWD[1], 36).block_q == 32
 
 
-# The rows the parent tree selected at D <= 256: (block_q, block_kv,
-# block_d, kernel) of the row each D fell in.
-PARENT_ROWS = {
+# The rows each D <= 256 selects: (block_q, block_kv, block_d, kernel)
+# of the row it falls in (bf16 past D = 128: the head-dim-split rows).
+ROWS_UP_TO_256 = {
     ("flash_bwd_q", "bf16"): {64: (128, 64, 64, "wgmma"),
                               128: (128, 64, 128, "wgmma"),
-                              256: (64, 32, 256, "mma")},
+                              192: (128, 32, 192, "wgmma_dblk"),
+                              256: (128, 32, 256, "wgmma_dblk")},
     ("flash_bwd_q", "bf16_mma"): {36: (64, 64, 64, "mma"),
                                   100: (64, 64, 128, "mma"),
                                   250: (64, 32, 256, "mma")},
     ("flash_bwd_q", "fp32"): {64: (16, 32, 64, ""), 200: (16, 32, 256, "")},
     ("flash_bwd_kv", "bf16"): {64: (64, 64, 64, "wgmma"),
                                128: (32, 64, 128, "wgmma"),
-                               256: (32, 64, 256, "mma")},
+                               192: (32, 64, 192, "wgmma_dblk"),
+                               256: (32, 64, 256, "wgmma_dblk")},
     ("flash_bwd_kv", "bf16_mma"): {36: (32, 64, 64, "mma"),
                                    100: (32, 64, 128, "mma"),
                                    250: (32, 64, 256, "mma")},
@@ -142,26 +157,28 @@ PARENT_ROWS = {
 }
 
 
-@pytest.mark.parametrize("kernel, precision", sorted(PARENT_ROWS))
+@pytest.mark.parametrize("kernel, precision", sorted(ROWS_UP_TO_256))
 def test_head_dims_past_256_take_the_d_blocked_rows(kernel, precision):
     """D 384, 512 and 1024 (and the tails 300, 320) select a D-blocked
-    row whose block_d panel is smaller than D; every D <= 256 selects
-    the row it selected before; the smem of each D-blocked row is the
-    launch code's (csrc/flash_bwd.cu launch_q_* / launch_kv_*: the
-    first-cut kernel's tiles at block_d, plus, on FMA, K's panel of the
-    dQ columns (K3) or Q's and dO's of the dK / dV columns (K4)) and
-    fits one SM whatever the head dim."""
+    row whose block_d panel is smaller than D (bf16 up to D = 512: the
+    head-dim-split rows, K3's and K4's alike); every D <= 256 selects its
+    row of ROWS_UP_TO_256; the smem of each D-blocked row is the launch
+    code's (csrc/flash_bwd.cu launch_q_* / launch_kv_*: the first-cut
+    kernel's tiles at block_d, plus, on FMA, K's panel of the dQ columns
+    (K3) or Q's and dO's of the dK / dV columns (K4); the split kernels'
+    QSplitSmem / KvSplitSmem) and fits one SM whatever the head dim."""
     rows = params.parameter_table(kernel, precision)
     for d in (264, 300, 320, 384, 512, 1024):
         row = params.select_row(rows, d)
         want_kernel = ("fma_dblk" if precision == "fp32"
-                       else "wgmma_dblk" if (kernel, precision, d <= 512)
-                       == ("flash_bwd_kv", "bf16", True) else "mma_dblk")
+                       else "wgmma_dblk" if (precision, d <= 512)
+                       == ("bf16", True) else "mma_dblk")
         assert row.kernel == want_kernel and row.block_d < d
         assert (row.max_d == 384) == (d <= 384)
         bq, bkv, bd = row.block_q, row.block_kv, row.block_d
         if row.kernel == "wgmma_dblk":
-            want = _cluster_kv_smem(row)
+            want = (_split_q_smem(row) if kernel == "flash_bwd_q"
+                    else _cluster_kv_smem(row))
             got = params.smem_bytes(kernel, row, 2)
         elif precision == "fp32":
             want = 4 * (2 * bq * bd + 3 * bkv * (bd + 1) + 2 * bq
@@ -176,17 +193,17 @@ def test_head_dims_past_256_take_the_d_blocked_rows(kernel, precision):
                 + 2 * bd * (bq + 8))
             got = params.smem_bytes(kernel, row, 2)
         assert got == want <= params.H100.smem_per_block
-    for d, want in PARENT_ROWS[(kernel, precision)].items():
+    for d, want in ROWS_UP_TO_256[(kernel, precision)].items():
         row = params.select_row(rows, d)
         assert (row.block_q, row.block_kv, row.block_d, row.kernel) == want
 
 
-@pytest.mark.parametrize("d", [384, 512, 1024, 264, 320])
+@pytest.mark.parametrize("d", [384, 512, 1024, 264, 320, 160, 192, 256])
 def test_wrappers_pass_the_d_blocked_launch(library, d):
-    """Above D = 256 both wrappers launch over ceil(D / block_d) head-dim
-    panels: K3 the D-blocked kernel (code 2), K4 the cluster kernel (code
-    3, a CTA of the cluster a panel) up to D = 512, the D-blocked one
-    beyond."""
+    """Above D = 128 both wrappers launch over ceil(D / block_d) head-dim
+    panels: the head-dim-split kernel (code 3, a CTA a panel: one up to D
+    = 256, a cluster of two past it) up to D = 512, the D-blocked one
+    (code 2) beyond."""
     q3, o3, do3 = (_meta(4, 32, d) for _ in range(3))
     kv = _meta(2, 32, d)
     lse = _meta(4, 32, dtype=torch.float32)
@@ -196,14 +213,15 @@ def test_wrappers_pass_the_d_blocked_launch(library, d):
     dk, dv = k34.flash_bwd_kv(q3, kv, kv, do3, lse, dterm, kd_kv, **kw)
     assert dq.shape == (4, 32, d) and dk.shape == dv.shape == (2, 32, d)
     (_, args3), (_, args4) = library.calls
-    for args, kd, kernel in ((args3, kd_q, "mma_dblk"),
-                             (args4, kd_kv, "wgmma_dblk" if d <= 512
-                              else "mma_dblk")):
+    kernel = "wgmma_dblk" if d <= 512 else "mma_dblk"
+    for args, kd in ((args3, kd_q), (args4, kd_kv)):
         assert kd.kernel == kernel
         assert args[12:14] == (d, -(-d // kd.block_d))
         assert args[-5:-1] == (KERNEL_CODES[kernel], kd.block_q,
                                kd.block_kv, kd.block_d)
-    assert args4[13] == (2 if d <= 512 else 4)
+    panels = 1 if d <= 256 else 2
+    assert (args3[13], args4[13]) == ((panels, panels) if d <= 512
+                                      else (8, 4))
 
 
 def test_fp32_and_forward_rows_name_no_kernel():
@@ -279,19 +297,48 @@ def test_wrappers_take_any_number_of_heads(library, heads):
     assert args3[8] == heads and args4[8] == heads
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_k3_split_candidate_at_d_up_to_128_passes_one_panel(library, d):
+    """The sweep's head-dim-split candidate at D <= 128 (bwd_tuning.K3_ROWS:
+    flash_bwd_q_split<64, d, CL false>) reaches the library as kernel code
+    3 on one panel of d columns, and its layout fits one SM with a K ring
+    of at least two stages."""
+    n = 256
+    q3, o3, do3, k3 = (_meta(4, n, d) for _ in range(4))
+    lse = _meta(4, n, dtype=torch.float32)
+    kd = dataclasses.replace(_kd(_BWD[0], d, hq=4, hkv=4, n=n),
+                             kernel="wgmma_dblk")
+    assert (128, 64, "wgmma_dblk") in bwd_tuning.K3_ROWS
+    assert (kd.block_q, kd.block_kv, kd.block_d) == (128, 64, d)
+    k34.flash_bwd_q(q3, k3, k3, o3, do3, lse, kd, group=1, scale=0.125)
+    ((name, args),) = library.calls
+    assert name == "mfa_flash_bwd_q"
+    assert args[12:14] == (d, 1)
+    assert args[-5:-1] == (3, 128, 64, d)
+    row = params.ParameterRow(d, 128, 64, d, "wgmma_dblk")
+    assert params.exchange_bytes("flash_bwd_q", row) == 0
+    assert params.smem_bytes("flash_bwd_q", row, 2) == _split_q_smem(row) \
+        <= params.H100.smem_per_block
+
+
 def _cluster_kv_smem(row):
-    """csrc/flash_bwd.cu's KvSplitSmem, K4's cluster kernel at a bf16 row:
-    K and V, one scaled-Q tile, one exchange slot a warpgroup and two S^T
-    buffers of 64 x block_q fp32, up to 4 stages of Q, dO, L and the
-    D-term, 1 + 2 stages + 8 mbarriers, alignment slack."""
+    """csrc/flash_bwd.cu's KvSplitSmem, K4's head-dim-split kernel at a
+    bf16 row: K and V, one scaled-Q tile, two S^T buffers of 64 x block_q
+    fp32 and, as a cluster of two, one exchange slot a warpgroup of the
+    same size; up to 4 stages of Q, dO, L and the D-term; 1 + 2 stages + 4
+    (+ 4 in a cluster) mbarriers, alignment slack."""
     bq, bkv, bd = row.block_q, row.block_kv, row.block_d
+    cluster = params.row_panels(row) > 1
     tile_q = bq * bd * 2
-    fixed = 2 * bkv * bd * 2 + tile_q + 4 * 64 * bq * 4
-    stages = min((params.H100.smem_per_block - fixed - 72 - 1024)
+    x = 2 * 64 * bq * 4 if cluster else 0
+    bars = 1 + 4 + (4 if cluster else 0)
+    fixed = 2 * bkv * bd * 2 + tile_q + x + 2 * 64 * bq * 4
+    stages = min((params.H100.smem_per_block - fixed - 8 * bars - 1024)
                  // (2 * tile_q + 8 * bq + 16), 4)
     assert params.bwd_kv_stages(row) == stages >= 2
+    assert params.exchange_bytes("flash_bwd_kv", row) == x
     return (fixed + stages * (2 * tile_q + 8 * bq)
-            + 8 * (1 + 2 * stages + 8) + 1024)
+            + 8 * (2 * stages + bars) + 1024)
 
 
 @pytest.mark.parametrize("block_d", [192, 256])
@@ -306,24 +353,93 @@ def test_cluster_smem_reckons_the_launch_code(block_d):
         <= params.H100.smem_per_block
 
 
+@pytest.mark.parametrize("block_d", [192, 256])
+def test_one_cta_kv_smem_reckons_the_launch_code(block_d):
+    """K4's compiled one-CTA instances (flash_bwd_kv_split<32, block_d,
+    CL false>: no exchange slots and none of their mbarriers): shared
+    memory is the launch code's, fits the H100 and holds a ring of 4
+    stages, one more at D 256 than the same row's cluster CTA."""
+    row = params.ParameterRow(block_d, 32, 64, block_d, "wgmma_dblk")
+    assert params.row_panels(row) == 1
+    assert params.exchange_bytes("flash_bwd_kv", row) == 0
+    assert params.smem_bytes("flash_bwd_kv", row, 2) == _cluster_kv_smem(row)
+    assert params.smem_bytes("flash_bwd_kv", row, 2) \
+        <= params.H100.smem_per_block
+    assert params.bwd_kv_stages(row) == 4
+    cluster = params.ParameterRow(2 * block_d, 32, 64, block_d, "wgmma_dblk")
+    assert params.bwd_kv_stages(cluster) == (3 if block_d == 256 else 4)
+
+
+def _split_q_smem(row):
+    """csrc/flash_bwd.cu's QSplitSmem, K3's head-dim-split kernel at a bf16
+    row: Q and dO (128 x block_d), as a cluster of two one exchange slot
+    a warpgroup of its partial S and dP (two 64 x block_kv fp32), L and
+    the D-term, then as many K and V tiles as fit (two mbarriers each) in
+    a K ring of up to 4 that leaves V one, and a V ring of the rest up to
+    4; 1 (+ 4 in a cluster) more mbarriers, alignment slack."""
+    bq, bkv, bd = row.block_q, row.block_kv, row.block_d
+    cluster = -(-row.max_d // bd) > 1
+    x = 2 * 2 * 64 * bkv * 4 if cluster else 0
+    bars = 4 if cluster else 0
+    fixed = 2 * bq * bd * 2 + x + 8 * bq
+    tile = bkv * bd * 2
+    tiles = (params.H100.smem_per_block - fixed - 8 * (1 + bars)
+             - 1024) // (tile + 16)
+    sv = min(max(tiles - 4, 1), 4)
+    sk = min(tiles - sv, 4)
+    assert params.bwd_q_split_stages(row) == (sk, sv) and sk >= 2
+    return fixed + (sk + sv) * (tile + 16) + 8 * (1 + bars) + 1024
+
+
+@pytest.mark.parametrize("block_d, panels, rings", [
+    (192, 1, (4, 4)), (192, 2, (4, 4)), (256, 1, (4, 2)), (256, 2, (3, 1))])
+def test_k3_split_smem_reckons_the_launch_code(block_d, panels, rings):
+    """K3's compiled head-dim-split instances (flash_bwd_q_split<32,
+    block_d, CL>: one CTA, or CL a cluster of two with its exchange
+    slots): shared memory is the launch code's and fits the H100, with
+    the K and V rings ``rings`` deep (K's at least two: a step's tile
+    stays until the next step's deferred dQ product has read it)."""
+    row = params.ParameterRow(panels * block_d, 128, 32, block_d,
+                              "wgmma_dblk")
+    assert params.row_panels(row) == panels
+    assert params.exchange_bytes("flash_bwd_q", row) == (
+        0 if panels == 1 else 4 * 64 * 32 * 4)
+    assert params.smem_bytes("flash_bwd_q", row, 2) == _split_q_smem(row)
+    assert params.smem_bytes("flash_bwd_q", row, 2) \
+        <= params.H100.smem_per_block
+    assert params.bwd_q_split_stages(row) == rings
+
+
 def test_k3_keeps_the_d_blocked_rows_past_256():
-    """K3 has no cluster row: every K3 table names mma_dblk (bf16) or
-    fma_dblk (fp32) past D = 256, and K4's bf16 cluster rows cover D up
-    to 512 in clusters of two."""
-    for precision in ("bf16", "bf16_mma", "fp32"):
-        rows = params.parameter_table("flash_bwd_q", precision)
-        assert all(r.kernel != "wgmma_dblk" for r in rows)
-    cluster = [r for r in params.parameter_table("flash_bwd_kv", "bf16")
-               if r.kernel == "wgmma_dblk"]
-    assert [(r.max_d, -(-r.max_d // r.block_d)) for r in cluster] == [
-        (384, 2), (512, 2)]
+    """K3 and K4 name the same head-dim-split rows in the bf16 tables: one
+    CTA on a 192- or 256-wide panel at max_d 192 and 256, clusters of two
+    at 384 and 512, the D-blocked first cut past D = 512; the bf16_mma
+    (operands TMA cannot map) and fp32 tables keep the first cut
+    (mma_dblk, fma_dblk) past D = 256."""
+    for kernel in ("flash_bwd_q", "flash_bwd_kv"):
+        rows = params.parameter_table(kernel, "bf16")
+        split = [r for r in rows if r.kernel == "wgmma_dblk"]
+        assert [(r.max_d, r.block_d, params.row_panels(r))
+                for r in split] == [(192, 192, 1), (256, 256, 1),
+                                    (384, 192, 2), (512, 256, 2)]
+        assert rows[-1].kernel == "mma_dblk" and rows[-1].max_d == 0
+        for precision in ("bf16_mma", "fp32"):
+            past = [r for r in params.parameter_table(kernel, precision)
+                    if r.max_d == 0 or r.max_d > 256]
+            assert {r.kernel for r in past} == {
+                "mma_dblk" if precision == "bf16_mma" else "fma_dblk"}
+    for row in params.parameter_table("flash_bwd_q", "bf16"):
+        if row.kernel == "wgmma_dblk":
+            assert row.block_q == 128 and row.block_kv == 32
 
 
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [384, 512, 192, 256])
 def test_misaligned_cluster_operand_takes_the_mma_dblk_row(library, d):
-    """K4 at D 384 and 512 with a dO TMA cannot map (a view two bytes into
-    its storage) launches the bf16_mma table's row of its head dim, the
-    D-blocked kernel (code 2) over that row's panels."""
+    """K3 and K4 at D 384 and 512 (and at 192 and 256) with a dO TMA
+    cannot map (a view two bytes into its storage) launch the bf16_mma
+    table's row of their head dim: the D-blocked kernel (code 2) over
+    that row's panels (the mma.sync kernel, code 0, one panel, up to D =
+    256)."""
     class Shifted(torch.Tensor):
         def data_ptr(self):
             return super().data_ptr() + 2
@@ -331,13 +447,18 @@ def test_misaligned_cluster_operand_takes_the_mma_dblk_row(library, d):
     shifted = _meta(4, 32, d).as_subclass(Shifted)
     q3, kv = _meta(4, 32, d), _meta(2, 32, d)
     lse = _meta(4, 32, dtype=torch.float32)
-    kd = _kd(_BWD[1], d, n=32)
-    assert kd.kernel == "wgmma_dblk"
-    assert k34.launch_row(kd, d, (q3, kv, kv, shifted)).kernel == "mma_dblk"
-    k34.flash_bwd_kv(q3, kv, kv, shifted, lse, lse, kd, group=2,
+    kd_q, kd_kv = (_kd(kind, d, n=32) for kind in _BWD)
+    for kd in (kd_q, kd_kv):
+        assert kd.kernel == "wgmma_dblk"
+        assert k34.launch_row(kd, d, (q3, kv, kv, shifted)).kernel == (
+            "mma_dblk" if d > 256 else "mma")
+    k34.flash_bwd_q(q3, kv, kv, q3, shifted, lse, kd_q, group=2,
+                    scale=0.125)
+    k34.flash_bwd_kv(q3, kv, kv, shifted, lse, lse, kd_kv, group=2,
                      scale=0.125)
-    ((_, args),) = library.calls
-    row = params.select_row(params.parameter_table("flash_bwd_kv",
-                                                   "bf16_mma"), d)
-    assert args[12:14] == (d, -(-d // row.block_d))
-    assert args[-5:-1] == (2, row.block_q, row.block_kv, row.block_d)
+    for (_, args), table in zip(library.calls,
+                                ("flash_bwd_q", "flash_bwd_kv")):
+        row = params.select_row(params.parameter_table(table, "bf16_mma"), d)
+        assert args[12:14] == (d, -(-d // row.block_d) if d > 256 else 1)
+        assert args[-5:-1] == (2 if d > 256 else 0, row.block_q,
+                               row.block_kv, row.block_d)

@@ -14,6 +14,7 @@ without the suite's conftest):
 
 import copy
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -523,6 +524,11 @@ BWD_CASES = [
     ("bf16", 128, 300, 300, 8, 2, dict(causal=True, sliding_window=64,
                                        logit_soft_cap=20.0)),
     ("bf16", 128, 16, 16, 2, 1, dict(causal=True)),   # tiles past R and C
+    # D 129-256 where TMA cannot map a row (D % 8 != 0): the mma.sync rows.
+    ("bf16", 250, 300, 300, 8, 2, dict(causal=True)),
+    ("bf16", 162, 129, 257, 4, 4, dict()),                      # R < C
+    ("bf16", 250, 512, 2048, 4, 2, dict(causal=True, sliding_window=256,
+                                        logit_soft_cap=20.0)),  # unseen keys
     ("fp32", 64, 100, 100, 4, 2, dict(causal=True)),
     ("fp32", 256, 77, 130, 2, 1, dict()),
     ("fp32", 40, 65, 65, 4, 2, dict(sliding_window=9)),
@@ -562,11 +568,13 @@ def test_flash_bwd_kernels_match_plain(cuda, case):
     o, lse = k1.flash_fwd(q, k, v, kd_f, **kw,
                           o_dtype=torch.float32 if o_f32 else dtype)
     # The rows say which kernel runs: wgmma for bf16 at D % 8 == 0 and
-    # D <= 128, the kept mma.sync kernel at D = 256 or D % 8 != 0.
-    tma = dt == "bf16" and d % 8 == 0 and d <= 128
+    # D <= 128, the head-dim-split kernel (one CTA) at D % 8 == 0 up to
+    # D = 256, the kept mma.sync kernel at D % 8 != 0.
+    tma = dt == "bf16" and d % 8 == 0
     for kd in (kd_q, kd_kv):
         assert k34.launch_row(kd, d, (q, k, v, do)).kernel == (
-            "wgmma" if tma else "mma" if dt == "bf16" else "")
+            ("wgmma" if d <= 128 else "wgmma_dblk") if tma
+            else "mma" if dt == "bf16" else "")
     n3, n4 = k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches
     dq, dterm = k34.flash_bwd_q(
         q, k, v, o, do, lse, kd_q, **kw,
@@ -589,6 +597,56 @@ def test_flash_bwd_kernels_match_plain(cuda, case):
         assert_close(got, want, atol, key, rtol=rtol)
     # Atomics-free: a second run gives the same bits.
     dk2, dv2 = k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd_kv, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_flash_bwd_misaligned_view_takes_the_mma_row(cuda, d):
+    """A q view two bytes into its storage cannot be mapped by TMA: K3 and
+    K4 run the mma.sync row of the head dim (D 129-256) in place of the
+    head-dim-split kernel, and agree with their plain versions, every
+    output written, a second launch bit-equal."""
+    q, k, v, kd_f, kw = _k1_bf16(cuda, 4, 2, 300, 300, d, d + 7, causal=True)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    do = torch.randn(q.shape, generator=gen, device=cuda).bfloat16()
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=4, num_kv_heads=2, seq_len_q=300,
+        seq_len_kv=300, head_dim=d, causal=True, low_precision_inputs=True,
+        low_precision_intermediates=True)
+    _, kd_q, kd_kv = (desc.kernel_descriptor(t) for t in AttentionKernelType)
+    for kd in (kd_q, kd_kv):
+        assert kd.kernel == "wgmma_dblk"
+        assert launch_row(kd, d, (shifted, k, v, do)).kernel == "mma"
+    kw = dict(group=2, scale=desc.softmax_scale)
+    o, lse = k1.flash_fwd(shifted, k, v, kd_f, o_dtype=torch.bfloat16, **kw)
+    n3, n4 = k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches
+    dq, dterm = k34.flash_bwd_q(
+        shifted, k, v, o, do, lse, kd_q, **kw,
+        out=(nan_canary((4, 300, d), device=cuda),
+             nan_canary((4, 300), device=cuda)))
+    dk, dv = k34.flash_bwd_kv(
+        shifted, k, v, do, lse, dterm, kd_kv, **kw,
+        out=(nan_canary((2, 300, d), device=cuda),
+             nan_canary((2, 300, d), device=cuda)))
+    torch.cuda.synchronize()
+    assert (k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches) == (n3 + 1,
+                                                                     n4 + 1)
+    for name, t in (("dQ", dq), ("D-term", dterm), ("dK", dk), ("dV", dv)):
+        assert_fully_written(t, name)
+    dq_p, dterm_p = k34.flash_bwd_q_plain(shifted, k, v, o, do, lse, kd_q,
+                                          **kw)
+    dk_p, dv_p = k34.flash_bwd_kv_plain(shifted, k, v, do, lse, dterm, kd_kv,
+                                        **kw)
+    for key, got, want in (("dterm", dterm, dterm_p), ("dq_bf16", dq, dq_p),
+                           ("dk_bf16", dk, dk_p), ("dv_bf16", dv, dv_p)):
+        atol, rtol = KERNEL_BUDGETS[f"flash_bwd_{key}"]
+        assert_close(got, want, atol, key, rtol=rtol)
+    dq2, dterm2 = k34.flash_bwd_q(shifted, k, v, o, do, lse, kd_q, **kw)
+    dk2, dv2 = k34.flash_bwd_kv(shifted, k, v, do, lse, dterm, kd_kv, **kw)
+    assert torch.equal(dq, dq2) and torch.equal(dterm, dterm2)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
@@ -617,12 +675,14 @@ def test_flash_bwd_kernels_take_more_than_65535_heads(cuda):
         assert_close(got, want, atol, key, rtol=rtol)
 
 
-# Head dims past 256: K1 and K4 on the cluster kernels (wgmma_dblk) for
-# bf16 up to D = 512 where TMA maps a row, K3 and the rest on the
-# D-blocked rows (mma_dblk, fma_dblk): (dtype, D, R, C, Hq, Hkv, options).
-# Panels that divide D, a tail panel (D 264, 320), D % 8 != 0 (no 16-byte
+# Head dims past 256, and past 128 for K3 and K4: the head-dim-split
+# kernels (wgmma_dblk) for bf16 up to D = 512 where TMA maps a row (K1
+# past D = 256, K3 and K4 past D = 128: one CTA up to D = 256, clusters of
+# two past it), the rest on the D-blocked rows (mma_dblk, fma_dblk) and
+# K1 on mma.sync at D <= 256: (dtype, D, R, C, Hq, Hkv, options). Panels
+# that divide D, a tail panel (D 160, 264, 320), D % 8 != 0 (no 16-byte
 # loads), causal and not, GQA, R != C, window, soft-cap and keys no query
-# sees.
+# sees (R 512 against C 2048 under a window).
 DBLK_CASES = [
     ("bf16", 384, 300, 300, 4, 2, dict(causal=True)),
     ("bf16", 512, 129, 257, 2, 2, dict()),
@@ -641,27 +701,42 @@ DBLK_CASES = [
                                       logit_soft_cap=30.0)),  # unseen keys
     ("bf16", 320, 130, 260, 4, 2, dict(sliding_window=70,
                                        logit_soft_cap=15.0)),
+    # K3 and K4 on one CTA (D 129-256).
+    ("bf16", 160, 300, 300, 4, 2, dict(causal=True)),
+    ("bf16", 192, 257, 257, 4, 1, dict()),
+    ("bf16", 256, 300, 300, 4, 2, dict(causal=True)),
+    ("bf16", 256, 200, 333, 4, 4, dict()),                       # R < C
+    ("bf16", 192, 300, 300, 2, 2, dict(causal=True, sliding_window=64,
+                                       logit_soft_cap=20.0)),
+    ("bf16", 160, 333, 200, 4, 2, dict(causal=True)),            # R > C
+    ("bf16", 256, 512, 2048, 4, 2, dict(causal=True,
+                                        sliding_window=256)),  # unseen keys
+    ("bf16", 192, 512, 2048, 2, 1, dict(sliding_window=100,
+                                        logit_soft_cap=30.0)),  # unseen keys
+    ("bf16", 160, 512, 2048, 4, 4, dict(causal=True, sliding_window=300,
+                                        logit_soft_cap=10.0)),  # unseen keys
 ]
 
 
 def _dblk_kernels(dt, d):
-    """The rows K1, K3 and K4 run past D = 256: the cluster kernel for K1
-    and K4 where TMA maps a bf16 row up to D = 512, else the D-blocked
-    first cut."""
+    """The rows K1, K3 and K4 run past D = 128: the head-dim-split kernel
+    where TMA maps a bf16 row up to D = 512 (for K1 past D = 256; it runs
+    mma.sync up to 256), else the D-blocked first cut."""
     if dt == "fp32":
         return ("fma_dblk",) * 3
-    cluster = "wgmma_dblk" if d % 8 == 0 and d <= 512 else "mma_dblk"
-    return cluster, "mma_dblk", cluster
+    split = "wgmma_dblk" if d % 8 == 0 and d <= 512 else "mma_dblk"
+    return ("mma" if d <= 256 else split), split, split
 
 
 @pytest.mark.parametrize("case", DBLK_CASES,
                          ids=[f"dblk-{c[0]}-D{c[1]}-{c[2]}x{c[3]}"
                               for c in DBLK_CASES])
 def test_flash_d_blocked_kernels_match_plain(cuda, case):
-    """K1, K3 and K4 on their rows past D = 256 (the cluster kernels and
-    the D-blocked first cut) against their plain versions at
-    KERNEL_BUDGETS, every output written (NaN-prefilled), a second launch
-    of each bit-equal, dK = dV = 0 on keys no query sees."""
+    """K1, K3 and K4 on their rows past D = 128 (the head-dim-split
+    kernels, the D-blocked first cut, K1's mma.sync row up to D = 256)
+    against their plain versions at KERNEL_BUDGETS, every output written
+    (NaN-prefilled), a second launch of each bit-equal, dK = dV = 0 on
+    keys no query sees."""
     dt, d, r, c, hq, hkv, opts = case
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     gen = torch.Generator(device=cuda).manual_seed(d + r + c)
@@ -678,7 +753,7 @@ def test_flash_d_blocked_kernels_match_plain(cuda, case):
     kernels = _dblk_kernels(dt, d)
     for kd, want_kernel in zip((kd_f, kd_q, kd_kv), kernels):
         assert launch_row(kd, d, (q, k, v, do)).kernel == want_kernel
-        assert kd.block_d < d
+        assert kd.block_d < d if d > 256 else d <= kd.block_d
     kw = dict(group=hq // hkv, scale=desc.softmax_scale)
     _k1_check(cuda, q, k, v, kd_f, dict(kw, o_dtype=dtype), dt, dtype,
               kernels[0])
@@ -711,8 +786,8 @@ def test_flash_d_blocked_kernels_match_plain(cuda, case):
 
 def test_flash_attention_backward_at_d384_matches_plain(cuda, monkeypatch):
     """flash_attention's forward and backward at D 384 through K1, K3 and
-    K4 (one launch each, on the cluster row, the D-blocked row and the
-    cluster row) against the same call through their plain versions."""
+    K4 (one launch each, all three on the head-dim-split cluster rows)
+    against the same call through their plain versions."""
     from mfa_tpu_torch.ops.attention import flash_attention
 
     gen = torch.Generator(device=cuda).manual_seed(384)
@@ -744,7 +819,7 @@ def test_flash_attention_backward_at_d384_matches_plain(cuda, monkeypatch):
         got = run()
         torch.cuda.synchronize()
     assert [w.launches for w in wrapped] == [1, 1, 1]
-    assert seen == ["wgmma_dblk", "mma_dblk", "wgmma_dblk"]
+    assert seen == ["wgmma_dblk", "wgmma_dblk", "wgmma_dblk"]
     with monkeypatch.context() as m:
         m.setattr(k1, "flash_fwd", k1.flash_fwd_plain)
         m.setattr(k34, "flash_bwd_q", k34.flash_bwd_q_plain)
@@ -757,6 +832,56 @@ def test_flash_attention_backward_at_d384_matches_plain(cuda, monkeypatch):
         assert_fully_written(g, label)
         rel = float((g.float() - w.float()).norm() / w.float().norm())
         assert rel <= 5e-2, (label, rel)
+
+
+@pytest.mark.parametrize("d", [128, 256, 384])
+def test_tma_kernels_launch_from_a_fresh_host_thread(cuda, d):
+    """A host thread whose first CUDA call is a TMA kernel's launch (an
+    autograd worker's first backward work can be K3) has no current
+    context until one is bound: K1, K3 and K4 on their TMA rows at D 128,
+    256 and 384, each first in a thread of its own, give the bits they
+    give on the main thread."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, do = (torch.randn((4, 200, d), generator=gen, device=cuda).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((2, 200, d), generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=4, num_kv_heads=2, seq_len_q=200,
+        seq_len_kv=200, head_dim=d, causal=True, low_precision_inputs=True,
+        low_precision_intermediates=True)
+    kd_f, kd_q, kd_kv = (desc.kernel_descriptor(t)
+                         for t in AttentionKernelType)
+    assert launch_row(kd_q, d, (q, k, v, do)).kernel in ("wgmma",
+                                                         "wgmma_dblk")
+    kw = dict(group=2, scale=desc.softmax_scale)
+    o, lse = k1.flash_fwd(q, k, v, kd_f, o_dtype=torch.bfloat16, **kw)
+    dq, dterm = k34.flash_bwd_q(q, k, v, o, do, lse, kd_q, **kw)
+    dk, dv = k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd_kv, **kw)
+    calls = {
+        "k1": (lambda: k1.flash_fwd(q, k, v, kd_f, o_dtype=torch.bfloat16,
+                                    **kw), (o, lse)),
+        "k3": (lambda: k34.flash_bwd_q(q, k, v, o, do, lse, kd_q, **kw),
+               (dq, dterm)),
+        "k4": (lambda: k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd_kv,
+                                        **kw), (dk, dv)),
+    }
+    got, errors = {}, {}
+
+    def first_call(name, fn):
+        try:
+            got[name] = fn()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors[name] = repr(e)
+
+    for name, (fn, _) in calls.items():
+        thread = threading.Thread(target=first_call, args=(name, fn))
+        thread.start()
+        thread.join()
+    assert not errors, errors
+    for name, (_, want) in calls.items():
+        assert all(torch.equal(a, b) for a, b in zip(got[name], want)), name
 
 
 def test_tiny_llama_train_step_on_cuda_matches_cpu(cuda):
