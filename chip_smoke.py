@@ -106,18 +106,19 @@ phase's failure is caught):
              torch's scaled_dot_product_attention timed as a yardstick;
              each line names the kernel and parameter row K3 and K4 ran
              (wgmma or mma.sync, ops/params.py).
-13. large_d — K1, K3 and K4 past D = 256, and K3 and K4 past D = 128
-             (ops/params.py: the head-dim-split kernels, wgmma_dblk, where
-             TMA maps a bf16 row up to D = 512: K1 and past D = 256 all
-             three on clusters of two CTAs, K3 and K4 up to D = 256 on one
-             CTA; the rest on the D-blocked first cut) at the JAX
+13. large_d — K1, K3 and K4 past D = 128 (ops/params.py: the
+             head-dim-split kernels, wgmma_dblk, where TMA maps a bf16 row
+             up to D = 512: one CTA up to D = 256, clusters of two CTAs
+             past it; the rest on the D-blocked first cut) at the JAX
              package's large-D class (bf16, B 1, Hq 8, N 4096): D 384 and
              512, causal and non-causal, GQA (Hkv 2), window 512 with
              soft-cap 50 (K1 only); the tails D 320 (a part-empty last
              panel), D 300 and D 250 (no TMA-mappable rows: the first
              cut, D-blocked past 256, mma.sync at 250) and fp32 at D 384,
-             N 1024; D 256 and 192 causal at N 4096 (K1 on
-             mma.sync); each held elementwise to its plain version at
+             N 1024; D 256 causal and non-causal and D 192 causal at N
+             4096, and D 256 as Gemma-2-9B runs it (causal, soft-cap 50,
+             Hq / Hkv = 2; K1 only); each held elementwise to its plain
+             version at
              KERNEL_BUDGETS, outputs prefilled with NaN, a second launch
              bit-equal, keys no query sees zero; each line names the
              rows that ran (checked against large_d_rows), with ms,
@@ -225,13 +226,15 @@ def phase_build():
     # Registers and spills of each flash instance past D = 256 and of the
     # head-dim-split kernels: the D-blocked first cut and the cluster
     # kernels (last template argument, DBLK or CL, true), K3's and K4's
-    # split kernels (CL 0 or 1), as kernel<template arguments>.
+    # split kernels and K1's wgmma kernel (CL 0 or 1: one CTA up to D =
+    # 256), as kernel<template arguments>.
     dblk, name = {}, None
     for ln in lib.build_log.splitlines():
         if "Compiling entry function" in ln:
             m = (re.search(r"\d(flash_[a-z_]+?_(?:bf16|f32|wgmma))I(\w*?)"
                            r"Lb1EEEv", ln)
-                 or re.search(r"\d(flash_bwd_(?:kv|q)_split)I(\w*?)EEv", ln))
+                 or re.search(r"\d(flash_bwd_(?:kv|q)_split|flash_fwd_wgmma)"
+                              r"I(\w*?)EEv", ln))
             args = re.findall(r"L[ib](\d+)E", m.group(2) + "E") if m else []
             name = f"{m.group(1)}<{','.join(args)}>" if m else None
         elif name and ("registers" in ln or "spill" in ln):
@@ -299,10 +302,10 @@ def phase_k1(torch):
                       for t in (q, k, v))
         kw = dict(group=hq // hkv, scale=desc.softmax_scale, o_dtype=dtype)
         # The parameter row the launch runs (wgmma for every bf16 case,
-        # ops/params.py) and its ring depth and ping-pong.
+        # ops/params.py), the tiles of its K and V rings and ping-pong.
         row = launch_row(kd, 128, (q3, k3, v3))
-        row_info = dict(dataclasses.asdict(row), ring_stages=(
-            params_mod.fwd_stages(row) if row.kernel == "wgmma" else None),
+        row_info = dict(dataclasses.asdict(row), rings=(
+            params_mod.fwd_rings(row) if row.kernel == "wgmma" else None),
             pingpong=params_mod.FWD_PINGPONG if row.kernel == "wgmma"
             else None)
         o_k, l_k = k1.flash_fwd(q3, k3, v3, kd, **kw, out=(
@@ -1749,9 +1752,11 @@ def _sdpa_backend(torch, fn) -> str:
 # 4096, D 384 and 512): (name, dtype, D, N, Hkv, options). Hq 8 always;
 # the tails (D 320, D 300 and D 250 where TMA could not map a row: the
 # D-blocked first cut past 256, the mma.sync rows of K1, K3 and K4 at
-# 129-256) and fp32 at N 1024; D 256 and 192 (K3 and K4 on one CTA of the
-# head-dim-split kernels, K1 on mma.sync) at N 4096. K3 and K4 run every
-# case but the soft-cap one.
+# 129-256) and fp32 at N 1024; D 256 and 192 (K1, K3 and K4 on one CTA of
+# the head-dim-split kernels) at N 4096, D 256 also with Gemma-2-9B's
+# attention (google/gemma-2-9b config.json: head dim 256, 16 query heads
+# to 8 kv heads, attn_logit_softcapping 50; its 4096 window covers N).
+# K3 and K4 run every case but the soft-cap ones.
 LARGE_D_CASES = (
     ("noncausal_d384", "bf16", 384, 4096, 8, dict()),
     ("causal_d384", "bf16", 384, 4096, 8, dict(causal=True)),
@@ -1766,28 +1771,31 @@ LARGE_D_CASES = (
     ("fp32_causal_d384_n1024", "fp32", 384, 1024, 8, dict(causal=True)),
     ("causal_d256", "bf16", 256, 4096, 8, dict(causal=True)),
     ("causal_d192", "bf16", 192, 4096, 8, dict(causal=True)),
+    ("noncausal_d256", "bf16", 256, 4096, 8, dict()),
+    ("gqa_softcap50_d256", "bf16", 256, 4096, 4,
+     dict(causal=True, logit_soft_cap=50.0)),
 )
 
 
 def large_d_rows(tag: str, d: int) -> dict:
     """The row kernels phase_large_d expects of K1, K3 and K4 past D =
-    128: the head-dim-split kernels (wgmma_dblk) where TMA maps a row
-    (bf16, D % 8 == 0) up to D = 512, for K1 past D = 256 (mma.sync at D
-    129-256), for K3 and K4 past D = 128; else the D-blocked first cut."""
+    128: the head-dim-split kernels (wgmma_dblk; one CTA up to D = 256)
+    where TMA maps a row (bf16, D % 8 == 0) up to D = 512; else the
+    first cut (mma.sync up to D = 256, D-blocked past it)."""
     if tag == "fp32":
         return {"k1": "fma_dblk", "k3": "fma_dblk", "k4": "fma_dblk"}
     split = ("wgmma_dblk" if d % 8 == 0 and d <= 512
              else "mma" if d <= 256 else "mma_dblk")
-    return {"k1": "mma" if d <= 256 else split, "k3": split, "k4": split}
+    return {"k1": split, "k3": split, "k4": split}
 
 
 def phase_large_d(torch):
     """K1, K3 and K4 past D = 256 (the head-dim-split kernels and the
-    D-blocked rows) and at D 256 and 192 against their plain versions,
-    then
-    flash_attention's forward and backward end to end at D 384 (B 1, H 8,
-    N 4096, causal): each held to the same call through the plain
-    versions, the launch counters read around it."""
+    D-blocked rows) and at D 256 and 192 (one CTA of the head-dim-split
+    kernels) against their plain versions, then flash_attention's forward
+    and backward end to end at D 384 (B 1, H 8, N 4096, causal): each
+    held to the same call through the plain versions, the launch counters
+    read around it."""
     import torch.nn.functional as F
 
     from mfa_tpu_torch.kernels import flash_bwd as k34
@@ -1830,7 +1838,10 @@ def phase_large_d(torch):
             rows[key] = dict(dataclasses.asdict(row),
                              panels=head_dim_panels(row, d))
         want = large_d_rows(tag, d)
-        dblk = all(rows[key]["kernel"] == want[key] for key in rows)
+        # Up to D = 256 every launch covers the head dim in one CTA.
+        dblk = all(rows[key]["kernel"] == want[key]
+                   and (d > 256 or rows[key]["panels"] == 1)
+                   for key in rows)
         vis = k1.visible_mask(n, n, kd_f.causal, kd_f.sliding_window, "cuda")
         pairs = int(vis.sum()) * hq
         esz = q3.element_size()
@@ -2753,7 +2764,8 @@ def main() -> int:
         return {"large_d": {case: large_d[case][key] for case in cases}}
 
     fwd_cases = ("noncausal_d384", "causal_d384", "noncausal_d512",
-                 "causal_d512", "causal_d256", "causal_d192")
+                 "causal_d512", "causal_d256", "causal_d192",
+                 "noncausal_d256")
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
@@ -2764,7 +2776,7 @@ def main() -> int:
                       + large_d_launches["flash_fwd"] + new["flash_fwd"]
                       + par["flash_fwd"] - par["flash_fwd_noncausal"]),
          **{k: v for k, v in k1_row.items() if k != "lse_err"},
-         **large("k1", fwd_cases)},
+         **large("k1", fwd_cases + ("gqa_softcap50_d256",))},
         {"name": "flash_fwd_noncausal", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "mfa_tpu/kernels/flash_fwd.py:49",

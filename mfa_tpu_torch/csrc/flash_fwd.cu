@@ -32,17 +32,20 @@
 // - One producer thread loads Q once and K and V of each live kv block by
 //   TMA (cp.async.bulk.tensor, 3-D maps over [BH, R, D] and
 //   [BH / group, C, D], 128-byte-swizzled panels; rows past R or C arrive
-//   as zeros) into a ring of as many stages as shared memory holds, up to
-//   the launch's `stages` (3 at block_kv 128, D 128: ~225 KB), with one
-//   mbarrier for K and one for V a stage.
+//   as zeros) into two rings, one of K tiles and one of V tiles, each tile
+//   with a full and an empty mbarrier, as deep as the launch's
+//   `stages_k` and `stages_v` (ops/params.py fwd_rings: the tiles that
+//   fit, each ring at most FWD_RING_STAGES; 3 + 3 at block_kv 128, D 128).
 // - Each consumer warpgroup scales its 64 rows of Q in place (bf16(Q *
 //   scale * log2e), as the plain version rounds) and walks the blocks:
 //   S = Qs K^T on wgmma (A and B K-major), the online softmax in
 //   registers, P rounded to bf16 into wgmma's register-A fragment, and
 //   O += P V with the same V tile read MN-major (no transposed copy). The
 //   PV of block j is issued together with S of block j + 1 and completes
-//   under its softmax; a stage is freed when the PV that reads its V has
-//   completed.
+//   under its softmax. A K tile is freed once its S has completed, a V
+//   tile once the deferred PV that reads it has, a step later: so the V
+//   ring, which holds each tile longer, takes the odd tile where shared
+//   memory leaves one (3 V + 2 K tiles at D 256).
 // - Ping-pong: warpgroup w issues its products only after named barrier
 //   3 + w, which the other warpgroup arrives at once it has issued its
 //   own, so one warpgroup's softmax runs while the other's products use
@@ -64,40 +67,51 @@
 //   heads of one q-block adjacent, so a kv group's CTAs share its K/V
 //   tiles in L2.
 //
-// Past D = 256, bf16 rows TMA can map (D % 8 == 0, 16-byte-aligned
-// bases and O; rows "wgmma_dblk"): the same kernel on a thread-block
-// cluster split across the head dim (CL). A cluster of P CTAs owns one
-// (batch * head, q-block) tile; CTA p loads panel p (block_d columns from
-// p * block_d; columns past D arrive as zeros) of Q, K and V by TMA and
-// owns that panel of O. Per kv block each consumer warpgroup forms its
-// partial S_p = Qs_p K_p^T on wgmma and pushes it into its slot of every
-// other CTA's shared memory by st.async (hopper.cuh ClusterSum: the
-// bytes are counted on that CTA's mbarrier, which is armed locally each
-// block; a plain remote arrival frees the slot), then sums the P
-// partials of its rows in rank order 0..P-1 while the previous block's PV
-// runs. Every CTA so holds the same bits of S, and with them the same
-// soft-cap, masks, row max, sum and P: S is formed once a (q-block, kv
-// block) pair, as mfa_tpu's _fwd_kernel does (flash_fwd.py:180-260), with
-// no atomics; O_p += P V_p on wgmma (N = block_d) and rank 0 writes L.
-// The walk, masks and ping-pong are the D <= 128 kernel's, the same in
-// every CTA of a cluster; clusters start and end on barrier.cluster, so
-// no CTA leaves while another may still write its slots.
+// bf16 at 128 < D <= 512 where TMA maps a row (D % 8 == 0, 16-byte-aligned
+// bases and O; rows "wgmma_dblk"): the same kernel on a head-dim panel of
+// 192 or 256 columns, DP. Up to D = 256 one CTA holds the whole head dim
+// (CL false, a plain launch; columns past D arrive as zeros and are not
+// stored). O at 64 x 256 fp32 is 128 registers a consumer thread, S at
+// block_kv 64 another 32 and P 16, within setmaxnreg's 240 (ptxas: no
+// spill). What bounds it at D 256 (B 1, H 8, N 4096): 4 D
+// FLOP a visible pair, 69 GFLOP causal (0.070 ms at the bf16 peak)
+// against ~0.07 GB of operands: bound by operations; measured at 1.9x
+// that bound causal and 1.6x non-causal (PERF.md), and rings of 2 to 4
+// tiles and ping-pong on or off move it by at most 1.1%, so it does not
+// wait on its loads.
+//
+// Past D = 256: a thread-block cluster split across the head dim (CL). A
+// cluster of P CTAs owns one (batch * head, q-block) tile; CTA p loads
+// panel p (DP columns from p * DP; columns past D arrive as zeros) of Q,
+// K and V by TMA and owns that panel of O. Per kv block each consumer
+// warpgroup forms its partial S_p = Qs_p K_p^T on wgmma and pushes it
+// into its slot of every other CTA's shared memory by st.async
+// (hopper.cuh ClusterSum: the bytes are counted on that CTA's mbarrier,
+// which is armed locally each block; a plain remote arrival frees the
+// slot), then sums the P partials of its rows in rank order 0..P-1 while
+// the previous block's PV runs. Every CTA so holds the same bits of S,
+// and with them the same soft-cap, masks, row max, sum and P: S is
+// formed once a (q-block, kv block) pair, as mfa_tpu's _fwd_kernel does
+// (flash_fwd.py:180-260), with no atomics; O_p += P V_p on wgmma (N = DP)
+// and rank 0 writes L. The walk, masks and ping-pong are the one-CTA
+// kernel's, the same in every CTA of a cluster; clusters start and end
+// on barrier.cluster, so no CTA leaves while another may still write its
+// slots.
 // - Panels: two CTAs of 192 (D <= 384) or 256 (D <= 512) columns, not 3-4
 //   of 128: each CTA reads P - 1 partials of S (64 x 64 fp32 a warpgroup
 //   and block) over the SM-to-SM network, which bounds the kernel; in
 //   utils/bwd_tuning.py's sweep on the H100 the 128-wide clusters took
-//   2.1-2.7x the time of the wide ones. O at 64 x 256 fp32 is 128
-//   registers a consumer thread, within setmaxnreg's 240.
+//   2.1-2.7x the time of the wide ones.
 // - What bounds it at D 384 / 512 (B 1, H 8, N 4096): 4 D FLOP a visible
 //   pair, 206 / 275 GFLOP non-causal (0.21 / 0.28 ms at the bf16 peak)
 //   against ~0.1 GB of operands: bound by operations; measured at
-//   4.1-5.0x that bound (PERF.md), the waits for the partner's partials
+//   3.6-4.8x that bound (PERF.md), the waits for the partner's partials
 //   of S its largest cost.
 // - The exchange slots (two warpgroups x P - 1 slots of 64 x block_kv
-//   fp32) sit between Q and the K/V ring (fwd_layout); the ring keeps
-//   2-3 stages.
+//   fp32) sit between Q and the K ring (fwd_layout); the rings keep 2-3
+//   tiles each.
 //
-// Other rows keep the first cut: bf16 at D = 256, D % 8 != 0 or a base not
+// Other rows keep the first cut: bf16 at D % 8 != 0 or a base not
 // 16-byte aligned runs warp-level mma.sync (m16n8k16) from shared-memory
 // tiles loaded synchronously (rows "mma"); fp32 inputs take a plain-FMA
 // kernel: the fp32 budget (2e-5) rules out TF32 tensor cores. Both use the
@@ -128,7 +142,8 @@ struct FwdParams {
   float scale2, cap2;   // scale*log2e; soft-cap*log2e (<= 0: none)
   int vec;              // 16-byte global loads allowed
   int o_f32;            // wgmma kernel: O in fp32
-  int stages;           // wgmma kernel: K/V ring stages
+  int stages_k;         // wgmma kernel: tiles of the K ring
+  int stages_v;         // wgmma kernel: tiles of the V ring
   int pingpong;         // wgmma kernel: consumer warpgroups take turns
 };
 
@@ -157,8 +172,8 @@ __device__ __forceinline__ void panel_tile_of(int nqb, int panels, int& i,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs the wgmma kernel cannot take (D = 256, D % 8 != 0, a
-// misaligned base; DBLK: D > 256): mma.sync, BQ / 16 warps of 16 rows.
+// bf16 inputs the wgmma kernel cannot take (D % 8 != 0, a misaligned
+// base; DBLK: D > 256): mma.sync, BQ / 16 warps of 16 rows.
 //
 // DBLK (rows "mma_dblk"): head-dim blocking, mfa_tpu's D-paged path
 // (_fwd_kernel's qk / pv loops over block_d slices, flash_fwd.py:180-252
@@ -524,9 +539,9 @@ flash_fwd_f32(FwdParams p) {
 constexpr int kBQ = 128;   // query rows a CTA, 64 a consumer warpgroup
 
 // Shared memory: Q [kBQ x DP], the cluster kernel's exchange slots (two
-// consumer warpgroups x `peers` slots of 64 x bkv fp32), `stages` K
-// tiles, `stages` V tiles [bkv x DP], then the mbarriers q_full,
-// full_k[stages], full_v[stages], empty[stages] and, with peers, each
+// consumer warpgroups x `peers` slots of 64 x bkv fp32), `sk` K tiles and
+// `sv` V tiles [bkv x DP], then the mbarriers q_full, full_k[sk],
+// empty_k[sk], full_v[sv], empty_v[sv] and, with peers, each
 // warpgroup's exchange full and empty (ops/params.py mirrors this).
 struct FwdLayout {
   int x, k, v, bar, bytes;
@@ -543,21 +558,14 @@ __host__ __device__ constexpr int fwd_exchange_bytes(int bkv, int peers) {
   return 2 * peers * 64 * bkv * 4;
 }
 
-__host__ __device__ constexpr int fwd_stages(int bkv, int dp, int most,
-                                             int peers = 0) {
-  return ring_stages(tile_bytes(kBQ, dp) + fwd_exchange_bytes(bkv, peers) +
-                         8 + (peers ? 32 : 0) + kAlignSlack,
-                     2 * tile_bytes(bkv, dp) + 24, most, 1);
-}
-
-__host__ __device__ inline FwdLayout fwd_layout(int bkv, int dp, int stages,
-                                                int peers = 0) {
+__host__ __device__ inline FwdLayout fwd_layout(int bkv, int dp, int sk,
+                                                int sv, int peers = 0) {
   FwdLayout L{};
   L.x = tile_bytes(kBQ, dp);
   L.k = L.x + fwd_exchange_bytes(bkv, peers);
-  L.v = L.k + stages * tile_bytes(bkv, dp);
-  L.bar = L.v + stages * tile_bytes(bkv, dp);
-  L.bytes = L.bar + 8 * (1 + 3 * stages + (peers ? 4 : 0)) + kAlignSlack;
+  L.v = L.k + sk * tile_bytes(bkv, dp);
+  L.bar = L.v + sv * tile_bytes(bkv, dp);
+  L.bytes = L.bar + 8 * (1 + 2 * sk + 2 * sv + (peers ? 4 : 0)) + kAlignSlack;
   return L;
 }
 
@@ -659,23 +667,25 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 8][4],
 // CL: the cluster kernel past D = 256 (rows "wgmma_dblk"; see the note at
 // the top): CTA p of a cluster of P owns head-dim panel p (DP columns
 // from p * DP) of Q, K, V and O; S is the sum of the P panels' partials
-// (ClusterSum), the same bits in every CTA.
+// (ClusterSum), the same bits in every CTA. Without CL one CTA owns the
+// whole head dim (D <= DP).
 template <int BKV, int DP, bool CL = false>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv) {
   constexpr int KV_TILE = tile_bytes(BKV, DP);
-  const int S = p.stages;
+  const int SK = p.stages_k, SV = p.stages_v;
   const int peers = CL ? dblk_max_panels(DP) - 1 : 0;
-  const FwdLayout L = fwd_layout(BKV, DP, S, peers);
+  const FwdLayout L = fwd_layout(BKV, DP, SK, SV, peers);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align_atom(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L.bar);
   uint64_t* full_k = q_full + 1;
-  uint64_t* full_v = full_k + S;
-  uint64_t* empty = full_v + S;
-  uint64_t* x_full = empty + S;   // [warpgroup] (CL)
+  uint64_t* empty_k = full_k + SK;
+  uint64_t* full_v = empty_k + SK;
+  uint64_t* empty_v = full_v + SV;
+  uint64_t* x_full = empty_v + SV;   // [warpgroup] (CL)
   uint64_t* x_empty = x_full + 2;
 
   int i, bh, rank = 0, size = 1;
@@ -699,10 +709,13 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
 
   if (tid == 0) {
     hw::mbar_init(q_full, 1);
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < SK; ++s) {
       hw::mbar_init(&full_k[s], 1);
+      hw::mbar_init(&empty_k[s], 8);   // every consumer warp
+    }
+    for (int s = 0; s < SV; ++s) {
       hw::mbar_init(&full_v[s], 1);
-      hw::mbar_init(&empty[s], 8);   // every consumer warp
+      hw::mbar_init(&empty_v[s], 8);
     }
     if constexpr (CL) {
       for (int w = 0; w < 2; ++w) {
@@ -727,19 +740,20 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
         hw::tma_load_3d(sm + pn * kBQ * kPanelBytes, &mq, q_full,
                         dcol + 64 * pn, i * kBQ, bh);
       for (int j = lo_c; j <= hi_c; ++j) {
-        const int t = j - lo_c, st = t % S;
-        hw::mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
-        unsigned char* k_tile = sm + L.k + st * KV_TILE;
-        unsigned char* v_tile = sm + L.v + st * KV_TILE;
-        hw::mbar_expect_tx(&full_k[st], KV_TILE);
+        const int t = j - lo_c, sk = t % SK, sv = t % SV;
+        hw::mbar_wait(&empty_k[sk], ((t / SK) & 1) ^ 1);
+        unsigned char* k_tile = sm + L.k + sk * KV_TILE;
+        hw::mbar_expect_tx(&full_k[sk], KV_TILE);
 #pragma unroll
         for (int pn = 0; pn < DP / 64; ++pn)
-          hw::tma_load_3d(k_tile + pn * BKV * kPanelBytes, &mk, &full_k[st],
+          hw::tma_load_3d(k_tile + pn * BKV * kPanelBytes, &mk, &full_k[sk],
                           dcol + 64 * pn, j * BKV, bhkv);
-        hw::mbar_expect_tx(&full_v[st], KV_TILE);
+        hw::mbar_wait(&empty_v[sv], ((t / SV) & 1) ^ 1);
+        unsigned char* v_tile = sm + L.v + sv * KV_TILE;
+        hw::mbar_expect_tx(&full_v[sv], KV_TILE);
 #pragma unroll
         for (int pn = 0; pn < DP / 64; ++pn)
-          hw::tma_load_3d(v_tile + pn * BKV * kPanelBytes, &mv, &full_v[st],
+          hw::tma_load_3d(v_tile + pn * BKV * kPanelBytes, &mv, &full_v[sv],
                           dcol + 64 * pn, j * BKV, bhkv);
       }
     }
@@ -789,14 +803,12 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
     // through the mask and changes nothing: P = 0, corr = 1.
     const int nblk = hi_c - lo_c + 1;
     for (int t = 0; t < nblk; ++t) {
-      const int st = t % S, ph = (t / S) & 1;
-      const int prev = (t + S - 1) % S;   // the stage of block t - 1
+      const int sk = t % SK;
       // The V tile the deferred PV reads: block t - 1's, or before the
       // first block (P = 0) this block's.
-      const int vs = t > 0 ? prev : st;
-      const int vph = t > 0 ? ((t - 1) / S) & 1 : ph;
-      hw::mbar_wait(&full_k[st], ph);
-      hw::mbar_wait(&full_v[vs], vph);
+      const int tv = t > 0 ? t - 1 : 0, vs = tv % SV;
+      hw::mbar_wait(&full_k[sk], (t / SK) & 1);
+      hw::mbar_wait(&full_v[vs], (tv / SV) & 1);
       if (p.pingpong) hw::named_barrier(my_turn, 2 * kWgThreads);
       // S = Qs K^T (A = this warpgroup's rows of Q, B = the K tile, both
       // K-major; the first k-step overwrites S), then the previous
@@ -805,7 +817,7 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
       hw::fence_acc(s);
       hw::fence_acc(o);
       hw::wgmma_fence();
-      const uint32_t kb = k_base(st);
+      const uint32_t kb = k_base(sk);
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
         hw::Wgmma<BKV>::template ss<0, 0>(s, desc_k(q_base, kBQ, kk),
@@ -815,6 +827,7 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
       if (p.pingpong) hw::named_arrive(their_turn, 2 * kWgThreads);
       hw::wgmma_wait<1>();   // S; the PV may still run
       hw::fence_acc(s);
+      if (lane == 0) hw::mbar_arrive(&empty_k[sk]);   // K read
       if constexpr (CL) {
         // This CTA's S is its panel's partial: the cluster's sum, in rank
         // order, under the PV.
@@ -835,7 +848,7 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
       hw::wgmma_wait<0>();   // the previous block's PV
       hw::fence_acc(o);
       hw::fence_frag(pa);
-      if (t > 0 && lane == 0) hw::mbar_arrive(&empty[prev]);
+      if (t > 0 && lane == 0) hw::mbar_arrive(&empty_v[vs]);
       // O to the new running max; this block's P to bf16 for its PV.
 #pragma unroll
       for (int n = 0; n < DP / 8; ++n) {
@@ -849,15 +862,15 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
         acc_to_a(pa[kc], s[2 * kc], s[2 * kc + 1]);
     }
     // The last block's PV.
-    const int last = (nblk - 1) % S;
-    hw::mbar_wait(&full_v[last], ((nblk - 1) / S) & 1);
+    const int last = (nblk - 1) % SV;
+    hw::mbar_wait(&full_v[last], ((nblk - 1) / SV) & 1);
     hw::fence_acc(o);
     hw::wgmma_fence();
     issue_pv<BKV, DP>(o, pa, v_base(last));
     hw::wgmma_wait<0>();
     hw::fence_acc(o);
     hw::fence_frag(pa);
-    if (lane == 0) hw::mbar_arrive(&empty[last]);
+    if (lane == 0) hw::mbar_arrive(&empty_v[last]);
     // Warpgroup 0 takes warpgroup 1's last arrival, so none is left over.
     if (p.pingpong && w == 0) hw::named_barrier(my_turn, 2 * kWgThreads);
 
@@ -973,65 +986,58 @@ cudaError_t launch_f32(int bh, const FwdParams& p, cudaStream_t stream) {
                 128, smem, p, stream);
 }
 
-template <int BKV, int DP>
-cudaError_t launch_wgmma(int bh, FwdParams p, int most, cudaStream_t s) {
-  p.stages = fwd_stages(BKV, DP, most);
-  if (p.stages < 2) return cudaErrorInvalidValue;
-  const FwdLayout L = fwd_layout(BKV, DP, p.stages);
+// The wgmma kernel: one CTA a (head, q-block) tile (CL false; DP covers
+// D), or a cluster of `panels` CTAs, CTA p on head-dim panel p of DP
+// columns (grid.x = tiles x panels, a tile's panels adjacent). Its rings
+// hold p.stages_k K and p.stages_v V tiles (ops/params.py fwd_rings).
+template <int BKV, int DP, bool CL>
+cudaError_t launch_wgmma(int bh, int panels, const FwdParams& p,
+                         cudaStream_t s) {
+  constexpr int kPeers = CL ? dblk_max_panels(DP) - 1 : 0;
+  if (CL ? panels < 2 || panels > kPeers + 1 : panels != 1)
+    return cudaErrorInvalidValue;
+  const FwdLayout L = fwd_layout(BKV, DP, p.stages_k, p.stages_v, kPeers);
+  if (p.stages_k < 1 || p.stages_v < 1 || L.bytes > kSmemOptin)
+    return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
   const int bhkv = bh / p.group;
   if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, kBQ) ||
       !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
       !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wgmma<BKV, DP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<(p.R + kBQ - 1) / kBQ * bh, kWgmmaThreads, L.bytes, s>>>(p, mq, mk,
-                                                                    mv);
-  return cudaGetLastError();
-}
-
-// The cluster kernel: `panels` CTAs a cluster, CTA p on head-dim panel p
-// of DP columns; grid.x = tiles x panels, a tile's panels adjacent.
-template <int BKV, int DP>
-cudaError_t launch_cluster(int bh, int panels, FwdParams p, int most,
-                           cudaStream_t s) {
-  constexpr int kPeers = dblk_max_panels(DP) - 1;
-  if (panels < 2 || panels > kPeers + 1) return cudaErrorInvalidValue;
-  p.stages = fwd_stages(BKV, DP, most, kPeers);
-  if (p.stages < 2) return cudaErrorInvalidValue;
-  const FwdLayout L = fwd_layout(BKV, DP, p.stages, kPeers);
-  CUtensorMap mq, mk, mv;
-  const int bhkv = bh / p.group;
-  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, kBQ) ||
-      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
-      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV))
-    return cudaErrorInvalidValue;
-  static int fits[9] = {};
-  return hw::launch_clusters(flash_fwd_wgmma<BKV, DP, true>,
-                             (p.R + kBQ - 1) / kBQ * bh * panels, panels,
-                             L.bytes, s, fits, p, mq, mk, mv);
+  auto kernel = flash_fwd_wgmma<BKV, DP, CL>;
+  const int grid = (p.R + kBQ - 1) / kBQ * bh * panels;
+  if constexpr (CL) {
+    static int fits[9] = {};
+    return hw::launch_clusters(kernel, grid, panels, L.bytes, s, fits, p, mq,
+                               mk, mv);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWgmmaThreads, L.bytes, s>>>(p, mq, mk, mv);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = fp32 in/out, 1 = bf16 in/out, 2 = bf16 in, fp32 out. kernel:
-// 0 the first-cut kernels (mma.sync / FMA), 1 the wgmma kernel, whose K/V
-// ring holds as many stages as fit, at most `stages`, and whose consumer
+// 0 the first-cut kernels (mma.sync / FMA), 1 the wgmma kernel, whose K
+// and V rings hold `stages_k` and `stages_v` tiles and whose consumer
 // warpgroups take turns when `pingpong` != 0, 2 the D-blocked kernels
 // (mma.sync / FMA) over `panels` = ceil(D / block_d) head-dim panels (1
-// for the others), 3 the cluster kernel over `panels` head-dim panels,
-// one CTA of a cluster each (ring and turns as for 1). (kernel, block_q,
-// block_kv, block_d) must be a row of ops/params.py's flash_fwd tables.
+// for the others), 3 the wgmma kernel on a block_d-wide head-dim panel:
+// one CTA for one panel, else a cluster of `panels` CTAs, one a panel
+// (rings and turns as for 1). (kernel, block_q, block_kv, block_d) must
+// be a row of ops/params.py's flash_fwd tables.
 extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int group, int R,
                              int C, int D, int panels, int causal,
                              int window, float scale2, float cap2, int dtype,
                              int kernel, int block_q, int block_kv,
-                             int block_d, int stages, int pingpong,
-                             void* stream) {
+                             int block_d, int stages_k, int stages_v,
+                             int pingpong, void* stream) {
   if (!mfa::panels_ok(kernel, D, block_d, panels))
     return cudaErrorInvalidValue;
   FwdParams p{};
@@ -1053,6 +1059,8 @@ extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
                            reinterpret_cast<uintptr_t>(v);
   p.vec = (D % 8 == 0) && (ptr_or % 16 == 0);
   p.o_f32 = dtype == 2;
+  p.stages_k = stages_k;
+  p.stages_v = stages_v;
   p.pingpong = pingpong;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -1075,26 +1083,35 @@ extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
         reinterpret_cast<uintptr_t>(o) % 16 != 0)
       return cudaErrorInvalidValue;
     if (block_kv == 64 && block_d == 64)
-      return launch_wgmma<64, 64>(bh, p, stages, s);
+      return launch_wgmma<64, 64, false>(bh, 1, p, s);
     if (block_kv == 128 && block_d == 64)
-      return launch_wgmma<128, 64>(bh, p, stages, s);
+      return launch_wgmma<128, 64, false>(bh, 1, p, s);
     if (block_kv == 64 && block_d == 128)
-      return launch_wgmma<64, 128>(bh, p, stages, s);
+      return launch_wgmma<64, 128, false>(bh, 1, p, s);
     if (block_kv == 128 && block_d == 128)
-      return launch_wgmma<128, 128>(bh, p, stages, s);
+      return launch_wgmma<128, 128, false>(bh, 1, p, s);
     return cudaErrorInvalidValue;
   }
   if (kernel == 3) {
-    // The cluster kernel: TMA maps, 16-byte O stores, as for kernel 1.
-    if (block_q != kBQ || block_kv != 64 || !p.vec ||
-        reinterpret_cast<uintptr_t>(o) % 16 != 0)
+    // TMA maps, 16-byte O stores, as for kernel 1. One panel: one CTA, a
+    // plain launch (block_kv 64 or 32); more: a cluster (block_kv 64).
+    if (block_q != kBQ || !p.vec || reinterpret_cast<uintptr_t>(o) % 16 != 0)
       return cudaErrorInvalidValue;
+    if (panels == 1 && block_kv == 64 && block_d == 192)
+      return launch_wgmma<64, 192, false>(bh, 1, p, s);
+    if (panels == 1 && block_kv == 64 && block_d == 256)
+      return launch_wgmma<64, 256, false>(bh, 1, p, s);
+    if (panels == 1 && block_kv == 32 && block_d == 192)
+      return launch_wgmma<32, 192, false>(bh, 1, p, s);
+    if (panels == 1 && block_kv == 32 && block_d == 256)
+      return launch_wgmma<32, 256, false>(bh, 1, p, s);
+    if (block_kv != 64) return cudaErrorInvalidValue;
     if (block_d == 128)
-      return launch_cluster<64, 128>(bh, panels, p, stages, s);
+      return launch_wgmma<64, 128, true>(bh, panels, p, s);
     if (block_d == 192)
-      return launch_cluster<64, 192>(bh, panels, p, stages, s);
+      return launch_wgmma<64, 192, true>(bh, panels, p, s);
     if (block_d == 256)
-      return launch_cluster<64, 256>(bh, panels, p, stages, s);
+      return launch_wgmma<64, 256, true>(bh, panels, p, s);
     return cudaErrorInvalidValue;
   }
   if (kernel == 2) {

@@ -7,21 +7,23 @@ Replaces ``mfa_tpu/kernels/flash_fwd.py::_fwd_kernel`` and
 and apart those of the non-causal mode.
 
 Which kernel a launch runs is the descriptor's parameter row
-(``ops/params.py``): bf16 rows up to D = 128 name the warp-specialised
-TMA + wgmma kernel (its ring depth and ping-pong from
-``params.FWD_RING_STAGES`` and ``params.FWD_PINGPONG``, read at each
-call), the others the first-cut mma.sync or FMA kernels; a wgmma row
-whose operands TMA cannot map takes the mma.sync row of its head dim
-(:func:`~mfa_tpu_torch.ops.descriptors.launch_row`). Above D = 256 the
-launch covers O in ceil(D / block_d) head-dim panels, as ``mfa_tpu``'s
-``_fwd_kernel`` pages D in ``block_d`` slices (flash_fwd.py:180-252,
-:413-456): bf16 rows up to D = 512 name the cluster kernel
-(``wgmma_dblk``: one CTA of a thread-block cluster a panel, S summed
-across the cluster, so formed once a block pair), and a ``wgmma_dblk``
-row whose operands TMA cannot map takes the D-blocked mma.sync row
-(``mma_dblk``: one CTA a panel, S summed over streamed panels in each),
-which also runs past D = 512; fp32 runs ``fma_dblk``. Blocks, heads and
-panels share grid.x, so batch * heads has no 65535 limit.
+(``ops/params.py``): bf16 rows up to D = 512 name the warp-specialised
+TMA + wgmma kernel (the depths of its K and V rings from
+``params.fwd_rings`` and its ping-pong from ``params.FWD_PINGPONG``,
+read at each call), the others the first-cut mma.sync or FMA kernels; a
+wgmma row whose operands TMA cannot map takes the mma.sync row of its
+head dim (:func:`~mfa_tpu_torch.ops.descriptors.launch_row`). Past D =
+128 (``wgmma_dblk``) it runs on a 192- or 256-wide head-dim panel: one
+CTA up to D = 256; above, the launch covers O in ceil(D / block_d)
+panels, as ``mfa_tpu``'s ``_fwd_kernel`` pages D in ``block_d`` slices
+(flash_fwd.py:180-252, :413-456), one CTA of a thread-block cluster a
+panel, S summed across the cluster, so formed once a block pair. A
+``wgmma_dblk`` row whose operands TMA cannot map takes the mma.sync row
+of its head dim (up to D = 256 ``mma``; past it the D-blocked
+``mma_dblk``: one CTA a panel, S summed over streamed panels in each,
+which also runs past D = 512); fp32 runs ``fma_dblk`` past D = 256.
+Blocks, heads and panels share grid.x, so batch * heads has no 65535
+limit.
 
 Operands: q [BH, R, D]; k, v [BH / group, C, D] (query head bh reads kv
 head bh // group); outputs O [BH, R, D] and the natural-log logsumexp
@@ -157,6 +159,8 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
                             [o_dtype, torch.float32], q3.device)
     row = launch_row(kd, d, (q3, k3, v3, o))
     panels = head_dim_panels(row, d)
+    rings = (params.fwd_rings(row) if row.kernel in ("wgmma", "wgmma_dblk")
+             else (0, 0))
     dtype_code = (0 if q3.dtype == torch.float32
                   else 2 if o_dtype == torch.float32 else 1)
     cap2 = (kd.logit_soft_cap * LOG2E if kd.logit_soft_cap is not None
@@ -167,7 +171,7 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
         int(kd.causal), kd.sliding_window or 0, scale * LOG2E, cap2,
         dtype_code,
         KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
-        params.FWD_RING_STAGES, int(params.FWD_PINGPONG),
+        *rings, int(params.FWD_PINGPONG),
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_fwd.launches += 1
     if not (kd.causal or kd.sliding_window is not None):

@@ -19,7 +19,7 @@ K/V rows per step of the in-CTA loop (K4: per CTA), ``block_d`` the head
 dim the CTA's shared-memory tiles are padded to (one compiled
 instantiation per ``block_d``); in a D-blocked row (``mma_dblk``,
 ``fma_dblk``, ``wgmma_dblk``) it is the head-dim panel, smaller than D
-(K3 and K4's ``wgmma_dblk`` rows up to D = 256: as wide as D or wider),
+(the ``wgmma_dblk`` rows up to D = 256: as wide as D or wider),
 and each CTA owns one panel of the output: the first cut streams Q, K, V
 (and dO) in panels of ``block_d`` columns, so any head dim runs; the
 head-dim-split kernels (``wgmma_dblk``) give each panel a CTA of one
@@ -83,10 +83,10 @@ class ParameterRow:
 # The kernels a row may name: "wgmma" the warp-specialised TMA + wgmma
 # kernels, "mma" the first-cut mma.sync ones (bf16), "mma_dblk" and
 # "fma_dblk" the head-dim-blocked mma.sync (bf16) and FMA (fp32) kernels
-# for D > 256, "wgmma_dblk" the head-dim-split cluster kernels (bf16; K1
-# past D = 256, K3 and K4 past D = 128): one CTA of a thread-block cluster
-# per block_d panel, S (and dP) summed across the cluster (K3 and K4 up to
-# D = 256: one CTA holding the whole head dim, nothing to sum).
+# for D > 256, "wgmma_dblk" the head-dim-split cluster kernels (bf16, past
+# D = 128): one CTA of a thread-block cluster per block_d panel, S (and
+# dP) summed across the cluster (up to D = 256: one CTA holding the whole
+# head dim, nothing to sum).
 ROW_KERNELS = ("mma", "wgmma", "mma_dblk", "fma_dblk", "wgmma_dblk")
 DBLK_KERNELS = ("mma_dblk", "fma_dblk", "wgmma_dblk")
 
@@ -96,7 +96,7 @@ def dblk_max_panels(block_d: int) -> int:
     row of panel width ``block_d``: K1's exchange slots are sized for them
     (csrc/flash_fwd.cu ``dblk_max_panels``); K3's and K4's rows are 192 or
     256 wide, one CTA or clusters of two (their exchange slots hold one
-    other CTA's partials)."""
+    other CTA's partials). One CTA needs no slots."""
     return 4 if block_d == 128 else 2
 
 
@@ -140,35 +140,51 @@ def select_row(rows: list[ParameterRow], head_dim: int) -> ParameterRow:
 
 # K1 bf16 at D <= 128 (csrc/flash_fwd.cu, flash_fwd_wgmma): 128 query
 # rows a CTA (64 a consumer warpgroup), K and V streamed block_kv rows a
-# stage through a ring of at most FWD_RING_STAGES stages (as many as fit).
-# Measured by utils/bwd_tuning.py sweep on the H100 at chip_smoke.py's k1
-# shape (N = 2048, Hq 32, Hkv 8): block_kv 128 with 3 stages takes
-# 0.09378 ms causal and 0.14148 non-causal at D = 128, 0.07185 and
-# 0.11528 at D = 64; block_kv 64 (4 stages) 0.11584 / 0.18133 and
-# 0.08545 / 0.1469; the mma.sync rows 0.30866 / 0.53608 and 0.17279 /
-# 0.31978. D = 256 keeps the mma.sync kernel: four warps of 16 rows; at
-# D = 256 the fp32 O accumulator is 128 registers a thread, so the kv
-# step halves (not tuned on the H100). Head dims TMA cannot map take
-# _FWD_BF16_MMA.
-# Above D = 256 up to D = 512 (rows wgmma_dblk, csrc/flash_fwd.cu
-# flash_fwd_wgmma with CL): the cluster kernel, one CTA of a cluster per
-# block_d panel of Q, K, V and O, S summed across the cluster; beyond D =
-# 512 the mma.sync D-blocked kernel (mma_dblk: one CTA per block_d panel
-# of O, S summed over panels of Q and K streamed through shared memory).
-# Measured by utils/bwd_tuning.py sweep --only dblk on the H100 (NVIDIA
-# H100 80GB HBM3, 700 W) at B 1, H 8, N 4096, causal / non-causal: at D =
-# 384, two CTAs of 192-wide panels 0.5147 / 0.9510 ms, of 256-wide ones
-# 0.6386 / 1.167, three of 128-wide ones 1.082 / 2.094, mma_dblk 2.687 /
-# 5.225 (128-wide panels, 64-wide kv steps) and 3.192 / 6.104 (256, 32);
-# at D = 512, two CTAs of 256-wide panels 0.6050 / 1.148, four of 128
-# 1.583 / 3.114, mma_dblk 3.482 / 6.958 (256, 32) and 4.235 / 8.454. D =
-# 256 keeps its mma.sync row in this table, though two CTAs of 128-wide
-# panels measured 0.4879 / 0.9005 against its 0.7210 / 1.406.
+# step through a K ring and a V ring of at most FWD_RING_STAGES tiles each
+# (as many as fit). Measured by utils/bwd_tuning.py sweep on the H100 at
+# chip_smoke.py's k1 shape (N = 2048, Hq 32, Hkv 8), when K and V shared
+# one ring of stages: block_kv 128 with 3 stages takes 0.09378 ms causal
+# and 0.14148 non-causal at D = 128, 0.07185 and 0.11528 at D = 64;
+# block_kv 64 (4 stages) 0.11584 / 0.18133 and 0.08545 / 0.1469; the
+# mma.sync rows 0.30866 / 0.53608 and 0.17279 / 0.31978. The separate
+# rings (a K tile freed once S has read it), in turns with the shared ring
+# on one card (NVIDIA H100 80GB HBM3, 700 W): 0.0983 / 0.1458 -> 0.0960 /
+# 0.1421 at D = 128, 0.0738 / 0.1164 -> 0.0710 / 0.1108 at D = 64. Head
+# dims TMA cannot map take _FWD_BF16_MMA.
+# Above D = 128 up to D = 512 (rows wgmma_dblk, csrc/flash_fwd.cu
+# flash_fwd_wgmma on a block_d-wide head-dim panel): one CTA holding the
+# whole head dim up to D = 256 (a 192- or 256-wide panel; O at 64 x 256
+# fp32 is 128 registers a thread), past it a cluster of two CTAs, one a
+# panel of Q, K, V and O, S summed across the cluster; beyond D = 512
+# the mma.sync D-blocked kernel (mma_dblk: one CTA per block_d panel of
+# O, S summed over panels of Q and K streamed through shared memory).
+# Measured by utils/bwd_tuning.py sweep --only fwd on the H100 (NVIDIA
+# H100 80GB HBM3, 700 W) at B 1, H 8, N 4096, causal / non-causal (ms):
+# - D = 192: one CTA on a 192-wide panel, block_kv 64, 0.1098 / 0.1910;
+#   on a 256-wide one 0.1378 / 0.2317; block_kv 32 0.1583 / 0.2831 (192)
+#   and 0.1940 / 0.3387 (256); two CTAs of 128-wide panels 0.4995 /
+#   0.9238; the mma.sync row 0.6187 / 1.249.
+# - D = 256: one CTA, block_kv 64, 0.1316 / 0.2274; block_kv 32 0.1871 /
+#   0.3347; two CTAs of 128-wide panels 0.4869 / 0.9085, of 192-wide ones
+#   0.5352 / 0.9717; the mma.sync row 0.7132 / 1.408.
+# - The one-CTA rows in bwd_tuning's K1_SPLIT_VARIANTS (rings of 2 + 2
+#   tiles, the odd tile in K's ring, up to 4 tiles a ring, no ping-pong)
+#   all within 1.1% of the rule's 2 K + 3 V tiles at block_kv 64.
+# - D = 384: two CTAs of 192-wide panels 0.5039 / 0.9229, of 256-wide
+#   ones 0.5822 / 1.040, three of 128-wide ones 1.076 / 2.078, mma_dblk
+#   2.681 / 5.222 (128-wide panels, 64-wide kv steps) and 3.146 / 6.208
+#   (256, 32).
+# - D = 512: two CTAs of 256-wide panels 0.5415 / 1.016, four of 128
+#   1.584 / 3.117, mma_dblk 3.503 / 6.990 (256, 32) and 4.224 / 8.363.
+# - The clusters' separate rings against the shared ring, in turns on one
+#   card: D = 384 0.5140 / 0.9504 -> 0.5018 / 0.9210, D = 512 0.6064 /
+#   1.145 -> 0.5427 / 1.014 (the same tiles; K freed a step earlier).
 _FWD_BF16 = """
 # max_d | block_q | block_kv | block_d | kernel
    64   |  128    |   128    |   64    | wgmma
   128   |  128    |   128    |  128    | wgmma
-  256   |   64    |    32    |  256    | mma
+  192   |  128    |    64    |  192    | wgmma_dblk
+  256   |  128    |    64    |  256    | wgmma_dblk
   384   |  128    |    64    |  192    | wgmma_dblk
   512   |  128    |    64    |  256    | wgmma_dblk
   inf   |   64    |    32    |  256    | mma_dblk
@@ -176,7 +192,11 @@ _FWD_BF16 = """
 
 # K1 bf16 where TMA cannot map the operands (a row of D % 8 != 0 values is
 # no multiple of 16 bytes, or a base is not 16-byte aligned): the mma.sync
-# kernel for every head dim. (Not tuned on the H100 up to D = 256.) The
+# kernel for every head dim; at D 129-256 four warps of 16 rows, the kv
+# step halved so the fp32 O accumulator (128 registers a thread at D 256)
+# fits (not tuned on the H100; as the bf16 table's D 256 row before the
+# one-CTA wgmma_dblk rows it took 0.7210 / 1.406 ms at B 1, H 8, N 4096,
+# causal / non-causal). The
 # D-blocked rows by the same sweep at N 1024: D = 300, 0.642 + 1.281 ms
 # (causal + non-causal) against 1.075 + 1.143; D = 500, 1.421 + 1.461
 # against 1.010 + 1.944.
@@ -380,20 +400,24 @@ def smem_bytes(kernel: str, row: ParameterRow, in_bytes: int) -> int:
 
 # The wgmma kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) size their
 # rings of tiles to the H100's shared memory per block: as many stages as
-# fit, up to a most: K1's (K and V, read by both consumer warpgroups; at
-# most FWD_RING_STAGES), K3's (the same, up to 4) and K4's, an even number
-# up to 4 (Q, dO, L and the D-term; stage s feeds warpgroup s % 2).
+# fit, up to a most: K1's (a K ring and a V ring, read by both consumer
+# warpgroups; each at most FWD_RING_STAGES), K3's (K and V, up to 4) and
+# K4's, an even number up to 4 (Q, dO, L and the D-term; stage s feeds
+# warpgroup s % 2).
 _SMEM_OPTIN = H100.smem_per_block
 # Slack to align the dynamic shared memory to the 1024-byte swizzle atom.
 _SMEM_ALIGN = 1024
 # K1's wgmma launch, read at each call (the row sweep of
-# utils/bwd_tuning.py varies both): the most stages of its K/V ring, and
-# whether its two consumer warpgroups take turns issuing their products
-# (ping-pong), so that one's softmax runs under the other's products.
-# Measured by the same sweep at D = 128, block_kv 128: 3 stages (all
-# that fit) against 2, 0.09378 against 0.10547 ms causal; ping-pong on
-# against off, 0.09378 against 0.09877 causal and 0.14148 against
-# 0.14654 non-causal.
+# utils/bwd_tuning.py varies both): the most tiles of its K ring and of
+# its V ring, and whether its two consumer warpgroups take turns issuing
+# their products (ping-pong), so that one's softmax runs under the
+# other's products. Measured by the same sweep at D = 128, block_kv 128,
+# when one ring held K and V together: 3 stages (all that fit) against
+# 2, 0.09378 against 0.10547 ms causal; ping-pong on against off,
+# 0.09378 against 0.09877 causal and 0.14148 against 0.14654 non-causal.
+# With separate rings 2 tiles a ring take 0.0937 against 3's 0.0943
+# causal at D = 128, and at D 192 and 256 every depth that fits and
+# ping-pong off are within 1.1% of these settings.
 FWD_RING_STAGES = 3
 FWD_PINGPONG = True
 
@@ -405,8 +429,8 @@ def _ring_stages(fixed: int, per_stage: int, most: int, mult: int) -> int:
 
 def row_panels(row: ParameterRow) -> int:
     """The head-dim panels of a ``wgmma_dblk`` row at its largest head dim
-    (the tables' K3 and K4 rows never straddle D = block_d: up to 256 one
-    panel, past it two)."""
+    (the tables' rows never straddle D = block_d: up to 256 one panel,
+    past it two, K1's 128-wide sweep candidates up to four)."""
     if not row.max_d:
         return dblk_max_panels(row.block_d)
     return -(-row.max_d // row.block_d)
@@ -436,19 +460,18 @@ def bwd_q_split_stages(row: ParameterRow) -> tuple[int, int]:
 
 
 def exchange_bytes(kernel: str, row: ParameterRow) -> int:
-    """A ``wgmma_dblk`` row's exchange buffers: K1's, for each of the two
-    consumer warpgroups one slot for each other CTA of the largest cluster
-    (:func:`dblk_max_panels`) of its partial S (64 x block_kv fp32); K3's,
-    as a cluster of two, one slot a warpgroup of its partial S and dP (two
-    of 64 x block_kv fp32); K4's (warpgroup 1 forming S^T and warpgroup 0
-    dP^T), as a cluster of two, a slot of 64 x block_q fp32 for each
-    warpgroup. 0 for one CTA and for the other rows."""
-    if row.kernel != "wgmma_dblk":
+    """A ``wgmma_dblk`` row's exchange buffers: K1's, as a cluster, for
+    each of the two consumer warpgroups one slot for each other CTA of the
+    largest cluster (:func:`dblk_max_panels`) of its partial S (64 x
+    block_kv fp32); K3's, as a cluster of two, one slot a warpgroup of its
+    partial S and dP (two of 64 x block_kv fp32); K4's (warpgroup 1
+    forming S^T and warpgroup 0 dP^T), as a cluster of two, a slot of 64 x
+    block_q fp32 for each warpgroup. 0 for one CTA and for the other
+    rows."""
+    if row.kernel != "wgmma_dblk" or row_panels(row) == 1:
         return 0
     if kernel == "flash_fwd":
         return 2 * (dblk_max_panels(row.block_d) - 1) * 64 * row.block_kv * 4
-    if row_panels(row) == 1:
-        return 0
     if kernel == "flash_bwd_q":
         return 2 * 2 * 64 * row.block_kv * 4
     return 2 * 64 * row.block_q * 4
@@ -470,14 +493,20 @@ def bwd_kv_stages(row: ParameterRow) -> int:
                         2 * 2 * bq * d + 8 * bq + 16, 4, 2)
 
 
-def fwd_stages(row: ParameterRow) -> int:
-    """Stages of K1's wgmma ring at ``row`` (read at call time: the row
-    sweep varies FWD_RING_STAGES; the cluster kernel's exchange slots and
-    their four mbarriers beside it)."""
+def fwd_rings(row: ParameterRow) -> tuple[int, int]:
+    """Tiles of K1's K ring and V ring at a ``wgmma`` or ``wgmma_dblk``
+    row (the launch passes both; read at call time: the row sweep varies
+    FWD_RING_STAGES): the K and V tiles that fit beside Q (and, as a
+    cluster, the exchange slots with their four mbarriers), each tile
+    with two mbarriers. A K tile is freed once S has read it, a V tile a
+    step later, once the deferred PV has: the V ring takes the odd tile.
+    Each ring holds at most FWD_RING_STAGES."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
     x = exchange_bytes("flash_fwd", row)
-    return _ring_stages(2 * bq * d + x + 8 + (32 if x else 0) + _SMEM_ALIGN,
-                        2 * 2 * bkv * d + 24, FWD_RING_STAGES, 1)
+    tiles = ((_SMEM_OPTIN - 2 * bq * d - x - 8 * (1 + (4 if x else 0))
+              - _SMEM_ALIGN) // (2 * bkv * d + 16))
+    v = min(-(-tiles // 2), FWD_RING_STAGES)
+    return min(tiles - v, FWD_RING_STAGES), v
 
 
 def bf16_table_precision(head_dim: int) -> str:
@@ -489,18 +518,19 @@ def bf16_table_precision(head_dim: int) -> str:
 
 
 def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
-    """K1: the wgmma kernel keeps Q resident and a ring of K and V tiles
-    with three mbarriers a stage (K full, V full, stage free), plus one
-    for Q; the mma.sync kernel Q and K tiles plus the transposed V
+    """K1: the wgmma kernel keeps Q resident, a ring of K tiles and a ring
+    of V tiles (:func:`fwd_rings`) with two mbarriers a tile (full, free)
+    and one for Q, and as a cluster its exchange slots and four
+    mbarriers; the mma.sync kernel Q and K tiles plus the transposed V
     tile, each row padded by 8 elements (bank spread); the fp32 kernel
     unpadded Q rows and K/V rows padded by one. The D-blocked kernels
     hold the same tiles, block_d columns wide, at any head dim."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
     if row.kernel in ("wgmma", "wgmma_dblk"):
-        stages = fwd_stages(row)
+        tiles = sum(fwd_rings(row))
         x = exchange_bytes("flash_fwd", row)
-        return (2 * bq * d + x + stages * 2 * 2 * bkv * d
-                + 8 * (1 + 3 * stages + (4 if x else 0)) + _SMEM_ALIGN)
+        return (2 * bq * d + x + tiles * 2 * bkv * d
+                + 8 * (1 + 2 * tiles + (4 if x else 0)) + _SMEM_ALIGN)
     if in_bytes == 2:
         return in_bytes * (bq * (d + 8) + bkv * (d + 8) + d * (bkv + 8))
     return 4 * (bq * d + 2 * bkv * (d + 1))

@@ -4,14 +4,15 @@ K4 ``flash_bwd_kv``) and of the matrix-product kernels (K7 ``gemm``, K8
 
 ``sweep`` runs each candidate parameter row at ``chip_smoke.py``'s
 shapes (N = 2048, Hq 32, Hkv 8, bf16) for D = 128 and D = 64: K1 causal
-and non-causal, each wgmma candidate a (block_kv, ring stages, ping-pong)
+and non-causal, each wgmma candidate a (block_kv, ring tiles, ping-pong)
 triple (``params.FWD_RING_STAGES`` and ``params.FWD_PINGPONG`` set for
 the run); K3 and K4 causal. Then the rows past D = 256 of K1, K3 and
 K4, causal and non-causal: the D-blocked first cut's two candidates a
 table, the mma rows at D <= 256 and the head-dim-split kernels
-(:data:`DBLK_ROWS`), at the shapes of ``chip_smoke.py``'s ``large_d``
-phase and at D 192 and 256 (:data:`DBLK_SHAPES`; ``--only dblk`` runs
-these alone). Each row is
+(:data:`DBLK_ROWS`; K1's one-CTA ones in each launch variant of
+:data:`K1_SPLIT_VARIANTS`), at the shapes of ``chip_smoke.py``'s
+``large_d`` phase and at D 192 and 256 (:data:`DBLK_SHAPES`; ``--only
+dblk`` runs these alone, ``--only fwd`` runs K1's). Each row is
 first held to its plain version at ``KERNEL_BUDGETS`` (and the
 D-blocked ones to a second run, bit for bit), then timed
 (CUDA events, launches queued behind a device spin). One JSON line per
@@ -52,8 +53,10 @@ Run on a GPU from the repository root:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+from unittest import mock
 
 import numpy as np
 import torch
@@ -89,18 +92,20 @@ K4_ROWS = ((64, 64, "wgmma"), (32, 64, "wgmma"), (32, 64, "mma"))
 # csrc/flash_bwd.cu; the mma row at D <= 256. The D-blocked first cut
 # (mma_dblk, fma_dblk: a 256-wide panel, S once per two panels of 512, or
 # a 128-wide one with twice the kv (K1, K3) step) and the head-dim-split
-# kernels (wgmma_dblk): K1 on clusters of two CTAs of 192- or 256-wide
-# panels or up to four of 128-wide ones; K3 and K4 on one CTA of a 192-
-# or 256-wide panel or two of them. A wgmma_dblk candidate runs only
-# where its CTAs cover D (panel_range) and TMA maps a row (bf16,
-# D % 8 == 0).
+# kernels (wgmma_dblk): K1 on one CTA of a 192- or 256-wide panel (64- or
+# 32-wide kv steps), on clusters of two such CTAs (64-wide steps) or of
+# up to four on 128-wide panels; K3 and K4 on one CTA of a 192- or
+# 256-wide panel or two of them. A wgmma_dblk candidate runs only where
+# its CTAs cover D (panel_range) and TMA maps a row (bf16, D % 8 == 0).
 DBLK_ROWS = {
     "flash_fwd": {"bf16": ((64, 32, 256, "mma"),
                            (64, 32, 256, "mma_dblk"),
                            (64, 64, 128, "mma_dblk"),
                            (128, 64, 128, "wgmma_dblk"),
                            (128, 64, 192, "wgmma_dblk"),
-                           (128, 64, 256, "wgmma_dblk")),
+                           (128, 64, 256, "wgmma_dblk"),
+                           (128, 32, 192, "wgmma_dblk"),
+                           (128, 32, 256, "wgmma_dblk")),
                   "fp32": ((16, 32, 256, "fma_dblk"),
                            (16, 32, 128, "fma_dblk"))},
     "flash_bwd_q": {"bf16": ((64, 32, 256, "mma"),
@@ -121,21 +126,33 @@ DBLK_ROWS = {
 # (input type, D, N) at B 1, H 8: the JAX package's large-D class (bf16,
 # N 4096, D 384 and 512), head dims TMA cannot map (the bf16_mma table's
 # 384 and inf rows) and fp32, at chip_smoke.py's large_d sizes; and D
-# 256 and 192 at N 4096, where the candidates are the mma rows, K1's
-# clusters and K3's and K4's one-CTA and two-CTA rows.
+# 256 and 192 at N 4096, where the candidates are the mma rows and the
+# one-CTA and two-CTA rows of K1, K3 and K4.
 DBLK_SHAPES = (("bf16", 384, 4096), ("bf16", 512, 4096),
                ("bf16", 300, 1024), ("bf16", 500, 1024),
                ("fp32", 384, 1024), ("fp32", 512, 1024),
                ("bf16", 256, 4096), ("bf16", 192, 4096))
 
 
-def panel_range(name: str, bd: int) -> tuple[int, int]:
+# K1's one-CTA candidates past D = 128 are each timed in these launch
+# variants, (name, most tiles a ring, ping-pong, K ring deeper): the
+# rule (params.fwd_rings, FWD_RING_STAGES = 3: the V ring takes the odd
+# tile), rings of two tiles each (the four tiles a ring of paired K and V
+# stages held at D 256), up to four tiles a ring, the odd tile given to
+# the K ring, and no ping-pong.
+K1_SPLIT_VARIANTS = (("rule", 3, True, False), ("rings2", 2, True, False),
+                     ("rings4", 4, True, False), ("k_deeper", 3, True, True),
+                     ("no_pingpong", 3, False, False))
+
+
+def panel_range(name: str, bd: int, bkv: int = 64) -> tuple[int, int]:
     """The fewest and most CTAs a ``wgmma_dblk`` candidate of kernel
-    ``name`` on ``bd``-wide panels runs on: K1's clusters two or more (up
-    to params.dblk_max_panels); K3's and K4's one or two (their exchange
-    slots hold one other CTA's partials)."""
-    if name == "flash_fwd":
-        return 2, params.dblk_max_panels(bd)
+    ``name`` on ``bd``-wide panels with ``bkv``-wide kv steps runs on: one
+    CTA, or a cluster of up to params.dblk_max_panels (their exchange
+    slots hold the others' partials); K1's clusters are compiled for
+    64-wide kv steps only."""
+    if name == "flash_fwd" and bkv != 64:
+        return 1, 1
     return 1, params.dblk_max_panels(bd)
 
 
@@ -148,7 +165,7 @@ def dblk_candidates(name: str, dt: str, d: int, table_row) -> list:
     for bq, bkv, bd, kernel in DBLK_ROWS[name][dt]:
         panels = -(-d // bd)
         if kernel == "wgmma_dblk":
-            least, most = panel_range(name, bd)
+            least, most = panel_range(name, bd, bkv)
             ok = d % 8 == 0 and d > 128 and least <= panels <= most
         elif kernel == "mma":
             ok = d <= bd
@@ -219,25 +236,54 @@ def sweep_dblk(kernels) -> None:
                     kd = dataclasses.replace(base[name], block_q=bq,
                                              block_kv=bkv, block_d=bd,
                                              kernel=kernel)
-                    got, again = run(kd), run(kd)
-                    same = all(torch.equal(a, b) for a, b in zip(got, again))
-                    shares = {key: budget_share(g, w, *KERNEL_BUDGETS[key])
-                              for key, g, w in zip(keys, got, want)}
-                    ms = roofline.cuda_ms(lambda: run(kd), iters=10)
-                    print(json.dumps({
-                        "kernel": name, "dtype": dt, "D": d, "N": n,
-                        "causal": causal, "block_q": bq, "block_kv": bkv,
-                        "block_d": bd, "row_kernel": kd.kernel,
-                        "share": shares, "deterministic": same, "ms": ms}),
-                        flush=True)
-                    if max(shares.values()) > 1 or not same:
-                        raise SystemExit(f"{name} row {bq}/{bkv}/{bd} at "
-                                         f"{dt} D={d}: shares {shares}, "
-                                         f"deterministic {same}")
-                    del got, again
+                    one_cta = (name == "flash_fwd" and kernel == "wgmma_dblk"
+                               and d <= bd)
+                    for variant in (K1_SPLIT_VARIANTS if one_cta
+                                    else (None,)):
+                        with _k1_launch(variant):
+                            got, again = run(kd), run(kd)
+                            ms = roofline.cuda_ms(lambda: run(kd), iters=10)
+                            rings = (params.fwd_rings(params.ParameterRow(
+                                d, bq, bkv, bd, kernel)) if one_cta
+                                else None)
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(got, again))
+                        shares = {key: budget_share(g, w,
+                                                    *KERNEL_BUDGETS[key])
+                                  for key, g, w in zip(keys, got, want)}
+                        print(json.dumps({
+                            "kernel": name, "dtype": dt, "D": d, "N": n,
+                            "causal": causal, "block_q": bq,
+                            "block_kv": bkv, "block_d": bd,
+                            "row_kernel": kd.kernel,
+                            "variant": variant and variant[0],
+                            "rings": rings, "share": shares,
+                            "deterministic": same, "ms": ms}), flush=True)
+                        if max(shares.values()) > 1 or not same:
+                            raise SystemExit(
+                                f"{name} row {bq}/{bkv}/{bd} {variant} at "
+                                f"{dt} D={d}: shares {shares}, "
+                                f"deterministic {same}")
+                        del got, again
                 del want
             del q, k, v, o, do, lse, dterm
             torch.cuda.empty_cache()
+
+
+def _k1_launch(variant) -> contextlib.ExitStack:
+    """K1's launch in one of K1_SPLIT_VARIANTS (None: as it stands), as a
+    context that restores the module's settings."""
+    stack = contextlib.ExitStack()
+    if variant is None:
+        return stack
+    _, most, pingpong, k_deeper = variant
+    rule = params.fwd_rings
+    stack.enter_context(mock.patch.object(params, "FWD_RING_STAGES", most))
+    stack.enter_context(mock.patch.object(params, "FWD_PINGPONG", pingpong))
+    if k_deeper:
+        stack.enter_context(mock.patch.object(
+            params, "fwd_rings", lambda row: tuple(reversed(rule(row)))))
+    return stack
 
 
 def _shares(got, want, keys):
@@ -276,8 +322,8 @@ def sweep_fwd() -> None:
                 print(json.dumps({
                     "kernel": "flash_fwd", "D": d, "causal": causal,
                     "block_q": bq, "block_kv": bkv, "row_kernel": kernel,
-                    "ring_stages": (params.fwd_stages(row)
-                                    if kernel == "wgmma" else None),
+                    "rings": (params.fwd_rings(row)
+                              if kernel == "wgmma" else None),
                     "pingpong": pp if kernel == "wgmma" else None,
                     "share": shares, "ms": ms}), flush=True)
                 params.FWD_RING_STAGES, params.FWD_PINGPONG = rule

@@ -1,5 +1,5 @@
-"""The head-dim-split rows (``wgmma_dblk``: K1 past D = 256, K3 and K4
-past D = 128) against the scripts that run them on the card:
+"""The head-dim-split rows (``wgmma_dblk``: K1, K3 and K4 past D = 128)
+against the scripts that run them on the card:
 ``chip_smoke.py``'s
 large_d phase expects the rows the tables select, and the sweep of
 ``utils/bwd_tuning.py`` tries the compiled candidates that apply at each
@@ -33,15 +33,18 @@ def _chip_smoke():
 def test_large_d_phase_expects_the_tables_rows():
     """Every case of chip_smoke.py's large_d phase: the rows its K1, K3
     and K4 launches take from the tables are the ones large_d_rows
-    expects (the head-dim-split kernels where TMA maps a bf16 row, K1
-    past D = 256 and on mma.sync at D 192 and 256; the first cut for D %
-    8 != 0 and fp32), and the phase runs K3 and K4 on one CTA at D 192
-    and 256 and on two past 256."""
+    expects (the head-dim-split kernels where TMA maps a bf16 row; the
+    first cut for D % 8 != 0 and fp32), and the phase runs all three on
+    one CTA at D 192 and 256 (K1 also non-causal and with Gemma-2-9B's
+    soft-cap and GQA) and on two past 256."""
     smoke = _chip_smoke()
-    assert {(d, smoke.large_d_rows("bf16", d)["k3"]) for d in (192, 256)} \
-        == {(192, "wgmma_dblk"), (256, "wgmma_dblk")}
-    assert {c[0] for c in smoke.LARGE_D_CASES} >= {"causal_d192",
-                                                   "causal_d256"}
+    assert {(d, key, smoke.large_d_rows("bf16", d)[key])
+            for d in (192, 256) for key in ("k1", "k3", "k4")} \
+        == {(d, key, "wgmma_dblk") for d in (192, 256)
+            for key in ("k1", "k3", "k4")}
+    assert smoke.large_d_rows("bf16", 250)["k1"] == "mma"
+    assert {c[0] for c in smoke.LARGE_D_CASES} >= {
+        "causal_d192", "causal_d256", "noncausal_d256", "gqa_softcap50_d256"}
     for name, tag, d, n, hkv, opts in smoke.LARGE_D_CASES:
         desc = AttentionDescriptor(
             batch=1, num_q_heads=8, num_kv_heads=hkv, seq_len_q=n,
@@ -53,6 +56,8 @@ def test_large_d_phase_expects_the_tables_rows():
             row = launch_row(kd, d, ())
             assert row.kernel == want[key], (name, key)
             assert d <= row.block_d * head_dim_panels(row, d)
+            if row.kernel == "wgmma_dblk":
+                assert (head_dim_panels(row, d) == 1) == (d <= 256)
 
 
 @pytest.mark.parametrize("name, d, want", [
@@ -66,8 +71,19 @@ def test_large_d_phase_expects_the_tables_rows():
     ("flash_fwd", 300, {(64, 32, 256, "mma_dblk"),
                         (64, 64, 128, "mma_dblk")}),
     ("flash_fwd", 256, {(64, 32, 256, "mma"), (128, 64, 128, "wgmma_dblk"),
-                        (128, 64, 192, "wgmma_dblk")}),
-    ("flash_fwd", 192, {(64, 32, 256, "mma"), (128, 64, 128, "wgmma_dblk")}),
+                        (128, 64, 192, "wgmma_dblk"),
+                        (128, 64, 256, "wgmma_dblk"),
+                        (128, 32, 256, "wgmma_dblk")}),
+    ("flash_fwd", 192, {(64, 32, 256, "mma"), (128, 64, 128, "wgmma_dblk"),
+                        (128, 64, 192, "wgmma_dblk"),
+                        (128, 64, 256, "wgmma_dblk"),
+                        (128, 32, 192, "wgmma_dblk"),
+                        (128, 32, 256, "wgmma_dblk")}),
+    ("flash_fwd", 136, {(64, 32, 256, "mma"), (128, 64, 128, "wgmma_dblk"),
+                        (128, 64, 192, "wgmma_dblk"),
+                        (128, 64, 256, "wgmma_dblk"),
+                        (128, 32, 192, "wgmma_dblk"),
+                        (128, 32, 256, "wgmma_dblk")}),
     ("flash_bwd_q", 384, {(64, 32, 256, "mma_dblk"),
                           (64, 64, 128, "mma_dblk"),
                           (128, 32, 192, "wgmma_dblk"),
@@ -95,10 +111,10 @@ def test_large_d_phase_expects_the_tables_rows():
 ])
 def test_sweep_candidates_apply_where_their_kernel_runs(name, d, want):
     """bwd_tuning.dblk_candidates: past D = 256 the D-blocked first cut
-    and the head-dim-split rows that cover D (K1 two CTAs or more, up to
-    dblk_max_panels; K3 and K4 one or two; none for D % 8 != 0); at D 192
-    and 256 the mma rows and those split rows. Each candidate is a
-    compiled row that fits one SM."""
+    and the head-dim-split rows that cover D (one CTA, or clusters up to
+    dblk_max_panels, K1's with 64-wide kv steps only; none for D % 8 !=
+    0); at D 136-256 the mma rows and those split rows. Each candidate is
+    a compiled row that fits one SM."""
     table = params.select_row(params.parameter_table(
         name, params.bf16_table_precision(d)), d)
     got = bwd_tuning.dblk_candidates(name, "bf16", d, table)
@@ -109,7 +125,7 @@ def test_sweep_candidates_apply_where_their_kernel_runs(name, d, want):
         assert params.smem_bytes(name, row, in_bytes) \
             <= params.H100.smem_per_block
         if kernel == "wgmma_dblk":
-            least, most = bwd_tuning.panel_range(name, bd)
+            least, most = bwd_tuning.panel_range(name, bd, bkv)
             assert least <= head_dim_panels(row, d) <= most \
                 <= params.dblk_max_panels(bd)
 
@@ -126,3 +142,26 @@ def test_sweep_covers_the_tables_cluster_rows():
             assert (row.block_q, row.block_kv, row.block_d,
                     row.kernel) in cands
             assert ("bf16", row.max_d, 4096) in bwd_tuning.DBLK_SHAPES
+
+
+@pytest.mark.parametrize("variant", bwd_tuning.K1_SPLIT_VARIANTS,
+                         ids=[v[0] for v in bwd_tuning.K1_SPLIT_VARIANTS])
+def test_sweep_k1_variants_set_and_restore_the_launch(variant):
+    """Each of the sweep's launch variants of K1's one-CTA rows gives the
+    launch its rings and ping-pong (at D 256, block_kv 64: five tiles,
+    the odd one in the V ring by the rule, in the K ring for k_deeper),
+    and leaves the module's settings as they were."""
+    name, most, pingpong, k_deeper = variant
+    row = params.ParameterRow(256, 128, 64, 256, "wgmma_dblk")
+    before = (params.FWD_RING_STAGES, params.FWD_PINGPONG, params.fwd_rings)
+    rule = params.fwd_rings(row)
+    assert rule == (2, 3)
+    with bwd_tuning._k1_launch(variant):
+        rings = params.fwd_rings(row)
+        assert params.FWD_PINGPONG is pingpong
+        assert params.smem_bytes("flash_fwd", row, 2) \
+            <= params.H100.smem_per_block
+    assert (params.FWD_RING_STAGES, params.FWD_PINGPONG,
+            params.fwd_rings) == before
+    want = {"rings2": (2, 2), "k_deeper": (3, 2)}.get(name, rule)
+    assert rings == want

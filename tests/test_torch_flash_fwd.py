@@ -39,6 +39,11 @@ CASES = [
     ("fp32", 384, 160, 96, dict()),
     ("fp32", 512, 128, 160, dict()),
     ("bf16", 384, 128, 128, dict(causal=True)),         # GQA 4 / 2
+    # D 129-256 (one CTA of the head-dim-split kernel on the card):
+    # GQA 4 / 2 causal, R != C, soft-cap 50 with a window.
+    ("bf16", 256, 160, 160, dict(causal=True)),
+    ("bf16", 192, 96, 176, dict()),
+    ("bf16", 256, 128, 128, dict(sliding_window=48, logit_soft_cap=50.0)),
 ]
 
 

@@ -43,17 +43,21 @@ def test_rows_parse_and_fit_one_sm(precision):
         if row.kernel == "wgmma":
             assert row.block_q == 128 and row.block_kv in (64, 128)
             assert row.block_d in (64, 128)
-            assert params.fwd_stages(row) >= 2
+            assert min(params.fwd_rings(row)) >= 2
     if precision == "bf16_mma":
         assert {r.kernel for r in rows} == {"mma", "mma_dblk"}
 
 
-# The rows the parent tree selected at D <= 256 (max_d | block_q |
-# block_kv | block_d | kernel of the row each D fell in).
-PARENT_ROWS = {
+# The rows D <= 256 selects (block_q | block_kv | block_d | kernel of
+# the row each D falls in): bf16 past D = 128 one CTA of the head-dim-split
+# kernel on a 192- or 256-wide panel.
+ROWS_TO_256 = {
     "bf16": {32: (128, 128, 64, "wgmma"), 64: (128, 128, 64, "wgmma"),
              96: (128, 128, 128, "wgmma"), 128: (128, 128, 128, "wgmma"),
-             136: (64, 32, 256, "mma"), 256: (64, 32, 256, "mma")},
+             136: (128, 64, 192, "wgmma_dblk"),
+             192: (128, 64, 192, "wgmma_dblk"),
+             200: (128, 64, 256, "wgmma_dblk"),
+             256: (128, 64, 256, "wgmma_dblk")},
     "bf16_mma": {36: (64, 64, 64, "mma"), 100: (64, 64, 128, "mma"),
                  250: (64, 32, 256, "mma")},
     "fp32": {64: (16, 32, 64, ""), 100: (16, 32, 128, ""),
@@ -74,15 +78,15 @@ def _past_256_kernel(precision, d):
 def test_head_dims_past_256_take_the_d_blocked_rows(precision):
     """D 384, 512 and 1024 (and the tails 300, 320) select a D-blocked
     row whose block_d panel is smaller than D (bf16 up to D = 512: the
-    head-dim-split cluster kernel); every D <= 256 selects the row it
-    selected before."""
+    head-dim-split cluster kernel); every D <= 256 selects the row
+    ROWS_TO_256 names."""
     rows = params.parameter_table("flash_fwd", precision)
     for d in (264, 300, 320, 384, 512, 1024):
         row = params.select_row(rows, d)
         assert row.kernel == _past_256_kernel(precision, d)
         assert row.block_d < d
         assert (row.max_d == 384) == (d <= 384)
-    for d, want in PARENT_ROWS[precision].items():
+    for d, want in ROWS_TO_256[precision].items():
         row = params.select_row(rows, d)
         assert (row.block_q, row.block_kv, row.block_d, row.kernel) == want
 
@@ -140,28 +144,31 @@ def test_decode_keeps_its_own_head_dim_limit(monkeypatch):
 @pytest.mark.parametrize("most, block_kv, stages", [
     (3, 128, 3), (2, 128, 2), (4, 128, 3), (4, 64, 4), (8, 64, 6)])
 def test_smem_reckons_the_launch_code(monkeypatch, most, block_kv, stages):
-    """csrc/flash_fwd.cu's fwd_stages / fwd_layout at D = 128: Q (128 x
-    128 bf16), `stages` K and V tiles (block_kv x 128), 1 + 3 * stages
-    mbarriers and 1024 bytes of alignment slack; as many stages as fit,
-    at most FWD_RING_STAGES."""
+    """csrc/flash_fwd.cu's fwd_layout at D = 128 with the rings
+    params.fwd_rings passes: Q (128 x 128 bf16), `stages` K tiles and
+    `stages` V tiles (block_kv x 128), 1 + 2 mbarriers a tile and 1024
+    bytes of alignment slack; as many tiles as fit, at most
+    FWD_RING_STAGES a ring (an even number fits at D = 128, so the rings
+    are equal)."""
     monkeypatch.setattr(params, "FWD_RING_STAGES", most)
     row = params.ParameterRow(128, 128, block_kv, 128, "wgmma")
-    assert params.fwd_stages(row) == stages
+    assert params.fwd_rings(row) == (stages, stages)
     assert params.flash_fwd_smem_bytes(row, 2) == (
-        32768 + stages * 2 * block_kv * 256 + 8 * (1 + 3 * stages) + 1024)
+        32768 + stages * 2 * block_kv * 256 + 8 * (1 + 4 * stages) + 1024)
     assert params.flash_fwd_smem_bytes(row, 2) <= params.H100.smem_per_block
 
 
 @pytest.mark.parametrize("d, kernel", [
     (32, "wgmma"), (64, "wgmma"), (96, "wgmma"), (128, "wgmma"),
-    (256, "mma"), (36, "mma"), (42, "mma"), (264, "wgmma_dblk"),
+    (256, "wgmma_dblk"), (36, "mma"), (42, "mma"), (264, "wgmma_dblk"),
     (384, "wgmma_dblk"), (512, "wgmma_dblk"), (300, "mma_dblk"),
-    (1024, "mma_dblk")])
+    (1024, "mma_dblk"), (136, "wgmma_dblk"), (192, "wgmma_dblk"),
+    (250, "mma"), (200, "wgmma_dblk")])
 def test_descriptors_dispatch_as_the_source_says(d, kernel):
-    """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernel; D = 256
-    and a D whose rows TMA cannot map (D % 8 != 0) the mma.sync kernel;
-    past D = 256 the cluster kernel up to D = 512 where TMA maps a row,
-    else the D-blocked mma.sync kernel; fp32 the FMA kernels."""
+    """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernel, past it the
+    head-dim-split kernel up to D = 512 (one CTA up to D = 256); a D whose
+    rows TMA cannot map (D % 8 != 0) the mma.sync kernel, D-blocked past
+    D = 256; fp32 the FMA kernels."""
     kd = _kd(d)
     assert kd.kernel == kernel
     assert launch_row(kd, d, ()).kernel == kernel
@@ -230,27 +237,31 @@ def test_wrapper_takes_any_number_of_heads(library, heads):
     ((name, args),) = library.calls
     assert name == "mfa_flash_fwd"
     assert args[5] == heads
-    # (dtype, kernel code, block_q, block_kv, block_d, stages, ping-pong)
-    # before the stream.
-    assert args[-8:-1] == (1, KERNEL_CODES["wgmma"], 128, 128, 64,
-                           params.FWD_RING_STAGES, int(params.FWD_PINGPONG))
+    # (dtype, kernel code, block_q, block_kv, block_d, K and V ring tiles,
+    # ping-pong) before the stream.
+    row = params.ParameterRow(64, 128, 128, 64, "wgmma")
+    assert args[-9:-1] == (1, KERNEL_CODES["wgmma"], 128, 128, 64,
+                           *params.fwd_rings(row), int(params.FWD_PINGPONG))
 
 
 @pytest.mark.parametrize("dtype, o_dtype, d, code", [
     (torch.bfloat16, torch.float32, 128, (2, 1, 128)),
-    (torch.bfloat16, torch.bfloat16, 256, (1, 0, 64)),
-    (torch.float32, torch.float32, 64, (0, 0, 16))])
+    (torch.bfloat16, torch.bfloat16, 256, (1, 3, 128)),
+    (torch.float32, torch.float32, 64, (0, 0, 16)),
+    (torch.bfloat16, torch.float32, 192, (2, 3, 128)),
+    (torch.bfloat16, torch.bfloat16, 250, (1, 0, 64))])
 def test_wrapper_passes_dtype_and_kernel_codes(library, dtype, o_dtype, d,
                                                code):
-    """bf16 with an fp32 O takes dtype code 2 on the wgmma kernel; D = 256
-    the mma.sync kernel; fp32 inputs the FMA kernel."""
+    """bf16 with an fp32 O takes dtype code 2 on the wgmma kernel; D 192
+    and 256 the head-dim-split kernel (code 3), D 250 (rows TMA cannot
+    map) the mma.sync kernel; fp32 inputs the FMA kernel."""
     q3, kv = _meta(4, 32, d, dtype=dtype), _meta(2, 32, d, dtype=dtype)
     kd = _kd(d, bf16=dtype == torch.bfloat16, n=32)
     o, _ = k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
                         o_dtype=o_dtype)
     assert o.dtype == o_dtype
     ((_, args),) = library.calls
-    assert args[-8:-5] == code
+    assert args[-9:-6] == code
 
 
 def test_out_buffers_are_checked_and_written(library):
@@ -284,12 +295,14 @@ def test_cpu_out_buffers_take_the_plain_version():
     (torch.bfloat16, 384, 2), (torch.bfloat16, 300, 3),
     (torch.bfloat16, 1024, 4), (torch.float32, 512, 2),
     (torch.bfloat16, 264, 2), (torch.bfloat16, 320, 2),
-    (torch.bfloat16, 512, 2)])
+    (torch.bfloat16, 512, 2), (torch.bfloat16, 136, 1),
+    (torch.bfloat16, 192, 1), (torch.bfloat16, 256, 1)])
 def test_wrapper_passes_the_d_blocked_launch(library, dtype, d, panels):
-    """Above D = 256 the wrapper launches over ceil(D / block_d) panels:
-    bf16 up to D = 512 where TMA maps a row the cluster kernel (code 3, a
-    CTA of the cluster a panel), else the D-blocked kernel (code 2), for
-    a head dim TMA could map and for one it could not (D % 8 != 0)."""
+    """Past D = 128 the wrapper launches over ceil(D / block_d) panels:
+    bf16 up to D = 512 where TMA maps a row the head-dim-split kernel
+    (code 3: one CTA up to D = 256, past it a CTA of the cluster a
+    panel), else past D = 256 the D-blocked kernel (code 2), for a head
+    dim TMA could map and for one it could not (D % 8 != 0)."""
     q3, kv = _meta(4, 32, d, dtype=dtype), _meta(2, 32, d, dtype=dtype)
     kd = _kd(d, bf16=dtype == torch.bfloat16, n=32)
     o, lse = k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
@@ -297,8 +310,10 @@ def test_wrapper_passes_the_d_blocked_launch(library, dtype, d, panels):
     assert o.shape == (4, 32, d) and lse.shape == (4, 32)
     ((_, args),) = library.calls
     assert args[9:11] == (d, panels)
-    assert args[-8:-4] == (0 if dtype == torch.float32 else 1,
+    assert args[-9:-5] == (0 if dtype == torch.float32 else 1,
                            KERNEL_CODES[kd.kernel], kd.block_q, kd.block_kv)
+    if panels == 1:
+        assert args[-4:-2] == params.fwd_rings(launch_row(kd, d, ()))
     cluster = dtype == torch.bfloat16 and d % 8 == 0 and d <= 512
     assert KERNEL_CODES[kd.kernel] == (3 if cluster else 2)
     assert d <= kd.block_d * panels
@@ -323,16 +338,20 @@ def test_wrapper_counts_its_noncausal_launches(library, opts, noncausal):
 def _cluster_fwd_smem(row):
     """csrc/flash_fwd.cu's fwd_layout of the cluster kernel: Q (128 x
     block_d bf16), the exchange slots (two warpgroups x one slot for each
-    other CTA of the largest cluster, 64 x block_kv fp32), `stages` K and
-    V tiles, 1 + 3 stages + 4 mbarriers and the alignment slack; as many
-    stages as fit, at most FWD_RING_STAGES."""
+    other CTA of the largest cluster, 64 x block_kv fp32), the K and V
+    rings, 1 + 2 mbarriers a tile + 4, and the alignment slack; as many
+    tiles as fit, the V ring taking an odd one, at most FWD_RING_STAGES a
+    ring. Each cluster instance keeps the tiles its ring of K and V
+    stages held: an even number fits."""
     bd, bkv = row.block_d, row.block_kv
     peers = {128: 3, 192: 1, 256: 1}[bd]
     fixed = 128 * bd * 2 + 2 * peers * 64 * bkv * 4
-    stages = min((params.H100.smem_per_block - fixed - 8 - 32 - 1024)
-                 // (2 * bkv * bd * 2 + 24), params.FWD_RING_STAGES)
-    assert params.fwd_stages(row) == stages >= 2
-    return fixed + stages * 2 * bkv * bd * 2 + 8 * (1 + 3 * stages + 4) + 1024
+    tiles = ((params.H100.smem_per_block - fixed - 8 - 32 - 1024)
+             // (bkv * bd * 2 + 16))
+    stages = min(tiles // 2, params.FWD_RING_STAGES)
+    assert tiles % 2 == 0
+    assert params.fwd_rings(row) == (stages, stages) and stages >= 2
+    return fixed + stages * 2 * bkv * bd * 2 + 8 * (1 + 4 * stages + 4) + 1024
 
 
 @pytest.mark.parametrize("block_d, max_panels", [(128, 4), (192, 2),
@@ -353,18 +372,65 @@ def test_cluster_smem_reckons_the_launch_code(block_d, max_panels):
 
 
 def test_cluster_rows_fit_and_cover_their_head_dims():
-    """The bf16 table's cluster rows fit one SM and their clusters cover
-    every head dim they take: ceil(D / block_d) CTAs, 2 to the most the
-    exchange slots hold."""
+    """The bf16 table's head-dim-split rows fit one SM and cover every
+    head dim they take: up to D = 256 one CTA (block_d >= D), past it
+    clusters of ceil(D / block_d) CTAs, 2 to the most the exchange slots
+    hold."""
     rows = params.parameter_table("flash_fwd", "bf16")
-    cluster = [r for r in rows if r.kernel == "wgmma_dblk"]
-    assert [r.max_d for r in cluster] == [384, 512]
-    for row in cluster:
+    split = [r for r in rows if r.kernel == "wgmma_dblk"]
+    assert [r.max_d for r in split] == [192, 256, 384, 512]
+    for row in split:
         assert params.smem_bytes("flash_fwd", row, 2) \
             <= params.H100.smem_per_block
-        assert row.block_q == 128 and row.block_kv == 64
-        assert 2 <= -(-row.max_d // row.block_d) \
-            <= params.dblk_max_panels(row.block_d)
+        assert row.block_q == 128 and row.block_d in (192, 256)
+        panels = -(-row.max_d // row.block_d)
+        assert params.row_panels(row) == panels
+        if row.max_d <= 256:
+            assert panels == 1 and row.block_kv in (32, 64)
+        else:
+            assert row.block_kv == 64
+            assert 2 <= panels <= params.dblk_max_panels(row.block_d)
+
+
+@pytest.mark.parametrize("block_kv, block_d, rings", [
+    (64, 256, (2, 3)), (64, 192, (3, 3)), (32, 256, (3, 3)),
+    (32, 192, (3, 3))])
+def test_one_cta_smem_reckons_the_launch_code(block_kv, block_d, rings):
+    """Every compiled one-CTA instance of the head-dim-split kernel
+    (flash_fwd_wgmma<block_kv, block_d, false>, a plain launch): no
+    exchange slots or their mbarriers; the K and V tiles that fit beside
+    Q, the V ring taking the odd one (3 V + 2 K at D 256), each ring at
+    most FWD_RING_STAGES; Q, the rings, 1 + 2 mbarriers a tile and the
+    alignment slack within the H100's shared memory, as fwd_layout
+    reckons them."""
+    for d in (block_d - 56, block_d):
+        row = params.ParameterRow(d, 128, block_kv, block_d, "wgmma_dblk")
+        assert params.row_panels(row) == 1
+        assert params.exchange_bytes("flash_fwd", row) == 0
+        assert params.fwd_rings(row) == rings
+        tiles = sum(rings)
+        want = (128 * block_d * 2 + tiles * block_kv * block_d * 2
+                + 8 * (1 + 2 * tiles) + 1024)
+        assert params.smem_bytes("flash_fwd", row, 2) == want \
+            <= params.H100.smem_per_block
+        # Every tile that fits is used, up to FWD_RING_STAGES a ring.
+        room = ((params.H100.smem_per_block - want)
+                // (block_kv * block_d * 2 + 16))
+        assert room == 0 or min(rings) == params.FWD_RING_STAGES
+
+
+@pytest.mark.parametrize("most, rings", [(2, (2, 2)), (3, (2, 3)),
+                                         (4, (2, 3))])
+def test_one_cta_rings_at_d256_follow_the_most(monkeypatch, most, rings):
+    """At D 256, block_kv 64 five K/V tiles fit beside Q: FWD_RING_STAGES
+    2 keeps two a ring (the four tiles that paired K and V stages held),
+    3 or more gives the V ring, which the deferred PV holds a step longer,
+    the fifth."""
+    monkeypatch.setattr(params, "FWD_RING_STAGES", most)
+    row = params.ParameterRow(256, 128, 64, 256, "wgmma_dblk")
+    assert params.fwd_rings(row) == rings
+    assert params.smem_bytes("flash_fwd", row, 2) \
+        <= params.H100.smem_per_block
 
 
 @pytest.mark.parametrize("d, block_d, panels", [
@@ -421,4 +487,24 @@ def test_wrapper_moves_a_misaligned_cluster_launch_to_mma_dblk(library):
                  o_dtype=torch.bfloat16, out=out)
     ((_, args),) = library.calls
     assert args[9:11] == (d, 3)
-    assert args[-8:-4] == (1, KERNEL_CODES["mma_dblk"], 64, 64)
+    assert args[-9:-5] == (1, KERNEL_CODES["mma_dblk"], 64, 64)
+
+
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_misaligned_one_cta_operand_takes_the_mma_row(d):
+    """At D 136, 192 and 256 a base TMA cannot map (a view two bytes into
+    its storage) moves the one-CTA row to the bf16_mma table's row of its
+    head dim, the mma.sync kernel; so does D 250 (rows no multiple of 16
+    bytes)."""
+    buf = torch.zeros(2 * 64 * d + 1, dtype=torch.bfloat16)
+    aligned = buf[:-1].view(2, 64, d)
+    shifted = buf[1:].view(2, 64, d)
+    kd = _kd(d)
+    assert launch_row(kd, d, (aligned, aligned)).kernel == "wgmma_dblk"
+    assert head_dim_panels(kd, d) == 1
+    row = launch_row(kd, d, (shifted, aligned))
+    assert row == params.select_row(
+        params.parameter_table("flash_fwd", "bf16_mma"), d)
+    assert (row.kernel, row.block_q, row.block_kv, row.block_d) == (
+        "mma", 64, 32, 256)
+    assert launch_row(_kd(250), 250, ()).kernel == "mma"

@@ -114,12 +114,15 @@ def _k1_check(cuda, q, k, v, kd, kw, dt, o_dtype, want_kernel):
 
 
 def _k1_kernel(dt, d):
-    """The row a K1 launch runs: wgmma for bf16 at D % 8 == 0 and
-    D <= 128, the kept mma.sync kernel for the other bf16 head dims, the
-    FMA kernel for fp32."""
+    """The row a K1 launch runs up to D = 256: wgmma for bf16 at D % 8 ==
+    0 and D <= 128, one CTA of the head-dim-split kernel (wgmma_dblk) past
+    it, the kept mma.sync kernel for the other bf16 head dims, the FMA
+    kernel for fp32."""
     if dt == "fp32":
         return ""
-    return "wgmma" if d % 8 == 0 and d <= 128 else "mma"
+    if d % 8:
+        return "mma"
+    return "wgmma" if d <= 128 else "wgmma_dblk"
 
 
 @pytest.mark.parametrize("case", K1_CASES,
@@ -158,6 +161,19 @@ def test_flash_fwd_misaligned_view_takes_the_mma_row(cuda):
     """A q view two bytes into its storage cannot be mapped by TMA: the
     launch runs the mma.sync row of its head dim, and agrees."""
     q, k, v, kd, kw = _k1_bf16(cuda, 4, 2, 200, 200, 128, 11, causal=True)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    _k1_check(cuda, shifted, k, v, kd, kw, "bf16", torch.bfloat16, "mma")
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_flash_fwd_misaligned_view_past_128_takes_the_mma_row(cuda, d):
+    """Past D = 128 too, a q or O view two bytes into its storage cannot
+    be mapped by TMA: K1 runs the mma.sync row of its head dim in place of
+    the one-CTA head-dim-split row, and agrees."""
+    q, k, v, kd, kw = _k1_bf16(cuda, 4, 2, 300, 300, d, d + 3, causal=True)
+    assert launch_row(kd, d, (q, k, v)).kernel == "wgmma_dblk"
     buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
     shifted = buf[1:].view(q.shape)
     shifted.copy_(q)
@@ -675,14 +691,13 @@ def test_flash_bwd_kernels_take_more_than_65535_heads(cuda):
         assert_close(got, want, atol, key, rtol=rtol)
 
 
-# Head dims past 256, and past 128 for K3 and K4: the head-dim-split
-# kernels (wgmma_dblk) for bf16 up to D = 512 where TMA maps a row (K1
-# past D = 256, K3 and K4 past D = 128: one CTA up to D = 256, clusters of
-# two past it), the rest on the D-blocked rows (mma_dblk, fma_dblk) and
-# K1 on mma.sync at D <= 256: (dtype, D, R, C, Hq, Hkv, options). Panels
-# that divide D, a tail panel (D 160, 264, 320), D % 8 != 0 (no 16-byte
-# loads), causal and not, GQA, R != C, window, soft-cap and keys no query
-# sees (R 512 against C 2048 under a window).
+# Head dims past 128: the head-dim-split kernels (wgmma_dblk) for bf16 up
+# to D = 512 where TMA maps a row (one CTA up to D = 256, clusters of two
+# past it), the rest on the D-blocked rows (mma_dblk, fma_dblk): (dtype,
+# D, R, C, Hq, Hkv, options). Panels that divide D, a tail panel (D 136,
+# 160, 264, 320), D % 8 != 0 (no 16-byte loads), causal and not, GQA, R
+# != C, window, soft-cap and keys no query sees (R 512 against C 2048
+# under a window).
 DBLK_CASES = [
     ("bf16", 384, 300, 300, 4, 2, dict(causal=True)),
     ("bf16", 512, 129, 257, 2, 2, dict()),
@@ -701,7 +716,8 @@ DBLK_CASES = [
                                       logit_soft_cap=30.0)),  # unseen keys
     ("bf16", 320, 130, 260, 4, 2, dict(sliding_window=70,
                                        logit_soft_cap=15.0)),
-    # K3 and K4 on one CTA (D 129-256).
+    # K1, K3 and K4 on one CTA (D 129-256); D 136 is the 192-wide panel's
+    # widest tail, D 256 with Gemma-2-9B's soft-cap 50 and GQA.
     ("bf16", 160, 300, 300, 4, 2, dict(causal=True)),
     ("bf16", 192, 257, 257, 4, 1, dict()),
     ("bf16", 256, 300, 300, 4, 2, dict(causal=True)),
@@ -715,17 +731,20 @@ DBLK_CASES = [
                                         logit_soft_cap=30.0)),  # unseen keys
     ("bf16", 160, 512, 2048, 4, 4, dict(causal=True, sliding_window=300,
                                         logit_soft_cap=10.0)),  # unseen keys
+    ("bf16", 136, 300, 300, 4, 2, dict(causal=True)),
+    ("bf16", 256, 333, 333, 8, 4, dict(causal=True, logit_soft_cap=50.0)),
 ]
 
 
 def _dblk_kernels(dt, d):
     """The rows K1, K3 and K4 run past D = 128: the head-dim-split kernel
-    where TMA maps a bf16 row up to D = 512 (for K1 past D = 256; it runs
-    mma.sync up to 256), else the D-blocked first cut."""
+    where TMA maps a bf16 row up to D = 512, else the first cut (mma.sync
+    up to D = 256, D-blocked past it)."""
     if dt == "fp32":
         return ("fma_dblk",) * 3
-    split = "wgmma_dblk" if d % 8 == 0 and d <= 512 else "mma_dblk"
-    return ("mma" if d <= 256 else split), split, split
+    split = ("wgmma_dblk" if d % 8 == 0 and d <= 512
+             else "mma" if d <= 256 else "mma_dblk")
+    return (split,) * 3
 
 
 @pytest.mark.parametrize("case", DBLK_CASES,
@@ -733,8 +752,8 @@ def _dblk_kernels(dt, d):
                               for c in DBLK_CASES])
 def test_flash_d_blocked_kernels_match_plain(cuda, case):
     """K1, K3 and K4 on their rows past D = 128 (the head-dim-split
-    kernels, the D-blocked first cut, K1's mma.sync row up to D = 256)
-    against their plain versions at KERNEL_BUDGETS, every output written
+    kernels, one CTA up to D = 256; the D-blocked first cut) against
+    their plain versions at KERNEL_BUDGETS, every output written
     (NaN-prefilled), a second launch of each bit-equal, dK = dV = 0 on
     keys no query sees."""
     dt, d, r, c, hq, hkv, opts = case

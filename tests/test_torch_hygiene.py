@@ -337,6 +337,19 @@ def test_cuda_sources_carry_their_notes():
                    for p in (PKG / "csrc").glob("*.cu")), name
 
 
+@pytest.mark.parametrize("name", sorted(build._SIGNATURES))
+def test_c_entries_take_the_arguments_the_wrappers_pass(name):
+    """Each entry's ctypes signature (kernels/build.py) has as many
+    arguments as its C declaration in csrc/: a count that differs would
+    shift every argument after it, and only on the card."""
+    decls = [text[text.index(f'"C" int {name}('):]
+             for text in (p.read_text() for p in (PKG / "csrc").glob("*.cu"))
+             if f'"C" int {name}(' in text]
+    assert len(decls) == 1, name
+    params = decls[0][decls[0].index("(") + 1:decls[0].index(")")]
+    assert params.count(",") + 1 == len(build._SIGNATURES[name]), name
+
+
 def test_chip_smoke_refuses_without_gpu(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
