@@ -25,7 +25,11 @@ phase's failure is caught):
              (Mistral-7B): O, appended rows, scales, and lengths after a
              step. O is held elementwise to
              mfa_tpu_torch.utils.testing.KERNEL_BUDGETS. Each line
-             carries the split-KV launch, as in k5.
+             carries the split-KV launch, as in k5. Then the head dims
+             past 8 * 2^k (HEAD_DIM_CASES: D 80, 96, 100, 250 and 384
+             with G 4, 8, 1, 4, 8) over the four storage types at L 2048,
+             and D 100 under a window of 512: each line with its launch
+             count, bound and (bf16) SDPA's ms and backend.
 5. k5      — unfused decode kernel through its entry point
              ops.decode.decode_attention, after kv_cache.update, against
              the same call with its plain version, for the four storage
@@ -34,12 +38,14 @@ phase's failure is caught):
              line carries the split-KV launch: rows a split R, splits S,
              CTAs a pass and those with live rows. Then K5's output
              bits on fixed inputs (k5_bits) against K5_DIGESTS, those of
-             the K5 before K2 shared its body.
+             the K5 before K2 shared its body. The head-dim cases as in
+             k2, and D 512 (G 1).
 6. k6      — paged decode kernel against its plain version: 8 sequences
              (lengths 0-2048) over a pool with shuffled page ids, pages of
              128 and 512 tokens, the four storage types and a window; bit
              for bit equal to K5 on the same rows, its time beside K5's;
-             the split-KV launch as in k5.
+             the split-KV launch as in k5. The head-dim cases as in k2,
+             on 512-token pages.
 7. k7     — GEMM kernel through its entry point ops.gemm.gemm against
              the same call with its plain version, elementwise: bf16
              4096^3, fp32 1536^3 with C0, the four transpose states and
@@ -164,8 +170,20 @@ phase's failure is caught):
              and kv_quantization_ppl_delta for INT8 and FP8-e4m3 caches
              (batch 2, 256 tokens, max_len 384), held to
              tests/test_aux.py's conditions; K1 and K2 launches counted.
-19. kernels — one JSON line per the port's kernel table, the launches of
-             phases 9-18 added up.
+19. openllama_serving — OpenLLaMA-3B at full width and depth (26
+             layers, width 3200, 32 heads of head dim 100, MHA) from its
+             published fields and random HF-named weights (seed 40): a
+             prefill and one decode step in context (every K1, K2 launch
+             held to its plain version), prefill ms at 512 and 2048, six
+             greedy requests behind the continuous-batching scheduler
+             (4 slots, max_len 2048) over bf16, INT8 and FP8-e4m3 caches
+             (K1 every prefill, on its bf16_mma row; K2 every decode
+             step), then the paged flow of phase 10 over bf16 and INT8
+             (K6 every decode step); decode ms a step, tokens/s, weight
+             and cache GiB.
+20. kernels — one JSON line per the port's kernel table, the launches of
+             phases 9-19 added up; K2, K5 and K6 carry their head-dim
+             rows.
 
 The last line is {"ok": true, "device": {...}}. Run from the repository
 root: ``python3 chip_smoke.py``.
@@ -416,16 +434,215 @@ def _split_shape(torch, n, group, capacity, lens, window=None,
             "live_ctas": live * (n // len(lens)) * chunks}
 
 
-def phase_k2(torch):
+# The decode kernels' head dims past D = 8 * 2^k, each with a GQA group:
+# OpenLLaMA-3B's 100 (MHA), Phi-2's 80 and Phi-3-mini's 96 (kernel cases
+# here), a tail of 250 (rows 2-byte aligned in int8 and fp8) and 384 (two
+# chunks a lane); K5 also 512. (D, G); each over the four storage types
+# at L 2048, and D 100 in bf16 under a window of 512.
+HEAD_DIM_CASES = ((80, 4), (96, 8), (100, 1), (250, 4), (384, 8))
+
+
+def _head_dim_cases(extra=()):
+    """(max_len, name, prec, Hkv, G, window, D) of the head-dim cases."""
+    formats = dict(_kv_formats())
+    cases = [(2048, name, prec, 8, g, None, d)
+             for d, g in HEAD_DIM_CASES + tuple(extra)
+             for name, prec in _kv_formats()]
+    cases.append((2048, "bf16", formats["bf16"], 8, 1, 512, 100))
+    return cases
+
+
+def _attend_fp64(torch, q3, k, v, k_scale, v_scale, live,
+                 magnitudes=False):
+    """K5's one-token decode (K6's over its gathered rows) in fp64 over the
+    live rows, dequantized, nothing rounded; with ``magnitudes`` over |v|:
+    sum P |v| / l, the size of O's terms. q3 [N, G, D] in log2 units, k,
+    v [N, L, D] storage, live [N, L]. A row with no live key gives 0;
+    rows that are not live are never read, whatever they hold (K6's pool
+    poisons its dead pages with NaN)."""
+    kf, vf = k.double(), v.double()
+    if k.dtype != torch.bfloat16:
+        kf = kf * k_scale.double()[..., None]
+        vf = vf * v_scale.double()[..., None]
+    kf, vf = (torch.where(live[..., None], x, 0.0) for x in (kf, vf))
+    if magnitudes:
+        vf = vf.abs()
+    s = torch.einsum("bgd,bld->bgl", q3.double(), kf)
+    s = torch.where(live[:, None, :], s, -1e300)
+    p = torch.where(live[:, None, :],
+                    torch.exp2(s - s.amax(-1, keepdim=True)), 0.0)
+    return (torch.einsum("bgl,bld->bgd", p, vf)
+            / p.sum(-1, keepdim=True).clamp_min(1e-300))
+
+
+def _held_by_terms(torch, o_k, o_p, exact, terms, budget) -> dict:
+    """How the head-dim cases hold a decode kernel: O against its plain
+    version at ``budget`` with the relative term taken of sum P |v| / l
+    (``terms``), and the kernel no more than one bf16 step of it further
+    from fp64 than the plain version anywhere (``excess_steps``), as
+    _in_context holds K2. Against |O| alone a case fails where O cancels
+    to near 0 from large terms and one P v term rounds to the other side
+    in the kernel's order of S than in the plain version's (D 512, G 1:
+    0.0009766 at |O| 0.04, the kernel and its plain version equally far
+    from fp64); that share is reported as share_of_abs_o."""
+    from mfa_tpu_torch.utils.testing import budget_share, rounding_steps
+
+    steps_k, steps_p = (rounding_steps(o, exact, terms, budget[0])
+                        for o in (o_k, o_p))
+    return {"share_o": budget_share(o_k, o_p, *budget, scale=terms),
+            "share_of_abs_o": budget_share(o_k, o_p, *budget),
+            "steps_from_fp64": float(steps_k.max()),
+            "plain_steps_from_fp64": float(steps_p.max()),
+            "excess_steps": float((steps_k - steps_p).max())}
+
+
+def _sdpa_ms(torch, q, k, v, lengths, window, scale):
+    """Yardstick only: ms of one SDPA call over a bf16 cache k, v [B, Hkv,
+    L, D] with q [B, Hq, D] and the live columns as a boolean mask, and
+    the backend that ran."""
+    import torch.nn.functional as F
+
+    from mfa_tpu_torch.utils import roofline
+
+    col = torch.arange(k.shape[2], device="cuda")
+    lt = lengths.long()[:, None]
+    mask = col < lt
+    if window:
+        mask &= col >= (lt - window).clamp_min(0)
+    qs = q[:, :, None, :]
+
+    def run():
+        return F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask[:, None, None, :], scale=scale,
+            enable_gqa=True)
+
+    return roofline.cuda_ms(run, iters=20), _sdpa_backend(torch, run)
+
+
+def _k2_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
+    """K2 against its plain version on one cache shape: O, appended rows,
+    scales and lengths after a step; ms, plain ms, bound. Returns (key,
+    kernel-table row)."""
     from mfa_tpu_torch.kernels import decode as k2
     from mfa_tpu_torch.ops.decode import decode_attention_append
     from mfa_tpu_torch.serving import kv_cache
     from mfa_tpu_torch.utils import roofline
-    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+    from mfa_tpu_torch.utils.testing import (
+        KERNEL_BUDGETS,
+        budget_share,
+        decode_fp64,
+    )
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    b, d = 4, 128
+    b = 4
     budget = KERNEL_BUDGETS["decode_o"]
+    bh = b * hkv
+    cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
+    fill = torch.randn((b, hkv, max_len, d), generator=gen, device="cuda")
+    kv_cache.update(cache, fill, torch.randn(
+        (b, hkv, max_len, d), generator=gen, device="cuda"))
+    lens = [0, 777, max_len - 1, max_len]
+    cache.lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q3 = (torch.randn((bh, g, d), generator=gen, device="cuda")
+          * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+    kn = (torch.randn((bh, d), generator=gen, device="cuda") * 0.5
+          ).bfloat16()
+    vn = (torch.randn((bh, d), generator=gen, device="cuda") * 0.5
+          ).bfloat16()
+    kw = dict(num_kv_heads=hkv, sliding_window=window)
+
+    def views(c):
+        return (c.k.view(bh, max_len, d), c.v.view(bh, max_len, d),
+                c.k_scale.view(bh, max_len), c.v_scale.view(bh, max_len))
+
+    plain_cache = kv_cache.KVCache(
+        cache.k.clone(), cache.v.clone(), cache.k_scale.clone(),
+        cache.v_scale.clone(), cache.lengths.clone(), prec)
+    n2 = k2.decode_fused_append.launches
+    o_k = k2.decode_fused_append(q3, *views(cache), kn, vn, cache.lengths,
+                                 **kw)
+    torch.cuda.synchronize()
+    n2 = k2.decode_fused_append.launches - n2
+    o_p = k2.decode_fused_append_plain(
+        q3, *views(plain_cache), kn, vn, plain_cache.lengths, **kw)
+    err = max_err(o_k, o_p)
+    share = budget_share(o_k, o_p, *budget)
+    held = {}
+    if d != 128:
+        exact, terms = (decode_fp64(q3, *views(plain_cache), kn, vn,
+                                    plain_cache.lengths, magnitudes=mag,
+                                    **kw) for mag in (False, True))
+        held = _held_by_terms(torch, o_k, o_p, exact, terms, budget)
+        share = held["share_o"]
+    o_rms = float(o_p.float().square().mean().sqrt())
+    same_rows = all(torch.equal(_bits(torch, getattr(cache, f)),
+                                _bits(torch, getattr(plain_cache, f)))
+                    for f in ("k", "v"))
+    scale_err = max(
+        float(((getattr(cache, f) - getattr(plain_cache, f)).abs()
+               / getattr(plain_cache, f).abs()).max())
+        for f in ("k_scale", "v_scale"))
+    ms = roofline.cuda_ms(lambda: k2.decode_fused_append(
+        q3, *views(cache), kn, vn, cache.lengths, **kw), iters=50)
+    plain_ms = roofline.cuda_ms(lambda: k2.decode_fused_append_plain(
+        q3, *views(plain_cache), kn, vn, plain_cache.lengths, **kw),
+        iters=5, warmup=1)
+    # Lengths after a step through the entry point: each advances by
+    # one, capped at max_len.
+    decode_attention_append(
+        q3.reshape(b, hkv * g, d), kn.view(b, hkv, d),
+        vn.view(b, hkv, d), cache, sliding_window=window, device="cuda")
+    lengths_after = cache.lengths.tolist()
+    lengths_ok = lengths_after == [min(x + 1, max_len) for x in lens]
+    ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
+          and held.get("excess_steps", 0) <= 1 and same_rows
+          and scale_err <= 1e-6 and lengths_ok and n2 == 1)
+    # Bytes K2 must move for these lengths: the live K and V rows (with
+    # their scales for a quantized cache; a bf16 cache's scales are
+    # never read; a window of W keeps W - 1 cached rows), q, k_new,
+    # v_new, O, and the appended rows.
+    live = sum(min(x, max_len, (window or max_len + 1) - 1)
+               for x in lens) * hkv
+    itemsize = cache.k.element_size()
+    row_bytes = d * itemsize + (4 if itemsize == 1 else 0)
+    appended = sum(1 for x in lens if x < max_len) * hkv
+    nbytes = (2 * live * row_bytes + 2 * bh * g * d * 2
+              + 2 * bh * d * 2 + 2 * appended * row_bytes)
+    bound_ms, bound_by = roofline.bound(4 * g * d * (live + bh), nbytes)
+    sdpa = {}
+    if d != 128 and name == "bf16":
+        # Yardstick only (attention over the cached rows, no append).
+        lens_t = torch.tensor(lens, device="cuda")
+        sdpa_ms, backend = _sdpa_ms(torch, q3.reshape(b, hkv * g, d),
+                                    plain_cache.k, plain_cache.v, lens_t,
+                                    window, 1.0)
+        sdpa = {"sdpa_ms": sdpa_ms, "sdpa_backend": backend}
+    key = ((f"D{d}_" if d != 128 else "") + f"{name}_L{max_len}"
+           + (f"_G{g}" if g != 4 else "") + (f"_w{window}" if window else ""))
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    emit({"phase": "k2", "case": key, "D": d, "Hkv": hkv, "G": g,
+          "window": window, "lengths": lens, "err_o": err,
+          "o_rms": o_rms, "budget_o": budget, "share_o": share, **held,
+          "appended_rows_equal": same_rows,
+          "lengths_after": lengths_after, "scale_rel_err": scale_err,
+          "launches": n2, "ok": ok, **sdpa,
+          **_split_shape(torch, bh, g, max_len, lens, window, fused=True),
+          **{k_: v_ for k_, v_ in row.items() if k_ != "max_abs_err"}})
+    if not ok:
+        raise SystemExit(f"k2 {key}: kernel disagrees with its plain "
+                         f"version (O uses {share} of |d| <= "
+                         f"{budget[0]} + {budget[1]}|O|, rows equal "
+                         f"{same_rows}, scale err {scale_err}, "
+                         f"lengths after {lengths_after}, launches {n2}, "
+                         f"against fp64 {held})")
+    return key, row
+
+
+def phase_k2(torch):
+    """K2 at Llama-3-8B's, Qwen2-7B's and Mistral-7B's decode shapes (D
+    128), then at HEAD_DIM_CASES. Returns (the kernel-table row, the
+    head-dim rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
     # (max_len, format, Hkv, G, window): Llama-3-8B's heads (Hkv 8, G 4)
     # over each format, then a group of 16 (two query chunks) under a
     # sliding window, Qwen2-7B's heads (Hkv 4, G 7: each chunk of 8 rows
@@ -438,93 +655,14 @@ def phase_k2(torch):
               for name in ("bf16", "fp8_e4m3")]
     cases.append((8192, "bf16", formats["bf16"], 8, 4, 4096))
     results = {}
-    for max_len, name, prec, hkv, g, window in cases:
-        bh = b * hkv
-        cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
-        fill = torch.randn((b, hkv, max_len, d), generator=gen,
-                           device="cuda")
-        kv_cache.update(cache, fill, torch.randn(
-            (b, hkv, max_len, d), generator=gen, device="cuda"))
-        lens = [0, 777, max_len - 1, max_len]
-        cache.lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        q3 = (torch.randn((bh, g, d), generator=gen, device="cuda")
-              * (math.log2(math.e) / math.sqrt(d))).bfloat16()
-        kn = (torch.randn((bh, d), generator=gen, device="cuda") * 0.5
-              ).bfloat16()
-        vn = (torch.randn((bh, d), generator=gen, device="cuda") * 0.5
-              ).bfloat16()
-        kw = dict(num_kv_heads=hkv, sliding_window=window)
-
-        def views(c, bh=bh, max_len=max_len):
-            return (c.k.view(bh, max_len, d), c.v.view(bh, max_len, d),
-                    c.k_scale.view(bh, max_len), c.v_scale.view(bh, max_len))
-
-        plain_cache = kv_cache.KVCache(
-            cache.k.clone(), cache.v.clone(), cache.k_scale.clone(),
-            cache.v_scale.clone(), cache.lengths.clone(), prec)
-        o_k = k2.decode_fused_append(q3, *views(cache), kn, vn,
-                                     cache.lengths, **kw)
-        torch.cuda.synchronize()
-        o_p = k2.decode_fused_append_plain(
-            q3, *views(plain_cache), kn, vn, plain_cache.lengths, **kw)
-        err = max_err(o_k, o_p)
-        share = budget_share(o_k, o_p, *budget)
-        o_rms = float(o_p.float().square().mean().sqrt())
-        same_rows = all(torch.equal(_bits(torch, getattr(cache, f)),
-                                    _bits(torch, getattr(plain_cache, f)))
-                        for f in ("k", "v"))
-        scale_err = max(
-            float(((getattr(cache, f) - getattr(plain_cache, f)).abs()
-                   / getattr(plain_cache, f).abs()).max())
-            for f in ("k_scale", "v_scale"))
-        ms = roofline.cuda_ms(lambda: k2.decode_fused_append(
-            q3, *views(cache), kn, vn, cache.lengths, **kw), iters=50)
-        plain_ms = roofline.cuda_ms(lambda: k2.decode_fused_append_plain(
-            q3, *views(plain_cache), kn, vn, plain_cache.lengths, **kw),
-            iters=5, warmup=1)
-        # Lengths after a step through the entry point: each advances by
-        # one, capped at max_len.
-        decode_attention_append(
-            q3.reshape(b, hkv * g, d), kn.view(b, hkv, d),
-            vn.view(b, hkv, d), cache, sliding_window=window, device="cuda")
-        lengths_after = cache.lengths.tolist()
-        lengths_ok = lengths_after == [min(x + 1, max_len) for x in lens]
-        ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
-              and same_rows and scale_err <= 1e-6 and lengths_ok)
-        # Bytes K2 must move for these lengths: the live K and V rows (with
-        # their scales for a quantized cache; a bf16 cache's scales are
-        # never read; a window of W keeps W - 1 cached rows), q, k_new,
-        # v_new, O, and the appended rows.
-        live = sum(min(x, max_len, (window or max_len + 1) - 1)
-                   for x in lens) * hkv
-        itemsize = cache.k.element_size()
-        row_bytes = d * itemsize + (4 if itemsize == 1 else 0)
-        appended = sum(1 for x in lens if x < max_len) * hkv
-        nbytes = (2 * live * row_bytes + 2 * bh * g * d * 2
-                  + 2 * bh * d * 2 + 2 * appended * row_bytes)
-        bound_ms, bound_by = roofline.bound(4 * g * d * (live + bh), nbytes)
-        key = (f"{name}_L{max_len}" + (f"_G{g}" if g != 4 else "")
-               + (f"_w{window}" if window else ""))
-        results[key] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None)
-        emit({"phase": "k2", "case": key, "Hkv": hkv, "G": g,
-              "window": window, "lengths": lens, "err_o": err,
-              "o_rms": o_rms, "budget_o": budget, "share_o": share,
-              "appended_rows_equal": same_rows,
-              "lengths_after": lengths_after, "scale_rel_err": scale_err,
-              "ok": ok,
-              **_split_shape(torch, bh, g, max_len, lens, window, fused=True),
-              **{k_: v_ for k_, v_ in results[key].items()
-                 if k_ != "max_abs_err"}})
-        if not ok:
-            raise SystemExit(f"k2 {key}: kernel disagrees with its plain "
-                             f"version (O uses {share} of |d| <= "
-                             f"{budget[0]} + {budget[1]}|O|, rows equal "
-                             f"{same_rows}, scale err {scale_err}, "
-                             f"lengths after {lengths_after})")
-        del cache, plain_cache, fill
-    return results["bf16_L2048"]
+    for case in cases:
+        key, row = _k2_case(torch, gen, *case)
+        results[key] = row
+    head_dims = {}
+    for case in _head_dim_cases():
+        key, row = _k2_case(torch, gen, *case)
+        head_dims[key] = row
+    return results["bf16_L2048"], head_dims
 
 
 # K5's output bits on the fixed inputs of k5_bits, as K5 gave them on an
@@ -596,12 +734,11 @@ def k5_bits(torch) -> dict:
     return digests
 
 
-def phase_k5(torch):
-    """K5 through its entry point, against the same call with the plain
-    version swapped in. Returns (kernel-table row, launches through the
-    entry point)."""
-    import torch.nn.functional as F
-
+def _k5_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
+    """K5 through its entry point, decode_attention, against the same call
+    with its plain version swapped in (B 4, lengths 0, 777, L - 1, L);
+    ms, plain ms, bound and (bf16) SDPA's ms. Returns (key, kernel-table
+    row, launches through the entry point)."""
     from mfa_tpu_torch.kernels import decode as k5
     from mfa_tpu_torch.kernels.flash_fwd import LOG2E
     from mfa_tpu_torch.ops.decode import decode_attention
@@ -609,79 +746,93 @@ def phase_k5(torch):
     from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    b, hkv, g, d = 4, 8, 4, 128
+    b = 4
     bh, scale = b * hkv, 1.0 / math.sqrt(d)
     budget = KERNEL_BUDGETS["decode_attend_o"]
-    cases = [(max_len, name, prec, None) for max_len in (2048, 8192)
+    cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
+    kv_cache.update(cache, *torch.randn((2, b, hkv, max_len, d),
+                                        generator=gen, device="cuda"))
+    lens = [0, 777, max_len - 1, max_len]
+    cache.lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, hkv * g, d), generator=gen,
+                    device="cuda").bfloat16()
+    torch.cuda.synchronize()
+    k5.decode_attend.launches = 0
+    o_k = decode_attention(q, cache, sliding_window=window)
+    torch.cuda.synchronize()
+    n5 = k5.decode_attend.launches
+    with plain_kernels():
+        o_p = decode_attention(q, cache, sliding_window=window)
+    err = max_err(o_k, o_p)
+    share = budget_share(o_k, o_p, *budget)
+    q3 = (q.float() * (scale * LOG2E)).bfloat16().reshape(bh, g, d)
+    args = (cache.k.view(bh, max_len, d), cache.v.view(bh, max_len, d),
+            cache.k_scale.view(bh, max_len),
+            cache.v_scale.view(bh, max_len), cache.lengths)
+    kw = dict(num_kv_heads=hkv, sliding_window=window)
+    held = {}
+    if d != 128:
+        live = k5.live_rows(cache.lengths, max_len, hkv, window)
+        exact, terms = (_attend_fp64(torch, q3, *args[:4], live, mag)
+                        for mag in (False, True))
+        held = _held_by_terms(torch, o_k.reshape(bh, g, d),
+                              o_p.reshape(bh, g, d), exact, terms, budget)
+        share = held["share_o"]
+    o_rms = float(o_p.float().square().mean().sqrt())
+    empty_zero = not bool(o_k[0].any())        # length 0 gives zeros
+    ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
+          and held.get("excess_steps", 0) <= 1 and n5 == 1 and empty_zero)
+    ms = roofline.cuda_ms(lambda: k5.decode_attend(q3, *args, **kw),
+                          iters=50)
+    plain_ms = roofline.cuda_ms(lambda: k5.decode_attend_plain(
+        q3, *args, **kw), iters=5, warmup=1)
+    live = sum(min(x, window or x) for x in lens) * hkv
+    bound_ms, bound_by = roofline.bound(
+        4 * g * d * live, _decode_bytes(live, cache.k.dtype, d, bh * g))
+    library_ms, sdpa = None, {}
+    if name == "bf16":
+        # Yardstick only: one SDPA call over the same cache, with the
+        # live columns as a boolean mask.
+        library_ms, backend = _sdpa_ms(torch, q, cache.k, cache.v,
+                                       cache.lengths, window, scale)
+        sdpa = {"sdpa_backend": backend}
+    key = ((f"D{d}_" if d != 128 else "") + f"{name}_L{max_len}"
+           + (f"_G{g}" if g != 4 else "") + (f"_w{window}" if window else ""))
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    emit({"phase": "k5", "case": key, "D": d, "G": g, "lengths": lens,
+          "err_o": err, "o_rms": o_rms, "budget_o": budget,
+          "share_o": share, **held, "launches": n5,
+          "empty_slot_zero": empty_zero,
+          "ok": ok, **sdpa,
+          **_split_shape(torch, bh, g, max_len, lens, window),
+          **{k_: v_ for k_, v_ in row.items() if k_ != "max_abs_err"}})
+    if not ok:
+        raise SystemExit(f"k5 {key}: kernel disagrees with its plain "
+                         f"version (O uses {share} of |d| <= "
+                         f"{budget[0]} + {budget[1]}|O|, launches {n5}, "
+                         f"empty slot zero {empty_zero}, against fp64 "
+                         f"{held})")
+    return key, row, n5
+
+
+def phase_k5(torch):
+    """K5 through its entry point, against the same call with the plain
+    version swapped in: Llama-3-8B's heads (D 128), then HEAD_DIM_CASES and
+    D 512. Returns (kernel-table row, head-dim rows, launches through the
+    entry point)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(max_len, name, prec, 8, 4, None) for max_len in (2048, 8192)
              for name, prec in _kv_formats()]
-    cases.append((2048, "bf16", dict(_kv_formats())["bf16"], 512))
-    results, launches = {}, 0
-    for max_len, name, prec, window in cases:
-        cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
-        kv_cache.update(cache, *torch.randn((2, b, hkv, max_len, d),
-                                            generator=gen, device="cuda"))
-        lens = [0, 777, max_len - 1, max_len]
-        cache.lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        q = torch.randn((b, hkv * g, d), generator=gen,
-                        device="cuda").bfloat16()
-        torch.cuda.synchronize()
-        k5.decode_attend.launches = 0
-        o_k = decode_attention(q, cache, sliding_window=window)
-        torch.cuda.synchronize()
-        n5 = k5.decode_attend.launches
+    cases.append((2048, "bf16", dict(_kv_formats())["bf16"], 8, 4, 512))
+    results, head_dims, launches = {}, {}, 0
+    for case in cases:
+        key, results[key], n5 = _k5_case(torch, gen, *case)
         launches += n5
-        with plain_kernels():
-            o_p = decode_attention(q, cache, sliding_window=window)
-        err = max_err(o_k, o_p)
-        share = budget_share(o_k, o_p, *budget)
-        o_rms = float(o_p.float().square().mean().sqrt())
-        empty_zero = not bool(o_k[0].any())        # length 0 gives zeros
-        ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
-              and n5 == 1 and empty_zero)
-        q3 = (q.float() * (scale * LOG2E)).bfloat16().reshape(bh, g, d)
-        args = (cache.k.view(bh, max_len, d), cache.v.view(bh, max_len, d),
-                cache.k_scale.view(bh, max_len),
-                cache.v_scale.view(bh, max_len), cache.lengths)
-        kw = dict(num_kv_heads=hkv, sliding_window=window)
-        ms = roofline.cuda_ms(lambda: k5.decode_attend(q3, *args, **kw),
-                     iters=50)
-        plain_ms = roofline.cuda_ms(lambda: k5.decode_attend_plain(
-            q3, *args, **kw), iters=5, warmup=1)
-        live = sum(min(x, window or x) for x in lens) * hkv
-        bound_ms, bound_by = roofline.bound(
-            4 * g * d * live, _decode_bytes(live, cache.k.dtype, d, bh * g))
-        library_ms = None
-        if name == "bf16":
-            # Yardstick only: one SDPA call over the same cache, with the
-            # live columns as a boolean mask.
-            col = torch.arange(max_len, device="cuda")
-            lt = cache.lengths.long()[:, None]
-            mask = col < lt
-            if window:
-                mask &= col >= (lt - window).clamp_min(0)
-            qs = q[:, :, None, :]
-            library_ms = roofline.cuda_ms(
-                lambda: F.scaled_dot_product_attention(
-                qs, cache.k, cache.v, attn_mask=mask[:, None, None, :],
-                scale=scale, enable_gqa=True), iters=20)
-        key = f"{name}_L{max_len}" + (f"_w{window}" if window else "")
-        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms)
-        emit({"phase": "k5", "case": key, "lengths": lens, "err_o": err,
-              "o_rms": o_rms, "budget_o": budget, "share_o": share,
-              "launches": n5, "empty_slot_zero": empty_zero, "ok": ok,
-              **_split_shape(torch, bh, g, max_len, lens, window),
-              **{k_: v_ for k_, v_ in results[key].items()
-                 if k_ != "max_abs_err"}})
-        if not ok:
-            raise SystemExit(f"k5 {key}: kernel disagrees with its plain "
-                             f"version (O uses {share} of |d| <= "
-                             f"{budget[0]} + {budget[1]}|O|, launches {n5}, "
-                             f"empty slot zero {empty_zero})")
-        del cache, o_k, o_p
+    for case in _head_dim_cases(extra=((512, 1),)):
+        key, head_dims[key], n5 = _k5_case(torch, gen, *case)
+        launches += n5
     digests = k5_bits(torch)
     same = digests == K5_DIGESTS
     emit({"phase": "k5_bits", "digests": digests, "as_recorded": same})
@@ -690,12 +841,14 @@ def phase_k5(torch):
                          "split-KV body K2, K5 and K6 share changed them)")
     emit({"phase": "k5_done", "seconds": time.perf_counter() - t0,
           "launches": launches})
-    return results["bf16_L2048"], launches
+    return results["bf16_L2048"], head_dims, launches
 
 
-def phase_k6(torch):
-    """K6 against its plain version, and against K5 on the same rows.
-    Returns the kernel-table row at 512-token pages (the serving path's)."""
+def _k6_case(torch, gen, ps, name, prec, window, g=4, d=128):
+    """K6 against its plain version and against K5 on the same rows (8
+    sequences of 0-2048 tokens, Hkv 8, a pool with shuffled page ids);
+    ms beside K5's, plain ms, bound and (bf16) SDPA's ms over the same
+    rows. Returns (key, kernel-table row)."""
     from mfa_tpu_torch.kernels import decode as k5
     from mfa_tpu_torch.kernels import paged_decode as k6
     from mfa_tpu_torch.utils import roofline
@@ -705,72 +858,98 @@ def phase_k6(torch):
         shuffled_page_pool,
     )
 
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    s, hkv, g, d, max_len = 8, 8, 4, 128, 2048
+    s, hkv, max_len = 8, 8, 2048
     lens = [0, 1, 511, 512, 513, 777, 2047, 2048]
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     budget = KERNEL_BUDGETS["paged_decode_o"]
-    results = {}
+    max_pages = max_len // ps
+    operands = (*shuffled_page_pool(prec.dtype, lens, hkv, d, ps,
+                                    max_pages, generator=gen,
+                                    device="cuda"), lengths)
+    q3 = (torch.randn((s * hkv, g, d), generator=gen, device="cuda")
+          * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+    n6 = k6.paged_decode.launches
+    o_k = k6.paged_decode(q3, *operands, sliding_window=window)
+    torch.cuda.synchronize()
+    n6 = k6.paged_decode.launches - n6
+    o_p = k6.paged_decode_plain(q3, *operands, sliding_window=window)
+    err = max_err(o_k, o_p)
+    share = budget_share(o_k, o_p, *budget)
+    o_rms = float(o_p.float().square().mean().sqrt())
+    # K5 over the same rows gathered into a contiguous cache.
+    rows = [k6.gather_rows(t, operands[4]).contiguous()
+            for t in operands[:4]]
+    held = {}
+    if d != 128:
+        live = k5.live_rows(lengths, max_pages * ps, hkv, window)
+        exact, terms = (_attend_fp64(torch, q3, *rows, live, mag)
+                        for mag in (False, True))
+        held = _held_by_terms(torch, o_k, o_p, exact, terms, budget)
+        share = held["share_o"]
+    o_c = k5.decode_attend(q3, *rows, lengths, num_kv_heads=hkv,
+                           sliding_window=window)
+    same_as_k5 = bool(torch.equal(o_k, o_c))
+    empty_zero = not bool(o_k[:hkv].any())    # length 0 gives zeros
+    ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
+          and held.get("excess_steps", 0) <= 1 and same_as_k5
+          and empty_zero and n6 == 1)
+    ms = roofline.cuda_ms(lambda: k6.paged_decode(
+        q3, *operands, sliding_window=window), iters=50)
+    k5_ms = roofline.cuda_ms(lambda: k5.decode_attend(
+        q3, *rows, lengths, num_kv_heads=hkv,
+        sliding_window=window), iters=50)
+    plain_ms = roofline.cuda_ms(lambda: k6.paged_decode_plain(
+        q3, *operands, sliding_window=window), iters=5, warmup=1)
+    live = sum(min(x, window or x) for x in lens) * hkv
+    nbytes = (_decode_bytes(live, prec.dtype, d, s * hkv * g)
+              + 4 * (s * max_pages + s))
+    bound_ms, bound_by = roofline.bound(4 * g * d * live, nbytes)
+    sdpa = {}
+    if d != 128 and name == "bf16":
+        # Yardstick only: SDPA over the same rows made contiguous.
+        sdpa_ms, backend = _sdpa_ms(
+            torch, q3.reshape(s, hkv * g, d), rows[0].view(s, hkv, -1, d),
+            rows[1].view(s, hkv, -1, d), lengths, window, 1.0)
+        sdpa = {"sdpa_ms": sdpa_ms, "sdpa_backend": backend}
+    key = ((f"D{d}_" if d != 128 else "") + f"{name}_page{ps}"
+           + (f"_G{g}" if g != 4 else "") + (f"_w{window}" if window else ""))
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    emit({"phase": "k6", "case": key, "D": d, "G": g, "lengths": lens,
+          "err_o": err, "o_rms": o_rms, "budget_o": budget,
+          "share_o": share, **held, "equal_to_k5": same_as_k5,
+          "k5_ms_same_rows": k5_ms, "paged_over_contiguous": ms / k5_ms,
+          "launches": n6, "empty_slot_zero": empty_zero, "ok": ok, **sdpa,
+          **_split_shape(torch, s * hkv, g, max_len, lens, window),
+          **{k_: v_ for k_, v_ in row.items() if k_ != "max_abs_err"}})
+    if not ok:
+        raise SystemExit(f"k6 {key}: kernel disagrees with its plain "
+                         f"version (O uses {share} of |d| <= "
+                         f"{budget[0]} + {budget[1]}|O|, equal to "
+                         f"K5 {same_as_k5}, empty slot zero "
+                         f"{empty_zero}, launches {n6}, against fp64 "
+                         f"{held})")
+    return key, row
+
+
+def phase_k6(torch):
+    """K6 against its plain version, and against K5 on the same rows, at
+    pages of 128 and 512 tokens (D 128), then at HEAD_DIM_CASES on 512.
+    Returns (the kernel-table row at 512-token pages, the serving path's;
+    the head-dim rows)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    results, head_dims = {}, {}
     for ps in (128, 512):
-        max_pages = max_len // ps
         cases = [(name, prec, None) for name, prec in _kv_formats()]
         cases.append(("bf16", dict(_kv_formats())["bf16"], 512))
         for name, prec, window in cases:
-            operands = (*shuffled_page_pool(prec.dtype, lens, hkv, d, ps,
-                                            max_pages, generator=gen,
-                                            device="cuda"), lengths)
-            q3 = (torch.randn((s * hkv, g, d), generator=gen, device="cuda")
-                  * (math.log2(math.e) / math.sqrt(d))).bfloat16()
-            n6 = k6.paged_decode.launches
-            o_k = k6.paged_decode(q3, *operands, sliding_window=window)
-            torch.cuda.synchronize()
-            n6 = k6.paged_decode.launches - n6
-            o_p = k6.paged_decode_plain(q3, *operands, sliding_window=window)
-            err = max_err(o_k, o_p)
-            share = budget_share(o_k, o_p, *budget)
-            o_rms = float(o_p.float().square().mean().sqrt())
-            # K5 over the same rows gathered into a contiguous cache.
-            rows = [k6.gather_rows(t, operands[4]).contiguous()
-                    for t in operands[:4]]
-            o_c = k5.decode_attend(q3, *rows, lengths, num_kv_heads=hkv,
-                                   sliding_window=window)
-            same_as_k5 = bool(torch.equal(o_k, o_c))
-            empty_zero = not bool(o_k[:hkv].any())    # length 0 gives zeros
-            ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
-                  and same_as_k5 and empty_zero and n6 == 1)
-            ms = roofline.cuda_ms(lambda: k6.paged_decode(
-                q3, *operands, sliding_window=window), iters=50)
-            k5_ms = roofline.cuda_ms(lambda: k5.decode_attend(
-                q3, *rows, lengths, num_kv_heads=hkv,
-                sliding_window=window), iters=50)
-            plain_ms = roofline.cuda_ms(lambda: k6.paged_decode_plain(
-                q3, *operands, sliding_window=window), iters=5, warmup=1)
-            live = sum(min(x, window or x) for x in lens) * hkv
-            nbytes = (_decode_bytes(live, prec.dtype, d, s * hkv * g)
-                      + 4 * (s * max_pages + s))
-            bound_ms, bound_by = roofline.bound(4 * g * d * live, nbytes)
-            key = f"{name}_page{ps}" + (f"_w{window}" if window else "")
-            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by,
-                                library_ms=None)
-            emit({"phase": "k6", "case": key, "lengths": lens, "err_o": err,
-                  "o_rms": o_rms, "budget_o": budget, "share_o": share,
-                  "equal_to_k5": same_as_k5, "k5_ms_same_rows": k5_ms,
-                  "paged_over_contiguous": ms / k5_ms, "launches": n6,
-                  "empty_slot_zero": empty_zero, "ok": ok,
-                  **_split_shape(torch, s * hkv, g, max_len, lens, window),
-                  **{k_: v_ for k_, v_ in results[key].items()
-                     if k_ != "max_abs_err"}})
-            if not ok:
-                raise SystemExit(f"k6 {key}: kernel disagrees with its plain "
-                                 f"version (O uses {share} of |d| <= "
-                                 f"{budget[0]} + {budget[1]}|O|, equal to "
-                                 f"K5 {same_as_k5}, empty slot zero "
-                                 f"{empty_zero}, launches {n6})")
-            del operands, rows, o_k, o_p, o_c
+            key, results[key] = _k6_case(torch, gen, ps, name, prec, window)
+    for _, name, prec, _, g, window, d in _head_dim_cases():
+        key, head_dims[key] = _k6_case(torch, gen, 512, name, prec, window,
+                                       g, d)
     emit({"phase": "k6_done", "seconds": time.perf_counter() - t0})
-    return results["bf16_page512"]
+    return results["bf16_page512"], head_dims
 
 
 def phase_k7(torch):
@@ -1078,9 +1257,11 @@ def phase_serving(torch):
 PAGED_POOL_PAGES = 10
 
 
-def phase_paged_serving(torch, model, prompts, contiguous_tokens):
-    """The paged scheduler at full width and depth, per KV format. Returns
-    K1's and K6's launches on this path."""
+def phase_paged_serving(torch, model, prompts, contiguous_tokens,
+                        formats=3, label="paged_serving"):
+    """The paged scheduler at full width and depth, per KV format (the
+    first ``formats`` of bf16, INT8 and FP8-e4m3). Returns K1's and K6's
+    launches on this path; lines carry ``label``."""
     import numpy as np
 
     from mfa_tpu_torch.kernels import decode as k2
@@ -1112,7 +1293,7 @@ def phase_paged_serving(torch, model, prompts, contiguous_tokens):
     err = max_err(logits_k, logits_p)
     budget = 5e-2 * max(1.0, scale)
     argmax_equal = bool(torch.equal(logits_k.argmax(-1), logits_p.argmax(-1)))
-    emit({"phase": "k6_in_context", "active_slots": len(active),
+    emit({"phase": "k6_in_context", "of": label, "active_slots": len(active),
           "max_abs_err": err, "budget": budget, "max_abs_logit": scale,
           "argmax_equal": argmax_equal})
     if not (err <= budget and argmax_equal):
@@ -1122,7 +1303,7 @@ def phase_paged_serving(torch, model, prompts, contiguous_tokens):
     torch.cuda.empty_cache()
 
     k1_launches = k6_launches = 0
-    for name, prec in _kv_formats()[:3]:
+    for name, prec in _kv_formats()[:formats]:
         sched = PagedScheduler(model, kv_precision=prec, **kw)
         start_free = sched.free_pages
         reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts * 2]
@@ -1172,13 +1353,13 @@ def phase_paged_serving(torch, model, prompts, contiguous_tokens):
               and n6 == cfg.n_layers * stats["decode_steps"] and n2 == 0
               and sched.free_pages == start_free
               and stats["oom_deferred"] >= 1)
-        emit({"phase": "paged_serving", "kv": name, "ok": ok, **summary})
+        emit({"phase": label, "kv": name, "ok": ok, **summary})
         if not ok:
             raise SystemExit(f"paged serving {name}: completions, launch "
                              f"counts or pages wrong ({summary})")
         del sched
         torch.cuda.empty_cache()
-    emit({"phase": "paged_serving_done", "seconds": time.perf_counter() - t0,
+    emit({"phase": f"{label}_done", "seconds": time.perf_counter() - t0,
           "k1_launches": k1_launches, "k6_launches": k6_launches})
     return k1_launches, k6_launches
 
@@ -2139,6 +2320,18 @@ MISTRAL_7B_CONFIG = dict(
     sliding_window=4096, tie_word_embeddings=False, vocab_size=32000,
     torch_dtype="bfloat16")
 
+# OpenLLaMA-3B's published config.json fields (openlm-research/
+# open_llama_3b), typed in: a LlamaForCausalLM of 32 heads over width
+# 3200 (head dim 100, not a multiple of 8) with no num_key_value_heads
+# (MHA) and no rope_theta.
+OPENLLAMA_3B_CONFIG = dict(
+    architectures=["LlamaForCausalLM"], model_type="llama",
+    hidden_act="silu", hidden_size=3200, intermediate_size=8640,
+    num_hidden_layers=26, num_attention_heads=32,
+    max_position_embeddings=2048, rms_norm_eps=1e-6,
+    tie_word_embeddings=False, vocab_size=32000, torch_dtype="float16")
+
+
 def _random_hf_model(torch, fields: dict, seed: int):
     """(LlamaConfig read from ``fields`` as a namespace, the Llama that
     models/convert.params_from_hf builds from random bf16 weights under
@@ -2496,6 +2689,72 @@ def phase_qwen2_serving(torch):
     return model, launches
 
 
+def _cache_gib(model, kv_precision, *, slots: int = 4,
+               max_len: int = 2048) -> float:
+    """Device bytes of the contiguous caches a scheduler of ``slots`` x
+    ``max_len`` holds (rows, scales and lengths), GiB."""
+    caches = model.make_caches(slots, max_len, kv_precision)
+    return sum(t.numel() * t.element_size() for c in caches
+               for t in (c.k, c.v, c.k_scale, c.v_scale, c.lengths)) / 2**30
+
+
+def phase_openllama_serving(torch):
+    """OpenLLaMA-3B at full width and depth (26 layers, width 3200, 32
+    heads of head dim 100, MHA): its config read from its published
+    fields, random HF-named weights, served over bf16, INT8 and FP8-e4m3
+    contiguous caches (K1 prefill on its bf16_mma row at D 100, K2 every
+    decode step) and over bf16 and INT8 paged caches of 512-token pages
+    (K6). Returns (K1, K2 launches; K1, K6 launches of the paged runs)."""
+    import numpy as np
+
+    from mfa_tpu_torch.ops import params as params_mod
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+
+    t0 = time.perf_counter()
+    cfg, model = _random_hf_model(torch, OPENLLAMA_3B_CONFIG, seed=40)
+    if (cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.dim, cfg.n_layers) \
+            != (100, 32, 32, 3200, 26):
+        raise SystemExit(f"openllama: config_from_hf gave {cfg}")
+    torch.cuda.synchronize()
+    emit({"phase": "openllama_init", "seconds": time.perf_counter() - t0,
+          "config": dataclasses.asdict(cfg), "head_dim": cfg.head_dim,
+          "params": sum(p.numel() for p in model.parameters()),
+          "weights_gib": _weight_gib(model),
+          "prefill_row": str(params_mod.select_row(
+              params_mod.parameter_table(
+                  "flash_fwd", params_mod.bf16_table_precision(100)), 100))})
+
+    rng = np.random.default_rng(40)
+    batch = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                          (4, 256))).cuda()
+    _in_context(torch, model, batch, "openllama",
+                kv_precision=OperandPrecision.BF16, max_len=2048)
+    emit({"phase": "openllama_prefill", "ms_per_bucket": _prefill_ms(
+        torch, model, (512, 2048), 2048)})
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (50, 120, 250, 500, 1000, 1900)]
+    launches, bf16_tokens = {}, None
+    for kv in (OperandPrecision.BF16, OperandPrecision.INT8,
+               OperandPrecision.FP8_E4M3):
+        cache_gib = _cache_gib(model, kv)
+        torch.cuda.empty_cache()
+        summary, n, tokens = _serve(torch, model, prompts, kv, max_len=2048)
+        _add(launches, n)
+        bf16_tokens = bf16_tokens or tokens
+        emit({"phase": "openllama_serving", "cache_gib": cache_gib,
+              "weights_gib": _weight_gib(model), **summary})
+    paged_k1, paged_k6 = phase_paged_serving(
+        torch, model, prompts, bf16_tokens, formats=2,
+        label="openllama_paged_serving")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "openllama_serving_done",
+          "seconds": time.perf_counter() - t0, "launches": launches,
+          "paged_k1_launches": paged_k1, "paged_k6_launches": paged_k6})
+    return launches, paged_k1, paged_k6
+
+
 def _same_bits(torch, a: dict, b: dict) -> bool:
     """Every tensor of two name → tensor dicts equal in dtype, shape and
     raw bytes."""
@@ -2712,9 +2971,9 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     k1_row, k1_noncausal_row = phase_k1(torch)
-    k2_row = phase_k2(torch)
-    k5_row, k5_launches = phase_k5(torch)
-    k6_row = phase_k6(torch)
+    k2_row, k2_head_dims = phase_k2(torch)
+    k5_row, k5_head_dims, k5_launches = phase_k5(torch)
+    k6_row, k6_head_dims = phase_k6(torch)
     k7_row, k7_launches = phase_k7(torch)
     k8_row = phase_k8(torch)
     launches, model, prompts, served = phase_serving(torch)
@@ -2748,9 +3007,11 @@ def main() -> int:
     del mistral_model
     gc.collect()
     torch.cuda.empty_cache()
+    openllama_launches, openllama_k1, openllama_k6 = (
+        phase_openllama_serving(torch))
     new = {}
     for n in (qwen2_launches, ckpt_launches, mistral_launches,
-              eval_launches):
+              eval_launches, openllama_launches):
         _add(new, n)
     # K1 runs on the three Llama-3-8B serving runs, training, the
     # entry point past D = 256 (large_d), the parallel phase and the new
@@ -2759,7 +3020,9 @@ def main() -> int:
     # non-causal mode (the twin of _fwd_kernel) runs only on the ring's
     # off-diagonal chunks (parallel); its row carries the k1 phase's
     # non-causal case. K1, K3 and K4 also carry their times past D = 128
-    # (large_d) beside the D = 128 figures.
+    # (large_d) beside the D = 128 figures; K2, K5 and K6 theirs at
+    # HEAD_DIM_CASES (head_dims). K6 runs on both paged serving runs
+    # (Llama-3-8B's and OpenLLaMA-3B's).
     def large(key, cases):
         return {"large_d": {case: large_d[case][key] for case in cases}}
 
@@ -2770,7 +3033,7 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "mfa_tpu/kernels/flash_fwd.py:349",
-         "launches": (launches["flash_fwd"] + paged_k1
+         "launches": (launches["flash_fwd"] + paged_k1 + openllama_k1
                       + int4_launches["flash_fwd"]
                       + train_launches["flash_fwd"]
                       + large_d_launches["flash_fwd"] + new["flash_fwd"]
@@ -2788,7 +3051,8 @@ def main() -> int:
          "launches": (launches["decode_fused_append"]
                       + int4_launches["decode_fused_append"]
                       + new["decode_fused_append"]
-                      + par["decode_fused_append"]), **k2_row},
+                      + par["decode_fused_append"]), **k2_row,
+         "head_dims": k2_head_dims},
         {"name": "flash_bwd_q", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:59",
@@ -2807,11 +3071,12 @@ def main() -> int:
         {"name": "decode_attend", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode_attend.cu",
          "replaces": "mfa_tpu/kernels/decode.py:101 and :208",
-         "launches": k5_launches, **k5_row},
+         "launches": k5_launches, **k5_row, "head_dims": k5_head_dims},
         {"name": "paged_decode", "route": "cuda",
-         "source": "mfa_tpu_torch/csrc/decode_attend.cu",
+         "source": "mfa_tpu_torch/csrc/paged_decode.cu",
          "replaces": "mfa_tpu/kernels/paged_decode.py:43",
-         "launches": k6_launches, **k6_row},
+         "launches": k6_launches + openllama_k6, **k6_row,
+         "head_dims": k6_head_dims},
         # K7's path is its entry point, gemm, driven in k7.
         {"name": "gemm", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/gemm.cu",

@@ -38,7 +38,11 @@
 // passes on mma.sync (as K5), and over an fp8 cache too: each warp widens
 // its rows of the stage in use to bf16 (exact), the scales multiply S and
 // P where the plain version's do (on the H100 it beat the FMA pair).
-// int8 caches, fp32 q and other D run the FMA pair.
+// int8 caches, fp32 q and every other D up to 512 run the FMA pair, in
+// decode_split.cuh::RowLayout's rows (any D: 16-byte granules of the
+// cache, a row's chunks read at its alignment). The append writes the new
+// row value by value, so a row of any D (200 bytes at D 100 bf16, 8-byte
+// aligned) takes it.
 
 #include "decode_split.cuh"
 
@@ -48,8 +52,8 @@
 // updated in place; k_new, v_new [bh, D]; lengths [bh / hkv] int32, the
 // lengths before the append. workspace: fp32, K5's (csrc/decode_attend.cu)
 // plus bh * group * splits values; 16-byte aligned. split_rows a power of
-// two; group_chunk 4 or 8 query rows a CTA; D / 8 a power of two <= 32;
-// 16-byte aligned cache rows. Returns the first launch's error, else
+// two; group_chunk 4 or 8 query rows a CTA; 1 <= D <= 512; 16-byte
+// aligned cache storage. Returns the first launch's error, else
 // cudaGetLastError() after the last (decode_split.cuh::launch_one).
 extern "C" int mfa_decode_fused_append(
     const void* q, void* k, void* v, void* k_scale, void* v_scale,

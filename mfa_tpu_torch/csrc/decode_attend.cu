@@ -1,5 +1,7 @@
 // One-token GQA decode attention over a KV cache, read directly (K5) or
-// through page tables (K6), for Hopper (sm_90a).
+// through page tables (K6), for Hopper (sm_90a). This file holds K5's
+// entry; K6's is csrc/paged_decode.cu (a translation unit of its own, so
+// that the two build in parallel), the notes below cover both.
 //
 // K5 `mfa_decode_attend` replaces the TPU kernels
 // mfa_tpu/kernels/decode.py::_decode_kernel_single and ::_decode_kernel
@@ -52,14 +54,27 @@
 // no live row exit at once. Nothing is summed with atomics, so O is
 // deterministic and K6 equals K5 bit for bit on the same rows.
 //
-// Inside a CTA: D / 8 adjacent lanes share a cache row, each taking one
-// 8-value chunk (16 bytes of bf16, 8 of int8 and fp8); a tile is kUnroll
-// rows a lane group. The tiles stream through a ring of kStages in shared
-// memory by cp.async, two in flight while a third is used: each thread
-// copies its own chunks, and a lane group's first lane the row's scale
-// and scores; a warp reads only rows its own lanes copied, after a warp
-// barrier, so no CTA barrier sits in the loop. In K6 a split reads the
-// page ids its rows need into shared memory once.
+// Inside a CTA (decode_split.cuh::RowLayout): W adjacent lanes share a
+// cache row (W = min(32, the next power of two >= ceil(D / 8))), each
+// taking 8-value chunks cc and cc + W of it (16 bytes of bf16, 8 of int8
+// and fp8; the last read as zeros past D); a tile is kUnroll rows a lane
+// group (half past D = 256, where a lane takes two chunks). Any D up to
+// 512 runs: a row of D 100 is 200 bytes (8-byte aligned) in bf16 and 100
+// (4-byte) in int8 and fp8, D 250's 500 and 250. So each warp copies the
+// run of consecutive rows its lane groups take as whole 16-byte granules
+// (cp.async), aligned in the cache and in shared memory, the run placed
+// at its cache offset mod 16 in its slot; the lanes read their chunks at
+// the alignment every row shares. At D = 8 * 2^k <= 256 each thread
+// copies and reads its own chunk instead (RowLayout::exact): no offset
+// or mask to reckon a row. The cache keeps D values a row: no padding to
+// 8 or 128. The tiles stream through a ring of kStages in
+// shared memory, two in flight while a third is used; a lane group's
+// first lane copies the row's scale and scores; a warp reads only rows it
+// copied, after a warp barrier, so no CTA barrier sits in the loop. In K6
+// a split reads the page ids its rows need into shared memory once, and
+// a run is cut where a page ends (pages whose bytes are not a multiple of
+// 16 bytes, which the paged cache's 128-token pages never are, go byte by
+// byte).
 //
 // Two arithmetic paths, chosen by the launch (K5 and K6 alike):
 //  - bf16 q over a bf16 cache, D = 64 or 128 (the served shapes): tensor
@@ -71,8 +86,9 @@
 //    The FMA path spent ~40 instructions a row per warp on dot products,
 //    their 16-lane shuffle sums and one exp2 per lane: issue, not bytes,
 //    bounded it (int8 caches, half the bytes, took as long as bf16).
-//  - everything else (fp32 q, int8 and fp8 caches, other head dims): FMA,
-//    the row's 8-value chunks summed over its lanes by shuffles.
+//  - everything else (fp32 q, int8 and fp8 caches, every other head dim
+//    up to 512): FMA, the row's 8-value chunks summed over its lanes by
+//    shuffles.
 // Row groups and warps meet in a fixed order. TMA page gathers are later
 // work. The kernels' body is csrc/decode_split.cuh, which K2 (the fused
 // decode + append, csrc/decode.cu) shares.
@@ -85,9 +101,10 @@
 // (chunks * max_len * group_chunk + group * (splits * (D + 2) + 1))
 // values, chunks = ceil(group / group_chunk), splits = ceil(max_len /
 // split_rows) (at least 1); 16-byte aligned. split_rows a power of two;
-// group_chunk 4 or 8 query rows a CTA. D / 8 a power of two <= 32;
-// 16-byte aligned cache rows. Returns the first launch's error, else
-// cudaGetLastError() after the last (decode_split.cuh::launch_one).
+// group_chunk 4 or 8 query rows a CTA. 1 <= D <= 512; 16-byte aligned
+// cache storage. Returns the first launch's error (a layout past the
+// H100's shared memory: cudaErrorInvalidValue), else cudaGetLastError()
+// after the last (decode_split.cuh::launch_one).
 extern "C" int mfa_decode_attend(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* lengths, void* o, void* workspace,
@@ -110,36 +127,4 @@ extern "C" int mfa_decode_attend(
   p.split_rows = split_rows;
   return launch<false>(p, ContiguousRows{max_len}, workspace, bh,
                        kv_format, group_chunk, threads, stream);
-}
-
-// K6. q, o: [n = sequences * hkv, group, D]; k, v pages: [num_pages, hkv,
-// page_size, D] storage; scales [num_pages, hkv, page_size] fp32; tables
-// [sequences, max_pages] int32; lengths [sequences] int32; workspace as
-// K5's with max_len = max_pages * page_size. Otherwise as K5.
-extern "C" int mfa_paged_decode(
-    const void* q, const void* k_pages, const void* v_pages,
-    const void* k_scale, const void* v_scale, const void* tables,
-    const void* lengths, void* o, void* workspace, int n, int hkv,
-    int group, int max_pages, int page_size, int D, int window, int q_bf16,
-    int kv_format, int split_rows, int group_chunk, int threads,
-    void* stream) {
-  if (max_pages < 1 || page_size < 1) return cudaErrorInvalidValue;
-  AttendParams p{};
-  p.q = q;
-  p.k = k_pages;
-  p.v = v_pages;
-  p.k_scale = static_cast<const float*>(k_scale);
-  p.v_scale = static_cast<const float*>(v_scale);
-  p.lengths = static_cast<const int*>(lengths);
-  p.o = o;
-  p.hkv = hkv;
-  p.group = group;
-  p.D = D;
-  p.window = window;
-  p.q_bf16 = q_bf16;
-  p.split_rows = split_rows;
-  PagedRows rows{static_cast<const int*>(tables), max_pages, page_size, hkv,
-                 nullptr, 0};
-  return launch<false>(p, rows, workspace, n, kv_format, group_chunk,
-                       threads, stream);
 }

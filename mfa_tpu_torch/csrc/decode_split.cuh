@@ -1,9 +1,10 @@
-// The split-KV decode body shared by K5 / K6 (csrc/decode_attend.cu, the
-// layout and rounding rule are described there) and K2, the fused decode
-// + append (csrc/decode.cu). Every kernel takes a kFused flag; K5 and K6
-// instantiate it false, K2 true, with its own parameters (FusedParams)
-// and helpers (final_max_fused, finish_attend_fused): shared, they changed
-// how ptxas compiled K5's and K6's loops. What the fused flavour adds:
+// The split-KV decode body shared by K5 / K6 (csrc/decode_attend.cu and
+// csrc/paged_decode.cu; the layout and rounding rule are described in
+// the first) and K2, the fused decode + append (csrc/decode.cu). Every
+// kernel takes a kFused flag; K5 and K6 instantiate it false, K2 true,
+// with its own parameters (FusedParams) and helpers (final_max_fused,
+// finish_attend_fused): shared, they changed how ptxas compiled K5's and
+// K6's loops. What the fused flavour adds:
 //  - live rows [max(0, len + 1 - W), len) (split_of<true>);
 //  - the new token's column s_new = q . k_new from the unquantized k_new,
 //    in the final max and the row sum, and p_new v_new added where the
@@ -26,6 +27,7 @@ namespace {
 using namespace mfa;
 
 constexpr int kUnroll = 8;   // rows of a tile a lane group takes
+constexpr int kMaxHeadDim = 512;  // two 8-value chunks a lane of 32
 constexpr int kStages = 3;   // tiles in the ring: two in flight, one used
 // Scales are amax * (1 / qmax) with the reciprocal rounded to fp32, as
 // mfa_tpu computes them under jax.jit (see kernels/quant.py).
@@ -72,6 +74,11 @@ struct ContiguousRows {
   __device__ __forceinline__ size_t operator()(int bh, int, int l) const {
     return (size_t)bh * max_len + l;
   }
+  // The end of the run of rows adjacent in the cache from l (below hi),
+  // and whether, for rows of rb bytes, every run starts at the same
+  // offset mod 16 in the cache as in its slot (copy_run).
+  __device__ __forceinline__ int run_end(int, int hi) const { return hi; }
+  __device__ __forceinline__ bool granular(int) const { return true; }
 };
 
 // K2: K5's rows under a name of their own, which K2's kernels carry (a
@@ -103,6 +110,13 @@ struct PagedRows {
   __device__ __forceinline__ size_t operator()(int, int h, int l) const {
     const int page = ids[l / page_size - first_page];
     return ((size_t)page * hkv + h) * page_size + l % page_size;
+  }
+  __device__ __forceinline__ int run_end(int l, int hi) const {
+    return min(hi, (l / page_size + 1) * page_size);
+  }
+  // Pages of whole 16-byte granules start aligned.
+  __device__ __forceinline__ bool granular(int rb) const {
+    return (size_t)page_size * rb % 16 == 0;
   }
 };
 
@@ -136,10 +150,72 @@ __device__ __forceinline__ void store_o(const AttendParams& p, size_t at,
     static_cast<float*>(p.o)[at] = o;
 }
 
-// The ring of kStages tiles in shared memory, for `threads` threads and
-// rg row groups: each thread's chunks [kStages][kUnroll][threads], then
-// (scores) each row's GC scores [kStages][kUnroll][rg][GC], then each
-// row's scale [kStages][kUnroll][rg]. Every part is 16-byte aligned.
+// Rows of a tile a lane group takes on the FMA passes: kUnroll up to D =
+// 256 (one chunk a lane), half past it (two chunks a lane, twice the
+// registers for q and the partial O).
+template <int NC>
+constexpr int kUnrollOf = NC == 1 ? kUnroll : kUnroll / 2;
+
+// The FMA passes' row layout for any head dim D <= 512 over storage of E
+// bytes a value (2 bf16, 1 int8 / fp8), with `threads` threads:
+//  - a row is nch = ceil(D / 8) chunks of 8 values, the last one read as
+//    zeros past D; W = min(32, next power of two >= nch) adjacent lanes
+//    take it, lane cc its chunks cc and cc + W (nc() = ceil(nch / W) <= 2
+//    of them: past D = 256 a row has more chunks than a warp has lanes);
+//  - row group rg = tid / W takes rows base + rg + u RG of a tile (RG =
+//    threads / W), so that for each u the row groups of a warp take a run
+//    of rpr = 32 / W consecutive rows;
+//  - the warp copies each of its runs itself, as whole 16-byte granules of
+//    the cache (copy_run), into a slot of `run` bytes, the run's first
+//    byte at the slot plus that byte's cache offset mod 16: granules are
+//    16-byte aligned in the cache and in shared memory whatever D, the
+//    first row and the window. A row of D 100 is 200 bytes (8-byte
+//    aligned) in bf16, 100 (4-byte) in int8 and fp8; so a chunk sits in
+//    shared memory at `al`, the alignment every row start and chunk start
+//    shares (16 bytes, 8 for 1-byte storage, where rb is a multiple of
+//    16: the layout of the kernel before, D = 8 * 2^k).
+// A run's slot holds its rpr rows, rounded up to 16 bytes, plus (rows not
+// 16-byte multiples) 32 bytes for the offset (< 16) and the last chunk's
+// read past D (< 16). At D = 8 * 2^k <= 256 (`exact`: one whole chunk a
+// lane, rows aligned to a chunk) the kernels keep the kernel before's
+// code (kExact): each thread copies its own chunk by cp.async and reads
+// it back, with no offset, mask or alignment to reckon per row (the
+// general code cost K5 15-45% over int8 and fp8 at D 128 on an H100,
+// issue-bound).
+struct RowLayout {
+  int rb;         // bytes of a cache row, D * E
+  int nch;        // 8-value chunks of a row
+  int W;          // lanes a row
+  int rpr;        // rows of a warp's run
+  int RG;         // row groups of the CTA
+  int run;        // shared bytes of a run's slot
+  int al;         // alignment of a chunk in shared memory
+  bool aligned;   // rb % 16 == 0: every run at offset 0 of its slot
+  bool exact;     // D = 8 W: the kernel before's per-thread chunks
+
+  __host__ __device__ RowLayout(int D, int E, int threads) {
+    rb = D * E;
+    nch = (D + 7) / 8;
+    W = 1;
+    while (W < nch && W < 32) W <<= 1;
+    rpr = 32 / W;
+    RG = threads / W;
+    aligned = rb % 16 == 0;
+    exact = D == 8 * W;
+    run = exact ? 32 * 8 * E : (rpr * rb + 15) / 16 * 16 + (aligned ? 0 : 32);
+    int g = 16;
+    while (rb % g != 0) g >>= 1;
+    al = g < 8 * E ? g : 8 * E;
+  }
+  __host__ __device__ int nc() const { return (nch + W - 1) / W; }
+};
+
+// The ring of kStages tiles in shared memory, `unroll` rows a row group
+// a tile and rg row groups: the chunks [kStages][unroll] of `chunk_bytes`
+// each (FMA: the warps' run slots [nw][run]; tensor cores: each thread's
+// chunk [threads]), then (scores) each row's GC scores
+// [kStages][unroll][rg][GC], then each row's scale [kStages][unroll][rg].
+// Every part is 16-byte aligned.
 template <int KVF, int GC>
 struct Ring {
   using C = typename Chunk<KVF>::type;
@@ -147,29 +223,130 @@ struct Ring {
   float* score;
   float* scale;
 
-  __host__ __device__ static size_t bytes(int threads, int rg, bool scores) {
-    return (size_t)kStages * kUnroll *
-           ((size_t)threads * sizeof(C) + (scores ? rg * GC * 4 : 0) +
-            rg * 4);
+  __host__ __device__ static size_t bytes(size_t chunk_bytes, int unroll,
+                                          int rg, bool scores) {
+    return (size_t)kStages * unroll *
+           (chunk_bytes + (scores ? rg * GC * 4 : 0) + rg * 4);
   }
-  __device__ Ring(void* base, int threads, int rg, bool scores) {
+  __device__ Ring(void* base, size_t chunk_bytes, int unroll, int rg,
+                  bool scores) {
     char* b = static_cast<char*>(base);
     chunk = reinterpret_cast<C*>(b);
-    b += (size_t)kStages * kUnroll * threads * sizeof(C);
+    b += (size_t)kStages * unroll * chunk_bytes;
     score = reinterpret_cast<float*>(b);
-    b += scores ? (size_t)kStages * kUnroll * rg * GC * 4 : 0;
+    b += scores ? (size_t)kStages * unroll * rg * GC * 4 : 0;
     scale = reinterpret_cast<float*>(b);
   }
 };
 
-// The shared memory of the attend pass: the ring, which the warps' partial
-// O [nw][GC][D] reuses after the loop, then the row max [GC], the row sums
-// [nw][GC], the last-to-arrive flag and the page ids.
+// The FMA passes' ring (the warps' run slots a stage and row).
+template <int KVF, int GC>
+__host__ __device__ size_t fma_ring_bytes(const RowLayout& lay, int unroll,
+                                          int threads, bool scores) {
+  return Ring<KVF, GC>::bytes((size_t)(threads / 32) * lay.run, unroll,
+                              lay.RG, scores);
+}
+
+// The shared memory of the FMA attend pass: the ring, which the warps'
+// partial O [nw][GC][D] reuses after the loop, then the row max [GC], the
+// row sums [nw][GC], the last-to-arrive flag and the page ids.
 template <int KVF, int GC>
 __host__ __device__ size_t attend_union_bytes(int threads, int D) {
-  const size_t ring = Ring<KVF, GC>::bytes(threads, threads / (D / 8), true);
+  const RowLayout lay(D, KVF == 0 ? 2 : 1, threads);
+  const size_t ring = fma_ring_bytes<KVF, GC>(
+      lay, lay.nc() == 1 ? kUnrollOf<1> : kUnrollOf<2>, threads, true);
   const size_t o_w = (size_t)(threads / 32) * GC * D * 4;
   return ring > o_w ? ring : o_w;
+}
+
+// Copies rows [l0, l1) of kv head h of (sequence, kv head) bh, one warp's
+// run, from the cache at `src` into `slot` (16-byte aligned), row l0's
+// first byte at slot + its cache offset mod 16, by the warp's lanes. The
+// run is cut where the rows stop being adjacent in the cache (a page
+// ends). Granular rows (every page start 16-byte aligned; a contiguous
+// cache) go by whole 16-byte granules, aligned on both sides: the
+// first and last may hold bytes of the rows around the run, which no
+// lane reads as data (and a granule never leaves the allocation: the
+// storage starts 16-byte aligned, and device memory is mapped in pages).
+// Otherwise (pages of rows whose bytes are not a multiple of 16) byte by
+// byte.
+template <class Rows>
+__device__ __forceinline__ void copy_run(const Rows& at, const char* src,
+                                         unsigned char* slot, int rb,
+                                         int bh, int h, int l0, int l1,
+                                         int lane) {
+  const size_t first = at(bh, h, l0) * (size_t)rb;
+  unsigned char* dst = slot + (first & 15);
+  for (int l = l0; l < l1;) {
+    const int e = at.run_end(l, l1);
+    const size_t gs = l == l0 ? first : at(bh, h, l) * (size_t)rb;
+    const int n = (e - l) * rb;
+    unsigned char* ds = dst + (size_t)(l - l0) * rb;
+    if (at.granular(rb)) {
+      const size_t a = gs & ~(size_t)15;
+      const int span = (int)(((gs + n + 15) & ~(size_t)15) - a);
+      unsigned char* d0 = ds - (gs & 15);
+      for (int x = lane * 16; x < span; x += 32 * 16)
+        cp_async<16>(d0 + x, src + a + x);
+    } else {
+      for (int x = lane; x < n; x += 32) ds[x] = src[gs + x];
+    }
+    l = e;
+  }
+}
+
+// One stored chunk from shared memory at an address aligned to `al`
+// bytes (the layout's, the same for every chunk of a launch).
+template <int KVF>
+__device__ __forceinline__ typename Chunk<KVF>::type smem_chunk(
+    const unsigned char* s, int al) {
+  using C = typename Chunk<KVF>::type;
+  constexpr int kN = sizeof(C);
+  if (al >= kN) return *reinterpret_cast<const C*>(s);
+  union {
+    C c;
+    uint2 d[kN / 8];
+    uint32_t w[kN / 4];
+    uint16_t h[kN / 2];
+    uint8_t b[kN];
+  } u;
+  if (al == 8) {
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i)
+      u.d[i] = reinterpret_cast<const uint2*>(s)[i];
+  } else if (al == 4) {
+#pragma unroll
+    for (int i = 0; i < kN / 4; ++i)
+      u.w[i] = reinterpret_cast<const uint32_t*>(s)[i];
+  } else if (al == 2) {
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i)
+      u.h[i] = reinterpret_cast<const uint16_t*>(s)[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) u.b[i] = s[i];
+  }
+  return u.c;
+}
+
+// Chunk c of a row (lane's chunks), widened: zeros for a chunk past the
+// row (`live` false: also a row past the split) and for the values past
+// D of the last one.
+template <int KVF>
+__device__ __forceinline__ void row_chunk(const unsigned char* row, int c,
+                                          const RowLayout& lay, int D,
+                                          bool live, float* x) {
+  if (live && c < lay.nch) {
+    to_float8<KVF>(smem_chunk<KVF>(row + c * 8 * (KVF == 0 ? 2 : 1),
+                                   lay.al), x);
+    if (c * 8 + 8 > D)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c * 8 + e >= D) x[e] = 0.f;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = 0.f;
+  }
 }
 
 // End of pass 1: the split's row max over the warps' maxes red [nw][GC]
@@ -422,29 +599,35 @@ __device__ void append_new_row(const FusedParams& p, size_t bh, size_t row,
 }
 
 // Pass 1: S = (q . K_raw) * ks over the split's rows into the scratch row,
-// and the split's row max into m_part. Fused over an int8 cache: q
+// and the split's row max into m_part, in RowLayout's rows (NC chunks a
+// lane at most; kExact: its exact layout). Fused over an int8 cache: q
 // requantized to s8 per query row first, S = (q_s8 . K) * q scale * ks
-// (an exact integer dot). Fused: the append, by one CTA (split_of's
-// owner of position len, chunk 0).
-template <int KVF, int GC, class Rows, bool kFused>
-__global__ void __launch_bounds__(256)
-decode_score(Par<kFused> p, Rows rows) {
+// (an exact integer dot). Fused: the append, by one CTA (split_of's owner
+// of position len, chunk 0).
+template <int KVF, int GC, int NC, bool kExact, class Rows, bool kFused>
+__device__ __forceinline__ void score_pass(const Par<kFused>& p,
+                                           const Rows& rows) {
   constexpr bool kQuant = KVF != 0;
   constexpr bool kRequant = kFused && KVF == 1;
+  constexpr int U = kUnrollOf<NC>;
   using C = typename Chunk<KVF>::type;
   const int bh = blockIdx.x, b = bh / p.hkv, h = bh - b * p.hkv;
   const int g0 = blockIdx.y * GC, G = min(GC, p.group - g0), s = blockIdx.z;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   const int warp = tid >> 5, nw = T >> 5, D = p.D;
-  // Row-group layout: lane group rg (CPR adjacent lanes) takes rows
-  // base + rg, base + rg + RG, ... of a tile; lane cc one chunk of each.
-  const int CPR = D / 8, RG = T / CPR, TR = RG * kUnroll;
-  const int cc = tid % CPR, rg = tid / CPR;
+  const RowLayout lay(D, KVF == 0 ? 2 : 1, T);
+  // Lane group rg (W adjacent lanes) takes rows base + rg + u RG of a
+  // tile; lane cc its chunks cc + k W of each. (kExact: W = D / 8, and
+  // each thread's chunk a tile row of the ring.)
+  const int W = kExact ? D / 8 : lay.W, RG = T / W, TR = RG * U;
+  const int cc = tid % W, rg = tid / W;
+  const size_t chunks = kExact ? T * sizeof(C) : (size_t)nw * lay.run;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Ring<KVF, GC> ring(smem, T, RG, false);
+  const Ring<KVF, GC> ring(smem, chunks, U, RG, false);
+  unsigned char* slots = reinterpret_cast<unsigned char*>(ring.chunk);
   float* red = reinterpret_cast<float*>(
-      smem + Ring<KVF, GC>::bytes(T, RG, false));   // [nw][GC]
-  int* ids = reinterpret_cast<int*>(red + nw * GC);  // page ids
+      smem + Ring<KVF, GC>::bytes(chunks, U, RG, false));  // [nw][GC]
+  int* ids = reinterpret_cast<int*>(red + nw * GC);       // page ids
 
   griddep_launch_dependents();           // decode_attend may start its V
   const int cap = rows.capacity();
@@ -461,22 +644,37 @@ decode_score(Par<kFused> p, Rows rows) {
   float* sc = p.scratch + ((size_t)bh * gridDim.y + blockIdx.y) * cap * GC;
   const int ntiles = (t.s_hi - t.s_lo + TR - 1) / TR;
   const char* kb = static_cast<const char*>(p.k);
+  // Run u of this warp in stage st: its slot and its rows' first row.
+  auto slot = [&](int st, int u) {
+    return slots + ((size_t)(st * U + u) * nw + warp) * lay.run;
+  };
+  auto run0 = [&](int base, int u) { return base + u * RG + warp * lay.rpr; };
 
-  // Tile i's K chunks (and scales) into ring stage i % kStages; one
-  // commit group a tile, empty past the last.
+  // Tile i's K runs (and scales) into ring stage i % kStages; one commit
+  // group a tile, empty past the last.
   auto issue = [&](int i) {
     if (i < ntiles) {
       const int base = t.s_lo + i * TR, st = i % kStages;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < U; ++u) {
         const int l = base + rg + u * RG;
-        if (l < t.s_hi) {
-          const size_t r = at(bh, h, l);
-          cp_async<sizeof(C)>(ring.chunk + (st * kUnroll + u) * T + tid,
-                              kb + (r * D + cc * 8) * sizeof(C) / 8);
-          if (kQuant && cc == 0)
-            cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
-                        p.k_scale + r);
+        if constexpr (kExact) {
+          if (l < t.s_hi) {
+            const size_t r = at(bh, h, l);
+            cp_async<sizeof(C)>(ring.chunk + (st * U + u) * T + tid,
+                                kb + (r * D + cc * 8) * sizeof(C) / 8);
+            if (kQuant && cc == 0)
+              cp_async<4>(ring.scale + (st * U + u) * RG + rg,
+                          p.k_scale + r);
+          }
+        } else {
+          const int l0 = run0(base, u);
+          if (l0 < t.s_hi)
+            copy_run(at, kb, slot(st, u), lay.rb, bh, h, l0,
+                     min(l0 + lay.rpr, t.s_hi), lane);
+          if (kQuant && cc == 0 && l < t.s_hi)
+            cp_async<4>(ring.scale + (st * U + u) * RG + rg,
+                        p.k_scale + at(bh, h, l));
         }
       }
     }
@@ -485,14 +683,19 @@ decode_score(Par<kFused> p, Rows rows) {
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(i);
 
-  float qr[GC][8];
+  float qr[NC][GC][8];
 #pragma unroll
-  for (int g = 0; g < GC; ++g)
+  for (int k = 0; k < NC; ++k)
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      qr[g][e] = g < G ? load_q(p.q, (qrow0 + g) * D + cc * 8 + e, p.q_bf16)
-                       : 0.f;
-  // kRequant: each query row's s8 scale over its D values (the row's CPR
+    for (int g = 0; g < GC; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int d = (cc + k * W) * 8 + e;
+        qr[k][g][e] = g < G && d < D
+                          ? load_q(p.q, (qrow0 + g) * D + d, p.q_bf16)
+                          : 0.f;
+      }
+  // kRequant: each query row's s8 scale over its D values (the row's W
   // lanes), then q_s8 = round(q / scale) clipped at +-127.
   float qsc[kRequant ? GC : 1];
   if constexpr (kRequant) {
@@ -500,13 +703,18 @@ decode_score(Par<kFused> p, Rows rows) {
     for (int g = 0; g < GC; ++g) {
       float a = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) a = fmaxf(a, fabsf(qr[g][e]));
-      for (int o = CPR / 2; o > 0; o >>= 1)
+      for (int k = 0; k < NC; ++k)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) a = fmaxf(a, fabsf(qr[k][g][e]));
+      for (int o = W / 2; o > 0; o >>= 1)
         a = fmaxf(a, __shfl_xor_sync(kFull, a, o));
       qsc[g] = fmaxf(a, 1e-30f) * kInv127;
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        qr[g][e] = fminf(fmaxf(rintf(qr[g][e] / qsc[g]), -127.f), 127.f);
+      for (int k = 0; k < NC; ++k)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          qr[k][g][e] =
+              fminf(fmaxf(rintf(qr[k][g][e] / qsc[g]), -127.f), 127.f);
     }
   }
 
@@ -521,41 +729,55 @@ decode_score(Par<kFused> p, Rows rows) {
     issue(i + kStages - 1);
     const int base = t.s_lo + i * TR, st = i % kStages;
     // Each lane's part of every (row, query row) dot product (qr is 0
-    // past G), then the sums over the row's CPR lanes with all the
-    // tile's shuffle chains interleaved.
-    float dot[kUnroll][GC];
+    // past G and past D), then the sums over the row's W lanes with all
+    // the tile's shuffle chains interleaved.
+    float dot[U][GC];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float x[8];
-      if (base + rg + u * RG < t.s_hi) {
-        to_float8<KVF>(ring.chunk[(st * kUnroll + u) * T + tid], x);
-      } else {
+    for (int u = 0; u < U; ++u) {
+      const bool live = base + rg + u * RG < t.s_hi;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) x[e] = 0.f;
-      }
+      for (int g = 0; g < GC; ++g) dot[u][g] = 0.f;
 #pragma unroll
-      for (int g = 0; g < GC; ++g) {
-        dot[u][g] = 0.f;
+      for (int k = 0; k < NC; ++k) {
+        float x[8];
+        if constexpr (kExact) {
+          if (live) {
+            to_float8<KVF>(ring.chunk[(st * U + u) * T + tid], x);
+          } else {
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dot[u][g] = fmaf(qr[g][e], x[e], dot[u][g]);
+            for (int e = 0; e < 8; ++e) x[e] = 0.f;
+          }
+        } else {
+          const int l0 = run0(base, u);
+          const int off =
+              lay.aligned || l0 >= t.s_hi
+                  ? 0
+                  : (int)((at(bh, h, l0) * (size_t)lay.rb) & 15);
+          row_chunk<KVF>(slot(st, u) + off +
+                             (size_t)(rg - warp * lay.rpr) * lay.rb,
+                         cc + k * W, lay, D, live, x);
+        }
+#pragma unroll
+        for (int g = 0; g < GC; ++g)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            dot[u][g] = fmaf(qr[k][g][e], x[e], dot[u][g]);
       }
     }
-    for (int o = CPR / 2; o > 0; o >>= 1) {
+    for (int o = W / 2; o > 0; o >>= 1) {
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
         if (g >= G) break;
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
+        for (int u = 0; u < U; ++u)
           dot[u][g] += __shfl_xor_sync(kFull, dot[u][g], o);
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int l = base + rg + u * RG;
       if (l >= t.s_hi) continue;
-      const float ks =
-          kQuant ? ring.scale[(st * kUnroll + u) * RG + rg] : 1.f;
+      const float ks = kQuant ? ring.scale[(st * U + u) * RG + rg] : 1.f;
       float sv[GC];
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
@@ -580,25 +802,33 @@ decode_score(Par<kFused> p, Rows rows) {
 }
 
 // Pass 2: the final row max, then P = exp2(S - m), its row sum and
-// O = round(P * vs) V over the split's rows, in pass 1's row-group layout;
+// O = round(P * vs) V over the split's rows, in pass 1's row layout;
 // then the partials of the live splits meet in split order.
-template <int KVF, int GC, class Rows, bool kFused>
-__global__ void __launch_bounds__(256)
-decode_attend(Par<kFused> p, Rows rows) {
+template <int KVF, int GC, int NC, bool kExact, class Rows, bool kFused>
+__device__ __forceinline__ void attend_pass(const Par<kFused>& p,
+                                            const Rows& rows) {
   constexpr bool kQuant = KVF != 0;
   constexpr bool kRequant = kFused && KVF == 1;
+  constexpr int U = kUnrollOf<NC>;
   using C = typename Chunk<KVF>::type;
   const int bh = blockIdx.x, b = bh / p.hkv, h = bh - b * p.hkv;
   const int g0 = blockIdx.y * GC, G = min(GC, p.group - g0), s = blockIdx.z;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   const int warp = tid >> 5, nw = T >> 5, D = p.D;
-  const int CPR = D / 8, RG = T / CPR, TR = RG * kUnroll;
-  const int cc = tid % CPR, rg = tid / CPR;
+  const RowLayout lay(D, KVF == 0 ? 2 : 1, T);
+  const int W = kExact ? D / 8 : lay.W, RG = T / W, TR = RG * U;
+  const int cc = tid % W, rg = tid / W;
+  const size_t chunks = kExact ? T * sizeof(C) : (size_t)nw * lay.run;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Ring<KVF, GC> ring(smem, T, RG, true);
-  float* o_w = reinterpret_cast<float*>(smem);  // [nw][GC][D], after the loop
+  const Ring<KVF, GC> ring(smem, chunks, U, RG, true);
+  unsigned char* slots = reinterpret_cast<unsigned char*>(ring.chunk);
+  // The partial O [nw][GC][D] reuses the ring after the loop
+  // (attend_union_bytes).
+  const size_t ring_bytes = Ring<KVF, GC>::bytes(chunks, U, RG, true);
+  const size_t o_bytes = (size_t)nw * GC * D * 4;
+  float* o_w = reinterpret_cast<float*>(smem);
   float* m_g = reinterpret_cast<float*>(
-      smem + attend_union_bytes<KVF, GC>(T, D));  // [GC] row max
+      smem + (ring_bytes > o_bytes ? ring_bytes : o_bytes));  // [GC] row max
   float* l_w = m_g + GC;                          // [nw][GC] row sums
   int* last = reinterpret_cast<int*>(l_w + nw * GC);
   int* ids = last + 1;                            // page ids
@@ -627,22 +857,36 @@ decode_attend(Par<kFused> p, Rows rows) {
       p.scratch + ((size_t)bh * gridDim.y + blockIdx.y) * cap * GC;
   const int ntiles = (t.s_hi - t.s_lo + TR - 1) / TR;
   const char* vb = static_cast<const char*>(p.v);
+  auto slot = [&](int st, int u) {
+    return slots + ((size_t)(st * U + u) * nw + warp) * lay.run;
+  };
+  auto run0 = [&](int base, int u) { return base + u * RG + warp * lay.rpr; };
 
-  // Tile i's V chunks and scales (issue_v), and each row's scores
+  // Tile i's V runs and scales (issue_v), and each row's scores
   // (issue_s, written by decode_score), into ring stage i % kStages.
   auto issue_v = [&](int i) {
     if (i >= ntiles) return;
     const int base = t.s_lo + i * TR, st = i % kStages;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int l = base + rg + u * RG;
-      if (l < t.s_hi) {
-        const size_t r = at(bh, h, l);
-        cp_async<sizeof(C)>(ring.chunk + (st * kUnroll + u) * T + tid,
-                            vb + (r * D + cc * 8) * sizeof(C) / 8);
-        if (kQuant && cc == 0)
-          cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
-                      p.v_scale + r);
+      if constexpr (kExact) {
+        if (l < t.s_hi) {
+          const size_t r = at(bh, h, l);
+          cp_async<sizeof(C)>(ring.chunk + (st * U + u) * T + tid,
+                              vb + (r * D + cc * 8) * sizeof(C) / 8);
+          if (kQuant && cc == 0)
+            cp_async<4>(ring.scale + (st * U + u) * RG + rg,
+                        p.v_scale + r);
+        }
+      } else {
+        const int l0 = run0(base, u);
+        if (l0 < t.s_hi)
+          copy_run(at, vb, slot(st, u), lay.rb, bh, h, l0,
+                   min(l0 + lay.rpr, t.s_hi), lane);
+        if (kQuant && cc == 0 && l < t.s_hi)
+          cp_async<4>(ring.scale + (st * U + u) * RG + rg,
+                      p.v_scale + at(bh, h, l));
       }
     }
   };
@@ -650,12 +894,12 @@ decode_attend(Par<kFused> p, Rows rows) {
     if (i >= ntiles || cc != 0) return;
     const int base = t.s_lo + i * TR, st = i % kStages;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int l = base + rg + u * RG;
       if (l < t.s_hi)
 #pragma unroll
         for (int g = 0; g < GC; g += 4)
-          cp_async<16>(ring.score + ((st * kUnroll + u) * RG + rg) * GC + g,
+          cp_async<16>(ring.score + ((st * U + u) * RG + rg) * GC + g,
                        sc + (size_t)l * GC + g);
     }
   };
@@ -685,7 +929,7 @@ decode_attend(Par<kFused> p, Rows rows) {
     final_max(p, t, qrow0, G, m_g);
   __syncthreads();
 
-  float acc[GC][8], lsum[GC], m_r[GC];
+  float acc[NC][GC][8], lsum[GC], m_r[GC];
   float ps_r[kRequant ? GC : 1];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
@@ -693,7 +937,9 @@ decode_attend(Par<kFused> p, Rows rows) {
     m_r[g] = g < G ? m_g[g] : 0.f;
     if constexpr (kRequant) ps_r[g] = g < G ? ps_g[g] : 1.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    for (int k = 0; k < NC; ++k)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[k][g][e] = 0.f;
   }
   for (int i = 0; i < ntiles; ++i) {
     cp_async_wait<kStages - 2>();
@@ -701,17 +947,29 @@ decode_attend(Par<kFused> p, Rows rows) {
     issue(i + kStages - 1);
     const int base = t.s_lo + i * TR, st = i % kStages;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int l = base + rg + u * RG;
       if (l >= t.s_hi) continue;
-      const int slot = (st * kUnroll + u) * RG + rg;
-      float x[8];
-      to_float8<KVF>(ring.chunk[(st * kUnroll + u) * T + tid], x);
-      const float vs = kQuant ? ring.scale[slot] : 1.f;
+      const int sl = (st * U + u) * RG + rg;
+      float x[NC][8];
+      if constexpr (kExact) {
+        to_float8<KVF>(ring.chunk[(st * U + u) * T + tid], x[0]);
+      } else {
+        const int l0 = run0(base, u);
+        const int off = lay.aligned
+                            ? 0
+                            : (int)((at(bh, h, l0) * (size_t)lay.rb) & 15);
+        const unsigned char* row =
+            slot(st, u) + off + (size_t)(rg - warp * lay.rpr) * lay.rb;
+#pragma unroll
+        for (int k = 0; k < NC; ++k)
+          row_chunk<KVF>(row, cc + k * W, lay, D, true, x[k]);
+      }
+      const float vs = kQuant ? ring.scale[sl] : 1.f;
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
         if (g >= G) break;
-        const float pe = exp2f(ring.score[slot * GC + g] - m_r[g]);
+        const float pe = exp2f(ring.score[sl * GC + g] - m_r[g]);
         lsum[g] += pe;
         float pw = kQuant ? pe * vs : pe;
         // K2 over int8: P vs as s8 against the scale over every live row
@@ -721,7 +979,10 @@ decode_attend(Par<kFused> p, Rows rows) {
         else if (p.q_bf16)
           pw = bf16_round(pw);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(pw, x[e], acc[g][e]);
+        for (int k = 0; k < NC; ++k)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc[k][g][e] = fmaf(pw, x[k][e], acc[k][g][e]);
       }
     }
   }
@@ -729,25 +990,31 @@ decode_attend(Par<kFused> p, Rows rows) {
 
   // The row groups of a warp meet by a butterfly (every lane ends with the
   // same sums), then the warps in shared memory, in warp order.
-  for (int o = CPR; o < 32; o <<= 1) {
+  for (int o = W; o < 32; o <<= 1) {
 #pragma unroll
     for (int g = 0; g < GC; ++g) {
       if (g >= G) break;
       lsum[g] += __shfl_xor_sync(kFull, lsum[g], o);
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        acc[g][e] += __shfl_xor_sync(kFull, acc[g][e], o);
+      for (int k = 0; k < NC; ++k)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[k][g][e] += __shfl_xor_sync(kFull, acc[k][g][e], o);
     }
   }
   __syncthreads();                       // the ring is free: o_w reuses it
-  if (lane < CPR) {
+  if (lane < W) {
 #pragma unroll
     for (int g = 0; g < GC; ++g) {
       if (g >= G) break;
       if (cc == 0) l_w[warp * GC + g] = lsum[g];
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        o_w[((size_t)warp * GC + g) * D + cc * 8 + e] = acc[g][e];
+      for (int k = 0; k < NC; ++k)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int d = (cc + k * W) * 8 + e;
+          if (d < D) o_w[((size_t)warp * GC + g) * D + d] = acc[k][g][e];
+        }
     }
   }
   __syncthreads();
@@ -756,6 +1023,33 @@ decode_attend(Par<kFused> p, Rows rows) {
                                       qrow0, bh, s, G);
   else
     finish_attend<GC>(p, t, m_g, l_w, o_w, last, qrow0, s, G);
+}
+
+// The FMA passes' kernels. In the exact layout ptxas is told that one
+// CTA an SM will do (__launch_bounds__(256, 1)): left to itself it held
+// K6's int8 and fp8 attend pass to 80 registers and spilled (K6 14-16%
+// slower than the kernel before, on an H100); with the bound they take
+// 95. The general layout keeps the plain bound: with the other, its
+// instances ran 19-44% slower.
+template <int KVF, int GC, int NC, class Rows, bool kFused>
+__global__ void __launch_bounds__(256)
+decode_score(Par<kFused> p, Rows rows) {
+  score_pass<KVF, GC, NC, false, Rows, kFused>(p, rows);
+}
+template <int KVF, int GC, class Rows, bool kFused>
+__global__ void __launch_bounds__(256, 1)
+decode_score_exact(Par<kFused> p, Rows rows) {
+  score_pass<KVF, GC, 1, true, Rows, kFused>(p, rows);
+}
+template <int KVF, int GC, int NC, class Rows, bool kFused>
+__global__ void __launch_bounds__(256)
+decode_attend(Par<kFused> p, Rows rows) {
+  attend_pass<KVF, GC, NC, false, Rows, kFused>(p, rows);
+}
+template <int KVF, int GC, class Rows, bool kFused>
+__global__ void __launch_bounds__(256, 1)
+decode_attend_exact(Par<kFused> p, Rows rows) {
+  attend_pass<KVF, GC, 1, true, Rows, kFused>(p, rows);
 }
 
 // A warp's rows of a tile for the tensor-core path: j = u * (32 / CPR) +
@@ -783,7 +1077,9 @@ __device__ __forceinline__ uint4 widen_chunk(const uint2& c, bool live) {
 // [kUnroll][threads] of the stage in use, widened from it.
 template <int KVF, int GC>
 __host__ __device__ size_t mma_ring_bytes(int threads, int rg, bool scores) {
-  return Ring<KVF, GC>::bytes(threads, rg, scores) +
+  return Ring<KVF, GC>::bytes(
+             (size_t)threads * sizeof(typename Chunk<KVF>::type), kUnroll,
+             rg, scores) +
          (KVF != 0 ? (size_t)kUnroll * threads * 16 : 0);
 }
 
@@ -815,9 +1111,11 @@ decode_score_mma(Par<kFused> p, Rows rows) {
   const int RG = T / CPR, TR = RG * kUnroll;
   const int cc = tid % CPR, rg = tid / CPR;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Ring<KVF, GC> ring(smem, T, RG, false);
+  constexpr size_t kTile = sizeof(typename Chunk<KVF>::type);
+  const Ring<KVF, GC> ring(smem, T * kTile, kUnroll, RG, false);
   uint4* wide = reinterpret_cast<uint4*>(
-      smem + Ring<KVF, GC>::bytes(T, RG, false));    // fp8: [kUnroll][T]
+      smem + Ring<KVF, GC>::bytes(T * kTile, kUnroll, RG,
+                                  false));            // fp8: [kUnroll][T]
   float* red = reinterpret_cast<float*>(
       smem + mma_ring_bytes<KVF, GC>(T, RG, false));  // [nw][GC]
   int* ids = reinterpret_cast<int*>(red + nw * GC);  // page ids
@@ -969,9 +1267,11 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   const int RG = T / CPR, TR = RG * kUnroll;
   const int cc = tid % CPR, rg = tid / CPR;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Ring<KVF, GC> ring(smem, T, RG, true);
+  constexpr size_t kTile = sizeof(typename Chunk<KVF>::type);
+  const Ring<KVF, GC> ring(smem, T * kTile, kUnroll, RG, true);
   uint4* wide = reinterpret_cast<uint4*>(
-      smem + Ring<KVF, GC>::bytes(T, RG, true));  // fp8: [kUnroll][T]
+      smem + Ring<KVF, GC>::bytes(T * kTile, kUnroll, RG,
+                                  true));         // fp8: [kUnroll][T]
   float* o_w = reinterpret_cast<float*>(smem);  // [nw][GC][D], after the loop
   float* m_g = reinterpret_cast<float*>(
       smem + mma_union_bytes<KVF, GC>(T, DD));    // [GC] row max
@@ -1222,17 +1522,29 @@ cudaError_t launch_one(void (*kernel)(P, Rows), dim3 grid, int threads,
   return cudaGetLastError();
 }
 
+// Shared memory a block may opt into on the H100 (227 KiB).
+constexpr size_t kSmemOptin = 232448;
+
 // The passes of one call: decode_score, then (K2 over an int8 cache)
 // decode_pmax, then decode_attend, each a programmatic dependent of the
-// one before.
+// one before. Refuses a layout past the H100's shared memory.
 template <int KVF, int GC, bool kFused, class Rows>
 int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
                   int threads, cudaStream_t stream) {
-  const int nw = threads / 32, rg = threads / (p.D / 8);
+  const int nw = threads / 32;
   const size_t table = sizeof(int) * rows.table_ints(p.split_rows);
-  void (*score)(Par<kFused>, Rows) = decode_score<KVF, GC, Rows, kFused>;
-  void (*attend)(Par<kFused>, Rows) = decode_attend<KVF, GC, Rows, kFused>;
-  size_t ring = Ring<KVF, GC>::bytes(threads, rg, false);
+  const RowLayout lay(p.D, KVF == 0 ? 2 : 1, threads);
+  const bool two = lay.nc() == 2;
+  void (*score)(Par<kFused>, Rows) =
+      lay.exact ? decode_score_exact<KVF, GC, Rows, kFused>
+      : two     ? decode_score<KVF, GC, 2, Rows, kFused>
+                : decode_score<KVF, GC, 1, Rows, kFused>;
+  void (*attend)(Par<kFused>, Rows) =
+      lay.exact ? decode_attend_exact<KVF, GC, Rows, kFused>
+      : two     ? decode_attend<KVF, GC, 2, Rows, kFused>
+                : decode_attend<KVF, GC, 1, Rows, kFused>;
+  size_t ring = fma_ring_bytes<KVF, GC>(
+      lay, two ? kUnrollOf<2> : kUnrollOf<1>, threads, false);
   size_t attend_ring = attend_union_bytes<KVF, GC>(threads, p.D);
   // bf16 q at D = 64 or 128 over a bf16 cache (and, K2, an fp8 one): the
   // tensor-core pair (on the H100 it beat the FMA pair over fp8 too).
@@ -1242,24 +1554,26 @@ int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
                         : decode_score_mma<KVF, GC, 128, Rows, kFused>;
       attend = p.D == 64 ? decode_attend_mma<KVF, GC, 64, Rows, kFused>
                          : decode_attend_mma<KVF, GC, 128, Rows, kFused>;
-      ring = mma_ring_bytes<KVF, GC>(threads, rg, false);
+      ring = mma_ring_bytes<KVF, GC>(threads, threads / (p.D / 8), false);
       attend_ring = mma_union_bytes<KVF, GC>(threads, p.D);
     }
   }
-  cudaError_t err = launch_one(
-      score, grid, threads, ring + sizeof(float) * nw * GC + table, stream,
-      false, p, rows);
+  const size_t score_smem = ring + sizeof(float) * nw * GC + table;
+  const size_t attend_smem = attend_ring + sizeof(float) * (GC + nw * GC) +
+                             sizeof(int) + table +
+                             (kFused ? sizeof(float) * 2 * GC : 0);
+  if (score_smem > kSmemOptin || attend_smem > kSmemOptin)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_one(score, grid, threads, score_smem, stream,
+                               false, p, rows);
   if (err != cudaSuccess) return err;
   if constexpr (kFused && KVF == 1) {
     err = launch_one(decode_pmax<GC>, grid, threads, 0, stream, true, p,
                      rows);
     if (err != cudaSuccess) return err;
   }
-  return launch_one(attend, grid, threads,
-                    attend_ring + sizeof(float) * (GC + nw * GC) +
-                        sizeof(int) + table +
-                        (kFused ? sizeof(float) * 2 * GC : 0),
-                    stream, true, p, rows);
+  return launch_one(attend, grid, threads, attend_smem, stream, true, p,
+                    rows);
 }
 
 // Checks the launch shape, carves the workspace, picks the storage
@@ -1267,10 +1581,10 @@ int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
 template <bool kFused, class Rows>
 int launch(Par<kFused> p, const Rows& rows, void* workspace, int n,
            int kv_format, int group_chunk, int threads, void* stream) {
-  const int cpr = p.D / 8, cap = rows.capacity();
-  if (p.group < 1 || p.hkv < 1 || n < 1 || n % p.hkv != 0 || p.D % 8 != 0 ||
-      cpr > 32 || (cpr & (cpr - 1)) != 0 || threads % 32 != 0 ||
-      threads % cpr != 0 || threads < 32 || threads > 256 || cap < 0 ||
+  const int cap = rows.capacity();
+  if (p.group < 1 || p.hkv < 1 || n < 1 || n % p.hkv != 0 || p.D < 1 ||
+      p.D > kMaxHeadDim || threads % 32 != 0 || threads < 32 ||
+      threads > 256 || cap < 0 ||
       p.split_rows < 1 || (p.split_rows & (p.split_rows - 1)) != 0 ||
       (group_chunk != 4 && group_chunk != 8))
     return cudaErrorInvalidValue;

@@ -6,6 +6,12 @@ source ``csrc/decode.cu``); K5 replaces ``_decode_kernel_single`` and
 ``_decode_kernel`` (``csrc/decode_attend.cu``). All three (and the paged
 kernel K6 in ``kernels/paged_decode.py``) share one split-KV body,
 ``csrc/decode_split.cuh``, and one launch shape (:func:`split_launch`).
+All three take any head dim 1 <= D <= 512 over an unpadded cache (D
+values a row: 200 bytes at D 100 in bf16, 100 in int8 and fp8): bf16 q at
+D 64 and 128 over a bf16 cache (K2: also fp8) on tensor cores, every
+other case on FMA in ``decode_split.cuh::RowLayout``'s rows, which copy
+the cache in 16-byte granules whatever a row's alignment
+(``ops/params.py::decode_row_layout`` mirrors it).
 :func:`decode_fused_append` and :func:`decode_attend` launch their
 kernels for CUDA tensors and take their plain versions only for CPU
 tensors.
@@ -33,10 +39,6 @@ INT8_MAX = quant.INT8_MAX
 # Cache storage types the kernel takes, with its format codes.
 KV_FORMATS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
               torch.float8_e5m2: 3}
-# D / 8 lanes share a cache row, so a CTA's threads must be a multiple of
-# the most lanes a row takes.
-assert (params_mod.DECODE_ATTEND_THREADS
-        % (params_mod.DECODE_MAX_HEAD_DIM // 8) == 0)
 # Storage types whose per-token scales multiply S and P.
 QUANTIZED = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 
@@ -115,8 +117,9 @@ def check_types(q3, k, v, k_scale, v_scale, lengths) -> None:
 
 def check_launch(name: str, q3, k, v, **others) -> None:
     """What a launch needs beyond the operands' shapes and types: one CUDA
-    device, contiguous tensors, a storage type and head dim the kernels
-    take, and 16-byte aligned cache storage."""
+    device, contiguous tensors, a storage type and head dim (any D up to
+    512) the kernels take, and 16-byte aligned cache storage (rows need
+    not be: the kernels copy 16-byte granules of it)."""
     if not q3.is_cuda:
         raise ValueError(f"{name}: unsupported device {q3.device}")
     for tname, t in dict(q=q3, k=k, v=v, **others).items():
@@ -127,11 +130,13 @@ def check_launch(name: str, q3, k, v, **others) -> None:
     if k.dtype not in KV_FORMATS:
         raise TypeError(f"cache storage {k.dtype} not taken by the kernel "
                         f"(takes {list(KV_FORMATS)})")
-    d = q3.shape[-1]
-    if (d > params_mod.DECODE_MAX_HEAD_DIM or d % 8
-            or (d // 8) & (d // 8 - 1)):
-        raise ValueError(f"head dim {d}: the kernel takes D = 8 * 2^k <= "
-                         f"{params_mod.DECODE_MAX_HEAD_DIM}")
+    d, most = q3.shape[-1], params_mod.DECODE_MAX_HEAD_DIM
+    if not 1 <= d <= most:
+        raise ValueError(
+            f"head dim {d}: the kernel takes 1 <= D <= {most} (a row of "
+            f"{d * k.element_size()} bytes is {-(-d // 8)} chunks of 8 "
+            f"values; a warp's 32 lanes take at most two chunks each, "
+            f"{most * k.element_size()} bytes a row)")
     if any(t.data_ptr() % 16 for t in (k, v)):
         raise ValueError("cache storage must be 16-byte aligned")
 

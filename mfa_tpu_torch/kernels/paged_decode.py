@@ -1,8 +1,9 @@
 """Paged decode attention: the Hopper kernel K6 and its plain version.
 
 Replaces ``mfa_tpu/kernels/paged_decode.py::_paged_decode_kernel``; the
-CUDA source is ``csrc/decode_attend.cu``, the body K5 uses over a
-contiguous cache, here reading each row through the page table.
+CUDA source is ``csrc/paged_decode.cu``, over the body K5 uses for a
+contiguous cache (``csrc/decode_split.cuh``), here reading each row
+through the page table. Any head dim up to 512, as K5.
 :func:`paged_decode` launches the kernel for CUDA tensors and takes
 :func:`paged_decode_plain` only for CPU tensors.
 

@@ -364,9 +364,11 @@ _TABLES = {
     },
 }
 
-# The decode kernels (K2, K5, K6) take head dims D = 8 * 2^k up to this;
-# the flash kernels take any head dim (the D-blocked rows above 256).
-DECODE_MAX_HEAD_DIM = 256
+# The decode kernels (K2, K5, K6) take any head dim up to this (a warp's
+# 32 lanes take at most two 8-value chunks of a row each:
+# decode_row_layout); the flash kernels take any head dim (the D-blocked
+# rows above 256).
+DECODE_MAX_HEAD_DIM = 512
 
 _PARSED: dict = {}
 
@@ -614,9 +616,142 @@ _SMEM = {
 DECODE_SPLITS = 8
 DECODE_SPLIT_MIN_ROWS = 64
 DECODE_SPLIT_MAX_ROWS = 1024
-# Threads of a K5/K6 CTA: D / 8 lanes share a cache row, so it must be a
-# multiple of the most lanes a row takes (256 beat 128 in the same sweep).
+# Threads of a K5/K6 CTA, a multiple of 32: at most 32 lanes share a
+# cache row (256 beat 128 in the same sweep).
 DECODE_ATTEND_THREADS = 256
+# The split-KV body's ring (csrc/decode_split.cuh): kStages tiles, kUnroll
+# rows a lane group a tile (half past D = 256, two chunks a lane).
+DECODE_STAGES = 3
+DECODE_UNROLL = 8
+
+
+@dataclass(frozen=True)
+class DecodeRowLayout:
+    """decode_split.cuh::RowLayout, the FMA passes' rows for a head dim
+    over a storage type: ``lanes`` (W) adjacent lanes take a row of
+    ``chunks`` 8-value chunks, ``chunks_per_lane`` each; a warp's
+    ``run_rows`` row groups take a run of as many consecutive rows, which
+    the warp copies as whole 16-byte granules into a slot of
+    ``run_bytes``, the run's first byte at its cache offset mod 16; a
+    chunk sits in shared memory at ``align`` bytes. At D = 8 * W
+    (``exact``: D = 8 * 2^k <= 256) the kernels keep the layout before
+    any D was taken: each thread copies and reads its own chunk."""
+
+    row_bytes: int
+    chunks: int
+    lanes: int
+    run_rows: int
+    row_groups: int
+    run_bytes: int
+    align: int
+    exact: bool
+
+    @property
+    def aligned(self) -> bool:
+        return self.row_bytes % 16 == 0
+
+
+    @property
+    def chunks_per_lane(self) -> int:
+        return -(-self.chunks // self.lanes)
+
+    @property
+    def unroll(self) -> int:
+        return DECODE_UNROLL if self.chunks_per_lane == 1 else (
+            DECODE_UNROLL // 2)
+
+
+def decode_row_layout(head_dim: int, itemsize: int,
+                      threads: int | None = None) -> DecodeRowLayout:
+    """The row layout of K2/K5/K6's FMA passes at ``head_dim`` over
+    storage of ``itemsize`` bytes a value (2 bf16, 1 int8 / fp8)."""
+    threads = threads or DECODE_ATTEND_THREADS
+    rb = head_dim * itemsize
+    chunks = -(-head_dim // 8)
+    lanes = 1
+    while lanes < chunks and lanes < 32:
+        lanes *= 2
+    run_rows = 32 // lanes
+    exact = head_dim == 8 * lanes
+    run = (32 * 8 * itemsize if exact
+           else -(-run_rows * rb // 16) * 16 + (0 if rb % 16 == 0 else 32))
+    align = 16
+    while rb % align:
+        align //= 2
+    return DecodeRowLayout(rb, chunks, lanes, run_rows, threads // lanes,
+                           run, min(align, 8 * itemsize), exact)
+
+
+def _decode_ring_bytes(chunk_bytes: int, unroll: int, row_groups: int,
+                       group_chunk: int, scores: bool) -> int:
+    """decode_split.cuh::Ring::bytes."""
+    return DECODE_STAGES * unroll * (
+        chunk_bytes + (row_groups * group_chunk * 4 if scores else 0)
+        + row_groups * 4)
+
+
+def decode_attend_union_bytes(head_dim: int, itemsize: int,
+                              group_chunk: int,
+                              threads: int | None = None) -> int:
+    """decode_split.cuh::attend_union_bytes: the FMA attend pass's ring,
+    which the warps' partial O [nw][GC][D] fp32 reuses."""
+    threads = threads or DECODE_ATTEND_THREADS
+    lay = decode_row_layout(head_dim, itemsize, threads)
+    ring = _decode_ring_bytes(threads // 32 * lay.run_bytes, lay.unroll,
+                              lay.row_groups, group_chunk, True)
+    return max(ring, threads // 32 * group_chunk * head_dim * 4)
+
+
+def decode_mma_union_bytes(head_dim: int, itemsize: int, group_chunk: int,
+                           threads: int | None = None) -> int:
+    """decode_split.cuh::mma_union_bytes (tensor-core pair, D 64 or 128):
+    the ring of each thread's chunk (and, fp8, the widened bf16 tile),
+    which the partial O reuses."""
+    threads = threads or DECODE_ATTEND_THREADS
+    ring = _decode_ring_bytes(threads * 8 * itemsize, DECODE_UNROLL,
+                              threads // (head_dim // 8), group_chunk, True)
+    ring += DECODE_UNROLL * threads * 16 if itemsize == 1 else 0
+    return max(ring, threads // 32 * group_chunk * head_dim * 4)
+
+
+def decode_tensor_cores(head_dim: int, storage: torch.dtype, q_bf16: bool,
+                        fused: bool) -> bool:
+    """Whether a launch takes the tensor-core pair (launch_passes): bf16 q
+    at D 64 or 128 over a bf16 cache, and (K2) over an fp8 one."""
+    return q_bf16 and head_dim in (64, 128) and (
+        storage == torch.bfloat16 or (fused and storage in (
+            torch.float8_e4m3fn, torch.float8_e5m2)))
+
+
+def decode_smem_bytes(head_dim: int, storage: torch.dtype, group_chunk: int,
+                      *, fused: bool = False, q_bf16: bool = True,
+                      table_ints: int = 0,
+                      threads: int | None = None) -> tuple[int, int]:
+    """Shared memory of the score and the attend pass of one K2/K5/K6
+    call, as decode_split.cuh::launch_passes computes it (table_ints: K6's
+    page ids a split, split rows / page + 2; int8 storage never takes the
+    tensor cores)."""
+    threads = threads or DECODE_ATTEND_THREADS
+    itemsize = torch.empty((), dtype=storage).element_size()
+    nw = threads // 32
+    if decode_tensor_cores(head_dim, storage, q_bf16, fused):
+        ring = _decode_ring_bytes(threads * 8 * itemsize, DECODE_UNROLL,
+                                  threads // (head_dim // 8), group_chunk,
+                                  False)
+        ring += DECODE_UNROLL * threads * 16 if itemsize == 1 else 0
+        union = decode_mma_union_bytes(head_dim, itemsize, group_chunk,
+                                       threads)
+    else:
+        lay = decode_row_layout(head_dim, itemsize, threads)
+        ring = _decode_ring_bytes(nw * lay.run_bytes, lay.unroll,
+                                  lay.row_groups, group_chunk, False)
+        union = decode_attend_union_bytes(head_dim, itemsize, group_chunk,
+                                          threads)
+    table = 4 * table_ints
+    score = ring + 4 * nw * group_chunk + table
+    attend = (union + 4 * (group_chunk + nw * group_chunk) + 4 + table
+              + (8 * group_chunk if fused else 0))
+    return score, attend
 
 
 def decode_group_chunk(group: int) -> int:

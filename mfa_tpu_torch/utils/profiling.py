@@ -20,10 +20,15 @@ step at the same batch. The int4 phase serves Llama-3-8B with INT4
 weight-only projections (K8) and an FP8-e4m3 KV cache: a 2048-token
 prefill and decode steps at 4 slots.
 
+``--model openllama_3b`` serves OpenLLaMA-3B instead (26 layers, width
+3200, 32 heads of head dim 100, MHA: K1 on its ``bf16_mma`` row, K2 and
+K6 on FMA at D 100), for the serving and paged phases.
+
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.profiling [--out build/profiles]
         [--phases serving,paged,training,int4]
+        [--model llama3_8b|openllama_3b]
 
 Beside the breakdown, the ports of ``mfa_tpu/utils/profiling.py``'s
 tools: :func:`trace`, a ``torch.profiler`` context that writes a Chrome
@@ -55,6 +60,14 @@ from mfa_tpu_torch.serving.scheduler import Request
 from mfa_tpu_torch.utils.device import resolve_device
 
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "trace"
+# The served configurations: Llama-3-8B, and OpenLLaMA-3B as its
+# published config.json reads (openlm-research/open_llama_3b).
+MODELS = {
+    "llama3_8b": LlamaConfig.llama3_8b(),
+    "openllama_3b": LlamaConfig(vocab_size=32000, dim=3200, n_layers=26,
+                                n_heads=32, n_kv_heads=32, ffn_hidden=8640,
+                                rope_theta=10000.0, norm_eps=1e-6),
+}
 
 
 @contextlib.contextmanager
@@ -342,13 +355,15 @@ def main(argv=None) -> int:
                     help="directory for the per-phase kernel tables")
     ap.add_argument("--phases", default="serving,paged,training,int4",
                     help="comma-separated: serving, paged, training, int4")
+    ap.add_argument("--model", default="llama3_8b", choices=tuple(MODELS),
+                    help="the served configuration")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     print(torch.cuda.get_device_name(0), flush=True)
-    cfg = LlamaConfig.llama3_8b()
+    cfg = MODELS[args.model]
     runs = {"serving": lambda: profile_serving(cfg, out=out),
             "paged": lambda: profile_paged(cfg, out=out),
             "training": lambda: profile_training(

@@ -13,6 +13,7 @@ without the suite's conftest):
 """
 
 import copy
+import dataclasses
 import math
 import threading
 
@@ -188,10 +189,17 @@ def test_flash_fwd_kernel_takes_more_than_65535_heads(cuda):
     _k1_check(cuda, q, k, v, kd, kw, "bf16", torch.bfloat16, "wgmma")
 
 
+# Head dims past D = 8 * 2^k (the cache keeps D values a row: 200 bytes
+# at D 100 in bf16, 100 in int8 and fp8, D 250's 500 and 250; D 384 takes
+# two chunks a lane): (D, G, window, q dtype).
+HEAD_DIMS = ((80, 4, None, "bf16"), (96, 8, None, "bf16"),
+             (100, 1, 50, "bf16"), (250, 4, None, "fp32"),
+             (384, 8, None, "bf16"))
 K2_CASES = [(fmt, d, g, w, qdt)
             for fmt in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2")
             for d, g, w, qdt in ((64, 1, None, "bf16"), (128, 4, 100, "bf16"),
-                                 (256, 8, None, "bf16"), (32, 2, None, "fp32"))]
+                                 (256, 8, None, "bf16"), (32, 2, None, "fp32"))
+            + HEAD_DIMS]
 _FORMATS = {"bf16": OperandPrecision.BF16, "int8": OperandPrecision.INT8,
             "fp8_e4m3": OperandPrecision.FP8_E4M3,
             "fp8_e5m2": OperandPrecision.FP8_E5M2}
@@ -254,8 +262,13 @@ ATTEND_CASES = [
     ("bf16", 128, 12, 33, "fp32", (1, 60, 255, 256)),
     ("int8", 64, 4, 9, "fp32", (0, 8, 9, 250)),
     ("fp8_e5m2", 8, 2, None, "bf16", (17, 1, 256, 128)),
-]
+] + [(fmt, d, g, w, qdt, (0, 33, 255, 256))
+     for fmt in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2")
+     for d, g, w, qdt in HEAD_DIMS]
 _ATTEND_IDS = [f"{c[0]}-D{c[1]}-G{c[2]}-w{c[3]}-{c[4]}" for c in ATTEND_CASES]
+# K5 alone also at D 512 (two chunks a lane, the partial O at 131,072
+# bytes of shared memory).
+K5_CASES = ATTEND_CASES + [("bf16", 512, 1, None, "bf16", (3, 200, 256, 64))]
 
 
 def _attend_inputs(cuda, case, hkv, cap):
@@ -269,7 +282,7 @@ def _attend_inputs(cuda, case, hkv, cap):
     return q3, lengths, gen
 
 
-@pytest.mark.parametrize("case", ATTEND_CASES, ids=_ATTEND_IDS)
+@pytest.mark.parametrize("case", K5_CASES, ids=_ATTEND_IDS + ["bf16-D512"])
 def test_decode_attend_kernel_matches_plain(cuda, case):
     fmt, d, g, window, _, lens = case
     b, hkv, max_len = len(lens), 2, 256
@@ -323,6 +336,35 @@ def test_paged_decode_kernel_matches_plain(cuda, case, ps):
                            ks.contiguous(), vs.contiguous(), lengths,
                            num_kv_heads=hkv, sliding_window=window)
     assert_close(o, o_c, 0.0, "O paged vs contiguous")
+
+
+@pytest.mark.parametrize("fmt, d, ps", [("int8", 100, 3), ("bf16", 100, 24),
+                                       ("fp8_e5m2", 250, 24),
+                                       ("int8", 80, 5)])
+def test_paged_decode_pages_of_odd_bytes_match_plain(cuda, fmt, d, ps):
+    """Pages whose bytes are not a multiple of 16 (a page of 3 rows of 100
+    int8 values starts 4-byte aligned): K6 copies such runs byte by byte,
+    page by page; equal to K5 over the same rows, within its budget."""
+    hkv, g, window = 2, 4, None
+    lens = (0, 7, 70, 301)
+    max_pages = -(-max(lens) // ps)
+    q3, lengths, gen = _attend_inputs(
+        cuda, (fmt, d, g, window, "bf16", lens), hkv, ps)
+    operands = (*shuffled_page_pool(_FORMATS[fmt].dtype, lens, hkv, d, ps,
+                                    max_pages, generator=gen, device=cuda),
+                lengths)
+    o = k6.paged_decode(q3, *operands,
+                        out=nan_canary(q3.shape, q3.dtype, device=cuda))
+    torch.cuda.synchronize()
+    assert_fully_written(o, "O")
+    atol, rtol = KERNEL_BUDGETS["paged_decode_o"]
+    assert_close(o, k6.paged_decode_plain(q3, *operands), atol, "O",
+                 rtol=rtol)
+    k, v, ks, vs = (k6.gather_rows(t, operands[4]) for t in operands[:4])
+    o_c = k2.decode_attend(q3, k.contiguous(), v.contiguous(),
+                           ks.contiguous(), vs.contiguous(), lengths,
+                           num_kv_heads=hkv)
+    assert torch.equal(o, o_c)
 
 
 # K5 and K6 over a cache of many splits, the lengths at split edges (0, 1,
@@ -496,6 +538,37 @@ def test_tiny_llama_on_cuda_matches_cpu(cuda):
             lc, cc = cpu.decode_step(tok, cc)
             lg, gc = gpu.decode_step(tok.to(cuda), gc)
             assert_close(lg, lc, 2e-2, f"decode {step} {prec.value}")
+
+
+def test_openllama_width_decode_step_matches_cpu(cuda):
+    """One decode step of a 2-layer model at OpenLLaMA-3B's widths (width
+    3200, 32 heads of head dim 100, MHA, FFN 8640, vocab 32000; bf16) on
+    the card (K1 on its bf16_mma row, K2 at D 100) against the same model
+    on the CPU (the plain versions), over bf16, INT8 and FP8-e4m3 caches:
+    logits within the mixed budget of their largest."""
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), vocab_size=32000,
+                              dim=3200, n_layers=2, n_heads=32,
+                              n_kv_heads=32, ffn_hidden=8640,
+                              rope_theta=10000.0, norm_eps=1e-6)
+    assert cfg.head_dim == 100
+    params = llama.init_params(cfg, torch.Generator().manual_seed(7),
+                               torch.bfloat16)
+    cpu = llama.Llama(cfg, params, device="cpu")
+    gpu = llama.Llama(cfg, params, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        1, cfg.vocab_size, (2, 37)))
+    n1, n2 = k1.flash_fwd.launches, k2.decode_fused_append.launches
+    for name in ("bf16", "int8", "fp8_e4m3"):
+        prec = _FORMATS[name]
+        cc, gc = cpu.make_caches(2, 64, prec), gpu.make_caches(2, 64, prec)
+        cpu(tokens, caches=cc)
+        gpu(tokens.to(cuda), caches=gc)
+        lc, _ = cpu.decode_step(tokens[:, -1], cc)
+        lg, _ = gpu.decode_step(tokens[:, -1].to(cuda), gc)
+        scale = float(lc.float().abs().max())
+        assert_close(lg, lc, 5e-2 * max(1.0, scale), f"decode ({name})")
+    assert k1.flash_fwd.launches - n1 == 3 * cfg.n_layers
+    assert k2.decode_fused_append.launches - n2 == 3 * cfg.n_layers
 
 
 def test_scheduler_on_cuda_matches_cpu(cuda):

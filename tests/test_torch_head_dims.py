@@ -1,0 +1,449 @@
+"""The decode kernels' head dims past D = 8 * 2^k (K2
+``decode_fused_append``, K5 ``decode_attend``, K6 ``paged_decode``): the
+port's three decode entry points (their plain versions on the CPU)
+against mfa_tpu's (Pallas kernels in interpret mode) at D 80, 96, 100,
+250 and 384 over bf16, INT8 and FP8-e4m3 caches, with the port's
+unpadded cache rows bit-equal to mfa_tpu's padded rows' first D values;
+both schedulers token for token against mfa_tpu's at an MHA model of
+head dim 100 (OpenLLaMA-3B's) and GQA models of 80 and 384; OpenLLaMA-3B's
+published config read alike by both packages; and the host reckoning of
+the kernels' row layout (``ops/params.py::decode_row_layout``, mirror of
+``csrc/decode_split.cuh::RowLayout``): lane groups, 16-byte granules that
+put each row where its lanes read it, and shared memory."""
+
+import dataclasses
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mfa_tpu.models import convert as jax_convert
+from mfa_tpu.models import llama as jax_llama
+from mfa_tpu.ops.decode import decode_attention as jax_decode
+from mfa_tpu.ops.decode import decode_attention_append as jax_decode_append
+from mfa_tpu.ops.decode import paged_decode_attention as jax_paged_attention
+from mfa_tpu.ops.precision import OperandPrecision as JPrec
+from mfa_tpu.serving import kv_cache as jax_kv
+from mfa_tpu.serving import paged_kv_cache as jax_paged
+from mfa_tpu.serving.paged_scheduler import PagedScheduler as JaxPaged
+from mfa_tpu.serving.scheduler import ContinuousBatchingScheduler as JaxSched
+from mfa_tpu.serving.scheduler import Request as JaxRequest
+from mfa_tpu_torch.models import convert, llama
+from mfa_tpu_torch.models.from_jax import params_from_numpy
+from mfa_tpu_torch.ops import params
+from mfa_tpu_torch.ops.decode import (
+    decode_attention,
+    decode_attention_append,
+    paged_decode_attention,
+)
+from mfa_tpu_torch.ops.precision import OperandPrecision
+from mfa_tpu_torch.serving import kv_cache
+from mfa_tpu_torch.serving.paged_kv_cache import PagedKVCache
+from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
+from mfa_tpu_torch.serving.scheduler import ContinuousBatchingScheduler, Request
+
+HQ, HKV = 4, 2
+HEAD_DIMS = (80, 96, 100, 250, 384)
+# Budgets against mfa_tpu, those of tests/test_torch_decode.py (K2) and
+# tests/test_torch_decode_attention.py / test_torch_paged.py (K5, K6):
+# the mixed budget for bf16 storage, 6e-2 for quantized storage.
+FORMATS = {
+    "bf16": (JPrec.BF16, OperandPrecision.BF16, 5e-2, 2e-2),
+    "int8": (JPrec.INT8, OperandPrecision.INT8, 6e-2, 6e-2),
+    "fp8_e4m3": (JPrec.FP8_E4M3, OperandPrecision.FP8_E4M3, 6e-2, 6e-2),
+}
+# (D, storage, window): every head dim over every storage, and D 100 (a
+# row of 200 bytes in bf16, 100 in int8) under a window.
+CASES = ([(d, name, None) for d in HEAD_DIMS for name in FORMATS]
+         + [(100, "bf16", 64)])
+_IDS = [f"D{d}-{name}" + (f"-w{w}" if w else "") for d, name, w in CASES]
+MAX_LEN = 256
+
+
+def _assert_close(got, want, tol, what):
+    """|got - want| <= tol * max(1, |want|) elementwise."""
+    got = got.float().numpy()
+    err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    assert float(err.max()) <= tol, f"{what}: {float(err.max())} > {tol}"
+
+
+def _filled(rng, d, jprec, tprec, lengths):
+    """Both contiguous caches filled with the same rows; mfa_tpu's under
+    jax.jit (its head dim padded to a multiple of 128), the port's with D
+    values a row."""
+    b = len(lengths)
+    fill = rng.standard_normal((2, b, HKV, MAX_LEN, d)).astype(np.float32)
+    jc = jax.jit(jax_kv.update)(jax_kv.create(b, HKV, MAX_LEN, d, jprec),
+                                jnp.asarray(fill[0]), jnp.asarray(fill[1]))
+    jc = dataclasses.replace(jc, lengths=jnp.asarray(lengths, jnp.int32))
+    tc = kv_cache.update(
+        kv_cache.create(b, HKV, MAX_LEN, d, tprec, device="cpu"),
+        torch.from_numpy(fill[0]), torch.from_numpy(fill[1]))
+    tc.lengths = torch.tensor(lengths, dtype=torch.int32)
+    assert tc.k.shape[-1] == d and jc.k.shape[-1] == -(-d // 128) * 128
+    return jc, tc
+
+
+def _assert_same_cache(jc, tc, d):
+    """The port's rows equal mfa_tpu's first D values bit for bit, scales
+    within an ulp (as tests/test_torch_decode.py holds them)."""
+    for f in ("k", "v"):
+        np.testing.assert_array_equal(
+            getattr(tc, f).float().numpy(),
+            np.asarray(getattr(jc, f).astype(jnp.float32))[..., :d],
+            err_msg=f)
+    for f in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(getattr(tc, f).numpy(),
+                                   np.asarray(getattr(jc, f))[:, :, 0, :],
+                                   rtol=1e-6, err_msg=f)
+
+
+@pytest.mark.parametrize("d, name, window", CASES, ids=_IDS)
+def test_decode_attention_matches_mfa_tpu(d, name, window):
+    """K5's entry point."""
+    jprec, tprec, tol, _ = FORMATS[name]
+    rng = np.random.default_rng(d)
+    lengths = [0, 131, 37, MAX_LEN]      # empty, unaligned, short, full
+    jc, tc = _filled(rng, d, jprec, tprec, lengths)
+    _assert_same_cache(jc, tc, d)
+    q = rng.standard_normal((len(lengths), HQ, d)).astype(np.float32)
+    o_j = jax_decode(jnp.asarray(q, jnp.bfloat16), jc, sliding_window=window)
+    o_t = decode_attention(torch.from_numpy(q).bfloat16(), tc,
+                           sliding_window=window, device="cpu")
+    assert o_t.dtype == torch.bfloat16 and o_t.shape == q.shape
+    _assert_close(o_t, np.asarray(o_j, np.float32), tol, f"O D {d} {name}")
+    assert not o_t[0].any()                        # length 0 gives zeros
+
+
+@pytest.mark.parametrize("d, name, window", CASES, ids=_IDS)
+def test_decode_attention_append_matches_mfa_tpu(d, name, window):
+    """K2's entry point, two steps: the second fills the last slot, and
+    the caches after each append are bit-equal."""
+    jprec, tprec, _, tol = FORMATS[name]
+    rng = np.random.default_rng(1000 + d)
+    jc, tc = _filled(rng, d, jprec, tprec, [0, 131, MAX_LEN - 2])
+    for step in range(2):
+        q = rng.standard_normal((3, HQ, d)).astype(np.float32)
+        kn, vn = (rng.standard_normal((2, 3, HKV, d)) * 0.5).astype(
+            np.float32)
+        o_j, jc = jax_decode_append(jnp.asarray(q, jnp.bfloat16),
+                                    jnp.asarray(kn, jnp.bfloat16),
+                                    jnp.asarray(vn, jnp.bfloat16), jc,
+                                    sliding_window=window)
+        o_t, tc = decode_attention_append(
+            torch.from_numpy(q).bfloat16(), torch.from_numpy(kn).bfloat16(),
+            torch.from_numpy(vn).bfloat16(), tc, sliding_window=window,
+            device="cpu")
+        _assert_same_cache(jc, tc, d)
+        _assert_close(o_t, np.asarray(o_j, np.float32), tol,
+                      f"O step {step} D {d} {name}")
+    assert tc.lengths.tolist() == [2, 133, MAX_LEN]
+
+
+def _to_torch(a, dtype):
+    """A JAX array as a torch tensor of ``dtype``, bit for bit."""
+    a = np.array(a)
+    if a.dtype.itemsize == 2 and dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    if a.dtype.itemsize == 1 and dtype != torch.int8:
+        return torch.from_numpy(a.view(np.uint8)).view(dtype)
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("d, name, window", CASES, ids=_IDS)
+def test_paged_decode_attention_matches_mfa_tpu(d, name, window):
+    """K6's entry point over the same pool: the same uneven appends give
+    the same tables, then the port's pool takes mfa_tpu's bytes (its first
+    D values a row; mfa_tpu's eager append rounds its scales a step apart
+    from the jitted quantizer, tests/test_torch_paged.py)."""
+    jprec, tprec, tol, _ = FORMATS[name]
+    rng = np.random.default_rng(2000 + d)
+    lens = [200, 391, 0]
+    jc = jax_paged.PagedKVCache(16, HKV, d, len(lens), 512, jprec)
+    tc = PagedKVCache(16, HKV, d, len(lens), 512, tprec, device="cpu")
+    for s, ln in enumerate(lens):
+        kv = rng.standard_normal((2, HKV, ln, d)).astype(np.float32)
+        for lo, hi in ((0, 7), (7, 137), (137, ln)):
+            if lo < min(hi, ln):
+                jc.append(s, jnp.asarray(kv[0, :, lo:hi]),
+                          jnp.asarray(kv[1, :, lo:hi]))
+                tc.append(s, torch.from_numpy(kv[0, :, lo:hi]),
+                          torch.from_numpy(kv[1, :, lo:hi]))
+    np.testing.assert_array_equal(tc.page_tables, jc.page_tables)
+    dt = tc.pool.k_pages.dtype
+    for f in ("k_pages", "v_pages"):
+        getattr(tc.pool, f).copy_(_to_torch(getattr(jc.pool, f)[..., :d], dt))
+    for f in ("k_scale", "v_scale"):
+        getattr(tc.pool, f).copy_(
+            _to_torch(getattr(jc.pool, f)[:, :, 0, :], torch.float32))
+    q = rng.standard_normal((len(lens), HQ, d)).astype(np.float32)
+    o_j = jax_paged_attention(jnp.asarray(q, jnp.bfloat16), jc,
+                              sliding_window=window)
+    o_t = paged_decode_attention(torch.from_numpy(q).bfloat16(), tc,
+                                 sliding_window=window, device="cpu")
+    assert o_t.shape == (len(lens), HQ, d)
+    _assert_close(o_t, np.asarray(o_j, np.float32), tol,
+                  f"paged O D {d} {name}")
+    assert not o_t[2].any()                        # length 0 gives zeros
+
+
+# ---------------------------------------------------------------------------
+# Schedulers at head dims 100 (MHA, OpenLLaMA-3B's), 80 and 384 (GQA)
+# ---------------------------------------------------------------------------
+
+MODELS = {"mha_d100": (200, 2, 2), "gqa_d80": (320, 4, 2),
+          "gqa_d384": (768, 2, 1)}
+SHAPES = [(3, 4), (5, 2), (2, 6), (4, 3), (6, 5)]   # (prompt, new tokens)
+
+
+@pytest.fixture(scope="module", params=list(MODELS))
+def model_pair(request):
+    dim, heads, kv_heads = MODELS[request.param]
+    fields = dict(vocab_size=256, dim=dim, n_layers=2, n_heads=heads,
+                  n_kv_heads=kv_heads, ffn_hidden=256, rope_theta=10000.0)
+    cfg_j = jax_llama.LlamaConfig(**fields)
+    cfg = llama.LlamaConfig(**fields)
+    assert cfg.head_dim == cfg_j.head_dim == dim // heads
+    p = jax_llama.init_params(jax.random.key(1), cfg_j, jnp.float32)
+    model = params_from_numpy(jax.tree.map(np.asarray, p), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, ln).tolist()
+               for ln, _ in SHAPES]
+    return cfg_j, p, model, prompts
+
+
+def _tokens(sched, requests):
+    for r in requests:
+        sched.submit(r)
+    done = {c.request.id: c.tokens for c in sched.run()}
+    return [done[r.id] for r in requests], dict(sched.stats)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_schedulers_match_mfa_tpu_at_odd_head_dims(model_pair, paged):
+    """Greedy tokens and statistics equal to mfa_tpu's scheduler, more
+    requests than slots."""
+    cfg_j, p, model, prompts = model_pair
+    kw = dict(num_slots=2, prompt_buckets=(8, 16))
+    if paged:
+        kw.update(num_pages=8, max_len=256)
+        jsched, sched = (JaxPaged(p, cfg_j, **kw),
+                         PagedScheduler(model, device="cpu", **kw))
+    else:
+        kw.update(max_len=64)
+        jsched, sched = (JaxSched(p, cfg_j, **kw),
+                         ContinuousBatchingScheduler(model, device="cpu",
+                                                     **kw))
+    want, jstats = _tokens(jsched, [JaxRequest(prompt=x, max_new_tokens=n)
+                                    for x, (_, n) in zip(prompts, SHAPES)])
+    got, stats = _tokens(sched, [Request(prompt=x, max_new_tokens=n)
+                                 for x, (_, n) in zip(prompts, SHAPES)])
+    assert got == want
+    assert stats == jstats and stats["prefills"] == len(SHAPES)
+
+
+# OpenLLaMA-3B's published config.json fields (openlm-research/
+# open_llama_3b): no num_key_value_heads (MHA), no rope_theta.
+OPENLLAMA_3B = dict(
+    architectures=["LlamaForCausalLM"], model_type="llama",
+    hidden_act="silu", hidden_size=3200, intermediate_size=8640,
+    num_hidden_layers=26, num_attention_heads=32,
+    max_position_embeddings=2048, rms_norm_eps=1e-6,
+    tie_word_embeddings=False, vocab_size=32000, torch_dtype="float16")
+
+
+def test_openllama_3b_config_reads_alike():
+    cfg = convert.config_from_hf(SimpleNamespace(**OPENLLAMA_3B))
+    cfg_j = jax_convert.config_from_hf(SimpleNamespace(**OPENLLAMA_3B))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j)
+    assert (cfg.head_dim, cfg.n_heads, cfg.n_kv_heads) == (100, 32, 32)
+    assert (cfg.dim, cfg.n_layers, cfg.ffn_hidden) == (3200, 26, 8640)
+    # The profiler's OpenLLaMA-3B is the same configuration.
+    from mfa_tpu_torch.utils import profiling
+    assert profiling.MODELS["openllama_3b"] == cfg
+
+
+# ---------------------------------------------------------------------------
+# The row layout's host reckoning
+# ---------------------------------------------------------------------------
+
+STORAGE = {"bf16": torch.bfloat16, "int8": torch.int8,
+           "fp8_e4m3": torch.float8_e4m3fn}
+
+
+@pytest.mark.parametrize("itemsize", [2, 1], ids=["bf16", "1-byte"])
+def test_lane_groups_follow_the_rule(itemsize):
+    """W = min(32, next power of two >= ceil(D / 8)) lanes a row, one
+    chunk a lane up to D = 256 and two past it (half the rows a tile);
+    the kernel before's layout (W = D / 8) at D = 8 * 2^k."""
+    for d in range(1, params.DECODE_MAX_HEAD_DIM + 1):
+        lay = params.decode_row_layout(d, itemsize)
+        chunks = -(-d // 8)
+        w = 1 << (chunks - 1).bit_length()
+        assert lay.chunks == chunks and lay.lanes == min(32, w), d
+        assert lay.run_rows * lay.lanes == 32
+        assert lay.row_groups == params.DECODE_ATTEND_THREADS // lay.lanes
+        assert lay.chunks_per_lane == (1 if d <= 256 else 2), d
+        assert lay.unroll == (8 if d <= 256 else 4)
+        # D = 8 * 2^k <= 256: the layout before, a chunk a thread.
+        assert lay.exact == (d <= 256 and d == 8 * w)
+        if lay.exact:
+            assert lay.run_bytes == 32 * 8 * itemsize
+    assert params.decode_row_layout(100, 2).align == 8      # 200-byte rows
+    assert params.decode_row_layout(100, 1).align == 4
+    assert params.decode_row_layout(250, 1).align == 2
+    assert params.decode_row_layout(128, 1).align == 8
+
+
+def _copy_run(cache, at, run_end, granular, rb, l0, l1, slot_bytes):
+    """csrc/decode_split.cuh::copy_run on the host: the slot's bytes, the
+    run's offset in it and the (slot offset, bytes) of each copy."""
+    slot = np.full(slot_bytes, 0xEE, np.uint8)
+    writes = []
+    first = at(l0) * rb
+    dst = first % 16
+    l = l0
+    while l < l1:
+        e = run_end(l, l1)
+        gs = first if l == l0 else at(l) * rb
+        n = (e - l) * rb
+        ds = dst + (l - l0) * rb
+        if granular:
+            a = gs & ~15
+            span = ((gs + n + 15) & ~15) - a
+            d0 = ds - (gs & 15)
+            assert d0 % 16 == 0 and a % 16 == 0 and span % 16 == 0
+            # Never past the 16-byte granule that holds the storage's
+            # last byte.
+            assert a + span <= -(-len(cache) // 16) * 16
+            assert 0 <= d0 and d0 + span <= slot_bytes
+            got = cache[a:a + span]
+            slot[d0:d0 + len(got)] = got
+            writes.append((d0, span))
+        else:
+            slot[ds:ds + n] = cache[gs:gs + n]
+            writes.append((ds, n))
+        l = e
+    return slot, dst, writes
+
+
+def _check_runs(d, itemsize, at, run_end, granular, s_lo, s_hi, cache):
+    """Every run of the first two tiles of a split [s_lo, s_hi): the
+    granules are aligned on both sides and inside the slot, no two copies
+    share a byte, and every lane's chunk read is aligned to the layout's
+    ``align``, inside the slot, and holds its row's values."""
+    lay = params.decode_row_layout(d, itemsize)
+    rb, e8 = lay.row_bytes, 8 * itemsize
+    tile = lay.row_groups * lay.unroll
+    assert e8 % lay.align == 0 and lay.run_bytes % 16 == 0
+    if lay.exact:
+        # Each thread's chunk by one cp.async of its own size: aligned in
+        # the cache (rows of whole chunks) and in its warp's slot.
+        assert rb % e8 == 0 and lay.run_bytes == 32 * e8
+        for base in (s_lo, s_lo + tile):
+            for u in range(lay.unroll):
+                for l in range(base + u * lay.row_groups,
+                               min(base + (u + 1) * lay.row_groups, s_hi)):
+                    assert at(l) * rb % e8 == 0
+        return
+    for base in (s_lo, s_lo + tile):
+        for u in range(lay.unroll):
+            for w in range(params.DECODE_ATTEND_THREADS // 32):
+                l0 = base + u * lay.row_groups + w * lay.run_rows
+                if l0 >= s_hi:
+                    continue
+                l1 = min(l0 + lay.run_rows, s_hi)
+                slot, off, writes = _copy_run(cache, at, run_end, granular,
+                                              rb, l0, l1, lay.run_bytes)
+                assert not lay.aligned or off == 0
+                writes.sort()
+                for (a, n), (b, _) in zip(writes, writes[1:]):
+                    assert a + n <= b
+                for j in range(l1 - l0):
+                    start = off + j * rb
+                    assert start % lay.align == 0
+                    # The last chunk's 8 values end inside the slot.
+                    assert start + lay.chunks * e8 <= lay.run_bytes
+                    row = at(l0 + j) * rb
+                    np.testing.assert_array_equal(slot[start:start + rb],
+                                                  cache[row:row + rb])
+
+
+@pytest.mark.parametrize("itemsize", [2, 1], ids=["bf16", "1-byte"])
+@pytest.mark.parametrize("d", [7, 8, 13, 64, 80, 96, 100, 128, 250, 256,
+                               300, 384, 500, 512])
+def test_granules_put_each_row_where_its_lanes_read_it(d, itemsize):
+    """A contiguous cache ([BH, L, D], L odd or even, the split starting
+    at any row, a window's first row among them) and a paged one (pages of
+    128 tokens, granular; of 3 and 24, whose bytes are not always a
+    multiple of 16, byte by byte) under a shuffled page table."""
+    rng = np.random.default_rng(d * itemsize)
+    rb = d * itemsize
+    for length in (257, 256):
+        cache = rng.integers(0, 256, 4 * length * rb, dtype=np.uint8)
+        for bh in (0, 3):
+            for s_lo in (0, 1, 3, 7, 77):
+                _check_runs(d, itemsize, lambda l: bh * length + l,
+                            lambda l, hi: hi, True, s_lo, length, cache)
+    for ps in (128, 3, 24):
+        pages = rng.permutation(np.arange(1, 40))
+        pool = rng.integers(0, 256, 41 * HKV * ps * rb, dtype=np.uint8)
+        for h in (0, 1):
+            def at(l, h=h):
+                return (int(pages[l // ps]) * HKV + h) * ps + l % ps
+            for s_lo in (0, 5, 130):
+                _check_runs(d, itemsize, at,
+                            lambda l, hi: min(hi, (l // ps + 1) * ps),
+                            ps * rb % 16 == 0, s_lo, min(39 * ps, 600),
+                            pool)
+
+
+def _smem_by_hand(d, storage, gc, fused, q_bf16, table_ints):
+    """launch_passes' shared memory written out: the ring (kStages = 3 of
+    unroll rows: the run slots, then GC scores a row group (attend), then
+    one scale a row group), the partial O it also holds, the row max, row
+    sums, flag, page ids and K2's s_new / P scale."""
+    itemsize = torch.empty((), dtype=storage).element_size()
+    t, nw = params.DECODE_ATTEND_THREADS, params.DECODE_ATTEND_THREADS // 32
+    if params.decode_tensor_cores(d, storage, q_bf16, fused):
+        rg, chunk, unroll = t // (d // 8), t * 8 * itemsize, 8
+        wide = 8 * t * 16 if itemsize == 1 else 0
+    else:
+        lay = params.decode_row_layout(d, itemsize)
+        rg, chunk, unroll, wide = (lay.row_groups, nw * lay.run_bytes,
+                                   lay.unroll, 0)
+    score = 3 * unroll * (chunk + 4 * rg) + wide + 4 * nw * gc + 4 * table_ints
+    attend = max(3 * unroll * (chunk + 4 * rg * gc + 4 * rg) + wide,
+                 nw * gc * d * 4)
+    attend += 4 * (gc + nw * gc) + 4 + 4 * table_ints + (8 * gc if fused
+                                                         else 0)
+    return score, attend
+
+
+@pytest.mark.parametrize("storage", list(STORAGE))
+def test_smem_reckons_the_launch_code_and_fits_to_d512(storage):
+    """decode_smem_bytes equals the launch code's sum; up to D = 512 at
+    query chunks of 8 it fits the H100's 232,448 bytes from D = 9 on
+    (the partial O at D 512: 8 warps x 8 rows x 512 fp32, 131,072
+    bytes). D <= 8 gives one lane a row and 256 row groups, whose scores
+    at 8 query rows overflow it: the C entry refuses that launch, as it
+    did before."""
+    dt = STORAGE[storage]
+    for d in range(1, params.DECODE_MAX_HEAD_DIM + 1):
+        for gc in (4, 8):
+            for fused, q_bf16, table in ((False, True, 0), (True, True, 0),
+                                         (False, False, 10)):
+                got = params.decode_smem_bytes(d, dt, gc, fused=fused,
+                                               q_bf16=q_bf16,
+                                               table_ints=table)
+                assert got == _smem_by_hand(d, dt, gc, fused, q_bf16, table)
+                fits = max(got) <= params.H100.smem_per_block
+                assert fits == (d > 8 or gc == 4), (d, gc, got)
+    # The kernel before's FMA layout at D 128 (int8): each thread's chunk,
+    # 16 row groups.
+    assert params.decode_smem_bytes(128, torch.int8, 4)[0] == (
+        3 * 8 * (256 * 8 + 16 * 4) + 4 * 8 * 4)
+    assert params.decode_attend_union_bytes(512, 2, 8) == 8 * 8 * 512 * 4
