@@ -12,10 +12,19 @@ phase's failure is caught):
              non-causal, sliding window 512, soft-cap 50, R != C, fp32,
              and causal at the prefill buckets R = C = 64 and 512; then
              Qwen2-7B's heads (Hq 28, Hkv 4) causal at N 2048 and
-             Mistral-7B's causal window of 4096 at N 8192; each
-             line names the parameter row that ran (bf16: wgmma), its
-             ring depth and ping-pong, outputs prefilled with NaN, a
-             second launch bit for bit equal to the first.
+             Mistral-7B's causal window of 4096 at N 8192; then
+             OpenLLaMA-3B's attention (D 100, Hq = Hkv 32: rows TMA
+             cannot map, the wgmma kernel's cp.async producer) causal at
+             N 2048 and 512 and non-causal at 2048, K1 at each of
+             HEAD_DIM_CASES (N 2048, causal, Hkv 8), Llama-3-8B's
+             shape with q's base 8, 4 and 2 bytes off 16, and the
+             mma.sync row past D 128 (D 250 with q 2 bytes off 16, odd
+             D 251; H 8, N 1024, causal); each line
+             names the parameter row that ran (row_label, checked: bf16
+             wgmma, "/copy" where the copying producer ran), its ring
+             depth and ping-pong, with ms, bound and SDPA's ms and
+             backend, outputs prefilled with NaN, a second launch bit
+             for bit equal to the first.
 4. k2      — fused decode + append kernel against its plain version for
              bf16, INT8, FP8-e4m3 and FP8-e5m2 caches (B=4, Hkv=8, G=4,
              D=128, max_len 2048 and 8192, lengths including 0 and
@@ -120,7 +129,8 @@ phase's failure is caught):
              512, causal and non-causal, GQA (Hkv 2), window 512 with
              soft-cap 50 (K1 only); the tails D 320 (a part-empty last
              panel), D 300 and D 250 (no TMA-mappable rows: the first
-             cut, D-blocked past 256, mma.sync at 250) and fp32 at D 384,
+             cut, D-blocked past 256, mma.sync at 250 for K3 and K4, K1
+             on one CTA with its cp.async producer) and fp32 at D 384,
              N 1024; D 256 causal and non-causal and D 192 causal at N
              4096, and D 256 as Gemma-2-9B runs it (causal, soft-cap 50,
              Hq / Hkv = 2; K1 only); each held elementwise to its plain
@@ -177,12 +187,13 @@ phase's failure is caught):
              held to its plain version), prefill ms at 512 and 2048, six
              greedy requests behind the continuous-batching scheduler
              (4 slots, max_len 2048) over bf16, INT8 and FP8-e4m3 caches
-             (K1 every prefill, on its bf16_mma row; K2 every decode
+             (K1 every prefill, each launch's row noted: all on the
+             wgmma kernel with its cp.async producer; K2 every decode
              step), then the paged flow of phase 10 over bf16 and INT8
              (K6 every decode step); decode ms a step, tokens/s, weight
              and cache GiB.
 20. kernels — one JSON line per the port's kernel table, the launches of
-             phases 9-19 added up; K2, K5 and K6 carry their head-dim
+             phases 9-19 added up; K1, K2, K5 and K6 carry their head-dim
              rows.
 
 The last line is {"ok": true, "device": {...}}. Run from the repository
@@ -268,7 +279,28 @@ def _k1_inputs(torch, gen, r, c, dtype, hq=32, hkv=8, d=128):
     return rnd(hq, r), rnd(hkv, c), rnd(hkv, c)
 
 
-def phase_k1(torch):
+def k1_row(d: int, shift: int = 0) -> str:
+    """The launch row (row_label) phase_k1 expects of a bf16 K1 launch at
+    head dim d, its q base ``shift`` bytes off 16: TMA on the wgmma kernel
+    (wgmma_dblk past D 128) where D % 8 == 0 and nothing is shifted; the
+    same kernel with its cp.async producer where the rows and bases share
+    4 bytes (D even, shifts of 4 or 8) and one CTA holds D (D <= 256);
+    else the mma.sync rows (odd D, 2-byte shifts; mma_dblk past 256)."""
+    kernel = "wgmma" if d <= 128 else "wgmma_dblk"
+    if d % 8 == 0 and shift == 0:
+        return kernel
+    if d % 2 == 0 and shift % 4 == 0 and d <= 256:
+        return f"{kernel}/copy"
+    return "mma" if d <= 256 else "mma_dblk"
+
+
+def _k1_case(torch, gen, name, r, c, dtype, opts, hq, hkv, d=128, shift=0,
+             want_row=None):
+    """One K1 case against its plain version: outputs prefilled with NaN,
+    a second launch bit for bit equal, O and L at KERNEL_BUDGETS, the row
+    that ran named (row_label) and checked against ``want_row``; ms,
+    plain ms, bound and SDPA's ms and backend. q's base is ``shift`` bytes
+    off its storage's. Fails on any disagreement; returns the timings."""
     import torch.nn.functional as F
 
     from mfa_tpu_torch.kernels import flash_fwd as k1
@@ -277,6 +309,7 @@ def phase_k1(torch):
         AttentionDescriptor,
         AttentionKernelType,
         launch_row,
+        row_label,
     )
     from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import (
@@ -285,8 +318,121 @@ def phase_k1(torch):
         nan_canary,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
     dev = params_mod.detect_device(torch.device("cuda", 0))
+    q, k, v = _k1_inputs(torch, gen, r, c, dtype, hq, hkv, d)
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
+        seq_len_kv=c, head_dim=d,
+        low_precision_inputs=dtype != torch.float32,
+        low_precision_intermediates=dtype != torch.float32, **opts)
+    kd = desc.kernel_descriptor(AttentionKernelType.FORWARD, dev)
+    q3, k3, v3 = (t.reshape(-1, t.shape[2], d).contiguous()
+                  for t in (q, k, v))
+    if shift:
+        buf = torch.empty(q3.numel() + 8, dtype=dtype, device="cuda")
+        at = shift // q3.element_size()
+        q3 = buf[at:at + q3.numel()].view(q3.shape)
+        q3.copy_(q.reshape(q3.shape))
+    kw = dict(group=hq // hkv, scale=desc.softmax_scale, o_dtype=dtype)
+    # The parameter row the launch runs (ops/params.py), the tiles of its
+    # K and V rings and ping-pong.
+    row = launch_row(kd, d, (q3, k3, v3))
+    wgmma = row.kernel in ("wgmma", "wgmma_dblk")
+    row_info = dict(dataclasses.asdict(row), label=row_label(row), rings=(
+        params_mod.fwd_rings(row) if wgmma else None),
+        pingpong=params_mod.FWD_PINGPONG if wgmma else None)
+    o_k, l_k = k1.flash_fwd(q3, k3, v3, kd, **kw, out=(
+        nan_canary(q3.shape, dtype, device="cuda"),
+        nan_canary(q3.shape[:2], device="cuda")))
+    o_k2, l_k2 = k1.flash_fwd(q3, k3, v3, kd, **kw)
+    deterministic = bool(torch.equal(o_k, o_k2) and torch.equal(l_k, l_k2))
+    del o_k2, l_k2
+    torch.cuda.synchronize()
+    o_p, l_p = k1.flash_fwd_plain(q3, k3, v3, kd, **kw)
+    # Elementwise budgets against the plain version (not the looser
+    # budgets the CPU tests hold the port to against mfa_tpu).
+    budget_o = KERNEL_BUDGETS["flash_fwd_o_" + (
+        "bf16" if dtype == torch.bfloat16 else "fp32")]
+    budget_l = KERNEL_BUDGETS["flash_fwd_l"]
+    err_o, err_l = max_err(o_k, o_p), max_err(l_k, l_p)
+    share_o = budget_share(o_k, o_p, *budget_o)
+    share_l = budget_share(l_k, l_p, *budget_l)
+    o_rms = float(o_p.float().square().mean().sqrt())
+    if want_row is None:
+        want_row = k1_row(d, shift) if dtype == torch.bfloat16 else ""
+    ok = (torch.isfinite(o_k.float()).all().item()
+          and torch.isfinite(l_k).all().item() and deterministic
+          and share_o <= 1
+          and share_l <= 1
+          and row_info["label"] == want_row)
+    del o_k, l_k, o_p, l_p
+    ms = roofline.cuda_ms(lambda: k1.flash_fwd(q3, k3, v3, kd, **kw))
+    plain_ms = roofline.cuda_ms(lambda: k1.flash_fwd_plain(
+        q3, k3, v3, kd, **kw), iters=3, warmup=1)
+    # Visible (row, key) pairs of this problem = the work K1 must do.
+    vis = k1.visible_mask(r, c, kd.causal, kd.sliding_window, "cuda")
+    pairs = int(vis.sum()) * hq
+    nbytes = (q3.numel() + k3.numel() + v3.numel() + q3.numel()) \
+        * q3.element_size() + 4 * hq * r
+    peak = (roofline.BF16_FLOPS if dtype == torch.bfloat16
+            else roofline.FP32_FLOPS)
+    bound_ms, bound_by = roofline.bound(4 * d * pairs, nbytes, peak)
+    # Yardstick only: one PyTorch call for the same function where there
+    # is one (no soft-cap in SDPA), and the backend that ran it.
+    library_ms = backend = None
+    if "logit_soft_cap" not in opts:
+        plain_causal = kd.causal and r == c and not kd.sliding_window
+        mask = (None if plain_causal or not (kd.causal or kd.sliding_window)
+                else vis)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=plain_causal,
+                scale=desc.softmax_scale, enable_gqa=True)
+
+        backend = _sdpa_backend(torch, sdpa)
+        library_ms = roofline.cuda_ms(sdpa, iters=10)
+    result = dict(
+        max_abs_err=err_o, lse_err=err_l, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    emit({"phase": "k1", "case": name, "R": r, "C": c, "Hq": hq,
+          "Hkv": hkv, "D": d, "q_shift_bytes": shift,
+          "dtype": str(dtype).split(".")[-1], "row": row_info,
+          "tflops": 4 * d * pairs / ms / 1e9, "err_o": err_o,
+          "o_rms": o_rms, "budget_o": budget_o, "share_o": share_o,
+          "deterministic": deterministic,
+          "err_l": err_l, "budget_l": budget_l, "share_l": share_l,
+          "sdpa_backend": backend, "ok": bool(ok),
+          **{k_: v_ for k_, v_ in result.items()
+             if k_ not in ("max_abs_err",)}})
+    if not ok:
+        raise SystemExit(f"k1 {name}: kernel disagrees with its plain "
+                         f"version (O uses {share_o} of |d| <= "
+                         f"{budget_o[0]} + {budget_o[1]}|O|, L uses "
+                         f"{share_l} of {budget_l[0]}), ran row "
+                         f"{row_info} (wanted {want_row}), deterministic "
+                         f"{deterministic}")
+    del q, k, v, q3, k3, v3, vis
+    torch.cuda.empty_cache()
+    return dict(result, row=row_info["label"])
+
+
+# K1 at OpenLLaMA-3B's attention (head dim 100, 32 heads, MHA: rows TMA
+# cannot map, the wgmma kernel's cp.async producer) at its prefill
+# buckets, (name, N, options); then at each of HEAD_DIM_CASES (N 2048,
+# causal, Hkv 8, Hq 8 G); Llama-3-8B's shape with q's base 8, 4 and 2
+# bytes off 16 (the copying producer at 8 and 4, mma.sync at 2); and the
+# mma.sync row past D 128 (B 1, H 8, N 1024, causal), (D, q shift in
+# bytes): D 250 with q 2 bytes off 16, and odd D 251.
+OPENLLAMA_K1_CASES = (("openllama_causal_n2048", 2048, dict(causal=True)),
+                      ("openllama_causal_n512", 512, dict(causal=True)),
+                      ("openllama_noncausal_n2048", 2048, dict()))
+K1_SHIFTS = (8, 4, 2)
+K1_MMA_PAST_128 = ((250, 2), (251, 0))
+
+
+def phase_k1(torch):
+    gen = torch.Generator(device="cuda").manual_seed(1)
     n = 2048
     bf16 = torch.bfloat16
     # (name, R, C, dtype, options, Hq, Hkv): Llama-3-8B's heads, then
@@ -309,87 +455,26 @@ def phase_k1(torch):
     ]
     results = {}
     for name, r, c, dtype, opts, hq, hkv in cases:
-        q, k, v = _k1_inputs(torch, gen, r, c, dtype, hq, hkv)
-        desc = AttentionDescriptor(
-            batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
-            seq_len_kv=c, head_dim=128,
-            low_precision_inputs=dtype != torch.float32,
-            low_precision_intermediates=dtype != torch.float32, **opts)
-        kd = desc.kernel_descriptor(AttentionKernelType.FORWARD, dev)
-        q3, k3, v3 = (t.reshape(-1, t.shape[2], 128).contiguous()
-                      for t in (q, k, v))
-        kw = dict(group=hq // hkv, scale=desc.softmax_scale, o_dtype=dtype)
-        # The parameter row the launch runs (wgmma for every bf16 case,
-        # ops/params.py), the tiles of its K and V rings and ping-pong.
-        row = launch_row(kd, 128, (q3, k3, v3))
-        row_info = dict(dataclasses.asdict(row), rings=(
-            params_mod.fwd_rings(row) if row.kernel == "wgmma" else None),
-            pingpong=params_mod.FWD_PINGPONG if row.kernel == "wgmma"
-            else None)
-        o_k, l_k = k1.flash_fwd(q3, k3, v3, kd, **kw, out=(
-            nan_canary(q3.shape, dtype, device="cuda"),
-            nan_canary(q3.shape[:2], device="cuda")))
-        o_k2, l_k2 = k1.flash_fwd(q3, k3, v3, kd, **kw)
-        deterministic = bool(torch.equal(o_k, o_k2) and torch.equal(l_k, l_k2))
-        del o_k2, l_k2
-        torch.cuda.synchronize()
-        o_p, l_p = k1.flash_fwd_plain(q3, k3, v3, kd, **kw)
-        # Elementwise budgets against the plain version (not the looser
-        # budgets the CPU tests hold the port to against mfa_tpu).
-        budget_o = KERNEL_BUDGETS["flash_fwd_o_" + (
-            "bf16" if dtype == torch.bfloat16 else "fp32")]
-        budget_l = KERNEL_BUDGETS["flash_fwd_l"]
-        err_o, err_l = max_err(o_k, o_p), max_err(l_k, l_p)
-        share_o = budget_share(o_k, o_p, *budget_o)
-        share_l = budget_share(l_k, l_p, *budget_l)
-        o_rms = float(o_p.float().square().mean().sqrt())
-        ok = (torch.isfinite(o_k.float()).all().item()
-              and torch.isfinite(l_k).all().item() and deterministic
-              and share_o <= 1
-              and share_l <= 1
-              and row.kernel == ("wgmma" if dtype == torch.bfloat16 else ""))
-        ms = roofline.cuda_ms(lambda: k1.flash_fwd(q3, k3, v3, kd, **kw))
-        plain_ms = roofline.cuda_ms(lambda: k1.flash_fwd_plain(
-            q3, k3, v3, kd, **kw), iters=3, warmup=1)
-        # Visible (row, key) pairs of this problem = the work K1 must do.
-        vis = k1.visible_mask(r, c, kd.causal, kd.sliding_window, "cuda")
-        pairs = int(vis.sum()) * hq
-        nbytes = (q3.numel() + k3.numel() + v3.numel() + q3.numel()) \
-            * q3.element_size() + 4 * hq * r
-        peak = (roofline.BF16_FLOPS if dtype == torch.bfloat16
-                else roofline.FP32_FLOPS)
-        bound_ms, bound_by = roofline.bound(4 * 128 * pairs, nbytes, peak)
-        # Yardstick only: one PyTorch call for the same function where
-        # there is one (no soft-cap in SDPA).
-        library_ms = None
-        if "logit_soft_cap" not in opts:
-            plain_causal = kd.causal and r == c and not kd.sliding_window
-            mask = (None if plain_causal or not (kd.causal or kd.sliding_window)
-                    else vis)
-            library_ms = roofline.cuda_ms(
-                lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=plain_causal,
-                scale=desc.softmax_scale, enable_gqa=True), iters=10)
-        results[name] = dict(
-            max_abs_err=err_o, lse_err=err_l, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-        emit({"phase": "k1", "case": name, "R": r, "C": c, "Hq": hq,
-              "Hkv": hkv,
-              "dtype": str(dtype).split(".")[-1], "row": row_info,
-              "tflops": 4 * 128 * pairs / ms / 1e9, "err_o": err_o,
-              "o_rms": o_rms, "budget_o": budget_o, "share_o": share_o,
-              "deterministic": deterministic,
-              "err_l": err_l, "budget_l": budget_l, "share_l": share_l,
-              "ok": bool(ok),
-              **{k_: v_ for k_, v_ in results[name].items()
-                 if k_ not in ("max_abs_err",)}})
-        if not ok:
-            raise SystemExit(f"k1 {name}: kernel disagrees with its plain "
-                             f"version (O uses {share_o} of |d| <= "
-                             f"{budget_o[0]} + {budget_o[1]}|O|, L uses "
-                             f"{share_l} of {budget_l[0]}), ran row "
-                             f"{row_info}, deterministic {deterministic}")
-    return results["causal"], results["noncausal"]
+        results[name] = _k1_case(torch, gen, name, r, c, dtype, opts, hq,
+                                 hkv)
+    head_dims = {}
+    for name, m, opts in OPENLLAMA_K1_CASES:
+        head_dims[name] = _k1_case(torch, gen, name, m, m, bf16, opts, 32,
+                                   32, d=100)
+    for d, g in HEAD_DIM_CASES:
+        name = f"causal_d{d}_g{g}"
+        head_dims[name] = _k1_case(torch, gen, name, n, n, bf16,
+                                   dict(causal=True), 8 * g, 8, d=d)
+    for shift in K1_SHIFTS:
+        name = f"causal_q_shift{shift}"
+        head_dims[name] = _k1_case(torch, gen, name, n, n, bf16,
+                                   dict(causal=True), 32, 8, shift=shift)
+    for d, shift in K1_MMA_PAST_128:
+        name = f"causal_d{d}_q_shift{shift}_n1024"
+        head_dims[name] = _k1_case(torch, gen, name, 1024, 1024, bf16,
+                                   dict(causal=True), 8, 8, d=d, shift=shift,
+                                   want_row="mma")
+    return results["causal"], results["noncausal"], head_dims
 
 
 def _kv_formats():
@@ -1959,15 +2044,17 @@ LARGE_D_CASES = (
 
 
 def large_d_rows(tag: str, d: int) -> dict:
-    """The row kernels phase_large_d expects of K1, K3 and K4 past D =
-    128: the head-dim-split kernels (wgmma_dblk; one CTA up to D = 256)
-    where TMA maps a row (bf16, D % 8 == 0) up to D = 512; else the
+    """The rows (row_label) phase_large_d expects of K1, K3 and K4 past D
+    = 128: the head-dim-split kernels (wgmma_dblk; one CTA up to D = 256)
+    where TMA maps a row (bf16, D % 8 == 0) up to D = 512; K1's one CTA
+    with its cp.async producer at the other even D up to 256; else the
     first cut (mma.sync up to D = 256, D-blocked past it)."""
     if tag == "fp32":
         return {"k1": "fma_dblk", "k3": "fma_dblk", "k4": "fma_dblk"}
     split = ("wgmma_dblk" if d % 8 == 0 and d <= 512
              else "mma" if d <= 256 else "mma_dblk")
-    return {"k1": split, "k3": split, "k4": split}
+    k1 = "wgmma_dblk/copy" if split == "mma" and d % 2 == 0 else split
+    return {"k1": k1, "k3": split, "k4": split}
 
 
 def phase_large_d(torch):
@@ -1988,6 +2075,7 @@ def phase_large_d(torch):
         AttentionKernelType,
         head_dim_panels,
         launch_row,
+        row_label,
     )
     from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import (
@@ -2016,11 +2104,11 @@ def phase_large_d(torch):
         rows = {}
         for key, kd in (("k1", kd_f), ("k3", kd_q), ("k4", kd_kv)):
             row = launch_row(kd, d, (q3, k3, v3, do3))
-            rows[key] = dict(dataclasses.asdict(row),
+            rows[key] = dict(dataclasses.asdict(row), label=row_label(row),
                              panels=head_dim_panels(row, d))
         want = large_d_rows(tag, d)
         # Up to D = 256 every launch covers the head dim in one CTA.
-        dblk = all(rows[key]["kernel"] == want[key]
+        dblk = all(rows[key]["label"] == want[key]
                    and (d > 256 or rows[key]["panels"] == 1)
                    for key in rows)
         vis = k1.visible_mask(n, n, kd_f.causal, kd_f.sliding_window, "cuda")
@@ -2702,11 +2790,13 @@ def phase_openllama_serving(torch):
     """OpenLLaMA-3B at full width and depth (26 layers, width 3200, 32
     heads of head dim 100, MHA): its config read from its published
     fields, random HF-named weights, served over bf16, INT8 and FP8-e4m3
-    contiguous caches (K1 prefill on its bf16_mma row at D 100, K2 every
-    decode step) and over bf16 and INT8 paged caches of 512-token pages
-    (K6). Returns (K1, K2 launches; K1, K6 launches of the paged runs)."""
+    contiguous caches (K1 every prefill on its wgmma row with the cp.async
+    producer at D 100, K2 every decode step) and over bf16 and INT8 paged
+    caches of 512-token pages (K6). Returns (K1, K2 launches; K1, K6
+    launches of the paged runs)."""
     import numpy as np
 
+    from mfa_tpu_torch.kernels import flash_fwd as k1
     from mfa_tpu_torch.ops import params as params_mod
     from mfa_tpu_torch.ops.precision import OperandPrecision
 
@@ -2722,7 +2812,8 @@ def phase_openllama_serving(torch):
           "weights_gib": _weight_gib(model),
           "prefill_row": str(params_mod.select_row(
               params_mod.parameter_table(
-                  "flash_fwd", params_mod.bf16_table_precision(100)), 100))})
+                  "flash_fwd", params_mod.fwd_bf16_table_precision(100)),
+              100))})
 
     rng = np.random.default_rng(40)
     batch = torch.from_numpy(rng.integers(1, cfg.vocab_size,
@@ -2733,6 +2824,9 @@ def phase_openllama_serving(torch):
         torch, model, (512, 2048), 2048)})
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in (50, 120, 250, 500, 1000, 1900)]
+    # The row of every K1 launch of the serving runs, as the wrapper
+    # counts them.
+    k1.launches_by_row.clear()
     launches, bf16_tokens = {}, None
     for kv in (OperandPrecision.BF16, OperandPrecision.INT8,
                OperandPrecision.FP8_E4M3):
@@ -2746,12 +2840,21 @@ def phase_openllama_serving(torch):
     paged_k1, paged_k6 = phase_paged_serving(
         torch, model, prompts, bf16_tokens, formats=2,
         label="openllama_paged_serving")
+    k1_rows = dict(k1.launches_by_row)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    # The rows also count the K1 launches of the paged phase's logits
+    # check, which no launch counter takes.
+    ok = (list(k1_rows) == ["wgmma/copy"] and paged_k1 > 0
+          and k1_rows["wgmma/copy"] >= launches["flash_fwd"] + paged_k1)
     emit({"phase": "openllama_serving_done",
           "seconds": time.perf_counter() - t0, "launches": launches,
-          "paged_k1_launches": paged_k1, "paged_k6_launches": paged_k6})
+          "paged_k1_launches": paged_k1, "paged_k6_launches": paged_k6,
+          "k1_rows": k1_rows, "ok": ok})
+    if not ok:
+        raise SystemExit(f"openllama: K1 ran rows {k1_rows}, not only "
+                         f"wgmma/copy")
     return launches, paged_k1, paged_k6
 
 
@@ -2970,7 +3073,7 @@ def main() -> int:
 
     smi = phase_device(torch)
     phase_build()
-    k1_row, k1_noncausal_row = phase_k1(torch)
+    k1_row, k1_noncausal_row, k1_head_dims = phase_k1(torch)
     k2_row, k2_head_dims = phase_k2(torch)
     k5_row, k5_head_dims, k5_launches = phase_k5(torch)
     k6_row, k6_head_dims = phase_k6(torch)
@@ -3038,13 +3141,18 @@ def main() -> int:
                       + train_launches["flash_fwd"]
                       + large_d_launches["flash_fwd"] + new["flash_fwd"]
                       + par["flash_fwd"] - par["flash_fwd_noncausal"]),
-         **{k: v for k, v in k1_row.items() if k != "lse_err"},
-         **large("k1", fwd_cases + ("gqa_softcap50_d256",))},
+         **{k: v for k, v in k1_row.items()
+            if k not in ("lse_err", "row")},
+         **large("k1", fwd_cases + ("gqa_softcap50_d256",
+                                    "causal_d250_n1024")),
+         "head_dims": {case: {k: v for k, v in t.items() if k != "lse_err"}
+                       for case, t in k1_head_dims.items()}},
         {"name": "flash_fwd_noncausal", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "mfa_tpu/kernels/flash_fwd.py:49",
          "launches": par["flash_fwd_noncausal"],
-         **{k: v for k, v in k1_noncausal_row.items() if k != "lse_err"}},
+         **{k: v for k, v in k1_noncausal_row.items()
+            if k not in ("lse_err", "row")}},
         {"name": "decode_fused_append", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode.cu",
          "replaces": "mfa_tpu/kernels/decode.py:431",

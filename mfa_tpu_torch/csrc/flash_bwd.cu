@@ -1233,8 +1233,8 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
         for (int k = 0; k < BQ / 32; ++k) {
           const int r = row0 + lane + 32 * k;
           const size_t at = r < p.R ? (size_t)bh * p.R + r : 0;
-          hw::cp_async4(sL + lane + 32 * k, p.lse + at, r < p.R);
-          hw::cp_async4(sD + lane + 32 * k, p.dterm + at, r < p.R);
+          hw::cp_async_g<4>(sL + lane + 32 * k, p.lse + at, r < p.R);
+          hw::cp_async_g<4>(sD + lane + 32 * k, p.dterm + at, r < p.R);
         }
         hw::cp_async_arrive(&full[st]);
       }
@@ -1509,8 +1509,8 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
         for (int k = 0; k < BQ / 32; ++k) {
           const int r = row0 + lane + 32 * k;
           const size_t at = r < p.R ? (size_t)bh * p.R + r : 0;
-          hw::cp_async4(sL + lane + 32 * k, p.lse + at, r < p.R);
-          hw::cp_async4(sD + lane + 32 * k, p.dterm + at, r < p.R);
+          hw::cp_async_g<4>(sL + lane + 32 * k, p.lse + at, r < p.R);
+          hw::cp_async_g<4>(sD + lane + 32 * k, p.dterm + at, r < p.R);
         }
         hw::cp_async_arrive(&full[st]);
       }

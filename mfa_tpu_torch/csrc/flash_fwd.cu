@@ -111,15 +111,51 @@
 //   fp32) sit between Q and the K ring (fwd_layout); the rings keep 2-3
 //   tiles each.
 //
-// Other rows keep the first cut: bf16 at D % 8 != 0 or a base not
-// 16-byte aligned runs warp-level mma.sync (m16n8k16) from shared-memory
-// tiles loaded synchronously (rows "mma"); fp32 inputs take a plain-FMA
-// kernel: the fp32 budget (2e-5) rules out TF32 tensor cores. Both use the
-// same flat grid. Past D = 256 they run D-blocked (DBLK; rows "mma_dblk",
-// "fma_dblk"; see flash_fwd_bf16): a CTA per block_d panel of O, S summed
-// once a panel over panels of Q and K streamed by cp.async, for what the
-// cluster kernel cannot take (D % 8 != 0, a misaligned base, D > 512)
-// and fp32.
+// bf16 rows TMA cannot map (D % 8 != 0, a base off 16 bytes) up to D =
+// 256, where every base, O's too, and the row stride 2 D share 4 bytes
+// (D even; OpenLLaMA-3B's D 100: 200-byte rows, 8-byte aligned): the same
+// one-CTA kernel and rows, with a copying producer (PROD, a template flag;
+// the TMA instances compile as before). Its 128 threads issue cp.async
+// of that granule (8 or 4 bytes) straight into the swizzled slots, rows
+// past R or C as zero-source copies (TMA's zeros), each thread's copies
+// counted on the slot's full barrier (cp.async.mbarrier.arrive.noinc,
+// 128 arrivals). cp.async writes through the generic proxy and wgmma
+// reads through the async one, so each consumer thread fences
+// (fence.proxy.async) after its full-barrier wait, before the products
+// that read the tile. The columns D..DP-1 that no copy writes are zeroed
+// once at the start in Q's tile and every ring slot (and fenced): they
+// stay zero, so S and PV see zeros there and O's are zero, not stored.
+// O is stored from the staged tile at the granule, never past column D.
+// The producer warpgroup keeps the TMA producer's 24 registers: the
+// launch holds 384 x 168 of them, and 2 x 128 x 240 + 128 x 24 is all of
+// it.
+// What bounds it at OpenLLaMA-3B's D 100 (Hq = Hkv 32, N 2048, causal):
+// the tensor work is D 128's (the panel), 26.8 GFLOP of visible pairs
+// (0.027 ms at the bf16 peak), and the producer's copies: 25 8-byte
+// cp.async a row of K and of V, issued by four warps that share the
+// SMs' schedulers with the consumers' softmax. Each thread walks runs of
+// rows 8 apart (hopper.cuh copy_rows), whose swizzle stays fixed, so a
+// copy costs two adds (the first loop, row-major with the swizzle
+// worked out per copy, took 0.205 ms); rings of 2 + 2 tiles beat 3 + 3.
+// On the H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md; utils/bwd_tuning.py
+// sweep --only copy): 0.1256 ms causal, 0.1923 non-causal, against the
+// mma.sync row's 0.4680 / 1.012; D 128 by TMA at Hkv 8 takes 0.0932 /
+// 0.1411 (utils/decode_tuning.py turns --what k1_rows). At D 250 (H 8, N
+// 1024, causal) 0.0700 against mma.sync's 0.2092. Dropped after that
+// sweep: block_kv 64 at D 100 (0.1424 / 0.2247) and 32 at D 250 (0.1085),
+// and a producer that moved each K / V tile by one 1-D bulk copy into a
+// staging slot and repacked it into the swizzled tile (0.1555 / 0.2485 at
+// D 100, 0.1150 at D 250: the repack is a second pass over the tile).
+//
+// Other rows keep the first cut: bf16 at odd D, a base only 2-byte
+// aligned, or D % 8 != 0 past D = 256 runs warp-level mma.sync (m16n8k16)
+// from shared-memory tiles loaded synchronously (rows "mma"); fp32
+// inputs take a plain-FMA kernel: the fp32 budget (2e-5) rules out TF32
+// tensor cores. Both use the same flat grid. Past D = 256 they run
+// D-blocked (DBLK; rows "mma_dblk", "fma_dblk"; see flash_fwd_bf16): a
+// CTA per block_d panel of O, S summed once a panel over panels of Q and
+// K streamed by cp.async, for what the cluster kernel cannot take (D % 8
+// != 0, a misaligned base, D > 512) and fp32.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -145,6 +181,8 @@ struct FwdParams {
   int stages_k;         // wgmma kernel: tiles of the K ring
   int stages_v;         // wgmma kernel: tiles of the V ring
   int pingpong;         // wgmma kernel: consumer warpgroups take turns
+  int gran;             // bytes every base and row stride is aligned to
+                        // (4, 8 or 16)
 };
 
 __device__ __forceinline__ bool visible(const FwdParams& p, int row,
@@ -538,11 +576,19 @@ flash_fwd_f32(FwdParams p) {
 // ---------------------------------------------------------------------------
 constexpr int kBQ = 128;   // query rows a CTA, 64 a consumer warpgroup
 
+// How the wgmma kernel's producer warpgroup fills Q's tile and the K and
+// V rings: kTma, one thread issuing TMA boxes (rows TMA maps: D % 8 == 0,
+// 16-byte-aligned bases); kCopy, its 128 threads issuing cp.async of the
+// granule every base and row shares (4 or 8 bytes) straight into the
+// swizzled tiles, each thread's copies counted on the tile's full barrier
+// (cp.async.mbarrier.arrive.noinc).
+enum Producer : int { kTma = 0, kCopy = 1 };
+
 // Shared memory: Q [kBQ x DP], the cluster kernel's exchange slots (two
 // consumer warpgroups x `peers` slots of 64 x bkv fp32), `sk` K tiles and
 // `sv` V tiles [bkv x DP], then the mbarriers q_full, full_k[sk],
-// empty_k[sk], full_v[sv], empty_v[sv] and, with peers, each
-// warpgroup's exchange full and empty (ops/params.py mirrors this).
+// empty_k[sk], full_v[sv], empty_v[sv], and with peers each warpgroup's
+// exchange full and empty (ops/params.py mirrors this).
 struct FwdLayout {
   int x, k, v, bar, bytes;
 };
@@ -664,16 +710,54 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 8][4],
   hw::wgmma_commit();
 }
 
+// A G-byte value (the copying producers' granule, 4 or 8 bytes).
+template <int G>
+using Granule = std::conditional_t<G == 4, uint32_t, uint2>;
+
+// The copying producer (kCopy) at granule G, thread pt of the producer
+// warpgroup: Q's tile, then K and V of each block of the CTA's walk (lo
+// .. hi) into their rings, by cp.async straight into the slot, one
+// arrival a thread on the tile's full barrier once its copies land.
+template <int BKV, int DP, int G>
+__device__ __forceinline__ void produce_copies(
+    const FwdParams& p, unsigned char* sm, const FwdLayout& L,
+    uint64_t* q_full, uint64_t* full_k, uint64_t* empty_k, uint64_t* full_v,
+    uint64_t* empty_v, int i, int bh, int lo, int hi, int pt) {
+  constexpr int KV_TILE = tile_bytes(BKV, DP);
+  const int rb = 2 * p.D, SK = p.stages_k, SV = p.stages_v;
+  const size_t kv0 = (size_t)(bh / p.group) * p.C * rb;
+  const auto* k = static_cast<const unsigned char*>(p.k) + kv0;
+  const auto* v = static_cast<const unsigned char*>(p.v) + kv0;
+  hw::copy_rows<kBQ, G>(sm,
+                        static_cast<const unsigned char*>(p.q) +
+                            (size_t)bh * p.R * rb,
+                        i * kBQ, p.R, rb, pt, kWgThreads);
+  hw::cp_async_arrive(q_full);
+  for (int j = lo; j <= hi; ++j) {
+    const int t = j - lo, sk = t % SK, sv = t % SV;
+    hw::mbar_wait(&empty_k[sk], ((t / SK) & 1) ^ 1);
+    hw::copy_rows<BKV, G>(sm + L.k + sk * KV_TILE, k, j * BKV, p.C, rb, pt,
+                          kWgThreads);
+    hw::cp_async_arrive(&full_k[sk]);
+    hw::mbar_wait(&empty_v[sv], ((t / SV) & 1) ^ 1);
+    hw::copy_rows<BKV, G>(sm + L.v + sv * KV_TILE, v, j * BKV, p.C, rb, pt,
+                          kWgThreads);
+    hw::cp_async_arrive(&full_v[sv]);
+  }
+}
+
 // CL: the cluster kernel past D = 256 (rows "wgmma_dblk"; see the note at
 // the top): CTA p of a cluster of P owns head-dim panel p (DP columns
 // from p * DP) of Q, K, V and O; S is the sum of the P panels' partials
 // (ClusterSum), the same bits in every CTA. Without CL one CTA owns the
-// whole head dim (D <= DP).
-template <int BKV, int DP, bool CL = false>
+// whole head dim (D <= DP). PROD: how the producer fills the tiles
+// (Producer; the copying one on one CTA only, its maps unused).
+template <int BKV, int DP, bool CL = false, int PROD = kTma>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv) {
+  static_assert(PROD == kTma || !CL, "the copying producer on one CTA only");
   constexpr int KV_TILE = tile_bytes(BKV, DP);
   const int SK = p.stages_k, SV = p.stages_v;
   const int peers = CL ? dblk_max_panels(DP) - 1 : 0;
@@ -708,13 +792,16 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
   if (lo_c > hi_c) lo_c = hi_c = 0;
 
   if (tid == 0) {
-    hw::mbar_init(q_full, 1);
+    // TMA's tiles complete on one arrival and their bytes; the copying
+    // producer's on one arrival of each producer thread.
+    const int fills = PROD == kTma ? 1 : kWgThreads;
+    hw::mbar_init(q_full, fills);
     for (int s = 0; s < SK; ++s) {
-      hw::mbar_init(&full_k[s], 1);
+      hw::mbar_init(&full_k[s], fills);
       hw::mbar_init(&empty_k[s], 8);   // every consumer warp
     }
     for (int s = 0; s < SV; ++s) {
-      hw::mbar_init(&full_v[s], 1);
+      hw::mbar_init(&full_v[s], fills);
       hw::mbar_init(&empty_v[s], 8);
     }
     if constexpr (CL) {
@@ -725,36 +812,68 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
     }
     hw::mbar_init_fence();
   }
+  if constexpr (PROD != kTma) {
+    // A copying producer writes D columns a row: the chunks past them are
+    // zeroed once here, in Q's tile and every ring slot (TMA fills them
+    // with zeros itself), and stay zero for the whole walk; the fence
+    // makes the zeros visible to wgmma's async proxy.
+    const int c0 = p.D / 8;
+    hw::zero_chunks(sm, kBQ, DP, c0, tid, kWgmmaThreads);
+    for (int s = 0; s < SK; ++s)
+      hw::zero_chunks(sm + L.k + s * KV_TILE, BKV, DP, c0, tid,
+                      kWgmmaThreads);
+    for (int s = 0; s < SV; ++s)
+      hw::zero_chunks(sm + L.v + s * KV_TILE, BKV, DP, c0, tid,
+                      kWgmmaThreads);
+    hw::fence_proxy_async();
+  }
   if constexpr (CL)
     hw::cluster_sync();
   else
     __syncthreads();
 
   if (wg == 2) {
-    // Producer: Q once, then K and V of each block of the CTA's walk.
-    hw::setmaxnreg_dec<kProducerRegs>();
-    if (tid == 2 * kWgThreads) {
-      hw::mbar_expect_tx(q_full, tile_bytes(kBQ, DP));
-#pragma unroll
-      for (int pn = 0; pn < DP / 64; ++pn)
-        hw::tma_load_3d(sm + pn * kBQ * kPanelBytes, &mq, q_full,
-                        dcol + 64 * pn, i * kBQ, bh);
-      for (int j = lo_c; j <= hi_c; ++j) {
-        const int t = j - lo_c, sk = t % SK, sv = t % SV;
-        hw::mbar_wait(&empty_k[sk], ((t / SK) & 1) ^ 1);
-        unsigned char* k_tile = sm + L.k + sk * KV_TILE;
-        hw::mbar_expect_tx(&full_k[sk], KV_TILE);
+    if constexpr (PROD != kTma) {
+      // The copying producer: all 128 threads, at the granule the rows and
+      // bases share. It keeps the TMA producer's 24 registers: the launch
+      // gives each of the 384 threads 168 of the SM's 65,536, and the
+      // consumers' setmaxnreg.inc to 240 waits until the producer has
+      // released 128 x (168 - 24), all the consumers take (at 32 they
+      // waited forever).
+      hw::setmaxnreg_dec<kProducerRegs>();
+      const int pt = tid - 2 * kWgThreads;
+      if (p.gran >= 8)
+        produce_copies<BKV, DP, 8>(p, sm, L, q_full, full_k, empty_k,
+                                   full_v, empty_v, i, bh, lo_c, hi_c, pt);
+      else
+        produce_copies<BKV, DP, 4>(p, sm, L, q_full, full_k, empty_k,
+                                   full_v, empty_v, i, bh, lo_c, hi_c, pt);
+    } else {
+      // Producer: Q once, then K and V of each block of the CTA's walk.
+      hw::setmaxnreg_dec<kProducerRegs>();
+      if (tid == 2 * kWgThreads) {
+        hw::mbar_expect_tx(q_full, tile_bytes(kBQ, DP));
 #pragma unroll
         for (int pn = 0; pn < DP / 64; ++pn)
-          hw::tma_load_3d(k_tile + pn * BKV * kPanelBytes, &mk, &full_k[sk],
-                          dcol + 64 * pn, j * BKV, bhkv);
-        hw::mbar_wait(&empty_v[sv], ((t / SV) & 1) ^ 1);
-        unsigned char* v_tile = sm + L.v + sv * KV_TILE;
-        hw::mbar_expect_tx(&full_v[sv], KV_TILE);
+          hw::tma_load_3d(sm + pn * kBQ * kPanelBytes, &mq, q_full,
+                          dcol + 64 * pn, i * kBQ, bh);
+        for (int j = lo_c; j <= hi_c; ++j) {
+          const int t = j - lo_c, sk = t % SK, sv = t % SV;
+          hw::mbar_wait(&empty_k[sk], ((t / SK) & 1) ^ 1);
+          unsigned char* k_tile = sm + L.k + sk * KV_TILE;
+          hw::mbar_expect_tx(&full_k[sk], KV_TILE);
 #pragma unroll
-        for (int pn = 0; pn < DP / 64; ++pn)
-          hw::tma_load_3d(v_tile + pn * BKV * kPanelBytes, &mv, &full_v[sv],
-                          dcol + 64 * pn, j * BKV, bhkv);
+          for (int pn = 0; pn < DP / 64; ++pn)
+            hw::tma_load_3d(k_tile + pn * BKV * kPanelBytes, &mk,
+                            &full_k[sk], dcol + 64 * pn, j * BKV, bhkv);
+          hw::mbar_wait(&empty_v[sv], ((t / SV) & 1) ^ 1);
+          unsigned char* v_tile = sm + L.v + sv * KV_TILE;
+          hw::mbar_expect_tx(&full_v[sv], KV_TILE);
+#pragma unroll
+          for (int pn = 0; pn < DP / 64; ++pn)
+            hw::tma_load_3d(v_tile + pn * BKV * kPanelBytes, &mv,
+                            &full_v[sv], dcol + 64 * pn, j * BKV, bhkv);
+        }
       }
     }
   } else {
@@ -809,6 +928,9 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
       const int tv = t > 0 ? t - 1 : 0, vs = tv % SV;
       hw::mbar_wait(&full_k[sk], (t / SK) & 1);
       hw::mbar_wait(&full_v[vs], (tv / SV) & 1);
+      // cp.async writes through the generic proxy: order them before
+      // wgmma's reads (the barrier made them visible to this thread).
+      if constexpr (PROD != kTma) hw::fence_proxy_async();
       if (p.pingpong) hw::named_barrier(my_turn, 2 * kWgThreads);
       // S = Qs K^T (A = this warpgroup's rows of Q, B = the K tile, both
       // K-major; the first k-step overwrites S), then the previous
@@ -864,6 +986,7 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
     // The last block's PV.
     const int last = (nblk - 1) % SV;
     hw::mbar_wait(&full_v[last], ((nblk - 1) / SV) & 1);
+    if constexpr (PROD != kTma) hw::fence_proxy_async();
     hw::fence_acc(o);
     hw::wgmma_fence();
     issue_pv<BKV, DP>(o, pa, v_base(last));
@@ -897,7 +1020,13 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
           if (!empty_row[h])
             val = make_float2(o[n][2 * h] / l_safe[h],
                               o[n][2 * h + 1] / l_safe[h]);
-          *reinterpret_cast<float2*>(og + (row_base + r) * p.D + d) = val;
+          float* at = og + (row_base + r) * p.D + d;
+          if (PROD == kTma || p.gran >= 8) {   // 8-byte-aligned O
+            *reinterpret_cast<float2*>(at) = val;
+          } else {   // O 4-byte aligned
+            at[0] = val.x;
+            at[1] = val.y;
+          }
         }
       }
     } else {
@@ -921,16 +1050,41 @@ flash_fwd_wgmma(const FwdParams p, const __grid_constant__ CUtensorMap mq,
         }
       }
       hw::named_barrier(1 + w, kWgThreads);
-      bf16* og = static_cast<bf16*>(p.o);
-      constexpr int CH = DP / 8;   // 16-byte chunks a row
-      for (int idx = wt; idx < 64 * CH; idx += kWgThreads) {
-        const int rl = idx / CH, c = idx % CH, r = rw0 + rl;
-        if (r < p.R && dcol + c * 8 < p.D)
-          *reinterpret_cast<uint4*>(og + (row_base + r) * p.D + dcol +
-                                    c * 8) =
-              *reinterpret_cast<const uint4*>(
-                  q_rows + (c / 8) * kBQ * kPanelBytes + rl * kPanelBytes +
-                  ((c % 8) ^ (rl % 8)) * 16);
+      if constexpr (PROD != kTma) {
+        // Rows of 2 D bytes, stored at the granule they share; nothing
+        // past column D.
+        const int rb = 2 * p.D;
+        unsigned char* og =
+            static_cast<unsigned char*>(p.o) + (row_base + rw0) * rb;
+        auto store = [&](auto granule) {
+          constexpr int G = decltype(granule)::value;
+          hw::for_runs<G>(kBQ, rb, wt, kWgThreads, [&](int r0, int c, int at) {
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {   // the warpgroup's 64 rows
+              const int rl = r0 + 8 * k;
+              if (rw0 + rl < p.R)
+                *reinterpret_cast<Granule<G>*>(og + (size_t)rl * rb + c) =
+                    *reinterpret_cast<const Granule<G>*>(
+                        q_rows + at + k * 8 * kPanelBytes);
+            }
+          });
+        };
+        if (p.gran >= 8)
+          store(std::integral_constant<int, 8>{});
+        else
+          store(std::integral_constant<int, 4>{});
+      } else {
+        bf16* og = static_cast<bf16*>(p.o);
+        constexpr int CH = DP / 8;   // 16-byte chunks a row
+        for (int idx = wt; idx < 64 * CH; idx += kWgThreads) {
+          const int rl = idx / CH, c = idx % CH, r = rw0 + rl;
+          if (r < p.R && dcol + c * 8 < p.D)
+            *reinterpret_cast<uint4*>(og + (row_base + r) * p.D + dcol +
+                                      c * 8) =
+                *reinterpret_cast<const uint4*>(
+                    q_rows + (c / 8) * kBQ * kPanelBytes + rl * kPanelBytes +
+                    ((c % 8) ^ (rl % 8)) * 16);
+        }
       }
     }
     // L: every CTA of a cluster holds the same m and l; rank 0 writes it.
@@ -989,8 +1143,9 @@ cudaError_t launch_f32(int bh, const FwdParams& p, cudaStream_t stream) {
 // The wgmma kernel: one CTA a (head, q-block) tile (CL false; DP covers
 // D), or a cluster of `panels` CTAs, CTA p on head-dim panel p of DP
 // columns (grid.x = tiles x panels, a tile's panels adjacent). Its rings
-// hold p.stages_k K and p.stages_v V tiles (ops/params.py fwd_rings).
-template <int BKV, int DP, bool CL>
+// hold p.stages_k K and p.stages_v V tiles (ops/params.py fwd_rings);
+// PROD its producer (the tensor maps only for kTma).
+template <int BKV, int DP, bool CL, int PROD = kTma>
 cudaError_t launch_wgmma(int bh, int panels, const FwdParams& p,
                          cudaStream_t s) {
   constexpr int kPeers = CL ? dblk_max_panels(DP) - 1 : 0;
@@ -999,13 +1154,13 @@ cudaError_t launch_wgmma(int bh, int panels, const FwdParams& p,
   const FwdLayout L = fwd_layout(BKV, DP, p.stages_k, p.stages_v, kPeers);
   if (p.stages_k < 1 || p.stages_v < 1 || L.bytes > kSmemOptin)
     return cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv;
+  CUtensorMap mq{}, mk{}, mv{};
   const int bhkv = bh / p.group;
-  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, kBQ) ||
-      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
-      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV))
+  if (PROD == kTma && (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, kBQ) ||
+                       !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
+                       !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV)))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wgmma<BKV, DP, CL>;
+  auto kernel = flash_fwd_wgmma<BKV, DP, CL, PROD>;
   const int grid = (p.R + kBQ - 1) / kBQ * bh * panels;
   if constexpr (CL) {
     static int fits[9] = {};
@@ -1022,6 +1177,21 @@ cudaError_t launch_wgmma(int bh, int panels, const FwdParams& p,
 
 }  // namespace
 
+// One CTA of the wgmma kernel with the copying producer at the table's
+// (block_kv, block_d) up to D = 256 (ops/params.py _FWD_BF16).
+static cudaError_t launch_copying(int bh, int block_kv, int block_d,
+                                  const FwdParams& p, cudaStream_t s) {
+  if (block_kv == 128 && block_d == 64)
+    return launch_wgmma<128, 64, false, kCopy>(bh, 1, p, s);
+  if (block_kv == 128 && block_d == 128)
+    return launch_wgmma<128, 128, false, kCopy>(bh, 1, p, s);
+  if (block_kv == 64 && block_d == 192)
+    return launch_wgmma<64, 192, false, kCopy>(bh, 1, p, s);
+  if (block_kv == 64 && block_d == 256)
+    return launch_wgmma<64, 256, false, kCopy>(bh, 1, p, s);
+  return cudaErrorInvalidValue;
+}
+
 // dtype: 0 = fp32 in/out, 1 = bf16 in/out, 2 = bf16 in, fp32 out. kernel:
 // 0 the first-cut kernels (mma.sync / FMA), 1 the wgmma kernel, whose K
 // and V rings hold `stages_k` and `stages_v` tiles and whose consumer
@@ -1030,14 +1200,16 @@ cudaError_t launch_wgmma(int bh, int panels, const FwdParams& p,
 // for the others), 3 the wgmma kernel on a block_d-wide head-dim panel:
 // one CTA for one panel, else a cluster of `panels` CTAs, one a panel
 // (rings and turns as for 1). (kernel, block_q, block_kv, block_d) must
-// be a row of ops/params.py's flash_fwd tables.
+// be a row of ops/params.py's flash_fwd tables. producer (kernels 1 and
+// 3): 0 TMA, 1 cp.async (Producer; 1 on one CTA, for rows TMA cannot map
+// whose bases and row stride share 4 bytes).
 extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int group, int R,
                              int C, int D, int panels, int causal,
                              int window, float scale2, float cap2, int dtype,
                              int kernel, int block_q, int block_kv,
                              int block_d, int stages_k, int stages_v,
-                             int pingpong, void* stream) {
+                             int pingpong, int producer, void* stream) {
   if (!mfa::panels_ok(kernel, D, block_d, panels))
     return cudaErrorInvalidValue;
   FwdParams p{};
@@ -1058,6 +1230,13 @@ extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
                            reinterpret_cast<uintptr_t>(k) |
                            reinterpret_cast<uintptr_t>(v);
   p.vec = (D % 8 == 0) && (ptr_or % 16 == 0);
+  // The largest of 16, 8, 4 (else 2) bytes that every base, O's too, and
+  // the bf16 row stride 2 D are multiples of.
+  p.gran = 16;
+  while (p.gran > 2 &&
+         ((ptr_or | reinterpret_cast<uintptr_t>(o)) % p.gran ||
+          (2 * D) % p.gran))
+    p.gran /= 2;
   p.o_f32 = dtype == 2;
   p.stages_k = stages_k;
   p.stages_v = stages_v;
@@ -1076,6 +1255,14 @@ extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   }
   const bool out_f32 = dtype == 2;
+  if ((kernel == 1 || kernel == 3) && producer == kCopy) {
+    // One CTA holding the whole head dim; rows and bases of 4 bytes or
+    // more.
+    if (block_q != kBQ || panels != 1 || D > block_d || p.gran < 4)
+      return cudaErrorInvalidValue;
+    return launch_copying(bh, block_kv, block_d, p, s);
+  }
+  if (producer != kTma) return cudaErrorInvalidValue;
   if (kernel == 1) {
     // TMA maps the operands and O takes 16-byte stores: rows of a
     // multiple of 16 bytes, 16-byte-aligned bases.

@@ -169,13 +169,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// 4 bytes global -> shared, asynchronous; in == false writes zeros and
-// reads nothing.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+// G bytes global -> shared, asynchronous (G = 4 or 8; src and dst G-byte
+// aligned); in == false writes zeros and reads nothing.
+template <int G>
+__device__ __forceinline__ void cp_async_g(void* dst, const void* src,
+                                           bool in) {
+  static_assert(G == 4 || G == 8, "cp.async.ca copies 4 or 8 bytes here");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
                    smem_addr(dst)),
-               "l"(src), "r"(in ? 4 : 0)
+               "l"(src), "n"(G), "r"(in ? G : 0)
                : "memory");
 }
 
@@ -621,6 +623,72 @@ __device__ __forceinline__ void scale_chunks(const unsigned char* src,
       h[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
     }
     *reinterpret_cast<uint4*>(dst + c) = v;
+  }
+}
+
+// Byte c of row r of a [rows x DP] bf16 tile of B128-swizzled panels (the
+// layout TMA's 64-column boxes give): panel c / 128, 16-byte chunk
+// (c / 16) % 8 XOR r % 8 of the panel's row r.
+__device__ __forceinline__ int swizzled(int rows, int r, int c) {
+  return (c >> 7) * rows * kPanelBytes + r * kPanelBytes +
+         ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
+}
+
+// The G-byte granules of a swizzled [rows x DP] tile (rows a multiple of
+// 8) of rows of `row_bytes` bytes, thread t of n, in runs that keep the
+// swizzle fixed: run p is byte c = (p / 8) G of rows r0 = p % 8, r0 + 8,
+// ..., so along a run the shared address steps by 8 panel rows (1024
+// bytes) and the global one by 8 rows, with no address arithmetic but
+// two adds a granule. f(r0, c, at) is called once a run with the byte
+// offset `at` of its first granule in the tile; it walks the run.
+template <int G, typename F>
+__device__ __forceinline__ void for_runs(int rows, int row_bytes, int t,
+                                         int n, F&& f) {
+  for (int p = t; p < 8 * (row_bytes / G); p += n) {
+    const int r0 = p & 7, c = (p >> 3) * G;
+    f(r0, c, swizzled(rows, r0, c));
+  }
+}
+
+// Rows [row0, row0 + ROWS) of a bf16 tensor of `limit` rows of
+// `row_bytes` bytes at `src` into a swizzled [ROWS x DP] tile by cp.async,
+// G bytes a copy (the granule every row shares), thread t of n along
+// for_runs: rows at or past `limit` arrive as zeros (as TMA gives them),
+// by copies that read nothing; columns past row_bytes / 2 are not
+// written. (16-byte copies where a run's rows start 16-byte aligned, and
+// none for the chunk's other granules, made K1 slower at D 100 and 250.)
+template <int ROWS, int G>
+__device__ __forceinline__ void copy_rows(unsigned char* tile,
+                                          const unsigned char* src, int row0,
+                                          int limit, int row_bytes, int t,
+                                          int n) {
+  const size_t step = 8 * (size_t)row_bytes;
+  for_runs<G>(ROWS, row_bytes, t, n, [&](int r0, int c, int at) {
+    const unsigned char* s = src + (size_t)(row0 + r0) * row_bytes + c;
+    unsigned char* d = tile + at;
+    const int left = limit - row0 - r0;   // rows r0 + 8 k < left are in
+    if (left >= ROWS) {
+#pragma unroll
+      for (int k = 0; k < ROWS / 8; ++k, s += step)
+        cp_async_g<G>(d + k * 8 * kPanelBytes, s, true);
+    } else {
+#pragma unroll
+      for (int k = 0; k < ROWS / 8; ++k, s += step)
+        cp_async_g<G>(d + k * 8 * kPanelBytes, 8 * k < left ? s : src,
+                      8 * k < left);
+    }
+  });
+}
+
+// Zeroes 16-byte chunks [c0, DP / 8) of every row of a swizzled [rows x
+// DP] tile: the columns past D that a copying producer never writes.
+__device__ __forceinline__ void zero_chunks(unsigned char* tile, int rows,
+                                            int dp, int c0, int t, int n) {
+  const int per = dp / 8 - c0;
+  for (int idx = t; idx < rows * per; idx += n) {
+    const int r = idx / per, c = (c0 + idx % per) * 16;
+    *reinterpret_cast<uint4*>(tile + swizzled(rows, r, c)) =
+        make_uint4(0, 0, 0, 0);
   }
 }
 

@@ -39,8 +39,8 @@ _SIGNATURES = {
                       _I, _I, _F, _F,               # causal window scale2 cap2
                       _I, _I, _I, _I, _I,           # dtype kernel block_q
                                                     # kv d
-                      _I, _I, _I,                   # stages_k stages_v
-                                                    # pingpong
+                      _I, _I, _I, _I,               # stages_k stages_v
+                                                    # pingpong producer
                       _P],                          # stream
     "mfa_flash_bwd_q": [_P, _P, _P, _P, _P, _P,     # q k v o do lse
                         _P, _P,                     # dq dterm

@@ -8,20 +8,24 @@ and apart those of the non-causal mode.
 
 Which kernel a launch runs is the descriptor's parameter row
 (``ops/params.py``): bf16 rows up to D = 512 name the warp-specialised
-TMA + wgmma kernel (the depths of its K and V rings from
+wgmma kernel (the depths of its K and V rings from
 ``params.fwd_rings`` and its ping-pong from ``params.FWD_PINGPONG``,
-read at each call), the others the first-cut mma.sync or FMA kernels; a
-wgmma row whose operands TMA cannot map takes the mma.sync row of its
-head dim (:func:`~mfa_tpu_torch.ops.descriptors.launch_row`). Past D =
-128 (``wgmma_dblk``) it runs on a 192- or 256-wide head-dim panel: one
+read at each call), the others the first-cut mma.sync or FMA kernels.
+Its producer fills the tiles by TMA where TMA maps the operands;
+where it cannot (D % 8 != 0, a base off 16 bytes) but one CTA holds D
+(D <= 256) and the rows and every base share 4 bytes (D even), the same
+kernel runs with a copying producer (``params.FWD_PRODUCERS``, passed
+as the C entry's producer code); otherwise the mma.sync row of
+its head dim (:func:`~mfa_tpu_torch.ops.descriptors.launch_row`). Past D
+= 128 (``wgmma_dblk``) it runs on a 192- or 256-wide head-dim panel: one
 CTA up to D = 256; above, the launch covers O in ceil(D / block_d)
 panels, as ``mfa_tpu``'s ``_fwd_kernel`` pages D in ``block_d`` slices
 (flash_fwd.py:180-252, :413-456), one CTA of a thread-block cluster a
 panel, S summed across the cluster, so formed once a block pair. A
-``wgmma_dblk`` row whose operands TMA cannot map takes the mma.sync row
-of its head dim (up to D = 256 ``mma``; past it the D-blocked
-``mma_dblk``: one CTA a panel, S summed over streamed panels in each,
-which also runs past D = 512); fp32 runs ``fma_dblk`` past D = 256.
+cluster row whose operands TMA cannot map takes the D-blocked
+``mma_dblk`` row (one CTA a panel, S summed over streamed panels in
+each, which also runs past D = 512); fp32 runs ``fma_dblk`` past D =
+256.
 Blocks, heads and panels share grid.x, so batch * heads has no 65535
 limit.
 
@@ -32,6 +36,7 @@ L [BH, R] in fp32.
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -43,6 +48,7 @@ from mfa_tpu_torch.ops.descriptors import (
     AttentionKernelDescriptor,
     head_dim_panels,
     launch_row,
+    row_label,
 )
 
 LOG2E = math.log2(math.e)
@@ -171,9 +177,10 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
         int(kd.causal), kd.sliding_window or 0, scale * LOG2E, cap2,
         dtype_code,
         KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
-        *rings, int(params.FWD_PINGPONG),
+        *rings, int(params.FWD_PINGPONG), params.FWD_PRODUCERS[row.producer],
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_fwd.launches += 1
+    launches_by_row[row_label(row)] += 1
     if not (kd.causal or kd.sliding_window is not None):
         flash_fwd.noncausal_launches += 1
     return o, lse
@@ -185,3 +192,6 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
 # receives both counts while it stands there.
 flash_fwd.launches = 0
 flash_fwd.noncausal_launches = 0
+# The kernel's launches by the row that ran (descriptors.row_label:
+# "wgmma", "wgmma/copy", "mma", ...), whatever stands in for flash_fwd.
+launches_by_row = collections.Counter()

@@ -15,6 +15,7 @@ against its shared memory.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import math
 from dataclasses import dataclass
@@ -87,9 +88,15 @@ class AttentionDescriptor:
         device: params_mod.HopperDevice = params_mod.H100,
     ) -> "AttentionKernelDescriptor":
         """Pick the table row for this kernel, head dim and precision
-        class; head dims above 256 take the D-blocked rows."""
-        precision = (params_mod.bf16_table_precision(self.head_dim)
-                     if self.low_precision_inputs else "fp32")
+        class; head dims above 256 take the D-blocked rows. K1 takes its
+        bf16 table at every even D up to 256 (its copying producer), K3
+        and K4 only where TMA maps a row."""
+        if not self.low_precision_inputs:
+            precision = "fp32"
+        elif kernel_type is AttentionKernelType.FORWARD:
+            precision = params_mod.fwd_bf16_table_precision(self.head_dim)
+        else:
+            precision = params_mod.bf16_table_precision(self.head_dim)
         rows = params_mod.parameter_table(_TABLE[kernel_type], precision,
                                           device)
         row = params_mod.select_row(rows, self.head_dim)
@@ -169,21 +176,48 @@ def head_dim_panels(row, head_dim: int) -> int:
     return 1
 
 
+def copy_granule(head_dim: int, tensors) -> int:
+    """The largest of 16, 8, 4 and 2 bytes that a row of ``head_dim`` bf16
+    values and every base address of ``tensors`` are multiples of (as
+    csrc/flash_fwd.cu reckons its granule)."""
+    g = 16
+    while g > 2 and ((2 * head_dim) % g
+                     or any(t.data_ptr() % g for t in tensors)):
+        g //= 2
+    return g
+
+
 def launch_row(kd: AttentionKernelDescriptor, head_dim: int,
                tensors) -> params_mod.ParameterRow:
     """The parameter row a flash kernel's launch runs: the descriptor's,
-    except that a wgmma or wgmma_dblk row whose operands TMA cannot map (a
-    row of ``head_dim`` bf16 values that is no multiple of 16 bytes, or a
-    base address that is not 16-byte aligned) takes the mma.sync row of
-    its head dim (mma, or mma_dblk past D = 256). The launch covers
-    ``head_dim_panels(row, head_dim)`` panels of the row it returns."""
+    except where TMA cannot map the operands of a wgmma or wgmma_dblk row
+    (a row of ``head_dim`` bf16 values that is no multiple of 16 bytes, or
+    a base address that is not 16-byte aligned). There K1's row keeps its
+    kernel with the copying producer (``producer`` "copy") when one CTA
+    holds the head dim (D <= block_d) and the rows and bases share 4
+    bytes; every other such row takes the mma.sync row of its head dim
+    (mma, or mma_dblk past D = 256): K3's and K4's, odd D, 2-byte-shifted
+    bases, K1's clusters. The launch covers ``head_dim_panels(row,
+    head_dim)`` panels of the row it returns."""
     row = params_mod.ParameterRow(kd.head_dim, kd.block_q, kd.block_kv,
                                   kd.block_d, kd.kernel)
-    if kd.kernel in ("wgmma", "wgmma_dblk") and (head_dim % 8 or any(
-            t.data_ptr() % 16 for t in tensors)):
-        row = params_mod.select_row(params_mod.parameter_table(
-            _TABLE[kd.kernel_type], "bf16_mma"), head_dim)
-    return row
+    if kd.kernel not in ("wgmma", "wgmma_dblk") or (
+            head_dim % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                      for t in tensors)):
+        return row
+    if (kd.kernel_type is AttentionKernelType.FORWARD
+            and head_dim <= kd.block_d
+            and copy_granule(head_dim, tensors) >= 4):
+        return dataclasses.replace(row, producer="copy")
+    return params_mod.select_row(params_mod.parameter_table(
+        _TABLE[kd.kernel_type], "bf16_mma"), head_dim)
+
+
+def row_label(row) -> str:
+    """A launch row's kernel, and its producer where it is not TMA:
+    "wgmma", "wgmma/copy", "mma", ..."""
+    producer = getattr(row, "producer", "")
+    return f"{row.kernel}/{producer}" if producer else row.kernel
 
 
 def round_up(x: int, m: int) -> int:

@@ -71,13 +71,17 @@ def detect_device(device: torch.device | None = None) -> HopperDevice:
 
 @dataclass(frozen=True)
 class ParameterRow:
-    """One row: applies to head dims <= ``max_d`` (0 = unbounded)."""
+    """One row: applies to head dims <= ``max_d`` (0 = unbounded).
+    ``producer`` names how K1's wgmma kernel fills its tiles at launch
+    (:data:`FWD_PRODUCERS`; set by ``descriptors.launch_row``, never by a
+    table)."""
 
     max_d: int
     block_q: int
     block_kv: int
     block_d: int
     kernel: str = ""
+    producer: str = ""
 
 
 # The kernels a row may name: "wgmma" the warp-specialised TMA + wgmma
@@ -149,8 +153,23 @@ def select_row(rows: list[ParameterRow], head_dim: int) -> ParameterRow:
 # mma.sync rows 0.30866 / 0.53608 and 0.17279 / 0.31978. The separate
 # rings (a K tile freed once S has read it), in turns with the shared ring
 # on one card (NVIDIA H100 80GB HBM3, 700 W): 0.0983 / 0.1458 -> 0.0960 /
-# 0.1421 at D = 128, 0.0738 / 0.1164 -> 0.0710 / 0.1108 at D = 64. Head
-# dims TMA cannot map take _FWD_BF16_MMA.
+# 0.1421 at D = 128, 0.0738 / 0.1164 -> 0.0710 / 0.1108 at D = 64.
+# Where TMA cannot map the operands but one CTA holds D and the rows and
+# bases share 4 bytes (D even up to 256: fwd_bf16_table_precision,
+# descriptors.launch_row), the rows up to D 256 run with the cp.async
+# producer (rings of FWD_COPY_RING_STAGES); by utils/bwd_tuning.py sweep
+# --only copy (NVIDIA H100 80GB HBM3, 700 W), ms causal / non-causal:
+# - OpenLLaMA-3B's D 100 (Hq = Hkv 32, N 2048) on the 128-wide panel:
+#   block_kv 128 0.1256 / 0.1923 (N 512 causal 0.0226); the mma.sync row
+#   0.4680 / 1.012.
+# - D 250 (H 8, N 1024) on the 256-wide panel: block_kv 64 0.0700 /
+#   0.0697; the mma.sync row 0.2092 / 0.2096.
+# Candidates that lost there and were dropped with their instances:
+# block_kv 64 at D 100, 0.1424 / 0.2247; block_kv 32 at D 250, 0.1085 /
+# 0.1094; each K / V tile by one 1-D bulk copy into a staging slot,
+# repacked into the swizzled tile by the producer warpgroup, 0.1555 /
+# 0.2485 at D 100 and 0.1150 / 0.1154 at D 250.
+# Odd D and bases only 2-byte aligned take _FWD_BF16_MMA.
 # Above D = 128 up to D = 512 (rows wgmma_dblk, csrc/flash_fwd.cu
 # flash_fwd_wgmma on a block_d-wide head-dim panel): one CTA holding the
 # whole head dim up to D = 256 (a 192- or 256-wide panel; O at 64 x 256
@@ -190,13 +209,15 @@ _FWD_BF16 = """
   inf   |   64    |    32    |  256    | mma_dblk
 """
 
-# K1 bf16 where TMA cannot map the operands (a row of D % 8 != 0 values is
-# no multiple of 16 bytes, or a base is not 16-byte aligned): the mma.sync
-# kernel for every head dim; at D 129-256 four warps of 16 rows, the kv
-# step halved so the fp32 O accumulator (128 registers a thread at D 256)
-# fits (not tuned on the H100; as the bf16 table's D 256 row before the
-# one-CTA wgmma_dblk rows it took 0.7210 / 1.406 ms at B 1, H 8, N 4096,
-# causal / non-causal). The
+# K1 bf16 where neither TMA nor the wgmma kernel's copying producer can
+# take the operands: odd D (rows of an odd number of 2-byte values), a
+# base only 2-byte aligned, or D % 8 != 0 past D 256 (the cluster rows
+# take TMA only): the mma.sync kernel for every head dim; at D 129-256
+# four warps of 16 rows, the kv step halved so the fp32 O accumulator
+# (128 registers a thread at D 256) fits (not tuned on the H100; as the
+# bf16 table's D 256 row before the one-CTA wgmma_dblk rows it took
+# 0.7210 / 1.406 ms at B 1, H 8, N 4096, causal / non-causal; before the
+# copying producer it ran OpenLLaMA-3B's D 100, times above). The
 # D-blocked rows by the same sweep at N 1024: D = 300, 0.642 + 1.281 ms
 # (causal + non-causal) against 1.075 + 1.143; D = 500, 1.421 + 1.461
 # against 1.010 + 1.944.
@@ -422,6 +443,20 @@ _SMEM_ALIGN = 1024
 # ping-pong off are within 1.1% of these settings.
 FWD_RING_STAGES = 3
 FWD_PINGPONG = True
+# How K1's wgmma kernel fills its tiles (the C entry's producer codes):
+# "" by TMA where TMA maps the operands; else, for one CTA (D <= 256) of
+# rows and bases that share 4 bytes, "copy" (cp.async of that granule
+# straight into the swizzled tiles).
+FWD_PRODUCERS = {"": 0, "copy": 1}
+# The most tiles a ring of K1's copying producer (FWD_RING_STAGES for
+# TMA's), read at each call. By utils/bwd_tuning.py sweep --only copy on
+# the H100 (NVIDIA H100 80GB HBM3, 700 W), cp.async at OpenLLaMA-3B's D
+# 100 (Hq = Hkv 32, N 2048, block_kv 128): 2 + 2 tiles 0.1281 ms causal
+# and 0.1957 non-causal against 3 + 3's 0.1429 and 0.2238; at D 250 (H 8,
+# N 1024, block_kv 64) 2 + 2 tiles 0.07086 / 0.0705 against 2 + 3's
+# 0.08306 / 0.08556: a deeper ring only lets the producer's copies
+# compete longer with the consumers' softmax for issue slots.
+FWD_COPY_RING_STAGES = 2
 
 
 def _ring_stages(fixed: int, per_stage: int, most: int, mult: int) -> int:
@@ -502,13 +537,25 @@ def fwd_rings(row: ParameterRow) -> tuple[int, int]:
     cluster, the exchange slots with their four mbarriers), each tile
     with two mbarriers. A K tile is freed once S has read it, a V tile a
     step later, once the deferred PV has: the V ring takes the odd tile.
-    Each ring holds at most FWD_RING_STAGES."""
+    Each ring holds at most FWD_RING_STAGES (with a copying producer,
+    FWD_COPY_RING_STAGES)."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
     x = exchange_bytes("flash_fwd", row)
     tiles = ((_SMEM_OPTIN - 2 * bq * d - x - 8 * (1 + (4 if x else 0))
               - _SMEM_ALIGN) // (2 * bkv * d + 16))
-    v = min(-(-tiles // 2), FWD_RING_STAGES)
-    return min(tiles - v, FWD_RING_STAGES), v
+    most = FWD_COPY_RING_STAGES if row.producer else FWD_RING_STAGES
+    v = min(-(-tiles // 2), most)
+    return min(tiles - v, most), v
+
+
+def fwd_bf16_table_precision(head_dim: int) -> str:
+    """K1's bf16 table for a head dim: ``"bf16"`` where TMA maps a row
+    (D % 8 == 0) and, up to D = 256, wherever a row is a multiple of 4
+    bytes (D even: the wgmma kernel's copying producer); else the mma.sync
+    rows."""
+    if head_dim % 2 == 0 and head_dim <= 256:
+        return "bf16"
+    return bf16_table_precision(head_dim)
 
 
 def bf16_table_precision(head_dim: int) -> str:
@@ -522,8 +569,9 @@ def bf16_table_precision(head_dim: int) -> str:
 def flash_fwd_smem_bytes(row: ParameterRow, in_bytes: int) -> int:
     """K1: the wgmma kernel keeps Q resident, a ring of K tiles and a ring
     of V tiles (:func:`fwd_rings`) with two mbarriers a tile (full, free)
-    and one for Q, and as a cluster its exchange slots and four
-    mbarriers; the mma.sync kernel Q and K tiles plus the transposed V
+    and one for Q, and as a cluster its exchange slots and four mbarriers
+    (the copying producer keeps the TMA layout, D padded to block_d); the
+    mma.sync kernel Q and K tiles plus the transposed V
     tile, each row padded by 8 elements (bank spread); the fp32 kernel
     unpadded Q rows and K/V rows padded by one. The D-blocked kernels
     hold the same tiles, block_d columns wide, at any head dim."""

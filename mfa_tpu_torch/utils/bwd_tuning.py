@@ -12,7 +12,9 @@ table, the mma rows at D <= 256 and the head-dim-split kernels
 (:data:`DBLK_ROWS`; K1's one-CTA ones in each launch variant of
 :data:`K1_SPLIT_VARIANTS`), at the shapes of ``chip_smoke.py``'s
 ``large_d`` phase and at D 192 and 256 (:data:`DBLK_SHAPES`; ``--only
-dblk`` runs these alone, ``--only fwd`` runs K1's). Each row is
+dblk`` runs these alone, ``--only fwd`` runs K1's). Then K1 where TMA
+cannot map a row (:func:`sweep_copy`, ``--only copy`` alone): its copying
+producer's ring depths at OpenLLaMA-3B's D 100 and at D 250. Each row is
 first held to its plain version at ``KERNEL_BUDGETS`` (and the
 D-blocked ones to a second run, bit for bit), then timed
 (CUDA events, launches queued behind a device spin). One JSON line per
@@ -46,7 +48,7 @@ kernels' last bits.
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.bwd_tuning sweep \
-        [--only fwd|bwd|dblk|matmul|qmm_decode]
+        [--only fwd|copy|bwd|dblk|matmul|qmm_decode]
     python -m mfa_tpu_torch.utils.bwd_tuning curve [--plain none k1 k34 k1,k34]
 """
 
@@ -71,6 +73,8 @@ from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
     AttentionKernelType,
     GEMMDescriptor,
+    launch_row,
+    row_label,
 )
 from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.utils import roofline
@@ -143,6 +147,21 @@ DBLK_SHAPES = (("bf16", 384, 4096), ("bf16", 512, 4096),
 K1_SPLIT_VARIANTS = (("rule", 3, True, False), ("rings2", 2, True, False),
                      ("rings4", 4, True, False), ("k_deeper", 3, True, True),
                      ("no_pingpong", 3, False, False))
+
+
+# K1 where TMA cannot map a row, (D, N, Hq, Hkv, causal): OpenLLaMA-3B's
+# attention (head dim 100, 32 heads, MHA) at its prefill buckets 2048
+# (causal and not) and 512, and D 250 at chip_smoke.py's large_d tail
+# (B 1, H 8, N 1024). Its candidates, the most tiles a ring
+# (params.FWD_COPY_RING_STAGES) of the wgmma kernel with the cp.async
+# producer on the table's row (block_kv 128 on the 128-wide panel at D
+# 100, 64 on the 256-wide one at D 250), each beside the mma.sync row it
+# replaces. (block_kv 64 at D 100, 32 at D 250, and a producer of 1-D
+# bulk copies repacked lost here and were dropped: ops/params.py.)
+COPY_SHAPES = ((100, 2048, 32, 32, True), (100, 2048, 32, 32, False),
+               (100, 512, 32, 32, True), (250, 1024, 8, 8, True),
+               (250, 1024, 8, 8, False))
+COPY_RING_STAGES = (2, 3)
 
 
 def panel_range(name: str, bd: int, bkv: int = 64) -> tuple[int, int]:
@@ -333,6 +352,49 @@ def sweep_fwd() -> None:
             del q, k, v, o_p, l_p, o, lse
             torch.cuda.empty_cache()
     sweep_dblk(("flash_fwd",))
+
+
+def sweep_copy() -> None:
+    """K1's copying producer at COPY_RING_STAGES at COPY_SHAPES beside
+    the mma.sync row: each candidate's launch row checked, held to the
+    plain version at KERNEL_BUDGETS and to a second launch bit for bit,
+    then timed."""
+    for d, n, hq, hkv, causal in COPY_SHAPES:
+        (q, k, v, _, _, _), _, _, kw, kd_f = _inputs(d, n, hq, hkv, causal)
+        kw = dict(kw, o_dtype=torch.bfloat16)
+        want = k1.flash_fwd_plain(q, k, v, kd_f, **kw)
+        mma = params.select_row(params.parameter_table(
+            "flash_fwd", "bf16_mma"), d)
+        cands = [(most, "copy", kd_f) for most in COPY_RING_STAGES]
+        cands.append((0, "", dataclasses.replace(
+            kd_f, block_q=mma.block_q, block_kv=mma.block_kv,
+            block_d=mma.block_d, kernel=mma.kernel)))
+        for most, prod, kd in cands:
+            bkv = kd.block_kv
+            with mock.patch.object(params, "FWD_COPY_RING_STAGES",
+                                   most or params.FWD_COPY_RING_STAGES):
+                row = launch_row(kd, d, (q, k, v))
+                got, again = (k1.flash_fwd(q, k, v, kd, **kw)
+                              for _ in range(2))
+                ms = roofline.cuda_ms(
+                    lambda: k1.flash_fwd(q, k, v, kd, **kw), iters=20)
+                rings = (params.fwd_rings(row) if row.producer else None)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            shares = {key: budget_share(g, w, *KERNEL_BUDGETS[key])
+                      for key, g, w in zip(("flash_fwd_o_bf16",
+                                            "flash_fwd_l"), got, want)}
+            print(json.dumps({
+                "kernel": "flash_fwd", "D": d, "N": n, "Hq": hq,
+                "Hkv": hkv, "causal": causal, "block_kv": bkv,
+                "row": row_label(row), "rings": rings, "share": shares,
+                "deterministic": same, "ms": ms}), flush=True)
+            if max(shares.values()) > 1 or not same or row.producer != prod:
+                raise SystemExit(f"K1 {row_label(row)} {bkv}/{most} at D "
+                                 f"{d}: shares {shares}, deterministic "
+                                 f"{same}, wanted producer {prod!r}")
+            del got, again
+        del q, k, v, want
+        torch.cuda.empty_cache()
 
 
 def sweep_bwd() -> None:
@@ -557,10 +619,11 @@ def curve(plain: list[str], steps: int = 6) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("sweep", "curve"))
-    ap.add_argument("--only", choices=("fwd", "bwd", "dblk", "matmul",
-                                       "qmm_decode"),
+    ap.add_argument("--only", choices=("fwd", "copy", "bwd", "dblk",
+                                       "matmul", "qmm_decode"),
                     default=None, help="sweep one group of kernels only "
-                    "(dblk: K1, K3 and K4 past D = 256 and at D 192, 256)")
+                    "(dblk: K1, K3 and K4 past D = 256 and at D 192, 256; "
+                    "copy: K1's copying producers)")
     ap.add_argument("--plain", nargs="*",
                     default=["none", "k1", "k34", "k1,k34"],
                     help="curve: kernels swapped for their plain versions, "
@@ -573,6 +636,8 @@ def main(argv=None) -> int:
         return 0
     if args.only in (None, "fwd"):
         sweep_fwd()
+    if args.only in (None, "fwd", "copy"):
+        sweep_copy()
     if args.only in (None, "bwd"):
         sweep_bwd()
     if args.only == "dblk":

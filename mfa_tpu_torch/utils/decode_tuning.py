@@ -15,8 +15,11 @@ forward kernel phase (``k1``), its fused decode phase (``k2``), its
 backward kernel phase (``bwd``, K3 and K4), its GEMM phase (``k7``), its
 INT4 matmul phase (``k8``; ``k8d``: the decode tile alone at M 4 and
 16), its training phase (``training``), the profiler's serving phase
-(``profile``: prefills and decode steps over bf16, INT8 and FP8 caches)
-or its INT4 phase (``int4``) from two trees in turns (A, B, B, A), each
+(``profile``: prefills and decode steps over bf16, INT8 and FP8 caches;
+``openllama_profile``: OpenLLaMA-3B's; ``openllama_prefill``: its
+prefills timed without the profiler), its INT4 phase (``int4``) or K1
+alone on its copying and TMA rows (``k1_rows``) from two trees in turns
+(A, B, B, A), each
 in a process of its own that builds and loads its own tree's kernels.
 ``rounding`` holds K2, K5, K6 and K1 (alone and inside the ring's merge)
 and their plain versions against fp64 where attention concentrates and O
@@ -28,8 +31,8 @@ Run on a GPU from the repository root:
     python -m mfa_tpu_torch.utils.decode_tuning kernels
     python -m mfa_tpu_torch.utils.decode_tuning rounding
     python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
-        [--what kernels|serving|host|k1|k2|bwd|k7|k8|k8d|training|profile|
-                int4]
+        [--what kernels|serving|host|k1|k1_rows|k2|bwd|k7|k8|k8d|training|
+                profile|openllama_profile|openllama_prefill|int4]
 """
 
 from __future__ import annotations
@@ -347,6 +350,73 @@ for n in (64, 512, 2048):
     print(json.dumps({"phase": "k1_bucket", "N": n,
                       "row": [kd.block_q, kd.block_kv, kd.kernel],
                       "ms": ms}))
+""",
+    # K1 through the wrapper both trees have, at OpenLLaMA-3B's attention
+    # (D 100, Hq = Hkv 32; N 2048 causal and not, N 512 causal), at D 250
+    # (H 8, N 1024, causal and not), and on TMA rows: D 64 and 128
+    # (Llama-3-8B's heads, N 2048) and D 256 (H 8, N 4096), causal and
+    # not; each line names the row the tree's launch took.
+    "k1_rows": """
+import json
+from mfa_tpu_torch.kernels import flash_fwd as k1
+from mfa_tpu_torch.ops import descriptors
+gen = torch.Generator(device="cuda").manual_seed(18)
+shapes = [(100, 2048, 32, 32), (100, 512, 32, 32), (250, 1024, 8, 8),
+          (64, 2048, 32, 8), (128, 2048, 32, 8), (256, 4096, 8, 8)]
+for d, n, hq, hkv, causal in [(*s, c) for s in shapes for c in (True, False)
+                              if c or s[1] != 512]:
+    q, k, v = (torch.randn((h, n, d), generator=gen, device="cuda")
+               .bfloat16() for h in (hq, hkv, hkv))
+    desc = descriptors.AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=n, seq_len_kv=n,
+        head_dim=d, causal=causal, low_precision_inputs=True,
+        low_precision_intermediates=True)
+    kd = desc.kernel_descriptor(descriptors.AttentionKernelType.FORWARD)
+    row = descriptors.launch_row(kd, d, (q, k, v))
+    label = getattr(descriptors, "row_label", lambda r: r.kernel)(row)
+    ms = roofline.cuda_ms(lambda: k1.flash_fwd(
+        q, k, v, kd, group=hq // hkv, scale=desc.softmax_scale,
+        o_dtype=torch.bfloat16), iters=50)
+    print(json.dumps({"phase": "k1_rows", "D": d, "N": n, "Hq": hq,
+                      "Hkv": hkv, "causal": causal, "row": label,
+                      "ms": ms}))
+""",
+    # The profiler's serving phase for OpenLLaMA-3B: prefills of 512 and
+    # 2048 tokens and decode steps, device time by kernel group.
+    "openllama_profile": """
+import json
+from pathlib import Path
+from mfa_tpu_torch.utils import profiling
+out = Path("build/profiles")
+out.mkdir(parents=True, exist_ok=True)
+for row in profiling.profile_serving(profiling.MODELS["openllama_3b"],
+                                     out=out):
+    print(json.dumps(row))
+""",
+    # OpenLLaMA-3B's prefills without the profiler, on chip_smoke.py's
+    # model (random weights, seed 40): the openllama phase's device ms a
+    # bucket (CUDA events, queued behind a device spin), then the host
+    # wall of single prefills of 512 and 2048 tokens, each after a
+    # synchronize (time to first token; 12 a bucket, after 2 untimed).
+    "openllama_prefill": """
+import json, time
+cfg, model = c._random_hf_model(torch, c.OPENLLAMA_3B_CONFIG, seed=40)
+print(json.dumps({"phase": "openllama_prefill", "ms_per_bucket":
+                  c._prefill_ms(torch, model, (512, 2048), 2048)}))
+gen = torch.Generator(device="cuda").manual_seed(11)
+for n in (512, 2048):
+    toks = torch.randint(1, cfg.vocab_size, (1, n), generator=gen,
+                         device="cuda")
+    walls = []
+    for rep in range(14):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model(toks, caches=model.make_caches(1, 2048))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps({"phase": "openllama_prefill_wall", "N": n,
+                      "wall_ms": walls[2:]}))
 """,
     "bwd": "c.phase_bwd(torch)",
     "k2": "c.phase_k2(torch)",

@@ -16,6 +16,7 @@ from mfa_tpu_torch.ops.descriptors import (
     AttentionKernelType,
     head_dim_panels,
     launch_row,
+    row_label,
 )
 from mfa_tpu_torch.utils import bwd_tuning
 
@@ -32,17 +33,19 @@ def _chip_smoke():
 
 def test_large_d_phase_expects_the_tables_rows():
     """Every case of chip_smoke.py's large_d phase: the rows its K1, K3
-    and K4 launches take from the tables are the ones large_d_rows
-    expects (the head-dim-split kernels where TMA maps a bf16 row; the
-    first cut for D % 8 != 0 and fp32), and the phase runs all three on
-    one CTA at D 192 and 256 (K1 also non-causal and with Gemma-2-9B's
-    soft-cap and GQA) and on two past 256."""
+    and K4 launches take from the tables (row_label: kernel and producer)
+    are the ones large_d_rows expects (the head-dim-split kernels where
+    TMA maps a bf16 row, K1's one CTA with its cp.async producer at D
+    250; the first cut for K3 and K4 at D % 8 != 0 and for fp32), and the
+    phase runs all three on one CTA at D 192 and 256 (K1 also non-causal
+    and with Gemma-2-9B's soft-cap and GQA) and on two past 256."""
     smoke = _chip_smoke()
     assert {(d, key, smoke.large_d_rows("bf16", d)[key])
             for d in (192, 256) for key in ("k1", "k3", "k4")} \
         == {(d, key, "wgmma_dblk") for d in (192, 256)
             for key in ("k1", "k3", "k4")}
-    assert smoke.large_d_rows("bf16", 250)["k1"] == "mma"
+    assert smoke.large_d_rows("bf16", 250) == {
+        "k1": "wgmma_dblk/copy", "k3": "mma", "k4": "mma"}
     assert {c[0] for c in smoke.LARGE_D_CASES} >= {
         "causal_d192", "causal_d256", "noncausal_d256", "gqa_softcap50_d256"}
     for name, tag, d, n, hkv, opts in smoke.LARGE_D_CASES:
@@ -54,7 +57,7 @@ def test_large_d_phase_expects_the_tables_rows():
         for key, kind in zip(("k1", "k3", "k4"), AttentionKernelType):
             kd = desc.kernel_descriptor(kind)
             row = launch_row(kd, d, ())
-            assert row.kernel == want[key], (name, key)
+            assert row_label(row) == want[key], (name, key)
             assert d <= row.block_d * head_dim_panels(row, d)
             if row.kernel == "wgmma_dblk":
                 assert (head_dim_panels(row, d) == 1) == (d <= 256)
@@ -165,3 +168,35 @@ def test_sweep_k1_variants_set_and_restore_the_launch(variant):
             params.fwd_rings) == before
     want = {"rings2": (2, 2), "k_deeper": (3, 2)}.get(name, rule)
     assert rings == want
+
+
+def test_k1_phase_expects_the_launch_rows():
+    """chip_smoke.py's k1 phase past Llama-3-8B's shape: OpenLLaMA-3B's
+    attention (D 100, MHA) at its prefill buckets and each of
+    HEAD_DIM_CASES take the rows k1_row expects (D 100 and 250 on the
+    wgmma kernel's cp.async producer, D 80, 96 by TMA, D 384 on the
+    cluster), and so do Llama-3-8B's operands with q 8, 4 or 2 bytes off
+    16 (the copying producer, then mma.sync)."""
+    import torch
+
+    smoke = _chip_smoke()
+    assert {c[1] for c in smoke.OPENLLAMA_K1_CASES} == {512, 2048}
+    assert {bool(c[2]) for c in smoke.OPENLLAMA_K1_CASES} == {True, False}
+    cases = [(100, 32, 32, 0) for _ in smoke.OPENLLAMA_K1_CASES]
+    cases += [(d, 8 * g, 8, 0) for d, g in smoke.HEAD_DIM_CASES]
+    cases += [(128, 32, 8, shift) for shift in smoke.K1_SHIFTS]
+    labels = set()
+    for d, hq, hkv, shift in cases:
+        kd = AttentionDescriptor(
+            batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=64,
+            seq_len_kv=64, head_dim=d, causal=True,
+            low_precision_inputs=True, low_precision_intermediates=True,
+        ).kernel_descriptor(AttentionKernelType.FORWARD)
+        buf = torch.zeros(64 * d + 8, dtype=torch.bfloat16)
+        q = buf[shift // 2:shift // 2 + 64 * d].view(1, 64, d)
+        kv = torch.zeros(1, 64, d, dtype=torch.bfloat16)
+        label = row_label(launch_row(kd, d, (q, kv, kv)))
+        assert label == smoke.k1_row(d, shift), (d, shift)
+        labels.add(label)
+    assert labels == {"wgmma", "wgmma/copy", "wgmma_dblk/copy",
+                      "wgmma_dblk", "mma"}

@@ -6,6 +6,8 @@ number of heads (recorded by a stand-in library over meta tensors; no
 kernel runs here)."""
 
 import dataclasses
+import pathlib
+import re
 import types
 
 import pytest
@@ -18,8 +20,10 @@ from mfa_tpu_torch.ops.descriptors import (
     KERNEL_CODES,
     AttentionDescriptor,
     AttentionKernelType,
+    copy_granule,
     head_dim_panels,
     launch_row,
+    row_label,
 )
 
 
@@ -162,18 +166,22 @@ def test_smem_reckons_the_launch_code(monkeypatch, most, block_kv, stages):
 
 @pytest.mark.parametrize("d, kernel", [
     (32, "wgmma"), (64, "wgmma"), (96, "wgmma"), (128, "wgmma"),
-    (256, "wgmma_dblk"), (36, "mma"), (42, "mma"), (264, "wgmma_dblk"),
+    (256, "wgmma_dblk"), (36, "wgmma"), (42, "wgmma"), (264, "wgmma_dblk"),
     (384, "wgmma_dblk"), (512, "wgmma_dblk"), (300, "mma_dblk"),
     (1024, "mma_dblk"), (136, "wgmma_dblk"), (192, "wgmma_dblk"),
-    (250, "mma"), (200, "wgmma_dblk")])
+    (250, "wgmma_dblk"), (200, "wgmma_dblk"), (100, "wgmma"),
+    (162, "wgmma_dblk"), (37, "mma"), (101, "mma"), (255, "mma")])
 def test_descriptors_dispatch_as_the_source_says(d, kernel):
-    """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernel, past it the
-    head-dim-split kernel up to D = 512 (one CTA up to D = 256); a D whose
-    rows TMA cannot map (D % 8 != 0) the mma.sync kernel, D-blocked past
-    D = 256; fp32 the FMA kernels."""
+    """bf16 at D <= 128 runs the wgmma kernel, past it the head-dim-split
+    kernel up to D = 512 (one CTA up to D = 256); where TMA cannot map a
+    row (D % 8 != 0) but D is even, up to D = 256, the same kernel with
+    its copying producer; odd D the mma.sync kernel, and D % 8 != 0 past
+    D = 256 the D-blocked one; fp32 the FMA kernels."""
     kd = _kd(d)
     assert kd.kernel == kernel
     assert launch_row(kd, d, ()).kernel == kernel
+    assert launch_row(kd, d, ()).producer == (
+        "copy" if d % 8 and kernel.startswith("wgmma") else "")
     assert d <= kd.block_d * head_dim_panels(kd, d)
     assert _kd(d, bf16=False).kernel == ("" if d <= 256 else "fma_dblk")
     if kernel in ("wgmma", "wgmma_dblk"):
@@ -194,6 +202,148 @@ def test_misaligned_operand_takes_the_mma_row():
     assert row == params.select_row(
         params.parameter_table("flash_fwd", "bf16_mma"), 64)
     assert row.kernel == "mma" and row.block_q == 64
+
+
+def _views(d, shift_bytes, rows=64):
+    """An aligned [2, rows, d] bf16 view and one ``shift_bytes`` into the
+    same storage."""
+    buf = torch.zeros(2 * rows * d + 8, dtype=torch.bfloat16)
+    return (buf[:2 * rows * d].view(2, rows, d),
+            buf[shift_bytes // 2:shift_bytes // 2 + 2 * rows * d]
+            .view(2, rows, d))
+
+
+@pytest.mark.parametrize("d, shift, want", [
+    (100, 0, "wgmma/copy"), (250, 0, "wgmma_dblk/copy"),
+    (100, 4, "wgmma/copy"), (100, 8, "wgmma/copy"),
+    (128, 4, "wgmma/copy"), (128, 8, "wgmma/copy"),
+    (256, 4, "wgmma_dblk/copy"), (162, 0, "wgmma_dblk/copy"),
+    (36, 0, "wgmma/copy"), (128, 0, "wgmma"), (100, 2, "mma"),
+    (128, 2, "mma"), (250, 2, "mma"), (37, 0, "mma"), (101, 0, "mma"),
+    (264, 4, "mma_dblk"), (300, 0, "mma_dblk")])
+def test_launch_row_takes_the_copying_producer(d, shift, want):
+    """K1's launch row where TMA cannot map (D % 8 != 0, or a base 4 or 8
+    bytes off 16): the wgmma or one-CTA wgmma_dblk row with the cp.async
+    producer when the rows and every base share 4 bytes and one CTA holds
+    D; else the mma.sync row: 2-byte shifts, odd D, the clusters past D
+    256. K3 and K4 keep the mma.sync rows wherever TMA cannot map."""
+    aligned, shifted = _views(d, shift)
+    kd = _kd(d)
+    row = launch_row(kd, d, (aligned, shifted))
+    assert row_label(row) == want
+    if row.producer:
+        assert row.block_q == 128 and d <= row.block_d
+        assert (row.block_kv, row.block_d) == (kd.block_kv, kd.block_d)
+    for kind in (AttentionKernelType.BACKWARD_QUERY,
+                 AttentionKernelType.BACKWARD_KEY_VALUE):
+        kd34 = AttentionDescriptor(
+            batch=1, num_q_heads=4, num_kv_heads=2, seq_len_q=64,
+            seq_len_kv=64, head_dim=d, causal=True, low_precision_inputs=True,
+            low_precision_intermediates=True).kernel_descriptor(kind)
+        row34 = launch_row(kd34, d, (aligned, shifted))
+        assert row34.producer == ""
+        if want != "wgmma":
+            assert row34.kernel in ("mma", "mma_dblk")
+
+
+@pytest.mark.parametrize("d, shift, granule", [
+    (128, 0, 16), (100, 0, 8), (250, 0, 4), (128, 4, 4), (128, 8, 8),
+    (100, 2, 2), (37, 0, 2), (42, 0, 4)])
+def test_copy_granule_is_the_launch_codes(d, shift, granule):
+    """copy_granule, as csrc/flash_fwd.cu reckons p.gran: the largest of
+    16, 8, 4 and 2 bytes dividing the 2 D bytes of a row and every
+    base."""
+    assert copy_granule(d, _views(d, shift)) == granule
+
+
+@pytest.mark.parametrize("d, rows, shift", [
+    (100, 300, 0), (250, 132, 0), (100, 301, 0), (250, 130, 0),
+    (100, 300, 8)])
+def test_copying_producer_takes_any_row_count(d, rows, shift):
+    """The cp.async producer copies granules of rows, not spans of a
+    tensor: any number of rows, and a base 8 bytes off 16, keep it."""
+    aligned, shifted = _views(d, shift, rows)
+    assert launch_row(_kd(d), d, (aligned, shifted)).producer == "copy"
+
+
+def _copying_instances():
+    """(block_kv, block_d) of every wgmma instance with the copying
+    producer that csrc/flash_fwd.cu compiles (launch_copying)."""
+    src = (pathlib.Path(__file__).resolve().parents[1] / "mfa_tpu_torch"
+           / "csrc" / "flash_fwd.cu").read_text()
+    return {(int(a), int(b)) for a, b in re.findall(
+        r"launch_wgmma<(\d+), (\d+), false, kCopy>", src)}
+
+
+@pytest.mark.parametrize("d, shift", [
+    (36, 0), (100, 0), (128, 4), (162, 0), (250, 0)])
+def test_copying_rows_have_a_compiled_instance(d, shift):
+    """Every row a launch takes with the copying producer (the table's
+    rows up to D 256) is an instance the C entry compiles, and the C entry
+    compiles no other."""
+    row = launch_row(_kd(d), d, _views(d, shift))
+    assert row.producer == "copy"
+    assert (row.block_kv, row.block_d) in _copying_instances()
+    table = {(r.block_kv, r.block_d) for r in params.parameter_table(
+        "flash_fwd", "bf16") if 0 < r.max_d <= 256}
+    assert _copying_instances() == table
+
+
+@pytest.mark.parametrize("block_kv, block_d, rings", [
+    (128, 128, (2, 2)), (128, 64, (2, 2)), (64, 192, (2, 2)),
+    (64, 256, (2, 2))])
+def test_copying_smem_reckons_the_launch_code(block_kv, block_d, rings):
+    """Every compiled instance of the copying producer (csrc/flash_fwd.cu
+    launch_copying): the TMA layout of fwd_layout (the head dim padded to
+    block_d, its padding zeroed in place); the rings params.fwd_rings
+    passes (at most FWD_COPY_RING_STAGES a ring), within the H100."""
+    kernel = "wgmma" if block_d <= 128 else "wgmma_dblk"
+    row = params.ParameterRow(block_d - 6, 128, block_kv, block_d, kernel,
+                              "copy")
+    assert params.fwd_rings(row) == rings
+    tile = block_kv * block_d * 2
+    tiles = sum(rings)
+    want = (128 * block_d * 2 + tiles * tile + 8 * (1 + 2 * tiles) + 1024)
+    assert params.smem_bytes("flash_fwd", row, 2) == want \
+        <= params.H100.smem_per_block
+    # Every tile that fits is used, up to FWD_COPY_RING_STAGES a ring.
+    room = (params.H100.smem_per_block - want) // (tile + 16)
+    assert room == 0 or min(rings) == params.FWD_COPY_RING_STAGES
+
+
+@pytest.mark.parametrize("most, rings", [(2, (2, 2)), (3, (3, 3)),
+                                         (1, (1, 1))])
+def test_copying_rings_follow_their_own_most(monkeypatch, most, rings):
+    """A copying producer's rings take FWD_COPY_RING_STAGES, the TMA rows
+    FWD_RING_STAGES (OpenLLaMA-3B's D 100 row against D 128's)."""
+    monkeypatch.setattr(params, "FWD_COPY_RING_STAGES", most)
+    row = params.ParameterRow(100, 128, 128, 128, "wgmma", "copy")
+    assert params.fwd_rings(row) == rings
+    tma = dataclasses.replace(row, max_d=128, producer="")
+    assert params.fwd_rings(tma) == (params.FWD_RING_STAGES,) * 2
+
+
+@pytest.mark.parametrize("d", [100, 250, 36, 162])
+def test_wrapper_passes_the_producer(library, d):
+    """The wrapper launches the row launch_row gives: at D 100, 250, 36
+    and 162 the wgmma kernel (code 1, or 3 on its one-CTA panel) with the
+    copying producer's code and the rings of its layout, and counts the
+    launch under that row."""
+    q3, kv = _meta(4, 64, d), _meta(2, 64, d)
+    kd = _kd(d, n=64)
+    row = launch_row(kd, d, ())
+    label = row_label(row)
+    before = k1.launches_by_row[label]
+    k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
+                 o_dtype=torch.bfloat16)
+    ((_, args),) = library.calls
+    assert row.producer == "copy" and label.endswith("/copy")
+    assert k1.launches_by_row[label] == before + 1
+    assert args[-10:-1] == (1, KERNEL_CODES[kd.kernel], 128, kd.block_kv,
+                            kd.block_d, *params.fwd_rings(row),
+                            int(params.FWD_PINGPONG),
+                            params.FWD_PRODUCERS["copy"])
+    assert args[9:11] == (d, 1)
 
 
 class _Library:
@@ -240,30 +390,36 @@ def test_wrapper_takes_any_number_of_heads(library, heads):
     assert name == "mfa_flash_fwd"
     assert args[5] == heads
     # (dtype, kernel code, block_q, block_kv, block_d, K and V ring tiles,
-    # ping-pong) before the stream.
+    # ping-pong, producer) before the stream.
     row = params.ParameterRow(64, 128, 128, 64, "wgmma")
-    assert args[-9:-1] == (1, KERNEL_CODES["wgmma"], 128, 128, 64,
-                           *params.fwd_rings(row), int(params.FWD_PINGPONG))
+    assert args[-10:-1] == (1, KERNEL_CODES["wgmma"], 128, 128, 64,
+                            *params.fwd_rings(row), int(params.FWD_PINGPONG),
+                            params.FWD_PRODUCERS[""])
 
 
 @pytest.mark.parametrize("dtype, o_dtype, d, code", [
-    (torch.bfloat16, torch.float32, 128, (2, 1, 128)),
-    (torch.bfloat16, torch.bfloat16, 256, (1, 3, 128)),
-    (torch.float32, torch.float32, 64, (0, 0, 16)),
-    (torch.bfloat16, torch.float32, 192, (2, 3, 128)),
-    (torch.bfloat16, torch.bfloat16, 250, (1, 0, 64))])
+    (torch.bfloat16, torch.float32, 128, (2, 1, 128, 0)),
+    (torch.bfloat16, torch.bfloat16, 256, (1, 3, 128, 0)),
+    (torch.float32, torch.float32, 64, (0, 0, 16, 0)),
+    (torch.bfloat16, torch.float32, 192, (2, 3, 128, 0)),
+    (torch.bfloat16, torch.bfloat16, 250, (1, 3, 128, 1)),
+    (torch.bfloat16, torch.bfloat16, 100, (1, 1, 128, 1)),
+    (torch.bfloat16, torch.float32, 100, (2, 1, 128, 1)),
+    (torch.bfloat16, torch.bfloat16, 101, (1, 0, 64, 0))])
 def test_wrapper_passes_dtype_and_kernel_codes(library, dtype, o_dtype, d,
                                                code):
     """bf16 with an fp32 O takes dtype code 2 on the wgmma kernel; D 192
-    and 256 the head-dim-split kernel (code 3), D 250 (rows TMA cannot
-    map) the mma.sync kernel; fp32 inputs the FMA kernel."""
+    and 256 the head-dim-split kernel (code 3); D 250 and 100 (rows TMA
+    cannot map, D even) the same kernels with the cp.async producer
+    (producer code 1), odd D 101 the mma.sync kernel; fp32 inputs the FMA
+    kernel. (dtype, kernel code, block_q, producer code)."""
     q3, kv = _meta(4, 32, d, dtype=dtype), _meta(2, 32, d, dtype=dtype)
     kd = _kd(d, bf16=dtype == torch.bfloat16, n=32)
     o, _ = k1.flash_fwd(q3, kv, kv, kd, group=2, scale=0.125,
                         o_dtype=o_dtype)
     assert o.dtype == o_dtype
     ((_, args),) = library.calls
-    assert args[-9:-6] == code
+    assert (*args[-10:-7], args[-2]) == code
 
 
 def test_out_buffers_are_checked_and_written(library):
@@ -312,10 +468,10 @@ def test_wrapper_passes_the_d_blocked_launch(library, dtype, d, panels):
     assert o.shape == (4, 32, d) and lse.shape == (4, 32)
     ((_, args),) = library.calls
     assert args[9:11] == (d, panels)
-    assert args[-9:-5] == (0 if dtype == torch.float32 else 1,
-                           KERNEL_CODES[kd.kernel], kd.block_q, kd.block_kv)
+    assert args[-10:-6] == (0 if dtype == torch.float32 else 1,
+                            KERNEL_CODES[kd.kernel], kd.block_q, kd.block_kv)
     if panels == 1:
-        assert args[-4:-2] == params.fwd_rings(launch_row(kd, d, ()))
+        assert args[-5:-3] == params.fwd_rings(launch_row(kd, d, ()))
     cluster = dtype == torch.bfloat16 and d % 8 == 0 and d <= 512
     assert KERNEL_CODES[kd.kernel] == (3 if cluster else 2)
     assert d <= kd.block_d * panels
@@ -489,15 +645,16 @@ def test_wrapper_moves_a_misaligned_cluster_launch_to_mma_dblk(library):
                  o_dtype=torch.bfloat16, out=out)
     ((_, args),) = library.calls
     assert args[9:11] == (d, 3)
-    assert args[-9:-5] == (1, KERNEL_CODES["mma_dblk"], 64, 64)
+    assert args[-10:-6] == (1, KERNEL_CODES["mma_dblk"], 64, 64)
 
 
 @pytest.mark.parametrize("d", [136, 192, 256])
 def test_misaligned_one_cta_operand_takes_the_mma_row(d):
-    """At D 136, 192 and 256 a base TMA cannot map (a view two bytes into
-    its storage) moves the one-CTA row to the bf16_mma table's row of its
-    head dim, the mma.sync kernel; so does D 250 (rows no multiple of 16
-    bytes)."""
+    """At D 136, 192 and 256 a base TMA cannot map two bytes into its
+    storage (no 4-byte granule for the copying producer) moves the
+    one-CTA row to the bf16_mma table's row of its head dim, the mma.sync
+    kernel; so does odd D 251. D 250 (rows no multiple of 16 bytes, but
+    of 4) keeps the one-CTA row with the cp.async producer."""
     buf = torch.zeros(2 * 64 * d + 1, dtype=torch.bfloat16)
     aligned = buf[:-1].view(2, 64, d)
     shifted = buf[1:].view(2, 64, d)
@@ -509,4 +666,5 @@ def test_misaligned_one_cta_operand_takes_the_mma_row(d):
         params.parameter_table("flash_fwd", "bf16_mma"), d)
     assert (row.kernel, row.block_q, row.block_kv, row.block_d) == (
         "mma", 64, 32, 256)
-    assert launch_row(_kd(250), 250, ()).kernel == "mma"
+    assert launch_row(_kd(251), 251, ()).kernel == "mma"
+    assert row_label(launch_row(_kd(250), 250, ())) == "wgmma_dblk/copy"

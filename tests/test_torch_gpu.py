@@ -34,6 +34,7 @@ from mfa_tpu_torch.ops.descriptors import (
     AttentionKernelType,
     GEMMDescriptor,
     launch_row,
+    row_label,
 )
 from mfa_tpu_torch.ops.gemm import gemm
 from mfa_tpu_torch.ops.precision import OperandPrecision
@@ -87,20 +88,35 @@ K1_CASES = [
     ("bf16", 128, 64, 64, 8, 2, dict(causal=True), False),
     ("bf16", 128, 16, 16, 2, 1, dict(causal=True), False),
     ("bf16", 36, 65, 77, 2, 1, dict(causal=True), False),  # no TMA rows
+    # Rows TMA cannot map on the wgmma kernel's copying producer (D even,
+    # up to 256): OpenLLaMA-3B's D 100 (200-byte rows, 8-byte granule),
+    # MHA and GQA, causal and not, fp32 O; D 42 and 250 (4-byte granule),
+    # R > C, window and soft-cap; D 162 on the 192-wide panel. Odd D keeps
+    # the mma.sync row.
+    ("bf16", 100, 300, 300, 4, 4, dict(causal=True), False),
+    ("bf16", 100, 129, 257, 4, 2, dict(), False),
+    ("bf16", 100, 1000, 1000, 2, 2, dict(causal=True), True),    # fp32 O
+    ("bf16", 42, 150, 70, 4, 2, dict(causal=True), False),       # R > C
+    ("bf16", 250, 200, 333, 4, 2, dict(sliding_window=50,
+                                       logit_soft_cap=30.0), False),
+    ("bf16", 162, 257, 257, 4, 1, dict(causal=True), False),
+    ("bf16", 37, 65, 77, 2, 1, dict(causal=True), False),
 ]
 
 
 def _k1_check(cuda, q, k, v, kd, kw, dt, o_dtype, want_kernel):
     """One K1 launch into NaN-prefilled outputs against its plain version:
-    the row that ran, every output written, O and L within budget."""
+    the row that ran (its kernel, and its producer where not TMA:
+    row_label), every output written, O and L within budget."""
     hq, r, d = q.shape
-    assert launch_row(kd, d, (q, k, v)).kernel == want_kernel
-    n = k1.flash_fwd.launches
+    assert row_label(launch_row(kd, d, (q, k, v))) == want_kernel
+    n, n_row = k1.flash_fwd.launches, k1.launches_by_row[want_kernel]
     o, lse = k1.flash_fwd(q, k, v, kd, **kw, out=(
         nan_canary((hq, r, d), o_dtype, device=cuda),
         nan_canary((hq, r), device=cuda)))
     torch.cuda.synchronize()
     assert k1.flash_fwd.launches == n + 1
+    assert k1.launches_by_row[want_kernel] == n_row + 1
     assert_fully_written(o, "O")
     assert_fully_written(lse, "L")
     # No atomics and a fixed order of sums: a second launch gives the same
@@ -115,15 +131,17 @@ def _k1_check(cuda, q, k, v, kd, kw, dt, o_dtype, want_kernel):
 
 
 def _k1_kernel(dt, d):
-    """The row a K1 launch runs up to D = 256: wgmma for bf16 at D % 8 ==
-    0 and D <= 128, one CTA of the head-dim-split kernel (wgmma_dblk) past
-    it, the kept mma.sync kernel for the other bf16 head dims, the FMA
-    kernel for fp32."""
+    """The row a K1 launch of aligned operands runs up to D = 256: wgmma
+    for bf16 at D <= 128, one CTA of the head-dim-split kernel
+    (wgmma_dblk) past it, by TMA at D % 8 == 0 and with the copying
+    producer at other even D ("/copy"); the kept mma.sync kernel at odd
+    D, the FMA kernel for fp32."""
     if dt == "fp32":
         return ""
-    if d % 8:
+    if d % 2:
         return "mma"
-    return "wgmma" if d <= 128 else "wgmma_dblk"
+    kernel = "wgmma" if d <= 128 else "wgmma_dblk"
+    return kernel if d % 8 == 0 else f"{kernel}/copy"
 
 
 @pytest.mark.parametrize("case", K1_CASES,
@@ -179,6 +197,42 @@ def test_flash_fwd_misaligned_view_past_128_takes_the_mma_row(cuda, d):
     shifted = buf[1:].view(q.shape)
     shifted.copy_(q)
     _k1_check(cuda, shifted, k, v, kd, kw, "bf16", torch.bfloat16, "mma")
+
+
+@pytest.mark.parametrize("d, shift, o_shift", [
+    (128, 4, 0), (128, 8, 0), (100, 4, 0), (100, 0, 8), (250, 8, 4)])
+def test_flash_fwd_shifted_view_takes_the_copying_producer(cuda, d, shift,
+                                                           o_shift):
+    """A q view 4 or 8 bytes into its storage (or an O buffer so shifted)
+    cannot be mapped by TMA, but its rows and bases share 4 bytes: K1 keeps
+    the wgmma row with its copying producer at that granule (D 128 and
+    OpenLLaMA-3B's 100 on the 128-wide panel, D 250 on one CTA of the
+    256-wide one), and agrees."""
+    q, k, v, kd, kw = _k1_bf16(cuda, 4, 2, 300, 333, d, d + shift,
+                               causal=True)
+    buf = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)
+    shifted = buf[shift // 2:shift // 2 + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    kernel = "wgmma" if d <= 128 else "wgmma_dblk"
+    if o_shift:
+        obuf = torch.full((q.numel() + 8,), float("nan"), dtype=q.dtype,
+                          device=cuda)
+        o = obuf[o_shift // 2:o_shift // 2 + q.numel()].view(q.shape)
+        row = launch_row(kd, d, (shifted, k, v, o))
+        assert row_label(row) == f"{kernel}/copy"
+        lse = nan_canary(q.shape[:2], device=cuda)
+        k1.flash_fwd(shifted, k, v, kd, **kw, out=(o, lse))
+        torch.cuda.synchronize()
+        assert_fully_written(o, "O")
+        o_p, lse_p = k1.flash_fwd_plain(shifted, k, v, kd, **kw)
+        atol, rtol = KERNEL_BUDGETS["flash_fwd_o_bf16"]
+        assert_close(o, o_p, atol, "O", rtol=rtol)
+        assert_close(lse, lse_p, KERNEL_BUDGETS["flash_fwd_l"][0], "L")
+        # Nothing written past the view's last row.
+        assert bool(torch.isnan(obuf[o_shift // 2 + q.numel():]).all())
+        return
+    _k1_check(cuda, shifted, k, v, kd, kw, "bf16", torch.bfloat16,
+              f"{kernel}/copy")
 
 
 def test_flash_fwd_kernel_takes_more_than_65535_heads(cuda):
