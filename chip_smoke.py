@@ -37,8 +37,14 @@ phase's failure is caught):
              carries the split-KV launch, as in k5. Then the head dims
              past 8 * 2^k (HEAD_DIM_CASES: D 80, 96, 100, 250 and 384
              with G 4, 8, 1, 4, 8) over the four storage types at L 2048,
-             and D 100 under a window of 512: each line with its launch
-             count, bound and (bf16) SDPA's ms and backend.
+             D 100 under a window of 512, and odd D 99 (bf16, G 1): each
+             line with its launch count, bound and (bf16) SDPA's ms and
+             backend, and the path its launch took (the wrapper's
+             launches_by_path, held to ops/params.py::decode_path and to
+             REQUIRED_PATHS: the tensor-core pair at bf16 D 80-128 and
+             fp8 D 100, FMA at D 99 and over int8); every case then
+             launches twice more into NaN-filled outputs, the first held
+             to its plain version, the second bit-equal to it.
 5. k5      — unfused decode kernel through its entry point
              ops.decode.decode_attention, after kv_cache.update, against
              the same call with its plain version, for the four storage
@@ -48,7 +54,8 @@ phase's failure is caught):
              CTAs a pass and those with live rows. Then K5's output
              bits on fixed inputs (k5_bits) against K5_DIGESTS, those of
              the K5 before K2 shared its body. The head-dim cases as in
-             k2, and D 512 (G 1).
+             k2, D 512 (G 1), and D 100 with the cache 4 bytes off 16
+             (the tensor-core pair's copy granule 4).
 6. k6      — paged decode kernel against its plain version: 8 sequences
              (lengths 0-2048) over a pool with shuffled page ids, pages of
              128 and 512 tokens, the four storage types and a window; bit
@@ -189,9 +196,11 @@ phase's failure is caught):
              (4 slots, max_len 2048) over bf16, INT8 and FP8-e4m3 caches
              (K1 every prefill, each launch's row noted: all on the
              wgmma kernel with its cp.async producer; K2 every decode
-             step), then the paged flow of phase 10 over bf16 and INT8
-             (K6 every decode step); decode ms a step, tokens/s, weight
-             and cache GiB.
+             step, each launch's path noted: the tensor-core pair over
+             bf16 and FP8, FMA over INT8), then the paged flow of phase
+             10 over bf16 and INT8 (K6 every decode step, on the pair
+             over bf16 and on FMA over INT8); decode ms a step,
+             tokens/s, weight and cache GiB.
 20. kernels — one JSON line per the port's kernel table, the launches of
              phases 9-19 added up; K1, K2, K5 and K6 carry their head-dim
              rows.
@@ -537,6 +546,12 @@ def _head_dim_cases(extra=()):
     return cases
 
 
+def _odd_d_cases():
+    """An odd head dim (D 99, bf16, G 1: rows of 198 bytes, 2-byte
+    aligned), which must stay on FMA: one case in _head_dim_cases' form."""
+    return [(2048, "bf16", dict(_kv_formats())["bf16"], 8, 1, None, 99)]
+
+
 def _attend_fp64(torch, q3, k, v, k_scale, v_scale, live,
                  magnitudes=False):
     """K5's one-token decode (K6's over its gathered rows) in fp64 over the
@@ -604,10 +619,79 @@ def _sdpa_ms(torch, q, k, v, lengths, window, scale):
     return roofline.cuda_ms(run, iters=20), _sdpa_backend(torch, run)
 
 
-def _k2_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
-    """K2 against its plain version on one cache shape: O, appended rows,
-    scales and lengths after a step; ms, plain ms, bound. Returns (key,
-    kernel-table row)."""
+# What this port requires of the decode cases' paths, beyond agreeing with
+# ops/params.py::decode_path (each case holds its launch to that): K2, K5
+# and K6 on the tensor-core pair at bf16 D 80, 96, 100 and 128, K2 also
+# over fp8 at D 100, and K5 with its cache 4 bytes off 16; FMA at odd D,
+# over int8, and over fp8 under K5 and K6. (kernel, storage, D, base
+# shift in bytes) -> path.
+REQUIRED_PATHS = {
+    **{(k, "bf16", d, 0): p for k in ("k2", "k5", "k6")
+       for d, p in ((80, "mma/g16"), (96, "mma/g16"), (100, "mma/g8"),
+                    (128, "mma/g16"), (99, "fma"))},
+    **{(k, "int8", d, 0): p for k in ("k2", "k5", "k6")
+       for d, p in ((100, "fma"), (128, "fma/exact"))},
+    **{(k, f, 100, 0): "fma" for k in ("k5", "k6")
+       for f in ("fp8_e4m3", "fp8_e5m2")},
+    ("k2", "fp8_e4m3", 100, 0): "mma/g4", ("k2", "fp8_e5m2", 100, 0):
+    "mma/g4", ("k5", "bf16", 100, 4): "mma/g4",
+}
+
+
+def _launch_paths(torch, counter, launch):
+    """launch() and the paths its kernel launches took, by the wrapper's
+    launches_by_path (``counter``): (result, sorted labels)."""
+    before = dict(counter)
+    out = launch()
+    torch.cuda.synchronize()
+    return out, sorted(k for k in counter if counter[k] != before.get(k, 0))
+
+
+def _want_path(kernel, name, d, storage, k, v) -> str:
+    """The path ops/params.py names for a launch of ``kernel`` ("k2",
+    "k5", "k6") over caches k, v (their rows and bases give the copy
+    granule); fails where REQUIRED_PATHS asks another."""
+    from mfa_tpu_torch.ops import params as params_mod
+
+    granule = params_mod.decode_granule(d, k.element_size(), k.data_ptr(),
+                                        v.data_ptr())
+    path = params_mod.decode_path(d, storage, True, kernel == "k2", granule)
+    shift = k.data_ptr() % 16
+    need = REQUIRED_PATHS.get((kernel, name, d, shift), path)
+    if need != path:
+        raise SystemExit(f"{kernel} {name} D {d} off {shift}: "
+                         f"ops/params.py names {path}, {need} required")
+    return path
+
+
+def _nan_and_again(torch, launch, want, budget, terms=None) -> dict:
+    """Two more launches, each into an output filled with NaN: the first
+    must write every element finite and stay within ``budget`` of its
+    plain version's ``want`` elementwise (the relative term of ``terms``
+    where given), the second give the same bits."""
+    from mfa_tpu_torch.utils.testing import budget_share, nan_canary
+
+    o1 = launch(nan_canary(want.shape, want.dtype, device="cuda"))
+    o2 = launch(nan_canary(want.shape, want.dtype, device="cuda"))
+    torch.cuda.synchronize()
+    return {"nan_filled_written": bool(torch.isfinite(o1.float()).all()),
+            "nan_filled_share": budget_share(o1, want, *budget,
+                                             scale=terms),
+            "again_bit_equal": bool(torch.equal(_bits(torch, o1),
+                                                _bits(torch, o2)))}
+
+
+def _again_ok(again: dict) -> bool:
+    return (again["nan_filled_written"] and again["nan_filled_share"] <= 1
+            and again["again_bit_equal"])
+
+
+def _k2_case(torch, gen, max_len, name, prec, hkv, g, window, d=128,
+             shift=0):
+    """K2 against its plain version on one cache shape (its k and v
+    ``shift`` bytes off 16): O, appended rows, scales and lengths after a
+    step, the path the launch took, two more launches into NaN-filled
+    outputs; ms, plain ms, bound. Returns (key, kernel-table row)."""
     from mfa_tpu_torch.kernels import decode as k2
     from mfa_tpu_torch.ops.decode import decode_attention_append
     from mfa_tpu_torch.serving import kv_cache
@@ -616,6 +700,7 @@ def _k2_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
         KERNEL_BUDGETS,
         budget_share,
         decode_fp64,
+        shifted_copy,
     )
 
     b = 4
@@ -625,6 +710,9 @@ def _k2_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
     fill = torch.randn((b, hkv, max_len, d), generator=gen, device="cuda")
     kv_cache.update(cache, fill, torch.randn(
         (b, hkv, max_len, d), generator=gen, device="cuda"))
+    if shift:
+        cache.k, cache.v = (shifted_copy(t, shift) for t in (cache.k,
+                                                              cache.v))
     lens = [0, 777, max_len - 1, max_len]
     cache.lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q3 = (torch.randn((bh, g, d), generator=gen, device="cuda")
@@ -642,22 +730,27 @@ def _k2_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
     plain_cache = kv_cache.KVCache(
         cache.k.clone(), cache.v.clone(), cache.k_scale.clone(),
         cache.v_scale.clone(), cache.lengths.clone(), prec)
+    want_path = _want_path("k2", name, d, prec.dtype, cache.k, cache.v)
     n2 = k2.decode_fused_append.launches
-    o_k = k2.decode_fused_append(q3, *views(cache), kn, vn, cache.lengths,
-                                 **kw)
-    torch.cuda.synchronize()
+    o_k, paths = _launch_paths(
+        torch, k2.decode_fused_append.launches_by_path,
+        lambda: k2.decode_fused_append(q3, *views(cache), kn, vn,
+                                       cache.lengths, **kw))
     n2 = k2.decode_fused_append.launches - n2
     o_p = k2.decode_fused_append_plain(
         q3, *views(plain_cache), kn, vn, plain_cache.lengths, **kw)
     err = max_err(o_k, o_p)
     share = budget_share(o_k, o_p, *budget)
-    held = {}
+    held, terms = {}, None
     if d != 128:
         exact, terms = (decode_fp64(q3, *views(plain_cache), kn, vn,
                                     plain_cache.lengths, magnitudes=mag,
                                     **kw) for mag in (False, True))
         held = _held_by_terms(torch, o_k, o_p, exact, terms, budget)
         share = held["share_o"]
+    again = _nan_and_again(torch, lambda out: k2.decode_fused_append(
+        q3, *views(cache), kn, vn, cache.lengths, **kw, out=out), o_p,
+        budget, terms)
     o_rms = float(o_p.float().square().mean().sqrt())
     same_rows = all(torch.equal(_bits(torch, getattr(cache, f)),
                                 _bits(torch, getattr(plain_cache, f)))
@@ -680,7 +773,8 @@ def _k2_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
     lengths_ok = lengths_after == [min(x + 1, max_len) for x in lens]
     ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
           and held.get("excess_steps", 0) <= 1 and same_rows
-          and scale_err <= 1e-6 and lengths_ok and n2 == 1)
+          and scale_err <= 1e-6 and lengths_ok and n2 == 1
+          and paths == [want_path] and _again_ok(again))
     # Bytes K2 must move for these lengths: the live K and V rows (with
     # their scales for a quantized cache; a bf16 cache's scales are
     # never read; a window of W keeps W - 1 cached rows), q, k_new,
@@ -702,13 +796,15 @@ def _k2_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
                                     window, 1.0)
         sdpa = {"sdpa_ms": sdpa_ms, "sdpa_backend": backend}
     key = ((f"D{d}_" if d != 128 else "") + f"{name}_L{max_len}"
-           + (f"_G{g}" if g != 4 else "") + (f"_w{window}" if window else ""))
+           + (f"_G{g}" if g != 4 else "") + (f"_w{window}" if window else "")
+           + (f"_off{shift}" if shift else ""))
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None)
     emit({"phase": "k2", "case": key, "D": d, "Hkv": hkv, "G": g,
-          "window": window, "lengths": lens, "err_o": err,
+          "window": window, "lengths": lens, "path": paths,
+          "want_path": want_path, "err_o": err,
           "o_rms": o_rms, "budget_o": budget, "share_o": share, **held,
-          "appended_rows_equal": same_rows,
+          **again, "appended_rows_equal": same_rows,
           "lengths_after": lengths_after, "scale_rel_err": scale_err,
           "launches": n2, "ok": ok, **sdpa,
           **_split_shape(torch, bh, g, max_len, lens, window, fused=True),
@@ -719,7 +815,8 @@ def _k2_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
                          f"{budget[0]} + {budget[1]}|O|, rows equal "
                          f"{same_rows}, scale err {scale_err}, "
                          f"lengths after {lengths_after}, launches {n2}, "
-                         f"against fp64 {held})")
+                         f"path {paths} (want {want_path}), NaN-filled and "
+                         f"again {again}, against fp64 {held})")
     return key, row
 
 
@@ -744,7 +841,7 @@ def phase_k2(torch):
         key, row = _k2_case(torch, gen, *case)
         results[key] = row
     head_dims = {}
-    for case in _head_dim_cases():
+    for case in _head_dim_cases() + _odd_d_cases():
         key, row = _k2_case(torch, gen, *case)
         head_dims[key] = row
     return results["bf16_L2048"], head_dims
@@ -819,17 +916,24 @@ def k5_bits(torch) -> dict:
     return digests
 
 
-def _k5_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
+def _k5_case(torch, gen, max_len, name, prec, hkv, g, window, d=128,
+             shift=0):
     """K5 through its entry point, decode_attention, against the same call
-    with its plain version swapped in (B 4, lengths 0, 777, L - 1, L);
-    ms, plain ms, bound and (bf16) SDPA's ms. Returns (key, kernel-table
-    row, launches through the entry point)."""
+    with its plain version swapped in (B 4, lengths 0, 777, L - 1, L; k
+    and v ``shift`` bytes off 16), the path the launch took, then two
+    launches of the wrapper into NaN-filled outputs; ms, plain ms, bound
+    and (bf16) SDPA's ms. Returns (key, kernel-table row, launches through
+    the entry point)."""
     from mfa_tpu_torch.kernels import decode as k5
     from mfa_tpu_torch.kernels.flash_fwd import LOG2E
     from mfa_tpu_torch.ops.decode import decode_attention
     from mfa_tpu_torch.serving import kv_cache
     from mfa_tpu_torch.utils import roofline
-    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+    from mfa_tpu_torch.utils.testing import (
+        KERNEL_BUDGETS,
+        budget_share,
+        shifted_copy,
+    )
 
     b = 4
     bh, scale = b * hkv, 1.0 / math.sqrt(d)
@@ -837,14 +941,19 @@ def _k5_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
     cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
     kv_cache.update(cache, *torch.randn((2, b, hkv, max_len, d),
                                         generator=gen, device="cuda"))
+    if shift:
+        cache.k, cache.v = (shifted_copy(t, shift) for t in (cache.k,
+                                                              cache.v))
     lens = [0, 777, max_len - 1, max_len]
     cache.lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = torch.randn((b, hkv * g, d), generator=gen,
                     device="cuda").bfloat16()
     torch.cuda.synchronize()
+    want_path = _want_path("k5", name, d, prec.dtype, cache.k, cache.v)
     k5.decode_attend.launches = 0
-    o_k = decode_attention(q, cache, sliding_window=window)
-    torch.cuda.synchronize()
+    o_k, paths = _launch_paths(
+        torch, k5.decode_attend.launches_by_path,
+        lambda: decode_attention(q, cache, sliding_window=window))
     n5 = k5.decode_attend.launches
     with plain_kernels():
         o_p = decode_attention(q, cache, sliding_window=window)
@@ -855,7 +964,7 @@ def _k5_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
             cache.k_scale.view(bh, max_len),
             cache.v_scale.view(bh, max_len), cache.lengths)
     kw = dict(num_kv_heads=hkv, sliding_window=window)
-    held = {}
+    held, terms = {}, None
     if d != 128:
         live = k5.live_rows(cache.lengths, max_len, hkv, window)
         exact, terms = (_attend_fp64(torch, q3, *args[:4], live, mag)
@@ -863,10 +972,14 @@ def _k5_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
         held = _held_by_terms(torch, o_k.reshape(bh, g, d),
                               o_p.reshape(bh, g, d), exact, terms, budget)
         share = held["share_o"]
+    again = _nan_and_again(
+        torch, lambda out: k5.decode_attend(q3, *args, **kw, out=out),
+        k5.decode_attend_plain(q3, *args, **kw), budget, terms)
     o_rms = float(o_p.float().square().mean().sqrt())
     empty_zero = not bool(o_k[0].any())        # length 0 gives zeros
     ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
-          and held.get("excess_steps", 0) <= 1 and n5 == 1 and empty_zero)
+          and held.get("excess_steps", 0) <= 1 and n5 == 1 and empty_zero
+          and paths == [want_path] and _again_ok(again))
     ms = roofline.cuda_ms(lambda: k5.decode_attend(q3, *args, **kw),
                           iters=50)
     plain_ms = roofline.cuda_ms(lambda: k5.decode_attend_plain(
@@ -882,12 +995,14 @@ def _k5_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
                                        cache.lengths, window, scale)
         sdpa = {"sdpa_backend": backend}
     key = ((f"D{d}_" if d != 128 else "") + f"{name}_L{max_len}"
-           + (f"_G{g}" if g != 4 else "") + (f"_w{window}" if window else ""))
+           + (f"_G{g}" if g != 4 else "") + (f"_w{window}" if window else "")
+           + (f"_off{shift}" if shift else ""))
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=library_ms)
     emit({"phase": "k5", "case": key, "D": d, "G": g, "lengths": lens,
+          "path": paths, "want_path": want_path,
           "err_o": err, "o_rms": o_rms, "budget_o": budget,
-          "share_o": share, **held, "launches": n5,
+          "share_o": share, **held, **again, "launches": n5,
           "empty_slot_zero": empty_zero,
           "ok": ok, **sdpa,
           **_split_shape(torch, bh, g, max_len, lens, window),
@@ -896,8 +1011,9 @@ def _k5_case(torch, gen, max_len, name, prec, hkv, g, window, d=128):
         raise SystemExit(f"k5 {key}: kernel disagrees with its plain "
                          f"version (O uses {share} of |d| <= "
                          f"{budget[0]} + {budget[1]}|O|, launches {n5}, "
-                         f"empty slot zero {empty_zero}, against fp64 "
-                         f"{held})")
+                         f"empty slot zero {empty_zero}, path {paths} "
+                         f"(want {want_path}), NaN-filled and again "
+                         f"{again}, against fp64 {held})")
     return key, row, n5
 
 
@@ -915,9 +1031,13 @@ def phase_k5(torch):
     for case in cases:
         key, results[key], n5 = _k5_case(torch, gen, *case)
         launches += n5
-    for case in _head_dim_cases(extra=((512, 1),)):
+    for case in _head_dim_cases(extra=((512, 1),)) + _odd_d_cases():
         key, head_dims[key], n5 = _k5_case(torch, gen, *case)
         launches += n5
+    # OpenLLaMA-3B's width with the cache 4 bytes off 16: copy granule 4.
+    key, head_dims[key], n5 = _k5_case(torch, gen, *_odd_d_cases()[0][:6],
+                                       100, shift=4)
+    launches += n5
     digests = k5_bits(torch)
     same = digests == K5_DIGESTS
     emit({"phase": "k5_bits", "digests": digests, "as_recorded": same})
@@ -931,9 +1051,10 @@ def phase_k5(torch):
 
 def _k6_case(torch, gen, ps, name, prec, window, g=4, d=128):
     """K6 against its plain version and against K5 on the same rows (8
-    sequences of 0-2048 tokens, Hkv 8, a pool with shuffled page ids);
-    ms beside K5's, plain ms, bound and (bf16) SDPA's ms over the same
-    rows. Returns (key, kernel-table row)."""
+    sequences of 0-2048 tokens, Hkv 8, a pool with shuffled page ids), the
+    path the launch took, two more launches into NaN-filled outputs; ms
+    beside K5's, plain ms, bound and (bf16) SDPA's ms over the same rows.
+    Returns (key, kernel-table row)."""
     from mfa_tpu_torch.kernels import decode as k5
     from mfa_tpu_torch.kernels import paged_decode as k6
     from mfa_tpu_torch.utils import roofline
@@ -953,9 +1074,11 @@ def _k6_case(torch, gen, ps, name, prec, window, g=4, d=128):
                                     device="cuda"), lengths)
     q3 = (torch.randn((s * hkv, g, d), generator=gen, device="cuda")
           * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+    want_path = _want_path("k6", name, d, prec.dtype, *operands[:2])
     n6 = k6.paged_decode.launches
-    o_k = k6.paged_decode(q3, *operands, sliding_window=window)
-    torch.cuda.synchronize()
+    o_k, paths = _launch_paths(
+        torch, k6.paged_decode.launches_by_path,
+        lambda: k6.paged_decode(q3, *operands, sliding_window=window))
     n6 = k6.paged_decode.launches - n6
     o_p = k6.paged_decode_plain(q3, *operands, sliding_window=window)
     err = max_err(o_k, o_p)
@@ -964,20 +1087,23 @@ def _k6_case(torch, gen, ps, name, prec, window, g=4, d=128):
     # K5 over the same rows gathered into a contiguous cache.
     rows = [k6.gather_rows(t, operands[4]).contiguous()
             for t in operands[:4]]
-    held = {}
+    held, terms = {}, None
     if d != 128:
         live = k5.live_rows(lengths, max_pages * ps, hkv, window)
         exact, terms = (_attend_fp64(torch, q3, *rows, live, mag)
                         for mag in (False, True))
         held = _held_by_terms(torch, o_k, o_p, exact, terms, budget)
         share = held["share_o"]
+    again = _nan_and_again(torch, lambda out: k6.paged_decode(
+        q3, *operands, sliding_window=window, out=out), o_p, budget, terms)
     o_c = k5.decode_attend(q3, *rows, lengths, num_kv_heads=hkv,
                            sliding_window=window)
     same_as_k5 = bool(torch.equal(o_k, o_c))
     empty_zero = not bool(o_k[:hkv].any())    # length 0 gives zeros
     ok = (bool(torch.isfinite(o_k.float()).all()) and share <= 1
           and held.get("excess_steps", 0) <= 1 and same_as_k5
-          and empty_zero and n6 == 1)
+          and empty_zero and n6 == 1 and paths == [want_path]
+          and _again_ok(again))
     ms = roofline.cuda_ms(lambda: k6.paged_decode(
         q3, *operands, sliding_window=window), iters=50)
     k5_ms = roofline.cuda_ms(lambda: k5.decode_attend(
@@ -1001,8 +1127,9 @@ def _k6_case(torch, gen, ps, name, prec, window, g=4, d=128):
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None)
     emit({"phase": "k6", "case": key, "D": d, "G": g, "lengths": lens,
+          "path": paths, "want_path": want_path,
           "err_o": err, "o_rms": o_rms, "budget_o": budget,
-          "share_o": share, **held, "equal_to_k5": same_as_k5,
+          "share_o": share, **held, **again, "equal_to_k5": same_as_k5,
           "k5_ms_same_rows": k5_ms, "paged_over_contiguous": ms / k5_ms,
           "launches": n6, "empty_slot_zero": empty_zero, "ok": ok, **sdpa,
           **_split_shape(torch, s * hkv, g, max_len, lens, window),
@@ -1012,8 +1139,9 @@ def _k6_case(torch, gen, ps, name, prec, window, g=4, d=128):
                          f"version (O uses {share} of |d| <= "
                          f"{budget[0]} + {budget[1]}|O|, equal to "
                          f"K5 {same_as_k5}, empty slot zero "
-                         f"{empty_zero}, launches {n6}, against fp64 "
-                         f"{held})")
+                         f"{empty_zero}, launches {n6}, path {paths} "
+                         f"(want {want_path}), NaN-filled and again "
+                         f"{again}, against fp64 {held})")
     return key, row
 
 
@@ -1030,7 +1158,8 @@ def phase_k6(torch):
         cases.append(("bf16", dict(_kv_formats())["bf16"], 512))
         for name, prec, window in cases:
             key, results[key] = _k6_case(torch, gen, ps, name, prec, window)
-    for _, name, prec, _, g, window, d in _head_dim_cases():
+    for _, name, prec, _, g, window, d in (_head_dim_cases()
+                                           + _odd_d_cases()):
         key, head_dims[key] = _k6_case(torch, gen, 512, name, prec, window,
                                        g, d)
     emit({"phase": "k6_done", "seconds": time.perf_counter() - t0})
@@ -1343,10 +1472,12 @@ PAGED_POOL_PAGES = 10
 
 
 def phase_paged_serving(torch, model, prompts, contiguous_tokens,
-                        formats=3, label="paged_serving"):
+                        formats=3, label="paged_serving", paths=None):
     """The paged scheduler at full width and depth, per KV format (the
     first ``formats`` of bf16, INT8 and FP8-e4m3). Returns K1's and K6's
-    launches on this path; lines carry ``label``."""
+    launches on this path; lines carry ``label`` and K6's launches by
+    path, which also go into ``paths`` (format name -> {path: launches})
+    where given."""
     import numpy as np
 
     from mfa_tpu_torch.kernels import decode as k2
@@ -1397,6 +1528,7 @@ def phase_paged_serving(torch, model, prompts, contiguous_tokens,
         torch.cuda.synchronize()
         for f in (k1.flash_fwd, k2.decode_fused_append, k6.paged_decode):
             f.launches = 0
+        k6.paged_decode.launches_by_path.clear()
         decode_only = []
         t_run = time.perf_counter()
         for _ in range(2000):
@@ -1414,6 +1546,9 @@ def phase_paged_serving(torch, model, prompts, contiguous_tokens,
         run_s = time.perf_counter() - t_run
         n1, n2, n6 = (k1.flash_fwd.launches, k2.decode_fused_append.launches,
                       k6.paged_decode.launches)
+        k6_paths = dict(k6.paged_decode.launches_by_path)
+        if paths is not None:
+            paths[name] = k6_paths
         k1_launches += n1
         k6_launches += n6
         done = {c.request.id: c for c in sched.finished}
@@ -1425,7 +1560,8 @@ def phase_paged_serving(torch, model, prompts, contiguous_tokens,
             completions=len(done), tokens=stats["tokens"],
             prefills=stats["prefills"], decode_steps=stats["decode_steps"],
             oom_deferred=stats["oom_deferred"], k1_launches=n1,
-            k2_launches=n2, k6_launches=n6, free_pages=sched.free_pages,
+            k2_launches=n2, k6_launches=n6, k6_paths=k6_paths,
+            free_pages=sched.free_pages,
             start_free_pages=start_free, run_s=run_s,
             decode_ms_per_step=(float(np.median(decode_only))
                                 if decode_only else None),
@@ -1436,6 +1572,7 @@ def phase_paged_serving(torch, model, prompts, contiguous_tokens,
               and stats["prefills"] == len(reqs)
               and n1 == cfg.n_layers * stats["prefills"]
               and n6 == cfg.n_layers * stats["decode_steps"] and n2 == 0
+              and sum(k6_paths.values()) == n6
               and sched.free_pages == start_free
               and stats["oom_deferred"] >= 1)
         emit({"phase": label, "kv": name, "ok": ok, **summary})
@@ -2034,6 +2171,7 @@ LARGE_D_CASES = (
     ("noncausal_d320_n1024", "bf16", 320, 1024, 8, dict()),
     ("causal_d300_n1024", "bf16", 300, 1024, 8, dict(causal=True)),
     ("causal_d250_n1024", "bf16", 250, 1024, 8, dict(causal=True)),
+    ("noncausal_d250_n1024", "bf16", 250, 1024, 8, dict()),
     ("fp32_causal_d384_n1024", "fp32", 384, 1024, 8, dict(causal=True)),
     ("causal_d256", "bf16", 256, 4096, 8, dict(causal=True)),
     ("causal_d192", "bf16", 192, 4096, 8, dict(causal=True)),
@@ -2792,10 +2930,13 @@ def phase_openllama_serving(torch):
     fields, random HF-named weights, served over bf16, INT8 and FP8-e4m3
     contiguous caches (K1 every prefill on its wgmma row with the cp.async
     producer at D 100, K2 every decode step) and over bf16 and INT8 paged
-    caches of 512-token pages (K6). Returns (K1, K2 launches; K1, K6
-    launches of the paged runs)."""
+    caches of 512-token pages (K6): every bf16 and FP8 K2 launch and every
+    bf16 K6 launch on the tensor-core pair (``mma/*`` by the wrappers'
+    launches_by_path), the INT8 ones on FMA. Returns (K1, K2 launches;
+    K1, K6 launches of the paged runs)."""
     import numpy as np
 
+    from mfa_tpu_torch.kernels import decode as k2
     from mfa_tpu_torch.kernels import flash_fwd as k1
     from mfa_tpu_torch.ops import params as params_mod
     from mfa_tpu_torch.ops.precision import OperandPrecision
@@ -2827,34 +2968,50 @@ def phase_openllama_serving(torch):
     # The row of every K1 launch of the serving runs, as the wrapper
     # counts them.
     k1.launches_by_row.clear()
-    launches, bf16_tokens = {}, None
+    launches, bf16_tokens, k2_paths, k6_paths = {}, None, {}, {}
     for kv in (OperandPrecision.BF16, OperandPrecision.INT8,
                OperandPrecision.FP8_E4M3):
         cache_gib = _cache_gib(model, kv)
         torch.cuda.empty_cache()
+        k2.decode_fused_append.launches_by_path.clear()
         summary, n, tokens = _serve(torch, model, prompts, kv, max_len=2048)
+        k2_paths[kv.value] = dict(k2.decode_fused_append.launches_by_path)
         _add(launches, n)
         bf16_tokens = bf16_tokens or tokens
         emit({"phase": "openllama_serving", "cache_gib": cache_gib,
-              "weights_gib": _weight_gib(model), **summary})
+              "weights_gib": _weight_gib(model),
+              "k2_paths": k2_paths[kv.value], **summary})
+        on_pair = kv != OperandPrecision.INT8
+        if not (sum(k2_paths[kv.value].values())
+                == n["decode_fused_append"] > 0
+                and all(p.startswith("mma/") == on_pair
+                        for p in k2_paths[kv.value])):
+            raise SystemExit(f"openllama {kv.value}: K2 ran paths "
+                             f"{k2_paths[kv.value]}, not all "
+                             f"{'mma/*' if on_pair else 'fma'}")
     paged_k1, paged_k6 = phase_paged_serving(
         torch, model, prompts, bf16_tokens, formats=2,
-        label="openllama_paged_serving")
+        label="openllama_paged_serving", paths=k6_paths)
     k1_rows = dict(k1.launches_by_row)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     # The rows also count the K1 launches of the paged phase's logits
     # check, which no launch counter takes.
+    k6_ok = (set(k6_paths) == {"bf16", "int8"}
+             and all(p.startswith("mma/") for p in k6_paths["bf16"])
+             and list(k6_paths["int8"]) == ["fma"])
     ok = (list(k1_rows) == ["wgmma/copy"] and paged_k1 > 0
-          and k1_rows["wgmma/copy"] >= launches["flash_fwd"] + paged_k1)
+          and k1_rows["wgmma/copy"] >= launches["flash_fwd"] + paged_k1
+          and k6_ok)
     emit({"phase": "openllama_serving_done",
           "seconds": time.perf_counter() - t0, "launches": launches,
           "paged_k1_launches": paged_k1, "paged_k6_launches": paged_k6,
-          "k1_rows": k1_rows, "ok": ok})
+          "k1_rows": k1_rows, "k2_paths": k2_paths, "k6_paths": k6_paths,
+          "ok": ok})
     if not ok:
         raise SystemExit(f"openllama: K1 ran rows {k1_rows}, not only "
-                         f"wgmma/copy")
+                         f"wgmma/copy, or K6 paths {k6_paths}")
     return launches, paged_k1, paged_k6
 
 
@@ -3144,7 +3301,8 @@ def main() -> int:
          **{k: v for k, v in k1_row.items()
             if k not in ("lse_err", "row")},
          **large("k1", fwd_cases + ("gqa_softcap50_d256",
-                                    "causal_d250_n1024")),
+                                    "causal_d250_n1024",
+                                    "noncausal_d250_n1024")),
          "head_dims": {case: {k: v for k, v in t.items() if k != "lse_err"}
                        for case, t in k1_head_dims.items()}},
         {"name": "flash_fwd_noncausal", "route": "cuda",

@@ -34,15 +34,17 @@
 // An int8 cache adds a pass between the two (decode_pmax), since P's s8
 // scale is max |P vs| over every live row of the query row, across
 // splits: each split's exact max against the final max, read from the
-// scratch row. bf16 q at D = 64 or 128 over a bf16 cache runs both
+// scratch row. bf16 q at 64 <= D <= 128 over a bf16 cache runs both
 // passes on mma.sync (as K5), and over an fp8 cache too: each warp widens
 // its rows of the stage in use to bf16 (exact), the scales multiply S and
 // P where the plain version's do (on the H100 it beat the FMA pair).
-// int8 caches, fp32 q and every other D up to 512 run the FMA pair, in
-// decode_split.cuh::RowLayout's rows (any D: 16-byte granules of the
-// cache, a row's chunks read at its alignment). The append writes the new
-// row value by value, so a row of any D (200 bytes at D 100 bf16, 8-byte
-// aligned) takes it.
+// Past D 64 and 128 (OpenLLaMA-3B's D 100: 200-byte rows in bf16, 100 in
+// fp8) the rows are padded with zeros to 128 values in shared memory and
+// copied at the granule their rows and bases share (8 and 4 bytes there).
+// int8 caches, fp32 q, odd D and every other D up to 512 run the FMA
+// pair, in decode_split.cuh::RowLayout's rows (any D: 16-byte granules of
+// the cache, a row's chunks read at its alignment). The append writes the
+// new row value by value, so a row of any D takes it.
 
 #include "decode_split.cuh"
 
@@ -52,15 +54,16 @@
 // updated in place; k_new, v_new [bh, D]; lengths [bh / hkv] int32, the
 // lengths before the append. workspace: fp32, K5's (csrc/decode_attend.cu)
 // plus bh * group * splits values; 16-byte aligned. split_rows a power of
-// two; group_chunk 4 or 8 query rows a CTA; 1 <= D <= 512; 16-byte
-// aligned cache storage. Returns the first launch's error, else
+// two; group_chunk 4 or 8 query rows a CTA; 1 <= D <= 512; path as K5's
+// (csrc/decode_attend.cu). Returns the first launch's error, else
 // cudaGetLastError() after the last (decode_split.cuh::launch_one).
 extern "C" int mfa_decode_fused_append(
     const void* q, void* k, void* v, void* k_scale, void* v_scale,
     const void* k_new, const void* v_new, const void* lengths, void* o,
     void* workspace, int bh, int hkv, int group, int max_len, int D,
     int window, int q_bf16, int kv_format, int split_rows, int group_chunk,
-    int threads, void* stream) {
+    int threads, int path,
+    void* stream) {
   FusedParams p{};
   p.q = q;
   p.k = k;
@@ -78,5 +81,5 @@ extern "C" int mfa_decode_fused_append(
   p.k_new = k_new;
   p.v_new = v_new;
   return launch<true>(p, FusedRows{{max_len}}, workspace, bh, kv_format,
-                      group_chunk, threads, stream);
+                      group_chunk, threads, path, stream);
 }

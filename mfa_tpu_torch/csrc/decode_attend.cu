@@ -76,19 +76,26 @@
 // 16 bytes, which the paged cache's 128-token pages never are, go byte by
 // byte).
 //
-// Two arithmetic paths, chosen by the launch (K5 and K6 alike):
-//  - bf16 q over a bf16 cache, D = 64 or 128 (the served shapes): tensor
-//    cores. A warp takes S^T = K q^T and O^T = V^T P^T for its 16 or 32
-//    rows with mma.sync m16n8k16 (K and V by ldmatrix from the ring, its
-//    chunks swizzled so that ldmatrix reads no bank twice; q^T and P^T in
-//    registers, the query rows padded to 8). Products are exact and sums
-//    fp32, as in the FMA path; P is rounded to bf16 against the final max.
-//    The FMA path spent ~40 instructions a row per warp on dot products,
-//    their 16-lane shuffle sums and one exp2 per lane: issue, not bytes,
-//    bounded it (int8 caches, half the bytes, took as long as bf16).
-//  - everything else (fp32 q, int8 and fp8 caches, every other head dim
-//    up to 512): FMA, the row's 8-value chunks summed over its lanes by
-//    shuffles.
+// Two arithmetic paths, chosen by the launch from shapes and addresses
+// (K5 and K6 alike; the wrapper names the path and the launch refuses
+// another, decode_split.cuh::launch_passes):
+//  - bf16 q over a bf16 cache at 64 <= D <= 128 whose rows and base share
+//    a copy granule of 4 bytes or more: tensor cores. A warp takes S^T = K
+//    q^T and O^T = V^T P^T for its 16 or 32 rows with mma.sync m16n8k16
+//    (K and V by ldmatrix from the ring, its chunks swizzled so that
+//    ldmatrix reads no bank twice; q^T and P^T in registers, the query
+//    rows padded to 8). Products are exact and sums fp32, as in the FMA
+//    path; P is rounded to bf16 against the final max. D 64 and 128 at
+//    16-byte granules run their own instances; every other D (80, 96, 100,
+//    112, ...) runs the 128-wide one, each row padded with zeros to 128
+//    values in shared memory and copied at its granule (D 100: 8 bytes),
+//    so that only shared memory and the tensor cores see the padding. The
+//    FMA path spent ~40 instructions a row per warp on dot products, their
+//    16-lane shuffle sums and one exp2 per lane: issue, not bytes, bounded
+//    it (int8 caches, half the bytes, took as long as bf16).
+//  - everything else (fp32 q, int8 and fp8 caches, odd D, D < 64 and D >
+//    128 up to 512): FMA, the row's 8-value chunks summed over its lanes
+//    by shuffles, over 16-byte aligned cache storage.
 // Row groups and warps meet in a fixed order. TMA page gathers are later
 // work. The kernels' body is csrc/decode_split.cuh, which K2 (the fused
 // decode + append, csrc/decode.cu) shares.
@@ -101,16 +108,18 @@
 // (chunks * max_len * group_chunk + group * (splits * (D + 2) + 1))
 // values, chunks = ceil(group / group_chunk), splits = ceil(max_len /
 // split_rows) (at least 1); 16-byte aligned. split_rows a power of two;
-// group_chunk 4 or 8 query rows a CTA. 1 <= D <= 512; 16-byte aligned
-// cache storage. Returns the first launch's error (a layout past the
-// H100's shared memory: cudaErrorInvalidValue), else cudaGetLastError()
-// after the last (decode_split.cuh::launch_one).
+// group_chunk 4 or 8 query rows a CTA. 1 <= D <= 512. path: the code of
+// the path the host chose (ops/params.py::DECODE_PATHS; the FMA paths
+// need 16-byte aligned cache storage). Returns the first launch's error
+// (another path than `path`, or a layout past the H100's shared memory:
+// cudaErrorInvalidValue), else cudaGetLastError() after the last
+// (decode_split.cuh::launch_one).
 extern "C" int mfa_decode_attend(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* lengths, void* o, void* workspace,
     int bh, int hkv, int group, int max_len, int D, int window, int q_bf16,
     int kv_format, int split_rows, int group_chunk, int threads,
-    void* stream) {
+    int path, void* stream) {
   AttendParams p{};
   p.q = q;
   p.k = k;
@@ -126,5 +135,5 @@ extern "C" int mfa_decode_attend(
   p.q_bf16 = q_bf16;
   p.split_rows = split_rows;
   return launch<false>(p, ContiguousRows{max_len}, workspace, bh,
-                       kv_format, group_chunk, threads, stream);
+                       kv_format, group_chunk, threads, path, stream);
 }

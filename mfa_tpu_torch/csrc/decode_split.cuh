@@ -17,6 +17,27 @@
 //  - for an fp8 cache with bf16 q, the tensor-core pair (fp8 widened to
 //    bf16 by each warp; K5 and K6 keep fp8 on FMA, bit for bit as
 //    before).
+//
+// Which launches take which pass pair (launch_passes; the host names the
+// path, ops/params.py::decode_path, and a launch on another is refused):
+//  - the tensor-core pair (decode_score_mma, decode_attend_mma): bf16 q
+//    at 64 <= D <= 128 over a bf16 cache (K2, K5, K6) or, K2 only, an fp8
+//    one, whose rows and bases share a copy granule g of 4 bytes or more
+//    (mma_granule: the largest of 16, 8, 4 dividing the row bytes and the
+//    k and v bases). D 64 and 128 at g 16 keep their own instances (GR
+//    0); every other such launch (D 80, 96, 112 at g 16; OpenLLaMA-3B's D
+//    100 at g 8 in bf16, 4 in fp8; bases 8 or 4 bytes off) runs the
+//    128-wide instance of its granule, rows padded with zeros to 128
+//    values in shared memory;
+//  - the FMA pair (decode_score / decode_attend in RowLayout's rows,
+//    their _exact instances at D = 8 * 2^k <= 256): everything else
+//    (int8; fp32 q; fp8 under K5 and K6; odd D and g < 4; D < 64; D >
+//    128), over 16-byte aligned cache storage.
+// What bounds K6 and K2 at D 100 on an H100: the bytes of the live K and
+// V rows (200 each in bf16), as at D 128; on FMA both ran 6-8x that bound
+// on an H100 (PERF.md), issue-bound by their dot products and shuffles,
+// and the padded pair adds only copies (two 8-byte copies a 16-byte chunk
+// at D 100) and zeros that only shared memory and the tensor cores see.
 
 #pragma once
 
@@ -1084,32 +1105,74 @@ __host__ __device__ size_t mma_ring_bytes(int threads, int rg, bool scores) {
 }
 
 // The shared memory of the tensor-core attend pass before its row max:
-// the ring (and widened tile), which the warps' partial O reuses.
+// the ring of DD-wide rows (and widened tile), which the warps' partial O
+// [nw][GC][D] of the D live columns reuses.
 template <int KVF, int GC>
-__host__ __device__ size_t mma_union_bytes(int threads, int D) {
-  const size_t ring = mma_ring_bytes<KVF, GC>(threads, threads / (D / 8), true);
+__host__ __device__ size_t mma_union_bytes(int threads, int DD, int D) {
+  const size_t ring =
+      mma_ring_bytes<KVF, GC>(threads, threads / (DD / 8), true);
   const size_t o_w = (size_t)(threads / 32) * GC * D * 4;
   return ring > o_w ? ring : o_w;
 }
 
-// Pass 1 on tensor cores (bf16 q over a bf16 cache; D = DD, 64 or 128):
-// each warp takes S^T = K q^T for its rows with mma.sync m16n8k16 (A = K
-// rows by ldmatrix, B = q^T held in registers, the GC query rows padded to
-// 8), exact products summed in fp32. Otherwise as decode_score. K2 over
-// an fp8 cache (KVF 2, 3) too: the ring holds the stored chunks and their
-// K scales; each warp widens its own rows of the stage in use into a bf16
+// The copy granule of the tensor-core pair over rows of `rb` bytes at
+// bases k and v: the largest of 16, 8 and 4 dividing rb and both
+// addresses (every row start shares it), or 0 (rows or bases 2- or
+// 1-byte aligned: the pair does not take them).
+__host__ __device__ inline int mma_granule(const void* k, const void* v,
+                                           int rb) {
+  const size_t a = (size_t)rb | reinterpret_cast<size_t>(k) |
+                   reinterpret_cast<size_t>(v);
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 0;
+}
+
+// A thread's chunk of a padded row (kPad): bytes [0, lb) of its kCB hold
+// the row's values (lb = (D - 8 cc) E, clamped to [0, kCB]; a multiple of
+// GR, which divides every row's bytes and base), copied GR bytes at a
+// time into its slot; bytes [lb, kCB) are zeroed once (zero_pad) and
+// never written after.
+template <int GR, int kCB>
+__device__ __forceinline__ void copy_live(void* dst, const char* src,
+                                          int lb) {
+#pragma unroll
+  for (int j = 0; j < kCB / GR; ++j)
+    if (j * GR < lb)
+      cp_async<GR>(static_cast<char*>(dst) + j * GR, src + j * GR);
+}
+template <int kCB>
+__device__ __forceinline__ void zero_pad(void* dst, int lb) {
+  for (int b = lb; b < kCB; b += 4)
+    *reinterpret_cast<uint32_t*>(static_cast<char*>(dst) + b) = 0u;
+}
+
+// Pass 1 on tensor cores (bf16 q over a bf16 cache): each warp takes
+// S^T = K q^T for its rows with mma.sync m16n8k16 (A = K rows by
+// ldmatrix, B = q^T held in registers, the GC query rows padded to 8),
+// exact products summed in fp32. Otherwise as decode_score. K2 over an fp8
+// cache (KVF 2, 3) too: the ring holds the stored chunks and their K
+// scales; each warp widens its own rows of the stage in use into a bf16
 // tile (the bf16 path's slots), then S = (q . K_raw) * ks.
-template <int KVF, int GC, int DD, class Rows, bool kFused>
+// Rows are DD (64 or 128) values wide in shared memory. GR 0: D = DD,
+// rows whole 16-byte chunks (8-byte for fp8), each copied by one
+// cp.async. GR 16, 8 or 4 (kPad: 64 <= D <= 128 on the 128-wide
+// instances): rows of D values at stride D in the cache, padded with zeros
+// to DD in the slots (zero_pad, once a CTA); a thread copies the live
+// bytes of its chunk GR at a time (copy_live), and column blocks past D
+// are skipped.
+template <int KVF, int GC, int DD, int GR, class Rows, bool kFused>
 __global__ void __launch_bounds__(256)
 decode_score_mma(Par<kFused> p, Rows rows) {
-  constexpr bool kF8 = KVF != 0;
+  constexpr bool kF8 = KVF != 0, kPad = GR != 0;
   constexpr int CPR = DD / 8, kWRG = 32 / CPR, kBlocks = kWRG * kUnroll / 16;
+  constexpr int kE = kF8 ? 1 : 2, kCB = 8 * kE;   // bytes a value, a chunk
   const int bh = blockIdx.x, b = bh / p.hkv, h = bh - b * p.hkv;
   const int g0 = blockIdx.y * GC, G = min(GC, p.group - g0), s = blockIdx.z;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
-  const int warp = tid >> 5, nw = T >> 5;
+  const int warp = tid >> 5, nw = T >> 5, D = kPad ? p.D : DD;
   const int RG = T / CPR, TR = RG * kUnroll;
   const int cc = tid % CPR, rg = tid / CPR;
+  // kPad: the live bytes of this thread's chunk.
+  const int lb = kPad ? min(kCB, max(0, (D - cc * 8) * kE)) : kCB;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr size_t kTile = sizeof(typename Chunk<KVF>::type);
   const Ring<KVF, GC> ring(smem, T * kTile, kUnroll, RG, false);
@@ -1130,11 +1193,26 @@ decode_score_mma(Par<kFused> p, Rows rows) {
   if (t.s_lo >= t.s_hi) return;
   Rows at = rows;
   at.bind(ids, b, t.s_lo, t.s_hi);
+  // The slot of this thread's chunk in stage st, row u of its group.
+  auto kslot = [&](int st, int u) -> void* {
+    return kF8 ? (void*)(ring.chunk + (st * kUnroll + u) * T + tid)
+               : (void*)(reinterpret_cast<uint4*>(ring.chunk) +
+                         (st * kUnroll + u) * T + mma_slot<CPR>(rg, cc, u));
+  };
+  if constexpr (kPad) {
+    if (lb < kCB)
+#pragma unroll
+      for (int st = 0; st < kStages; ++st)
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) zero_pad<kCB>(kslot(st, u), lb);
+  }
   __syncthreads();
   const size_t qrow0 = (size_t)bh * p.group + g0;
   float* sc = p.scratch + ((size_t)bh * gridDim.y + blockIdx.y) * cap * GC;
   const int ntiles = (t.s_hi - t.s_lo + TR - 1) / TR;
-  const char* kb = static_cast<const char*>(p.k);
+  // This thread's chunk in the cache, from a row's first byte.
+  const char* kb = static_cast<const char*>(p.k) + cc * kCB;
+  const size_t rb = (size_t)D * kE;
 
   auto issue = [&](int i) {
     if (i < ntiles) {
@@ -1144,18 +1222,13 @@ decode_score_mma(Par<kFused> p, Rows rows) {
         const int l = base + rg + u * RG;
         if (l < t.s_hi) {
           const size_t r = at(bh, h, l);
-          if constexpr (kF8) {
-            cp_async<8>(ring.chunk + (st * kUnroll + u) * T + tid,
-                        kb + r * DD + cc * 8);
-            if (cc == 0)
-              cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
-                          p.k_scale + r);
-          } else {
-            cp_async<16>(ring.chunk + (st * kUnroll + u) * T +
-                             mma_slot<CPR>(rg, cc, u),
-                         static_cast<const __nv_bfloat16*>(p.k) + r * DD +
-                             cc * 8);
-          }
+          if constexpr (kPad)
+            copy_live<GR, kCB>(kslot(st, u), kb + r * rb, lb);
+          else
+            cp_async<kCB>(kslot(st, u), kb + r * rb);
+          if (kF8 && cc == 0)
+            cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
+                        p.k_scale + r);
         }
       }
     }
@@ -1165,17 +1238,20 @@ decode_score_mma(Par<kFused> p, Rows rows) {
   for (int i = 0; i < kStages - 1; ++i) issue(i);
 
   // q^T as B fragments: query row lane / 4 (zero past G), columns
-  // 16 ks + 2 (lane % 4) + {0, 1} and those + 8.
+  // 16 ks + 2 (lane % 4) + {0, 1} and those + 8 (zero past D; D is even
+  // wherever the pair runs, so a pair of columns is live or dead whole).
   const int gq = lane >> 2, dq = (lane & 3) * 2;
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(p.q) +
-                            (qrow0 + min(gq, G - 1)) * DD + dq;
+                            (qrow0 + min(gq, G - 1)) * D + dq;
   uint32_t qb[DD / 16][2];
 #pragma unroll
   for (int ks = 0; ks < DD / 16; ++ks) {
-    const float x0 = __bfloat162float(qp[ks * 16]),
-                x1 = __bfloat162float(qp[ks * 16 + 1]),
-                x8 = __bfloat162float(qp[ks * 16 + 8]),
-                x9 = __bfloat162float(qp[ks * 16 + 9]);
+    const bool lo = !kPad || ks * 16 + dq < D,
+               hi = !kPad || ks * 16 + 8 + dq < D;
+    const float x0 = lo ? __bfloat162float(qp[ks * 16]) : 0.f,
+                x1 = lo ? __bfloat162float(qp[ks * 16 + 1]) : 0.f,
+                x8 = hi ? __bfloat162float(qp[ks * 16 + 8]) : 0.f,
+                x9 = hi ? __bfloat162float(qp[ks * 16 + 9]) : 0.f;
     qb[ks][0] = gq < G ? pack_bf16(x0, x1) : 0u;
     qb[ks][1] = gq < G ? pack_bf16(x8, x9) : 0u;
   }
@@ -1210,6 +1286,7 @@ decode_score_mma(Par<kFused> p, Rows rows) {
       const int u = j / kWRG, r = warp * kWRG + j % kWRG;
 #pragma unroll
       for (int ks = 0; ks < DD / 16; ++ks) {
+        if (kPad && ks * 16 >= D) break;
         uint32_t a[4];
         ldsm_x4(a, tile + u * T + mma_slot<CPR>(r, ks * 2 + (lane >> 4), u));
         mma_bf16(c, a, qb[ks][0], qb[ks][1]);
@@ -1255,17 +1332,21 @@ decode_score_mma(Par<kFused> p, Rows rows) {
 // decode_attend. Over an fp8 cache (K2) as decode_score_mma: the stored
 // V chunks and scales in the ring, each warp's rows widened to bf16 (rows
 // past the split as zeros), and P times the V scale before its rounding.
-template <int KVF, int GC, int DD, class Rows, bool kFused>
+// GR and the padded rows as decode_score_mma's; the partial O holds the D
+// live columns (finish_attend's stride).
+template <int KVF, int GC, int DD, int GR, class Rows, bool kFused>
 __global__ void __launch_bounds__(256)
 decode_attend_mma(Par<kFused> p, Rows rows) {
-  constexpr bool kF8 = KVF != 0;
+  constexpr bool kF8 = KVF != 0, kPad = GR != 0;
   constexpr int CPR = DD / 8, kWRG = 32 / CPR, kBlocks = kWRG * kUnroll / 16;
+  constexpr int kE = kF8 ? 1 : 2, kCB = 8 * kE;   // bytes a value, a chunk
   const int bh = blockIdx.x, b = bh / p.hkv, h = bh - b * p.hkv;
   const int g0 = blockIdx.y * GC, G = min(GC, p.group - g0), s = blockIdx.z;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
-  const int warp = tid >> 5, nw = T >> 5;
+  const int warp = tid >> 5, nw = T >> 5, D = kPad ? p.D : DD;
   const int RG = T / CPR, TR = RG * kUnroll;
   const int cc = tid % CPR, rg = tid / CPR;
+  const int lb = kPad ? min(kCB, max(0, (D - cc * 8) * kE)) : kCB;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr size_t kTile = sizeof(typename Chunk<KVF>::type);
   const Ring<KVF, GC> ring(smem, T * kTile, kUnroll, RG, true);
@@ -1274,7 +1355,7 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
                                   true));         // fp8: [kUnroll][T]
   float* o_w = reinterpret_cast<float*>(smem);  // [nw][GC][D], after the loop
   float* m_g = reinterpret_cast<float*>(
-      smem + mma_union_bytes<KVF, GC>(T, DD));    // [GC] row max
+      smem + mma_union_bytes<KVF, GC>(T, DD, D));  // [GC] row max
   float* l_w = m_g + GC;                          // [nw][GC] row sums
   int* last = reinterpret_cast<int*>(l_w + nw * GC);
   int* ids = last + 1;                            // page ids
@@ -1287,17 +1368,29 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   const size_t qrow0 = (size_t)bh * p.group + g0;
   if (t.last < t.first) {                // no live row: O = 0 (fused:
     if (s == 0)                          // v_new), by split 0
-      for (int idx = tid; idx < G * DD; idx += blockDim.x) {
+      for (int idx = tid; idx < G * D; idx += blockDim.x) {
         float o = 0.f;
         if constexpr (kFused)
-          o = load_q(p.v_new, (size_t)bh * DD + idx % DD, p.q_bf16);
-        store_o(p, qrow0 * DD + idx, o);
+          o = load_q(p.v_new, (size_t)bh * D + idx % D, p.q_bf16);
+        store_o(p, qrow0 * D + idx, o);
       }
     return;
   }
   if (t.s_lo >= t.s_hi) return;
   Rows at = rows;
   at.bind(ids, b, t.s_lo, t.s_hi);
+  auto vslot = [&](int st, int u) -> void* {
+    return kF8 ? (void*)(ring.chunk + (st * kUnroll + u) * T + tid)
+               : (void*)(reinterpret_cast<uint4*>(ring.chunk) +
+                         (st * kUnroll + u) * T + mma_slot<CPR>(rg, cc, u));
+  };
+  if constexpr (kPad) {
+    if (lb < kCB)
+#pragma unroll
+      for (int st = 0; st < kStages; ++st)
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) zero_pad<kCB>(vslot(st, u), lb);
+  }
   __syncthreads();
   const float* sc =
       p.scratch + ((size_t)bh * gridDim.y + blockIdx.y) * cap * GC;
@@ -1305,7 +1398,8 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   const char* vb = static_cast<const char*>(p.v);
 
   // As decode_attend's, with the V rows past the split zero-filled (fp8:
-  // when widened).
+  // when widened; kPad: whole chunks holding live columns, by a
+  // zero-source copy that reads nothing).
   auto issue_v = [&](int i) {
     if (i >= ntiles) return;
     const int base = t.s_lo + i * TR, st = i % kStages;
@@ -1313,7 +1407,21 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
     for (int u = 0; u < kUnroll; ++u) {
       const int l = base + rg + u * RG;
       const bool live = l < t.s_hi;
-      if constexpr (kF8) {
+      if constexpr (kPad) {
+        if (live) {
+          const size_t r = at(bh, h, l);
+          copy_live<GR, kCB>(vslot(st, u), vb + r * D * kE + cc * kCB, lb);
+          if (kF8 && cc == 0)
+            cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
+                        p.v_scale + r);
+        } else if (!kF8 && lb > 0) {
+          // The source is read by no byte; its address is kept aligned.
+          cp_async16(vslot(st, u),
+                     reinterpret_cast<const void*>(
+                         reinterpret_cast<size_t>(vb) & ~(size_t)15),
+                     0);
+        }
+      } else if constexpr (kF8) {
         if (live) {
           const size_t r = at(bh, h, l);
           cp_async<8>(ring.chunk + (st * kUnroll + u) * T + tid,
@@ -1417,6 +1525,7 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
       const int u = j / kWRG, r = warp * kWRG + j % kWRG;
 #pragma unroll
       for (int db = 0; db < DD / 16; ++db) {
+        if (kPad && db * 16 >= D) break;
         uint32_t a[4];
         ldsm_x4_t(a, tile + u * T +
                          mma_slot<CPR>(r, db * 2 + ((lane >> 3) & 1), u));
@@ -1439,7 +1548,8 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = db * 16 + (lane >> 2) + (e >> 1) * 8, g = gc + (e & 1);
-      if (g < G) o_w[((size_t)warp * GC + g) * DD + d] = acc[db][e];
+      if (g < G && (!kPad || d < D))
+        o_w[((size_t)warp * GC + g) * D + d] = acc[db][e];
     }
   __syncthreads();
   if constexpr (kFused)
@@ -1525,12 +1635,20 @@ cudaError_t launch_one(void (*kernel)(P, Rows), dim3 grid, int threads,
 // Shared memory a block may opt into on the H100 (227 KiB).
 constexpr size_t kSmemOptin = 232448;
 
+// The path of a launch, as the host names it (ops/params.py::
+// DECODE_PATHS): the FMA pair in RowLayout's general rows or its exact
+// layout, or the tensor-core pair at its copy granule (16, 8 or 4).
+constexpr int kPathFma = 0, kPathFmaExact = 1;
+
 // The passes of one call: decode_score, then (K2 over an int8 cache)
 // decode_pmax, then decode_attend, each a programmatic dependent of the
-// one before. Refuses a layout past the H100's shared memory.
+// one before. The host chooses the pair from shapes and addresses alone
+// and names it in `path`; a launch whose path is another, whose layout
+// is past the H100's shared memory, or whose FMA pair would read a cache
+// not 16-byte aligned, is refused (nothing is retried on another path).
 template <int KVF, int GC, bool kFused, class Rows>
 int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
-                  int threads, cudaStream_t stream) {
+                  int threads, int path, cudaStream_t stream) {
   const int nw = threads / 32;
   const size_t table = sizeof(int) * rows.table_ints(p.split_rows);
   const RowLayout lay(p.D, KVF == 0 ? 2 : 1, threads);
@@ -1546,18 +1664,44 @@ int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
   size_t ring = fma_ring_bytes<KVF, GC>(
       lay, two ? kUnrollOf<2> : kUnrollOf<1>, threads, false);
   size_t attend_ring = attend_union_bytes<KVF, GC>(threads, p.D);
-  // bf16 q at D = 64 or 128 over a bf16 cache (and, K2, an fp8 one): the
-  // tensor-core pair (on the H100 it beat the FMA pair over fp8 too).
+  int chosen = lay.exact ? kPathFmaExact : kPathFma;
+  // bf16 q at 64 <= D <= 128 over a bf16 cache (and, K2, an fp8 one)
+  // whose rows and bases share a granule of 4 bytes or more: the
+  // tensor-core pair (on the H100 it beat the FMA pair over fp8 too). D
+  // 64 and 128 at granule 16 keep their own instances (GR 0); the rest
+  // run the 128-wide ones on rows padded with zeros, copied a granule at
+  // a time (8 bytes at most over fp8, whose chunks are 8 bytes).
   if constexpr (KVF == 0 || (kFused && KVF >= 2)) {
-    if (p.q_bf16 && (p.D == 64 || p.D == 128)) {
-      score = p.D == 64 ? decode_score_mma<KVF, GC, 64, Rows, kFused>
-                        : decode_score_mma<KVF, GC, 128, Rows, kFused>;
-      attend = p.D == 64 ? decode_attend_mma<KVF, GC, 64, Rows, kFused>
-                         : decode_attend_mma<KVF, GC, 128, Rows, kFused>;
-      ring = mma_ring_bytes<KVF, GC>(threads, threads / (p.D / 8), false);
-      attend_ring = mma_union_bytes<KVF, GC>(threads, p.D);
+    const int gr = mma_granule(p.k, p.v, p.D * (KVF == 0 ? 2 : 1));
+    if (p.q_bf16 && p.D >= 64 && p.D <= 128 && gr >= 4) {
+      constexpr int kG16 = KVF == 0 ? 16 : 8;
+      const bool own = gr == 16 && (p.D == 64 || p.D == 128);
+      const int dd = own ? p.D : 128;
+      chosen = gr;
+      if (own) {
+        score = p.D == 64 ? decode_score_mma<KVF, GC, 64, 0, Rows, kFused>
+                          : decode_score_mma<KVF, GC, 128, 0, Rows, kFused>;
+        attend = p.D == 64
+                     ? decode_attend_mma<KVF, GC, 64, 0, Rows, kFused>
+                     : decode_attend_mma<KVF, GC, 128, 0, Rows, kFused>;
+      } else {
+        score = gr == 4   ? decode_score_mma<KVF, GC, 128, 4, Rows, kFused>
+                : gr == 8 ? decode_score_mma<KVF, GC, 128, 8, Rows, kFused>
+                          : decode_score_mma<KVF, GC, 128, kG16, Rows,
+                                             kFused>;
+        attend = gr == 4 ? decode_attend_mma<KVF, GC, 128, 4, Rows, kFused>
+                 : gr == 8
+                     ? decode_attend_mma<KVF, GC, 128, 8, Rows, kFused>
+                     : decode_attend_mma<KVF, GC, 128, kG16, Rows, kFused>;
+      }
+      ring = mma_ring_bytes<KVF, GC>(threads, threads / (dd / 8), false);
+      attend_ring = mma_union_bytes<KVF, GC>(threads, dd, p.D);
     }
   }
+  if (chosen != path) return cudaErrorInvalidValue;
+  if (chosen <= kPathFmaExact &&
+      (reinterpret_cast<size_t>(p.k) | reinterpret_cast<size_t>(p.v)) % 16)
+    return cudaErrorInvalidValue;
   const size_t score_smem = ring + sizeof(float) * nw * GC + table;
   const size_t attend_smem = attend_ring + sizeof(float) * (GC + nw * GC) +
                              sizeof(int) + table +
@@ -1577,10 +1721,12 @@ int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
 }
 
 // Checks the launch shape, carves the workspace, picks the storage
-// format's and query chunk's instances and launches the passes.
+// format's and query chunk's instances and launches the passes on the
+// host's `path` (launch_passes).
 template <bool kFused, class Rows>
 int launch(Par<kFused> p, const Rows& rows, void* workspace, int n,
-           int kv_format, int group_chunk, int threads, void* stream) {
+           int kv_format, int group_chunk, int threads, int path,
+           void* stream) {
   const int cap = rows.capacity();
   if (p.group < 1 || p.hkv < 1 || n < 1 || n % p.hkv != 0 || p.D < 1 ||
       p.D > kMaxHeadDim || threads % 32 != 0 || threads < 32 ||
@@ -1612,8 +1758,10 @@ int launch(Par<kFused> p, const Rows& rows, void* workspace, int n,
   const bool wide = group_chunk == 8;
   auto run = [&](auto kvf) {
     constexpr int KVF = decltype(kvf)::value;
-    return wide ? launch_passes<KVF, 8, kFused>(p, rows, grid, threads, st)
-                : launch_passes<KVF, 4, kFused>(p, rows, grid, threads, st);
+    return wide ? launch_passes<KVF, 8, kFused>(p, rows, grid, threads, path,
+                                                st)
+                : launch_passes<KVF, 4, kFused>(p, rows, grid, threads, path,
+                                                st);
   };
   switch (kv_format) {
     case 0: return run(std::integral_constant<int, 0>{});

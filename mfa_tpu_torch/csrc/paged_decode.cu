@@ -21,7 +21,7 @@ extern "C" int mfa_paged_decode(
     const void* lengths, void* o, void* workspace, int n, int hkv,
     int group, int max_pages, int page_size, int D, int window, int q_bf16,
     int kv_format, int split_rows, int group_chunk, int threads,
-    void* stream) {
+    int path, void* stream) {
   if (max_pages < 1 || page_size < 1) return cudaErrorInvalidValue;
   AttendParams p{};
   p.q = q;
@@ -40,5 +40,5 @@ extern "C" int mfa_paged_decode(
   PagedRows rows{static_cast<const int*>(tables), max_pages, page_size, hkv,
                  nullptr, 0};
   return launch<false>(p, rows, workspace, n, kv_format, group_chunk,
-                       threads, stream);
+                       threads, path, stream);
 }

@@ -64,14 +64,15 @@ _SIGNATURES = {
                                 _P, _P,              # o workspace
                                 _I, _I, _I, _I, _I,  # bh hkv group L D
                                 _I, _I, _I,          # window qdt kvfmt
-                                _I, _I, _I,          # split_rows chunk
-                                                     # threads
+                                _I, _I, _I, _I,      # split_rows chunk
+                                                     # threads path
                                 _P],                 # stream
     "mfa_decode_attend": [_P, _P, _P, _P, _P,       # q k v ks vs
                           _P, _P, _P,               # lengths o workspace
                           _I, _I, _I, _I, _I,       # bh hkv group L D
                           _I, _I, _I,               # window qdt kvfmt
-                          _I, _I, _I,               # split_rows chunk threads
+                          _I, _I, _I, _I,           # split_rows chunk threads
+                                                    # path
                           _P],                      # stream
     "mfa_paged_decode": [_P, _P, _P, _P, _P,        # q k v ks vs (pages)
                          _P, _P, _P, _P,            # tables lengths o
@@ -79,7 +80,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I,    # n hkv group max_pages
                                                     # page_size D
                          _I, _I, _I,                # window qdt kvfmt
-                         _I, _I, _I,                # split_rows chunk threads
+                         _I, _I, _I, _I,            # split_rows chunk threads
+                                                    # path
                          _P],                       # stream
     "mfa_gemm": [_P, _P, _P, _P,                    # a b c0 c
                  _I, _I, _I, _I,                    # batch M N K

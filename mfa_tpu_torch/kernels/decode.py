@@ -7,11 +7,18 @@ source ``csrc/decode.cu``); K5 replaces ``_decode_kernel_single`` and
 kernel K6 in ``kernels/paged_decode.py``) share one split-KV body,
 ``csrc/decode_split.cuh``, and one launch shape (:func:`split_launch`).
 All three take any head dim 1 <= D <= 512 over an unpadded cache (D
-values a row: 200 bytes at D 100 in bf16, 100 in int8 and fp8): bf16 q at
-D 64 and 128 over a bf16 cache (K2: also fp8) on tensor cores, every
-other case on FMA in ``decode_split.cuh::RowLayout``'s rows, which copy
-the cache in 16-byte granules whatever a row's alignment
-(``ops/params.py::decode_row_layout`` mirrors it).
+values a row: 200 bytes at D 100 in bf16, 100 in int8 and fp8). bf16 q
+at 64 <= D <= 128 over a bf16 cache (K2: also fp8) runs on tensor cores
+where the cache's rows and bases share a copy granule of 4 bytes or more
+(``ops/params.py::decode_granule``: 16 at D 80, 96 and 112 in bf16, 8 at
+D 100, 4 at D 100 in fp8), its rows padded with zeros to 128 values in
+shared memory past D 64 and 128; every other case runs on FMA in
+``decode_split.cuh::RowLayout``'s rows, which copy a 16-byte aligned
+cache in 16-byte granules whatever a row's alignment
+(``ops/params.py::decode_row_layout`` mirrors it). Each wrapper counts
+its launches by path (``launches_by_path``: ``mma/g16``, ``mma/g8``,
+``mma/g4``, ``fma``, ``fma/exact``; :func:`launch_path`), and the C
+launch refuses a launch whose path it would choose otherwise.
 :func:`decode_fused_append` and :func:`decode_attend` launch their
 kernels for CUDA tensors and take their plain versions only for CPU
 tensors.
@@ -28,6 +35,8 @@ lengths[b] unless that slot is full (lengths[b] == L).
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -117,9 +126,8 @@ def check_types(q3, k, v, k_scale, v_scale, lengths) -> None:
 
 def check_launch(name: str, q3, k, v, **others) -> None:
     """What a launch needs beyond the operands' shapes and types: one CUDA
-    device, contiguous tensors, a storage type and head dim (any D up to
-    512) the kernels take, and 16-byte aligned cache storage (rows need
-    not be: the kernels copy 16-byte granules of it)."""
+    device, contiguous tensors, and a storage type and head dim (any D up
+    to 512) the kernels take. (Cache alignment: :func:`launch_path`.)"""
     if not q3.is_cuda:
         raise ValueError(f"{name}: unsupported device {q3.device}")
     for tname, t in dict(q=q3, k=k, v=v, **others).items():
@@ -137,8 +145,23 @@ def check_launch(name: str, q3, k, v, **others) -> None:
             f"{d * k.element_size()} bytes is {-(-d // 8)} chunks of 8 "
             f"values; a warp's 32 lanes take at most two chunks each, "
             f"{most * k.element_size()} bytes a row)")
-    if any(t.data_ptr() % 16 for t in (k, v)):
-        raise ValueError("cache storage must be 16-byte aligned")
+
+
+def launch_path(name: str, q3, k, v, *, fused: bool) -> str:
+    """The path a launch takes (``ops/params.py::decode_path``, the key of
+    DECODE_PATHS the C launch is handed): the tensor-core pair at the copy
+    granule that the rows and the bases of k and v share, else FMA, which
+    needs 16-byte aligned cache storage (its rows need not be: it copies
+    16-byte granules of it)."""
+    d = q3.shape[-1]
+    granule = params_mod.decode_granule(d, k.element_size(), k.data_ptr(),
+                                        v.data_ptr())
+    path = params_mod.decode_path(d, k.dtype, q3.dtype == torch.bfloat16,
+                                  fused, granule)
+    if path.startswith("fma") and any(t.data_ptr() % 16 for t in (k, v)):
+        raise ValueError(f"{name}: cache storage must be 16-byte aligned "
+                         f"on the FMA path ({path})")
+    return path
 
 
 def output_like(q3, out):
@@ -179,21 +202,23 @@ def check_window(sliding_window) -> None:
 
 def decode_fused_append(q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
                         *, num_kv_heads: int,
-                        sliding_window: int | None = None):
+                        sliding_window: int | None = None, out=None):
     """K2: launches the CUDA kernel for CUDA tensors (or raises); takes the
-    plain version for CPU tensors. Returns O; the cache is updated in
-    place."""
+    plain version for CPU tensors. Returns O, in ``out`` when given; the
+    cache is updated in place."""
     _check(q3, k, v, k_scale, v_scale, k_new, v_new, lengths, num_kv_heads)
     check_window(sliding_window)
     if q3.device.type == "cpu":
-        return decode_fused_append_plain(
+        o = decode_fused_append_plain(
             q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
             num_kv_heads=num_kv_heads, sliding_window=sliding_window)
+        return o if out is None else out.copy_(o)
     check_launch("decode_fused_append", q3, k, v, k_scale=k_scale,
                  v_scale=v_scale, k_new=k_new, v_new=v_new, lengths=lengths)
+    path = launch_path("decode_fused_append", q3, k, v, fused=True)
     bh, g, d = q3.shape
     L = k.shape[1]
-    o = torch.empty_like(q3)
+    o = output_like(q3, out)
     rows, chunk, workspace = split_launch(bh, g, L, d, q3.device, fused=True)
     build.library().call(
         "mfa_decode_fused_append", q3.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -202,12 +227,18 @@ def decode_fused_append(q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
         workspace.data_ptr(), bh, num_kv_heads, g, L, d,
         sliding_window or 0, int(q3.dtype == torch.bfloat16),
         KV_FORMATS[k.dtype], rows, chunk, params_mod.DECODE_ATTEND_THREADS,
+        params_mod.DECODE_PATHS[path],
         torch.cuda.current_stream(q3.device).cuda_stream)
     decode_fused_append.launches += 1
+    _FUSED_PATHS[path] += 1
     return o
 
 
+# Launches, and launches by path (launch_path's labels). The path counts
+# stay with the kernel whatever stands in for the function (as
+# flash_fwd.launches_by_row).
 decode_fused_append.launches = 0
+decode_fused_append.launches_by_path = _FUSED_PATHS = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +331,7 @@ def decode_attend(q3, k, v, k_scale, v_scale, lengths, *,
         return o if out is None else out.copy_(o)
     check_launch("decode_attend", q3, k, v, k_scale=k_scale,
                  v_scale=v_scale, lengths=lengths)
+    path = launch_path("decode_attend", q3, k, v, fused=False)
     bh, g, d = q3.shape
     L = k.shape[1]
     o = output_like(q3, out)
@@ -310,9 +342,12 @@ def decode_attend(q3, k, v, k_scale, v_scale, lengths, *,
         o.data_ptr(), workspace.data_ptr(), bh, num_kv_heads, g, L, d,
         sliding_window or 0, int(q3.dtype == torch.bfloat16),
         KV_FORMATS[k.dtype], rows, chunk, params_mod.DECODE_ATTEND_THREADS,
+        params_mod.DECODE_PATHS[path],
         torch.cuda.current_stream(q3.device).cuda_stream)
     decode_attend.launches += 1
+    _ATTEND_PATHS[path] += 1
     return o
 
 
 decode_attend.launches = 0
+decode_attend.launches_by_path = _ATTEND_PATHS = collections.Counter()

@@ -3,7 +3,10 @@
 Replaces ``mfa_tpu/kernels/paged_decode.py::_paged_decode_kernel``; the
 CUDA source is ``csrc/paged_decode.cu``, over the body K5 uses for a
 contiguous cache (``csrc/decode_split.cuh``), here reading each row
-through the page table. Any head dim up to 512, as K5.
+through the page table. Any head dim up to 512, on K5's paths (the
+tensor-core pair at 64 <= D <= 128 over bf16 pages whose rows and pool
+share a copy granule of 4 bytes or more, FMA otherwise), counted by path
+in ``paged_decode.launches_by_path``.
 :func:`paged_decode` launches the kernel for CUDA tensors and takes
 :func:`paged_decode_plain` only for CPU tensors.
 
@@ -21,6 +24,8 @@ Returns O [S * Hkv, G, D] in q's dtype. K6 rounds as K5 does
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -84,6 +89,8 @@ def paged_decode(q3, k_pages, v_pages, k_scale, v_scale, tables, lengths,
     decode_mod.check_launch("paged_decode", q3, k_pages, v_pages,
                             k_scale=k_scale, v_scale=v_scale, tables=tables,
                             lengths=lengths)
+    path = decode_mod.launch_path("paged_decode", q3, k_pages, v_pages,
+                                  fused=False)
     n, g, d = q3.shape
     hkv, ps = k_pages.shape[1:3]
     max_pages = tables.shape[1]
@@ -98,10 +105,14 @@ def paged_decode(q3, k_pages, v_pages, k_scale, v_scale, tables, lengths,
         workspace.data_ptr(), n, hkv, g, max_pages, ps, d,
         sliding_window or 0, int(q3.dtype == torch.bfloat16),
         decode_mod.KV_FORMATS[k_pages.dtype], rows, chunk,
-        params_mod.DECODE_ATTEND_THREADS,
+        params_mod.DECODE_ATTEND_THREADS, params_mod.DECODE_PATHS[path],
         torch.cuda.current_stream(q3.device).cuda_stream)
     paged_decode.launches += 1
+    _PATHS[path] += 1
     return o
 
 
+# Launches, and launches by path (decode.launch_path's labels), which stay
+# with the kernel whatever stands in for the function.
 paged_decode.launches = 0
+paged_decode.launches_by_path = _PATHS = collections.Counter()

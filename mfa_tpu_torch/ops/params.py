@@ -750,45 +750,102 @@ def decode_attend_union_bytes(head_dim: int, itemsize: int,
     return max(ring, threads // 32 * group_chunk * head_dim * 4)
 
 
+# The paths a K2/K5/K6 launch takes, by the code its wrapper hands the C
+# launch (decode_split.cuh::launch_passes refuses a launch whose own
+# choice is another): the FMA pair in RowLayout's general rows or in its
+# exact layout, or the tensor-core pair at its copy granule.
+DECODE_PATHS = {"fma": 0, "fma/exact": 1, "mma/g4": 4, "mma/g8": 8,
+                "mma/g16": 16}
+
+
+def decode_granule(head_dim: int, itemsize: int, *addresses: int) -> int:
+    """decode_split.cuh::mma_granule: the largest of 16, 8 and 4 bytes
+    dividing a cache row's bytes (D * itemsize) and every base address
+    given (k and v; K6: the page pools), which every row start then
+    shares; 0 where rows or bases are only 2- or 1-byte aligned."""
+    a = head_dim * itemsize
+    for x in addresses:
+        a |= x
+    return 16 if a % 16 == 0 else 8 if a % 8 == 0 else 4 if a % 4 == 0 \
+        else 0
+
+
+def decode_mma_width(head_dim: int, granule: int = 16) -> int:
+    """DD, the values a row holds in the tensor-core pair's shared memory:
+    D 64 and 128 at granule 16 have instances of their own; every other
+    head dim the pair takes is padded with zeros to 128."""
+    return head_dim if granule == 16 and head_dim in (64, 128) else 128
+
+
 def decode_mma_union_bytes(head_dim: int, itemsize: int, group_chunk: int,
-                           threads: int | None = None) -> int:
-    """decode_split.cuh::mma_union_bytes (tensor-core pair, D 64 or 128):
-    the ring of each thread's chunk (and, fp8, the widened bf16 tile),
-    which the partial O reuses."""
+                           threads: int | None = None,
+                           granule: int | None = None) -> int:
+    """decode_split.cuh::mma_union_bytes (the tensor-core pair): the ring
+    of each thread's chunk of DD-wide rows (and, fp8, the widened bf16
+    tile), which the partial O of the D live columns reuses. ``granule``
+    defaults to that of the row bytes alone (aligned bases)."""
     threads = threads or DECODE_ATTEND_THREADS
+    if granule is None:
+        granule = decode_granule(head_dim, itemsize)
+    width = decode_mma_width(head_dim, granule)
     ring = _decode_ring_bytes(threads * 8 * itemsize, DECODE_UNROLL,
-                              threads // (head_dim // 8), group_chunk, True)
+                              threads // (width // 8), group_chunk, True)
     ring += DECODE_UNROLL * threads * 16 if itemsize == 1 else 0
     return max(ring, threads // 32 * group_chunk * head_dim * 4)
 
 
 def decode_tensor_cores(head_dim: int, storage: torch.dtype, q_bf16: bool,
-                        fused: bool) -> bool:
+                        fused: bool, granule: int | None = None) -> bool:
     """Whether a launch takes the tensor-core pair (launch_passes): bf16 q
-    at D 64 or 128 over a bf16 cache, and (K2) over an fp8 one."""
-    return q_bf16 and head_dim in (64, 128) and (
+    at 64 <= D <= 128 over a bf16 cache, and (K2) over an fp8 one, whose
+    rows and bases share a copy granule of 4 bytes or more
+    (:func:`decode_granule`; ``granule`` defaults to that of the row
+    bytes alone, as for 16-byte aligned bases)."""
+    if granule is None:
+        granule = decode_granule(
+            head_dim, torch.empty((), dtype=storage).element_size())
+    return q_bf16 and 64 <= head_dim <= 128 and granule >= 4 and (
         storage == torch.bfloat16 or (fused and storage in (
             torch.float8_e4m3fn, torch.float8_e5m2)))
 
 
+def decode_path(head_dim: int, storage: torch.dtype, q_bf16: bool,
+                fused: bool, granule: int | None = None) -> str:
+    """The label of the path a K2 (``fused``), K5 or K6 launch takes, a
+    key of DECODE_PATHS: "mma/g16", "mma/g8" or "mma/g4" on the
+    tensor-core pair, "fma/exact" on the FMA pair at D = 8 * 2^k <= 256,
+    "fma" otherwise."""
+    itemsize = torch.empty((), dtype=storage).element_size()
+    if granule is None:
+        granule = decode_granule(head_dim, itemsize)
+    if decode_tensor_cores(head_dim, storage, q_bf16, fused, granule):
+        return f"mma/g{granule}"
+    return ("fma/exact" if decode_row_layout(head_dim, itemsize).exact
+            else "fma")
+
+
 def decode_smem_bytes(head_dim: int, storage: torch.dtype, group_chunk: int,
                       *, fused: bool = False, q_bf16: bool = True,
-                      table_ints: int = 0,
-                      threads: int | None = None) -> tuple[int, int]:
+                      table_ints: int = 0, threads: int | None = None,
+                      granule: int | None = None) -> tuple[int, int]:
     """Shared memory of the score and the attend pass of one K2/K5/K6
     call, as decode_split.cuh::launch_passes computes it (table_ints: K6's
-    page ids a split, split rows / page + 2; int8 storage never takes the
-    tensor cores)."""
+    page ids a split, split rows / page + 2; ``granule``: as for
+    :func:`decode_tensor_cores`; int8 storage never takes the tensor
+    cores)."""
     threads = threads or DECODE_ATTEND_THREADS
     itemsize = torch.empty((), dtype=storage).element_size()
     nw = threads // 32
-    if decode_tensor_cores(head_dim, storage, q_bf16, fused):
+    if granule is None:
+        granule = decode_granule(head_dim, itemsize)
+    if decode_tensor_cores(head_dim, storage, q_bf16, fused, granule):
+        width = decode_mma_width(head_dim, granule)
         ring = _decode_ring_bytes(threads * 8 * itemsize, DECODE_UNROLL,
-                                  threads // (head_dim // 8), group_chunk,
+                                  threads // (width // 8), group_chunk,
                                   False)
         ring += DECODE_UNROLL * threads * 16 if itemsize == 1 else 0
         union = decode_mma_union_bytes(head_dim, itemsize, group_chunk,
-                                       threads)
+                                       threads, granule)
     else:
         lay = decode_row_layout(head_dim, itemsize, threads)
         ring = _decode_ring_bytes(nw * lay.run_bytes, lay.unroll,

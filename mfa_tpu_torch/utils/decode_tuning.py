@@ -16,9 +16,12 @@ backward kernel phase (``bwd``, K3 and K4), its GEMM phase (``k7``), its
 INT4 matmul phase (``k8``; ``k8d``: the decode tile alone at M 4 and
 16), its training phase (``training``), the profiler's serving phase
 (``profile``: prefills and decode steps over bf16, INT8 and FP8 caches;
-``openllama_profile``: OpenLLaMA-3B's; ``openllama_prefill``: its
+``openllama_profile``: OpenLLaMA-3B's, with its paged steps;
+``openllama_prefill``: its
 prefills timed without the profiler), its INT4 phase (``int4``) or K1
-alone on its copying and TMA rows (``k1_rows``) from two trees in turns
+alone on its copying and TMA rows (``k1_rows``), or K2, K5 and K6 at D 64
+to 128 over bf16, int8 and fp8 caches (``decode_dims``) from two trees in
+turns
 (A, B, B, A), each
 in a process of its own that builds and loads its own tree's kernels.
 ``rounding`` holds K2, K5, K6 and K1 (alone and inside the ring's merge)
@@ -32,7 +35,8 @@ Run on a GPU from the repository root:
     python -m mfa_tpu_torch.utils.decode_tuning rounding
     python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
         [--what kernels|serving|host|k1|k1_rows|k2|bwd|k7|k8|k8d|training|
-                profile|openllama_profile|openllama_prefill|int4]
+                profile|openllama_profile|openllama_prefill|int4|
+                decode_dims]
 """
 
 from __future__ import annotations
@@ -381,16 +385,75 @@ for d, n, hq, hkv, causal in [(*s, c) for s in shapes for c in (True, False)
                       "Hkv": hkv, "causal": causal, "row": label,
                       "ms": ms}))
 """,
-    # The profiler's serving phase for OpenLLaMA-3B: prefills of 512 and
-    # 2048 tokens and decode steps, device time by kernel group.
+    # K2, K5 and K6 at the kernel table's shapes (K2, K5: 4 sequences x
+    # Hkv 8, L 2048, lengths 0, 777, 2047, 2048; K6: 8 sequences of 0-2048
+    # tokens on 512-token pages) at D 64, 80, 96, 100 and 128 (G 4, 4, 8,
+    # 1, 4: chip_smoke's HEAD_DIM_CASES) over bf16, int8 and fp8-e4m3
+    # caches, through the wrappers both trees have; each line names the
+    # path the tree's launch took where the tree counts paths.
+    "decode_dims": """
+import json, math
+from mfa_tpu_torch.kernels import decode as k5, paged_decode as k6
+from mfa_tpu_torch.serving import kv_cache
+from mfa_tpu_torch.ops.precision import OperandPrecision
+from mfa_tpu_torch.utils.testing import shuffled_page_pool
+gen = torch.Generator(device="cuda").manual_seed(19)
+precs = {"bf16": OperandPrecision.BF16, "int8": OperandPrecision.INT8,
+         "fp8_e4m3": OperandPrecision.FP8_E4M3}
+def path_of(fn, run):
+    by = getattr(fn, "launches_by_path", None)
+    before = dict(by) if by is not None else None
+    run()
+    torch.cuda.synchronize()
+    if by is None:
+        return None
+    return [k for k in by if by[k] != before.get(k, 0)]
+for d, g in ((64, 4), (80, 4), (96, 8), (100, 1), (128, 4)):
+    for fmt, prec in precs.items():
+        b, hkv, L = 4, 8, 2048
+        bh = b * hkv
+        cache = kv_cache.create(b, hkv, L, d, prec, device="cuda")
+        kv_cache.update(cache, *torch.randn((2, b, hkv, L, d),
+                                            generator=gen, device="cuda"))
+        lens = torch.tensor([0, 777, L - 1, L], dtype=torch.int32,
+                            device="cuda")
+        q3 = (torch.randn((bh, g, d), generator=gen, device="cuda")
+              * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+        kn, vn = (torch.randn((bh, d), generator=gen, device="cuda")
+                  .bfloat16() for _ in range(2))
+        args = (cache.k.view(bh, L, d), cache.v.view(bh, L, d),
+                cache.k_scale.view(bh, L), cache.v_scale.view(bh, L))
+        k2_run = lambda: k5.decode_fused_append(q3, *args, kn, vn, lens,
+                                                num_kv_heads=hkv)
+        k5_run = lambda: k5.decode_attend(q3, *args, lens, num_kv_heads=hkv)
+        s6 = [0, 1, 511, 512, 513, 777, 2047, 2048]
+        ops6 = (*shuffled_page_pool(prec.dtype, s6, hkv, d, 512, 4,
+                                    generator=gen, device="cuda"),
+                torch.tensor(s6, dtype=torch.int32, device="cuda"))
+        q6 = (torch.randn((8 * hkv, g, d), generator=gen, device="cuda")
+              * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+        k6_run = lambda: k6.paged_decode(q6, *ops6)
+        for name, fn, run in (("k2", k5.decode_fused_append, k2_run),
+                              ("k5", k5.decode_attend, k5_run),
+                              ("k6", k6.paged_decode, k6_run)):
+            path = path_of(fn, run)
+            ms = roofline.cuda_ms(run, iters=50)
+            print(json.dumps({"phase": "decode_dims", "kernel": name,
+                              "fmt": fmt, "D": d, "G": g, "path": path,
+                              "ms": ms}))
+""",
+    # The profiler's serving and paged phases for OpenLLaMA-3B: prefills
+    # of 512 and 2048 tokens, decode steps and whole paged-scheduler
+    # steps, device time by kernel group.
     "openllama_profile": """
 import json
 from pathlib import Path
 from mfa_tpu_torch.utils import profiling
 out = Path("build/profiles")
 out.mkdir(parents=True, exist_ok=True)
-for row in profiling.profile_serving(profiling.MODELS["openllama_3b"],
-                                     out=out):
+cfg = profiling.MODELS["openllama_3b"]
+for row in (profiling.profile_serving(cfg, out=out)
+            + profiling.profile_paged(cfg, out=out)):
     print(json.dumps(row))
 """,
     # OpenLLaMA-3B's prefills without the profiler, on chip_smoke.py's

@@ -21,8 +21,10 @@ weight-only projections (K8) and an FP8-e4m3 KV cache: a 2048-token
 prefill and decode steps at 4 slots.
 
 ``--model openllama_3b`` serves OpenLLaMA-3B instead (26 layers, width
-3200, 32 heads of head dim 100, MHA: K1 on its ``bf16_mma`` row, K2 and
-K6 on FMA at D 100), for the serving and paged phases.
+3200, 32 heads of head dim 100, MHA: K1 on its wgmma row with the copying
+producer; K2 over bf16 and FP8 caches and K6 over bf16 pages on the
+tensor-core pair, rows padded to 128 values; INT8 on FMA), for the
+serving and paged phases.
 
 Run on a GPU from the repository root:
 

@@ -43,6 +43,18 @@ def nan_canary(shape, dtype: torch.dtype = torch.float32, device="cpu"):
     return torch.full(shape, float("nan"), dtype=dtype, device=device)
 
 
+def shifted_copy(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts ``nbytes`` (a multiple
+    of its element size, below 16) past a 16-byte boundary: a cache view
+    whose base shares only that alignment."""
+    es = x.element_size()
+    if nbytes % es or not 0 <= nbytes < 16:
+        raise ValueError(f"cannot shift {x.dtype} data by {nbytes} bytes")
+    buf = torch.empty(x.numel() + 32 // es, dtype=x.dtype, device=x.device)
+    at = (-buf.data_ptr() % 16 + nbytes) // es
+    return buf[at:at + x.numel()].view(x.shape).copy_(x)
+
+
 def garbage_pad(x: torch.Tensor, s_pad: int, d_pad: int,
                 rng: np.random.Generator) -> torch.Tensor:
     """Pad the sequence/head tail of a [N, S, D] operand to [N, s_pad,

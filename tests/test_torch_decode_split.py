@@ -115,6 +115,9 @@ def test_k5_and_k6_split_alike_and_count_one_launch(library, seqs, hkv,
     q3 = _meta(n, group, d, dtype=torch.bfloat16)
     lengths = _meta(seqs, dtype=torch.int32)
     n5, n6 = k5.decode_attend.launches, k6.paged_decode.launches
+    path = params.decode_path(d, torch.bfloat16, True, False)
+    p5 = k5.decode_attend.launches_by_path[path]
+    p6 = k6.paged_decode.launches_by_path[path]
     k5.decode_attend(q3, _meta(n, cap, d, dtype=torch.bfloat16),
                      _meta(n, cap, d, dtype=torch.bfloat16), _meta(n, cap),
                      _meta(n, cap), lengths, num_kv_heads=hkv)
@@ -124,13 +127,16 @@ def test_k5_and_k6_split_alike_and_count_one_launch(library, seqs, hkv,
                     _meta(seqs, max_pages, dtype=torch.int32), lengths)
     assert (k5.decode_attend.launches, k6.paged_decode.launches) == (n5 + 1,
                                                                      n6 + 1)
+    assert (k5.decode_attend.launches_by_path[path],
+            k6.paged_decode.launches_by_path[path]) == (p5 + 1, p6 + 1)
     (name5, args5), (name6, args6) = library.calls
     assert (name5, name6) == ("mfa_decode_attend", "mfa_paged_decode")
-    # split rows, query rows a CTA, threads: the same for both.
+    # split rows, query rows a CTA, threads, then the path's code: the
+    # same for both.
     rows = params.decode_split_rows(n, group, cap)
-    assert args5[-4:-1] == args6[-4:-1] == (
+    assert args5[-5:-1] == args6[-5:-1] == (
         rows, params.decode_group_chunk(group),
-        params.DECODE_ATTEND_THREADS)
+        params.DECODE_ATTEND_THREADS, params.DECODE_PATHS[path])
 
 
 def test_workspace_holds_what_the_kernel_carves():
@@ -198,6 +204,9 @@ def test_k2_takes_the_split_and_counts_one_launch(library, monkeypatch,
     assert args[18:21] == (params.decode_split_rows(n, group, cap),
                            params.decode_group_chunk(group),
                            params.DECODE_ATTEND_THREADS)
+    # The path's code: int8 runs FMA, here in the exact layout (every
+    # case's D is 8 * 2^k).
+    assert args[21] == params.DECODE_PATHS["fma/exact"]
 
 
 def test_k5_bit_guard_covers_every_recorded_case(monkeypatch):

@@ -47,6 +47,7 @@ from mfa_tpu_torch.utils.testing import (
     assert_fully_written,
     garbage_pad,
     nan_canary,
+    shifted_copy,
     shuffled_page_pool,
 )
 
@@ -419,6 +420,131 @@ def test_paged_decode_pages_of_odd_bytes_match_plain(cuda, fmt, d, ps):
                            ks.contiguous(), vs.contiguous(), lengths,
                            num_kv_heads=hkv)
     assert torch.equal(o, o_c)
+
+
+# The path each decode launch takes (ops/params.py::decode_path, counted
+# by the wrapper's launches_by_path and checked by the C launch): the
+# tensor-core pair at 64 <= D <= 128 over rows padded to 128 in shared
+# memory and copied at the granule their rows and bases share (16 at D
+# 80, 96, 112; 8 at D 100 and at bases 8 bytes off; 4 at fp8 D 100 and at
+# bases 4 bytes off; D 64 and 128 off 16 bytes on the padded instances),
+# and FMA where it stays (odd D, int8, fp8 under K5 and K6): (kernel,
+# storage, D, G, base shift in bytes, path).
+PATH_CASES = [
+    ("k2", "bf16", 80, 4, 0, "mma/g16"), ("k2", "bf16", 96, 8, 0, "mma/g16"),
+    ("k2", "bf16", 100, 1, 0, "mma/g8"), ("k2", "bf16", 112, 4, 0, "mma/g16"),
+    ("k2", "fp8_e4m3", 100, 1, 0, "mma/g4"),
+    ("k2", "fp8_e5m2", 96, 8, 0, "mma/g16"),
+    ("k2", "bf16", 100, 4, 4, "mma/g4"),
+    ("k2", "fp8_e4m3", 128, 4, 8, "mma/g8"),
+    ("k2", "int8", 100, 1, 0, "fma"), ("k2", "bf16", 99, 1, 0, "fma"),
+    ("k5", "bf16", 80, 4, 0, "mma/g16"), ("k5", "bf16", 100, 1, 4, "mma/g4"),
+    ("k5", "bf16", 96, 8, 8, "mma/g8"), ("k5", "bf16", 128, 4, 8, "mma/g8"),
+    ("k5", "bf16", 64, 8, 4, "mma/g4"), ("k5", "bf16", 112, 2, 0, "mma/g16"),
+    ("k5", "bf16", 99, 1, 0, "fma"), ("k5", "fp8_e4m3", 100, 1, 0, "fma"),
+    ("k5", "int8", 100, 1, 0, "fma"),
+    ("k6", "bf16", 80, 4, 0, "mma/g16"), ("k6", "bf16", 100, 1, 0, "mma/g8"),
+    ("k6", "bf16", 100, 1, 4, "mma/g4"), ("k6", "bf16", 96, 8, 0, "mma/g16"),
+    ("k6", "bf16", 99, 4, 0, "fma"), ("k6", "fp8_e5m2", 100, 1, 0, "fma"),
+]
+
+
+@pytest.mark.parametrize("case", PATH_CASES,
+                         ids=[f"{c[0]}-{c[1]}-D{c[2]}-G{c[3]}-off{c[4]}"
+                              for c in PATH_CASES])
+def test_decode_launch_takes_its_named_path(cuda, case):
+    """Each launch lands on the path its case names, fills a NaN-filled
+    O, agrees with its plain version within its budget, and a second
+    launch gives the same bits (K2: the appended rows equal the plain
+    version's)."""
+    from mfa_tpu_torch.ops import params
+
+    kernel, fmt, d, g, shift, want = case
+    hkv, max_len, lens = 2, 256, (0, 33, 255, 256)
+    b, bh = len(lens), len(lens) * hkv
+    storage = _FORMATS[fmt].dtype
+    gen = torch.Generator(device=cuda).manual_seed(d * g + shift)
+    q3 = (torch.randn((bh, g, d), generator=gen, device=cuda)
+          * (math.log2(math.e) / math.sqrt(d))).bfloat16()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    if kernel == "k6":
+        k, v, ks, vs, tables = shuffled_page_pool(
+            storage, lens, hkv, d, 128, 2, generator=gen, device=cuda)
+        k, v = shifted_copy(k, shift), shifted_copy(v, shift)
+        fn, counter = k6.paged_decode, k6.paged_decode.launches_by_path
+
+        def run(out):
+            return fn(q3, k, v, ks, vs, tables, lengths, out=out)
+
+        want_o = k6.paged_decode_plain(q3, k, v, ks, vs, tables, lengths)
+        budget = "paged_decode_o"
+    else:
+        cache = kv_cache.create(b, hkv, max_len, d, _FORMATS[fmt],
+                                device=cuda)
+        kv_cache.update(cache, *torch.randn((2, b, hkv, max_len, d),
+                                            generator=gen, device=cuda))
+        k, v = (shifted_copy(t.view(bh, max_len, d), shift)
+                for t in (cache.k, cache.v))
+        ks, vs = (t.view(bh, max_len) for t in (cache.k_scale,
+                                                 cache.v_scale))
+        if kernel == "k5":
+            fn, counter = k2.decode_attend, k2.decode_attend.launches_by_path
+
+            def run(out):
+                return fn(q3, k, v, ks, vs, lengths, num_kv_heads=hkv,
+                          out=out)
+
+            want_o = k2.decode_attend_plain(q3, k, v, ks, vs, lengths,
+                                            num_kv_heads=hkv)
+            budget = "decode_attend_o"
+        else:
+            kn, vn = (torch.randn((bh, d), generator=gen, device=cuda)
+                      .bfloat16() for _ in range(2))
+            fn = k2.decode_fused_append
+            counter = k2.decode_fused_append.launches_by_path
+            twin = [t.clone() for t in (k, v, ks, vs)]
+
+            def run(out):
+                return fn(q3, k, v, ks, vs, kn, vn, lengths,
+                          num_kv_heads=hkv, out=out)
+
+            want_o = k2.decode_fused_append_plain(q3, *twin, kn, vn,
+                                                  lengths, num_kv_heads=hkv)
+            budget = "decode_o"
+    assert k.data_ptr() % 16 == shift
+    granule = params.decode_granule(d, k.element_size(), k.data_ptr(),
+                                    v.data_ptr())
+    assert params.decode_path(d, storage, True, kernel == "k2",
+                              granule) == want
+    before = dict(counter)
+    o = run(nan_canary(q3.shape, q3.dtype, device=cuda))
+    torch.cuda.synchronize()
+    assert counter[want] == before.get(want, 0) + 1
+    assert sum(counter.values()) == sum(before.values()) + 1
+    assert_fully_written(o, "O")
+    atol, rtol = KERNEL_BUDGETS[budget]
+    assert_close(o, want_o, atol, "O", rtol=rtol)
+    o2 = run(nan_canary(q3.shape, q3.dtype, device=cuda))
+    assert torch.equal(_bits(o2), _bits(o))
+    if kernel == "k2":
+        for got, ref in zip((k, v), twin[:2]):
+            assert torch.equal(_bits(got), _bits(ref))
+
+
+def test_decode_fma_path_refuses_a_cache_off_16_bytes(cuda):
+    """The FMA pair copies 16-byte granules of a 16-byte aligned cache:
+    int8 storage 4 bytes off 16 (which the tensor-core pair never takes)
+    is refused before any launch."""
+    bh, hkv, max_len, d = 4, 2, 64, 100
+    q3 = torch.randn((bh, 1, d), device=cuda).bfloat16()
+    k, v = (shifted_copy(torch.zeros((bh, max_len, d), dtype=torch.int8,
+                                     device=cuda), 4) for _ in range(2))
+    ks = vs = torch.ones((bh, max_len), device=cuda)
+    lengths = torch.full((bh // hkv,), 10, dtype=torch.int32, device=cuda)
+    n = k2.decode_attend.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k2.decode_attend(q3, k, v, ks, vs, lengths, num_kv_heads=hkv)
+    assert k2.decode_attend.launches == n
 
 
 # K5 and K6 over a cache of many splits, the lengths at split edges (0, 1,

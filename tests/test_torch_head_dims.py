@@ -405,11 +405,15 @@ def _smem_by_hand(d, storage, gc, fused, q_bf16, table_ints):
     """launch_passes' shared memory written out: the ring (kStages = 3 of
     unroll rows: the run slots, then GC scores a row group (attend), then
     one scale a row group), the partial O it also holds, the row max, row
-    sums, flag, page ids and K2's s_new / P scale."""
+    sums, flag, page ids and K2's s_new / P scale. The tensor-core pair's
+    rows are 128 values wide in shared memory at every D it takes but 64
+    (16-byte aligned bases: D 64's rows are whole granules), so its row
+    groups are those of that width, and the partial O holds D columns."""
     itemsize = torch.empty((), dtype=storage).element_size()
     t, nw = params.DECODE_ATTEND_THREADS, params.DECODE_ATTEND_THREADS // 32
     if params.decode_tensor_cores(d, storage, q_bf16, fused):
-        rg, chunk, unroll = t // (d // 8), t * 8 * itemsize, 8
+        width = 64 if d == 64 else 128
+        rg, chunk, unroll = t // (width // 8), t * 8 * itemsize, 8
         wide = 8 * t * 16 if itemsize == 1 else 0
     else:
         lay = params.decode_row_layout(d, itemsize)
@@ -447,3 +451,117 @@ def test_smem_reckons_the_launch_code_and_fits_to_d512(storage):
     assert params.decode_smem_bytes(128, torch.int8, 4)[0] == (
         3 * 8 * (256 * 8 + 16 * 4) + 4 * 8 * 4)
     assert params.decode_attend_union_bytes(512, 2, 8) == 8 * 8 * 512 * 4
+
+
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 100, 112, 128])
+def test_tensor_cores_take_bf16_from_d64_to_d128(d):
+    """The pair runs bf16 q over a bf16 cache at 64 <= D <= 128 for K2
+    (fused), K5 and K6, and over an fp8 cache for K2 alone; int8, fp32 q
+    and fp8 under K5 and K6 stay on FMA."""
+    for fused in (True, False):
+        assert params.decode_tensor_cores(d, torch.bfloat16, True, fused)
+        assert not params.decode_tensor_cores(d, torch.bfloat16, False,
+                                              fused)
+        assert not params.decode_tensor_cores(d, torch.int8, True, fused)
+        for fp8 in FP8:
+            assert params.decode_tensor_cores(d, fp8, True, fused) == fused
+    assert params.decode_path(d, torch.int8, True, True) == (
+        "fma/exact" if d in (64, 128) else "fma")
+
+
+@pytest.mark.parametrize("d, storage", [
+    (99, torch.bfloat16), (101, torch.bfloat16), (48, torch.bfloat16),
+    (136, torch.bfloat16), (62, torch.bfloat16), (130, torch.bfloat16),
+    (98, torch.float8_e4m3fn), (99, torch.float8_e5m2)])
+def test_tensor_cores_stay_off_outside_the_rule(d, storage):
+    """Odd D in bf16 (rows 2-byte aligned), D < 64, D > 128 and fp8 rows
+    not a multiple of 4 bytes run FMA, for every kernel."""
+    for fused in (True, False):
+        assert not params.decode_tensor_cores(d, storage, True, fused)
+        assert params.decode_path(d, storage, True, fused).startswith(
+            "fma")
+
+
+def test_granule_of_rows_and_bases():
+    """The copy granule is the largest of 16, 8 and 4 bytes dividing the
+    row bytes and both bases, worked out from real (CPU) cache views
+    shifted off 16 bytes; a base 2 bytes off takes no granule, and then
+    no tensor core."""
+    from mfa_tpu_torch.utils.testing import shifted_copy
+
+    cases = [  # (D, storage, shift bytes, granule)
+        (80, torch.bfloat16, 0, 16), (96, torch.bfloat16, 0, 16),
+        (112, torch.bfloat16, 0, 16), (100, torch.bfloat16, 0, 8),
+        (100, torch.float8_e4m3fn, 0, 4), (80, torch.float8_e5m2, 0, 16),
+        (98, torch.bfloat16, 0, 4), (100, torch.bfloat16, 4, 4),
+        (100, torch.bfloat16, 8, 8), (96, torch.bfloat16, 8, 8),
+        (128, torch.bfloat16, 4, 4), (64, torch.float8_e4m3fn, 8, 8),
+        (100, torch.float8_e4m3fn, 12, 4), (100, torch.bfloat16, 2, 0),
+        (128, torch.bfloat16, 6, 0), (99, torch.bfloat16, 0, 0)]
+    for d, storage, shift, want in cases:
+        rows = torch.zeros((3, 7, d), dtype=torch.float32).to(storage)
+        k, v = shifted_copy(rows, shift), shifted_copy(rows, 0)
+        assert k.data_ptr() % 16 == shift
+        got = params.decode_granule(d, k.element_size(), k.data_ptr(),
+                                    v.data_ptr())
+        assert got == want, (d, storage, shift, got)
+        for fused in (True, False):
+            on = params.decode_tensor_cores(d, storage, True, fused, got)
+            assert on == (want >= 4 and (storage == torch.bfloat16
+                                         or fused))
+            if on:
+                assert params.decode_path(d, storage, True, fused,
+                                          got) == f"mma/g{want}"
+
+
+@pytest.mark.parametrize("itemsize", [2, 1], ids=["bf16", "fp8"])
+def test_padded_rows_copy_each_live_byte_once_at_its_granule(itemsize):
+    """The pair's copies of a padded row (decode_split.cuh::copy_live):
+    the thread of chunk cc copies bytes [0, lb) of it, lb = (D - 8 cc) E
+    clamped to [0, 8 E], in copies of the granule GR (at most 8 for fp8's
+    8-byte chunks). For every D the pair takes, every row start at the
+    granule's alignment and every base shift it allows, each copy is
+    aligned to GR in the cache and in its 16-byte slot, the copies cover
+    the row's bytes exactly once, and the bytes past D (zeroed once a
+    CTA) are never written."""
+    storage = torch.bfloat16 if itemsize == 2 else torch.float8_e4m3fn
+    chunk = 8 * itemsize
+    for d in range(64, 129):
+        for shift in (0, 4, 8, 12):
+            g = params.decode_granule(d, itemsize, shift)
+            if not params.decode_tensor_cores(d, storage, True, True, g):
+                continue
+            gr = min(g, chunk)
+            width = params.decode_mma_width(d, g)
+            assert width in (64, 128) and width >= d
+            for row in (0, 1, 7, 1000):
+                start = shift + row * d * itemsize
+                covered = []
+                for cc in range(width // 8):
+                    lb = min(chunk, max(0, (d - 8 * cc) * itemsize))
+                    assert lb % gr == 0
+                    for j in range(0, lb, gr):
+                        src = start + cc * chunk + j
+                        assert src % gr == 0 and j % gr == 0
+                        covered.extend(range(src, src + gr))
+                assert covered == list(range(start, start + d * itemsize))
+
+
+@pytest.mark.parametrize("d, shift", [(64, 8), (128, 4), (100, 0),
+                                      (100, 4), (80, 0)])
+def test_smem_of_the_padded_pair_at_shifted_bases(d, shift):
+    """Off 16 bytes, D 64 and 128 run the 128-wide padded instances: the
+    shared memory is that of 16 row groups (the partial O of D columns
+    stays under the ring)."""
+    g = params.decode_granule(d, 2, shift)
+    for gc in (4, 8):
+        for fused in (False, True):
+            got = params.decode_smem_bytes(d, torch.bfloat16, gc,
+                                           fused=fused, granule=g)
+            if params.decode_mma_width(d, g) == 128:
+                assert got == _smem_by_hand(100, torch.bfloat16, gc, fused,
+                                            True, 0)
+            assert max(got) <= params.H100.smem_per_block
