@@ -84,7 +84,14 @@ phase's failure is caught):
              counters prove K1 carried every prefill and K2 every decode;
              the 1900-token prompt's last logits through K1 (each launch
              held to its plain version at KERNEL_BUDGETS) against the
-             same forward through the plain version.
+             same forward through the plain version. Then the bf16 run
+             once more under MFA_AUTOTUNE (serving_autotune): one search
+             of K1's candidate rows a prefill bucket, the memo after
+             that, every K1 and K2 launch outside the searches held to
+             its plain version, K1 on every prefill and K2 on every
+             decode step, the winners and whether the tokens equal the
+             untuned run's (they need not: another row rounds
+             differently); the autotune is off again after it.
 10. paged_serving — the same model behind the paged scheduler (8 slots,
              512-token pages, a pool too small for all requests at once),
              the six prompts twice, 16 greedy tokens each, once per KV
@@ -201,7 +208,23 @@ phase's failure is caught):
              10 over bf16 and INT8 (K6 every decode step, on the pair
              over bf16 and on FMA over INT8); decode ms a step,
              tokens/s, weight and cache GiB.
-20. kernels — one JSON line per the port's kernel table, the launches of
+20. autotune — the C++ host config core (ops/native.py): its g++ build,
+             the core equal to ops/params.py on every table with this
+             card's device model and on K7's tile over a grid, the host
+             bench's ns a call; the MFA_AUTOTUNE hooks: gemm at bf16
+             1536^3 and 4096^3 and flash_attention's forward at
+             Llama-3-8B's (Hq 32, Hkv 8, D 128) and OpenLLaMA-3B's (Hq =
+             Hkv 32, D 100: the copying producer) prefill attention (N
+             2048, causal), each searched once on its first call (its
+             candidates timed, K7's launches counted), the memo's winner
+             launched once by the second, bit-equal to the first and
+             held to the plain version at KERNEL_BUDGETS, the winner
+             beside the table row and torch.matmul; utils/autotune.py's
+             tune_forward and tune_backward (both kernels) at Llama-3-8B's
+             attention and tune_gemm at 1536^3, every candidate held to
+             its plain version, the table row's ms beside the winner's.
+             The autotune is off again after it.
+21. kernels — one JSON line per the port's kernel table, the launches of
              phases 9-19 added up; K1, K2, K5 and K6 carry their head-dim
              rows.
 
@@ -1452,7 +1475,62 @@ def phase_serving(torch):
         _add(launches, n)
         emit({"phase": "serving", **summary})
         served[prec] = (toks, summary["decode_ms_per_step"])
+    _serve_autotuned(torch, model, prompts, served[OperandPrecision.BF16][0])
     return launches, model, prompts, served
+
+
+def _serve_autotuned(torch, model, prompts, untuned_tokens) -> None:
+    """The six requests over the bf16 cache once more with the
+    dispatch-path autotune on (ops/gemm.py::set_autotune): each prefill
+    bucket's first K1 call searches its candidate rows once, every later
+    layer launches the winner from the memo. Every K1 (and K2) launch
+    outside the searches is held to its plain version
+    (kernels_held_to_plain); K1 must carry every prefill and K2 every
+    decode step. Greedy tokens may differ from the untuned run's (another
+    row rounds differently). The autotune is off again after it."""
+    from mfa_tpu_torch.ops.cache import attention_cache
+    from mfa_tpu_torch.ops.gemm import SEARCH_LAUNCHES, set_autotune
+    from mfa_tpu_torch.ops.precision import OperandPrecision
+
+    memo = attention_cache.tuned
+    attention_cache.clear()
+    set_autotune(True)
+    with kernels_held_to_plain(torch, pass_through=memo.searching) as (
+            shares, k2, k1):
+        summary, _, toks = _serve(
+            torch, model, prompts, OperandPrecision.BF16, max_len=2048,
+            k1_searched=lambda: sum(memo.timed.values()) * SEARCH_LAUNCHES)
+    set_autotune(None)
+    # The classes are the prefill buckets (R = C = bucket, batch 1).
+    by_bucket = {key[1].seq_len_q: key for key in memo.searches}
+    searches = {n: memo.searches[key] for n, key in sorted(by_bucket.items())}
+    notes = {n: memo.notes.get(by_bucket[n], {}) for n in searches}
+    attention_cache.clear()
+    buckets = sorted({min(b for b in (64, 128, 256, 512, 1024, 2048)
+                          if b >= len(p)) for p in prompts})
+    ok = (summary["ok"] and list(searches) == buckets
+          and all(v == 1 for v in searches.values())
+          and all(x <= 1 for x in shares.values())
+          and k2.get("rows_equal", True) and k2.get("excess_steps", 0) <= 1
+          and k1.get("excess_steps", 0) <= 1)
+    emit({"phase": "serving_autotune", **summary,
+          "searches": searches,
+          "candidates_timed": {n: len(v.get("candidates", ()))
+                               for n, v in notes.items()},
+          "winners": {n: [v.get("winner"), v.get("winner_row")]
+                      for n, v in notes.items()},
+          "winner_ms": {n: v.get("winner_ms") for n, v in notes.items()},
+          "search_s": {n: v.get("search_s") for n, v in notes.items()},
+          "table_ms": {n: v.get("table_ms") for n, v in notes.items()},
+          "shares": shares, "decode": k2, "prefill": k1,
+          "tokens_equal_untuned": toks == untuned_tokens,
+          "tokens_note": "greedy tokens need not equal the untuned run's: "
+                         "another K1 row rounds differently",
+          "ok": ok})
+    if not ok:
+        raise SystemExit(f"serving under MFA_AUTOTUNE: searches {searches} "
+                         f"(want one per bucket of {buckets}), shares "
+                         f"{shares}, decode {k2}, prefill {k1}")
 
 
 # Pages in the paged-serving pool, the null page included. The reckoning,
@@ -2602,7 +2680,7 @@ def _random_hf_model(torch, fields: dict, seed: int):
 
 
 @contextlib.contextmanager
-def kernels_held_to_plain(torch):
+def kernels_held_to_plain(torch, pass_through=None):
     """K1, K2 and K8 wrapped so that every launch in the block is also
     computed by its plain version on the same inputs (K2's on copies of
     the cache it appends to) and held to KERNEL_BUDGETS elementwise.
@@ -2626,7 +2704,9 @@ def kernels_held_to_plain(torch):
     and 0.53 against the terms, as far from fp64 as its plain version
     (`decode_tuning rounding`). The kernels' own counters do not move
     while they are wrapped (their increments land on the
-    wrappers), so these launches count on no path."""
+    wrappers), so these launches count on no path. A K1 launch made while
+    ``pass_through()`` is true (the autotune timing its candidates) runs
+    the kernel alone."""
     from mfa_tpu_torch.kernels import decode as k2
     from mfa_tpu_torch.kernels import flash_fwd as k1
     from mfa_tpu_torch.kernels import quant_matmul as k8
@@ -2653,6 +2733,8 @@ def kernels_held_to_plain(torch):
     def k1_held(q3, k3, v3, kd, *, group, scale, o_dtype, out=None):
         o, lse = real_k1(q3, k3, v3, kd, group=group, scale=scale,
                          o_dtype=o_dtype, out=out)
+        if pass_through is not None and pass_through():
+            return o, lse
         o_p, l_p = k1.flash_fwd_plain(q3, k3, v3, kd, group=group,
                                       scale=scale, o_dtype=o_dtype)
         held("flash_fwd_l", lse, l_p)
@@ -2766,13 +2848,15 @@ def _in_context(torch, model, tokens, name: str, *, decode: bool = True,
 
 
 def _serve(torch, model, prompts, kv_precision, *, max_len: int,
-           int4_weights: bool = False, scheduler=None, **sched_kw):
+           int4_weights: bool = False, scheduler=None, k1_searched=None,
+           **sched_kw):
     """Greedy requests of 16 tokens behind ContinuousBatchingScheduler (4
     slots; or ``scheduler``, built as it is with ``sched_kw``). K1, K2 and
     K8's counters are set to 0 just before and read just after; K1 must
     carry every prefill, K2 every decode step and K8 (INT4 weights) all 7
-    projections of every layer in both. Returns (summary, launches, the
-    requests' tokens); fails on a wrong count."""
+    projections of every layer in both. ``k1_searched()``: the K1 launches
+    of the run that timed autotune candidates, not counted. Returns
+    (summary, launches, the requests' tokens); fails on a wrong count."""
     import numpy as np
 
     from mfa_tpu_torch.kernels import decode as k2
@@ -2809,7 +2893,11 @@ def _serve(torch, model, prompts, kv_precision, *, max_len: int,
         raise SystemExit("serving: no end after 2000 steps")
     sched._retire()
     run_s = time.perf_counter() - t_run
-    launches = {f.__name__: f.launches for f in counters}
+    # By the kernels' names: a stand-in (kernels_held_to_plain) has its own.
+    launches = {name: f.launches for name, f in zip(
+        ("flash_fwd", "decode_fused_append", "int4_matmul"), counters)}
+    searched = k1_searched() if k1_searched else 0
+    launches["flash_fwd"] -= searched
     done = {c.request.id: c for c in sched.finished}
     stats = dict(sched.stats)
     layers = cfg.n_layers
@@ -2826,6 +2914,7 @@ def _serve(torch, model, prompts, kv_precision, *, max_len: int,
         completions=len(done), prompts=[len(p) for p in prompts],
         tokens=stats["tokens"], prefills=stats["prefills"],
         decode_steps=stats["decode_steps"], launches=launches,
+        **({"k1_search_launches": searched} if k1_searched else {}),
         run_s=run_s, decode_ms_per_step=(float(np.median(decode_only))
                                          if decode_only else None),
         tokens_per_s=stats["tokens"] / run_s,
@@ -3214,6 +3303,242 @@ def phase_evaluate(torch, model):
     return launches
 
 
+def _autotune_native(torch) -> None:
+    """The C++ host config core (ops/native.py): g++'s build, the core
+    equal to the Python on every table with this card's device model
+    (parse, the shared-memory check of every row, the first row of every
+    head dim) and on K7's tile over a grid of problems, and the host
+    bench's ns."""
+    from mfa_tpu_torch.ops import native, params
+    from mfa_tpu_torch.ops.descriptors import GEMMDescriptor
+    from mfa_tpu_torch.ops.precision import OperandPrecision as P
+
+    dev = params.detect_device(torch.device("cuda", 0))
+    lib = native.load()
+    rows = problems = 0
+    for (kernel, prec), text in params._TABLES[dev.name].items():
+        table = params.parameter_table(kernel, prec, dev)
+        same = native.parameter_table(kernel, prec, dev) == table and all(
+            native.select_row(table, d) == params.select_row(table, d)
+            for d in range(1, 1025))
+        in_bytes = 2 if prec.startswith("bf16") else 4
+        same = same and all(native.smem_bytes(kernel, r, in_bytes)
+                            == params.smem_bytes(kernel, r, in_bytes)
+                            for r in table)
+        if not same:
+            raise SystemExit(f"host core differs from params on {kernel} "
+                             f"{prec}")
+        rows += len(table)
+    sides = (1, 16, 17, 127, 200, 1000, 1536, 2048, 4096, 14336)
+    for m in sides:
+        for n in sides:
+            for a, b in ((P.BF16, P.BF16), (P.FP16, P.FP16),
+                         (P.FP32, P.FP32)):
+                desc = GEMMDescriptor(m=m, n=n, k=4096, a_precision=a,
+                                      b_precision=b, c_precision=a)
+                kd = desc.kernel_descriptor(dev)
+                want = (kd.tile.name,
+                        kd.mma_tile.name if kd.mma_tile else None)
+                if native.gemm_tile(desc, dev) != want:
+                    raise SystemExit(f"host core's K7 tile differs at {desc}")
+                problems += 1
+    out = native.host_bench()
+    ns = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"\] (.+?): ([\d.]+) ns/call", out)}
+    emit({"phase": "autotune_native", "build_seconds": lib.build_seconds,
+          "compiled": lib.compiled, "device": dev.name,
+          "sm_count": dev.sm_count, "smem_per_block": dev.smem_per_block,
+          "tables": len(params._TABLES[dev.name]), "rows": rows,
+          "gemm_problems": problems, "equal": True, "host_bench_ns": ns,
+          "budget_ok": out.rstrip().endswith("host-path budget OK")})
+
+
+def _autotune_gemm(torch) -> None:
+    """The GEMM hook at bf16 1536^3 and 4096^3: the first call searches
+    (at least two candidates timed), the second searches nothing and
+    launches the winner once, bit-equal to the first call's output, held
+    to the same call through the plain version at KERNEL_BUDGETS; the
+    winning tile and band, and torch.matmul as a yardstick."""
+    from mfa_tpu_torch.kernels import gemm_kernel as k7
+    from mfa_tpu_torch.ops.cache import gemm_cache
+    from mfa_tpu_torch.ops.gemm import SEARCH_LAUNCHES, gemm
+    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+
+    memo = gemm_cache.tuned
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for n in (1536, 4096):
+        a, b = (torch.randn((n, n), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        launched = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            k7.gemm_kernel.launches = 0
+            c = gemm(a, b)
+            torch.cuda.synchronize()
+            launched.append((k7.gemm_kernel.launches, c,
+                             sum(memo.searches.values()),
+                             sum(memo.timed.values())))
+        (key,) = [k for k in memo.searches if k[0] == n]
+        with plain_kernels():
+            c_p = gemm(a, b)
+        share = budget_share(launched[1][1], c_p, *KERNEL_BUDGETS["gemm_bf16"])
+        note = memo.notes[key]
+        timed = memo.timed[key]
+        ok = (memo.searches[key] == 1 and timed >= 2
+              and launched[0][0] == timed * SEARCH_LAUNCHES + 1
+              and launched[1][0] == 1 and launched[1][2:] == launched[0][2:]
+              and torch.equal(launched[0][1], launched[1][1]) and share <= 1)
+        emit({"phase": "autotune_gemm", "case": f"bf16_{n}^3",
+              "searches": memo.searches[key], "candidates_timed": timed,
+              "second_call_timed": launched[1][3] - launched[0][3],
+              "launches": [launched[0][0], launched[1][0]],
+              "search_s": note["search_s"],
+              "winner": note["winner"], "winner_ms": note["winner_ms"],
+              "heuristic_ms": note["heuristic_ms"],
+              "matmul_ms": note["matmul_ms"],
+              "candidates": note["candidates"], "share": share, "ok": ok})
+        if not ok:
+            raise SystemExit(f"gemm autotune at {n}^3: {note}, launches "
+                             f"{[x[0] for x in launched]}, share {share}")
+        del a, b, c, c_p, launched
+
+
+# The attention hook's cases: (name, Hq, Hkv, D) at B 1, N 2048, causal.
+AUTOTUNE_ATTENTION = (("llama3_8b", 32, 8, 128), ("openllama_3b", 32, 32, 100))
+
+
+def _autotune_attention(torch) -> None:
+    """The attention hook on K1's forward at Llama-3-8B's and
+    OpenLLaMA-3B's prefill attention (the latter on rows TMA cannot map:
+    the copying producer): one search, then the memo; the winner's row,
+    a second call bit-equal to the first, held to the plain version."""
+    from mfa_tpu_torch.kernels import flash_fwd as k1
+    from mfa_tpu_torch.ops.attention import flash_attention
+    from mfa_tpu_torch.ops.cache import attention_cache
+    from mfa_tpu_torch.ops.gemm import SEARCH_LAUNCHES
+    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+
+    memo = attention_cache.tuned
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for name, hq, hkv, d in AUTOTUNE_ATTENTION:
+        q, k, v = _k1_inputs(torch, gen, 2048, 2048, torch.bfloat16, hq, hkv,
+                             d)
+        launched = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            k1.flash_fwd.launches = 0
+            rows = dict(k1.launches_by_row)
+            o = flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            launched.append((k1.flash_fwd.launches, o, {
+                r: c - rows.get(r, 0) for r, c in k1.launches_by_row.items()
+                if c != rows.get(r, 0)}))
+        (key,) = [x for x in memo.searches if x[1].head_dim == d]
+        with plain_kernels():
+            o_p = flash_attention(q, k, v, causal=True)
+        share = budget_share(launched[1][1], o_p,
+                             *KERNEL_BUDGETS["flash_fwd_o_bf16"])
+        note = memo.notes[key]
+        timed = memo.timed[key]
+        table_row = note["candidates"][0][0]
+        ok = (memo.searches[key] == 1 and timed >= 2
+              and launched[0][0] == timed * SEARCH_LAUNCHES + 1
+              and launched[1][0] == 1
+              and launched[1][2] == {note["winner_row"]: 1}
+              and table_row == ("wgmma/copy" if d % 8 else "wgmma")
+              and torch.equal(launched[0][1], launched[1][1]) and share <= 1)
+        emit({"phase": "autotune_attention", "case": name, "Hq": hq,
+              "Hkv": hkv, "D": d, "N": 2048, "causal": True,
+              "searches": memo.searches[key], "candidates_timed": timed,
+              "launches": [launched[0][0], launched[1][0]],
+              "search_s": note["search_s"],
+              "winner": note["winner"], "winner_row": note["winner_row"],
+              "winner_ms": note["winner_ms"], "table_row": table_row,
+              "table_ms": note["table_ms"], "candidates": note["candidates"],
+              "share": share, "ok": ok})
+        if not ok:
+            raise SystemExit(f"attention autotune {name}: {note}, launches "
+                             f"{[x[0] for x in launched]} "
+                             f"{launched[1][2]}, share {share}")
+        del q, k, v, o, o_p, launched
+
+
+def _autotune_offline(torch) -> None:
+    """utils/autotune.py's tuners: K1, K3 and K4 at Llama-3-8B's attention
+    (Hq 32, Hkv 8, D 128, N 2048, causal) and K7 at bf16 1536^3, each
+    candidate held to its plain version first; the table row's ms beside
+    the winner's (and torch.matmul's for K7)."""
+    from mfa_tpu_torch.ops.descriptors import (
+        AttentionDescriptor,
+        AttentionKernelType,
+    )
+    from mfa_tpu_torch.utils import autotune, roofline
+
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=32, num_kv_heads=8, seq_len_q=2048,
+        seq_len_kv=2048, head_dim=128, causal=True,
+        low_precision_inputs=True, low_precision_intermediates=True)
+    lines = []
+    for kernel, kind in (("forward", AttentionKernelType.FORWARD),
+                         ("backward_query",
+                          AttentionKernelType.BACKWARD_QUERY),
+                         ("backward_key_value",
+                          AttentionKernelType.BACKWARD_KEY_VALUE)):
+        kw = dict(kv_heads=8, causal=True, verbose=lines.append)
+        results = (autotune.tune_forward(128, 2048, 32, **kw)
+                   if kernel == "forward"
+                   else autotune.tune_backward(kernel, 128, 2048, 32, **kw))
+        flops = roofline.attention_flops(kernel, 2048, 2048, 128,
+                                         batch_heads=32, causal=True)
+        ms = {(kd.block_q, kd.block_kv, kd.block_d, kd.kernel):
+              flops / tf / 1e9 for tf, kd in results}
+        table = desc.kernel_descriptor(kind)
+        table = (table.block_q, table.block_kv, table.block_d, table.kernel)
+        best = results[0][1]
+        emit({"phase": "autotune_offline", "kernel": kernel, "D": 128,
+              "N": 2048, "Hq": 32, "Hkv": 8, "causal": True,
+              "candidates": [[list(r), t] for r, t in ms.items()],
+              "table_row": table, "table_ms": ms[table],
+              "winner_row": f"128 | {best.block_q} | {best.block_kv} | "
+                            f"{best.block_d} | {best.kernel}",
+              "winner_ms": flops / results[0][0] / 1e9})
+        torch.cuda.empty_cache()
+    results, matmul_tflops = autotune.tune_gemm(1536, 1536, 1536,
+                                                verbose=lines.append)
+    flops = 2.0 * 1536 ** 3
+    ms = {f"{tile}/{band}": flops / tf / 1e9 for tf, (tile, band) in results}
+    emit({"phase": "autotune_offline", "kernel": "gemm", "M": 1536,
+          "N": 1536, "K": 1536, "candidates": ms,
+          "table_ms": ms["{}/{}".format(
+              *autotune.gemm_candidates(1536, 1536, 1536, 2)[0])],
+          "winner": list(results[0][1]),
+          "winner_ms": flops / results[0][0] / 1e9,
+          "matmul_ms": flops / matmul_tflops / 1e9})
+
+
+def phase_autotune(torch) -> None:
+    """The MFA_AUTOTUNE dispatch hooks and the offline tuners of
+    utils/autotune.py, and the C++ host config core (ops/native.py). The
+    autotune is switched on for the hooks and off at the end, so that
+    what follows launches the table rows."""
+    from mfa_tpu_torch.ops.cache import attention_cache, gemm_cache
+    from mfa_tpu_torch.ops.gemm import set_autotune
+
+    t0 = time.perf_counter()
+    _autotune_native(torch)
+    gemm_cache.clear()
+    attention_cache.clear()
+    set_autotune(True)
+    _autotune_gemm(torch)
+    _autotune_attention(torch)
+    set_autotune(None)
+    gemm_cache.clear()
+    attention_cache.clear()
+    _autotune_offline(torch)
+    torch.cuda.empty_cache()
+    emit({"phase": "autotune_done", "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -3269,6 +3594,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     openllama_launches, openllama_k1, openllama_k6 = (
         phase_openllama_serving(torch))
+    phase_autotune(torch)
     new = {}
     for n in (qwen2_launches, ckpt_launches, mistral_launches,
               eval_launches, openllama_launches):

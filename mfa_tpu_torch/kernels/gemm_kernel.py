@@ -128,7 +128,8 @@ def gemm_kernel(a3, b3, c0, kd: GEMMKernelDescriptor, *,
         b3.stride(1), b3.stride(0) if batch > 1 else 0,
         TYPE_CODES[a3.dtype], TYPE_CODES[b3.dtype], TYPE_CODES[out_dtype],
         int(kd.transpose_a), int(kd.transpose_b), _TILE_CODES[tile.name],
-        tile.stages, params_mod.GEMM_TILE_GROUP,
+        tile.stages,
+        params_mod.GEMM_TILE_GROUP if kd.group is None else kd.group,
         torch.cuda.current_stream(a3.device).cuda_stream)
     gemm_kernel.launches += 1
     return c

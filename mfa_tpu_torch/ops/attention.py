@@ -16,10 +16,19 @@ The three kernels run in the order of ``mfa_tpu``'s custom VJP: forward,
 backward_query, backward_key_value. The kernel functions are looked up in
 their modules at each call (the cache holds only descriptors), so a
 caller may swap in their plain versions to check the kernels in context.
+
+Under ``MFA_AUTOTUNE`` (``ops/gemm.py::set_autotune``) the first forward
+of a problem on the card times K1 on the table row and on the other rows
+the library compiles for its head dim and input type
+(:func:`_attn_autotune_candidates`), and every later forward of the
+problem launches the fastest (:func:`_attn_autotuned_kd`); only the
+forward, as in ``mfa_tpu``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
 
 import torch
@@ -29,9 +38,13 @@ from mfa_tpu_torch.kernels import flash_fwd as flash_fwd_kernel
 from mfa_tpu_torch.ops import params as params_mod
 from mfa_tpu_torch.ops.cache import attention_cache
 from mfa_tpu_torch.ops.descriptors import (
+    _TABLE,
     AttentionDescriptor,
     AttentionKernelDescriptor,
     AttentionKernelType,
+    copy_granule,
+    launch_row,
+    row_label,
 )
 from mfa_tpu_torch.ops.precision import AttentionOperand
 from mfa_tpu_torch.utils.device import check_on, resolve_device
@@ -49,6 +62,21 @@ class _Launch:
     o_dtype: torch.dtype
 
 
+def _problem(q, k, *, causal, scale, logit_soft_cap, sliding_window,
+             low_precision_intermediates) -> AttentionDescriptor:
+    b, hq, r, d = q.shape
+    _, hkv, c, _ = k.shape
+    low = q.dtype != torch.float32
+    return AttentionDescriptor(
+        batch=b, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
+        seq_len_kv=c, head_dim=d, causal=causal, scale=scale,
+        logit_soft_cap=logit_soft_cap, sliding_window=sliding_window,
+        low_precision_inputs=low,
+        low_precision_intermediates=(low if low_precision_intermediates
+                                     is None
+                                     else low_precision_intermediates))
+
+
 def _launch(q, k, *, causal, scale, logit_soft_cap, sliding_window,
             low_precision_intermediates, dev) -> _Launch:
     """The cached launch parameters of this problem (descriptors are built
@@ -62,11 +90,10 @@ def _launch(q, k, *, causal, scale, logit_soft_cap, sliding_window,
            else low_precision_intermediates)
 
     def problem():
-        return AttentionDescriptor(
-            batch=b, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
-            seq_len_kv=c, head_dim=d, causal=causal, scale=scale,
-            logit_soft_cap=logit_soft_cap, sliding_window=sliding_window,
-            low_precision_inputs=low, low_precision_intermediates=lpi)
+        return _problem(q, k, causal=causal, scale=scale,
+                        logit_soft_cap=logit_soft_cap,
+                        sliding_window=sliding_window,
+                        low_precision_intermediates=lpi)
 
     def build_kernel():
         desc = problem()
@@ -86,6 +113,114 @@ def _launch(q, k, *, causal, scale, logit_soft_cap, sliding_window,
     return attention_cache.get_pipeline(
         (shape_class, q.dtype, b, hq, hkv, r, c, scale), shape_class,
         build_kernel, build_pipeline)
+
+
+def _attn_autotune_candidates(kd, desc, tensors=(),
+                              device: params_mod.HopperDevice = params_mod.H100
+                              ) -> list[AttentionKernelDescriptor]:
+    """The candidates of the dispatch-path autotune: kd on its own row
+    (the table row) first, then on each row of
+    ``params.flash_candidate_rows`` for its kernel, head dim and input
+    type (the rows one axis from the table row first), each kept only
+    where ``descriptors.launch_row`` launches it as it is on ``tensors``
+    (TMA maps them, or K1 takes them with its copying producer on one of
+    the instances ``params.FWD_COPY_ROWS``; a row it would send to the
+    mma.sync table is that row's candidate) and its shared memory fits
+    one SM of ``device``."""
+    name = _TABLE[kd.kernel_type]
+    in_bytes = kd.q_precision.bits // 8
+    d = desc.head_dim
+    live = params_mod.ParameterRow(d, kd.block_q, kd.block_kv, kd.block_d,
+                                   kd.kernel)
+    out = []
+    for row in [live] + params_mod.flash_candidate_rows(name, d, in_bytes):
+        cand = dataclasses.replace(kd, block_q=row.block_q,
+                                   block_kv=row.block_kv,
+                                   block_d=row.block_d, kernel=row.kernel)
+        run = launch_row(cand, d, tensors)
+        if (cand in out or dataclasses.replace(run, producer="") != row
+                or (run.producer and (run.block_kv, run.block_d)
+                    not in params_mod.FWD_COPY_ROWS)
+                or params_mod.smem_bytes(name, run, in_bytes)
+                > device.smem_per_block):
+            continue
+        out.append(cand)
+    return out
+
+
+def _tuned_axes(kd):
+    return (kd.block_q, kd.block_kv, kd.block_d, kd.kernel)
+
+
+def _with_axes(kd, axes):
+    """kd with only the tuned axes (block_q, block_kv, block_d, kernel)
+    replaced."""
+    block_q, block_kv, block_d, kernel = axes
+    return dataclasses.replace(kd, block_q=block_q, block_kv=block_kv,
+                               block_d=block_d, kernel=kernel)
+
+
+def _attn_autotuned_kd(kind, kd, desc, q, k, run_candidate, tensors=()):
+    """kd with the tuned axes that the attention memo holds for this
+    problem, timing ``run_candidate(candidate_kd)`` for each candidate on
+    the problem's first call (on the card; under CUDA graph capture or
+    torch.compile the memo's winner or kd, unmemoized). The class is the
+    problem, the input types and the copy granule of ``tensors`` (which
+    decides how launch_row launches a row)."""
+    from mfa_tpu_torch.ops import gemm as gemm_mod
+
+    if not gemm_mod.autotune_active():
+        return kd
+    memo = attention_cache.tuned
+    cls_key = (kind, desc, str(q.dtype), str(k.dtype),
+               copy_granule(desc.head_dim, tensors), str(q.device))
+    hit = memo.get(cls_key)
+    if hit is not None:
+        return _with_axes(kd, hit)
+    if gemm_mod._no_measuring():
+        return kd
+
+    def search():
+        cands = _attn_autotune_candidates(kd, desc, tensors,
+                                          params_mod.detect_device(q.device))
+        if len(cands) == 1:
+            return _tuned_axes(cands[0])
+        t0 = time.perf_counter()
+        times = [gemm_mod._measure_dispatch(lambda c=c: run_candidate(c))
+                 for c in cands]
+        search_s = time.perf_counter() - t0
+        memo.timed[cls_key] += len(cands)
+        best = cands[min(range(len(cands)), key=times.__getitem__)]
+        memo.notes[cls_key] = {
+            "candidates": [(row_label(launch_row(c, desc.head_dim, tensors)),
+                            _tuned_axes(c), t) for c, t in zip(cands, times)],
+            "winner": _tuned_axes(best),
+            "winner_row": row_label(launch_row(best, desc.head_dim,
+                                               tensors)),
+            "table_ms": times[0], "winner_ms": min(times),
+            "search_s": search_s}
+        return _tuned_axes(best)
+
+    return _with_axes(kd, memo.resolve(cls_key, search))
+
+
+def _autotuned_launch(launch: _Launch, desc_fn, q3, k3, v3) -> _Launch:
+    """``launch`` with K1's tuned row (the autotune memo's) in ``fwd``;
+    ``launch`` itself while the autotune is off."""
+    from mfa_tpu_torch.ops import gemm as gemm_mod
+
+    if not gemm_mod.autotune_active():
+        return launch
+
+    def run_candidate(kd):
+        return flash_fwd_kernel.flash_fwd(
+            q3, k3, v3, kd, group=launch.group, scale=launch.scale,
+            o_dtype=launch.o_dtype)
+
+    fwd = _attn_autotuned_kd("fwd", launch.fwd, desc_fn(), q3, k3,
+                             run_candidate, (q3, k3, v3))
+    return launch if fwd == launch.fwd else dataclasses.replace(launch,
+                                                                fwd=fwd)
 
 
 def _backward(q3, k3, v3, o3, do3, lse, launch: _Launch, need_kv: bool):
@@ -175,6 +310,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
                      dev=dev)
     b, hq, r, d = q.shape
     q3, k3, v3 = _fold(q), _fold(k), _fold(v)
+    if dev.type == "cuda":
+        launch = _autotuned_launch(launch, lambda: _problem(
+            q, k, causal=causal, scale=scale, logit_soft_cap=logit_soft_cap,
+            sliding_window=sliding_window,
+            low_precision_intermediates=low_precision_intermediates),
+            q3, k3, v3)
     if needs_grad:
         o3 = FlashAttentionFunction.apply(q3, k3, v3, launch)
     else:

@@ -312,7 +312,9 @@ class GEMMKernelDescriptor:
     Accumulation is always fp32 (a bf16 accumulator is refused, as in
     ``mfa_tpu``: none of the paths has one). ``mma_tile``: with a wgmma
     ``tile``, the mma.sync tile a launch runs when TMA cannot map the
-    operands (``kernels/gemm_kernel.py::launch_tile``)."""
+    operands (``kernels/gemm_kernel.py::launch_tile``). ``group``: the
+    band (tile rows) of the wgmma kernel's tile walk, None for
+    ``params.GEMM_TILE_GROUP`` at launch (the autotune sets it)."""
 
     tile: params_mod.MatmulTile
     a_precision: OperandPrecision
@@ -323,3 +325,4 @@ class GEMMKernelDescriptor:
     load_previous_c: bool
     mma_tile: params_mod.MatmulTile | None = None
     device: str = "sm90"
+    group: int | None = None

@@ -457,6 +457,9 @@ FWD_PRODUCERS = {"": 0, "copy": 1}
 # 0.08306 / 0.08556: a deeper ring only lets the producer's copies
 # compete longer with the consumers' softmax for issue slots.
 FWD_COPY_RING_STAGES = 2
+# The (block_kv, block_d) of K1's instances with the copying producer
+# (csrc/flash_fwd.cu launch_copying): one a table row up to D 256.
+FWD_COPY_ROWS = ((128, 64), (128, 128), (64, 192), (64, 256))
 
 
 def _ring_stages(fixed: int, per_stage: int, most: int, mult: int) -> int:
@@ -647,6 +650,132 @@ _SMEM = {
     "flash_bwd_q": flash_bwd_q_smem_bytes,
     "flash_bwd_kv": flash_bwd_kv_smem_bytes,
 }
+
+
+# ---------------------------------------------------------------------------
+# Candidate rows of the flash kernels (the row sweep of utils/bwd_tuning.py,
+# the offline tuners and the dispatch-path autotune of utils/autotune.py)
+# ---------------------------------------------------------------------------
+
+# K1's candidates: (block_kv, most ring stages, ping-pong) of the wgmma
+# row (block_q 128), and the mma.sync row (block_q 64, block_kv 64).
+K1_ROWS = ((128, 3, True), (128, 2, True), (128, 3, False),
+           (64, 4, True), (64, 2, True), (64, 4, False))
+# (block_q, block_kv, kernel) candidates per kernel at D <= 128; block_d is
+# the head dim's. K3's wgmma_dblk candidate is the head-dim-split kernel of
+# the rows past D = 128 on one CTA of a 64- or 128-wide panel.
+K3_ROWS = ((128, 64, "wgmma"), (128, 64, "wgmma_dblk"), (64, 64, "mma"))
+K4_ROWS = ((64, 64, "wgmma"), (32, 64, "wgmma"), (32, 64, "mma"))
+
+# The candidates past D = 128, (block_q, block_kv, block_d, kernel) per
+# kernel and input type: the compiled instances of csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu; the mma row at D <= 256. The D-blocked first cut
+# (mma_dblk, fma_dblk: a 256-wide panel, S once per two panels of 512, or
+# a 128-wide one with twice the kv (K1, K3) step) and the head-dim-split
+# kernels (wgmma_dblk): K1 on one CTA of a 192- or 256-wide panel (64- or
+# 32-wide kv steps), on clusters of two such CTAs (64-wide steps) or of
+# up to four on 128-wide panels; K3 and K4 on one CTA of a 192- or
+# 256-wide panel or two of them. A wgmma_dblk candidate runs only where
+# its CTAs cover D (panel_range) and TMA maps a row (bf16, D % 8 == 0).
+DBLK_ROWS = {
+    "flash_fwd": {"bf16": ((64, 32, 256, "mma"),
+                           (64, 32, 256, "mma_dblk"),
+                           (64, 64, 128, "mma_dblk"),
+                           (128, 64, 128, "wgmma_dblk"),
+                           (128, 64, 192, "wgmma_dblk"),
+                           (128, 64, 256, "wgmma_dblk"),
+                           (128, 32, 192, "wgmma_dblk"),
+                           (128, 32, 256, "wgmma_dblk")),
+                  "fp32": ((16, 32, 256, "fma_dblk"),
+                           (16, 32, 128, "fma_dblk"))},
+    "flash_bwd_q": {"bf16": ((64, 32, 256, "mma"),
+                             (64, 32, 256, "mma_dblk"),
+                             (64, 64, 128, "mma_dblk"),
+                             (128, 32, 192, "wgmma_dblk"),
+                             (128, 32, 256, "wgmma_dblk")),
+                    "fp32": ((16, 32, 256, "fma_dblk"),
+                             (16, 32, 128, "fma_dblk"))},
+    "flash_bwd_kv": {"bf16": ((32, 64, 256, "mma"),
+                              (32, 64, 256, "mma_dblk"),
+                              (32, 64, 128, "mma_dblk"),
+                              (32, 64, 192, "wgmma_dblk"),
+                              (32, 64, 256, "wgmma_dblk")),
+                     "fp32": ((32, 16, 256, "fma_dblk"),
+                              (32, 16, 128, "fma_dblk"))},
+}
+
+# The tile-walk bands (tile rows) that the matmul sweep and K7's
+# autotune try beside GEMM_TILE_GROUP.
+GEMM_TILE_GROUPS = (1, 4, 8, 16)
+
+
+def panel_range(name: str, bd: int, bkv: int = 64) -> tuple[int, int]:
+    """The fewest and most CTAs a ``wgmma_dblk`` candidate of kernel
+    ``name`` on ``bd``-wide panels with ``bkv``-wide kv steps runs on: one
+    CTA, or a cluster of up to dblk_max_panels (their exchange slots hold
+    the others' partials); K1's clusters are compiled for 64-wide kv steps
+    only."""
+    if name == "flash_fwd" and bkv != 64:
+        return 1, 1
+    return 1, dblk_max_panels(bd)
+
+
+def flash_candidate_rows(kernel: str, head_dim: int,
+                         in_bytes: int) -> list[ParameterRow]:
+    """The rows of the flash kernel ``kernel`` (``flash_fwd``,
+    ``flash_bwd_q``, ``flash_bwd_kv``) that the kernel library compiles
+    for ``head_dim`` and inputs of ``in_bytes`` (2 bf16, 4 fp32), from the
+    rows the sweep runs: the tables' rows, K1_ROWS / K3_ROWS / K4_ROWS on
+    the 64- and 128-wide panels, and DBLK_ROWS. A row is kept where it
+    covers D: one panel (``wgmma``, ``mma``, the fp32 kernel) as wide as D
+    or wider; ``wgmma_dblk`` past D = 128 (K3 also at D <= 128, its
+    K3_ROWS candidate) on as many CTAs as panel_range allows; the
+    D-blocked first cut past D = 256. The table row for head_dim comes
+    first, then the rows that differ from it in one of block_q, block_kv,
+    block_d and kernel, then the others; every row has max_d head_dim. Whether TMA maps the operands
+    (descriptors.launch_row) and the shared memory of a device are for
+    the caller to check."""
+    if in_bytes == 4:
+        table = "fp32"
+    elif kernel == "flash_fwd":
+        table = fwd_bf16_table_precision(head_dim)
+    else:
+        table = bf16_table_precision(head_dim)
+    first = select_row(parameter_table(kernel, table), head_dim)
+    dt = "bf16" if in_bytes == 2 else "fp32"
+    quads = [(r.block_q, r.block_kv, r.block_d, r.kernel)
+             for p in (("bf16", "bf16_mma") if in_bytes == 2 else ("fp32",))
+             for r in parameter_table(kernel, p)]
+    quads += list(DBLK_ROWS[kernel][dt])
+    if in_bytes == 2:
+        short = {"flash_fwd": [(128, bkv, "wgmma") for bkv, _, _ in K1_ROWS],
+                 "flash_bwd_q": K3_ROWS, "flash_bwd_kv": K4_ROWS}[kernel]
+        quads += [(bq, bkv, bd, kern) for bq, bkv, kern in short
+                  for bd in (64, 128)]
+    rows = [ParameterRow(head_dim, first.block_q, first.block_kv,
+                         first.block_d, first.kernel)]
+    for bq, bkv, bd, kern in quads:
+        row = ParameterRow(head_dim, bq, bkv, bd, kern)
+        if row in rows:
+            continue
+        if kern == "wgmma_dblk":
+            least, most = panel_range(kernel, bd, bkv)
+            panels = -(-head_dim // bd)
+            ok = (least <= panels <= most and head_dim % 8 == 0
+                  and (head_dim > 128 or (kernel == "flash_bwd_q"
+                                          and head_dim <= bd <= 128)))
+        elif kern in ("mma_dblk", "fma_dblk"):
+            ok = head_dim > 256
+        else:
+            ok = head_dim <= bd
+        if ok:
+            rows.append(row)
+    # The table row, then the rows one axis from it, then the others.
+    def axes(r):
+        return (r.block_q, r.block_kv, r.block_d, r.kernel)
+
+    return [rows[0]] + sorted(rows[1:], key=lambda r: sum(
+        a != b for a, b in zip(axes(r), axes(first))) > 1)
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,13 @@ from mfa_tpu_torch.kernels import gemm_kernel as k7
 from mfa_tpu_torch.kernels import quant
 from mfa_tpu_torch.kernels import quant_matmul as k8
 from mfa_tpu_torch.ops import params
+from mfa_tpu_torch.ops.params import (
+    DBLK_ROWS,
+    K1_ROWS,
+    K3_ROWS,
+    K4_ROWS,
+    panel_range,
+)
 from mfa_tpu_torch.ops.descriptors import (
     AttentionDescriptor,
     AttentionKernelType,
@@ -80,53 +87,9 @@ from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.utils import roofline
 from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
 
-# K1's candidates: (block_kv, most ring stages, ping-pong) of the wgmma
-# row (block_q 128), and the mma.sync row (block_q 64, block_kv 64).
-K1_ROWS = ((128, 3, True), (128, 2, True), (128, 3, False),
-           (64, 4, True), (64, 2, True), (64, 4, False))
-# (block_q, block_kv, kernel) candidates per kernel; block_d is the head
-# dim's. K3's wgmma_dblk candidate is the head-dim-split kernel of the
-# rows past D = 128 on one CTA of a 64- or 128-wide panel.
-K3_ROWS = ((128, 64, "wgmma"), (128, 64, "wgmma_dblk"), (64, 64, "mma"))
-K4_ROWS = ((64, 64, "wgmma"), (32, 64, "wgmma"), (32, 64, "mma"))
-
-
-# The candidates past D = 128, (block_q, block_kv, block_d, kernel) per
-# kernel and input type: the compiled instances of csrc/flash_fwd.cu and
-# csrc/flash_bwd.cu; the mma row at D <= 256. The D-blocked first cut
-# (mma_dblk, fma_dblk: a 256-wide panel, S once per two panels of 512, or
-# a 128-wide one with twice the kv (K1, K3) step) and the head-dim-split
-# kernels (wgmma_dblk): K1 on one CTA of a 192- or 256-wide panel (64- or
-# 32-wide kv steps), on clusters of two such CTAs (64-wide steps) or of
-# up to four on 128-wide panels; K3 and K4 on one CTA of a 192- or
-# 256-wide panel or two of them. A wgmma_dblk candidate runs only where
-# its CTAs cover D (panel_range) and TMA maps a row (bf16, D % 8 == 0).
-DBLK_ROWS = {
-    "flash_fwd": {"bf16": ((64, 32, 256, "mma"),
-                           (64, 32, 256, "mma_dblk"),
-                           (64, 64, 128, "mma_dblk"),
-                           (128, 64, 128, "wgmma_dblk"),
-                           (128, 64, 192, "wgmma_dblk"),
-                           (128, 64, 256, "wgmma_dblk"),
-                           (128, 32, 192, "wgmma_dblk"),
-                           (128, 32, 256, "wgmma_dblk")),
-                  "fp32": ((16, 32, 256, "fma_dblk"),
-                           (16, 32, 128, "fma_dblk"))},
-    "flash_bwd_q": {"bf16": ((64, 32, 256, "mma"),
-                             (64, 32, 256, "mma_dblk"),
-                             (64, 64, 128, "mma_dblk"),
-                             (128, 32, 192, "wgmma_dblk"),
-                             (128, 32, 256, "wgmma_dblk")),
-                    "fp32": ((16, 32, 256, "fma_dblk"),
-                             (16, 32, 128, "fma_dblk"))},
-    "flash_bwd_kv": {"bf16": ((32, 64, 256, "mma"),
-                              (32, 64, 256, "mma_dblk"),
-                              (32, 64, 128, "mma_dblk"),
-                              (32, 64, 192, "wgmma_dblk"),
-                              (32, 64, 256, "wgmma_dblk")),
-                     "fp32": ((32, 16, 256, "fma_dblk"),
-                              (32, 16, 128, "fma_dblk"))},
-}
+# The candidate rows (K1_ROWS, K3_ROWS, K4_ROWS, DBLK_ROWS, panel_range)
+# live in ops/params.py, where the autotune of utils/autotune.py reads
+# them too.
 # (input type, D, N) at B 1, H 8: the JAX package's large-D class (bf16,
 # N 4096, D 384 and 512), head dims TMA cannot map (the bf16_mma table's
 # 384 and inf rows) and fp32, at chip_smoke.py's large_d sizes; and D
@@ -162,17 +125,6 @@ COPY_SHAPES = ((100, 2048, 32, 32, True), (100, 2048, 32, 32, False),
                (100, 512, 32, 32, True), (250, 1024, 8, 8, True),
                (250, 1024, 8, 8, False))
 COPY_RING_STAGES = (2, 3)
-
-
-def panel_range(name: str, bd: int, bkv: int = 64) -> tuple[int, int]:
-    """The fewest and most CTAs a ``wgmma_dblk`` candidate of kernel
-    ``name`` on ``bd``-wide panels with ``bkv``-wide kv steps runs on: one
-    CTA, or a cluster of up to params.dblk_max_panels (their exchange
-    slots hold the others' partials); K1's clusters are compiled for
-    64-wide kv steps only."""
-    if name == "flash_fwd" and bkv != 64:
-        return 1, 1
-    return 1, params.dblk_max_panels(bd)
 
 
 def dblk_candidates(name: str, dt: str, d: int, table_row) -> list:
@@ -444,7 +396,7 @@ def sweep_bwd() -> None:
 # tried for both.
 K7_ROWS = (("w256", 4), ("w256", 3), ("w128", 7), ("w128", 6), ("w128", 4))
 K8_ROWS = (("w256", 3), ("w256", 2), ("w128", 4), ("w128", 3), ("w128", 2))
-GROUPS = (1, 4, 8, 16)
+GROUPS = params.GEMM_TILE_GROUPS
 
 
 def _k7_cases():

@@ -469,3 +469,31 @@ class _FakeMesh:
 
     def get_group(self, axis):
         return None
+
+
+@pytest.mark.parametrize("name", ["mfa_tpu_torch.utils.autotune",
+                                  "mfa_tpu_torch.ops.native"])
+def test_autotune_and_native_are_held_to_the_package_rules(monkeypatch,
+                                                           name):
+    """The autotune harness and the host core's bridge are among the
+    modules the no-JAX import check loads and import nothing of JAX or
+    mfa_tpu (the no-try/except scan reads every file of the package); the
+    tuners time on the card and raise without one, also when asked for
+    the CPU."""
+    from mfa_tpu_torch.utils import autotune
+
+    assert name in _modules()
+    tree = ast.parse((ROOT / (name.replace(".", "/") + ".py")).read_text())
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""]
+                 if isinstance(node, ast.ImportFrom) else [])
+        for mod in names:
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "mfa_tpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for tune in (lambda **kw: autotune.tune_forward(64, 128, 2, **kw),
+                 lambda **kw: autotune.tune_gemm(64, 64, 64, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tune()
+        with pytest.raises(ValueError, match="refuse the CPU"):
+            tune(device="cpu")
