@@ -37,14 +37,17 @@ phase's failure is caught):
              carries the split-KV launch, as in k5. Then the head dims
              past 8 * 2^k (HEAD_DIM_CASES: D 80, 96, 100, 250 and 384
              with G 4, 8, 1, 4, 8) over the four storage types at L 2048,
-             D 100 under a window of 512, and odd D 99 (bf16, G 1): each
-             line with its launch count, bound and (bf16) SDPA's ms and
-             backend, and the path its launch took (the wrapper's
-             launches_by_path, held to ops/params.py::decode_path and to
-             REQUIRED_PATHS: the tensor-core pair at bf16 D 80-128 and
-             fp8 D 100, FMA at D 99 and over int8); every case then
-             launches twice more into NaN-filled outputs, the first held
-             to its plain version, the second bit-equal to it.
+             D 100 under a window of 512, and odd D 99 (bf16 and int8,
+             G 1): each line with its launch count, bound and (bf16)
+             SDPA's ms and backend, and the path its launch took (the
+             wrapper's launches_by_path, held to ops/params.py::
+             decode_path and to REQUIRED_PATHS: the tensor-core pair at
+             D 80-128 over every storage type, FMA at D 99); every case
+             then launches twice more into NaN-filled outputs, the first
+             held to its plain version, the second bit-equal to it.
+             Then K2's output bits over int8 on fixed inputs (k2_bits)
+             against K2_INT8_DIGESTS, those of the FMA pair, each case
+             on the tensor-core pair.
 5. k5      — unfused decode kernel through its entry point
              ops.decode.decode_attention, after kv_cache.update, against
              the same call with its plain version, for the four storage
@@ -52,8 +55,10 @@ phase's failure is caught):
              one window-512 case; SDPA timed as a yardstick for bf16. Each
              line carries the split-KV launch: rows a split R, splits S,
              CTAs a pass and those with live rows. Then K5's output
-             bits on fixed inputs (k5_bits) against K5_DIGESTS, those of
-             the K5 before K2 shared its body. The head-dim cases as in
+             bits on fixed inputs (k5_bits) against K5_DIGESTS (fp32 q:
+             those of the K5 before K2 shared its body; bf16 q: those of
+             the tensor-core pair) and each case's path (bf16 q on the
+             pair, fp32 q on FMA). The head-dim cases as in
              k2, D 512 (G 1), and D 100 with the cache 4 bytes off 16
              (the tensor-core pair's copy granule 4).
 6. k6      — paged decode kernel against its plain version: 8 sequences
@@ -204,10 +209,9 @@ phase's failure is caught):
              (K1 every prefill, each launch's row noted: all on the
              wgmma kernel with its cp.async producer; K2 every decode
              step, each launch's path noted: the tensor-core pair over
-             bf16 and FP8, FMA over INT8), then the paged flow of phase
-             10 over bf16 and INT8 (K6 every decode step, on the pair
-             over bf16 and on FMA over INT8); decode ms a step,
-             tokens/s, weight and cache GiB.
+             all three), then the paged flow of phase 10 over bf16 and
+             INT8 (K6 every decode step, on the pair over both); decode
+             ms a step, tokens/s, weight and cache GiB.
 20. autotune — the C++ host config core (ops/native.py): its g++ build,
              the core equal to ops/params.py on every table with this
              card's device model and on K7's tile over a grid, the host
@@ -570,9 +574,12 @@ def _head_dim_cases(extra=()):
 
 
 def _odd_d_cases():
-    """An odd head dim (D 99, bf16, G 1: rows of 198 bytes, 2-byte
-    aligned), which must stay on FMA: one case in _head_dim_cases' form."""
-    return [(2048, "bf16", dict(_kv_formats())["bf16"], 8, 1, None, 99)]
+    """Odd head dims, which must stay on FMA (D 99, G 1: rows of 198 bytes
+    in bf16, 2-byte aligned, and of 99 in int8): cases in
+    _head_dim_cases' form, bf16 first."""
+    formats = dict(_kv_formats())
+    return [(2048, name, formats[name], 8, 1, None, 99)
+            for name in ("bf16", "int8")]
 
 
 def _attend_fp64(torch, q3, k, v, k_scale, v_scale, live,
@@ -644,20 +651,20 @@ def _sdpa_ms(torch, q, k, v, lengths, window, scale):
 
 # What this port requires of the decode cases' paths, beyond agreeing with
 # ops/params.py::decode_path (each case holds its launch to that): K2, K5
-# and K6 on the tensor-core pair at bf16 D 80, 96, 100 and 128, K2 also
-# over fp8 at D 100, and K5 with its cache 4 bytes off 16; FMA at odd D,
-# over int8, and over fp8 under K5 and K6. (kernel, storage, D, base
-# shift in bytes) -> path.
+# and K6 on the tensor-core pair at bf16 D 80, 96, 100 and 128, over int8
+# and both fp8 formats at D 100 and 128, and K5 with its cache 4 bytes
+# off 16; FMA at odd D (bf16 and int8). (kernel, storage, D, base shift in
+# bytes) -> path. (fp32 q stays on FMA: k5_bits' fp32 cases are held to
+# it.)
 REQUIRED_PATHS = {
     **{(k, "bf16", d, 0): p for k in ("k2", "k5", "k6")
        for d, p in ((80, "mma/g16"), (96, "mma/g16"), (100, "mma/g8"),
                     (128, "mma/g16"), (99, "fma"))},
-    **{(k, "int8", d, 0): p for k in ("k2", "k5", "k6")
-       for d, p in ((100, "fma"), (128, "fma/exact"))},
-    **{(k, f, 100, 0): "fma" for k in ("k5", "k6")
-       for f in ("fp8_e4m3", "fp8_e5m2")},
-    ("k2", "fp8_e4m3", 100, 0): "mma/g4", ("k2", "fp8_e5m2", 100, 0):
-    "mma/g4", ("k5", "bf16", 100, 4): "mma/g4",
+    **{(k, f, d, 0): p for k in ("k2", "k5", "k6")
+       for f in ("int8", "fp8_e4m3", "fp8_e5m2")
+       for d, p in ((100, "mma/g4"), (128, "mma/g16"))},
+    **{(k, "int8", 99, 0): "fma" for k in ("k2", "k5", "k6")},
+    ("k5", "bf16", 100, 4): "mma/g4",
 }
 
 
@@ -678,7 +685,7 @@ def _want_path(kernel, name, d, storage, k, v) -> str:
 
     granule = params_mod.decode_granule(d, k.element_size(), k.data_ptr(),
                                         v.data_ptr())
-    path = params_mod.decode_path(d, storage, True, kernel == "k2", granule)
+    path = params_mod.decode_path(d, storage, True, granule)
     shift = k.data_ptr() % 16
     need = REQUIRED_PATHS.get((kernel, name, d, shift), path)
     if need != path:
@@ -867,36 +874,121 @@ def phase_k2(torch):
     for case in _head_dim_cases() + _odd_d_cases():
         key, row = _k2_case(torch, gen, *case)
         head_dims[key] = row
+    paths = {}
+    digests = k2_bits(torch, paths)
+    same = digests == K2_INT8_DIGESTS
+    on_pair = all(v == ["mma/g16" if "D128" in key else "mma/g4"]
+                  for key, v in paths.items())
+    emit({"phase": "k2_bits", "digests": digests, "paths": paths,
+          "as_recorded": same})
+    if not (same and on_pair):
+        raise SystemExit(f"k2: K2's output bits over int8 differ from "
+                         f"K2_INT8_DIGESTS (the FMA pair's), or its paths "
+                         f"{paths} are not the tensor-core pair's")
     return results["bf16_L2048"], head_dims
 
 
+# K2's output bits over an int8 cache on the fixed inputs of k2_bits, as
+# the FMA pair gave them on an H100 before K2's int8 launches at 64 <= D
+# <= 128 moved onto the tensor-core pair. Over int8, K2 requantizes q and
+# P to s8: its products and their sums a split are integers below 2^24,
+# exact in any order, and what is not (the scales' products, P's row
+# sum) the pair computes in the FMA pair's order. So these bits hold on
+# either pair, and a change to them is a fault in the pair, not a
+# re-recording.
+K2_INT8_DIGESTS = {
+    "int8_bfloat16_D128_G4": "7470e953fb772dc9",
+    "int8_bfloat16_D100_G1": "e30a87ac480ad740",
+    "int8_bfloat16_D128_G4_pm127": "731492cad7ffec0b",
+}
+
+
+def k2_bits(torch, paths=None) -> dict:
+    """sha256 (16 hex digits) of K2's output over an int8 cache for each
+    case: bf16 q at D 128 and G 4, at D 100 and G 1, and at D 128 and G 4
+    with every K and V value at +-127 and constant scales (every live
+    row's P at the same s8 value 127, the largest integer sums); 4
+    sequences x 8 kv heads, max_len 2048, lengths 0, 777, 2047, 2048.
+    Inputs come from numpy (seed 21) on the host, so every tree and run
+    sees the same bits. ``paths``, where given, takes each case's launch
+    paths (the wrapper's launches_by_path)."""
+    import hashlib
+
+    import numpy as np
+
+    from mfa_tpu_torch.kernels import decode as k2
+
+    rng = np.random.default_rng(21)
+    b, hkv, max_len = 4, 8, 2048
+    bh = b * hkv
+    lengths = torch.tensor([0, 777, max_len - 1, max_len],
+                           dtype=torch.int32).cuda()
+    digests = {}
+    for d, g, extreme in ((128, 4, False), (100, 1, False), (128, 4, True)):
+        if extreme:
+            k = np.full((bh, max_len, d), 127, dtype=np.int8)
+            v = np.where(np.arange(d) % 2 == 0, 127, -127).astype(np.int8)
+            k, v = torch.from_numpy(k), torch.from_numpy(
+                np.ascontiguousarray(np.broadcast_to(v, (bh, max_len, d))))
+            ks, vs = (torch.full((bh, max_len), 0.01) for _ in range(2))
+        else:
+            k, v = (torch.from_numpy(rng.integers(
+                -127, 128, (bh, max_len, d), dtype=np.int8))
+                for _ in range(2))
+            ks, vs = (torch.from_numpy(rng.uniform(
+                0.005, 0.02, (bh, max_len)).astype(np.float32))
+                for _ in range(2))
+        q3 = torch.from_numpy((rng.standard_normal(
+            (bh, g, d), dtype=np.float32)
+            * np.float32(math.log2(math.e) / math.sqrt(d)))).bfloat16()
+        kn, vn = (torch.from_numpy(rng.standard_normal(
+            (bh, d), dtype=np.float32) * np.float32(0.5)).bfloat16()
+            for _ in range(2))
+        counter = k2.decode_fused_append.launches_by_path
+        before = dict(counter)
+        o = k2.decode_fused_append(q3.cuda(), k.cuda(), v.cuda(), ks.cuda(),
+                                   vs.cuda(), kn.cuda(), vn.cuda(), lengths,
+                                   num_kv_heads=hkv)
+        raw = o.cpu().contiguous().view(torch.uint8).numpy().tobytes()
+        key = (f"int8_bfloat16_D{d}_G{g}" + ("_pm127" if extreme else ""))
+        digests[key] = hashlib.sha256(raw).hexdigest()[:16]
+        if paths is not None:
+            paths[key] = sorted(x for x in counter
+                                if counter[x] != before.get(x, 0))
+    return digests
+
+
 # K5's output bits on the fixed inputs of k5_bits, as K5 gave them on an
-# H100 before K2 came to share its body (csrc/decode_split.cuh). A change to that body must leave K5 (and K6, which k6 holds equal
-# to K5) bit for bit as they were; one that means to change them records
-# the digests that k5_bits prints.
+# H100: over bf16 storage and at fp32 q, those of the K5 before K2 came
+# to share its body (csrc/decode_split.cuh); over int8 and fp8 at bf16 q,
+# those of the tensor-core pair. A change to that body must leave K5 (and
+# K6, which k6 holds equal to K5) bit for bit as they are; one that means
+# to change them records the digests that k5_bits prints.
 K5_DIGESTS = {
     "bf16_bfloat16_D128_G4": "ca8420caa9826b79",
     "bf16_bfloat16_D64_G8_w300": "b2b0944c01d1f4e4",
     "bf16_float32_D128_G4": "a768d339f3faf371",
-    "int8_bfloat16_D128_G4": "6f0b9910fc7347c6",
-    "int8_bfloat16_D64_G8_w300": "78ccb90adf8cf17f",
+    "int8_bfloat16_D128_G4": "1df8011ae0e4f432",
+    "int8_bfloat16_D64_G8_w300": "ae554ea6799aef28",
     "int8_float32_D128_G4": "0eb02a07645b4391",
     "fp8_e4m3_bfloat16_D128_G4": "4b6280e2641826bb",
     "fp8_e4m3_bfloat16_D64_G8_w300": "5cfc1fa4f7492fa3",
     "fp8_e4m3_float32_D128_G4": "5859fd1c9054d5a3",
-    "fp8_e5m2_bfloat16_D128_G4": "2ea2a982fac38dfa",
+    "fp8_e5m2_bfloat16_D128_G4": "b8d68a98be3947c2",
     "fp8_e5m2_bfloat16_D64_G8_w300": "95af9158cba7cdd3",
     "fp8_e5m2_float32_D128_G4": "075cb32aaa48ee89",
 }
 
 
-def k5_bits(torch) -> dict:
+def k5_bits(torch, paths=None) -> dict:
     """sha256 (16 hex digits) of K5's output for each case: the four
     storage formats, each with bf16 q at D 128 and G 4, bf16 q at D 64
     and G 8 under a window of 300, and fp32 q at D 128 and G 4 (the
     tensor-core, wide-chunk and FMA instances); 4 sequences x 8 kv heads,
     max_len 2048, lengths 0, 777, 2047, 2048. Inputs come from numpy
-    (seed 55) on the host, so every tree and run sees the same bits."""
+    (seed 55) on the host, so every tree and run sees the same bits.
+    ``paths``, where given, takes each case's launch paths (the wrapper's
+    launches_by_path)."""
     import hashlib
 
     import numpy as np
@@ -929,6 +1021,8 @@ def k5_bits(torch) -> dict:
             q3 = torch.from_numpy((rng.standard_normal(
                 (bh, g, d), dtype=np.float32)
                 * np.float32(math.log2(math.e) / math.sqrt(d)))).to(q_dtype)
+            counter = k5.decode_attend.launches_by_path
+            before = dict(counter)
             o = k5.decode_attend(q3.cuda(), k.cuda(), v.cuda(), ks.cuda(),
                                  vs.cuda(), lengths, num_kv_heads=hkv,
                                  sliding_window=window)
@@ -936,6 +1030,9 @@ def k5_bits(torch) -> dict:
             key = (f"{fmt}_{str(q_dtype).split('.')[-1]}_D{d}_G{g}"
                    + (f"_w{window}" if window else ""))
             digests[key] = hashlib.sha256(raw).hexdigest()[:16]
+            if paths is not None:
+                paths[key] = sorted(x for x in counter
+                                    if counter[x] != before.get(x, 0))
     return digests
 
 
@@ -1061,12 +1158,19 @@ def phase_k5(torch):
     key, head_dims[key], n5 = _k5_case(torch, gen, *_odd_d_cases()[0][:6],
                                        100, shift=4)
     launches += n5
-    digests = k5_bits(torch)
+    paths = {}
+    digests = k5_bits(torch, paths)
     same = digests == K5_DIGESTS
-    emit({"phase": "k5_bits", "digests": digests, "as_recorded": same})
-    if not same:
-        raise SystemExit("k5: K5's output bits differ from K5_DIGESTS (the "
-                         "split-KV body K2, K5 and K6 share changed them)")
+    # bf16 q on the tensor-core pair over every storage type, fp32 q on
+    # the FMA pair's exact layout.
+    held = all(v == (["fma/exact"] if "float32" in key else ["mma/g16"])
+               for key, v in paths.items())
+    emit({"phase": "k5_bits", "digests": digests, "paths": paths,
+          "as_recorded": same, "paths_held": held})
+    if not (same and held):
+        raise SystemExit(f"k5: K5's output bits differ from K5_DIGESTS (the "
+                         f"split-KV body K2, K5 and K6 share changed them), "
+                         f"or its paths {paths} are not the rule's")
     emit({"phase": "k5_done", "seconds": time.perf_counter() - t0,
           "launches": launches})
     return results["bf16_L2048"], head_dims, launches
@@ -3019,10 +3123,10 @@ def phase_openllama_serving(torch):
     fields, random HF-named weights, served over bf16, INT8 and FP8-e4m3
     contiguous caches (K1 every prefill on its wgmma row with the cp.async
     producer at D 100, K2 every decode step) and over bf16 and INT8 paged
-    caches of 512-token pages (K6): every bf16 and FP8 K2 launch and every
-    bf16 K6 launch on the tensor-core pair (``mma/*`` by the wrappers'
-    launches_by_path), the INT8 ones on FMA. Returns (K1, K2 launches;
-    K1, K6 launches of the paged runs)."""
+    caches of 512-token pages (K6): every K2 and K6 launch, over each
+    storage type, on the tensor-core pair (``mma/*`` by the wrappers'
+    launches_by_path). Returns (K1, K2 launches; K1, K6 launches of the
+    paged runs)."""
     import numpy as np
 
     from mfa_tpu_torch.kernels import decode as k2
@@ -3070,14 +3174,11 @@ def phase_openllama_serving(torch):
         emit({"phase": "openllama_serving", "cache_gib": cache_gib,
               "weights_gib": _weight_gib(model),
               "k2_paths": k2_paths[kv.value], **summary})
-        on_pair = kv != OperandPrecision.INT8
         if not (sum(k2_paths[kv.value].values())
                 == n["decode_fused_append"] > 0
-                and all(p.startswith("mma/") == on_pair
-                        for p in k2_paths[kv.value])):
+                and all(p.startswith("mma/") for p in k2_paths[kv.value])):
             raise SystemExit(f"openllama {kv.value}: K2 ran paths "
-                             f"{k2_paths[kv.value]}, not all "
-                             f"{'mma/*' if on_pair else 'fma'}")
+                             f"{k2_paths[kv.value]}, not all mma/*")
     paged_k1, paged_k6 = phase_paged_serving(
         torch, model, prompts, bf16_tokens, formats=2,
         label="openllama_paged_serving", paths=k6_paths)
@@ -3088,8 +3189,8 @@ def phase_openllama_serving(torch):
     # The rows also count the K1 launches of the paged phase's logits
     # check, which no launch counter takes.
     k6_ok = (set(k6_paths) == {"bf16", "int8"}
-             and all(p.startswith("mma/") for p in k6_paths["bf16"])
-             and list(k6_paths["int8"]) == ["fma"])
+             and all(p.startswith("mma/") for paths in k6_paths.values()
+                     for p in paths))
     ok = (list(k1_rows) == ["wgmma/copy"] and paged_k1 > 0
           and k1_rows["wgmma/copy"] >= launches["flash_fwd"] + paged_k1
           and k6_ok)

@@ -34,17 +34,23 @@
 // An int8 cache adds a pass between the two (decode_pmax), since P's s8
 // scale is max |P vs| over every live row of the query row, across
 // splits: each split's exact max against the final max, read from the
-// scratch row. bf16 q at 64 <= D <= 128 over a bf16 cache runs both
-// passes on mma.sync (as K5), and over an fp8 cache too: each warp widens
-// its rows of the stage in use to bf16 (exact), the scales multiply S and
-// P where the plain version's do (on the H100 it beat the FMA pair).
-// Past D 64 and 128 (OpenLLaMA-3B's D 100: 200-byte rows in bf16, 100 in
-// fp8) the rows are padded with zeros to 128 values in shared memory and
-// copied at the granule their rows and bases share (8 and 4 bytes there).
-// int8 caches, fp32 q, odd D and every other D up to 512 run the FMA
-// pair, in decode_split.cuh::RowLayout's rows (any D: 16-byte granules of
-// the cache, a row's chunks read at its alignment). The append writes the
-// new row value by value, so a row of any D takes it.
+// scratch row. bf16 q at 64 <= D <= 128 runs both passes on mma.sync (as
+// K5) over every storage type: each warp widens its rows of an int8 or
+// fp8 stage to bf16 (exact), the scales multiply S and P where the plain
+// version's do. Over int8 the s8 requantization stays exact on the pair:
+// q_s8 and P_s8 are integers up to 127, exact as bf16 operands, their
+// products with int8 K and V integers whose sums stay below 2^24 (128 *
+// 127^2 a score; 1024 * 127^2 a split's P V, at DECODE_SPLIT_MAX_ROWS),
+// exact in fp32 in any order, and the rest (q scale times ks, P's row
+// sum) is computed in the FMA pair's order: the pair's output is the FMA
+// pair's bit for bit. Past D 64 and 128 (OpenLLaMA-3B's D 100: 200-byte
+// rows in bf16, 100 in int8 and fp8) the rows are padded with zeros to
+// 128 values in shared memory and copied at the granule their rows and
+// bases share (8 and 4 bytes there). fp32 q, odd D and every other D up
+// to 512 run the FMA pair, in decode_split.cuh::RowLayout's rows (any D:
+// 16-byte granules of the cache, a row's chunks read at its alignment).
+// The append writes the new row value by value, so a row of any D takes
+// it.
 
 #include "decode_split.cuh"
 

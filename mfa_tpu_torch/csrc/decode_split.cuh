@@ -13,31 +13,39 @@
 //    position len (append_new_row); no CTA reads row len as data;
 //  - for an int8 cache, the TPU kernel's s8 requantization of q (score)
 //    and of P (attend) per query row, with the P scale taken over every
-//    live row by a third pass (decode_pmax);
-//  - for an fp8 cache with bf16 q, the tensor-core pair (fp8 widened to
-//    bf16 by each warp; K5 and K6 keep fp8 on FMA, bit for bit as
-//    before).
+//    live row by a third pass (decode_pmax).
 //
 // Which launches take which pass pair (launch_passes; the host names the
 // path, ops/params.py::decode_path, and a launch on another is refused):
 //  - the tensor-core pair (decode_score_mma, decode_attend_mma): bf16 q
-//    at 64 <= D <= 128 over a bf16 cache (K2, K5, K6) or, K2 only, an fp8
-//    one, whose rows and bases share a copy granule g of 4 bytes or more
-//    (mma_granule: the largest of 16, 8, 4 dividing the row bytes and the
-//    k and v bases). D 64 and 128 at g 16 keep their own instances (GR
-//    0); every other such launch (D 80, 96, 112 at g 16; OpenLLaMA-3B's D
-//    100 at g 8 in bf16, 4 in fp8; bases 8 or 4 bytes off) runs the
-//    128-wide instance of its granule, rows padded with zeros to 128
-//    values in shared memory;
+//    at 64 <= D <= 128 over every storage type (bf16, int8, fp8-e4m3,
+//    fp8-e5m2), K2, K5 and K6 alike, whose rows and bases share a copy
+//    granule g of 4 bytes or more (mma_granule: the largest of 16, 8, 4
+//    dividing the row bytes and the k and v bases). 1-byte storage is
+//    widened to bf16 by each warp (exact). D 64 and 128 at g 16 keep
+//    their own instances (GR 0); every other such launch (D 80, 96, 112
+//    at g 16; OpenLLaMA-3B's D 100 at g 8 in bf16, 4 in int8 and fp8;
+//    bases 8 or 4 bytes off) runs the 128-wide instance of its granule,
+//    rows padded with zeros to 128 values in shared memory;
 //  - the FMA pair (decode_score / decode_attend in RowLayout's rows,
 //    their _exact instances at D = 8 * 2^k <= 256): everything else
-//    (int8; fp32 q; fp8 under K5 and K6; odd D and g < 4; D < 64; D >
-//    128), over 16-byte aligned cache storage.
+//    (fp32 q, which the 2e-5 budget keeps unrounded; odd D and g < 4;
+//    D < 64; D > 128), over 16-byte aligned cache storage.
+// K2 over int8 gives the same bits on either pair: its q and P are s8
+// integers (exact as bf16 operands), their products with K and V are
+// integers whose sums stay below 2^24 (128 * 127^2 a score, 1024 * 127^2
+// a split's P V: DECODE_SPLIT_MAX_ROWS), so exact in fp32 in any order,
+// and what is not an integer (the scales' products, P's row sum) the
+// pair computes in the FMA pair's order; only D 64 off 16 bytes, whose
+// 128-wide padded rows the pair groups otherwise than FMA, sums P's row
+// sum in another order. Over the other storage types the pair sums in
+// another order than FMA (another result within the budget).
 // What bounds K6 and K2 at D 100 on an H100: the bytes of the live K and
-// V rows (200 each in bf16), as at D 128; on FMA both ran 6-8x that bound
-// on an H100 (PERF.md), issue-bound by their dot products and shuffles,
-// and the padded pair adds only copies (two 8-byte copies a 16-byte chunk
-// at D 100) and zeros that only shared memory and the tensor cores see.
+// V rows (200 each in bf16, 100 in int8 and fp8), as at D 128; on FMA
+// they ran 6-8x that bound on an H100 (PERF.md), issue-bound by their dot
+// products and shuffles, and the padded pair adds only copies (two 8-byte
+// copies a 16-byte chunk at D 100) and zeros that only shared memory and
+// the tensor cores see.
 
 #pragma once
 
@@ -1083,19 +1091,51 @@ __device__ __forceinline__ int mma_slot(int rg, int cc, int u) {
   return rg * CPR + (cc ^ ((u * kWRG + rg % kWRG) & 7));
 }
 
-// K2 over an fp8 cache on tensor cores: one stored chunk of 8 values
-// widened to bf16 (exact), or zeros for a row past the split.
+// 1-byte storage on tensor cores: the 4 stored values of a word widened
+// to bf16 (exact: int8's integers and every fp8 value are bf16 values),
+// values 0, 1 into lo and 2, 3 into hi. int8 takes no conversion
+// instruction: each byte x, biased to x + 128, becomes the low byte of the
+// fp32 2^23 + x + 128, less 2^23 + 128 gives x exactly, and an integer of
+// at most 8 bits keeps its bf16 in the upper half of its fp32 bits. fp8
+// goes through Hopper's pairwise conversion to f16.
 template <int KVF>
-__device__ __forceinline__ uint4 widen_chunk(const uint2& c, bool live) {
-  float x[8];
-  to_float8<KVF>(c, x);
-  return live ? make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
-                           pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]))
-              : make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  uint32_t h[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if constexpr (KVF == 1) {
+      const uint32_t u = w ^ 0x80808080u;
+      const float f0 = __uint_as_float(__byte_perm(
+                           u, 0x4B000000u, 0x7540 | (2 * i))) - 8388736.f;
+      const float f1 = __uint_as_float(__byte_perm(
+                           u, 0x4B000000u, 0x7540 | (2 * i + 1))) - 8388736.f;
+      h[i] = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+    } else {
+      const __nv_fp8x2_storage_t pair =
+          static_cast<__nv_fp8x2_storage_t>(w >> (16 * i));
+      const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+          pair, KVF == 2 ? __NV_E4M3 : __NV_E5M2)));
+      h[i] = pack_bf16(f.x, f.y);
+    }
+  }
+  lo = h[0];
+  hi = h[1];
 }
 
-// Bytes of the tensor-core pair's ring: Ring's, plus (fp8) the bf16 tile
-// [kUnroll][threads] of the stage in use, widened from it.
+// One stored chunk of 8 values widened to bf16, or zeros for a row past
+// the split.
+template <int KVF>
+__device__ __forceinline__ uint4 widen_chunk(const uint2& c, bool live) {
+  if (!live) return make_uint4(0u, 0u, 0u, 0u);
+  uint4 r;
+  widen4<KVF>(c.x, r.x, r.y);
+  widen4<KVF>(c.y, r.z, r.w);
+  return r;
+}
+
+// Bytes of the tensor-core pair's ring: Ring's, plus (1-byte storage)
+// the bf16 tile [kUnroll][threads] of the stage in use, widened from it.
 template <int KVF, int GC>
 __host__ __device__ size_t mma_ring_bytes(int threads, int rg, bool scores) {
   return Ring<KVF, GC>::bytes(
@@ -1145,16 +1185,21 @@ __device__ __forceinline__ void zero_pad(void* dst, int lb) {
     *reinterpret_cast<uint32_t*>(static_cast<char*>(dst) + b) = 0u;
 }
 
-// Pass 1 on tensor cores (bf16 q over a bf16 cache): each warp takes
-// S^T = K q^T for its rows with mma.sync m16n8k16 (A = K rows by
-// ldmatrix, B = q^T held in registers, the GC query rows padded to 8),
-// exact products summed in fp32. Otherwise as decode_score. K2 over an fp8
-// cache (KVF 2, 3) too: the ring holds the stored chunks and their K
-// scales; each warp widens its own rows of the stage in use into a bf16
-// tile (the bf16 path's slots), then S = (q . K_raw) * ks.
+// Pass 1 on tensor cores (bf16 q): each warp takes S^T = K q^T for its
+// rows with mma.sync m16n8k16 (A = K rows by ldmatrix, B = q^T held in
+// registers, the GC query rows padded to 8), exact products summed in
+// fp32. Otherwise as decode_score. Over 1-byte storage (kByte: int8,
+// fp8-e4m3, fp8-e5m2; K2, K5 and K6 alike) the ring holds the stored
+// chunks and their K scales; each warp widens its own rows of the stage
+// in use into a bf16 tile (exact; the bf16 path's slots), then S = (q .
+// K_raw) * ks. K2 over int8 (kRequant) first requantizes q to s8 per
+// query row as score_pass does, and holds q_s8 as bf16 (integers up to
+// 127, exact): the products are integers and their sums, at most 128 *
+// 127^2 < 2^24, exact in fp32 in any order, so S = (dot * q scale) * ks
+// is score_pass's S bit for bit.
 // Rows are DD (64 or 128) values wide in shared memory. GR 0: D = DD,
-// rows whole 16-byte chunks (8-byte for fp8), each copied by one
-// cp.async. GR 16, 8 or 4 (kPad: 64 <= D <= 128 on the 128-wide
+// rows whole 16-byte chunks (8-byte for 1-byte storage), each copied by
+// one cp.async. GR 16, 8 or 4 (kPad: 64 <= D <= 128 on the 128-wide
 // instances): rows of D values at stride D in the cache, padded with zeros
 // to DD in the slots (zero_pad, once a CTA); a thread copies the live
 // bytes of its chunk GR at a time (copy_live), and column blocks past D
@@ -1162,9 +1207,10 @@ __device__ __forceinline__ void zero_pad(void* dst, int lb) {
 template <int KVF, int GC, int DD, int GR, class Rows, bool kFused>
 __global__ void __launch_bounds__(256)
 decode_score_mma(Par<kFused> p, Rows rows) {
-  constexpr bool kF8 = KVF != 0, kPad = GR != 0;
+  constexpr bool kByte = KVF != 0, kPad = GR != 0;
+  constexpr bool kRequant = kFused && KVF == 1;
   constexpr int CPR = DD / 8, kWRG = 32 / CPR, kBlocks = kWRG * kUnroll / 16;
-  constexpr int kE = kF8 ? 1 : 2, kCB = 8 * kE;   // bytes a value, a chunk
+  constexpr int kE = kByte ? 1 : 2, kCB = 8 * kE;  // bytes a value, a chunk
   const int bh = blockIdx.x, b = bh / p.hkv, h = bh - b * p.hkv;
   const int g0 = blockIdx.y * GC, G = min(GC, p.group - g0), s = blockIdx.z;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
@@ -1178,7 +1224,7 @@ decode_score_mma(Par<kFused> p, Rows rows) {
   const Ring<KVF, GC> ring(smem, T * kTile, kUnroll, RG, false);
   uint4* wide = reinterpret_cast<uint4*>(
       smem + Ring<KVF, GC>::bytes(T * kTile, kUnroll, RG,
-                                  false));            // fp8: [kUnroll][T]
+                                  false));        // kByte: [kUnroll][T]
   float* red = reinterpret_cast<float*>(
       smem + mma_ring_bytes<KVF, GC>(T, RG, false));  // [nw][GC]
   int* ids = reinterpret_cast<int*>(red + nw * GC);  // page ids
@@ -1195,7 +1241,7 @@ decode_score_mma(Par<kFused> p, Rows rows) {
   at.bind(ids, b, t.s_lo, t.s_hi);
   // The slot of this thread's chunk in stage st, row u of its group.
   auto kslot = [&](int st, int u) -> void* {
-    return kF8 ? (void*)(ring.chunk + (st * kUnroll + u) * T + tid)
+    return kByte ? (void*)(ring.chunk + (st * kUnroll + u) * T + tid)
                : (void*)(reinterpret_cast<uint4*>(ring.chunk) +
                          (st * kUnroll + u) * T + mma_slot<CPR>(rg, cc, u));
   };
@@ -1226,7 +1272,7 @@ decode_score_mma(Par<kFused> p, Rows rows) {
             copy_live<GR, kCB>(kslot(st, u), kb + r * rb, lb);
           else
             cp_async<kCB>(kslot(st, u), kb + r * rb);
-          if (kF8 && cc == 0)
+          if (kByte && cc == 0)
             cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
                         p.k_scale + r);
         }
@@ -1243,22 +1289,50 @@ decode_score_mma(Par<kFused> p, Rows rows) {
   const int gq = lane >> 2, dq = (lane & 3) * 2;
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(p.q) +
                             (qrow0 + min(gq, G - 1)) * D + dq;
-  uint32_t qb[DD / 16][2];
+  float qx[DD / 16][4];
 #pragma unroll
   for (int ks = 0; ks < DD / 16; ++ks) {
     const bool lo = !kPad || ks * 16 + dq < D,
                hi = !kPad || ks * 16 + 8 + dq < D;
-    const float x0 = lo ? __bfloat162float(qp[ks * 16]) : 0.f,
-                x1 = lo ? __bfloat162float(qp[ks * 16 + 1]) : 0.f,
-                x8 = hi ? __bfloat162float(qp[ks * 16 + 8]) : 0.f,
-                x9 = hi ? __bfloat162float(qp[ks * 16 + 9]) : 0.f;
-    qb[ks][0] = gq < G ? pack_bf16(x0, x1) : 0u;
-    qb[ks][1] = gq < G ? pack_bf16(x8, x9) : 0u;
+    qx[ks][0] = lo ? __bfloat162float(qp[ks * 16]) : 0.f;
+    qx[ks][1] = lo ? __bfloat162float(qp[ks * 16 + 1]) : 0.f;
+    qx[ks][2] = hi ? __bfloat162float(qp[ks * 16 + 8]) : 0.f;
+    qx[ks][3] = hi ? __bfloat162float(qp[ks * 16 + 9]) : 0.f;
+  }
+  // kRequant: the query row's s8 scale over its D values (its four
+  // lanes), then q_s8 = round(q / scale) clipped at +-127, as score_pass.
+  float qsc = 1.f;
+  if constexpr (kRequant) {
+    float a = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DD / 16; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a = fmaxf(a, fabsf(qx[ks][e]));
+    a = fmaxf(a, __shfl_xor_sync(kFull, a, 1));
+    a = fmaxf(a, __shfl_xor_sync(kFull, a, 2));
+    qsc = fmaxf(a, 1e-30f) * kInv127;
+#pragma unroll
+    for (int ks = 0; ks < DD / 16; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        qx[ks][e] = fminf(fmaxf(rintf(qx[ks][e] / qsc), -127.f), 127.f);
+  }
+  uint32_t qb[DD / 16][2];
+#pragma unroll
+  for (int ks = 0; ks < DD / 16; ++ks) {
+    qb[ks][0] = gq < G ? pack_bf16(qx[ks][0], qx[ks][1]) : 0u;
+    qb[ks][1] = gq < G ? pack_bf16(qx[ks][2], qx[ks][3]) : 0u;
   }
 
   // This lane's C entries: rows j = 16 nb + lane / 4 (+ 8), query rows
   // gc and gc + 1.
   const int gc = (lane & 3) * 2;
+  // kRequant: their q scales (query row g's is lane 4 g's).
+  float qs0 = 1.f, qs1 = 1.f;
+  if constexpr (kRequant) {
+    qs0 = __shfl_sync(kFull, qsc, 4 * gc);
+    qs1 = __shfl_sync(kFull, qsc, 4 * gc + 4);
+  }
   float m0 = kMaskValue, m1 = kMaskValue;
   for (int i = 0; i < ntiles; ++i) {
     cp_async_wait<kStages - 2>();
@@ -1266,7 +1340,7 @@ decode_score_mma(Par<kFused> p, Rows rows) {
     issue(i + kStages - 1);
     const int base = t.s_lo + i * TR, st = i % kStages;
     const uint4* tile;
-    if constexpr (kF8) {
+    if constexpr (kByte) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         wide[u * T + mma_slot<CPR>(rg, cc, u)] = widen_chunk<KVF>(
@@ -1296,11 +1370,17 @@ decode_score_mma(Par<kFused> p, Rows rows) {
         const int jr = nb * 16 + (lane >> 2) + hh * 8;
         const int l = base + warp * kWRG + jr % kWRG + (jr / kWRG) * RG;
         if (l < t.s_hi && gc < GC) {
-          if constexpr (kF8) {
+          if constexpr (kByte) {
             const float ks = ring.scale[(st * kUnroll + jr / kWRG) * RG +
                                         warp * kWRG + jr % kWRG];
-            c[2 * hh] *= ks;
-            c[2 * hh + 1] *= ks;
+            // score_pass's order: (dot * q scale) * ks.
+            if constexpr (kRequant) {
+              c[2 * hh] = c[2 * hh] * qs0 * ks;
+              c[2 * hh + 1] = c[2 * hh + 1] * qs1 * ks;
+            } else {
+              c[2 * hh] *= ks;
+              c[2 * hh + 1] *= ks;
+            }
           }
           if (gc < G) m0 = fmaxf(m0, c[2 * hh]);
           if (gc + 1 < G) m1 = fmaxf(m1, c[2 * hh + 1]);
@@ -1324,22 +1404,30 @@ decode_score_mma(Par<kFused> p, Rows rows) {
   put_split_max<GC>(p, red, qrow0, s, G);
 }
 
-// Pass 2 on tensor cores (bf16 q over a bf16 cache): each warp takes
-// O^T += V^T P^T for its rows with mma.sync (A = V^T by ldmatrix.trans,
-// B = P^T formed in registers: each lane exponentiates its four (row,
-// query row) pairs a block against the final max and rounds them to
-// bf16). Rows past the split are zero-filled in the ring. Otherwise as
-// decode_attend. Over an fp8 cache (K2) as decode_score_mma: the stored
-// V chunks and scales in the ring, each warp's rows widened to bf16 (rows
-// past the split as zeros), and P times the V scale before its rounding.
-// GR and the padded rows as decode_score_mma's; the partial O holds the D
-// live columns (finish_attend's stride).
+// Pass 2 on tensor cores (bf16 q): each warp takes O^T += V^T P^T for
+// its rows with mma.sync (A = V^T by ldmatrix.trans, B = P^T formed in
+// registers: each lane exponentiates its four (row, query row) pairs a
+// block against the final max and rounds them to bf16). Rows past the
+// split are zero-filled in the ring. Otherwise as decode_attend. Over
+// 1-byte storage as decode_score_mma: the stored V chunks and scales in
+// the ring, each warp's rows widened to bf16 (rows past the split as
+// zeros), and P times the V scale before its rounding. K2 over int8
+// (kRequant) keeps attend_pass's arithmetic bit for bit: P vs becomes
+// s8 against the P scale of decode_pmax (integers up to 127, exact in
+// bf16), so P V sums integers, at most 1024 * 127^2 < 2^24 a split
+// (DECODE_SPLIT_MAX_ROWS), exact in fp32 in any order; the row sum of P,
+// not an integer, is summed in attend_pass's order (each row group's
+// rows in tile and row order, then the row groups of a warp pairwise,
+// as its butterfly), by lanes of its own. GR and the padded rows as
+// decode_score_mma's; the partial O holds the D live columns
+// (finish_attend's stride).
 template <int KVF, int GC, int DD, int GR, class Rows, bool kFused>
 __global__ void __launch_bounds__(256)
 decode_attend_mma(Par<kFused> p, Rows rows) {
-  constexpr bool kF8 = KVF != 0, kPad = GR != 0;
+  constexpr bool kByte = KVF != 0, kPad = GR != 0;
+  constexpr bool kRequant = kFused && KVF == 1;
   constexpr int CPR = DD / 8, kWRG = 32 / CPR, kBlocks = kWRG * kUnroll / 16;
-  constexpr int kE = kF8 ? 1 : 2, kCB = 8 * kE;   // bytes a value, a chunk
+  constexpr int kE = kByte ? 1 : 2, kCB = 8 * kE;  // bytes a value, a chunk
   const int bh = blockIdx.x, b = bh / p.hkv, h = bh - b * p.hkv;
   const int g0 = blockIdx.y * GC, G = min(GC, p.group - g0), s = blockIdx.z;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
@@ -1352,7 +1440,7 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   const Ring<KVF, GC> ring(smem, T * kTile, kUnroll, RG, true);
   uint4* wide = reinterpret_cast<uint4*>(
       smem + Ring<KVF, GC>::bytes(T * kTile, kUnroll, RG,
-                                  true));         // fp8: [kUnroll][T]
+                                  true));         // kByte: [kUnroll][T]
   float* o_w = reinterpret_cast<float*>(smem);  // [nw][GC][D], after the loop
   float* m_g = reinterpret_cast<float*>(
       smem + mma_union_bytes<KVF, GC>(T, DD, D));  // [GC] row max
@@ -1380,7 +1468,7 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   Rows at = rows;
   at.bind(ids, b, t.s_lo, t.s_hi);
   auto vslot = [&](int st, int u) -> void* {
-    return kF8 ? (void*)(ring.chunk + (st * kUnroll + u) * T + tid)
+    return kByte ? (void*)(ring.chunk + (st * kUnroll + u) * T + tid)
                : (void*)(reinterpret_cast<uint4*>(ring.chunk) +
                          (st * kUnroll + u) * T + mma_slot<CPR>(rg, cc, u));
   };
@@ -1397,7 +1485,7 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   const int ntiles = (t.s_hi - t.s_lo + TR - 1) / TR;
   const char* vb = static_cast<const char*>(p.v);
 
-  // As decode_attend's, with the V rows past the split zero-filled (fp8:
+  // As decode_attend's, with the V rows past the split zero-filled (kByte:
   // when widened; kPad: whole chunks holding live columns, by a
   // zero-source copy that reads nothing).
   auto issue_v = [&](int i) {
@@ -1411,17 +1499,17 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
         if (live) {
           const size_t r = at(bh, h, l);
           copy_live<GR, kCB>(vslot(st, u), vb + r * D * kE + cc * kCB, lb);
-          if (kF8 && cc == 0)
+          if (kByte && cc == 0)
             cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
                         p.v_scale + r);
-        } else if (!kF8 && lb > 0) {
+        } else if (!kByte && lb > 0) {
           // The source is read by no byte; its address is kept aligned.
           cp_async16(vslot(st, u),
                      reinterpret_cast<const void*>(
                          reinterpret_cast<size_t>(vb) & ~(size_t)15),
                      0);
         }
-      } else if constexpr (kF8) {
+      } else if constexpr (kByte) {
         if (live) {
           const size_t r = at(bh, h, l);
           cp_async<8>(ring.chunk + (st * kUnroll + u) * T + tid,
@@ -1470,7 +1558,7 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   };
 
   if constexpr (kFused)
-    final_max_fused<false>(p, t, qrow0, bh, G, m_g, sn_g, ps_g);
+    final_max_fused<kRequant>(p, t, qrow0, bh, G, m_g, sn_g, ps_g);
   else
     final_max(p, t, qrow0, G, m_g);
   __syncthreads();
@@ -1479,6 +1567,12 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   // 16 nb + 2 (lane % 4) + {0, 1, 8, 9}.
   const int gp = lane >> 2;
   const float m_r = gp < G ? m_g[gp] : 0.f;
+  float ps_r = 1.f;                      // kRequant: P's s8 scale
+  if constexpr (kRequant) ps_r = gp < G ? ps_g[gp] : 1.f;
+  // kRequant: this lane sums the row sum of query row lg over the rows of
+  // the warp's row group lr (attend_pass's lanes of that row group).
+  const int lg = lane & 7, lr = warp * kWRG + ((lane >> 3) & (kWRG - 1));
+  const float m_l = kRequant && lg < G ? m_g[lg] : 0.f;
   float acc[DD / 16][4];
 #pragma unroll
   for (int db = 0; db < DD / 16; ++db)
@@ -1491,7 +1585,7 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
     issue(i + kStages - 1);
     const int base = t.s_lo + i * TR, st = i % kStages;
     const uint4* tile;
-    if constexpr (kF8) {
+    if constexpr (kByte) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         wide[u * T + mma_slot<CPR>(rg, cc, u)] = widen_chunk<KVF>(
@@ -1503,6 +1597,12 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
       tile = reinterpret_cast<const uint4*>(ring.chunk) + (st * kUnroll) * T;
     }
     const float* scores = ring.score + (st * kUnroll) * RG * GC;
+    if constexpr (kRequant) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (lg < G && base + lr + u * RG < t.s_hi)
+          lsum += exp2f(scores[(u * RG + lr) * GC + lg] - m_l);
+    }
 #pragma unroll
     for (int nb = 0; nb < kBlocks; ++nb) {
       float pw[4];
@@ -1513,10 +1613,14 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
         float pe = 0.f, vs = 1.f;
         if (gp < G && base + r + u * RG < t.s_hi) {
           pe = exp2f(scores[(u * RG + r) * GC + gp] - m_r);
-          if constexpr (kF8) vs = ring.scale[(st * kUnroll + u) * RG + r];
+          if constexpr (kByte) vs = ring.scale[(st * kUnroll + u) * RG + r];
         }
-        lsum += pe;
-        pw[e] = kF8 ? pe * vs : pe;
+        if constexpr (kRequant) {
+          pw[e] = fminf(fmaxf(rintf(pe * vs / ps_r), -127.f), 127.f);
+        } else {
+          lsum += pe;
+          pw[e] = kByte ? pe * vs : pe;
+        }
       }
       const uint32_t b0 = pack_bf16(pw[0], pw[1]), b1 = pack_bf16(pw[2], pw[3]);
       // ldmatrix.trans rows: j = 16 nb + lane % 8 (+ 8 for matrices 2 and
@@ -1535,13 +1639,24 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   }
   cp_async_wait<0>();
 
-  // Row sums over the four lanes of a query row; then each warp's
+  // Row sums over the four lanes of a query row (kRequant: over the
+  // warp's row groups, as attend_pass's butterfly); then each warp's
   // partial O^T (rows d, columns gc and gc + 1) and sums into shared
   // memory, which the ring no longer needs.
-  lsum += __shfl_xor_sync(kFull, lsum, 1);
-  lsum += __shfl_xor_sync(kFull, lsum, 2);
+  if constexpr (kRequant) {
+#pragma unroll
+    for (int o = 8; o < 8 * kWRG; o <<= 1)
+      lsum += __shfl_xor_sync(kFull, lsum, o);
+  } else {
+    lsum += __shfl_xor_sync(kFull, lsum, 1);
+    lsum += __shfl_xor_sync(kFull, lsum, 2);
+  }
   __syncthreads();
-  if ((lane & 3) == 0 && gp < G) l_w[warp * GC + gp] = lsum;
+  if constexpr (kRequant) {
+    if (lane < G) l_w[warp * GC + lane] = lsum;
+  } else if ((lane & 3) == 0 && gp < G) {
+    l_w[warp * GC + gp] = lsum;
+  }
   const int gc = (lane & 3) * 2;
 #pragma unroll
   for (int db = 0; db < DD / 16; ++db)
@@ -1553,8 +1668,8 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
     }
   __syncthreads();
   if constexpr (kFused)
-    finish_attend_fused<GC, false>(p, t, m_g, sn_g, ps_g, l_w, o_w, last,
-                                   qrow0, bh, s, G);
+    finish_attend_fused<GC, kRequant>(p, t, m_g, sn_g, ps_g, l_w, o_w,
+                                      last, qrow0, bh, s, G);
   else
     finish_attend<GC>(p, t, m_g, l_w, o_w, last, qrow0, s, G);
 }
@@ -1665,38 +1780,35 @@ int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
       lay, two ? kUnrollOf<2> : kUnrollOf<1>, threads, false);
   size_t attend_ring = attend_union_bytes<KVF, GC>(threads, p.D);
   int chosen = lay.exact ? kPathFmaExact : kPathFma;
-  // bf16 q at 64 <= D <= 128 over a bf16 cache (and, K2, an fp8 one)
-  // whose rows and bases share a granule of 4 bytes or more: the
-  // tensor-core pair (on the H100 it beat the FMA pair over fp8 too). D
-  // 64 and 128 at granule 16 keep their own instances (GR 0); the rest
-  // run the 128-wide ones on rows padded with zeros, copied a granule at
-  // a time (8 bytes at most over fp8, whose chunks are 8 bytes).
-  if constexpr (KVF == 0 || (kFused && KVF >= 2)) {
-    const int gr = mma_granule(p.k, p.v, p.D * (KVF == 0 ? 2 : 1));
-    if (p.q_bf16 && p.D >= 64 && p.D <= 128 && gr >= 4) {
-      constexpr int kG16 = KVF == 0 ? 16 : 8;
-      const bool own = gr == 16 && (p.D == 64 || p.D == 128);
-      const int dd = own ? p.D : 128;
-      chosen = gr;
-      if (own) {
-        score = p.D == 64 ? decode_score_mma<KVF, GC, 64, 0, Rows, kFused>
-                          : decode_score_mma<KVF, GC, 128, 0, Rows, kFused>;
-        attend = p.D == 64
-                     ? decode_attend_mma<KVF, GC, 64, 0, Rows, kFused>
-                     : decode_attend_mma<KVF, GC, 128, 0, Rows, kFused>;
-      } else {
-        score = gr == 4   ? decode_score_mma<KVF, GC, 128, 4, Rows, kFused>
-                : gr == 8 ? decode_score_mma<KVF, GC, 128, 8, Rows, kFused>
-                          : decode_score_mma<KVF, GC, 128, kG16, Rows,
-                                             kFused>;
-        attend = gr == 4 ? decode_attend_mma<KVF, GC, 128, 4, Rows, kFused>
-                 : gr == 8
-                     ? decode_attend_mma<KVF, GC, 128, 8, Rows, kFused>
-                     : decode_attend_mma<KVF, GC, 128, kG16, Rows, kFused>;
-      }
-      ring = mma_ring_bytes<KVF, GC>(threads, threads / (dd / 8), false);
-      attend_ring = mma_union_bytes<KVF, GC>(threads, dd, p.D);
+  // bf16 q at 64 <= D <= 128 over any storage type whose rows and bases
+  // share a granule of 4 bytes or more: the tensor-core pair (1-byte
+  // storage widened to bf16 by each warp; K2 over int8 keeps its s8
+  // requantization exact). D 64 and 128 at granule 16 keep their own
+  // instances (GR 0); the rest run the 128-wide ones on rows padded with
+  // zeros, copied a granule at a time (8 bytes at most over 1-byte
+  // storage, whose chunks are 8 bytes).
+  const int gr = mma_granule(p.k, p.v, p.D * (KVF == 0 ? 2 : 1));
+  if (p.q_bf16 && p.D >= 64 && p.D <= 128 && gr >= 4) {
+    constexpr int kG16 = KVF == 0 ? 16 : 8;
+    const bool own = gr == 16 && (p.D == 64 || p.D == 128);
+    const int dd = own ? p.D : 128;
+    chosen = gr;
+    if (own) {
+      score = p.D == 64 ? decode_score_mma<KVF, GC, 64, 0, Rows, kFused>
+                        : decode_score_mma<KVF, GC, 128, 0, Rows, kFused>;
+      attend = p.D == 64 ? decode_attend_mma<KVF, GC, 64, 0, Rows, kFused>
+                         : decode_attend_mma<KVF, GC, 128, 0, Rows, kFused>;
+    } else {
+      score = gr == 4   ? decode_score_mma<KVF, GC, 128, 4, Rows, kFused>
+              : gr == 8 ? decode_score_mma<KVF, GC, 128, 8, Rows, kFused>
+                        : decode_score_mma<KVF, GC, 128, kG16, Rows, kFused>;
+      attend = gr == 4 ? decode_attend_mma<KVF, GC, 128, 4, Rows, kFused>
+               : gr == 8
+                   ? decode_attend_mma<KVF, GC, 128, 8, Rows, kFused>
+                   : decode_attend_mma<KVF, GC, 128, kG16, Rows, kFused>;
     }
+    ring = mma_ring_bytes<KVF, GC>(threads, threads / (dd / 8), false);
+    attend_ring = mma_union_bytes<KVF, GC>(threads, dd, p.D);
   }
   if (chosen != path) return cudaErrorInvalidValue;
   if (chosen <= kPathFmaExact &&

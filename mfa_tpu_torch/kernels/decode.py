@@ -8,11 +8,13 @@ kernel K6 in ``kernels/paged_decode.py``) share one split-KV body,
 ``csrc/decode_split.cuh``, and one launch shape (:func:`split_launch`).
 All three take any head dim 1 <= D <= 512 over an unpadded cache (D
 values a row: 200 bytes at D 100 in bf16, 100 in int8 and fp8). bf16 q
-at 64 <= D <= 128 over a bf16 cache (K2: also fp8) runs on tensor cores
-where the cache's rows and bases share a copy granule of 4 bytes or more
-(``ops/params.py::decode_granule``: 16 at D 80, 96 and 112 in bf16, 8 at
-D 100, 4 at D 100 in fp8), its rows padded with zeros to 128 values in
-shared memory past D 64 and 128; every other case runs on FMA in
+at 64 <= D <= 128 over any of the four storage types runs on tensor
+cores where the cache's rows and bases share a copy granule of 4 bytes
+or more (``ops/params.py::decode_granule``: 16 at D 80, 96 and 112 in
+bf16, 8 at D 100, 4 at D 100 in int8 and fp8; 1-byte storage widened to
+bf16, K2's int8 requantization exact), its rows padded with zeros to
+128 values in shared memory past D 64 and 128; every other case (fp32
+q, odd D, D < 64, D > 128) runs on FMA in
 ``decode_split.cuh::RowLayout``'s rows, which copy a 16-byte aligned
 cache in 16-byte granules whatever a row's alignment
 (``ops/params.py::decode_row_layout`` mirrors it). Each wrapper counts
@@ -147,7 +149,7 @@ def check_launch(name: str, q3, k, v, **others) -> None:
             f"{most * k.element_size()} bytes a row)")
 
 
-def launch_path(name: str, q3, k, v, *, fused: bool) -> str:
+def launch_path(name: str, q3, k, v) -> str:
     """The path a launch takes (``ops/params.py::decode_path``, the key of
     DECODE_PATHS the C launch is handed): the tensor-core pair at the copy
     granule that the rows and the bases of k and v share, else FMA, which
@@ -157,7 +159,7 @@ def launch_path(name: str, q3, k, v, *, fused: bool) -> str:
     granule = params_mod.decode_granule(d, k.element_size(), k.data_ptr(),
                                         v.data_ptr())
     path = params_mod.decode_path(d, k.dtype, q3.dtype == torch.bfloat16,
-                                  fused, granule)
+                                  granule)
     if path.startswith("fma") and any(t.data_ptr() % 16 for t in (k, v)):
         raise ValueError(f"{name}: cache storage must be 16-byte aligned "
                          f"on the FMA path ({path})")
@@ -215,7 +217,7 @@ def decode_fused_append(q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
         return o if out is None else out.copy_(o)
     check_launch("decode_fused_append", q3, k, v, k_scale=k_scale,
                  v_scale=v_scale, k_new=k_new, v_new=v_new, lengths=lengths)
-    path = launch_path("decode_fused_append", q3, k, v, fused=True)
+    path = launch_path("decode_fused_append", q3, k, v)
     bh, g, d = q3.shape
     L = k.shape[1]
     o = output_like(q3, out)
@@ -331,7 +333,7 @@ def decode_attend(q3, k, v, k_scale, v_scale, lengths, *,
         return o if out is None else out.copy_(o)
     check_launch("decode_attend", q3, k, v, k_scale=k_scale,
                  v_scale=v_scale, lengths=lengths)
-    path = launch_path("decode_attend", q3, k, v, fused=False)
+    path = launch_path("decode_attend", q3, k, v)
     bh, g, d = q3.shape
     L = k.shape[1]
     o = output_like(q3, out)

@@ -4,8 +4,9 @@ Replaces ``mfa_tpu/kernels/paged_decode.py::_paged_decode_kernel``; the
 CUDA source is ``csrc/paged_decode.cu``, over the body K5 uses for a
 contiguous cache (``csrc/decode_split.cuh``), here reading each row
 through the page table. Any head dim up to 512, on K5's paths (the
-tensor-core pair at 64 <= D <= 128 over bf16 pages whose rows and pool
-share a copy granule of 4 bytes or more, FMA otherwise), counted by path
+tensor-core pair for bf16 q at 64 <= D <= 128 over pages of any storage
+type whose rows and pool share a copy granule of 4 bytes or more, FMA
+otherwise), counted by path
 in ``paged_decode.launches_by_path``.
 :func:`paged_decode` launches the kernel for CUDA tensors and takes
 :func:`paged_decode_plain` only for CPU tensors.
@@ -89,8 +90,7 @@ def paged_decode(q3, k_pages, v_pages, k_scale, v_scale, tables, lengths,
     decode_mod.check_launch("paged_decode", q3, k_pages, v_pages,
                             k_scale=k_scale, v_scale=v_scale, tables=tables,
                             lengths=lengths)
-    path = decode_mod.launch_path("paged_decode", q3, k_pages, v_pages,
-                                  fused=False)
+    path = decode_mod.launch_path("paged_decode", q3, k_pages, v_pages)
     n, g, d = q3.shape
     hkv, ps = k_pages.shape[1:3]
     max_pages = tables.shape[1]

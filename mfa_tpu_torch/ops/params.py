@@ -924,30 +924,30 @@ def decode_mma_union_bytes(head_dim: int, itemsize: int, group_chunk: int,
 
 
 def decode_tensor_cores(head_dim: int, storage: torch.dtype, q_bf16: bool,
-                        fused: bool, granule: int | None = None) -> bool:
+                        granule: int | None = None) -> bool:
     """Whether a launch takes the tensor-core pair (launch_passes): bf16 q
-    at 64 <= D <= 128 over a bf16 cache, and (K2) over an fp8 one, whose
-    rows and bases share a copy granule of 4 bytes or more
+    at 64 <= D <= 128 over any storage type (bf16; int8, fp8-e4m3 and
+    fp8-e5m2 widened to bf16), for K2, K5 and K6 alike, whose rows and
+    bases share a copy granule of 4 bytes or more
     (:func:`decode_granule`; ``granule`` defaults to that of the row
-    bytes alone, as for 16-byte aligned bases)."""
+    bytes alone, as for 16-byte aligned bases). fp32 q stays on FMA: its
+    2e-5 budget rules out rounding q to bf16."""
     if granule is None:
         granule = decode_granule(
             head_dim, torch.empty((), dtype=storage).element_size())
-    return q_bf16 and 64 <= head_dim <= 128 and granule >= 4 and (
-        storage == torch.bfloat16 or (fused and storage in (
-            torch.float8_e4m3fn, torch.float8_e5m2)))
+    return q_bf16 and 64 <= head_dim <= 128 and granule >= 4
 
 
 def decode_path(head_dim: int, storage: torch.dtype, q_bf16: bool,
-                fused: bool, granule: int | None = None) -> str:
-    """The label of the path a K2 (``fused``), K5 or K6 launch takes, a
-    key of DECODE_PATHS: "mma/g16", "mma/g8" or "mma/g4" on the
-    tensor-core pair, "fma/exact" on the FMA pair at D = 8 * 2^k <= 256,
-    "fma" otherwise."""
+                granule: int | None = None) -> str:
+    """The label of the path a K2, K5 or K6 launch takes, a key of
+    DECODE_PATHS: "mma/g16", "mma/g8" or "mma/g4" on the tensor-core
+    pair, "fma/exact" on the FMA pair at D = 8 * 2^k <= 256, "fma"
+    otherwise."""
     itemsize = torch.empty((), dtype=storage).element_size()
     if granule is None:
         granule = decode_granule(head_dim, itemsize)
-    if decode_tensor_cores(head_dim, storage, q_bf16, fused, granule):
+    if decode_tensor_cores(head_dim, storage, q_bf16, granule):
         return f"mma/g{granule}"
     return ("fma/exact" if decode_row_layout(head_dim, itemsize).exact
             else "fma")
@@ -960,14 +960,14 @@ def decode_smem_bytes(head_dim: int, storage: torch.dtype, group_chunk: int,
     """Shared memory of the score and the attend pass of one K2/K5/K6
     call, as decode_split.cuh::launch_passes computes it (table_ints: K6's
     page ids a split, split rows / page + 2; ``granule``: as for
-    :func:`decode_tensor_cores`; int8 storage never takes the tensor
-    cores)."""
+    :func:`decode_tensor_cores`, whose passes hold, over 1-byte storage,
+    a widened bf16 tile beside their rings)."""
     threads = threads or DECODE_ATTEND_THREADS
     itemsize = torch.empty((), dtype=storage).element_size()
     nw = threads // 32
     if granule is None:
         granule = decode_granule(head_dim, itemsize)
-    if decode_tensor_cores(head_dim, storage, q_bf16, fused, granule):
+    if decode_tensor_cores(head_dim, storage, q_bf16, granule):
         width = decode_mma_width(head_dim, granule)
         ring = _decode_ring_bytes(threads * 8 * itemsize, DECODE_UNROLL,
                                   threads // (width // 8), group_chunk,

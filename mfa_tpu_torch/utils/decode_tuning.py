@@ -71,10 +71,11 @@ _STORAGE = {"bf16": torch.bfloat16, "int8": torch.int8,
             "fp8_e4m3": torch.float8_e4m3fn}
 
 
-def _k5_case(gen, fmt: str, max_len: int):
-    """chip_smoke.phase_k5's shape: B = 4, Hkv = 8, G = 4, D = 128,
-    lengths 0, 777, L - 1, L."""
-    b, hkv, g, d = 4, 8, 4, 128
+def _contiguous(gen, fmt: str, max_len: int, d: int, g: int):
+    """chip_smoke.phase_k5's cache: B = 4, Hkv = 8, lengths 0, 777, L - 1,
+    L; q [32, g, d] pre-scaled. Returns (q3, k, v, k_scale, v_scale,
+    lengths) as the kernels take them."""
+    b, hkv = 4, 8
     prec = {"bf16": OperandPrecision.BF16, "int8": OperandPrecision.INT8,
             "fp8_e4m3": OperandPrecision.FP8_E4M3}[fmt]
     cache = kv_cache.create(b, hkv, max_len, d, prec, device="cuda")
@@ -85,18 +86,36 @@ def _k5_case(gen, fmt: str, max_len: int):
     q3 = (torch.randn((b * hkv, g, d), generator=gen, device="cuda")
           * (math.log2(math.e) / math.sqrt(d))).bfloat16()
     bh = b * hkv
-    args = (q3, cache.k.view(bh, max_len, d), cache.v.view(bh, max_len, d),
+    return (q3, cache.k.view(bh, max_len, d), cache.v.view(bh, max_len, d),
             cache.k_scale.view(bh, max_len), cache.v_scale.view(bh, max_len),
             lengths)
-    return (lambda: k5.decode_attend(*args, num_kv_heads=hkv),
-            lambda: k5.decode_attend_plain(*args, num_kv_heads=hkv),
+
+
+def _k5_case(gen, fmt: str, max_len: int, d: int = 128, g: int = 4):
+    """K5 over chip_smoke.phase_k5's cache (D 128, G 4 by default)."""
+    args = _contiguous(gen, fmt, max_len, d, g)
+    return (lambda: k5.decode_attend(*args, num_kv_heads=8),
+            lambda: k5.decode_attend_plain(*args, num_kv_heads=8),
             "decode_attend_o")
 
 
-def _k6_case(gen, fmt: str, lens):
-    """chip_smoke.phase_k6's shape: Hkv = 8, G = 4, D = 128, 512-token
-    pages, capacity 2048, shuffled page ids."""
-    hkv, g, d, ps = 8, 4, 128, 512
+def _k2_case(gen, fmt: str, max_len: int, d: int, g: int):
+    """K2 over the same cache, with the step's new K and V (it appends to
+    the rows past each length, which the kernel never reads)."""
+    args = _contiguous(gen, fmt, max_len, d, g)
+    kn, vn = (torch.randn((32, d), generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    return (lambda: k5.decode_fused_append(*args[:5], kn, vn, args[5],
+                                           num_kv_heads=8),
+            lambda: k5.decode_fused_append_plain(*args[:5], kn, vn, args[5],
+                                                 num_kv_heads=8),
+            "decode_o")
+
+
+def _k6_case(gen, fmt: str, lens, d: int = 128, g: int = 4):
+    """chip_smoke.phase_k6's shape: Hkv = 8, G = 4, D = 128 by default,
+    512-token pages, capacity 2048, shuffled page ids."""
+    hkv, ps = 8, 512
     operands = (*shuffled_page_pool(_STORAGE[fmt], lens, hkv, d, ps, 4,
                                     generator=gen, device="cuda"),
                 torch.tensor(lens, dtype=torch.int32, device="cuda"))
@@ -142,11 +161,22 @@ def sweep(out: Path) -> None:
 
 
 def kernels(calls: int = 20) -> None:
-    """Device ms of each of a call's two kernels (decode_score,
-    decode_attend) by torch.profiler, at the rule's launch."""
+    """Device ms of each of a call's kernels (decode_score, K2's
+    decode_pmax over int8, decode_attend) by torch.profiler, at the rule's
+    launch: K5 at L 2048 and 8192 and K6 at the serving step over bf16,
+    then K2, K5 and K6 at decode_dims' D 100 (G 1) and D 128 (G 4) over
+    bf16, int8 and fp8-e4m3. A kernel's time runs from its start, which
+    a programmatic dependent reaches before its predecessor ends, so the
+    parts overlap and sum past the call's time."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     cases = {f"k5_bf16_L{n}": _k5_case(gen, "bf16", n) for n in (2048, 8192)}
     cases["k6_bf16_serving_8x1030"] = _k6_case(gen, "bf16", [1030] * 8)
+    for d, g in ((100, 1), (128, 4)):
+        for fmt in _STORAGE:
+            cases[f"k2_{fmt}_D{d}"] = _k2_case(gen, fmt, 2048, d, g)
+            cases[f"k5_{fmt}_D{d}"] = _k5_case(gen, fmt, 2048, d, g)
+            cases[f"k6_{fmt}_D{d}"] = _k6_case(
+                gen, fmt, [0, 1, 511, 512, 513, 777, 2047, 2048], d, g)
     activities = [torch.profiler.ProfilerActivity.CUDA]
     for name, (kernel, _, _) in cases.items():
         kernel()
@@ -159,7 +189,7 @@ def kernels(calls: int = 20) -> None:
         for e in prof.key_averages():
             t = getattr(e, "self_device_time_total", None)
             t = float(t if t is not None else e.self_cuda_time_total)
-            for part in ("decode_score", "decode_attend"):
+            for part in ("decode_score", "decode_pmax", "decode_attend"):
                 if part in e.key and "Rows" in e.key:
                     per[part] = per.get(part, 0.0) + t / 1e3 / calls
         print(json.dumps({"case": name, "device_ms": per}), flush=True)

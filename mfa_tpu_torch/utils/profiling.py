@@ -22,8 +22,8 @@ prefill and decode steps at 4 slots.
 
 ``--model openllama_3b`` serves OpenLLaMA-3B instead (26 layers, width
 3200, 32 heads of head dim 100, MHA: K1 on its wgmma row with the copying
-producer; K2 over bf16 and FP8 caches and K6 over bf16 pages on the
-tensor-core pair, rows padded to 128 values; INT8 on FMA), for the
+producer; K2 over bf16, INT8 and FP8 caches and K6 over bf16 and INT8
+pages on the tensor-core pair, rows padded to 128 values), for the
 serving and paged phases.
 
 Run on a GPU from the repository root:

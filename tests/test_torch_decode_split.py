@@ -115,7 +115,7 @@ def test_k5_and_k6_split_alike_and_count_one_launch(library, seqs, hkv,
     q3 = _meta(n, group, d, dtype=torch.bfloat16)
     lengths = _meta(seqs, dtype=torch.int32)
     n5, n6 = k5.decode_attend.launches, k6.paged_decode.launches
-    path = params.decode_path(d, torch.bfloat16, True, False)
+    path = params.decode_path(d, torch.bfloat16, True)
     p5 = k5.decode_attend.launches_by_path[path]
     p6 = k6.paged_decode.launches_by_path[path]
     k5.decode_attend(q3, _meta(n, cap, d, dtype=torch.bfloat16),
@@ -204,9 +204,11 @@ def test_k2_takes_the_split_and_counts_one_launch(library, monkeypatch,
     assert args[18:21] == (params.decode_split_rows(n, group, cap),
                            params.decode_group_chunk(group),
                            params.DECODE_ATTEND_THREADS)
-    # The path's code: int8 runs FMA, here in the exact layout (every
-    # case's D is 8 * 2^k).
-    assert args[21] == params.DECODE_PATHS["fma/exact"]
+    # The path's code: int8 on the tensor-core pair at D 64 and 128, FMA
+    # in the exact layout at D 8 and 256 (every case's D is 8 * 2^k).
+    path = "mma/g16" if 64 <= d <= 128 else "fma/exact"
+    assert params.decode_path(d, torch.int8, True) == path
+    assert args[21] == params.DECODE_PATHS[path]
 
 
 def test_k5_bit_guard_covers_every_recorded_case(monkeypatch):
@@ -226,3 +228,124 @@ def test_k5_bit_guard_covers_every_recorded_case(monkeypatch):
     assert sorted(first) == sorted(smoke.K5_DIGESTS)
     assert all(len(v) == 16 for v in smoke.K5_DIGESTS.values())
     assert smoke.k5_bits(torch) == first
+
+
+def test_k2_bit_guard_covers_every_recorded_case(monkeypatch):
+    """chip_smoke.py's guard on K2's bits over an int8 cache: k2_bits
+    gives one digest for each case of K2_INT8_DIGESTS, recorded for each,
+    and the same digests at a second call (its inputs come from a seed
+    alone). On the CPU K2 is its plain version, so the digests themselves
+    are the card's only there."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_k2", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self: self)
+    first = smoke.k2_bits(torch)
+    assert sorted(first) == sorted(smoke.K2_INT8_DIGESTS)
+    assert all(isinstance(v, str) and len(v) == 16
+               for v in smoke.K2_INT8_DIGESTS.values())
+    assert smoke.k2_bits(torch) == first
+
+
+# The tensor-core pair's largest row, in values (decode_mma_width), and
+# the k16 step of its mma.sync.
+PAIR_WIDTH, MMA_K = 128, 16
+
+
+def _fp32_steps(a, b, axis_len):
+    """a @ b summed as the pair's mma.sync does: fp32 products of 16
+    along the summed axis at a time, the steps added in order in fp32."""
+    c = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, axis_len, MMA_K):
+        c = c + a[:, k0:k0 + MMA_K] @ b[k0:k0 + MMA_K, :]
+    return c
+
+
+@pytest.mark.parametrize("d", [100, 128])
+@pytest.mark.parametrize("length", [1, 777, 1024, 1025, 2047, 2048])
+@pytest.mark.parametrize("fill", ["pm127", "random"])
+def test_pair_keeps_k2_int8_requantization_exact(d, length, fill):
+    """K2 over an int8 cache as the tensor-core pair computes it
+    (csrc/decode_split.cuh, kRequant): q_s8 and P_s8 are integers up to
+    127, exact as bf16 operands, as are the int8 K and V widened to bf16;
+    S's dots sum 16 products a step over a row padded with zeros to 128
+    values, P V 16 rows a step over splits of DECODE_SPLIT_MAX_ROWS rows,
+    the splits' partials added in split order, all in fp32. Every one of
+    those sums is an integer below 2^24 (128 * 127^2 a dot, 1024 * 127^2 a
+    split), so exact, and O equals decode_fused_append_plain's bit for
+    bit; at +-127 (every q, K and V value at the clip, every live P at
+    127) the sums reach their largest."""
+    from mfa_tpu_torch.kernels import quant
+
+    rows = params.DECODE_SPLIT_MAX_ROWS
+    assert PAIR_WIDTH * 127 ** 2 < 2 ** 24
+    assert rows * 127 ** 2 < 2 ** 24
+    assert params.decode_mma_width(d, 4) == PAIR_WIDTH >= d
+    g, cap = 4, 2048
+    gen = torch.Generator().manual_seed(d * 7 + length)
+    if fill == "pm127":
+        q3 = torch.full((1, g, d), 0.25).bfloat16()
+        k = torch.full((1, cap, d), 127, dtype=torch.int8)
+        v = torch.where(torch.arange(d) % 2 == 0, 127, -127).to(
+            torch.int8).expand(1, cap, d).contiguous()
+        ks = vs = torch.full((1, cap), 0.01)
+    else:
+        q3 = torch.randn((1, g, d), generator=gen).bfloat16()
+        k, v = (torch.randint(-127, 128, (1, cap, d), generator=gen,
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((1, cap), generator=gen) * 0.015 + 0.005
+                  for _ in range(2))
+    kn, vn = (torch.randn((1, d), generator=gen).bfloat16() * 0.5
+              for _ in range(2))
+    lengths = torch.tensor([length], dtype=torch.int32)
+    want = k5.decode_fused_append_plain(
+        q3, k.clone(), v.clone(), ks.clone(), vs.clone(), kn, vn, lengths,
+        num_kv_heads=1)
+
+    inv127 = quant.recip(quant.INT8_MAX)
+    qf = q3[0].float()
+    qscale = qf.abs().amax(-1, keepdim=True).clamp_min(1e-30) * inv127
+    q_s8 = torch.round(qf / qscale).clamp(-127, 127)            # [G, D]
+    kw, vw = k[0, :length].float(), v[0, :length].float()
+    for x in (q_s8, kw, vw):
+        assert torch.equal(x.bfloat16().float(), x)
+    pad = PAIR_WIDTH - d
+    dot = _fp32_steps(torch.nn.functional.pad(kw, (0, pad)),
+                      torch.nn.functional.pad(q_s8, (0, pad)).T,
+                      PAIR_WIDTH)                                 # [L, G]
+    exact = kw.double() @ q_s8.double().T
+    assert torch.equal(dot.double(), exact)
+    assert float(exact.abs().max()) <= PAIR_WIDTH * 127 ** 2
+    if fill == "pm127":
+        assert float(exact.abs().max()) == d * 127 ** 2
+    s = (dot.T * qscale * ks[:, :length]).unsqueeze(0)        # [1, G, L]
+    s_new = torch.bmm(qf[None], kn.float()[:, :, None])
+    m = torch.maximum(s.amax(-1, keepdim=True), s_new)
+    p, p_new = torch.exp2(s - m), torch.exp2(s_new - m)
+    l = (p.sum(-1, keepdim=True) + p_new).clamp_min(1e-37)
+    pv = p * vs[:, None, :length]
+    pscale = pv.abs().amax(-1, keepdim=True).clamp_min(1e-30) * inv127
+    p_s8 = torch.round(pv / pscale).clamp(-127, 127)[0]          # [G, L]
+    assert torch.equal(p_s8.bfloat16().float(), p_s8)
+    if fill == "pm127":
+        assert bool((p_s8 == 127).all())
+    tot = torch.zeros((g, d))
+    for s0 in range(0, length, rows):
+        s1 = min(length, s0 + rows)
+        part = _fp32_steps(torch.nn.functional.pad(p_s8[:, s0:s1],
+                                                   (0, -(s1 - s0) % MMA_K)),
+                           torch.nn.functional.pad(vw[s0:s1],
+                                                   (0, 0, 0,
+                                                    -(s1 - s0) % MMA_K)),
+                           -(-(s1 - s0) // MMA_K) * MMA_K)
+        exact = p_s8[:, s0:s1].double() @ vw[s0:s1].double()
+        assert torch.equal(part.double(), exact)
+        assert float(exact.abs().max()) < 2 ** 24
+        tot = tot + part
+    o = ((tot[None] * pscale + p_new * vn.float()[:, None, :]) / l).to(
+        q3.dtype)
+    assert torch.equal(o.view(torch.int16), want.view(torch.int16))

@@ -424,11 +424,12 @@ def test_paged_decode_pages_of_odd_bytes_match_plain(cuda, fmt, d, ps):
 
 # The path each decode launch takes (ops/params.py::decode_path, counted
 # by the wrapper's launches_by_path and checked by the C launch): the
-# tensor-core pair at 64 <= D <= 128 over rows padded to 128 in shared
-# memory and copied at the granule their rows and bases share (16 at D
-# 80, 96, 112; 8 at D 100 and at bases 8 bytes off; 4 at fp8 D 100 and at
-# bases 4 bytes off; D 64 and 128 off 16 bytes on the padded instances),
-# and FMA where it stays (odd D, int8, fp8 under K5 and K6): (kernel,
+# tensor-core pair at 64 <= D <= 128 over every storage type (K2, K5 and
+# K6 alike; int8 and fp8 widened to bf16) over rows padded to 128 in
+# shared memory and copied at the granule their rows and bases share (16
+# at D 80, 96, 112; 8 at D 100 in bf16 and at bases 8 bytes off; 4 at
+# int8 and fp8 D 100 and at bases 4 bytes off; D 64 and 128 off 16 bytes
+# on the padded instances), and FMA where it stays (odd D): (kernel,
 # storage, D, G, base shift in bytes, path).
 PATH_CASES = [
     ("k2", "bf16", 80, 4, 0, "mma/g16"), ("k2", "bf16", 96, 8, 0, "mma/g16"),
@@ -437,15 +438,22 @@ PATH_CASES = [
     ("k2", "fp8_e5m2", 96, 8, 0, "mma/g16"),
     ("k2", "bf16", 100, 4, 4, "mma/g4"),
     ("k2", "fp8_e4m3", 128, 4, 8, "mma/g8"),
-    ("k2", "int8", 100, 1, 0, "fma"), ("k2", "bf16", 99, 1, 0, "fma"),
+    ("k2", "int8", 100, 1, 0, "mma/g4"), ("k2", "bf16", 99, 1, 0, "fma"),
+    ("k2", "int8", 128, 4, 0, "mma/g16"), ("k2", "int8", 128, 4, 4, "mma/g4"),
+    ("k2", "int8", 64, 8, 0, "mma/g16"), ("k2", "int8", 99, 1, 0, "fma"),
     ("k5", "bf16", 80, 4, 0, "mma/g16"), ("k5", "bf16", 100, 1, 4, "mma/g4"),
     ("k5", "bf16", 96, 8, 8, "mma/g8"), ("k5", "bf16", 128, 4, 8, "mma/g8"),
     ("k5", "bf16", 64, 8, 4, "mma/g4"), ("k5", "bf16", 112, 2, 0, "mma/g16"),
-    ("k5", "bf16", 99, 1, 0, "fma"), ("k5", "fp8_e4m3", 100, 1, 0, "fma"),
-    ("k5", "int8", 100, 1, 0, "fma"),
+    ("k5", "bf16", 99, 1, 0, "fma"), ("k5", "fp8_e4m3", 100, 1, 0, "mma/g4"),
+    ("k5", "int8", 100, 1, 0, "mma/g4"), ("k5", "int8", 128, 4, 0, "mma/g16"),
+    ("k5", "int8", 128, 4, 4, "mma/g4"), ("k5", "int8", 99, 1, 0, "fma"),
+    ("k5", "fp8_e5m2", 128, 4, 0, "mma/g16"),
     ("k6", "bf16", 80, 4, 0, "mma/g16"), ("k6", "bf16", 100, 1, 0, "mma/g8"),
     ("k6", "bf16", 100, 1, 4, "mma/g4"), ("k6", "bf16", 96, 8, 0, "mma/g16"),
-    ("k6", "bf16", 99, 4, 0, "fma"), ("k6", "fp8_e5m2", 100, 1, 0, "fma"),
+    ("k6", "bf16", 99, 4, 0, "fma"), ("k6", "fp8_e5m2", 100, 1, 0, "mma/g4"),
+    ("k6", "int8", 100, 1, 0, "mma/g4"), ("k6", "int8", 128, 4, 0, "mma/g16"),
+    ("k6", "int8", 128, 4, 4, "mma/g4"), ("k6", "fp8_e4m3", 128, 4, 0,
+                                          "mma/g16"),
 ]
 
 
@@ -514,8 +522,7 @@ def test_decode_launch_takes_its_named_path(cuda, case):
     assert k.data_ptr() % 16 == shift
     granule = params.decode_granule(d, k.element_size(), k.data_ptr(),
                                     v.data_ptr())
-    assert params.decode_path(d, storage, True, kernel == "k2",
-                              granule) == want
+    assert params.decode_path(d, storage, True, granule) == want
     before = dict(counter)
     o = run(nan_canary(q3.shape, q3.dtype, device=cuda))
     torch.cuda.synchronize()
@@ -533,10 +540,10 @@ def test_decode_launch_takes_its_named_path(cuda, case):
 
 def test_decode_fma_path_refuses_a_cache_off_16_bytes(cuda):
     """The FMA pair copies 16-byte granules of a 16-byte aligned cache:
-    int8 storage 4 bytes off 16 (which the tensor-core pair never takes)
-    is refused before any launch."""
+    int8 storage 4 bytes off 16 under fp32 q (which the tensor-core pair
+    never takes) is refused before any launch."""
     bh, hkv, max_len, d = 4, 2, 64, 100
-    q3 = torch.randn((bh, 1, d), device=cuda).bfloat16()
+    q3 = torch.randn((bh, 1, d), device=cuda)
     k, v = (shifted_copy(torch.zeros((bh, max_len, d), dtype=torch.int8,
                                      device=cuda), 4) for _ in range(2))
     ks = vs = torch.ones((bh, max_len), device=cuda)

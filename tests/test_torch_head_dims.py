@@ -55,12 +55,20 @@ FORMATS = {
     "int8": (JPrec.INT8, OperandPrecision.INT8, 6e-2, 6e-2),
     "fp8_e4m3": (JPrec.FP8_E4M3, OperandPrecision.FP8_E4M3, 6e-2, 6e-2),
 }
+FP8_E5M2 = (JPrec.FP8_E5M2, OperandPrecision.FP8_E5M2, 6e-2, 6e-2)
 # (D, storage, window): every head dim over every storage, and D 100 (a
-# row of 200 bytes in bf16, 100 in int8) under a window.
+# row of 200 bytes in bf16, 100 in int8 and fp8: the tensor-core pair's
+# copy granule 4) under a window over each storage, and over fp8-e5m2.
 CASES = ([(d, name, None) for d in HEAD_DIMS for name in FORMATS]
-         + [(100, "bf16", 64)])
+         + [(100, name, 64) for name in FORMATS]
+         + [(100, "fp8_e5m2", None)])
 _IDS = [f"D{d}-{name}" + (f"-w{w}" if w else "") for d, name, w in CASES]
 MAX_LEN = 256
+
+
+def _format(name):
+    """(mfa_tpu's precision, the port's, K5/K6's budget, K2's)."""
+    return FP8_E5M2 if name == "fp8_e5m2" else FORMATS[name]
 
 
 def _assert_close(got, want, tol, what):
@@ -104,7 +112,7 @@ def _assert_same_cache(jc, tc, d):
 @pytest.mark.parametrize("d, name, window", CASES, ids=_IDS)
 def test_decode_attention_matches_mfa_tpu(d, name, window):
     """K5's entry point."""
-    jprec, tprec, tol, _ = FORMATS[name]
+    jprec, tprec, tol, _ = _format(name)
     rng = np.random.default_rng(d)
     lengths = [0, 131, 37, MAX_LEN]      # empty, unaligned, short, full
     jc, tc = _filled(rng, d, jprec, tprec, lengths)
@@ -122,7 +130,7 @@ def test_decode_attention_matches_mfa_tpu(d, name, window):
 def test_decode_attention_append_matches_mfa_tpu(d, name, window):
     """K2's entry point, two steps: the second fills the last slot, and
     the caches after each append are bit-equal."""
-    jprec, tprec, _, tol = FORMATS[name]
+    jprec, tprec, _, tol = _format(name)
     rng = np.random.default_rng(1000 + d)
     jc, tc = _filled(rng, d, jprec, tprec, [0, 131, MAX_LEN - 2])
     for step in range(2):
@@ -159,7 +167,7 @@ def test_paged_decode_attention_matches_mfa_tpu(d, name, window):
     the same tables, then the port's pool takes mfa_tpu's bytes (its first
     D values a row; mfa_tpu's eager append rounds its scales a step apart
     from the jitted quantizer, tests/test_torch_paged.py)."""
-    jprec, tprec, tol, _ = FORMATS[name]
+    jprec, tprec, tol, _ = _format(name)
     rng = np.random.default_rng(2000 + d)
     lens = [200, 391, 0]
     jc = jax_paged.PagedKVCache(16, HKV, d, len(lens), 512, jprec)
@@ -408,10 +416,12 @@ def _smem_by_hand(d, storage, gc, fused, q_bf16, table_ints):
     sums, flag, page ids and K2's s_new / P scale. The tensor-core pair's
     rows are 128 values wide in shared memory at every D it takes but 64
     (16-byte aligned bases: D 64's rows are whole granules), so its row
-    groups are those of that width, and the partial O holds D columns."""
+    groups are those of that width, and the partial O holds D columns;
+    over 1-byte storage both passes also hold the bf16 tile they widen
+    the rows into."""
     itemsize = torch.empty((), dtype=storage).element_size()
     t, nw = params.DECODE_ATTEND_THREADS, params.DECODE_ATTEND_THREADS // 32
-    if params.decode_tensor_cores(d, storage, q_bf16, fused):
+    if params.decode_tensor_cores(d, storage, q_bf16):
         width = 64 if d == 64 else 128
         rg, chunk, unroll = t // (width // 8), t * 8 * itemsize, 8
         wide = 8 * t * 16 if itemsize == 1 else 0
@@ -446,10 +456,13 @@ def test_smem_reckons_the_launch_code_and_fits_to_d512(storage):
                 assert got == _smem_by_hand(d, dt, gc, fused, q_bf16, table)
                 fits = max(got) <= params.H100.smem_per_block
                 assert fits == (d > 8 or gc == 4), (d, gc, got)
-    # The kernel before's FMA layout at D 128 (int8): each thread's chunk,
-    # 16 row groups.
-    assert params.decode_smem_bytes(128, torch.int8, 4)[0] == (
+    # The kernel before's FMA layout at D 128 (int8, fp32 q): each
+    # thread's chunk, 16 row groups; with bf16 q the tensor-core pair's
+    # ring of the same chunks, and the bf16 tile it widens them into.
+    assert params.decode_smem_bytes(128, torch.int8, 4, q_bf16=False)[0] == (
         3 * 8 * (256 * 8 + 16 * 4) + 4 * 8 * 4)
+    assert params.decode_smem_bytes(128, torch.int8, 4)[0] == (
+        3 * 8 * (256 * 8 + 16 * 4) + 8 * 256 * 16 + 4 * 8 * 4)
     assert params.decode_attend_union_bytes(512, 2, 8) == 8 * 8 * 512 * 4
 
 
@@ -458,38 +471,42 @@ FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 @pytest.mark.parametrize("d", [64, 80, 96, 100, 112, 128])
 def test_tensor_cores_take_bf16_from_d64_to_d128(d):
-    """The pair runs bf16 q over a bf16 cache at 64 <= D <= 128 for K2
-    (fused), K5 and K6, and over an fp8 cache for K2 alone; int8, fp32 q
-    and fp8 under K5 and K6 stay on FMA."""
-    for fused in (True, False):
-        assert params.decode_tensor_cores(d, torch.bfloat16, True, fused)
-        assert not params.decode_tensor_cores(d, torch.bfloat16, False,
-                                              fused)
-        assert not params.decode_tensor_cores(d, torch.int8, True, fused)
-        for fp8 in FP8:
-            assert params.decode_tensor_cores(d, fp8, True, fused) == fused
-    assert params.decode_path(d, torch.int8, True, True) == (
-        "fma/exact" if d in (64, 128) else "fma")
+    """The pair runs bf16 q at 64 <= D <= 128 over every storage type
+    (bf16; int8, fp8-e4m3 and fp8-e5m2 widened to bf16), for K2 (fused),
+    K5 and K6 alike: decode_path names no kernel. fp32 q stays on FMA."""
+    for storage in (*STORAGE.values(), torch.float8_e5m2):
+        itemsize = torch.empty((), dtype=storage).element_size()
+        granule = params.decode_granule(d, itemsize)
+        assert granule >= 4
+        assert params.decode_tensor_cores(d, storage, True)
+        assert not params.decode_tensor_cores(d, storage, False)
+        assert params.decode_path(d, storage, True) == f"mma/g{granule}"
+        assert params.decode_path(d, storage, False) == (
+            "fma/exact" if d in (64, 128) else "fma")
+    # OpenLLaMA-3B's D 100: 100-byte rows in int8 and fp8 share 4 bytes.
+    if d == 100:
+        for storage in (torch.int8, *FP8):
+            assert params.decode_path(d, storage, True) == "mma/g4"
 
 
 @pytest.mark.parametrize("d, storage", [
     (99, torch.bfloat16), (101, torch.bfloat16), (48, torch.bfloat16),
     (136, torch.bfloat16), (62, torch.bfloat16), (130, torch.bfloat16),
-    (98, torch.float8_e4m3fn), (99, torch.float8_e5m2)])
+    (98, torch.float8_e4m3fn), (99, torch.float8_e5m2), (99, torch.int8),
+    (63, torch.int8), (136, torch.int8), (102, torch.int8)])
 def test_tensor_cores_stay_off_outside_the_rule(d, storage):
-    """Odd D in bf16 (rows 2-byte aligned), D < 64, D > 128 and fp8 rows
-    not a multiple of 4 bytes run FMA, for every kernel."""
-    for fused in (True, False):
-        assert not params.decode_tensor_cores(d, storage, True, fused)
-        assert params.decode_path(d, storage, True, fused).startswith(
-            "fma")
+    """Odd D (rows 2- or 1-byte aligned), D < 64, D > 128 and 1-byte rows
+    not a multiple of 4 bytes run FMA, for every kernel, whatever the
+    storage."""
+    assert not params.decode_tensor_cores(d, storage, True)
+    assert params.decode_path(d, storage, True).startswith("fma")
 
 
 def test_granule_of_rows_and_bases():
     """The copy granule is the largest of 16, 8 and 4 bytes dividing the
     row bytes and both bases, worked out from real (CPU) cache views
     shifted off 16 bytes; a base 2 bytes off takes no granule, and then
-    no tensor core."""
+    no tensor core, whatever the storage."""
     from mfa_tpu_torch.utils.testing import shifted_copy
 
     cases = [  # (D, storage, shift bytes, granule)
@@ -500,7 +517,10 @@ def test_granule_of_rows_and_bases():
         (100, torch.bfloat16, 8, 8), (96, torch.bfloat16, 8, 8),
         (128, torch.bfloat16, 4, 4), (64, torch.float8_e4m3fn, 8, 8),
         (100, torch.float8_e4m3fn, 12, 4), (100, torch.bfloat16, 2, 0),
-        (128, torch.bfloat16, 6, 0), (99, torch.bfloat16, 0, 0)]
+        (128, torch.bfloat16, 6, 0), (99, torch.bfloat16, 0, 0),
+        (100, torch.int8, 0, 4), (128, torch.int8, 0, 16),
+        (128, torch.int8, 4, 4), (96, torch.int8, 8, 8),
+        (100, torch.int8, 2, 0), (99, torch.int8, 0, 0)]
     for d, storage, shift, want in cases:
         rows = torch.zeros((3, 7, d), dtype=torch.float32).to(storage)
         k, v = shifted_copy(rows, shift), shifted_copy(rows, 0)
@@ -508,13 +528,13 @@ def test_granule_of_rows_and_bases():
         got = params.decode_granule(d, k.element_size(), k.data_ptr(),
                                     v.data_ptr())
         assert got == want, (d, storage, shift, got)
-        for fused in (True, False):
-            on = params.decode_tensor_cores(d, storage, True, fused, got)
-            assert on == (want >= 4 and (storage == torch.bfloat16
-                                         or fused))
-            if on:
-                assert params.decode_path(d, storage, True, fused,
-                                          got) == f"mma/g{want}"
+        on = params.decode_tensor_cores(d, storage, True, got)
+        assert on == (want >= 4)
+        path = params.decode_path(d, storage, True, got)
+        if on:
+            assert path == f"mma/g{want}"
+        else:
+            assert path.startswith("fma")
 
 
 @pytest.mark.parametrize("itemsize", [2, 1], ids=["bf16", "fp8"])
@@ -532,7 +552,7 @@ def test_padded_rows_copy_each_live_byte_once_at_its_granule(itemsize):
     for d in range(64, 129):
         for shift in (0, 4, 8, 12):
             g = params.decode_granule(d, itemsize, shift)
-            if not params.decode_tensor_cores(d, storage, True, True, g):
+            if not params.decode_tensor_cores(d, storage, True, g):
                 continue
             gr = min(g, chunk)
             width = params.decode_mma_width(d, g)
