@@ -135,11 +135,17 @@ phase's failure is caught):
              their plain versions at Llama-3-8B attention shapes: causal,
              non-causal, sliding window 512, soft-cap 50, R=512 with
              C=2048, window 512 with R=512 and C=2048 (keys no query
-             sees), fp32 causal; elementwise at KERNEL_BUDGETS, outputs
-             prefilled with NaN, K4 bit-reproducible; the backward of
-             torch's scaled_dot_product_attention timed as a yardstick;
-             each line names the kernel and parameter row K3 and K4 ran
-             (wgmma or mma.sync, ops/params.py).
+             sees), fp32 causal; then where TMA cannot map a row (the
+             wgmma kernels' copying producers): OpenLLaMA-3B's attention
+             (D 100, Hq = Hkv 32, N 2048) causal and non-causal, D 250
+             (H 8, N 1024) causal on one CTA of the head-dim-split
+             kernels, and D 100 with q 2 bytes off 16 (the mma.sync
+             rows); elementwise at KERNEL_BUDGETS, outputs prefilled with
+             NaN, K4 bit-reproducible; the backward of torch's
+             scaled_dot_product_attention timed as a yardstick; each line
+             names the parameter row K3 and K4 ran (row_label, checked:
+             wgmma, "/copy" where the copying producer ran, mma.sync;
+             ops/params.py) with ms and bound.
 13. large_d — K1, K3 and K4 past D = 128 (ops/params.py: the
              head-dim-split kernels, wgmma_dblk, where TMA maps a bf16 row
              up to D = 512: one CTA up to D = 256, clusters of two CTAs
@@ -148,8 +154,8 @@ phase's failure is caught):
              512, causal and non-causal, GQA (Hkv 2), window 512 with
              soft-cap 50 (K1 only); the tails D 320 (a part-empty last
              panel), D 300 and D 250 (no TMA-mappable rows: the first
-             cut, D-blocked past 256, mma.sync at 250 for K3 and K4, K1
-             on one CTA with its cp.async producer) and fp32 at D 384,
+             cut, D-blocked past 256; K1, K3 and K4 on one CTA with their
+             cp.async producers at 250) and fp32 at D 384,
              N 1024; D 256 causal and non-causal and D 192 causal at N
              4096, and D 256 as Gemma-2-9B runs it (causal, soft-cap 50,
              Hq / Hkv = 2; K1 only); each held elementwise to its plain
@@ -169,6 +175,14 @@ phase's failure is caught):
              their plain versions, then six train_steps on one 1 x 2049
              batch from TokenDataset; finite, falling loss, and K1, K3, K4
              each launched n_layers times per step.
+14b. openllama_training — OpenLLaMA-3B at full width and depth (26
+             layers, width 3200, 32 heads of D 100, MHA; ~3.43 B
+             parameters) from its published fields and random HF-named
+             weights (seed 41) through params_from_hf(trainable=True),
+             trained as phase 14 on one card: the in-context check, six
+             steps with losses, grad norms, step ms, tokens/s and peak
+             GiB; every K1, K3 and K4 launch on its wgmma row with the
+             copying producer ("wgmma/copy", launches_by_row).
 15. qwen2_serving — Qwen2-7B at full width and depth (28 layers, QKV
              bias, GQA group 7): its published config.json fields read by
              models/convert.config_from_hf as a namespace (equal to
@@ -230,7 +244,7 @@ phase's failure is caught):
              The autotune is off again after it.
 21. kernels — one JSON line per the port's kernel table, the launches of
              phases 9-19 added up; K1, K2, K5 and K6 carry their head-dim
-             rows.
+             rows, K3 and K4 theirs from phase 12 where TMA cannot map.
 
 The last line is {"ok": true, "device": {...}}. Run from the repository
 root: ``python3 chip_smoke.py``.
@@ -2183,7 +2197,44 @@ def _sdpa_backward_ms(torch, F, q, k, v, do, mask, is_causal, scale):
     return both_ms - fwd_ms
 
 
+# phase_bwd's cases, (name, R, C, dtype, options, Hq, Hkv, D, q's base
+# shift in bytes): Llama-3-8B's attention (Hq 32, Hkv 8, D 128, N 2048),
+# then rows TMA cannot map: OpenLLaMA-3B's (D 100, Hq = Hkv 32, N 2048;
+# the wgmma kernels' copying producers) causal and not, and D 250 at B 1,
+# H 8, N 1024 causal (one CTA of the head-dim-split kernels, copying);
+# OpenLLaMA-3B's causal again and D 250 again with q 2 bytes off 16 (no
+# 4-byte granule: the mma.sync rows, block_d 128 and 256). BWD_HEAD_DIM_
+# CASES carry their own lines in the kernels line.
+BWD_CASES = (
+    ("causal", 2048, 2048, "bf16", dict(causal=True), 32, 8, 128, 0),
+    ("noncausal", 2048, 2048, "bf16", dict(), 32, 8, 128, 0),
+    ("window512", 2048, 2048, "bf16", dict(sliding_window=512), 32, 8, 128,
+     0),
+    ("softcap50", 2048, 2048, "bf16", dict(causal=True, logit_soft_cap=50.0),
+     32, 8, 128, 0),
+    ("causal_r512_c2048", 512, 2048, "bf16", dict(causal=True), 32, 8, 128,
+     0),
+    ("window512_r512_c2048", 512, 2048, "bf16", dict(sliding_window=512), 32,
+     8, 128, 0),
+    ("fp32_causal", 2048, 2048, "fp32", dict(causal=True), 32, 8, 128, 0),
+    ("openllama_causal_d100", 2048, 2048, "bf16", dict(causal=True), 32, 32,
+     100, 0),
+    ("openllama_noncausal_d100", 2048, 2048, "bf16", dict(), 32, 32, 100, 0),
+    ("causal_d250_n1024", 1024, 1024, "bf16", dict(causal=True), 8, 8, 250,
+     0),
+    ("openllama_causal_d100_q_shift2", 2048, 2048, "bf16",
+     dict(causal=True), 32, 32, 100, 2),
+    ("causal_d250_q_shift2_n1024", 1024, 1024, "bf16", dict(causal=True), 8,
+     8, 250, 2),
+)
+BWD_HEAD_DIM_CASES = ("openllama_causal_d100", "openllama_noncausal_d100",
+                      "causal_d250_n1024", "openllama_causal_d100_q_shift2",
+                      "causal_d250_q_shift2_n1024")
+
+
 def phase_bwd(torch):
+    """K3 and K4 at BWD_CASES against their plain versions; returns the
+    causal case's figures and those of BWD_HEAD_DIM_CASES."""
     import torch.nn.functional as F
 
     from mfa_tpu_torch.kernels import flash_bwd as k34
@@ -2191,6 +2242,7 @@ def phase_bwd(torch):
     from mfa_tpu_torch.ops.descriptors import (
         AttentionDescriptor,
         AttentionKernelType,
+        row_label,
     )
     from mfa_tpu_torch.utils import roofline
     from mfa_tpu_torch.utils.testing import (
@@ -2200,21 +2252,10 @@ def phase_bwd(torch):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    hq, hkv, d, n = 32, 8, 128, 2048
-    cases = [
-        ("causal", n, n, torch.bfloat16, dict(causal=True)),
-        ("noncausal", n, n, torch.bfloat16, dict()),
-        ("window512", n, n, torch.bfloat16, dict(sliding_window=512)),
-        ("softcap50", n, n, torch.bfloat16,
-         dict(causal=True, logit_soft_cap=50.0)),
-        ("causal_r512_c2048", 512, n, torch.bfloat16, dict(causal=True)),
-        ("window512_r512_c2048", 512, n, torch.bfloat16,
-         dict(sliding_window=512)),
-        ("fp32_causal", n, n, torch.float32, dict(causal=True)),
-    ]
     results = {}
-    for name, r, c, dtype, opts in cases:
-        q, k, v = _k1_inputs(torch, gen, r, c, dtype)
+    for name, r, c, tag, opts, hq, hkv, d, shift in BWD_CASES:
+        dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+        q, k, v = _k1_inputs(torch, gen, r, c, dtype, hq, hkv, d)
         do = torch.randn((1, hq, r, d), generator=gen, device="cuda").to(dtype)
         desc = AttentionDescriptor(
             batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=r,
@@ -2225,11 +2266,21 @@ def phase_bwd(torch):
                              for t in AttentionKernelType)
         q3, k3, v3, do3 = (t.reshape(-1, t.shape[2], d).contiguous()
                            for t in (q, k, v, do))
+        if shift:
+            buf = torch.empty(q3.numel() + 8, dtype=dtype, device="cuda")
+            at = shift // q3.element_size()
+            q3 = buf[at:at + q3.numel()].view(q3.shape)
+            q3.copy_(q.reshape(q3.shape))
         kw = dict(group=hq // hkv, scale=desc.softmax_scale)
         o3, lse = k1.flash_fwd(q3, k3, v3, kd_f, o_dtype=dtype, **kw)
-        rows = {name: dataclasses.asdict(k34.launch_row(
-            kd, d, (q3, k3, v3, do3))) for name, kd in (("k3", kd_q),
-                                                       ("k4", kd_kv))}
+        # The rows K3 and K4 run (row_label; k1_row's rule holds for all
+        # three kernels).
+        rows = {key: dict(dataclasses.asdict(row), label=row_label(row))
+                for key, row in (
+                    (key, k34.launch_row(kd, d, (q3, k3, v3, do3)))
+                    for key, kd in (("k3", kd_q), ("k4", kd_kv)))}
+        want_row = k1_row(d, shift) if tag == "bf16" else ""
+        rows_ok = all(r_["label"] == want_row for r_ in rows.values())
         dq, dterm = k34.flash_bwd_q(
             q3, k3, v3, o3, do3, lse, kd_q, **kw,
             out=(nan_canary(q3.shape, device="cuda"),
@@ -2246,7 +2297,6 @@ def phase_bwd(torch):
                                               **kw)
         dk_p, dv_p = k34.flash_bwd_kv_plain(q3, k3, v3, do3, lse, dterm,
                                             kd_kv, **kw)
-        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
         shares, errs = {}, {}
         for key, got, want, budget in (
                 ("dq", dq, dq_p, f"flash_bwd_dq_{tag}"),
@@ -2289,7 +2339,7 @@ def phase_bwd(torch):
                     or not (kd_q.causal or kd_q.sliding_window) else vis)
             library_ms = _sdpa_backward_ms(torch, F, q, k, v, do, mask,
                                            plain_causal, desc.softmax_scale)
-        ok = (finite and deterministic and unseen_zero
+        ok = (finite and deterministic and unseen_zero and rows_ok
               and all(x <= 1 for x in shares.values()))
         results[name] = dict(
             q=dict(max_abs_err=errs["dq"], ms=ms_q, plain_ms=plain_q,
@@ -2297,8 +2347,10 @@ def phase_bwd(torch):
             kv=dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=ms_kv,
                     plain_ms=plain_kv, bound_ms=bound_kv, bound_by=by_kv,
                     library_ms=library_ms))
-        emit({"phase": "bwd", "case": name, "R": r, "C": c, "dtype": tag,
-              "rows": rows, "share": shares, "err": errs, "ms_k3": ms_q,
+        emit({"phase": "bwd", "case": name, "R": r, "C": c, "Hq": hq,
+              "Hkv": hkv, "D": d, "q_shift_bytes": shift, "dtype": tag,
+              "rows": rows, "want_row": want_row, "share": shares,
+              "err": errs, "ms_k3": ms_q,
               "ms_k4": ms_kv,
               "plain_ms_k3": plain_q, "plain_ms_k4": plain_kv,
               "bound_ms_k3": bound_q, "bound_by_k3": by_q,
@@ -2310,10 +2362,12 @@ def phase_bwd(torch):
             raise SystemExit(f"bwd {name}: kernels disagree with their plain "
                              f"versions (shares {shares}, finite {finite}, "
                              f"deterministic {deterministic}, unseen keys "
-                             f"zero {unseen_zero})")
+                             f"zero {unseen_zero}) or ran rows {rows} "
+                             f"(wanted {want_row})")
         del q, k, v, do, q3, k3, v3, do3, o3, lse, dq, dterm, dk, dv
         torch.cuda.empty_cache()
-    return results["causal"]
+    return results["causal"], {case: results[case]
+                               for case in BWD_HEAD_DIM_CASES}
 
 
 def _sdpa_backend(torch, fn) -> str:
@@ -2366,15 +2420,15 @@ LARGE_D_CASES = (
 def large_d_rows(tag: str, d: int) -> dict:
     """The rows (row_label) phase_large_d expects of K1, K3 and K4 past D
     = 128: the head-dim-split kernels (wgmma_dblk; one CTA up to D = 256)
-    where TMA maps a row (bf16, D % 8 == 0) up to D = 512; K1's one CTA
+    where TMA maps a row (bf16, D % 8 == 0) up to D = 512; their one CTA
     with its cp.async producer at the other even D up to 256; else the
     first cut (mma.sync up to D = 256, D-blocked past it)."""
     if tag == "fp32":
         return {"k1": "fma_dblk", "k3": "fma_dblk", "k4": "fma_dblk"}
-    split = ("wgmma_dblk" if d % 8 == 0 and d <= 512
-             else "mma" if d <= 256 else "mma_dblk")
-    k1 = "wgmma_dblk/copy" if split == "mma" and d % 2 == 0 else split
-    return {"k1": k1, "k3": split, "k4": split}
+    row = ("wgmma_dblk" if d % 8 == 0 and d <= 512
+           else "wgmma_dblk/copy" if d <= 256 and d % 2 == 0
+           else "mma" if d <= 256 else "mma_dblk")
+    return {"k1": row, "k3": row, "k4": row}
 
 
 def phase_large_d(torch):
@@ -2621,33 +2675,21 @@ def _rel_l2(a, b) -> float:
                  .clamp_min(1e-30))
 
 
-def phase_training(torch):
+def _train(torch, phase: str, cfg, model, tokens, steps: int = 6) -> dict:
+    """One step's loss and grads through K1/K3/K4 against the same step
+    with the three swapped for their plain versions (loss within 1e-2
+    relative, every grad within 5e-2 relative L2), then ``steps``
+    train_steps (AdamW, lr 1e-3) on ``tokens``: finite, falling losses, K1,
+    K3 and K4 each launched n_layers times a step. Emits ``<phase>_in_
+    context`` and ``<phase>`` (losses, grad norms, step ms and their
+    median past the first, tokens/s, peak GiB, launches and K1's, K3's and
+    K4's launches by row); returns (launches, launches by row)."""
     import numpy as np
 
     from mfa_tpu_torch.kernels import flash_bwd as k34
     from mfa_tpu_torch.kernels import flash_fwd as k1
-    from mfa_tpu_torch.models import llama, training
-    from mfa_tpu_torch.utils.data import TokenDataset
+    from mfa_tpu_torch.models import training
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=16)
-    t0 = time.perf_counter()
-    model = llama.Llama.init(
-        cfg, generator=torch.Generator(device="cuda").manual_seed(4),
-        dtype=torch.bfloat16, device="cuda", trainable=True)
-    stream = np.random.default_rng(4).integers(0, cfg.vocab_size, 2049)
-    batch = next(TokenDataset(stream, seq_len=2048, batch_size=1,
-                              seed=4).epoch(0))
-    tokens = torch.from_numpy(batch).long().cuda()
-    torch.cuda.synchronize()
-    emit({"phase": "training_init", "seconds": time.perf_counter() - t0,
-          "n_layers": cfg.n_layers,
-          "params": sum(p.numel() for p in model.parameters()),
-          "tokens": list(tokens.shape)})
-
-    # In-context check: one step's loss and grads through K1/K3/K4 against
-    # the same step with the three swapped for their plain versions.
     loss_k = float(training.loss_and_grads(model, tokens))
     grads_k = {n: p.grad.clone() for n, p in model.named_parameters()}
     with plain_kernels():
@@ -2657,12 +2699,12 @@ def phase_training(torch):
     worst = max(rel, key=rel.get)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     in_context_ok = loss_rel <= 1e-2 and rel[worst] <= 5e-2
-    emit({"phase": "training_in_context", "loss_kernels": loss_k,
+    emit({"phase": f"{phase}_in_context", "loss_kernels": loss_k,
           "loss_plain": loss_p, "loss_rel_err": loss_rel,
           "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst_param": worst,
           "grad_rel_l2_budget": 5e-2, "ok": in_context_ok})
     if not in_context_ok:
-        raise SystemExit(f"training in context: loss rel err {loss_rel}, "
+        raise SystemExit(f"{phase} in context: loss rel err {loss_rel}, "
                          f"grad rel L2 {rel[worst]} at {worst}")
     del grads_k
     for p in model.parameters():
@@ -2676,9 +2718,12 @@ def phase_training(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = (k1.flash_fwd, k34.flash_bwd_q, k34.flash_bwd_kv)
+    by_row = (k1.launches_by_row, k34.launches_by_row["flash_bwd_q"],
+              k34.launches_by_row["flash_bwd_kv"])
     for f in counters:
         f.launches = 0
-    steps, losses, norms, step_ms = 6, [], [], []
+    before = [dict(c) for c in by_row]
+    losses, norms, step_ms = [], [], []
     for _ in range(steps):
         t_s = time.perf_counter()
         metrics = training.train_step(state, tokens)
@@ -2687,21 +2732,89 @@ def phase_training(torch):
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
     launches = {f.__name__: f.launches for f in counters}
+    rows = {f.__name__: {label: n - b.get(label, 0) for label, n in c.items()
+                         if n != b.get(label, 0)}
+            for f, c, b in zip(counters, by_row, before)}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     median_ms = float(np.median(step_ms[1:]))
     ok = (all(math.isfinite(x) for x in losses + norms)
           and losses[-1] < losses[0]
           and all(n_ == cfg.n_layers * steps for n_ in launches.values()))
-    emit({"phase": "training", "n_layers": cfg.n_layers, "steps": steps,
+    emit({"phase": phase, "n_layers": cfg.n_layers, "steps": steps,
           "losses": losses, "grad_norms": norms, "step_ms": step_ms,
           "median_step_ms": median_ms,
           "tokens_per_s": tokens.shape[0] * (tokens.shape[1] - 1)
           / (median_ms / 1e3),
-          "peak_gib": peak_gib, "launches": launches, "ok": ok})
+          "peak_gib": peak_gib, "launches": launches,
+          "launches_by_row": rows, "ok": ok})
     if not ok:
-        raise SystemExit(f"training: losses {losses}, norms {norms}, "
+        raise SystemExit(f"{phase}: losses {losses}, norms {norms}, "
                          f"launches {launches}")
-    del state, model
+    del state
+    return launches, rows
+
+
+def _train_tokens(torch, vocab_size: int, seed: int):
+    """One 1 x 2049 batch from TokenDataset over a seeded stream."""
+    import numpy as np
+
+    from mfa_tpu_torch.utils.data import TokenDataset
+
+    stream = np.random.default_rng(seed).integers(0, vocab_size, 2049)
+    batch = next(TokenDataset(stream, seq_len=2048, batch_size=1,
+                              seed=seed).epoch(0))
+    return torch.from_numpy(batch).long().cuda()
+
+
+def phase_training(torch):
+    from mfa_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=16)
+    t0 = time.perf_counter()
+    model = llama.Llama.init(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(4),
+        dtype=torch.bfloat16, device="cuda", trainable=True)
+    tokens = _train_tokens(torch, cfg.vocab_size, 4)
+    torch.cuda.synchronize()
+    emit({"phase": "training_init", "seconds": time.perf_counter() - t0,
+          "n_layers": cfg.n_layers,
+          "params": sum(p.numel() for p in model.parameters()),
+          "tokens": list(tokens.shape)})
+    launches, _ = _train(torch, "training", cfg, model, tokens)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_openllama_training(torch):
+    """OpenLLaMA-3B trained on one card at full width and depth (26
+    layers, width 3200, 32 heads of D 100, MHA; ~3.43 B parameters with
+    bf16 grads and AdamW moments: ~27 GiB) from random Hugging Face-named
+    weights (seed 41) through models/convert.params_from_hf, as
+    phase_training trains Llama-3-8B's widths. K1, K3 and K4 run D 100,
+    rows TMA cannot map: each must launch on its wgmma row with the
+    copying producer ("wgmma/copy"), every launch."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, model = _random_hf_model(torch, OPENLLAMA_3B_CONFIG, seed=41,
+                                  trainable=True)
+    tokens = _train_tokens(torch, cfg.vocab_size, 41)
+    torch.cuda.synchronize()
+    emit({"phase": "openllama_training_init",
+          "seconds": time.perf_counter() - t0, "n_layers": cfg.n_layers,
+          "dim": cfg.dim, "head_dim": cfg.head_dim,
+          "params": sum(p.numel() for p in model.parameters()),
+          "tokens": list(tokens.shape)})
+    launches, rows = _train(torch, "openllama_training", cfg, model, tokens)
+    want = {name: {"wgmma/copy": cfg.n_layers * 6} for name in rows}
+    if rows != want:
+        raise SystemExit(f"openllama_training: K1, K3, K4 ran rows {rows}, "
+                         f"wanted {want}")
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2740,12 +2853,13 @@ OPENLLAMA_3B_CONFIG = dict(
     tie_word_embeddings=False, vocab_size=32000, torch_dtype="float16")
 
 
-def _random_hf_model(torch, fields: dict, seed: int):
+def _random_hf_model(torch, fields: dict, seed: int, trainable=False):
     """(LlamaConfig read from ``fields`` as a namespace, the Llama that
     models/convert.params_from_hf builds from random bf16 weights under
-    Hugging Face's key names). Weights come from a seeded generator on the
-    card: projections N(0, 1/d_in), the embedding N(0, 1) * 0.02, QKV
-    biases N(0, 0.25) where the config has them, norms ones."""
+    Hugging Face's key names; every parameter requiring grad when
+    ``trainable``). Weights come from a seeded generator on the card:
+    projections N(0, 1/d_in), the embedding N(0, 1) * 0.02, QKV biases
+    N(0, 0.25) where the config has them, norms ones."""
     from types import SimpleNamespace
 
     from mfa_tpu_torch.models import convert
@@ -2779,7 +2893,8 @@ def _random_hf_model(torch, fields: dict, seed: int):
         sd[p + "input_layernorm.weight"] = ones(cfg.dim)
         sd[p + "post_attention_layernorm.weight"] = ones(cfg.dim)
     sd["lm_head.weight"] = rand(cfg.dim ** -0.5, cfg.vocab_size, cfg.dim)
-    model = convert.params_from_hf(sd, cfg, torch.bfloat16, device="cuda")
+    model = convert.params_from_hf(sd, cfg, torch.bfloat16, device="cuda",
+                                   trainable=trainable)
     return cfg, model
 
 
@@ -3146,7 +3261,7 @@ def phase_openllama_serving(torch):
           "weights_gib": _weight_gib(model),
           "prefill_row": str(params_mod.select_row(
               params_mod.parameter_table(
-                  "flash_fwd", params_mod.fwd_bf16_table_precision(100)),
+                  "flash_fwd", params_mod.flash_bf16_table_precision(100)),
               100))})
 
     rng = np.random.default_rng(40)
@@ -3680,9 +3795,10 @@ def main() -> int:
     del int4_model, int8_model
     gc.collect()
     torch.cuda.empty_cache()
-    bwd_row = phase_bwd(torch)
+    bwd_row, bwd_head_dims = phase_bwd(torch)
     large_d, large_d_launches = phase_large_d(torch)
     train_launches = phase_training(torch)
+    openllama_train = phase_openllama_training(torch)
     qwen2_model, qwen2_launches = phase_qwen2_serving(torch)
     ckpt_launches = phase_checkpoint(torch, qwen2_model)
     del qwen2_model
@@ -3700,22 +3816,25 @@ def main() -> int:
     for n in (qwen2_launches, ckpt_launches, mistral_launches,
               eval_launches, openllama_launches):
         _add(new, n)
-    # K1 runs on the three Llama-3-8B serving runs, training, the
-    # entry point past D = 256 (large_d), the parallel phase and the new
-    # phases' paths; K2 on the contiguous serving runs, the tp decode
-    # steps and the new paths; K8 on the INT4 serving runs. K1's
-    # non-causal mode (the twin of _fwd_kernel) runs only on the ring's
-    # off-diagonal chunks (parallel); its row carries the k1 phase's
-    # non-causal case. K1, K3 and K4 also carry their times past D = 128
-    # (large_d) beside the D = 128 figures; K2, K5 and K6 theirs at
-    # HEAD_DIM_CASES (head_dims). K6 runs on both paged serving runs
-    # (Llama-3-8B's and OpenLLaMA-3B's).
+    # K1 runs on the three Llama-3-8B serving runs, both trainings
+    # (Llama-3-8B's widths and OpenLLaMA-3B), the entry point past D =
+    # 256 (large_d), the parallel phase and the new phases' paths; K3 and
+    # K4 on both trainings, large_d and the parallel phase; K2 on the
+    # contiguous serving runs, the tp decode steps and the new paths; K8
+    # on the INT4 serving runs. K1's non-causal mode (the twin of
+    # _fwd_kernel) runs only on the ring's off-diagonal chunks (parallel);
+    # its row carries the k1 phase's non-causal case. K1, K3 and K4 also
+    # carry their times past D = 128 (large_d) beside the D = 128
+    # figures; K3 and K4 theirs where TMA cannot map (BWD_HEAD_DIM_CASES:
+    # head_dims); K2, K5 and K6 theirs at HEAD_DIM_CASES (head_dims). K6
+    # runs on both paged serving runs (Llama-3-8B's and OpenLLaMA-3B's).
     def large(key, cases):
         return {"large_d": {case: large_d[case][key] for case in cases}}
 
     fwd_cases = ("noncausal_d384", "causal_d384", "noncausal_d512",
                  "causal_d512", "causal_d256", "causal_d192",
                  "noncausal_d256")
+    copy_cases = ("causal_d250_n1024", "noncausal_d250_n1024")
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_fwd.cu",
@@ -3723,13 +3842,12 @@ def main() -> int:
          "launches": (launches["flash_fwd"] + paged_k1 + openllama_k1
                       + int4_launches["flash_fwd"]
                       + train_launches["flash_fwd"]
+                      + openllama_train["flash_fwd"]
                       + large_d_launches["flash_fwd"] + new["flash_fwd"]
                       + par["flash_fwd"] - par["flash_fwd_noncausal"]),
          **{k: v for k, v in k1_row.items()
             if k not in ("lse_err", "row")},
-         **large("k1", fwd_cases + ("gqa_softcap50_d256",
-                                    "causal_d250_n1024",
-                                    "noncausal_d250_n1024")),
+         **large("k1", fwd_cases + ("gqa_softcap50_d256",) + copy_cases),
          "head_dims": {case: {k: v for k, v in t.items() if k != "lse_err"}
                        for case, t in k1_head_dims.items()}},
         {"name": "flash_fwd_noncausal", "route": "cuda",
@@ -3750,16 +3868,20 @@ def main() -> int:
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:59",
          "launches": (train_launches["flash_bwd_q"]
+                      + openllama_train["flash_bwd_q"]
                       + large_d_launches["flash_bwd_q"]
                       + par["flash_bwd_q"]),
-         **bwd_row["q"], **large("k3", fwd_cases)},
+         **bwd_row["q"], **large("k3", fwd_cases + copy_cases),
+         "head_dims": {case: t["q"] for case, t in bwd_head_dims.items()}},
         {"name": "flash_bwd_kv", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "mfa_tpu/kernels/flash_bwd.py:427",
          "launches": (train_launches["flash_bwd_kv"]
+                      + openllama_train["flash_bwd_kv"]
                       + large_d_launches["flash_bwd_kv"]
                       + par["flash_bwd_kv"]),
-         **bwd_row["kv"], **large("k4", fwd_cases)},
+         **bwd_row["kv"], **large("k4", fwd_cases + copy_cases),
+         "head_dims": {case: t["kv"] for case, t in bwd_head_dims.items()}},
         # K5's path is its entry point, decode_attention, driven in k5.
         {"name": "decode_attend", "route": "cuda",
          "source": "mfa_tpu_torch/csrc/decode_attend.cu",

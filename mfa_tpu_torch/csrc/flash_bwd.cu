@@ -116,10 +116,43 @@
 //   partner CTA's partials, latency rather than bytes (one bulk copy a
 //   partial in place of the st.async stores measured no faster in K4).
 //
-// Other rows keep the first cut: bf16 where TMA cannot map the operands
-// (a row stride not a multiple of 16 bytes, D % 8 != 0, or a misaligned
-// base) runs warp-level mma.sync (m16n8k16) from shared-memory tiles
-// loaded synchronously (rows "mma"); fp32 inputs take plain-FMA kernels:
+// bf16 rows TMA cannot map (D % 8 != 0, a base off 16 bytes) up to D =
+// 256, where q, k, v, dO and the row stride 2 D share 4 bytes (D even;
+// OpenLLaMA-3B's D 100: 200-byte rows, 8-byte aligned): the same wgmma
+// kernels and rows, K3's and K4's of D <= 128 and their one-CTA
+// head-dim-split ones (PROD, a template flag; the TMA instances compile
+// as before), with a copying producer, as K1's (csrc/flash_fwd.cu). Its
+// 128 threads issue cp.async of that granule (8 or 4 bytes) straight into
+// the swizzled slots (hopper.cuh copy_rows), rows past R or C as
+// zero-source copies, each thread's copies counted on the tile's full
+// barrier (cp.async.mbarrier.arrive.noinc: 128 arrivals, K4's L and
+// D-term among them). The columns D..DP-1 no copy writes are zeroed once
+// at the start in every resident tile and ring slot (and fenced); they
+// stay zero, so every product sees zeros there, the scaled-Q tiles
+// inherit them, and dQ, dK, dV are stored below column D only. cp.async
+// writes through the generic proxy and wgmma reads through the async
+// one, so each consumer thread fences (fence.proxy.async) after its
+// full-barrier wait, before the products that read the tile (K4's Q and
+// dO by the fence that follows its scaling). The instances' layouts are
+// compile-time, as TMA's: the rings take at most kQCopyStages and
+// kKvCopyStages; K4's warpgroup 1 passes its dK and dV through shared
+// memory from K's tile on, which a shallower ring than TMA's may need.
+// dK and dV keep their fixed order of sums.
+// What bounds them at OpenLLaMA-3B's D 100 (Hq = Hkv 32, N 2048, causal):
+// the tensor work is the 128-wide panel's, 6 D and 8 D FLOP a visible
+// pair (0.041 / 0.054 ms at the bf16 peak), and the producer's copies,
+// issued by four warps that share the SMs' schedulers with the consumers.
+// On the H100 (NVIDIA H100 80GB HBM3, 700 W; utils/bwd_tuning.py sweep
+// --only copy; the rings of ops/params.py): K3 0.2223 ms (5.5x its
+// bound), K4 0.4232 (7.8x), against the mma.sync rows' 1.418 and 1.500;
+// at D 250 (H 8, N 1024, causal) K3 0.1304 and K4 0.1149 against 0.3775
+// and 0.3634. K4 copies Q, dO, L and the D-term for every 32-row step.
+//
+// Other rows keep the first cut: bf16 where neither TMA nor the copying
+// producer can take the operands (odd D, a base only 2-byte aligned, D %
+// 8 != 0 past D = 256) runs warp-level mma.sync (m16n8k16) from
+// shared-memory tiles loaded synchronously (rows "mma"); fp32 inputs take
+// plain-FMA kernels:
 // TF32 would miss the fp32 gradient budget. The mma K4 keeps two fp32 [16
 // x D] accumulators per warp (128 registers a thread at D = 128); at D =
 // 256 its warps split the head dim in two. Past D = 256 the same kernels
@@ -158,7 +191,23 @@ struct BwdParams {
   float scale2, cap2, scale;   // scale*log2e; soft-cap*log2e (<= 0: none)
   int o_f32;
   int vec;                     // 16-byte global loads allowed
+  int gran;     // bytes every base (q, k, v, dO) and row stride share
 };
+
+// The copying producer's ring depths (ops/params.py mirrors them as
+// BWD_Q_COPY_RING_STAGES and BWD_KV_COPY_RING_STAGES): the most tiles of
+// K3's K and V ring, or of each of its head-dim-split kernel's two, and
+// the most stages of K4's ring each consumer warpgroup cycles through.
+// utils/bwd_tuning.py sweep --only copy builds the library again with
+// others (-DMFA_BWD_Q_COPY_STAGES=n, -DMFA_BWD_KV_COPY_STAGES=n).
+#ifndef MFA_BWD_Q_COPY_STAGES
+#define MFA_BWD_Q_COPY_STAGES 3
+#endif
+#ifndef MFA_BWD_KV_COPY_STAGES
+#define MFA_BWD_KV_COPY_STAGES 3
+#endif
+constexpr int kQCopyStages = MFA_BWD_Q_COPY_STAGES;
+constexpr int kKvCopyStages = MFA_BWD_KV_COPY_STAGES;
 
 __device__ __forceinline__ bool visible(const BwdParams& p, int row,
                                         int col) {
@@ -921,30 +970,73 @@ __device__ __forceinline__ bool block_visible(const BwdParams& p, int r0,
   return !(p.window > 0 && c0 < r0 + nr - 1 + offset - (p.window - 1));
 }
 
-template <int BKV, int DP>
+// Zeroes the 16-byte chunks past D (hopper.cuh zero_chunks) of `n` tiles
+// of `rows` rows `stride` bytes apart from `tile`: the columns a copying
+// producer never writes (TMA fills them with zeros itself). They stay
+// zero for the whole walk; the caller fences them to the async proxy.
+__device__ __forceinline__ void zero_pad(const BwdParams& p,
+                                         unsigned char* tile, int n,
+                                         int stride, int rows, int dp,
+                                         int tid) {
+  for (int s = 0; s < n; ++s)
+    hw::zero_chunks(tile + s * stride, rows, dp, p.D / 8, tid, kWgmmaThreads);
+}
+
+// Rows [row0, row0 + ROWS) of head h's [rows x D] bf16 matrix at `base`
+// (`limit` rows a head) into a swizzled tile by the copying producer's
+// 128 threads at granule G (hopper.cuh copy_rows).
+template <int ROWS, int G>
+__device__ __forceinline__ void copy_head_rows(const BwdParams& p,
+                                               unsigned char* tile,
+                                               const void* base, int h,
+                                               int row0, int limit, int pt) {
+  const int rb = 2 * p.D;
+  hw::copy_rows<ROWS, G>(
+      tile, static_cast<const unsigned char*>(base) + (size_t)h * limit * rb,
+      row0, limit, rb, pt, kWgThreads);
+}
+
+// fn(G) at the launch's copy granule: 8 bytes, or 4.
+template <typename F>
+__device__ __forceinline__ void with_granule(const BwdParams& p, F&& fn) {
+  if (p.gran >= 8)
+    fn(std::integral_constant<int, 8>{});
+  else
+    fn(std::integral_constant<int, 4>{});
+}
+
+// K3's shared memory: Q and dO resident, then a ring of K and V tiles
+// (both warpgroups read every stage), L and the D-term, the mbarriers
+// q_full, full[S], empty[S]. The ring takes as many stages as fit, up to
+// 4 for TMA and kQCopyStages for the copying producer.
+template <int BKV, int DP, int PROD = kTma>
 struct QWgmmaSmem {
   static constexpr int kBQ = 128;
-  // K3's K/V ring, both warpgroups reading every stage.
+  static constexpr int kTile = tile_bytes(BKV, DP);
   static constexpr int kS = ring_stages(
-      2 * tile_bytes(kBQ, DP) + 8 * kBQ + 8 + kAlignSlack,
-      2 * tile_bytes(BKV, DP) + 16, 4, 1);
+      2 * tile_bytes(kBQ, DP) + 8 * kBQ + 8 + kAlignSlack, 2 * kTile + 16,
+      PROD == kTma ? 4 : kQCopyStages, 1);
   static constexpr int kQ = 0;
   static constexpr int kDO = kQ + tile_bytes(kBQ, DP);
   static constexpr int kK = kDO + tile_bytes(kBQ, DP);   // [stage]
-  static constexpr int kV = kK + kS * tile_bytes(BKV, DP);
-  static constexpr int kL = kV + kS * tile_bytes(BKV, DP);
+  static constexpr int kV = kK + kS * kTile;
+  static constexpr int kL = kV + kS * kTile;
   static constexpr int kD = kL + 4 * kBQ;
   static constexpr int kBar = kD + 4 * kBQ;   // q_full, full[S], empty[S]
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kS) + kAlignSlack;
+  // The deferred dQ product holds a stage until the next one's wait.
+  static_assert(kS >= 2 && kBytes <= kSmemOptin, "K3 wgmma layout");
 };
 
-template <int BKV, int DP>
+// PROD: how the producer fills the tiles (hopper.cuh Producer; the tensor
+// maps only for kTma).
+template <int BKV, int DP, int PROD = kTma>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_bwd_q_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
                   const __grid_constant__ CUtensorMap mdo,
                   const __grid_constant__ CUtensorMap mk,
                   const __grid_constant__ CUtensorMap mv) {
-  using L = QWgmmaSmem<BKV, DP>;
+  using L = QWgmmaSmem<BKV, DP, PROD>;
   constexpr int BQ = L::kBQ;
   constexpr int S = L::kS;
   extern __shared__ unsigned char smem_raw[];
@@ -966,19 +1058,47 @@ flash_bwd_q_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   pair_kv_range(p, i, BKV, lo_c, hi_c);
 
   if (tid == 0) {
-    hw::mbar_init(q_full, 1);
+    // TMA's tiles complete on one arrival and their bytes; the copying
+    // producer's on one arrival of each producer thread.
+    const int fills = PROD == kTma ? 1 : kWgThreads;
+    hw::mbar_init(q_full, fills);
     for (int s = 0; s < S; ++s) {
-      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&full[s], fills);
       hw::mbar_init(&empty[s], 8);   // every consumer warp
     }
     hw::mbar_init_fence();
+  }
+  if constexpr (PROD != kTma) {
+    zero_pad(p, sm + L::kQ, 2, tile_bytes(BQ, DP), BQ, DP, tid);
+    zero_pad(p, sm + L::kK, 2 * S, L::kTile, BKV, DP, tid);
+    hw::fence_proxy_async();
   }
   __syncthreads();
 
   if (wg == 2) {
     // Producer: Q and dO once, then K and V of each live kv block.
     hw::setmaxnreg_dec<kProducerRegs>();
-    if (tid == 2 * kWgThreads) {
+    if constexpr (PROD != kTma) {
+      // All 128 threads, at the granule the rows and bases share; each
+      // thread's copies of a tile counted on its full barrier.
+      const int pt = tid - 2 * kWgThreads;
+      with_granule(p, [&](auto granule) {
+        constexpr int G = decltype(granule)::value;
+        copy_head_rows<BQ, G>(p, sm + L::kQ, p.q, bh, i * BQ, p.R, pt);
+        copy_head_rows<BQ, G>(p, sm + L::kDO, p.d_o, bh, i * BQ, p.R,
+                              pt);
+        hw::cp_async_arrive(q_full);
+        for (int j = lo_c; j <= hi_c; ++j) {
+          const int t = j - lo_c, st = t % S;
+          hw::mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
+          copy_head_rows<BKV, G>(p, sm + L::kK + st * L::kTile, p.k,
+                                 bhkv, j * BKV, p.C, pt);
+          copy_head_rows<BKV, G>(p, sm + L::kV + st * L::kTile, p.v, bhkv,
+                                 j * BKV, p.C, pt);
+          hw::cp_async_arrive(&full[st]);
+        }
+      });
+    } else if (tid == 2 * kWgThreads) {
       hw::mbar_expect_tx(q_full, 2 * tile_bytes(BQ, DP));
 #pragma unroll
       for (int pn = 0; pn < DP / 64; ++pn) {
@@ -1044,6 +1164,9 @@ flash_bwd_q_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     for (int j = lo_c; j <= hi_c; ++j) {
       const int t = j - lo_c, st = t % S;
       hw::mbar_wait(&full[st], (t / S) & 1);
+      // cp.async writes through the generic proxy: order them before
+      // wgmma's reads (the barrier made them visible to this thread).
+      if constexpr (PROD != kTma) hw::fence_proxy_async();
       if (j < lo_w || j > hi_w) {
         // Nothing of this tile is visible to this warpgroup's rows.
         hw::wgmma_wait<0>();
@@ -1134,35 +1257,86 @@ flash_bwd_q_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   }
 }
 
-template <int BQ, int DP>
+// K4's shared memory: K and V resident, then a ring of Q and dO tiles,
+// a scaled-Q tile a consumer warpgroup, the ring's L and D-term, the
+// mbarriers kv_full, full[S], empty[S]. The ring takes an even number of
+// stages, as many as fit, up to 4 for TMA (2 a consumer warpgroup: 8
+// measured no faster on the H100) and 2 kKvCopyStages for the copying
+// producer: stage s feeds warpgroup s % 2, whose stage is freed by its
+// deferred products in its next step, so it cycles through two or more.
+template <int BQ, int DP, int PROD = kTma>
 struct KvWgmmaSmem {
+  static constexpr int kBQ = BQ;
   static constexpr int kBKV = 64;
-  // K4's Q/dO ring: an even number of stages, up to 4 (2 a consumer
-  // warpgroup: 8 measured no faster on the H100), as many as fit.
+  static constexpr int kTile = tile_bytes(BQ, DP);
   static constexpr int kS = ring_stages(
-      2 * tile_bytes(kBKV, DP) + 2 * tile_bytes(BQ, DP) + 8 + kAlignSlack,
-      2 * tile_bytes(BQ, DP) + 8 * BQ + 16, 4, 2);
+      2 * tile_bytes(kBKV, DP) + 2 * kTile + 8 + kAlignSlack,
+      2 * kTile + 8 * BQ + 16, PROD == kTma ? 4 : 2 * kKvCopyStages, 2);
   static constexpr int kK = 0;
   static constexpr int kV = kK + tile_bytes(kBKV, DP);
-  static constexpr int kQ = kV + tile_bytes(kBKV, DP);     // [stage]
-  static constexpr int kDO = kQ + kS * tile_bytes(BQ, DP);  // [stage]
-  static constexpr int kQs = kDO + kS * tile_bytes(BQ, DP); // [warpgroup]
-  static constexpr int kL = kQs + 2 * tile_bytes(BQ, DP);   // [stage]
-  static constexpr int kD = kL + kS * 4 * BQ;               // [stage]
+  static constexpr int kQ = kV + tile_bytes(kBKV, DP);   // [stage]
+  static constexpr int kDO = kQ + kS * kTile;           // [stage]
+  static constexpr int kQs = kDO + kS * kTile;          // [warpgroup]
+  static constexpr int kL = kQs + 2 * kTile;            // [stage]
+  static constexpr int kD = kL + kS * 4 * BQ;           // [stage]
   static constexpr int kBar = kD + kS * 4 * BQ;  // kv_full, full, empty
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kS) + kAlignSlack;
-  // The ring (Q and dO) holds warpgroup 1's dK and dV for the final sum.
-  static_assert(2 * kS * tile_bytes(BQ, DP) >= 2 * kBKV * DP * 4,
-                "the ring must hold one warpgroup's dK and dV");
+  // Where warpgroup 1's dK and dV pass at the end: TMA's ring (Q and dO)
+  // holds them; a copying producer's shallower ring may not, and they
+  // start at K's tile, which no product reads any more.
+  static constexpr int kRed = PROD == kTma ? kQ : kK;
+  static_assert((PROD == kTma ? 2 * kS * kTile : kL - kRed) >=
+                    2 * kBKV * DP * 4,
+                "room for one warpgroup's dK and dV");
+  static_assert(kS >= (PROD == kTma ? 2 : 4) && kBytes <= kSmemOptin,
+                "K4 wgmma layout");
 };
 
-template <int BQ, int DP>
+// K4's copying producer (kCopy) at granule G, thread pt of the producer
+// warpgroup (L: the kCopy KvWgmmaSmem or one-CTA KvSplitSmem): K's and V's
+// tiles of kv rows col0.. once, then Q's and dO's rows, L and the D-term
+// of each step into its stage of the ring, by cp.async straight into the
+// slots, one arrival a thread on a tile's full barrier once its copies
+// land.
+template <int G, typename L>
+__device__ __forceinline__ void kv_copies(const BwdParams& p,
+                                          unsigned char* sm,
+                                          uint64_t* kv_full, uint64_t* full,
+                                          uint64_t* empty, int col0,
+                                          int bhkv, int lo, int nlive,
+                                          int steps, int pt) {
+  constexpr int BQ = L::kBQ, BKV = L::kBKV;
+  copy_head_rows<BKV, G>(p, sm + L::kK, p.k, bhkv, col0, p.C, pt);
+  copy_head_rows<BKV, G>(p, sm + L::kV, p.v, bhkv, col0, p.C, pt);
+  hw::cp_async_arrive(kv_full);
+  for (int t = 0; t < steps; ++t) {
+    const int bh = bhkv * p.group + t / nlive;
+    const int row0 = (lo + t % nlive) * BQ;
+    const int st = t % L::kS;
+    hw::mbar_wait(&empty[st], ((t / L::kS) & 1) ^ 1);
+    copy_head_rows<BQ, G>(p, sm + L::kQ + st * L::kTile, p.q, bh, row0,
+                          p.R, pt);
+    copy_head_rows<BQ, G>(p, sm + L::kDO + st * L::kTile, p.d_o, bh, row0,
+                          p.R, pt);
+    float* sL = reinterpret_cast<float*>(sm + L::kL) + st * BQ;
+    float* sD = reinterpret_cast<float*>(sm + L::kD) + st * BQ;
+    for (int r = pt; r < BQ; r += kWgThreads) {
+      const bool in = row0 + r < p.R;
+      const size_t at = in ? (size_t)bh * p.R + row0 + r : 0;
+      hw::cp_async_g<4>(sL + r, p.lse + at, in);
+      hw::cp_async_g<4>(sD + r, p.dterm + at, in);
+    }
+    hw::cp_async_arrive(&full[st]);
+  }
+}
+
+template <int BQ, int DP, int PROD = kTma>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mdo,
                    const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv) {
-  using L = KvWgmmaSmem<BQ, DP>;
+  using L = KvWgmmaSmem<BQ, DP, PROD>;
   constexpr int BKV = L::kBKV;
   constexpr int S = L::kS;
   extern __shared__ unsigned char smem_raw[];
@@ -1184,21 +1358,37 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   const int steps = p.group * nlive;
 
   if (tid == 0) {
-    hw::mbar_init(kv_full, 1);
+    // TMA: K and V on one arrival and their bytes, a stage on TMA's bytes
+    // + 32 lanes' L / D-term; the copying producer: every tile on one
+    // arrival of each producer thread.
+    hw::mbar_init(kv_full, PROD == kTma ? 1 : kWgThreads);
     for (int s = 0; s < S; ++s) {
-      hw::mbar_init(&full[s], 33);   // TMA's bytes + 32 lanes' L / D-term
+      hw::mbar_init(&full[s], PROD == kTma ? 33 : kWgThreads);
       hw::mbar_init(&empty[s], 4);   // the four warps of one warpgroup
     }
     hw::mbar_init_fence();
   }
+  if constexpr (PROD != kTma) {
+    // K, V, then the Q and dO ring: 2 + 2 S tiles; the scaled-Q tiles
+    // inherit Q's zeros.
+    zero_pad(p, sm + L::kK, 2, tile_bytes(BKV, DP), BKV, DP, tid);
+    zero_pad(p, sm + L::kQ, 2 * S, L::kTile, BQ, DP, tid);
+    hw::fence_proxy_async();
+  }
   __syncthreads();
 
   if (wg == 2) {
-    // Producer warp: K and V once, then Q and dO of each step by TMA (lane
-    // 0) and L and the D-term by cp.async of every lane (a TMA box of
-    // them would start 16-byte aligned only when R % 4 == 0).
     hw::setmaxnreg_dec<kProducerRegs>();
-    if (tid < 2 * kWgThreads + 32) {
+    if constexpr (PROD != kTma) {
+      with_granule(p, [&](auto granule) {
+        kv_copies<decltype(granule)::value, L>(p, sm, kv_full, full, empty,
+                                               col0, bhkv, lo, nlive, steps,
+                                               tid - 2 * kWgThreads);
+      });
+    } else if (tid < 2 * kWgThreads + 32) {
+      // Producer warp: K and V once, then Q and dO of each step by TMA
+      // (lane 0) and L and the D-term by cp.async of every lane (a TMA box
+      // of them would start 16-byte aligned only when R % 4 == 0).
       const int lane = tid & 31;
       if (lane == 0) {
         hw::mbar_expect_tx(kv_full, 2 * tile_bytes(BKV, DP));
@@ -1216,9 +1406,9 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
         const int st = t % S;
         hw::mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
         if (lane == 0) {
-          hw::mbar_expect_tx(&full[st], 2 * tile_bytes(BQ, DP));
-          unsigned char* q_tile = sm + L::kQ + st * tile_bytes(BQ, DP);
-          unsigned char* do_tile = sm + L::kDO + st * tile_bytes(BQ, DP);
+          hw::mbar_expect_tx(&full[st], 2 * L::kTile);
+          unsigned char* q_tile = sm + L::kQ + st * L::kTile;
+          unsigned char* do_tile = sm + L::kDO + st * L::kTile;
 #pragma unroll
           for (int pn = 0; pn < DP / 64; ++pn) {
             hw::tma_load_3d(q_tile + pn * BQ * kPanelBytes, &mq, &full[st],
@@ -1244,8 +1434,12 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     const int w = wg, wt = tid % kWgThreads, wi = wt >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const int r16 = wi * 16 + g;   // this thread's kv rows r16 and r16 + 8
-    unsigned char* qs_tile = sm + L::kQs + w * tile_bytes(BQ, DP);
+    unsigned char* qs_tile = sm + L::kQs + w * L::kTile;
     hw::mbar_wait(kv_full, 0);
+    // cp.async writes through the generic proxy: order K's and V's before
+    // wgmma's reads (the barrier made them visible to this thread). A
+    // stage's Q and dO are ordered by the fence after the scaling below.
+    if constexpr (PROD != kTma) hw::fence_proxy_async();
 
     float dk[DP / 8][4], dv[DP / 8][4];
     zero_acc(dk);
@@ -1255,10 +1449,10 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     for (int t = w; t < steps; t += 2) {
       const int row0 = (lo + t % nlive) * BQ;
       const int st = t % S;
-      unsigned char* q_tile = sm + L::kQ + st * tile_bytes(BQ, DP);
+      unsigned char* q_tile = sm + L::kQ + st * L::kTile;
       const uint32_t q_base = hw::opaque(hw::smem_addr(q_tile));
       const uint32_t do_base =
-          hw::opaque(hw::smem_addr(sm + L::kDO + st * tile_bytes(BQ, DP)));
+          hw::opaque(hw::smem_addr(sm + L::kDO + st * L::kTile));
       const uint32_t qs_base = hw::opaque(hw::smem_addr(qs_tile));
       const uint32_t k_base = hw::opaque(hw::smem_addr(sm + L::kK));
       const uint32_t v_base = hw::opaque(hw::smem_addr(sm + L::kV));
@@ -1268,8 +1462,7 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
       // Qs = bf16(Q * scale * log2e) into this warpgroup's buffer, once
       // its previous products have read the last one.
       hw::named_barrier(1 + w, kWgThreads);
-      scale_chunks(q_tile, qs_tile, tile_bytes(BQ, DP), p.scale2, wt,
-                   kWgThreads);
+      scale_chunks(q_tile, qs_tile, L::kTile, p.scale2, wt, kWgThreads);
       hw::fence_proxy_async();
       hw::named_barrier(1 + w, kWgThreads);
 
@@ -1339,9 +1532,9 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     hw::fence_acc(dk);
     if (pending >= 0 && lane == 0) hw::mbar_arrive(&empty[pending]);
 
-    // dK, dV = warpgroup 0's + warpgroup 1's (through the drained ring),
-    // in that order.
-    float* red = reinterpret_cast<float*>(sm + L::kQ);
+    // dK, dV = warpgroup 0's + warpgroup 1's (through shared memory no
+    // product reads any more: L::kRed), in that order.
+    float* red = reinterpret_cast<float*>(sm + L::kRed);
     constexpr int NV = DP / 2;   // values a thread holds of dK (and dV)
     hw::named_barrier(3, 2 * kWgThreads);
     if (w == 1) {
@@ -1382,38 +1575,46 @@ flash_bwd_kv_wgmma(const BwdParams p, const __grid_constant__ CUtensorMap mq,
 // warpgroup 0 through shared memory.
 // Each step's dV / dK product is deferred into the next step, where it
 // runs under that step's partial product and exchange.
-template <int BQ, int DP, bool CL>
+template <int BQ, int DP, bool CL, int PROD = kTma>
 struct KvSplitSmem {
+  static constexpr int kBQ = BQ;
   static constexpr int kBKV = 64;
   static constexpr int kPart = 64 * BQ * 4;   // one fp32 partial
+  static constexpr int kTile = tile_bytes(BQ, DP);
   static constexpr int kK = 0;
   static constexpr int kV = kK + tile_bytes(kBKV, DP);
   static constexpr int kQs = kV + tile_bytes(kBKV, DP);   // warpgroup 1's
-  static constexpr int kX = kQs + tile_bytes(BQ, DP);     // [warpgroup] (CL)
+  static constexpr int kX = kQs + kTile;                  // [warpgroup] (CL)
   static constexpr int kSt = kX + (CL ? 2 * kPart : 0);   // S^T [2]
   static constexpr int kFixed = kSt + 2 * kPart;
   // kv_full, full[S], empty[S], (CL) x_full[2], x_empty[2], s_full[2],
   // s_empty[2]
   static constexpr int kBars = 1 + 4 + (CL ? 4 : 0);
-  // Q, dO, L and the D-term a step, both warpgroups reading every stage.
-  static constexpr int kS = ring_stages(
-      kFixed + 8 * kBars + kAlignSlack, 2 * tile_bytes(BQ, DP) + 8 * BQ + 16,
-      4, 1);
-  static constexpr int kQ = kFixed;                         // [stage]
-  static constexpr int kDO = kQ + kS * tile_bytes(BQ, DP);  // [stage]
-  static constexpr int kL = kDO + kS * tile_bytes(BQ, DP);  // [stage]
-  static constexpr int kD = kL + kS * 4 * BQ;               // [stage]
+  // Q, dO, L and the D-term a step, both warpgroups reading every stage:
+  // as many stages as fit, up to 4 for TMA and kKvCopyStages for the
+  // copying producer (a step's stage is freed by its deferred product, in
+  // the next step).
+  static constexpr int kS =
+      ring_stages(kFixed + 8 * kBars + kAlignSlack, 2 * kTile + 8 * BQ + 16,
+                  PROD == kTma ? 4 : kKvCopyStages, 1);
+  static constexpr int kQ = kFixed;                  // [stage]
+  static constexpr int kDO = kQ + kS * kTile;        // [stage]
+  static constexpr int kL = kDO + kS * kTile;        // [stage]
+  static constexpr int kD = kL + kS * 4 * BQ;        // [stage]
   static constexpr int kBar = kD + kS * 4 * BQ;
   static constexpr int kBytes = kBar + 8 * (2 * kS + kBars) + kAlignSlack;
+  static_assert(kS >= (PROD == kTma ? 1 : 2) && kBytes <= kSmemOptin,
+                "K4 split layout");
 };
 
-template <int BQ, int DP, bool CL>
+template <int BQ, int DP, bool CL, int PROD = kTma>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mdo,
                    const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv) {
-  using L = KvSplitSmem<BQ, DP, CL>;
+  static_assert(PROD == kTma || !CL, "the copying producer on one CTA only");
+  using L = KvSplitSmem<BQ, DP, CL, PROD>;
   constexpr int BKV = L::kBKV;
   constexpr int S = L::kS;
   extern __shared__ unsigned char smem_raw[];
@@ -1449,9 +1650,12 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   const int steps = p.group * nlive;
 
   if (tid == 0) {
-    hw::mbar_init(kv_full, 1);
+    // As in flash_bwd_kv_wgmma: TMA's K and V on one arrival, a stage on
+    // TMA's bytes + 32 lanes' L / D-term; the copying producer's tiles on
+    // one arrival of each producer thread.
+    hw::mbar_init(kv_full, PROD == kTma ? 1 : kWgThreads);
     for (int s = 0; s < S; ++s) {
-      hw::mbar_init(&full[s], 33);   // TMA's bytes + 32 lanes' L / D-term
+      hw::mbar_init(&full[s], PROD == kTma ? 33 : kWgThreads);
       hw::mbar_init(&empty[s], 8);   // every consumer warp
     }
     for (int b = 0; b < 2; ++b) {
@@ -1464,17 +1668,29 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     }
     hw::mbar_init_fence();
   }
+  if constexpr (PROD != kTma) {
+    // K, V, then the Q and dO ring; the scaled-Q tile inherits Q's zeros.
+    zero_pad(p, sm + L::kK, 2, tile_bytes(BKV, DP), BKV, DP, tid);
+    zero_pad(p, sm + L::kQ, 2 * S, L::kTile, BQ, DP, tid);
+    hw::fence_proxy_async();
+  }
   if constexpr (CL)
     hw::cluster_sync();
   else
     __syncthreads();
 
   if (wg == 2) {
-    // Producer warp: K and V once, then Q and dO of each step by TMA (lane
-    // 0) and L and the D-term by cp.async of every lane, as in
-    // flash_bwd_kv_wgmma.
     hw::setmaxnreg_dec<kProducerRegs>();
-    if (tid < 2 * kWgThreads + 32) {
+    if constexpr (PROD != kTma) {
+      with_granule(p, [&](auto granule) {
+        kv_copies<decltype(granule)::value, L>(p, sm, kv_full, full, empty,
+                                               col0, bhkv, lo, nlive, steps,
+                                               tid - 2 * kWgThreads);
+      });
+    } else if (tid < 2 * kWgThreads + 32) {
+      // Producer warp: K and V once, then Q and dO of each step by TMA
+      // (lane 0) and L and the D-term by cp.async of every lane, as in
+      // flash_bwd_kv_wgmma.
       const int lane = tid & 31;
       if (lane == 0) {
         hw::mbar_expect_tx(kv_full, 2 * tile_bytes(BKV, DP));
@@ -1492,9 +1708,9 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
         const int st = t % S;
         hw::mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
         if (lane == 0) {
-          hw::mbar_expect_tx(&full[st], 2 * tile_bytes(BQ, DP));
-          unsigned char* q_tile = sm + L::kQ + st * tile_bytes(BQ, DP);
-          unsigned char* do_tile = sm + L::kDO + st * tile_bytes(BQ, DP);
+          hw::mbar_expect_tx(&full[st], 2 * L::kTile);
+          unsigned char* q_tile = sm + L::kQ + st * L::kTile;
+          unsigned char* do_tile = sm + L::kDO + st * L::kTile;
 #pragma unroll
           for (int pn = 0; pn < DP / 64; ++pn) {
             hw::tma_load_3d(q_tile + pn * BQ * kPanelBytes, &mq, &full[st],
@@ -1525,12 +1741,15 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
                               &x_full[w], &x_empty[w], rank, size, wt, lane};
     unsigned char* qs_tile = sm + L::kQs;
     auto q_base = [&](int st) {
-      return hw::opaque(hw::smem_addr(sm + L::kQ + st * tile_bytes(BQ, DP)));
+      return hw::opaque(hw::smem_addr(sm + L::kQ + st * L::kTile));
     };
     auto do_base = [&](int st) {
-      return hw::opaque(hw::smem_addr(sm + L::kDO + st * tile_bytes(BQ, DP)));
+      return hw::opaque(hw::smem_addr(sm + L::kDO + st * L::kTile));
     };
     hw::mbar_wait(kv_full, 0);
+    // cp.async writes through the generic proxy: order them before
+    // wgmma's reads (the barrier made them visible to this thread).
+    if constexpr (PROD != kTma) hw::fence_proxy_async();
 
     // This warpgroup's output panel: dV (warpgroup 1) or dK (0).
     float acc[DP / 8][4];
@@ -1550,11 +1769,12 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
       const float* sL = reinterpret_cast<const float*>(sm + L::kL) + st * BQ;
       const float* sD = reinterpret_cast<const float*>(sm + L::kD) + st * BQ;
       hw::mbar_wait(&full[st], (t / S) & 1);
+      if constexpr (PROD != kTma) hw::fence_proxy_async();
       if (w == 1) {
         // Qs = bf16(Q * scale * log2e); every product of the last step
         // has completed.
-        scale_chunks(sm + L::kQ + st * tile_bytes(BQ, DP), qs_tile,
-                     tile_bytes(BQ, DP), p.scale2, wt, kWgThreads);
+        scale_chunks(sm + L::kQ + st * L::kTile, qs_tile, L::kTile,
+                     p.scale2, wt, kWgThreads);
         hw::fence_proxy_async();
         hw::named_barrier(2, kWgThreads);
       }
@@ -1690,7 +1910,7 @@ flash_bwd_kv_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
 // rank order), forms dS and accumulates its panel of dQ. Each step's dQ
 // product is deferred into the next step, as K1 defers its PV, and runs
 // under that step's partial products' exchange and dS.
-template <int BKV, int DP, bool CL>
+template <int BKV, int DP, bool CL, int PROD = kTma>
 struct QSplitSmem {
   static constexpr int kBQ = 128;
   // A thread's chunks of one exchange: S's and dP's n-tiles.
@@ -1703,30 +1923,37 @@ struct QSplitSmem {
   static constexpr int kL = kX + (CL ? 2 * kSlot : 0);
   static constexpr int kD = kL + 4 * kBQ;
   static constexpr int kK = kD + 4 * kBQ;                // [K stage]
-  // K and V tiles that fit beside the rest, each with a full and an empty
-  // mbarrier, in two rings: K's (read by a step's S and, a step later, by
-  // its deferred dQ product) gets up to 4 stages keeping one for V, V's
-  // (read by dP only) the rest, up to 4.
+  // The K and V tiles that fit beside the rest, each with a full and an
+  // empty mbarrier, in two rings: TMA's K ring (read by a step's S and, a
+  // step later, by its deferred dQ product) gets up to 4 stages keeping
+  // one for V, its V ring (read by dP only) the rest, up to 4; the
+  // copying producer's rings half the tiles each, up to kQCopyStages.
   static constexpr int kTiles =
       (kSmemOptin - kK - 8 * (1 + (CL ? 4 : 0)) - kAlignSlack) / (kTile + 16);
+  static constexpr int kCopyS =
+      kTiles / 2 < kQCopyStages ? kTiles / 2 : kQCopyStages;
   static constexpr int kSV =
-      kTiles - 4 > 1 ? (kTiles - 4 < 4 ? kTiles - 4 : 4) : 1;
-  static constexpr int kSK = kTiles - kSV < 4 ? kTiles - kSV : 4;
+      PROD != kTma ? kCopyS
+                   : kTiles - 4 > 1 ? (kTiles - 4 < 4 ? kTiles - 4 : 4) : 1;
+  static constexpr int kSK =
+      PROD != kTma ? kCopyS : kTiles - kSV < 4 ? kTiles - kSV : 4;
   static constexpr int kV = kK + kSK * kTile;            // [V stage]
   // q_full, full_k[SK], empty_k[SK], full_v[SV], empty_v[SV], (CL)
   // x_full[2], x_empty[2]
   static constexpr int kBar = kV + kSV * kTile;
   static constexpr int kBytes =
       kBar + 8 * (1 + 2 * kSK + 2 * kSV + (CL ? 4 : 0)) + kAlignSlack;
+  static_assert(kSK >= 2 && kBytes <= kSmemOptin, "K3 split layout");
 };
 
-template <int BKV, int DP, bool CL>
+template <int BKV, int DP, bool CL, int PROD = kTma>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_bwd_q_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
                   const __grid_constant__ CUtensorMap mdo,
                   const __grid_constant__ CUtensorMap mk,
                   const __grid_constant__ CUtensorMap mv) {
-  using L = QSplitSmem<BKV, DP, CL>;
+  static_assert(PROD == kTma || !CL, "the copying producer on one CTA only");
+  using L = QSplitSmem<BKV, DP, CL, PROD>;
   constexpr int BQ = L::kBQ;
   constexpr int SK = L::kSK, SV = L::kSV;
   extern __shared__ unsigned char smem_raw[];
@@ -1764,13 +1991,16 @@ flash_bwd_q_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
   const int nblk = max(hi_c - lo_c + 1, 0);
 
   if (tid == 0) {
-    hw::mbar_init(q_full, 1);
+    // TMA's tiles complete on one arrival and their bytes; the copying
+    // producer's on one arrival of each producer thread.
+    const int fills = PROD == kTma ? 1 : kWgThreads;
+    hw::mbar_init(q_full, fills);
     for (int s = 0; s < SK; ++s) {
-      hw::mbar_init(&full_k[s], 1);
+      hw::mbar_init(&full_k[s], fills);
       hw::mbar_init(&empty_k[s], 8);   // every consumer warp
     }
     for (int s = 0; s < SV; ++s) {
-      hw::mbar_init(&full_v[s], 1);
+      hw::mbar_init(&full_v[s], fills);
       hw::mbar_init(&empty_v[s], 8);
     }
     if constexpr (CL) {
@@ -1781,6 +2011,12 @@ flash_bwd_q_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     }
     hw::mbar_init_fence();
   }
+  if constexpr (PROD != kTma) {
+    // Q and dO, then the K and V rings (adjacent).
+    zero_pad(p, sm + L::kQ, 2, tile_bytes(BQ, DP), BQ, DP, tid);
+    zero_pad(p, sm + L::kK, SK + SV, L::kTile, BKV, DP, tid);
+    hw::fence_proxy_async();
+  }
   if constexpr (CL)
     hw::cluster_sync();
   else
@@ -1790,7 +2026,29 @@ flash_bwd_q_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     // Producer: this panel of Q and dO once, then of K and V of each
     // block of the walk.
     hw::setmaxnreg_dec<kProducerRegs>();
-    if (tid == 2 * kWgThreads) {
+    if constexpr (PROD != kTma) {
+      // The copying producer (one CTA, the whole head dim), all 128
+      // threads, one arrival a thread a tile.
+      const int pt = tid - 2 * kWgThreads;
+      with_granule(p, [&](auto granule) {
+        constexpr int G = decltype(granule)::value;
+        copy_head_rows<BQ, G>(p, sm + L::kQ, p.q, bh, i * BQ, p.R, pt);
+        copy_head_rows<BQ, G>(p, sm + L::kDO, p.d_o, bh, i * BQ, p.R,
+                              pt);
+        hw::cp_async_arrive(q_full);
+        for (int t = 0; t < nblk; ++t) {
+          const int j = lo_c + t, sk = t % SK, sv = t % SV;
+          hw::mbar_wait(&empty_k[sk], ((t / SK) & 1) ^ 1);
+          copy_head_rows<BKV, G>(p, sm + L::kK + sk * L::kTile, p.k,
+                                 bhkv, j * BKV, p.C, pt);
+          hw::cp_async_arrive(&full_k[sk]);
+          hw::mbar_wait(&empty_v[sv], ((t / SV) & 1) ^ 1);
+          copy_head_rows<BKV, G>(p, sm + L::kV + sv * L::kTile, p.v, bhkv,
+                                 j * BKV, p.C, pt);
+          hw::cp_async_arrive(&full_v[sv]);
+        }
+      });
+    } else if (tid == 2 * kWgThreads) {
       hw::mbar_expect_tx(q_full, 2 * tile_bytes(BQ, DP));
 #pragma unroll
       for (int pn = 0; pn < DP / 64; ++pn) {
@@ -1852,8 +2110,8 @@ flash_bwd_q_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
     // The exchange of S's and dP's partials with this warpgroup's twin in
     // the other CTA: chunks [0, BKV / 8) S's n-tiles, then dP's.
     using Sum = hw::ClusterSum<L::kNch>;
-    Sum xs{hw::smem_addr(sm + L::kX + w * L::kSlot), &x_full[w], &x_empty[w],
-           rank, size, wt, lane};
+    Sum xs{hw::smem_addr(sm + L::kX + w * L::kSlot), &x_full[w],
+           &x_empty[w], rank, size, wt, lane};
 
     float dq[DP / 8][4];
     zero_acc(dq);
@@ -1867,6 +2125,9 @@ flash_bwd_q_split(const BwdParams p, const __grid_constant__ CUtensorMap mq,
       const int col0 = (lo_c + t) * BKV;
       hw::mbar_wait(&full_k[sk], (t / SK) & 1);
       hw::mbar_wait(&full_v[sv], (t / SV) & 1);
+      // cp.async writes through the generic proxy: order them before
+      // wgmma's reads (the barriers made them visible to this thread).
+      if constexpr (PROD != kTma) hw::fence_proxy_async();
       const uint32_t k_cur = k_base(sk);
       const uint32_t v_cur =
           hw::opaque(hw::smem_addr(sm + L::kV + sv * L::kTile));
@@ -2036,105 +2297,94 @@ cudaError_t launch_kv_f32(int bhkv, const BwdParams& p, cudaStream_t s) {
                 smem, p, s);
 }
 
-template <int BKV, int DP>
-cudaError_t launch_q_wgmma(int bh, const BwdParams& p, cudaStream_t s) {
-  using L = QWgmmaSmem<BKV, DP>;
-  CUtensorMap mq, mdo, mk, mv;
-  const int bhkv = bh / p.group;
-  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, L::kBQ) ||
-      !hw::tile_map_bf16(&mdo, p.d_o, p.D, p.R, bh, L::kBQ) ||
-      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
-      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV))
-    return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_q_wgmma<BKV, DP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<(p.R + L::kBQ - 1) / L::kBQ * bh, kWgmmaThreads, L::kBytes, s>>>(
-      p, mq, mdo, mk, mv);
-  return cudaGetLastError();
+// The wgmma kernels' launch: the shared memory set, the tensor maps TMA
+// reads (none for the copying producer), the kernel on a plain launch of
+// `grid` CTAs or on clusters of `panels` CTAs (CL).
+template <bool CL, typename Kernel>
+cudaError_t launch_wgmma(Kernel kernel, int grid, int panels, int bytes,
+                         const BwdParams& p, const CUtensorMap& mq,
+                         const CUtensorMap& mdo, const CUtensorMap& mk,
+                         const CUtensorMap& mv, cudaStream_t s) {
+  if constexpr (CL) {
+    static int fits[9] = {};
+    return hw::launch_clusters(kernel, grid, panels, bytes, s, fits, p, mq,
+                               mdo, mk, mv);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWgmmaThreads, bytes, s>>>(p, mq, mdo, mk, mv);
+    return cudaGetLastError();
+  }
 }
 
-template <int BQ, int DP>
-cudaError_t launch_kv_wgmma(int bhkv, const BwdParams& p, cudaStream_t s) {
-  using L = KvWgmmaSmem<BQ, DP>;
-  CUtensorMap mq, mdo, mk, mv;
-  const int bh = bhkv * p.group;
-  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, BQ) ||
-      !hw::tile_map_bf16(&mdo, p.d_o, p.D, p.R, bh, BQ) ||
-      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, L::kBKV) ||
-      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, L::kBKV))
+// Tensor maps of q, dO ([BH, R, D], boxes of bq rows) and k, v ([BH /
+// group, C, D], boxes of bkv rows) for TMA; false where TMA cannot map
+// one. The copying producer (PROD kCopy) needs none.
+template <int PROD>
+bool bwd_maps(const BwdParams& p, int bh, int bq, int bkv, CUtensorMap* mq,
+              CUtensorMap* mdo, CUtensorMap* mk, CUtensorMap* mv) {
+  const int bhkv = bh / p.group;
+  return PROD != kTma ||
+         (hw::tile_map_bf16(mq, p.q, p.D, p.R, bh, bq) &&
+          hw::tile_map_bf16(mdo, p.d_o, p.D, p.R, bh, bq) &&
+          hw::tile_map_bf16(mk, p.k, p.D, p.C, bhkv, bkv) &&
+          hw::tile_map_bf16(mv, p.v, p.D, p.C, bhkv, bkv));
+}
+
+template <int BKV, int DP, int PROD = kTma>
+cudaError_t launch_q_wgmma(int bh, const BwdParams& p, cudaStream_t s) {
+  using L = QWgmmaSmem<BKV, DP, PROD>;
+  CUtensorMap mq{}, mdo{}, mk{}, mv{};
+  if (!bwd_maps<PROD>(p, bh, L::kBQ, BKV, &mq, &mdo, &mk, &mv))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_kv_wgmma<BQ, DP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<(p.C + L::kBKV - 1) / L::kBKV * bhkv, kWgmmaThreads, L::kBytes,
-           s>>>(p, mq, mdo, mk, mv);
-  return cudaGetLastError();
+  return launch_wgmma<false>(flash_bwd_q_wgmma<BKV, DP, PROD>,
+                             (p.R + L::kBQ - 1) / L::kBQ * bh, 1, L::kBytes,
+                             p, mq, mdo, mk, mv, s);
+}
+
+template <int BQ, int DP, int PROD = kTma>
+cudaError_t launch_kv_wgmma(int bhkv, const BwdParams& p, cudaStream_t s) {
+  using L = KvWgmmaSmem<BQ, DP, PROD>;
+  CUtensorMap mq{}, mdo{}, mk{}, mv{};
+  if (!bwd_maps<PROD>(p, bhkv * p.group, BQ, L::kBKV, &mq, &mdo, &mk, &mv))
+    return cudaErrorInvalidValue;
+  return launch_wgmma<false>(flash_bwd_kv_wgmma<BQ, DP, PROD>,
+                             (p.C + L::kBKV - 1) / L::kBKV * bhkv, 1,
+                             L::kBytes, p, mq, mdo, mk, mv, s);
 }
 
 // K4 on wide panels: P = panels CTAs a kv-block tile, CL for two (a
 // cluster, the tile's CTAs adjacent on grid.x), one CTA without; grid.x =
 // kv blocks x heads x panels, the first kv blocks (the longest causal
 // walks) first.
-template <int BQ, int DP, bool CL>
+template <int BQ, int DP, bool CL, int PROD = kTma>
 cudaError_t launch_kv_split(int bhkv, int panels, const BwdParams& p,
                             cudaStream_t s) {
-  using L = KvSplitSmem<BQ, DP, CL>;
-  static_assert(L::kS >= 1 && L::kBytes <= kSmemOptin, "K4 split layout");
-  if (panels != (CL ? 2 : 1)) return cudaErrorInvalidValue;
-  CUtensorMap mq, mdo, mk, mv;
-  const int bh = bhkv * p.group;
-  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, BQ) ||
-      !hw::tile_map_bf16(&mdo, p.d_o, p.D, p.R, bh, BQ) ||
-      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, L::kBKV) ||
-      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, L::kBKV))
+  using L = KvSplitSmem<BQ, DP, CL, PROD>;
+  CUtensorMap mq{}, mdo{}, mk{}, mv{};
+  if (panels != (CL ? 2 : 1) ||
+      !bwd_maps<PROD>(p, bhkv * p.group, BQ, L::kBKV, &mq, &mdo, &mk, &mv))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_kv_split<BQ, DP, CL>;
-  const int grid = (p.C + L::kBKV - 1) / L::kBKV * bhkv * panels;
-  if constexpr (CL) {
-    static int fits[9] = {};
-    return hw::launch_clusters(kernel, grid, panels, L::kBytes, s, fits, p,
-                               mq, mdo, mk, mv);
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kWgmmaThreads, L::kBytes, s>>>(p, mq, mdo, mk, mv);
-    return cudaGetLastError();
-  }
+  return launch_wgmma<CL>(flash_bwd_kv_split<BQ, DP, CL, PROD>,
+                          (p.C + L::kBKV - 1) / L::kBKV * bhkv * panels,
+                          panels, L::kBytes, p, mq, mdo, mk, mv, s);
 }
 
 // K3 on wide panels: P = panels CTAs a (q-block, head) tile, CL for two
 // (a cluster, the tile's CTAs adjacent on grid.x), one CTA without; the
 // last q-blocks (the longest causal walks) first.
-template <int BKV, int DP, bool CL>
+template <int BKV, int DP, bool CL, int PROD = kTma>
 cudaError_t launch_q_split(int bh, int panels, const BwdParams& p,
                            cudaStream_t s) {
-  using L = QSplitSmem<BKV, DP, CL>;
-  static_assert(L::kSK >= 2 && L::kBytes <= kSmemOptin, "K3 split layout");
-  if (panels != (CL ? 2 : 1)) return cudaErrorInvalidValue;
-  CUtensorMap mq, mdo, mk, mv;
-  const int bhkv = bh / p.group;
-  if (!hw::tile_map_bf16(&mq, p.q, p.D, p.R, bh, L::kBQ) ||
-      !hw::tile_map_bf16(&mdo, p.d_o, p.D, p.R, bh, L::kBQ) ||
-      !hw::tile_map_bf16(&mk, p.k, p.D, p.C, bhkv, BKV) ||
-      !hw::tile_map_bf16(&mv, p.v, p.D, p.C, bhkv, BKV))
+  using L = QSplitSmem<BKV, DP, CL, PROD>;
+  CUtensorMap mq{}, mdo{}, mk{}, mv{};
+  if (panels != (CL ? 2 : 1) ||
+      !bwd_maps<PROD>(p, bh, L::kBQ, BKV, &mq, &mdo, &mk, &mv))
     return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_q_split<BKV, DP, CL>;
-  const int grid = (p.R + L::kBQ - 1) / L::kBQ * bh * panels;
-  if constexpr (CL) {
-    static int fits[9] = {};
-    return hw::launch_clusters(kernel, grid, panels, L::kBytes, s, fits, p,
-                               mq, mdo, mk, mv);
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kWgmmaThreads, L::kBytes, s>>>(p, mq, mdo, mk, mv);
-    return cudaGetLastError();
-  }
+  return launch_wgmma<CL>(flash_bwd_q_split<BKV, DP, CL, PROD>,
+                          (p.R + L::kBQ - 1) / L::kBQ * bh * panels, panels,
+                          L::kBytes, p, mq, mdo, mk, mv, s);
 }
 
 // TMA maps these operands: bf16 rows of a multiple of 16 bytes, 16-byte
@@ -2153,6 +2403,53 @@ int vec_ok(int D, const void* a, const void* b, const void* c,
   return (D % 8 == 0) && (ptr_or % 16 == 0);
 }
 
+// The copying producer's granule (hopper.cuh copy_granule) of the tensors
+// it copies: q, k, v and dO.
+int bwd_granule(const BwdParams& p) {
+  return hw::copy_granule(
+      p.D,
+      reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
+          reinterpret_cast<uintptr_t>(p.v) |
+          reinterpret_cast<uintptr_t>(p.d_o));
+}
+
+// K3 with the copying producer: one CTA of the wgmma kernel (kernel 1) or
+// of the head-dim-split kernel (kernel 3) at the table's row up to D =
+// 256 (ops/params.py BWD_Q_COPY_ROWS).
+cudaError_t launch_q_copying(int bh, int kernel, int block_kv, int block_d,
+                             const BwdParams& p, cudaStream_t s) {
+  if (kernel == 1 && block_kv == 64 && block_d == 64)
+    return launch_q_wgmma<64, 64, kCopy>(bh, p, s);
+  if (kernel == 1 && block_kv == 64 && block_d == 128)
+    return launch_q_wgmma<64, 128, kCopy>(bh, p, s);
+  if (kernel == 3 && block_kv == 32 && block_d == 192)
+    return launch_q_split<32, 192, false, kCopy>(bh, 1, p, s);
+  if (kernel == 3 && block_kv == 32 && block_d == 256)
+    return launch_q_split<32, 256, false, kCopy>(bh, 1, p, s);
+  return cudaErrorInvalidValue;
+}
+
+// K4 with the copying producer, as K3 (ops/params.py BWD_KV_COPY_ROWS).
+cudaError_t launch_kv_copying(int bhkv, int kernel, int block_q,
+                              int block_d, const BwdParams& p,
+                              cudaStream_t s) {
+  if (kernel == 1 && block_q == 64 && block_d == 64)
+    return launch_kv_wgmma<64, 64, kCopy>(bhkv, p, s);
+  if (kernel == 1 && block_q == 32 && block_d == 128)
+    return launch_kv_wgmma<32, 128, kCopy>(bhkv, p, s);
+  if (kernel == 3 && block_q == 32 && block_d == 192)
+    return launch_kv_split<32, 192, false, kCopy>(bhkv, 1, p, s);
+  if (kernel == 3 && block_q == 32 && block_d == 256)
+    return launch_kv_split<32, 256, false, kCopy>(bhkv, 1, p, s);
+  return cudaErrorInvalidValue;
+}
+
+// A copying launch's conditions: bf16, one CTA holding the whole head dim
+// (D <= block_d), rows and bases of 4 bytes or more.
+bool copy_ok(const BwdParams& p, int dtype, int panels, int block_d) {
+  return dtype == 1 && panels == 1 && p.D <= block_d && p.gran >= 4;
+}
+
 }  // namespace
 
 // K3. dtype: 0 = fp32, 1 = bf16 (q, k, v, d_o); o_f32: O is fp32 (else the
@@ -2160,7 +2457,9 @@ int vec_ok(int D, const void* a, const void* b, const void* c,
 // wgmma kernel, 2 the D-blocked kernels (mma.sync / FMA) over `panels`
 // head-dim panels, 3 the head-dim-split kernel over `panels` panels (one
 // CTA, or a cluster of two). (kernel, block_q, block_kv, block_d) must be
-// a row of ops/params.py's flash_bwd_q tables.
+// a row of ops/params.py's flash_bwd_q tables. producer (kernels 1 and 3):
+// 0 TMA, 1 cp.async (hopper.cuh Producer; 1 on one CTA, for bf16 rows TMA
+// cannot map whose bases and row stride share 4 bytes).
 extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                const void* o, const void* d_o,
                                const void* lse, void* dq, void* dterm,
@@ -2168,14 +2467,22 @@ extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
                                int panels, int causal, int window,
                                float scale2, float cap2, float scale,
                                int dtype, int o_f32, int kernel, int block_q,
-                               int block_kv, int block_d, void* stream) {
+                               int block_kv, int block_d, int producer,
+                               void* stream) {
   if (!mfa::panels_ok(kernel, D, block_d, panels))
     return cudaErrorInvalidValue;
   BwdParams p{q, k, v, o, d_o, static_cast<const float*>(lse),
               static_cast<float*>(dterm), static_cast<float*>(dq), nullptr,
               nullptr, group, R, C, D, causal, window, scale2, cap2, scale,
               o_f32, vec_ok(D, q, k, v, d_o)};
+  p.gran = bwd_granule(p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (producer == kCopy) {
+    if (!copy_ok(p, dtype, panels, block_d) || block_q != 128)
+      return cudaErrorInvalidValue;
+    return launch_q_copying(bh, kernel, block_kv, block_d, p, s);
+  }
+  if (producer != kTma) return cudaErrorInvalidValue;
   if (dtype == 0) {
     if (kernel == 2 && block_q == 16 && block_kv == 32) {
       if (block_d == 128) return launch_q_f32<16, 128, true>(bh, p, s);
@@ -2233,7 +2540,7 @@ extern "C" int mfa_flash_bwd_q(const void* q, const void* k, const void* v,
 // K4. dtype, kernel and panels as for K3 (kernel 3 the head-dim-split
 // kernel over `panels` panels: one CTA, or a cluster of two); the D-term
 // is K3's. (kernel, block_q, block_kv, block_d) must be a row of
-// ops/params.py's flash_bwd_kv tables.
+// ops/params.py's flash_bwd_kv tables; producer as for K3.
 extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 const void* d_o, const void* lse,
                                 const void* dterm, void* dk, void* dv,
@@ -2241,7 +2548,8 @@ extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 int panels, int causal, int window,
                                 float scale2, float cap2, float scale,
                                 int dtype, int kernel, int block_q,
-                                int block_kv, int block_d, void* stream) {
+                                int block_kv, int block_d, int producer,
+                                void* stream) {
   if (!mfa::panels_ok(kernel, D, block_d, panels))
     return cudaErrorInvalidValue;
   BwdParams p{q, k, v, nullptr, d_o, static_cast<const float*>(lse),
@@ -2249,7 +2557,14 @@ extern "C" int mfa_flash_bwd_kv(const void* q, const void* k, const void* v,
               static_cast<float*>(dk), static_cast<float*>(dv), group, R, C,
               D, causal, window, scale2, cap2, scale, 0,
               vec_ok(D, q, k, v, d_o)};
+  p.gran = bwd_granule(p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (producer == kCopy) {
+    if (!copy_ok(p, dtype, panels, block_d) || block_kv != 64)
+      return cudaErrorInvalidValue;
+    return launch_kv_copying(bhkv, kernel, block_q, block_d, p, s);
+  }
+  if (producer != kTma) return cudaErrorInvalidValue;
   if (dtype == 0) {
     if (kernel == 2 && block_q == 32 && block_kv == 16) {
       if (block_d == 128) return launch_kv_f32<16, 128, true>(bhkv, p, s);

@@ -576,13 +576,8 @@ flash_fwd_f32(FwdParams p) {
 // ---------------------------------------------------------------------------
 constexpr int kBQ = 128;   // query rows a CTA, 64 a consumer warpgroup
 
-// How the wgmma kernel's producer warpgroup fills Q's tile and the K and
-// V rings: kTma, one thread issuing TMA boxes (rows TMA maps: D % 8 == 0,
-// 16-byte-aligned bases); kCopy, its 128 threads issuing cp.async of the
-// granule every base and row shares (4 or 8 bytes) straight into the
-// swizzled tiles, each thread's copies counted on the tile's full barrier
-// (cp.async.mbarrier.arrive.noinc).
-enum Producer : int { kTma = 0, kCopy = 1 };
+// The wgmma kernel's producer fills Q's tile and the K and V rings by TMA
+// or by cp.async (hopper.cuh Producer).
 
 // Shared memory: Q [kBQ x DP], the cluster kernel's exchange slots (two
 // consumer warpgroups x `peers` slots of 64 x bkv fp32), `sk` K tiles and
@@ -1232,11 +1227,7 @@ extern "C" int mfa_flash_fwd(const void* q, const void* k, const void* v,
   p.vec = (D % 8 == 0) && (ptr_or % 16 == 0);
   // The largest of 16, 8, 4 (else 2) bytes that every base, O's too, and
   // the bf16 row stride 2 D are multiples of.
-  p.gran = 16;
-  while (p.gran > 2 &&
-         ((ptr_or | reinterpret_cast<uintptr_t>(o)) % p.gran ||
-          (2 * D) % p.gran))
-    p.gran /= 2;
+  p.gran = hw::copy_granule(D, ptr_or | reinterpret_cast<uintptr_t>(o));
   p.o_f32 = dtype == 2;
   p.stages_k = stages_k;
   p.stages_v = stages_v;

@@ -650,6 +650,23 @@ __device__ __forceinline__ void for_runs(int rows, int row_bytes, int t,
   }
 }
 
+// How a warp-specialised flash kernel's producer warpgroup fills its
+// tiles: kTma, one thread issuing TMA boxes (rows TMA maps: D % 8 == 0,
+// 16-byte-aligned bases); kCopy, its 128 threads issuing cp.async of the
+// granule every base and row shares (4 or 8 bytes) straight into the
+// swizzled tiles (copy_rows), each thread's copies counted on the tile's
+// full barrier (cp.async.mbarrier.arrive.noinc, 128 arrivals).
+enum Producer : int { kTma = 0, kCopy = 1 };
+
+// The largest of 16, 8, 4 (else 2) bytes that the bases OR-ed into
+// `ptr_or` and the bf16 row stride 2 D are multiples of: the copying
+// producer's granule (ops/descriptors.py copy_granule).
+inline int copy_granule(int D, uintptr_t ptr_or) {
+  int g = 16;
+  while (g > 2 && (ptr_or % g || (2 * D) % g)) g /= 2;
+  return g;
+}
+
 // Rows [row0, row0 + ROWS) of a bf16 tensor of `limit` rows of
 // `row_bytes` bytes at `src` into a swizzled [ROWS x DP] tile by cp.async,
 // G bytes a copy (the granule every row shares), thread t of n along

@@ -49,6 +49,7 @@ _SIGNATURES = {
                                                     # cap2 scale
                         _I, _I, _I, _I, _I, _I,     # dtype o_f32 kernel
                                                     # block_q kv d
+                        _I,                         # producer
                         _P],                        # stream
     "mfa_flash_bwd_kv": [_P, _P, _P, _P, _P, _P,    # q k v do lse dterm
                          _P, _P,                    # dk dv
@@ -58,6 +59,7 @@ _SIGNATURES = {
                                                     # cap2 scale
                          _I, _I, _I, _I, _I,        # dtype kernel block_q
                                                     # kv d
+                         _I,                        # producer
                          _P],                       # stream
     "mfa_decode_fused_append": [_P, _P, _P, _P, _P,  # q k v ks vs
                                 _P, _P, _P,          # k_new v_new lengths

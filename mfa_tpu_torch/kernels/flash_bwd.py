@@ -12,10 +12,16 @@ Which kernel a launch runs is the descriptor's parameter row
 (``ops/params.py``): bf16 rows up to D = 128 name the warp-specialised
 TMA + wgmma kernels, bf16 rows from D 136 to 512 the head-dim-split
 kernels (``wgmma_dblk``), the others the first-cut mma.sync or FMA
-kernels. A wgmma or wgmma_dblk row whose operands a TMA tensor map cannot
-hold (D % 8 != 0, a base address not 16-byte aligned) runs the mma.sync
-row of the same head dim
+kernels. Their producers fill the tiles by TMA where TMA maps the
+operands; where it cannot (D % 8 != 0, a base off 16 bytes) but one CTA
+holds D (D <= 256) and the rows and every base (q, k, v, dO) share 4
+bytes (D even), the same kernel runs with a copying producer
+(``params.PRODUCERS``, passed as the C entry's last int), as K1's
+does;
+otherwise the mma.sync row of its head dim
 (:func:`~mfa_tpu_torch.ops.descriptors.launch_row`, shared with K1).
+Each wrapper counts its launches by the row that ran
+(``launches_by_row[name]``).
 Past D = 128 a launch covers dQ (K3) or dK
 and dV (K4) in ceil(D / block_d) head-dim panels, as ``mfa_tpu``'s
 kernels page D in ``block_d`` slices (flash_bwd.py:175-235, :530-656):
@@ -34,6 +40,8 @@ inputs' type; O in the inputs' type or fp32. Outputs are fp32: dQ
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from mfa_tpu_torch.kernels import build
@@ -43,12 +51,15 @@ from mfa_tpu_torch.kernels.flash_fwd import (
     output_buffers,
     visible_mask,
 )
+from mfa_tpu_torch.ops import params
 from mfa_tpu_torch.ops.descriptors import (
     KERNEL_CODES,
     AttentionKernelDescriptor,
     head_dim_panels,
     launch_row,
+    row_label,
 )
+
 
 def _probs_and_ds(q3, k3, v3, do3, lse, dterm, kd, group, scale):
     """P and dS [BH, R, C] (fp32) with the kernels' rounding points: S from
@@ -152,6 +163,13 @@ def _cap2(kd):
     return kd.logit_soft_cap * LOG2E if kd.logit_soft_cap is not None else 0.0
 
 
+def _launch_codes(row) -> tuple:
+    """The row's (kernel code, block_q, block_kv, block_d, producer
+    code), the C entry's ints before the stream."""
+    return (KERNEL_CODES[row.kernel], row.block_q, row.block_kv,
+            row.block_d, params.PRODUCERS[row.producer])
+
+
 def flash_bwd_q(q3, k3, v3, o3, do3, lse, kd: AttentionKernelDescriptor, *,
                 group: int, scale: float, out=None):
     """K3: launches the CUDA kernel for CUDA tensors (or raises); takes the
@@ -178,9 +196,10 @@ def flash_bwd_q(q3, k3, v3, o3, do3, lse, kd: AttentionKernelDescriptor, *,
         int(kd.causal), kd.sliding_window or 0, scale * LOG2E, _cap2(kd),
         scale,
         _dtype_code(q3), int(o3.dtype == torch.float32),
-        KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
+        *_launch_codes(row),
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_bwd_q.launches += 1
+    launches_by_row["flash_bwd_q"][row_label(row)] += 1
     return dq, dterm
 
 
@@ -210,12 +229,16 @@ def flash_bwd_kv(q3, k3, v3, do3, lse, dterm,
         do3.data_ptr(), lse.data_ptr(), dterm.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), bhkv, group, r, c, d, panels, int(kd.causal),
         kd.sliding_window or 0, scale * LOG2E, _cap2(kd), scale,
-        _dtype_code(q3), KERNEL_CODES[row.kernel], row.block_q,
-        row.block_kv, row.block_d,
+        _dtype_code(q3), *_launch_codes(row),
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_bwd_kv.launches += 1
+    launches_by_row["flash_bwd_kv"][row_label(row)] += 1
     return dk, dv
 
 
 flash_bwd_q.launches = 0
 flash_bwd_kv.launches = 0
+# Each kernel's launches by the row that ran (descriptors.row_label:
+# "wgmma", "wgmma/copy", "mma", ...), whatever stands in for its wrapper.
+launches_by_row = {"flash_bwd_q": collections.Counter(),
+                   "flash_bwd_kv": collections.Counter()}

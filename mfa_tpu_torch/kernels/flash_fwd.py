@@ -14,7 +14,7 @@ read at each call), the others the first-cut mma.sync or FMA kernels.
 Its producer fills the tiles by TMA where TMA maps the operands;
 where it cannot (D % 8 != 0, a base off 16 bytes) but one CTA holds D
 (D <= 256) and the rows and every base share 4 bytes (D even), the same
-kernel runs with a copying producer (``params.FWD_PRODUCERS``, passed
+kernel runs with a copying producer (``params.PRODUCERS``, passed
 as the C entry's producer code); otherwise the mma.sync row of
 its head dim (:func:`~mfa_tpu_torch.ops.descriptors.launch_row`). Past D
 = 128 (``wgmma_dblk``) it runs on a 192- or 256-wide head-dim panel: one
@@ -177,7 +177,7 @@ def flash_fwd(q3, k3, v3, kd: AttentionKernelDescriptor, *, group: int,
         int(kd.causal), kd.sliding_window or 0, scale * LOG2E, cap2,
         dtype_code,
         KERNEL_CODES[row.kernel], row.block_q, row.block_kv, row.block_d,
-        *rings, int(params.FWD_PINGPONG), params.FWD_PRODUCERS[row.producer],
+        *rings, int(params.FWD_PINGPONG), params.PRODUCERS[row.producer],
         torch.cuda.current_stream(q3.device).cuda_stream)
     flash_fwd.launches += 1
     launches_by_row[row_label(row)] += 1

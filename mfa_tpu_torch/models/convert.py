@@ -54,13 +54,16 @@ def config_from_hf(hf_config) -> LlamaConfig:
 
 def params_from_hf(state_dict, cfg: LlamaConfig,
                    dtype: torch.dtype = torch.bfloat16, *,
-                   device="cuda") -> Llama:
+                   device="cuda", trainable: bool = False) -> Llama:
     """A Hugging Face state dict (torch tensors or numpy arrays, numpy's
     bfloat16 included) → :class:`Llama` on ``device``: embedding,
     projections and lm_head in ``dtype``, norms and QKV biases in fp32.
     Tensors already on ``device`` in the right dtype are used as they are,
     not copied. RoPE needs no permutation: ``models/llama.apply_rope``
-    pairs x[i] with x[i + D/2] as ``transformers`` does."""
+    pairs x[i] with x[i + D/2] as ``transformers`` does. ``trainable``
+    makes every parameter require grad, as :meth:`Llama.init`'s does (the
+    training path of ``mfa_tpu``: ``config_from_hf``, then
+    ``training.train_step``)."""
     def get(name, dt):
         t = state_dict[name]
         t = t.detach() if isinstance(t, torch.Tensor) else _tensor(t)
@@ -96,4 +99,4 @@ def params_from_hf(state_dict, cfg: LlamaConfig,
             params["lm_head"] = get("lm_head.weight", dtype)
         else:
             params["lm_head"] = params["embed"].clone()
-    return Llama(cfg, params, device=device)
+    return Llama(cfg, params, device=device, trainable=trainable)

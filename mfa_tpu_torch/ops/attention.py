@@ -123,8 +123,8 @@ def _attn_autotune_candidates(kd, desc, tensors=(),
     ``params.flash_candidate_rows`` for its kernel, head dim and input
     type (the rows one axis from the table row first), each kept only
     where ``descriptors.launch_row`` launches it as it is on ``tensors``
-    (TMA maps them, or K1 takes them with its copying producer on one of
-    the instances ``params.FWD_COPY_ROWS``; a row it would send to the
+    (TMA maps them, or the kernel takes them with its copying producer on
+    one of its instances ``params.COPY_ROWS``; a row it would send to the
     mma.sync table is that row's candidate) and its shared memory fits
     one SM of ``device``."""
     name = _TABLE[kd.kernel_type]
@@ -139,8 +139,8 @@ def _attn_autotune_candidates(kd, desc, tensors=(),
                                    block_d=row.block_d, kernel=row.kernel)
         run = launch_row(cand, d, tensors)
         if (cand in out or dataclasses.replace(run, producer="") != row
-                or (run.producer and (run.block_kv, run.block_d)
-                    not in params_mod.FWD_COPY_ROWS)
+                or (run.producer and (run.block_q, run.block_kv, run.block_d)
+                    not in params_mod.COPY_ROWS[name])
                 or params_mod.smem_bytes(name, run, in_bytes)
                 > device.smem_per_block):
             continue

@@ -88,15 +88,11 @@ class AttentionDescriptor:
         device: params_mod.HopperDevice = params_mod.H100,
     ) -> "AttentionKernelDescriptor":
         """Pick the table row for this kernel, head dim and precision
-        class; head dims above 256 take the D-blocked rows. K1 takes its
-        bf16 table at every even D up to 256 (its copying producer), K3
-        and K4 only where TMA maps a row."""
-        if not self.low_precision_inputs:
-            precision = "fp32"
-        elif kernel_type is AttentionKernelType.FORWARD:
-            precision = params_mod.fwd_bf16_table_precision(self.head_dim)
-        else:
-            precision = params_mod.bf16_table_precision(self.head_dim)
+        class; head dims above 256 take the D-blocked rows. The three
+        kernels take their bf16 tables at every even D up to 256 (their
+        copying producers) and past it where TMA maps a row."""
+        precision = ("fp32" if not self.low_precision_inputs
+                     else params_mod.flash_bf16_table_precision(self.head_dim))
         rows = params_mod.parameter_table(_TABLE[kernel_type], precision,
                                           device)
         row = params_mod.select_row(rows, self.head_dim)
@@ -192,22 +188,22 @@ def launch_row(kd: AttentionKernelDescriptor, head_dim: int,
     """The parameter row a flash kernel's launch runs: the descriptor's,
     except where TMA cannot map the operands of a wgmma or wgmma_dblk row
     (a row of ``head_dim`` bf16 values that is no multiple of 16 bytes, or
-    a base address that is not 16-byte aligned). There K1's row keeps its
-    kernel with the copying producer (``producer`` "copy") when one CTA
-    holds the head dim (D <= block_d) and the rows and bases share 4
-    bytes; every other such row takes the mma.sync row of its head dim
-    (mma, or mma_dblk past D = 256): K3's and K4's, odd D, 2-byte-shifted
-    bases, K1's clusters. The launch covers ``head_dim_panels(row,
-    head_dim)`` panels of the row it returns."""
+    a base address that is not 16-byte aligned). There K1's, K3's and
+    K4's rows keep their kernel with the copying producer (``producer``
+    "copy") when one CTA holds the head dim (D <= block_d) and the rows
+    and bases share 4 bytes; every other such row takes the mma.sync row
+    of its head dim (mma, or mma_dblk past D = 256): odd D, 2-byte-shifted
+    bases, the clusters past D = 256. ``tensors`` are the operands the
+    producer copies (K1: q, k, v and the O buffer; K3, K4: q, k, v, dO).
+    The launch covers ``head_dim_panels(row, head_dim)`` panels of the row
+    it returns."""
     row = params_mod.ParameterRow(kd.head_dim, kd.block_q, kd.block_kv,
                                   kd.block_d, kd.kernel)
     if kd.kernel not in ("wgmma", "wgmma_dblk") or (
             head_dim % 8 == 0 and all(t.data_ptr() % 16 == 0
                                       for t in tensors)):
         return row
-    if (kd.kernel_type is AttentionKernelType.FORWARD
-            and head_dim <= kd.block_d
-            and copy_granule(head_dim, tensors) >= 4):
+    if head_dim <= kd.block_d and copy_granule(head_dim, tensors) >= 4:
         return dataclasses.replace(row, producer="copy")
     return params_mod.select_row(params_mod.parameter_table(
         _TABLE[kd.kernel_type], "bf16_mma"), head_dim)

@@ -72,9 +72,9 @@ def detect_device(device: torch.device | None = None) -> HopperDevice:
 @dataclass(frozen=True)
 class ParameterRow:
     """One row: applies to head dims <= ``max_d`` (0 = unbounded).
-    ``producer`` names how K1's wgmma kernel fills its tiles at launch
-    (:data:`FWD_PRODUCERS`; set by ``descriptors.launch_row``, never by a
-    table)."""
+    ``producer`` names how a flash kernel's wgmma kernel fills its tiles
+    at launch (:data:`PRODUCERS`; set by ``descriptors.launch_row``, never
+    by a table)."""
 
     max_d: int
     block_q: int
@@ -155,7 +155,7 @@ def select_row(rows: list[ParameterRow], head_dim: int) -> ParameterRow:
 # on one card (NVIDIA H100 80GB HBM3, 700 W): 0.0983 / 0.1458 -> 0.0960 /
 # 0.1421 at D = 128, 0.0738 / 0.1164 -> 0.0710 / 0.1108 at D = 64.
 # Where TMA cannot map the operands but one CTA holds D and the rows and
-# bases share 4 bytes (D even up to 256: fwd_bf16_table_precision,
+# bases share 4 bytes (D even up to 256: flash_bf16_table_precision,
 # descriptors.launch_row), the rows up to D 256 run with the cp.async
 # producer (rings of FWD_COPY_RING_STAGES); by utils/bwd_tuning.py sweep
 # --only copy (NVIDIA H100 80GB HBM3, 700 W), ms causal / non-causal:
@@ -251,7 +251,9 @@ _FWD_FP32 = """
 # kernel of the rows past D = 128 on one CTA (block_kv 64, a sweep
 # candidate) took 0.1764 ms at D = 128 against this kernel's 0.1767, and
 # 0.1522 at D = 64 against 0.1456 (same sweep, one run, NVIDIA H100 80GB
-# HBM3, 700 W). Head dims TMA cannot map take _BWD_Q_BF16_MMA.
+# HBM3, 700 W). Even head dims TMA cannot map keep these rows with the
+# copying producer (BWD_Q_COPY_RING_STAGES); odd ones take
+# _BWD_Q_BF16_MMA.
 # Above D = 128 up to D = 512 (rows wgmma_dblk, csrc/flash_bwd.cu
 # flash_bwd_q_split): the head-dim-split kernel, 128 query rows a CTA, one
 # CTA on a 192- or 256-wide panel up to D = 256, a cluster of two past it,
@@ -282,11 +284,11 @@ _BWD_Q_BF16 = """
   inf   |   64    |    64    |  128    | mma_dblk
 """
 
-# K3 bf16 where TMA cannot map the operands (a row of D % 8 != 0 values is
-# no multiple of 16 bytes, or a base is not 16-byte aligned): the mma.sync
-# kernel for every head dim; at D 129-256 four warps of 16 query rows,
-# registers holding the fp32 dQ accumulator plus S and dP for one kv step,
-# so the step halves. (Not tuned on the H100.)
+# K3 bf16 where neither TMA nor the copying producer can take the
+# operands (odd D, a base only 2-byte aligned, D % 8 != 0 past D 256):
+# the mma.sync kernel for every head dim; at D 129-256 four warps of 16
+# query rows, registers holding the fp32 dQ accumulator plus S and dP
+# for one kv step, so the step halves. (Not tuned on the H100.)
 _BWD_Q_BF16_MMA = """
    64   |   64    |    64    |   64    | mma
   128   |   64    |    64    |  128    | mma
@@ -309,10 +311,14 @@ _BWD_Q_FP32 = """
 
 # K4 bf16 at D <= 128 (flash_bwd_kv_wgmma): 64 kv rows a CTA, Q, dO, L
 # and the D-term streamed block_q rows a step, the two consumer
-# warpgroups taking alternate steps. block_q measured by the same sweep:
-# at D = 128, 32 (0.3632 ms) beats 64 (0.5461 ms; its accumulators spill
-# registers); at D = 64, 64 (0.1530 ms) beats 32 (0.1952 ms); the
-# mma.sync rows take 1.7789 and 1.1472 ms. Head dims TMA cannot map take
+# warpgroups taking alternate steps. block_q at D = 128: 64 took 0.2081
+# ms against this row's 32 at 0.2116 (chip_smoke.py's autotune phase,
+# utils/autotune.py tune_backward at its causal shape; NVIDIA H100 80GB
+# HBM3, 700 W; the row stays: within 2%, and the block_q 64 instance's
+# wgmmas ptxas serialises); at D = 64,
+# 64 (0.1530 ms) beats 32 (0.1952 ms) by the sweep; the mma.sync rows
+# take 1.7789 and 1.1472 ms. Even head dims TMA cannot map keep these
+# rows with the copying producer (BWD_KV_COPY_RING_STAGES); odd ones take
 # _BWD_KV_BF16_MMA. Above D = 128 up to D = 512 the head-dim-split kernel
 # (wgmma_dblk, csrc/flash_bwd.cu flash_bwd_kv_split), its warpgroups
 # owning dV and dK: one CTA on a 192- or 256-wide panel up to D = 256,
@@ -344,8 +350,9 @@ _BWD_KV_BF16 = """
   inf   |   32    |    64    |  256    | mma_dblk
 """
 
-# K4 bf16 where TMA cannot map the operands (as for K3); at D 129-256 64
-# kv rows per CTA in eight warps that split the head dim, 32-row q steps.
+# K4 bf16 where neither TMA nor the copying producer can take the
+# operands (as for K3); at D 129-256 64 kv rows per CTA in eight warps
+# that split the head dim, 32-row q steps.
 # (Not tuned on the H100 up to D = 256.) The D-blocked rows at N 1024:
 # 256-wide panels take 1.495 / 1.889 ms (causal / non-causal) at D = 300
 # and 1.826 / 2.283 at D = 500, 128-wide ones 1.797 / 2.857 and 3.202 /
@@ -443,11 +450,12 @@ _SMEM_ALIGN = 1024
 # ping-pong off are within 1.1% of these settings.
 FWD_RING_STAGES = 3
 FWD_PINGPONG = True
-# How K1's wgmma kernel fills its tiles (the C entry's producer codes):
-# "" by TMA where TMA maps the operands; else, for one CTA (D <= 256) of
-# rows and bases that share 4 bytes, "copy" (cp.async of that granule
-# straight into the swizzled tiles).
-FWD_PRODUCERS = {"": 0, "copy": 1}
+# How the flash kernels' wgmma kernels (K1, K3, K4) fill their tiles (the
+# C entries' producer codes, csrc/hopper.cuh Producer): "" by TMA where
+# TMA maps the operands; else, for one CTA (D <= 256) of rows and bases
+# that share 4 bytes, "copy" (cp.async of that granule straight into the
+# swizzled tiles).
+PRODUCERS = {"": 0, "copy": 1}
 # The most tiles a ring of K1's copying producer (FWD_RING_STAGES for
 # TMA's), read at each call. By utils/bwd_tuning.py sweep --only copy on
 # the H100 (NVIDIA H100 80GB HBM3, 700 W), cp.async at OpenLLaMA-3B's D
@@ -457,9 +465,42 @@ FWD_PRODUCERS = {"": 0, "copy": 1}
 # 0.08306 / 0.08556: a deeper ring only lets the producer's copies
 # compete longer with the consumers' softmax for issue slots.
 FWD_COPY_RING_STAGES = 2
-# The (block_kv, block_d) of K1's instances with the copying producer
-# (csrc/flash_fwd.cu launch_copying): one a table row up to D 256.
-FWD_COPY_ROWS = ((128, 64), (128, 128), (64, 192), (64, 256))
+# K3's and K4's copying producers, compile-time in csrc/flash_bwd.cu
+# (kQCopyStages, kKvCopyStages; these mirror them, and the sweep builds
+# the library again for other depths; TMA's rings take as many stages as
+# fit, up to 4): the most tiles of K3's K and V ring
+# (or of each of its one-CTA head-dim-split kernel's two), and the most
+# stages of K4's Q, dO, L and D-term ring that each consumer warpgroup
+# cycles through: twice as many in the ring of its wgmma kernel, whose
+# warpgroups take alternate steps, as many in its head-dim-split
+# kernel's, whose warpgroups both read every step. A warpgroup needs two:
+# a step's stage is freed by its deferred product, in its next step. By
+# utils/bwd_tuning.py sweep --only copy (NVIDIA H100 80GB HBM3, 700 W),
+# ms causal / non-causal, the mma.sync rows they replace last:
+# - K3 at OpenLLaMA-3B's D 100 (Hq = Hkv 32, N 2048), 2 / 3 / 4 tiles:
+#   0.2483 / 0.2223 / 0.2240 and 0.3867 / 0.3139 / 0.3116 (mma.sync
+#   1.418 / 2.089); at N 512 causal 0.03596 / 0.03618 / 0.03679; at D
+#   250 (H 8, N 1024), 2 / 3 tiles a ring (4 do not fit): 0.1419 /
+#   0.1304 and 0.1432 / 0.1310 (mma.sync 0.3775 / 0.3844).
+# - K4 at D 100, 2 / 3 / 4 stages a warpgroup (rings of 4 / 6 / 8):
+#   0.4211 / 0.4232 / 0.4306 and 0.7282 / 0.7323 / 0.7410 (mma.sync
+#   1.500 / 2.442); at N 512 causal 0.05014 / 0.05134 / 0.05308; at D
+#   250 (rings of 2 / 3 / 4): 0.1391 / 0.1149 / 0.1180 and 0.1546 /
+#   0.1289 / 0.1321 (mma.sync 0.3634 / 0.3904).
+BWD_Q_COPY_RING_STAGES = 3
+BWD_KV_COPY_RING_STAGES = 3
+# The (block_q, block_kv, block_d) of each flash kernel's instances with
+# the copying producer (csrc/flash_fwd.cu launch_copying, csrc/flash_bwd.cu
+# launch_q_copying and launch_kv_copying): one a bf16 table row up to D
+# 256.
+COPY_ROWS = {
+    "flash_fwd": ((128, 128, 64), (128, 128, 128), (128, 64, 192),
+                  (128, 64, 256)),
+    "flash_bwd_q": ((128, 64, 64), (128, 64, 128), (128, 32, 192),
+                    (128, 32, 256)),
+    "flash_bwd_kv": ((64, 64, 64), (32, 64, 128), (32, 64, 192),
+                     (32, 64, 256)),
+}
 
 
 def _ring_stages(fixed: int, per_stage: int, most: int, mult: int) -> int:
@@ -478,10 +519,13 @@ def row_panels(row: ParameterRow) -> int:
 
 def bwd_q_stages(row: ParameterRow) -> int:
     """Stages of K3's wgmma ring at ``row`` (Q and dO resident, L and the
-    D-term beside it)."""
+    D-term beside it): as many as fit, up to 4, or with the copying
+    producer up to BWD_Q_COPY_RING_STAGES (csrc/flash_bwd.cu
+    QWgmmaSmem)."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    most = BWD_Q_COPY_RING_STAGES if row.producer else 4
     return _ring_stages(2 * 2 * bq * d + 8 * bq + 8 + _SMEM_ALIGN,
-                        2 * 2 * bkv * d + 16, 4, 1)
+                        2 * 2 * bkv * d + 16, most, 1)
 
 
 def bwd_q_split_stages(row: ParameterRow) -> tuple[int, int]:
@@ -489,12 +533,17 @@ def bwd_q_split_stages(row: ParameterRow) -> tuple[int, int]:
     ``row`` (csrc/flash_bwd.cu QSplitSmem): the K and V tiles that fit
     beside Q, dO, L, the D-term and, as a cluster, the exchange slots with
     their four mbarriers, each tile with two mbarriers; K gets up to 4 of
-    them keeping one for V, V the rest, up to 4."""
+    them keeping one for V, V the rest, up to 4. With the copying producer
+    (one CTA) each ring takes half the tiles, up to
+    BWD_Q_COPY_RING_STAGES (csrc/flash_bwd.cu QSplitSmem)."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
     x = exchange_bytes("flash_bwd_q", row)
     tiles = ((_SMEM_OPTIN - 2 * 2 * bq * d - x - 8 * bq
               - 8 * (1 + (4 if x else 0)) - _SMEM_ALIGN)
              // (2 * bkv * d + 16))
+    if row.producer:
+        n = min(tiles // 2, BWD_Q_COPY_RING_STAGES)
+        return n, n
     sv = min(max(tiles - 4, 1), 4)
     return min(tiles - sv, 4), sv
 
@@ -522,15 +571,35 @@ def bwd_kv_stages(row: ParameterRow) -> int:
     the kernel whose warpgroups take alternate steps; up to 4 on the
     head-dim-split kernel (both warpgroups read every stage; it keeps one
     scaled-Q tile and the two S^T hand-off buffers, four more mbarriers,
-    and as a cluster its exchange slots and four more)."""
+    and as a cluster its exchange slots and four more). With the copying
+    producer, up to BWD_KV_COPY_RING_STAGES a warpgroup: as many on the
+    head-dim-split kernel, twice as many on the other (csrc/flash_bwd.cu
+    KvSplitSmem, KvWgmmaSmem)."""
     d, bq, bkv = row.block_d, row.block_q, row.block_kv
+    most = BWD_KV_COPY_RING_STAGES if row.producer else 4
     if row.kernel == "wgmma_dblk":
         x = exchange_bytes("flash_bwd_kv", row)
         return _ring_stages(2 * 2 * bkv * d + 2 * bq * d + x
                             + 2 * 64 * bq * 4 + 8 * (5 + (4 if x else 0))
-                            + _SMEM_ALIGN, 2 * 2 * bq * d + 8 * bq + 16, 4, 1)
+                            + _SMEM_ALIGN, 2 * 2 * bq * d + 8 * bq + 16, most,
+                            1)
     return _ring_stages(2 * 2 * bkv * d + 2 * 2 * bq * d + 8 + _SMEM_ALIGN,
-                        2 * 2 * bq * d + 8 * bq + 16, 4, 2)
+                        2 * 2 * bq * d + 8 * bq + 16,
+                        2 * most if row.producer else most, 2)
+
+
+def bwd_copy_stages(kernel: str, row: ParameterRow) -> int:
+    """The ring depth of K3's (``flash_bwd_q``) or K4's (``flash_bwd_kv``)
+    instance at ``row`` with the copying producer, as csrc/flash_bwd.cu's
+    layouts compile it (each ring's, on K3's head-dim-split kernel); 0
+    for every other row."""
+    if not row.producer:
+        return 0
+    if kernel == "flash_bwd_kv":
+        return bwd_kv_stages(row)
+    if row.kernel == "wgmma_dblk":
+        return bwd_q_split_stages(row)[0]
+    return bwd_q_stages(row)
 
 
 def fwd_rings(row: ParameterRow) -> tuple[int, int]:
@@ -551,21 +620,21 @@ def fwd_rings(row: ParameterRow) -> tuple[int, int]:
     return min(tiles - v, most), v
 
 
-def fwd_bf16_table_precision(head_dim: int) -> str:
-    """K1's bf16 table for a head dim: ``"bf16"`` where TMA maps a row
-    (D % 8 == 0) and, up to D = 256, wherever a row is a multiple of 4
-    bytes (D even: the wgmma kernel's copying producer); else the mma.sync
-    rows."""
+def flash_bf16_table_precision(head_dim: int) -> str:
+    """The bf16 table of K1, K3 and K4 for a head dim: ``"bf16"`` where
+    TMA maps a row (D % 8 == 0) and, up to D = 256, wherever a row is a
+    multiple of 4 bytes (D even: the wgmma kernels' copying producers);
+    else the mma.sync rows."""
     if head_dim % 2 == 0 and head_dim <= 256:
         return "bf16"
     return bf16_table_precision(head_dim)
 
 
 def bf16_table_precision(head_dim: int) -> str:
-    """The bf16 flash kernels' table for a head dim: ``"bf16"`` (whose rows
-    up to D = 128 run the wgmma kernels) when a TMA tensor map can hold a
-    row, i.e. D bf16 values are a multiple of 16 bytes; else the mma.sync
-    rows (``"bf16_mma"``)."""
+    """The table of the rows TMA maps for a head dim: ``"bf16"`` (whose
+    rows up to D = 128 run the wgmma kernels) when a TMA tensor map can
+    hold a row, i.e. D bf16 values are a multiple of 16 bytes; else the
+    mma.sync rows (``"bf16_mma"``)."""
     return "bf16" if head_dim % 8 == 0 else "bf16_mma"
 
 
@@ -735,12 +804,7 @@ def flash_candidate_rows(kernel: str, head_dim: int,
     block_d and kernel, then the others; every row has max_d head_dim. Whether TMA maps the operands
     (descriptors.launch_row) and the shared memory of a device are for
     the caller to check."""
-    if in_bytes == 4:
-        table = "fp32"
-    elif kernel == "flash_fwd":
-        table = fwd_bf16_table_precision(head_dim)
-    else:
-        table = bf16_table_precision(head_dim)
+    table = "fp32" if in_bytes == 4 else flash_bf16_table_precision(head_dim)
     first = select_row(parameter_table(kernel, table), head_dim)
     dt = "bf16" if in_bytes == 2 else "fp32"
     quads = [(r.block_q, r.block_kv, r.block_d, r.kernel)

@@ -16,11 +16,13 @@ const char* const kRowKernels[] = {"mma", "wgmma", "mma_dblk", "fma_dblk",
                                    "wgmma_dblk"};
 
 // params.H100.smem_per_block, _SMEM_ALIGN, FWD_RING_STAGES,
-// FWD_COPY_RING_STAGES
+// FWD_COPY_RING_STAGES, BWD_Q_COPY_RING_STAGES, BWD_KV_COPY_RING_STAGES
 constexpr int64_t kSmemOptin = 232448;
 constexpr int64_t kSmemAlign = 1024;
 constexpr int64_t kFwdRingStages = 3;
 constexpr int64_t kFwdCopyRingStages = 2;
+constexpr int64_t kBwdQCopyRingStages = 3;
+constexpr int64_t kBwdKvCopyRingStages = 3;
 
 int64_t floor_div(int64_t a, int64_t b) {
   int64_t q = a / b;
@@ -96,8 +98,9 @@ int64_t ring_stages(int64_t fixed, int64_t per_stage, int64_t most,
 
 int64_t bwd_q_stages(const ParameterRow& r) {
   const int64_t d = r.block_d, bq = r.block_q, bkv = r.block_kv;
+  const int64_t most = r.producer.empty() ? 4 : kBwdQCopyRingStages;
   return ring_stages(2 * 2 * bq * d + 8 * bq + 8 + kSmemAlign,
-                     2 * 2 * bkv * d + 16, 4, 1);
+                     2 * 2 * bkv * d + 16, most, 1);
 }
 
 void bwd_q_split_stages(const ParameterRow& r, int64_t* sk, int64_t* sv) {
@@ -107,20 +110,26 @@ void bwd_q_split_stages(const ParameterRow& r, int64_t* sk, int64_t* sv) {
       floor_div(kSmemOptin - 2 * 2 * bq * d - x - 8 * bq -
                     8 * (1 + (x ? 4 : 0)) - kSmemAlign,
                 2 * bkv * d + 16);
+  if (!r.producer.empty()) {
+    *sk = *sv = std::min(floor_div(tiles, 2), kBwdQCopyRingStages);
+    return;
+  }
   *sv = std::min<int64_t>(std::max<int64_t>(tiles - 4, 1), 4);
   *sk = std::min<int64_t>(tiles - *sv, 4);
 }
 
 int64_t bwd_kv_stages(const ParameterRow& r) {
   const int64_t d = r.block_d, bq = r.block_q, bkv = r.block_kv;
+  const int64_t most = r.producer.empty() ? 4 : kBwdKvCopyRingStages;
   if (r.kernel == "wgmma_dblk") {
     const int64_t x = exchange_bytes("flash_bwd_kv", r);
     return ring_stages(2 * 2 * bkv * d + 2 * bq * d + x + 2 * 64 * bq * 4 +
                            8 * (5 + (x ? 4 : 0)) + kSmemAlign,
-                       2 * 2 * bq * d + 8 * bq + 16, 4, 1);
+                       2 * 2 * bq * d + 8 * bq + 16, most, 1);
   }
   return ring_stages(2 * 2 * bkv * d + 2 * 2 * bq * d + 8 + kSmemAlign,
-                     2 * 2 * bq * d + 8 * bq + 16, 4, 2);
+                     2 * 2 * bq * d + 8 * bq + 16,
+                     r.producer.empty() ? most : 2 * most, 2);
 }
 
 void fwd_rings(const ParameterRow& r, int64_t* k, int64_t* v) {

@@ -12,9 +12,12 @@ table, the mma rows at D <= 256 and the head-dim-split kernels
 (:data:`DBLK_ROWS`; K1's one-CTA ones in each launch variant of
 :data:`K1_SPLIT_VARIANTS`), at the shapes of ``chip_smoke.py``'s
 ``large_d`` phase and at D 192 and 256 (:data:`DBLK_SHAPES`; ``--only
-dblk`` runs these alone, ``--only fwd`` runs K1's). Then K1 where TMA
-cannot map a row (:func:`sweep_copy`, ``--only copy`` alone): its copying
-producer's ring depths at OpenLLaMA-3B's D 100 and at D 250. Each row is
+dblk`` runs these alone, ``--only fwd`` runs K1's). Then K1, K3 and K4
+where TMA cannot map a row (:func:`sweep_copy`, ``--only copy`` alone):
+their copying producers' ring depths at OpenLLaMA-3B's D 100 and at D
+250, each beside the mma.sync row it replaces (K3's and K4's depths are
+compile-time: each other depth runs on a library whose
+``csrc/flash_bwd.cu`` is built again with it). Each row is
 first held to its plain version at ``KERNEL_BUDGETS`` (and the
 D-blocked ones to a second run, bit for bit), then timed
 (CUDA events, launches queued behind a device spin). One JSON line per
@@ -45,24 +48,39 @@ flash kernels swapped for their plain versions, and prints each run's
 losses and grad norms: how far the loss curve moves with the attention
 kernels' last bits.
 
+``sass --a TREE --b TREE`` compares the machine code (``cuobjdump
+-sass``) of K3's and K4's wgmma and head-dim-split TMA instances in two
+trees' builds of ``csrc/flash_bwd.cu`` (each built first), the
+instances of one tree named as the other's (a producer template argument
+of 0, TMA, dropped), and prints for each whether its instructions are
+the same.
+
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.bwd_tuning sweep \
         [--only fwd|copy|bwd|dblk|matmul|qmm_decode]
     python -m mfa_tpu_torch.utils.bwd_tuning curve [--plain none k1 k34 k1,k34]
+    python -m mfa_tpu_torch.utils.bwd_tuning sass --a build/parent --b .
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
 
+from mfa_tpu_torch.kernels import build
 from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.kernels import flash_fwd as k1
 from mfa_tpu_torch.kernels import gemm_kernel as k7
@@ -112,19 +130,26 @@ K1_SPLIT_VARIANTS = (("rule", 3, True, False), ("rings2", 2, True, False),
                      ("no_pingpong", 3, False, False))
 
 
-# K1 where TMA cannot map a row, (D, N, Hq, Hkv, causal): OpenLLaMA-3B's
-# attention (head dim 100, 32 heads, MHA) at its prefill buckets 2048
-# (causal and not) and 512, and D 250 at chip_smoke.py's large_d tail
-# (B 1, H 8, N 1024). Its candidates, the most tiles a ring
-# (params.FWD_COPY_RING_STAGES) of the wgmma kernel with the cp.async
-# producer on the table's row (block_kv 128 on the 128-wide panel at D
-# 100, 64 on the 256-wide one at D 250), each beside the mma.sync row it
-# replaces. (block_kv 64 at D 100, 32 at D 250, and a producer of 1-D
-# bulk copies repacked lost here and were dropped: ops/params.py.)
+# K1, K3 and K4 where TMA cannot map a row, (D, N, Hq, Hkv, causal):
+# OpenLLaMA-3B's attention (head dim 100, 32 heads, MHA) at its prefill
+# buckets 2048 (causal and not) and 512, and D 250 at chip_smoke.py's
+# large_d tail (B 1, H 8, N 1024). Their candidates, the most tiles a
+# ring of the wgmma kernels with the cp.async producer on the table's
+# rows (K1: block_kv 128 on the 128-wide panel at D 100, 64 on the
+# 256-wide one at D 250), each beside the mma.sync row it replaces: the
+# ring depths tried a kernel, with the params constant each sets. (K1's
+# block_kv 64 at D 100, 32 at D 250, and a producer of 1-D bulk copies
+# repacked lost here and were dropped: ops/params.py.)
 COPY_SHAPES = ((100, 2048, 32, 32, True), (100, 2048, 32, 32, False),
                (100, 512, 32, 32, True), (250, 1024, 8, 8, True),
                (250, 1024, 8, 8, False))
-COPY_RING_STAGES = (2, 3)
+COPY_RING_STAGES = {"flash_fwd": ("FWD_COPY_RING_STAGES", (2, 3)),
+                    "flash_bwd_q": ("BWD_Q_COPY_RING_STAGES", (2, 3, 4)),
+                    "flash_bwd_kv": ("BWD_KV_COPY_RING_STAGES", (2, 3, 4))}
+# The csrc/flash_bwd.cu macros that set K3's and K4's copying depths at
+# compile time (K1's is read at each launch).
+COPY_DEPTH_MACROS = {"flash_bwd_q": "MFA_BWD_Q_COPY_STAGES",
+                     "flash_bwd_kv": "MFA_BWD_KV_COPY_STAGES"}
 
 
 def dblk_candidates(name: str, dt: str, d: int, table_row) -> list:
@@ -306,47 +331,116 @@ def sweep_fwd() -> None:
     sweep_dblk(("flash_fwd",))
 
 
+def copy_depth_libraries() -> dict:
+    """{(kernel, depth): library} for K3's and K4's copying depths of
+    COPY_RING_STAGES other than the source's: csrc/flash_bwd.cu built
+    again at -D<COPY_DEPTH_MACROS>=depth (one nvcc a depth, all started
+    together) into a folder of its own under the build, keyed by the
+    sources' digest, and linked with the default build's other objects."""
+    build.library()   # the default build, whose objects are linked
+    objs = [build.BUILD_DIR / (src.stem + ".o") for src in build._sources()]
+    todo, procs, digest = {}, [], build._digest()
+    for name, macro in COPY_DEPTH_MACROS.items():
+        attr, depths = COPY_RING_STAGES[name]
+        for depth in depths:
+            if depth == getattr(params, attr):
+                continue
+            out = build.BUILD_DIR / f"{macro.lower()}_{depth}_{digest}"
+            out.mkdir(parents=True, exist_ok=True)
+            todo[name, depth] = out / build.LIB_NAME
+            if todo[name, depth].exists():
+                continue
+            cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-D{macro}={depth}",
+                   "-c", str(build.CSRC / "flash_bwd.cu"), "-o",
+                   str(out / "flash_bwd.o")]
+            procs.append((out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    for out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {out.name}:\n{log}")
+        link = subprocess.run(
+            [build._nvcc(), "-shared", "-o", str(out / build.LIB_NAME),
+             *(str(out / o.name if o.name == "flash_bwd.o" else o)
+               for o in objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise SystemExit(f"link failed for {out.name}:\n{link.stdout}")
+    return {key: build.KernelLibrary(ctypes.CDLL(str(path)), path, 0.0, "")
+            for key, path in todo.items()}
+
+
 def sweep_copy() -> None:
-    """K1's copying producer at COPY_RING_STAGES at COPY_SHAPES beside
-    the mma.sync row: each candidate's launch row checked, held to the
-    plain version at KERNEL_BUDGETS and to a second launch bit for bit,
-    then timed."""
+    """K1's, K3's and K4's copying producers at each depth of
+    COPY_RING_STAGES at COPY_SHAPES beside the mma.sync row: each
+    candidate's launch row checked, held to the plain version at
+    KERNEL_BUDGETS and to a second launch bit for bit, then timed."""
+    libs = copy_depth_libraries()
     for d, n, hq, hkv, causal in COPY_SHAPES:
-        (q, k, v, _, _, _), _, _, kw, kd_f = _inputs(d, n, hq, hkv, causal)
-        kw = dict(kw, o_dtype=torch.bfloat16)
-        want = k1.flash_fwd_plain(q, k, v, kd_f, **kw)
-        mma = params.select_row(params.parameter_table(
-            "flash_fwd", "bf16_mma"), d)
-        cands = [(most, "copy", kd_f) for most in COPY_RING_STAGES]
-        cands.append((0, "", dataclasses.replace(
-            kd_f, block_q=mma.block_q, block_kv=mma.block_kv,
-            block_d=mma.block_d, kernel=mma.kernel)))
-        for most, prod, kd in cands:
-            bkv = kd.block_kv
-            with mock.patch.object(params, "FWD_COPY_RING_STAGES",
-                                   most or params.FWD_COPY_RING_STAGES):
-                row = launch_row(kd, d, (q, k, v))
-                got, again = (k1.flash_fwd(q, k, v, kd, **kw)
-                              for _ in range(2))
-                ms = roofline.cuda_ms(
-                    lambda: k1.flash_fwd(q, k, v, kd, **kw), iters=20)
-                rings = (params.fwd_rings(row) if row.producer else None)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            shares = {key: budget_share(g, w, *KERNEL_BUDGETS[key])
-                      for key, g, w in zip(("flash_fwd_o_bf16",
-                                            "flash_fwd_l"), got, want)}
-            print(json.dumps({
-                "kernel": "flash_fwd", "D": d, "N": n, "Hq": hq,
-                "Hkv": hkv, "causal": causal, "block_kv": bkv,
-                "row": row_label(row), "rings": rings, "share": shares,
-                "deterministic": same, "ms": ms}), flush=True)
-            if max(shares.values()) > 1 or not same or row.producer != prod:
-                raise SystemExit(f"K1 {row_label(row)} {bkv}/{most} at D "
-                                 f"{d}: shares {shares}, deterministic "
-                                 f"{same}, wanted producer {prod!r}")
-            del got, again
-        del q, k, v, want
+        (q, k, v, o, do, lse), kd_q, kd_kv, kw, kd_f = _inputs(d, n, hq, hkv,
+                                                              causal)
+        kw_f = dict(kw, o_dtype=torch.bfloat16)
+        want_q = k34.flash_bwd_q_plain(q, k, v, o, do, lse, kd_q, **kw)
+        dterm = want_q[1]
+        kernels = (
+            ("flash_fwd", kd_f, (q, k, v),
+             lambda kd: k1.flash_fwd(q, k, v, kd, **kw_f),
+             k1.flash_fwd_plain(q, k, v, kd_f, **kw_f),
+             ("flash_fwd_o_bf16", "flash_fwd_l")),
+            ("flash_bwd_q", kd_q, (q, k, v, do),
+             lambda kd: k34.flash_bwd_q(q, k, v, o, do, lse, kd, **kw),
+             want_q, ("flash_bwd_dq_bf16", "flash_bwd_dterm")),
+            ("flash_bwd_kv", kd_kv, (q, k, v, do),
+             lambda kd: k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd, **kw),
+             k34.flash_bwd_kv_plain(q, k, v, do, lse, dterm, kd_kv, **kw),
+             ("flash_bwd_dk_bf16", "flash_bwd_dv_bf16")))
+        for name, kd_t, tensors, run, want, keys in kernels:
+            _copy_candidates(name, kd_t, d, dict(N=n, Hq=hq, Hkv=hkv,
+                                                 causal=causal),
+                             tensors, run, want, keys, libs)
+        del q, k, v, o, do, lse, dterm, want_q
         torch.cuda.empty_cache()
+
+
+def _copy_candidates(name, kd_t, d, shape, tensors, run, want, keys, libs):
+    """Kernel ``name``'s copying producer at each ring depth of
+    COPY_RING_STAGES (a depth the shared memory caps to one already run is
+    skipped; K3's and K4's on ``libs``' build of it), then the mma.sync
+    row of its head dim."""
+    attr, depths = COPY_RING_STAGES[name]
+    mma = params.select_row(params.parameter_table(name, "bf16_mma"), d)
+    cands = [(most, "copy", kd_t) for most in depths]
+    cands.append((getattr(params, attr), "", dataclasses.replace(
+        kd_t, block_q=mma.block_q, block_kv=mma.block_kv,
+        block_d=mma.block_d, kernel=mma.kernel)))
+    seen = set()
+    for most, prod, kd in cands:
+        lib = libs.get((name, most)) if prod else None
+        with mock.patch.object(params, attr, most), (
+                mock.patch.object(build, "_library", lib) if lib
+                else contextlib.nullcontext()):
+            row = launch_row(kd, d, tensors)
+            rings = (None if not row.producer else params.fwd_rings(row)
+                     if name == "flash_fwd"
+                     else params.bwd_copy_stages(name, row))
+            if row.producer and rings in seen:
+                continue
+            seen.add(rings)
+            got, again = run(kd), run(kd)
+            ms = roofline.cuda_ms(lambda: run(kd), iters=20)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        shares = {key: budget_share(g, w, *KERNEL_BUDGETS[key])
+                  for key, g, w in zip(keys, got, want)}
+        print(json.dumps({
+            "kernel": name, "D": d, **shape, "block_q": kd.block_q,
+            "block_kv": kd.block_kv, "row": row_label(row), "rings": rings,
+            "share": shares, "deterministic": same, "ms": ms}), flush=True)
+        if max(shares.values()) > 1 or not same or row.producer != prod:
+            raise SystemExit(f"{name} {row_label(row)} {kd.block_kv}/{most} "
+                             f"at D {d}: shares {shares}, deterministic "
+                             f"{same}, wanted producer {prod!r}")
+        del got, again
 
 
 def sweep_bwd() -> None:
@@ -568,14 +662,96 @@ def curve(plain: list[str], steps: int = 6) -> None:
         torch.cuda.empty_cache()
 
 
+# K3's and K4's wgmma kernels and their template arguments in a mangled
+# name (the kernels sit in an anonymous namespace, whose mangling differs
+# by file), and how many of those arguments a tree without the producer
+# argument gives each.
+_K34_WGMMA = re.compile(r"flash_bwd_(q|kv)_(wgmma|split)I((?:L[ib]\d+E)+)")
+_ARGS_BEFORE_PROD = {"wgmma": 2, "split": 3}
+
+
+def _sass_key(name: str):
+    """A K3 or K4 wgmma kernel's name and template arguments, its TMA
+    producer argument (0) dropped; None for other kernels."""
+    m = _K34_WGMMA.search(name)
+    if m is None:
+        return None
+    args = re.findall(r"L[ib]\d+E", m.group(3))
+    if len(args) > _ARGS_BEFORE_PROD[m.group(2)] and args[-1] == "Li0E":
+        args = args[:-1]
+    return f"flash_bwd_{m.group(1)}_{m.group(2)}<{''.join(args)}>"
+
+
+def _sass_by_function(tree: Path) -> dict:
+    """{K3 or K4 wgmma kernel: SASS lines} of ``tree``'s build of
+    csrc/flash_bwd.cu (built first, in a process of its own)."""
+    subprocess.run([sys.executable, "-c", "from mfa_tpu_torch.kernels "
+                    "import build; build.library()"], cwd=tree, check=True)
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(build._nvcc()).with_name("cuobjdump"))
+    obj = tree / "build" / "mfa_tpu_torch" / "flash_bwd.o"
+    text = subprocess.run([cuobjdump, "-sass", str(obj)], check=True,
+                          capture_output=True, text=True).stdout
+    funcs, key = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            key = _sass_key(line.split("Function : ")[1])
+            if key is not None:
+                funcs[key] = []
+        elif key is not None and line.strip():
+            funcs[key].append(line.strip())
+    if not funcs:
+        raise SystemExit(f"no K3/K4 wgmma kernel in {obj}'s SASS:\n"
+                         f"{text[:2000]}")
+    return {key: _renumber_labels(lines) for key, lines in funcs.items()}
+
+
+def _renumber_labels(lines: list) -> list:
+    """A kernel's SASS with its branch labels (.L_x_N, numbered across
+    the whole file) renumbered from 0 in order of appearance, and each
+    run of blanks made one (cuobjdump pads the columns to the file's
+    widest instruction)."""
+    names = {}
+
+    def label(m):
+        return f".L_k_{names.setdefault(m.group(0), len(names))}"
+
+    return [re.sub(r"\.L_x_\d+", label, " ".join(line.split()))
+            for line in lines]
+
+
+def compare_sass(a: Path, b: Path) -> bool:
+    """Whether every K3 and K4 wgmma and head-dim-split kernel of tree a
+    has the same instructions in tree b (one JSON line a kernel, then the
+    count)."""
+    fa, fb = _sass_by_function(a), _sass_by_function(b)
+    same = 0
+    for key in sorted(fa):
+        got = fb.get(key)
+        same += got == fa[key]
+        diff = [(x, y) for x, y in zip(fa[key], got or ()) if x != y]
+        print(json.dumps({"kernel": key, "in_b": got is not None,
+                          "lines_a": len(fa[key]),
+                          "lines_b": len(got or ()),
+                          "same": got == fa[key], "lines_differing":
+                          len(diff), "first_differing": diff[:2]}),
+              flush=True)
+    print(json.dumps({"kernels_a": len(fa), "same": same,
+                      "only_b": sorted(set(fb) - set(fa))}), flush=True)
+    return same == len(fa)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("sweep", "curve"))
+    ap.add_argument("mode", choices=("sweep", "curve", "sass"))
+    ap.add_argument("--a", default="build/parent",
+                    help="sass: the first tree (e.g. the parent commit)")
+    ap.add_argument("--b", default=".", help="sass: the second tree")
     ap.add_argument("--only", choices=("fwd", "copy", "bwd", "dblk",
                                        "matmul", "qmm_decode"),
                     default=None, help="sweep one group of kernels only "
                     "(dblk: K1, K3 and K4 past D = 256 and at D 192, 256; "
-                    "copy: K1's copying producers)")
+                    "copy: K1's, K3's and K4's copying producers)")
     ap.add_argument("--plain", nargs="*",
                     default=["none", "k1", "k34", "k1,k34"],
                     help="curve: kernels swapped for their plain versions, "
@@ -586,6 +762,9 @@ def main(argv=None) -> int:
     if args.mode == "curve":
         curve(args.plain)
         return 0
+    if args.mode == "sass":
+        return 0 if compare_sass(Path(args.a).resolve(),
+                                 Path(args.b).resolve()) else 1
     if args.only in (None, "fwd"):
         sweep_fwd()
     if args.only in (None, "fwd", "copy"):

@@ -12,9 +12,13 @@ k6 phases (``--what kernels``), its serving and paged serving phases
 (``serving``), a host-time probe of the K6, K2 and K8 wrappers
 (``host``), its
 forward kernel phase (``k1``), its fused decode phase (``k2``), its
-backward kernel phase (``bwd``, K3 and K4), its GEMM phase (``k7``), its
+backward kernel phase (``bwd``, K3 and K4; ``k34_rows``: K3 and K4
+alone at Llama-3-8B's D 128, OpenLLaMA-3B's D 100 and D 250, each on the
+row its tree routes it to), its GEMM phase (``k7``), its
 INT4 matmul phase (``k8``; ``k8d``: the decode tile alone at M 4 and
-16), its training phase (``training``), the profiler's serving phase
+16), its training phase (``training``; ``openllama_train``: the profiler's
+train step of OpenLLaMA-3B at its full depth), the profiler's serving
+phase
 (``profile``: prefills and decode steps over bf16, INT8 and FP8 caches;
 ``openllama_profile``: OpenLLaMA-3B's, with its paged steps;
 ``openllama_prefill``: its
@@ -36,7 +40,7 @@ Run on a GPU from the repository root:
     python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
         [--what kernels|serving|host|k1|k1_rows|k2|bwd|k7|k8|k8d|training|
                 profile|openllama_profile|openllama_prefill|int4|
-                decode_dims]
+                decode_dims|k34_rows|openllama_train]
 """
 
 from __future__ import annotations
@@ -512,6 +516,83 @@ for n in (512, 2048):
                       "wall_ms": walls[2:]}))
 """,
     "bwd": "c.phase_bwd(torch)",
+    # K3 and K4 alone through the wrappers both trees have, at
+    # Llama-3-8B's attention (D 128, Hq 32, Hkv 8, N 2048: TMA), at
+    # OpenLLaMA-3B's (D 100, Hq = Hkv 32, N 2048) and at D 250 (H 8, N
+    # 1024), causal and not: each tree's row (row_label) and device ms.
+    "k34_rows": """
+import json
+from mfa_tpu_torch.kernels import flash_bwd as k34, flash_fwd as k1
+from mfa_tpu_torch.ops.descriptors import (AttentionDescriptor,
+                                           AttentionKernelType, row_label)
+gen = torch.Generator(device="cuda").manual_seed(3)
+for d, n, hq, hkv, causal in ((128, 2048, 32, 8, True),
+                              (128, 2048, 32, 8, False),
+                              (100, 2048, 32, 32, True),
+                              (100, 2048, 32, 32, False),
+                              (250, 1024, 8, 8, True)):
+    q, k, v = c._k1_inputs(torch, gen, n, n, torch.bfloat16, hq, hkv, d)
+    do = torch.randn((1, hq, n, d), generator=gen, device="cuda").bfloat16()
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=n,
+        seq_len_kv=n, head_dim=d, causal=causal, low_precision_inputs=True,
+        low_precision_intermediates=True)
+    kd_f, kd_q, kd_kv = (desc.kernel_descriptor(t)
+                         for t in AttentionKernelType)
+    q3, k3, v3, do3 = (t.reshape(-1, n, d).contiguous()
+                       for t in (q, k, v, do))
+    kw = dict(group=hq // hkv, scale=desc.softmax_scale)
+    o3, lse = k1.flash_fwd(q3, k3, v3, kd_f, o_dtype=torch.bfloat16, **kw)
+    dq, dterm = k34.flash_bwd_q(q3, k3, v3, o3, do3, lse, kd_q, **kw)
+    rows = [row_label(k34.launch_row(kd, d, (q3, k3, v3, do3)))
+            for kd in (kd_q, kd_kv)]
+    ms_q = roofline.cuda_ms(lambda: k34.flash_bwd_q(
+        q3, k3, v3, o3, do3, lse, kd_q, **kw), iters=50)
+    ms_kv = roofline.cuda_ms(lambda: k34.flash_bwd_kv(
+        q3, k3, v3, do3, lse, dterm, kd_kv, **kw), iters=50)
+    print(json.dumps({"phase": "k34_rows", "D": d, "N": n, "Hq": hq,
+                      "Hkv": hkv, "causal": causal, "rows": rows,
+                      "ms_k3": ms_q, "ms_k4": ms_kv}))
+    del q, k, v, do, q3, k3, v3, do3, o3, lse, dq, dterm
+    torch.cuda.empty_cache()
+""",
+    # OpenLLaMA-3B's train step at all 26 layers (bf16 weights, AdamW, one
+    # 1 x 2049 batch), K3 and K4 on the rows each tree routes D 100 to:
+    # six steps on the host clock, each ended by a synchronize (the step
+    # ms of chip_smoke.py's training phases), then the profiler's step
+    # (wall and device ms by kernel group) on a model of its own.
+    "openllama_train": """
+import dataclasses, json, time
+from pathlib import Path
+import numpy as np
+from mfa_tpu_torch.models import training
+from mfa_tpu_torch.models.llama import Llama
+from mfa_tpu_torch.utils import profiling
+cfg = dataclasses.replace(profiling.MODELS["openllama_3b"], n_layers=26)
+gen = torch.Generator(device="cuda").manual_seed(0)
+model = Llama.init(cfg, generator=gen, dtype=torch.bfloat16, device="cuda",
+                   trainable=True)
+state = training.create_train_state(model, training.make_optimizer(
+    lr=1e-3, warmup_steps=1, total_steps=100))
+toks = torch.from_numpy(np.random.default_rng(0).integers(
+    1, cfg.vocab_size, (1, 2049))).cuda()
+step_ms = []
+for _ in range(6):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    training.train_step(state, toks)
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+print(json.dumps({"phase": "openllama_train_steps", "step_ms": step_ms,
+                  "median_ms_2_6": sorted(step_ms[1:])[2],
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+del model, state
+torch.cuda.empty_cache()
+out = Path("build/profiles")
+out.mkdir(parents=True, exist_ok=True)
+for row in profiling.profile_training(cfg, out=out):
+    print(json.dumps(row))
+""",
     "k2": "c.phase_k2(torch)",
     "k7": "c.phase_k7(torch)",
     "k8": "c.phase_k8(torch)",

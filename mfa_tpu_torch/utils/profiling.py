@@ -24,7 +24,8 @@ prefill and decode steps at 4 slots.
 3200, 32 heads of head dim 100, MHA: K1 on its wgmma row with the copying
 producer; K2 over bf16, INT8 and FP8 caches and K6 over bf16 and INT8
 pages on the tensor-core pair, rows padded to 128 values), for the
-serving and paged phases.
+serving and paged phases, and trains it at its full depth (K1, K3 and K4
+on their wgmma rows with the copying producers).
 
 Run on a GPU from the repository root:
 
@@ -54,6 +55,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mfa_tpu_torch.kernels import flash_bwd as k34
 from mfa_tpu_torch.models import training
 from mfa_tpu_torch.models.llama import Llama, LlamaConfig
 from mfa_tpu_torch.ops.precision import OperandPrecision
@@ -145,8 +147,10 @@ class _Timed:
         return False
 
 
-# Training runs Llama-3-8B widths at this depth (see the module note).
-TRAIN_LAYERS = 16
+# The depth training runs each model at: Llama-3-8B's widths at 16 of
+# its 32 layers (see the module note), OpenLLaMA-3B whole (3.43 B
+# parameters, 8 bytes each with grads and AdamW's moments: ~27 GiB).
+TRAIN_LAYERS = {"llama3_8b": 16, "openllama_3b": 26}
 
 _GROUPS = (("flash_fwd", ("flash_fwd",)),
            ("flash_bwd_q", ("flash_bwd_q",)),
@@ -331,7 +335,8 @@ def profile_int4(cfg: LlamaConfig, *, out: Path, batch: int = 4,
 def profile_training(cfg: LlamaConfig, *, out: Path, seq_len: int = 2048,
                      steps: int = 3, seed: int = 0) -> list[dict]:
     """Training steps (bf16 weights, AdamW) on one random batch of
-    1 x (seq_len + 1) tokens; the first step is a warm-up."""
+    1 x (seq_len + 1) tokens; the first step is a warm-up. The row
+    carries the rows K3 and K4 ran (``k34_rows``: row_label, launches)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = Llama.init(cfg, generator=gen, dtype=torch.bfloat16,
                        device="cuda", trainable=True)
@@ -345,10 +350,16 @@ def profile_training(cfg: LlamaConfig, *, out: Path, seq_len: int = 2048,
     def step():
         training.train_step(state, toks)
 
+    before = {name: dict(c) for name, c in k34.launches_by_row.items()}
     step()
     prof, wall = _profiled(step, steps)
-    return [_summarize(prof, wall, steps,
-                       f"train_step_L{cfg.n_layers}_T{seq_len}", out)]
+    rows = {name: {label: n - was.get(label, 0)
+                   for label, n in k34.launches_by_row[name].items()
+                   if n != was.get(label, 0)}
+            for name, was in before.items()}
+    return [dict(_summarize(prof, wall, steps,
+                            f"train_step_L{cfg.n_layers}_T{seq_len}", out),
+                 k34_rows=rows)]
 
 
 def main(argv=None) -> int:
@@ -369,7 +380,8 @@ def main(argv=None) -> int:
     runs = {"serving": lambda: profile_serving(cfg, out=out),
             "paged": lambda: profile_paged(cfg, out=out),
             "training": lambda: profile_training(
-                dataclasses.replace(cfg, n_layers=TRAIN_LAYERS), out=out),
+                dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[args.model]),
+                out=out),
             "int4": lambda: profile_int4(cfg, out=out)}
     for phase in args.phases.split(","):
         for row in runs[phase]():

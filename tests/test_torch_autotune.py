@@ -372,8 +372,8 @@ def test_memo_is_cleared_with_the_attention_cache(monkeypatch):
 K1_TMA = {(1, 128, bkv, bd) for bkv in (64, 128) for bd in (64, 128)} | {
     (3, 128, bkv, bd) for bkv in (64, 32) for bd in (192, 256)} | {
     (3, 128, 64, bd) for bd in (128, 192, 256)}
-K1_COPY = {(c, 128, bkv, bd) for c in (1, 3)
-           for bkv, bd in params.FWD_COPY_ROWS}
+K1_COPY = {(c, bq, bkv, bd) for c in (1, 3)
+           for bq, bkv, bd in params.COPY_ROWS["flash_fwd"]}
 K1_MMA = {(2, 64, 32, 256), (2, 64, 64, 128), (0, 64, 64, 64),
           (0, 64, 64, 128), (0, 64, 32, 256)}
 K1_FP32 = {(2, 16, 32, 128), (2, 16, 32, 256), (0, 16, 32, 64),

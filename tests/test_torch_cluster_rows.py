@@ -35,8 +35,8 @@ def test_large_d_phase_expects_the_tables_rows():
     """Every case of chip_smoke.py's large_d phase: the rows its K1, K3
     and K4 launches take from the tables (row_label: kernel and producer)
     are the ones large_d_rows expects (the head-dim-split kernels where
-    TMA maps a bf16 row, K1's one CTA with its cp.async producer at D
-    250; the first cut for K3 and K4 at D % 8 != 0 and for fp32), and the
+    TMA maps a bf16 row, their one CTA with its cp.async producer at D
+    250; the first cut at D 300 and for fp32), and the
     phase runs all three on one CTA at D 192 and 256 (K1 also non-causal
     and with Gemma-2-9B's soft-cap and GQA) and on two past 256."""
     smoke = _chip_smoke()
@@ -45,7 +45,8 @@ def test_large_d_phase_expects_the_tables_rows():
         == {(d, key, "wgmma_dblk") for d in (192, 256)
             for key in ("k1", "k3", "k4")}
     assert smoke.large_d_rows("bf16", 250) == {
-        "k1": "wgmma_dblk/copy", "k3": "mma", "k4": "mma"}
+        "k1": "wgmma_dblk/copy", "k3": "wgmma_dblk/copy",
+        "k4": "wgmma_dblk/copy"}
     assert {c[0] for c in smoke.LARGE_D_CASES} >= {
         "causal_d192", "causal_d256", "noncausal_d256", "gqa_softcap50_d256"}
     for name, tag, d, n, hkv, opts in smoke.LARGE_D_CASES:
@@ -200,3 +201,34 @@ def test_k1_phase_expects_the_launch_rows():
         labels.add(label)
     assert labels == {"wgmma", "wgmma/copy", "wgmma_dblk/copy",
                       "wgmma_dblk", "mma"}
+
+
+def test_bwd_phase_expects_the_launch_rows():
+    """chip_smoke.py's bwd phase: every case's K3 and K4 take the row its
+    check expects (k1_row for bf16, the fp32 rows otherwise), and the
+    cases reach each bf16 path K3 and K4 have up to D 256: TMA on the
+    wgmma kernel, the copying producers on the wgmma and one-CTA
+    head-dim-split kernels, and the mma.sync rows of block_d 128 and 256
+    (2-byte shifts at D 100 and 250)."""
+    import torch
+
+    smoke = _chip_smoke()
+    seen = set()
+    for name, r, c, tag, opts, hq, hkv, d, shift in smoke.BWD_CASES:
+        desc = AttentionDescriptor(
+            batch=1, num_q_heads=hq, num_kv_heads=hkv, seq_len_q=64,
+            seq_len_kv=64, head_dim=d, low_precision_inputs=tag == "bf16",
+            low_precision_intermediates=tag == "bf16", **opts)
+        dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+        buf = torch.zeros(64 * d + 8, dtype=dtype)
+        at = shift // buf.element_size()
+        q = buf[at:at + 64 * d].view(1, 64, d)
+        kv = torch.zeros(1, 64, d, dtype=dtype)
+        want = smoke.k1_row(d, shift) if tag == "bf16" else ""
+        for kt in (AttentionKernelType.BACKWARD_QUERY,
+                   AttentionKernelType.BACKWARD_KEY_VALUE):
+            row = launch_row(desc.kernel_descriptor(kt), d, (q, kv, kv, q))
+            assert row_label(row) == want, (name, kt)
+            seen.add((row_label(row), row.block_d))
+    assert {("wgmma", 128), ("wgmma/copy", 128), ("wgmma_dblk/copy", 256),
+            ("mma", 128), ("mma", 256)} <= seen

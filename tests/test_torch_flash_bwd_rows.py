@@ -6,6 +6,8 @@ the wrappers hand the kernel library a launch for any number of heads
 here)."""
 
 import dataclasses
+import pathlib
+import re
 import types
 
 import pytest
@@ -114,15 +116,16 @@ def test_parse_takes_a_kernel_column_and_refuses_others():
 @pytest.mark.parametrize("d, kernel", [
     (32, "wgmma"), (64, "wgmma"), (96, "wgmma"), (128, "wgmma"),
     (160, "wgmma_dblk"), (192, "wgmma_dblk"), (256, "wgmma_dblk"),
-    (36, "mma"), (40 + 2, "mma"), (100, "mma"), (250, "mma"),
+    (36, "wgmma"), (40 + 2, "wgmma"), (100, "wgmma"), (250, "wgmma_dblk"),
     (264, "wgmma_dblk"), (384, "wgmma_dblk"), (512, "wgmma_dblk"),
-    (300, "mma_dblk"), (1024, "mma_dblk")])
+    (300, "mma_dblk"), (1024, "mma_dblk"), (37, "mma"), (101, "mma")])
 def test_descriptors_dispatch_as_the_source_says(d, kernel):
-    """bf16 at D % 8 == 0 and D <= 128 runs the wgmma kernels, from D 136
-    to 512 the head-dim-split kernels (K3 and K4 alike: one CTA up to D =
-    256, a cluster of two past it); a D whose rows TMA cannot map (D % 8
-    != 0) the mma.sync kernel, D-blocked past D = 256, as every D past
-    512."""
+    """bf16 at D <= 128 runs the wgmma kernels, from D 136 to 512 the
+    head-dim-split kernels (K3 and K4 alike: one CTA up to D = 256, a
+    cluster of two past it); up to D = 256 that includes the even D whose
+    rows TMA cannot map (D % 8 != 0), which launch on the same kernels
+    with the copying producer (as K1); odd D runs the mma.sync kernel,
+    and a D % 8 != 0 past 256 the D-blocked one, as every D past 512."""
     for kind in _BWD:
         kd = _kd(kind, d)
         assert kd.kernel == kernel
@@ -130,8 +133,9 @@ def test_descriptors_dispatch_as_the_source_says(d, kernel):
         assert d <= kd.block_d * head_dim_panels(kd, d)
         if kernel == "wgmma_dblk":
             assert head_dim_panels(kd, d) == (1 if d <= 256 else 2)
-    assert _kd(_BWD[0], 100).block_d == 128     # the mma row of its D
-    assert _kd(_BWD[1], 36).block_q == 32
+    assert _kd(_BWD[0], 100).block_d == 128     # the wgmma row of its D
+    assert _kd(_BWD[1], 36).block_q == 64       # K4's wgmma row to D 64
+    assert _kd(_BWD[1], 37).block_q == 32       # K4's mma row
 
 
 # The rows each D <= 256 selects: (block_q, block_kv, block_d, kernel)
@@ -217,8 +221,8 @@ def test_wrappers_pass_the_d_blocked_launch(library, d):
     for args, kd in ((args3, kd_q), (args4, kd_kv)):
         assert kd.kernel == kernel
         assert args[12:14] == (d, -(-d // kd.block_d))
-        assert args[-5:-1] == (KERNEL_CODES[kernel], kd.block_q,
-                               kd.block_kv, kd.block_d)
+        assert args[-6:-1] == (KERNEL_CODES[kernel], kd.block_q,
+                               kd.block_kv, kd.block_d, 0)
     panels = 1 if d <= 256 else 2
     assert (args3[13], args4[13]) == ((panels, panels) if d <= 512
                                       else (8, 4))
@@ -291,9 +295,10 @@ def test_wrappers_take_any_number_of_heads(library, heads):
     assert dq.shape == (heads, n, d) and dk.shape == (heads, n, d)
     (name3, args3), (name4, args4) = library.calls
     assert (name3, name4) == ("mfa_flash_bwd_q", "mfa_flash_bwd_kv")
-    # (kernel code, block_q, block_kv, block_d) before the stream.
-    assert args3[-5:-1] == (1, 128, 64, 64)
-    assert args4[-5:-1] == (1, 64, 64, 64)
+    # (kernel code, block_q, block_kv, block_d, producer) before the
+    # stream: TMA's.
+    assert args3[-6:-1] == (1, 128, 64, 64, 0)
+    assert args4[-6:-1] == (1, 64, 64, 64, 0)
     assert args3[8] == heads and args4[8] == heads
 
 
@@ -314,7 +319,7 @@ def test_k3_split_candidate_at_d_up_to_128_passes_one_panel(library, d):
     ((name, args),) = library.calls
     assert name == "mfa_flash_bwd_q"
     assert args[12:14] == (d, 1)
-    assert args[-5:-1] == (3, 128, 64, d)
+    assert args[-6:-1] == (3, 128, 64, d, 0)
     row = params.ParameterRow(d, 128, 64, d, "wgmma_dblk")
     assert params.exchange_bytes("flash_bwd_q", row) == 0
     assert params.smem_bytes("flash_bwd_q", row, 2) == _split_q_smem(row) \
@@ -460,5 +465,168 @@ def test_misaligned_cluster_operand_takes_the_mma_dblk_row(library, d):
                                 ("flash_bwd_q", "flash_bwd_kv")):
         row = params.select_row(params.parameter_table(table, "bf16_mma"), d)
         assert args[12:14] == (d, -(-d // row.block_d) if d > 256 else 1)
-        assert args[-5:-1] == (2 if d > 256 else 0, row.block_q,
-                               row.block_kv, row.block_d)
+        assert args[-6:-1] == (2 if d > 256 else 0, row.block_q,
+                               row.block_kv, row.block_d, 0)
+
+
+# ---------------------------------------------------------------------------
+# The copying producer (rows TMA cannot map: D % 8 != 0, bases off 16)
+# ---------------------------------------------------------------------------
+
+def _copying_instances(kernel):
+    """(block_q, block_kv, block_d) of every instance with the copying
+    producer that csrc/flash_bwd.cu compiles (launch_q_copying,
+    launch_kv_copying)."""
+    src = (pathlib.Path(__file__).resolve().parents[1] / "mfa_tpu_torch"
+           / "csrc" / "flash_bwd.cu").read_text()
+    if kernel == "flash_bwd_q":
+        return {(128, int(a), int(b)) for a, b in re.findall(
+            r"launch_q_(?:wgmma|split)<(\d+), (\d+),(?: false,)? kCopy>",
+            src)}
+    return {(int(a), 64, int(b)) for a, b in re.findall(
+        r"launch_kv_(?:wgmma|split)<(\d+), (\d+),(?: false,)? kCopy>", src)}
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_q", "flash_bwd_kv"])
+def test_copying_rows_have_a_compiled_instance(kernel):
+    """The C entries compile one copying instance for each bf16 table row
+    up to D 256, and params.COPY_ROWS names exactly those."""
+    table = {(r.block_q, r.block_kv, r.block_d)
+             for r in params.parameter_table(kernel, "bf16")
+             if 0 < r.max_d <= 256}
+    assert _copying_instances(kernel) == table == set(
+        params.COPY_ROWS[kernel])
+
+
+def _copy_smem(kernel, row, stages):
+    """csrc/flash_bwd.cu's layouts at the copying producer's ring depth
+    ``stages`` (the TMA layouts at that depth): K3's
+    QWgmmaSmem (Q, dO, L, D-term, then ``stages`` K + V tiles, an mbarrier
+    pair a stage) and one-CTA QSplitSmem (the K and V rings ``stages``
+    tiles each, a pair a tile); K4's KvWgmmaSmem (K, V, then ``stages`` Q
+    + dO tiles with their L and D-term, two scaled-Q tiles, a pair a
+    stage) and one-CTA KvSplitSmem (K, V, one scaled-Q tile, two S^T
+    buffers, the ring, a pair a stage and four more); one more mbarrier
+    and the alignment slack each."""
+    bq, bkv, bd = row.block_q, row.block_kv, row.block_d
+    tq, tkv = bq * bd * 2, bkv * bd * 2
+    if kernel == "flash_bwd_q":
+        fixed = 2 * tq + 8 * bq
+        bars = 1 + (2 if row.kernel == "wgmma" else 4) * stages
+        return fixed + 2 * stages * tkv + 8 * bars + 1024
+    if row.kernel == "wgmma":
+        return (2 * tkv + (2 * stages + 2) * tq + stages * 8 * bq
+                + 8 * (1 + 2 * stages) + 1024)
+    return (2 * tkv + tq + 2 * 64 * bq * 4 + stages * (2 * tq + 8 * bq)
+            + 8 * (2 * stages + 5) + 1024)
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_q", "flash_bwd_kv"])
+@pytest.mark.parametrize("most", [2, 3, 4])
+def test_copy_smem_reckons_the_launch_code(monkeypatch, kernel, most):
+    """Every compiled copying instance, at each depth the sweep builds:
+    the ring depth it compiles to (params.bwd_copy_stages: at most
+    BWD_Q_COPY_RING_STAGES, or
+    BWD_KV_COPY_RING_STAGES a consumer warpgroup, as many as fit; on K4's
+    wgmma kernel, whose warpgroups take alternate steps, an even number,
+    4 or more; elsewhere two or more) and the shared memory the launch
+    code lays out at that depth, within the H100."""
+    attr = ("BWD_Q_COPY_RING_STAGES" if kernel == "flash_bwd_q"
+            else "BWD_KV_COPY_RING_STAGES")
+    monkeypatch.setattr(params, attr, most)
+    for bq, bkv, bd in params.COPY_ROWS[kernel]:
+        kind = "wgmma" if bd <= 128 else "wgmma_dblk"
+        row = params.ParameterRow(bd - 6, bq, bkv, bd, kind, "copy")
+        stages = params.bwd_copy_stages(kernel, row)
+        alternate = kernel == "flash_bwd_kv" and kind == "wgmma"
+        assert 2 <= stages <= most * (2 if alternate else 1)
+        if alternate:
+            assert stages % 2 == 0 and stages >= 4
+        got = params.smem_bytes(kernel, row, 2)
+        assert got == _copy_smem(kernel, row, stages) \
+            <= params.H100.smem_per_block
+        # As deep as the most allows, unless a deeper ring would not fit.
+        deeper = stages + (2 if alternate else 1)
+        assert deeper > most * (2 if alternate else 1) or _copy_smem(
+            kernel, row, deeper) > params.H100.smem_per_block
+        if kernel == "flash_bwd_kv" and kind == "wgmma":
+            # Warpgroup 1's dK and dV pass through K's tile onward.
+            assert _copy_smem(kernel, row, stages) - 8 * bq * stages \
+                - 8 * (1 + 2 * stages) - 1024 >= 2 * 64 * bd * 4
+    tma = params.ParameterRow(128, *params.COPY_ROWS[kernel][1], "wgmma")
+    assert params.bwd_copy_stages(kernel, tma) == 0
+
+
+def test_copy_ring_depths_mirror_the_source():
+    """params.BWD_Q_COPY_RING_STAGES and BWD_KV_COPY_RING_STAGES are the
+    depths csrc/flash_bwd.cu compiles its copying instances with (the
+    defaults of MFA_BWD_Q_COPY_STAGES and MFA_BWD_KV_COPY_STAGES), and
+    runtime/host_config.cpp holds the same; the sweep's candidates
+    include them."""
+    pkg = pathlib.Path(__file__).resolve().parents[1] / "mfa_tpu_torch"
+    src = (pkg / "csrc" / "flash_bwd.cu").read_text()
+    host = (pkg / "runtime" / "host_config.cpp").read_text()
+    for macro, host_name, attr in (
+            ("MFA_BWD_Q_COPY_STAGES", "kBwdQCopyRingStages",
+             "BWD_Q_COPY_RING_STAGES"),
+            ("MFA_BWD_KV_COPY_STAGES", "kBwdKvCopyRingStages",
+             "BWD_KV_COPY_RING_STAGES")):
+        (value,) = re.findall(rf"#define {macro} (\d+)", src)
+        (mirror,) = re.findall(rf"{host_name} = (\d+);", host)
+        assert int(value) == int(mirror) == getattr(params, attr)
+        assert bwd_tuning.COPY_RING_STAGES[
+            "flash_bwd_q" if "_Q_" in macro else "flash_bwd_kv"] == (
+                attr, (2, 3, 4))
+
+
+@pytest.mark.parametrize("d", [100, 250, 36, 162])
+def test_wrappers_pass_the_copying_producer(library, monkeypatch, d):
+    """At D 100, 250, 36 and 162 (aligned operands) both wrappers launch
+    their table row (the wgmma kernel, code 1, or its one-CTA panel, code
+    3) with the copying producer's code and ring depth, and count the
+    launch under that row, also behind a stand-in for the wrapper (as
+    chip_smoke.py's checks install); a dO two bytes off 16 takes the
+    mma.sync row with TMA's codes (no depth)."""
+    for name in ("flash_bwd_q", "flash_bwd_kv"):
+        def stand_in(*args, _real=getattr(k34, name), **kwargs):
+            return _real(*args, **kwargs)
+
+        stand_in.launches = 0
+        monkeypatch.setattr(k34, name, stand_in)
+    q3, o3, do3 = (_meta(4, 64, d) for _ in range(3))
+    kv = _meta(2, 64, d)
+    lse = _meta(4, 64, dtype=torch.float32)
+    kw = dict(group=2, scale=0.125)
+    kd_q, kd_kv = (_kd(kind, d) for kind in _BWD)
+    label = ("wgmma" if d <= 128 else "wgmma_dblk") + "/copy"
+    before = (k34.launches_by_row["flash_bwd_q"][label],
+              k34.launches_by_row["flash_bwd_kv"][label])
+    k34.flash_bwd_q(q3, kv, kv, o3, do3, lse, kd_q, **kw)
+    k34.flash_bwd_kv(q3, kv, kv, do3, lse, lse, kd_kv, **kw)
+    assert (k34.launches_by_row["flash_bwd_q"][label],
+            k34.launches_by_row["flash_bwd_kv"][label]) == (before[0] + 1,
+                                                         before[1] + 1)
+    for (_, args), kd, name in zip(library.calls, (kd_q, kd_kv),
+                                   ("flash_bwd_q", "flash_bwd_kv")):
+        row = k34.launch_row(kd, d, (q3, kv, kv, do3))
+        assert row.producer == "copy"
+        assert (row.block_q, row.block_kv, row.block_d) in \
+            params.COPY_ROWS[name]
+        assert args[12:14] == (d, 1)
+        assert args[-6:-1] == (KERNEL_CODES[kd.kernel], kd.block_q,
+                               kd.block_kv, kd.block_d,
+                               params.PRODUCERS["copy"])
+
+    class Shifted(torch.Tensor):
+        def data_ptr(self):
+            return super().data_ptr() + 2
+
+    shifted = _meta(4, 64, d).as_subclass(Shifted)
+    library.calls.clear()
+    k34.flash_bwd_q(q3, kv, kv, o3, shifted, lse, kd_q, **kw)
+    k34.flash_bwd_kv(q3, kv, kv, shifted, lse, lse, kd_kv, **kw)
+    for (_, args), name in zip(library.calls, ("flash_bwd_q",
+                                               "flash_bwd_kv")):
+        row = params.select_row(params.parameter_table(name, "bf16_mma"), d)
+        assert args[-6:-1] == (0, row.block_q, row.block_kv, row.block_d,
+                               0)

@@ -226,7 +226,8 @@ def test_launch_row_takes_the_copying_producer(d, shift, want):
     bytes off 16): the wgmma or one-CTA wgmma_dblk row with the cp.async
     producer when the rows and every base share 4 bytes and one CTA holds
     D; else the mma.sync row: 2-byte shifts, odd D, the clusters past D
-    256. K3 and K4 keep the mma.sync rows wherever TMA cannot map."""
+    256. K3 and K4 take the same rows by the same rule, each on its own
+    table row."""
     aligned, shifted = _views(d, shift)
     kd = _kd(d)
     row = launch_row(kd, d, (aligned, shifted))
@@ -241,9 +242,11 @@ def test_launch_row_takes_the_copying_producer(d, shift, want):
             seq_len_kv=64, head_dim=d, causal=True, low_precision_inputs=True,
             low_precision_intermediates=True).kernel_descriptor(kind)
         row34 = launch_row(kd34, d, (aligned, shifted))
-        assert row34.producer == ""
-        if want != "wgmma":
-            assert row34.kernel in ("mma", "mma_dblk")
+        assert row_label(row34) == want
+        if row34.producer:
+            assert d <= row34.block_d
+            assert (row34.block_q, row34.block_kv, row34.block_d) == (
+                kd34.block_q, kd34.block_kv, kd34.block_d)
 
 
 @pytest.mark.parametrize("d, shift, granule", [
@@ -342,7 +345,7 @@ def test_wrapper_passes_the_producer(library, d):
     assert args[-10:-1] == (1, KERNEL_CODES[kd.kernel], 128, kd.block_kv,
                             kd.block_d, *params.fwd_rings(row),
                             int(params.FWD_PINGPONG),
-                            params.FWD_PRODUCERS["copy"])
+                            params.PRODUCERS["copy"])
     assert args[9:11] == (d, 1)
 
 
@@ -394,7 +397,7 @@ def test_wrapper_takes_any_number_of_heads(library, heads):
     row = params.ParameterRow(64, 128, 128, 64, "wgmma")
     assert args[-10:-1] == (1, KERNEL_CODES["wgmma"], 128, 128, 64,
                             *params.fwd_rings(row), int(params.FWD_PINGPONG),
-                            params.FWD_PRODUCERS[""])
+                            params.PRODUCERS[""])
 
 
 @pytest.mark.parametrize("dtype, o_dtype, d, code", [

@@ -132,8 +132,8 @@ def _k1_check(cuda, q, k, v, kd, kw, dt, o_dtype, want_kernel):
 
 
 def _k1_kernel(dt, d):
-    """The row a K1 launch of aligned operands runs up to D = 256: wgmma
-    for bf16 at D <= 128, one CTA of the head-dim-split kernel
+    """The row a K1 (or K3, K4) launch of aligned operands runs up to D =
+    256: wgmma for bf16 at D <= 128, one CTA of the head-dim-split kernel
     (wgmma_dblk) past it, by TMA at D % 8 == 0 and with the copying
     producer at other even D ("/copy"); the kept mma.sync kernel at odd
     D, the FMA kernel for fp32."""
@@ -800,11 +800,25 @@ BWD_CASES = [
     ("bf16", 128, 300, 300, 8, 2, dict(causal=True, sliding_window=64,
                                        logit_soft_cap=20.0)),
     ("bf16", 128, 16, 16, 2, 1, dict(causal=True)),   # tiles past R and C
-    # D 129-256 where TMA cannot map a row (D % 8 != 0): the mma.sync rows.
+    # Rows TMA cannot map (D % 8 != 0) on the wgmma kernels' copying
+    # producers (D even, up to 256): D 129-256 on one CTA of the
+    # head-dim-split kernels (4-byte granule at D 250 and 162);
+    # OpenLLaMA-3B's D 100 (8-byte granule), MHA and GQA, causal and not,
+    # fp32 O, window and soft-cap; D 42 (4 bytes), R > C. Odd D keeps the
+    # mma.sync rows.
     ("bf16", 250, 300, 300, 8, 2, dict(causal=True)),
     ("bf16", 162, 129, 257, 4, 4, dict()),                      # R < C
     ("bf16", 250, 512, 2048, 4, 2, dict(causal=True, sliding_window=256,
                                         logit_soft_cap=20.0)),  # unseen keys
+    ("bf16", 100, 300, 300, 4, 4, dict(causal=True)),
+    ("bf16", 100, 129, 257, 4, 2, dict()),                      # R < C
+    ("bf16", 100, 1000, 1000, 2, 2, dict(causal=True), True),   # fp32 O
+    ("bf16", 100, 333, 200, 4, 4, dict(sliding_window=50,
+                                       logit_soft_cap=30.0)),   # R > C
+    ("bf16", 100, 64, 500, 4, 1, dict(causal=True,
+                                      sliding_window=40)),      # unseen keys
+    ("bf16", 42, 150, 70, 4, 2, dict(causal=True)),             # R > C
+    ("bf16", 37, 65, 77, 2, 1, dict(causal=True)),              # odd D
     ("fp32", 64, 100, 100, 4, 2, dict(causal=True)),
     ("fp32", 256, 77, 130, 2, 1, dict()),
     ("fp32", 40, 65, 65, 4, 2, dict(sliding_window=9)),
@@ -843,15 +857,16 @@ def test_flash_bwd_kernels_match_plain(cuda, case):
     kw = dict(group=hq // hkv, scale=desc.softmax_scale)
     o, lse = k1.flash_fwd(q, k, v, kd_f, **kw,
                           o_dtype=torch.float32 if o_f32 else dtype)
-    # The rows say which kernel runs: wgmma for bf16 at D % 8 == 0 and
-    # D <= 128, the head-dim-split kernel (one CTA) at D % 8 == 0 up to
-    # D = 256, the kept mma.sync kernel at D % 8 != 0.
-    tma = dt == "bf16" and d % 8 == 0
+    # The rows say which kernel runs: wgmma for bf16 up to D = 128, the
+    # head-dim-split kernel (one CTA) up to D = 256, by TMA at D % 8 == 0
+    # and with the copying producer at other even D; the kept mma.sync
+    # kernel at odd D.
+    label = _k1_kernel(dt, d)
     for kd in (kd_q, kd_kv):
-        assert k34.launch_row(kd, d, (q, k, v, do)).kernel == (
-            ("wgmma" if d <= 128 else "wgmma_dblk") if tma
-            else "mma" if dt == "bf16" else "")
+        assert row_label(k34.launch_row(kd, d, (q, k, v, do))) == label
     n3, n4 = k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches
+    by3 = k34.launches_by_row["flash_bwd_q"][label]
+    by4 = k34.launches_by_row["flash_bwd_kv"][label]
     dq, dterm = k34.flash_bwd_q(
         q, k, v, o, do, lse, kd_q, **kw,
         out=(nan_canary((hq, r, d), device=cuda),
@@ -863,6 +878,8 @@ def test_flash_bwd_kernels_match_plain(cuda, case):
     torch.cuda.synchronize()
     assert (k34.flash_bwd_q.launches, k34.flash_bwd_kv.launches) == (n3 + 1,
                                                                      n4 + 1)
+    assert (k34.launches_by_row["flash_bwd_q"][label],
+            k34.launches_by_row["flash_bwd_kv"][label]) == (by3 + 1, by4 + 1)
     for name, t in (("dQ", dq), ("D-term", dterm), ("dK", dk), ("dV", dv)):
         assert_fully_written(t, name)
     dq_p, dterm_p = k34.flash_bwd_q_plain(q, k, v, o, do, lse, kd_q, **kw)
@@ -876,12 +893,81 @@ def test_flash_bwd_kernels_match_plain(cuda, case):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
-@pytest.mark.parametrize("d", [192, 256])
+def _k34_check(cuda, q, k, v, do, kd_f, kd_q, kd_kv, kw, want):
+    """K3 and K4 on q (any view), k, v, dO against their plain versions:
+    the row both launches take (row_label) is ``want``, every output
+    written, dQ, the D-term, dK and dV within budget, a second launch
+    bit-equal."""
+    hq, r, d = q.shape
+    hkv, c, _ = k.shape
+    for kd in (kd_q, kd_kv):
+        assert row_label(launch_row(kd, d, (q, k, v, do))) == want
+    o, lse = k1.flash_fwd(q, k, v, kd_f, o_dtype=torch.bfloat16, **kw)
+    n3, n4 = (k34.launches_by_row["flash_bwd_q"][want],
+              k34.launches_by_row["flash_bwd_kv"][want])
+    dq, dterm = k34.flash_bwd_q(
+        q, k, v, o, do, lse, kd_q, **kw,
+        out=(nan_canary((hq, r, d), device=cuda),
+             nan_canary((hq, r), device=cuda)))
+    dk, dv = k34.flash_bwd_kv(
+        q, k, v, do, lse, dterm, kd_kv, **kw,
+        out=(nan_canary((hkv, c, d), device=cuda),
+             nan_canary((hkv, c, d), device=cuda)))
+    torch.cuda.synchronize()
+    assert (k34.launches_by_row["flash_bwd_q"][want],
+            k34.launches_by_row["flash_bwd_kv"][want]) == (n3 + 1, n4 + 1)
+    for name, t in (("dQ", dq), ("D-term", dterm), ("dK", dk), ("dV", dv)):
+        assert_fully_written(t, name)
+    dq_p, dterm_p = k34.flash_bwd_q_plain(q, k, v, o, do, lse, kd_q, **kw)
+    dk_p, dv_p = k34.flash_bwd_kv_plain(q, k, v, do, lse, dterm, kd_kv, **kw)
+    for key, got, want_ in (("dterm", dterm, dterm_p), ("dq_bf16", dq, dq_p),
+                            ("dk_bf16", dk, dk_p), ("dv_bf16", dv, dv_p)):
+        atol, rtol = KERNEL_BUDGETS[f"flash_bwd_{key}"]
+        assert_close(got, want_, atol, key, rtol=rtol)
+    dq2, dterm2 = k34.flash_bwd_q(q, k, v, o, do, lse, kd_q, **kw)
+    dk2, dv2 = k34.flash_bwd_kv(q, k, v, do, lse, dterm, kd_kv, **kw)
+    assert torch.equal(dq, dq2) and torch.equal(dterm, dterm2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("d, shift, do_shift", [
+    (100, 4, 0), (100, 8, 0), (100, 0, 4), (128, 4, 0), (128, 0, 8),
+    (250, 8, 0), (36, 4, 4)])
+def test_flash_bwd_shifted_view_takes_the_copying_producer(cuda, d, shift,
+                                                           do_shift):
+    """A q or dO view 4 or 8 bytes into its storage cannot be mapped by
+    TMA, but its rows and bases share 4 bytes: K3 and K4 keep their wgmma
+    rows with the copying producer at that granule (D 128, OpenLLaMA-3B's
+    100 and 36 on the 128- and 64-wide panels, D 250 on one CTA of the
+    256-wide one), and agree."""
+    q, k, v, kd_f, kw = _k1_bf16(cuda, 4, 2, 300, 333, d, d + shift,
+                                 causal=True)
+    kw.pop("o_dtype")
+    gen = torch.Generator(device=cuda).manual_seed(d + 1)
+    do = torch.randn(q.shape, generator=gen, device=cuda).bfloat16()
+    views = []
+    for t, at in ((q, shift), (do, do_shift)):
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)
+        view = buf[at // 2:at // 2 + t.numel()].view(t.shape)
+        view.copy_(t)
+        views.append(view)
+    desc = AttentionDescriptor(
+        batch=1, num_q_heads=4, num_kv_heads=2, seq_len_q=300,
+        seq_len_kv=333, head_dim=d, causal=True, low_precision_inputs=True,
+        low_precision_intermediates=True)
+    _, kd_q, kd_kv = (desc.kernel_descriptor(t) for t in AttentionKernelType)
+    kernel = "wgmma" if d <= 128 else "wgmma_dblk"
+    _k34_check(cuda, views[0], k, v, views[1], kd_f, kd_q, kd_kv, kw,
+               f"{kernel}/copy")
+
+
+@pytest.mark.parametrize("d", [192, 256, 100])
 def test_flash_bwd_misaligned_view_takes_the_mma_row(cuda, d):
-    """A q view two bytes into its storage cannot be mapped by TMA: K3 and
-    K4 run the mma.sync row of the head dim (D 129-256) in place of the
-    head-dim-split kernel, and agree with their plain versions, every
-    output written, a second launch bit-equal."""
+    """A q view two bytes into its storage cannot be mapped by TMA, nor
+    copied at 4 bytes or more: K3 and K4 run the mma.sync row of the head
+    dim (D 129-256, and OpenLLaMA-3B's 100) in place of the wgmma rows,
+    and agree with their plain versions, every output written, a second
+    launch bit-equal."""
     q, k, v, kd_f, kw = _k1_bf16(cuda, 4, 2, 300, 300, d, d + 7, causal=True)
     gen = torch.Generator(device=cuda).manual_seed(d)
     do = torch.randn(q.shape, generator=gen, device=cuda).bfloat16()
@@ -894,7 +980,7 @@ def test_flash_bwd_misaligned_view_takes_the_mma_row(cuda, d):
         low_precision_intermediates=True)
     _, kd_q, kd_kv = (desc.kernel_descriptor(t) for t in AttentionKernelType)
     for kd in (kd_q, kd_kv):
-        assert kd.kernel == "wgmma_dblk"
+        assert kd.kernel == ("wgmma" if d <= 128 else "wgmma_dblk")
         assert launch_row(kd, d, (shifted, k, v, do)).kernel == "mma"
     kw = dict(group=2, scale=desc.softmax_scale)
     o, lse = k1.flash_fwd(shifted, k, v, kd_f, o_dtype=torch.bfloat16, **kw)

@@ -348,6 +348,14 @@ def test_c_entries_take_the_arguments_the_wrappers_pass(name):
     assert len(decls) == 1, name
     params = decls[0][decls[0].index("(") + 1:decls[0].index(")")]
     assert params.count(",") + 1 == len(build._SIGNATURES[name]), name
+    # The flash entries take the producer code last before the stream,
+    # as an int (K3 and K4 after block_d, K1 after its ping-pong flag).
+    names = [a.split()[-1].lstrip("*") for a in params.split(",")]
+    if name.startswith("mfa_flash"):
+        tail = (["block_d", "producer", "stream"] if "bwd" in name
+                else ["pingpong", "producer", "stream"])
+        assert names[-3:] == tail, name
+        assert build._SIGNATURES[name][-3:-1] == [build._I, build._I]
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

@@ -72,8 +72,9 @@ def _smem_rows():
             for in_bytes in (2, 4):
                 rows |= {(kernel, r) for r in
                          params.flash_candidate_rows(kernel, d, in_bytes)}
-    rows |= {("flash_fwd", params.ParameterRow(d, 128, bkv, bd, k, "copy"))
-             for bkv, bd in params.FWD_COPY_ROWS
+    rows |= {(kernel, params.ParameterRow(d, bq, bkv, bd, k, "copy"))
+             for kernel, instances in params.COPY_ROWS.items()
+             for bq, bkv, bd in instances
              for d, k in ((bd, "wgmma"), (bd, "wgmma_dblk"))}
     rows |= {(kernel, params.ParameterRow(0, 128, 64, bd, "wgmma_dblk"))
              for kernel in ("flash_fwd", "flash_bwd_q", "flash_bwd_kv")

@@ -1,7 +1,11 @@
 """Port training (plain kernel versions on the CPU) against mfa_tpu's:
 the optimizer schedule, the loss, one step's loss and gradients and an
 8-step loss curve of the tiny fp32 Llama from the same parameters, the
-sanity guards and the token dataset."""
+same for an OpenLLaMA-shaped model (head dim 100, MHA) built through
+both packages' Hugging Face conversion, the sanity guards and the token
+dataset."""
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -10,11 +14,12 @@ import optax
 import pytest
 import torch
 
+from mfa_tpu.models import convert as jax_convert
 from mfa_tpu.models import llama as jax_llama
 from mfa_tpu.models import training as jax_training
 from mfa_tpu.utils import data as jax_data
 from mfa_tpu.utils import sanity as jax_sanity
-from mfa_tpu_torch.models import llama, training
+from mfa_tpu_torch.models import convert, llama, training
 from mfa_tpu_torch.models.from_jax import params_from_numpy
 from mfa_tpu_torch.utils import data, sanity
 
@@ -132,6 +137,112 @@ def test_loss_curve_matches(tiny):
     np.testing.assert_allclose(got, want, rtol=1e-3)
     assert got[-1] < got[0] * 0.8, got
     assert state.step == 8
+
+
+# OpenLLaMA-3B's published config.json fields (openlm-research/
+# open_llama_3b: no num_key_value_heads, so MHA; no rope_theta) cut to a
+# tiny width that keeps its head dim of 100 (two heads over width 200).
+OPENLLAMA_TINY = dict(
+    architectures=["LlamaForCausalLM"], model_type="llama",
+    hidden_act="silu", hidden_size=200, intermediate_size=256,
+    num_hidden_layers=2, num_attention_heads=2,
+    max_position_embeddings=2048, rms_norm_eps=1e-6,
+    tie_word_embeddings=False, vocab_size=256)
+
+
+@pytest.fixture(scope="module")
+def openllama_tiny():
+    """Both packages' configs from the same fields, a numpy state dict
+    under Hugging Face's key names (seed 40: projections N(0, 1/d_in), the
+    embedding N(0, 1) * 0.02, norms ones) and a 2 x 24 batch."""
+    fields = types.SimpleNamespace(**OPENLLAMA_TINY)
+    cfg, jcfg = convert.config_from_hf(fields), jax_convert.config_from_hf(
+        fields)
+    assert cfg.head_dim == 100 and cfg.n_kv_heads == cfg.n_heads == 2
+    rng = np.random.default_rng(40)
+
+    def rand(scale, *shape):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    hd, dim, ffn = cfg.head_dim, cfg.dim, cfg.ffn_hidden
+    sd = {"model.embed_tokens.weight": rand(0.02, cfg.vocab_size, dim),
+          "model.norm.weight": np.ones(dim, np.float32),
+          "lm_head.weight": rand(dim ** -0.5, cfg.vocab_size, dim)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        for name, d_out, d_in in (
+                ("self_attn.q_proj", cfg.n_heads * hd, dim),
+                ("self_attn.k_proj", cfg.n_kv_heads * hd, dim),
+                ("self_attn.v_proj", cfg.n_kv_heads * hd, dim),
+                ("self_attn.o_proj", dim, cfg.n_heads * hd),
+                ("mlp.gate_proj", ffn, dim), ("mlp.up_proj", ffn, dim),
+                ("mlp.down_proj", dim, ffn)):
+            sd[p + name + ".weight"] = rand(d_in ** -0.5, d_out, d_in)
+        sd[p + "input_layernorm.weight"] = np.ones(dim, np.float32)
+        sd[p + "post_attention_layernorm.weight"] = np.ones(dim, np.float32)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 24))
+    return cfg, jcfg, sd, tokens
+
+
+def _openllama_states(openllama_tiny):
+    """(the port's TrainState, mfa_tpu's params) from the same weights,
+    each package through its own params_from_hf."""
+    cfg, jcfg, sd, _ = openllama_tiny
+    model = convert.params_from_hf(sd, cfg, torch.float32, device="cpu",
+                                   trainable=True)
+    assert all(p.requires_grad for p in model.parameters())
+    opt = training.make_optimizer(lr=1e-2, warmup_steps=1, total_steps=50)
+    return (training.create_train_state(model, opt),
+            jax_convert.params_from_hf(sd, jcfg, jnp.float32))
+
+
+def test_openllama_shaped_first_step_matches(openllama_tiny):
+    """One train_step of the OpenLLaMA-shaped model (D 100, MHA) from
+    Hugging Face weights: the loss within 1e-5 of mfa_tpu's (relative) and
+    every gradient within 1e-4 of its largest, as for the tiny Llama."""
+    _, jcfg, _, tokens = openllama_tiny
+    state, params = _openllama_states(openllama_tiny)
+    tj = jnp.asarray(tokens, jnp.int32)
+
+    def loss_fn(p):
+        logits = jax_llama.forward(p, jcfg, tj[:, :-1], interpret=True)
+        return jax_training.cross_entropy_loss(logits, tj[:, 1:])
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    metrics = training.train_step(state, torch.from_numpy(tokens))
+    assert abs(float(metrics["loss"]) - float(want_loss)) \
+        <= 1e-5 * abs(float(want_loss))
+    want = _jax_grads(want_grads)
+    got = _port_grads(state.model)
+    assert set(got) == set(want)
+    for name, g in got.items():
+        w = want[name]
+        assert g.shape == w.shape, name
+        tol = 1e-4 * float(np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol, err_msg=name)
+    gnorm = float(optax.global_norm(want_grads))
+    np.testing.assert_allclose(float(metrics["grad_norm"]), gnorm, rtol=1e-4)
+
+
+def test_openllama_shaped_loss_curve_matches(openllama_tiny):
+    """Four train_steps of the OpenLLaMA-shaped model against mfa_tpu's
+    jitted train_step from the same weights: losses within 1e-3."""
+    _, jcfg, _, tokens = openllama_tiny
+    state, params = _openllama_states(openllama_tiny)
+    opt = jax_training.make_optimizer(lr=1e-2, warmup_steps=1,
+                                      total_steps=50)
+    jstate = jax_training.create_train_state(params, opt)
+    step = jax.jit(lambda s, t: jax_training.train_step(
+        s, t, jcfg, opt, interpret=True))
+    tj, tt = jnp.asarray(tokens, jnp.int32), torch.from_numpy(tokens)
+    want, got = [], []
+    for _ in range(4):
+        jstate, jm = step(jstate, tj)
+        want.append(float(jm["loss"]))
+        got.append(float(training.train_step(state, tt)["loss"]))
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    assert got[-1] < got[0], got
+    assert state.step == 4
 
 
 def test_train_state_needs_trainable_model():
