@@ -571,10 +571,12 @@ def _split_shape(torch, n, group, capacity, lens, window=None,
 
 # The decode kernels' head dims past D = 8 * 2^k, each with a GQA group:
 # OpenLLaMA-3B's 100 (MHA), Phi-2's 80 and Phi-3-mini's 96 (kernel cases
-# here), a tail of 250 (rows 2-byte aligned in int8 and fp8) and 384 (two
-# chunks a lane); K5 also 512. (D, G); each over the four storage types
-# at L 2048, and D 100 in bf16 under a window of 512.
-HEAD_DIM_CASES = ((80, 4), (96, 8), (100, 1), (250, 4), (384, 8))
+# here), 192 and 256 (the 256-wide tensor-core pair), a tail of 250 (rows
+# 4-byte aligned in bf16, 2-byte in int8 and fp8) and 384 (two chunks a
+# lane, FMA); K5 also 512. (D, G); each over the four storage types at L
+# 2048, and D 100 in bf16 under a window of 512.
+HEAD_DIM_CASES = ((80, 4), (96, 8), (100, 1), (250, 4), (384, 8), (192, 8),
+                  (256, 4))
 
 
 def _head_dim_cases(extra=()):
@@ -594,6 +596,15 @@ def _odd_d_cases():
     formats = dict(_kv_formats())
     return [(2048, name, formats[name], 8, 1, None, 99)
             for name in ("bf16", "int8")]
+
+
+def _small_d_cases():
+    """D 4 and 8 with query chunks of 8 (G 8), whose CTAs take 128 threads
+    (ops/params.py::decode_threads), over bf16 and int8: cases in
+    _head_dim_cases' form."""
+    formats = dict(_kv_formats())
+    return [(2048, name, formats[name], 8, 8, None, d)
+            for d in (4, 8) for name in ("bf16", "int8")]
 
 
 def _attend_fp64(torch, q3, k, v, k_scale, v_scale, live,
@@ -665,19 +676,28 @@ def _sdpa_ms(torch, q, k, v, lengths, window, scale):
 
 # What this port requires of the decode cases' paths, beyond agreeing with
 # ops/params.py::decode_path (each case holds its launch to that): K2, K5
-# and K6 on the tensor-core pair at bf16 D 80, 96, 100 and 128, over int8
-# and both fp8 formats at D 100 and 128, and K5 with its cache 4 bytes
-# off 16; FMA at odd D (bf16 and int8). (kernel, storage, D, base shift in
-# bytes) -> path. (fp32 q stays on FMA: k5_bits' fp32 cases are held to
-# it.)
+# and K6 on the tensor-core pair at bf16 D 80, 96, 100, 128, 192, 250 and
+# 256, over int8 and both fp8 formats at D 100, 128, 192 and 256, and K5
+# with its cache 4 bytes off 16; FMA at odd D (bf16 and int8), at D 250
+# over 1-byte storage, at D 384 and 512 and at D 4 and 8. (kernel,
+# storage, D, base shift in bytes) -> path. (fp32 q stays on FMA:
+# k5_bits' fp32 cases are held to it.)
 REQUIRED_PATHS = {
     **{(k, "bf16", d, 0): p for k in ("k2", "k5", "k6")
        for d, p in ((80, "mma/g16"), (96, "mma/g16"), (100, "mma/g8"),
-                    (128, "mma/g16"), (99, "fma"))},
+                    (128, "mma/g16"), (99, "fma"), (192, "mma/g16"),
+                    (250, "mma/g4"), (256, "mma/g16"), (4, "fma"),
+                    (8, "fma/exact"))},
     **{(k, f, d, 0): p for k in ("k2", "k5", "k6")
        for f in ("int8", "fp8_e4m3", "fp8_e5m2")
-       for d, p in ((100, "mma/g4"), (128, "mma/g16"))},
-    **{(k, "int8", 99, 0): "fma" for k in ("k2", "k5", "k6")},
+       for d, p in ((100, "mma/g4"), (128, "mma/g16"), (192, "mma/g16"),
+                    (256, "mma/g16"), (250, "fma"))},
+    **{(k, f, 384, 0): "fma" for k in ("k2", "k5", "k6")
+       for f in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2")},
+    **{(k, "int8", d, 0): p for k in ("k2", "k5", "k6")
+       for d, p in ((99, "fma"), (4, "fma"), (8, "fma/exact"))},
+    **{("k5", f, 512, 0): "fma"
+       for f in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2")},
     ("k5", "bf16", 100, 4): "mma/g4",
 }
 
@@ -885,13 +905,13 @@ def phase_k2(torch):
         key, row = _k2_case(torch, gen, *case)
         results[key] = row
     head_dims = {}
-    for case in _head_dim_cases() + _odd_d_cases():
+    for case in _head_dim_cases() + _odd_d_cases() + _small_d_cases():
         key, row = _k2_case(torch, gen, *case)
         head_dims[key] = row
     paths = {}
     digests = k2_bits(torch, paths)
     same = digests == K2_INT8_DIGESTS
-    on_pair = all(v == ["mma/g16" if "D128" in key else "mma/g4"]
+    on_pair = all(v == ["mma/g4" if "D100" in key else "mma/g16"]
                   for key, v in paths.items())
     emit({"phase": "k2_bits", "digests": digests, "paths": paths,
           "as_recorded": same})
@@ -904,16 +924,18 @@ def phase_k2(torch):
 
 # K2's output bits over an int8 cache on the fixed inputs of k2_bits, as
 # the FMA pair gave them on an H100 before K2's int8 launches at 64 <= D
-# <= 128 moved onto the tensor-core pair. Over int8, K2 requantizes q and
-# P to s8: its products and their sums a split are integers below 2^24,
-# exact in any order, and what is not (the scales' products, P's row
-# sum) the pair computes in the FMA pair's order. So these bits hold on
-# either pair, and a change to them is a fault in the pair, not a
-# re-recording.
+# <= 128 moved onto the tensor-core pair (D 192 and 256: before those at
+# 128 < D <= 256 moved). Over int8, K2 requantizes q and P to s8: its
+# products and their sums a split are integers below 2^24, exact in any
+# order, and what is not (the scales' products, P's row sum) the pair
+# computes in the FMA pair's order. So these bits hold on either pair,
+# and a change to them is a fault in the pair, not a re-recording.
 K2_INT8_DIGESTS = {
     "int8_bfloat16_D128_G4": "7470e953fb772dc9",
     "int8_bfloat16_D100_G1": "e30a87ac480ad740",
     "int8_bfloat16_D128_G4_pm127": "731492cad7ffec0b",
+    "int8_bfloat16_D192_G8": "d904b3ea8d668dd6",
+    "int8_bfloat16_D256_G4": "8d59b379f91a6474",
 }
 
 
@@ -921,8 +943,9 @@ def k2_bits(torch, paths=None) -> dict:
     """sha256 (16 hex digits) of K2's output over an int8 cache for each
     case: bf16 q at D 128 and G 4, at D 100 and G 1, and at D 128 and G 4
     with every K and V value at +-127 and constant scales (every live
-    row's P at the same s8 value 127, the largest integer sums); 4
-    sequences x 8 kv heads, max_len 2048, lengths 0, 777, 2047, 2048.
+    row's P at the same s8 value 127, the largest integer sums), then at
+    D 192 and G 8 and at D 256 and G 4; 4 sequences x 8 kv heads, max_len
+    2048, lengths 0, 777, 2047, 2048.
     Inputs come from numpy (seed 21) on the host, so every tree and run
     sees the same bits. ``paths``, where given, takes each case's launch
     paths (the wrapper's launches_by_path)."""
@@ -938,7 +961,8 @@ def k2_bits(torch, paths=None) -> dict:
     lengths = torch.tensor([0, 777, max_len - 1, max_len],
                            dtype=torch.int32).cuda()
     digests = {}
-    for d, g, extreme in ((128, 4, False), (100, 1, False), (128, 4, True)):
+    for d, g, extreme in ((128, 4, False), (100, 1, False), (128, 4, True),
+                          (192, 8, False), (256, 4, False)):
         if extreme:
             k = np.full((bh, max_len, d), 127, dtype=np.int8)
             v = np.where(np.arange(d) % 2 == 0, 127, -127).astype(np.int8)
@@ -1165,7 +1189,8 @@ def phase_k5(torch):
     for case in cases:
         key, results[key], n5 = _k5_case(torch, gen, *case)
         launches += n5
-    for case in _head_dim_cases(extra=((512, 1),)) + _odd_d_cases():
+    for case in (_head_dim_cases(extra=((512, 1),)) + _odd_d_cases()
+                 + _small_d_cases()):
         key, head_dims[key], n5 = _k5_case(torch, gen, *case)
         launches += n5
     # OpenLLaMA-3B's width with the cache 4 bytes off 16: copy granule 4.
@@ -1300,7 +1325,8 @@ def phase_k6(torch):
         for name, prec, window in cases:
             key, results[key] = _k6_case(torch, gen, ps, name, prec, window)
     for _, name, prec, _, g, window, d in (_head_dim_cases()
-                                           + _odd_d_cases()):
+                                           + _odd_d_cases()
+                                           + _small_d_cases()):
         key, head_dims[key] = _k6_case(torch, gen, 512, name, prec, window,
                                        g, d)
     emit({"phase": "k6_done", "seconds": time.perf_counter() - t0})
@@ -1435,42 +1461,63 @@ QWEN2_7B_PROJECTIONS = ((3584, 3584), (3584, 512), (3584, 18944),
 
 def phase_k8(torch):
     """K8 against its plain version at Llama-3-8B's projection shapes, and
-    signed at Qwen2-7B's. Returns the kernel-table row (decode, 4096 ->
-    14336, signed)."""
+    signed at Qwen2-7B's; then where the wrapper re-splits the packed
+    weights before the kernel (kernels/quant_matmul.py::repack_halves):
+    K 4080 (K % 32 != 0) at N 4096, M 4 and 2048, signed and biased, and
+    packed weights 8 bytes off 16 at 4096 -> 4096, each with the re-split's
+    own ms. Returns (the kernel-table row (decode, 4096 -> 14336, signed),
+    the re-split rows)."""
     import torch.nn.functional as F
 
     from mfa_tpu_torch.kernels import quant
     from mfa_tpu_torch.kernels import quant_matmul as k8
     from mfa_tpu_torch.ops import params as params_mod
     from mfa_tpu_torch.utils import roofline
-    from mfa_tpu_torch.utils.testing import KERNEL_BUDGETS, budget_share
+    from mfa_tpu_torch.utils.testing import (
+        KERNEL_BUDGETS,
+        budget_share,
+        shifted_copy,
+    )
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(8)
     dev = params_mod.detect_device(torch.device("cuda", 0))
-    cases = [(k, n, m, layout, torch.bfloat16)
+    cases = [(k, n, m, layout, torch.bfloat16, 0)
              for k, n in LLAMA3_8B_PROJECTIONS for m in (4, 16, 2048)
              for layout in ("int4", "int4_biased")]
-    cases.append((4096, 1024, 4, "int4", torch.float32))
-    cases += [(k, n, m, "int4", torch.bfloat16)
+    cases.append((4096, 1024, 4, "int4", torch.float32, 0))
+    cases += [(k, n, m, "int4", torch.bfloat16, 0)
               for k, n in QWEN2_7B_PROJECTIONS for m in (4, 2048)]
-    results = {}
-    for k, n, m, layout, dt in cases:
+    cases += [(4080, 4096, m, layout, torch.bfloat16, 0) for m in (4, 2048)
+              for layout in ("int4", "int4_biased")]
+    cases += [(4096, 4096, 4, "int4", torch.bfloat16, 8),
+              (4096, 4096, 2048, "int4_biased", torch.bfloat16, 8)]
+    results, resplit = {}, {}
+    for k, n, m, layout, dt, shift in cases:
         w = torch.randn((n, k), generator=gen, device="cuda") / math.sqrt(k)
         qw = quant.quantize_weight(w, layout)
         del w
+        packed = shifted_copy(qw.w, shift) if shift else qw.w
         x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
-        args = (x, qw.w, qw.scale)
+        args = (x, packed, qw.scale)
+        n8 = k8.int4_matmul.launches
         y = k8.int4_matmul(*args, layout=layout)
         torch.cuda.synchronize()
+        n8 = k8.int4_matmul.launches - n8
         y_p = k8.int4_matmul_plain(*args, layout=layout)
         budget = KERNEL_BUDGETS["int4_matmul_" + (
             "biased" if layout == "int4_biased" else "signed")]
         err = max_err(y, y_p)
         share = budget_share(y, y_p, *budget)
-        ok = bool(torch.isfinite(y.float()).all()) and share <= 1
+        ok = (bool(torch.isfinite(y.float()).all()) and share <= 1
+              and n8 == 1)
         ms = roofline.cuda_ms(lambda: k8.int4_matmul(*args, layout=layout),
                      iters=50)
+        resplits = k % 32 != 0 or packed.data_ptr() % 16 != 0
+        # The re-split alone (inside ms, where the wrapper takes it).
+        repack = ({"repack_ms": roofline.cuda_ms(
+            lambda: k8.repack_halves(x, packed), iters=50)}
+            if resplits else {})
         plain_ms = roofline.cuda_ms(lambda: k8.int4_matmul_plain(
             *args, layout=layout), iters=3, warmup=1)
         # Yardstick: F.linear over the dequantized weight, the same product
@@ -1488,17 +1535,22 @@ def phase_k8(torch):
         ctas = -(-m // tile.block_m) * -(-n // tile.block_n)
         split = {}
         if tile.path == "splitk":
-            # The decode tiles' split of K (ops/params.py's rule).
-            cols = params_mod.qmm_split_cols(n, k, tile, dev)
-            splits = -(-(k // 2) // cols)
+            # The decode tiles' split of K (ops/params.py's rule), over
+            # the re-split K where the wrapper takes it.
+            kp = -(-k // 32) * 32
+            cols = params_mod.qmm_split_cols(n, kp, tile, dev)
+            splits = -(-(kp // 2) // cols)
             ctas *= splits
             split = {"split_cols": cols, "splits": splits}
-        key = (f"{layout}_{str(dt).split('.')[-1]}_M{m}_K{k}_N{n}")
+        key = (f"{layout}_{str(dt).split('.')[-1]}_M{m}_K{k}_N{n}"
+               + (f"_off{shift}" if shift else ""))
         results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms)
+                            library_ms=library_ms, **repack)
+        if resplits:
+            resplit[key] = results[key]
         emit({"phase": "k8", "case": key, "tile": tile.name,
-              "path": tile.path, **split, "ctas": ctas,
+              "path": tile.path, **split, "ctas": ctas, "launches": n8,
               "sms_busy": min(ctas, dev.sm_count),
               "tflops": 2 * m * n * k / (ms * 1e-3) / 1e12, "err": err,
               "budget": budget,
@@ -1509,11 +1561,11 @@ def phase_k8(torch):
         if not ok:
             raise SystemExit(f"k8 {key}: kernel disagrees with its plain "
                              f"version (uses {share} of |d| <= {budget[0]} "
-                             f"+ {budget[1]}|y|)")
-        del qw, x, y, y_p
+                             f"+ {budget[1]}|y|, launches {n8})")
+        del qw, packed, x, y, y_p
     torch.cuda.empty_cache()
     emit({"phase": "k8_done", "seconds": time.perf_counter() - t0})
-    return results["int4_bfloat16_M4_K4096_N14336"]
+    return results["int4_bfloat16_M4_K4096_N14336"], resplit
 
 
 @contextlib.contextmanager
@@ -3776,7 +3828,7 @@ def main() -> int:
     k5_row, k5_head_dims, k5_launches = phase_k5(torch)
     k6_row, k6_head_dims = phase_k6(torch)
     k7_row, k7_launches = phase_k7(torch)
-    k8_row = phase_k8(torch)
+    k8_row, k8_resplit = phase_k8(torch)
     launches, model, prompts, served = phase_serving(torch)
     bf16_tokens = served[OperandPrecision.BF16][0]
     paged_k1, k6_launches = phase_paged_serving(torch, model, prompts,
@@ -3901,7 +3953,7 @@ def main() -> int:
          "source": "mfa_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "mfa_tpu/kernels/quant_matmul.py:27 and :54",
          "launches": int4_launches["int4_matmul"] + new["int4_matmul"],
-         **k8_row},
+         **k8_row, "resplit": k8_resplit},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

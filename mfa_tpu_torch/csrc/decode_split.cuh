@@ -18,22 +18,27 @@
 // Which launches take which pass pair (launch_passes; the host names the
 // path, ops/params.py::decode_path, and a launch on another is refused):
 //  - the tensor-core pair (decode_score_mma, decode_attend_mma): bf16 q
-//    at 64 <= D <= 128 over every storage type (bf16, int8, fp8-e4m3,
+//    at 64 <= D <= 256 over every storage type (bf16, int8, fp8-e4m3,
 //    fp8-e5m2), K2, K5 and K6 alike, whose rows and bases share a copy
 //    granule g of 4 bytes or more (mma_granule: the largest of 16, 8, 4
 //    dividing the row bytes and the k and v bases). 1-byte storage is
 //    widened to bf16 by each warp (exact). D 64 and 128 at g 16 keep
-//    their own instances (GR 0); every other such launch (D 80, 96, 112
-//    at g 16; OpenLLaMA-3B's D 100 at g 8 in bf16, 4 in int8 and fp8;
-//    bases 8 or 4 bytes off) runs the 128-wide instance of its granule,
-//    rows padded with zeros to 128 values in shared memory;
+//    their own instances (GR 0); every other such launch up to D 128 (D
+//    80, 96, 112 at g 16; OpenLLaMA-3B's D 100 at g 8 in bf16, 4 in int8
+//    and fp8; bases 8 or 4 bytes off) runs the 128-wide instance of its
+//    granule, and every one past D 128 (D 192 and 256; D 250 in bf16 at
+//    g 4) the 256-wide instance, which reads its granule from the bases
+//    at run time (GR kGrAny) and runs CTAs of 128 threads (its ring of
+//    ~100 KB lets two share an SM), rows padded with zeros to 128 or 256
+//    values in shared memory;
 //  - the FMA pair (decode_score / decode_attend in RowLayout's rows,
 //    their _exact instances at D = 8 * 2^k <= 256): everything else
-//    (fp32 q, which the 2e-5 budget keeps unrounded; odd D and g < 4;
-//    D < 64; D > 128), over 16-byte aligned cache storage.
+//    (fp32 q, which the 2e-5 budget keeps unrounded; odd D and g < 4, so
+//    D 250 over int8 and fp8; D < 64; D > 256), over 16-byte aligned
+//    cache storage.
 // K2 over int8 gives the same bits on either pair: its q and P are s8
 // integers (exact as bf16 operands), their products with K and V are
-// integers whose sums stay below 2^24 (128 * 127^2 a score, 1024 * 127^2
+// integers whose sums stay below 2^24 (256 * 127^2 a score, 1024 * 127^2
 // a split's P V: DECODE_SPLIT_MAX_ROWS), so exact in fp32 in any order,
 // and what is not an integer (the scales' products, P's row sum) the
 // pair computes in the FMA pair's order; only D 64 off 16 bytes, whose
@@ -1081,14 +1086,48 @@ decode_attend_exact(Par<kFused> p, Rows rows) {
   attend_pass<KVF, GC, 1, true, Rows, kFused>(p, rows);
 }
 
-// A warp's rows of a tile for the tensor-core path: j = u * (32 / CPR) +
-// the warp's row group, so that each warp takes 16 (D = 128) or 32 (D =
-// 64) rows; chunk cc of such a row sits at cc ^ (j % 8) in its row group's
-// slots, so that the 8 rows an ldmatrix reads fall in 8 bank groups.
-template <int CPR>
+// The tensor-core pair's rows DD values wide in shared memory: CPR chunks
+// of 8 values, kCPT of them a thread (chunks cc and cc + TPR of its row;
+// two at DD 256, so that a warp again takes 16 rows, one m16 block, a
+// tile), TPR threads a row, kWRG row groups a warp, kBlocks m16 blocks a
+// warp a tile.
+template <int DD>
+struct MmaRows {
+  static constexpr int CPR = DD / 8;
+  static constexpr int kCPT = DD > 128 ? 2 : 1;
+  static constexpr int TPR = CPR / kCPT;
+  static constexpr int kWRG = 32 / TPR;
+  static constexpr int kBlocks = kWRG * kUnroll / 16;
+};
+
+// GR of the 256-wide instances: the launch's copy granule, read from the
+// bases at run time (one instance for 16, 8 and 4 keeps the build short).
+constexpr int kGrAny = 1;
+
+// A warp's rows of a tile for the tensor-core path: j = u * kWRG + the
+// warp's row group, so that each warp takes 16 (D = 128 and 256) or 32
+// (D = 64) rows; chunk cc of such a row sits at cc ^ (j % 8) in its row
+// group's slots, so that the 8 rows an ldmatrix reads fall in 8 bank
+// groups.
+template <int CPR, int kWRG = 32 / CPR>
 __device__ __forceinline__ int mma_slot(int rg, int cc, int u) {
-  constexpr int kWRG = 32 / CPR;
   return rg * CPR + (cc ^ ((u * kWRG + rg % kWRG) & 7));
+}
+
+// The cache row of the tile at `base` that a warp's j-th row (j = u kWRG
+// + rg % kWRG) holds: base + rg + u RG up to DD 128; at DD 256 base + warp
+// + nw j. The FMA pair past D 128 takes one row group a warp, 8 warps,
+// row group f the rows f mod 8; the 256-wide pair runs 4 warps (nw), so
+// a warp's even rows are FMA row group warp's and its odd rows row group
+// warp + 4's, each in order, and K2's int8 row sum keeps FMA's order.
+template <int DD>
+__device__ __forceinline__ int mma_row(int base, int warp, int j, int RG,
+                                       int nw) {
+  constexpr int kWRG = MmaRows<DD>::kWRG;
+  if constexpr (DD > 128)
+    return base + warp + nw * j;
+  else
+    return base + warp * kWRG + j % kWRG + (j / kWRG) * RG;
 }
 
 // 1-byte storage on tensor cores: the 4 stored values of a word widened
@@ -1134,14 +1173,15 @@ __device__ __forceinline__ uint4 widen_chunk(const uint2& c, bool live) {
   return r;
 }
 
-// Bytes of the tensor-core pair's ring: Ring's, plus (1-byte storage)
-// the bf16 tile [kUnroll][threads] of the stage in use, widened from it.
+// Bytes of the tensor-core pair's ring of `slots` chunks a row step
+// (threads * kCPT): Ring's, plus (1-byte storage) the bf16 tile
+// [kUnroll][slots] of the stage in use, widened from it.
 template <int KVF, int GC>
-__host__ __device__ size_t mma_ring_bytes(int threads, int rg, bool scores) {
+__host__ __device__ size_t mma_ring_bytes(int slots, int rg, bool scores) {
   return Ring<KVF, GC>::bytes(
-             (size_t)threads * sizeof(typename Chunk<KVF>::type), kUnroll,
+             (size_t)slots * sizeof(typename Chunk<KVF>::type), kUnroll,
              rg, scores) +
-         (KVF != 0 ? (size_t)kUnroll * threads * 16 : 0);
+         (KVF != 0 ? (size_t)kUnroll * slots * 16 : 0);
 }
 
 // The shared memory of the tensor-core attend pass before its row max:
@@ -1149,8 +1189,8 @@ __host__ __device__ size_t mma_ring_bytes(int threads, int rg, bool scores) {
 // [nw][GC][D] of the D live columns reuses.
 template <int KVF, int GC>
 __host__ __device__ size_t mma_union_bytes(int threads, int DD, int D) {
-  const size_t ring =
-      mma_ring_bytes<KVF, GC>(threads, threads / (DD / 8), true);
+  const int slots = threads * (DD > 128 ? 2 : 1);
+  const size_t ring = mma_ring_bytes<KVF, GC>(slots, slots / (DD / 8), true);
   const size_t o_w = (size_t)(threads / 32) * GC * D * 4;
   return ring > o_w ? ring : o_w;
 }
@@ -1179,6 +1219,21 @@ __device__ __forceinline__ void copy_live(void* dst, const char* src,
     if (j * GR < lb)
       cp_async<GR>(static_cast<char*>(dst) + j * GR, src + j * GR);
 }
+// f(std::integral_constant<int, G>) at the copy granule G of a launch:
+// the instance's GR, or (GR kGrAny) the launch's gr (16, 8 or 4; at most
+// kCB), chosen once for a tile's copies: a branch at each of a thread's
+// 16 copies a tile made the 256-wide pair slower than the FMA pair.
+template <int GR, int kCB, class F>
+__device__ __forceinline__ void at_granule(int gr, F&& f) {
+  if constexpr (GR != kGrAny)
+    f(std::integral_constant<int, GR>{});
+  else if (gr >= kCB)
+    f(std::integral_constant<int, kCB>{});
+  else if (gr == 8)
+    f(std::integral_constant<int, 8>{});
+  else
+    f(std::integral_constant<int, 4>{});
+}
 template <int kCB>
 __device__ __forceinline__ void zero_pad(void* dst, int lb) {
   for (int b = lb; b < kCB; b += 4)
@@ -1194,39 +1249,47 @@ __device__ __forceinline__ void zero_pad(void* dst, int lb) {
 // in use into a bf16 tile (exact; the bf16 path's slots), then S = (q .
 // K_raw) * ks. K2 over int8 (kRequant) first requantizes q to s8 per
 // query row as score_pass does, and holds q_s8 as bf16 (integers up to
-// 127, exact): the products are integers and their sums, at most 128 *
+// 127, exact): the products are integers and their sums, at most 256 *
 // 127^2 < 2^24, exact in fp32 in any order, so S = (dot * q scale) * ks
 // is score_pass's S bit for bit.
-// Rows are DD (64 or 128) values wide in shared memory. GR 0: D = DD,
-// rows whole 16-byte chunks (8-byte for 1-byte storage), each copied by
-// one cp.async. GR 16, 8 or 4 (kPad: 64 <= D <= 128 on the 128-wide
-// instances): rows of D values at stride D in the cache, padded with zeros
-// to DD in the slots (zero_pad, once a CTA); a thread copies the live
-// bytes of its chunk GR at a time (copy_live), and column blocks past D
-// are skipped.
+// Rows are DD (64, 128 or 256) values wide in shared memory (MmaRows;
+// at DD 256 a thread takes two chunks of its row). GR 0: D = DD, rows
+// whole 16-byte chunks (8-byte for 1-byte storage), each copied by one
+// cp.async. GR 16, 8 or 4 (kPad: 64 <= D <= 128 on the 128-wide
+// instances), and kGrAny (128 < D <= 256 on the 256-wide ones): rows of
+// D values at stride D in the cache, padded with zeros to DD in the slots
+// (zero_pad, once a CTA); a thread copies the live bytes of its chunks GR
+// at a time (copy_live, at_granule), and column blocks past D are
+// skipped.
 template <int KVF, int GC, int DD, int GR, class Rows, bool kFused>
 __global__ void __launch_bounds__(256)
 decode_score_mma(Par<kFused> p, Rows rows) {
+  using L = MmaRows<DD>;
   constexpr bool kByte = KVF != 0, kPad = GR != 0;
   constexpr bool kRequant = kFused && KVF == 1;
-  constexpr int CPR = DD / 8, kWRG = 32 / CPR, kBlocks = kWRG * kUnroll / 16;
+  constexpr int CPR = L::CPR, kCPT = L::kCPT, TPR = L::TPR;
+  constexpr int kWRG = L::kWRG, kBlocks = L::kBlocks;
   constexpr int kE = kByte ? 1 : 2, kCB = 8 * kE;  // bytes a value, a chunk
   const int bh = blockIdx.x, b = bh / p.hkv, h = bh - b * p.hkv;
   const int g0 = blockIdx.y * GC, G = min(GC, p.group - g0), s = blockIdx.z;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   const int warp = tid >> 5, nw = T >> 5, D = kPad ? p.D : DD;
-  const int RG = T / CPR, TR = RG * kUnroll;
-  const int cc = tid % CPR, rg = tid / CPR;
-  // kPad: the live bytes of this thread's chunk.
-  const int lb = kPad ? min(kCB, max(0, (D - cc * 8) * kE)) : kCB;
+  const int RG = T / TPR, TR = RG * kUnroll, TS = T * kCPT;
+  const int cc = tid % TPR, rg = tid / TPR;
+  // kPad: the live bytes of this thread's chunks cc + k TPR.
+  int lb[kCPT];
+#pragma unroll
+  for (int k = 0; k < kCPT; ++k)
+    lb[k] = kPad ? min(kCB, max(0, (D - (cc + k * TPR) * 8) * kE)) : kCB;
+  const int gr = GR == kGrAny ? mma_granule(p.k, p.v, D * kE) : GR;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr size_t kTile = sizeof(typename Chunk<KVF>::type);
-  const Ring<KVF, GC> ring(smem, T * kTile, kUnroll, RG, false);
+  const Ring<KVF, GC> ring(smem, TS * kTile, kUnroll, RG, false);
   uint4* wide = reinterpret_cast<uint4*>(
-      smem + Ring<KVF, GC>::bytes(T * kTile, kUnroll, RG,
-                                  false));        // kByte: [kUnroll][T]
+      smem + Ring<KVF, GC>::bytes(TS * kTile, kUnroll, RG,
+                                  false));        // kByte: [kUnroll][TS]
   float* red = reinterpret_cast<float*>(
-      smem + mma_ring_bytes<KVF, GC>(T, RG, false));  // [nw][GC]
+      smem + mma_ring_bytes<KVF, GC>(TS, RG, false));  // [nw][GC]
   int* ids = reinterpret_cast<int*>(red + nw * GC);  // page ids
 
   griddep_launch_dependents();           // decode_attend may start its V
@@ -1239,18 +1302,29 @@ decode_score_mma(Par<kFused> p, Rows rows) {
   if (t.s_lo >= t.s_hi) return;
   Rows at = rows;
   at.bind(ids, b, t.s_lo, t.s_hi);
-  // The slot of this thread's chunk in stage st, row u of its group.
-  auto kslot = [&](int st, int u) -> void* {
-    return kByte ? (void*)(ring.chunk + (st * kUnroll + u) * T + tid)
-               : (void*)(reinterpret_cast<uint4*>(ring.chunk) +
-                         (st * kUnroll + u) * T + mma_slot<CPR>(rg, cc, u));
+  // The slot of this thread's chunk k in stage st, row u of its group.
+  auto kslot = [&](int st, int u, int k) -> void* {
+    return kByte ? (void*)(ring.chunk + (st * kUnroll + u) * TS + k * T + tid)
+                 : (void*)(reinterpret_cast<uint4*>(ring.chunk) +
+                           (st * kUnroll + u) * TS +
+                           mma_slot<CPR, kWRG>(rg, cc + k * TPR, u));
+  };
+  // This thread's row of step u in the tile at base (mma_row).
+  auto own_row = [&](int base, int u) {
+    if constexpr (DD > 128)
+      return base + warp + nw * (u * kWRG + rg % kWRG);
+    else
+      return base + rg + u * RG;
   };
   if constexpr (kPad) {
-    if (lb < kCB)
 #pragma unroll
-      for (int st = 0; st < kStages; ++st)
+    for (int k = 0; k < kCPT; ++k)
+      if (lb[k] < kCB)
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) zero_pad<kCB>(kslot(st, u), lb);
+        for (int st = 0; st < kStages; ++st)
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            zero_pad<kCB>(kslot(st, u, k), lb[k]);
   }
   __syncthreads();
   const size_t qrow0 = (size_t)bh * p.group + g0;
@@ -1261,23 +1335,30 @@ decode_score_mma(Par<kFused> p, Rows rows) {
   const size_t rb = (size_t)D * kE;
 
   auto issue = [&](int i) {
-    if (i < ntiles) {
-      const int base = t.s_lo + i * TR, st = i % kStages;
+    at_granule<GR, kCB>(gr, [&](auto g) {
+      constexpr int kG = decltype(g)::value;
+      if (i < ntiles) {
+        const int base = t.s_lo + i * TR, st = i % kStages;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int l = base + rg + u * RG;
-        if (l < t.s_hi) {
-          const size_t r = at(bh, h, l);
-          if constexpr (kPad)
-            copy_live<GR, kCB>(kslot(st, u), kb + r * rb, lb);
-          else
-            cp_async<kCB>(kslot(st, u), kb + r * rb);
-          if (kByte && cc == 0)
-            cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
-                        p.k_scale + r);
+        for (int u = 0; u < kUnroll; ++u) {
+          const int l = own_row(base, u);
+          if (l < t.s_hi) {
+            const size_t r = at(bh, h, l);
+#pragma unroll
+            for (int k = 0; k < kCPT; ++k) {
+              if constexpr (kPad)
+                copy_live<kG, kCB>(kslot(st, u, k),
+                                   kb + r * rb + k * TPR * kCB, lb[k]);
+              else
+                cp_async<kCB>(kslot(st, u, k), kb + r * rb + k * TPR * kCB);
+            }
+            if (kByte && cc == 0)
+              cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
+                          p.k_scale + r);
+          }
         }
       }
-    }
+    });
     cp_async_commit();
   };
 #pragma unroll
@@ -1342,14 +1423,19 @@ decode_score_mma(Par<kFused> p, Rows rows) {
     const uint4* tile;
     if constexpr (kByte) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        wide[u * T + mma_slot<CPR>(rg, cc, u)] = widen_chunk<KVF>(
-            ring.chunk[(st * kUnroll + u) * T + tid],
-            base + rg + u * RG < t.s_hi);
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool live = own_row(base, u) < t.s_hi;
+#pragma unroll
+        for (int k = 0; k < kCPT; ++k)
+          wide[u * TS + mma_slot<CPR, kWRG>(rg, cc + k * TPR, u)] =
+              widen_chunk<KVF>(
+                  ring.chunk[(st * kUnroll + u) * TS + k * T + tid], live);
+      }
       __syncwarp();
       tile = wide;
     } else {
-      tile = reinterpret_cast<const uint4*>(ring.chunk) + (st * kUnroll) * T;
+      tile =
+          reinterpret_cast<const uint4*>(ring.chunk) + (st * kUnroll) * TS;
     }
 #pragma unroll
     for (int nb = 0; nb < kBlocks; ++nb) {
@@ -1362,13 +1448,14 @@ decode_score_mma(Par<kFused> p, Rows rows) {
       for (int ks = 0; ks < DD / 16; ++ks) {
         if (kPad && ks * 16 >= D) break;
         uint32_t a[4];
-        ldsm_x4(a, tile + u * T + mma_slot<CPR>(r, ks * 2 + (lane >> 4), u));
+        ldsm_x4(a, tile + u * TS +
+                       mma_slot<CPR, kWRG>(r, ks * 2 + (lane >> 4), u));
         mma_bf16(c, a, qb[ks][0], qb[ks][1]);
       }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int jr = nb * 16 + (lane >> 2) + hh * 8;
-        const int l = base + warp * kWRG + jr % kWRG + (jr / kWRG) * RG;
+        const int l = mma_row<DD>(base, warp, jr, RG, nw);
         if (l < t.s_hi && gc < GC) {
           if constexpr (kByte) {
             const float ks = ring.scale[(st * kUnroll + jr / kWRG) * RG +
@@ -1416,31 +1503,39 @@ decode_score_mma(Par<kFused> p, Rows rows) {
 // s8 against the P scale of decode_pmax (integers up to 127, exact in
 // bf16), so P V sums integers, at most 1024 * 127^2 < 2^24 a split
 // (DECODE_SPLIT_MAX_ROWS), exact in fp32 in any order; the row sum of P,
-// not an integer, is summed in attend_pass's order (each row group's
-// rows in tile and row order, then the row groups of a warp pairwise,
-// as its butterfly), by lanes of its own. GR and the padded rows as
-// decode_score_mma's; the partial O holds the D live columns
-// (finish_attend's stride).
+// not an integer, is summed in attend_pass's order, by lanes of its own:
+// up to DD 128 each row group's rows in tile and row order, then the row
+// groups of a warp pairwise, as its butterfly; at DD 256 each of the FMA
+// pair's row groups in row order (mma_row: a warp's even and odd rows),
+// then the groups in order through shared memory.
+// GR and the padded rows as decode_score_mma's; the partial O holds the
+// D live columns (finish_attend's stride).
 template <int KVF, int GC, int DD, int GR, class Rows, bool kFused>
 __global__ void __launch_bounds__(256)
 decode_attend_mma(Par<kFused> p, Rows rows) {
+  using L = MmaRows<DD>;
   constexpr bool kByte = KVF != 0, kPad = GR != 0;
   constexpr bool kRequant = kFused && KVF == 1;
-  constexpr int CPR = DD / 8, kWRG = 32 / CPR, kBlocks = kWRG * kUnroll / 16;
+  constexpr int CPR = L::CPR, kCPT = L::kCPT, TPR = L::TPR;
+  constexpr int kWRG = L::kWRG, kBlocks = L::kBlocks;
   constexpr int kE = kByte ? 1 : 2, kCB = 8 * kE;  // bytes a value, a chunk
   const int bh = blockIdx.x, b = bh / p.hkv, h = bh - b * p.hkv;
   const int g0 = blockIdx.y * GC, G = min(GC, p.group - g0), s = blockIdx.z;
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   const int warp = tid >> 5, nw = T >> 5, D = kPad ? p.D : DD;
-  const int RG = T / CPR, TR = RG * kUnroll;
-  const int cc = tid % CPR, rg = tid / CPR;
-  const int lb = kPad ? min(kCB, max(0, (D - cc * 8) * kE)) : kCB;
+  const int RG = T / TPR, TR = RG * kUnroll, TS = T * kCPT;
+  const int cc = tid % TPR, rg = tid / TPR;
+  int lb[kCPT];
+#pragma unroll
+  for (int k = 0; k < kCPT; ++k)
+    lb[k] = kPad ? min(kCB, max(0, (D - (cc + k * TPR) * 8) * kE)) : kCB;
+  const int gr = GR == kGrAny ? mma_granule(p.k, p.v, D * kE) : GR;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr size_t kTile = sizeof(typename Chunk<KVF>::type);
-  const Ring<KVF, GC> ring(smem, T * kTile, kUnroll, RG, true);
+  const Ring<KVF, GC> ring(smem, TS * kTile, kUnroll, RG, true);
   uint4* wide = reinterpret_cast<uint4*>(
-      smem + Ring<KVF, GC>::bytes(T * kTile, kUnroll, RG,
-                                  true));         // kByte: [kUnroll][T]
+      smem + Ring<KVF, GC>::bytes(TS * kTile, kUnroll, RG,
+                                  true));         // kByte: [kUnroll][TS]
   float* o_w = reinterpret_cast<float*>(smem);  // [nw][GC][D], after the loop
   float* m_g = reinterpret_cast<float*>(
       smem + mma_union_bytes<KVF, GC>(T, DD, D));  // [GC] row max
@@ -1467,17 +1562,27 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   if (t.s_lo >= t.s_hi) return;
   Rows at = rows;
   at.bind(ids, b, t.s_lo, t.s_hi);
-  auto vslot = [&](int st, int u) -> void* {
-    return kByte ? (void*)(ring.chunk + (st * kUnroll + u) * T + tid)
-               : (void*)(reinterpret_cast<uint4*>(ring.chunk) +
-                         (st * kUnroll + u) * T + mma_slot<CPR>(rg, cc, u));
+  auto vslot = [&](int st, int u, int k) -> void* {
+    return kByte ? (void*)(ring.chunk + (st * kUnroll + u) * TS + k * T + tid)
+                 : (void*)(reinterpret_cast<uint4*>(ring.chunk) +
+                           (st * kUnroll + u) * TS +
+                           mma_slot<CPR, kWRG>(rg, cc + k * TPR, u));
+  };
+  auto own_row = [&](int base, int u) {
+    if constexpr (DD > 128)
+      return base + warp + nw * (u * kWRG + rg % kWRG);
+    else
+      return base + rg + u * RG;
   };
   if constexpr (kPad) {
-    if (lb < kCB)
 #pragma unroll
-      for (int st = 0; st < kStages; ++st)
+    for (int k = 0; k < kCPT; ++k)
+      if (lb[k] < kCB)
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) zero_pad<kCB>(vslot(st, u), lb);
+        for (int st = 0; st < kStages; ++st)
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            zero_pad<kCB>(vslot(st, u, k), lb[k]);
   }
   __syncthreads();
   const float* sc =
@@ -1488,51 +1593,67 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   // As decode_attend's, with the V rows past the split zero-filled (kByte:
   // when widened; kPad: whole chunks holding live columns, by a
   // zero-source copy that reads nothing).
-  auto issue_v = [&](int i) {
+  auto issue_v_at = [&](int i, auto g) {
+    constexpr int kG = decltype(g)::value;
     if (i >= ntiles) return;
     const int base = t.s_lo + i * TR, st = i % kStages;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int l = base + rg + u * RG;
+      const int l = own_row(base, u);
       const bool live = l < t.s_hi;
       if constexpr (kPad) {
         if (live) {
           const size_t r = at(bh, h, l);
-          copy_live<GR, kCB>(vslot(st, u), vb + r * D * kE + cc * kCB, lb);
+#pragma unroll
+          for (int k = 0; k < kCPT; ++k)
+            copy_live<kG, kCB>(vslot(st, u, k),
+                               vb + r * D * kE + (cc + k * TPR) * kCB,
+                               lb[k]);
           if (kByte && cc == 0)
             cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
                         p.v_scale + r);
-        } else if (!kByte && lb > 0) {
-          // The source is read by no byte; its address is kept aligned.
-          cp_async16(vslot(st, u),
-                     reinterpret_cast<const void*>(
-                         reinterpret_cast<size_t>(vb) & ~(size_t)15),
-                     0);
+        } else if (!kByte) {
+#pragma unroll
+          for (int k = 0; k < kCPT; ++k)
+            if (lb[k] > 0)
+              // The source is read by no byte; its address is kept
+              // aligned.
+              cp_async16(vslot(st, u, k),
+                         reinterpret_cast<const void*>(
+                             reinterpret_cast<size_t>(vb) & ~(size_t)15),
+                         0);
         }
       } else if constexpr (kByte) {
         if (live) {
           const size_t r = at(bh, h, l);
-          cp_async<8>(ring.chunk + (st * kUnroll + u) * T + tid,
-                      vb + r * DD + cc * 8);
+#pragma unroll
+          for (int k = 0; k < kCPT; ++k)
+            cp_async<8>(ring.chunk + (st * kUnroll + u) * TS + k * T + tid,
+                        vb + r * DD + (cc + k * TPR) * 8);
           if (cc == 0)
             cp_async<4>(ring.scale + (st * kUnroll + u) * RG + rg,
                         p.v_scale + r);
         }
       } else {
         const __nv_bfloat16* v16 = static_cast<const __nv_bfloat16*>(p.v);
-        cp_async16(ring.chunk + (st * kUnroll + u) * T +
-                       mma_slot<CPR>(rg, cc, u),
-                   live ? v16 + at(bh, h, l) * DD + cc * 8 : v16,
-                   live ? 16 : 0);
+#pragma unroll
+        for (int k = 0; k < kCPT; ++k)
+          cp_async16(vslot(st, u, k),
+                     live ? v16 + at(bh, h, l) * DD + (cc + k * TPR) * 8
+                          : v16,
+                     live ? 16 : 0);
       }
     }
+  };
+  auto issue_v = [&](int i) {
+    at_granule<GR, kCB>(gr, [&](auto g) { issue_v_at(i, g); });
   };
   auto issue_s = [&](int i) {
     if (i >= ntiles || cc != 0) return;
     const int base = t.s_lo + i * TR, st = i % kStages;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int l = base + rg + u * RG;
+      const int l = own_row(base, u);
       if (l < t.s_hi)
 #pragma unroll
         for (int g = 0; g < GC; g += 4)
@@ -1570,7 +1691,8 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   float ps_r = 1.f;                      // kRequant: P's s8 scale
   if constexpr (kRequant) ps_r = gp < G ? ps_g[gp] : 1.f;
   // kRequant: this lane sums the row sum of query row lg over the rows of
-  // the warp's row group lr (attend_pass's lanes of that row group).
+  // the warp's row group lr (attend_pass's lanes of that row group; at DD
+  // 256 over the warp's rows).
   const int lg = lane & 7, lr = warp * kWRG + ((lane >> 3) & (kWRG - 1));
   const float m_l = kRequant && lg < G ? m_g[lg] : 0.f;
   float acc[DD / 16][4];
@@ -1587,17 +1709,31 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
     const uint4* tile;
     if constexpr (kByte) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        wide[u * T + mma_slot<CPR>(rg, cc, u)] = widen_chunk<KVF>(
-            ring.chunk[(st * kUnroll + u) * T + tid],
-            base + rg + u * RG < t.s_hi);
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool live = own_row(base, u) < t.s_hi;
+#pragma unroll
+        for (int k = 0; k < kCPT; ++k)
+          wide[u * TS + mma_slot<CPR, kWRG>(rg, cc + k * TPR, u)] =
+              widen_chunk<KVF>(
+                  ring.chunk[(st * kUnroll + u) * TS + k * T + tid], live);
+      }
       __syncwarp();
       tile = wide;
     } else {
-      tile = reinterpret_cast<const uint4*>(ring.chunk) + (st * kUnroll) * T;
+      tile =
+          reinterpret_cast<const uint4*>(ring.chunk) + (st * kUnroll) * TS;
     }
     const float* scores = ring.score + (st * kUnroll) * RG * GC;
-    if constexpr (kRequant) {
+    if constexpr (kRequant && DD > 128) {
+      // Lanes 8 h + lg: the warp's rows of parity h (rows warp + 4 h mod
+      // 8 of the split: the FMA pair's row group warp + nw h) in order.
+#pragma unroll
+      for (int j = 0; j < kWRG * kUnroll; ++j)
+        if ((j & 1) == ((lane >> 3) & 1) && lg < G &&
+            mma_row<DD>(base, warp, j, RG, nw) < t.s_hi)
+          lsum += exp2f(scores[((j / kWRG) * RG + warp * kWRG + j % kWRG) *
+                                   GC + lg] - m_l);
+    } else if constexpr (kRequant) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         if (lg < G && base + lr + u * RG < t.s_hi)
@@ -1611,7 +1747,8 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
         const int jj = nb * 16 + (lane & 3) * 2 + (e & 1) + (e >> 1) * 8;
         const int u = jj / kWRG, r = warp * kWRG + jj % kWRG;
         float pe = 0.f, vs = 1.f;
-        if (gp < G && base + r + u * RG < t.s_hi) {
+        if (gp < G && (DD > 128 ? mma_row<DD>(base, warp, jj, RG, nw)
+                                : base + r + u * RG) < t.s_hi) {
           pe = exp2f(scores[(u * RG + r) * GC + gp] - m_r);
           if constexpr (kByte) vs = ring.scale[(st * kUnroll + u) * RG + r];
         }
@@ -1631,8 +1768,9 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
       for (int db = 0; db < DD / 16; ++db) {
         if (kPad && db * 16 >= D) break;
         uint32_t a[4];
-        ldsm_x4_t(a, tile + u * T +
-                         mma_slot<CPR>(r, db * 2 + ((lane >> 3) & 1), u));
+        ldsm_x4_t(a, tile + u * TS +
+                         mma_slot<CPR, kWRG>(r, db * 2 + ((lane >> 3) & 1),
+                                             u));
         mma_bf16(acc[db], a, b0, b1);
       }
     }
@@ -1640,19 +1778,34 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   cp_async_wait<0>();
 
   // Row sums over the four lanes of a query row (kRequant: over the
-  // warp's row groups, as attend_pass's butterfly); then each warp's
-  // partial O^T (rows d, columns gc and gc + 1) and sums into shared
-  // memory, which the ring no longer needs.
+  // warp's row groups, as attend_pass's butterfly; at DD 256 one lane a
+  // query row holds them); then each warp's partial O^T (rows d, columns
+  // gc and gc + 1) and sums into shared memory, which the ring no longer
+  // needs.
   if constexpr (kRequant) {
+    if constexpr (DD <= 128)
 #pragma unroll
-    for (int o = 8; o < 8 * kWRG; o <<= 1)
-      lsum += __shfl_xor_sync(kFull, lsum, o);
+      for (int o = 8; o < 8 * kWRG; o <<= 1)
+        lsum += __shfl_xor_sync(kFull, lsum, o);
   } else {
     lsum += __shfl_xor_sync(kFull, lsum, 1);
     lsum += __shfl_xor_sync(kFull, lsum, 2);
   }
   __syncthreads();
-  if constexpr (kRequant) {
+  if constexpr (kRequant && DD > 128) {
+    // The FMA pair's 2 nw row groups' sums (part, past the partial O in
+    // the ring's space), added in its order into l_w's first row; the
+    // other warps' rows add zeros (exact) where the partials meet.
+    float* part = o_w + (size_t)nw * GC * D;    // [2 nw][GC]
+    if (lane < 16 && lg < G)
+      part[(warp + ((lane >> 3) & 1) * nw) * GC + lg] = lsum;
+    __syncthreads();
+    if (tid < G) {
+      float l = 0.f;
+      for (int f = 0; f < 2 * nw; ++f) l += part[f * GC + tid];
+      for (int w = 0; w < nw; ++w) l_w[w * GC + tid] = w == 0 ? l : 0.f;
+    }
+  } else if constexpr (kRequant) {
     if (lane < G) l_w[warp * GC + lane] = lsum;
   } else if ((lane & 3) == 0 && gp < G) {
     l_w[warp * GC + gp] = lsum;
@@ -1780,24 +1933,32 @@ int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
       lay, two ? kUnrollOf<2> : kUnrollOf<1>, threads, false);
   size_t attend_ring = attend_union_bytes<KVF, GC>(threads, p.D);
   int chosen = lay.exact ? kPathFmaExact : kPathFma;
-  // bf16 q at 64 <= D <= 128 over any storage type whose rows and bases
+  // bf16 q at 64 <= D <= 256 over any storage type whose rows and bases
   // share a granule of 4 bytes or more: the tensor-core pair (1-byte
   // storage widened to bf16 by each warp; K2 over int8 keeps its s8
   // requantization exact). D 64 and 128 at granule 16 keep their own
-  // instances (GR 0); the rest run the 128-wide ones on rows padded with
-  // zeros, copied a granule at a time (8 bytes at most over 1-byte
-  // storage, whose chunks are 8 bytes).
+  // instances (GR 0); the rest up to D 128 run the 128-wide ones on rows
+  // padded with zeros, copied a granule at a time (8 bytes at most over
+  // 1-byte storage, whose chunks are 8 bytes), and past D 128 the
+  // 256-wide ones, which read the granule from the bases (kGrAny).
   const int gr = mma_granule(p.k, p.v, p.D * (KVF == 0 ? 2 : 1));
-  if (p.q_bf16 && p.D >= 64 && p.D <= 128 && gr >= 4) {
+  if (p.q_bf16 && p.D >= 64 && p.D <= 256 && gr >= 4) {
     constexpr int kG16 = KVF == 0 ? 16 : 8;
     const bool own = gr == 16 && (p.D == 64 || p.D == 128);
-    const int dd = own ? p.D : 128;
+    const int dd = own ? p.D : p.D > 128 ? 256 : 128;
     chosen = gr;
     if (own) {
       score = p.D == 64 ? decode_score_mma<KVF, GC, 64, 0, Rows, kFused>
                         : decode_score_mma<KVF, GC, 128, 0, Rows, kFused>;
       attend = p.D == 64 ? decode_attend_mma<KVF, GC, 64, 0, Rows, kFused>
                          : decode_attend_mma<KVF, GC, 128, 0, Rows, kFused>;
+    } else if (dd == 256) {
+      // The host gives these CTAs 128 threads, two an SM; K2 over int8
+      // takes no other count (its row sum takes the FMA pair's row
+      // groups, 2 nw of them, FMA running 256 threads).
+      if (kFused && KVF == 1 && threads != 128) return cudaErrorInvalidValue;
+      score = decode_score_mma<KVF, GC, 256, kGrAny, Rows, kFused>;
+      attend = decode_attend_mma<KVF, GC, 256, kGrAny, Rows, kFused>;
     } else {
       score = gr == 4   ? decode_score_mma<KVF, GC, 128, 4, Rows, kFused>
               : gr == 8 ? decode_score_mma<KVF, GC, 128, 8, Rows, kFused>
@@ -1807,7 +1968,8 @@ int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
                    ? decode_attend_mma<KVF, GC, 128, 8, Rows, kFused>
                    : decode_attend_mma<KVF, GC, 128, kG16, Rows, kFused>;
     }
-    ring = mma_ring_bytes<KVF, GC>(threads, threads / (dd / 8), false);
+    const int slots = threads * (dd > 128 ? 2 : 1);
+    ring = mma_ring_bytes<KVF, GC>(slots, slots / (dd / 8), false);
     attend_ring = mma_union_bytes<KVF, GC>(threads, dd, p.D);
   }
   if (chosen != path) return cudaErrorInvalidValue;

@@ -8,19 +8,22 @@ kernel K6 in ``kernels/paged_decode.py``) share one split-KV body,
 ``csrc/decode_split.cuh``, and one launch shape (:func:`split_launch`).
 All three take any head dim 1 <= D <= 512 over an unpadded cache (D
 values a row: 200 bytes at D 100 in bf16, 100 in int8 and fp8). bf16 q
-at 64 <= D <= 128 over any of the four storage types runs on tensor
+at 64 <= D <= 256 over any of the four storage types runs on tensor
 cores where the cache's rows and bases share a copy granule of 4 bytes
-or more (``ops/params.py::decode_granule``: 16 at D 80, 96 and 112 in
-bf16, 8 at D 100, 4 at D 100 in int8 and fp8; 1-byte storage widened to
-bf16, K2's int8 requantization exact), its rows padded with zeros to
-128 values in shared memory past D 64 and 128; every other case (fp32
-q, odd D, D < 64, D > 128) runs on FMA in
+or more (``ops/params.py::decode_granule``: 16 at D 80, 96, 112, 192 and
+256 in bf16, 8 at D 100, 4 at D 100 in int8 and fp8 and at D 250 in
+bf16; 1-byte storage widened to bf16, K2's int8 requantization exact),
+its rows padded with zeros to 128 values in shared memory past D 64 and
+128, and to 256 past D 128; every other case (fp32 q, odd D, granules
+under 4, D < 64, D > 256) runs on FMA in
 ``decode_split.cuh::RowLayout``'s rows, which copy a 16-byte aligned
 cache in 16-byte granules whatever a row's alignment
 (``ops/params.py::decode_row_layout`` mirrors it). Each wrapper counts
 its launches by path (``launches_by_path``: ``mma/g16``, ``mma/g8``,
 ``mma/g4``, ``fma``, ``fma/exact``; :func:`launch_path`), and the C
-launch refuses a launch whose path it would choose otherwise.
+launch refuses a launch whose path it would choose otherwise. A CTA
+has ``ops/params.py::decode_threads`` threads (128 on the 256-wide
+tensor-core pair and at D <= 8 with query chunks of 8, 256 otherwise).
 :func:`decode_fused_append` and :func:`decode_attend` launch their
 kernels for CUDA tensors and take their plain versions only for CPU
 tensors.
@@ -228,7 +231,8 @@ def decode_fused_append(q3, k, v, k_scale, v_scale, k_new, v_new, lengths,
         v_new.data_ptr(), lengths.data_ptr(), o.data_ptr(),
         workspace.data_ptr(), bh, num_kv_heads, g, L, d,
         sliding_window or 0, int(q3.dtype == torch.bfloat16),
-        KV_FORMATS[k.dtype], rows, chunk, params_mod.DECODE_ATTEND_THREADS,
+        KV_FORMATS[k.dtype], rows, chunk,
+        params_mod.decode_threads(d, chunk, path),
         params_mod.DECODE_PATHS[path],
         torch.cuda.current_stream(q3.device).cuda_stream)
     decode_fused_append.launches += 1
@@ -343,7 +347,8 @@ def decode_attend(q3, k, v, k_scale, v_scale, lengths, *,
         k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
         o.data_ptr(), workspace.data_ptr(), bh, num_kv_heads, g, L, d,
         sliding_window or 0, int(q3.dtype == torch.bfloat16),
-        KV_FORMATS[k.dtype], rows, chunk, params_mod.DECODE_ATTEND_THREADS,
+        KV_FORMATS[k.dtype], rows, chunk,
+        params_mod.decode_threads(d, chunk, path),
         params_mod.DECODE_PATHS[path],
         torch.cuda.current_stream(q3.device).cuda_stream)
     decode_attend.launches += 1

@@ -4,7 +4,7 @@ Replaces ``mfa_tpu/kernels/paged_decode.py::_paged_decode_kernel``; the
 CUDA source is ``csrc/paged_decode.cu``, over the body K5 uses for a
 contiguous cache (``csrc/decode_split.cuh``), here reading each row
 through the page table. Any head dim up to 512, on K5's paths (the
-tensor-core pair for bf16 q at 64 <= D <= 128 over pages of any storage
+tensor-core pair for bf16 q at 64 <= D <= 256 over pages of any storage
 type whose rows and pool share a copy granule of 4 bytes or more, FMA
 otherwise), counted by path
 in ``paged_decode.launches_by_path``.
@@ -105,7 +105,8 @@ def paged_decode(q3, k_pages, v_pages, k_scale, v_scale, tables, lengths,
         workspace.data_ptr(), n, hkv, g, max_pages, ps, d,
         sliding_window or 0, int(q3.dtype == torch.bfloat16),
         decode_mod.KV_FORMATS[k_pages.dtype], rows, chunk,
-        params_mod.DECODE_ATTEND_THREADS, params_mod.DECODE_PATHS[path],
+        params_mod.decode_threads(d, chunk, path),
+        params_mod.DECODE_PATHS[path],
         torch.cuda.current_stream(q3.device).cuda_stream)
     paged_decode.launches += 1
     _PATHS[path] += 1

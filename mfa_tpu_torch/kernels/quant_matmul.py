@@ -12,6 +12,16 @@ per-output-channel scales [N] fp32. The layout is named explicitly,
 "int4" (int8 bytes, signed nibbles) or "int4_biased" (uint8 bytes), and
 must agree with the bytes' dtype: ``mfa_tpu`` inferred it from the dtype
 alone.
+
+The kernel copies rows of x and of the packed weights as 16-byte TMA
+rows, so it takes K % 32 == 0 and 16-byte aligned packed weights. Any
+other even K, or packed weights at another address, the wrapper
+re-splits on every call (:func:`repack_halves`), as ``mfa_tpu`` pads K
+on every call: the packed rows become [N, K'/2] (K' = K rounded up to
+32) with zero bytes past K/2, and x's halves are each padded with zeros
+to K'/2, so that byte j still meets x[j] and x[K/2 + j]. A zero byte
+adds nothing against x's zero columns, whatever its nibbles mean, and
+the biased layout's row sum stays that of x unpadded.
 """
 
 from __future__ import annotations
@@ -100,6 +110,23 @@ def rowsum(x2: torch.Tensor) -> torch.Tensor:
     return x2.sum(dim=1, dtype=torch.float32)
 
 
+def repack_halves(x2: torch.Tensor, packed: torch.Tensor):
+    """(x', packed') for K8 at K % 32 != 0 or packed weights off 16
+    bytes: packed [N, K/2] re-split into a new 16-byte aligned [N, K'/2]
+    (K' = K rounded up to 32) with zero bytes past K/2, and x [M, K]
+    into [M, K'] as its two halves each padded with zeros to K'/2. The
+    products are those of x and packed: padded columns are zero."""
+    m, k = x2.shape
+    n, kh = packed.shape
+    khp = -(-kh // 16) * 16
+    wp = packed.new_zeros((n, khp))
+    wp[:, :kh] = packed
+    xp = x2.new_zeros((m, 2 * khp))
+    xp[:, :kh] = x2[:, :kh]
+    xp[:, khp:khp + kh] = x2[:, kh:]
+    return xp, wp
+
+
 def int4_matmul_plain(x, packed, scale, *, layout: str):
     """Plain PyTorch version of K8 on x [..., K]: the two K halves against
     the low and high nibbles in fp32 (biased: nibbles q + 8, then minus
@@ -156,18 +183,16 @@ def int4_matmul(x, packed, scale, *, layout: str, device="cuda"):
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scale, layout=layout)
     x2 = x.reshape(-1, k)
-    if k % 32 != 0:
-        raise ValueError(f"int4_matmul on the card needs K % 32 == 0 (whole "
-                         f"16-byte copies), got K = {k}")
     if not x2.is_contiguous() or x2.data_ptr() % 16:
         x2 = x2.clone(memory_format=torch.contiguous_format)
-    if not packed.is_contiguous() or packed.data_ptr() % 16:
-        raise ValueError("packed weights must be contiguous and 16-byte "
-                         "aligned")
     m = x2.shape[0]
     tile = int4_tile(m, n, x.dtype, params_mod.detect_device(x.device))
     biased = layout == "int4_biased"
+    # The row sum of x as given (the repack's zero columns add nothing).
     rs = rowsum(x2) if biased and tile.path == "wgmma" else None
+    if k % 32 or not packed.is_contiguous() or packed.data_ptr() % 16:
+        x2, packed = repack_halves(x2, packed)
+        k = x2.shape[1]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     cols, part, counters = (split_launch(m, n, k, tile, x.device, stream)
                             if tile.path == "splitk" else (0, None, None))

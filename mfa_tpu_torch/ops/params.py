@@ -858,7 +858,8 @@ DECODE_SPLITS = 8
 DECODE_SPLIT_MIN_ROWS = 64
 DECODE_SPLIT_MAX_ROWS = 1024
 # Threads of a K5/K6 CTA, a multiple of 32: at most 32 lanes share a
-# cache row (256 beat 128 in the same sweep).
+# cache row (256 beat 128 in the same sweep). decode_threads halves them
+# where the FMA pair's scores would not fit.
 DECODE_ATTEND_THREADS = 256
 # The split-KV body's ring (csrc/decode_split.cuh): kStages tiles, kUnroll
 # rows a lane group a tile (half past D = 256, two chunks a lane).
@@ -966,40 +967,54 @@ def decode_granule(head_dim: int, itemsize: int, *addresses: int) -> int:
 def decode_mma_width(head_dim: int, granule: int = 16) -> int:
     """DD, the values a row holds in the tensor-core pair's shared memory:
     D 64 and 128 at granule 16 have instances of their own; every other
-    head dim the pair takes is padded with zeros to 128."""
-    return head_dim if granule == 16 and head_dim in (64, 128) else 128
+    head dim the pair takes is padded with zeros to 128, or past D 128 to
+    256."""
+    if granule == 16 and head_dim in (64, 128):
+        return head_dim
+    return 128 if head_dim <= 128 else 256
+
+
+def _decode_mma_ring(head_dim: int, itemsize: int, group_chunk: int,
+                     threads: int, granule: int, scores: bool) -> int:
+    """decode_split.cuh::mma_ring_bytes: the ring of each thread's chunks
+    of DD-wide rows (two a thread at DD 256, MmaRows) and, over 1-byte
+    storage, the widened bf16 tile."""
+    width = decode_mma_width(head_dim, granule)
+    slots = threads * (2 if width > 128 else 1)
+    ring = _decode_ring_bytes(slots * 8 * itemsize, DECODE_UNROLL,
+                              slots // (width // 8), group_chunk, scores)
+    return ring + (DECODE_UNROLL * slots * 16 if itemsize == 1 else 0)
 
 
 def decode_mma_union_bytes(head_dim: int, itemsize: int, group_chunk: int,
                            threads: int | None = None,
                            granule: int | None = None) -> int:
     """decode_split.cuh::mma_union_bytes (the tensor-core pair): the ring
-    of each thread's chunk of DD-wide rows (and, fp8, the widened bf16
+    of each thread's chunks of DD-wide rows (and, fp8, the widened bf16
     tile), which the partial O of the D live columns reuses. ``granule``
     defaults to that of the row bytes alone (aligned bases)."""
     threads = threads or DECODE_ATTEND_THREADS
     if granule is None:
         granule = decode_granule(head_dim, itemsize)
-    width = decode_mma_width(head_dim, granule)
-    ring = _decode_ring_bytes(threads * 8 * itemsize, DECODE_UNROLL,
-                              threads // (width // 8), group_chunk, True)
-    ring += DECODE_UNROLL * threads * 16 if itemsize == 1 else 0
+    ring = _decode_mma_ring(head_dim, itemsize, group_chunk, threads,
+                            granule, True)
     return max(ring, threads // 32 * group_chunk * head_dim * 4)
 
 
 def decode_tensor_cores(head_dim: int, storage: torch.dtype, q_bf16: bool,
                         granule: int | None = None) -> bool:
     """Whether a launch takes the tensor-core pair (launch_passes): bf16 q
-    at 64 <= D <= 128 over any storage type (bf16; int8, fp8-e4m3 and
+    at 64 <= D <= 256 over any storage type (bf16; int8, fp8-e4m3 and
     fp8-e5m2 widened to bf16), for K2, K5 and K6 alike, whose rows and
     bases share a copy granule of 4 bytes or more
     (:func:`decode_granule`; ``granule`` defaults to that of the row
-    bytes alone, as for 16-byte aligned bases). fp32 q stays on FMA: its
-    2e-5 budget rules out rounding q to bf16."""
+    bytes alone, as for 16-byte aligned bases: D 250 takes 4 in bf16 and
+    none in int8 and fp8). fp32 q stays on FMA: its 2e-5 budget rules out
+    rounding q to bf16."""
     if granule is None:
         granule = decode_granule(
             head_dim, torch.empty((), dtype=storage).element_size())
-    return q_bf16 and 64 <= head_dim <= 128 and granule >= 4
+    return q_bf16 and 64 <= head_dim <= 256 and granule >= 4
 
 
 def decode_path(head_dim: int, storage: torch.dtype, q_bf16: bool,
@@ -1025,18 +1040,18 @@ def decode_smem_bytes(head_dim: int, storage: torch.dtype, group_chunk: int,
     call, as decode_split.cuh::launch_passes computes it (table_ints: K6's
     page ids a split, split rows / page + 2; ``granule``: as for
     :func:`decode_tensor_cores`, whose passes hold, over 1-byte storage,
-    a widened bf16 tile beside their rings)."""
-    threads = threads or DECODE_ATTEND_THREADS
+    a widened bf16 tile beside their rings; ``threads`` defaults to the
+    wrappers' :func:`decode_threads`)."""
     itemsize = torch.empty((), dtype=storage).element_size()
-    nw = threads // 32
     if granule is None:
         granule = decode_granule(head_dim, itemsize)
-    if decode_tensor_cores(head_dim, storage, q_bf16, granule):
-        width = decode_mma_width(head_dim, granule)
-        ring = _decode_ring_bytes(threads * 8 * itemsize, DECODE_UNROLL,
-                                  threads // (width // 8), group_chunk,
-                                  False)
-        ring += DECODE_UNROLL * threads * 16 if itemsize == 1 else 0
+    pair = decode_tensor_cores(head_dim, storage, q_bf16, granule)
+    threads = threads or decode_threads(head_dim, group_chunk,
+                                        "mma" if pair else "fma")
+    nw = threads // 32
+    if pair:
+        ring = _decode_mma_ring(head_dim, itemsize, group_chunk, threads,
+                                granule, False)
         union = decode_mma_union_bytes(head_dim, itemsize, group_chunk,
                                        threads, granule)
     else:
@@ -1056,6 +1071,21 @@ def decode_group_chunk(group: int) -> int:
     """Query rows of one GQA group a K5/K6 CTA keeps in registers (the
     kernel has instances for 4 and 8)."""
     return 4 if group <= 4 else 8
+
+
+def decode_threads(head_dim: int, group_chunk: int,
+                   path: str = "fma") -> int:
+    """Threads of a K2/K5/K6 CTA on ``path`` (a key of DECODE_PATHS):
+    DECODE_ATTEND_THREADS, but 128 on the 256-wide tensor-core pair (D >
+    128: a ring of ~100 KB, two CTAs an SM; the C launch takes no other
+    count there) and at most 128 at D <= 8 with query chunks of 8, where
+    the FMA pair gives one lane a row and the scores of 256 row groups x 8
+    query rows would overflow shared memory (128 row groups fit)."""
+    if path.startswith("mma") and head_dim > 128:
+        return 128
+    if head_dim <= 8 and group_chunk == 8:
+        return min(DECODE_ATTEND_THREADS, 128)
+    return DECODE_ATTEND_THREADS
 
 
 def decode_split_rows(n: int, group: int, capacity: int,

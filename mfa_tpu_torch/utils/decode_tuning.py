@@ -24,19 +24,22 @@ phase
 ``openllama_prefill``: its
 prefills timed without the profiler), its INT4 phase (``int4``) or K1
 alone on its copying and TMA rows (``k1_rows``), or K2, K5 and K6 at D 64
-to 128 over bf16, int8 and fp8 caches (``decode_dims``) from two trees in
+to 256 over bf16, int8 and fp8 caches (``decode_dims``) from two trees in
 turns
 (A, B, B, A), each
 in a process of its own that builds and loads its own tree's kernels.
 ``rounding`` holds K2, K5, K6 and K1 (alone and inside the ring's merge)
 and their plain versions against fp64 where attention concentrates and O
-cancels (``ROUNDING_CASES``).
+cancels (``ROUNDING_CASES``). ``sass`` compares the machine code
+(``cuobjdump -sass``) of every kernel of the decode sources in two trees
+and names those that differ.
 
 Run on a GPU from the repository root:
 
     python -m mfa_tpu_torch.utils.decode_tuning sweep [--out chiprun_out]
     python -m mfa_tpu_torch.utils.decode_tuning kernels
     python -m mfa_tpu_torch.utils.decode_tuning rounding
+    python -m mfa_tpu_torch.utils.decode_tuning sass --a build/parent --b .
     python -m mfa_tpu_torch.utils.decode_tuning turns --a build/parent --b . \
         [--what kernels|serving|host|k1|k1_rows|k2|bwd|k7|k8|k8d|training|
                 profile|openllama_profile|openllama_prefill|int4|
@@ -48,6 +51,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -421,10 +426,11 @@ for d, n, hq, hkv, causal in [(*s, c) for s in shapes for c in (True, False)
 """,
     # K2, K5 and K6 at the kernel table's shapes (K2, K5: 4 sequences x
     # Hkv 8, L 2048, lengths 0, 777, 2047, 2048; K6: 8 sequences of 0-2048
-    # tokens on 512-token pages) at D 64, 80, 96, 100 and 128 (G 4, 4, 8,
-    # 1, 4: chip_smoke's HEAD_DIM_CASES) over bf16, int8 and fp8-e4m3
-    # caches, through the wrappers both trees have; each line names the
-    # path the tree's launch took where the tree counts paths.
+    # tokens on 512-token pages) at D 64, 80, 96, 100, 128, 192, 250 and
+    # 256 (G 4, 4, 8, 1, 4, 8, 4, 4: chip_smoke's HEAD_DIM_CASES) over
+    # bf16, int8 and fp8-e4m3 caches, through the wrappers both trees
+    # have; each line names the path the tree's launch took where the
+    # tree counts paths.
     "decode_dims": """
 import json, math
 from mfa_tpu_torch.kernels import decode as k5, paged_decode as k6
@@ -442,7 +448,8 @@ def path_of(fn, run):
     if by is None:
         return None
     return [k for k in by if by[k] != before.get(k, 0)]
-for d, g in ((64, 4), (80, 4), (96, 8), (100, 1), (128, 4)):
+for d, g in ((64, 4), (80, 4), (96, 8), (100, 1), (128, 4), (192, 8),
+             (250, 4), (256, 4)):
     for fmt, prec in precs.items():
         b, hkv, L = 4, 8, 2048
         bh = b * hkv
@@ -706,6 +713,71 @@ c.phase_device(torch)
 """
 
 
+# The decode sources whose kernels ``sass`` compares.
+DECODE_OBJECTS = ("decode_attend.o", "paged_decode.o", "decode.o")
+# A decode kernel's name and template arguments in its mangled name (the
+# kernels sit in an anonymous namespace, whose mangling differs by tree).
+_DECODE_KERNEL = re.compile(r"(decode_[a-z_]+?)I(.*)")
+_DECODE_ARG = re.compile(r"L[ib]\d+E|ContiguousRows|FusedRows|PagedRows")
+
+
+def _decode_key(name: str) -> str:
+    m = _DECODE_KERNEL.search(name)
+    if m is None:
+        return name
+    return f"{m.group(1)}<{','.join(_DECODE_ARG.findall(m.group(2)))}>"
+
+
+def _decode_sass(tree: Path) -> dict:
+    """{(object, kernel's mangled name): SASS lines, labels renumbered}
+    of every kernel in ``tree``'s build of the decode sources (built
+    first, in a process of its own)."""
+    from mfa_tpu_torch.kernels import build
+    from mfa_tpu_torch.utils.bwd_tuning import _renumber_labels
+
+    subprocess.run([sys.executable, "-c", "from mfa_tpu_torch.kernels "
+                    "import build; build.library()"], cwd=tree, check=True)
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(build._nvcc()).with_name("cuobjdump"))
+    funcs = {}
+    for name in DECODE_OBJECTS:
+        obj = tree / "build" / "mfa_tpu_torch" / name
+        text = subprocess.run([cuobjdump, "-sass", str(obj)], check=True,
+                              capture_output=True, text=True).stdout
+        key = None
+        for line in text.splitlines():
+            if "Function : " in line:
+                key = (name, _decode_key(line.split("Function : ")[1]))
+                funcs[key] = []
+            elif key is not None and line.strip():
+                funcs[key].append(line.strip())
+    return {k: _renumber_labels(v) for k, v in funcs.items()}
+
+
+def compare_sass(a: Path, b: Path) -> bool:
+    """Whether every kernel of tree a's decode sources has the same
+    instructions in tree b (one JSON line a kernel that differs or is
+    missing, then the counts and the kernels only b has)."""
+    fa, fb = _decode_sass(a), _decode_sass(b)
+    same = 0
+    for key in sorted(fa):
+        got = fb.get(key)
+        same += got == fa[key]
+        if got != fa[key]:
+            diff = [(x, y) for x, y in zip(fa[key], got or ()) if x != y]
+            print(json.dumps({"object": key[0], "kernel": key[1],
+                              "in_b": got is not None,
+                              "lines_a": len(fa[key]),
+                              "lines_b": len(got or ()),
+                              "lines_differing": len(diff),
+                              "first_differing": diff[:2]}), flush=True)
+    print(json.dumps({"kernels_a": len(fa), "same": same,
+                      "kernels_b": len(fb),
+                      "only_b": sorted(k[1] for k in set(fb) - set(fa))}),
+          flush=True)
+    return same == len(fa)
+
+
 def turns(a: Path, b: Path, what: str) -> None:
     """One of _TURNS from tree a, b, b, a, each in a process of its own."""
     code = _TURNS_PREAMBLE + _TURNS[what]
@@ -721,7 +793,7 @@ def turns(a: Path, b: Path, what: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("sweep", "kernels", "turns",
-                                     "rounding"))
+                                     "rounding", "sass"))
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--a", default="build/parent",
                     help="turns: the first tree (e.g. the parent commit)")
@@ -738,6 +810,9 @@ def main(argv=None) -> int:
     elif args.mode == "rounding":
         for row in rounding():
             print(json.dumps(row), flush=True)
+    elif args.mode == "sass":
+        return 0 if compare_sass(Path(args.a).resolve(),
+                                 Path(args.b).resolve()) else 1
     else:
         turns(Path(args.a), Path(args.b), args.what)
     return 0

@@ -134,9 +134,44 @@ def test_k5_and_k6_split_alike_and_count_one_launch(library, seqs, hkv,
     # split rows, query rows a CTA, threads, then the path's code: the
     # same for both.
     rows = params.decode_split_rows(n, group, cap)
+    chunk = params.decode_group_chunk(group)
     assert args5[-5:-1] == args6[-5:-1] == (
-        rows, params.decode_group_chunk(group),
-        params.DECODE_ATTEND_THREADS, params.DECODE_PATHS[path])
+        rows, chunk, params.decode_threads(d, chunk, path),
+        params.DECODE_PATHS[path])
+
+
+@pytest.mark.parametrize("d, group, threads", [
+    (4, 8, 128), (8, 8, 128), (1, 16, 128), (8, 4, 256), (9, 8, 256),
+    (128, 8, 256), (136, 4, 128), (256, 8, 128), (384, 8, 256)])
+def test_small_d_with_chunks_of_8_takes_128_threads(library, d, group,
+                                                    threads):
+    """K5, K6 and K2 at D <= 8 with query chunks of 8 hand the launch 128
+    threads (their scores fit shared memory there; the C entry takes any
+    multiple of 32 up to 256), and so does the 256-wide tensor-core pair
+    (bf16 at 128 < D <= 256: two CTAs an SM); 256 elsewhere."""
+    seqs, hkv, cap = 2, 2, 256
+    n = seqs * hkv
+    q3 = _meta(n, group, d, dtype=torch.bfloat16)
+    lengths = _meta(seqs, dtype=torch.int32)
+    cache = _meta(n, cap, d, dtype=torch.bfloat16)
+    k5.decode_attend(q3, cache, cache, _meta(n, cap), _meta(n, cap),
+                     lengths, num_kv_heads=hkv)
+    k5.decode_fused_append(q3, cache, cache, _meta(n, cap), _meta(n, cap),
+                           _meta(n, d, dtype=torch.bfloat16),
+                           _meta(n, d, dtype=torch.bfloat16), lengths,
+                           num_kv_heads=hkv)
+    pages = _meta(5, hkv, 128, d, dtype=torch.bfloat16)
+    k6.paged_decode(q3, pages, pages, _meta(5, hkv, 128),
+                    _meta(5, hkv, 128), _meta(seqs, 2, dtype=torch.int32),
+                    lengths)
+    path = params.decode_path(d, torch.bfloat16, True)
+    assert params.decode_threads(d, params.decode_group_chunk(group),
+                                 path) == threads
+    assert [args[-3] for _, args in library.calls] == [threads] * 3
+    smem = params.decode_smem_bytes(d, torch.bfloat16,
+                                    params.decode_group_chunk(group),
+                                    fused=True, table_ints=4)
+    assert max(smem) <= params.H100.smem_per_block
 
 
 def test_workspace_holds_what_the_kernel_carves():
@@ -201,13 +236,14 @@ def test_k2_takes_the_split_and_counts_one_launch(library, monkeypatch,
     # CTA and threads before the stream.
     assert args[10:18] == (n, hkv, group, cap, d, window or 0, 1,
                            k5.KV_FORMATS[torch.int8])
-    assert args[18:21] == (params.decode_split_rows(n, group, cap),
-                           params.decode_group_chunk(group),
-                           params.DECODE_ATTEND_THREADS)
-    # The path's code: int8 on the tensor-core pair at D 64 and 128, FMA
-    # in the exact layout at D 8 and 256 (every case's D is 8 * 2^k).
-    path = "mma/g16" if 64 <= d <= 128 else "fma/exact"
+    # The path's code: int8 on the tensor-core pair at D 64, 128 and 256,
+    # FMA in the exact layout at D 8 (every case's D is 8 * 2^k).
+    path = "mma/g16" if 64 <= d <= 256 else "fma/exact"
     assert params.decode_path(d, torch.int8, True) == path
+    chunk = params.decode_group_chunk(group)
+    assert args[18:21] == (params.decode_split_rows(n, group, cap), chunk,
+                           params.decode_threads(d, chunk, path))
+    assert args[20] == (128 if d > 128 else 256)
     assert args[21] == params.DECODE_PATHS[path]
 
 
@@ -253,7 +289,7 @@ def test_k2_bit_guard_covers_every_recorded_case(monkeypatch):
 
 # The tensor-core pair's largest row, in values (decode_mma_width), and
 # the k16 step of its mma.sync.
-PAIR_WIDTH, MMA_K = 128, 16
+PAIR_WIDTH, MMA_K = 256, 16
 
 
 def _fp32_steps(a, b, axis_len):
@@ -265,7 +301,7 @@ def _fp32_steps(a, b, axis_len):
     return c
 
 
-@pytest.mark.parametrize("d", [100, 128])
+@pytest.mark.parametrize("d", [100, 128, 192, 256])
 @pytest.mark.parametrize("length", [1, 777, 1024, 1025, 2047, 2048])
 @pytest.mark.parametrize("fill", ["pm127", "random"])
 def test_pair_keeps_k2_int8_requantization_exact(d, length, fill):
@@ -273,18 +309,20 @@ def test_pair_keeps_k2_int8_requantization_exact(d, length, fill):
     (csrc/decode_split.cuh, kRequant): q_s8 and P_s8 are integers up to
     127, exact as bf16 operands, as are the int8 K and V widened to bf16;
     S's dots sum 16 products a step over a row padded with zeros to 128
-    values, P V 16 rows a step over splits of DECODE_SPLIT_MAX_ROWS rows,
-    the splits' partials added in split order, all in fp32. Every one of
-    those sums is an integer below 2^24 (128 * 127^2 a dot, 1024 * 127^2 a
-    split), so exact, and O equals decode_fused_append_plain's bit for
-    bit; at +-127 (every q, K and V value at the clip, every live P at
-    127) the sums reach their largest."""
+    values (256 past D 128), P V 16 rows a step over splits of
+    DECODE_SPLIT_MAX_ROWS rows, the splits' partials added in split
+    order, all in fp32. Every one of those sums is an integer below 2^24
+    (256 * 127^2 a dot, 1024 * 127^2 a split), so exact, and O equals
+    decode_fused_append_plain's bit for bit; at +-127 (every q, K and V
+    value at the clip, every live P at 127) the sums reach their
+    largest."""
     from mfa_tpu_torch.kernels import quant
 
     rows = params.DECODE_SPLIT_MAX_ROWS
     assert PAIR_WIDTH * 127 ** 2 < 2 ** 24
     assert rows * 127 ** 2 < 2 ** 24
-    assert params.decode_mma_width(d, 4) == PAIR_WIDTH >= d
+    width = params.decode_mma_width(d, 4)
+    assert width == (128 if d <= 128 else PAIR_WIDTH) >= d
     g, cap = 4, 2048
     gen = torch.Generator().manual_seed(d * 7 + length)
     if fill == "pm127":
@@ -313,13 +351,13 @@ def test_pair_keeps_k2_int8_requantization_exact(d, length, fill):
     kw, vw = k[0, :length].float(), v[0, :length].float()
     for x in (q_s8, kw, vw):
         assert torch.equal(x.bfloat16().float(), x)
-    pad = PAIR_WIDTH - d
+    pad = width - d
     dot = _fp32_steps(torch.nn.functional.pad(kw, (0, pad)),
                       torch.nn.functional.pad(q_s8, (0, pad)).T,
-                      PAIR_WIDTH)                                 # [L, G]
+                      width)                                      # [L, G]
     exact = kw.double() @ q_s8.double().T
     assert torch.equal(dot.double(), exact)
-    assert float(exact.abs().max()) <= PAIR_WIDTH * 127 ** 2
+    assert float(exact.abs().max()) <= width * 127 ** 2
     if fill == "pm127":
         assert float(exact.abs().max()) == d * 127 ** 2
     s = (dot.T * qscale * ks[:, :length]).unsqueeze(0)        # [1, G, L]

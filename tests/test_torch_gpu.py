@@ -424,12 +424,13 @@ def test_paged_decode_pages_of_odd_bytes_match_plain(cuda, fmt, d, ps):
 
 # The path each decode launch takes (ops/params.py::decode_path, counted
 # by the wrapper's launches_by_path and checked by the C launch): the
-# tensor-core pair at 64 <= D <= 128 over every storage type (K2, K5 and
-# K6 alike; int8 and fp8 widened to bf16) over rows padded to 128 in
-# shared memory and copied at the granule their rows and bases share (16
-# at D 80, 96, 112; 8 at D 100 in bf16 and at bases 8 bytes off; 4 at
-# int8 and fp8 D 100 and at bases 4 bytes off; D 64 and 128 off 16 bytes
-# on the padded instances), and FMA where it stays (odd D): (kernel,
+# tensor-core pair at 64 <= D <= 256 over every storage type (K2, K5 and
+# K6 alike; int8 and fp8 widened to bf16) over rows padded to 128 (256
+# past D 128) in shared memory and copied at the granule their rows and
+# bases share (16 at D 80, 96, 112; 8 at D 100 in bf16 and at bases 8
+# bytes off; 4 at int8 and fp8 D 100, bf16 D 250 and at bases 4 bytes
+# off; D 64 and 128 off 16 bytes on the padded instances), and FMA where
+# it stays (odd D, D 250 over 1-byte storage, D > 256, D < 64): (kernel,
 # storage, D, G, base shift in bytes, path).
 PATH_CASES = [
     ("k2", "bf16", 80, 4, 0, "mma/g16"), ("k2", "bf16", 96, 8, 0, "mma/g16"),
@@ -454,6 +455,26 @@ PATH_CASES = [
     ("k6", "int8", 100, 1, 0, "mma/g4"), ("k6", "int8", 128, 4, 0, "mma/g16"),
     ("k6", "int8", 128, 4, 4, "mma/g4"), ("k6", "fp8_e4m3", 128, 4, 0,
                                           "mma/g16"),
+    # Past D 128 on the 256-wide pair (granule read at run time), D 250
+    # over 1-byte storage and D 384 on FMA.
+    ("k2", "int8", 192, 8, 0, "mma/g16"), ("k2", "int8", 256, 4, 0, "mma/g16"),
+    ("k2", "bf16", 250, 4, 0, "mma/g4"), ("k2", "bf16", 192, 8, 4, "mma/g4"),
+    ("k2", "fp8_e4m3", 256, 4, 8, "mma/g8"), ("k2", "int8", 250, 4, 0, "fma"),
+    ("k2", "bf16", 384, 8, 0, "fma"),
+    ("k5", "bf16", 192, 8, 0, "mma/g16"), ("k5", "bf16", 250, 4, 0, "mma/g4"),
+    ("k5", "bf16", 256, 4, 8, "mma/g8"), ("k5", "int8", 256, 4, 4, "mma/g4"),
+    ("k5", "fp8_e5m2", 192, 8, 0, "mma/g16"), ("k5", "bf16", 130, 4, 0,
+                                               "mma/g4"),
+    ("k5", "bf16", 136, 2, 0, "mma/g16"), ("k5", "fp8_e4m3", 250, 4, 0, "fma"),
+    ("k5", "bf16", 512, 1, 0, "fma"),
+    ("k6", "bf16", 192, 8, 0, "mma/g16"), ("k6", "bf16", 250, 4, 0, "mma/g4"),
+    ("k6", "int8", 256, 4, 0, "mma/g16"), ("k6", "fp8_e4m3", 192, 8, 4,
+                                           "mma/g4"),
+    ("k6", "int8", 250, 4, 0, "fma"), ("k6", "bf16", 384, 8, 0, "fma"),
+    # D <= 8 with query chunks of 8: 128 threads a CTA.
+    ("k2", "bf16", 4, 8, 0, "fma"), ("k2", "int8", 8, 8, 0, "fma/exact"),
+    ("k5", "bf16", 8, 8, 0, "fma/exact"), ("k5", "int8", 4, 8, 0, "fma"),
+    ("k6", "bf16", 8, 8, 0, "fma/exact"), ("k6", "fp8_e4m3", 4, 8, 0, "fma"),
 ]
 
 
@@ -1425,7 +1446,13 @@ QMM_CASES = [(layout, xdt, m, n, k)
                                   ("bf16", 130, 72, 96),        # w128
                                   ("bf16", 1100, 2000, 128),    # w256
                                   ("fp32", 5, 130, 160),
-                                  ("fp32", 70, 64, 64))]
+                                  ("fp32", 70, 64, 64),
+                                  # K % 32 != 0: re-split before K8
+                                  ("bf16", 4, 64, 40),          # d8
+                                  ("bf16", 64, 64, 100),        # w128
+                                  ("bf16", 4, 4096, 4080),      # d8
+                                  ("bf16", 2048, 4096, 4080),   # w256
+                                  ("fp32", 5, 64, 100))]
 
 
 @pytest.mark.parametrize("case", QMM_CASES,
@@ -1451,6 +1478,32 @@ def test_int4_matmul_kernel_matches_plain(cuda, case):
     y3 = k8.int4_matmul(x[None], qw.w, qw.scale, layout=layout,
                         device=cuda)
     assert torch.equal(y3[0], y)
+
+
+@pytest.mark.parametrize("layout", ["int4", "int4_biased"])
+@pytest.mark.parametrize("m, k, shift", [(4, 4096, 8), (2048, 4096, 8),
+                                         (4, 4080, 3), (2048, 100, 4)])
+def test_int4_matmul_takes_packed_weights_off_16_bytes(cuda, layout, m, k,
+                                                       shift):
+    """Packed weights ``shift`` bytes off 16 (utils/testing.py::
+    shifted_copy) are re-split into aligned rows before K8: one counted
+    launch, within its budget of the plain version over the same bytes."""
+    n = 4096 if m > 64 or k > 1000 else 64
+    gen = torch.Generator(device=cuda).manual_seed(m + k + shift)
+    w = torch.randn((n, k), generator=gen, device=cuda) / math.sqrt(k)
+    qw = quant.quantize_weight(w, layout)
+    packed = shifted_copy(qw.w, shift)
+    assert packed.data_ptr() % 16 == shift
+    x = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    n8 = k8.int4_matmul.launches
+    y = k8.int4_matmul(x, packed, qw.scale, layout=layout, device=cuda)
+    torch.cuda.synchronize()
+    assert k8.int4_matmul.launches == n8 + 1
+    assert_fully_written(y, "y")
+    want = k8.int4_matmul_plain(x, packed, qw.scale, layout=layout)
+    atol, rtol = KERNEL_BUDGETS["int4_matmul_" + (
+        "biased" if layout == "int4_biased" else "signed")]
+    assert_close(y, want, atol, "y", rtol=rtol)
 
 
 # K8's wgmma tiles: (layout, M, N, K, tile) at Llama-3-8B's four

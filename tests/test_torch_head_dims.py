@@ -2,7 +2,8 @@
 ``decode_fused_append``, K5 ``decode_attend``, K6 ``paged_decode``): the
 port's three decode entry points (their plain versions on the CPU)
 against mfa_tpu's (Pallas kernels in interpret mode) at D 80, 96, 100,
-250 and 384 over bf16, INT8 and FP8-e4m3 caches, with the port's
+192, 250, 256 and 384 over bf16, INT8 and FP8-e4m3 caches, and at D 4
+and 8 with query chunks of 8 (G 8), with the port's
 unpadded cache rows bit-equal to mfa_tpu's padded rows' first D values;
 both schedulers token for token against mfa_tpu's at an MHA model of
 head dim 100 (OpenLLaMA-3B's) and GQA models of 80 and 384; OpenLLaMA-3B's
@@ -46,7 +47,7 @@ from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
 from mfa_tpu_torch.serving.scheduler import ContinuousBatchingScheduler, Request
 
 HQ, HKV = 4, 2
-HEAD_DIMS = (80, 96, 100, 250, 384)
+HEAD_DIMS = (80, 96, 100, 192, 250, 256, 384)
 # Budgets against mfa_tpu, those of tests/test_torch_decode.py (K2) and
 # tests/test_torch_decode_attention.py / test_torch_paged.py (K5, K6):
 # the mixed budget for bf16 storage, 6e-2 for quantized storage.
@@ -112,12 +113,16 @@ def _assert_same_cache(jc, tc, d):
 @pytest.mark.parametrize("d, name, window", CASES, ids=_IDS)
 def test_decode_attention_matches_mfa_tpu(d, name, window):
     """K5's entry point."""
+    _decode_matches(d, name, window, HQ)
+
+
+def _decode_matches(d, name, window, hq):
     jprec, tprec, tol, _ = _format(name)
     rng = np.random.default_rng(d)
     lengths = [0, 131, 37, MAX_LEN]      # empty, unaligned, short, full
     jc, tc = _filled(rng, d, jprec, tprec, lengths)
     _assert_same_cache(jc, tc, d)
-    q = rng.standard_normal((len(lengths), HQ, d)).astype(np.float32)
+    q = rng.standard_normal((len(lengths), hq, d)).astype(np.float32)
     o_j = jax_decode(jnp.asarray(q, jnp.bfloat16), jc, sliding_window=window)
     o_t = decode_attention(torch.from_numpy(q).bfloat16(), tc,
                            sliding_window=window, device="cpu")
@@ -130,11 +135,15 @@ def test_decode_attention_matches_mfa_tpu(d, name, window):
 def test_decode_attention_append_matches_mfa_tpu(d, name, window):
     """K2's entry point, two steps: the second fills the last slot, and
     the caches after each append are bit-equal."""
+    _append_matches(d, name, window, HQ)
+
+
+def _append_matches(d, name, window, hq):
     jprec, tprec, _, tol = _format(name)
     rng = np.random.default_rng(1000 + d)
     jc, tc = _filled(rng, d, jprec, tprec, [0, 131, MAX_LEN - 2])
     for step in range(2):
-        q = rng.standard_normal((3, HQ, d)).astype(np.float32)
+        q = rng.standard_normal((3, hq, d)).astype(np.float32)
         kn, vn = (rng.standard_normal((2, 3, HKV, d)) * 0.5).astype(
             np.float32)
         o_j, jc = jax_decode_append(jnp.asarray(q, jnp.bfloat16),
@@ -167,6 +176,10 @@ def test_paged_decode_attention_matches_mfa_tpu(d, name, window):
     the same tables, then the port's pool takes mfa_tpu's bytes (its first
     D values a row; mfa_tpu's eager append rounds its scales a step apart
     from the jitted quantizer, tests/test_torch_paged.py)."""
+    _paged_matches(d, name, window, HQ)
+
+
+def _paged_matches(d, name, window, hq):
     jprec, tprec, tol, _ = _format(name)
     rng = np.random.default_rng(2000 + d)
     lens = [200, 391, 0]
@@ -187,15 +200,33 @@ def test_paged_decode_attention_matches_mfa_tpu(d, name, window):
     for f in ("k_scale", "v_scale"):
         getattr(tc.pool, f).copy_(
             _to_torch(getattr(jc.pool, f)[:, :, 0, :], torch.float32))
-    q = rng.standard_normal((len(lens), HQ, d)).astype(np.float32)
+    q = rng.standard_normal((len(lens), hq, d)).astype(np.float32)
     o_j = jax_paged_attention(jnp.asarray(q, jnp.bfloat16), jc,
                               sliding_window=window)
     o_t = paged_decode_attention(torch.from_numpy(q).bfloat16(), tc,
                                  sliding_window=window, device="cpu")
-    assert o_t.shape == (len(lens), HQ, d)
+    assert o_t.shape == (len(lens), hq, d)
     _assert_close(o_t, np.asarray(o_j, np.float32), tol,
                   f"paged O D {d} {name}")
     assert not o_t[2].any()                        # length 0 gives zeros
+
+
+# D <= 8 with query chunks of 8 (G 8: 16 query heads over HKV): the shape
+# whose CTAs the wrappers give 128 threads (ops/params.py::decode_threads).
+SMALL_D_CASES = [(kind, d, name) for kind in ("decode", "append", "paged")
+                 for d in (4, 8) for name in ("bf16", "int8")]
+_SMALL_IDS = [f"{kind}-D{d}-{name}-G8" for kind, d, name in SMALL_D_CASES]
+
+
+@pytest.mark.parametrize("kind, d, name", SMALL_D_CASES, ids=_SMALL_IDS)
+def test_small_d_with_chunks_of_8_matches_mfa_tpu(kind, d, name):
+    """K5's, K2's and K6's entry points at D <= 8 and G 8 (mfa_tpu pads
+    these rows to 128 values; the port keeps D)."""
+    hq = 8 * HKV
+    assert params.decode_group_chunk(hq // HKV) == 8
+    assert params.decode_threads(d, 8) == 128
+    {"decode": _decode_matches, "append": _append_matches,
+     "paged": _paged_matches}[kind](d, name, None, hq)
 
 
 # ---------------------------------------------------------------------------
@@ -414,19 +445,25 @@ def _smem_by_hand(d, storage, gc, fused, q_bf16, table_ints):
     unroll rows: the run slots, then GC scores a row group (attend), then
     one scale a row group), the partial O it also holds, the row max, row
     sums, flag, page ids and K2's s_new / P scale. The tensor-core pair's
-    rows are 128 values wide in shared memory at every D it takes but 64
-    (16-byte aligned bases: D 64's rows are whole granules), so its row
-    groups are those of that width, and the partial O holds D columns;
-    over 1-byte storage both passes also hold the bf16 tile they widen
-    the rows into."""
+    rows are 128 values wide in shared memory at every D it takes up to
+    128 but 64 (16-byte aligned bases: D 64's rows are whole granules),
+    and 256 past 128, where a thread holds two chunks of its row, so its
+    row groups are those of that width, and the partial O holds D
+    columns; over 1-byte storage both passes also hold the bf16 tile they
+    widen the rows into. A CTA has 256 threads, 128 at D <= 8 with query
+    chunks of 8 and on the 256-wide pair."""
     itemsize = torch.empty((), dtype=storage).element_size()
-    t, nw = params.DECODE_ATTEND_THREADS, params.DECODE_ATTEND_THREADS // 32
-    if params.decode_tensor_cores(d, storage, q_bf16):
-        width = 64 if d == 64 else 128
-        rg, chunk, unroll = t // (width // 8), t * 8 * itemsize, 8
-        wide = 8 * t * 16 if itemsize == 1 else 0
+    pair = params.decode_tensor_cores(d, storage, q_bf16)
+    t = 128 if (d <= 8 and gc == 8) or (pair and d > 128) else 256
+    assert t == params.decode_threads(d, gc, "mma" if pair else "fma")
+    nw = t // 32
+    if pair:
+        width = 64 if d == 64 else 128 if d <= 128 else 256
+        slots = t * (2 if width == 256 else 1)
+        rg, chunk, unroll = slots // (width // 8), slots * 8 * itemsize, 8
+        wide = 8 * slots * 16 if itemsize == 1 else 0
     else:
-        lay = params.decode_row_layout(d, itemsize)
+        lay = params.decode_row_layout(d, itemsize, t)
         rg, chunk, unroll, wide = (lay.row_groups, nw * lay.run_bytes,
                                    lay.unroll, 0)
     score = 3 * unroll * (chunk + 4 * rg) + wide + 4 * nw * gc + 4 * table_ints
@@ -439,12 +476,14 @@ def _smem_by_hand(d, storage, gc, fused, q_bf16, table_ints):
 
 @pytest.mark.parametrize("storage", list(STORAGE))
 def test_smem_reckons_the_launch_code_and_fits_to_d512(storage):
-    """decode_smem_bytes equals the launch code's sum; up to D = 512 at
-    query chunks of 8 it fits the H100's 232,448 bytes from D = 9 on
-    (the partial O at D 512: 8 warps x 8 rows x 512 fp32, 131,072
-    bytes). D <= 8 gives one lane a row and 256 row groups, whose scores
-    at 8 query rows overflow it: the C entry refuses that launch, as it
-    did before."""
+    """decode_smem_bytes equals the launch code's sum, and every D up to
+    512 at both query chunks fits the H100's 232,448 bytes (the partial O
+    at D 512: 8 warps x 8 rows x 512 fp32, 131,072 bytes; the pair's
+    256-wide bf16 ring: 3 x 8 x (256 chunks of 16 bytes + 8 row groups'
+    scores and scales) at 128 threads, ~103 KB, two CTAs an SM). D <= 8
+    gives one lane a row: with 256 threads its
+    256 row groups' scores at 8 query rows would overflow it, so those
+    CTAs have 128 threads (decode_threads)."""
     dt = STORAGE[storage]
     for d in range(1, params.DECODE_MAX_HEAD_DIM + 1):
         for gc in (4, 8):
@@ -454,8 +493,11 @@ def test_smem_reckons_the_launch_code_and_fits_to_d512(storage):
                                                q_bf16=q_bf16,
                                                table_ints=table)
                 assert got == _smem_by_hand(d, dt, gc, fused, q_bf16, table)
-                fits = max(got) <= params.H100.smem_per_block
-                assert fits == (d > 8 or gc == 4), (d, gc, got)
+                assert max(got) <= params.H100.smem_per_block, (d, gc, got)
+    # 256 threads at D <= 8 and chunks of 8 would not fit.
+    for d in range(1, 9):
+        got = params.decode_smem_bytes(d, dt, 8, threads=256)
+        assert max(got) > params.H100.smem_per_block
     # The kernel before's FMA layout at D 128 (int8, fp32 q): each
     # thread's chunk, 16 row groups; with bf16 q the tensor-core pair's
     # ring of the same chunks, and the bf16 tile it widens them into.
@@ -489,15 +531,58 @@ def test_tensor_cores_take_bf16_from_d64_to_d128(d):
             assert params.decode_path(d, storage, True) == "mma/g4"
 
 
+ALL_STORAGE = (*STORAGE.values(), torch.float8_e5m2)
+
+
+@pytest.mark.parametrize("d", [130, 136, 160, 192, 200, 250, 256])
+def test_tensor_cores_take_bf16_past_d128(d):
+    """Past D 128 up to 256 the pair runs bf16 q over every storage type
+    whose rows and bases share a granule of 4 bytes or more, on rows
+    padded to 256 values, for K2, K5 and K6 alike; at bases 4, 8 and 12
+    bytes off 16 at the granule they leave, and at 2 bytes off (or rows
+    only 2-byte aligned: D 130 and 250 over 1-byte storage) on FMA. fp32
+    q stays on FMA."""
+    for storage in ALL_STORAGE:
+        itemsize = torch.empty((), dtype=storage).element_size()
+        for shift in (0, 2, 4, 8, 12):
+            if shift % itemsize:
+                continue
+            granule = params.decode_granule(d, itemsize, shift)
+            on = params.decode_tensor_cores(d, storage, True, granule)
+            assert on == (granule >= 4), (d, storage, shift)
+            assert not params.decode_tensor_cores(d, storage, False, granule)
+            path = params.decode_path(d, storage, True, granule)
+            if on:
+                assert path == f"mma/g{granule}"
+                assert params.decode_mma_width(d, granule) == 256
+            else:
+                assert path.startswith("fma")
+            assert params.decode_path(d, storage, False, granule).startswith(
+                "fma")
+        want = {"bf16": 16 if d * 2 % 16 == 0 else 8 if d * 2 % 8 == 0
+                else 4, "byte": 16 if d % 16 == 0 else 8 if d % 8 == 0
+                else 4 if d % 4 == 0 else 0}["bf16" if itemsize == 2
+                                             else "byte"]
+        assert params.decode_granule(d, itemsize) == want
+        assert params.decode_tensor_cores(d, storage, True) == (want >= 4)
+    # D 250: 500-byte bf16 rows share 4 bytes, 250-byte int8 and fp8 rows
+    # only 2.
+    if d == 250:
+        assert params.decode_path(d, torch.bfloat16, True) == "mma/g4"
+        for storage in (torch.int8, *FP8):
+            assert params.decode_path(d, storage, True) == "fma"
+
+
 @pytest.mark.parametrize("d, storage", [
     (99, torch.bfloat16), (101, torch.bfloat16), (48, torch.bfloat16),
-    (136, torch.bfloat16), (62, torch.bfloat16), (130, torch.bfloat16),
+    (258, torch.bfloat16), (62, torch.bfloat16), (264, torch.bfloat16),
     (98, torch.float8_e4m3fn), (99, torch.float8_e5m2), (99, torch.int8),
-    (63, torch.int8), (136, torch.int8), (102, torch.int8)])
+    (63, torch.int8), (264, torch.int8), (102, torch.int8),
+    (250, torch.int8), (250, torch.float8_e4m3fn)])
 def test_tensor_cores_stay_off_outside_the_rule(d, storage):
-    """Odd D (rows 2- or 1-byte aligned), D < 64, D > 128 and 1-byte rows
-    not a multiple of 4 bytes run FMA, for every kernel, whatever the
-    storage."""
+    """Odd D (rows 2- or 1-byte aligned), D < 64, D > 256 and 1-byte rows
+    not a multiple of 4 bytes (D 250 over int8 and fp8) run FMA, for
+    every kernel, whatever the storage."""
     assert not params.decode_tensor_cores(d, storage, True)
     assert params.decode_path(d, storage, True).startswith("fma")
 
@@ -539,24 +624,27 @@ def test_granule_of_rows_and_bases():
 
 @pytest.mark.parametrize("itemsize", [2, 1], ids=["bf16", "fp8"])
 def test_padded_rows_copy_each_live_byte_once_at_its_granule(itemsize):
-    """The pair's copies of a padded row (decode_split.cuh::copy_live):
-    the thread of chunk cc copies bytes [0, lb) of it, lb = (D - 8 cc) E
-    clamped to [0, 8 E], in copies of the granule GR (at most 8 for fp8's
-    8-byte chunks). For every D the pair takes, every row start at the
+    """The pair's copies of a padded row (decode_split.cuh::copy_live;
+    past D 128 at the launch's granule (at_granule), a thread's chunks cc
+    and cc + 16): the thread of chunk cc copies bytes [0, lb) of it, lb =
+    (D - 8 cc) E clamped to [0, 8 E], in copies of the granule GR (at
+    most 8 for fp8's 8-byte chunks). For every D the pair takes, every
+    row start at the
     granule's alignment and every base shift it allows, each copy is
     aligned to GR in the cache and in its 16-byte slot, the copies cover
     the row's bytes exactly once, and the bytes past D (zeroed once a
     CTA) are never written."""
     storage = torch.bfloat16 if itemsize == 2 else torch.float8_e4m3fn
     chunk = 8 * itemsize
-    for d in range(64, 129):
+    for d in range(64, 257):
         for shift in (0, 4, 8, 12):
             g = params.decode_granule(d, itemsize, shift)
             if not params.decode_tensor_cores(d, storage, True, g):
                 continue
             gr = min(g, chunk)
             width = params.decode_mma_width(d, g)
-            assert width in (64, 128) and width >= d
+            assert width in (64, 128, 256) and width >= d
+            assert (width == 256) == (d > 128)
             for row in (0, 1, 7, 1000):
                 start = shift + row * d * itemsize
                 covered = []
@@ -571,11 +659,14 @@ def test_padded_rows_copy_each_live_byte_once_at_its_granule(itemsize):
 
 
 @pytest.mark.parametrize("d, shift", [(64, 8), (128, 4), (100, 0),
-                                      (100, 4), (80, 0)])
+                                      (100, 4), (80, 0), (192, 8),
+                                      (256, 4), (250, 0)])
 def test_smem_of_the_padded_pair_at_shifted_bases(d, shift):
     """Off 16 bytes, D 64 and 128 run the 128-wide padded instances: the
     shared memory is that of 16 row groups (the partial O of D columns
-    stays under the ring)."""
+    stays under the ring). Past D 128 every base runs the 256-wide
+    instance, whose granule is read at run time: the same shared memory
+    at any shift."""
     g = params.decode_granule(d, 2, shift)
     for gc in (4, 8):
         for fused in (False, True):
@@ -583,5 +674,9 @@ def test_smem_of_the_padded_pair_at_shifted_bases(d, shift):
                                            fused=fused, granule=g)
             if params.decode_mma_width(d, g) == 128:
                 assert got == _smem_by_hand(100, torch.bfloat16, gc, fused,
+                                            True, 0)
+            if d > 128:
+                assert params.decode_mma_width(d, g) == 256
+                assert got == _smem_by_hand(d, torch.bfloat16, gc, fused,
                                             True, 0)
             assert max(got) <= params.H100.smem_per_block

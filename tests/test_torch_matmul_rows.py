@@ -263,6 +263,38 @@ def test_k8_wrapper_passes_the_split(library, monkeypatch, layout, m, k, n):
     assert (args[4] is None) == (args[5] is None) == one_split
 
 
+@pytest.mark.parametrize("layout", ["int4", "int4_biased"])
+@pytest.mark.parametrize("m, k, n", [(4, 40, 64), (64, 100, 64),
+                                     (4, 4080, 4096), (2048, 4080, 4096),
+                                     (4, 4096, 1024), (2048, 4096, 4096)])
+def test_k8_wrapper_resplits_what_tma_cannot_copy(library, monkeypatch,
+                                                  layout, m, k, n):
+    """K % 32 != 0 (and packed weights not contiguous): the launch gets K'
+    = K rounded up to 32 and new [N, K'/2] packed bytes; K % 32 == 0 over
+    contiguous packed weights: K and the caller's packed tensor, as
+    before. The biased wgmma tile's row sum is that of x as given."""
+    monkeypatch.setattr(k8, "resolve_device",
+                        lambda device: torch.device("meta"))
+    dtype = torch.int8 if layout == "int4" else torch.uint8
+    wide = torch.empty((n, k // 2 + 16), dtype=dtype, device="meta")
+    for packed in (wide[:, :k // 2].contiguous(), wide[:, :k // 2]):
+        library.calls.clear()
+        scale = torch.empty((n,), dtype=torch.float32, device="meta")
+        y = k8.int4_matmul(_meta(m, k), packed, scale, layout=layout)
+        assert y.shape == (m, n)
+        ((name, args),) = library.calls
+        resplit = k % 32 != 0 or not packed.is_contiguous()
+        kp = -(-k // 32) * 32
+        assert args[9] == (kp if resplit else k)
+        if not resplit:
+            assert args[1] == packed.data_ptr()
+        tile = k8.int4_tile(m, n, torch.bfloat16)
+        biased_wgmma = layout == "int4_biased" and tile.path == "wgmma"
+        assert (args[3] is not None) == biased_wgmma
+        if tile.path == "splitk":
+            assert args[15] == params.qmm_split_cols(n, args[9], tile)
+
+
 @pytest.mark.parametrize("m, k, n", [(4, 4096, 1024), (16, 4096, 14336),
                                      (16, 14336, 4096)])
 def test_k8_split_scratch_holds_the_partials_and_is_kept(m, k, n):

@@ -153,3 +153,69 @@ def test_plain_version_handles_leading_dims_and_tiles(rng):
     assert int4_tile(17, 14336, torch.bfloat16).name == "w128"
     assert int4_tile(2048, 14336, torch.bfloat16).name == "w256"
     assert int4_tile(4, 14336, torch.float32).path == "ffma"
+
+
+# K % 32 != 0 (K/2 bytes a packed row not a multiple of 16) and packed
+# weights shifted off 16 bytes: (layout, x type, M, K), N 64. On the card
+# the wrapper re-splits these (quant_matmul.repack_halves) before K8.
+REPACK_CASES = [(layout, dt, m, k)
+                for layout in ("int4", "int4_biased")
+                for dt in ("fp32", "bf16")
+                for m in (4, 64)
+                for k in (40, 100, 4080)]
+
+
+@pytest.mark.parametrize("case", REPACK_CASES,
+                         ids=[f"{c[0]}-{c[1]}-M{c[2]}-K{c[3]}"
+                              for c in REPACK_CASES])
+def test_int4_matmul_at_any_even_k_matches_mfa_tpu(rng, case):
+    """int4_matmul at K % 32 != 0 on packed weights 8 or 3 bytes off 16,
+    and the same product over the re-split operands (K' = K rounded up to
+    32: the packed rows padded with zero bytes past K/2, x's halves each
+    padded with zeros), against mfa_tpu's int4_matmul, which pads K
+    itself; and the re-split product equal to the unpadded one wherever
+    the sums are exact (integer x)."""
+    from mfa_tpu_torch.kernels.quant_matmul import repack_halves
+    from mfa_tpu_torch.utils.testing import shifted_copy
+
+    layout, dt, m, k = case
+    n = 64
+    w = _w(rng, k, n)
+    pack = (jquant.pack_int4_biased if layout == "int4_biased"
+            else jquant.pack_int4_halves)
+    jp, js = pack(jnp.asarray(w))
+    jdt = jnp.float32 if dt == "fp32" else jnp.bfloat16
+    xj = jnp.asarray(rng.standard_normal((m, k)), jdt)
+    want = np.asarray(jnp.asarray(
+        jax_int4_matmul(xj, jp, js, interpret=True), jnp.float32))
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
+        torch.float32 if dt == "fp32" else torch.bfloat16)
+    packed = shifted_copy(_t(jp).t().contiguous(), 8 if m == 4 else 3)
+    assert packed.data_ptr() % 16 in (3, 8)
+    scale = _t(js)[0]
+    xp, wp = repack_halves(xt, packed)
+    kp = -(-k // 32) * 32
+    assert xp.shape == (m, kp) and wp.shape == (n, kp // 2)
+    assert wp.is_contiguous() and wp.dtype == packed.dtype
+    assert not wp[:, k // 2:].any() and torch.equal(wp[:, :k // 2], packed)
+    assert torch.equal(xp[:, :k // 2], xt[:, :k // 2])
+    assert torch.equal(xp[:, kp // 2:kp // 2 + k // 2], xt[:, k // 2:])
+    assert not xp[:, k // 2:kp // 2].any() and not xp[:, -(kp - k) // 2:].any()
+    for got in (int4_matmul(xt, packed, scale, layout=layout, device="cpu"),
+                int4_matmul_plain(xp, wp, scale, layout=layout)):
+        assert got.dtype == xt.dtype and got.shape == (m, n)
+        g = got.float().numpy()
+        if dt == "fp32":
+            np.testing.assert_allclose(g, want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max())
+        else:
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want),
+                                                      1e-30))) - 7)
+            assert (np.abs(g - want) <= ulp).all(), np.abs(g - want).max()
+    xi = torch.from_numpy(rng.integers(-3, 4, (m, k)).astype(np.float32))
+    xi = xi.to(xt.dtype)
+    xip, _ = repack_halves(xi, packed)
+    assert torch.equal(int4_matmul_plain(xip, wp, torch.ones(n),
+                                         layout=layout),
+                       int4_matmul_plain(xi, packed, torch.ones(n),
+                                         layout=layout))
