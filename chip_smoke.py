@@ -35,14 +35,16 @@ phase's failure is caught):
              step. O is held elementwise to
              mfa_tpu_torch.utils.testing.KERNEL_BUDGETS. Each line
              carries the split-KV launch, as in k5. Then the head dims
-             past 8 * 2^k (HEAD_DIM_CASES: D 80, 96, 100, 250 and 384
-             with G 4, 8, 1, 4, 8) over the four storage types at L 2048,
-             D 100 under a window of 512, and odd D 99 (bf16 and int8,
-             G 1): each line with its launch count, bound and (bf16)
-             SDPA's ms and backend, and the path its launch took (the
-             wrapper's launches_by_path, held to ops/params.py::
-             decode_path and to REQUIRED_PATHS: the tensor-core pair at
-             D 80-128 over every storage type, FMA at D 99); every case
+             past 8 * 2^k (HEAD_DIM_CASES: D 80, 96, 100, 250, 384, 192,
+             256, 512 and 300 with G 4, 8, 1, 4, 8, 8, 4, 1, 4) over the
+             four storage types at L 2048, D 100 under a window of 512,
+             odd D 99 (bf16 and int8, G 1) and 385 (all four, G 8): each
+             line with its launch count, bound and (bf16) SDPA's ms and
+             backend, and the path its launch took (the wrapper's
+             launches_by_path, held to ops/params.py::decode_path and to
+             REQUIRED_PATHS: the tensor-core pair at D 80-512 over every
+             storage type where rows and bases share 4 bytes, FMA at odd
+             D and D 250 over 1-byte storage); every case
              then launches twice more into NaN-filled outputs, the first
              held to its plain version, the second bit-equal to it.
              Then K2's output bits over int8 on fixed inputs (k2_bits)
@@ -59,8 +61,8 @@ phase's failure is caught):
              those of the K5 before K2 shared its body; bf16 q: those of
              the tensor-core pair) and each case's path (bf16 q on the
              pair, fp32 q on FMA). The head-dim cases as in
-             k2, D 512 (G 1), and D 100 with the cache 4 bytes off 16
-             (the tensor-core pair's copy granule 4).
+             k2, and D 100 with the cache 4 bytes off 16 (the
+             tensor-core pair's copy granule 4).
 6. k6      — paged decode kernel against its plain version: 8 sequences
              (lengths 0-2048) over a pool with shuffled page ids, pages of
              128 and 512 tokens, the four storage types and a window; bit
@@ -320,7 +322,32 @@ def phase_build():
             dblk.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     emit({"phase": "build", "seconds": round(lib.build_seconds, 3),
           "library": str(lib.path.name), "ptxas": ptxas[:24],
-          "ptxas_d_blocked": dblk, "wgmma_serialized": serialized})
+          "ptxas_d_blocked": dblk, "wgmma_serialized": serialized,
+          "ptxas_decode_512": decode_wide_ptxas(lib.build_log)})
+
+
+def decode_wide_ptxas(log: str) -> dict:
+    """Registers and spills of the decode kernels' 512-wide tensor-core
+    instances (decode_score_mma / decode_attend_mma at DD 512, past D
+    256), from nvcc's -Xptxas -v lines, as kernel<KVF,GC,Rows>: "regs
+    N, spill S B" (S the bytes of spill stores and loads)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"(decode_(?:score|attend)_mma)ILi(\d+)ELi(\d+)"
+                          r"ELi512ELi\d+E\w*?(Contiguous|Fused|Paged)Rows",
+                          ln)
+            name = (f"{m.group(1)}<{m.group(2)},{m.group(3)},"
+                    f"{m.group(4)}>" if m else None)
+        elif name and "spill stores" in ln:
+            n = [int(x) for x in re.findall(r"(\d+) bytes spill", ln)]
+            out[name] = f"spill {sum(n)} B"
+        elif name and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out[name] = (f"regs {regs.group(1) if regs else '?'}, "
+                         + out.get(name, ""))
+            name = None
+    return out
 
 
 def _k1_inputs(torch, gen, r, c, dtype, hq=32, hkv=8, d=128):
@@ -572,18 +599,19 @@ def _split_shape(torch, n, group, capacity, lens, window=None,
 # The decode kernels' head dims past D = 8 * 2^k, each with a GQA group:
 # OpenLLaMA-3B's 100 (MHA), Phi-2's 80 and Phi-3-mini's 96 (kernel cases
 # here), 192 and 256 (the 256-wide tensor-core pair), a tail of 250 (rows
-# 4-byte aligned in bf16, 2-byte in int8 and fp8) and 384 (two chunks a
-# lane, FMA); K5 also 512. (D, G); each over the four storage types at L
-# 2048, and D 100 in bf16 under a window of 512.
+# 4-byte aligned in bf16, 2-byte in int8 and fp8), 384 and 512 (the
+# 512-wide pair) and a tail of 300 (rows 8-byte aligned in bf16, 4-byte
+# in int8 and fp8). (D, G); each over the four storage types at L 2048,
+# and D 100 in bf16 under a window of 512.
 HEAD_DIM_CASES = ((80, 4), (96, 8), (100, 1), (250, 4), (384, 8), (192, 8),
-                  (256, 4))
+                  (256, 4), (512, 1), (300, 4))
 
 
-def _head_dim_cases(extra=()):
+def _head_dim_cases():
     """(max_len, name, prec, Hkv, G, window, D) of the head-dim cases."""
     formats = dict(_kv_formats())
     cases = [(2048, name, prec, 8, g, None, d)
-             for d, g in HEAD_DIM_CASES + tuple(extra)
+             for d, g in HEAD_DIM_CASES
              for name, prec in _kv_formats()]
     cases.append((2048, "bf16", formats["bf16"], 8, 1, 512, 100))
     return cases
@@ -591,11 +619,13 @@ def _head_dim_cases(extra=()):
 
 def _odd_d_cases():
     """Odd head dims, which must stay on FMA (D 99, G 1: rows of 198 bytes
-    in bf16, 2-byte aligned, and of 99 in int8): cases in
-    _head_dim_cases' form, bf16 first."""
+    in bf16, 2-byte aligned, and of 99 in int8; D 385, G 8, past D 256
+    over every storage type: the FMA loop's two chunks a lane over 2- and
+    1-byte rows): cases in _head_dim_cases' form, bf16 first."""
     formats = dict(_kv_formats())
     return [(2048, name, formats[name], 8, 1, None, 99)
-            for name in ("bf16", "int8")]
+            for name in ("bf16", "int8")] + [
+        (2048, name, prec, 8, 8, None, 385) for name, prec in _kv_formats()]
 
 
 def _small_d_cases():
@@ -676,12 +706,13 @@ def _sdpa_ms(torch, q, k, v, lengths, window, scale):
 
 # What this port requires of the decode cases' paths, beyond agreeing with
 # ops/params.py::decode_path (each case holds its launch to that): K2, K5
-# and K6 on the tensor-core pair at bf16 D 80, 96, 100, 128, 192, 250 and
-# 256, over int8 and both fp8 formats at D 100, 128, 192 and 256, and K5
-# with its cache 4 bytes off 16; FMA at odd D (bf16 and int8), at D 250
-# over 1-byte storage, at D 384 and 512 and at D 4 and 8. (kernel,
-# storage, D, base shift in bytes) -> path. (fp32 q stays on FMA:
-# k5_bits' fp32 cases are held to it.)
+# and K6 on the tensor-core pair at bf16 D 80, 96, 100, 128, 192, 250,
+# 256, 300, 384 and 512, over int8 and both fp8 formats at D 100, 128,
+# 192, 256, 300, 384 and 512, and K5 with its cache 4 bytes off 16; FMA
+# at odd D (99 in bf16 and int8, 385 over every storage type), at D 250
+# over 1-byte storage and at D 4 and 8. (kernel, storage, D, base shift
+# in bytes) -> path. (fp32 q stays on FMA: k5_bits' fp32 cases are held
+# to it.)
 REQUIRED_PATHS = {
     **{(k, "bf16", d, 0): p for k in ("k2", "k5", "k6")
        for d, p in ((80, "mma/g16"), (96, "mma/g16"), (100, "mma/g8"),
@@ -691,13 +722,14 @@ REQUIRED_PATHS = {
     **{(k, f, d, 0): p for k in ("k2", "k5", "k6")
        for f in ("int8", "fp8_e4m3", "fp8_e5m2")
        for d, p in ((100, "mma/g4"), (128, "mma/g16"), (192, "mma/g16"),
-                    (256, "mma/g16"), (250, "fma"))},
-    **{(k, f, 384, 0): "fma" for k in ("k2", "k5", "k6")
-       for f in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2")},
+                    (256, "mma/g16"), (250, "fma"), (300, "mma/g4"),
+                    (385, "fma"))},
+    **{(k, f, d, 0): "mma/g16" for k in ("k2", "k5", "k6")
+       for f in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2") for d in (384, 512)},
+    **{(k, "bf16", d, 0): p for k in ("k2", "k5", "k6")
+       for d, p in ((300, "mma/g8"), (385, "fma"))},
     **{(k, "int8", d, 0): p for k in ("k2", "k5", "k6")
        for d, p in ((99, "fma"), (4, "fma"), (8, "fma/exact"))},
-    **{("k5", f, 512, 0): "fma"
-       for f in ("bf16", "int8", "fp8_e4m3", "fp8_e5m2")},
     ("k5", "bf16", 100, 4): "mma/g4",
 }
 
@@ -911,7 +943,8 @@ def phase_k2(torch):
     paths = {}
     digests = k2_bits(torch, paths)
     same = digests == K2_INT8_DIGESTS
-    on_pair = all(v == ["mma/g4" if "D100" in key else "mma/g16"]
+    on_pair = all(v == ["mma/g4" if "D100" in key or "D300" in key
+                        else "mma/g16"]
                   for key, v in paths.items())
     emit({"phase": "k2_bits", "digests": digests, "paths": paths,
           "as_recorded": same})
@@ -925,7 +958,8 @@ def phase_k2(torch):
 # K2's output bits over an int8 cache on the fixed inputs of k2_bits, as
 # the FMA pair gave them on an H100 before K2's int8 launches at 64 <= D
 # <= 128 moved onto the tensor-core pair (D 192 and 256: before those at
-# 128 < D <= 256 moved). Over int8, K2 requantizes q and P to s8: its
+# 128 < D <= 256 moved; D 300, 384 and 512: before those at 256 < D <=
+# 512 moved). Over int8, K2 requantizes q and P to s8: its
 # products and their sums a split are integers below 2^24, exact in any
 # order, and what is not (the scales' products, P's row sum) the pair
 # computes in the FMA pair's order. So these bits hold on either pair,
@@ -936,6 +970,9 @@ K2_INT8_DIGESTS = {
     "int8_bfloat16_D128_G4_pm127": "731492cad7ffec0b",
     "int8_bfloat16_D192_G8": "d904b3ea8d668dd6",
     "int8_bfloat16_D256_G4": "8d59b379f91a6474",
+    "int8_bfloat16_D300_G4": "745f25b21fdacff8",
+    "int8_bfloat16_D384_G8": "8a744e9dad5d85b2",
+    "int8_bfloat16_D512_G1": "0be2b57e817119ed",
 }
 
 
@@ -944,8 +981,9 @@ def k2_bits(torch, paths=None) -> dict:
     case: bf16 q at D 128 and G 4, at D 100 and G 1, and at D 128 and G 4
     with every K and V value at +-127 and constant scales (every live
     row's P at the same s8 value 127, the largest integer sums), then at
-    D 192 and G 8 and at D 256 and G 4; 4 sequences x 8 kv heads, max_len
-    2048, lengths 0, 777, 2047, 2048.
+    D 192 and G 8, at D 256 and G 4, at D 300 and G 4, at D 384 and G 8
+    and at D 512 and G 1; 4 sequences x 8 kv heads, max_len 2048, lengths
+    0, 777, 2047, 2048.
     Inputs come from numpy (seed 21) on the host, so every tree and run
     sees the same bits. ``paths``, where given, takes each case's launch
     paths (the wrapper's launches_by_path)."""
@@ -962,7 +1000,8 @@ def k2_bits(torch, paths=None) -> dict:
                            dtype=torch.int32).cuda()
     digests = {}
     for d, g, extreme in ((128, 4, False), (100, 1, False), (128, 4, True),
-                          (192, 8, False), (256, 4, False)):
+                          (192, 8, False), (256, 4, False), (300, 4, False),
+                          (384, 8, False), (512, 1, False)):
         if extreme:
             k = np.full((bh, max_len, d), 127, dtype=np.int8)
             v = np.where(np.arange(d) % 2 == 0, 127, -127).astype(np.int8)
@@ -1177,8 +1216,8 @@ def _k5_case(torch, gen, max_len, name, prec, hkv, g, window, d=128,
 
 def phase_k5(torch):
     """K5 through its entry point, against the same call with the plain
-    version swapped in: Llama-3-8B's heads (D 128), then HEAD_DIM_CASES and
-    D 512. Returns (kernel-table row, head-dim rows, launches through the
+    version swapped in: Llama-3-8B's heads (D 128), then HEAD_DIM_CASES.
+    Returns (kernel-table row, head-dim rows, launches through the
     entry point)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1189,8 +1228,7 @@ def phase_k5(torch):
     for case in cases:
         key, results[key], n5 = _k5_case(torch, gen, *case)
         launches += n5
-    for case in (_head_dim_cases(extra=((512, 1),)) + _odd_d_cases()
-                 + _small_d_cases()):
+    for case in _head_dim_cases() + _odd_d_cases() + _small_d_cases():
         key, head_dims[key], n5 = _k5_case(torch, gen, *case)
         launches += n5
     # OpenLLaMA-3B's width with the cache 4 bytes off 16: copy granule 4.

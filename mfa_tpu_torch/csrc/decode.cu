@@ -34,20 +34,21 @@
 // An int8 cache adds a pass between the two (decode_pmax), since P's s8
 // scale is max |P vs| over every live row of the query row, across
 // splits: each split's exact max against the final max, read from the
-// scratch row. bf16 q at 64 <= D <= 128 runs both passes on mma.sync (as
+// scratch row. bf16 q at 64 <= D <= 512 runs both passes on mma.sync (as
 // K5) over every storage type: each warp widens its rows of an int8 or
 // fp8 stage to bf16 (exact), the scales multiply S and P where the plain
 // version's do. Over int8 the s8 requantization stays exact on the pair:
 // q_s8 and P_s8 are integers up to 127, exact as bf16 operands, their
-// products with int8 K and V integers whose sums stay below 2^24 (128 *
+// products with int8 K and V integers whose sums stay below 2^24 (512 *
 // 127^2 a score; 1024 * 127^2 a split's P V, at DECODE_SPLIT_MAX_ROWS),
 // exact in fp32 in any order, and the rest (q scale times ks, P's row
 // sum) is computed in the FMA pair's order: the pair's output is the FMA
 // pair's bit for bit. Past D 64 and 128 (OpenLLaMA-3B's D 100: 200-byte
 // rows in bf16, 100 in int8 and fp8) the rows are padded with zeros to
-// 128 values in shared memory and copied at the granule their rows and
-// bases share (8 and 4 bytes there). fp32 q, odd D and every other D up
-// to 512 run the FMA pair, in decode_split.cuh::RowLayout's rows (any D:
+// 128 values in shared memory (256 past D 128, 512 past D 256) and
+// copied at the granule their rows and bases share (8 and 4 bytes at D
+// 100). fp32 q, odd D, granules under 4 bytes and D < 64 run the FMA
+// pair, in decode_split.cuh::RowLayout's rows (any D:
 // 16-byte granules of the cache, a row's chunks read at its alignment).
 // The append writes the new row value by value, so a row of any D takes
 // it.

@@ -79,7 +79,7 @@
 // Two arithmetic paths, chosen by the launch from shapes and addresses
 // (K5 and K6 alike; the wrapper names the path and the launch refuses
 // another, decode_split.cuh::launch_passes):
-//  - bf16 q at 64 <= D <= 128 over any storage type (bf16, int8,
+//  - bf16 q at 64 <= D <= 512 over any storage type (bf16, int8,
 //    fp8-e4m3, fp8-e5m2) whose rows and base share a copy granule of 4
 //    bytes or more: tensor cores. A warp takes S^T = K q^T and O^T = V^T
 //    P^T for its 16 or 32 rows with mma.sync m16n8k16 (K and V by
@@ -90,16 +90,19 @@
 //    scale after the dot, P times the V scale before its rounding, as the
 //    rule above. Products are exact and sums fp32, as in the FMA path; P
 //    is rounded to bf16 against the final max. D 64 and 128 at 16-byte
-//    granules run their own instances; every other D (80, 96, 100, 112,
-//    ...) runs the 128-wide one, each row padded with zeros to 128 values
-//    in shared memory and copied at its granule (D 100: 8 bytes in bf16,
-//    4 in int8 and fp8), so that only shared memory and the tensor cores
-//    see the padding. The FMA path spent ~40 instructions a row per warp
-//    on dot products, their 16-lane shuffle sums and one exp2 per lane:
-//    issue, not bytes, bounded it (int8 and fp8 caches, half the bytes,
-//    took as long as bf16, or longer).
+//    granules run their own instances; every other D up to 128 (80, 96,
+//    100, 112, ...) runs the 128-wide one, each row padded with zeros to
+//    128 values in shared memory and copied at its granule (D 100: 8
+//    bytes in bf16, 4 in int8 and fp8), so that only shared memory and
+//    the tensor cores see the padding; past D 128 the 256-wide one and
+//    past D 256 the 512-wide one, a thread copying two or four 8-value
+//    chunks of its row, the granule read from the bases at run time. The
+//    FMA path spent ~40 instructions a row per warp on dot products,
+//    their 16-lane shuffle sums and one exp2 per lane: issue, not bytes,
+//    bounded it (int8 and fp8 caches, half the bytes, took as long as
+//    bf16, or longer).
 //  - everything else (fp32 q, whose 2e-5 budget rules out rounding q to
-//    bf16; odd D, D < 64 and D > 128 up to 512): FMA, the row's 8-value
+//    bf16; odd D, granules under 4 bytes, D < 64): FMA, the row's 8-value
 //    chunks summed over its lanes by shuffles, over 16-byte aligned cache
 //    storage.
 // Row groups and warps meet in a fixed order. TMA page gathers are later

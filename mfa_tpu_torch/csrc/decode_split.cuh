@@ -18,7 +18,7 @@
 // Which launches take which pass pair (launch_passes; the host names the
 // path, ops/params.py::decode_path, and a launch on another is refused):
 //  - the tensor-core pair (decode_score_mma, decode_attend_mma): bf16 q
-//    at 64 <= D <= 256 over every storage type (bf16, int8, fp8-e4m3,
+//    at 64 <= D <= 512 over every storage type (bf16, int8, fp8-e4m3,
 //    fp8-e5m2), K2, K5 and K6 alike, whose rows and bases share a copy
 //    granule g of 4 bytes or more (mma_granule: the largest of 16, 8, 4
 //    dividing the row bytes and the k and v bases). 1-byte storage is
@@ -26,19 +26,21 @@
 //    their own instances (GR 0); every other such launch up to D 128 (D
 //    80, 96, 112 at g 16; OpenLLaMA-3B's D 100 at g 8 in bf16, 4 in int8
 //    and fp8; bases 8 or 4 bytes off) runs the 128-wide instance of its
-//    granule, and every one past D 128 (D 192 and 256; D 250 in bf16 at
-//    g 4) the 256-wide instance, which reads its granule from the bases
-//    at run time (GR kGrAny) and runs CTAs of 128 threads (its ring of
-//    ~100 KB lets two share an SM), rows padded with zeros to 128 or 256
-//    values in shared memory;
+//    granule, every one past D 128 up to 256 (D 192 and 256; D 250 in
+//    bf16 at g 4) the 256-wide instance and every one past D 256 (D 300,
+//    384, 512) the 512-wide one; those two read their granule from the
+//    bases at run time (GR kGrAny) and run CTAs of 128 threads
+//    (ops/params.py::decode_threads: at DD 256 a ring of ~100
+//    KB, two CTAs an SM; at DD 512 ~200 KB, one), rows padded with zeros
+//    to 128, 256 or 512 values in shared memory;
 //  - the FMA pair (decode_score / decode_attend in RowLayout's rows,
 //    their _exact instances at D = 8 * 2^k <= 256): everything else
 //    (fp32 q, which the 2e-5 budget keeps unrounded; odd D and g < 4, so
-//    D 250 over int8 and fp8; D < 64; D > 256), over 16-byte aligned
-//    cache storage.
+//    D 250 and 302 over int8 and fp8; D < 64), over 16-byte aligned cache
+//    storage.
 // K2 over int8 gives the same bits on either pair: its q and P are s8
 // integers (exact as bf16 operands), their products with K and V are
-// integers whose sums stay below 2^24 (256 * 127^2 a score, 1024 * 127^2
+// integers whose sums stay below 2^24 (512 * 127^2 a score, 1024 * 127^2
 // a split's P V: DECODE_SPLIT_MAX_ROWS), so exact in fp32 in any order,
 // and what is not an integer (the scales' products, P's row sum) the
 // pair computes in the FMA pair's order; only D 64 off 16 bytes, whose
@@ -1086,27 +1088,34 @@ decode_attend_exact(Par<kFused> p, Rows rows) {
   attend_pass<KVF, GC, 1, true, Rows, kFused>(p, rows);
 }
 
+// Chunks of 8 values a thread takes of a DD-wide row on the tensor-core
+// pair: one up to DD 128, DD / 128 past it (two at DD 256, four at 512).
+__host__ __device__ constexpr int mma_cpt(int DD) {
+  return DD > 128 ? DD / 128 : 1;
+}
+
 // The tensor-core pair's rows DD values wide in shared memory: CPR chunks
-// of 8 values, kCPT of them a thread (chunks cc and cc + TPR of its row;
-// two at DD 256, so that a warp again takes 16 rows, one m16 block, a
-// tile), TPR threads a row, kWRG row groups a warp, kBlocks m16 blocks a
-// warp a tile.
+// of 8 values, kCPT of them a thread (chunks cc + k TPR of its row, k <
+// kCPT; past DD 128 TPR stays 16, so that a warp again takes 16 rows, one
+// m16 block, a tile), TPR threads a row, kWRG row groups a warp, kBlocks
+// m16 blocks a warp a tile.
 template <int DD>
 struct MmaRows {
   static constexpr int CPR = DD / 8;
-  static constexpr int kCPT = DD > 128 ? 2 : 1;
+  static constexpr int kCPT = mma_cpt(DD);
   static constexpr int TPR = CPR / kCPT;
   static constexpr int kWRG = 32 / TPR;
   static constexpr int kBlocks = kWRG * kUnroll / 16;
 };
 
-// GR of the 256-wide instances: the launch's copy granule, read from the
-// bases at run time (one instance for 16, 8 and 4 keeps the build short).
+// GR of the 256- and 512-wide instances: the launch's copy granule, read
+// from the bases at run time (one instance for 16, 8 and 4 keeps the
+// build short).
 constexpr int kGrAny = 1;
 
 // A warp's rows of a tile for the tensor-core path: j = u * kWRG + the
-// warp's row group, so that each warp takes 16 (D = 128 and 256) or 32
-// (D = 64) rows; chunk cc of such a row sits at cc ^ (j % 8) in its row
+// warp's row group, so that each warp takes 16 (DD 128, 256 and 512) or
+// 32 (DD 64) rows; chunk cc of such a row sits at cc ^ (j % 8) in its row
 // group's slots, so that the 8 rows an ldmatrix reads fall in 8 bank
 // groups.
 template <int CPR, int kWRG = 32 / CPR>
@@ -1115,11 +1124,12 @@ __device__ __forceinline__ int mma_slot(int rg, int cc, int u) {
 }
 
 // The cache row of the tile at `base` that a warp's j-th row (j = u kWRG
-// + rg % kWRG) holds: base + rg + u RG up to DD 128; at DD 256 base + warp
+// + rg % kWRG) holds: base + rg + u RG up to DD 128; past it base + warp
 // + nw j. The FMA pair past D 128 takes one row group a warp, 8 warps,
-// row group f the rows f mod 8; the 256-wide pair runs 4 warps (nw), so
-// a warp's even rows are FMA row group warp's and its odd rows row group
-// warp + 4's, each in order, and K2's int8 row sum keeps FMA's order.
+// row group f the rows f mod 8; the 256- and 512-wide pairs run 4 warps
+// (nw), so a warp's even rows are FMA row group warp's and its odd rows
+// row group warp + 4's, each in order, and K2's int8 row sum keeps FMA's
+// order.
 template <int DD>
 __device__ __forceinline__ int mma_row(int base, int warp, int j, int RG,
                                        int nw) {
@@ -1189,7 +1199,7 @@ __host__ __device__ size_t mma_ring_bytes(int slots, int rg, bool scores) {
 // [nw][GC][D] of the D live columns reuses.
 template <int KVF, int GC>
 __host__ __device__ size_t mma_union_bytes(int threads, int DD, int D) {
-  const int slots = threads * (DD > 128 ? 2 : 1);
+  const int slots = threads * mma_cpt(DD);
   const size_t ring = mma_ring_bytes<KVF, GC>(slots, slots / (DD / 8), true);
   const size_t o_w = (size_t)(threads / 32) * GC * D * 4;
   return ring > o_w ? ring : o_w;
@@ -1249,18 +1259,25 @@ __device__ __forceinline__ void zero_pad(void* dst, int lb) {
 // in use into a bf16 tile (exact; the bf16 path's slots), then S = (q .
 // K_raw) * ks. K2 over int8 (kRequant) first requantizes q to s8 per
 // query row as score_pass does, and holds q_s8 as bf16 (integers up to
-// 127, exact): the products are integers and their sums, at most 256 *
+// 127, exact): the products are integers and their sums, at most 512 *
 // 127^2 < 2^24, exact in fp32 in any order, so S = (dot * q scale) * ks
 // is score_pass's S bit for bit.
-// Rows are DD (64, 128 or 256) values wide in shared memory (MmaRows;
-// at DD 256 a thread takes two chunks of its row). GR 0: D = DD, rows
-// whole 16-byte chunks (8-byte for 1-byte storage), each copied by one
-// cp.async. GR 16, 8 or 4 (kPad: 64 <= D <= 128 on the 128-wide
-// instances), and kGrAny (128 < D <= 256 on the 256-wide ones): rows of
-// D values at stride D in the cache, padded with zeros to DD in the slots
+// Rows are DD (64, 128, 256 or 512) values wide in shared memory
+// (MmaRows; at DD 256 a thread takes two chunks of its row, at 512
+// four). GR 0: D = DD, rows whole 16-byte chunks (8-byte for 1-byte
+// storage), each copied by one cp.async. GR 16, 8 or 4 (kPad: 64 <= D <=
+// 128 on the 128-wide instances), and kGrAny (128 < D <= 256 on the
+// 256-wide ones, 256 < D <= 512 on the 512-wide ones): rows of D values
+// at stride D in the cache, padded with zeros to DD in the slots
 // (zero_pad, once a CTA); a thread copies the live bytes of its chunks GR
 // at a time (copy_live, at_granule), and column blocks past D are
-// skipped.
+// skipped. Past DD 256 each k step's products start from zero and are
+// added in fp32: chained in one accumulator over 17-32 steps, the tensor
+// cores' sums drifted from fp64 further than FMA's, and a P rounded to
+// bf16 on the other side of a step moved O past its budget where O
+// cancels. The fresh form is as close to fp64 at DD 256 and below too;
+// those widths keep the chained accumulator only so that their machine
+// code, and the output bits chip_smoke.py records, stay as they were.
 template <int KVF, int GC, int DD, int GR, class Rows, bool kFused>
 __global__ void __launch_bounds__(256)
 decode_score_mma(Par<kFused> p, Rows rows) {
@@ -1450,7 +1467,14 @@ decode_score_mma(Par<kFused> p, Rows rows) {
         uint32_t a[4];
         ldsm_x4(a, tile + u * TS +
                        mma_slot<CPR, kWRG>(r, ks * 2 + (lane >> 4), u));
-        mma_bf16(c, a, qb[ks][0], qb[ks][1]);
+        if constexpr (DD > 256) {
+          float z[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(z, a, qb[ks][0], qb[ks][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[e] += z[e];
+        } else {
+          mma_bf16(c, a, qb[ks][0], qb[ks][1]);
+        }
       }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -1505,9 +1529,9 @@ decode_score_mma(Par<kFused> p, Rows rows) {
 // (DECODE_SPLIT_MAX_ROWS), exact in fp32 in any order; the row sum of P,
 // not an integer, is summed in attend_pass's order, by lanes of its own:
 // up to DD 128 each row group's rows in tile and row order, then the row
-// groups of a warp pairwise, as its butterfly; at DD 256 each of the FMA
-// pair's row groups in row order (mma_row: a warp's even and odd rows),
-// then the groups in order through shared memory.
+// groups of a warp pairwise, as its butterfly; past DD 128 each of the
+// FMA pair's row groups in row order (mma_row: a warp's even and odd
+// rows), then the groups in order through shared memory.
 // GR and the padded rows as decode_score_mma's; the partial O holds the
 // D live columns (finish_attend's stride).
 template <int KVF, int GC, int DD, int GR, class Rows, bool kFused>
@@ -1691,8 +1715,8 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   float ps_r = 1.f;                      // kRequant: P's s8 scale
   if constexpr (kRequant) ps_r = gp < G ? ps_g[gp] : 1.f;
   // kRequant: this lane sums the row sum of query row lg over the rows of
-  // the warp's row group lr (attend_pass's lanes of that row group; at DD
-  // 256 over the warp's rows).
+  // the warp's row group lr (attend_pass's lanes of that row group; past
+  // DD 128 over the warp's rows).
   const int lg = lane & 7, lr = warp * kWRG + ((lane >> 3) & (kWRG - 1));
   const float m_l = kRequant && lg < G ? m_g[lg] : 0.f;
   float acc[DD / 16][4];
@@ -1778,10 +1802,10 @@ decode_attend_mma(Par<kFused> p, Rows rows) {
   cp_async_wait<0>();
 
   // Row sums over the four lanes of a query row (kRequant: over the
-  // warp's row groups, as attend_pass's butterfly; at DD 256 one lane a
-  // query row holds them); then each warp's partial O^T (rows d, columns
-  // gc and gc + 1) and sums into shared memory, which the ring no longer
-  // needs.
+  // warp's row groups, as attend_pass's butterfly; past DD 128 one lane a
+  // query row and FMA row group holds them); then each warp's partial
+  // O^T (rows d, columns gc and gc + 1) and sums into shared memory, which
+  // the ring no longer needs.
   if constexpr (kRequant) {
     if constexpr (DD <= 128)
 #pragma unroll
@@ -1933,30 +1957,35 @@ int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
       lay, two ? kUnrollOf<2> : kUnrollOf<1>, threads, false);
   size_t attend_ring = attend_union_bytes<KVF, GC>(threads, p.D);
   int chosen = lay.exact ? kPathFmaExact : kPathFma;
-  // bf16 q at 64 <= D <= 256 over any storage type whose rows and bases
+  // bf16 q at 64 <= D <= 512 over any storage type whose rows and bases
   // share a granule of 4 bytes or more: the tensor-core pair (1-byte
   // storage widened to bf16 by each warp; K2 over int8 keeps its s8
   // requantization exact). D 64 and 128 at granule 16 keep their own
   // instances (GR 0); the rest up to D 128 run the 128-wide ones on rows
   // padded with zeros, copied a granule at a time (8 bytes at most over
-  // 1-byte storage, whose chunks are 8 bytes), and past D 128 the
-  // 256-wide ones, which read the granule from the bases (kGrAny).
+  // 1-byte storage, whose chunks are 8 bytes), past D 128 the 256-wide
+  // ones and past D 256 the 512-wide ones, which read the granule from
+  // the bases (kGrAny).
   const int gr = mma_granule(p.k, p.v, p.D * (KVF == 0 ? 2 : 1));
-  if (p.q_bf16 && p.D >= 64 && p.D <= 256 && gr >= 4) {
+  if (p.q_bf16 && p.D >= 64 && p.D <= 512 && gr >= 4) {
     constexpr int kG16 = KVF == 0 ? 16 : 8;
     const bool own = gr == 16 && (p.D == 64 || p.D == 128);
-    const int dd = own ? p.D : p.D > 128 ? 256 : 128;
+    const int dd = own ? p.D : p.D > 256 ? 512 : p.D > 128 ? 256 : 128;
     chosen = gr;
+    // The host gives the 256- and 512-wide CTAs 128 threads; K2 over int8
+    // takes no other count there (its row sum takes the FMA pair's row
+    // groups, 2 nw of them, FMA running 256 threads).
+    if (kFused && KVF == 1 && dd > 128 && threads != 128)
+      return cudaErrorInvalidValue;
     if (own) {
       score = p.D == 64 ? decode_score_mma<KVF, GC, 64, 0, Rows, kFused>
                         : decode_score_mma<KVF, GC, 128, 0, Rows, kFused>;
       attend = p.D == 64 ? decode_attend_mma<KVF, GC, 64, 0, Rows, kFused>
                          : decode_attend_mma<KVF, GC, 128, 0, Rows, kFused>;
+    } else if (dd == 512) {
+      score = decode_score_mma<KVF, GC, 512, kGrAny, Rows, kFused>;
+      attend = decode_attend_mma<KVF, GC, 512, kGrAny, Rows, kFused>;
     } else if (dd == 256) {
-      // The host gives these CTAs 128 threads, two an SM; K2 over int8
-      // takes no other count (its row sum takes the FMA pair's row
-      // groups, 2 nw of them, FMA running 256 threads).
-      if (kFused && KVF == 1 && threads != 128) return cudaErrorInvalidValue;
       score = decode_score_mma<KVF, GC, 256, kGrAny, Rows, kFused>;
       attend = decode_attend_mma<KVF, GC, 256, kGrAny, Rows, kFused>;
     } else {
@@ -1968,7 +1997,7 @@ int launch_passes(const Par<kFused>& p, const Rows& rows, dim3 grid,
                    ? decode_attend_mma<KVF, GC, 128, 8, Rows, kFused>
                    : decode_attend_mma<KVF, GC, 128, kG16, Rows, kFused>;
     }
-    const int slots = threads * (dd > 128 ? 2 : 1);
+    const int slots = threads * mma_cpt(dd);
     ring = mma_ring_bytes<KVF, GC>(slots, slots / (dd / 8), false);
     attend_ring = mma_union_bytes<KVF, GC>(threads, dd, p.D);
   }

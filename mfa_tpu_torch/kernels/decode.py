@@ -8,22 +8,23 @@ kernel K6 in ``kernels/paged_decode.py``) share one split-KV body,
 ``csrc/decode_split.cuh``, and one launch shape (:func:`split_launch`).
 All three take any head dim 1 <= D <= 512 over an unpadded cache (D
 values a row: 200 bytes at D 100 in bf16, 100 in int8 and fp8). bf16 q
-at 64 <= D <= 256 over any of the four storage types runs on tensor
+at 64 <= D <= 512 over any of the four storage types runs on tensor
 cores where the cache's rows and bases share a copy granule of 4 bytes
-or more (``ops/params.py::decode_granule``: 16 at D 80, 96, 112, 192 and
-256 in bf16, 8 at D 100, 4 at D 100 in int8 and fp8 and at D 250 in
-bf16; 1-byte storage widened to bf16, K2's int8 requantization exact),
-its rows padded with zeros to 128 values in shared memory past D 64 and
-128, and to 256 past D 128; every other case (fp32 q, odd D, granules
-under 4, D < 64, D > 256) runs on FMA in
-``decode_split.cuh::RowLayout``'s rows, which copy a 16-byte aligned
-cache in 16-byte granules whatever a row's alignment
+or more (``ops/params.py::decode_granule``: 16 at D 80, 96, 112, 192,
+256, 384 and 512 in bf16, 8 at D 100 and 300, 4 at D 100 and 300 in
+int8 and fp8 and at D 250 in bf16; 1-byte storage widened to bf16, K2's
+int8 requantization exact), its rows padded with zeros to 128 values in
+shared memory past D 64 and 128, to 256 past D 128 and to 512 past D
+256; every other case (fp32 q, odd D, granules under 4, D < 64) runs on
+FMA in ``decode_split.cuh::RowLayout``'s rows, which copy a 16-byte
+aligned cache in 16-byte granules whatever a row's alignment
 (``ops/params.py::decode_row_layout`` mirrors it). Each wrapper counts
 its launches by path (``launches_by_path``: ``mma/g16``, ``mma/g8``,
 ``mma/g4``, ``fma``, ``fma/exact``; :func:`launch_path`), and the C
 launch refuses a launch whose path it would choose otherwise. A CTA
-has ``ops/params.py::decode_threads`` threads (128 on the 256-wide
-tensor-core pair and at D <= 8 with query chunks of 8, 256 otherwise).
+has ``ops/params.py::decode_threads`` threads (128 on the 256- and
+512-wide tensor-core pair and at D <= 8 with query chunks of 8, 256
+otherwise).
 :func:`decode_fused_append` and :func:`decode_attend` launch their
 kernels for CUDA tensors and take their plain versions only for CPU
 tensors.

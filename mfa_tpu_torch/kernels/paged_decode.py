@@ -4,7 +4,7 @@ Replaces ``mfa_tpu/kernels/paged_decode.py::_paged_decode_kernel``; the
 CUDA source is ``csrc/paged_decode.cu``, over the body K5 uses for a
 contiguous cache (``csrc/decode_split.cuh``), here reading each row
 through the page table. Any head dim up to 512, on K5's paths (the
-tensor-core pair for bf16 q at 64 <= D <= 256 over pages of any storage
+tensor-core pair for bf16 q at 64 <= D <= 512 over pages of any storage
 type whose rows and pool share a copy granule of 4 bytes or more, FMA
 otherwise), counted by path
 in ``paged_decode.launches_by_path``.

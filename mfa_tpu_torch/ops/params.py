@@ -967,20 +967,26 @@ def decode_granule(head_dim: int, itemsize: int, *addresses: int) -> int:
 def decode_mma_width(head_dim: int, granule: int = 16) -> int:
     """DD, the values a row holds in the tensor-core pair's shared memory:
     D 64 and 128 at granule 16 have instances of their own; every other
-    head dim the pair takes is padded with zeros to 128, or past D 128 to
-    256."""
+    head dim the pair takes is padded with zeros to 128, past D 128 to
+    256 and past D 256 to 512."""
     if granule == 16 and head_dim in (64, 128):
         return head_dim
-    return 128 if head_dim <= 128 else 256
+    return 128 if head_dim <= 128 else 256 if head_dim <= 256 else 512
+
+
+def decode_mma_chunks(width: int) -> int:
+    """decode_split.cuh::mma_cpt: the 8-value chunks a thread takes of a
+    row ``width`` (DD) values wide, one up to 128 and DD / 128 past it."""
+    return width // 128 if width > 128 else 1
 
 
 def _decode_mma_ring(head_dim: int, itemsize: int, group_chunk: int,
                      threads: int, granule: int, scores: bool) -> int:
     """decode_split.cuh::mma_ring_bytes: the ring of each thread's chunks
-    of DD-wide rows (two a thread at DD 256, MmaRows) and, over 1-byte
-    storage, the widened bf16 tile."""
+    of DD-wide rows (:func:`decode_mma_chunks` a thread, MmaRows) and,
+    over 1-byte storage, the widened bf16 tile."""
     width = decode_mma_width(head_dim, granule)
-    slots = threads * (2 if width > 128 else 1)
+    slots = threads * decode_mma_chunks(width)
     ring = _decode_ring_bytes(slots * 8 * itemsize, DECODE_UNROLL,
                               slots // (width // 8), group_chunk, scores)
     return ring + (DECODE_UNROLL * slots * 16 if itemsize == 1 else 0)
@@ -1004,17 +1010,18 @@ def decode_mma_union_bytes(head_dim: int, itemsize: int, group_chunk: int,
 def decode_tensor_cores(head_dim: int, storage: torch.dtype, q_bf16: bool,
                         granule: int | None = None) -> bool:
     """Whether a launch takes the tensor-core pair (launch_passes): bf16 q
-    at 64 <= D <= 256 over any storage type (bf16; int8, fp8-e4m3 and
+    at 64 <= D <= 512 over any storage type (bf16; int8, fp8-e4m3 and
     fp8-e5m2 widened to bf16), for K2, K5 and K6 alike, whose rows and
     bases share a copy granule of 4 bytes or more
     (:func:`decode_granule`; ``granule`` defaults to that of the row
-    bytes alone, as for 16-byte aligned bases: D 250 takes 4 in bf16 and
-    none in int8 and fp8). fp32 q stays on FMA: its 2e-5 budget rules out
-    rounding q to bf16."""
+    bytes alone, as for 16-byte aligned bases: D 250 and 302 take 4 in
+    bf16 and none in int8 and fp8, D 300 8 in bf16 and 4 in int8 and
+    fp8). fp32 q stays on FMA: its 2e-5 budget rules out rounding q to
+    bf16."""
     if granule is None:
         granule = decode_granule(
             head_dim, torch.empty((), dtype=storage).element_size())
-    return q_bf16 and 64 <= head_dim <= 256 and granule >= 4
+    return q_bf16 and 64 <= head_dim <= 512 and granule >= 4
 
 
 def decode_path(head_dim: int, storage: torch.dtype, q_bf16: bool,
@@ -1076,11 +1083,13 @@ def decode_group_chunk(group: int) -> int:
 def decode_threads(head_dim: int, group_chunk: int,
                    path: str = "fma") -> int:
     """Threads of a K2/K5/K6 CTA on ``path`` (a key of DECODE_PATHS):
-    DECODE_ATTEND_THREADS, but 128 on the 256-wide tensor-core pair (D >
-    128: a ring of ~100 KB, two CTAs an SM; the C launch takes no other
-    count there) and at most 128 at D <= 8 with query chunks of 8, where
-    the FMA pair gives one lane a row and the scores of 256 row groups x 8
-    query rows would overflow shared memory (128 row groups fit)."""
+    DECODE_ATTEND_THREADS, but 128 on the 256- and 512-wide tensor-core
+    pair (D > 128: threads hold DD / 128 chunks of a row, a ring of ~100
+    KB at DD 256, two CTAs an SM, and ~200 KB at DD 512, one; the C
+    launch takes no other count there) and at most 128 at D <= 8 with
+    query chunks of 8, where the FMA pair gives one lane a row and the
+    scores of 256 row groups x 8 query rows would overflow shared memory
+    (128 row groups fit)."""
     if path.startswith("mma") and head_dim > 128:
         return 128
     if head_dim <= 8 and group_chunk == 8:

@@ -6,11 +6,12 @@ kernels (K2 ``decode_fused_append``, K5 ``decode_attend``, K6
 the profiler's paged serving step (8 slots at ~1030 tokens), for every
 split size R in 64..1024 and CTA size in 128 and 256 threads; each
 configuration is first held to its plain version at
-``KERNEL_BUDGETS``. ``kernels`` splits a call's device time between its
-two kernels (torch.profiler). ``turns`` runs ``chip_smoke.py``'s k5 and
-k6 phases (``--what kernels``), its serving and paged serving phases
-(``serving``), a host-time probe of the K6, K2 and K8 wrappers
-(``host``), its
+``KERNEL_BUDGETS``; ``sweep --wide`` runs K2, K5 and K6 past D 256 (the
+512-wide tensor-core pair) at every split size R. ``kernels`` splits a
+call's device time between its kernels (torch.profiler). ``turns`` runs
+``chip_smoke.py``'s k5 and k6 phases (``--what kernels``), its serving
+and paged serving phases (``serving``), a host-time probe of the K6, K2
+and K8 wrappers (``host``), its
 forward kernel phase (``k1``), its fused decode phase (``k2``), its
 backward kernel phase (``bwd``, K3 and K4; ``k34_rows``: K3 and K4
 alone at Llama-3-8B's D 128, OpenLLaMA-3B's D 100 and D 250, each on the
@@ -24,7 +25,7 @@ phase
 ``openllama_prefill``: its
 prefills timed without the profiler), its INT4 phase (``int4``) or K1
 alone on its copying and TMA rows (``k1_rows``), or K2, K5 and K6 at D 64
-to 256 over bf16, int8 and fp8 caches (``decode_dims``) from two trees in
+to 512 over bf16, int8 and fp8 caches (``decode_dims``) from two trees in
 turns
 (A, B, B, A), each
 in a process of its own that builds and loads its own tree's kernels.
@@ -36,7 +37,8 @@ and names those that differ.
 
 Run on a GPU from the repository root:
 
-    python -m mfa_tpu_torch.utils.decode_tuning sweep [--out chiprun_out]
+    python -m mfa_tpu_torch.utils.decode_tuning sweep [--wide] \
+        [--out chiprun_out]
     python -m mfa_tpu_torch.utils.decode_tuning kernels
     python -m mfa_tpu_torch.utils.decode_tuning rounding
     python -m mfa_tpu_torch.utils.decode_tuning sass --a build/parent --b .
@@ -134,24 +136,47 @@ def _k6_case(gen, fmt: str, lens, d: int = 128, g: int = 4):
             lambda: k6.paged_decode_plain(q3, *operands), "paged_decode_o")
 
 
-def sweep(out: Path) -> None:
+def _wide_cases(gen) -> dict:
+    """K2, K5 and K6 past D 256 (the 512-wide tensor-core pair) at
+    decode_dims' shapes: D 300 (G 4), 384 (G 8) and 512 (G 1) over bf16
+    and int8."""
+    cases = {}
+    for d, g in ((300, 4), (384, 8), (512, 1)):
+        for fmt in ("bf16", "int8"):
+            cases[f"k5_{fmt}_D{d}"] = _k5_case(gen, fmt, 2048, d, g)
+            cases[f"k2_{fmt}_D{d}"] = _k2_case(gen, fmt, 2048, d, g)
+            cases[f"k6_{fmt}_D{d}"] = _k6_case(
+                gen, fmt, [0, 1, 511, 512, 513, 777, 2047, 2048], d, g)
+    return cases
+
+
+def sweep(out: Path, wide: bool = False) -> None:
+    """Each case at every split size of SPLIT_ROWS and CTA size of
+    THREADS (DECODE_ATTEND_THREADS), held to its plain version first,
+    then timed; then each at the rule's launch. ``wide``: the cases of
+    :func:`_wide_cases` at every split size alone (their CTAs take 128
+    threads whatever DECODE_ATTEND_THREADS says)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    cases = {f"k5_{fmt}_L{n}": _k5_case(gen, fmt, n)
-             for fmt in ("bf16", "int8") for n in (2048, 8192)}
-    cases["k6_bf16_page512"] = _k6_case(
-        gen, "bf16", [0, 1, 511, 512, 513, 777, 2047, 2048])
-    cases["k6_bf16_serving_8x1030"] = _k6_case(gen, "bf16", [1030] * 8)
+    if wide:
+        cases, threads = _wide_cases(gen), (params_mod.DECODE_ATTEND_THREADS,)
+    else:
+        cases = {f"k5_{fmt}_L{n}": _k5_case(gen, fmt, n)
+                 for fmt in ("bf16", "int8") for n in (2048, 8192)}
+        cases["k6_bf16_page512"] = _k6_case(
+            gen, "bf16", [0, 1, 511, 512, 513, 777, 2047, 2048])
+        cases["k6_bf16_serving_8x1030"] = _k6_case(gen, "bf16", [1030] * 8)
+        threads = THREADS
     rule_rows, rule_threads = (params_mod.decode_split_rows,
                                params_mod.DECODE_ATTEND_THREADS)
     rows = []
-    for threads in THREADS:
+    for t in threads:
         for r in SPLIT_ROWS:
             params_mod.decode_split_rows = lambda *a, _r=r, **k: _r
-            params_mod.DECODE_ATTEND_THREADS = threads
+            params_mod.DECODE_ATTEND_THREADS = t
             for name, (kernel, plain, budget) in cases.items():
                 share = budget_share(kernel(), plain(),
                                      *KERNEL_BUDGETS[budget])
-                row = {"case": name, "R": r, "threads": threads,
+                row = {"case": name, "R": r, "threads": t,
                        "ms": roofline.cuda_ms(kernel, iters=50),
                        "share": share}
                 if not share <= 1:
@@ -165,22 +190,23 @@ def sweep(out: Path) -> None:
                           "ms": roofline.cuda_ms(kernel, iters=50)}),
               flush=True)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "decode_sweep.jsonl").write_text(
-        "".join(json.dumps(r) + "\n" for r in rows))
+    (out / ("decode_sweep_wide.jsonl" if wide else "decode_sweep.jsonl")
+     ).write_text("".join(json.dumps(r) + "\n" for r in rows))
 
 
 def kernels(calls: int = 20) -> None:
     """Device ms of each of a call's kernels (decode_score, K2's
     decode_pmax over int8, decode_attend) by torch.profiler, at the rule's
     launch: K5 at L 2048 and 8192 and K6 at the serving step over bf16,
-    then K2, K5 and K6 at decode_dims' D 100 (G 1) and D 128 (G 4) over
-    bf16, int8 and fp8-e4m3. A kernel's time runs from its start, which
-    a programmatic dependent reaches before its predecessor ends, so the
-    parts overlap and sum past the call's time."""
+    then K2, K5 and K6 at decode_dims' D 100 (G 1), D 128 (G 4), D 384
+    (G 8) and D 512 (G 1) over bf16, int8 and fp8-e4m3. A kernel's time
+    runs from its start, which a programmatic dependent reaches before
+    its predecessor ends, so the parts overlap and sum past the call's
+    time."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     cases = {f"k5_bf16_L{n}": _k5_case(gen, "bf16", n) for n in (2048, 8192)}
     cases["k6_bf16_serving_8x1030"] = _k6_case(gen, "bf16", [1030] * 8)
-    for d, g in ((100, 1), (128, 4)):
+    for d, g in ((100, 1), (128, 4), (384, 8), (512, 1)):
         for fmt in _STORAGE:
             cases[f"k2_{fmt}_D{d}"] = _k2_case(gen, fmt, 2048, d, g)
             cases[f"k5_{fmt}_D{d}"] = _k5_case(gen, fmt, 2048, d, g)
@@ -426,11 +452,11 @@ for d, n, hq, hkv, causal in [(*s, c) for s in shapes for c in (True, False)
 """,
     # K2, K5 and K6 at the kernel table's shapes (K2, K5: 4 sequences x
     # Hkv 8, L 2048, lengths 0, 777, 2047, 2048; K6: 8 sequences of 0-2048
-    # tokens on 512-token pages) at D 64, 80, 96, 100, 128, 192, 250 and
-    # 256 (G 4, 4, 8, 1, 4, 8, 4, 4: chip_smoke's HEAD_DIM_CASES) over
-    # bf16, int8 and fp8-e4m3 caches, through the wrappers both trees
-    # have; each line names the path the tree's launch took where the
-    # tree counts paths.
+    # tokens on 512-token pages) at D 64, 80, 96, 100, 128, 192, 250, 256,
+    # 300, 384 and 512 (G 4, 4, 8, 1, 4, 8, 4, 4, 4, 8, 1: chip_smoke's
+    # HEAD_DIM_CASES) over bf16, int8 and fp8-e4m3 caches, through the
+    # wrappers both trees have; each line names the path the tree's launch
+    # took where the tree counts paths.
     "decode_dims": """
 import json, math
 from mfa_tpu_torch.kernels import decode as k5, paged_decode as k6
@@ -449,7 +475,7 @@ def path_of(fn, run):
         return None
     return [k for k in by if by[k] != before.get(k, 0)]
 for d, g in ((64, 4), (80, 4), (96, 8), (100, 1), (128, 4), (192, 8),
-             (250, 4), (256, 4)):
+             (250, 4), (256, 4), (300, 4), (384, 8), (512, 1)):
     for fmt, prec in precs.items():
         b, hkv, L = 4, 8, 2048
         bh = b * hkv
@@ -795,6 +821,8 @@ def main(argv=None) -> int:
     ap.add_argument("mode", choices=("sweep", "kernels", "turns",
                                      "rounding", "sass"))
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--wide", action="store_true",
+                    help="sweep: K2, K5 and K6 past D 256")
     ap.add_argument("--a", default="build/parent",
                     help="turns: the first tree (e.g. the parent commit)")
     ap.add_argument("--b", default=".", help="turns: the second tree")
@@ -804,7 +832,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("decode_tuning needs a CUDA device")
     if args.mode == "sweep":
-        sweep(Path(args.out))
+        sweep(Path(args.out), args.wide)
     elif args.mode == "kernels":
         kernels()
     elif args.mode == "rounding":

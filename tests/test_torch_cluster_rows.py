@@ -175,9 +175,10 @@ def test_k1_phase_expects_the_launch_rows():
     """chip_smoke.py's k1 phase past Llama-3-8B's shape: OpenLLaMA-3B's
     attention (D 100, MHA) at its prefill buckets and each of
     HEAD_DIM_CASES take the rows k1_row expects (D 100 and 250 on the
-    wgmma kernel's cp.async producer, D 80, 96 by TMA, D 384 on the
-    cluster), and so do Llama-3-8B's operands with q 8, 4 or 2 bytes off
-    16 (the copying producer, then mma.sync)."""
+    wgmma kernel's cp.async producer, D 80, 96 by TMA, D 384 and 512 on
+    the cluster, D 300, whose 600-byte rows TMA cannot map past D 256, on
+    the D-blocked mma.sync row), and so do Llama-3-8B's operands with q
+    8, 4 or 2 bytes off 16 (the copying producer, then mma.sync)."""
     import torch
 
     smoke = _chip_smoke()
@@ -200,7 +201,7 @@ def test_k1_phase_expects_the_launch_rows():
         assert label == smoke.k1_row(d, shift), (d, shift)
         labels.add(label)
     assert labels == {"wgmma", "wgmma/copy", "wgmma_dblk/copy",
-                      "wgmma_dblk", "mma"}
+                      "wgmma_dblk", "mma", "mma_dblk"}
 
 
 def test_bwd_phase_expects_the_launch_rows():

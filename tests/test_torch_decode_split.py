@@ -142,13 +142,15 @@ def test_k5_and_k6_split_alike_and_count_one_launch(library, seqs, hkv,
 
 @pytest.mark.parametrize("d, group, threads", [
     (4, 8, 128), (8, 8, 128), (1, 16, 128), (8, 4, 256), (9, 8, 256),
-    (128, 8, 256), (136, 4, 128), (256, 8, 128), (384, 8, 256)])
+    (128, 8, 256), (136, 4, 128), (256, 8, 128), (384, 8, 128),
+    (300, 2, 128), (385, 8, 256)])
 def test_small_d_with_chunks_of_8_takes_128_threads(library, d, group,
                                                     threads):
     """K5, K6 and K2 at D <= 8 with query chunks of 8 hand the launch 128
     threads (their scores fit shared memory there; the C entry takes any
-    multiple of 32 up to 256), and so does the 256-wide tensor-core pair
-    (bf16 at 128 < D <= 256: two CTAs an SM); 256 elsewhere."""
+    multiple of 32 up to 256), and so do the 256-wide tensor-core pair
+    (bf16 at 128 < D <= 256: two CTAs an SM) and the 512-wide one (bf16
+    at 256 < D <= 512: one CTA an SM); 256 elsewhere (odd D 385 on FMA)."""
     seqs, hkv, cap = 2, 2, 256
     n = seqs * hkv
     q3 = _meta(n, group, d, dtype=torch.bfloat16)
@@ -167,6 +169,8 @@ def test_small_d_with_chunks_of_8_takes_128_threads(library, d, group,
     path = params.decode_path(d, torch.bfloat16, True)
     assert params.decode_threads(d, params.decode_group_chunk(group),
                                  path) == threads
+    if path.startswith("mma") and d > 128:
+        assert threads == 128
     assert [args[-3] for _, args in library.calls] == [threads] * 3
     smem = params.decode_smem_bytes(d, torch.bfloat16,
                                     params.decode_group_chunk(group),
@@ -206,6 +210,7 @@ def test_k2_workspace_holds_each_splits_p_scale_too():
     (4, 8, 4, 2048, 128, None), (4, 8, 4, 8192, 128, 512),
     (4, 2, 16, 2048, 128, 512), (3, 1, 12, 300, 64, None),
     (1, 4, 1, 128, 8, 1), (2, 1, 33, 1024, 256, None),
+    (2, 2, 8, 1024, 512, None),
 ])
 def test_k2_takes_the_split_and_counts_one_launch(library, monkeypatch,
                                                   seqs, hkv, group, cap, d,
@@ -236,9 +241,9 @@ def test_k2_takes_the_split_and_counts_one_launch(library, monkeypatch,
     # CTA and threads before the stream.
     assert args[10:18] == (n, hkv, group, cap, d, window or 0, 1,
                            k5.KV_FORMATS[torch.int8])
-    # The path's code: int8 on the tensor-core pair at D 64, 128 and 256,
-    # FMA in the exact layout at D 8 (every case's D is 8 * 2^k).
-    path = "mma/g16" if 64 <= d <= 256 else "fma/exact"
+    # The path's code: int8 on the tensor-core pair at D 64, 128, 256 and
+    # 512, FMA in the exact layout at D 8 (every case's D is 8 * 2^k).
+    path = "mma/g16" if 64 <= d <= 512 else "fma/exact"
     assert params.decode_path(d, torch.int8, True) == path
     chunk = params.decode_group_chunk(group)
     assert args[18:21] == (params.decode_split_rows(n, group, cap), chunk,
@@ -289,7 +294,7 @@ def test_k2_bit_guard_covers_every_recorded_case(monkeypatch):
 
 # The tensor-core pair's largest row, in values (decode_mma_width), and
 # the k16 step of its mma.sync.
-PAIR_WIDTH, MMA_K = 256, 16
+PAIR_WIDTH, MMA_K = 512, 16
 
 
 def _fp32_steps(a, b, axis_len):
@@ -301,7 +306,7 @@ def _fp32_steps(a, b, axis_len):
     return c
 
 
-@pytest.mark.parametrize("d", [100, 128, 192, 256])
+@pytest.mark.parametrize("d", [100, 128, 192, 256, 300, 384, 512])
 @pytest.mark.parametrize("length", [1, 777, 1024, 1025, 2047, 2048])
 @pytest.mark.parametrize("fill", ["pm127", "random"])
 def test_pair_keeps_k2_int8_requantization_exact(d, length, fill):
@@ -309,10 +314,10 @@ def test_pair_keeps_k2_int8_requantization_exact(d, length, fill):
     (csrc/decode_split.cuh, kRequant): q_s8 and P_s8 are integers up to
     127, exact as bf16 operands, as are the int8 K and V widened to bf16;
     S's dots sum 16 products a step over a row padded with zeros to 128
-    values (256 past D 128), P V 16 rows a step over splits of
-    DECODE_SPLIT_MAX_ROWS rows, the splits' partials added in split
-    order, all in fp32. Every one of those sums is an integer below 2^24
-    (256 * 127^2 a dot, 1024 * 127^2 a split), so exact, and O equals
+    values (256 past D 128, 512 past D 256), P V 16 rows a step over
+    splits of DECODE_SPLIT_MAX_ROWS rows, the splits' partials added in
+    split order, all in fp32. Every one of those sums is an integer below
+    2^24 (512 * 127^2 a dot, 1024 * 127^2 a split), so exact, and O equals
     decode_fused_append_plain's bit for bit; at +-127 (every q, K and V
     value at the clip, every live P at 127) the sums reach their
     largest."""
@@ -322,7 +327,8 @@ def test_pair_keeps_k2_int8_requantization_exact(d, length, fill):
     assert PAIR_WIDTH * 127 ** 2 < 2 ** 24
     assert rows * 127 ** 2 < 2 ** 24
     width = params.decode_mma_width(d, 4)
-    assert width == (128 if d <= 128 else PAIR_WIDTH) >= d
+    assert width == (128 if d <= 128 else 256 if d <= 256
+                     else PAIR_WIDTH) >= d
     g, cap = 4, 2048
     gen = torch.Generator().manual_seed(d * 7 + length)
     if fill == "pm127":

@@ -424,14 +424,15 @@ def test_paged_decode_pages_of_odd_bytes_match_plain(cuda, fmt, d, ps):
 
 # The path each decode launch takes (ops/params.py::decode_path, counted
 # by the wrapper's launches_by_path and checked by the C launch): the
-# tensor-core pair at 64 <= D <= 256 over every storage type (K2, K5 and
+# tensor-core pair at 64 <= D <= 512 over every storage type (K2, K5 and
 # K6 alike; int8 and fp8 widened to bf16) over rows padded to 128 (256
-# past D 128) in shared memory and copied at the granule their rows and
-# bases share (16 at D 80, 96, 112; 8 at D 100 in bf16 and at bases 8
-# bytes off; 4 at int8 and fp8 D 100, bf16 D 250 and at bases 4 bytes
-# off; D 64 and 128 off 16 bytes on the padded instances), and FMA where
-# it stays (odd D, D 250 over 1-byte storage, D > 256, D < 64): (kernel,
-# storage, D, G, base shift in bytes, path).
+# past D 128, 512 past D 256) in shared memory and copied at the granule
+# their rows and bases share (16 at D 80, 96, 112, 384, 512; 8 at D 100
+# and 300 in bf16 and at bases 8 bytes off; 4 at int8 and fp8 D 100 and
+# 300, bf16 D 250 and at bases 4 bytes off; D 64 and 128 off 16 bytes on
+# the padded instances), and FMA where it stays (odd D, D 250 and 302
+# over 1-byte storage, D < 64): (kernel, storage, D, G, base shift in
+# bytes, path).
 PATH_CASES = [
     ("k2", "bf16", 80, 4, 0, "mma/g16"), ("k2", "bf16", 96, 8, 0, "mma/g16"),
     ("k2", "bf16", 100, 1, 0, "mma/g8"), ("k2", "bf16", 112, 4, 0, "mma/g16"),
@@ -455,22 +456,32 @@ PATH_CASES = [
     ("k6", "int8", 100, 1, 0, "mma/g4"), ("k6", "int8", 128, 4, 0, "mma/g16"),
     ("k6", "int8", 128, 4, 4, "mma/g4"), ("k6", "fp8_e4m3", 128, 4, 0,
                                           "mma/g16"),
-    # Past D 128 on the 256-wide pair (granule read at run time), D 250
-    # over 1-byte storage and D 384 on FMA.
+    # Past D 128 on the 256-wide pair and past D 256 on the 512-wide one
+    # (granule read at run time), D 250 and 302 over 1-byte storage and
+    # odd D 385 on FMA (two chunks a lane over 2- and 1-byte rows).
     ("k2", "int8", 192, 8, 0, "mma/g16"), ("k2", "int8", 256, 4, 0, "mma/g16"),
     ("k2", "bf16", 250, 4, 0, "mma/g4"), ("k2", "bf16", 192, 8, 4, "mma/g4"),
     ("k2", "fp8_e4m3", 256, 4, 8, "mma/g8"), ("k2", "int8", 250, 4, 0, "fma"),
-    ("k2", "bf16", 384, 8, 0, "fma"),
+    ("k2", "bf16", 384, 8, 0, "mma/g16"),
+    ("k2", "int8", 512, 1, 0, "mma/g16"), ("k2", "int8", 300, 4, 0, "mma/g4"),
+    ("k2", "bf16", 300, 4, 4, "mma/g4"), ("k2", "int8", 302, 4, 0, "fma"),
+    ("k2", "int8", 385, 8, 0, "fma"), ("k2", "fp8_e5m2", 385, 8, 0, "fma"),
     ("k5", "bf16", 192, 8, 0, "mma/g16"), ("k5", "bf16", 250, 4, 0, "mma/g4"),
     ("k5", "bf16", 256, 4, 8, "mma/g8"), ("k5", "int8", 256, 4, 4, "mma/g4"),
     ("k5", "fp8_e5m2", 192, 8, 0, "mma/g16"), ("k5", "bf16", 130, 4, 0,
                                                "mma/g4"),
     ("k5", "bf16", 136, 2, 0, "mma/g16"), ("k5", "fp8_e4m3", 250, 4, 0, "fma"),
-    ("k5", "bf16", 512, 1, 0, "fma"),
+    ("k5", "bf16", 512, 1, 0, "mma/g16"),
+    ("k5", "fp8_e4m3", 384, 8, 8, "mma/g8"), ("k5", "bf16", 300, 4, 0,
+                                              "mma/g8"),
+    ("k5", "bf16", 385, 8, 0, "fma"), ("k5", "fp8_e4m3", 385, 8, 0, "fma"),
     ("k6", "bf16", 192, 8, 0, "mma/g16"), ("k6", "bf16", 250, 4, 0, "mma/g4"),
     ("k6", "int8", 256, 4, 0, "mma/g16"), ("k6", "fp8_e4m3", 192, 8, 4,
                                            "mma/g4"),
-    ("k6", "int8", 250, 4, 0, "fma"), ("k6", "bf16", 384, 8, 0, "fma"),
+    ("k6", "int8", 250, 4, 0, "fma"), ("k6", "bf16", 384, 8, 0, "mma/g16"),
+    ("k6", "int8", 384, 8, 0, "mma/g16"), ("k6", "fp8_e5m2", 300, 4, 0,
+                                           "mma/g4"),
+    ("k6", "bf16", 512, 1, 4, "mma/g4"), ("k6", "int8", 385, 8, 0, "fma"),
     # D <= 8 with query chunks of 8: 128 threads a CTA.
     ("k2", "bf16", 4, 8, 0, "fma"), ("k2", "int8", 8, 8, 0, "fma/exact"),
     ("k5", "bf16", 8, 8, 0, "fma/exact"), ("k5", "int8", 4, 8, 0, "fma"),

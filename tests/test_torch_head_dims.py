@@ -2,9 +2,10 @@
 ``decode_fused_append``, K5 ``decode_attend``, K6 ``paged_decode``): the
 port's three decode entry points (their plain versions on the CPU)
 against mfa_tpu's (Pallas kernels in interpret mode) at D 80, 96, 100,
-192, 250, 256 and 384 over bf16, INT8 and FP8-e4m3 caches, and at D 4
-and 8 with query chunks of 8 (G 8), with the port's
-unpadded cache rows bit-equal to mfa_tpu's padded rows' first D values;
+192, 250, 256 and 384 over bf16, INT8 and FP8-e4m3 caches, at D 300 and
+512 over bf16 and INT8, and at D 4 and 8 with query chunks of 8 (G 8),
+with the port's unpadded cache rows bit-equal to mfa_tpu's padded rows'
+first D values;
 both schedulers token for token against mfa_tpu's at an MHA model of
 head dim 100 (OpenLLaMA-3B's) and GQA models of 80 and 384; OpenLLaMA-3B's
 published config read alike by both packages; and the host reckoning of
@@ -229,6 +230,28 @@ def test_small_d_with_chunks_of_8_matches_mfa_tpu(kind, d, name):
      "paged": _paged_matches}[kind](d, name, None, hq)
 
 
+# Past D 256, where the 512-wide tensor-core pair runs on the card: D 512
+# (granule 16) and a tail of D 300 (rows of 600 bytes in bf16, granule 8;
+# of 300 in int8, granule 4), over bf16 and int8, no window.
+PAST_D256_CASES = [(kind, d, name) for kind in ("decode", "append", "paged")
+                   for d in (300, 512) for name in ("bf16", "int8")]
+_PAST_IDS = [f"{kind}-D{d}-{name}" for kind, d, name in PAST_D256_CASES]
+
+
+@pytest.mark.parametrize("kind, d, name", PAST_D256_CASES, ids=_PAST_IDS)
+def test_past_d256_matches_mfa_tpu(kind, d, name):
+    """K5's, K2's and K6's entry points at D 300 and 512 against
+    mfa_tpu's (which pads these rows to 384 and 512 values; the port
+    keeps D), with the path each launch would take on the card."""
+    storage = FORMATS[name][1].dtype
+    want = {(300, "bf16"): "mma/g8", (300, "int8"): "mma/g4"}.get(
+        (d, name), "mma/g16")
+    assert params.decode_path(d, storage, True) == want
+    assert params.decode_mma_width(d) == 512
+    {"decode": _decode_matches, "append": _append_matches,
+     "paged": _paged_matches}[kind](d, name, None, HQ)
+
+
 # ---------------------------------------------------------------------------
 # Schedulers at head dims 100 (MHA, OpenLLaMA-3B's), 80 and 384 (GQA)
 # ---------------------------------------------------------------------------
@@ -447,19 +470,21 @@ def _smem_by_hand(d, storage, gc, fused, q_bf16, table_ints):
     sums, flag, page ids and K2's s_new / P scale. The tensor-core pair's
     rows are 128 values wide in shared memory at every D it takes up to
     128 but 64 (16-byte aligned bases: D 64's rows are whole granules),
-    and 256 past 128, where a thread holds two chunks of its row, so its
-    row groups are those of that width, and the partial O holds D
-    columns; over 1-byte storage both passes also hold the bf16 tile they
-    widen the rows into. A CTA has 256 threads, 128 at D <= 8 with query
-    chunks of 8 and on the 256-wide pair."""
+    256 past 128, where a thread holds two chunks of its row, and 512
+    past 256, where it holds four, so its row groups are those of that
+    width, and the partial O holds D columns; over 1-byte storage both
+    passes also hold the bf16 tile they widen the rows into. A CTA has
+    256 threads, 128 at D <= 8 with query chunks of 8 and on the 256- and
+    512-wide pair."""
     itemsize = torch.empty((), dtype=storage).element_size()
     pair = params.decode_tensor_cores(d, storage, q_bf16)
+    width = (64 if d == 64 else 128 if d <= 128 else 256 if d <= 256
+             else 512)
     t = 128 if (d <= 8 and gc == 8) or (pair and d > 128) else 256
     assert t == params.decode_threads(d, gc, "mma" if pair else "fma")
     nw = t // 32
     if pair:
-        width = 64 if d == 64 else 128 if d <= 128 else 256
-        slots = t * (2 if width == 256 else 1)
+        slots = t * max(1, width // 128)
         rg, chunk, unroll = slots // (width // 8), slots * 8 * itemsize, 8
         wide = 8 * slots * 16 if itemsize == 1 else 0
     else:
@@ -477,10 +502,13 @@ def _smem_by_hand(d, storage, gc, fused, q_bf16, table_ints):
 @pytest.mark.parametrize("storage", list(STORAGE))
 def test_smem_reckons_the_launch_code_and_fits_to_d512(storage):
     """decode_smem_bytes equals the launch code's sum, and every D up to
-    512 at both query chunks fits the H100's 232,448 bytes (the partial O
-    at D 512: 8 warps x 8 rows x 512 fp32, 131,072 bytes; the pair's
-    256-wide bf16 ring: 3 x 8 x (256 chunks of 16 bytes + 8 row groups'
-    scores and scales) at 128 threads, ~103 KB, two CTAs an SM). D <= 8
+    512 at both query chunks fits the H100's 232,448 bytes (the FMA
+    pair's partial O at D 512: 8 warps x 8 rows x 512 fp32, 131,072
+    bytes; the pair's 256-wide bf16 ring: 3 x 8 x (256 chunks of 16
+    bytes + 8 row groups' scores and scales) at 128 threads, ~103 KB,
+    two CTAs an SM; its 512-wide one 3 x 8 x (512 chunks + 8 row groups)
+    at 128 threads, ~199 KB, over 1-byte storage ~103 KB of chunks and a
+    64 KB widened tile). D <= 8
     gives one lane a row: with 256 threads its
     256 row groups' scores at 8 query rows would overflow it, so those
     CTAs have 128 threads (decode_threads)."""
@@ -506,6 +534,17 @@ def test_smem_reckons_the_launch_code_and_fits_to_d512(storage):
     assert params.decode_smem_bytes(128, torch.int8, 4)[0] == (
         3 * 8 * (256 * 8 + 16 * 4) + 8 * 256 * 16 + 4 * 8 * 4)
     assert params.decode_attend_union_bytes(512, 2, 8) == 8 * 8 * 512 * 4
+    # The 512-wide pair at 128 threads: four chunks a thread, 8 row
+    # groups; fp32 q keeps the FMA pair's layout.
+    t = 128
+    assert params.decode_smem_bytes(512, torch.bfloat16, 8)[1] == (
+        3 * 8 * (4 * t * 16 + t // 16 * 8 * 4 + t // 16 * 4)
+        + 4 * (8 + t // 32 * 8) + 4)
+    assert params.decode_smem_bytes(384, torch.int8, 4)[0] == (
+        3 * 8 * (4 * t * 8 + t // 16 * 4) + 8 * 4 * t * 16 + 4 * t // 32 * 4)
+    assert params.decode_smem_bytes(512, torch.bfloat16, 8,
+                                    q_bf16=False)[1] == (
+        8 * 8 * 512 * 4 + 4 * (8 + 8 * 8) + 4)
 
 
 FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
@@ -573,16 +612,62 @@ def test_tensor_cores_take_bf16_past_d128(d):
             assert params.decode_path(d, storage, True) == "fma"
 
 
+@pytest.mark.parametrize("d", [258, 264, 300, 320, 384, 500, 512])
+def test_tensor_cores_take_bf16_past_d256(d):
+    """Past D 256 up to 512 the pair runs bf16 q over every storage type
+    whose rows and bases share a granule of 4 bytes or more, on rows
+    padded to 512 values, for K2, K5 and K6 alike; at bases 4, 8 and 12
+    bytes off 16 at the granule they leave, and at 2 bytes off (or rows
+    only 2-byte aligned: D 258 over 1-byte storage) on FMA. fp32 q stays
+    on FMA. D 300 takes 8 bytes in bf16 and 4 over 1-byte storage, D 264
+    and 500 likewise, D 258 4 in bf16."""
+    for storage in ALL_STORAGE:
+        itemsize = torch.empty((), dtype=storage).element_size()
+        for shift in (0, 2, 4, 8, 12):
+            if shift % itemsize:
+                continue
+            granule = params.decode_granule(d, itemsize, shift)
+            on = params.decode_tensor_cores(d, storage, True, granule)
+            assert on == (granule >= 4), (d, storage, shift)
+            assert not params.decode_tensor_cores(d, storage, False, granule)
+            path = params.decode_path(d, storage, True, granule)
+            if on:
+                assert path == f"mma/g{granule}"
+                assert params.decode_mma_width(d, granule) == 512
+                assert params.decode_threads(d, 8, path) == 128
+            else:
+                assert path.startswith("fma")
+            assert params.decode_path(d, storage, False, granule).startswith(
+                "fma")
+            if shift == 2:
+                assert not on
+        rb = d * itemsize
+        want = 16 if rb % 16 == 0 else 8 if rb % 8 == 0 else (
+            4 if rb % 4 == 0 else 0)
+        assert params.decode_granule(d, itemsize) == want
+        assert params.decode_tensor_cores(d, storage, True) == (want >= 4)
+    if d == 300:
+        assert params.decode_path(d, torch.bfloat16, True) == "mma/g8"
+        for storage in (torch.int8, *FP8):
+            assert params.decode_path(d, storage, True) == "mma/g4"
+    if d in (384, 512):
+        for storage in ALL_STORAGE:
+            assert params.decode_path(d, storage, True) == "mma/g16"
+    if d == 258:
+        assert params.decode_path(d, torch.bfloat16, True) == "mma/g4"
+        assert params.decode_path(d, torch.int8, True) == "fma"
+
+
 @pytest.mark.parametrize("d, storage", [
     (99, torch.bfloat16), (101, torch.bfloat16), (48, torch.bfloat16),
-    (258, torch.bfloat16), (62, torch.bfloat16), (264, torch.bfloat16),
+    (257, torch.bfloat16), (62, torch.bfloat16), (385, torch.bfloat16),
     (98, torch.float8_e4m3fn), (99, torch.float8_e5m2), (99, torch.int8),
-    (63, torch.int8), (264, torch.int8), (102, torch.int8),
-    (250, torch.int8), (250, torch.float8_e4m3fn)])
+    (63, torch.int8), (511, torch.float8_e5m2), (102, torch.int8),
+    (250, torch.int8), (250, torch.float8_e4m3fn), (302, torch.int8)])
 def test_tensor_cores_stay_off_outside_the_rule(d, storage):
-    """Odd D (rows 2- or 1-byte aligned), D < 64, D > 256 and 1-byte rows
-    not a multiple of 4 bytes (D 250 over int8 and fp8) run FMA, for
-    every kernel, whatever the storage."""
+    """Odd D (rows 2- or 1-byte aligned: D 257, 385, 511 as well), D <
+    64 and 1-byte rows not a multiple of 4 bytes (D 250 and 302 over int8
+    and fp8) run FMA, for every kernel, whatever the storage."""
     assert not params.decode_tensor_cores(d, storage, True)
     assert params.decode_path(d, storage, True).startswith("fma")
 
@@ -626,7 +711,8 @@ def test_granule_of_rows_and_bases():
 def test_padded_rows_copy_each_live_byte_once_at_its_granule(itemsize):
     """The pair's copies of a padded row (decode_split.cuh::copy_live;
     past D 128 at the launch's granule (at_granule), a thread's chunks cc
-    and cc + 16): the thread of chunk cc copies bytes [0, lb) of it, lb =
+    + 16 k, k < 2, and past D 256 k < 4): the thread of chunk cc copies
+    bytes [0, lb) of it, lb =
     (D - 8 cc) E clamped to [0, 8 E], in copies of the granule GR (at
     most 8 for fp8's 8-byte chunks). For every D the pair takes, every
     row start at the
@@ -636,15 +722,20 @@ def test_padded_rows_copy_each_live_byte_once_at_its_granule(itemsize):
     CTA) are never written."""
     storage = torch.bfloat16 if itemsize == 2 else torch.float8_e4m3fn
     chunk = 8 * itemsize
-    for d in range(64, 257):
+    for d in range(64, 513):
         for shift in (0, 4, 8, 12):
             g = params.decode_granule(d, itemsize, shift)
             if not params.decode_tensor_cores(d, storage, True, g):
                 continue
             gr = min(g, chunk)
             width = params.decode_mma_width(d, g)
-            assert width in (64, 128, 256) and width >= d
-            assert (width == 256) == (d > 128)
+            assert width in (64, 128, 256, 512) and width >= d
+            assert (width == 256) == (128 < d <= 256)
+            assert (width == 512) == (d > 256)
+            # Past DD 128 16 threads take a row, each its chunks cc + 16
+            # k, k < decode_mma_chunks.
+            assert width <= 128 or (
+                width // 8 == 16 * params.decode_mma_chunks(width))
             for row in (0, 1, 7, 1000):
                 start = shift + row * d * itemsize
                 covered = []
@@ -660,13 +751,14 @@ def test_padded_rows_copy_each_live_byte_once_at_its_granule(itemsize):
 
 @pytest.mark.parametrize("d, shift", [(64, 8), (128, 4), (100, 0),
                                       (100, 4), (80, 0), (192, 8),
-                                      (256, 4), (250, 0)])
+                                      (256, 4), (250, 0), (300, 0),
+                                      (384, 4), (512, 8)])
 def test_smem_of_the_padded_pair_at_shifted_bases(d, shift):
     """Off 16 bytes, D 64 and 128 run the 128-wide padded instances: the
     shared memory is that of 16 row groups (the partial O of D columns
     stays under the ring). Past D 128 every base runs the 256-wide
-    instance, whose granule is read at run time: the same shared memory
-    at any shift."""
+    instance, past D 256 the 512-wide one, whose granule is read at run
+    time: the same shared memory at any shift."""
     g = params.decode_granule(d, 2, shift)
     for gc in (4, 8):
         for fused in (False, True):
@@ -676,7 +768,8 @@ def test_smem_of_the_padded_pair_at_shifted_bases(d, shift):
                 assert got == _smem_by_hand(100, torch.bfloat16, gc, fused,
                                             True, 0)
             if d > 128:
-                assert params.decode_mma_width(d, g) == 256
+                assert params.decode_mma_width(d, g) == (256 if d <= 256
+                                                         else 512)
                 assert got == _smem_by_hand(d, torch.bfloat16, gc, fused,
                                             True, 0)
             assert max(got) <= params.H100.smem_per_block
