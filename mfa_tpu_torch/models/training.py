@@ -24,6 +24,12 @@ the model's own (a ``Llama`` built from ``parallel/sharding.py`` knows
 it), so the forward's collectives and the clip cannot disagree. The
 clip's global norm sums the squares of the tp-sharded parameters over
 tp and counts each replicated parameter once.
+
+:func:`train_step` records a ``train_step`` span into
+``utils/tracing.py``'s ``metrics`` with the children ``forward`` (model
+and loss), ``backward``, ``clip`` (the global norm) and ``optimizer``
+(AdamW); the last two are also timed on the card while a profiler
+records.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch.distributed as dist
 
 from mfa_tpu_torch.models.llama import Llama
 from mfa_tpu_torch.parallel import collectives, sharding
+from mfa_tpu_torch.utils.tracing import metrics
 
 
 def cross_entropy_loss(logits, targets, ignore_index: int = -100):
@@ -129,17 +136,19 @@ def loss_and_grads(model: Llama, tokens, *, dp_group=None):
     tokens[:, 1:]); leaves the gradients in each parameter's ``.grad``.
     With ``dp_group`` the loss and the gradients are the mean over the
     data-parallel ranks' equal batches."""
-    for p in model.parameters():
-        p.grad = None
-    loss = cross_entropy_loss(model(tokens[:, :-1]), tokens[:, 1:])
-    loss.backward()
-    loss = loss.detach()
-    if dp_group is not None:
-        n = dist.get_world_size(dp_group)
+    with metrics.span("forward"):
         for p in model.parameters():
-            if p.grad is not None:
-                p.grad = collectives.all_reduce(p.grad, dp_group) / n
-        loss = collectives.all_reduce(loss, dp_group) / n
+            p.grad = None
+        loss = cross_entropy_loss(model(tokens[:, :-1]), tokens[:, 1:])
+    with metrics.span("backward"):
+        loss.backward()
+        loss = loss.detach()
+        if dp_group is not None:
+            n = dist.get_world_size(dp_group)
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad = collectives.all_reduce(p.grad, dp_group) / n
+            loss = collectives.all_reduce(loss, dp_group) / n
     return loss
 
 
@@ -179,12 +188,15 @@ def train_step(state: TrainState, tokens, *, dp_group=None) -> dict:
     norm of the raw gradients). ``dp_group``: this rank's tokens are its
     share of the batch (see :func:`loss_and_grads`); tp is the model's."""
     model = state.model
-    loss = loss_and_grads(model, tokens, dp_group=dp_group)
-    grads = [p.grad for p in state.params]
-    names = {id(p): n for n, p in model.named_parameters()}
-    sharded = [sharding.tp_dim(names[id(p)]) is not None
-               for p in state.params]
-    gnorm = _global_norm(grads, sharded, model.tp_group)
-    _apply_adamw(state, grads, gnorm)
-    state.step += 1
+    with metrics.span("train_step"):
+        loss = loss_and_grads(model, tokens, dp_group=dp_group)
+        with metrics.span("clip", device=True):
+            grads = [p.grad for p in state.params]
+            names = {id(p): n for n, p in model.named_parameters()}
+            sharded = [sharding.tp_dim(names[id(p)]) is not None
+                       for p in state.params]
+            gnorm = _global_norm(grads, sharded, model.tp_group)
+        with metrics.span("optimizer", device=True):
+            _apply_adamw(state, grads, gnorm)
+        state.step += 1
     return {"loss": loss, "grad_norm": gnorm}

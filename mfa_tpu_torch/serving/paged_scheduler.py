@@ -17,6 +17,15 @@ Division of labour:
   the model's contiguous path into a batch-1 bf16 cache of
   ``bucket + 1`` rows, which is quantized into pages as it is spliced.
 
+Each ``step()`` records a ``tick`` span into ``utils/tracing.py``'s
+``metrics`` (its counts: pages reserved, tokens held, page size) with
+the children ``retire``, ``admit`` (one ``prefill`` a request: forward,
+splice and the first token's sample, with its ``req``, true ``prompt``
+tokens and ``bucket`` tokens), ``prepare`` (the allocator and the
+page-table upload), ``decode`` (enqueueing the step), ``sync`` (the
+host waiting for the sampled tokens) and ``emit``; ``submit`` records
+an instant with the request's id.
+
 Every layer's ``PagedKVCache`` in ``mfa_tpu`` gets the same page ids: the
 layers start alike and see the same allocator calls in the same order.
 This port therefore keeps ONE allocator (``self.cache``, which also holds
@@ -43,6 +52,7 @@ from mfa_tpu_torch.serving.paged_kv_cache import (
 from mfa_tpu_torch.serving.sampling import sample
 from mfa_tpu_torch.serving.scheduler import Completion, Request, _bucket
 from mfa_tpu_torch.utils.device import resolve_device
+from mfa_tpu_torch.utils.tracing import metrics
 
 __all__ = ["PagedScheduler", "PAGE_SIZE"]
 
@@ -194,6 +204,7 @@ class PagedScheduler:
     # -- host-side orchestration -----------------------------------------
 
     def submit(self, request: Request):
+        metrics.event("submit", req=request.id)
         self.queue.append(request)
 
     def _admit(self):
@@ -209,13 +220,16 @@ class PagedScheduler:
                 break
             self.queue.pop(0)
             bucket = _bucket(t, self.prompt_buckets)
-            tokens = np.zeros((bucket,), np.int64)
-            tokens[:t] = req.prompt
-            last_logits, caches1 = self._prefill(
-                torch.from_numpy(tokens).to(self.device), t)
-            self._splice_prefill_all(slot, t, caches1)
-            tok = int(sample(last_logits[None, :], self.generator,
-                             temperature=self.temperature)[0])
+            # Ends when the host holds the first token.
+            with metrics.span("prefill", req=req.id, prompt=t,
+                              bucket=bucket):
+                tokens = np.zeros((bucket,), np.int64)
+                tokens[:t] = req.prompt
+                last_logits, caches1 = self._prefill(
+                    torch.from_numpy(tokens).to(self.device), t)
+                self._splice_prefill_all(slot, t, caches1)
+                tok = int(sample(last_logits[None, :], self.generator,
+                                 temperature=self.temperature)[0])
             self.slots[slot] = {"request": req, "generated": [tok],
                                 "prefill_len": t}
             self.last_tokens[slot] = tok
@@ -246,26 +260,39 @@ class PagedScheduler:
     @torch.inference_mode()
     def step(self) -> bool:
         """One scheduler tick: retire, admit, one batched decode step."""
-        self._retire()
-        self._admit()
-        if not any(s is not None for s in self.slots):
-            return False
-        self._ensure_decode_capacity()
-        logits = self._decode_step(*self._step_inputs())
-        # Only active slots really appended (inactive ones wrote into the
-        # null page); keep the host lengths in step with that.
-        active = np.asarray([s is not None for s in self.slots], np.int32)
-        self.cache.lengths += active
-        toks = sample(logits, self.generator,
-                      temperature=self.temperature).cpu().numpy()
-        for i, s in enumerate(self.slots):
-            if s is None:
-                continue
-            s["generated"].append(int(toks[i]))
-            self.last_tokens[i] = int(toks[i])
-            self.stats["tokens"] += 1
-        self.stats["decode_steps"] += 1
-        return True
+        cache = self.cache
+        with metrics.span("tick",
+                          pages=cache.pool.num_pages - 1 - cache.free_pages,
+                          tokens=int(cache.lengths.sum()),
+                          page_size=cache.page_size):
+            with metrics.span("retire"):
+                self._retire()
+            with metrics.span("admit"):
+                self._admit()
+            if not any(s is not None for s in self.slots):
+                return False
+            with metrics.span("prepare"):
+                self._ensure_decode_capacity()
+                inputs = self._step_inputs()
+            with metrics.span("decode"):
+                logits = self._decode_step(*inputs)
+                # Only active slots really appended (inactive ones wrote
+                # into the null page); keep the host lengths in step.
+                active = np.asarray([s is not None for s in self.slots],
+                                    np.int32)
+                cache.lengths += active
+            with metrics.span("sync"):
+                toks = sample(logits, self.generator,
+                              temperature=self.temperature).cpu().numpy()
+            with metrics.span("emit"):
+                for i, s in enumerate(self.slots):
+                    if s is None:
+                        continue
+                    s["generated"].append(int(toks[i]))
+                    self.last_tokens[i] = int(toks[i])
+                    self.stats["tokens"] += 1
+                self.stats["decode_steps"] += 1
+            return True
 
     @torch.inference_mode()
     def run(self, max_steps: int = 10_000):

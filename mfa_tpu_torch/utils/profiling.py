@@ -33,23 +33,17 @@ Run on a GPU from the repository root:
         [--phases serving,paged,training,int4]
         [--model llama3_8b|openllama_3b]
 
-Beside the breakdown, the ports of ``mfa_tpu/utils/profiling.py``'s
-tools: :func:`trace`, a ``torch.profiler`` context that writes a Chrome
-trace (``jax.profiler.trace`` there), and :class:`Metrics`, thread-safe
-counters, gauges and latencies with ``mfa_tpu``'s ``snapshot()`` keys.
-``mfa_tpu``'s module-level ``metrics`` instance is not kept: a caller
-creates its own.
+``mfa_tpu/utils/profiling.py``'s tools, :func:`trace` (a Chrome trace),
+:class:`Metrics` and its module-level ``metrics``, live in
+``utils/tracing.py`` and are imported back here.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
-import threading
 import time
-from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -61,9 +55,13 @@ from mfa_tpu_torch.models.llama import Llama, LlamaConfig
 from mfa_tpu_torch.ops.precision import OperandPrecision
 from mfa_tpu_torch.serving.paged_scheduler import PagedScheduler
 from mfa_tpu_torch.serving.scheduler import Request
-from mfa_tpu_torch.utils.device import resolve_device
+from mfa_tpu_torch.utils.tracing import (  # noqa: F401
+    TRACE_DIR,
+    Metrics,
+    metrics,
+    trace,
+)
 
-TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "trace"
 # The served configurations: Llama-3-8B, and OpenLLaMA-3B as its
 # published config.json reads (openlm-research/open_llama_3b).
 MODELS = {
@@ -72,79 +70,6 @@ MODELS = {
                                 n_heads=32, n_kv_heads=32, ffn_hidden=8640,
                                 rope_theta=10000.0, norm_eps=1e-6),
 }
-
-
-@contextlib.contextmanager
-def trace(log_dir=TRACE_DIR, *, device="cuda"):
-    """Profile a region with ``torch.profiler`` (host activity, and the
-    card's kernels for ``device`` cuda) and write its Chrome trace into
-    ``log_dir`` (open it in chrome://tracing or Perfetto). Yields the
-    directory."""
-    dev = resolve_device(device)
-    log_dir = Path(log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield log_dir
-    prof.export_chrome_trace(str(log_dir / f"trace_{time.time_ns()}.json"))
-
-
-class Metrics:
-    """Thread-safe counters + gauges + latency lists (coarse)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.counters: dict = defaultdict(int)
-        self.gauges: dict = {}
-        self.latencies: dict = defaultdict(list)
-
-    def inc(self, name: str, value: int = 1):
-        with self._lock:
-            self.counters[name] += value
-
-    def set(self, name: str, value):
-        with self._lock:
-            self.gauges[name] = value
-
-    def timed(self, name: str) -> "_Timed":
-        """A context that records the host time of its block under
-        ``name``, also when the block raises (end card work inside it with
-        ``torch.cuda.synchronize()`` to include that work)."""
-        return _Timed(self, name)
-
-    def _record(self, name: str, seconds: float):
-        with self._lock:
-            self.latencies[name].append(seconds)
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            lat = {
-                k: {
-                    "count": len(v),
-                    "mean_ms": 1e3 * sum(v) / len(v),
-                    "max_ms": 1e3 * max(v),
-                }
-                for k, v in self.latencies.items() if v
-            }
-            return {
-                "counters": dict(self.counters),
-                "gauges": dict(self.gauges),
-                "latencies": lat,
-            }
-
-
-class _Timed:
-    def __init__(self, metrics: Metrics, name: str):
-        self.metrics, self.name = metrics, name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        self.metrics._record(self.name, time.perf_counter() - self.t0)
-        return False
 
 
 # The depth training runs each model at: Llama-3-8B's widths at 16 of
